@@ -1,0 +1,11 @@
+"""PyTorch / CUDA port of ``torch_robotics_tpu``.
+
+The JAX package stays the reference; this package re-implements its main
+path (Panda GPMP2-MPC in EnvSpheres3D) on PyTorch tensors, with the two TPU
+kernels of that path rewritten as hand-written CUDA kernels for Hopper
+(``csrc/``).  Every constructor and entry point takes an explicit
+``device`` that defaults to ``"cuda"``: without a GPU a default
+construction raises, and the CPU runs only when the caller asks for it.
+
+Importing the package starts no build and touches no device.
+"""

@@ -1,0 +1,185 @@
+// Batched block-tridiagonal SPD solve, batch in the minor (lane) axis.
+//
+// Replaces the TPU kernel torch_robotics_tpu/ops/pallas_btridiag.py
+// (solve_lanes_pallas_w: the _kernel_factor sweep with the
+// _bwd_subst_loop backward pass).  Its plain PyTorch version is
+// solve_lanes_core in torch_robotics_tpu_torch/solve/btridiag_lanes.py.
+//
+// D (H, M, M, B), U (H, M, M) shared over the batch (the last block unused),
+// b (H, M, B) -> x (H, M, B):
+//   forward over k:  A = D_k - S;  L = chol(A);  y_k = L^-1 (b_k - Wy);
+//                    W_k = L^-1 U_k;  S = W_k^T W_k;  Wy = W_k^T y_k
+//   backward:        x_{H-1} = L^-T y_{H-1};  x_k = L^-T (y_k - W_k x_{k+1})
+//
+// Design: one thread per batch lane, the H-step sweep a loop inside the
+// thread.  The L, W and y stacks go to device memory in the batch-minor
+// layout (H, M, M, B) that the wrapper allocates, so a warp's reads and
+// writes of one block entry are 32 consecutive floats.  The running S / A
+// block and the current W block are per-thread arrays (2 M^2 floats, more
+// than the 255-register limit at M = 14, so part lives in local memory).
+// A ragged batch masks the last warp; nothing is padded.  Indefinite
+// pivots give NaN, as in the reference.
+//
+// What bounds it on the H100: neither bytes nor operations at B = 1024 but
+// parallelism.  One thread per lane is 32 warps on 132 SMs, and each step's
+// Cholesky is a dependent chain of ~M^3/6 multiply-adds plus M square
+// roots; the known limit is recorded in PERF.md for a later PR.
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 64;
+
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+btridiag_w_kernel(const float* __restrict__ D, const float* __restrict__ U,
+                  const float* __restrict__ b, float* __restrict__ x,
+                  float* __restrict__ Ls, float* __restrict__ Ws,
+                  float* __restrict__ ys, int H, int B) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  const size_t sB = B;
+  auto mat = [&](int k, int i, int j) {
+    return ((static_cast<size_t>(k) * M + i) * M + j) * sB + lane;
+  };
+  auto vec = [&](int k, int i) {
+    return (static_cast<size_t>(k) * M + i) * sB + lane;
+  };
+
+  float A[M][M];  // holds S between steps, A = D_k - S then L within one
+  float W[M][M];
+  float y[M], Wy[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    Wy[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < M; ++j) A[i][j] = 0.f;
+  }
+
+  for (int k = 0; k < H; ++k) {
+    // A = D_k - S (lower triangle), Cholesky in place, row-sequential
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int j = 0; j <= i; ++j) A[i][j] = D[mat(k, i, j)] - A[i][j];
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j) {
+        float s = A[i][j];
+#pragma unroll
+        for (int t = 0; t < j; ++t) s -= A[i][t] * A[j][t];
+        A[i][j] = (i == j) ? sqrtf(s) : s / A[j][j];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int j = 0; j <= i; ++j) Ls[mat(k, i, j)] = A[i][j];
+
+    // y_k = L^-1 (b_k - Wy)
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      float s = b[vec(k, i)] - Wy[i];
+#pragma unroll
+      for (int t = 0; t < i; ++t) s -= A[i][t] * y[t];
+      y[i] = s / A[i][i];
+      ys[vec(k, i)] = y[i];
+    }
+
+    // W_k = L^-1 U_k (U shared over the batch: a broadcast load)
+    const float* Uk = U + static_cast<size_t>(k) * M * M;
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        float s = __ldg(Uk + i * M + j);
+#pragma unroll
+        for (int t = 0; t < i; ++t) s -= A[i][t] * W[t][j];
+        W[i][j] = s / A[i][i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int j = 0; j < M; ++j) Ws[mat(k, i, j)] = W[i][j];
+
+    // S = W^T W (lower triangle, into A), Wy = W^T y
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j) {
+        float s = W[0][i] * W[0][j];
+#pragma unroll
+        for (int t = 1; t < M; ++t) s += W[t][i] * W[t][j];
+        A[i][j] = s;
+      }
+      float s = W[0][i] * y[0];
+#pragma unroll
+      for (int t = 1; t < M; ++t) s += W[t][i] * y[t];
+      Wy[i] = s;
+    }
+  }
+
+  // backward substitution from the persisted L, W, y stacks
+  float xn[M];
+  for (int k = H - 1; k >= 0; --k) {
+    float rhs[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      float s = ys[vec(k, i)];
+      if (k < H - 1) {
+#pragma unroll
+        for (int j = 0; j < M; ++j) s -= Ws[mat(k, i, j)] * xn[j];
+      }
+      rhs[i] = s;
+    }
+    float xk[M];
+#pragma unroll
+    for (int i = M - 1; i >= 0; --i) {
+      float s = rhs[i];
+#pragma unroll
+      for (int t = i + 1; t < M; ++t) s -= Ls[mat(k, t, i)] * xk[t];
+      xk[i] = s / Ls[mat(k, i, i)];
+    }
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      x[vec(k, i)] = xk[i];
+      xn[i] = xk[i];
+    }
+  }
+}
+
+template <int M>
+cudaError_t launch(const float* D, const float* U, const float* b, float* x,
+                   float* Ls, float* Ws, float* ys, int H, int B,
+                   cudaStream_t stream) {
+  const int blocks = (B + kThreads - 1) / kThreads;
+  btridiag_w_kernel<M><<<blocks, kThreads, 0, stream>>>(D, U, b, x, Ls, Ws,
+                                                        ys, H, B);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// D (H, M, M, B), U (H, M, M), b (H, M, B) -> x (H, M, B), with L, W
+// (H, M, M, B) and y (H, M, B) as device scratch; returns a CUDA error code
+// (cudaErrorInvalidValue for M outside {2, 4, ..., 16}).
+extern "C" int trt_btridiag_w_launch(const float* D, const float* U,
+                                     const float* b, float* x, float* Ls,
+                                     float* Ws, float* ys, int H, int M,
+                                     int B, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (M) {
+    case 2: return launch<2>(D, U, b, x, Ls, Ws, ys, H, B, s);
+    case 4: return launch<4>(D, U, b, x, Ls, Ws, ys, H, B, s);
+    case 6: return launch<6>(D, U, b, x, Ls, Ws, ys, H, B, s);
+    case 8: return launch<8>(D, U, b, x, Ls, Ws, ys, H, B, s);
+    case 10: return launch<10>(D, U, b, x, Ls, Ws, ys, H, B, s);
+    case 12: return launch<12>(D, U, b, x, Ls, Ws, ys, H, B, s);
+    case 14: return launch<14>(D, U, b, x, Ls, Ws, ys, H, B, s);
+    case 16: return launch<16>(D, U, b, x, Ls, Ws, ys, H, B, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -1,0 +1,395 @@
+"""Lane-layout FK and Gauss-Newton obstacle terms in plain PyTorch
+(counterpart of torch_robotics_tpu/ops/lanes_fk.py).
+
+Every per-waypoint quantity keeps the batch in the last (lane) axis: link
+rotations are (3, 3, N), translations and points (3, N), point Jacobians
+(P, d, 3, N).  ``obstacle_terms_lanes_factory`` is the plain version of the
+fused CUDA terms kernel (``ops/terms_kernel.py``): the same residual rows,
+the same analytic gradients, the same assembly, written as tensor ops.  It
+runs on CPU tensors (the tests, the CPU path of the port) and is what the
+kernel is held against on the card.
+
+The SDF gradient is analytic: for the primitive that attains the minimum,
+the derivative of its closed-form distance, rotated back to the world
+frame.  That is the gradient of the min the reference differentiates with
+``jax.vjp``; the two differ only at exact ties between primitives, a
+measure-zero set.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..kin.model import (JOINT_CONTINUOUS, JOINT_PRISMATIC, JOINT_REVOLUTE,
+                         KinematicModel)
+
+__all__ = ["fk_lanes", "fk_positions_lanes", "point_jacobians_lanes",
+           "group_sdf_and_grad_lanes", "sdf_and_grad_lanes",
+           "obstacle_terms_lanes_factory", "embed_terms"]
+
+
+def _matmul3(A, B):
+    """(3, 3[, N]) x (3, 3, N) -> (3, 3, N) as an elementwise
+    multiply-reduce (full float32 on every device, no library GEMM)."""
+    if A.dim() == 2:
+        A = A[:, :, None]
+    return torch.sum(A[:, :, None, :] * B[None, :, :, :], dim=1)
+
+
+def _matvec3(A, v):
+    """(3, 3, N) x (3[, N]) -> (3, N)."""
+    if v.dim() == 1:
+        v = v[:, None]
+    return torch.sum(A * v[None, :, :], dim=1)
+
+
+def fk_lanes(model: KinematicModel, q_cols: torch.Tensor):
+    """FK with the batch in lanes: q_cols (d, N) -> (R_w, t_w), lists over
+    links of (3, 3, N) world rotations and (3, N) world translations.
+
+    Revolute and prismatic q are clamped to their limits first; continuous
+    joints are not."""
+    N = q_cols.shape[-1]
+    q_map = model.q_map
+    consts = model.tensors
+    dev, dtype = q_cols.device, q_cols.dtype
+    F_all = consts["joint_fixed_rot"].to(dev, dtype)
+    trans_all = consts["joint_trans"].to(dev, dtype)
+
+    R_w: List[torch.Tensor] = [None] * model.n_links
+    t_w: List[torch.Tensor] = [None] * model.n_links
+    for i in model.topological_order():
+        jtype = model.joint_types[i]
+        F = F_all[i]
+        trans = trans_all[i][:, None].expand(3, N)
+        if jtype in (JOINT_REVOLUTE, JOINT_CONTINUOUS):
+            qi = q_cols[int(q_map[i])]
+            if jtype == JOINT_REVOLUTE:
+                qi = torch.clamp(qi, float(model.clamp_lower[i]),
+                                 float(model.clamp_upper[i]))
+            c, s = torch.cos(qi), torch.sin(qi)
+            ax, ay, az = (float(v) for v in model.joint_axis[i])
+            one_c = 1.0 - c
+            # Rodrigues: R = I + s K + (1 - c) K^2 with K = skew(axis)
+            R_j = torch.stack([
+                1.0 + one_c * (ax * ax - 1.0),
+                -s * az + one_c * (ax * ay),
+                s * ay + one_c * (ax * az),
+                s * az + one_c * (ax * ay),
+                1.0 + one_c * (ay * ay - 1.0),
+                -s * ax + one_c * (ay * az),
+                -s * ay + one_c * (ax * az),
+                s * ax + one_c * (ay * az),
+                1.0 + one_c * (az * az - 1.0),
+            ]).reshape(3, 3, N)
+            R_loc = _matmul3(F, R_j)
+        elif jtype == JOINT_PRISMATIC:
+            qi = torch.clamp(q_cols[int(q_map[i])], float(model.clamp_lower[i]),
+                             float(model.clamp_upper[i]))
+            R_loc = F[:, :, None].expand(3, 3, N)
+            axis = consts["joint_axis"].to(dev, dtype)[i]
+            trans = trans + axis[:, None] * qi[None, :]
+        else:
+            R_loc = F[:, :, None].expand(3, 3, N)
+
+        p = model.parent_idx[i]
+        if p < 0:
+            R_w[i] = R_loc
+            t_w[i] = trans
+        else:
+            R_w[i] = _matmul3(R_w[p], R_loc)
+            t_w[i] = _matvec3(R_w[p], trans) + t_w[p]
+    return R_w, t_w
+
+
+def fk_positions_lanes(model: KinematicModel, q: torch.Tensor,
+                       link_idxs=None):
+    """World link positions through the lanes FK chain:
+    q (..., n_dofs) -> (..., L, 3)."""
+    batch = q.shape[:-1]
+    d = q.shape[-1]
+    q_cols = q.reshape(-1, d).T
+    _, t_w = fk_lanes(model, q_cols)
+    links = (range(model.n_links) if link_idxs is None
+             else [int(x) for x in np.asarray(link_idxs)])
+    flat = torch.stack([t_w[li] for li in links])          # (L, 3, N)
+    return flat.permute(2, 0, 1).reshape(batch + (len(flat), 3))
+
+
+def point_jacobians_lanes(model: KinematicModel, R_w, t_w,
+                          pts: torch.Tensor, point_link_idx: Sequence[int],
+                          q_cols=None):
+    """Analytic point Jacobians: pts (P, 3, N) owned by links
+    ``point_link_idx`` -> J (P, d, 3, N), zero where joint j does not move
+    the point's link.  With ``q_cols`` (d, N), columns of joints outside
+    [clamp_lower, clamp_upper] (bounds inclusive) are zeroed: the clamped
+    FK chain has zero derivative there."""
+    ctrl = list(model.controlled_link_idxs())
+    q_map = model.q_map
+    axes = model.tensors["joint_axis"].to(pts.device, pts.dtype)
+    z, origins = [], []
+    for li in ctrl:
+        zi = _matvec3(R_w[li], axes[li])                    # (3, N)
+        if q_cols is not None:
+            qj = q_cols[int(q_map[li])]
+            in_lim = ((qj >= float(model.clamp_lower[li]))
+                      & (qj <= float(model.clamp_upper[li]))).to(qj.dtype)
+            zi = zi * in_lim[None, :]
+        z.append(zi)
+        origins.append(t_w[li])
+    Z = torch.stack(z)[None]                                # (1, d, 3, N)
+    dx = pts[:, None] - torch.stack(origins)[None]          # (P, d, 3, N)
+    zx, zy, zz = Z[:, :, 0], Z[:, :, 1], Z[:, :, 2]
+    J = torch.stack([zy * dx[:, :, 2] - zz * dx[:, :, 1],
+                     zz * dx[:, :, 0] - zx * dx[:, :, 2],
+                     zx * dx[:, :, 1] - zy * dx[:, :, 0]], dim=2)
+    prism = [model.joint_types[li] == JOINT_PRISMATIC for li in ctrl]
+    if any(prism):
+        mask = torch.tensor(prism, device=pts.device)[None, :, None, None]
+        J = torch.where(mask, Z.expand_as(J), J)
+    anc = model.ancestry_matrix()[list(point_link_idx)]     # (P, d)
+    anc_t = torch.as_tensor(anc, device=pts.device)[:, :, None, None]
+    return torch.where(anc_t, J, torch.zeros((), dtype=J.dtype,
+                                              device=J.device))
+
+
+def _take(t, idx):
+    """t (n, C, M) gathered at idx (M,) over the first axis -> (C, M)."""
+    return torch.gather(t, 0, idx[None, None, :].expand(1, t.shape[1],
+                                                        t.shape[2]))[0]
+
+
+def group_sdf_and_grad_lanes(group, x: torch.Tensor):
+    """(SDF, gradient) of one primitive group at points x (3, M) in the
+    group's frame -> (val (M,), grad (3, M)).
+
+    The value is the min over primitives; the gradient is that of the
+    minimizing primitive (first index on ties), in closed form:
+    spheres (x - c)/||x - c||; sharp boxes sign(x - c) on the maximal axis;
+    rounded boxes sign(x - c) times the one-hot maximal axis inside the box
+    or relu(q)/||relu(q)|| outside.  Zero-norm points get a zero gradient.
+    """
+    from ..geom.sdf import RoundedBoxes, SharpBoxes, Spheres
+    diff = x[None, :, :] - group.centers[:, :, None]        # (n, 3, M)
+    if isinstance(group, Spheres):
+        d2 = torch.sum(diff * diff, dim=1)                  # (n, M)
+        nz = d2 > 0
+        dist = torch.where(nz, torch.sqrt(torch.where(nz, d2, 1.0)), 0.0)
+        val, idx = torch.min(dist - group.radii[:, None], dim=0)
+        dsel = _take(diff, idx)
+        distsel = torch.gather(dist, 0, idx[None])[0]
+        grad = torch.where(distsel > 0, dsel / distsel, 0.0)
+        return val, grad
+    sign = torch.sign(diff)
+    if isinstance(group, SharpBoxes):
+        t = torch.abs(diff) - group.half_sizes[:, :, None]
+        s, amax = torch.max(t, dim=1)                        # (n, M)
+        val, idx = torch.min(s, dim=0)
+        axis = torch.gather(amax, 0, idx[None])[0]
+        onehot = (torch.arange(3, device=x.device)[:, None]
+                  == axis[None, :]).to(x.dtype)
+        return val, _take(sign, idx) * onehot
+    if isinstance(group, RoundedBoxes):
+        rr = group.round_radii
+        q = (torch.abs(diff) - group.half_sizes[:, :, None]) + rr[:, None,
+                                                                   None]
+        max_q, amax = torch.max(q, dim=1)                    # (n, M)
+        rq = torch.relu(q)
+        n2 = torch.sum(rq * rq, dim=1)
+        nz = n2 > 0
+        norm = torch.where(nz, torch.sqrt(torch.where(nz, n2, 1.0)), 0.0)
+        s = (torch.clamp(max_q, max=0.0) + norm) - rr[:, None]
+        val, idx = torch.min(s, dim=0)
+        msel = torch.gather(max_q, 0, idx[None])[0]
+        axis = torch.gather(amax, 0, idx[None])[0]
+        nsel = torch.gather(norm, 0, idx[None])[0]
+        onehot = (torch.arange(3, device=x.device)[:, None]
+                  == axis[None, :]).to(x.dtype)
+        outside = torch.where(nsel > 0, _take(rq, idx) / nsel, 0.0)
+        inner = torch.where(msel < 0, onehot, outside)
+        return val, _take(sign, idx) * inner
+    raise NotImplementedError(type(group))
+
+
+def _object_sdf_and_grad_lanes(obj, pts3: torch.Tensor):
+    """Posed ObjectField (SDF, world gradient) at world points (3, M)."""
+    if obj.dim != 3:
+        raise NotImplementedError("lanes terms take 3-D scenes")
+    R = obj.rotation_matrix()                               # (3, 3)
+    x_obj = torch.sum(R[:, :, None] * (pts3 - obj.pos[:, None])[:, None, :],
+                      dim=0)                                # R^T (x - pos)
+    best_v, best_g = None, None
+    for f in obj.fields:
+        v, g = group_sdf_and_grad_lanes(f, x_obj)
+        if best_v is None:
+            best_v, best_g = v, g
+        else:
+            take = v < best_v
+            best_g = torch.where(take[None], g, best_g)
+            best_v = torch.where(take, v, best_v)
+    return best_v, torch.sum(R[:, :, None] * best_g[None, :, :], dim=1)
+
+
+def sdf_and_grad_lanes(df_obj_list, pts3: torch.Tensor):
+    """(min-over-objects SDF (M,), its gradient (3, M)) at points (3, M);
+    the first object attaining the minimum supplies the gradient."""
+    best_v, best_g = None, None
+    for obj in df_obj_list:
+        v, g = _object_sdf_and_grad_lanes(obj, pts3)
+        if best_v is None:
+            best_v, best_g = v, g
+        else:
+            take = v < best_v
+            best_g = torch.where(take[None], g, best_g)
+            best_v = torch.where(take, v, best_v)
+    return best_v, best_g
+
+
+def embed_terms(g_q, Hqq, cost, lam: float, h=None) -> Tuple:
+    """Scale unscaled terms (g_q (d, N), Hqq (d, d, N), cost (N,)) by lam and
+    embed them into the position part of the m = 2d state.
+
+    h=None: g (m, N), Hb (m, m, N), cost (N,).  h=H (N = H * B, h-major
+    lanes): the solver layout g (H, m, B), Hb (H, m, m, B), cost (H, B)."""
+    d, N = g_q.shape
+    m = 2 * d
+    kw = dict(dtype=g_q.dtype, device=g_q.device)
+    if h is None:
+        g = torch.zeros((m, N), **kw)
+        Hb = torch.zeros((m, m, N), **kw)
+        g[:d] = lam * g_q
+        Hb[:d, :d] = lam * Hqq
+        return g, Hb, lam * cost
+    Bl = N // h
+    g = torch.zeros((h, m, Bl), **kw)
+    Hb = torch.zeros((h, m, m, Bl), **kw)
+    g[:, :d] = lam * g_q.reshape(d, h, Bl).permute(1, 0, 2)
+    Hb[:, :d, :d] = lam * Hqq.reshape(d, d, h, Bl).permute(2, 0, 1, 3)
+    return g, Hb, (lam * cost).reshape(h, Bl)
+
+
+class TermsLayout:
+    """Index structure of a robot's residual rows, shared by the plain
+    version and the kernel's parameter packing.
+
+    Used points are the sorted union of object- and self-collision links.
+    Rows, in order: one SDF hinge per object point, one workspace-bound
+    hinge per object point, one distance hinge per self-collision pair."""
+
+    def __init__(self, task):
+        robot = task.robot
+        self.model = robot.model
+        obj_idxs = list(robot.object_coll_idxs)
+        self_idxs = list(robot.self_coll_idxs or ())
+        self.used_links = sorted(set(obj_idxs + self_idxs))
+        pos = {li: i for i, li in enumerate(self.used_links)}
+        self.obj_pos = [pos[li] for li in obj_idxs]
+        pairs = np.asarray(robot.self_pair_idxs, np.int64).reshape(-1, 2)
+        self_pos = [pos[li] for li in self_idxs]
+        self.pair_a = [self_pos[a] for a in pairs[:, 0]]
+        self.pair_b = [self_pos[b] for b in pairs[:, 1]]
+        self.cutoff = float(task.obstacle_cutoff_margin)
+        # margin + cutoff, added in float32 like the reference's rows
+        self.obj_thresh = robot.object_margins + self.cutoff
+        self.self_margins = robot.self_margins
+        self.ws_min = task.ws_min
+        self.ws_max = task.ws_max
+        self.df_obj_list = task.df_obj_list
+
+    def row_joints(self):
+        """(a, b), each (R, d) bool over the residual rows in order: the
+        joints that move a row's point (a pair's first point) and those that
+        move a pair's second point (none for a point row).  A row's Jacobian
+        column j is zero unless a[j] or b[j]."""
+        anc = self.model.ancestry_matrix()[self.used_links]    # (P, d)
+        pt = anc[self.obj_pos]
+        pts = [pt, pt] if self.df_obj_list else [pt]
+        a = np.concatenate(pts + [anc[self.pair_a]])
+        b = np.concatenate([np.zeros_like(p) for p in pts]
+                           + [anc[self.pair_b]])
+        return a, b
+
+
+def obstacle_terms_lanes_factory(task):
+    """Plain-PyTorch GN obstacle terms of a task.
+
+    Returns terms(q_cols (d, N), lam, h=None) -> (g, Hb, cost) in the layout
+    of ``embed_terms``, or None when the robot has no lanes path (it needs a
+    kinematic model whose collision points are link origins)."""
+    robot = task.robot
+    if not hasattr(robot, "model") or robot.object_interpolate:
+        return None
+    lay = TermsLayout(task)
+    model = lay.model
+
+    def terms(q_cols, lam, h=None):
+        return embed_terms(*unscaled_terms(q_cols), lam, h=h)
+
+    def unscaled_terms(q_cols):
+        """q_cols (d, N) -> (g_q = sum r Jr (d, N), Hqq = Jr^T Jr (d, d, N),
+        cost = 0.5 sum r^2 (N,))."""
+        r, Jr = residual_rows(q_cols)
+        g_q = torch.sum(r[:, None] * Jr, dim=0)
+        Hqq = torch.sum(Jr[:, :, None] * Jr[:, None, :], dim=0)
+        cost = 0.5 * torch.sum(r * r, dim=0)
+        return g_q, Hqq, cost
+
+    def residual_rows(q_cols):
+        """q_cols (d, N) -> hinge residuals r (R, N) and their Jacobians
+        Jr (R, d, N), rows in TermsLayout's order (the object SDF rows only
+        when the scene has objects)."""
+        R_w, t_w = fk_lanes(model, q_cols)
+        pts = torch.stack([t_w[li] for li in lay.used_links])   # (P, 3, N)
+        J = point_jacobians_lanes(model, R_w, t_w, pts, lay.used_links,
+                                  q_cols=q_cols)                # (P, d, 3, N)
+        N = q_cols.shape[-1]
+        rows_r, rows_J = [], []
+
+        def hinge(thresh, val, grad, J_sub):
+            """val (P, N), grad (3, P, N), J_sub (P, d, 3, N)."""
+            r = torch.relu(thresh[:, None] - val)
+            act = (r > 0).to(val.dtype)
+            s = torch.sum(grad.permute(1, 0, 2)[:, None] * J_sub, dim=2)
+            rows_r.append(r)
+            rows_J.append(-act[:, None, :] * s)
+
+        obj_pts = pts[lay.obj_pos]                              # (Po, 3, N)
+        J_obj = J[lay.obj_pos]
+        Po = obj_pts.shape[0]
+        if lay.df_obj_list:
+            flat = obj_pts.permute(1, 0, 2).reshape(3, Po * N)
+            val, grad = sdf_and_grad_lanes(lay.df_obj_list, flat)
+            hinge(lay.obj_thresh, val.reshape(Po, N), grad.reshape(3, Po, N),
+                  J_obj)
+
+        # workspace bounds: min-face distance, first minimal face wins
+        faces = torch.cat([obj_pts - lay.ws_min[None, :, None],
+                           lay.ws_max[None, :, None] - obj_pts], dim=1)
+        val_ws, amin = torch.min(faces, dim=1)                  # (Po, N)
+        sign = torch.where(amin < 3, 1.0, -1.0).to(q_cols.dtype)
+        axis_id = torch.where(amin < 3, amin, amin - 3)
+        grad_ws = torch.stack([sign * (axis_id == k).to(q_cols.dtype)
+                               for k in range(3)])
+        hinge(lay.obj_thresh, val_ws, grad_ws, J_obj)
+
+        if lay.pair_a:
+            diff = pts[lay.pair_a] - pts[lay.pair_b]            # (K, 3, N)
+            d2 = torch.sum(diff * diff, dim=1)
+            nz = d2 > 0
+            dist = torch.where(nz, torch.sqrt(torch.where(nz, d2, 1.0)), 0.0)
+            inv = torch.where(nz, 1.0 / torch.clamp(dist, min=1e-9), 0.0)
+            u = diff * inv[:, None]
+            r_s = torch.relu(lay.self_margins[:, None] - dist)
+            act = (r_s > 0).to(q_cols.dtype)
+            J_d = J[lay.pair_a] - J[lay.pair_b]                 # (K, d, 3, N)
+            rows_r.append(r_s)
+            rows_J.append(-act[:, None, :]
+                          * torch.sum(u[:, None] * J_d, dim=2))
+
+        return torch.cat(rows_r), torch.cat(rows_J)
+
+    terms.unscaled = unscaled_terms
+    terms.rows = residual_rows
+    return terms
