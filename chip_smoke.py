@@ -1,13 +1,17 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's two paths on one NVIDIA GPU and check
+them: the GPMP2-MPC main path (phases 2-6) and the batched iLQR path
+(phases 7-11).
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases (each prints one JSON line; any failure exits nonzero before the
 final line):
 
-1. build   - nvcc builds every CUDA kernel of the path from csrc/ (one
-             process per source, all at once); prints build seconds and
-             the card's name and power limit.
+1. build   - nvcc builds every CUDA kernel of both paths from csrc/ (one
+             process per source, all at once: terms.cu, btridiag.cu,
+             riccati.cu); prints build seconds, the register and spill
+             report of each kernel's launched instantiation, and the
+             card's name and power limit.
 2. terms   - the fused GN-terms kernel vs its plain PyTorch version on the
              card: Panda in EnvSpheres3D at N = 64 * 1024 waypoints (the
              main path's first q, timed, and random q), plus a rounded-box
@@ -24,9 +28,30 @@ final line):
              each held to a float64 CPU step, GN iteration by GN iteration
              from the same input and over the chained step.
 6. fk      - FK rollouts/s at B = 65536 through fk_positions_lanes.
+7. riccati - the Riccati sweep (K6) and the line-search rollout (K7) vs
+             their plain versions at the iLQR path's shapes (T = 31, d = 7,
+             m = 14, P = 27, A = 5, B = 512) and at a ragged B = 100: on
+             random well-conditioned inputs, and on the inputs of the
+             path's first iteration held to a float64 plain version;
+             timed.
+8. cost    - the value-only collision cost (K8) vs its plain version on the
+             path's line-search q (N = A B T = 79360) and on random q;
+             timed.
+9. ilqr    - the iLQR path (benchmarks/ilqr_sgpmp_bench.py "ilqr_batch"):
+             Panda in EnvSpheres3D, cutoff 0.06, B = 512, H = 32, 30
+             iterations, start/goal drawn as the bench draws them (seeded);
+             launch counts (exactly 30 / 30 / 31), finiteness, dynamics
+             feasibility, fraction free, goal distance, solves/s, ms per
+             iteration, a profile.
+10. ilqr_cpu - at B = 32, one iteration on the card and on the CPU held to
+             a float64 CPU iteration; the whole solve's fraction free and
+             median goal distance near the CPU float32 run's.
+11. ilqr_mpc - the bench's tracking loop (H = 16, 3 iterations per step,
+             30 steps, B = 512) through the same kernels.
 
-Then one JSON line with every kernel's numbers, the nvidia-smi line, and
-the final {"ok": true, "device": ...} line.
+Then one JSON line with every kernel's numbers (launches from phase 4 for
+K1 and K2, from phase 9 for K6, K7 and K8), the nvidia-smi line, and the
+final {"ok": true, "device": ...} line.
 """
 from __future__ import annotations
 
@@ -56,6 +81,26 @@ TERMS_ATOL_REL, TERMS_RTOL = 3e-5, 2e-5
 # twice the plain float32 version's own error (+1e-5)
 SOLVE_TOL_RANDOM, SOLVE_GN_FACTOR = 1e-5, 2.0
 MPC_TOL = 1e-3
+# the iLQR path: benchmarks/ilqr_sgpmp_bench.py's "ilqr_batch" workload and
+# its tracking-MPC loop
+IL_B, IL_H, IL_ITERS, IL_CPU_B = 512, 32, 30, 32
+IL_ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.03)
+IL_PARAMS = dict(n_support_points=IL_H, dt=0.04, opt_iters=IL_ITERS,
+                 sigma_coll=2e-3, sigma_goal_prior=5e-3, sigma_limits=5e-3,
+                 r_control=1e-6, alphas=IL_ALPHAS)
+MPC_H, MPC_ITERS, MPC_STEPS = 16, 3, 30
+MPC_PARAMS = dict(n_support_points=MPC_H, dt=0.04, opt_iters=MPC_ITERS,
+                  sigma_coll=2e-3, sigma_goal_prior=5e-3,
+                  sigma_goal_running=0.05, sigma_limits=5e-3,
+                  r_control=1e-3, alphas=IL_ALPHAS)
+# K6 vs its plain version on well-conditioned inputs: the TPU kernel's own
+# parity with the lanes sweep (pallas_riccati.py:18-19); K7 is a short
+# chain of mat-vecs, float32 rounding only
+RICCATI_TOL, ROLLOUT_TOL = 1e-5, 1e-6
+# the whole B = 32 solve on the card vs the CPU: per-lane argmin flips make
+# lanes differ, so the batch's quality is compared: fraction free within 3
+# of 32 lanes, median final goal distance within 50% (+ 0.01 rad)
+IL_FREE_TOL, IL_DIST_TOL = 3 / 32, 0.5
 
 
 def emit(phase: str, **fields) -> None:
@@ -105,6 +150,29 @@ def max_errs(got, ref):
     return abs_err, rel
 
 
+def profile_device(fn, n_units: int, n_top: int = 8):
+    """Run fn under torch.profiler -> (busy share of the wall, device ms per
+    unit, top kernels' device ms per unit)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = e.name[:60]
+            by_kernel[key] = by_kernel.get(key, 0.0) + e.time_range.elapsed_us()
+    dev_ms = sum(by_kernel.values()) / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:n_top]
+    return (dev_ms / wall_ms if dev_ms > 0 else None, dev_ms / n_units,
+            {k: v / 1e3 / n_units for k, v in top})
+
+
 # ----------------------------------------------------------------------
 # work counts for the bounds (what these inputs need, from their shapes)
 # ----------------------------------------------------------------------
@@ -124,19 +192,9 @@ def terms_work(lay, q, r):
     points of a pair and 18 at one, then 2 + 2k + k(k+1) to add r^2, r Jr
     and Jr^T Jr over its k live columns."""
     import torch
-    from torch_robotics_tpu_torch.geom.sdf import RoundedBoxes, Spheres
     model = lay.model
     d, N = q.shape
-    n_rev = sum(1 for t in model.joint_types if t != 0)
-    n_obj, n_pair = len(lay.obj_pos), len(lay.pair_a)
-    per_lane = (132 * n_rev + 63 * (model.n_links - n_rev) + 18 * d
-                + 12 * (n_obj + n_pair) + 2 * r.shape[0])
-    for obj in lay.df_obj_list:
-        per_lane += n_obj * 15
-        for f in obj.fields:
-            per = 10 if isinstance(f, Spheres) else (
-                25 if isinstance(f, RoundedBoxes) else 12)
-            per_lane += n_obj * per * f.centers.shape[0]
+    per_lane = lane_ops(lay, r.shape[0]) + 18 * d
 
     ctrl = list(model.controlled_link_idxs())
     lo = torch.as_tensor(model.clamp_lower[ctrl], device=q.device)[:, None]
@@ -151,6 +209,67 @@ def terms_work(lay, q, r):
     row_ops = (33 * both + 18 * (k - both)
                + (2 + 2 * k + k * (k + 1)) * act[:, 0])
     return 4 * N * (2 * d + d * d + 1), per_lane * N + int(row_ops.sum())
+
+
+def lane_ops(lay, n_rows: int, per_row: int = 2) -> int:
+    """Float ops every waypoint lane needs for the rows' values: FK compose
+    (~132 per revolute link, ~63 per fixed), the scene SDF of each object
+    point (15 per point and object + ~10 / 25 / 12 per sphere / rounded
+    box / sharp box), its workspace distance (12), each pair's distance
+    (12) and ``per_row`` per residual row."""
+    from torch_robotics_tpu_torch.geom.sdf import RoundedBoxes, Spheres
+    model = lay.model
+    n_rev = sum(1 for t in model.joint_types if t != 0)
+    n_obj, n_pair = len(lay.obj_pos), len(lay.pair_a)
+    ops = (132 * n_rev + 63 * (model.n_links - n_rev)
+           + 12 * (n_obj + n_pair) + per_row * n_rows)
+    for obj in lay.df_obj_list:
+        ops += n_obj * 15
+        for f in obj.fields:
+            per = 10 if isinstance(f, Spheres) else (
+                25 if isinstance(f, RoundedBoxes) else 12)
+            ops += n_obj * per * f.centers.shape[0]
+    return ops
+
+
+def cost_work(lay, N: int, n_rows: int):
+    """(bytes, float ops) of the value-only cost on N lanes: q (d, N) in,
+    cost (N) out; per lane the rows' values, and a hinge (2) and a square
+    and add (2) per row."""
+    return (4 * N * (lay.model.n_dofs + 1),
+            lane_ops(lay, n_rows, per_row=4) * N)
+
+
+def riccati_work(d: int, m: int, P: int, T: int, B_: int):
+    """(bytes, float ops) of the Riccati sweep: U, l, Fc, Vx0 in, ks, Ks out;
+    ops counted from the algorithm's loops per lane and step: S B and
+    S Phi, phase 1's d reflections (over m + d - 1 - j columns each),
+    the gains, phase 2's m reflections over the m S-rows and P F-rows."""
+    ph1 = sum((2 * m - 1) + 6 + (m + d - 1 - j) * (4 * m + 2)
+              for j in range(d))
+    gains = (d + sum(6 + 2 * i for i in range(d))
+             + sum(2 + 2 * (d - 1 - i) for i in range(d))
+             + sum(1 + 2 * (d - 1 - i) for i in range(d))
+             + m * (3 + 2 * d) + m * sum(1 + 2 * (d - 1 - i)
+                                         for i in range(d)))
+    ph2 = sum(2 * P + 2 * (m - 1 - j) + 7
+              + (m - 1 - j) * (4 * P + 4 * (m - 1 - j) + 5)
+              for j in range(m))
+    ops = T * B_ * (5 * m * d + ph1 + gains + ph2)
+    nbytes = 4 * (T * d * B_ + T * m * B_ + T * m * P * B_ + m * B_
+                  + T * d * B_ + T * d * m * B_)
+    return nbytes, ops
+
+
+def rollout_work(d: int, m: int, T: int, A: int, B_: int):
+    """(bytes, float ops) of the line-search rollout: xs (T + 1, m, B), U,
+    ks, Ks in, the A rollouts' states and controls out; per step and
+    rollout dx (m), u (2 + 2 m per joint) and the double-integrator step
+    (7 per joint)."""
+    ops = A * T * B_ * (m + d * (2 * m + 2) + 7 * d)
+    nbytes = 4 * ((T + 1) * m * B_ + 2 * T * d * B_ + T * d * m * B_
+                  + A * T * (m + d) * B_)
+    return nbytes, ops
 
 
 def solve_work(H_: int, m: int, B_: int):
@@ -177,23 +296,29 @@ def bound_ms(nbytes: float, ops: float):
 # phases
 # ----------------------------------------------------------------------
 def phase_build():
-    from torch_robotics_tpu_torch.ops import btridiag_kernel, terms_kernel
+    from torch_robotics_tpu_torch.ops import (btridiag_kernel,
+                                              riccati_kernel, terms_kernel)
     from torch_robotics_tpu_torch.ops.cuda_build import build_all
+    kernels = (terms_kernel.KERNEL, terms_kernel.COST_KERNEL,
+               btridiag_kernel.KERNEL, riccati_kernel.RICCATI_KERNEL,
+               riccati_kernel.ROLLOUT_KERNEL)
     t0 = time.perf_counter()
-    logs = build_all([terms_kernel.KERNEL, btridiag_kernel.KERNEL])
+    logs = build_all(kernels)
     secs = time.perf_counter() - t0
-    # resource report of the instantiations the main path launches
+    # resource report of the instantiations the two paths launch
     report = {}
     for src, text in logs.items():
         lines = text.splitlines()
         for i, line in enumerate(lines):
-            if ("Compiling entry function '_ZN" in line
-                    and ("terms_kernelILi7E" in line
-                         or "btridiag_w_kernelILi14E" in line)):
-                report[src] = " | ".join(s.strip().split("info    : ")[-1]
-                                         for s in lines[i + 1:i + 4])
-    terms_kernel.KERNEL.lib()
-    btridiag_kernel.KERNEL.lib()
+            for name in ("terms_kernelILi7E", "cost_kernelILi7E",
+                         "btridiag_w_kernelILi14E", "riccati_kernelILi7E",
+                         "rollout_kernelILi7E"):
+                if "Compiling entry function '_ZN" in line and name in line:
+                    report[name.split("ILi")[0]] = " | ".join(
+                        s.strip().split("info    : ")[-1]
+                        for s in lines[i + 1:i + 4])
+    for k in kernels:
+        k.lib()
     smi = nvidia_smi_line()
     emit("build", seconds=round(secs, 3), ptxas=report, card=smi)
     return smi
@@ -426,30 +551,16 @@ def phase_main():
     step_ms = ev0.elapsed_time(ev1) / N_STEPS
 
     # device busy share and kernel time by name over two more steps
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        run_mpc(task, start, goal, 2)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t1) * 1e3
-    by_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            key = e.name[:60]
-            by_kernel[key] = by_kernel.get(key, 0.0) + e.time_range.elapsed_us()
-    dev_ms = sum(by_kernel.values()) / 1e3
-    busy = dev_ms / prof_wall_ms if dev_ms > 0 else None
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    busy, dev_ms, top = profile_device(
+        lambda: run_mpc(task, start, goal, 2), 2)
     emit("main", B=B, H=H, steps=N_STEPS, launches={
         "terms": launches[0], "btridiag_w": launches[1]},
         step_ms=step_ms, host_wall_step_ms=wall_s * 1e3 / N_STEPS,
         solves_per_s=B / (step_ms / 1e3),
         mean_collision_cost_last=float(costs[-1].mean()),
         profiled_device_busy_share=busy,
-        profiled_device_ms_per_step=dev_ms / 2,
-        top_device_ms_per_step={k: v / 2e3 for k, v in top})
+        profiled_device_ms_per_step=dev_ms,
+        top_device_ms_per_step=top)
     return launches
 
 
@@ -555,6 +666,365 @@ def phase_fk():
     emit("fk", B=n, ms_per_call=ms, rollouts_per_s=n / (ms / 1e3))
 
 
+# ----------------------------------------------------------------------
+# the iLQR path: benchmarks/ilqr_sgpmp_bench.py's "ilqr_batch" workload
+# ----------------------------------------------------------------------
+def ilqr_task(device):
+    """Panda in EnvSpheres3D at the iLQR bench's cutoff 0.06."""
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    return PlanningTask(env=EnvSpheres3D(device=device),
+                        robot=RobotPanda.create(device=device),
+                        obstacle_cutoff_margin=0.06)
+
+
+def ilqr_problem(device):
+    """The iLQR bench's draw (ilqr_sgpmp_bench.py:86-102) -> (task, start,
+    goal) (IL_B, 14): collision-free starts from a seeded CPU generator,
+    goals the first collision-free of 16 perturbations of each start
+    (numpy seed, 0.6 rad, clipped 0.01 inside the joint limits)."""
+    import torch
+    task = ilqr_task(device)
+    robot = task.robot
+    d = robot.q_dim
+    qs, n_valid = task.random_coll_free_q(
+        torch.Generator().manual_seed(SEED), n_samples=IL_B,
+        max_samples=IL_B * 64)
+    check(n_valid == IL_B, "only %d collision-free starts" % n_valid)
+    noise = torch.as_tensor(np.random.default_rng(SEED).normal(
+        size=(16, IL_B, d)), dtype=torch.float32, device=device)
+    pert = torch.clamp(qs + 0.6 * noise, robot.q_min + 0.01,
+                       robot.q_max - 0.01)
+    free = ~task.compute_collision(pert.reshape(-1, d)).reshape(16, IL_B)
+    idx = torch.argmax(free.to(torch.int32), dim=0)          # first free
+    qg = torch.where(free.any(0)[:, None],
+                     pert[idx, torch.arange(IL_B, device=device)], qs)
+    z = torch.zeros_like(qs)
+    return task, torch.cat([qs, z], -1), torch.cat([qg, z], -1)
+
+
+def ilqr_limits(task):
+    return (task.robot.q_min, task.robot.q_max)
+
+
+def capture_first_iteration(task, start, goal):
+    """One iLQR iteration on the path's problem, keeping what its kernels
+    were given: the sweep's factory arguments and inputs, the rollout's,
+    and each cost call's q (keyed by its N)."""
+    from torch_robotics_tpu_torch.ops import riccati_kernel
+    from torch_robotics_tpu_torch.solve import ILQRParams, ilqr_solve
+    seen = {}
+    names = {"sweep": "riccati_backward_kernel_factory",
+             "roll": "linesearch_rollout_kernel_factory"}
+    originals = {k: getattr(riccati_kernel, v) for k, v in names.items()}
+
+    def tapped(key):
+        def factory(*args):
+            fn = originals[key](*args)
+
+            def tap(*ins):
+                seen.setdefault(key, (args, [t.clone() for t in ins]))
+                return fn(*ins)
+            return tap
+        return factory
+
+    res = task.collision_residuals
+    cost = res.collision_cost_lanes
+
+    def cost_tap(q_cols):
+        seen.setdefault("cost_%d" % q_cols.shape[1], q_cols.clone())
+        return cost(q_cols)
+
+    try:
+        for k, v in names.items():
+            setattr(riccati_kernel, v, tapped(k))
+        res.collision_cost_lanes = cost_tap
+        ilqr_solve(res, start, goal,
+                   ILQRParams(**dict(IL_PARAMS, opt_iters=1)),
+                   q_limits=ilqr_limits(task))
+    finally:
+        for k, v in names.items():
+            setattr(riccati_kernel, v, originals[k])
+        res.collision_cost_lanes = cost
+    return seen
+
+
+def phase_riccati(seen):
+    """K6 and K7 vs their plain versions at the path's shapes (B = 512) and
+    at a ragged B = 100: on random well-conditioned inputs (kg = 1e4,
+    r = 1e-4, as tests/test_pallas_riccati.py) K6 to 1e-5 and K7 to 1e-6
+    of max|ref|; on the path's first-iteration inputs (kg / r = 4e10) each
+    to a float64 plain version, no worse than twice the plain float32
+    version's error (+ the random-input tolerance)."""
+    import torch
+    from torch_robotics_tpu_torch.ops.riccati_kernel import (
+        linesearch_rollout_kernel_factory, riccati_backward_kernel_factory)
+    s_args, s_ins = seen["sweep"]
+    r_args, r_ins = seen["roll"]
+    d, m, P, T, dt, r, mu, kg = s_args
+    alphas = r_args[4]
+    sweep = riccati_backward_kernel_factory(*s_args)
+    roll = linesearch_rollout_kernel_factory(*r_args)
+    rng = np.random.default_rng(6)
+
+    def rand(*shape, scale=1.0):
+        return torch.as_tensor(scale * rng.normal(size=shape),
+                               dtype=torch.float32, device="cuda")
+
+    rand_sweep = riccati_backward_kernel_factory(d, m, P, T, dt, 1e-4, mu,
+                                                 1e4)
+    s_rand = [rand(T, d, IL_B), rand(T, m, IL_B), rand(T, m, P, IL_B),
+              rand(m, IL_B)]
+    r_rand = [rand(T + 1, m, IL_B), rand(T, d, IL_B), rand(T, d, IL_B),
+              rand(T, d, m, IL_B, scale=0.1)]
+    results = {}
+    for kname, fn, path_ins, rand_fn, rand_ins, tol in (
+            ("riccati", sweep, s_ins, rand_sweep, s_rand, RICCATI_TOL),
+            ("rollout", roll, r_ins, roll, r_rand, ROLLOUT_TOL)):
+        for Bn in (IL_B, 100):
+            def cut(ins):
+                return [t[..., :Bn].contiguous() for t in ins]
+            key = "%s_random_B%d" % (kname, Bn)
+            got, ref = rand_fn(*cut(rand_ins)), rand_fn.plain(*cut(rand_ins))
+            err, rel = max_errs(got, ref)
+            check(all(bool(torch.isfinite(g).all()) for g in got),
+                  key + ": non-finite")
+            check(rel <= tol, "%s: kernel vs plain %.3g of max|ref|"
+                  % (key, rel))
+            results[key] = dict(abs=err, rel_to_max=rel)
+
+            key = "%s_path_B%d" % (kname, Bn)
+            ins = cut(path_ins)
+            got, ref = fn(*ins), fn.plain(*ins)
+            ref64 = fn.plain(*[t.double() for t in ins])
+            err, rel = max_errs(got, ref)
+            rel_k64 = max_errs([g.double() for g in got], ref64)[1]
+            rel_p64 = max_errs([g.double() for g in ref], ref64)[1]
+            check(all(bool(torch.isfinite(g).all()) for g in got),
+                  key + ": non-finite")
+            check(rel_k64 <= 2.0 * rel_p64 + tol,
+                  "%s: kernel vs float64 %.3g, plain float32 vs float64 "
+                  "%.3g of max|ref|" % (key, rel_k64, rel_p64))
+            results[key] = dict(abs=err, rel_to_max=rel,
+                                kernel_vs_f64=rel_k64, plain_vs_f64=rel_p64)
+    out = {}
+    for kname, fn, ins, work in (
+            ("riccati", sweep, s_ins, riccati_work(d, m, P, T, IL_B)),
+            ("rollout", roll, r_ins,
+             rollout_work(d, m, T, len(alphas), IL_B))):
+        k_ms = cuda_ms(lambda: fn(*ins), iters=20)
+        p_ms = cuda_ms(lambda: fn.plain(*ins), iters=2, warmup=1)
+        out[kname] = dict(
+            max_abs_err=results["%s_path_B%d" % (kname, IL_B)]["abs"],
+            ms=k_ms, plain_ms=p_ms, work=work)
+    emit("riccati", shapes=dict(T=T, d=d, m=m, P=P, A=len(alphas), B=IL_B),
+         max_errs=results, **{k + "_ms": v["ms"] for k, v in out.items()},
+         **{k + "_plain_ms": v["plain_ms"] for k, v in out.items()})
+    return out
+
+
+def phase_cost(task, seen):
+    """K8 vs its plain version on the path's line-search q (N = A B T, the
+    first iteration's) and on random q, at the terms kernel's tolerance."""
+    import torch
+    from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
+    cost = task.collision_residuals.collision_cost_lanes
+    T = IL_H - 1
+    N = len(IL_ALPHAS) * IL_B * T
+    q_ls = seen["cost_%d" % N]
+    check(tuple(q_ls.shape) == (7, N), "line-search q %s" % (q_ls.shape,))
+    results = {}
+    for name, q in (("line_search_q_N%d" % N, q_ls),
+                    ("random_q_N%d" % N, random_q(task, N, seed=5))):
+        got, ref = cost(q), cost.plain(q)
+        tol = TERMS_ATOL_REL * float(ref.abs().max()) + TERMS_RTOL * ref.abs()
+        check(bool(torch.isfinite(got).all()), name + ": non-finite cost")
+        check(bool(((got - ref).abs() <= tol).all()),
+              "%s: cost kernel disagrees with its plain version" % name)
+        results[name] = max_errs([got], [ref])
+    k_ms = cuda_ms(lambda: cost(q_ls), iters=50)
+    p_ms = cuda_ms(lambda: cost.plain(q_ls), iters=5, warmup=1)
+    r = task.collision_residuals.obstacle_terms_lanes.plain.rows(q_ls)[0]
+    emit("cost", max_errs={k: {"abs": v[0], "rel_to_max": v[1]}
+                           for k, v in results.items()},
+         kernel_ms=k_ms, plain_ms=p_ms,
+         active_row_share=float((r > 0).float().mean()))
+    return dict(max_abs_err=results["line_search_q_N%d" % N][0], ms=k_ms,
+                plain_ms=p_ms, work=cost_work(TermsLayout(task), N,
+                                              r.shape[0]))
+
+
+def feasibility_residual(trajs, controls, dt: float) -> float:
+    """max |x_{t+1} - (Phi x_t + B u_t)| (ilqr_sgpmp_bench.py:49-58)."""
+    d = trajs.shape[-1] // 2
+    q, qd = trajs[..., :d], trajs[..., d:]
+    q_next = q[..., :-1, :] + dt * qd[..., :-1, :] + 0.5 * dt * dt * controls
+    qd_next = qd[..., :-1, :] + dt * controls
+    return max(float((trajs[..., 1:, :d] - q_next).abs().max()),
+               float((trajs[..., 1:, d:] - qd_next).abs().max()))
+
+
+def ilqr_quality(task, res, goal):
+    d = goal.shape[-1] // 2
+    dist = (res.trajs[:, -1, :d] - goal[:, :d]).norm(dim=-1)
+    return dict(fraction_free=task.compute_fraction_free_trajs(res.trajs),
+                mean_final_goal_dist=float(dist.mean()),
+                median_final_goal_dist=float(dist.median()))
+
+
+def phase_ilqr(task, start, goal):
+    """The iLQR path at full width: B = 512, H = 32, 30 iterations; launch
+    counts exactly 30 / 30 / 31 (K6 / K7 / K8), finite and dynamically
+    feasible trajectories, quality, CUDA-event timing, a profile."""
+    import torch
+    from torch_robotics_tpu_torch.ops import riccati_kernel, terms_kernel
+    from torch_robotics_tpu_torch.solve import ILQRParams, ilqr_solve
+    params = ILQRParams(**IL_PARAMS)
+
+    def solve():
+        return ilqr_solve(task.collision_residuals, start, goal, params,
+                          q_limits=ilqr_limits(task))
+
+    solve()                                           # warm-up
+    torch.cuda.synchronize()
+    kernels = (riccati_kernel.RICCATI_KERNEL, riccati_kernel.ROLLOUT_KERNEL,
+               terms_kernel.COST_KERNEL)
+    for k in kernels:
+        k.launches = 0
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    res = solve()
+    ev1.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = [k.launches for k in kernels]
+    check(launches == [IL_ITERS, IL_ITERS, IL_ITERS + 1],
+          "iLQR launches %s, expected [%d, %d, %d]"
+          % (launches, IL_ITERS, IL_ITERS, IL_ITERS + 1))
+    check(all(bool(torch.isfinite(t).all()) for t in res),
+          "iLQR produced non-finite results")
+    feas = feasibility_residual(res.trajs, res.controls, IL_PARAMS["dt"])
+    check(feas <= 1e-4 * float(res.trajs.abs().max()),
+          "iLQR states break the double integrator by %.3g" % feas)
+    solve_ms = ev0.elapsed_time(ev1)
+    busy, dev_ms, top = profile_device(solve, IL_ITERS)
+    emit("ilqr", B=IL_B, H=IL_H, iterations=IL_ITERS,
+         launches=dict(riccati=launches[0], rollout=launches[1],
+                       cost=launches[2]),
+         solve_ms=solve_ms, ms_per_iteration=solve_ms / IL_ITERS,
+         host_wall_solve_ms=wall_s * 1e3,
+         solves_per_s=IL_B / (solve_ms / 1e3),
+         dynamics_feasibility_max_err=feas,
+         mean_final_cost=float(res.costs.mean()), **ilqr_quality(
+             task, res, goal),
+         profiled_device_busy_share=busy,
+         profiled_device_ms_per_iteration=dev_ms,
+         top_device_ms_per_iteration=top)
+    return launches, res
+
+
+def phase_ilqr_cpu(task_c, start, goal):
+    """At B = 32: one iteration from the same input on the card and on the
+    CPU, each held to a float64 CPU iteration (worst and median lane, as
+    phase cpu holds the MPC step); then the whole solve's fraction free
+    and median final goal distance near the CPU float32 run's.  Per-lane
+    trajectories after 30 iterations are not compared: the line search
+    takes the first argmin over 5 step sizes, and a last-bit difference
+    flips it in a lane."""
+    from torch_robotics_tpu_torch.solve import ILQRParams, ilqr_solve
+    n = IL_CPU_B
+    task_h = ilqr_task("cpu")
+    s_c, g_c = start[:n].contiguous(), goal[:n].contiguous()
+    s_h, g_h = s_c.cpu(), g_c.cpu()
+
+    def run(task, s, g, iters):
+        return ilqr_solve(task.collision_residuals, s, g,
+                          ILQRParams(**dict(IL_PARAMS, opt_iters=iters)),
+                          q_limits=ilqr_limits(task))
+
+    one_c, one_h = run(task_c, s_c, g_c, 1), run(task_h, s_h, g_h, 1)
+    one_64 = run(task_h, s_h.double(), g_h.double(), 1)
+    gaps = theta_gaps(one_c.trajs, one_h.trajs, one_64.trajs)
+    hold_to_f64("iLQR iteration", gaps)
+    rel_cost = float(((one_c.costs.cpu() - one_h.costs).abs()
+                      / one_h.costs.abs().clamp(min=1e-30)).max())
+    full_c = run(task_c, s_c, g_c, IL_ITERS)
+    full_h = run(task_h, s_h, g_h, IL_ITERS)
+    q_c, q_h = ilqr_quality(task_c, full_c, g_c), ilqr_quality(task_h,
+                                                               full_h, g_h)
+    check(abs(q_c["fraction_free"] - q_h["fraction_free"])
+          <= IL_FREE_TOL + 1e-9,
+          "iLQR fraction free: card %.3f, CPU %.3f"
+          % (q_c["fraction_free"], q_h["fraction_free"]))
+    med_c, med_h = (q_c["median_final_goal_dist"],
+                    q_h["median_final_goal_dist"])
+    check(abs(med_c - med_h) <= IL_DIST_TOL * med_h + 1e-2,
+          "iLQR median goal distance: card %.4g, CPU %.4g" % (med_c, med_h))
+    emit("ilqr_cpu", B=n, H=IL_H, one_iteration=dict(gaps,
+                                                      cost_rel_err=rel_cost),
+         full_solve={"card": q_c, "cpu": q_h})
+
+
+def phase_ilqr_mpc(task, start, goal, plan):
+    """The bench's tracking loop (ilqr_sgpmp_bench.py:147-194): each step
+    re-solves from the executed state with warm-started controls and a
+    receding window of the converged plan (x_ref), executes the first
+    control; H_trk = 16, 3 iterations, 30 steps, B = 512."""
+    import torch
+    from torch_robotics_tpu_torch.ops import riccati_kernel, terms_kernel
+    from torch_robotics_tpu_torch.solve import ILQRParams, ilqr_solve
+    params = ILQRParams(**MPC_PARAMS)
+    d = start.shape[-1] // 2
+    pad = goal[:, None].expand(IL_B, MPC_H + MPC_STEPS, 2 * d)
+    ref_full = torch.cat([plan, pad], dim=1)
+
+    def loop(n_steps):
+        x = start
+        u = torch.zeros((IL_B, MPC_H - 1, d), device=start.device)
+        xs = []
+        for t in range(n_steps):
+            res = ilqr_solve(task.collision_residuals, x, goal, params,
+                             u_init=u, x_ref=ref_full[:, t + 1:t + 1 + MPC_H],
+                             q_limits=ilqr_limits(task))
+            x = res.trajs[:, 1]
+            u = torch.cat([res.controls[:, 1:], res.controls[:, -1:]], 1)
+            xs.append(x)
+        return torch.stack(xs, dim=1)                  # (B, steps, 2d)
+
+    loop(1)                                            # warm-up
+    torch.cuda.synchronize()
+    kernels = (riccati_kernel.RICCATI_KERNEL, riccati_kernel.ROLLOUT_KERNEL,
+               terms_kernel.COST_KERNEL)
+    for k in kernels:
+        k.launches = 0
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    xs = loop(MPC_STEPS)
+    ev1.record()
+    torch.cuda.synchronize()
+    launches = [k.launches for k in kernels]
+    per = MPC_STEPS * MPC_ITERS
+    check(launches == [per, per, per + MPC_STEPS],
+          "iLQR MPC launches %s" % (launches,))
+    check(bool(torch.isfinite(xs).all()), "iLQR MPC non-finite states")
+    ms = ev0.elapsed_time(ev1)
+    dist = (xs[:, -1, :d] - goal[:, :d]).norm(dim=-1)
+    emit("ilqr_mpc", B=IL_B, H=MPC_H, iters_per_step=MPC_ITERS,
+         steps=MPC_STEPS, launches=dict(riccati=launches[0],
+                                        rollout=launches[1],
+                                        cost=launches[2]),
+         ms_per_step=ms / MPC_STEPS,
+         solves_per_s=IL_B * MPC_STEPS / (ms / 1e3),
+         fraction_free_executed=task.compute_fraction_free_trajs(
+             xs[..., :d]),
+         mean_final_goal_dist=float(dist.mean()),
+         median_final_goal_dist=float(dist.median()))
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -571,6 +1041,14 @@ def main() -> None:
     phase_cpu()
     phase_fk()
 
+    il_task, il_start, il_goal = ilqr_problem("cuda")
+    seen = capture_first_iteration(il_task, il_start, il_goal)
+    sweeps = phase_riccati(seen)
+    cost = phase_cost(il_task, seen)
+    il_launches, il_res = phase_ilqr(il_task, il_start, il_goal)
+    phase_ilqr_cpu(il_task, il_start, il_goal)
+    phase_ilqr_mpc(il_task, il_start, il_goal, il_res.trajs)
+
     entries = []
     for name, src, rep, res, n in (
             ("obstacle_terms", "torch_robotics_tpu_torch/csrc/terms.cu",
@@ -578,7 +1056,16 @@ def main() -> None:
              launches[0]),
             ("btridiag_w", "torch_robotics_tpu_torch/csrc/btridiag.cu",
              "torch_robotics_tpu/ops/pallas_btridiag.py:330", solve,
-             launches[1])):
+             launches[1]),
+            ("riccati_backward", "torch_robotics_tpu_torch/csrc/riccati.cu",
+             "torch_robotics_tpu/ops/pallas_riccati.py:206",
+             sweeps["riccati"], il_launches[0]),
+            ("linesearch_rollout", "torch_robotics_tpu_torch/csrc/riccati.cu",
+             "torch_robotics_tpu/ops/pallas_riccati.py:309",
+             sweeps["rollout"], il_launches[1]),
+            ("collision_cost", "torch_robotics_tpu_torch/csrc/terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029", cost,
+             il_launches[2])):
         b_ms, b_by = bound_ms(*res["work"])
         entries.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n,

@@ -63,11 +63,29 @@ def test_default_construction_without_cuda_raises(monkeypatch):
     assert RobotPanda.create(device="cpu").device.type == "cpu"
 
 
+def test_prior_helpers_default_to_the_card(monkeypatch):
+    """The GP prior's public block builders took device="cpu" by default,
+    a quiet CPU run; they now default to the card like every entry point
+    and raise without one."""
+    from torch_robotics_tpu_torch.solve import gp_prior
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: gp_prior.gp_transition(2, 0.1, **kw),
+                 lambda **kw: gp_prior.gp_Q_inv(2, 0.1, 0.5, **kw),
+                 lambda **kw: gp_prior.gp_prior_blocks(2, 4, 0.1, 1e-3, 0.1,
+                                                       1e-3, **kw)[0]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+        assert make(device="cpu").device.type == "cpu"
+
+
 def test_wrappers_take_the_kernel_or_raise_off_the_cpu():
     """CPU tensors take the plain versions; a tensor on any other device
     goes to the kernel path, which refuses what is not CUDA."""
     from torch_robotics_tpu_torch.ops.btridiag_kernel import solve_lanes_w
-    from torch_robotics_tpu_torch.ops.terms_kernel import run_terms_kernel
+    from torch_robotics_tpu_torch.ops.riccati_kernel import (
+        linesearch_rollout_kernel_factory, riccati_backward_kernel_factory)
+    from torch_robotics_tpu_torch.ops.terms_kernel import (run_cost_kernel,
+                                                           run_terms_kernel)
     D = torch.zeros((2, 4, 4, 3), device="meta")
     U = torch.zeros((2, 4, 4, 1), device="meta")
     b = torch.zeros((2, 4, 3), device="meta")
@@ -77,6 +95,31 @@ def test_wrappers_take_the_kernel_or_raise_off_the_cpu():
     floats = torch.zeros(8, device="meta")
     with pytest.raises(ValueError):
         run_terms_kernel(torch.zeros((7, 5), device="meta"), ints, floats, 7)
+    with pytest.raises(ValueError):
+        run_cost_kernel(torch.zeros((7, 5), device="meta"), ints, floats, 7)
+    d, m, P, T, B = 7, 14, 27, 3, 5
+    sweep = riccati_backward_kernel_factory(d, m, P, T, 0.04, 1e-6, 1e-6, 4e4)
+    with pytest.raises(ValueError):
+        sweep(*(torch.zeros(s, device="meta") for s in
+                ((T, d, B), (T, m, B), (T, m, P, B), (m, B))))
+    roll = linesearch_rollout_kernel_factory(d, m, T, 0.04, (1.0, 0.5))
+    with pytest.raises(ValueError):
+        roll(*(torch.zeros(s, device="meta") for s in
+               ((T + 1, m, B), (T, d, B), (T, d, B), (T, d, m, B))))
+
+
+def test_ilqr_solve_on_a_non_cuda_device_raises():
+    """The default sweeps on a tensor that is neither CPU nor CUDA go to
+    the kernel path, which refuses it: no quiet plain fallback."""
+    from torch_robotics_tpu_torch.solve import ILQRParams, ilqr_solve
+
+    def residuals(q):
+        return torch.tanh(q) * 0.1
+    residuals.supports_batch = True
+    x0 = torch.zeros((3, 4), device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ilqr_solve(residuals, x0, x0, ILQRParams(n_support_points=4,
+                                                 opt_iters=1))
 
 
 def test_chip_smoke_refuses_without_cuda():

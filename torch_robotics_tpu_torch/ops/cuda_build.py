@@ -38,11 +38,12 @@ def nvcc_path() -> str:
 
 
 class CudaKernel:
-    """One CUDA source -> one shared library, with a launch counter.
+    """One kernel of a CUDA source, with its own launch counter.
 
     ``functions`` maps each exported C function to its ctypes argtypes;
     every function returns an int CUDA error code.  ``launch`` calls one,
     raises on a nonzero code and only then adds one to ``launches``.
+    Kernels of one source share its library (built once).
     """
 
     def __init__(self, source: str, functions: Dict[str, List]):
@@ -90,10 +91,13 @@ class CudaKernel:
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
-    """Build every missing library, all nvcc processes at once; returns
-    the compiler output (register and spill report) per source, read from
-    the log kept beside a library built earlier."""
-    procs = [(k, k.start_build()) for k in kernels]
+    """Build every missing library, all nvcc processes at once (one per
+    source); returns the compiler output (register and spill report) per
+    source, read from the log kept beside a library built earlier."""
+    by_source = {}
+    for k in kernels:
+        by_source.setdefault(k.source, k)
+    procs = [(k, k.start_build()) for k in by_source.values()]
     logs = {}
     for k, proc in procs:
         if proc is None:

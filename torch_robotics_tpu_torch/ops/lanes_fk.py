@@ -25,7 +25,8 @@ import torch
 from ..kin.model import (JOINT_CONTINUOUS, JOINT_PRISMATIC, JOINT_REVOLUTE,
                          KinematicModel)
 
-__all__ = ["fk_lanes", "fk_positions_lanes", "point_jacobians_lanes",
+__all__ = ["fk_lanes", "fk_positions_lanes", "fk_points_jacobians_lanes",
+           "point_jacobians_lanes",
            "group_sdf_and_grad_lanes", "sdf_and_grad_lanes",
            "obstacle_terms_lanes_factory", "embed_terms"]
 
@@ -116,6 +117,24 @@ def fk_positions_lanes(model: KinematicModel, q: torch.Tensor,
              else [int(x) for x in np.asarray(link_idxs)])
     flat = torch.stack([t_w[li] for li in links])          # (L, 3, N)
     return flat.permute(2, 0, 1).reshape(batch + (len(flat), 3))
+
+
+def fk_points_jacobians_lanes(model: KinematicModel, q: torch.Tensor):
+    """World link positions and their analytic Jacobians through the lanes
+    chain: q (..., d) -> (points (..., L, 3), J (..., L, 3, d)), the point
+    of link i being its origin; columns of joints outside their clamps are
+    zero (the clamped FK chain's derivative)."""
+    batch = q.shape[:-1]
+    d = q.shape[-1]
+    q_cols = q.reshape(-1, d).T
+    R_w, t_w = fk_lanes(model, q_cols)
+    links = list(range(model.n_links))
+    pts = torch.stack([t_w[li] for li in links])             # (L, 3, N)
+    J = point_jacobians_lanes(model, R_w, t_w, pts, links,
+                              q_cols=q_cols)                 # (L, d, 3, N)
+    L = len(links)
+    return (pts.permute(2, 0, 1).reshape(batch + (L, 3)),
+            J.permute(3, 0, 2, 1).reshape(batch + (L, 3, d)))
 
 
 def point_jacobians_lanes(model: KinematicModel, R_w, t_w,

@@ -1,16 +1,23 @@
-"""Fused GN obstacle-terms kernel: wrapper, parameter packing, dispatch.
+"""Fused GN obstacle-terms kernel and value-only collision-cost kernel:
+wrappers, parameter packing, dispatch.
 
-Counterpart of torch_robotics_tpu/ops/pallas_terms.py
-(``obstacle_terms_pallas_factory``, the TPU kernel it replaces).  The CUDA
-source is ``csrc/terms.cu``; its head comment says what bounds it on the
-H100 and how its design answers that.  The plain PyTorch version is
-``ops/lanes_fk.obstacle_terms_lanes_factory``.
+Counterparts of torch_robotics_tpu/ops/pallas_terms.py
+(``obstacle_terms_pallas_factory`` and ``collision_cost_pallas_factory``,
+the TPU kernels they replace).  The CUDA source of both is
+``csrc/terms.cu``; its head comment says what bounds each on the H100 and
+how its design answers that.  The plain PyTorch version of both is
+``ops/lanes_fk.obstacle_terms_lanes_factory`` (the cost kernel's is the
+cost output of its unscaled terms).
 
 The returned ``terms(q_cols, lam, h=None)`` keeps the reference contract:
 the kernel writes the unscaled g (d, N), Hqq (d, d, N) and cost (N); the
 wrapper applies lam and embeds them into g (H, m, B), Hb (H, m, m, B),
 cost (H, B) (or the h=None lanes layout).  A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.
+
+``collision_cost_kernel_factory(task)`` returns ``cost(q_cols (d, N)) ->
+(N,)``, 0.5 sum r^2 over the same rows, unscaled, with the same dispatch.
+It is not differentiable: solvers that need gradients use the terms.
 """
 from __future__ import annotations
 
@@ -22,13 +29,17 @@ import torch
 from .cuda_build import CudaKernel
 from .lanes_fk import TermsLayout, embed_terms, obstacle_terms_lanes_factory
 
-__all__ = ["KERNEL", "MAX_DOF", "obstacle_terms_kernel_factory",
-           "pack_terms_params", "run_terms_kernel"]
+__all__ = ["KERNEL", "COST_KERNEL", "MAX_DOF",
+           "obstacle_terms_kernel_factory", "collision_cost_kernel_factory",
+           "pack_terms_params", "run_terms_kernel", "run_cost_kernel"]
 
 _P = ctypes.c_void_p
 KERNEL = CudaKernel("terms.cu", {
     "trt_terms_launch": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P,
                          _P],
+})
+COST_KERNEL = CudaKernel("terms.cu", {
+    "trt_cost_launch": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P],
 })
 MAX_DOF = 8        # terms.cu instantiates D = 1..8
 _MAX_LINKS = 32    # terms.cu kMaxLinks
@@ -95,12 +106,9 @@ def pack_terms_params(lay: TermsLayout):
     return ints, floats
 
 
-def run_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
-                     floats: torch.Tensor, d: int):
-    """Launch the CUDA terms kernel: q_cols (d, N) float32 contiguous CUDA
-    -> unscaled (g_q (d, N), Hqq (d, d, N), cost (N,))."""
+def _check_q(q_cols, ints, floats, d: int):
     if q_cols.device.type != "cuda":
-        raise ValueError("run_terms_kernel takes CUDA tensors")
+        raise ValueError("the terms.cu kernels take CUDA tensors")
     if q_cols.dtype != torch.float32 or not q_cols.is_contiguous():
         raise ValueError("q_cols must be contiguous float32")
     if q_cols.dim() != 2 or q_cols.shape[0] != d:
@@ -109,6 +117,13 @@ def run_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
     if ints.device != q_cols.device or floats.device != q_cols.device:
         raise ValueError("the task's kernel parameters live on %s, q_cols "
                          "on %s" % (ints.device, q_cols.device))
+
+
+def run_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
+                     floats: torch.Tensor, d: int):
+    """Launch the CUDA terms kernel: q_cols (d, N) float32 contiguous CUDA
+    -> unscaled (g_q (d, N), Hqq (d, d, N), cost (N,))."""
+    _check_q(q_cols, ints, floats, d)
     N = q_cols.shape[1]
     g = torch.empty((d, N), dtype=torch.float32, device=q_cols.device)
     Hqq = torch.empty((d, d, N), dtype=torch.float32, device=q_cols.device)
@@ -123,14 +138,29 @@ def run_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
     return g, Hqq, cost
 
 
-def obstacle_terms_kernel_factory(task):
-    """GN obstacle terms of a single-kinematic-model robot in an analytic
-    primitive scene, through the CUDA kernel for CUDA tensors.
+def run_cost_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
+                    floats: torch.Tensor, d: int):
+    """Launch the CUDA value-only cost kernel: q_cols (d, N) float32
+    contiguous CUDA -> unscaled cost (N,)."""
+    _check_q(q_cols, ints, floats, d)
+    N = q_cols.shape[1]
+    cost = torch.empty((N,), dtype=torch.float32, device=q_cols.device)
+    if N == 0:
+        return cost
+    with torch.cuda.device(q_cols.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        COST_KERNEL.launch("trt_cost_launch", q_cols.data_ptr(),
+                           cost.data_ptr(), N, d, ints.data_ptr(),
+                           floats.data_ptr(), stream)
+    return cost
 
-    Returns None where the reference's fused factory does (robots without
-    a kinematic model, interpolated collision points).  The learned
+
+def _kernel_params(task):
+    """(d, ints, floats, plain terms) of a task the terms.cu kernels take,
+    or None where the reference's fused factories return None (robots
+    without a kinematic model, interpolated collision points).  The learned
     self-collision row, grid-SDF scenes and grasped-object points are not
-    in the kernel yet and raise NotImplementedError."""
+    in the kernels yet and raise NotImplementedError."""
     robot = task.robot
     if not hasattr(robot, "model") or robot.object_interpolate:
         return None
@@ -149,7 +179,17 @@ def obstacle_terms_kernel_factory(task):
     ints_np, floats_np = pack_terms_params(lay)
     ints = torch.as_tensor(ints_np, device=task.device)
     floats = torch.as_tensor(floats_np, device=task.device)
-    plain = obstacle_terms_lanes_factory(task)
+    return d, ints, floats, obstacle_terms_lanes_factory(task)
+
+
+def obstacle_terms_kernel_factory(task):
+    """GN obstacle terms of a single-kinematic-model robot in an analytic
+    primitive scene, through the CUDA terms kernel for CUDA tensors (None
+    and NotImplementedError as ``_kernel_params``)."""
+    params = _kernel_params(task)
+    if params is None:
+        return None
+    d, ints, floats, plain = params
 
     def terms(q_cols, lam, h=None):
         if q_cols.device.type == "cpu":
@@ -165,3 +205,24 @@ def obstacle_terms_kernel_factory(task):
     terms.unscaled = unscaled
     terms.plain = plain
     return terms
+
+
+def collision_cost_kernel_factory(task):
+    """Per-waypoint collision cost 0.5 sum r^2 (unscaled) of the same tasks,
+    through the CUDA cost kernel for CUDA tensors; the plain version is the
+    cost output of the plain terms."""
+    params = _kernel_params(task)
+    if params is None:
+        return None
+    d, ints, floats, plain_terms = params
+
+    def plain(q_cols):
+        return plain_terms.unscaled(q_cols)[2]
+
+    def cost(q_cols):
+        if q_cols.device.type == "cpu":
+            return plain(q_cols)
+        return run_cost_kernel(q_cols, ints, floats, d)
+
+    cost.plain = plain
+    return cost

@@ -14,6 +14,7 @@ from math import ceil
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..costs.fields import interpolate_points
 
@@ -76,6 +77,42 @@ class RobotAPI:
 
     def get_position(self, x):
         return x[..., :self.q_dim]
+
+    def random_q(self, generator: torch.Generator, n_samples: int = 10):
+        """Uniform configurations in [q_min, q_max]: (n_samples, q_dim).
+
+        The draw runs on ``generator``'s device and moves to the robot's,
+        so one CPU generator gives the same samples for a card run and a
+        CPU run."""
+        u = torch.rand((n_samples, self.q_dim), generator=generator,
+                       dtype=self.q_min.dtype, device=generator.device)
+        u = u.to(self.q_min.device)
+        return self.q_min + u * (self.q_max - self.q_min)
+
+    def get_velocity(self, x):
+        """Velocities of states x = [q, qd, ...] (x.shape[-1] >= 2 q_dim);
+        the finite-difference branch for position-only inputs is not
+        ported yet."""
+        if x.shape[-1] < 2 * self.q_dim:
+            raise NotImplementedError(
+                "finite-difference velocities are not ported yet")
+        return x[..., self.q_dim:2 * self.q_dim]
+
+    def distance_q(self, q1, q2):
+        return torch.linalg.vector_norm(q1 - q2, dim=-1)
+
+    def select_collision_jacobians(self, J_full, idxs, interpolate=False,
+                                   num_interp=0):
+        """The point selection of the collision-point selectors applied to
+        per-point Jacobians J_full (..., P, ws_dim, q_dim).  Interpolated
+        points and grasped-object points are not ported and raise."""
+        if interpolate:
+            raise NotImplementedError(
+                "interpolated collision points are not ported yet")
+        if self.grasped_n_points > 0:
+            raise NotImplementedError(
+                "grasped-object collision points are not ported yet")
+        return J_full[..., list(idxs), :, :]
 
     def object_collision_points(self, link_pos):
         """Select (and interpolate) the object-collision points from FK

@@ -96,3 +96,10 @@ class RobotPanda(RobotAPI):
         """q (..., 7) -> (..., n_links, 3) world link positions."""
         from ..ops.lanes_fk import fk_positions_lanes
         return fk_positions_lanes(self.model, q)
+
+    def fk_map_collision_with_jac(self, q):
+        """q (..., 7) -> (points (..., n_links, 3), J (..., n_links, 3, 7)):
+        world link positions and their analytic point Jacobians from one
+        lanes FK pass."""
+        from ..ops.lanes_fk import fk_points_jacobians_lanes
+        return fk_points_jacobians_lanes(self.model, q)

@@ -10,12 +10,15 @@ from __future__ import annotations
 
 import torch
 
+from ..core.device import resolve_device
+
 __all__ = ["gp_transition", "gp_Q_inv", "gp_prior_blocks", "gp_prior_terms",
            "straight_line_trajs"]
 
 
-def gp_transition(d: int, dt: float, dtype=torch.float32, device="cpu"):
+def gp_transition(d: int, dt: float, dtype=torch.float32, device="cuda"):
     """Phi = [[I, dt I], [0, I]] for x = [q, qd]."""
+    device = resolve_device(device)
     eye = torch.eye(d, dtype=dtype, device=device)
     zero = torch.zeros((d, d), dtype=dtype, device=device)
     return torch.cat([torch.cat([eye, dt * eye], 1),
@@ -23,10 +26,10 @@ def gp_transition(d: int, dt: float, dtype=torch.float32, device="cpu"):
 
 
 def gp_Q_inv(d: int, dt: float, sigma_gp: float, dtype=torch.float32,
-             device="cpu"):
+             device="cuda"):
     """Q^-1 = [[12/dt^3, -6/dt^2], [-6/dt^2, 4/dt]] (x) Qc^-1."""
     qc_inv = 1.0 / (sigma_gp ** 2)
-    eye = torch.eye(d, dtype=dtype, device=device)
+    eye = torch.eye(d, dtype=dtype, device=resolve_device(device))
     a = 12.0 / dt ** 3 * qc_inv
     b = -6.0 / dt ** 2 * qc_inv
     c = 4.0 / dt * qc_inv
@@ -36,10 +39,11 @@ def gp_Q_inv(d: int, dt: float, sigma_gp: float, dtype=torch.float32,
 
 def gp_prior_blocks(d: int, H: int, dt: float, sigma_start: float,
                     sigma_gp: float, sigma_goal: float, dtype=torch.float32,
-                    device="cpu"):
+                    device="cuda"):
     """Static block-tridiagonal Hessian of the GP factor graph:
     (D (H, m, m), U (H-1, m, m))."""
     m = 2 * d
+    device = resolve_device(device)
     Phi = gp_transition(d, dt, dtype, device)
     Qi = gp_Q_inv(d, dt, sigma_gp, dtype, device)
     PhiT_Qi = Phi.T @ Qi
