@@ -1,17 +1,17 @@
-"""Drive the PyTorch/CUDA port's two paths on one NVIDIA GPU and check
-them: the GPMP2-MPC main path (phases 2-6) and the batched iLQR path
-(phases 7-11).
+"""Drive the PyTorch/CUDA port's three paths on one NVIDIA GPU and check
+them: the GPMP2-MPC main path (phases 2-6), the batched iLQR path (phases
+7-11) and the multi-robot MPC path (phases 12-15).
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases (each prints one JSON line; any failure exits nonzero before the
 final line):
 
-1. build   - nvcc builds every CUDA kernel of both paths from csrc/ (one
-             process per source, all at once: terms.cu, btridiag.cu,
-             riccati.cu); prints build seconds, the register and spill
-             report of each kernel's launched instantiation, and the
-             card's name and power limit.
+1. build   - nvcc builds every CUDA kernel of the three paths from csrc/
+             (one process per source, all at once: terms.cu, btridiag.cu,
+             riccati.cu, mr_terms.cu, btridiag_cols.cu); prints build
+             seconds, the register and spill report of each kernel's
+             launched instantiation, and the card's name and power limit.
 2. terms   - the fused GN-terms kernel vs its plain PyTorch version on the
              card: Panda in EnvSpheres3D at N = 64 * 1024 waypoints (the
              main path's first q, timed, and random q), plus a rounded-box
@@ -48,10 +48,26 @@ final line):
              median goal distance near the CPU float32 run's.
 11. ilqr_mpc - the bench's tracking loop (H = 16, 3 iterations per step,
              30 steps, B = 512) through the same kernels.
+12. mr_terms - the MultiRobot terms kernel (K5) vs its plain version at
+             N = H B = 8192 on the config-4 robot (Panda, Panda, UR10;
+             benchmarks/run_all.py config_multi_robot): the path's first q
+             (straight-line plans), random in-limit q, and random q at a
+             tighter pose set (bases 0.5 m apart) where many mutual rows
+             are active; timed.
+13. mr_solve - the column sweep (K4) vs its plain version at (H, m, m, B)
+             = (32, 40, 40, 256): a random well-conditioned system, the
+             path's first GN system held to a float64 solve, and both at a
+             ragged B = 100; timed, with the dense torch.linalg.solve.
+14. mr_mpc  - the config-4 path at full size: B = 256, H = 32, 30 MPC
+             steps of 2 GN iterations (mpc_rollout); launch counts (exactly
+             60 / 60), finiteness, solves/s, ms per step, collision-free
+             starts, goal distance, executed paths free, a profile.
+15. mr_cpu  - one config-4 MPC step at B = 16 on the card and on the CPU,
+             each held to a float64 CPU step, iteration by iteration.
 
 Then one JSON line with every kernel's numbers (launches from phase 4 for
-K1 and K2, from phase 9 for K6, K7 and K8), the nvidia-smi line, and the
-final {"ok": true, "device": ...} line.
+K1 and K2, from phase 9 for K6, K7 and K8, from phase 14 for K4 and K5),
+the nvidia-smi line, and the final {"ok": true, "device": ...} line.
 """
 from __future__ import annotations
 
@@ -101,6 +117,22 @@ RICCATI_TOL, ROLLOUT_TOL = 1e-5, 1e-6
 # lanes differ, so the batch's quality is compared: fraction free within 3
 # of 32 lanes, median final goal distance within 50% (+ 0.01 rad)
 IL_FREE_TOL, IL_DIST_TOL = 3 / 32, 0.5
+# the multi-robot path: benchmarks/run_all.py config_multi_robot (config 4)
+MR_B, MR_H, MR_STEPS, MR_ITERS, MR_CPU_B = 256, 32, 30, 2, 16
+MR_GP = dict(n_support_points=MR_H, dt=0.05, sigma_start=1e-3,
+             sigma_gp=1e-1, sigma_goal_prior=1e-3, sigma_coll=1e-3,
+             step_size=0.7)
+# (kind, base (x, y), yaw) per member: config 4's poses, and a tighter set
+# (bases 0.5 m apart, as tests/test_multi_robot.py places its two arms)
+MR_POSES = (("panda", (0.2, 0.72), 0.0), ("panda", (0.2, -0.72), np.pi),
+            ("ur10", (-0.75, 0.0), 0.0))
+MR_TIGHT_POSES = (("panda", (0.0, 0.5), 0.0), ("panda", (0.0, -0.5), np.pi),
+                  ("ur10", (-0.5, 0.0), 0.0))
+# two members (tests/test_pallas_terms.py's MultiRobot shape): other sizes
+# through the kernel's run-time layout
+MR_TWO_ARM_POSES = (("panda", (0.2, 0.55), 0.0), ("ur10", (0.2, -0.55), np.pi))
+# rounds of config 4's start budget (B * 1024 candidates) before giving up
+MR_MAX_ROUNDS = 8
 
 
 def emit(phase: str, **fields) -> None:
@@ -191,24 +223,36 @@ def terms_work(lay, q, r):
     column of a point row (cross product + dot), 33 per column live at both
     points of a pair and 18 at one, then 2 + 2k + k(k+1) to add r^2, r Jr
     and Jr^T Jr over its k live columns."""
-    import torch
     model = lay.model
     d, N = q.shape
-    per_lane = lane_ops(lay, r.shape[0]) + 18 * d
-
     ctrl = list(model.controlled_link_idxs())
-    lo = torch.as_tensor(model.clamp_lower[ctrl], device=q.device)[:, None]
-    hi = torch.as_tensor(model.clamp_upper[ctrl], device=q.device)[:, None]
+    per_lane = lane_ops(lay, r.shape[0]) + 18 * d
+    return (4 * N * (2 * d + d * d + 1),
+            per_lane * N + active_row_ops(lay.row_joints(),
+                                          model.clamp_lower[ctrl],
+                                          model.clamp_upper[ctrl], q, r))
+
+
+def active_row_ops(row_joints, clamp_lo, clamp_hi, q, r) -> int:
+    """Float ops of the active rows (r > 0 on q), over their live Jacobian
+    columns only (the joint moves the row's point, or a pair's either
+    point, and q is inside the joint's clamp): 18 per column of a point
+    row (cross product + dot), 33 per column live at both points of a pair
+    and 18 at one, then 2 + 2k + k(k+1) to add r^2, r Jr and Jr^T Jr over
+    its k live columns.  row_joints: ``TermsLayout.row_joints()``'s
+    (a, b); clamp_lo, clamp_hi: (d,) per joint."""
+    import torch
+    lo = torch.as_tensor(clamp_lo, device=q.device)[:, None]
+    hi = torch.as_tensor(clamp_hi, device=q.device)[:, None]
     live_q = ((q >= lo) & (q <= hi))[None]                      # (1, d, N)
     act = (r > 0)[:, None]                                      # (R, 1, N)
     a, b = (torch.as_tensor(m, device=q.device)[:, :, None]
-            for m in lay.row_joints())
+            for m in row_joints)
     at_a, at_b = a & live_q & act, b & live_q & act             # (R, d, N)
     both = (at_a & at_b).sum(1)
     k = (at_a | at_b).sum(1)                                    # (R, N)
-    row_ops = (33 * both + 18 * (k - both)
-               + (2 + 2 * k + k * (k + 1)) * act[:, 0])
-    return 4 * N * (2 * d + d * d + 1), per_lane * N + int(row_ops.sum())
+    return int((33 * both + 18 * (k - both)
+                + (2 + 2 * k + k * (k + 1)) * act[:, 0]).sum())
 
 
 def lane_ops(lay, n_rows: int, per_row: int = 2) -> int:
@@ -276,14 +320,68 @@ def solve_work(H_: int, m: int, B_: int):
     """(bytes, float ops) of one sweep: D, U, b in, x out; ops counted from
     the kernel's loops (Cholesky, y, W, S, Wy per step; W x and the
     transposed triangular solve per backward step)."""
-    chol = sum(2 * j + 1 for i in range(m) for j in range(i + 1))
-    fwd = (m * (m + 1) // 2 + chol + sum(2 * i + 2 for i in range(m))
-           + m * sum(2 * i + 1 for i in range(m))
-           + m * (m + 1) // 2 * (2 * m - 1) + m * (2 * m - 1))
     bwd = sum(2 * (m - 1 - i) + 1 for i in range(m))
-    ops = (H_ * (fwd + bwd) + (H_ - 1) * 2 * m * m) * B_
+    ops = (H_ * (sweep_step_ops(m) + bwd) + (H_ - 1) * 2 * m * m) * B_
     nbytes = 4 * (H_ * m * m * B_ + H_ * m * m + 2 * H_ * m * B_)
     return nbytes, ops
+
+
+def sweep_step_ops(m: int) -> int:
+    """Float ops of one forward block step: A = D - S, its Cholesky, y, W,
+    the symmetric S = W^T W and Wy."""
+    chol = sum(2 * j + 1 for i in range(m) for j in range(i + 1))
+    return (m * (m + 1) // 2 + chol + sum(2 * i + 2 for i in range(m))
+            + m * sum(2 * i + 1 for i in range(m))
+            + m * (m + 1) // 2 * (2 * m - 1) + m * (2 * m - 1))
+
+
+def cols_solve_work(H_: int, m: int, B_: int):
+    """(bytes, float ops) of the column sweep: D, U, b in, x out; ops
+    counted from the algorithm per lane: the forward step of solve_work
+    (Cholesky, y, W, S, Wy), then per backward step the transposed
+    triangular solve, and below the last block the matvec U_k x_{k+1}, the
+    triangular solve L_k^-1 and the subtraction."""
+    nbytes, _ = solve_work(H_, m, B_)
+    trsv = sum(2 * i + 1 for i in range(m))
+    ops = (H_ * (sweep_step_ops(m) + trsv)
+           + (H_ - 1) * (2 * m * m + trsv + m)) * B_
+    return nbytes, ops
+
+
+def mr_terms_work(lay, q, r):
+    """(bytes, float ops) that the MultiRobot terms need on q (d, N), whose
+    residual rows (the plain version's ``rows``) are r (R, N).
+
+    Bytes: q (d, N) in, g (d, N), Hqq (d, d, N), cost (N) out.  Ops every
+    lane needs: each member's FK compose (~132 per revolute link, ~63 per
+    fixed), its world joint axes and origins with the base pose (48 per
+    joint), every point's base transform (15), the scene SDF of each object
+    point (15 per point and object + ~10 per sphere), its workspace
+    distance (12), each pair's distance (12) and each row's hinge (2); the
+    active rows as active_row_ops counts them."""
+    from torch_robotics_tpu_torch.geom.sdf import Spheres
+    d, N = q.shape
+    n_pts = len(lay.point_joints())
+    n_obj, n_pair = len(lay.obj_pos), len(lay.pair_a)
+    per_lane = 15 * n_pts + 12 * (n_obj + n_pair) + 2 * r.shape[0]
+    for mem in lay.members:
+        model = mem.model
+        n_rev = sum(1 for t in model.joint_types if t != 0)
+        per_lane += (132 * n_rev + 63 * (model.n_links - n_rev)
+                     + 48 * model.n_dofs)
+    for obj in lay.df_obj_list:
+        per_lane += n_obj * 15
+        for f in obj.fields:
+            if not isinstance(f, Spheres):
+                raise NotImplementedError("config 4's scene holds spheres")
+            per_lane += n_obj * 10 * f.centers.shape[0]
+    ctrl = [list(m.model.controlled_link_idxs()) for m in lay.members]
+    clo = np.concatenate([m.model.clamp_lower[c]
+                          for m, c in zip(lay.members, ctrl)])
+    chi = np.concatenate([m.model.clamp_upper[c]
+                          for m, c in zip(lay.members, ctrl)])
+    return (4 * N * (2 * d + d * d + 1),
+            per_lane * N + active_row_ops(lay.row_joints(), clo, chi, q, r))
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -301,18 +399,20 @@ def phase_build():
     from torch_robotics_tpu_torch.ops.cuda_build import build_all
     kernels = (terms_kernel.KERNEL, terms_kernel.COST_KERNEL,
                btridiag_kernel.KERNEL, riccati_kernel.RICCATI_KERNEL,
-               riccati_kernel.ROLLOUT_KERNEL)
+               riccati_kernel.ROLLOUT_KERNEL, terms_kernel.MR_KERNEL,
+               btridiag_kernel.COLS_KERNEL)
     t0 = time.perf_counter()
     logs = build_all(kernels)
     secs = time.perf_counter() - t0
-    # resource report of the instantiations the two paths launch
+    # resource report of the instantiations the three paths launch
     report = {}
     for src, text in logs.items():
         lines = text.splitlines()
         for i, line in enumerate(lines):
             for name in ("terms_kernelILi7E", "cost_kernelILi7E",
                          "btridiag_w_kernelILi14E", "riccati_kernelILi7E",
-                         "rollout_kernelILi7E"):
+                         "rollout_kernelILi7E", "mr_terms_kernel",
+                         "btridiag_cols_kernel"):
                 if "Compiling entry function '_ZN" in line and name in line:
                     report[name.split("ILi")[0]] = " | ".join(
                         s.strip().split("info    : ")[-1]
@@ -445,6 +545,21 @@ def dense_solve_fn(D, U, b):
     return lambda: torch.linalg.solve(A, rhs)
 
 
+def random_system(H_: int, m: int, B_: int, seed: int):
+    """A random well-conditioned SPD block-tridiagonal system (D, U, b) in
+    the lanes layout on the card, as tests/test_torch_btridiag.py builds
+    them."""
+    import torch
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B_, H_, m, m)) * 0.3
+    D = np.transpose(A @ np.swapaxes(A, -1, -2) + 3.0 * np.eye(m),
+                     (1, 2, 3, 0))
+    return [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                            device="cuda")
+            for a in (D, rng.normal(size=(H_, m, m, 1)) * 0.2,
+                      rng.normal(size=(H_, m, B_)))]
+
+
 def phase_solve():
     import torch
     from torch_robotics_tpu_torch.ops.btridiag_kernel import solve_lanes_w
@@ -459,15 +574,8 @@ def phase_solve():
     b_l, D_l, U_l, _ = _lanes_gn_system(
         task.collision_residuals.obstacle_terms_lanes, theta0, start, goal,
         GPMP2Params(**GP_PARAMS))
-    rng = np.random.default_rng(3)
     m = D_l.shape[1]
-    A = rng.normal(size=(B, H, m, m)) * 0.3
-    D_r = np.transpose(A @ np.swapaxes(A, -1, -2) + 3.0 * np.eye(m),
-                       (1, 2, 3, 0))
-    U_r = rng.normal(size=(H, m, m, 1)) * 0.2
-    b_r = rng.normal(size=(H, m, B))
-    rand = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
-            for a in (D_r, U_r, b_r)]
+    rand = random_system(H, m, B, seed=3)
     results = {}
     for name, (D, U, b) in (("gn", (D_l, U_l, b_l)), ("random", rand)):
         for Bn in (B, 100):
@@ -606,18 +714,30 @@ def phase_cpu():
     float64 step (hold_to_f64), both per GN iteration from the same input
     (where the costs are held card vs CPU at MPC_TOL) and over the chained
     step from the straight-line plan."""
-    import torch
-    from torch_robotics_tpu_torch.solve import (GPMP2Params, gpmp2_step,
-                                                mpc_step, MPCParams,
-                                                MPCState,
-                                                straight_line_trajs)
+    from torch_robotics_tpu_torch.solve import GPMP2Params
     n = 32
     task_c, start_c, goal_c = bench_problem("cuda", n)
     task_h, start_h, goal_h = bench_problem("cpu", n)
-    params = GPMP2Params(**GP_PARAMS)
-    theta = straight_line_trajs(start_c, goal_c, H)
+    iters, chained = step_vs_f64(task_c, task_h, (start_c, goal_c),
+                                 (start_h, goal_h), GPMP2Params(**GP_PARAMS),
+                                 H, ITERS_PER_STEP, "")
+    emit("cpu", B=n, H=H, iterations=iters, chained_step=chained)
+
+
+def step_vs_f64(task_c, task_h, card, cpu, params, H_, n_iters, label):
+    """One MPC step of ``n_iters`` GN iterations on the card (task_c, card
+    = (start, goal)) and on the CPU (task_h, cpu), each held to a float64
+    CPU step (hold_to_f64): per GN iteration from the same input, where the
+    costs are held card vs CPU at MPC_TOL, and over the chained step from
+    the straight-line plan -> (per-iteration gaps, chained-step gaps)."""
+    import torch
+    from torch_robotics_tpu_torch.solve import (MPCParams, MPCState,
+                                                gpmp2_step, mpc_step,
+                                                straight_line_trajs)
+    (start_c, goal_c), (start_h, goal_h) = card, cpu
+    theta = straight_line_trajs(start_c, goal_c, H_)
     iters = []
-    for it in range(ITERS_PER_STEP):
+    for it in range(n_iters):
         th_c, cost_c = gpmp2_step(task_c.collision_residuals, theta,
                                   start_c, goal_c, params)
         th_in = theta.cpu()
@@ -628,15 +748,15 @@ def phase_cpu():
         rel_cost = float(((cost_c.cpu() - cost_h).abs()
                           / cost_h.abs().clamp(min=1e-30)).max())
         check(bool(torch.isfinite(th_c).all()), "card step non-finite")
-        check(rel_cost <= MPC_TOL, "iteration %d: card vs CPU cost %.3g"
-              % (it, rel_cost))
+        check(rel_cost <= MPC_TOL, "%siteration %d: card vs CPU cost %.3g"
+              % (label, it, rel_cost))
         gaps = theta_gaps(th_c, th_h, th_64)
-        hold_to_f64("iteration %d" % it, gaps)
+        hold_to_f64("%siteration %d" % (label, it), gaps)
         iters.append(dict(gaps, cost_rel_err=rel_cost))
         theta = th_c
 
-    mp = MPCParams(gpmp2=params, iters_per_step=ITERS_PER_STEP)
-    th0 = straight_line_trajs(start_h, goal_h, H)
+    mp = MPCParams(gpmp2=params, iters_per_step=n_iters)
+    th0 = straight_line_trajs(start_h, goal_h, H_)
     s_c, _ = mpc_step(task_c.collision_residuals, MPCState(
         th0.cuda(), start_c), goal_c, mp)
     s_h, _ = mpc_step(task_h.collision_residuals, MPCState(th0, start_h),
@@ -645,8 +765,8 @@ def phase_cpu():
         th0.double(), start_h.double()), goal_h.double(), mp)
     check(bool(torch.isfinite(s_c.theta).all()), "chained step non-finite")
     chained = theta_gaps(s_c.theta, s_h.theta, s_64.theta)
-    hold_to_f64("chained step", chained)
-    emit("cpu", B=n, H=H, iterations=iters, chained_step=chained)
+    hold_to_f64(label + "chained step", chained)
+    return iters, chained
 
 
 def phase_fk():
@@ -1025,6 +1145,275 @@ def phase_ilqr_mpc(task, start, goal, plan):
          median_final_goal_dist=float(dist.median()))
 
 
+# ----------------------------------------------------------------------
+# the multi-robot path: benchmarks/run_all.py config_multi_robot (config 4)
+# ----------------------------------------------------------------------
+def mr_task(device, poses=MR_POSES):
+    """The config-4 robot (two Pandas and a UR10 at their base poses) in
+    EnvSpheres3D at cutoff 0.02."""
+    import torch
+    from torch_robotics_tpu_torch.core import z_rot
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    from torch_robotics_tpu_torch.robots import (MultiRobot, RobotPanda,
+                                                 RobotUR10)
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    make = {"panda": lambda: RobotPanda.create(device=device),
+            "ur10": lambda: RobotUR10(device=device)}
+    robot = MultiRobot.create(
+        [make[k]() for k, _, _ in poses],
+        [(z_rot(torch.tensor(yaw, dtype=torch.float32)),
+          torch.tensor([x, y, 0.0])) for _, (x, y), yaw in poses])
+    return PlanningTask(env=EnvSpheres3D(device=device), robot=robot,
+                        obstacle_cutoff_margin=0.02)
+
+
+def mr_problem(device, n_batch: int = MR_B):
+    """Config 4's draw -> (task, start, goal (n, 40), starts drawn).
+
+    Starts: random_coll_free_q with config 4's budget of B * 1024
+    candidates from a seeded CPU generator.  About 0.09% of the joint box
+    is free, so one budget finds ~0.92 B free starts (the JAX package's own
+    draw finds 242 of 256); further rounds of the same budget from the same
+    generator fill the batch, and the count of rounds is reported.  Goals:
+    clip(q0 + 0.4 N(0, 1), q_min, q_max) from a numpy seed."""
+    import torch
+    task = mr_task(device)
+    robot = task.robot
+    gen = torch.Generator().manual_seed(SEED)
+    found, first_round = [], None
+    for _ in range(MR_MAX_ROUNDS):
+        qs, n_valid = task.random_coll_free_q(
+            gen, n_samples=n_batch, max_samples=n_batch * 1024)
+        first_round = n_valid if first_round is None else first_round
+        found.append(qs[:n_valid])
+        if sum(len(f) for f in found) >= n_batch:
+            break
+    q0 = torch.cat(found)[:n_batch]
+    check(len(q0) == n_batch, "only %d collision-free starts in %d rounds"
+          % (len(q0), MR_MAX_ROUNDS))
+    noise = torch.as_tensor(np.random.default_rng(SEED).normal(
+        size=(n_batch, robot.q_dim)), dtype=torch.float32, device=device)
+    qg = torch.maximum(torch.minimum(q0 + 0.4 * noise, robot.q_max),
+                       robot.q_min)
+    z = torch.zeros_like(q0)
+    return (task, torch.cat([q0, z], -1), torch.cat([qg, z], -1),
+            dict(first_round_free=first_round, rounds=len(found)))
+
+
+def mr_first_q(start, goal):
+    """The path's first q: the straight-line plans, h-major lanes (d, H B)."""
+    from torch_robotics_tpu_torch.solve import straight_line_trajs
+    d = start.shape[1] // 2
+    return (straight_line_trajs(start, goal, MR_H)[..., :d]
+            .permute(2, 1, 0).reshape(d, -1).contiguous())
+
+
+def phase_mr_terms(task, start, goal):
+    """K5 vs its plain version at N = H B = 8192 (terms tolerances): the
+    path's first q, random in-limit q, and random q at the tighter poses,
+    then a two-member robot at N = 4096; the active-row shares; timed on
+    the first q, with its work counted."""
+    import torch
+    terms = task.collision_residuals.obstacle_terms_lanes
+    q_main = mr_first_q(start, goal)
+    N = q_main.shape[1]
+    rng = np.random.default_rng(7)
+
+    def in_limits(t, n=N):
+        lo, hi = t.robot.q_min.cpu().numpy(), t.robot.q_max.cpu().numpy()
+        u = rng.uniform(size=(lo.shape[0], n))
+        return torch.as_tensor(lo[:, None] + u * (hi - lo)[:, None],
+                               dtype=torch.float32, device="cuda")
+
+    tight = mr_task("cuda", MR_TIGHT_POSES)
+    two_arm = mr_task("cuda", MR_TWO_ARM_POSES)
+    results, shares = {}, {}
+    for name, t, q in (("config4_first_q", task, q_main),
+                       ("config4_random_q", task, in_limits(task)),
+                       ("tight_poses_random_q", tight, in_limits(tight)),
+                       ("two_arm_random_q_N4096", two_arm,
+                        in_limits(two_arm, 4096))):
+        tt = t.collision_residuals.obstacle_terms_lanes
+        got, ref = tt.unscaled(q), tt.plain.unscaled(q)
+        for g, r in zip(got, ref):
+            tol = TERMS_ATOL_REL * float(r.abs().max()) + TERMS_RTOL * r.abs()
+            check(bool(torch.isfinite(g).all()), name + ": non-finite terms")
+            check(bool(((g - r).abs() <= tol).all()),
+                  "%s: MultiRobot terms kernel disagrees with its plain "
+                  "version" % name)
+        results[name] = max_errs(got, ref)
+        r = tt.plain.rows(q)[0]
+        n_mutual = sum(len(v) for v in tt.plain.layout.groups.values())
+        shares[name] = dict(rows=float((r > 0).float().mean()),
+                            mutual_rows=float((r[-n_mutual:] > 0)
+                                              .float().mean()))
+    check(shares["tight_poses_random_q"]["mutual_rows"]
+          > shares["config4_random_q"]["mutual_rows"],
+          "the tight poses activate no more mutual rows")
+    k_ms = cuda_ms(lambda: terms.unscaled(q_main), iters=50)
+    p_ms = cuda_ms(lambda: terms.plain.unscaled(q_main), iters=5, warmup=1)
+    r_main = terms.plain.rows(q_main)[0]
+    nbytes, ops = mr_terms_work(terms.plain.layout, q_main, r_main)
+    emit("mr_terms", N=N, max_errs={k: {"abs": v[0], "rel_to_max": v[1]}
+                                    for k, v in results.items()},
+         active_row_share=shares, kernel_ms=k_ms, plain_ms=p_ms,
+         bytes=nbytes, ops=ops, bound_ms=bound_ms(nbytes, ops)[0])
+    return dict(max_abs_err=results["config4_first_q"][0], ms=k_ms,
+                plain_ms=p_ms, work=(nbytes, ops))
+
+
+def phase_mr_solve(task, start, goal):
+    """K4 vs its plain version at (32, 40, 40, 256): a random
+    well-conditioned system (1e-5 of max|x|; also at (H, m, B) = (6, 9, 37),
+    another size of the same kernel) and the path's first GN system
+    held to a float64 solve (no worse than twice the plain float32 error,
+    +1e-5; the two float32 errors differ by rounding luck, either way, on
+    this ill-conditioned system).  Both again at a ragged B = 100: one
+    block takes one lane, so each lane's solve is bit for bit the one at
+    B = 256 (and the random system stays within 1e-5 of plain).  Timed,
+    with the dense solve."""
+    import torch
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import solve_lanes_cols
+    from torch_robotics_tpu_torch.solve import (GPMP2Params,
+                                                straight_line_trajs)
+    from torch_robotics_tpu_torch.solve.btridiag_lanes import (
+        solve_lanes_core)
+    from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
+    theta0 = straight_line_trajs(start, goal, MR_H)
+    b_l, D_l, U_l, _ = _lanes_gn_system(
+        task.collision_residuals.obstacle_terms_lanes, theta0, start, goal,
+        GPMP2Params(**MR_GP))
+    m = D_l.shape[1]
+    rand = random_system(MR_H, m, MR_B, seed=8)
+    results = {}
+    for name, (D, U, b) in (("gn", (D_l, U_l, b_l)), ("random", rand)):
+        x_full = None
+        for Bn in (MR_B, 100):
+            Dn = D[..., :Bn].contiguous()
+            bn = b[..., :Bn].contiguous()
+            x_k = solve_lanes_cols(Dn, U, bn)
+            x_p = solve_lanes_core(Dn, U, bn)
+            x_64 = solve_lanes_core(Dn.double(), U.double(), bn.double())
+            check(bool(torch.isfinite(x_k).all()), name + ": non-finite x")
+            key = "%s_B%d" % (name, Bn)
+            err, rel = max_errs([x_k], [x_p])
+            rel_k64 = max_errs([x_k.double()], [x_64])[1]
+            rel_p64 = max_errs([x_p.double()], [x_64])[1]
+            lane_k64 = ((x_k.double() - x_64).abs().amax((0, 1))
+                        / x_64.abs().max())
+            lane_p64 = ((x_p.double() - x_64).abs().amax((0, 1))
+                        / x_64.abs().max())
+            if x_full is None:
+                ok = (rel <= SOLVE_TOL_RANDOM if name == "random" else
+                      rel_k64 <= SOLVE_GN_FACTOR * rel_p64
+                      + SOLVE_TOL_RANDOM)
+                x_full = x_k
+            else:
+                # one block per lane: a lane's solve does not depend on B
+                ok = (torch.equal(x_k, x_full[..., :Bn])
+                      and (name != "random" or rel <= SOLVE_TOL_RANDOM))
+            check(ok, "%s: column sweep disagrees (vs plain %.3g, vs float64 "
+                  "%.3g, plain vs float64 %.3g of max|x|)"
+                  % (key, rel, rel_k64, rel_p64))
+            results[key] = dict(
+                abs=err, rel_to_max=rel, kernel_vs_f64=rel_k64,
+                plain_vs_f64=rel_p64,
+                kernel_vs_f64_median_lane=float(lane_k64.median()),
+                plain_vs_f64_median_lane=float(lane_p64.median()))
+    small = random_system(6, 9, 37, seed=9)
+    err, rel = max_errs([solve_lanes_cols(*small)], [solve_lanes_core(*small)])
+    check(rel <= SOLVE_TOL_RANDOM, "random (6, 9, 37): column sweep vs plain "
+          "%.3g of max|x|" % rel)
+    results["random_H6_m9_B37"] = dict(abs=err, rel_to_max=rel)
+    k_ms = cuda_ms(lambda: solve_lanes_cols(D_l, U_l, b_l), iters=20)
+    p_ms = cuda_ms(lambda: solve_lanes_core(D_l, U_l, b_l), iters=2,
+                   warmup=1)
+    lib_ms = cuda_ms(dense_solve_fn(D_l, U_l, b_l), iters=3, warmup=1)
+    torch.cuda.empty_cache()
+    work = cols_solve_work(MR_H, m, MR_B)
+    emit("mr_solve", shape=[MR_H, m, m, MR_B], max_errs=results,
+         kernel_ms=k_ms, plain_ms=p_ms, dense_solve_ms=lib_ms,
+         bytes=work[0], ops=work[1], bound_ms=bound_ms(*work)[0])
+    return dict(max_abs_err=results["gn_B%d" % MR_B]["abs"], ms=k_ms,
+                plain_ms=p_ms, library_ms=lib_ms, work=work)
+
+
+def mr_rollout(task, start, goal, n_steps):
+    from torch_robotics_tpu_torch.solve import (GPMP2Params, MPCParams,
+                                                mpc_rollout)
+    return mpc_rollout(task.collision_residuals, start, goal,
+                       MPCParams(gpmp2=GPMP2Params(**MR_GP),
+                                 iters_per_step=MR_ITERS), n_steps)
+
+
+def phase_mr_mpc(task, start, goal, draw):
+    """Config 4 at full size: B = 256, H = 32, 30 steps of 2 GN iterations
+    through mpc_rollout; launches exactly 60 / 60 (K5 / K4), every output
+    finite, CUDA-event timing, quality, a profile."""
+    import torch
+    from torch_robotics_tpu_torch.ops import btridiag_kernel, terms_kernel
+    mr_rollout(task, start, goal, 1)                 # warm-up
+    torch.cuda.synchronize()
+    kernels = (terms_kernel.MR_KERNEL, btridiag_kernel.COLS_KERNEL,
+               terms_kernel.KERNEL, btridiag_kernel.KERNEL)
+    for k in kernels:
+        k.launches = 0
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    xs, info = mr_rollout(task, start, goal, MR_STEPS)
+    ev1.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = [k.launches for k in kernels]
+    expected = MR_STEPS * MR_ITERS
+    check(launches == [expected, expected, 0, 0],
+          "multi-robot launches %s (K5, K4, K1, K2), expected [%d, %d, 0, 0]"
+          % (launches, expected, expected))
+    final = info["final_state"]
+    check(all(bool(torch.isfinite(t).all()) for t in
+              (xs, info["dist_to_goal"], final.theta, final.x)),
+          "multi-robot path produced non-finite outputs")
+    d = start.shape[1] // 2
+    n_free = int((~task.compute_collision(start)).sum())
+    check(n_free == MR_B, "only %d of %d starts are collision-free"
+          % (n_free, MR_B))
+    ms = ev0.elapsed_time(ev1)
+    executed = torch.cat([start[:, None], xs], dim=1)
+    busy, dev_ms, top = profile_device(
+        lambda: mr_rollout(task, start, goal, 2), 2)
+    emit("mr_mpc", arms=3, q_dim=d, B=MR_B, H=MR_H, steps=MR_STEPS,
+         iters_per_step=MR_ITERS,
+         mutual_pairs=sum(len(v) for v in task.collision_residuals
+                          .obstacle_terms_lanes.plain.layout.groups.values()),
+         launches=dict(multirobot_terms=launches[0],
+                       btridiag_cols=launches[1]),
+         n_free_starts=n_free, start_draw=draw,
+         ms_per_step=ms / MR_STEPS, host_wall_ms_per_step=(
+             wall_s * 1e3 / MR_STEPS),
+         solves_per_s=MR_B * MR_STEPS / (ms / 1e3),
+         mean_final_goal_dist=float(info["dist_to_goal"][-1].mean()),
+         fraction_free_executed=task.compute_fraction_free_trajs(
+             executed[..., :d]),
+         profiled_device_busy_share=busy, profiled_device_ms_per_step=dev_ms,
+         top_device_ms_per_step=top)
+    return launches
+
+
+def phase_mr_cpu(start, goal):
+    """One config-4 MPC step at B = 16 on the card and on the CPU, each held
+    to a float64 CPU step (step_vs_f64), as phase cpu does."""
+    from torch_robotics_tpu_torch.solve import GPMP2Params
+    n = MR_CPU_B
+    s_c, g_c = start[:n].contiguous(), goal[:n].contiguous()
+    iters, chained = step_vs_f64(mr_task("cuda"), mr_task("cpu"),
+                                 (s_c, g_c), (s_c.cpu(), g_c.cpu()),
+                                 GPMP2Params(**MR_GP), MR_H, MR_ITERS,
+                                 "multi-robot ")
+    emit("mr_cpu", B=n, H=MR_H, iterations=iters, chained_step=chained)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1049,6 +1438,12 @@ def main() -> None:
     phase_ilqr_cpu(il_task, il_start, il_goal)
     phase_ilqr_mpc(il_task, il_start, il_goal, il_res.trajs)
 
+    mr, mr_start, mr_goal, draw = mr_problem("cuda")
+    mr_terms = phase_mr_terms(mr, mr_start, mr_goal)
+    mr_solve = phase_mr_solve(mr, mr_start, mr_goal)
+    mr_launches = phase_mr_mpc(mr, mr_start, mr_goal, draw)
+    phase_mr_cpu(mr_start, mr_goal)
+
     entries = []
     for name, src, rep, res, n in (
             ("obstacle_terms", "torch_robotics_tpu_torch/csrc/terms.cu",
@@ -1065,7 +1460,13 @@ def main() -> None:
              sweeps["rollout"], il_launches[1]),
             ("collision_cost", "torch_robotics_tpu_torch/csrc/terms.cu",
              "torch_robotics_tpu/ops/pallas_terms.py:1029", cost,
-             il_launches[2])):
+             il_launches[2]),
+            ("multirobot_terms", "torch_robotics_tpu_torch/csrc/mr_terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", mr_terms,
+             mr_launches[0]),
+            ("btridiag_cols", "torch_robotics_tpu_torch/csrc/btridiag_cols.cu",
+             "torch_robotics_tpu/ops/pallas_btridiag.py:583", mr_solve,
+             mr_launches[1])):
         b_ms, b_by = bound_ms(*res["work"])
         entries.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n,

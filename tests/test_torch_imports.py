@@ -133,3 +133,43 @@ def test_chip_smoke_refuses_without_cuda():
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_multirobot_entry_points_default_to_the_card(monkeypatch):
+    """The UR10, its model and the axis rotations of base poses default to
+    the card and raise without one; a MultiRobot lives where its members
+    do."""
+    from torch_robotics_tpu_torch.core import x_rot, y_rot, z_rot
+    from torch_robotics_tpu_torch.kin import robot_zoo
+    from torch_robotics_tpu_torch.robots import MultiRobot, RobotUR10
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (RobotUR10, robot_zoo.ur10, lambda: z_rot(0.5),
+                 lambda: x_rot(0.5), lambda: y_rot(0.5)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    robot = MultiRobot.create(
+        [RobotUR10(device="cpu"), RobotUR10(device="cpu")],
+        [(z_rot(0.0, device="cpu"), [0.0, 0.5, 0.0]),
+         (z_rot(3.0, device="cpu"), [0.0, -0.5, 0.0])])
+    assert robot.device.type == "cpu" and robot.base_rots.device.type == "cpu"
+
+
+def test_multirobot_wrappers_take_the_kernel_or_raise_off_the_cpu():
+    """The column sweep, the routing solve and the MultiRobot terms kernel
+    refuse a tensor that is neither CPU nor CUDA: no quiet plain run."""
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import (
+        solve_lanes_auto, solve_lanes_cols)
+    from torch_robotics_tpu_torch.ops.terms_kernel import \
+        run_multirobot_terms_kernel
+    for m in (4, 40):
+        D = torch.zeros((2, m, m, 3), device="meta")
+        U = torch.zeros((2, m, m, 1), device="meta")
+        b = torch.zeros((2, m, 3), device="meta")
+        for solve in (solve_lanes_cols, solve_lanes_auto):
+            with pytest.raises(ValueError):
+                solve(D, U, b)
+    ints = torch.zeros(16, dtype=torch.int32, device="meta")
+    floats = torch.zeros(8, device="meta")
+    with pytest.raises(ValueError):
+        run_multirobot_terms_kernel(torch.zeros((20, 5), device="meta"),
+                                    ints, floats, 20, 6, 1024)

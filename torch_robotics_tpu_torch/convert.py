@@ -17,6 +17,12 @@ Array dict keys:
 - scene: ``objects``, a list of {``pos`` (3,), ``ori`` wxyz (4,),
   ``groups``: [{``kind``: "spheres" | "rounded_boxes" | "sharp_boxes",
   ``centers``, and ``radii`` | ``half_sizes`` [+ ``round_radii``]}]}.
+
+A multi-robot task carries, instead of the model and collision keys,
+``members`` (a list of dicts with the model and collision keys of each
+arm), ``base_rots`` (n, 3, 3), ``base_trans`` (n, 3), and the MultiRobot's
+own ``self_pair_idxs`` (K, 2) over its full collision layout with their
+``self_margins`` (K,).
 """
 from __future__ import annotations
 
@@ -27,10 +33,15 @@ from .core.device import resolve_device
 from .envs.base import EnvBase
 from .geom.sdf import ObjectField, RoundedBoxes, SharpBoxes, Spheres
 from .kin.model import KinematicModel
+from .robots.kinematic_robot import KinematicRobot
+from .robots.multi_robot import MultiRobot
 from .robots.panda import RobotPanda
 from .tasks.planning_task import PlanningTask
 
 __all__ = ["task_from_numpy", "task_arrays", "MODEL_KEYS"]
+
+_ROBOT_KEYS = ("object_coll_idxs", "self_coll_idxs", "self_pair_idxs",
+               "object_margins", "self_margins")
 
 MODEL_KEYS = ("joint_trans", "joint_fixed_rot", "joint_axis", "clamp_lower",
               "clamp_upper", "q_lower", "q_upper")
@@ -45,9 +56,8 @@ def _f32(a, dev):
     return torch.as_tensor(np.array(a, np.float32), device=dev)
 
 
-def task_from_numpy(arrays: dict, device="cuda") -> PlanningTask:
-    """Build the port's PlanningTask from exported arrays (module doc)."""
-    dev = resolve_device(device)
+def _robot_from_numpy(arrays: dict, dev, cls=RobotPanda):
+    """One kinematic robot from its model and collision keys."""
     joint_types = tuple(int(t) for t in np.asarray(arrays["joint_types"]))
     q_map = np.asarray(arrays["q_map"], np.int32)
     n_links = len(joint_types)
@@ -58,7 +68,7 @@ def task_from_numpy(arrays: dict, device="cuda") -> PlanningTask:
         q_map=q_map,
         parent_idx=tuple(int(p) for p in np.asarray(arrays["parent_idx"])),
         joint_types=joint_types, device=dev, link_names=link_names)
-    robot = RobotPanda(
+    return cls(
         model=model,
         q_min=_f32(arrays["q_lower"], dev),
         q_max=_f32(arrays["q_upper"], dev),
@@ -70,6 +80,19 @@ def task_from_numpy(arrays: dict, device="cuda") -> PlanningTask:
                              np.asarray(arrays["self_pair_idxs"]).reshape(
                                  -1, 2)),
     )
+
+
+def task_from_numpy(arrays: dict, device="cuda") -> PlanningTask:
+    """Build the port's PlanningTask from exported arrays (module doc)."""
+    dev = resolve_device(device)
+    if "members" in arrays:
+        robot = MultiRobot.from_pairs(
+            [_robot_from_numpy(m, dev, KinematicRobot)
+             for m in arrays["members"]],
+            np.asarray(arrays["base_rots"]), np.asarray(arrays["base_trans"]),
+            arrays["self_pair_idxs"], arrays["self_margins"])
+    else:
+        robot = _robot_from_numpy(arrays, dev)
     objects = []
     for o in arrays["objects"]:
         groups = []
@@ -84,13 +107,13 @@ def task_from_numpy(arrays: dict, device="cuda") -> PlanningTask:
         arrays["obstacle_cutoff_margin"]))
 
 
-def task_arrays(task: PlanningTask) -> dict:
-    """Export a port task in ``task_from_numpy``'s format (numpy arrays)."""
-    robot, model = task.robot, task.robot.model
+def _np(t):
+    return t.detach().cpu().numpy()
 
-    def np_(t):
-        return t.detach().cpu().numpy()
 
+def _robot_arrays(robot) -> dict:
+    """A kinematic robot's model and collision keys."""
+    model = robot.model
     out = {k: np.asarray(getattr(model, k)) for k in MODEL_KEYS}
     out.update(
         joint_types=np.asarray(model.joint_types, np.int32),
@@ -101,11 +124,25 @@ def task_arrays(task: PlanningTask) -> dict:
         self_coll_idxs=np.asarray(robot.self_coll_idxs, np.int32),
         self_pair_idxs=np.asarray(robot.self_pair_idxs,
                                   np.int32).reshape(-1, 2),
-        object_margins=np_(robot.object_margins),
-        self_margins=np_(robot.self_margins),
-        ws_limits=np_(task.ws_limits),
-        obstacle_cutoff_margin=np.float64(task.obstacle_cutoff_margin),
-    )
+        object_margins=_np(robot.object_margins),
+        self_margins=_np(robot.self_margins))
+    return out
+
+
+def task_arrays(task: PlanningTask) -> dict:
+    """Export a port task in ``task_from_numpy``'s format (numpy arrays)."""
+    robot = task.robot
+    if isinstance(robot, MultiRobot):
+        out = dict(members=[_robot_arrays(r) for r in robot.robots],
+                   base_rots=_np(robot.base_rots),
+                   base_trans=_np(robot.base_trans),
+                   self_pair_idxs=np.asarray(robot.self_pair_idxs,
+                                             np.int32).reshape(-1, 2),
+                   self_margins=_np(robot.self_margins))
+    else:
+        out = _robot_arrays(robot)
+    out.update(ws_limits=_np(task.ws_limits),
+               obstacle_cutoff_margin=np.float64(task.obstacle_cutoff_margin))
     kinds = {v[0]: (k, v[1]) for k, v in _GROUP_FIELDS.items()}
     out["objects"] = []
     for obj in task.df_obj_list:
@@ -113,7 +150,7 @@ def task_arrays(task: PlanningTask) -> dict:
         for f in obj.fields:
             kind, names = kinds[type(f)]
             groups.append({"kind": kind,
-                           **{n: np_(getattr(f, n)) for n in names}})
-        out["objects"].append({"pos": np_(obj.pos), "ori": np_(obj.ori),
+                           **{n: _np(getattr(f, n)) for n in names}})
+        out["objects"].append({"pos": _np(obj.pos), "ori": _np(obj.ori),
                                "groups": groups})
     return out

@@ -4,8 +4,8 @@ Each ``csrc/*.cu`` file exposes a plain C interface (launch functions that
 return ``cudaGetLastError()``) and is compiled by ``nvcc`` for ``sm_90a``
 at first use into ``torch_robotics_tpu_torch/_build/`` (git-ignored),
 then loaded with ``ctypes``.  Libraries are named by a hash of their
-source, so an edited source is rebuilt and a built one is reused.  Nothing
-here runs at import time.
+source and of the shared headers (``csrc/*.cuh``), so an edited source is
+rebuilt and a built one is reused.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -54,7 +54,10 @@ class CudaKernel:
 
     @property
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.read_bytes())
+        digest = h.hexdigest()[:16]
         return BUILD_DIR / f"{self.source.stem}-{digest}.so"
 
     def start_build(self):

@@ -7,7 +7,9 @@ rotations are (3, 3, N), translations and points (3, N), point Jacobians
 fused CUDA terms kernel (``ops/terms_kernel.py``): the same residual rows,
 the same analytic gradients, the same assembly, written as tensor ops.  It
 runs on CPU tensors (the tests, the CPU path of the port) and is what the
-kernel is held against on the card.
+kernel is held against on the card.  ``obstacle_terms_lanes_multirobot_
+factory`` is, in the same way, the plain version of the MultiRobot terms
+kernel: member-width Jacobians and a block-by-block assembly.
 
 The SDF gradient is analytic: for the primitive that attains the minimum,
 the derivative of its closed-form distance, rotated back to the world
@@ -28,7 +30,8 @@ from ..kin.model import (JOINT_CONTINUOUS, JOINT_PRISMATIC, JOINT_REVOLUTE,
 __all__ = ["fk_lanes", "fk_positions_lanes", "fk_points_jacobians_lanes",
            "point_jacobians_lanes",
            "group_sdf_and_grad_lanes", "sdf_and_grad_lanes",
-           "obstacle_terms_lanes_factory", "embed_terms"]
+           "obstacle_terms_lanes_factory", "embed_terms", "hinge_rows",
+           "MultiRobotLayout", "obstacle_terms_lanes_multirobot_factory"]
 
 
 def _matmul3(A, B):
@@ -40,7 +43,9 @@ def _matmul3(A, B):
 
 
 def _matvec3(A, v):
-    """(3, 3, N) x (3[, N]) -> (3, N)."""
+    """(3, 3[, N]) x (3[, N]) -> (3, N)."""
+    if A.dim() == 2:
+        A = A[:, :, None]
     if v.dim() == 1:
         v = v[:, None]
     return torch.sum(A * v[None, :, :], dim=1)
@@ -331,6 +336,71 @@ class TermsLayout:
         return a, b
 
 
+def _contract3(grad, J):
+    """grad (K, 3, N) . J (K, d, 3, N) over the workspace axis -> (K, d, N)."""
+    return torch.sum(grad[:, None] * J, dim=2)
+
+
+def _pair_hinge(diff, margins):
+    """Pair rows from point differences (K, 3, N): (r (K, N), unit
+    direction u (K, 3, N), active mask (K, N))."""
+    d2 = torch.sum(diff * diff, dim=1)
+    nz = d2 > 0
+    dist = torch.where(nz, torch.sqrt(torch.where(nz, d2, 1.0)), 0.0)
+    inv = torch.where(nz, 1.0 / torch.clamp(dist, min=1e-9), 0.0)
+    r = torch.relu(margins[:, None] - dist)
+    return r, diff * inv[:, None], (r > 0).to(diff.dtype)
+
+
+def _workspace_val_grad(pts, ws_min, ws_max):
+    """Min-face workspace distance of points (P, 3, N) and its gradient
+    (P, 3, N); the first minimal face wins."""
+    faces = torch.cat([pts - ws_min[None, :, None],
+                       ws_max[None, :, None] - pts], dim=1)
+    val, amin = torch.min(faces, dim=1)                          # (P, N)
+    sign = torch.where(amin < 3, 1.0, -1.0).to(pts.dtype)
+    axis_id = torch.where(amin < 3, amin, amin - 3)
+    grad = torch.stack([sign * (axis_id == k).to(pts.dtype)
+                        for k in range(3)], dim=1)
+    return val, grad
+
+
+def hinge_rows(lay, pts, J):
+    """Hinge rows of collision points pts (P, 3, N) with Jacobians
+    J (P, d, 3, N): one SDF row per object point (when the scene has
+    objects), one workspace row per object point, one distance row per
+    pair, in that order.  ``lay`` carries ``obj_pos``, ``pair_a``,
+    ``pair_b`` (indices into pts), ``obj_thresh``, ``self_margins``,
+    ``ws_min``, ``ws_max`` and ``df_obj_list``.  -> (r (R, N),
+    Jr (R, d, N))."""
+    N = pts.shape[-1]
+    rows_r, rows_J = [], []
+
+    def hinge(val, grad, J_sub):
+        """val (P, N), grad (P, 3, N), J_sub (P, d, 3, N)."""
+        r = torch.relu(lay.obj_thresh[:, None] - val)
+        act = (r > 0).to(val.dtype)
+        rows_r.append(r)
+        rows_J.append(-act[:, None, :] * _contract3(grad, J_sub))
+
+    obj_pts = pts[lay.obj_pos]                                  # (Po, 3, N)
+    J_obj = J[lay.obj_pos]
+    Po = obj_pts.shape[0]
+    if lay.df_obj_list:
+        flat = obj_pts.permute(1, 0, 2).reshape(3, Po * N)
+        val, grad = sdf_and_grad_lanes(lay.df_obj_list, flat)
+        hinge(val.reshape(Po, N), grad.reshape(3, Po, N).permute(1, 0, 2),
+              J_obj)
+    hinge(*_workspace_val_grad(obj_pts, lay.ws_min, lay.ws_max), J_obj)
+    if len(lay.pair_a):
+        r_s, u, act = _pair_hinge(pts[lay.pair_a] - pts[lay.pair_b],
+                                  lay.self_margins)
+        rows_r.append(r_s)
+        rows_J.append(-act[:, None, :]
+                      * _contract3(u, J[lay.pair_a] - J[lay.pair_b]))
+    return torch.cat(rows_r), torch.cat(rows_J)
+
+
 def obstacle_terms_lanes_factory(task):
     """Plain-PyTorch GN obstacle terms of a task.
 
@@ -363,52 +433,257 @@ def obstacle_terms_lanes_factory(task):
         pts = torch.stack([t_w[li] for li in lay.used_links])   # (P, 3, N)
         J = point_jacobians_lanes(model, R_w, t_w, pts, lay.used_links,
                                   q_cols=q_cols)                # (P, d, 3, N)
-        N = q_cols.shape[-1]
-        rows_r, rows_J = [], []
-
-        def hinge(thresh, val, grad, J_sub):
-            """val (P, N), grad (3, P, N), J_sub (P, d, 3, N)."""
-            r = torch.relu(thresh[:, None] - val)
-            act = (r > 0).to(val.dtype)
-            s = torch.sum(grad.permute(1, 0, 2)[:, None] * J_sub, dim=2)
-            rows_r.append(r)
-            rows_J.append(-act[:, None, :] * s)
-
-        obj_pts = pts[lay.obj_pos]                              # (Po, 3, N)
-        J_obj = J[lay.obj_pos]
-        Po = obj_pts.shape[0]
-        if lay.df_obj_list:
-            flat = obj_pts.permute(1, 0, 2).reshape(3, Po * N)
-            val, grad = sdf_and_grad_lanes(lay.df_obj_list, flat)
-            hinge(lay.obj_thresh, val.reshape(Po, N), grad.reshape(3, Po, N),
-                  J_obj)
-
-        # workspace bounds: min-face distance, first minimal face wins
-        faces = torch.cat([obj_pts - lay.ws_min[None, :, None],
-                           lay.ws_max[None, :, None] - obj_pts], dim=1)
-        val_ws, amin = torch.min(faces, dim=1)                  # (Po, N)
-        sign = torch.where(amin < 3, 1.0, -1.0).to(q_cols.dtype)
-        axis_id = torch.where(amin < 3, amin, amin - 3)
-        grad_ws = torch.stack([sign * (axis_id == k).to(q_cols.dtype)
-                               for k in range(3)])
-        hinge(lay.obj_thresh, val_ws, grad_ws, J_obj)
-
-        if lay.pair_a:
-            diff = pts[lay.pair_a] - pts[lay.pair_b]            # (K, 3, N)
-            d2 = torch.sum(diff * diff, dim=1)
-            nz = d2 > 0
-            dist = torch.where(nz, torch.sqrt(torch.where(nz, d2, 1.0)), 0.0)
-            inv = torch.where(nz, 1.0 / torch.clamp(dist, min=1e-9), 0.0)
-            u = diff * inv[:, None]
-            r_s = torch.relu(lay.self_margins[:, None] - dist)
-            act = (r_s > 0).to(q_cols.dtype)
-            J_d = J[lay.pair_a] - J[lay.pair_b]                 # (K, d, 3, N)
-            rows_r.append(r_s)
-            rows_J.append(-act[:, None, :]
-                          * torch.sum(u[:, None] * J_d, dim=2))
-
-        return torch.cat(rows_r), torch.cat(rows_J)
+        return hinge_rows(lay, pts, J)
 
     terms.unscaled = unscaled_terms
     terms.rows = residual_rows
+    return terms
+
+
+def _member_lanes_points(r, q_cols_i, R_b, t_b):
+    """FK and world transforms of one multi-robot member: r has ``.model``;
+    q_cols_i (d_i, N); R_b (3, 3), t_b (3,) its base pose.  -> (world link
+    rotations, world link translations, object points, their link ids,
+    self points, their link ids), the points lists of (3, N) in the
+    member's ``fk_map_collision`` layout."""
+    if getattr(r, "grasped_n_points", 0) > 0:
+        raise NotImplementedError(
+            "grasped-object points of a multi-robot member are not ported")
+    R_w, t_w = fk_lanes(r.model, q_cols_i)
+    R_wW = [_matmul3(R_b, R) for R in R_w]
+    t_wW = [_matvec3(R_b, t) + t_b[:, None] for t in t_w]
+    obj_ids = list(r.object_coll_idxs)
+    self_ids = list(r.self_coll_idxs or ())
+    return (R_wW, t_wW, [t_wW[li] for li in obj_ids], obj_ids,
+            [t_wW[li] for li in self_ids], self_ids)
+
+
+class MultiRobotLayout:
+    """Row structure of a ``MultiRobot`` task, shared by the plain terms
+    and the kernel's parameter packing.
+
+    Per member i: object rows (SDF hinge and workspace hinge per object
+    point) and its own self-collision pairs, in member-local point indices
+    (object points first, then self points).  Mutual pairs are grouped by
+    (member of the first point, member of the second) in first-seen order,
+    in object-local indices.  A mutual pair whose points belong to one
+    member raises NotImplementedError: the reference assembles such a pair
+    through its generic padded path, which is not ported."""
+
+    def __init__(self, task):
+        robot = task.robot
+        self.robot = robot
+        self.members = robot.robots
+        self.d_list = [r.q_dim for r in self.members]
+        self.d_off = np.cumsum([0] + self.d_list)
+        self.obj_counts = list(robot.obj_counts)
+        self.self_counts = list(robot.self_counts)
+        n_obj = sum(self.obj_counts)
+        self.obj_off = np.cumsum([0] + self.obj_counts)
+        self.self_off = n_obj + np.cumsum([0] + self.self_counts)
+        margins = robot.self_margins.cpu().numpy()
+        self.own_pairs = [[] for _ in self.members]   # (a, b, margin)
+        self.groups = {}                              # (i, j) -> rows
+        for k, (pa, pb) in enumerate(robot.self_pair_idxs):
+            mg = float(margins[k])
+            if pa >= n_obj:
+                i = int(np.searchsorted(self.self_off, pa, side="right")) - 1
+                base = self.obj_counts[i] - int(self.self_off[i])
+                self.own_pairs[i].append((pa + base, pb + base, mg))
+                continue
+            i = int(np.searchsorted(self.obj_off, pa, side="right")) - 1
+            j = int(np.searchsorted(self.obj_off, pb, side="right")) - 1
+            if i == j:
+                raise NotImplementedError(
+                    "mutual pair (%d, %d) indexes object points of the same "
+                    "member %d; the reference's generic padded assembly "
+                    "for such pairs is not ported (encode same-member pairs "
+                    "in the member's self-collision section)" % (pa, pb, i))
+            self.groups.setdefault((i, j), []).append(
+                (pa - int(self.obj_off[i]), pb - int(self.obj_off[j]), mg))
+        self.cutoff = float(task.obstacle_cutoff_margin)
+        self.ws_min, self.ws_max = task.ws_min, task.ws_max
+        self.df_obj_list = task.df_obj_list
+        # the full collision layout, for the residual rows in the
+        # reference's order (object rows, workspace rows, pairs as listed)
+        self.obj_pos = list(range(n_obj))
+        pairs = np.asarray(robot.self_pair_idxs, np.int64).reshape(-1, 2)
+        self.pair_a, self.pair_b = list(pairs[:, 0]), list(pairs[:, 1])
+        self.obj_thresh = robot.object_margins + self.cutoff
+        self.self_margins = robot.self_margins
+
+    def point_joints(self):
+        """(P, d) bool over the full collision layout: the joints that move
+        each point (its member's ancestry, at the member's columns)."""
+        d = int(self.d_off[-1])
+        rows = []
+        for section in ("object_coll_idxs", "self_coll_idxs"):
+            for i, r in enumerate(self.members):
+                anc = r.model.ancestry_matrix()
+                for li in getattr(r, section) or ():
+                    row = np.zeros(d, bool)
+                    row[int(self.d_off[i]):int(self.d_off[i + 1])] = anc[li]
+                    rows.append(row)
+        return np.stack(rows)
+
+    def row_joints(self):
+        """(a, b) as ``TermsLayout.row_joints``, over the rows of the plain
+        terms' ``rows`` (object SDF rows when the scene has objects,
+        workspace rows, pairs)."""
+        anc = self.point_joints()
+        pt = anc[self.obj_pos]
+        pts = [pt, pt] if self.df_obj_list else [pt]
+        a = np.concatenate(pts + [anc[self.pair_a]])
+        b = np.concatenate([np.zeros_like(p) for p in pts]
+                           + [anc[self.pair_b]])
+        return a, b
+
+
+def obstacle_terms_lanes_multirobot_factory(task):
+    """Block-structured plain-PyTorch GN obstacle terms of a ``MultiRobot``
+    task (the plain version of the CUDA MultiRobot terms kernel).
+
+    Every collision point moves with one member, so its Jacobian has that
+    member's d_i columns only.  Member rows (object SDF, workspace, own
+    pairs) add to the diagonal block H_ii; each mutual group (i, j) adds to
+    H_ii, H_jj and the cross block H_ij.  Same contract as
+    ``obstacle_terms_lanes_factory``: terms(q_cols (d, N), lam, h=None),
+    with ``.unscaled`` and ``.rows``; None unless every member has a
+    kinematic model."""
+    from ..robots.multi_robot import MultiRobot
+    robot = task.robot
+    if not isinstance(robot, MultiRobot) or not all(
+            hasattr(r, "model") for r in robot.robots):
+        return None
+    lay = MultiRobotLayout(task)
+    n_mem = len(lay.members)
+    d = robot.q_dim
+
+    def member_points(q_cols):
+        """Per member: points (P_i, 3, N) (object then self) and
+        member-width Jacobians (P_i, d_i, 3, N)."""
+        out = []
+        for i, r in enumerate(lay.members):
+            q_i = q_cols[int(lay.d_off[i]):int(lay.d_off[i + 1])]
+            R_b = robot.base_rots[i].to(q_cols.dtype)
+            t_b = robot.base_trans[i].to(q_cols.dtype)
+            R_wW, t_wW, obj, obj_ids, slf, self_ids = _member_lanes_points(
+                r, q_i, R_b, t_b)
+            pts = torch.stack(obj + slf)
+            out.append((pts, point_jacobians_lanes(
+                r.model, R_wW, t_wW, pts, obj_ids + self_ids, q_cols=q_i)))
+        return out
+
+    def unscaled(q_cols):
+        """q_cols (d, N) -> (g_q (d, N), Hqq (d, d, N), cost (N,)),
+        unscaled by the collision weight."""
+        dtype = q_cols.dtype
+        N = q_cols.shape[-1]
+        members = member_points(q_cols)
+
+        sdf_val, sdf_grad = [None] * n_mem, [None] * n_mem
+        if lay.df_obj_list:
+            obj = torch.cat([p[:lay.obj_counts[i]]
+                             for i, (p, _) in enumerate(members)])
+            n_obj = obj.shape[0]
+            val, grad = sdf_and_grad_lanes(
+                lay.df_obj_list, obj.permute(1, 0, 2).reshape(3, n_obj * N))
+            val = val.reshape(n_obj, N)
+            grad = grad.reshape(3, n_obj, N).permute(1, 0, 2)
+            for i in range(n_mem):
+                lo, hi = int(lay.obj_off[i]), int(lay.obj_off[i + 1])
+                sdf_val[i], sdf_grad[i] = val[lo:hi], grad[lo:hi]
+
+        member_rows = []                   # (r (R_i, N), Jr (R_i, d_i, N))
+        for i, (pts, J) in enumerate(members):
+            P_obj = lay.obj_counts[i]
+            obj_pts, J_obj = pts[:P_obj], J[:P_obj]
+            # margin + cutoff in q's dtype, as the reference's structured
+            # terms add them
+            thresh = (lay.members[i].object_margins.to(dtype)
+                      + lay.cutoff)[:, None]
+            rs, Jrs = [], []
+
+            def hinge(val, grad):
+                r = torch.relu(thresh - val)
+                act = (r > 0).to(dtype)
+                rs.append(r)
+                Jrs.append(-act[:, None, :] * _contract3(grad, J_obj))
+
+            if lay.df_obj_list:
+                hinge(sdf_val[i], sdf_grad[i])
+            hinge(*_workspace_val_grad(obj_pts, lay.ws_min.to(dtype),
+                                       lay.ws_max.to(dtype)))
+            if lay.own_pairs[i]:
+                a, b, mg = zip(*lay.own_pairs[i])
+                r_s, u, act = _pair_hinge(
+                    pts[list(a)] - pts[list(b)],
+                    torch.tensor(mg, dtype=torch.float32).to(
+                        q_cols.device, dtype))
+                rs.append(r_s)
+                Jrs.append(-act[:, None, :]
+                           * _contract3(u, J[list(a)] - J[list(b)]))
+            member_rows.append((torch.cat(rs), torch.cat(Jrs)))
+
+        mutual_rows = {}                   # (i, j) -> (r, A (K, d_i, N), B)
+        for (i, j), rows in lay.groups.items():
+            a, b, mg = zip(*rows)
+            pts_i, J_i = members[i]
+            pts_j, J_j = members[j]
+            r_m, u, act = _pair_hinge(
+                pts_i[list(a)] - pts_j[list(b)],
+                torch.tensor(mg, dtype=torch.float32).to(q_cols.device,
+                                                         dtype))
+            mutual_rows[(i, j)] = (
+                r_m, -act[:, None, :] * _contract3(u, J_i[list(a)]),
+                act[:, None, :] * _contract3(u, J_j[list(b)]))
+
+        def reduce_g(r, Jr):
+            return torch.sum(r[:, None] * Jr, dim=0)
+
+        def reduce_h(A, B):
+            return torch.sum(A[:, :, None] * B[:, None, :], dim=0)
+
+        g = torch.zeros((d, N), dtype=dtype, device=q_cols.device)
+        Hqq = torch.zeros((d, d, N), dtype=dtype, device=q_cols.device)
+        cost = torch.zeros((N,), dtype=dtype, device=q_cols.device)
+        sl = [slice(int(lay.d_off[i]), int(lay.d_off[i + 1]))
+              for i in range(n_mem)]
+        for i, (r, Jr) in enumerate(member_rows):
+            g[sl[i]] += reduce_g(r, Jr)
+            Hqq[sl[i], sl[i]] += reduce_h(Jr, Jr)
+            cost += torch.sum(r * r, dim=0)
+        for (i, j), (r, A, Bm) in mutual_rows.items():
+            g[sl[i]] += reduce_g(r, A)
+            g[sl[j]] += reduce_g(r, Bm)
+            Hqq[sl[i], sl[i]] += reduce_h(A, A)
+            Hqq[sl[j], sl[j]] += reduce_h(Bm, Bm)
+            cross = reduce_h(A, Bm)
+            Hqq[sl[i], sl[j]] += cross
+            Hqq[sl[j], sl[i]] += cross.transpose(0, 1)
+            cost += torch.sum(r * r, dim=0)
+        return g, Hqq, 0.5 * cost
+
+    def terms(q_cols, lam, h=None):
+        return embed_terms(*unscaled(q_cols), lam, h=h)
+
+    def residual_rows(q_cols):
+        """q_cols (d, N) -> (r (R, N), Jr (R, d, N)) over the full collision
+        layout, rows in the reference's order: object SDF rows, workspace
+        rows, then the pairs as ``self_pair_idxs`` lists them."""
+        members = member_points(q_cols)
+        pts, J = [], []
+        for section in (0, 1):                  # object sections, then self
+            for i, (p, Jm) in enumerate(members):
+                P_obj = lay.obj_counts[i]
+                cut = slice(0, P_obj) if section == 0 else slice(P_obj, None)
+                lo, hi = int(lay.d_off[i]), int(lay.d_off[i + 1])
+                pts.append(p[cut])
+                J.append(torch.nn.functional.pad(Jm[cut],
+                                                 [0, 0, 0, 0, lo, d - hi]))
+        return hinge_rows(lay, torch.cat(pts), torch.cat(J))
+
+    terms.unscaled = unscaled
+    terms.rows = residual_rows
+    terms.layout = lay
     return terms

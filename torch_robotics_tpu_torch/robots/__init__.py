@@ -1,5 +1,7 @@
 from .base import RobotAPI, build_object_margins, build_self_collision_pairs
+from .kinematic_robot import KinematicRobot, RobotUR10
+from .multi_robot import MultiRobot
 from .panda import RobotPanda
 
-__all__ = ["RobotAPI", "RobotPanda", "build_object_margins",
-           "build_self_collision_pairs"]
+__all__ = ["RobotAPI", "RobotPanda", "KinematicRobot", "RobotUR10",
+           "MultiRobot", "build_object_margins", "build_self_collision_pairs"]

@@ -14,8 +14,8 @@ from collections import OrderedDict
 import torch
 
 from ..kin import robot_zoo
-from ..kin.model import KinematicModel
-from .base import RobotAPI, build_object_margins, build_self_collision_pairs
+from .base import build_object_margins, build_self_collision_pairs
+from .kinematic_robot import KinematicRobot
 
 __all__ = ["RobotPanda", "PANDA_OBJECT_COLL_LINKS",
            "PANDA_OBJECT_COLL_MARGINS", "PANDA_SELF_COLL_PAIRS"]
@@ -37,18 +37,9 @@ PANDA_SELF_COLL_LINKS_GRASPED = [
 
 
 @dataclasses.dataclass(frozen=True)
-class RobotPanda(RobotAPI):
-    """A single-kinematic-model robot whose collision points are link
-    origins.  ``create`` builds the Panda from its URDF;
-    ``convert.task_from_numpy`` builds one from exported arrays."""
-    model: KinematicModel
-    q_min: torch.Tensor                 # (d,)
-    q_max: torch.Tensor
-    object_margins: torch.Tensor        # (P_obj,)
-    self_margins: torch.Tensor          # (K,)
-    object_coll_idxs: tuple = ()
-    self_coll_idxs: tuple = ()
-    self_pair_idxs: tuple = ()          # tuple of (i, j) into self points
+class RobotPanda(KinematicRobot):
+    """The Panda as a ``KinematicRobot``.  ``create`` builds it from its
+    URDF; ``convert.task_from_numpy`` builds one from exported arrays."""
     name: str = "RobotPanda"
 
     @classmethod
@@ -83,23 +74,3 @@ class RobotPanda(RobotAPI):
             self_coll_idxs=self_coll_idxs,
             self_pair_idxs=tuple(map(tuple, pair_idxs.tolist())),
         )
-
-    @property
-    def device(self) -> torch.device:
-        return self.model.device
-
-    @property
-    def ws_dim(self) -> int:
-        return 3
-
-    def fk_map_collision(self, q):
-        """q (..., 7) -> (..., n_links, 3) world link positions."""
-        from ..ops.lanes_fk import fk_positions_lanes
-        return fk_positions_lanes(self.model, q)
-
-    def fk_map_collision_with_jac(self, q):
-        """q (..., 7) -> (points (..., n_links, 3), J (..., n_links, 3, 7)):
-        world link positions and their analytic point Jacobians from one
-        lanes FK pass."""
-        from ..ops.lanes_fk import fk_points_jacobians_lanes
-        return fk_points_jacobians_lanes(self.model, q)

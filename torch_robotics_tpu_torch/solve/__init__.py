@@ -1,10 +1,10 @@
 from .gp_prior import gp_prior_terms, straight_line_trajs
 from .gpmp2 import GPMP2Params, gpmp2_step
 from .ilqr import ILQRParams, ILQRResult, ilqr_solve
-from .mpc import MPCParams, MPCState, mpc_init, mpc_step
+from .mpc import MPCParams, MPCState, mpc_init, mpc_rollout, mpc_step
 from .riccati_lanes import linesearch_rollout_lanes, riccati_backward_lanes
 
 __all__ = ["GPMP2Params", "gpmp2_step", "gp_prior_terms",
            "straight_line_trajs", "MPCParams", "MPCState", "mpc_init",
-           "mpc_step", "ILQRParams", "ILQRResult", "ilqr_solve",
+           "mpc_step", "mpc_rollout", "ILQRParams", "ILQRResult", "ilqr_solve",
            "riccati_backward_lanes", "linesearch_rollout_lanes"]

@@ -1,10 +1,14 @@
 """Batched GPMP2 Gauss-Newton steps (counterpart of
-torch_robotics_tpu/solve/gpmp2.py, the lanes path for state blocks
-m <= 16 that the MPC main path takes).
+torch_robotics_tpu/solve/gpmp2.py, the lanes path that the MPC paths take).
 
 One step assembles the block-tridiagonal normal equations of the GP prior
 plus the hinge obstacle terms, in the solver's lanes layout, and solves
-them with the block-tridiagonal sweep.
+them with a block-tridiagonal sweep: the W-persisting sweep for state
+blocks m <= 16 (the single Panda, m = 14), the column sweep above that
+(the three-arm MultiRobot, m = 40), as the reference routes them
+(``ops/btridiag_kernel.solve_lanes_auto``).  On the CPU the plain sweep
+takes every m, where the reference takes its tiled solver at m > 32; the
+two compute the same solve.
 """
 from __future__ import annotations
 
@@ -63,7 +67,7 @@ def gpmp2_step(residual_fn: Callable, theta, start_state, goal_state,
     ``residual_fn`` carries ``obstacle_terms_lanes`` (a PlanningTask's
     ``collision_residuals``).  Returns (theta_next, collision cost per
     trajectory (B,))."""
-    from ..ops.btridiag_kernel import solve_lanes_w
+    from ..ops.btridiag_kernel import solve_lanes_auto
     lanes_terms = getattr(residual_fn, "obstacle_terms_lanes", None)
     if lanes_terms is None or theta.dim() != 3:
         raise NotImplementedError(
@@ -71,6 +75,6 @@ def gpmp2_step(residual_fn: Callable, theta, start_state, goal_state,
             "ported")
     b_l, D_l, U_l, cost_traj = _lanes_gn_system(
         lanes_terms, theta, start_state, goal_state, params)
-    x_l = solve_lanes_w(D_l, U_l, b_l)                           # (H, m, B)
+    x_l = solve_lanes_auto(D_l, U_l, b_l)                        # (H, m, B)
     theta_next = theta + params.step_size * x_l.permute(2, 0, 1)
     return theta_next, cost_traj

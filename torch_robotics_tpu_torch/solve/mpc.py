@@ -15,7 +15,7 @@ import torch
 from .gp_prior import straight_line_trajs
 from .gpmp2 import GPMP2Params, gpmp2_step
 
-__all__ = ["MPCParams", "MPCState", "mpc_init", "mpc_step"]
+__all__ = ["MPCParams", "MPCState", "mpc_init", "mpc_step", "mpc_rollout"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,3 +53,18 @@ def mpc_step(residual_fn: Callable, state: MPCState, goal_state,
             {"collision_cost": cost,
              "dist_to_goal": torch.linalg.vector_norm(
                  x_next[..., :d] - goal_state[..., :d], dim=-1)})
+
+
+def mpc_rollout(residual_fn: Callable, start_state, goal_state,
+                params: MPCParams, n_steps: int):
+    """Run ``n_steps`` receding-horizon steps from the straight-line plans
+    -> (executed states (B, n_steps, 2d), info dict with ``dist_to_goal``
+    (n_steps, B) and ``final_state``, the MPCState after the last step)."""
+    state = mpc_init(start_state, goal_state, params)
+    xs, dists = [], []
+    for _ in range(n_steps):
+        state, info = mpc_step(residual_fn, state, goal_state, params)
+        xs.append(state.x)
+        dists.append(info["dist_to_goal"])
+    return (torch.stack(xs, dim=-2),
+            {"dist_to_goal": torch.stack(dists), "final_state": state})

@@ -9,6 +9,8 @@ value-only lanes cost come from the CUDA kernels' wrappers, which take the
 kernel for CUDA tensors and the plain PyTorch version for CPU tensors.
 Residual values and Jacobians, the collision checks and the metrics are
 plain PyTorch on every device, as they are plain XLA in the reference.
+Single kinematic robots and ``MultiRobot``s (several arms at fixed base
+poses, with mutual-collision pairs) are covered.
 Occupancy maps and the learned self-collision net are not ported yet.
 """
 from __future__ import annotations
@@ -41,15 +43,24 @@ class CollisionResiduals:
     - ``obstacle_terms_lanes(q_cols (d, N), lam, h=None) -> (g, Hb, cost)``,
       the GN terms (terms kernel);
     - ``collision_cost_lanes(q_cols (d, N)) -> (N,)``, the unscaled cost
-      0.5 sum r^2 (value-only cost kernel).
+      0.5 sum r^2 (value-only cost kernel); None for a ``MultiRobot``,
+      whose branch of that kernel is not ported (solvers then score with
+      the residual values).
+
+    For a ``MultiRobot`` the rows run over its full collision layout:
+    object rows of every member's object points, workspace rows, then the
+    own and mutual pairs as ``self_pair_idxs`` lists them.
     """
     supports_batch = True
 
     def __init__(self, task):
         from ..ops.terms_kernel import (collision_cost_kernel_factory,
                                         obstacle_terms_kernel_factory)
+        from ..robots.multi_robot import MultiRobot
         self.obstacle_terms_lanes = obstacle_terms_kernel_factory(task)
-        self.collision_cost_lanes = collision_cost_kernel_factory(task)
+        self.collision_cost_lanes = (
+            None if isinstance(task.robot, MultiRobot)
+            else collision_cost_kernel_factory(task))
         if self.obstacle_terms_lanes is None:
             raise NotImplementedError(
                 "collision residuals need a kinematic model whose collision "
