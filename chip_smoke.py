@@ -1,17 +1,19 @@
-"""Drive the PyTorch/CUDA port's three paths on one NVIDIA GPU and check
-them: the GPMP2-MPC main path (phases 2-6), the batched iLQR path (phases
-7-11) and the multi-robot MPC path (phases 12-15).
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them:
+the GPMP2-MPC main path (phases 2-6), the batched iLQR path (phases 7-11),
+the multi-robot MPC path (phases 12-15), and the point-mass batch solve
+with GN factorization reuse and the point-cloud SDF (phases 16-20).
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases (each prints one JSON line; any failure exits nonzero before the
 final line):
 
-1. build   - nvcc builds every CUDA kernel of the three paths from csrc/
-             (one process per source, all at once: terms.cu, btridiag.cu,
-             riccati.cu, mr_terms.cu, btridiag_cols.cu); prints build
-             seconds, the register and spill report of each kernel's
-             launched instantiation, and the card's name and power limit.
+1. build   - nvcc builds every CUDA kernel of the paths from csrc/ (one
+             process per source, all at once: terms.cu, btridiag.cu,
+             riccati.cu, mr_terms.cu, btridiag_cols.cu, sphere_sdf.cu);
+             prints build seconds, the register and spill report of each
+             kernel's launched instantiation, and the card's name and power
+             limit.
 2. terms   - the fused GN-terms kernel vs its plain PyTorch version on the
              card: Panda in EnvSpheres3D at N = 64 * 1024 waypoints (the
              main path's first q, timed, and random q), plus a rounded-box
@@ -64,10 +66,37 @@ final line):
              starts, goal distance, executed paths free, a profile.
 15. mr_cpu  - one config-4 MPC step at B = 16 on the card and on the CPU,
              each held to a float64 CPU step, iteration by iteration.
+16. pm_solve - config 2 (benchmarks/run_all.py config_pointmass): the point
+             mass in EnvDense2D, cutoff 0.02, the scene's GPMP2 preset with
+             B = 1024 samples of the GP prior and 150 iterations
+             (gpmp2_solve); launches exactly 150 K2 at m = 4 and no K1,
+             finiteness, trajs/s, ms per iteration, fraction free, mean
+             final cost, a profile; K2 at m = 4 vs its plain version on the
+             first GN system; 3 card iterations at B = 256 held to a
+             float64 CPU run beside the CPU float32 run.
+17. pm_restarts - config 2's restart policy (run_all.py): 75 iterations,
+             sigma_gp_init 0.5, 6 rounds of 50 (gpmp2_solve_restarts),
+             exactly 375 K2 launches; lanes free after the main solve kept
+             bit for bit, the free fraction not lower.
+18. k9     - the factor-persisting sweep and the substitution sweep (K9) vs
+             their plain versions on config 2's first GN system (m = 4), on
+             the reuse workload's (m = 14) and on a random system, and at a
+             ragged B = 100; timed at the reuse shapes with the dense
+             Cholesky and cholesky_solve.
+19. reuse  - GN factorization reuse on benchmarks/gn_reuse_ab.py's batch
+             solve (Panda in EnvSpheres3D, cutoff 0.03, B = 256, H = 32, 48
+             iterations, sigma_coll 5e-3) at refactor_every 1, 2 and 4;
+             launch counts exact for each, quality and ms per iteration.
+20. point_cloud - the sphere SDF (K10) through PointCloudSpheres at M =
+             65536 points and S = 4096 spheres of radius 0.02, vs its plain
+             version (1e-5), and at a ragged M = 1000, S = 129; S = 127
+             takes the plain route; timed with torch.cdist.
 
 Then one JSON line with every kernel's numbers (launches from phase 4 for
-K1 and K2, from phase 9 for K6, K7 and K8, from phase 14 for K4 and K5),
-the nvidia-smi line, and the final {"ok": true, "device": ...} line.
+K1 and K2, from phase 9 for K6, K7 and K8, from phase 14 for K4 and K5,
+from phase 19 for K9 (the k = 2 and k = 4 runs together), from phase 20's
+query for K10), the nvidia-smi line, and the final {"ok": true, "device":
+...} line.
 """
 from __future__ import annotations
 
@@ -133,6 +162,26 @@ MR_TIGHT_POSES = (("panda", (0.0, 0.5), 0.0), ("panda", (0.0, -0.5), np.pi),
 MR_TWO_ARM_POSES = (("panda", (0.2, 0.55), 0.0), ("ur10", (0.2, -0.55), np.pi))
 # rounds of config 4's start budget (B * 1024 candidates) before giving up
 MR_MAX_ROUNDS = 8
+# config 2: benchmarks/run_all.py config_pointmass (BASELINE.json configs[1])
+PM_B, PM_ITERS, PM_CUTOFF = 1024, 150, 0.02
+PM_START, PM_GOAL = (-0.9, -0.9, 0.0, 0.0), (0.9, 0.9, 0.0, 0.0)
+# its float64 comparison: a few iterations on the first lanes
+PM_CPU_B, PM_CPU_ITERS = 256, 3
+# its restart policy: 75 main iterations, 6 rounds of 50
+PM_R_ITERS, PM_R_SIGMA, PM_R_ROUNDS, PM_R_RESTART = 75, 0.5, 6, 50
+# the JAX package's own account of this quality (BASELINE.md:120), printed
+# beside the port's, not a gate
+PM_JAX_FREE = {"direct": 0.47, "restarts": 0.99}
+# GN factorization reuse: benchmarks/gn_reuse_ab.py batch_solve_ab
+RU_B, RU_H, RU_ITERS, RU_CUTOFF = 256, 32, 48, 0.03
+RU_GP = dict(n_support_points=RU_H, dt=0.04, opt_iters=RU_ITERS,
+             sigma_start=1e-3, sigma_gp=1e-1, sigma_goal_prior=1e-3,
+             sigma_coll=5e-3, step_size=0.9, sigma_gp_init=0.2)
+RU_KS = (1, 2, 4)
+# the point cloud: queries uniform in EnvSpheres3D's box, spheres of 0.02
+PC_M, PC_S, PC_RADIUS = 65536, 4096, 0.02
+# K10 vs its plain version: float32 norms in another order
+SDF_TOL = 1e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -348,6 +397,31 @@ def cols_solve_work(H_: int, m: int, B_: int):
     return nbytes, ops
 
 
+def factor_work(H_: int, m: int, B_: int):
+    """(bytes, float ops) of the factor-persisting sweep: the sweep's
+    (solve_work), and its L and W (H, m, m, B) written out."""
+    nbytes, ops = solve_work(H_, m, B_)
+    return nbytes + 4 * 2 * H_ * m * m * B_, ops
+
+
+def subst_work(H_: int, m: int, B_: int):
+    """(bytes, float ops) of the substitution sweep: L, W (H, m, m, B) and b
+    in, x out; per lane and step the forward triangular solve (m^2 + m) and
+    Wy = W^T y (m (2m - 1)), then the backward pass (the matvec 2 m^2 below
+    the last block, the transposed triangular solve m^2)."""
+    ops = (H_ * (m * m + m + m * (2 * m - 1) + m * m)
+           + (H_ - 1) * 2 * m * m) * B_
+    return 4 * (2 * H_ * m * m * B_ + 2 * H_ * m * B_), ops
+
+
+def sdf_work(M: int, S: int):
+    """(bytes, float ops) of the sphere SDF: points (M, 3), centers (S, 3),
+    radii (S,) in, (M,) out; 11 float ops per (point, sphere) pair: three
+    differences, the squared norm (a product and two multiply-adds, 5),
+    the square root (counted as one), the radius and the min."""
+    return 4 * (4 * M + 4 * S), 11 * M * S
+
+
 def mr_terms_work(lay, q, r):
     """(bytes, float ops) that the MultiRobot terms need on q (d, N), whose
     residual rows (the plain version's ``rows``) are r (R, N).
@@ -395,26 +469,37 @@ def bound_ms(nbytes: float, ops: float):
 # ----------------------------------------------------------------------
 def phase_build():
     from torch_robotics_tpu_torch.ops import (btridiag_kernel,
-                                              riccati_kernel, terms_kernel)
+                                              riccati_kernel, sdf_kernel,
+                                              terms_kernel)
     from torch_robotics_tpu_torch.ops.cuda_build import build_all
     kernels = (terms_kernel.KERNEL, terms_kernel.COST_KERNEL,
                btridiag_kernel.KERNEL, riccati_kernel.RICCATI_KERNEL,
                riccati_kernel.ROLLOUT_KERNEL, terms_kernel.MR_KERNEL,
-               btridiag_kernel.COLS_KERNEL)
+               btridiag_kernel.COLS_KERNEL, btridiag_kernel.FACTOR_KERNEL,
+               btridiag_kernel.SUBST_KERNEL, sdf_kernel.KERNEL)
     t0 = time.perf_counter()
     logs = build_all(kernels)
     secs = time.perf_counter() - t0
-    # resource report of the instantiations the three paths launch
+    # resource report of the instantiations the paths launch (mangled name
+    # fragment -> label)
+    names = {"terms_kernelILi7E": "terms_kernel",
+             "cost_kernelILi7E": "cost_kernel",
+             "btridiag_w_kernelILi14ELb0E": "btridiag_w_kernel<14>",
+             "btridiag_w_kernelILi4ELb0E": "btridiag_w_kernel<4>",
+             "btridiag_w_kernelILi14ELb1E": "btridiag_factor<14>",
+             "btridiag_subst_kernelILi14E": "btridiag_subst<14>",
+             "riccati_kernelILi7E": "riccati_kernel",
+             "rollout_kernelILi7E": "rollout_kernel",
+             "mr_terms_kernel": "mr_terms_kernel",
+             "btridiag_cols_kernel": "btridiag_cols_kernel",
+             "sphere_sdf_kernel": "sphere_sdf_kernel"}
     report = {}
     for src, text in logs.items():
         lines = text.splitlines()
         for i, line in enumerate(lines):
-            for name in ("terms_kernelILi7E", "cost_kernelILi7E",
-                         "btridiag_w_kernelILi14E", "riccati_kernelILi7E",
-                         "rollout_kernelILi7E", "mr_terms_kernel",
-                         "btridiag_cols_kernel"):
+            for name, label in names.items():
                 if "Compiling entry function '_ZN" in line and name in line:
-                    report[name.split("ILi")[0]] = " | ".join(
+                    report[label] = " | ".join(
                         s.strip().split("info    : ")[-1]
                         for s in lines[i + 1:i + 4])
     for k in kernels:
@@ -1414,6 +1499,441 @@ def phase_mr_cpu(start, goal):
     emit("mr_cpu", B=n, H=MR_H, iterations=iters, chained_step=chained)
 
 
+# ----------------------------------------------------------------------
+# config 2: the point-mass batch solve (benchmarks/run_all.py
+# config_pointmass), GN factorization reuse and the point cloud
+# ----------------------------------------------------------------------
+def pm_problem(device, n_batch: int = PM_B):
+    """Config 2 -> (task, params, start, goal, theta0 (n, 64, 4)): the point
+    mass in EnvDense2D at cutoff 0.02, the scene's GPMP2 preset with
+    num_samples = B and 150 iterations, theta0 sampled from the GP prior
+    with a seeded CPU generator (the first n of the B samples)."""
+    import dataclasses
+
+    import torch
+    from torch_robotics_tpu_torch.envs import EnvDense2D
+    from torch_robotics_tpu_torch.robots import RobotPointMass
+    from torch_robotics_tpu_torch.solve import GPMP2Params, gpmp2_init_trajs
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    env = EnvDense2D(device=device)
+    robot = RobotPointMass.create(device=device)
+    task = PlanningTask(env=env, robot=robot,
+                        obstacle_cutoff_margin=PM_CUTOFF)
+    params = dataclasses.replace(
+        GPMP2Params.from_preset(env.get_gpmp2_params(robot)),
+        num_samples=PM_B, opt_iters=PM_ITERS)
+    start = torch.tensor(PM_START, device=device)
+    goal = torch.tensor(PM_GOAL, device=device)
+    theta0 = gpmp2_init_trajs(torch.Generator().manual_seed(SEED), params,
+                              start, goal)
+    return task, params, start, goal, theta0[:n_batch].contiguous()
+
+
+def all_kernels():
+    from torch_robotics_tpu_torch.ops import (btridiag_kernel, riccati_kernel,
+                                              sdf_kernel, terms_kernel)
+    return dict(terms=terms_kernel.KERNEL, cost=terms_kernel.COST_KERNEL,
+                multirobot_terms=terms_kernel.MR_KERNEL,
+                btridiag_w=btridiag_kernel.KERNEL,
+                btridiag_cols=btridiag_kernel.COLS_KERNEL,
+                btridiag_factor=btridiag_kernel.FACTOR_KERNEL,
+                btridiag_subst=btridiag_kernel.SUBST_KERNEL,
+                riccati=riccati_kernel.RICCATI_KERNEL,
+                rollout=riccati_kernel.ROLLOUT_KERNEL,
+                sphere_sdf=sdf_kernel.KERNEL)
+
+
+def counted(fn):
+    """Run fn with every launch counter at 0 -> (fn's result, the launches
+    by kernel name, CUDA-event ms)."""
+    import torch
+    kernels = all_kernels()
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    out = fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kernels.items() if v.launches}
+    return out, launches, ev0.elapsed_time(ev1)
+
+
+def hold_solve(key, x_k, x_p, x_64, random: bool):
+    """A sweep's x (or factor) on the card against its plain version: on a
+    random well-conditioned system to SOLVE_TOL_RANDOM of max|ref|, on an
+    ill-conditioned GN system no worse vs float64 than twice the plain
+    float32 version (+1e-5), as phase solve holds K2."""
+    import torch
+    check(bool(torch.isfinite(x_k).all()), key + ": non-finite output")
+    err, rel = max_errs([x_k], [x_p])
+    rel_k64 = max_errs([x_k.double()], [x_64])[1]
+    rel_p64 = max_errs([x_p.double()], [x_64])[1]
+    ok = (rel <= SOLVE_TOL_RANDOM if random
+          else rel_k64 <= SOLVE_GN_FACTOR * rel_p64 + SOLVE_TOL_RANDOM)
+    check(ok, "%s: kernel vs plain %.3g, vs float64 %.3g, plain vs float64 "
+          "%.3g of max|ref|" % (key, rel, rel_k64, rel_p64))
+    return dict(abs=err, rel_to_max=rel, kernel_vs_f64=rel_k64,
+                plain_vs_f64=rel_p64)
+
+
+def phase_pm_solve(task, params, start, goal, theta0):
+    """Config 2 at full size through gpmp2_solve; see the module doc."""
+    import dataclasses
+
+    import torch
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import solve_lanes_w
+    from torch_robotics_tpu_torch.solve import gpmp2_solve
+    from torch_robotics_tpu_torch.solve.btridiag_lanes import (
+        solve_lanes_core)
+    from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
+    res_fn = task.collision_residuals
+    b_l, D_l, U_l, _ = _lanes_gn_system(res_fn.obstacle_terms_lanes, theta0,
+                                        start, goal, params)
+    check(tuple(D_l.shape) == (params.n_support_points, 4, 4, PM_B),
+          "config 2's GN system is %s" % (tuple(D_l.shape),))
+    k2 = hold_solve("k2_m4_gn", solve_lanes_w(D_l, U_l, b_l),
+                    solve_lanes_core(D_l, U_l, b_l),
+                    solve_lanes_core(D_l.double(), U_l.double(),
+                                     b_l.double()), random=False)
+    gpmp2_solve(res_fn, theta0, start, goal,
+                dataclasses.replace(params, opt_iters=2))     # warm-up
+    res, launches, ms = counted(
+        lambda: gpmp2_solve(res_fn, theta0, start, goal, params))
+    check(launches == {"btridiag_w": PM_ITERS},
+          "config 2 launches %s, expected %d of btridiag_w only"
+          % (launches, PM_ITERS))
+    check(all(bool(torch.isfinite(t).all()) for t in res),
+          "config 2 produced non-finite results")
+    check(tuple(res.trajs.shape) == tuple(theta0.shape)
+          and tuple(res.cost_trace.shape) == (PM_ITERS, PM_B),
+          "config 2 result shapes")
+    busy, dev_ms, top = profile_device(lambda: gpmp2_solve(
+        res_fn, theta0, start, goal,
+        dataclasses.replace(params, opt_iters=5)), 5)
+    free = task.compute_fraction_free_trajs(res.trajs)
+    cpu = pm_vs_f64(params, theta0)
+    k2_ms = cuda_ms(lambda: solve_lanes_w(D_l, U_l, b_l), iters=50)
+    k2_plain_ms = cuda_ms(lambda: solve_lanes_core(D_l, U_l, b_l), iters=2,
+                          warmup=1)
+    H_ = params.n_support_points
+    emit("pm_solve", B=PM_B, H=H_, m=4, iterations=PM_ITERS,
+         launches=launches, solve_ms=ms, ms_per_iteration=ms / PM_ITERS,
+         trajs_per_s=PM_B / (ms / 1e3), fraction_free=free,
+         jax_package_fraction_free=PM_JAX_FREE["direct"],
+         mean_final_cost=float(res.costs.mean()),
+         cost_trace_mean_first_last=[float(res.cost_trace[0].mean()),
+                                     float(res.cost_trace[-1].mean())],
+         k2_m4_first_system=k2, k2_m4_ms=k2_ms, k2_m4_plain_ms=k2_plain_ms,
+         k2_m4_bound_ms=bound_ms(*solve_work(H_, 4, PM_B))[0],
+         vs_float64=cpu, profiled_device_busy_share=busy,
+         profiled_device_ms_per_iteration=dev_ms,
+         top_device_ms_per_iteration=top)
+    return res
+
+
+def pm_vs_f64(params, theta0):
+    """PM_CPU_ITERS iterations on the first PM_CPU_B lanes, on the card and
+    on the CPU, each held to a float64 CPU run (hold_to_f64): per iteration
+    from the card's input, and chained from theta0."""
+    import dataclasses
+
+    import torch
+    from torch_robotics_tpu_torch.solve import gpmp2_solve, gpmp2_step
+    n = PM_CPU_B
+    task_c, _, s_c, g_c, _ = pm_problem("cuda", n)
+    task_h, _, s_h, g_h, _ = pm_problem("cpu", n)
+    th = theta0[:n].contiguous()
+    iters = []
+    for it in range(PM_CPU_ITERS):
+        th_c, cost_c = gpmp2_step(task_c.collision_residuals, th, s_c, g_c,
+                                  params)
+        th_in = th.cpu()
+        th_h, cost_h = gpmp2_step(task_h.collision_residuals, th_in, s_h,
+                                  g_h, params)
+        th_64, _ = gpmp2_step(task_h.collision_residuals, th_in.double(),
+                              s_h.double(), g_h.double(), params)
+        check(bool(torch.isfinite(th_c).all()), "config 2 step non-finite")
+        gaps = theta_gaps(th_c, th_h, th_64)
+        hold_to_f64("config 2 iteration %d" % it, gaps)
+        rel_cost = float(((cost_c.cpu() - cost_h).abs()
+                          / cost_h.abs().clamp(min=1e-30)).max())
+        iters.append(dict(gaps, cost_rel_err=rel_cost))
+        th = th_c
+    p = dataclasses.replace(params, opt_iters=PM_CPU_ITERS)
+    th0 = theta0[:n].cpu()
+    r_c = gpmp2_solve(task_c.collision_residuals, th0.cuda(), s_c, g_c, p)
+    r_h = gpmp2_solve(task_h.collision_residuals, th0, s_h, g_h, p)
+    r_64 = gpmp2_solve(task_h.collision_residuals, th0.double(),
+                       s_h.double(), g_h.double(), p)
+    chained = theta_gaps(r_c.trajs, r_h.trajs, r_64.trajs)
+    hold_to_f64("config 2 chained", chained)
+    return dict(B=n, iterations=iters, chained=chained)
+
+
+def phase_pm_restarts(task, params, start, goal, theta0):
+    """Config 2's restart policy; see the module doc."""
+    import dataclasses
+
+    import torch
+    from torch_robotics_tpu_torch.solve import (gpmp2_solve,
+                                                gpmp2_solve_restarts)
+    res_fn = task.collision_residuals
+    p_r = dataclasses.replace(params, opt_iters=PM_R_ITERS,
+                              sigma_gp_init=PM_R_SIGMA)
+
+    def free_fn(trajs):
+        return ~task.trajs_collision_masks(trajs)[0]
+
+    base = gpmp2_solve(res_fn, theta0, start, goal, p_r)
+    res, launches, ms = counted(lambda: gpmp2_solve_restarts(
+        res_fn, theta0, start, goal, p_r, free_fn,
+        torch.Generator().manual_seed(42), restart_rounds=PM_R_ROUNDS,
+        restart_iters=PM_R_RESTART))
+    expected = PM_R_ITERS + PM_R_ROUNDS * PM_R_RESTART
+    check(launches == {"btridiag_w": expected},
+          "restart launches %s, expected %d of btridiag_w only"
+          % (launches, expected))
+    check(all(bool(torch.isfinite(t).all()) for t in res),
+          "restarts produced non-finite results")
+    free0 = free_fn(base.trajs)
+    check(torch.equal(res.trajs[free0], base.trajs[free0]),
+          "restarts changed lanes that were free after the main solve")
+    f_main = float(free0.float().mean())
+    f_res = float(free_fn(res.trajs).float().mean())
+    check(f_res >= f_main, "restarts lowered the free fraction %.4f -> %.4f"
+          % (f_main, f_res))
+    emit("pm_restarts", B=PM_B, main_iters=PM_R_ITERS, rounds=PM_R_ROUNDS,
+         restart_iters=PM_R_RESTART, launches=launches, wall_ms=ms,
+         trajs_per_s=PM_B / (ms / 1e3), fraction_free_main=f_main,
+         fraction_free_restarts=f_res,
+         jax_package_fraction_free=PM_JAX_FREE,
+         mean_final_cost=float(res.costs.mean()))
+
+
+def ru_problem():
+    """The reuse workload (gn_reuse_ab.py batch_solve_ab) -> (task, start,
+    goal, theta0 (256, 32, 14)): starts and goals from random_coll_free_q
+    with a budget of B * 64 each (one seeded CPU generator), theta0 one GP
+    prior sample per problem."""
+    import torch
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.solve import sample_gp_prior_trajs
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    task = PlanningTask(env=EnvSpheres3D(device="cuda"),
+                        robot=RobotPanda.create(device="cuda"),
+                        obstacle_cutoff_margin=RU_CUTOFF)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    qs, n_s = task.random_coll_free_q(gen, n_samples=RU_B,
+                                      max_samples=RU_B * 64)
+    qg, n_g = task.random_coll_free_q(gen, n_samples=RU_B,
+                                      max_samples=RU_B * 64)
+    check(n_s == RU_B and n_g == RU_B, "reuse workload: only %d / %d free "
+          "starts / goals" % (n_s, n_g))
+    start = torch.cat([qs, torch.zeros_like(qs)], -1)
+    goal = torch.cat([qg, torch.zeros_like(qg)], -1)
+    theta0 = sample_gp_prior_trajs(gen, start, goal, RU_H, RU_B,
+                                   RU_GP["dt"], RU_GP["sigma_gp_init"])
+    return task, start, goal, theta0
+
+
+def phase_k9(pm, ru):
+    """K9 vs its plain versions; see the module doc.  On the random system
+    every output to SOLVE_TOL_RANDOM of max|ref|; on the two GN systems
+    each output held to float64 (hold_solve): x and the factors to the
+    float64 factor sweep, the substitution's x to the float64 substitution
+    from the same (card) factors.  The substitution's x with a fresh b also
+    against the float64 solve of the original system with that b (no worse
+    than the plain substitution from the plain factors).  At a ragged B =
+    100 every lane is bit for bit its full-batch value."""
+    import torch
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import (
+        solve_lanes_factor, solve_lanes_subst)
+    from torch_robotics_tpu_torch.solve import GPMP2Params
+    from torch_robotics_tpu_torch.solve.btridiag_lanes import (
+        solve_lanes_core, solve_lanes_factor_core, solve_lanes_subst_core)
+    from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
+    systems = {}
+    task, params, start, goal, theta0 = pm
+    systems["config2_gn_m4"] = _lanes_gn_system(
+        task.collision_residuals.obstacle_terms_lanes, theta0, start, goal,
+        params)[:3]
+    ru_task, ru_start, ru_goal, ru_theta0 = ru
+    systems["reuse_gn_m14"] = _lanes_gn_system(
+        ru_task.collision_residuals.obstacle_terms_lanes, ru_theta0,
+        ru_start, ru_goal, GPMP2Params(**RU_GP))[:3]
+    D, U, b = random_system(RU_H, 14, RU_B, seed=10)
+    systems["random_m14"] = (b, D, U)
+    results = {}
+    rng = np.random.default_rng(11)
+    for name, (b, D, U) in systems.items():
+        random = name.startswith("random")
+        b2 = torch.as_tensor(rng.normal(size=b.shape) * float(b.abs().max()),
+                             dtype=torch.float32, device="cuda")
+        x, L, W = solve_lanes_factor(D, U, b)
+        xp, Lp, Wp = solve_lanes_factor_core(D, U, b)
+        ref64 = solve_lanes_factor_core(D.double(), U.double(), b.double())
+        out = {k: hold_solve("%s_factor_%s" % (name, k), g, p, r, random)
+               for k, g, p, r in zip(("x", "L", "W"), (x, L, W),
+                                     (xp, Lp, Wp), ref64)}
+        check(bool((torch.triu(L.permute(0, 3, 1, 2), 1) == 0).all()),
+              name + ": L's strict upper triangle is not zero")
+        xs = solve_lanes_subst(L, W, b2)
+        out["subst_x"] = hold_solve(
+            name + "_subst_x", xs, solve_lanes_subst_core(L, W, b2),
+            solve_lanes_subst_core(L.double(), W.double(), b2.double()),
+            random)
+        out["subst_vs_original_system"] = hold_solve(
+            name + "_subst_vs_original_system", xs,
+            solve_lanes_subst_core(Lp, Wp, b2),
+            solve_lanes_core(D.double(), U.double(), b2.double()), random)
+        Bn = 100
+        xr, Lr, Wr = solve_lanes_factor(D[..., :Bn].contiguous(), U,
+                                        b[..., :Bn].contiguous())
+        xsr = solve_lanes_subst(Lr, Wr, b2[..., :Bn].contiguous())
+        check(all(torch.equal(g, f[..., :Bn]) for g, f in
+                  ((xr, x), (Lr, L), (Wr, W), (xsr, xs))),
+              name + ": a ragged B = 100 is not lane for lane the full solve")
+        results[name] = out
+    b, D, U = systems["reuse_gn_m14"]
+    x, L, W = solve_lanes_factor(D, U, b)
+    f_ms = cuda_ms(lambda: solve_lanes_factor(D, U, b), iters=20)
+    s_ms = cuda_ms(lambda: solve_lanes_subst(L, W, b), iters=50)
+    fp_ms = cuda_ms(lambda: solve_lanes_factor_core(D, U, b), iters=2,
+                    warmup=1)
+    sp_ms = cuda_ms(lambda: solve_lanes_subst_core(L, W, b), iters=2,
+                    warmup=1)
+    lib_f, lib_s = dense_cholesky_fns(D, U, b)
+    lf_ms = cuda_ms(lib_f, iters=3, warmup=1)
+    ls_ms = cuda_ms(lib_s, iters=3, warmup=1)
+    torch.cuda.empty_cache()
+    emit("k9", shapes={k: list(v[1].shape) for k, v in systems.items()},
+         max_errs=results, factor_ms=f_ms, subst_ms=s_ms,
+         factor_plain_ms=fp_ms, subst_plain_ms=sp_ms,
+         dense_cholesky_ms=lf_ms, dense_cholesky_solve_ms=ls_ms,
+         factor_bound_ms=bound_ms(*factor_work(RU_H, 14, RU_B))[0],
+         subst_bound_ms=bound_ms(*subst_work(RU_H, 14, RU_B))[0])
+    err = results["reuse_gn_m14"]
+    return (dict(max_abs_err=max(err[k]["abs"] for k in ("x", "L", "W")),
+                 ms=f_ms, plain_ms=fp_ms, library_ms=lf_ms,
+                 work=factor_work(RU_H, 14, RU_B)),
+            dict(max_abs_err=err["subst_x"]["abs"], ms=s_ms, plain_ms=sp_ms,
+                 library_ms=ls_ms, work=subst_work(RU_H, 14, RU_B)))
+
+
+def dense_cholesky_fns(D, U, b):
+    """The library yardsticks for K9 (never used by the port): one
+    torch.linalg.cholesky of the dense (B, H m, H m) system (the factor
+    sweep's L and W are its diagonal and sub-diagonal blocks), and one
+    torch.cholesky_solve from that factor (the substitution sweep's
+    function)."""
+    import torch
+    H_, m, _, B_ = D.shape
+    A = torch.zeros((B_, H_ * m, H_ * m), dtype=D.dtype, device=D.device)
+    for k in range(H_):
+        sl = slice(k * m, (k + 1) * m)
+        A[:, sl, sl] = D[k].permute(2, 0, 1)
+        if k + 1 < H_:
+            nx = slice((k + 1) * m, (k + 2) * m)
+            A[:, sl, nx] = U[k, :, :, 0]
+            A[:, nx, sl] = U[k, :, :, 0].T
+    C = torch.linalg.cholesky(A)
+    rhs = b.permute(2, 0, 1).reshape(B_, H_ * m, 1)
+    return (lambda: torch.linalg.cholesky(A),
+            lambda: torch.cholesky_solve(rhs, C))
+
+
+def phase_reuse(ru):
+    """GN factorization reuse on the reuse workload; see the module doc.
+    Launch counts per k: K1 48; k = 1 K2 48; k = 2 K9 factor 24, subst 24;
+    k = 4 factor 12, subst 36.  k = 1 is bit for bit the solve without the
+    option."""
+    import dataclasses
+
+    import torch
+    from torch_robotics_tpu_torch.solve import GPMP2Params, gpmp2_solve
+    task, start, goal, theta0 = ru
+    res_fn = task.collision_residuals
+    out, totals = {}, {"btridiag_factor": 0, "btridiag_subst": 0}
+    for k in RU_KS:
+        p = GPMP2Params(**RU_GP, refactor_every=k)
+        gpmp2_solve(res_fn, theta0, start, goal,
+                    dataclasses.replace(p, opt_iters=4))      # warm-up
+        res, launches, ms = counted(
+            lambda: gpmp2_solve(res_fn, theta0, start, goal, p))
+        n_fac = -(-RU_ITERS // k)
+        expected = ({"terms": RU_ITERS, "btridiag_w": RU_ITERS} if k == 1
+                    else {"terms": RU_ITERS, "btridiag_factor": n_fac,
+                          "btridiag_subst": RU_ITERS - n_fac})
+        check(launches == expected, "reuse k = %d launches %s, expected %s"
+              % (k, launches, expected))
+        check(all(bool(torch.isfinite(t).all()) for t in res),
+              "reuse k = %d produced non-finite results" % k)
+        if k == 1:
+            plain = gpmp2_solve(res_fn, theta0, start, goal,
+                                GPMP2Params(**RU_GP))
+            check(all(torch.equal(a, b) for a, b in zip(res, plain)),
+                  "refactor_every = 1 is not the solve without the option")
+        for name in totals:
+            totals[name] += launches.get(name, 0)
+        out["refactor_every_%d" % k] = dict(
+            launches=launches, solve_ms=ms, ms_per_iteration=ms / RU_ITERS,
+            fraction_free=task.compute_fraction_free_trajs(res.trajs),
+            final_cost_mean=float(res.costs.mean()))
+    emit("reuse", B=RU_B, H=RU_H, iterations=RU_ITERS, **out)
+    return totals
+
+
+def phase_point_cloud():
+    """K10 through PointCloudSpheres; see the module doc."""
+    import torch
+    from torch_robotics_tpu_torch.geom import PointCloudSpheres
+    from torch_robotics_tpu_torch.ops import sdf_kernel
+    rng = np.random.default_rng(12)
+    pts = torch.as_tensor(rng.uniform(-1, 1, size=(PC_M, 3)),
+                          dtype=torch.float32, device="cuda")
+    cloud = PointCloudSpheres.create(rng.uniform(-1, 1, size=(PC_S, 3)),
+                                     radius=PC_RADIUS, device="cuda")
+    sdf, launches, q_ms = counted(lambda: cloud.signed_distance(pts))
+    check(launches == {"sphere_sdf": 1},
+          "point-cloud query launches %s" % (launches,))
+    c, r = cloud.centers, cloud.radii
+    results = {}
+    for name, got, (p, cc, rr) in (
+            ("M%d_S%d" % (PC_M, PC_S), sdf, (pts, c, r)),
+            ("ragged_M1000_S129", None,
+             (pts[:1000].contiguous(), c[:129].contiguous(),
+              r[:129].contiguous()))):
+        if got is None:
+            got = sdf_kernel.sphere_sdf_kernel(p, cc, rr)
+        ref = sdf_kernel.sphere_sdf_reference(p, cc, rr)
+        check(bool(torch.isfinite(got).all()), name + ": non-finite SDF")
+        err = float((got - ref).abs().max())
+        check(err <= SDF_TOL, "%s: sphere SDF kernel vs plain %.3g"
+              % (name, err))
+        results[name] = err
+    small = PointCloudSpheres.create(c[:127].cpu().numpy(), radius=PC_RADIUS,
+                                     device="cuda")
+    n0 = sdf_kernel.KERNEL.launches
+    out127 = small.signed_distance(pts[:1000])
+    check(sdf_kernel.KERNEL.launches == n0 and bool(
+        torch.isfinite(out127).all()), "S = 127 did not take the plain route")
+    k_ms = cuda_ms(lambda: sdf_kernel.sphere_sdf_kernel(pts, c, r), iters=20)
+    p_ms = cuda_ms(lambda: sdf_kernel.sphere_sdf_reference(pts, c, r),
+                   iters=3, warmup=1)
+    lib_ms = cuda_ms(lambda: torch.cdist(pts, c).sub(r).amin(-1), iters=5)
+    torch.cuda.empty_cache()
+    emit("point_cloud", M=PC_M, S=PC_S, max_abs_err=results,
+         query_ms=q_ms, kernel_ms=k_ms, plain_ms=p_ms, cdist_ms=lib_ms,
+         bound_ms=bound_ms(*sdf_work(PC_M, PC_S))[0])
+    return dict(max_abs_err=results["M%d_S%d" % (PC_M, PC_S)], ms=k_ms,
+                plain_ms=p_ms, library_ms=lib_ms, work=sdf_work(PC_M, PC_S),
+                launches=launches["sphere_sdf"])
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1444,6 +1964,14 @@ def main() -> None:
     mr_launches = phase_mr_mpc(mr, mr_start, mr_goal, draw)
     phase_mr_cpu(mr_start, mr_goal)
 
+    pm = pm_problem("cuda")
+    phase_pm_solve(*pm)
+    phase_pm_restarts(*pm)
+    ru = ru_problem()
+    factor, subst = phase_k9(pm, ru)
+    k9_launches = phase_reuse(ru)
+    cloud = phase_point_cloud()
+
     entries = []
     for name, src, rep, res, n in (
             ("obstacle_terms", "torch_robotics_tpu_torch/csrc/terms.cu",
@@ -1466,7 +1994,16 @@ def main() -> None:
              mr_launches[0]),
             ("btridiag_cols", "torch_robotics_tpu_torch/csrc/btridiag_cols.cu",
              "torch_robotics_tpu/ops/pallas_btridiag.py:583", mr_solve,
-             mr_launches[1])):
+             mr_launches[1]),
+            ("btridiag_factor", "torch_robotics_tpu_torch/csrc/btridiag.cu",
+             "torch_robotics_tpu/ops/pallas_btridiag.py:374", factor,
+             k9_launches["btridiag_factor"]),
+            ("btridiag_subst", "torch_robotics_tpu_torch/csrc/btridiag.cu",
+             "torch_robotics_tpu/ops/pallas_btridiag.py:423", subst,
+             k9_launches["btridiag_subst"]),
+            ("sphere_sdf", "torch_robotics_tpu_torch/csrc/sphere_sdf.cu",
+             "torch_robotics_tpu/ops/pallas_sdf.py:75", cloud,
+             cloud["launches"])):
         b_ms, b_by = bound_ms(*res["work"])
         entries.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n,

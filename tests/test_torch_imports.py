@@ -173,3 +173,51 @@ def test_multirobot_wrappers_take_the_kernel_or_raise_off_the_cpu():
     with pytest.raises(ValueError):
         run_multirobot_terms_kernel(torch.zeros((20, 5), device="meta"),
                                     ints, floats, 20, 6, 1024)
+
+
+def test_point_mass_and_point_cloud_entry_points_default_to_the_card(
+        monkeypatch):
+    """The point mass, the 2-D scene, the point cloud and the exact prior
+    sampler's matrices default to the card and raise without one; the
+    sampler itself runs where its endpoints live."""
+    from torch_robotics_tpu_torch.envs import EnvDense2D
+    from torch_robotics_tpu_torch.geom import PointCloudSpheres
+    from torch_robotics_tpu_torch.robots import (RobotPointMass,
+                                                 RobotPointMass3D)
+    from torch_robotics_tpu_torch.solve import gp_prior
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    centers = [[0.0, 0.0, 0.0], [0.5, 0.0, 0.0]]
+    for make in (RobotPointMass.create, RobotPointMass3D, EnvDense2D,
+                 lambda: PointCloudSpheres.create(centers),
+                 lambda: gp_prior.gp_bridge_sampler_matrix(2, 4, 0.1, 0.5),
+                 lambda: gp_prior.gp_bridge_mean_matrices(2, 4, 0.1, 0.5)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert RobotPointMass.create(device="cpu").device.type == "cpu"
+    assert PointCloudSpheres.create(
+        centers, device="cpu").centers.device.type == "cpu"
+    s = torch.zeros(4)
+    trajs = gp_prior.sample_gp_prior_trajs(torch.Generator(), s, s + 1.0, 4,
+                                           3, 0.1, 0.5)
+    assert trajs.shape == (3, 4, 4) and trajs.device.type == "cpu"
+
+
+def test_reuse_and_sdf_wrappers_take_the_kernel_or_raise_off_the_cpu():
+    """The factor-persisting sweep, the substitution sweep and the sphere
+    SDF refuse a tensor that is neither CPU nor CUDA: no quiet plain run."""
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import (
+        solve_lanes_factor, solve_lanes_subst)
+    from torch_robotics_tpu_torch.ops.sdf_kernel import sphere_sdf_kernel
+    D = torch.zeros((2, 4, 4, 3), device="meta")
+    U = torch.zeros((2, 4, 4, 1), device="meta")
+    b = torch.zeros((2, 4, 3), device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        solve_lanes_factor(D, U, b)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        solve_lanes_subst(D, D, b)
+    with pytest.raises(ValueError):
+        solve_lanes_subst(D, D[..., :2], b)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        sphere_sdf_kernel(torch.zeros((5, 3), device="meta"),
+                          torch.zeros((2, 3), device="meta"),
+                          torch.zeros((2,), device="meta"))

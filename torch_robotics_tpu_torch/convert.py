@@ -23,6 +23,11 @@ A multi-robot task carries, instead of the model and collision keys,
 arm), ``base_rots`` (n, 3, 3), ``base_trans`` (n, 3), and the MultiRobot's
 own ``self_pair_idxs`` (K, 2) over its full collision layout with their
 ``self_margins`` (K,).
+
+A point-mass task carries ``robot`` = "point_mass", ``q_limits`` (2, d),
+``object_margins`` (1,), ``dt`` () and ``name`` instead; its scene is
+``objects`` as above (2-D groups for a 2-D scene), or, where ``objects``
+is absent, ``env_name``, a scene of the layout data (``envs.make_env``).
 """
 from __future__ import annotations
 
@@ -31,11 +36,13 @@ import torch
 
 from .core.device import resolve_device
 from .envs.base import EnvBase
+from .envs.zoo import make_env
 from .geom.sdf import ObjectField, RoundedBoxes, SharpBoxes, Spheres
 from .kin.model import KinematicModel
 from .robots.kinematic_robot import KinematicRobot
 from .robots.multi_robot import MultiRobot
 from .robots.panda import RobotPanda
+from .robots.point_mass import RobotPointMass
 from .tasks.planning_task import PlanningTask
 
 __all__ = ["task_from_numpy", "task_arrays", "MODEL_KEYS"]
@@ -85,7 +92,13 @@ def _robot_from_numpy(arrays: dict, dev, cls=RobotPanda):
 def task_from_numpy(arrays: dict, device="cuda") -> PlanningTask:
     """Build the port's PlanningTask from exported arrays (module doc)."""
     dev = resolve_device(device)
-    if "members" in arrays:
+    if arrays.get("robot") == "point_mass":
+        robot = RobotPointMass.create(
+            q_limits=np.asarray(arrays["q_limits"], np.float64),
+            margin=float(np.asarray(arrays["object_margins"]).reshape(-1)[0]),
+            dt=float(arrays.get("dt", 1.0)),
+            name=str(arrays.get("name", "RobotPointMass")), device=dev)
+    elif "members" in arrays:
         robot = MultiRobot.from_pairs(
             [_robot_from_numpy(m, dev, KinematicRobot)
              for m in arrays["members"]],
@@ -93,6 +106,12 @@ def task_from_numpy(arrays: dict, device="cuda") -> PlanningTask:
             arrays["self_pair_idxs"], arrays["self_margins"])
     else:
         robot = _robot_from_numpy(arrays, dev)
+    cutoff = float(arrays["obstacle_cutoff_margin"])
+    if "objects" not in arrays:
+        env = make_env(str(arrays["env_name"]), device=dev)
+        return PlanningTask(env=env, robot=robot,
+                            ws_limits=arrays.get("ws_limits"),
+                            obstacle_cutoff_margin=cutoff)
     objects = []
     for o in arrays["objects"]:
         groups = []
@@ -103,8 +122,7 @@ def task_from_numpy(arrays: dict, device="cuda") -> PlanningTask:
                                    _f32(o["ori"], dev)))
     env = EnvBase(name="from_numpy", limits=np.asarray(arrays["ws_limits"]),
                   obj_fixed_list=objects, device=dev)
-    return PlanningTask(env=env, robot=robot, obstacle_cutoff_margin=float(
-        arrays["obstacle_cutoff_margin"]))
+    return PlanningTask(env=env, robot=robot, obstacle_cutoff_margin=cutoff)
 
 
 def _np(t):
@@ -132,7 +150,12 @@ def _robot_arrays(robot) -> dict:
 def task_arrays(task: PlanningTask) -> dict:
     """Export a port task in ``task_from_numpy``'s format (numpy arrays)."""
     robot = task.robot
-    if isinstance(robot, MultiRobot):
+    if isinstance(robot, RobotPointMass):
+        out = dict(robot="point_mass",
+                   q_limits=np.stack([_np(robot.q_min), _np(robot.q_max)]),
+                   object_margins=_np(robot.object_margins),
+                   dt=np.float64(robot.dt), name=robot.name)
+    elif isinstance(robot, MultiRobot):
         out = dict(members=[_robot_arrays(r) for r in robot.robots],
                    base_rots=_np(robot.base_rots),
                    base_trans=_np(robot.base_trans),

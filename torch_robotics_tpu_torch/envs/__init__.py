@@ -1,4 +1,5 @@
 from .base import EnvBase
-from .zoo import EnvMazeBoxes3D, EnvSpheres3D, make_env
+from .zoo import EnvDense2D, EnvMazeBoxes3D, EnvSpheres3D, make_env
 
-__all__ = ["EnvBase", "EnvMazeBoxes3D", "EnvSpheres3D", "make_env"]
+__all__ = ["EnvBase", "EnvDense2D", "EnvMazeBoxes3D", "EnvSpheres3D",
+           "make_env"]

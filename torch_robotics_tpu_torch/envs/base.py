@@ -1,6 +1,6 @@
-"""Environment base: workspace limits + obstacle objects (counterpart of
-torch_robotics_tpu/envs/base.py without the precomputed SDF grid and the
-occupancy map, which wait for a later slice)."""
+"""Environment base: workspace limits + obstacle objects + planner presets
+(counterpart of torch_robotics_tpu/envs/base.py without the precomputed SDF
+grid and the occupancy map, which are not ported yet)."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -18,7 +18,8 @@ class EnvBase:
     def __init__(self, name: str = "EnvBase", limits=None,
                  obj_fixed_list: Optional[Sequence[ObjectField]] = None,
                  obj_extra_list: Optional[Sequence[ObjectField]] = None,
-                 precompute_sdf_obj_fixed: bool = False, device="cuda"):
+                 precompute_sdf_obj_fixed: bool = False, device="cuda",
+                 planner_params: Optional[dict] = None):
         if limits is None:
             raise ValueError("EnvBase needs workspace limits")
         if precompute_sdf_obj_fixed:
@@ -34,6 +35,7 @@ class EnvBase:
         self.obj_extra_list = (list(obj_extra_list)
                                if obj_extra_list is not None else None)
         self.obj_all_list = self.obj_fixed_list + (self.obj_extra_list or [])
+        self._planner_params = planner_params or {}
 
     def get_df_obj_list(self, return_extra_objects_only: bool = False):
         """Distance-field objects for cost evaluation."""
@@ -50,3 +52,22 @@ class EnvBase:
             s = obj.signed_distance(x)
             sdf = s if sdf is None else torch.minimum(sdf, s)
         return sdf
+
+    def _get_params(self, method: str, robot=None) -> dict:
+        """The scene's preset for ``method``; raises when there is none or
+        when it is for another robot."""
+        entry = self._planner_params.get(method)
+        if entry is None:
+            raise NotImplementedError(f"{self.name} has no {method} preset")
+        expected = entry.get("robot")
+        if robot is not None and expected is not None:
+            robot_name = getattr(robot, "name", type(robot).__name__)
+            if expected not in (robot_name, type(robot).__name__):
+                raise NotImplementedError(
+                    f"{self.name} {method} preset is for {expected}, "
+                    f"got {robot_name}")
+        return dict(entry["params"])
+
+    def get_gpmp2_params(self, robot=None) -> dict:
+        """GPMP2 hyperparameters (``solve.GPMP2Params.from_preset``)."""
+        return self._get_params("gpmp2", robot)

@@ -14,7 +14,7 @@ from ..geom.sdf import (MultiBoxField, MultiSharpBoxField, MultiSphereField,
 from ..utils.files import get_data_path
 from .base import EnvBase
 
-__all__ = ["make_env", "EnvSpheres3D", "EnvMazeBoxes3D"]
+__all__ = ["make_env", "EnvSpheres3D", "EnvMazeBoxes3D", "EnvDense2D"]
 
 
 @lru_cache(maxsize=1)
@@ -50,6 +50,7 @@ def make_env(name: str, precompute_sdf_obj_fixed: bool = False,
                         if spec["obj_extra"] else None),
         precompute_sdf_obj_fixed=precompute_sdf_obj_fixed,
         device=device,
+        planner_params=spec["planner_params"],
     )
 
 
@@ -63,3 +64,10 @@ def EnvMazeBoxes3D(precompute_sdf_obj_fixed: bool = False,
                    device="cuda") -> EnvBase:
     """Fourteen rounded boxes in a [-1, 1]^3 workspace."""
     return make_env("EnvMazeBoxes3D", precompute_sdf_obj_fixed, device)
+
+
+def EnvDense2D(precompute_sdf_obj_fixed: bool = False,
+               device="cuda") -> EnvBase:
+    """Config 2's scene: sixteen circles and fourteen rounded boxes in a
+    [-1, 1]^2 workspace."""
+    return make_env("EnvDense2D", precompute_sdf_obj_fixed, device)

@@ -1,5 +1,7 @@
+from .point_cloud import PointCloudSpheres
 from .sdf import (MultiBoxField, MultiSharpBoxField, MultiSphereField,
                   ObjectField, RoundedBoxes, SharpBoxes, Spheres)
 
 __all__ = ["Spheres", "SharpBoxes", "RoundedBoxes", "ObjectField",
-           "MultiSphereField", "MultiSharpBoxField", "MultiBoxField"]
+           "MultiSphereField", "MultiSharpBoxField", "MultiBoxField",
+           "PointCloudSpheres"]

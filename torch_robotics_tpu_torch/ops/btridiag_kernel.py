@@ -10,13 +10,20 @@ Counterparts of torch_robotics_tpu/ops/pallas_btridiag.py:
 - ``solve_lanes_auto``: the reference's routing (``solve_lanes_auto`` and
   the m > 32 branch of ``gpmp2._gpmp2_step_lanes_impl``): m <= 16 to the
   W-persisting sweep, larger m to the column sweep.
+- ``solve_lanes_factor``: the W-persisting sweep with its factors L and W
+  as outputs (``solve_lanes_pallas_factor``), and ``solve_lanes_subst``:
+  the substitution-only re-solve from them with a fresh right-hand side
+  (``solve_lanes_pallas_subst``); GN factorization reuse.  Both in
+  ``csrc/btridiag.cu``, m in {2, 4, ..., 16}.
 
 Each CUDA source's head comment says what bounds its kernel on the H100
-and how its design answers that.  The plain PyTorch version of both is
-``solve/btridiag_lanes.solve_lanes_core``, generic in m.
+and how its design answers that.  The plain PyTorch version of the sweeps
+is ``solve/btridiag_lanes.solve_lanes_core``, generic in m (with
+``solve_lanes_factor_core`` and ``solve_lanes_subst_core`` for the reuse
+pair).
 
-Each takes D (H, m, m, B), U (H, m, m, 1) shared over the batch (last
-block unused) and b (H, m, B) and returns x (H, m, B).  A CPU tensor takes
+The sweeps take D (H, m, m, B), U (H, m, m, 1) shared over the batch (last
+block unused) and b (H, m, B) and return x (H, m, B).  A CPU tensor takes
 the plain version; a CUDA tensor launches a kernel or raises.  A per-batch
 U raises, as the reference kernels refuse it.
 """
@@ -26,11 +33,13 @@ import ctypes
 
 import torch
 
-from ..solve.btridiag_lanes import solve_lanes_core
+from ..solve.btridiag_lanes import (solve_lanes_core, solve_lanes_factor_core,
+                                    solve_lanes_subst_core)
 from .cuda_build import CudaKernel
 
-__all__ = ["KERNEL", "COLS_KERNEL", "solve_lanes_w", "solve_lanes_cols",
-           "solve_lanes_auto"]
+__all__ = ["KERNEL", "COLS_KERNEL", "FACTOR_KERNEL", "SUBST_KERNEL",
+           "solve_lanes_w", "solve_lanes_cols", "solve_lanes_auto",
+           "solve_lanes_factor", "solve_lanes_subst"]
 
 _P = ctypes.c_void_p
 KERNEL = CudaKernel("btridiag.cu", {
@@ -40,6 +49,14 @@ KERNEL = CudaKernel("btridiag.cu", {
 COLS_KERNEL = CudaKernel("btridiag_cols.cu", {
     "trt_btridiag_cols_launch": [_P, _P, _P, _P, _P, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int, _P],
+})
+FACTOR_KERNEL = CudaKernel("btridiag.cu", {
+    "trt_btridiag_factor_launch": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int, _P],
+})
+SUBST_KERNEL = CudaKernel("btridiag.cu", {
+    "trt_btridiag_subst_launch": [_P, _P, _P, _P, _P, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int, _P],
 })
 _KERNEL_M = (2, 4, 6, 8, 10, 12, 14, 16)   # btridiag.cu instantiations
 _COLS_MAX_M = 64                            # btridiag_cols.cu kMaxM
@@ -63,12 +80,18 @@ def _check(D, U, b):
         raise ValueError("D, U and b must be on one device")
 
 
-def _check_cuda(name, D, U, b):
+def _check_cuda(name, D, U, b, keys=("D", "U", "b")):
     if D.device.type != "cuda":
         raise ValueError("%s takes CPU or CUDA tensors" % name)
-    for key, t in (("D", D), ("U", U), ("b", b)):
+    for key, t in zip(keys, (D, U, b)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("%s must be contiguous float32" % key)
+
+
+def _check_m(m: int) -> None:
+    if m not in _KERNEL_M:
+        raise NotImplementedError(
+            "the CUDA sweep takes m in %s, got %d" % (_KERNEL_M, m))
 
 
 def solve_lanes_w(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor):
@@ -79,9 +102,7 @@ def solve_lanes_w(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor):
         return solve_lanes_core(D, U, b)
     _check_cuda("solve_lanes_w", D, U, b)
     H, m, _, B = D.shape
-    if m not in _KERNEL_M:
-        raise NotImplementedError(
-            "the CUDA sweep takes m in %s, got %d" % (_KERNEL_M, m))
+    _check_m(m)
     x = torch.empty((H, m, B), dtype=torch.float32, device=D.device)
     if B == 0 or H == 0:
         return x
@@ -129,3 +150,59 @@ def solve_lanes_auto(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor):
     if D.shape[1] <= _W_MAX_M:
         return solve_lanes_w(D, U, b)
     return solve_lanes_cols(D, U, b)
+
+
+def solve_lanes_factor(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor):
+    """The W-persisting sweep that also returns its factors: D, U, b as
+    ``solve_lanes_w`` -> (x (H, m, B), L (H, m, m, B), W (H, m, m, B)),
+    L lower with a zero strict upper triangle; m in 2..16 even on the
+    card."""
+    _check(D, U, b)
+    if D.device.type == "cpu":
+        return solve_lanes_factor_core(D, U, b)
+    _check_cuda("solve_lanes_factor", D, U, b)
+    H, m, _, B = D.shape
+    _check_m(m)
+    kw = dict(dtype=torch.float32, device=D.device)
+    x = torch.empty((H, m, B), **kw)
+    Ls = torch.empty((H, m, m, B), **kw)
+    Ws = torch.empty((H, m, m, B), **kw)
+    if B == 0 or H == 0:
+        return x, Ls, Ws
+    ys = torch.empty((H, m, B), **kw)
+    with torch.cuda.device(D.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        FACTOR_KERNEL.launch("trt_btridiag_factor_launch", D.data_ptr(),
+                             U.data_ptr(), b.data_ptr(), x.data_ptr(),
+                             Ls.data_ptr(), Ws.data_ptr(), ys.data_ptr(), H,
+                             m, B, stream)
+    return x, Ls, Ws
+
+
+def solve_lanes_subst(L: torch.Tensor, W: torch.Tensor, b: torch.Tensor):
+    """Substitution-only re-solve of a factored system with a fresh
+    right-hand side: L, W (H, m, m, B) from ``solve_lanes_factor``, b
+    (H, m, B) -> x (H, m, B); m in 2..16 even on the card."""
+    if L.dim() != 4 or L.shape[1] != L.shape[2]:
+        raise ValueError("L must be (H, m, m, B), got %s" % (tuple(L.shape),))
+    H, m, _, B = L.shape
+    if tuple(W.shape) != (H, m, m, B) or tuple(b.shape) != (H, m, B):
+        raise ValueError("W must be %s and b %s, got %s and %s"
+                         % ((H, m, m, B), (H, m, B), tuple(W.shape),
+                            tuple(b.shape)))
+    if len({L.device, W.device, b.device}) != 1:
+        raise ValueError("L, W and b must be on one device")
+    if L.device.type == "cpu":
+        return solve_lanes_subst_core(L, W, b)
+    _check_cuda("solve_lanes_subst", L, W, b, keys=("L", "W", "b"))
+    _check_m(m)
+    x = torch.empty((H, m, B), dtype=torch.float32, device=L.device)
+    if B == 0 or H == 0:
+        return x
+    ys = torch.empty_like(x)
+    with torch.cuda.device(L.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        SUBST_KERNEL.launch("trt_btridiag_subst_launch", L.data_ptr(),
+                            W.data_ptr(), b.data_ptr(), x.data_ptr(),
+                            ys.data_ptr(), H, m, B, stream)
+    return x

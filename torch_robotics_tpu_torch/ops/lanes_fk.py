@@ -3,13 +3,20 @@
 
 Every per-waypoint quantity keeps the batch in the last (lane) axis: link
 rotations are (3, 3, N), translations and points (3, N), point Jacobians
-(P, d, 3, N).  ``obstacle_terms_lanes_factory`` is the plain version of the
-fused CUDA terms kernel (``ops/terms_kernel.py``): the same residual rows,
-the same analytic gradients, the same assembly, written as tensor ops.  It
-runs on CPU tensors (the tests, the CPU path of the port) and is what the
-kernel is held against on the card.  ``obstacle_terms_lanes_multirobot_
-factory`` is, in the same way, the plain version of the MultiRobot terms
-kernel: member-width Jacobians and a block-by-block assembly.
+(P, d, 3, N).  Scene queries take points of the workspace's dimension
+(``ws_dim`` = 2 or 3, read from the points' leading axis): 2-D points are
+lifted with z = 0 into each object's frame, and gradients come back with
+``ws_dim`` components.
+
+``obstacle_terms_lanes_factory`` is the plain version of the fused CUDA
+terms kernel (``ops/terms_kernel.py``): the same residual rows, the same
+analytic gradients, the same assembly, written as tensor ops.  It runs on
+CPU tensors (the tests, the CPU path of the port) and is what the kernel
+is held against on the card; for a point mass, which has no fused kernel
+in either package, it is the terms on every device.
+``obstacle_terms_lanes_multirobot_factory`` is, in the same way, the plain
+version of the MultiRobot terms kernel: member-width Jacobians and a
+block-by-block assembly.
 
 The SDF gradient is analytic: for the primitive that attains the minimum,
 the derivative of its closed-form distance, rotated back to the world
@@ -31,6 +38,7 @@ __all__ = ["fk_lanes", "fk_positions_lanes", "fk_points_jacobians_lanes",
            "point_jacobians_lanes",
            "group_sdf_and_grad_lanes", "sdf_and_grad_lanes",
            "obstacle_terms_lanes_factory", "embed_terms", "hinge_rows",
+           "PointMassLayout",
            "MultiRobotLayout", "obstacle_terms_lanes_multirobot_factory"]
 
 
@@ -186,8 +194,8 @@ def _take(t, idx):
 
 
 def group_sdf_and_grad_lanes(group, x: torch.Tensor):
-    """(SDF, gradient) of one primitive group at points x (3, M) in the
-    group's frame -> (val (M,), grad (3, M)).
+    """(SDF, gradient) of one primitive group at points x (dim, M) in the
+    group's frame (dim = the group's, 2 or 3) -> (val (M,), grad (dim, M)).
 
     The value is the min over primitives; the gradient is that of the
     minimizing primitive (first index on ties), in closed form:
@@ -212,7 +220,7 @@ def group_sdf_and_grad_lanes(group, x: torch.Tensor):
         s, amax = torch.max(t, dim=1)                        # (n, M)
         val, idx = torch.min(s, dim=0)
         axis = torch.gather(amax, 0, idx[None])[0]
-        onehot = (torch.arange(3, device=x.device)[:, None]
+        onehot = (torch.arange(x.shape[0], device=x.device)[:, None]
                   == axis[None, :]).to(x.dtype)
         return val, _take(sign, idx) * onehot
     if isinstance(group, RoundedBoxes):
@@ -229,7 +237,7 @@ def group_sdf_and_grad_lanes(group, x: torch.Tensor):
         msel = torch.gather(max_q, 0, idx[None])[0]
         axis = torch.gather(amax, 0, idx[None])[0]
         nsel = torch.gather(norm, 0, idx[None])[0]
-        onehot = (torch.arange(3, device=x.device)[:, None]
+        onehot = (torch.arange(x.shape[0], device=x.device)[:, None]
                   == axis[None, :]).to(x.dtype)
         outside = torch.where(nsel > 0, _take(rq, idx) / nsel, 0.0)
         inner = torch.where(msel < 0, onehot, outside)
@@ -237,13 +245,17 @@ def group_sdf_and_grad_lanes(group, x: torch.Tensor):
     raise NotImplementedError(type(group))
 
 
-def _object_sdf_and_grad_lanes(obj, pts3: torch.Tensor):
-    """Posed ObjectField (SDF, world gradient) at world points (3, M)."""
-    if obj.dim != 3:
-        raise NotImplementedError("lanes terms take 3-D scenes")
+def _object_sdf_and_grad_lanes(obj, pts: torch.Tensor):
+    """Posed ObjectField (SDF, world gradient) at world points (ws_dim, M):
+    the points are lifted to 3-D with z = 0, pulled back into the object
+    frame and cut to the object's dim; the gradient is rotated back and cut
+    to ws_dim, as the reference's vjp through that lift returns it."""
+    ws_dim, dim = pts.shape[0], obj.dim
+    if ws_dim < 3:
+        pts = torch.cat([pts, pts.new_zeros((3 - ws_dim, pts.shape[1]))])
     R = obj.rotation_matrix()                               # (3, 3)
-    x_obj = torch.sum(R[:, :, None] * (pts3 - obj.pos[:, None])[:, None, :],
-                      dim=0)                                # R^T (x - pos)
+    x_obj = torch.sum(R[:, :, None] * (pts - obj.pos[:, None])[:, None, :],
+                      dim=0)[:dim]                          # R^T (x - pos)
     best_v, best_g = None, None
     for f in obj.fields:
         v, g = group_sdf_and_grad_lanes(f, x_obj)
@@ -253,15 +265,17 @@ def _object_sdf_and_grad_lanes(obj, pts3: torch.Tensor):
             take = v < best_v
             best_g = torch.where(take[None], g, best_g)
             best_v = torch.where(take, v, best_v)
-    return best_v, torch.sum(R[:, :, None] * best_g[None, :, :], dim=1)
+    grad = torch.sum(R[:, :dim, None] * best_g[None, :, :], dim=1)
+    return best_v, grad[:ws_dim]
 
 
-def sdf_and_grad_lanes(df_obj_list, pts3: torch.Tensor):
-    """(min-over-objects SDF (M,), its gradient (3, M)) at points (3, M);
-    the first object attaining the minimum supplies the gradient."""
+def sdf_and_grad_lanes(df_obj_list, pts: torch.Tensor):
+    """(min-over-objects SDF (M,), its gradient (ws_dim, M)) at points
+    (ws_dim, M), ws_dim 2 or 3; the first object attaining the minimum
+    supplies the gradient."""
     best_v, best_g = None, None
     for obj in df_obj_list:
-        v, g = _object_sdf_and_grad_lanes(obj, pts3)
+        v, g = _object_sdf_and_grad_lanes(obj, pts)
         if best_v is None:
             best_v, best_g = v, g
         else:
@@ -337,7 +351,8 @@ class TermsLayout:
 
 
 def _contract3(grad, J):
-    """grad (K, 3, N) . J (K, d, 3, N) over the workspace axis -> (K, d, N)."""
+    """grad (K, ws, N) . J (K, d, ws, N) over the workspace axis ->
+    (K, d, N)."""
     return torch.sum(grad[:, None] * J, dim=2)
 
 
@@ -353,21 +368,22 @@ def _pair_hinge(diff, margins):
 
 
 def _workspace_val_grad(pts, ws_min, ws_max):
-    """Min-face workspace distance of points (P, 3, N) and its gradient
-    (P, 3, N); the first minimal face wins."""
+    """Min-face workspace distance of points (P, ws, N) and its gradient
+    (P, ws, N); the first minimal face wins."""
+    ws = pts.shape[1]
     faces = torch.cat([pts - ws_min[None, :, None],
                        ws_max[None, :, None] - pts], dim=1)
     val, amin = torch.min(faces, dim=1)                          # (P, N)
-    sign = torch.where(amin < 3, 1.0, -1.0).to(pts.dtype)
-    axis_id = torch.where(amin < 3, amin, amin - 3)
+    sign = torch.where(amin < ws, 1.0, -1.0).to(pts.dtype)
+    axis_id = torch.where(amin < ws, amin, amin - ws)
     grad = torch.stack([sign * (axis_id == k).to(pts.dtype)
-                        for k in range(3)], dim=1)
+                        for k in range(ws)], dim=1)
     return val, grad
 
 
 def hinge_rows(lay, pts, J):
-    """Hinge rows of collision points pts (P, 3, N) with Jacobians
-    J (P, d, 3, N): one SDF row per object point (when the scene has
+    """Hinge rows of collision points pts (P, ws, N) with Jacobians
+    J (P, d, ws, N): one SDF row per object point (when the scene has
     objects), one workspace row per object point, one distance row per
     pair, in that order.  ``lay`` carries ``obj_pos``, ``pair_a``,
     ``pair_b`` (indices into pts), ``obj_thresh``, ``self_margins``,
@@ -377,19 +393,19 @@ def hinge_rows(lay, pts, J):
     rows_r, rows_J = [], []
 
     def hinge(val, grad, J_sub):
-        """val (P, N), grad (P, 3, N), J_sub (P, d, 3, N)."""
+        """val (P, N), grad (P, ws, N), J_sub (P, d, ws, N)."""
         r = torch.relu(lay.obj_thresh[:, None] - val)
         act = (r > 0).to(val.dtype)
         rows_r.append(r)
         rows_J.append(-act[:, None, :] * _contract3(grad, J_sub))
 
-    obj_pts = pts[lay.obj_pos]                                  # (Po, 3, N)
+    obj_pts = pts[lay.obj_pos]                                  # (Po, ws, N)
     J_obj = J[lay.obj_pos]
-    Po = obj_pts.shape[0]
+    Po, ws = obj_pts.shape[:2]
     if lay.df_obj_list:
-        flat = obj_pts.permute(1, 0, 2).reshape(3, Po * N)
+        flat = obj_pts.permute(1, 0, 2).reshape(ws, Po * N)
         val, grad = sdf_and_grad_lanes(lay.df_obj_list, flat)
-        hinge(val.reshape(Po, N), grad.reshape(3, Po, N).permute(1, 0, 2),
+        hinge(val.reshape(Po, N), grad.reshape(ws, Po, N).permute(1, 0, 2),
               J_obj)
     hinge(*_workspace_val_grad(obj_pts, lay.ws_min, lay.ws_max), J_obj)
     if len(lay.pair_a):
@@ -401,17 +417,48 @@ def hinge_rows(lay, pts, J):
     return torch.cat(rows_r), torch.cat(rows_J)
 
 
+class PointMassLayout:
+    """Row structure of a point-mass task: its one collision point (the
+    configuration), an SDF row when the scene has objects and a workspace
+    row; no pairs, no chain structure."""
+
+    def __init__(self, task):
+        self.obj_pos = [0]
+        self.pair_a, self.pair_b = [], []
+        self.obj_thresh = (task.robot.object_margins
+                           + float(task.obstacle_cutoff_margin))
+        self.ws_min = task.ws_min
+        self.ws_max = task.ws_max
+        self.df_obj_list = task.df_obj_list
+
+
 def obstacle_terms_lanes_factory(task):
     """Plain-PyTorch GN obstacle terms of a task.
 
     Returns terms(q_cols (d, N), lam, h=None) -> (g, Hb, cost) in the layout
     of ``embed_terms``, or None when the robot has no lanes path (it needs a
-    kinematic model whose collision points are link origins)."""
+    kinematic model whose collision points are link origins, or is a point
+    mass, whose point is q and whose Jacobian is the identity)."""
+    from ..robots.point_mass import RobotPointMass
     robot = task.robot
-    if not hasattr(robot, "model") or robot.object_interpolate:
+    if isinstance(robot, RobotPointMass):
+        lay = PointMassLayout(task)
+
+        def points_and_jacobians(q_cols):
+            d, N = q_cols.shape
+            eye = torch.eye(d, dtype=q_cols.dtype, device=q_cols.device)
+            return q_cols[None], eye[None, :, :, None].expand(1, d, d, N)
+    elif not hasattr(robot, "model") or robot.object_interpolate:
         return None
-    lay = TermsLayout(task)
-    model = lay.model
+    else:
+        lay = TermsLayout(task)
+        model = lay.model
+
+        def points_and_jacobians(q_cols):
+            R_w, t_w = fk_lanes(model, q_cols)
+            pts = torch.stack([t_w[li] for li in lay.used_links])  # (P,3,N)
+            return pts, point_jacobians_lanes(model, R_w, t_w, pts,
+                                              lay.used_links, q_cols=q_cols)
 
     def terms(q_cols, lam, h=None):
         return embed_terms(*unscaled_terms(q_cols), lam, h=h)
@@ -429,11 +476,7 @@ def obstacle_terms_lanes_factory(task):
         """q_cols (d, N) -> hinge residuals r (R, N) and their Jacobians
         Jr (R, d, N), rows in TermsLayout's order (the object SDF rows only
         when the scene has objects)."""
-        R_w, t_w = fk_lanes(model, q_cols)
-        pts = torch.stack([t_w[li] for li in lay.used_links])   # (P, 3, N)
-        J = point_jacobians_lanes(model, R_w, t_w, pts, lay.used_links,
-                                  q_cols=q_cols)                # (P, d, 3, N)
-        return hinge_rows(lay, pts, J)
+        return hinge_rows(lay, *points_and_jacobians(q_cols))
 
     terms.unscaled = unscaled_terms
     terms.rows = residual_rows

@@ -299,11 +299,14 @@ def run_multirobot_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
 
 def _kernel_params(task):
     """(d, ints, floats, plain terms) of a task the terms.cu kernels take,
-    or None where the reference's fused factories return None (robots
-    without a kinematic model, interpolated collision points).  The learned
-    self-collision row, grid-SDF scenes and grasped-object points are not
-    in the kernels yet and raise NotImplementedError."""
+    or None where the reference's fused factories return None (a point
+    mass, robots without a kinematic model, interpolated collision points).
+    The learned self-collision row, grid-SDF scenes and grasped-object
+    points are not in the kernels yet and raise NotImplementedError."""
+    from ..robots.point_mass import RobotPointMass
     robot = task.robot
+    if isinstance(robot, RobotPointMass):
+        return None
     if not hasattr(robot, "model") or robot.object_interpolate:
         return None
     if getattr(robot, "self_collision_net", None) is not None:

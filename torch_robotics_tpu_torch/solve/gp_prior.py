@@ -1,19 +1,30 @@
 """Constant-velocity Gauss-Markov (GP) trajectory prior (counterpart of
-``gp_prior_terms`` and ``straight_line_trajs`` in
 torch_robotics_tpu/solve/gp_prior.py).
 
 States x_t = [q_t, qd_t] follow a constant-velocity model: consecutive
 states are tied by Phi(dt) with process noise Q(dt), Qc = sigma_gp^2 I.
 The prior's Hessian is block-tridiagonal and state-independent.
+
+The exact prior sampler builds the endpoint-conditioned bridge's precision
+and factors it host-side in float64 numpy (everything there is static);
+applying the factor is one matrix product.  The port draws its standard
+normals from a ``torch.Generator`` where the reference splits a key, so the
+map from given normals to trajectories, ``gp_prior_trajs_from_normals``,
+is a function of its own: the tests feed both packages the same normals.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..core.device import resolve_device
 
 __all__ = ["gp_transition", "gp_Q_inv", "gp_prior_blocks", "gp_prior_terms",
-           "straight_line_trajs"]
+           "straight_line_trajs", "gp_bridge_mean_matrices",
+           "gp_bridge_mean", "gp_bridge_sampler_matrix",
+           "gp_prior_trajs_from_normals", "sample_gp_prior_trajs"]
 
 
 def gp_transition(d: int, dt: float, dtype=torch.float32, device="cuda"):
@@ -101,3 +112,106 @@ def straight_line_trajs(start_state, goal_state, H: int, dt: float = None):
     vel = ((goal_state[..., None, :d] - start_state[..., None, :d])
            / step_t).expand(pos.shape)
     return torch.cat([pos, vel], dim=-1)
+
+
+def _gp_bridge_precision(d: int, H: int, dt: float, sigma_gp: float,
+                         sigma_endpoint: float):
+    """Dense (n, n) float64 numpy precision of the endpoint-conditioned
+    constant-velocity GP prior (transition factors + endpoint state
+    priors), n = H * 2d, and the endpoint weight 1/sigma_endpoint^2."""
+    m = 2 * d
+    eye = np.eye(d)
+    Phi = np.block([[eye, dt * eye], [np.zeros((d, d)), eye]])
+    qc_inv = 1.0 / float(sigma_gp) ** 2
+    Qi = np.block([[12.0 / dt ** 3 * eye, -6.0 / dt ** 2 * eye],
+                   [-6.0 / dt ** 2 * eye, 4.0 / dt * eye]]) * qc_inv
+    PtQ = Phi.T @ Qi
+    P = np.zeros((H, m, H, m))
+    for t in range(H - 1):
+        P[t, :, t, :] += PtQ @ Phi
+        P[t + 1, :, t + 1, :] += Qi
+        P[t, :, t + 1, :] -= PtQ
+        P[t + 1, :, t, :] -= PtQ.T
+    ke = 1.0 / float(sigma_endpoint) ** 2
+    P[0, :, 0, :] += ke * np.eye(m)
+    P[-1, :, -1, :] += ke * np.eye(m)
+    return P.reshape(H * m, H * m), ke
+
+
+@functools.lru_cache(maxsize=32)
+def _bridge_mean_np(d, H, dt, sigma_gp, sigma_endpoint):
+    m = 2 * d
+    P, ke = _gp_bridge_precision(d, H, dt, sigma_gp, sigma_endpoint)
+    Pinv = np.linalg.inv(P)
+    return ke * Pinv[:, :m], ke * Pinv[:, -m:]
+
+
+@functools.lru_cache(maxsize=32)
+def _bridge_sampler_np(d, H, dt, sigma_gp, sigma_endpoint):
+    P, _ = _gp_bridge_precision(d, H, dt, sigma_gp, sigma_endpoint)
+    return np.linalg.inv(np.linalg.cholesky(P)).T      # upper triangular
+
+
+def gp_bridge_mean_matrices(d: int, H: int, dt: float, sigma_gp: float,
+                            sigma_endpoint: float = 1e-5,
+                            dtype=torch.float32, device="cuda"):
+    """(W_s, W_g), each (H*2d, 2d): the conditioned GP prior mean is
+    ``start @ W_s.T + goal @ W_g.T`` reshaped (..., H, 2d), the
+    minimum-GP-energy trajectory between the endpoint states."""
+    dev = resolve_device(device)
+    # torch.tensor copies: the cached arrays are never shared with callers
+    return tuple(torch.tensor(a, dtype=dtype, device=dev)
+                 for a in _bridge_mean_np(d, H, float(dt), float(sigma_gp),
+                                          float(sigma_endpoint)))
+
+
+def gp_bridge_mean(start_state, goal_state, H: int, dt: float,
+                   sigma_gp: float, sigma_endpoint: float = 1e-5):
+    """Conditioned GP prior mean trajectories: (..., 2d) -> (..., H, 2d)."""
+    d = start_state.shape[-1] // 2
+    W_s, W_g = gp_bridge_mean_matrices(d, H, dt, sigma_gp, sigma_endpoint,
+                                       start_state.dtype, start_state.device)
+    mu = start_state @ W_s.T + goal_state @ W_g.T
+    return mu.reshape(start_state.shape[:-1] + (H, 2 * d))
+
+
+def gp_bridge_sampler_matrix(d: int, H: int, dt: float, sigma_gp: float,
+                             sigma_endpoint: float = 1e-5,
+                             dtype=torch.float32, device="cuda"):
+    """M (n, n), n = H*2d, upper triangular, such that ``xi @ M.T`` with
+    xi ~ N(0, I) is distributed N(0, P^-1), P the bridge's precision:
+    M = L^-T with P = L L^T, factored host-side in float64."""
+    return torch.tensor(
+        _bridge_sampler_np(d, H, float(dt), float(sigma_gp),
+                           float(sigma_endpoint)),
+        dtype=dtype, device=resolve_device(device))
+
+
+def gp_prior_trajs_from_normals(xi, start_state, goal_state, H: int,
+                                dt: float, sigma_gp_init: float):
+    """Prior samples from given standard normals xi (n_samples, H*2d):
+    conditioned mean + xi M^T, reshaped (n_samples, H, 2d) and broadcast
+    against the endpoints' batch dims, as the reference broadcasts them."""
+    m = start_state.shape[-1]
+    mean = gp_bridge_mean(start_state, goal_state, H, dt, sigma_gp_init)
+    M = gp_bridge_sampler_matrix(m // 2, H, dt, sigma_gp_init,
+                                 dtype=mean.dtype, device=mean.device)
+    noise = (xi.to(mean.dtype) @ M.T).reshape((xi.shape[0], H, m))
+    return mean + noise
+
+
+def sample_gp_prior_trajs(generator: torch.Generator, start_state,
+                          goal_state, H: int, num_samples: int, dt: float,
+                          sigma_gp_init: float):
+    """Exact samples of the endpoint-conditioned GP prior: start/goal
+    (..., 2d) -> (num_samples, H, 2d) (or the endpoints' batch when they
+    carry one, num_samples = B giving one sample per problem).  The
+    normals are drawn on ``generator``'s device and moved to the
+    endpoints', so one CPU generator gives the same samples to a card run
+    and a CPU run."""
+    m = start_state.shape[-1]
+    xi = torch.randn((num_samples, H * m), generator=generator,
+                     dtype=start_state.dtype, device=generator.device)
+    return gp_prior_trajs_from_normals(xi.to(start_state.device),
+                                       start_state, goal_state, H, dt,
+                                       sigma_gp_init)

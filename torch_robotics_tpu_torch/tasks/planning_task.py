@@ -6,11 +6,15 @@ paths need it).
 The task composes the collision rows (objects, workspace bounds,
 self-collision pairs) of the robot in the scene.  Its lanes terms and its
 value-only lanes cost come from the CUDA kernels' wrappers, which take the
-kernel for CUDA tensors and the plain PyTorch version for CPU tensors.
+kernel for CUDA tensors and the plain PyTorch version for CPU tensors.  A
+point mass has no fused kernel, in the JAX package as here (its fused
+factories return None there too): its lanes terms are the plain lanes
+terms on every device, and it has no value-only lanes cost.
 Residual values and Jacobians, the collision checks and the metrics are
 plain PyTorch on every device, as they are plain XLA in the reference.
-Single kinematic robots and ``MultiRobot``s (several arms at fixed base
-poses, with mutual-collision pairs) are covered.
+Single kinematic robots, ``MultiRobot``s (several arms at fixed base
+poses, with mutual-collision pairs) and point masses in 2-D or 3-D scenes
+are covered.
 Occupancy maps and the learned self-collision net are not ported yet.
 """
 from __future__ import annotations
@@ -44,8 +48,9 @@ class CollisionResiduals:
       the GN terms (terms kernel);
     - ``collision_cost_lanes(q_cols (d, N)) -> (N,)``, the unscaled cost
       0.5 sum r^2 (value-only cost kernel); None for a ``MultiRobot``,
-      whose branch of that kernel is not ported (solvers then score with
-      the residual values).
+      whose branch of that kernel is not ported, and for a point mass,
+      which has no such kernel (solvers then score with the residual
+      values).
 
     For a ``MultiRobot`` the rows run over its full collision layout:
     object rows of every member's object points, workspace rows, then the
@@ -54,18 +59,23 @@ class CollisionResiduals:
     supports_batch = True
 
     def __init__(self, task):
+        from ..ops.lanes_fk import obstacle_terms_lanes_factory
         from ..ops.terms_kernel import (collision_cost_kernel_factory,
                                         obstacle_terms_kernel_factory)
         from ..robots.multi_robot import MultiRobot
-        self.obstacle_terms_lanes = obstacle_terms_kernel_factory(task)
+        # the reference's routing: the fused kernel where one exists, else
+        # the plain lanes terms (the point mass)
+        self.obstacle_terms_lanes = (obstacle_terms_kernel_factory(task)
+                                     or obstacle_terms_lanes_factory(task))
         self.collision_cost_lanes = (
             None if isinstance(task.robot, MultiRobot)
             else collision_cost_kernel_factory(task))
         if self.obstacle_terms_lanes is None:
             raise NotImplementedError(
                 "collision residuals need a kinematic model whose collision "
-                "points are link origins")
-        rows = self.obstacle_terms_lanes.plain.rows
+                "points are link origins, or a point mass")
+        rows = getattr(self.obstacle_terms_lanes, "plain",
+                       self.obstacle_terms_lanes).rows
 
         def residuals_and_jacobian(q):
             """q (..., d) -> (r (..., P), J (..., P, d))."""
@@ -122,7 +132,8 @@ class PlanningTask:
         if margin_override is None:
             obj_margins = self.robot.object_margins
             cutoff = self.obstacle_cutoff_margin
-            self_margins = self.robot.self_margins
+            self_margins = (self.robot.self_margins
+                            if self_pts is not None else None)
         else:
             obj_margins = self_margins = margin_override
             cutoff = 0.0
