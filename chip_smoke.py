@@ -1,7 +1,9 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them:
 the GPMP2-MPC main path (phases 2-6), the batched iLQR path (phases 7-11),
-the multi-robot MPC path (phases 12-15), and the point-mass batch solve
-with GN factorization reuse and the point-cloud SDF (phases 16-20).
+the multi-robot MPC path (phases 12-15), the point-mass batch solve with
+GN factorization reuse and the point-cloud SDF (phases 16-20), and sGPMP
+for the Panda and the config-4 robot with the solvers nothing routes to
+(phases 21-25).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -10,7 +12,8 @@ final line):
 
 1. build   - nvcc builds every CUDA kernel of the paths from csrc/ (one
              process per source, all at once: terms.cu, btridiag.cu,
-             riccati.cu, mr_terms.cu, btridiag_cols.cu, sphere_sdf.cu);
+             riccati.cu, mr_terms.cu, btridiag_cols.cu, sphere_sdf.cu,
+             btridiag_sweep.cu, btridiag_cr.cu, gn_assembly.cu);
              prints build seconds, the register and spill report of each
              kernel's launched instantiation, and the card's name and power
              limit.
@@ -91,12 +94,39 @@ final line):
              65536 points and S = 4096 spheres of radius 0.02, vs its plain
              version (1e-5), and at a ragged M = 1000, S = 129; S = 127
              takes the plain route; timed with torch.cdist.
+21. sgpmp  - sGPMP (benchmarks/ilqr_sgpmp_bench.py "sgpmp"): the iLQR
+             path's problems (B = 512), 8 GP-prior particles each (4096
+             trajectories), H = 32, 100 iterations of K = 16 samples,
+             sigma_coll 1e-5; launches exactly 201 K8 and nothing else,
+             finiteness, particle solves/s, problems/s, fraction free
+             (particles, problems with a free particle) before and after,
+             ms per iteration, a profile.
+22. sgpmp_cpu - at B = 32 (each problem's first particle), one iteration
+             from the same normals on the card and on the CPU held to a
+             float64 CPU iteration (candidate costs and accepted means);
+             the whole solve's fraction free within 3 of 32 lanes of the
+             CPU float32 run's.
+23. mr_cost - K8's MultiRobot branch vs its plain version: path 24's first
+             candidates (N = 131072) and random q at the tight poses
+             (mutual rows active); timed, with K5 on the same q.
+24. mr_sgpmp - sGPMP on config 4's robot: B = 256 problems from mr_problem,
+             one particle each, H = 32, dt = 0.05, 100 iterations of K =
+             16; launches exactly 201 K8-MultiRobot and nothing else; the
+             metrics of phase 21.
+25. solvers - the L-and-y sweep (K3, trsm and trsv tails) and block cyclic
+             reduction (K11) vs their plain versions on a random (64, 14,
+             1024) system, the main path's first GN system (held to
+             float64) and a ragged B = 100, K11 also at H = 48; timed in
+             turns with K2 on the GN system and beside the dense solve.
+             The GN assembly (K12) vs its plain version on the main path's
+             first (r, Jr) and at a ragged N, timed with one torch.bmm.
 
 Then one JSON line with every kernel's numbers (launches from phase 4 for
 K1 and K2, from phase 9 for K6, K7 and K8, from phase 14 for K4 and K5,
 from phase 19 for K9 (the k = 2 and k = 4 runs together), from phase 20's
-query for K10), the nvidia-smi line, and the final {"ok": true, "device":
-...} line.
+query for K10, from phase 24 for K8's MultiRobot branch, from one call
+each on the main path's inputs for K3, K11 and K12), the nvidia-smi line,
+and the final {"ok": true, "device": ...} line.
 """
 from __future__ import annotations
 
@@ -182,6 +212,19 @@ RU_KS = (1, 2, 4)
 PC_M, PC_S, PC_RADIUS = 65536, 4096, 0.02
 # K10 vs its plain version: float32 norms in another order
 SDF_TOL = 1e-5
+# sGPMP: benchmarks/ilqr_sgpmp_bench.py's "sgpmp" workload (the iLQR
+# problems, 8 GP-prior particles each), and config 4's robot at its own
+# horizon and dt, one particle per problem
+SG_PART, SG_INIT_SIGMA, SG_CPU_B = 8, 0.2, 32
+SG_PARAMS = dict(n_support_points=IL_H, dt=0.04, opt_iters=100,
+                 num_samples=16, sigma_coll=1e-5, temperature=1.0,
+                 sigma_gp_sample=0.2)
+MR_SG_PARAMS = dict(SG_PARAMS, n_support_points=MR_H, dt=MR_GP["dt"])
+# the whole B = 32 solve on the card vs the CPU: the softmax weights and the
+# acceptance flip lanes, so the fraction of free lanes is compared
+SG_FREE_TOL = 3 / 32
+# K12's second input: a ragged N
+GN_RAGGED_N = 1000
 
 
 def emit(phase: str, **fields) -> None:
@@ -433,22 +476,8 @@ def mr_terms_work(lay, q, r):
     point (15 per point and object + ~10 per sphere), its workspace
     distance (12), each pair's distance (12) and each row's hinge (2); the
     active rows as active_row_ops counts them."""
-    from torch_robotics_tpu_torch.geom.sdf import Spheres
     d, N = q.shape
-    n_pts = len(lay.point_joints())
-    n_obj, n_pair = len(lay.obj_pos), len(lay.pair_a)
-    per_lane = 15 * n_pts + 12 * (n_obj + n_pair) + 2 * r.shape[0]
-    for mem in lay.members:
-        model = mem.model
-        n_rev = sum(1 for t in model.joint_types if t != 0)
-        per_lane += (132 * n_rev + 63 * (model.n_links - n_rev)
-                     + 48 * model.n_dofs)
-    for obj in lay.df_obj_list:
-        per_lane += n_obj * 15
-        for f in obj.fields:
-            if not isinstance(f, Spheres):
-                raise NotImplementedError("config 4's scene holds spheres")
-            per_lane += n_obj * 10 * f.centers.shape[0]
+    per_lane = mr_lane_ops(lay, r.shape[0])
     ctrl = [list(m.model.controlled_link_idxs()) for m in lay.members]
     clo = np.concatenate([m.model.clamp_lower[c]
                           for m, c in zip(lay.members, ctrl)])
@@ -456,6 +485,80 @@ def mr_terms_work(lay, q, r):
                           for m, c in zip(lay.members, ctrl)])
     return (4 * N * (2 * d + d * d + 1),
             per_lane * N + active_row_ops(lay.row_joints(), clo, chi, q, r))
+
+
+def mr_lane_ops(lay, n_rows: int, per_row: int = 2, axes: bool = True):
+    """Float ops every waypoint lane of a MultiRobot needs for the rows'
+    values: each member's FK compose (~132 per revolute link, ~63 per
+    fixed), with ``axes`` its world joint axes and origins with the base
+    pose (48 per joint), every point's base transform (15), the scene SDF of
+    each object point (15 per point and object + ~10 per sphere), its
+    workspace distance (12), each pair's distance (12) and ``per_row`` per
+    residual row."""
+    from torch_robotics_tpu_torch.geom.sdf import Spheres
+    n_pts = len(lay.point_joints())
+    n_obj, n_pair = len(lay.obj_pos), len(lay.pair_a)
+    per_lane = 15 * n_pts + 12 * (n_obj + n_pair) + per_row * n_rows
+    for mem in lay.members:
+        model = mem.model
+        n_rev = sum(1 for t in model.joint_types if t != 0)
+        per_lane += (132 * n_rev + 63 * (model.n_links - n_rev)
+                     + (48 * model.n_dofs if axes else 0))
+    for obj in lay.df_obj_list:
+        per_lane += n_obj * 15
+        for f in obj.fields:
+            if not isinstance(f, Spheres):
+                raise NotImplementedError("config 4's scene holds spheres")
+            per_lane += n_obj * 10 * f.centers.shape[0]
+    return per_lane
+
+
+def mr_cost_work(lay, N: int, n_rows: int):
+    """(bytes, float ops) of the MultiRobot value-only cost on N lanes: q
+    (d, N) in, cost (N) out; per lane the rows' values without joint axes,
+    and a hinge (2) and a square and add (2) per row."""
+    d = int(lay.d_off[-1])
+    return 4 * N * (d + 1), mr_lane_ops(lay, n_rows, 4, axes=False) * N
+
+
+def sweep_work(H_: int, m: int, B_: int, trsv: bool):
+    """(bytes, float ops) that the L-and-y sweep's algorithm does, beside
+    solve_work, which counts what the solve needs and gives its bound: D,
+    U, b in, x out; ops from the kernel's loops: the forward step of solve_work and the transposed
+    triangular solve per step (m^2), and below the last block either W_k =
+    L_k^-1 U_k by columns with the right-hand side's update (m^3 + 2 m^2)
+    or, with the trsv tail, U_k x_{k+1} (m (2m - 1)), L_k^-1 of it (m^2)
+    and the subtraction (m)."""
+    nbytes, _ = solve_work(H_, m, B_)
+    tail = m * (2 * m - 1) + m * m + m if trsv else m ** 3 + 2 * m * m
+    return nbytes, (H_ * (sweep_step_ops(m) + m * m)
+                    + (H_ - 1) * tail) * B_
+
+
+def cr_work(H_: int, m: int, B_: int):
+    """(bytes, float ops) that block cyclic reduction does over the padded
+    H2 blocks, beside solve_work, which counts what the solve needs and
+    gives its bound (CR's own arithmetic is about three times that at (64,
+    14, 1024)): D, U, b in, x out; per odd block of a level its Cholesky, 2 m^2
+    for the two triangular solves of each of the 2 m + 1 right-hand sides
+    and 4 m^2 + m to back-substitute; per even block D' (lower triangle,
+    4 m per entry), b' (4 m^2) and U' (2 m^3); the root's Cholesky and
+    solve."""
+    nbytes, _ = solve_work(H_, m, B_)
+    chol = sum(2 * j + 1 for i in range(m) for j in range(i + 1))
+    n_odd = (1 << max(H_ - 1, 0).bit_length()) - 1
+    per_odd = chol + (2 * m + 1) * 2 * m * m + 4 * m * m + m
+    per_even = m * (m + 1) // 2 * 4 * m + 4 * m * m + 2 * m ** 3
+    return nbytes, (n_odd * (per_odd + per_even) + chol + 2 * m * m) * B_
+
+
+def gn_assembly_work(P: int, d: int, N: int):
+    """(bytes, float ops) of the GN assembly: r (P, N), Jr (P, d, N) in, g,
+    Hu, cost out; per lane and row r^2 (2), r Jr (2 d) and the upper
+    triangle of Jr^T Jr (d (d + 1))."""
+    n_u = d * (d + 1) // 2
+    return (4 * N * (P * (d + 1) + d + n_u + 1),
+            N * P * (2 + 2 * d + 2 * n_u))
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -468,15 +571,8 @@ def bound_ms(nbytes: float, ops: float):
 # phases
 # ----------------------------------------------------------------------
 def phase_build():
-    from torch_robotics_tpu_torch.ops import (btridiag_kernel,
-                                              riccati_kernel, sdf_kernel,
-                                              terms_kernel)
     from torch_robotics_tpu_torch.ops.cuda_build import build_all
-    kernels = (terms_kernel.KERNEL, terms_kernel.COST_KERNEL,
-               btridiag_kernel.KERNEL, riccati_kernel.RICCATI_KERNEL,
-               riccati_kernel.ROLLOUT_KERNEL, terms_kernel.MR_KERNEL,
-               btridiag_kernel.COLS_KERNEL, btridiag_kernel.FACTOR_KERNEL,
-               btridiag_kernel.SUBST_KERNEL, sdf_kernel.KERNEL)
+    kernels = tuple(all_kernels().values())
     t0 = time.perf_counter()
     logs = build_all(kernels)
     secs = time.perf_counter() - t0
@@ -490,9 +586,18 @@ def phase_build():
              "btridiag_subst_kernelILi14E": "btridiag_subst<14>",
              "riccati_kernelILi7E": "riccati_kernel",
              "rollout_kernelILi7E": "rollout_kernel",
-             "mr_terms_kernel": "mr_terms_kernel",
+             "mr_terms_kernelILb0E": "mr_terms_kernel",
+             "mr_terms_kernelILb1E": "mr_terms_kernel<cost only>",
              "btridiag_cols_kernel": "btridiag_cols_kernel",
-             "sphere_sdf_kernel": "sphere_sdf_kernel"}
+             "sphere_sdf_kernel": "sphere_sdf_kernel",
+             "btridiag_sweep_kernelILi14ELb0E": "btridiag_sweep<14, trsm>",
+             "btridiag_sweep_kernelILi14ELb1E": "btridiag_sweep<14, trsv>",
+             "cr_odd_kernelILi14ELb1E": "cr_odd_kernel<14, shared U>",
+             "cr_odd_kernelILi14ELb0E": "cr_odd_kernel<14>",
+             "cr_even_kernelILi14ELb1E": "cr_even_kernel<14, shared U>",
+             "cr_even_kernelILi14ELb0E": "cr_even_kernel<14>",
+             "cr_back_kernelILi14E": "cr_back_kernel<14>",
+             "gn_assembly_kernelILi7E": "gn_assembly_kernel<7>"}
     report = {}
     for src, text in logs.items():
         lines = text.splitlines()
@@ -1530,10 +1635,16 @@ def pm_problem(device, n_batch: int = PM_B):
 
 
 def all_kernels():
-    from torch_robotics_tpu_torch.ops import (btridiag_kernel, riccati_kernel,
-                                              sdf_kernel, terms_kernel)
+    from torch_robotics_tpu_torch.ops import (btridiag_kernel,
+                                              gn_assembly_kernel,
+                                              riccati_kernel, sdf_kernel,
+                                              terms_kernel)
     return dict(terms=terms_kernel.KERNEL, cost=terms_kernel.COST_KERNEL,
                 multirobot_terms=terms_kernel.MR_KERNEL,
+                multirobot_cost=terms_kernel.MR_COST_KERNEL,
+                btridiag_sweep=btridiag_kernel.SWEEP_KERNEL,
+                btridiag_cr=btridiag_kernel.CR_KERNEL,
+                gn_assembly=gn_assembly_kernel.KERNEL,
                 btridiag_w=btridiag_kernel.KERNEL,
                 btridiag_cols=btridiag_kernel.COLS_KERNEL,
                 btridiag_factor=btridiag_kernel.FACTOR_KERNEL,
@@ -1934,6 +2045,365 @@ def phase_point_cloud():
                 launches=launches["sphere_sdf"])
 
 
+# ----------------------------------------------------------------------
+# sGPMP (benchmarks/ilqr_sgpmp_bench.py "sgpmp"), its config-4 MultiRobot
+# counterpart, and the unrouted solvers on the main path's inputs
+# ----------------------------------------------------------------------
+def sg_problem(start, goal, n_part: int, H_: int, dt: float, seed: int):
+    """n_part GP-prior particles per problem (sample_gp_prior_trajs,
+    sigma_gp_init 0.2, drawn on a seeded CUDA generator) -> (theta0 (B
+    n_part, H, 2d), start, goal repeated per particle)."""
+    import torch
+    from torch_robotics_tpu_torch.solve import sample_gp_prior_trajs
+    start_p = start.repeat_interleave(n_part, dim=0)
+    goal_p = goal.repeat_interleave(n_part, dim=0)
+    theta0 = sample_gp_prior_trajs(
+        torch.Generator(device="cuda").manual_seed(seed), start_p, goal_p,
+        H_, start_p.shape[0], dt, SG_INIT_SIGMA)
+    return theta0, start_p, goal_p
+
+
+def sg_free(task, trajs, n_part: int):
+    """(B, n_part) bool: the particles' trajectories collision-free."""
+    coll, _ = task.trajs_collision_masks(trajs)
+    return (~coll).reshape(-1, n_part)
+
+
+def phase_sgpmp(name, task, start, goal, n_part, params, kernel_key, seed):
+    """One sGPMP path at full size (phases sgpmp and mr_sgpmp): a warm-up,
+    then the timed solve with its normals drawn on a seeded CUDA generator;
+    launches exactly 1 + 2 per iteration of ``kernel_key`` and nothing
+    else; finite outputs of the expected shapes; the bench's metrics
+    (ilqr_sgpmp_bench.py:215-233), ms per iteration, a profile."""
+    import dataclasses
+
+    import torch
+    from torch_robotics_tpu_torch.solve import SGPMPParams, sgpmp_solve
+    p = SGPMPParams(**params)
+    theta0, start_p, goal_p = sg_problem(start, goal, n_part,
+                                         p.n_support_points, p.dt, seed)
+    res_fn = task.collision_residuals
+
+    def solve(prm):
+        return sgpmp_solve(res_fn, theta0, start_p, goal_p, prm,
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(seed + 1))
+
+    solve(dataclasses.replace(p, opt_iters=2))                 # warm-up
+    res, launches, ms = counted(lambda: solve(p))
+    expected = {kernel_key: 2 * p.opt_iters + 1}
+    check(launches == expected, "%s launches %s, expected %s"
+          % (name, launches, expected))
+    check(tuple(res.trajs.shape) == tuple(theta0.shape)
+          and tuple(res.cost_trace.shape) == (p.opt_iters, theta0.shape[0]),
+          name + " result shapes")
+    check(all(bool(torch.isfinite(t).all()) for t in res),
+          name + " produced non-finite results")
+    free0, free = sg_free(task, theta0, n_part), sg_free(task, res.trajs,
+                                                         n_part)
+    busy, dev_ms, top = profile_device(
+        lambda: solve(dataclasses.replace(p, opt_iters=5)), 5)
+    B_ = start.shape[0]
+    emit(name, batch=B_, particles=n_part, horizon=p.n_support_points,
+         iters=p.opt_iters, samples_per_iter=p.num_samples,
+         waypoints_scored_per_iter=p.num_samples * theta0.shape[0]
+         * p.n_support_points, launches=launches, solve_ms=ms,
+         ms_per_iteration=ms / p.opt_iters,
+         particle_solves_per_s=B_ * n_part / (ms / 1e3),
+         problems_per_s=B_ / (ms / 1e3),
+         init_fraction_free_particles=float(free0.float().mean()),
+         fraction_free_particles=float(free.float().mean()),
+         init_fraction_problems_with_free=float(free0.any(1).float().mean()),
+         fraction_problems_with_free=float(free.any(1).float().mean()),
+         cost_trace_mean_first_last=[float(res.cost_trace[0].mean()),
+                                     float(res.cost_trace[-1].mean())],
+         profiled_device_busy_share=busy,
+         profiled_device_ms_per_iteration=dev_ms,
+         top_device_ms_per_iteration=top)
+    return launches[kernel_key], theta0, start_p, goal_p
+
+
+def phase_sgpmp_cpu(task_c, theta0, start_p, goal_p):
+    """At B = 32 problems (each's first particle): one iteration from the
+    same normals on the card and on the CPU, each held to a float64 CPU
+    iteration (hold_to_f64) for the candidate costs (relative to each
+    lane's largest float64 cost) and the accepted means (relative to
+    max|theta|); then the whole solve from the same normals, where the
+    card's fraction of free lanes must be within 3 of 32 of the CPU
+    float32 run's.  The softmax weights and the acceptance amplify float32
+    rounding, so lanes are not compared after the whole solve."""
+    import torch
+    from torch_robotics_tpu_torch.solve import (SGPMPParams,
+                                                sgpmp_solve_normals)
+    from torch_robotics_tpu_torch.solve.gp_prior import \
+        gp_bridge_sampler_matrix
+    from torch_robotics_tpu_torch.solve.sampling import (_sgpmp_step,
+                                                         _total_cost_fn)
+    n = SG_CPU_B
+    p = SGPMPParams(**SG_PARAMS)
+    th = theta0[::SG_PART][:n].contiguous()
+    s_c = start_p[::SG_PART][:n].contiguous()
+    g_c = goal_p[::SG_PART][:n].contiguous()
+    task_h = ilqr_task("cpu")
+    m = th.shape[-1]
+    xi = torch.randn((p.opt_iters, p.num_samples, n, p.n_support_points * m),
+                     generator=torch.Generator().manual_seed(SEED + 5))
+
+    def one(task, t, s, g, dtype):
+        dev = t.device
+        fn = _total_cost_fn(task.collision_residuals, s.to(dtype),
+                            g.to(dtype), p)
+        M = gp_bridge_sampler_matrix(m // 2, p.n_support_points, p.dt,
+                                     p.sigma_gp_sample, dtype=dtype,
+                                     device=dev)
+        t = t.to(dtype)
+        theta, _, costs = _sgpmp_step(fn, t, fn(t), xi[0].to(dev, dtype), M,
+                                      1.0, p)
+        return theta, costs
+
+    th_c, c_c = one(task_c, th, s_c, g_c, torch.float32)
+    th_h, c_h = one(task_h, th.cpu(), s_c.cpu(), g_c.cpu(), torch.float32)
+    th_64, c_64 = one(task_h, th.cpu(), s_c.cpu(), g_c.cpu(), torch.float64)
+    check(bool(torch.isfinite(th_c).all() and torch.isfinite(c_c).all()),
+          "sGPMP card iteration non-finite")
+    gaps = theta_gaps(th_c, th_h, th_64)
+    hold_to_f64("sGPMP iteration means", gaps)
+    scale = c_64.abs().amax(0).clamp(min=1e-30)             # per lane
+    cost_gaps = {}
+    for who, c in (("card", c_c), ("cpu", c_h)):
+        lane = ((c.cpu().double() - c_64).abs().amax(0) / scale)
+        cost_gaps[who + "_vs_f64"] = float(lane.max())
+        cost_gaps[who + "_vs_f64_median_lane"] = float(lane.median())
+    hold_to_f64("sGPMP candidate costs", cost_gaps)
+
+    full_c = sgpmp_solve_normals(task_c.collision_residuals, th, s_c, g_c, p,
+                                 xi.cuda())
+    full_h = sgpmp_solve_normals(task_h.collision_residuals, th.cpu(),
+                                 s_c.cpu(), g_c.cpu(), p, xi)
+    f_c = float(sg_free(task_c, full_c.trajs, 1).float().mean())
+    f_h = float(sg_free(task_h, full_h.trajs, 1).float().mean())
+    check(abs(f_c - f_h) <= SG_FREE_TOL + 1e-9,
+          "sGPMP fraction free: card %.3f, CPU %.3f" % (f_c, f_h))
+    emit("sgpmp_cpu", B=n, iterations=p.opt_iters,
+         one_iteration=dict(means=gaps, candidate_costs=cost_gaps),
+         full_solve={"card_fraction_free": f_c, "cpu_fraction_free": f_h})
+
+
+def capture_mr_candidates(task, theta0, start_p, goal_p):
+    """The MultiRobot cost hook's first candidate q (N = K B H) in one
+    sGPMP iteration of path 2."""
+    import torch
+    from torch_robotics_tpu_torch.solve import SGPMPParams, sgpmp_solve
+    p = SGPMPParams(**dict(MR_SG_PARAMS, opt_iters=1))
+    N = p.num_samples * theta0.shape[0] * p.n_support_points
+    res = task.collision_residuals
+    cost = res.collision_cost_lanes
+    seen = {}
+
+    def tap(q_cols):
+        seen.setdefault(q_cols.shape[1], q_cols.clone())
+        return cost(q_cols)
+
+    try:
+        res.collision_cost_lanes = tap
+        sgpmp_solve(res, theta0, start_p, goal_p, p,
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    finally:
+        res.collision_cost_lanes = cost
+    return seen[N]
+
+
+def phase_mr_cost(task, q_cand):
+    """K8's MultiRobot branch vs its plain version (terms tolerances) on
+    path 2's first candidate q (N = 131072) and on random in-limit q at the
+    tighter poses, where mutual rows are active; timed on the candidates,
+    with K5 on the same q beside it."""
+    import torch
+    rng = np.random.default_rng(13)
+    tight = mr_task("cuda", MR_TIGHT_POSES)
+    lo, hi = tight.robot.q_min.cpu().numpy(), tight.robot.q_max.cpu().numpy()
+    q_tight = torch.as_tensor(
+        lo[:, None] + rng.uniform(size=(lo.shape[0], 8192))
+        * (hi - lo)[:, None], dtype=torch.float32, device="cuda")
+    N = q_cand.shape[1]
+    results, shares = {}, {}
+    for name, t, q in (("path2_candidates_N%d" % N, task, q_cand),
+                       ("tight_poses_random_q_N8192", tight, q_tight)):
+        cost = t.collision_residuals.collision_cost_lanes
+        got, ref = cost(q), cost.plain(q)
+        tol = TERMS_ATOL_REL * float(ref.abs().max()) + TERMS_RTOL * ref.abs()
+        check(bool(torch.isfinite(got).all()), name + ": non-finite cost")
+        check(bool(((got - ref).abs() <= tol).all()),
+              "%s: MultiRobot cost kernel disagrees with its plain version"
+              % name)
+        results[name] = max_errs([got], [ref])
+        plain = t.collision_residuals.obstacle_terms_lanes.plain
+        r = plain.rows(q)[0]
+        n_mut = sum(len(v) for v in plain.layout.groups.values())
+        shares[name] = dict(rows=float((r > 0).float().mean()),
+                            mutual_rows=float((r[-n_mut:] > 0).float().mean()))
+    check(shares["tight_poses_random_q_N8192"]["mutual_rows"] > 0,
+          "no mutual row is active at the tight poses")
+    cost = task.collision_residuals.collision_cost_lanes
+    terms = task.collision_residuals.obstacle_terms_lanes
+    k_ms = cuda_ms(lambda: cost(q_cand), iters=20)
+    p_ms = cuda_ms(lambda: cost.plain(q_cand), iters=2, warmup=1)
+    k5_ms = cuda_ms(lambda: terms.unscaled(q_cand), iters=20)
+    lay = terms.plain.layout
+    n_rows = len(lay.obj_pos) * (2 if lay.df_obj_list else 1) + len(
+        lay.pair_a)
+    work = mr_cost_work(lay, N, n_rows)
+    torch.cuda.empty_cache()
+    emit("mr_cost", N=N, max_errs={k: {"abs": v[0], "rel_to_max": v[1]}
+                                   for k, v in results.items()},
+         active_row_share=shares, kernel_ms=k_ms, plain_ms=p_ms,
+         k5_terms_ms_same_q=k5_ms, bytes=work[0], ops=work[1],
+         bound_ms=bound_ms(*work)[0])
+    return dict(max_abs_err=results["path2_candidates_N%d" % N][0], ms=k_ms,
+                plain_ms=p_ms, work=work)
+
+
+def phase_solvers(task, start, goal):
+    """K3 (both tails) and K11 vs their plain versions, and K12: see the
+    module doc.  Each solver on a random well-conditioned (64, 14, 1024)
+    system to SOLVE_TOL_RANDOM of max|x| of its plain version, on the main
+    path's first GN system held to float64 (hold_solve), and both at a
+    ragged B = 100; K11 also at H = 48 (padded to 64).  Timed on the GN
+    system in turns K2, K3 trsm, K3 trsv, K11, K11, K3 trsv, K3 trsm, K2
+    (each kernel's time the mean of its two), with the plain versions and
+    the dense torch.linalg.solve.  K12 on the main path's first (r, Jr)
+    (residuals_and_jacobian at N = H B) and at a ragged N, to the terms
+    tolerances, timed with one torch.bmm on [r | Jr] as the library
+    call.  The launch counts come from one call of each on the main
+    path's inputs."""
+    import torch
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import (
+        solve_lanes_cr, solve_lanes_sweep, solve_lanes_w)
+    from torch_robotics_tpu_torch.ops.gn_assembly_kernel import (
+        gn_assembly, gn_assembly_reference)
+    from torch_robotics_tpu_torch.solve import (GPMP2Params, solve_lanes_bcr,
+                                                straight_line_trajs)
+    from torch_robotics_tpu_torch.solve.btridiag_lanes import (
+        solve_lanes_core)
+    from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
+    theta0 = straight_line_trajs(start, goal, H)
+    b_l, D_l, U_l, _ = _lanes_gn_system(
+        task.collision_residuals.obstacle_terms_lanes, theta0, start, goal,
+        GPMP2Params(**GP_PARAMS))
+    m = D_l.shape[1]
+    solvers = {
+        "sweep_trsm": (lambda D, U, b: solve_lanes_sweep(D, U, b),
+                       solve_lanes_core),
+        "sweep_trsv": (lambda D, U, b: solve_lanes_sweep(D, U, b,
+                                                         bwd_trsv=True),
+                       solve_lanes_core),
+        "cr": (solve_lanes_cr, solve_lanes_bcr)}
+    systems = {"gn": (D_l, U_l, b_l),
+               "random": random_system(H, m, B, seed=14)}
+    results = {k: {} for k in solvers}
+    for sname, (D, U, b) in systems.items():
+        for Bn in (B, 100):
+            Dn = D[..., :Bn].contiguous()
+            bn = b[..., :Bn].contiguous()
+            x_64 = solve_lanes_core(Dn.double(), U.double(), bn.double())
+            for kname, (fn, plain) in solvers.items():
+                key = "%s_%s_B%d" % (kname, sname, Bn)
+                results[kname]["%s_B%d" % (sname, Bn)] = hold_solve(
+                    key, fn(Dn, U, bn), plain(Dn, U, bn), x_64,
+                    random=sname == "random")
+    D48, U48, b48 = random_system(48, m, B, seed=15)
+    results["cr"]["random_H48"] = hold_solve(
+        "cr_random_H48", solve_lanes_cr(D48, U48, b48),
+        solve_lanes_bcr(D48, U48, b48),
+        solve_lanes_core(D48.double(), U48.double(), b48.double()), True)
+
+    # launches: one call of each on the main path's inputs
+    launches = {}
+    for kname, (fn, _) in solvers.items():
+        launches[kname] = counted(lambda: fn(D_l, U_l, b_l))[1]
+    d = start.shape[1] // 2
+    q_main = theta0[..., :d].permute(1, 0, 2).reshape(-1, d).contiguous()
+    r_b, J_b = task.collision_residuals.residuals_and_jacobian(q_main)
+    r_gn = r_b.T.contiguous()                                 # (P, N)
+    J_gn = J_b.permute(1, 2, 0).contiguous()                  # (P, d, N)
+    gn_out, launches["gn_assembly"], _ = counted(lambda: gn_assembly(r_gn,
+                                                                     J_gn))
+    for kname, want in (("sweep_trsm", "btridiag_sweep"),
+                        ("sweep_trsv", "btridiag_sweep"),
+                        ("cr", "btridiag_cr"),
+                        ("gn_assembly", "gn_assembly")):
+        check(launches[kname] == {want: 1}, "%s launches %s"
+              % (kname, launches[kname]))
+    gn_errs = {}
+    for name, (r_, J_) in (("main_N%d" % r_gn.shape[1], (r_gn, J_gn)),
+                           ("ragged_N%d" % GN_RAGGED_N,
+                            (r_gn[:, :GN_RAGGED_N].contiguous(),
+                             J_gn[..., :GN_RAGGED_N].contiguous()))):
+        got = gn_out if name.startswith("main") else gn_assembly(r_, J_)
+        ref = gn_assembly_reference(r_, J_)
+        for g_, x_ in zip(got, ref):
+            tol = TERMS_ATOL_REL * float(x_.abs().max()) + TERMS_RTOL * x_.abs()
+            check(bool(torch.isfinite(g_).all()), name + ": non-finite")
+            check(bool(((g_ - x_).abs() <= tol).all()),
+                  "%s: GN assembly kernel disagrees with its plain version"
+                  % name)
+        gn_errs[name] = max_errs(got, ref)
+
+    # timing in turns on the GN system
+    order = ["w", "sweep_trsm", "sweep_trsv", "cr"]
+    fns = {"w": lambda: solve_lanes_w(D_l, U_l, b_l),
+           "sweep_trsm": lambda: solve_lanes_sweep(D_l, U_l, b_l),
+           "sweep_trsv": lambda: solve_lanes_sweep(D_l, U_l, b_l,
+                                                   bwd_trsv=True),
+           "cr": lambda: solve_lanes_cr(D_l, U_l, b_l)}
+    times = {k: [] for k in order}
+    for k in order + order[::-1]:
+        times[k].append(cuda_ms(fns[k], iters=10))
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    core_ms = cuda_ms(lambda: solve_lanes_core(D_l, U_l, b_l), iters=2,
+                      warmup=1)
+    bcr_ms = cuda_ms(lambda: solve_lanes_bcr(D_l, U_l, b_l), iters=2,
+                     warmup=1)
+    lib_ms = cuda_ms(dense_solve_fn(D_l, U_l, b_l), iters=3, warmup=1)
+    P_, d_, N_ = J_gn.shape
+    X = torch.cat([r_gn[:, None], J_gn], 1).permute(2, 0, 1).contiguous()
+    Xt = X.transpose(1, 2)
+    gn_ms = cuda_ms(lambda: gn_assembly(r_gn, J_gn), iters=50)
+    gn_plain_ms = cuda_ms(lambda: gn_assembly_reference(r_gn, J_gn), iters=5,
+                          warmup=1)
+    gn_lib_ms = cuda_ms(lambda: torch.bmm(Xt, X), iters=20)
+    torch.cuda.empty_cache()
+    # the bound counts the work the solve needs (K2's); each algorithm's
+    # own count, extra arithmetic included, is reported beside it
+    works = {"sweep_trsm": solve_work(H, m, B),
+             "sweep_trsv": solve_work(H, m, B), "cr": solve_work(H, m, B),
+             "gn_assembly": gn_assembly_work(P_, d_, N_)}
+    algo = {"sweep_trsm": sweep_work(H, m, B, False),
+            "sweep_trsv": sweep_work(H, m, B, True), "cr": cr_work(H, m, B)}
+    emit("solvers", shape=[H, m, m, B], max_errs=results,
+         times_in_turns_ms=times, k2_ms=ms["w"],
+         kernel_ms={k: ms[k] for k in solvers}, core_plain_ms=core_ms,
+         bcr_plain_ms=bcr_ms, dense_solve_ms=lib_ms,
+         bound_ms={k: bound_ms(*v)[0] for k, v in works.items()},
+         algorithm_ops={k: v[1] for k, v in algo.items()},
+         algorithm_bound_ms={k: bound_ms(*v)[0] for k, v in algo.items()},
+         gn_assembly=dict(P=P_, d=d_, N=N_, max_errs={
+             k: {"abs": v[0], "rel_to_max": v[1]} for k, v in gn_errs.items()},
+             kernel_ms=gn_ms, plain_ms=gn_plain_ms, bmm_ms=gn_lib_ms))
+    out = {}
+    for kname in solvers:
+        out[kname] = dict(max_abs_err=results[kname]["gn_B%d" % B]["abs"],
+                          ms=ms[kname],
+                          plain_ms=bcr_ms if kname == "cr" else core_ms,
+                          library_ms=lib_ms, work=works[kname],
+                          launches=sum(launches[kname].values()))
+    out["gn_assembly"] = dict(
+        max_abs_err=gn_errs["main_N%d" % N_][0], ms=gn_ms,
+        plain_ms=gn_plain_ms, library_ms=gn_lib_ms,
+        work=works["gn_assembly"], launches=1)
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1972,6 +2442,16 @@ def main() -> None:
     k9_launches = phase_reuse(ru)
     cloud = phase_point_cloud()
 
+    sg_launches, sg_theta0, sg_start, sg_goal = phase_sgpmp(
+        "sgpmp", il_task, il_start, il_goal, SG_PART, SG_PARAMS, "cost",
+        SEED + 2)
+    phase_sgpmp_cpu(il_task, sg_theta0, sg_start, sg_goal)
+    mr_cost = phase_mr_cost(mr, capture_mr_candidates(
+        mr, *sg_problem(mr_start, mr_goal, 1, MR_H, MR_GP["dt"], SEED + 3)))
+    mr_sg_launches = phase_sgpmp("mr_sgpmp", mr, mr_start, mr_goal, 1,
+                                 MR_SG_PARAMS, "multirobot_cost", SEED + 3)[0]
+    solvers = phase_solvers(*bench_problem("cuda", B))
+
     entries = []
     for name, src, rep, res, n in (
             ("obstacle_terms", "torch_robotics_tpu_torch/csrc/terms.cu",
@@ -2003,7 +2483,25 @@ def main() -> None:
              k9_launches["btridiag_subst"]),
             ("sphere_sdf", "torch_robotics_tpu_torch/csrc/sphere_sdf.cu",
              "torch_robotics_tpu/ops/pallas_sdf.py:75", cloud,
-             cloud["launches"])):
+             cloud["launches"]),
+            ("collision_cost_multirobot",
+             "torch_robotics_tpu_torch/csrc/mr_terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029", mr_cost,
+             mr_sg_launches),
+            ("btridiag_sweep_trsm",
+             "torch_robotics_tpu_torch/csrc/btridiag_sweep.cu",
+             "torch_robotics_tpu/ops/pallas_btridiag.py:689",
+             solvers["sweep_trsm"], solvers["sweep_trsm"]["launches"]),
+            ("btridiag_sweep_trsv",
+             "torch_robotics_tpu_torch/csrc/btridiag_sweep.cu",
+             "torch_robotics_tpu/ops/pallas_btridiag.py:689",
+             solvers["sweep_trsv"], solvers["sweep_trsv"]["launches"]),
+            ("btridiag_cr", "torch_robotics_tpu_torch/csrc/btridiag_cr.cu",
+             "torch_robotics_tpu/ops/pallas_btridiag.py:900", solvers["cr"],
+             solvers["cr"]["launches"]),
+            ("gn_assembly", "torch_robotics_tpu_torch/csrc/gn_assembly.cu",
+             "torch_robotics_tpu/ops/pallas_gn_assembly.py:85",
+             solvers["gn_assembly"], solvers["gn_assembly"]["launches"])):
         b_ms, b_by = bound_ms(*res["work"])
         entries.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n,

@@ -221,3 +221,62 @@ def test_reuse_and_sdf_wrappers_take_the_kernel_or_raise_off_the_cpu():
         sphere_sdf_kernel(torch.zeros((5, 3), device="meta"),
                           torch.zeros((2, 3), device="meta"),
                           torch.zeros((2,), device="meta"))
+
+
+def test_sampling_and_unrouted_kernel_modules_are_checked():
+    """The sGPMP solver, the plain cyclic reduction and the GN assembly
+    wrapper are among the sources the import checks above cover."""
+    names = {str(p.relative_to(PORT)) for p in _port_sources()
+             if PORT in p.parents}
+    assert {"solve/sampling.py", "solve/btridiag_bcr.py",
+            "ops/gn_assembly_kernel.py"} <= names
+
+
+def test_sgpmp_and_new_wrappers_take_the_kernel_or_raise_off_the_cpu(
+        monkeypatch):
+    """sGPMP on CPU tensors scores through the plain cost (no launch); on a
+    tensor that is neither CPU nor CUDA the cost kernel's wrapper refuses
+    it, as do the L-and-y sweep, the cyclic reduction, the GN assembly and
+    the MultiRobot cost kernel; the default task needs the card."""
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    from torch_robotics_tpu_torch.ops import terms_kernel
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import (
+        solve_lanes_cr, solve_lanes_sweep)
+    from torch_robotics_tpu_torch.ops.gn_assembly_kernel import gn_assembly
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.solve import (SGPMPParams, sgpmp_solve,
+                                                straight_line_trajs)
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    task = PlanningTask(env=EnvSpheres3D(device="cpu"),
+                        robot=RobotPanda.create(device="cpu"))
+    s = torch.zeros((2, 14))
+    g = torch.full((2, 14), 0.3)
+    g[:, 7:] = 0.0
+    theta0 = straight_line_trajs(s, g, 4)
+    p = SGPMPParams(n_support_points=4, opt_iters=1, num_samples=3)
+    n0 = terms_kernel.COST_KERNEL.launches
+    res = sgpmp_solve(task.collision_residuals, theta0, s, g, p,
+                      generator=torch.Generator().manual_seed(0))
+    assert res.trajs.shape == (2, 4, 14) and res.cost_trace.shape == (1, 2)
+    assert terms_kernel.COST_KERNEL.launches == n0
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sgpmp_solve(task.collision_residuals, theta0.to("meta"),
+                    s.to("meta"), g.to("meta"), p,
+                    generator=torch.Generator().manual_seed(0))
+    D = torch.zeros((2, 4, 4, 3), device="meta")
+    U = torch.zeros((2, 4, 4, 1), device="meta")
+    b = torch.zeros((2, 4, 3), device="meta")
+    for solve in (solve_lanes_sweep, solve_lanes_cr):
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            solve(D, U, b)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        gn_assembly(torch.zeros((3, 5), device="meta"),
+                    torch.zeros((3, 2, 5), device="meta"))
+    ints = torch.zeros(16, dtype=torch.int32, device="meta")
+    floats = torch.zeros(8, device="meta")
+    with pytest.raises(ValueError):
+        terms_kernel.run_multirobot_cost_kernel(
+            torch.zeros((20, 5), device="meta"), ints, floats, 20, 6, 1024)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PlanningTask(env=EnvSpheres3D(), robot=RobotPanda.create())

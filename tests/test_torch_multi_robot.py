@@ -223,7 +223,14 @@ def test_rows_match_jax_residuals_and_jacobian(tasks):
     np.testing.assert_allclose(res(torch.as_tensor(q)).numpy(),
                                np.asarray(jtask.collision_residuals(
                                    jnp.asarray(q))), atol=1e-5)
-    assert res.collision_cost_lanes is None
+    # the value-only cost hook: its plain version on the CPU, 0.5 sum r^2
+    q_cols = torch.as_tensor(q).T.contiguous()
+    cost = res.collision_cost_lanes(q_cols)
+    assert torch.equal(cost, res.collision_cost_lanes.plain(q_cols))
+    np.testing.assert_allclose(cost.numpy(),
+                               0.5 * np.sum(r.numpy() ** 2, axis=-1),
+                               rtol=1e-5,
+                               atol=1e-6 * float(cost.abs().max()))
 
 
 def test_collision_checks_match_jax(tasks):

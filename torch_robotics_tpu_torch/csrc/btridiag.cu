@@ -20,7 +20,8 @@
 //   backward:        x_{H-1} = L^-T y_{H-1};  x_k = L^-T (y_k - W_k x_{k+1})
 //
 // Design: one thread per batch lane, the H-step sweep a loop inside the
-// thread.  The L, W and y stacks go to device memory in the batch-minor
+// thread (its block step, sweep_step in btridiag_sweep.cuh, is shared with
+// btridiag_sweep.cu).  The L, W and y stacks go to device memory in the batch-minor
 // layout (H, M, M, B) that the wrapper allocates, so a warp's reads and
 // writes of one block entry are 32 consecutive floats.  The running S / A
 // block and the current W block are per-thread arrays (2 M^2 floats, more
@@ -42,19 +43,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "btridiag_sweep.cuh"
+
 namespace {
 
+using namespace trt;
+
 constexpr int kThreads = 64;
-
-__device__ __forceinline__ size_t mat_idx(int k, int i, int j, int M,
-                                          size_t sB, int lane) {
-  return ((static_cast<size_t>(k) * M + i) * M + j) * sB + lane;
-}
-
-__device__ __forceinline__ size_t vec_idx(int k, int i, int M, size_t sB,
-                                          int lane) {
-  return (static_cast<size_t>(k) * M + i) * sB + lane;
-}
 
 // backward substitution from the persisted L, W, y stacks:
 //   x_{H-1} = L^-T y_{H-1};  x_k = L_k^-T (y_k - W_k x_{k+1})
@@ -103,13 +98,6 @@ btridiag_w_kernel(const float* __restrict__ D, const float* __restrict__ U,
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;
   const size_t sB = B;
-  auto mat = [&](int k, int i, int j) {
-    return ((static_cast<size_t>(k) * M + i) * M + j) * sB + lane;
-  };
-  auto vec = [&](int k, int i) {
-    return (static_cast<size_t>(k) * M + i) * sB + lane;
-  };
-
   float A[M][M];  // holds S between steps, A = D_k - S then L within one
   float W[M][M];
   float y[M], Wy[M];
@@ -119,79 +107,9 @@ btridiag_w_kernel(const float* __restrict__ D, const float* __restrict__ U,
 #pragma unroll
     for (int j = 0; j < M; ++j) A[i][j] = 0.f;
   }
-
-  for (int k = 0; k < H; ++k) {
-    // A = D_k - S (lower triangle), Cholesky in place, row-sequential
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-#pragma unroll
-      for (int j = 0; j <= i; ++j) A[i][j] = D[mat(k, i, j)] - A[i][j];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j) {
-        float s = A[i][j];
-#pragma unroll
-        for (int t = 0; t < j; ++t) s -= A[i][t] * A[j][t];
-        A[i][j] = (i == j) ? sqrtf(s) : s / A[j][j];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-#pragma unroll
-      for (int j = 0; j <= i; ++j) Ls[mat(k, i, j)] = A[i][j];
-    if constexpr (kFactorOut) {
-      // an output: its strict upper triangle is zero, as the reference's
-#pragma unroll
-      for (int i = 0; i < M; ++i)
-#pragma unroll
-        for (int j = i + 1; j < M; ++j) Ls[mat(k, i, j)] = 0.f;
-    }
-
-    // y_k = L^-1 (b_k - Wy)
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      float s = b[vec(k, i)] - Wy[i];
-#pragma unroll
-      for (int t = 0; t < i; ++t) s -= A[i][t] * y[t];
-      y[i] = s / A[i][i];
-      ys[vec(k, i)] = y[i];
-    }
-
-    // W_k = L^-1 U_k (U shared over the batch: a broadcast load)
-    const float* Uk = U + static_cast<size_t>(k) * M * M;
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-#pragma unroll
-      for (int i = 0; i < M; ++i) {
-        float s = __ldg(Uk + i * M + j);
-#pragma unroll
-        for (int t = 0; t < i; ++t) s -= A[i][t] * W[t][j];
-        W[i][j] = s / A[i][i];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-#pragma unroll
-      for (int j = 0; j < M; ++j) Ws[mat(k, i, j)] = W[i][j];
-
-    // S = W^T W (lower triangle, into A), Wy = W^T y
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j) {
-        float s = W[0][i] * W[0][j];
-#pragma unroll
-        for (int t = 1; t < M; ++t) s += W[t][i] * W[t][j];
-        A[i][j] = s;
-      }
-      float s = W[0][i] * y[0];
-#pragma unroll
-      for (int t = 1; t < M; ++t) s += W[t][i] * y[t];
-      Wy[i] = s;
-    }
-  }
-
+  for (int k = 0; k < H; ++k)
+    sweep_step<M, true, kFactorOut>(D, U, b, Ls, Ws, ys, A, W, y, Wy, k, sB,
+                                    lane);
   backward_pass<M>(Ls, Ws, ys, x, H, sB, lane);
 }
 

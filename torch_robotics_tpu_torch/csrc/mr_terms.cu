@@ -5,12 +5,16 @@
 // bounds, own and mutual pair distances -> hinge rows -> g = sum r Jr,
 // Hqq = Jr^T Jr and cost = 0.5 sum r^2, unscaled by the collision weight.
 //
-// Replaces the TPU kernel torch_robotics_tpu/ops/pallas_terms.py
-// (_multirobot_terms_pallas_factory, whose pallas_call is the one in
-// _build_terms).  Its plain PyTorch version is
-// obstacle_terms_lanes_multirobot_factory in
-// torch_robotics_tpu_torch/ops/lanes_fk.py.  The residual set is the same;
-// g and Hqq are symmetric reductions over the rows, so row order is free.
+// Replaces two TPU kernels of torch_robotics_tpu/ops/pallas_terms.py:
+//   mr_terms_kernel<false>  _multirobot_terms_pallas_factory (whose
+//                           pallas_call is the one in _build_terms);
+//   mr_terms_kernel<true>   the MultiRobot branch of
+//                           collision_cost_pallas_factory: the value-only
+//                           cost (N), without Jacobian, g or Hqq work.
+// Their plain PyTorch version is obstacle_terms_lanes_multirobot_factory in
+// torch_robotics_tpu_torch/ops/lanes_fk.py (its cost output for the
+// value-only kernel).  The residual set is the same; g, Hqq and the cost
+// are symmetric reductions over the rows, so row order is free.
 //
 // Structure of the work.  Every collision point moves with one member, so
 // a row touches one member's columns (object, workspace and own-pair rows
@@ -49,6 +53,13 @@
 // TFLOP/s.  At one block of 6 warps per 32 lanes the launch is 256 blocks,
 // under 2 per SM, so it runs well above the byte bound; more lanes per
 // block and register-resident link transforms come first in a faster one.
+//
+// The value-only variant (kCostOnly) runs the same FK and row values on the
+// same warps: phase 1 writes only the points, a diagonal warp squares its
+// member's object, workspace and own-pair rows into the cost and a cross
+// warp its mutual rows.  It reads q (d floats) and writes the cost (one
+// float) per lane, 84 bytes at d = 20, so the FK chains' and the SDF's
+// operations set its bound.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -157,6 +168,7 @@ struct Shared {
   float *pts, *z, *o, *cost;
 };
 
+template <bool kCostOnly>
 __global__ void __launch_bounds__(kLanes * kMaxBlockPairs)
 mr_terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
                 float* __restrict__ h_out, float* __restrict__ cost_out,
@@ -171,7 +183,8 @@ mr_terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
   s.pts = smem;
   s.z = s.pts + 3 * a.P * kLanes;
   s.o = s.z + 3 * a.D * kLanes;
-  s.cost = s.o + 3 * a.D * kLanes;
+  // the value-only kernel's shared memory holds the points and the costs
+  s.cost = kCostOnly ? s.z : s.o + 3 * a.D * kLanes;
 
   // ---- phase 1: member w's FK -> world points, joint axes and origins ----
   if (w < a.n_mem && valid) {
@@ -185,7 +198,7 @@ mr_terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
     fk_links(mv, qv, Rw, tw);
     const float* Rb = a.base_R + 9 * w;
     const float* tb = a.base_t + 3 * w;
-    for (int c = 0; c < dm; ++c) {
+    for (int c = 0; c < (kCostOnly ? 0 : dm); ++c) {
       const int li = a.ctrl[doff + c];
       const float* ax = mv.axis + 3 * li;
       const float in_lim =
@@ -281,7 +294,7 @@ mr_terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
                        const float grad[3]) {
         const float r = relu(thresh - val);
         cacc += r * r;
-        if (r == 0.f) return;
+        if (kCostOnly || r == 0.f) return;
         const float act = r > 0.f ? 1.f : 0.f;
         float Jr[kMaxDof];
 #pragma unroll
@@ -294,7 +307,7 @@ mr_terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
         point(p, x);
         if (a.NOBJ > 0) {
           float val, grad[3];
-          scene_sdf<true>(a, x, val, grad);
+          scene_sdf<!kCostOnly>(a, x, val, grad);
           hinge(p, x, a.obj_thresh[p], val, grad);
         }
         // workspace: min-face distance, first minimal face wins
@@ -305,7 +318,7 @@ mr_terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
 #pragma unroll
         for (int f = 1; f < 6; ++f) val = fminf(val, faces[f]);
         int fi = 0;
-        while (fi < 5 && !(faces[fi] <= val)) ++fi;
+        while (!kCostOnly && fi < 5 && !(faces[fi] <= val)) ++fi;
         float grad[3] = {0.f, 0.f, 0.f};
         grad[fi % 3] = fi < 3 ? 1.f : -1.f;
         hinge(p, x, a.obj_thresh[p], val, grad);
@@ -316,7 +329,7 @@ mr_terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
         const float r = pair_row(a.own_a[k], a.own_b[k], a.own_margin[k], xa,
                                  xb, u);
         cacc += r * r;
-        if (r == 0.f) continue;
+        if (kCostOnly || r == 0.f) continue;
         const float act = r > 0.f ? 1.f : 0.f;
         float Jr[kMaxDof];
 #pragma unroll
@@ -329,7 +342,7 @@ mr_terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
       // member i's side of the mutual rows (their cost is the cross
       // warp's): -[r > 0] u . J[pa] on the first member, +[r > 0] u . J[pb]
       // on the second
-      for (int b = a.n_mem; b < a.n_bp; ++b) {
+      for (int b = a.n_mem; b < (kCostOnly ? 0 : a.n_bp); ++b) {
         const bool first = a.bp_i[b] == m;
         if (!first && a.bp_j[b] != m) continue;
         for (int k = a.bp_begin[b]; k < a.bp_end[b]; ++k) {
@@ -347,20 +360,22 @@ mr_terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
           add_row(r, Jr);
         }
       }
-      const int doff = a.mem_doff[m];
+      if constexpr (!kCostOnly) {
+        const int doff = a.mem_doff[m];
 #pragma unroll
-      for (int c = 0; c < kMaxDof; ++c)
-        if (c < dm) g_out[(size_t)(doff + c) * N + n] = gacc[c];
-      int t = 0;
+        for (int c = 0; c < kMaxDof; ++c)
+          if (c < dm) g_out[(size_t)(doff + c) * N + n] = gacc[c];
+        int t = 0;
 #pragma unroll
-      for (int c1 = 0; c1 < kMaxDof; ++c1)
+        for (int c1 = 0; c1 < kMaxDof; ++c1)
 #pragma unroll
-        for (int c2 = c1; c2 < kMaxDof; ++c2, ++t) {
-          if (c2 >= dm) continue;
-          const float v = hacc[t];
-          h_out[((size_t)(doff + c1) * a.D + doff + c2) * N + n] = v;
-          h_out[((size_t)(doff + c2) * a.D + doff + c1) * N + n] = v;
-        }
+          for (int c2 = c1; c2 < kMaxDof; ++c2, ++t) {
+            if (c2 >= dm) continue;
+            const float v = hacc[t];
+            h_out[((size_t)(doff + c1) * a.D + doff + c2) * N + n] = v;
+            h_out[((size_t)(doff + c2) * a.D + doff + c1) * N + n] = v;
+          }
+      }
     } else {
       // -------- cross block H_ij and the cost of group (i, j) --------
       const int di = a.mem_D[bi], dj = a.mem_D[bj];
@@ -374,7 +389,7 @@ mr_terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
         const float r = pair_row(a.mut_a[k], a.mut_b[k], a.mut_margin[k], xa,
                                  xb, u);
         cacc += r * r;
-        if (r == 0.f) continue;
+        if (kCostOnly || r == 0.f) continue;
         const float act = r > 0.f ? 1.f : 0.f;
         float A[kMaxDof], Bv[kMaxDof];
 #pragma unroll
@@ -387,16 +402,18 @@ mr_terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
 #pragma unroll
           for (int c2 = 0; c2 < kMaxDof; ++c2) hacc[c1][c2] += A[c1] * Bv[c2];
       }
-      const int oi = a.mem_doff[bi], oj = a.mem_doff[bj];
+      if constexpr (!kCostOnly) {
+        const int oi = a.mem_doff[bi], oj = a.mem_doff[bj];
 #pragma unroll
-      for (int c1 = 0; c1 < kMaxDof; ++c1)
+        for (int c1 = 0; c1 < kMaxDof; ++c1)
 #pragma unroll
-        for (int c2 = 0; c2 < kMaxDof; ++c2) {
-          if (c1 >= di || c2 >= dj) continue;
-          const float v = hacc[c1][c2];
-          h_out[((size_t)(oi + c1) * a.D + oj + c2) * N + n] = v;
-          h_out[((size_t)(oj + c2) * a.D + oi + c1) * N + n] = v;
-        }
+          for (int c2 = 0; c2 < kMaxDof; ++c2) {
+            if (c1 >= di || c2 >= dj) continue;
+            const float v = hacc[c1][c2];
+            h_out[((size_t)(oi + c1) * a.D + oj + c2) * N + n] = v;
+            h_out[((size_t)(oj + c2) * a.D + oi + c1) * N + n] = v;
+          }
+      }
     }
   }
   s.cost[w * kLanes + lane] = cacc;
@@ -406,6 +423,25 @@ mr_terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
     for (int b = 0; b < a.n_bp; ++b) c += s.cost[b * kLanes + lane];
     cost_out[n] = 0.5f * c;
   }
+}
+
+template <bool kCostOnly>
+int launch(const float* q, float* g, float* h, float* cost, int N, int n_bp,
+           int shared_bytes, const int* ip, const float* fp, void* stream) {
+  if (n_bp < 1 || n_bp > kMaxBlockPairs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (shared_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mr_terms_kernel<kCostOnly>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 block(kLanes, n_bp);
+  const int blocks = (N + kLanes - 1) / kLanes;
+  mr_terms_kernel<kCostOnly><<<blocks, block, shared_bytes,
+                               static_cast<cudaStream_t>(stream)>>>(
+      q, g, h, cost, N, ip, fp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -419,18 +455,14 @@ extern "C" int trt_mr_terms_launch(const float* q, float* g, float* h,
                                    float* cost, int N, int n_bp,
                                    int shared_bytes, const int* ip,
                                    const float* fp, void* stream) {
-  if (n_bp < 1 || n_bp > kMaxBlockPairs)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (shared_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mr_terms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        shared_bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 block(kLanes, n_bp);
-  const int blocks = (N + kLanes - 1) / kLanes;
-  mr_terms_kernel<<<blocks, block, shared_bytes,
-                    static_cast<cudaStream_t>(stream)>>>(q, g, h, cost, N, ip,
-                                                         fp);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(q, g, h, cost, N, n_bp, shared_bytes, ip, fp, stream);
+}
+
+// The value-only cost: q (D, N) -> cost (N), the same parameters; its
+// shared memory holds the points and the per-warp costs only.
+extern "C" int trt_mr_cost_launch(const float* q, float* cost, int N,
+                                  int n_bp, int shared_bytes, const int* ip,
+                                  const float* fp, void* stream) {
+  return launch<true>(q, nullptr, nullptr, cost, N, n_bp, shared_bytes, ip,
+                      fp, stream);
 }

@@ -15,6 +15,16 @@ Counterparts of torch_robotics_tpu/ops/pallas_btridiag.py:
   the substitution-only re-solve from them with a fresh right-hand side
   (``solve_lanes_pallas_subst``); GN factorization reuse.  Both in
   ``csrc/btridiag.cu``, m in {2, 4, ..., 16}.
+- ``solve_lanes_sweep(D, U, b, bwd_trsv=False)``: the sweep that keeps L
+  and y only and recomputes W_k in its backward pass, by a triangular solve
+  or, with ``bwd_trsv``, as a matvec and a triangular vector solve
+  (``solve_lanes_pallas``); CUDA source ``csrc/btridiag_sweep.cu``, m in
+  {2, 4, ..., 16}.  Nothing routes to it (the reference reaches it only
+  when its chip's memory budget refuses the W-persisting sweep).
+- ``solve_lanes_cr``: block cyclic reduction (``solve_lanes_pallas_bcr``),
+  H padded to a power of two with identity blocks; CUDA source
+  ``csrc/btridiag_cr.cu``, m in {2, 4, ..., 16}.  Its plain version is
+  ``solve/btridiag_bcr.solve_lanes_bcr``.  Nothing routes to it.
 
 Each CUDA source's head comment says what bounds its kernel on the H100
 and how its design answers that.  The plain PyTorch version of the sweeps
@@ -33,13 +43,15 @@ import ctypes
 
 import torch
 
+from ..solve.btridiag_bcr import solve_lanes_bcr
 from ..solve.btridiag_lanes import (solve_lanes_core, solve_lanes_factor_core,
                                     solve_lanes_subst_core)
 from .cuda_build import CudaKernel
 
 __all__ = ["KERNEL", "COLS_KERNEL", "FACTOR_KERNEL", "SUBST_KERNEL",
-           "solve_lanes_w", "solve_lanes_cols", "solve_lanes_auto",
-           "solve_lanes_factor", "solve_lanes_subst"]
+           "SWEEP_KERNEL", "CR_KERNEL", "solve_lanes_w", "solve_lanes_cols",
+           "solve_lanes_auto", "solve_lanes_factor", "solve_lanes_subst",
+           "solve_lanes_sweep", "solve_lanes_cr"]
 
 _P = ctypes.c_void_p
 KERNEL = CudaKernel("btridiag.cu", {
@@ -58,7 +70,16 @@ SUBST_KERNEL = CudaKernel("btridiag.cu", {
     "trt_btridiag_subst_launch": [_P, _P, _P, _P, _P, ctypes.c_int,
                                   ctypes.c_int, ctypes.c_int, _P],
 })
-_KERNEL_M = (2, 4, 6, 8, 10, 12, 14, 16)   # btridiag.cu instantiations
+SWEEP_KERNEL = CudaKernel("btridiag_sweep.cu", {
+    "trt_btridiag_sweep_launch": [_P, _P, _P, _P, _P, _P, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  _P],
+})
+CR_KERNEL = CudaKernel("btridiag_cr.cu", {
+    "trt_btridiag_cr_launch": [_P] * 10 + [ctypes.c_int] * 4 + [_P],
+})
+# btridiag.cu, btridiag_sweep.cu and btridiag_cr.cu instantiations
+_KERNEL_M = (2, 4, 6, 8, 10, 12, 14, 16)
 _COLS_MAX_M = 64                            # btridiag_cols.cu kMaxM
 _W_MAX_M = 16     # the reference's _SCALAR_KERNEL_MAX_M: above it, columns
 
@@ -206,3 +227,58 @@ def solve_lanes_subst(L: torch.Tensor, W: torch.Tensor, b: torch.Tensor):
                             W.data_ptr(), b.data_ptr(), x.data_ptr(),
                             ys.data_ptr(), H, m, B, stream)
     return x
+
+
+def solve_lanes_sweep(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor,
+                      bwd_trsv: bool = False):
+    """Block-tridiagonal SPD solve through the sweep that keeps L and y
+    only, with the trsm or (``bwd_trsv``) the trsv backward tail; m in
+    2..16 even on the card (see module doc)."""
+    _check(D, U, b)
+    if D.device.type == "cpu":
+        return solve_lanes_core(D, U, b)
+    _check_cuda("solve_lanes_sweep", D, U, b)
+    H, m, _, B = D.shape
+    _check_m(m)
+    x = torch.empty((H, m, B), dtype=torch.float32, device=D.device)
+    if B == 0 or H == 0:
+        return x
+    Ls = torch.empty((H, m, m, B), dtype=torch.float32, device=D.device)
+    ys = torch.empty((H, m, B), dtype=torch.float32, device=D.device)
+    with torch.cuda.device(D.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        SWEEP_KERNEL.launch("trt_btridiag_sweep_launch", D.data_ptr(),
+                            U.data_ptr(), b.data_ptr(), x.data_ptr(),
+                            Ls.data_ptr(), ys.data_ptr(), H, m, B,
+                            int(bool(bwd_trsv)), stream)
+    return x
+
+
+def solve_lanes_cr(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor):
+    """Block-tridiagonal SPD solve by block cyclic reduction; m in 2..16
+    even on the card (see module doc)."""
+    _check(D, U, b)
+    if D.device.type == "cpu":
+        return solve_lanes_bcr(D, U, b)
+    _check_cuda("solve_lanes_cr", D, U, b)
+    H, m, _, B = D.shape
+    _check_m(m)
+    H2 = 1
+    while H2 < H:
+        H2 *= 2
+    kw = dict(dtype=torch.float32, device=D.device)
+    x = torch.empty((H2, m, B), **kw)
+    if B == 0 or H == 0:
+        return x[:H]
+    half = max(H2 // 2, 1)
+    A, C = (torch.empty((H2, m, m, B), **kw) for _ in range(2))
+    beta = torch.empty((H2, m, B), **kw)
+    Dw, Uw = (torch.empty((half, m, m, B), **kw) for _ in range(2))
+    bw = torch.empty((half, m, B), **kw)
+    with torch.cuda.device(D.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        CR_KERNEL.launch("trt_btridiag_cr_launch", D.data_ptr(), U.data_ptr(),
+                         b.data_ptr(), x.data_ptr(), A.data_ptr(),
+                         C.data_ptr(), beta.data_ptr(), Dw.data_ptr(),
+                         Uw.data_ptr(), bw.data_ptr(), H, H2, m, B, stream)
+    return x[:H]

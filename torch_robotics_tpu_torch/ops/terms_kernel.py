@@ -15,14 +15,17 @@ wrapper applies lam and embeds them into g (H, m, B), Hb (H, m, m, B),
 cost (H, B) (or the h=None lanes layout).  A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.
 
-``collision_cost_kernel_factory(task)`` returns ``cost(q_cols (d, N)) ->
+``collision_cost_kernel_factory(task, terms=None)`` returns ``cost(q_cols (d, N)) ->
 (N,)``, 0.5 sum r^2 over the same rows, unscaled, with the same dispatch.
 It is not differentiable: solvers that need gradients use the terms.
 
 For a ``MultiRobot`` the terms come from ``multirobot_terms_kernel_factory``
 with the same contract: its CUDA source is ``csrc/mr_terms.cu`` (which
 replaces ``_multirobot_terms_pallas_factory``), its plain version
-``ops/lanes_fk.obstacle_terms_lanes_multirobot_factory``.
+``ops/lanes_fk.obstacle_terms_lanes_multirobot_factory``.  The value-only
+cost of a ``MultiRobot`` (the MultiRobot branch of
+``collision_cost_pallas_factory``) is the value-only variant of the same
+kernel, and its plain version the cost output of those plain terms.
 """
 from __future__ import annotations
 
@@ -36,11 +39,12 @@ from .lanes_fk import (MultiRobotLayout, TermsLayout, embed_terms,
                        obstacle_terms_lanes_factory,
                        obstacle_terms_lanes_multirobot_factory)
 
-__all__ = ["KERNEL", "COST_KERNEL", "MR_KERNEL", "MAX_DOF",
+__all__ = ["KERNEL", "COST_KERNEL", "MR_KERNEL", "MR_COST_KERNEL", "MAX_DOF",
            "MR_MAX_MEMBERS", "obstacle_terms_kernel_factory",
            "collision_cost_kernel_factory", "multirobot_terms_kernel_factory",
            "pack_terms_params", "pack_multirobot_params", "run_terms_kernel",
-           "run_cost_kernel", "run_multirobot_terms_kernel"]
+           "run_cost_kernel", "run_multirobot_terms_kernel",
+           "run_multirobot_cost_kernel"]
 
 _P = ctypes.c_void_p
 KERNEL = CudaKernel("terms.cu", {
@@ -53,6 +57,10 @@ COST_KERNEL = CudaKernel("terms.cu", {
 MR_KERNEL = CudaKernel("mr_terms.cu", {
     "trt_mr_terms_launch": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, _P, _P, _P],
+})
+MR_COST_KERNEL = CudaKernel("mr_terms.cu", {
+    "trt_mr_cost_launch": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           _P, _P, _P],
 })
 MAX_DOF = 8        # terms.cu instantiates D = 1..8; mr_terms.cu kMaxDof
 MR_MAX_MEMBERS = 4  # mr_terms.cu kMaxMembers
@@ -220,11 +228,12 @@ def pack_multirobot_params(lay: MultiRobotLayout):
     return ints, floats
 
 
-def mr_shared_bytes(ints) -> int:
+def mr_shared_bytes(ints, cost_only: bool = False) -> int:
     """Dynamic shared memory of one mr_terms.cu block: points, joint axes
-    and origins (3 floats each, per lane) and the per-warp cost shares."""
+    and origins (3 floats each, per lane; the value-only kernel keeps no
+    axes or origins) and the per-warp cost shares."""
     P, D, n_bp = int(ints[2]), int(ints[1]), int(ints[8])
-    return 4 * _MR_LANES * (3 * P + 6 * D + n_bp)
+    return 4 * _MR_LANES * (3 * P + (0 if cost_only else 6 * D) + n_bp)
 
 
 def _check_q(q_cols, ints, floats, d: int):
@@ -297,6 +306,24 @@ def run_multirobot_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
     return g, Hqq, cost
 
 
+def run_multirobot_cost_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
+                               floats: torch.Tensor, d: int, n_bp: int,
+                               shared_bytes: int):
+    """Launch the CUDA MultiRobot value-only cost kernel: q_cols (d, N)
+    float32 contiguous CUDA -> unscaled cost (N,)."""
+    _check_q(q_cols, ints, floats, d)
+    N = q_cols.shape[1]
+    cost = torch.empty((N,), dtype=torch.float32, device=q_cols.device)
+    if N == 0:
+        return cost
+    with torch.cuda.device(q_cols.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        MR_COST_KERNEL.launch("trt_mr_cost_launch", q_cols.data_ptr(),
+                              cost.data_ptr(), N, n_bp, shared_bytes,
+                              ints.data_ptr(), floats.data_ptr(), stream)
+    return cost
+
+
 def _kernel_params(task):
     """(d, ints, floats, plain terms) of a task the terms.cu kernels take,
     or None where the reference's fused factories return None (a point
@@ -353,20 +380,23 @@ def obstacle_terms_kernel_factory(task):
 
     terms.unscaled = unscaled
     terms.plain = plain
+    terms.params = params
     return terms
 
 
-def collision_cost_kernel_factory(task):
-    """Per-waypoint collision cost 0.5 sum r^2 (unscaled) of the same
-    single-robot tasks, through the CUDA cost kernel for CUDA tensors; the
-    plain version is the cost output of the plain terms.  The reference's
-    MultiRobot branch of this kernel is not ported: a ``MultiRobot`` raises
-    NotImplementedError."""
+def collision_cost_kernel_factory(task, terms=None):
+    """Per-waypoint collision cost 0.5 sum r^2 (unscaled) of the same tasks
+    as the terms, through the CUDA cost kernel for CUDA tensors (the
+    value-only MultiRobot kernel for a ``MultiRobot``, with the
+    NotImplementedError cases of ``multirobot_terms_kernel_factory``); the
+    plain version is the cost output of the plain terms.  ``terms``, the
+    task's hook from ``obstacle_terms_kernel_factory``, lends its packed
+    parameters and plain terms, so they are built once per task."""
     from ..robots.multi_robot import MultiRobot
     if isinstance(task.robot, MultiRobot):
-        raise NotImplementedError(
-            "the value-only cost kernel's MultiRobot branch is not ported")
-    params = _kernel_params(task)
+        return _multirobot_cost_factory(task, terms)
+    params = (terms.params if hasattr(terms, "params")
+              else _kernel_params(task))
     if params is None:
         return None
     d, ints, floats, plain_terms = params
@@ -383,15 +413,12 @@ def collision_cost_kernel_factory(task):
     return cost
 
 
-def multirobot_terms_kernel_factory(task):
-    """GN obstacle terms of a ``MultiRobot`` task in an analytic primitive
-    scene: the CUDA MultiRobot terms kernel for CUDA tensors, the plain
-    block-structured terms for CPU tensors.  Same contract as
-    ``obstacle_terms_kernel_factory``; None unless every member has a
-    kinematic model.  A member with a learned self-collision net or grasped
-    points, more than MR_MAX_MEMBERS members, more than MAX_DOF joints or
-    32 links in a member, and a same-member mutual pair raise
-    NotImplementedError."""
+def _mr_kernel_params(task):
+    """(d, ints, floats, n_bp, plain terms) of a ``MultiRobot`` task for the
+    mr_terms.cu kernels, or None unless every member has a kinematic model.
+    A member with a learned self-collision net or grasped points, more than
+    MR_MAX_MEMBERS members, more than MAX_DOF joints or 32 links in a
+    member, and a same-member mutual pair raise NotImplementedError."""
     robot = task.robot
     members = robot.robots
     if not all(hasattr(r, "model") for r in members):
@@ -413,10 +440,22 @@ def multirobot_terms_kernel_factory(task):
                                   "most %d members" % MR_MAX_MEMBERS)
     plain = obstacle_terms_lanes_multirobot_factory(task)
     ints_np, floats_np = pack_multirobot_params(plain.layout)
-    d = robot.q_dim
-    n_bp, shared = int(ints_np[8]), mr_shared_bytes(ints_np)
     ints = torch.as_tensor(ints_np, device=task.device)
     floats = torch.as_tensor(floats_np, device=task.device)
+    return robot.q_dim, ints, floats, int(ints_np[8]), plain
+
+
+def multirobot_terms_kernel_factory(task):
+    """GN obstacle terms of a ``MultiRobot`` task in an analytic primitive
+    scene: the CUDA MultiRobot terms kernel for CUDA tensors, the plain
+    block-structured terms for CPU tensors.  Same contract as
+    ``obstacle_terms_kernel_factory``; None and NotImplementedError as
+    ``_mr_kernel_params``."""
+    params = _mr_kernel_params(task)
+    if params is None:
+        return None
+    d, ints, floats, n_bp, plain = params
+    shared = mr_shared_bytes(ints)
 
     def unscaled(q_cols):
         if q_cols.device.type == "cpu":
@@ -431,4 +470,28 @@ def multirobot_terms_kernel_factory(task):
 
     terms.unscaled = unscaled
     terms.plain = plain
+    terms.params = params
     return terms
+
+
+def _multirobot_cost_factory(task, terms=None):
+    """Value-only cost of a ``MultiRobot`` task (see
+    ``collision_cost_kernel_factory``)."""
+    params = (terms.params if hasattr(terms, "params")
+              else _mr_kernel_params(task))
+    if params is None:
+        return None
+    d, ints, floats, n_bp, plain_terms = params
+    shared = mr_shared_bytes(ints, cost_only=True)
+
+    def plain(q_cols):
+        return plain_terms.unscaled(q_cols)[2]
+
+    def cost(q_cols):
+        if q_cols.device.type == "cpu":
+            return plain(q_cols)
+        return run_multirobot_cost_kernel(q_cols, ints, floats, d, n_bp,
+                                          shared)
+
+    cost.plain = plain
+    return cost

@@ -47,10 +47,9 @@ class CollisionResiduals:
     - ``obstacle_terms_lanes(q_cols (d, N), lam, h=None) -> (g, Hb, cost)``,
       the GN terms (terms kernel);
     - ``collision_cost_lanes(q_cols (d, N)) -> (N,)``, the unscaled cost
-      0.5 sum r^2 (value-only cost kernel); None for a ``MultiRobot``,
-      whose branch of that kernel is not ported, and for a point mass,
-      which has no such kernel (solvers then score with the residual
-      values).
+      0.5 sum r^2 (value-only cost kernel, its MultiRobot variant for a
+      ``MultiRobot``); None for a point mass, which has no such kernel
+      (solvers then score with the residual values).
 
     For a ``MultiRobot`` the rows run over its full collision layout:
     object rows of every member's object points, workspace rows, then the
@@ -62,14 +61,12 @@ class CollisionResiduals:
         from ..ops.lanes_fk import obstacle_terms_lanes_factory
         from ..ops.terms_kernel import (collision_cost_kernel_factory,
                                         obstacle_terms_kernel_factory)
-        from ..robots.multi_robot import MultiRobot
         # the reference's routing: the fused kernel where one exists, else
         # the plain lanes terms (the point mass)
         self.obstacle_terms_lanes = (obstacle_terms_kernel_factory(task)
                                      or obstacle_terms_lanes_factory(task))
-        self.collision_cost_lanes = (
-            None if isinstance(task.robot, MultiRobot)
-            else collision_cost_kernel_factory(task))
+        self.collision_cost_lanes = collision_cost_kernel_factory(
+            task, self.obstacle_terms_lanes)
         if self.obstacle_terms_lanes is None:
             raise NotImplementedError(
                 "collision residuals need a kinematic model whose collision "
