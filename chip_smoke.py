@@ -24,7 +24,11 @@ final line):
              wide self-collision margins at N = 4096.
 3. solve   - the block-tridiagonal sweep vs its plain version: the first GN
              system of the main-path problem (H = 64, m = 14, B = 1024), a
-             well-conditioned random system, and both at a ragged B = 100.
+             well-conditioned random system, and both at a ragged B = 100;
+             at every instantiated m (2, 4, ..., 16) the sweep, the factor
+             sweep and the substitution from its factors on a random (8, m,
+             m, 100) system; timed with the dense torch.linalg.solve, and
+             on the GN system's first 8 lanes.
 4. main    - the main path: receding-horizon MPC for the 7-DoF Panda in
              EnvSpheres3D, B = 1024, H = 64, 2 GN iterations per step, 8
              steps, start/goal drawn from a numpy seed as bench.py draws
@@ -75,7 +79,8 @@ final line):
              (gpmp2_solve); launches exactly 150 K2 at m = 4 and no K1,
              finiteness, trajs/s, ms per iteration, fraction free, mean
              final cost, a profile; K2 at m = 4 vs its plain version on the
-             first GN system; 3 card iterations at B = 256 held to a
+             first GN system, timed with the dense torch.linalg.solve of
+             the (1024, 256, 256) system; 3 card iterations at B = 256 held to a
              float64 CPU run beside the CPU float32 run.
 17. pm_restarts - config 2's restart policy (run_all.py): 75 iterations,
              sigma_gp_init 0.5, 6 rounds of 50 (gpmp2_solve_restarts),
@@ -750,6 +755,40 @@ def random_system(H_: int, m: int, B_: int, seed: int):
                       rng.normal(size=(H_, m, B_)))]
 
 
+def solve_every_m():
+    """Both sweeps of btridiag.cu at every instantiated m on a small random
+    system with a ragged batch (H = 8, B = 100) against their plain
+    versions to SOLVE_TOL_RANDOM of max|ref|: the W-persisting sweep's x,
+    the factor sweep's x, L and W, and the substitution sweep fed those
+    factors and a fresh b -> {m: largest relative error}."""
+    import torch
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import (
+        _KERNEL_M, solve_lanes_factor, solve_lanes_subst, solve_lanes_w)
+    from torch_robotics_tpu_torch.solve.btridiag_lanes import (
+        solve_lanes_factor_core, solve_lanes_subst_core)
+    out = {}
+    for m in _KERNEL_M:
+        D, U, b = random_system(8, m, 100, seed=20 + m)
+        b2 = torch.flip(b, (2,)).contiguous()
+        xp, Lp, Wp = solve_lanes_factor_core(D, U, b)
+        got = (solve_lanes_w(D, U, b),) + solve_lanes_factor(D, U, b)
+        ref = (xp, xp, Lp, Wp)
+        xs = solve_lanes_subst(got[2], got[3], b2)
+        got += (xs,)
+        ref += (solve_lanes_subst_core(got[2], got[3], b2),)
+        rel = 0.0
+        for name, g, r in zip(("w_x", "factor_x", "factor_L", "factor_W",
+                               "subst_x"), got, ref):
+            check(bool(torch.isfinite(g).all()),
+                  "m = %d %s: non-finite output" % (m, name))
+            e = max_errs([g], [r])[1]
+            check(e <= SOLVE_TOL_RANDOM, "m = %d %s: kernel vs plain %.3g of "
+                  "max|ref|" % (m, name, e))
+            rel = max(rel, e)
+        out["m%d" % m] = rel
+    return out
+
+
 def phase_solve():
     import torch
     from torch_robotics_tpu_torch.ops.btridiag_kernel import solve_lanes_w
@@ -794,13 +833,19 @@ def phase_solve():
         fail("a per-batch U was accepted")
     except ValueError:
         pass
+    every_m = solve_every_m()
     k_ms = cuda_ms(lambda: solve_lanes_w(D_l, U_l, b_l), iters=20)
+    # one lane's chain of steps sets the sweep's time: the same system's
+    # first 8 lanes take about as long as all of them
+    D8, b8 = D_l[..., :8].contiguous(), b_l[..., :8].contiguous()
+    k8_ms = cuda_ms(lambda: solve_lanes_w(D8, U_l, b8), iters=20)
     p_ms = cuda_ms(lambda: solve_lanes_core(D_l, U_l, b_l), iters=2,
                    warmup=1)
     lib_ms = cuda_ms(dense_solve_fn(D_l, U_l, b_l), iters=3, warmup=1)
     torch.cuda.empty_cache()
-    emit("solve", max_errs=results,
-         kernel_ms=k_ms, plain_ms=p_ms, dense_solve_ms=lib_ms)
+    emit("solve", max_errs=results, every_m=every_m,
+         kernel_ms=k_ms, kernel_ms_B8=k8_ms, plain_ms=p_ms,
+         dense_solve_ms=lib_ms)
     return dict(max_abs_err=results["gn_B%d" % B]["abs"], ms=k_ms,
                 plain_ms=p_ms,
                 library_ms=lib_ms, work=solve_work(H, m, B))
@@ -1729,6 +1774,8 @@ def phase_pm_solve(task, params, start, goal, theta0):
     k2_ms = cuda_ms(lambda: solve_lanes_w(D_l, U_l, b_l), iters=50)
     k2_plain_ms = cuda_ms(lambda: solve_lanes_core(D_l, U_l, b_l), iters=2,
                           warmup=1)
+    k2_lib_ms = cuda_ms(dense_solve_fn(D_l, U_l, b_l), iters=3, warmup=1)
+    torch.cuda.empty_cache()
     H_ = params.n_support_points
     emit("pm_solve", B=PM_B, H=H_, m=4, iterations=PM_ITERS,
          launches=launches, solve_ms=ms, ms_per_iteration=ms / PM_ITERS,
@@ -1738,6 +1785,7 @@ def phase_pm_solve(task, params, start, goal, theta0):
          cost_trace_mean_first_last=[float(res.cost_trace[0].mean()),
                                      float(res.cost_trace[-1].mean())],
          k2_m4_first_system=k2, k2_m4_ms=k2_ms, k2_m4_plain_ms=k2_plain_ms,
+         k2_m4_dense_solve_ms=k2_lib_ms,
          k2_m4_bound_ms=bound_ms(*solve_work(H_, 4, PM_B))[0],
          vs_float64=cpu, profiled_device_busy_share=busy,
          profiled_device_ms_per_iteration=dev_ms,

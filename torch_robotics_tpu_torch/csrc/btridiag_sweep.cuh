@@ -1,7 +1,7 @@
-// Device functions shared by the block-tridiagonal sweep kernels of
-// btridiag.cu (the W-persisting and factor sweeps) and btridiag_sweep.cu
-// (the sweep that keeps L and y only): the batch-minor indexing and one
-// forward block step.
+// Device functions of the block-tridiagonal sweeps: the batch-minor
+// indexing (btridiag.cu and btridiag_sweep.cu) and one lane's forward block
+// step for a thread that runs the whole lane alone (btridiag_sweep.cu, the
+// sweep that keeps L and y only).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -71,3 +71,7 @@ class EnvBase:
     def get_gpmp2_params(self, robot=None) -> dict:
         """GPMP2 hyperparameters (``solve.GPMP2Params.from_preset``)."""
         return self._get_params("gpmp2", robot)
+
+    def get_sgpmp_params(self, robot=None) -> dict:
+        """sGPMP hyperparameters (``solve.SGPMPParams.from_preset``)."""
+        return self._get_params("sgpmp", robot)

@@ -51,12 +51,12 @@ from .cuda_build import CudaKernel
 __all__ = ["KERNEL", "COLS_KERNEL", "FACTOR_KERNEL", "SUBST_KERNEL",
            "SWEEP_KERNEL", "CR_KERNEL", "solve_lanes_w", "solve_lanes_cols",
            "solve_lanes_auto", "solve_lanes_factor", "solve_lanes_subst",
-           "solve_lanes_sweep", "solve_lanes_cr"]
+           "solve_lanes_sweep", "solve_lanes_cr", "sweep_launch_config"]
 
 _P = ctypes.c_void_p
 KERNEL = CudaKernel("btridiag.cu", {
     "trt_btridiag_w_launch": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_int, _P],
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
 })
 COLS_KERNEL = CudaKernel("btridiag_cols.cu", {
     "trt_btridiag_cols_launch": [_P, _P, _P, _P, _P, ctypes.c_int,
@@ -64,7 +64,8 @@ COLS_KERNEL = CudaKernel("btridiag_cols.cu", {
 })
 FACTOR_KERNEL = CudaKernel("btridiag.cu", {
     "trt_btridiag_factor_launch": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
-                                   ctypes.c_int, ctypes.c_int, _P],
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   _P],
 })
 SUBST_KERNEL = CudaKernel("btridiag.cu", {
     "trt_btridiag_subst_launch": [_P, _P, _P, _P, _P, ctypes.c_int,
@@ -82,6 +83,28 @@ CR_KERNEL = CudaKernel("btridiag_cr.cu", {
 _KERNEL_M = (2, 4, 6, 8, 10, 12, 14, 16)
 _COLS_MAX_M = 64                            # btridiag_cols.cu kMaxM
 _W_MAX_M = 16     # the reference's _SCALAR_KERNEL_MAX_M: above it, columns
+_SWEEP_THREADS = 128                        # btridiag.cu kSweepThreads
+_SWEEP_STAGES = 5                           # btridiag.cu kStages
+
+
+def sweep_launch_config(m: int, B: int) -> dict:
+    """Launch shape of the W-persisting and factor sweeps (``btridiag.cu``):
+    a group of ``group`` threads per lane (the power of two >= m),
+    ``lanes_per_block`` lanes per block (128 threads; a batch smaller than
+    that takes fewer lanes, down to one warp), the dynamic shared memory
+    (``sweep_smem_floats`` in the source, in bytes) and the grid."""
+    group = 2
+    while group < m:
+        group *= 2
+    lanes = _SWEEP_THREADS // group
+    while lanes * group > 32 and lanes // 2 >= B:
+        lanes //= 2
+    w_row = -(-m // 4) * 4
+    stage = max(m * m * (lanes + 1) + m * lanes + m * m,
+                (2 * m * m + m) * lanes)
+    floats = lanes * (m * w_row + 4 + m) + _SWEEP_STAGES * stage
+    return dict(group=group, lanes_per_block=lanes, threads=lanes * group,
+                smem_bytes=4 * floats, grid=-(-B // lanes))
 
 
 def _check(D, U, b):
@@ -134,7 +157,8 @@ def solve_lanes_w(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor):
         stream = torch.cuda.current_stream().cuda_stream
         KERNEL.launch("trt_btridiag_w_launch", D.data_ptr(), U.data_ptr(),
                       b.data_ptr(), x.data_ptr(), Ls.data_ptr(),
-                      Ws.data_ptr(), ys.data_ptr(), H, m, B, stream)
+                      Ws.data_ptr(), ys.data_ptr(), H, m, B,
+                      sweep_launch_config(m, B)["lanes_per_block"], stream)
     return x
 
 
@@ -196,7 +220,9 @@ def solve_lanes_factor(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor):
         FACTOR_KERNEL.launch("trt_btridiag_factor_launch", D.data_ptr(),
                              U.data_ptr(), b.data_ptr(), x.data_ptr(),
                              Ls.data_ptr(), Ws.data_ptr(), ys.data_ptr(), H,
-                             m, B, stream)
+                             m, B,
+                             sweep_launch_config(m, B)["lanes_per_block"],
+                             stream)
     return x, Ls, Ws
 
 
