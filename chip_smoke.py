@@ -14,9 +14,10 @@ final line):
              process per source, all at once: terms.cu, btridiag.cu,
              riccati.cu, mr_terms.cu, btridiag_cols.cu, sphere_sdf.cu,
              btridiag_sweep.cu, btridiag_cr.cu, gn_assembly.cu);
-             prints build seconds, the register and spill report of each
-             kernel's launched instantiation, and the card's name and power
-             limit.
+             prints build seconds (all, and each source's), the register
+             and spill report of each kernel's launched instantiation (of
+             the Riccati sweep every d = 1..8), and the card's name and
+             power limit.
 2. terms   - the fused GN-terms kernel vs its plain PyTorch version on the
              card: Panda in EnvSpheres3D at N = 64 * 1024 waypoints (the
              main path's first q, timed, and random q), plus a rounded-box
@@ -41,8 +42,11 @@ final line):
              their plain versions at the iLQR path's shapes (T = 31, d = 7,
              m = 14, P = 27, A = 5, B = 512) and at a ragged B = 100: on
              random well-conditioned inputs, and on the inputs of the
-             path's first iteration held to a float64 plain version;
-             timed.
+             path's first iteration (K6 also the tracking loop's, T = 15,
+             P = 34) held to a float64 plain version; K6 on random inputs
+             at every d = 1..8 (P = 1 and 27, B = 100), at a P that takes
+             fewer lanes per block and at the P cap; timed (K6 at T = 31
+             and T = 15).
 8. cost    - the value-only collision cost (K8) vs its plain version on the
              path's line-search q (N = A B T = 79360) and on random q;
              timed.
@@ -177,6 +181,9 @@ MPC_PARAMS = dict(n_support_points=MPC_H, dt=0.04, opt_iters=MPC_ITERS,
 # parity with the lanes sweep (pallas_riccati.py:18-19); K7 is a short
 # chain of mat-vecs, float32 rounding only
 RICCATI_TOL, ROLLOUT_TOL = 1e-5, 1e-6
+# a row count whose two stages do not fit the launch's 4 lanes a block at
+# d = 7 (B = 512): the launch takes fewer
+RIC_FEWER_LANES_P = 600
 # the whole B = 32 solve on the card vs the CPU: per-lane argmin flips make
 # lanes differ, so the batch's quality is compared: fraction free within 3
 # of 32 lanes, median final goal distance within 50% (+ 0.01 rad)
@@ -579,7 +586,8 @@ def phase_build():
     from torch_robotics_tpu_torch.ops.cuda_build import build_all
     kernels = tuple(all_kernels().values())
     t0 = time.perf_counter()
-    logs = build_all(kernels)
+    per_source = {}
+    logs = build_all(kernels, seconds=per_source)
     secs = time.perf_counter() - t0
     # resource report of the instantiations the paths launch (mangled name
     # fragment -> label)
@@ -589,7 +597,8 @@ def phase_build():
              "btridiag_w_kernelILi4ELb0E": "btridiag_w_kernel<4>",
              "btridiag_w_kernelILi14ELb1E": "btridiag_factor<14>",
              "btridiag_subst_kernelILi14E": "btridiag_subst<14>",
-             "riccati_kernelILi7E": "riccati_kernel",
+             **{"riccati_kernelILi%dE" % d: "riccati_kernel<%d>" % d
+                for d in range(1, 9)},
              "rollout_kernelILi7E": "rollout_kernel",
              "mr_terms_kernelILb0E": "mr_terms_kernel",
              "mr_terms_kernelILb1E": "mr_terms_kernel<cost only>",
@@ -615,7 +624,9 @@ def phase_build():
     for k in kernels:
         k.lib()
     smi = nvidia_smi_line()
-    emit("build", seconds=round(secs, 3), ptxas=report, card=smi)
+    emit("build", seconds=round(secs, 3),
+         source_seconds={k: round(v, 3) for k, v in per_source.items()},
+         ptxas=report, card=smi)
     return smi
 
 
@@ -1063,10 +1074,11 @@ def ilqr_limits(task):
     return (task.robot.q_min, task.robot.q_max)
 
 
-def capture_first_iteration(task, start, goal):
+def capture_first_iteration(task, start, goal, params=IL_PARAMS, **solve_kw):
     """One iLQR iteration on the path's problem, keeping what its kernels
     were given: the sweep's factory arguments and inputs, the rollout's,
-    and each cost call's q (keyed by its N)."""
+    and each cost call's q (keyed by its N).  ``params`` and ``solve_kw``
+    (``x_ref``, ``u_init``) give another workload's first iteration."""
     from torch_robotics_tpu_torch.ops import riccati_kernel
     from torch_robotics_tpu_torch.solve import ILQRParams, ilqr_solve
     seen = {}
@@ -1096,8 +1108,8 @@ def capture_first_iteration(task, start, goal):
             setattr(riccati_kernel, v, tapped(k))
         res.collision_cost_lanes = cost_tap
         ilqr_solve(res, start, goal,
-                   ILQRParams(**dict(IL_PARAMS, opt_iters=1)),
-                   q_limits=ilqr_limits(task))
+                   ILQRParams(**dict(params, opt_iters=1)),
+                   q_limits=ilqr_limits(task), **solve_kw)
     finally:
         for k, v in names.items():
             setattr(riccati_kernel, v, originals[k])
@@ -1105,21 +1117,64 @@ def capture_first_iteration(task, start, goal):
     return seen
 
 
-def phase_riccati(seen):
+def capture_mpc_sweep(task, start, goal):
+    """The sweep's factory arguments and inputs at the tracking loop's first
+    step (phase ilqr_mpc's shapes: T = MPC_H - 1, its running goal rows in
+    P), tracking the straight line to the goal."""
+    from torch_robotics_tpu_torch.solve import straight_line_trajs
+    x_ref = straight_line_trajs(start, goal, MPC_H)
+    return capture_first_iteration(task, start, goal, MPC_PARAMS,
+                                   x_ref=x_ref)["sweep"]
+
+
+def hold_sweep_random(key, d, P, T, Bn, seed, results):
+    """K6 vs its plain version on random well-conditioned inputs (kg = 1e4,
+    r = 1e-4) at d joints, P rows, T steps and Bn lanes, to RICCATI_TOL of
+    max|ref|; returns the launch shape it took."""
+    import torch
+    from torch_robotics_tpu_torch.ops.riccati_kernel import (
+        riccati_backward_kernel_factory, riccati_launch_config)
+    m = 2 * d
+    rng = np.random.default_rng(seed)
+    ins = [torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                           device="cuda")
+           for shape in ((T, d, Bn), (T, m, Bn), (T, m, P, Bn), (m, Bn))]
+    fn = riccati_backward_kernel_factory(d, m, P, T, IL_PARAMS["dt"], 1e-4,
+                                         1e-6, 1e4)
+    got, ref = fn(*ins), fn.plain(*ins)
+    err, rel = max_errs(got, ref)
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          key + ": non-finite")
+    check(rel <= RICCATI_TOL, "%s: kernel vs plain %.3g of max|ref|"
+          % (key, rel))
+    cfg = riccati_launch_config(d, P, Bn)
+    results[key] = dict(abs=err, rel_to_max=rel,
+                        lanes=cfg["lanes_per_block"], stages=cfg["stages"])
+    return cfg
+
+
+def phase_riccati(seen, mpc_sweep):
     """K6 and K7 vs their plain versions at the path's shapes (B = 512) and
     at a ragged B = 100: on random well-conditioned inputs (kg = 1e4,
     r = 1e-4, as tests/test_pallas_riccati.py) K6 to 1e-5 and K7 to 1e-6
-    of max|ref|; on the path's first-iteration inputs (kg / r = 4e10) each
-    to a float64 plain version, no worse than twice the plain float32
-    version's error (+ the random-input tolerance)."""
+    of max|ref|; on the path's first-iteration inputs (kg / r = 4e10), and
+    K6 on the tracking loop's (T = 15), each to a float64 plain version, no
+    worse than twice the plain float32 version's error (+ the random-input
+    tolerance).  K6 also on random inputs at every d in 1..8 (T = 6, B =
+    100, P = 1 and 27: every group size), at d = 7 with a P that makes the
+    launch take fewer lanes per block (B = 512) and at the P cap (one
+    stage, B = 100).  Timed at T = 31 and at the tracking loop's T = 15."""
     import torch
     from torch_robotics_tpu_torch.ops.riccati_kernel import (
-        linesearch_rollout_kernel_factory, riccati_backward_kernel_factory)
+        linesearch_rollout_kernel_factory, riccati_backward_kernel_factory,
+        riccati_launch_config, riccati_p_cap)
     s_args, s_ins = seen["sweep"]
     r_args, r_ins = seen["roll"]
+    m_args, m_ins = mpc_sweep
     d, m, P, T, dt, r, mu, kg = s_args
     alphas = r_args[4]
     sweep = riccati_backward_kernel_factory(*s_args)
+    mpc = riccati_backward_kernel_factory(*m_args)
     roll = linesearch_rollout_kernel_factory(*r_args)
     rng = np.random.default_rng(6)
 
@@ -1134,6 +1189,21 @@ def phase_riccati(seen):
     r_rand = [rand(T + 1, m, IL_B), rand(T, d, IL_B), rand(T, d, IL_B),
               rand(T, d, m, IL_B, scale=0.1)]
     results = {}
+
+    def hold_f64(key, fn, ins, tol):
+        got, ref = fn(*ins), fn.plain(*ins)
+        ref64 = fn.plain(*[t.double() for t in ins])
+        err, rel = max_errs(got, ref)
+        rel_k64 = max_errs([g.double() for g in got], ref64)[1]
+        rel_p64 = max_errs([g.double() for g in ref], ref64)[1]
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              key + ": non-finite")
+        check(rel_k64 <= 2.0 * rel_p64 + tol,
+              "%s: kernel vs float64 %.3g, plain float32 vs float64 "
+              "%.3g of max|ref|" % (key, rel_k64, rel_p64))
+        results[key] = dict(abs=err, rel_to_max=rel,
+                            kernel_vs_f64=rel_k64, plain_vs_f64=rel_p64)
+
     for kname, fn, path_ins, rand_fn, rand_ins, tol in (
             ("riccati", sweep, s_ins, rand_sweep, s_rand, RICCATI_TOL),
             ("rollout", roll, r_ins, roll, r_rand, ROLLOUT_TOL)):
@@ -1148,34 +1218,46 @@ def phase_riccati(seen):
             check(rel <= tol, "%s: kernel vs plain %.3g of max|ref|"
                   % (key, rel))
             results[key] = dict(abs=err, rel_to_max=rel)
+            hold_f64("%s_path_B%d" % (kname, Bn), fn, cut(path_ins), tol)
+            if kname == "riccati":
+                hold_f64("riccati_mpc_T%d_B%d" % (m_args[3], Bn), mpc,
+                         cut(m_ins), tol)
 
-            key = "%s_path_B%d" % (kname, Bn)
-            ins = cut(path_ins)
-            got, ref = fn(*ins), fn.plain(*ins)
-            ref64 = fn.plain(*[t.double() for t in ins])
-            err, rel = max_errs(got, ref)
-            rel_k64 = max_errs([g.double() for g in got], ref64)[1]
-            rel_p64 = max_errs([g.double() for g in ref], ref64)[1]
-            check(all(bool(torch.isfinite(g).all()) for g in got),
-                  key + ": non-finite")
-            check(rel_k64 <= 2.0 * rel_p64 + tol,
-                  "%s: kernel vs float64 %.3g, plain float32 vs float64 "
-                  "%.3g of max|ref|" % (key, rel_k64, rel_p64))
-            results[key] = dict(abs=err, rel_to_max=rel,
-                                kernel_vs_f64=rel_k64, plain_vs_f64=rel_p64)
+    # every group size, and the launch shapes that large P takes
+    for dd in range(1, 9):
+        for PP in (1, 27):
+            hold_sweep_random("riccati_random_d%d_P%d_T6_B100" % (dd, PP),
+                              dd, PP, 6, 100, 10 * dd + PP, results)
+    few = hold_sweep_random("riccati_random_d7_P%d_T4_B%d"
+                            % (RIC_FEWER_LANES_P, IL_B), 7,
+                            RIC_FEWER_LANES_P, 4, IL_B, 7, results)
+    check(few["lanes_per_block"]
+          < riccati_launch_config(7, 27, IL_B)["lanes_per_block"],
+          "P = %d did not take fewer lanes per block" % RIC_FEWER_LANES_P)
+    cap = riccati_p_cap(7)
+    hold_sweep_random("riccati_random_d7_P%d_cap_T2_B100" % cap, 7, cap, 2,
+                      100, 8, results)
+
     out = {}
     for kname, fn, ins, work in (
             ("riccati", sweep, s_ins, riccati_work(d, m, P, T, IL_B)),
+            ("riccati_mpc", mpc, m_ins,
+             riccati_work(d, m, m_args[2], m_args[3], IL_B)),
             ("rollout", roll, r_ins,
              rollout_work(d, m, T, len(alphas), IL_B))):
         k_ms = cuda_ms(lambda: fn(*ins), iters=20)
         p_ms = cuda_ms(lambda: fn.plain(*ins), iters=2, warmup=1)
-        out[kname] = dict(
-            max_abs_err=results["%s_path_B%d" % (kname, IL_B)]["abs"],
-            ms=k_ms, plain_ms=p_ms, work=work)
-    emit("riccati", shapes=dict(T=T, d=d, m=m, P=P, A=len(alphas), B=IL_B),
-         max_errs=results, **{k + "_ms": v["ms"] for k, v in out.items()},
-         **{k + "_plain_ms": v["plain_ms"] for k, v in out.items()})
+        key = ("riccati_mpc_T%d_B%d" % (m_args[3], IL_B)
+               if kname == "riccati_mpc" else "%s_path_B%d" % (kname, IL_B))
+        out[kname] = dict(max_abs_err=results[key]["abs"], ms=k_ms,
+                          plain_ms=p_ms, work=work)
+    emit("riccati", shapes=dict(T=T, d=d, m=m, P=P, A=len(alphas), B=IL_B,
+                                mpc_T=m_args[3], mpc_P=m_args[2]),
+         launch=riccati_launch_config(d, P, IL_B), max_errs=results,
+         **{k + "_ms": v["ms"] for k, v in out.items()},
+         **{k + "_plain_ms": v["plain_ms"] for k, v in out.items()},
+         **{k + "_bound_ms": bound_ms(*v["work"])[0]
+            for k, v in out.items()})
     return out
 
 
@@ -1323,31 +1405,39 @@ def phase_ilqr_cpu(task_c, start, goal):
          full_solve={"card": q_c, "cpu": q_h})
 
 
-def phase_ilqr_mpc(task, start, goal, plan):
+def ilqr_mpc_loop(task, start, goal, plan, n_steps):
     """The bench's tracking loop (ilqr_sgpmp_bench.py:147-194): each step
     re-solves from the executed state with warm-started controls and a
     receding window of the converged plan (x_ref), executes the first
-    control; H_trk = 16, 3 iterations, 30 steps, B = 512."""
+    control -> the executed states (B, n_steps, 2d)."""
     import torch
-    from torch_robotics_tpu_torch.ops import riccati_kernel, terms_kernel
     from torch_robotics_tpu_torch.solve import ILQRParams, ilqr_solve
     params = ILQRParams(**MPC_PARAMS)
-    d = start.shape[-1] // 2
-    pad = goal[:, None].expand(IL_B, MPC_H + MPC_STEPS, 2 * d)
+    n_b, d = start.shape[0], start.shape[-1] // 2
+    pad = goal[:, None].expand(n_b, MPC_H + MPC_STEPS, 2 * d)
     ref_full = torch.cat([plan, pad], dim=1)
+    x = start
+    u = torch.zeros((n_b, MPC_H - 1, d), device=start.device)
+    xs = []
+    for t in range(n_steps):
+        res = ilqr_solve(task.collision_residuals, x, goal, params,
+                         u_init=u, x_ref=ref_full[:, t + 1:t + 1 + MPC_H],
+                         q_limits=ilqr_limits(task))
+        x = res.trajs[:, 1]
+        u = torch.cat([res.controls[:, 1:], res.controls[:, -1:]], 1)
+        xs.append(x)
+    return torch.stack(xs, dim=1)
+
+
+def phase_ilqr_mpc(task, start, goal, plan):
+    """The bench's tracking loop (ilqr_mpc_loop): H_trk = 16, 3 iterations,
+    30 steps, B = 512."""
+    import torch
+    from torch_robotics_tpu_torch.ops import riccati_kernel, terms_kernel
+    d = start.shape[-1] // 2
 
     def loop(n_steps):
-        x = start
-        u = torch.zeros((IL_B, MPC_H - 1, d), device=start.device)
-        xs = []
-        for t in range(n_steps):
-            res = ilqr_solve(task.collision_residuals, x, goal, params,
-                             u_init=u, x_ref=ref_full[:, t + 1:t + 1 + MPC_H],
-                             q_limits=ilqr_limits(task))
-            x = res.trajs[:, 1]
-            u = torch.cat([res.controls[:, 1:], res.controls[:, -1:]], 1)
-            xs.append(x)
-        return torch.stack(xs, dim=1)                  # (B, steps, 2d)
+        return ilqr_mpc_loop(task, start, goal, plan, n_steps)
 
     loop(1)                                            # warm-up
     torch.cuda.synchronize()
@@ -2470,7 +2560,8 @@ def main() -> None:
 
     il_task, il_start, il_goal = ilqr_problem("cuda")
     seen = capture_first_iteration(il_task, il_start, il_goal)
-    sweeps = phase_riccati(seen)
+    sweeps = phase_riccati(seen, capture_mpc_sweep(il_task, il_start,
+                                                   il_goal))
     cost = phase_cost(il_task, seen)
     il_launches, il_res = phase_ilqr(il_task, il_start, il_goal)
     phase_ilqr_cpu(il_task, il_start, il_goal)

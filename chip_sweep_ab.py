@@ -1,16 +1,22 @@
-"""Time the block-tridiagonal sweep kernels of this checkout against those of
-another checkout of the repository (e.g. the parent commit), in turns, in
-one process on one NVIDIA GPU.
+"""Time the sweep kernels of this checkout against those of another checkout
+of the repository (e.g. the parent commit), in turns, in one process on one
+NVIDIA GPU.
 
     git archive <commit> | tar -x -C chip_checkout/other   # a git-ignored dir
-    python3 chip_sweep_ab.py --other chip_checkout/other [--out FILE]
+    python3 chip_sweep_ab.py --other chip_checkout/other [--out FILE] \
+        [--kernels all|sweep|riccati]
 
-The other checkout's ``csrc/btridiag.cu`` and ``csrc/btridiag_sweep.cu``
-are built beside this tree's (``ops.cuda_build``) and stand in for this
-tree's libraries while its turn runs: the wrappers, problems and timing are
-this tree's, so only the kernels differ.  Each measurement runs in the
-order other, this, this, other (each side's time the mean of its two), on
-the problems of ``chip_smoke.py``:
+The other checkout's ``csrc/btridiag.cu``, ``csrc/btridiag_sweep.cu`` and
+``csrc/riccati.cu`` are built beside this tree's (``ops.cuda_build``) and
+stand in for this tree's libraries while its turn runs: the wrappers,
+problems and timing are this tree's, so only the kernels differ (a launch
+function with another argument list is called with the arguments its own
+tree's wrapper gave it: the sweeps' lanes per block dropped, the Riccati
+sweep's device scratch allocated).  Each measurement runs in the order
+other, this, this, other (each side's time the mean of its two), on the
+problems of ``chip_smoke.py``.
+
+``--kernels sweep`` (the block-tridiagonal sweeps):
 
 - K2 at (64, 14, 1024) on the main path's first GN system, and at config
   2's (64, 4, 1024);
@@ -22,10 +28,25 @@ the problems of ``chip_smoke.py``:
 - the reuse workload's solve at refactor_every 1, 2, 4 (ms per iteration).
 
 Each side's K2 and K9 outputs are held to float64 as ``chip_smoke.py``
-holds them, and the kernels this change leaves alone are compared bit for
-bit on the same inputs: K9's substitution (fed the same factors) and K3
-(both tails).  Prints one JSON line per measurement, then the card's name
-and power limit; ``--out`` writes all of it as one JSON object.
+holds them, and the kernels the sweep change left alone are compared bit
+for bit on the same inputs: K9's substitution (fed the same factors) and
+K3 (both tails).
+
+``--kernels riccati`` (the iLQR path):
+
+- K6 on the inputs of the iLQR path's first iteration (T = 31, P = 27, B =
+  512) and of the tracking loop's first step (T = 15, P = 34), each
+  side's output held to a float64 plain version as ``chip_smoke.py``
+  holds it;
+- K7 on the path's inputs, bit for bit the same on both sides;
+- phase ``ilqr``'s solve (30 iterations, B = 512): ms per iteration by
+  CUDA events, and once per side a profile (device ms per iteration, busy
+  share);
+- phase ``ilqr_mpc``'s tracking loop (30 steps): ms per step.
+
+``--kernels all`` (the default) runs both.  Prints one JSON line per
+measurement, then the card's name and power limit; ``--out`` writes all of
+it as one JSON object.
 """
 from __future__ import annotations
 
@@ -37,14 +58,11 @@ from pathlib import Path
 import chip_smoke as cs
 
 
-def other_kernels(other: Path):
-    """CudaKernels on the other checkout's sources, with the argtypes its
-    launch functions take (the sweeps gained a lanes-per-block argument),
-    each library named by the other checkout's own source and headers."""
-    import ctypes
+def other_kernel_class():
+    """CudaKernel whose library is named by the other checkout's own source
+    and headers."""
     import hashlib
 
-    from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
     from torch_robotics_tpu_torch.ops.cuda_build import BUILD_DIR, CudaKernel
 
     class OtherKernel(CudaKernel):
@@ -55,8 +73,17 @@ def other_kernels(other: Path):
                 h.update(header.read_bytes())
             return BUILD_DIR / ("other-%s-%s.so" % (self.source.stem,
                                                     h.hexdigest()[:16]))
+    return OtherKernel
 
-    csrc = (other / "torch_robotics_tpu_torch" / "csrc").resolve()
+
+def other_sweep_kernels(csrc: Path):
+    """The other checkout's btridiag.cu and btridiag_sweep.cu kernels, with
+    the argtypes its launch functions take (an older sweep takes no
+    lanes-per-block argument)."""
+    import ctypes
+
+    from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
+    OtherKernel = other_kernel_class()
     takes_lanes = "int lanes" in (csrc / "btridiag.cu").read_text()
     P, I = ctypes.c_void_p, ctypes.c_int
     sweep = [P] * 7 + [I] * (4 if takes_lanes else 3) + [P]
@@ -69,47 +96,86 @@ def other_kernels(other: Path):
     return main, k3, takes_lanes
 
 
+def other_riccati_kernel(csrc: Path):
+    """The other checkout's riccati.cu, with the argtypes of its Riccati
+    launch function (an older sweep takes a device scratch Fw (M, P, B) and
+    no launch shape)."""
+    import ctypes
+
+    from torch_robotics_tpu_torch.ops import riccati_kernel as rk
+    OtherKernel = other_kernel_class()
+    takes_fw = "float* Fw" in (csrc / "riccati.cu").read_text()
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    sweep = ([P] * 7 + [I] * 4 + [F] * 6 + [P] if takes_fw
+             else rk.RICCATI_KERNEL.functions["trt_riccati_launch"])
+    return OtherKernel(str(csrc / "riccati.cu"), {
+        "trt_riccati_launch": sweep,
+        "trt_rollout_launch": rk.ROLLOUT_KERNEL.functions[
+            "trt_rollout_launch"]}), takes_fw
+
+
 class Swap:
-    """Stands in for this tree's btridiag.cu and btridiag_sweep.cu kernels
-    (the wrappers' module globals) while the other side's turn runs."""
+    """Stands in for this tree's kernels (a wrapper module's globals) while
+    the other side's turn runs; ``launch`` routes each launch function to
+    the other tree's library, with its own arguments."""
 
-    NAMES = ("KERNEL", "FACTOR_KERNEL", "SUBST_KERNEL", "SWEEP_KERNEL")
-
-    def __init__(self, main, k3, takes_lanes):
-        self.main, self.k3, self.takes_lanes = main, k3, takes_lanes
+    def __init__(self, module, names, route):
+        self.module, self.names, self.route = module, names, route
         self.launches = 0
 
     def launch(self, name, *args):
-        if name == "trt_btridiag_sweep_launch":
-            self.k3.launch(name, *args)
-        else:
-            if (name in ("trt_btridiag_w_launch",
-                         "trt_btridiag_factor_launch")
-                    and not self.takes_lanes):
-                args = args[:10] + args[11:]      # drop lanes_per_block
-            self.main.launch(name, *args)
+        kernel, args = self.route(name, args)
+        kernel.launch(name, *args)
         self.launches += 1
 
     def __enter__(self):
-        from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
-        self.saved = {n: getattr(bk, n) for n in self.NAMES}
-        for n in self.NAMES:
-            setattr(bk, n, self)
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n in self.names:
+            setattr(self.module, n, self)
         return self
 
     def __exit__(self, *exc):
-        from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
         for n, k in self.saved.items():
-            setattr(bk, n, k)
+            setattr(self.module, n, k)
+
+
+def sweep_swap(main, k3, takes_lanes):
+    from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
+
+    def route(name, args):
+        if name == "trt_btridiag_sweep_launch":
+            return k3, args
+        if (name in ("trt_btridiag_w_launch", "trt_btridiag_factor_launch")
+                and not takes_lanes):
+            args = args[:10] + args[11:]          # drop lanes_per_block
+        return main, args
+    return Swap(bk, ("KERNEL", "FACTOR_KERNEL", "SUBST_KERNEL",
+                     "SWEEP_KERNEL"), route)
+
+
+def riccati_swap(other, takes_fw):
+    import torch
+    from torch_robotics_tpu_torch.ops import riccati_kernel as rk
+
+    def route(name, args):
+        if name == "trt_riccati_launch" and takes_fw:
+            # (U, l, Fc, Vx0, ks, Ks, P, T, B, D, lanes, stages, 6 floats,
+            # stream) -> (U, l, Fc, Vx0, ks, Ks, Fw, P, T, B, D, 6 floats,
+            # stream); Fw is freed after the launch, in stream order
+            P, T, B, D = args[6:10]
+            fw = torch.empty((2 * D, P, B), dtype=torch.float32,
+                             device="cuda")
+            args = args[:6] + (fw.data_ptr(),) + args[6:10] + args[12:]
+        return other, args
+    return Swap(rk, ("RICCATI_KERNEL", "ROLLOUT_KERNEL"), route)
 
 
 def in_turns(swap, fn):
     """fn() in the order other, this, this, other -> (other's mean, this
     tree's mean, the four results in that order)."""
-    import contextlib
     out = []
     for side in ("other", "this", "this", "other"):
-        with (swap if side == "other" else contextlib.nullcontext()):
+        with (swap if side == "other" else _null()):
             out.append(fn())
     return (out[0] + out[3]) / 2, (out[1] + out[2]) / 2, out
 
@@ -119,26 +185,144 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--out", type=Path)
+    ap.add_argument("--kernels", choices=("all", "sweep", "riccati"),
+                    default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false: this script times "
                 "CUDA kernels")
-    from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
     from torch_robotics_tpu_torch.ops.cuda_build import build_all
-    from torch_robotics_tpu_torch.solve import GPMP2Params, gpmp2_solve
-    from torch_robotics_tpu_torch.solve import straight_line_trajs
-    from torch_robotics_tpu_torch.solve.btridiag_lanes import (
-        solve_lanes_core, solve_lanes_factor_core)
-    from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
-
-    main_k, k3_k, takes_lanes = other_kernels(args.other)
-    build_all([main_k, k3_k, *cs.all_kernels().values()])
-    swap = Swap(main_k, k3_k, takes_lanes)
+    csrc = (args.other / "torch_robotics_tpu_torch" / "csrc").resolve()
+    do_sweep = args.kernels in ("all", "sweep")
+    do_riccati = args.kernels in ("all", "riccati")
+    sweep_k = other_sweep_kernels(csrc) if do_sweep else None
+    ric_k = other_riccati_kernel(csrc) if do_riccati else None
+    build_all([*(sweep_k[:2] if do_sweep else ()),
+               *(ric_k[:1] if do_riccati else ()),
+               *cs.all_kernels().values()])
     report = {}
 
     def emit(name, **fields):
         report[name] = fields
         print(json.dumps({"ab": name, **fields}), flush=True)
+
+    if do_riccati:
+        ab_riccati(riccati_swap(*ric_k), emit)
+        torch.cuda.empty_cache()
+    if do_sweep:
+        ab_sweeps(sweep_swap(*sweep_k), emit)
+
+    smi = cs.nvidia_smi_line()
+    print(smi, flush=True)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({"card": smi, **report}, indent=1))
+
+
+def ab_riccati(swap, emit):
+    """K6 at T = 31 and T = 15, K7 bit for bit, phase ilqr's ms per
+    iteration (and a profile per side), ilqr_mpc's ms per step."""
+    import torch
+    from torch_robotics_tpu_torch.ops.riccati_kernel import (
+        linesearch_rollout_kernel_factory, riccati_backward_kernel_factory,
+        riccati_launch_config)
+    from torch_robotics_tpu_torch.solve import ILQRParams, ilqr_solve
+
+    task, start, goal = cs.ilqr_problem("cuda")
+    seen = cs.capture_first_iteration(task, start, goal)
+    mpc_args, mpc_ins = cs.capture_mpc_sweep(task, start, goal)
+    for name, (s_args, ins) in (("k6_T%d" % seen["sweep"][0][3],
+                                 seen["sweep"]),
+                                ("k6_T%d" % mpc_args[3], (mpc_args, mpc_ins))):
+        fn = riccati_backward_kernel_factory(*s_args)
+        ref = fn.plain(*ins)
+        ref64 = fn.plain(*[t.double() for t in ins])
+        rel_p64 = cs.max_errs([r.double() for r in ref], ref64)[1]
+        errs, outs = {}, {}
+        for side in ("other", "this"):
+            with (swap if side == "other" else _null()):
+                got = outs[side] = [g.clone() for g in fn(*ins)]
+            rel_k64 = cs.max_errs([g.double() for g in got], ref64)[1]
+            cs.check(all(bool(torch.isfinite(g).all()) for g in got)
+                     and rel_k64 <= 2.0 * rel_p64 + cs.RICCATI_TOL,
+                     "%s_%s: kernel vs float64 %.3g, plain float32 %.3g"
+                     % (name, side, rel_k64, rel_p64))
+            errs[side] = dict(kernel_vs_f64=rel_k64, plain_vs_f64=rel_p64)
+        errs["other_vs_this"] = cs.max_errs(outs["other"], outs["this"])[0]
+        other_ms, this_ms, turns = in_turns(
+            swap, lambda: cs.cuda_ms(lambda: fn(*ins), iters=20))
+        d, m, P, T = s_args[:4]
+        B = ins[0].shape[-1]
+        emit(name, shape=dict(T=T, d=d, P=P, B=B), other_ms=other_ms,
+             this_ms=this_ms, speedup=other_ms / this_ms, turns_ms=turns,
+             bound_ms=cs.bound_ms(*cs.riccati_work(d, m, P, T, B))[0],
+             launch=riccati_launch_config(d, P, B), vs_float64=errs)
+
+    # K7, which this change leaves alone, bit for bit on the same inputs
+    r_args, r_ins = seen["roll"]
+    roll = linesearch_rollout_kernel_factory(*r_args)
+    with swap:
+        other = roll(*r_ins)
+    same = all(torch.equal(a, b) for a, b in zip(other, roll(*r_ins)))
+    emit("k7_bit_for_bit", same=same)
+    if not same:
+        cs.fail("K7 differs from the other tree's")
+
+    # phase ilqr's solve and phase ilqr_mpc's loop
+    params = ILQRParams(**cs.IL_PARAMS)
+
+    def solve():
+        return ilqr_solve(task.collision_residuals, start, goal, params,
+                          q_limits=cs.ilqr_limits(task))
+
+    def events_ms(fn):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        ev0.record()
+        out = fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        return ev0.elapsed_time(ev1), out
+
+    plan = solve().trajs
+    with swap:
+        solve()
+    other_ms, this_ms, turns = in_turns(
+        swap, lambda: events_ms(solve)[0] / cs.IL_ITERS)
+    prof = {}
+    for side in ("other", "this"):
+        with (swap if side == "other" else _null()):
+            busy, dev_ms, top = cs.profile_device(solve, cs.IL_ITERS)
+        prof[side] = dict(profiled_device_busy_share=busy,
+                          profiled_device_ms_per_iteration=dev_ms,
+                          top_device_ms_per_iteration=top)
+    emit("ilqr_iteration", B=cs.IL_B, H=cs.IL_H, iterations=cs.IL_ITERS,
+         other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
+         turns_ms=turns, profile=prof)
+
+    def mpc():
+        return cs.ilqr_mpc_loop(task, start, goal, plan, cs.MPC_STEPS)
+    cs.ilqr_mpc_loop(task, start, goal, plan, 1)
+    with swap:
+        cs.ilqr_mpc_loop(task, start, goal, plan, 1)
+    other_ms, this_ms, turns = in_turns(
+        swap, lambda: events_ms(mpc)[0] / cs.MPC_STEPS)
+    emit("ilqr_mpc_step", B=cs.IL_B, H=cs.MPC_H, steps=cs.MPC_STEPS,
+         other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
+         turns_ms=turns)
+
+
+def ab_sweeps(swap, emit):
+    """K2 at m = 14 and 4, K9's factor, K3 and K9's substitution bit for
+    bit, the main path's step, reuse k = 1, 2, 4."""
+    import torch
+    from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
+    from torch_robotics_tpu_torch.solve import GPMP2Params, gpmp2_solve
+    from torch_robotics_tpu_torch.solve import straight_line_trajs
+    from torch_robotics_tpu_torch.solve.btridiag_lanes import (
+        solve_lanes_core, solve_lanes_factor_core)
+    from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
 
     def hold(name, fn, D, U, b, factor=False):
         """Each side's output against float64 (chip_smoke.hold_solve)."""
@@ -249,11 +433,6 @@ def main() -> None:
                                                  "this": this_ms},
              speedup=other_ms / this_ms, turns_ms=turns)
 
-    smi = cs.nvidia_smi_line()
-    print(smi, flush=True)
-    if args.out:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps({"card": smi, **report}, indent=1))
 
 
 def _null():

@@ -14,8 +14,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 __all__ = ["CudaKernel", "build_all", "nvcc_path", "BUILD_DIR", "CSRC_DIR"]
 
@@ -62,16 +63,18 @@ class CudaKernel:
 
     def start_build(self):
         """Start nvcc for this source unless the library exists; returns the
-        process (or None) so several builds can run side by side."""
+        process (or None) so several builds can run side by side.  Its
+        output goes to a log beside the library."""
         out = self.library_path
         if out.is_file():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(".so.tmp%d" % os.getpid())
+        log = out.with_suffix(".log.tmp%d" % os.getpid())
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        proc.kernel_tmp, proc.kernel_out = tmp, out
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        proc.kernel_tmp, proc.kernel_out, proc.kernel_log = tmp, out, log
         return proc
 
     def lib(self) -> ctypes.CDLL:
@@ -93,14 +96,27 @@ class CudaKernel:
         self.launches += 1
 
 
-def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
+def build_all(kernels: Iterable[CudaKernel],
+              seconds: Optional[Dict[str, float]] = None) -> Dict[str, str]:
     """Build every missing library, all nvcc processes at once (one per
     source); returns the compiler output (register and spill report) per
-    source, read from the log kept beside a library built earlier."""
+    source, read from the log kept beside a library built earlier.  With
+    ``seconds``, records there each source's build time (wall seconds from
+    the common start to its nvcc's exit, polled every 0.1 s)."""
     by_source = {}
     for k in kernels:
         by_source.setdefault(k.source, k)
+    t0 = time.perf_counter()
     procs = [(k, k.start_build()) for k in by_source.values()]
+    pending = [(k, p) for k, p in procs if p is not None]
+    while pending:
+        for k, proc in list(pending):
+            if proc.poll() is not None:
+                pending.remove((k, proc))
+                if seconds is not None:
+                    seconds[k.source.name] = time.perf_counter() - t0
+        if pending:
+            time.sleep(0.1)
     logs = {}
     for k, proc in procs:
         if proc is None:
@@ -108,10 +124,10 @@ def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
             if log.is_file():
                 logs[k.source.name] = log.read_text()
             continue
-        out, _ = proc.communicate()
+        out = proc.kernel_log.read_text()
         logs[k.source.name] = out
         if proc.returncode != 0:
             raise RuntimeError("nvcc failed on %s:\n%s" % (k.source, out))
         os.replace(proc.kernel_tmp, proc.kernel_out)
-        proc.kernel_out.with_suffix(".log").write_text(out)
+        os.replace(proc.kernel_log, proc.kernel_out.with_suffix(".log"))
     return logs

@@ -12,8 +12,10 @@ PyTorch versions are ``solve/riccati_lanes.riccati_backward_lanes`` and
 The factories take the TPU factories' static arguments and return the
 sweep / rollout.  A CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises: every input must be contiguous float32 of
-the stated shape, and the joint count d at most ``MAX_DOF``.  Any batch
-size B is taken as it is (a ragged last block is masked, not padded).
+the stated shape, the joint count d at most ``MAX_DOF`` and, for the
+sweep, the row count P at most ``riccati_p_cap(d)``.  Any batch size B is
+taken as it is (a ragged last block is masked, not padded).  The sweep's
+launch shape is ``riccati_launch_config(d, P, B)``.
 """
 from __future__ import annotations
 
@@ -27,17 +29,24 @@ from ..solve.riccati_lanes import (linesearch_rollout_lanes,
 from .cuda_build import CudaKernel
 
 __all__ = ["RICCATI_KERNEL", "ROLLOUT_KERNEL", "MAX_DOF",
+           "riccati_launch_config", "riccati_p_cap",
            "riccati_backward_kernel_factory",
            "linesearch_rollout_kernel_factory"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 RICCATI_KERNEL = CudaKernel("riccati.cu", {
-    "trt_riccati_launch": [_P] * 7 + [_I] * 4 + [_F] * 6 + [_P],
+    "trt_riccati_launch": [_P] * 6 + [_I] * 6 + [_F] * 6 + [_P],
 })
 ROLLOUT_KERNEL = CudaKernel("riccati.cu", {
     "trt_rollout_launch": [_P] * 7 + [_I] * 4 + [_F] * 2 + [_P],
 })
 MAX_DOF = 8        # riccati.cu instantiates D = 1..8
+_MAX_COMPUTE = 128                     # riccati.cu kMaxCompute
+_PRODUCER = 32                         # riccati.cu kProducer
+_ROWS = 16                             # riccati.cu kRows
+_MAX_STAGES = 2                        # riccati.cu kMaxStages
+_MAX_SMEM = 232448                     # bytes of shared memory a block can use
+_N_SM = 132                            # the H100's streaming multiprocessors
 
 
 def _check(args, shapes):
@@ -67,6 +76,66 @@ def _check_dof(d: int):
             "the CUDA iLQR kernels take 1 to %d joints, got %d" % (MAX_DOF, d))
 
 
+def _group(m: int) -> int:
+    """Threads per lane: the power of two >= m."""
+    g = 2
+    while g < m:
+        g *= 2
+    return g
+
+
+def _smem_bytes(d: int, P: int, lanes: int, stages: int) -> int:
+    """riccati.cu's ``stages * stage_floats(D, P, lanes)`` in bytes: per
+    stage, 2 d + 1 column slots of F_t for each lane (P rows rounded up to
+    a multiple of 16, padded to 4 more than a multiple of 32), U_t and
+    l_t, rounded up to whole 16 bytes."""
+    rows = -(-P // _ROWS) * _ROWS
+    col = rows + (4 - rows) % 32
+    n = (2 * d + 1) * lanes * col + 3 * d * lanes
+    return 4 * stages * (-(-n // 4) * 4)
+
+
+def riccati_p_cap(d: int) -> int:
+    """The largest P the sweep takes at d joints: one stage of the fewest
+    lanes a block of whole warps holds must fit a block's shared memory."""
+    _check_dof(d)
+    unit = 32 // _group(2 * d)
+    P = max(0, (_MAX_SMEM // 4 - 3 * d * unit) // (2 * d * unit))
+    while _smem_bytes(d, P + 1, unit, 1) <= _MAX_SMEM:
+        P += 1
+    while _smem_bytes(d, P, unit, 1) > _MAX_SMEM:
+        P -= 1
+    return P
+
+
+def riccati_launch_config(d: int, P: int, B: int) -> dict:
+    """Launch shape of the sweep (``riccati.cu``): a group of ``group``
+    threads per lane (the power of two >= 2 d), ``lanes_per_block`` lanes
+    per block (whole warps, at most 128 threads, as few as let the grid
+    reach every SM, fewer where P's stages would not fit) and one producer
+    warp (``threads`` in all), the ring's ``stages`` (2, or 1 at a large
+    P), the dynamic shared memory in bytes and the grid.  Raises
+    NotImplementedError above ``riccati_p_cap(d)``."""
+    _check_dof(d)
+    g = _group(2 * d)
+    unit = 32 // g
+    want = -(-max(B, 1) // _N_SM)
+    lanes = min(_MAX_COMPUTE // g, -(-want // unit) * unit)
+    for stages in range(_MAX_STAGES, 0, -1):
+        n = lanes
+        while n > unit and _smem_bytes(d, P, n, stages) > _MAX_SMEM:
+            n -= unit
+        smem = _smem_bytes(d, P, n, stages)
+        if smem <= _MAX_SMEM:
+            return dict(group=g, lanes_per_block=n,
+                        threads=n * g + _PRODUCER,
+                        stages=stages, smem_bytes=smem, grid=-(-B // n))
+    raise NotImplementedError(
+        "the CUDA Riccati sweep takes at most %d rows P at d = %d (one "
+        "stage of F_t for %d lanes in a block's shared memory), got %d"
+        % (riccati_p_cap(d), d, unit, P))
+
+
 def riccati_backward_kernel_factory(d: int, m: int, P: int, T: int,
                                     dt: float, r: float, mu: float,
                                     kg: float):
@@ -86,19 +155,19 @@ def riccati_backward_kernel_factory(d: int, m: int, P: int, T: int,
             ((T, d, B), (T, m, B), (T, m, P, B), (m, B)))
         if not on_card:
             return plain(U_t_l, l_l, Fc_l, Vx0)
-        _check_dof(d)
+        cfg = riccati_launch_config(d, P, B)
         kw = dict(dtype=torch.float32, device=Vx0.device)
         ks = torch.empty((T, d, B), **kw)
         Ks = torch.empty((T, d, m, B), **kw)
         if B == 0 or T == 0:
             return ks, Ks
-        Fw = torch.empty((m, P, B), **kw)
         with torch.cuda.device(Vx0.device):
             stream = torch.cuda.current_stream().cuda_stream
             RICCATI_KERNEL.launch(
                 "trt_riccati_launch", U_t_l.data_ptr(), l_l.data_ptr(),
                 Fc_l.data_ptr(), Vx0.data_ptr(), ks.data_ptr(),
-                Ks.data_ptr(), Fw.data_ptr(), P, T, B, d, *consts, stream)
+                Ks.data_ptr(), P, T, B, d, cfg["lanes_per_block"],
+                cfg["stages"], *consts, stream)
         return ks, Ks
 
     sweep.plain = plain
