@@ -16,8 +16,9 @@ final line):
              btridiag_sweep.cu, btridiag_cr.cu, gn_assembly.cu);
              prints build seconds (all, and each source's), the register
              and spill report of each kernel's launched instantiation (of
-             the Riccati sweep every d = 1..8), and the card's name and
-             power limit.
+             the Riccati sweep every d = 1..8, of the column sweep every
+             padded width, none of which may spill), and the card's name
+             and power limit.
 2. terms   - the fused GN-terms kernel vs its plain PyTorch version on the
              card: Panda in EnvSpheres3D at N = 64 * 1024 waypoints (the
              main path's first q, timed, and random q), plus a rounded-box
@@ -70,7 +71,10 @@ final line):
 13. mr_solve - the column sweep (K4) vs its plain version at (H, m, m, B)
              = (32, 40, 40, 256): a random well-conditioned system, the
              path's first GN system held to a float64 solve, and both at a
-             ragged B = 100; timed, with the dense torch.linalg.solve.
+             ragged B = 100 (bit for bit the B = 256 lanes, and the same
+             bits at one and two lanes a block); random systems at every
+             padded width the kernel is built for (24, 32, 40, 48, 64) and
+             at m = 17; timed, with the dense torch.linalg.solve.
 14. mr_mpc  - the config-4 path at full size: B = 256, H = 32, 30 MPC
              steps of 2 GN iterations (mpc_rollout); launch counts (exactly
              60 / 60), finiteness, solves/s, ms per step, collision-free
@@ -583,6 +587,7 @@ def bound_ms(nbytes: float, ops: float):
 # phases
 # ----------------------------------------------------------------------
 def phase_build():
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import _COLS_WIDTHS
     from torch_robotics_tpu_torch.ops.cuda_build import build_all
     kernels = tuple(all_kernels().values())
     t0 = time.perf_counter()
@@ -602,7 +607,8 @@ def phase_build():
              "rollout_kernelILi7E": "rollout_kernel",
              "mr_terms_kernelILb0E": "mr_terms_kernel",
              "mr_terms_kernelILb1E": "mr_terms_kernel<cost only>",
-             "btridiag_cols_kernel": "btridiag_cols_kernel",
+             **{"btridiag_cols_kernelILi%dE" % w: "btridiag_cols_kernel<%d>" % w
+                for w in _COLS_WIDTHS},
              "sphere_sdf_kernel": "sphere_sdf_kernel",
              "btridiag_sweep_kernelILi14ELb0E": "btridiag_sweep<14, trsm>",
              "btridiag_sweep_kernelILi14ELb1E": "btridiag_sweep<14, trsv>",
@@ -621,6 +627,11 @@ def phase_build():
                     report[label] = " | ".join(
                         s.strip().split("info    : ")[-1]
                         for s in lines[i + 1:i + 4])
+    for w in _COLS_WIDTHS:
+        line = report.get("btridiag_cols_kernel<%d>" % w, "")
+        check("0 bytes spill stores, 0 bytes spill loads" in line,
+              "btridiag_cols_kernel<%d>: ptxas reports a spill or no line: "
+              "%r" % (w, line))
     for k in kernels:
         k.lib()
     smi = nvidia_smi_line()
@@ -1589,16 +1600,20 @@ def phase_mr_terms(task, start, goal):
 
 def phase_mr_solve(task, start, goal):
     """K4 vs its plain version at (32, 40, 40, 256): a random
-    well-conditioned system (1e-5 of max|x|; also at (H, m, B) = (6, 9, 37),
-    another size of the same kernel) and the path's first GN system
-    held to a float64 solve (no worse than twice the plain float32 error,
-    +1e-5; the two float32 errors differ by rounding luck, either way, on
-    this ill-conditioned system).  Both again at a ragged B = 100: one
-    block takes one lane, so each lane's solve is bit for bit the one at
-    B = 256 (and the random system stays within 1e-5 of plain).  Timed,
-    with the dense solve."""
+    well-conditioned system (1e-5 of max|x|; also at (H, m, B) = (6, 9, 37)
+    and at (8, m, 100) for m = 17 and every padded width the kernel is
+    built for) and the path's first GN system held to a float64 solve (no
+    worse than twice the plain float32 error, +1e-5; the two float32
+    errors differ by rounding luck, either way, on this ill-conditioned
+    system).  Both again at a ragged B = 100: a lane's arithmetic does not
+    depend on the batch or on the lanes a block, so each lane's solve is
+    bit for bit the one at B = 256 (two lanes a block there, one at B =
+    100; the GN system is also launched at one and at two lanes a block
+    and must give the same bits), and the random system stays within 1e-5
+    of plain.  Timed, with the dense solve."""
     import torch
-    from torch_robotics_tpu_torch.ops.btridiag_kernel import solve_lanes_cols
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import (
+        _COLS_WIDTHS, _launch_cols, cols_launch_config, solve_lanes_cols)
     from torch_robotics_tpu_torch.solve import (GPMP2Params,
                                                 straight_line_trajs)
     from torch_robotics_tpu_torch.solve.btridiag_lanes import (
@@ -1634,7 +1649,7 @@ def phase_mr_solve(task, start, goal):
                       + SOLVE_TOL_RANDOM)
                 x_full = x_k
             else:
-                # one block per lane: a lane's solve does not depend on B
+                # a lane's solve does not depend on B or the lanes a block
                 ok = (torch.equal(x_k, x_full[..., :Bn])
                       and (name != "random" or rel <= SOLVE_TOL_RANDOM))
             check(ok, "%s: column sweep disagrees (vs plain %.3g, vs float64 "
@@ -1650,6 +1665,16 @@ def phase_mr_solve(task, start, goal):
     check(rel <= SOLVE_TOL_RANDOM, "random (6, 9, 37): column sweep vs plain "
           "%.3g of max|x|" % rel)
     results["random_H6_m9_B37"] = dict(abs=err, rel_to_max=rel)
+    for mw in sorted({17, *_COLS_WIDTHS}):
+        sysw = random_system(8, mw, 100, seed=30 + mw)
+        err, rel = max_errs([solve_lanes_cols(*sysw)],
+                            [solve_lanes_core(*sysw)])
+        check(rel <= SOLVE_TOL_RANDOM, "random (8, %d, 100): column sweep "
+              "vs plain %.3g of max|x|" % (mw, rel))
+        results["random_H8_m%d_B100" % mw] = dict(abs=err, rel_to_max=rel)
+    by_lanes = [_launch_cols(D_l, U_l, b_l, n) for n in (1, 2)]
+    check(torch.equal(by_lanes[0], by_lanes[1]), "gn: the column sweep's x "
+          "differs between one and two lanes a block")
     k_ms = cuda_ms(lambda: solve_lanes_cols(D_l, U_l, b_l), iters=20)
     p_ms = cuda_ms(lambda: solve_lanes_core(D_l, U_l, b_l), iters=2,
                    warmup=1)
@@ -1657,6 +1682,7 @@ def phase_mr_solve(task, start, goal):
     torch.cuda.empty_cache()
     work = cols_solve_work(MR_H, m, MR_B)
     emit("mr_solve", shape=[MR_H, m, m, MR_B], max_errs=results,
+         launch=cols_launch_config(m, MR_B),
          kernel_ms=k_ms, plain_ms=p_ms, dense_solve_ms=lib_ms,
          bytes=work[0], ops=work[1], bound_ms=bound_ms(*work)[0])
     return dict(max_abs_err=results["gn_B%d" % MR_B]["abs"], ms=k_ms,

@@ -4,17 +4,17 @@ NVIDIA GPU.
 
     git archive <commit> | tar -x -C chip_checkout/other   # a git-ignored dir
     python3 chip_sweep_ab.py --other chip_checkout/other [--out FILE] \
-        [--kernels all|sweep|riccati]
+        [--kernels all|sweep|riccati|cols]
 
-The other checkout's ``csrc/btridiag.cu``, ``csrc/btridiag_sweep.cu`` and
-``csrc/riccati.cu`` are built beside this tree's (``ops.cuda_build``) and
-stand in for this tree's libraries while its turn runs: the wrappers,
-problems and timing are this tree's, so only the kernels differ (a launch
-function with another argument list is called with the arguments its own
-tree's wrapper gave it: the sweeps' lanes per block dropped, the Riccati
-sweep's device scratch allocated).  Each measurement runs in the order
-other, this, this, other (each side's time the mean of its two), on the
-problems of ``chip_smoke.py``.
+The other checkout's ``csrc/btridiag.cu``, ``csrc/btridiag_sweep.cu``,
+``csrc/riccati.cu`` and ``csrc/btridiag_cols.cu`` are built beside this
+tree's (``ops.cuda_build``) and stand in for this tree's libraries while
+its turn runs: the wrappers, problems and timing are this tree's, so only
+the kernels differ (a launch function with another argument list is
+called with the arguments its own tree's wrapper gave it: the sweeps'
+lanes per block dropped, the Riccati sweep's device scratch allocated).
+Each measurement runs in the order other, this, this, other (each side's
+time the mean of its two), on the problems of ``chip_smoke.py``.
 
 ``--kernels sweep`` (the block-tridiagonal sweeps):
 
@@ -44,7 +44,17 @@ K3 (both tails).
   share);
 - phase ``ilqr_mpc``'s tracking loop (30 steps): ms per step.
 
-``--kernels all`` (the default) runs both.  Prints one JSON line per
+``--kernels cols`` (the column sweep, config 4's path):
+
+- K4 at (32, 40, 40, 256) on phase ``mr_solve``'s GN system and on a
+  random system: each side's x ``torch.equal`` to the other's, and held to
+  float64 as ``chip_smoke.py`` holds it; this tree's kernel also timed at
+  one and at two lanes a block, and at B = 8, 132 and 256;
+- the multi-robot MPC (phase ``mr_mpc``, 30 steps): ms per step by CUDA
+  events, and once per side a profile (device ms per step, busy share).
+
+``--kernels all`` (the default) runs the sweeps and the Riccati sweep;
+``cols`` runs alone.  Prints one JSON line per
 measurement, then the card's name and power limit; ``--out`` writes all of
 it as one JSON object.
 """
@@ -94,6 +104,19 @@ def other_sweep_kernels(csrc: Path):
     k3 = OtherKernel(str(csrc / "btridiag_sweep.cu"),
                     dict(bk.SWEEP_KERNEL.functions))
     return main, k3, takes_lanes
+
+
+def other_cols_kernel(csrc: Path):
+    """The other checkout's btridiag_cols.cu, with the argtypes of its
+    launch function (an older column sweep takes no lanes-per-block
+    argument)."""
+    import ctypes
+    OtherKernel = other_kernel_class()
+    takes_lanes = "int lanes" in (csrc / "btridiag_cols.cu").read_text()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return OtherKernel(str(csrc / "btridiag_cols.cu"), {
+        "trt_btridiag_cols_launch":
+            [P] * 5 + [I] * (4 if takes_lanes else 3) + [P]}), takes_lanes
 
 
 def other_riccati_kernel(csrc: Path):
@@ -153,6 +176,16 @@ def sweep_swap(main, k3, takes_lanes):
                      "SWEEP_KERNEL"), route)
 
 
+def cols_swap(other, takes_lanes):
+    from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
+
+    def route(name, args):
+        # (D, U, b, x, Lg, H, m, B, lanes, stream): drop lanes for an older
+        # kernel (its scratch, (B, H, m, m), fits in the one given)
+        return other, (args if takes_lanes else args[:8] + args[9:])
+    return Swap(bk, ("COLS_KERNEL",), route)
+
+
 def riccati_swap(other, takes_fw):
     import torch
     from torch_robotics_tpu_torch.ops import riccati_kernel as rk
@@ -185,7 +218,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--out", type=Path)
-    ap.add_argument("--kernels", choices=("all", "sweep", "riccati"),
+    ap.add_argument("--kernels", choices=("all", "sweep", "riccati", "cols"),
                     default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -195,10 +228,13 @@ def main() -> None:
     csrc = (args.other / "torch_robotics_tpu_torch" / "csrc").resolve()
     do_sweep = args.kernels in ("all", "sweep")
     do_riccati = args.kernels in ("all", "riccati")
+    do_cols = args.kernels == "cols"
     sweep_k = other_sweep_kernels(csrc) if do_sweep else None
     ric_k = other_riccati_kernel(csrc) if do_riccati else None
+    cols_k = other_cols_kernel(csrc) if do_cols else None
     build_all([*(sweep_k[:2] if do_sweep else ()),
                *(ric_k[:1] if do_riccati else ()),
+               *(cols_k[:1] if do_cols else ()),
                *cs.all_kernels().values()])
     report = {}
 
@@ -211,6 +247,8 @@ def main() -> None:
         torch.cuda.empty_cache()
     if do_sweep:
         ab_sweeps(sweep_swap(*sweep_k), emit)
+    if do_cols:
+        ab_cols(cols_swap(*cols_k), emit)
 
     smi = cs.nvidia_smi_line()
     print(smi, flush=True)
@@ -433,6 +471,89 @@ def ab_sweeps(swap, emit):
                                                  "this": this_ms},
              speedup=other_ms / this_ms, turns_ms=turns)
 
+
+
+def ab_cols(swap, emit):
+    """K4 on the GN and a random system (bits, float64, turns), this tree's
+    K4 at one and two lanes a block, phase mr_mpc's ms per step (and a
+    profile per side)."""
+    import torch
+    from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
+    from torch_robotics_tpu_torch.solve import (GPMP2Params,
+                                                straight_line_trajs)
+    from torch_robotics_tpu_torch.solve.btridiag_lanes import (
+        solve_lanes_core)
+    from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
+
+    task, start, goal, _ = cs.mr_problem("cuda")
+    theta0 = straight_line_trajs(start, goal, cs.MR_H)
+    b_l, D_l, U_l, _ = _lanes_gn_system(
+        task.collision_residuals.obstacle_terms_lanes, theta0, start, goal,
+        GPMP2Params(**cs.MR_GP))
+    m = D_l.shape[1]
+    for name, (D, U, b), random in (
+            ("k4_gn", (D_l, U_l, b_l), False),
+            ("k4_random", cs.random_system(cs.MR_H, m, cs.MR_B, seed=8),
+             True)):
+        x_p = solve_lanes_core(D, U, b)
+        x_64 = solve_lanes_core(D.double(), U.double(), b.double())
+        xs, errs = {}, {}
+        for side in ("other", "this"):
+            with (swap if side == "other" else _null()):
+                xs[side] = bk.solve_lanes_cols(D, U, b)
+            errs[side] = cs.hold_solve("%s_%s" % (name, side), xs[side],
+                                       x_p, x_64, random=random)
+        same = bool(torch.equal(xs["other"], xs["this"]))
+        other_ms, this_ms, turns = in_turns(
+            swap, lambda: cs.cuda_ms(lambda: bk.solve_lanes_cols(D, U, b),
+                                     iters=20))
+        by_lanes = {n: cs.cuda_ms(lambda: bk._launch_cols(D, U, b, n),
+                                  iters=20) for n in (1, 2)}
+        emit(name, shape=list(D.shape), bit_for_bit=same,
+             max_abs_diff=float((xs["other"] - xs["this"]).abs().max()),
+             other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
+             turns_ms=turns, this_ms_by_lanes_per_block=by_lanes,
+             launch=bk.cols_launch_config(m, D.shape[3]),
+             bound_ms=cs.bound_ms(*cs.cols_solve_work(*D.shape[:2],
+                                                      D.shape[3])),
+             vs_float64=errs)
+        torch.cuda.empty_cache()
+
+    # one lane's chain: this tree's K4 at a few batches (one lane an SM at
+    # B <= 132)
+    by_batch = {}
+    for Bn in (8, 132, cs.MR_B):
+        Dn, Un, bn = cs.random_system(cs.MR_H, m, Bn, seed=8)
+        by_batch[Bn] = cs.cuda_ms(lambda: bk.solve_lanes_cols(Dn, Un, bn),
+                                  iters=20)
+    emit("k4_this_by_batch", H=cs.MR_H, m=m, ms=by_batch)
+
+    def events_ms():
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        ev0.record()
+        cs.mr_rollout(task, start, goal, cs.MR_STEPS)
+        ev1.record()
+        torch.cuda.synchronize()
+        return ev0.elapsed_time(ev1) / cs.MR_STEPS
+    cs.mr_rollout(task, start, goal, 1)
+    with swap:
+        cs.mr_rollout(task, start, goal, 1)
+    other_ms, this_ms, turns = in_turns(swap, events_ms)
+    prof = {}
+    for side in ("other", "this"):
+        with (swap if side == "other" else _null()):
+            busy, dev_ms, top = cs.profile_device(
+                lambda: cs.mr_rollout(task, start, goal, 2), 2)
+        prof[side] = dict(profiled_device_busy_share=busy,
+                          profiled_device_ms_per_step=dev_ms,
+                          top_device_ms_per_step=top)
+    emit("mr_mpc_step", B=cs.MR_B, H=cs.MR_H, steps=cs.MR_STEPS,
+         other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
+         turns_ms=turns, solves_per_s={"other": cs.MR_B / (other_ms / 1e3),
+                                       "this": cs.MR_B / (this_ms / 1e3)},
+         profile=prof)
 
 
 def _null():

@@ -65,44 +65,56 @@ def test_cols_wrapper_refuses_per_batch_u():
         solve_lanes_cols(*map(torch.as_tensor, (D, U, b)))
 
 
-def _pair_table(m):
-    """The column sweep's pair table (btridiag_cols.cu): (row, col) of the
-    bordered matrix's lower triangle, col >= 1, from the last column back."""
-    n2 = 2 * m + 1
-    return [(r, c) for c in range(2 * m, 0, -1) for r in range(c, n2)]
+def _bordered_sweep(D, U, b, width=None, pivot_padding=False, seen=None):
+    """float64 numpy model of btridiag_cols.cu for one lane at a time.
 
+    Each block step eliminates the first m columns of the bordered matrix
+    [[A, ., .], [U^T, 0, .], [c^T, 0, 0]] (A = D_k - S, c = b_k - Wy) in
+    place, column owner by column owner: at pivot j the owner of column
+    c > j updates rows c..n2-1 of its column (the kernel's thread c), so
+    each trailing entry is updated once per pivot (counted in ``seen``:
+    pivot j -> the entries it updated).  L_k, y_k and the next step's -S,
+    -Wy are read off the matrix; the backward pass is
+    x_k = L_k^-T (y_k - L_k^-1 (U_k x_{k+1})).
 
-def _bordered_sweep(D, U, b):
-    """float64 numpy model of btridiag_cols.cu for one lane at a time: each
-    block step eliminates the first m columns of [[A, U, c], [U^T, 0, 0],
-    [c^T, 0, 0]] (A = D_k - S, c = b_k - Wy) in place, updating exactly the
-    entries of the pair table's first tri(2m - j) pairs at column j, then
-    reads L_k, y_k and the next step's -S, -Wy off the matrix; the backward
-    pass is x_k = L_k^-T (y_k - L_k^-1 (U_k x_{k+1}))."""
+    ``width`` pads the blocks to the kernel's padded width w >= m: A's
+    padded columns are identity columns, the rows and columns of U past m
+    and the padded right-hand side are zero, and the bordered matrix is
+    2 w + 1 wide (U^T at rows w.., c at row 2 w).  Only the m real columns
+    are pivoted, as in the kernel, unless ``pivot_padding``."""
     H, m, _, B = D.shape
-    n2 = 2 * m + 1
-    pairs = np.asarray(_pair_table(m))
+    w = m if width is None else width
+    n2 = 2 * w + 1
     x = np.zeros((H, m, B))
     for lane in range(B):
         M = np.zeros((n2, n2))
         Ls, ys = [], []
         for k in range(H):
-            carry_S = M[m:2 * m, m:2 * m].copy()
-            carry_wy = M[2 * m, m:2 * m].copy()
+            carry_S = M[w:w + m, w:w + m].copy()
+            carry_wy = M[2 * w, w:w + m].copy()
             M = np.zeros((n2, n2))
             M[:m, :m] = np.tril(D[k, :, :, lane] + carry_S)
-            M[2 * m, :m] = b[k, :, lane] + carry_wy
-            M[m:2 * m, :m] = U[k, :, :, 0].T
-            for j in range(m):
+            M[range(m, w), range(m, w)] = 1.0
+            M[2 * w, :m] = b[k, :, lane] + carry_wy
+            M[w:w + m, :m] = U[k, :, :, 0].T
+            for j in range(w if pivot_padding else m):
                 p = np.sqrt(M[j, j])
-                cnt = (2 * m - j) * (2 * m - j + 1) // 2
-                r, c = pairs[:cnt, 0], pairs[:cnt, 1]
-                assert (c > j).all() and (r >= c).all()
-                M[r, c] -= (M[r, j] / p) * (M[c, j] / p)
+                for c in range(j + 1, n2):          # the owner of column c
+                    M[c:, c] -= (M[c:, j] / p) * (M[c, j] / p)
+                    if seen is not None and lane == 0 and k == 0:
+                        seen.setdefault(j, []).extend(
+                            (r, c) for r in range(c, n2))
                 M[j + 1:, j] /= p
                 M[j, j] = p
+            if w > m:
+                # padding stays zero (and A's padded diagonal one)
+                assert not M[m:w, :m].any() and not M[w + m:2 * w].any()
+                assert not M[:, w + m:2 * w].any()
+                assert not M[w:, m:w].any() and not M[m:w, m:w][
+                    np.tril_indices(w - m, -1)].any()
+                assert (np.diag(M)[m:w] == 1.0).all()
             Ls.append(np.tril(M[:m, :m]))
-            ys.append(M[2 * m, :m].copy())
+            ys.append(M[2 * w, :m].copy())
         xk1 = None
         for k in reversed(range(H)):
             L = Ls[k]
@@ -118,17 +130,33 @@ def _bordered_sweep(D, U, b):
 def test_column_sweep_algorithm_solves_the_system(H, m, B):
     """The CUDA column sweep's bordered-matrix form (modelled step by step in
     float64) is the block-tridiagonal solve: it agrees with the plain sweep
-    and a dense solve; its pair table covers each step's trailing lower
-    triangle exactly once."""
-    pairs = _pair_table(m)
-    for j in range(m):
-        cnt = (2 * m - j) * (2 * m - j + 1) // 2
-        want = {(r, c) for c in range(j + 1, 2 * m + 1)
-                for r in range(c, 2 * m + 1)}
-        assert set(pairs[:cnt]) == want and len(pairs[:cnt]) == len(want)
+    and a dense solve; its column owners update each step's trailing lower
+    triangle exactly once per pivot."""
     D, U, b = (a.astype(np.float64) for a in _system(H, m, B, seed=H * m))
-    got = _bordered_sweep(D, U, b)
+    seen = {}
+    got = _bordered_sweep(D, U, b, seen=seen)
+    n2 = 2 * m + 1
+    assert sorted(seen) == list(range(m))
+    for j, entries in seen.items():
+        want = {(r, c) for c in range(j + 1, n2) for r in range(c, n2)}
+        assert set(entries) == want and len(entries) == len(want)
     ref = solve_lanes_core(*map(torch.as_tensor, (D, U, b))).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-10 * np.abs(ref).max())
     np.testing.assert_allclose(got, _dense_solve(D, U, b),
                                atol=1e-10 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("pivot_padding", [False, True])
+@pytest.mark.parametrize("H,m,B,width", [(3, 18, 2, 24), (2, 33, 2, 40),
+                                         (3, 5, 2, 8)])
+def test_padded_width_leaves_real_lanes_bit_for_bit(H, m, B, width,
+                                                     pivot_padding):
+    """The kernel runs m in the next padded width (identity columns in A,
+    zero rows and columns of U, a zero right-hand side): the real lanes'
+    x is bit for bit the unpadded model's, whether or not the padded
+    columns are pivoted (a padded pivot subtracts 0 * 0), and the padding
+    stays zero (checked inside the model)."""
+    D, U, b = (a.astype(np.float64) for a in _system(H, m, B, seed=m + 1))
+    want = _bordered_sweep(D, U, b)
+    got = _bordered_sweep(D, U, b, width=width, pivot_padding=pivot_padding)
+    assert np.array_equal(got, want)

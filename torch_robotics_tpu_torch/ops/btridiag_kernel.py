@@ -6,7 +6,8 @@ Counterparts of torch_robotics_tpu/ops/pallas_btridiag.py:
   that the reference routes m <= 16 to; CUDA source ``csrc/btridiag.cu``.
 - ``solve_lanes_cols``: the column sweep for large m
   (``solve_lanes_pallas_cols`` with its trsv backward tail); CUDA source
-  ``csrc/btridiag_cols.cu``.
+  ``csrc/btridiag_cols.cu``, m <= 64 in padded widths 24, 32, 40, 48, 64,
+  launched as ``cols_launch_config`` says.
 - ``solve_lanes_auto``: the reference's routing (``solve_lanes_auto`` and
   the m > 32 branch of ``gpmp2._gpmp2_step_lanes_impl``): m <= 16 to the
   W-persisting sweep, larger m to the column sweep.
@@ -51,7 +52,8 @@ from .cuda_build import CudaKernel
 __all__ = ["KERNEL", "COLS_KERNEL", "FACTOR_KERNEL", "SUBST_KERNEL",
            "SWEEP_KERNEL", "CR_KERNEL", "solve_lanes_w", "solve_lanes_cols",
            "solve_lanes_auto", "solve_lanes_factor", "solve_lanes_subst",
-           "solve_lanes_sweep", "solve_lanes_cr", "sweep_launch_config"]
+           "solve_lanes_sweep", "solve_lanes_cr", "sweep_launch_config",
+           "cols_launch_config"]
 
 _P = ctypes.c_void_p
 KERNEL = CudaKernel("btridiag.cu", {
@@ -60,7 +62,8 @@ KERNEL = CudaKernel("btridiag.cu", {
 })
 COLS_KERNEL = CudaKernel("btridiag_cols.cu", {
     "trt_btridiag_cols_launch": [_P, _P, _P, _P, _P, ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_int, _P],
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 _P],
 })
 FACTOR_KERNEL = CudaKernel("btridiag.cu", {
     "trt_btridiag_factor_launch": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
@@ -82,6 +85,8 @@ CR_KERNEL = CudaKernel("btridiag_cr.cu", {
 # btridiag.cu, btridiag_sweep.cu and btridiag_cr.cu instantiations
 _KERNEL_M = (2, 4, 6, 8, 10, 12, 14, 16)
 _COLS_MAX_M = 64                            # btridiag_cols.cu kMaxM
+_COLS_WIDTHS = (24, 32, 40, 48, 64)         # btridiag_cols.cu instantiations
+_N_SM = 132                                 # H100 SXM
 _W_MAX_M = 16     # the reference's _SCALAR_KERNEL_MAX_M: above it, columns
 _SWEEP_THREADS = 128                        # btridiag.cu kSweepThreads
 _SWEEP_STAGES = 5                           # btridiag.cu kStages
@@ -105,6 +110,33 @@ def sweep_launch_config(m: int, B: int) -> dict:
     floats = lanes * (m * w_row + 4 + m) + _SWEEP_STAGES * stage
     return dict(group=group, lanes_per_block=lanes, threads=lanes * group,
                 smem_bytes=4 * floats, grid=-(-B // lanes))
+
+
+def cols_launch_config(m: int, B: int) -> dict:
+    """Launch shape of the column sweep (``btridiag_cols.cu``): the padded
+    width it is built for (the least of ``_COLS_WIDTHS`` >= m), a group of
+    ``group`` threads per lane (the whole warps that cover the 2 w + 1
+    columns of the bordered matrix), ``lanes_per_block`` lane groups a
+    block (as few as let the grid reach every SM; at most 2, and 1 where
+    two groups would pass 8 warps: ``kMaxLanes``), one named barrier id
+    per group (``barrier_ids``; id 0 is the block's own), the
+    dynamic shared memory in bytes (``ColsShape::kLaneFloats`` per lane)
+    and the grid."""
+    if not 1 <= m <= _COLS_MAX_M:
+        raise NotImplementedError(
+            "the CUDA column sweep takes 1 <= m <= %d, got %d"
+            % (_COLS_MAX_M, m))
+    w = next(w for w in _COLS_WIDTHS if w >= m)
+    n2 = 2 * w + 1
+    group = -(-n2 // 32) * 32
+    lanes = min(2 if group <= 128 else 1, max(1, -(-B // _N_SM)))
+    slot = -(-n2 // 4) * 4
+    lane_floats = max(2 * slot + (w + 1) * w + 2 * (2 * w * w + w),
+                      2 * (2 * w * (w + 1) + 2 * w))
+    return dict(width=w, group=group, lanes_per_block=lanes,
+                threads=lanes * group,
+                barrier_ids=tuple(range(1, lanes + 1)),
+                smem_bytes=4 * lane_floats * lanes, grid=-(-B // lanes))
 
 
 def _check(D, U, b):
@@ -170,18 +202,23 @@ def solve_lanes_cols(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor):
         return solve_lanes_core(D, U, b)
     _check_cuda("solve_lanes_cols", D, U, b)
     H, m, _, B = D.shape
-    if m > _COLS_MAX_M:
-        raise NotImplementedError(
-            "the CUDA column sweep takes m <= %d, got %d" % (_COLS_MAX_M, m))
+    lanes = cols_launch_config(m, max(B, 1))["lanes_per_block"]
+    return _launch_cols(D, U, b, lanes)
+
+
+def _launch_cols(D, U, b, lanes: int):
+    """The column sweep's launch at ``lanes`` lane groups a block (checked
+    CUDA inputs); a lane's result does not depend on ``lanes``."""
+    H, m, _, B = D.shape
     x = torch.empty((H, m, B), dtype=torch.float32, device=D.device)
     if B == 0 or H == 0:
         return x
-    Ls = torch.empty((B, H, m, m), dtype=torch.float32, device=D.device)
+    Ls = torch.empty((B, H, m + 1, m), dtype=torch.float32, device=D.device)
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream().cuda_stream
         COLS_KERNEL.launch("trt_btridiag_cols_launch", D.data_ptr(),
                            U.data_ptr(), b.data_ptr(), x.data_ptr(),
-                           Ls.data_ptr(), H, m, B, stream)
+                           Ls.data_ptr(), H, m, B, lanes, stream)
     return x
 
 
