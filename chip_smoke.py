@@ -13,12 +13,13 @@ final line):
 1. build   - nvcc builds every CUDA kernel of the paths from csrc/ (one
              process per source, all at once: terms.cu, btridiag.cu,
              riccati.cu, mr_terms.cu, btridiag_cols.cu, sphere_sdf.cu,
-             btridiag_sweep.cu, btridiag_cr.cu, gn_assembly.cu);
+             btridiag_sweep.cu, btridiag_cr.cu, gn_assembly.cu, cost.cu);
              prints build seconds (all, and each source's), the register
              and spill report of each kernel's launched instantiation (of
              the Riccati sweep every d = 1..8, of the column sweep every
-             padded width, none of which may spill), and the card's name
-             and power limit.
+             padded width, none of which may spill; the cost kernel may
+             have no stack frame either), and the card's name and power
+             limit.
 2. terms   - the fused GN-terms kernel vs its plain PyTorch version on the
              card: Panda in EnvSpheres3D at N = 64 * 1024 waypoints (the
              main path's first q, timed, and random q), plus a rounded-box
@@ -49,8 +50,12 @@ final line):
              fewer lanes per block and at the P cap; timed (K6 at T = 31
              and T = 15).
 8. cost    - the value-only collision cost (K8) vs its plain version on the
-             path's line-search q (N = A B T = 79360) and on random q;
-             timed.
+             path's line-search q (N = A B T = 79360), on random q, on
+             phase 21's first candidate q (N = 2097152) and on random q
+             with the spheres' radii spread over 0.6-1.4x; a lane's bits
+             the same at a ragged N and at 32 lanes a block; timed at both
+             shapes (K8's device time by the profiler: at N = 79360 a
+             call's host time exceeds it).
 9. ilqr    - the iLQR path (benchmarks/ilqr_sgpmp_bench.py "ilqr_batch"):
              Panda in EnvSpheres3D, cutoff 0.06, B = 512, H = 32, 30
              iterations, start/goal drawn as the bench draws them (seeded);
@@ -120,8 +125,11 @@ final line):
              the whole solve's fraction free within 3 of 32 lanes of the
              CPU float32 run's.
 23. mr_cost - K8's MultiRobot branch vs its plain version: path 24's first
-             candidates (N = 131072) and random q at the tight poses
-             (mutual rows active); timed, with K5 on the same q.
+             candidates (N = 131072) and proposal q (N = 8192, which the
+             acceptance scores), and random q at the tight poses (mutual
+             rows active); a lane's bits the same at a ragged N and at 32
+             lanes a block; timed at both shapes, with K5 on the
+             candidates.
 24. mr_sgpmp - sGPMP on config 4's robot: B = 256 problems from mr_problem,
              one particle each, H = 32, dt = 0.05, 100 iterations of K =
              16; launches exactly 201 K8-MultiRobot and nothing else; the
@@ -135,11 +143,12 @@ final line):
              first (r, Jr) and at a ragged N, timed with one torch.bmm.
 
 Then one JSON line with every kernel's numbers (launches from phase 4 for
-K1 and K2, from phase 9 for K6, K7 and K8, from phase 14 for K4 and K5,
-from phase 19 for K9 (the k = 2 and k = 4 runs together), from phase 20's
-query for K10, from phase 24 for K8's MultiRobot branch, from one call
-each on the main path's inputs for K3, K11 and K12), the nvidia-smi line,
-and the final {"ok": true, "device": ...} line.
+K1 and K2, from phase 9 for K6, K7 and K8 at N = 79360, from phase 21 for
+K8 at the sGPMP candidates' N, from phase 14 for K4 and K5, from phase 19
+for K9 (the k = 2 and k = 4 runs together), from phase 20's query for
+K10, from phase 24 for K8's MultiRobot branch at both of its shapes, from
+one call each on the main path's inputs for K3, K11 and K12), the
+nvidia-smi line, and the final {"ok": true, "device": ...} line.
 """
 from __future__ import annotations
 
@@ -271,6 +280,28 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of the kernels fn() launches, by torch.profiler,
+    over ``iters`` calls: a kernel's own time where the host's time per
+    call exceeds it (the events of cuda_ms then time the host)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):        # a profiler session now and then sees nothing
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    fail("the profiler saw no device time in three sessions")
 
 
 def nvidia_smi_line() -> str:
@@ -597,7 +628,7 @@ def phase_build():
     # resource report of the instantiations the paths launch (mangled name
     # fragment -> label)
     names = {"terms_kernelILi7E": "terms_kernel",
-             "cost_kernelILi7E": "cost_kernel",
+             "11cost_kernelE": "cost_kernel",
              "btridiag_w_kernelILi14ELb0E": "btridiag_w_kernel<14>",
              "btridiag_w_kernelILi4ELb0E": "btridiag_w_kernel<4>",
              "btridiag_w_kernelILi14ELb1E": "btridiag_factor<14>",
@@ -605,8 +636,7 @@ def phase_build():
              **{"riccati_kernelILi%dE" % d: "riccati_kernel<%d>" % d
                 for d in range(1, 9)},
              "rollout_kernelILi7E": "rollout_kernel",
-             "mr_terms_kernelILb0E": "mr_terms_kernel",
-             "mr_terms_kernelILb1E": "mr_terms_kernel<cost only>",
+             "15mr_terms_kernelE": "mr_terms_kernel",
              **{"btridiag_cols_kernelILi%dE" % w: "btridiag_cols_kernel<%d>" % w
                 for w in _COLS_WIDTHS},
              "sphere_sdf_kernel": "sphere_sdf_kernel",
@@ -632,6 +662,11 @@ def phase_build():
         check("0 bytes spill stores, 0 bytes spill loads" in line,
               "btridiag_cols_kernel<%d>: ptxas reports a spill or no line: "
               "%r" % (w, line))
+    # the cost kernel keeps its link transforms out of local memory
+    line = report.get("cost_kernel", "")
+    check("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+          in line, "cost_kernel: ptxas reports a stack frame, a spill or no "
+          "line: %r" % line)
     for k in kernels:
         k.lib()
     smi = nvidia_smi_line()
@@ -1272,35 +1307,121 @@ def phase_riccati(seen, mpc_sweep):
     return out
 
 
-def phase_cost(task, seen):
-    """K8 vs its plain version on the path's line-search q (N = A B T, the
-    first iteration's) and on random q, at the terms kernel's tolerance."""
+def hold_cost(name, got, ref):
+    """A cost kernel's output held to its plain version at the terms
+    tolerance -> (max abs error, relative to max|ref|)."""
+    import torch
+    tol = TERMS_ATOL_REL * float(ref.abs().max()) + TERMS_RTOL * ref.abs()
+    check(bool(torch.isfinite(got).all()), name + ": non-finite cost")
+    check(bool(((got - ref).abs() <= tol).all()),
+          "%s: cost kernel disagrees with its plain version" % name)
+    return max_errs([got], [ref])
+
+
+def same_lane_bits(name, cost, run, q, n_ragged: int = 1000):
+    """A lane's cost bits depend neither on the batch (the first n_ragged
+    lanes alone) nor on the lanes a block (32 lanes)."""
+    import torch
+    full = cost(q)
+    d, ints, floats, _ = cost.params
+    ragged = cost(q[:, :n_ragged].contiguous())
+    check(torch.equal(ragged, full[:n_ragged]),
+          name + ": a lane's bits change with the batch")
+    check(torch.equal(run(q, ints, floats, d, lanes=32), full),
+          name + ": a lane's bits change with the lanes a block")
+
+
+def capture_cost_inputs(task, theta0, start_p, goal_p, params):
+    """The cost hook's last q (d, N) of each N in one sGPMP iteration: the
+    candidates (N = K B H) and the proposal the acceptance scores (N = B
+    H)."""
+    import torch
+    from torch_robotics_tpu_torch.solve import SGPMPParams, sgpmp_solve
+    p = SGPMPParams(**dict(params, opt_iters=1))
+    res = task.collision_residuals
+    cost = res.collision_cost_lanes
+    seen = {}
+
+    def tap(q_cols):
+        seen[q_cols.shape[1]] = q_cols.clone()
+        return cost(q_cols)
+
+    try:
+        res.collision_cost_lanes = tap
+        sgpmp_solve(res, theta0, start_p, goal_p, p,
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    finally:
+        res.collision_cost_lanes = cost
+    return seen
+
+
+def varied_radii_task():
+    """The iLQR task with EnvSpheres3D's radii spread over 0.6-1.4x: its
+    sphere group keeps a radius per sphere, where EnvSpheres3D's share one
+    (the cost kernel scores the two kinds of group apart)."""
+    import torch
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    env = EnvSpheres3D(device="cuda")
+    sph = env.obj_fixed_list[0].fields[0]
+    sph.radii.mul_(torch.linspace(0.6, 1.4, sph.radii.shape[0],
+                                  device="cuda"))
+    return PlanningTask(env=env, robot=RobotPanda.create(device="cuda"),
+                        obstacle_cutoff_margin=0.06)
+
+
+def phase_cost(task, seen, start, goal):
+    """K8 vs its plain version on the iLQR path's line-search q (N = A B T,
+    the first iteration's), on random q, on the sGPMP path's first
+    candidates (N = K B H) and on random q in a scene whose spheres differ
+    in radius, at the terms kernel's tolerance; a lane's bits
+    the same at a ragged N and at 32 lanes a block; timed at both path
+    shapes (the kernel's device time by the profiler, a call's by CUDA
+    events)."""
     import torch
     from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
+    from torch_robotics_tpu_torch.ops.terms_kernel import run_cost_kernel
     cost = task.collision_residuals.collision_cost_lanes
     T = IL_H - 1
     N = len(IL_ALPHAS) * IL_B * T
     q_ls = seen["cost_%d" % N]
     check(tuple(q_ls.shape) == (7, N), "line-search q %s" % (q_ls.shape,))
+    N_sg = SG_PARAMS["num_samples"] * IL_B * SG_PART * IL_H
+    q_sg = capture_cost_inputs(task, *sg_problem(
+        start, goal, SG_PART, IL_H, SG_PARAMS["dt"], SEED + 2),
+        SG_PARAMS)[N_sg]
+    varied = varied_radii_task()
     results = {}
-    for name, q in (("line_search_q_N%d" % N, q_ls),
-                    ("random_q_N%d" % N, random_q(task, N, seed=5))):
-        got, ref = cost(q), cost.plain(q)
-        tol = TERMS_ATOL_REL * float(ref.abs().max()) + TERMS_RTOL * ref.abs()
-        check(bool(torch.isfinite(got).all()), name + ": non-finite cost")
-        check(bool(((got - ref).abs() <= tol).all()),
-              "%s: cost kernel disagrees with its plain version" % name)
-        results[name] = max_errs([got], [ref])
-    k_ms = cuda_ms(lambda: cost(q_ls), iters=50)
-    p_ms = cuda_ms(lambda: cost.plain(q_ls), iters=5, warmup=1)
+    for name, t, q in (("line_search_q_N%d" % N, task, q_ls),
+                       ("random_q_N%d" % N, task, random_q(task, N, seed=5)),
+                       ("sgpmp_candidates_N%d" % N_sg, task, q_sg),
+                       ("varied_radii_random_q_N8192", varied,
+                        random_q(varied, 8192, seed=6))):
+        c = t.collision_residuals.collision_cost_lanes
+        results[name] = hold_cost(name, c(q), c.plain(q))
+        same_lane_bits(name, c, run_cost_kernel, q)
+    lay = TermsLayout(task)
     r = task.collision_residuals.obstacle_terms_lanes.plain.rows(q_ls)[0]
+    out = {}
+    for key, q, iters in (("line_search", q_ls, 50), ("sgpmp", q_sg, 20)):
+        out[key] = dict(N=q.shape[1], ms=device_ms(lambda: cost(q), iters),
+                        call_ms=cuda_ms(lambda: cost(q), iters=iters),
+                        plain_ms=cuda_ms(lambda: cost.plain(q), iters=2,
+                                         warmup=1),
+                        work=cost_work(lay, q.shape[1], r.shape[0]))
+    torch.cuda.empty_cache()
     emit("cost", max_errs={k: {"abs": v[0], "rel_to_max": v[1]}
                            for k, v in results.items()},
-         kernel_ms=k_ms, plain_ms=p_ms,
-         active_row_share=float((r > 0).float().mean()))
-    return dict(max_abs_err=results["line_search_q_N%d" % N][0], ms=k_ms,
-                plain_ms=p_ms, work=cost_work(TermsLayout(task), N,
-                                              r.shape[0]))
+         kernel_ms={k: v["ms"] for k, v in out.items()},
+         call_ms={k: v["call_ms"] for k, v in out.items()},
+         plain_ms={k: v["plain_ms"] for k, v in out.items()},
+         bound_ms={k: bound_ms(*v["work"])[0] for k, v in out.items()},
+         launch=cost.params[3], active_row_share=float((r > 0).float()
+                                                       .mean()))
+    out["line_search"]["max_abs_err"] = results["line_search_q_N%d" % N][0]
+    out["sgpmp"]["max_abs_err"] = results["sgpmp_candidates_N%d" % N_sg][0]
+    return out
 
 
 def feasibility_residual(trajs, controls, dt: float) -> float:
@@ -2353,54 +2474,30 @@ def phase_sgpmp_cpu(task_c, theta0, start_p, goal_p):
          full_solve={"card_fraction_free": f_c, "cpu_fraction_free": f_h})
 
 
-def capture_mr_candidates(task, theta0, start_p, goal_p):
-    """The MultiRobot cost hook's first candidate q (N = K B H) in one
-    sGPMP iteration of path 2."""
-    import torch
-    from torch_robotics_tpu_torch.solve import SGPMPParams, sgpmp_solve
-    p = SGPMPParams(**dict(MR_SG_PARAMS, opt_iters=1))
-    N = p.num_samples * theta0.shape[0] * p.n_support_points
-    res = task.collision_residuals
-    cost = res.collision_cost_lanes
-    seen = {}
-
-    def tap(q_cols):
-        seen.setdefault(q_cols.shape[1], q_cols.clone())
-        return cost(q_cols)
-
-    try:
-        res.collision_cost_lanes = tap
-        sgpmp_solve(res, theta0, start_p, goal_p, p,
-                    generator=torch.Generator(device="cuda").manual_seed(3))
-    finally:
-        res.collision_cost_lanes = cost
-    return seen[N]
-
-
-def phase_mr_cost(task, q_cand):
+def phase_mr_cost(task, seen):
     """K8's MultiRobot branch vs its plain version (terms tolerances) on
-    path 2's first candidate q (N = 131072) and on random in-limit q at the
-    tighter poses, where mutual rows are active; timed on the candidates,
-    with K5 on the same q beside it."""
+    path 2's first candidate q (N = K B H = 131072) and proposal q (N = B
+    H = 8192, the acceptance's), and on random in-limit q at the tighter poses, where
+    mutual rows are active; a lane's bits the same at a ragged N and at 32
+    lanes a block; timed at both path shapes, with K5 on the candidates."""
     import torch
+    from torch_robotics_tpu_torch.ops.terms_kernel import \
+        run_multirobot_cost_kernel
     rng = np.random.default_rng(13)
     tight = mr_task("cuda", MR_TIGHT_POSES)
     lo, hi = tight.robot.q_min.cpu().numpy(), tight.robot.q_max.cpu().numpy()
     q_tight = torch.as_tensor(
         lo[:, None] + rng.uniform(size=(lo.shape[0], 8192))
         * (hi - lo)[:, None], dtype=torch.float32, device="cuda")
-    N = q_cand.shape[1]
+    N = MR_SG_PARAMS["num_samples"] * MR_B * MR_H
+    q_cand, q_acc = seen[N], seen[MR_B * MR_H]
     results, shares = {}, {}
     for name, t, q in (("path2_candidates_N%d" % N, task, q_cand),
+                       ("path2_acceptance_N%d" % q_acc.shape[1], task, q_acc),
                        ("tight_poses_random_q_N8192", tight, q_tight)):
         cost = t.collision_residuals.collision_cost_lanes
-        got, ref = cost(q), cost.plain(q)
-        tol = TERMS_ATOL_REL * float(ref.abs().max()) + TERMS_RTOL * ref.abs()
-        check(bool(torch.isfinite(got).all()), name + ": non-finite cost")
-        check(bool(((got - ref).abs() <= tol).all()),
-              "%s: MultiRobot cost kernel disagrees with its plain version"
-              % name)
-        results[name] = max_errs([got], [ref])
+        results[name] = hold_cost(name, cost(q), cost.plain(q))
+        same_lane_bits(name, cost, run_multirobot_cost_kernel, q)
         plain = t.collision_residuals.obstacle_terms_lanes.plain
         r = plain.rows(q)[0]
         n_mut = sum(len(v) for v in plain.layout.groups.values())
@@ -2410,21 +2507,31 @@ def phase_mr_cost(task, q_cand):
           "no mutual row is active at the tight poses")
     cost = task.collision_residuals.collision_cost_lanes
     terms = task.collision_residuals.obstacle_terms_lanes
-    k_ms = cuda_ms(lambda: cost(q_cand), iters=20)
-    p_ms = cuda_ms(lambda: cost.plain(q_cand), iters=2, warmup=1)
-    k5_ms = cuda_ms(lambda: terms.unscaled(q_cand), iters=20)
     lay = terms.plain.layout
     n_rows = len(lay.obj_pos) * (2 if lay.df_obj_list else 1) + len(
         lay.pair_a)
-    work = mr_cost_work(lay, N, n_rows)
+    out = {}
+    for key, q, iters in (("candidates", q_cand, 20), ("acceptance", q_acc,
+                                                       50)):
+        out[key] = dict(N=q.shape[1], ms=device_ms(lambda: cost(q), iters),
+                        call_ms=cuda_ms(lambda: cost(q), iters=iters),
+                        plain_ms=cuda_ms(lambda: cost.plain(q), iters=2,
+                                         warmup=1),
+                        work=mr_cost_work(lay, q.shape[1], n_rows))
+    k5_ms = cuda_ms(lambda: terms.unscaled(q_cand), iters=20)
     torch.cuda.empty_cache()
-    emit("mr_cost", N=N, max_errs={k: {"abs": v[0], "rel_to_max": v[1]}
-                                   for k, v in results.items()},
-         active_row_share=shares, kernel_ms=k_ms, plain_ms=p_ms,
-         k5_terms_ms_same_q=k5_ms, bytes=work[0], ops=work[1],
-         bound_ms=bound_ms(*work)[0])
-    return dict(max_abs_err=results["path2_candidates_N%d" % N][0], ms=k_ms,
-                plain_ms=p_ms, work=work)
+    emit("mr_cost", max_errs={k: {"abs": v[0], "rel_to_max": v[1]}
+                              for k, v in results.items()},
+         active_row_share=shares,
+         kernel_ms={k: v["ms"] for k, v in out.items()},
+         call_ms={k: v["call_ms"] for k, v in out.items()},
+         plain_ms={k: v["plain_ms"] for k, v in out.items()},
+         bound_ms={k: bound_ms(*v["work"])[0] for k, v in out.items()},
+         k5_terms_ms_same_q=k5_ms, launch=cost.params[3])
+    out["candidates"]["max_abs_err"] = results["path2_candidates_N%d" % N][0]
+    out["acceptance"]["max_abs_err"] = results[
+        "path2_acceptance_N%d" % q_acc.shape[1]][0]
+    return out
 
 
 def phase_solvers(task, start, goal):
@@ -2588,7 +2695,7 @@ def main() -> None:
     seen = capture_first_iteration(il_task, il_start, il_goal)
     sweeps = phase_riccati(seen, capture_mpc_sweep(il_task, il_start,
                                                    il_goal))
-    cost = phase_cost(il_task, seen)
+    cost = phase_cost(il_task, seen, il_start, il_goal)
     il_launches, il_res = phase_ilqr(il_task, il_start, il_goal)
     phase_ilqr_cpu(il_task, il_start, il_goal)
     phase_ilqr_mpc(il_task, il_start, il_goal, il_res.trajs)
@@ -2611,8 +2718,9 @@ def main() -> None:
         "sgpmp", il_task, il_start, il_goal, SG_PART, SG_PARAMS, "cost",
         SEED + 2)
     phase_sgpmp_cpu(il_task, sg_theta0, sg_start, sg_goal)
-    mr_cost = phase_mr_cost(mr, capture_mr_candidates(
-        mr, *sg_problem(mr_start, mr_goal, 1, MR_H, MR_GP["dt"], SEED + 3)))
+    mr_cost = phase_mr_cost(mr, capture_cost_inputs(
+        mr, *sg_problem(mr_start, mr_goal, 1, MR_H, MR_GP["dt"], SEED + 3),
+        MR_SG_PARAMS))
     mr_sg_launches = phase_sgpmp("mr_sgpmp", mr, mr_start, mr_goal, 1,
                                  MR_SG_PARAMS, "multirobot_cost", SEED + 3)[0]
     solvers = phase_solvers(*bench_problem("cuda", B))
@@ -2631,9 +2739,12 @@ def main() -> None:
             ("linesearch_rollout", "torch_robotics_tpu_torch/csrc/riccati.cu",
              "torch_robotics_tpu/ops/pallas_riccati.py:309",
              sweeps["rollout"], il_launches[1]),
-            ("collision_cost", "torch_robotics_tpu_torch/csrc/terms.cu",
-             "torch_robotics_tpu/ops/pallas_terms.py:1029", cost,
-             il_launches[2]),
+            ("collision_cost", "torch_robotics_tpu_torch/csrc/cost.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029",
+             cost["line_search"], il_launches[2]),
+            ("collision_cost_sgpmp", "torch_robotics_tpu_torch/csrc/cost.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029", cost["sgpmp"],
+             sg_launches),
             ("multirobot_terms", "torch_robotics_tpu_torch/csrc/mr_terms.cu",
              "torch_robotics_tpu/ops/pallas_terms.py:533", mr_terms,
              mr_launches[0]),
@@ -2650,9 +2761,13 @@ def main() -> None:
              "torch_robotics_tpu/ops/pallas_sdf.py:75", cloud,
              cloud["launches"]),
             ("collision_cost_multirobot",
-             "torch_robotics_tpu_torch/csrc/mr_terms.cu",
-             "torch_robotics_tpu/ops/pallas_terms.py:1029", mr_cost,
-             mr_sg_launches),
+             "torch_robotics_tpu_torch/csrc/cost.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029",
+             mr_cost["candidates"], mr_sg_launches),
+            ("collision_cost_multirobot_acceptance",
+             "torch_robotics_tpu_torch/csrc/cost.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029",
+             mr_cost["acceptance"], mr_sg_launches),
             ("btridiag_sweep_trsm",
              "torch_robotics_tpu_torch/csrc/btridiag_sweep.cu",
              "torch_robotics_tpu/ops/pallas_btridiag.py:689",

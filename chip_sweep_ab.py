@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     git archive <commit> | tar -x -C chip_checkout/other   # a git-ignored dir
     python3 chip_sweep_ab.py --other chip_checkout/other [--out FILE] \
-        [--kernels all|sweep|riccati|cols]
+        [--kernels all|sweep|riccati|cols|cost]
 
 The other checkout's ``csrc/btridiag.cu``, ``csrc/btridiag_sweep.cu``,
 ``csrc/riccati.cu`` and ``csrc/btridiag_cols.cu`` are built beside this
@@ -53,8 +53,30 @@ K3 (both tails).
 - the multi-robot MPC (phase ``mr_mpc``, 30 steps): ms per step by CUDA
   events, and once per side a profile (device ms per step, busy share).
 
+``--kernels cost`` (the value-only collision cost, K8, both branches): the
+other tree's cost kernels (an older tree's ``trt_cost_launch`` in
+``terms.cu`` and ``trt_mr_cost_launch`` in ``mr_terms.cu``, each given
+the parameters its own tree packs for the same task) stand in for
+``cost.cu`` under this tree's wrappers:
+
+- ptxas's report (stack frame, spills, registers) of both sides' cost
+  kernels;
+- K8 on the iLQR path's line-search q (N = 79,360), on the sGPMP Panda
+  path's first candidates (N = 2,097,152) and proposal (N = 131,072); K8's
+  MultiRobot branch on config 4's sGPMP candidates (N = 131,072) and
+  proposal (N = 8,192) and on random q at the tight poses (N = 8,192):
+  each side held to the plain version, the max |difference| between the
+  sides, whether they agree bit for bit, the kernel's device time (by the
+  profiler) and the time a call takes (by CUDA events, host included) in
+  turns, and the bound;
+- the sGPMP Panda and config-4 iterations in turns (ms per iteration by
+  CUDA events) and once per side a profile (device ms per iteration, busy
+  share);
+- K1 and K5, which the change leaves alone, bit for bit between the two
+  trees on the same q.
+
 ``--kernels all`` (the default) runs the sweeps and the Riccati sweep;
-``cols`` runs alone.  Prints one JSON line per
+``cols`` and ``cost`` run alone.  Prints one JSON line per
 measurement, then the card's name and power limit; ``--out`` writes all of
 it as one JSON object.
 """
@@ -137,6 +159,23 @@ def other_riccati_kernel(csrc: Path):
             "trt_rollout_launch"]}), takes_fw
 
 
+def other_cost_kernels(csrc: Path):
+    """The other checkout's terms.cu (K1 and, in an older tree, K8) and
+    mr_terms.cu (K5 and, in an older tree, K8's MultiRobot branch)."""
+    import ctypes
+
+    from torch_robotics_tpu_torch.ops import terms_kernel as tk
+    OtherKernel = other_kernel_class()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    terms = OtherKernel(str(csrc / "terms.cu"), {
+        **tk.KERNEL.functions,
+        "trt_cost_launch": [P, P, I, I, P, P, P]})
+    mr = OtherKernel(str(csrc / "mr_terms.cu"), {
+        **tk.MR_KERNEL.functions,
+        "trt_mr_cost_launch": [P, P, I, I, I, P, P, P]})
+    return terms, mr
+
+
 class Swap:
     """Stands in for this tree's kernels (a wrapper module's globals) while
     the other side's turn runs; ``launch`` routes each launch function to
@@ -147,8 +186,9 @@ class Swap:
         self.launches = 0
 
     def launch(self, name, *args):
-        kernel, args = self.route(name, args)
-        kernel.launch(name, *args)
+        routed = self.route(name, args)
+        kernel, args = routed[:2]
+        kernel.launch(routed[2] if len(routed) > 2 else name, *args)
         self.launches += 1
 
     def __enter__(self):
@@ -203,6 +243,40 @@ def riccati_swap(other, takes_fw):
     return Swap(rk, ("RICCATI_KERNEL", "ROLLOUT_KERNEL"), route)
 
 
+def cost_swap(terms, mr, tasks):
+    """The other tree's K8 kernels under this tree's cost wrappers: a
+    launch on the cost parameters of one of ``tasks`` goes to the other
+    tree's kernel with that tree's own packing of the task (the parent's
+    terms.cu and mr_terms.cu packings)."""
+    from torch_robotics_tpu_torch.ops import terms_kernel as tk
+    table = {}
+    for task in tasks:
+        ints = task.collision_residuals.collision_cost_lanes.params[1]
+        if hasattr(task.robot, "robots"):
+            d, i_o, f_o, n_bp, _ = tk._mr_kernel_params(task)
+            table[ints.data_ptr()] = ("trt_mr_cost_launch", mr, (
+                n_bp, tk.mr_shared_bytes(i_o.cpu().numpy(), cost_only=True),
+                i_o.data_ptr(), f_o.data_ptr()), (i_o, f_o))
+        else:
+            d, i_o, f_o, _ = tk._kernel_params(task)
+            table[ints.data_ptr()] = ("trt_cost_launch", terms, (
+                d, i_o.data_ptr(), f_o.data_ptr()), (i_o, f_o))
+
+    def route(name, args):
+        # (q, cost, N, D, lanes, T, smem, ip, n_ints, fp, n_floats, stream)
+        fn, kernel, extra, _ = table[args[7]]
+        return kernel, args[:3] + extra + args[11:], fn
+    return Swap(tk, ("COST_KERNEL", "MR_COST_KERNEL"), route)
+
+
+def terms_swap(terms, mr):
+    """The other tree's K1 and K5 under this tree's terms wrappers."""
+    from torch_robotics_tpu_torch.ops import terms_kernel as tk
+    return Swap(tk, ("KERNEL", "MR_KERNEL"),
+                lambda name, args: (terms if name == "trt_terms_launch"
+                                    else mr, args))
+
+
 def in_turns(swap, fn):
     """fn() in the order other, this, this, other -> (other's mean, this
     tree's mean, the four results in that order)."""
@@ -218,7 +292,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--out", type=Path)
-    ap.add_argument("--kernels", choices=("all", "sweep", "riccati", "cols"),
+    ap.add_argument("--kernels",
+                    choices=("all", "sweep", "riccati", "cols", "cost"),
                     default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -229,12 +304,14 @@ def main() -> None:
     do_sweep = args.kernels in ("all", "sweep")
     do_riccati = args.kernels in ("all", "riccati")
     do_cols = args.kernels == "cols"
+    do_cost = args.kernels == "cost"
     sweep_k = other_sweep_kernels(csrc) if do_sweep else None
     ric_k = other_riccati_kernel(csrc) if do_riccati else None
     cols_k = other_cols_kernel(csrc) if do_cols else None
+    cost_k = other_cost_kernels(csrc) if do_cost else ()
     build_all([*(sweep_k[:2] if do_sweep else ()),
                *(ric_k[:1] if do_riccati else ()),
-               *(cols_k[:1] if do_cols else ()),
+               *(cols_k[:1] if do_cols else ()), *cost_k,
                *cs.all_kernels().values()])
     report = {}
 
@@ -249,6 +326,8 @@ def main() -> None:
         ab_sweeps(sweep_swap(*sweep_k), emit)
     if do_cols:
         ab_cols(cols_swap(*cols_k), emit)
+    if do_cost:
+        ab_cost(cost_k, emit)
 
     smi = cs.nvidia_smi_line()
     print(smi, flush=True)
@@ -554,6 +633,127 @@ def ab_cols(swap, emit):
          turns_ms=turns, solves_per_s={"other": cs.MR_B / (other_ms / 1e3),
                                        "this": cs.MR_B / (this_ms / 1e3)},
          profile=prof)
+
+
+def ab_cost(other, emit):
+    """K8 and K8-MultiRobot at the path shapes (each side held to plain,
+    the sides' difference, turns, bound), the sGPMP iterations in turns
+    with a profile per side, K1 and K5 bit for bit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
+    from torch_robotics_tpu_torch.solve import SGPMPParams, sgpmp_solve
+
+    from torch_robotics_tpu_torch.ops.terms_kernel import COST_KERNEL
+
+    # ptxas's report of each side's cost kernels, from the build logs
+    def ptxas(kernel, fragment):
+        lines = kernel.library_path.with_suffix(".log").read_text() \
+            .splitlines()
+        return [" | ".join(x.strip().split("info    : ")[-1]
+                           for x in lines[i + 1:i + 4])
+                for i, line in enumerate(lines)
+                if "Compiling entry function" in line and fragment in line]
+    emit("ptxas", other={"cost_kernel<7>": ptxas(other[0], "cost_kernelILi7E"),
+                         "mr_terms_kernel<cost only>": ptxas(
+                             other[1], "mr_terms_kernelILb1E")},
+         this={"cost_kernel": ptxas(COST_KERNEL, "11cost_kernelE")})
+
+    il_task, il_start, il_goal = cs.ilqr_problem("cuda")
+    mr, mr_start, mr_goal, _ = cs.mr_problem("cuda")
+    tight = cs.mr_task("cuda", cs.MR_TIGHT_POSES)
+    swap = cost_swap(*other, (il_task, mr, tight))
+    q_ls = cs.capture_first_iteration(il_task, il_start, il_goal)[
+        "cost_%d" % (len(cs.IL_ALPHAS) * cs.IL_B * (cs.IL_H - 1))]
+    sg = cs.sg_problem(il_start, il_goal, cs.SG_PART, cs.IL_H,
+                       cs.SG_PARAMS["dt"], cs.SEED + 2)
+    mr_sg = cs.sg_problem(mr_start, mr_goal, 1, cs.MR_H, cs.MR_GP["dt"],
+                          cs.SEED + 3)
+    q_sg = cs.capture_cost_inputs(il_task, *sg, cs.SG_PARAMS)
+    q_mr = cs.capture_cost_inputs(mr, *mr_sg, cs.MR_SG_PARAMS)
+    rng = np.random.default_rng(13)
+    lo = tight.robot.q_min.cpu().numpy()
+    hi = tight.robot.q_max.cpu().numpy()
+    q_tight = torch.as_tensor(
+        lo[:, None] + rng.uniform(size=(lo.shape[0], 8192))
+        * (hi - lo)[:, None], dtype=torch.float32, device="cuda")
+    lay = TermsLayout(il_task)
+    mlay = mr.collision_residuals.obstacle_terms_lanes.plain.layout
+    n_rows = len(lay.obj_pos) * 2 + len(lay.pair_a)
+    m_rows = len(mlay.obj_pos) * 2 + len(mlay.pair_a)
+    cases = [("k8_line_search", il_task, q_ls), *(
+        ("k8_sgpmp_N%d" % n, il_task, q) for n, q in sorted(q_sg.items())),
+        *(("k8_mr_sgpmp_N%d" % n, mr, q) for n, q in sorted(q_mr.items())),
+        ("k8_mr_tight_random", tight, q_tight)]
+    for name, task, q in cases:
+        cost = task.collision_residuals.collision_cost_lanes
+        ref = cost.plain(q)
+        outs, errs = {}, {}
+        for side in ("other", "this"):
+            with (swap if side == "other" else _null()):
+                outs[side] = cost(q).clone()
+            errs[side] = cs.hold_cost("%s_%s" % (name, side), outs[side],
+                                      ref)
+        other_ms, this_ms, turns = in_turns(
+            swap, lambda: cs.device_ms(lambda: cost(q), iters=20))
+        other_call, this_call, _ = in_turns(
+            swap, lambda: cs.cuda_ms(lambda: cost(q), iters=20))
+        N = q.shape[1]
+        work = (cs.cost_work(lay, N, n_rows) if task is il_task
+                else cs.mr_cost_work(mlay, N, m_rows))
+        emit(name, N=N, bit_for_bit=bool(torch.equal(outs["other"],
+                                                      outs["this"])),
+             max_abs_diff=float((outs["other"] - outs["this"]).abs().max()),
+             vs_plain={k: {"abs": v[0], "rel_to_max": v[1]}
+                       for k, v in errs.items()},
+             other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
+             turns_ms=turns, call_ms={"other": other_call, "this": this_call},
+             bound_ms=cs.bound_ms(*work)[0], launch=cost.params[3])
+        torch.cuda.empty_cache()
+
+    # K1 and K5, which this change leaves alone, bit for bit on the same q
+    tswap = terms_swap(*other)
+    same = {}
+    for name, task, q in (("k1", il_task, q_ls),
+                          ("k5", mr, q_mr[cs.MR_B * cs.MR_H])):
+        unscaled = task.collision_residuals.obstacle_terms_lanes.unscaled
+        with tswap:
+            o = [t.clone() for t in unscaled(q)]
+        same[name] = all(torch.equal(a, b) for a, b in zip(o, unscaled(q)))
+    emit("unchanged_kernels_bit_for_bit", **same)
+    if not all(same.values()):
+        cs.fail("a kernel this change leaves alone differs: %s" % same)
+
+    # the sGPMP iterations, in turns, and a profile per side
+    for name, task, (theta0, s, g), params in (
+            ("sgpmp_panda", il_task, sg, cs.SG_PARAMS),
+            ("sgpmp_config4", mr, mr_sg, cs.MR_SG_PARAMS)):
+        p = SGPMPParams(**dict(params, opt_iters=10))
+
+        def solve(n_iter=p.opt_iters):
+            return sgpmp_solve(
+                task.collision_residuals, theta0, s, g,
+                dataclasses.replace(p, opt_iters=n_iter),
+                generator=torch.Generator(device="cuda").manual_seed(7))
+        solve(2)
+        with swap:
+            solve(2)
+        other_ms, this_ms, turns = in_turns(
+            swap, lambda: cs.cuda_ms(solve, iters=1, warmup=0)
+            / p.opt_iters)
+        prof = {}
+        for side in ("other", "this"):
+            with (swap if side == "other" else _null()):
+                busy, dev_ms, top = cs.profile_device(lambda: solve(5), 5)
+            prof[side] = dict(profiled_device_busy_share=busy,
+                              profiled_device_ms_per_iteration=dev_ms,
+                              top_device_ms_per_iteration=top)
+        emit(name + "_iteration", B=theta0.shape[0], iterations=p.opt_iters,
+             other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
+             turns_ms=turns, profile=prof)
+        torch.cuda.empty_cache()
 
 
 def _null():

@@ -1,0 +1,279 @@
+"""A numpy model of the CUDA value-only cost kernel (``csrc/cost.cu``), run
+on the packed parameters (``pack_cost_params``) in the kernel's own order:
+each member's FK steps with their parent sources (base, previous step,
+stored slot), the collision points the steps write, then each thread's
+range of rows in row order and a lane's partial sums added in thread
+order.
+
+It is held to the port's plain cost (the cost output of the unscaled
+plain terms) and, for the iLQR path's Panda, to the JAX package's
+``collision_cost_pallas_factory`` in interpret mode, on the same seeded
+numpy q (N = 256).  The MultiRobot embodiments are held to the plain
+version only: tests/test_torch_mr_cost.py holds that to the JAX kernel at
+the same tolerance (its MultiRobot branch takes 6-10 s to compile in
+interpret mode).  Tolerances as tests/test_torch_cost.py
+(atol 3e-5 * max|ref|, rtol 2e-5) and tests/test_torch_mr_cost.py (atol
+2e-5 * max|ref|, rtol 2e-5): float32 sums in another order.  No robot of
+the zoo branches, so a Panda whose links 7 and 9 hang from links 3 and 5
+runs the stored-transform path, held to the plain version.  EnvSpheres3D's
+spheres share one radius (the kernel's one-root group); a copy with
+radii spread over 0.6-1.4x runs the per-sphere group."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_cost import SCENES
+from test_torch_kin import export_jax_task
+from test_torch_mr_cost import EMBODIMENTS
+from test_torch_multi_robot import (export_jax_multirobot_task, jax_task,
+                                    rand_q)
+from test_torch_terms import _rand_q
+from torch_robotics_tpu.ops.pallas_terms import \
+    collision_cost_pallas_factory as jax_cost_factory
+from torch_robotics_tpu.robots import RobotPanda as JRobotPanda
+from torch_robotics_tpu.tasks import PlanningTask as JPlanningTask
+from torch_robotics_tpu_torch.convert import task_from_numpy
+from torch_robotics_tpu_torch.envs import EnvMazeBoxes3D, EnvSpheres3D
+from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
+from torch_robotics_tpu_torch.ops.terms_kernel import pack_cost_params
+from torch_robotics_tpu_torch.robots import RobotPanda
+from torch_robotics_tpu_torch.tasks import PlanningTask
+
+N = 256
+F32 = np.float32
+
+
+def _sections(ints, floats):
+    """The packed buffers cut as cost.cu's parse_layout cuts them, the
+    step records split into their fields."""
+    (n_mem, D, P, NO, K, NOBJ, NG, S, n_slots, T, n_prims) = (
+        int(v) for v in ints[:11])
+    a, o = {}, 16
+    step_i = ints[o:o + 8 * S].reshape(S, 8)
+    o += 8 * S
+    for name, n in (("mem_step", n_mem + 1), ("pt_list", P), ("obj_pt", NO),
+                    ("pair_a", K), ("pair_b", K), ("cuts", T + 1),
+                    ("obj_group_begin", NOBJ + 1), ("group_kind", NG),
+                    ("group_count", NG), ("group_off", NG)):
+        a[name], o = ints[o:o + n], o + n
+    a["prims"], o = floats[:n_prims], n_prims
+    objects = floats[o:o + 12 * NOBJ].reshape(NOBJ, 12)
+    o += 12 * NOBJ
+    step_f = floats[o:o + 20 * S].reshape(S, 20)
+    o += 20 * S
+    for name, n in (("base_R", 9 * n_mem), ("base_t", 3 * n_mem),
+                    ("obj_thresh", NO), ("pair_margin", K), ("ws_min", 3),
+                    ("ws_max", 3)):
+        a[name], o = floats[o:o + n], o + n
+    assert o == len(floats)
+    a.update(jtype=step_i[:, 0], qcol=step_i[:, 1], src=step_i[:, 2],
+             slot=step_i[:, 3], pt_begin=step_i[:, 4], pt_end=step_i[:, 5],
+             frot=step_f[:, :9], trans=step_f[:, 9:12], axis=step_f[:, 12:15],
+             clo=step_f[:, 15], chi=step_f[:, 16], obj_rot=objects[:, :9],
+             obj_pos=objects[:, 9:], n_mem=n_mem, D=D, P=P, NO=NO, K=K,
+             NOBJ=NOBJ, S=S, n_slots=n_slots, T=T)
+    return a
+
+
+def _joint(jt, F, axis, lo, hi, q):
+    """(Rl (3, 3, N), tr (3, N)) as cost.cuh's joint_transform."""
+    Rl = np.broadcast_to(F[:, :, None], (3, 3, q.shape[0])).astype(F32)
+    tr = np.zeros((3, q.shape[0]), F32)
+    if jt in (1, 2):
+        qi = np.clip(q, lo, hi) if jt == 1 else q
+        s, c = np.sin(qi), np.cos(qi)
+        oc = F32(1) - c
+        ax, ay, az = axis
+        Rj = np.stack([
+            1 + oc * (ax * ax - 1), -s * az + oc * (ax * ay),
+            s * ay + oc * (ax * az), s * az + oc * (ax * ay),
+            1 + oc * (ay * ay - 1), -s * ax + oc * (ay * az),
+            -s * ay + oc * (ax * az), s * ax + oc * (ay * az),
+            1 + oc * (az * az - 1)]).reshape(3, 3, -1).astype(F32)
+        Rl = np.einsum("ij,jkn->ikn", F, Rj).astype(F32)
+    elif jt == 3:
+        tr = (axis[:, None] * np.clip(q, lo, hi)[None]).astype(F32)
+    return Rl, tr
+
+
+def _scene_sdf(a, x):
+    """Min over the scene's primitives at world points x (3, N)."""
+    best = np.full(x.shape[1], np.inf, F32)
+    for o in range(a["NOBJ"]):
+        R = a["obj_rot"][o].reshape(3, 3)
+        xo = (R.T @ (x - a["obj_pos"][o][:, None])).astype(F32)
+        for g in range(a["obj_group_begin"][o], a["obj_group_begin"][o + 1]):
+            kind, cnt = a["group_kind"][g], a["group_count"][g]
+            width = (4, 7, 6, 4)[kind]
+            off = a["group_off"][g]
+            assert off % 4 == 0                  # 16-byte aligned tables
+            pr = a["prims"][off:off + width * cnt].reshape(cnt, width)
+            d = xo[None] - pr[:, :3, None]                   # (cnt, 3, N)
+            if kind in (0, 3):                   # 3: one radius
+                assert kind == 0 or len(set(pr[:, 3])) == 1
+                s = np.sqrt((d * d).sum(1)) - pr[:, 3, None]
+            elif kind == 1:
+                rr = pr[:, 6, None, None]
+                qq = np.abs(d) - pr[:, 3:6, None] + rr
+                s = (np.minimum(qq.max(1), 0)
+                     + np.sqrt((np.maximum(qq, 0) ** 2).sum(1)) - rr[:, 0])
+            else:
+                s = (np.abs(d) - pr[:, 3:6, None]).max(1)
+            best = np.minimum(best, s.min(0).astype(F32))
+    return best
+
+
+def model_cost(ints, floats, q):
+    """The kernel's arithmetic in its order, float32 numpy: q (d, N) ->
+    cost (N,)."""
+    a = _sections(ints, floats)
+    n = q.shape[1]
+    pts = np.zeros((a["P"], 3, n), F32)
+    slots = np.zeros((a["n_slots"], 12, n), F32)
+    for m in range(a["n_mem"]):                       # phase 1
+        R = t = None
+        for s in range(a["mem_step"][m], a["mem_step"][m + 1]):
+            qc = a["qcol"][s]
+            Rl, tr = _joint(a["jtype"][s], a["frot"][s].reshape(3, 3),
+                            a["axis"][s], a["clo"][s], a["chi"][s],
+                            q[qc] if qc >= 0 else np.zeros(n, F32))
+            tr = tr + a["trans"][s][:, None]
+            src = a["src"][s]
+            if src == -2:
+                Rp, tp = R, t
+            elif src == -1:
+                Rp = np.broadcast_to(a["base_R"][9 * m:9 * m + 9]
+                                     .reshape(3, 3, 1), (3, 3, n))
+                tp = np.broadcast_to(a["base_t"][3 * m:3 * m + 3, None],
+                                     (3, n))
+            else:
+                Rp = slots[src, :9].reshape(3, 3, n)
+                tp = slots[src, 9:]
+            R = np.einsum("ijn,jkn->ikn", Rp, Rl).astype(F32)
+            t = (np.einsum("ijn,jn->in", Rp, tr) + tp).astype(F32)
+            if a["slot"][s] >= 0:
+                slots[a["slot"][s]] = np.concatenate([R.reshape(9, n), t])
+            for p in a["pt_list"][a["pt_begin"][s]:a["pt_end"][s]]:
+                pts[p] = t
+    n_sdf = a["NO"] if a["NOBJ"] > 0 else 0
+    parts = []
+    for th in range(a["T"]):                          # phase 2
+        acc = np.zeros(n, F32)
+        for r in range(a["cuts"][th], a["cuts"][th + 1]):
+            if r < n_sdf:
+                val = _scene_sdf(a, pts[a["obj_pt"][r]])
+                h = np.maximum(a["obj_thresh"][r] - val, 0)
+            elif r < n_sdf + a["NO"]:
+                mi = r - n_sdf
+                x = pts[a["obj_pt"][mi]]
+                val = np.minimum((x - a["ws_min"][:, None]).min(0),
+                                 (a["ws_max"][:, None] - x).min(0))
+                h = np.maximum(a["obj_thresh"][mi] - val, 0)
+            else:
+                k = r - n_sdf - a["NO"]
+                diff = pts[a["pair_a"][k]] - pts[a["pair_b"][k]]
+                h = np.maximum(a["pair_margin"][k]
+                               - np.sqrt((diff * diff).sum(0)), 0)
+            acc = (acc + h * h).astype(F32)
+        parts.append(acc)
+    c = np.zeros(n, F32)
+    for p in parts:
+        c = (c + p).astype(F32)
+    return F32(0.5) * c
+
+
+def _single_tasks(name):
+    """(JAX task, port task) of tests/test_torch_cost.py's scene; the maze
+    is built in the port alone (the JAX maze takes seconds to build)."""
+    make_env, self_margin, cutoff = SCENES[name]
+    if name == "maze_boxes3d":
+        return None, PlanningTask(
+            env=EnvMazeBoxes3D(device="cpu"),
+            robot=RobotPanda.create(self_collision_margin_robot=self_margin,
+                                    device="cpu"),
+            obstacle_cutoff_margin=cutoff)
+    jtask = JPlanningTask(
+        env=make_env(),
+        robot=JRobotPanda.create(self_collision_margin_robot=self_margin),
+        obstacle_cutoff_margin=cutoff)
+    return jtask, task_from_numpy(export_jax_task(jtask), device="cpu")
+
+
+def _hold(got, ref, atol_rel, name):
+    assert got.shape == ref.shape and np.isfinite(got).all(), name
+    assert float(np.abs(ref).max()) > 0, name
+    np.testing.assert_allclose(got, ref, atol=atol_rel * np.abs(ref).max(),
+                               rtol=2e-5, err_msg=name)
+
+
+def varied_radii_task():
+    """EnvSpheres3D with its spheres' radii spread over 0.6-1.4x, so the
+    scene's group keeps a radius per sphere (kind 0)."""
+    env = EnvSpheres3D(device="cpu")
+    sph = env.obj_fixed_list[0].fields[0]
+    sph.radii.mul_(torch.linspace(0.6, 1.4, sph.radii.shape[0]))
+    return PlanningTask(env=env, robot=RobotPanda.create(device="cpu"),
+                        obstacle_cutoff_margin=0.06)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES) + ["varied_radii"])
+def test_single_robot_model_matches_plain(name):
+    if name == "varied_radii":
+        jtask, ptask = None, varied_radii_task()
+    else:
+        jtask, ptask = _single_tasks(name)
+    q = _rand_q(ptask, N, seed=21)
+    ints, floats = pack_cost_params(TermsLayout(ptask))
+    kinds = set(_sections(ints, floats)["group_kind"].tolist())
+    if "spheres" in name:                  # EnvSpheres3D: one radius
+        assert kinds == {3}
+    elif name == "varied_radii":
+        assert kinds == {0}
+    plain = ptask.collision_residuals.collision_cost_lanes.plain(
+        torch.as_tensor(q)).numpy()
+    got = model_cost(ints, floats, q)
+    _hold(got, plain, 3e-5, name)
+    if name == "spheres3d_cutoff006":           # the iLQR / sGPMP Panda
+        ref = np.asarray(jax_cost_factory(jtask)(jnp.asarray(q),
+                                                 interpret=True))
+        _hold(got, ref, 3e-5, name + " vs JAX")
+
+
+@pytest.mark.parametrize("name", sorted(EMBODIMENTS))
+def test_multirobot_model_matches_plain(name):
+    jtask = jax_task(EMBODIMENTS[name])
+    ptask = task_from_numpy(export_jax_multirobot_task(jtask), device="cpu")
+    q = rand_q(ptask.robot, N, seed=22)
+    cost = ptask.collision_residuals.collision_cost_lanes
+    plain = cost.plain(torch.as_tensor(q)).numpy()
+    ints, floats = pack_cost_params(
+        ptask.collision_residuals.obstacle_terms_lanes.plain.layout)
+    assert ints[9] > 1                     # rows spread over threads
+    _hold(model_cost(ints, floats, q), plain, 2e-5, name)
+
+
+def branching_panda_task():
+    """The Panda with link 7 hung from link 3 and link 9 from link 5: links
+    3 and 5 then have two children, so their transforms are stored."""
+    robot = RobotPanda.create(device="cpu")
+    parent = list(robot.model.parent_idx)
+    parent[7], parent[9] = 3, 5
+    model = dataclasses.replace(robot.model, parent_idx=tuple(parent))
+    return PlanningTask(env=EnvSpheres3D(device="cpu"),
+                        robot=dataclasses.replace(robot, model=model),
+                        obstacle_cutoff_margin=0.06)
+
+
+def test_branching_tree_takes_the_stored_transforms():
+    task = branching_panda_task()
+    ints, floats = pack_cost_params(TermsLayout(task))
+    a = _sections(ints, floats)
+    assert a["n_slots"] == 2
+    assert sorted(v for v in a["src"] if v >= 0) == [0, 1]
+    q = _rand_q(task, N, seed=23)
+    plain = task.collision_residuals.collision_cost_lanes.plain(
+        torch.as_tensor(q)).numpy()
+    _hold(model_cost(ints, floats, q), plain, 3e-5, "branching")

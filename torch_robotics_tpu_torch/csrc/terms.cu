@@ -1,16 +1,13 @@
 // Fused Gauss-Newton obstacle terms for one kinematic robot in an analytic
 // primitive scene: FK -> collision points -> analytic point Jacobians ->
 // scene SDF + gradient -> hinge residuals -> g = sum r Jr, Hqq = Jr^T Jr,
-// cost = 0.5 sum r^2, all unscaled by the collision weight
-// (terms_kernel); and the same rows' cost alone, with no Jacobian, no
-// gradient and no Hessian (cost_kernel).
+// cost = 0.5 sum r^2, all unscaled by the collision weight.  (The same
+// rows' cost alone is cost.cu's.)
 //
 // terms_kernel replaces the TPU kernel torch_robotics_tpu/ops/pallas_terms.py
 // (obstacle_terms_pallas_factory, the pallas_call in _build_terms); its
 // plain PyTorch version is obstacle_terms_lanes_factory in
-// torch_robotics_tpu_torch/ops/lanes_fk.py.  cost_kernel replaces
-// collision_cost_pallas_factory in the same file; its plain version is the
-// cost output of that factory's unscaled terms.
+// torch_robotics_tpu_torch/ops/lanes_fk.py.
 //
 // Design: one thread per waypoint lane n.  Loads of q_cols (d, N) and the
 // stores of g (d, N), Hqq (d, d, N), cost (N) are lane-minor, so a warp's
@@ -18,9 +15,9 @@
 // scene live in two small device buffers (ints, floats) packed once by the
 // wrapper; every thread reads the same entries (broadcast, cached).  Link
 // transforms sit in per-thread local memory.  The g / Hqq accumulators are
-// registers: the kernels are templated on the number of joints D.  Both
-// kernels share the FK chain (fk_links) and the scene SDF (scene_sdf)
-// of kin_scene.cuh with the MultiRobot terms kernel (mr_terms.cu).
+// registers: the kernel is templated on the number of joints D.  It shares
+// the FK chain (fk_links) and the scene SDF (scene_sdf) of kin_scene.cuh
+// with the MultiRobot terms kernel (mr_terms.cu).
 //
 // What bounds terms_kernel on the H100: bytes.  For the Panda in
 // EnvSpheres3D on the MPC path's waypoints the function needs ~2.4k float
@@ -33,12 +30,6 @@
 // keeps the link transforms in local memory, so it runs well above the
 // bound; skipping inactive rows and keeping the transforms in registers
 // come first in a faster version.
-//
-// What bounds cost_kernel: operations.  It moves 32 bytes per lane (q in,
-// the cost out) against ~2k float ops of FK, SDF and hinges, so on the
-// H100 its float32 work takes ~3x its memory traffic; the FK chain is the
-// larger share, and the local-memory link transforms come first again in
-// a faster version.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -245,66 +236,11 @@ terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
   cost_out[n] = 0.5f * cacc;
 }
 
-// Value-only twin of terms_kernel: the same rows in the same order, their
-// cost 0.5 sum r^2 alone.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-cost_kernel(const float* __restrict__ q, float* __restrict__ cost_out, int N,
-            const int* __restrict__ ip, const float* __restrict__ fp) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const Layout a = parse_layout(ip, fp);
-
-  float qv[D];
-#pragma unroll
-  for (int j = 0; j < D; ++j) qv[j] = q[(size_t)j * N + n];
-  float Rw[kMaxLinks][9], tw[kMaxLinks][3];
-  fk_links(a, qv, Rw, tw);
-
-  float cacc = 0.f;
-  if (a.NOBJ > 0) {
-    for (int mi = 0; mi < a.NO; ++mi) {
-      float val;
-      scene_sdf<false>(a, tw[a.point_link[a.obj_pt[mi]]], val, nullptr);
-      const float r = relu(a.obj_thresh[mi] - val);
-      cacc += r * r;
-    }
-  }
-  for (int mi = 0; mi < a.NO; ++mi) {
-    const float* x = tw[a.point_link[a.obj_pt[mi]]];
-    float val = x[0] - a.ws_min[0];
-    val = fminf(val, x[1] - a.ws_min[1]);
-    val = fminf(val, x[2] - a.ws_min[2]);
-    val = fminf(val, a.ws_max[0] - x[0]);
-    val = fminf(val, a.ws_max[1] - x[1]);
-    val = fminf(val, a.ws_max[2] - x[2]);
-    const float r = relu(a.obj_thresh[mi] - val);
-    cacc += r * r;
-  }
-  for (int k = 0; k < a.K; ++k) {
-    const float* xa = tw[a.point_link[a.pair_a[k]]];
-    const float* xb = tw[a.point_link[a.pair_b[k]]];
-    const float diff[3] = {xa[0] - xb[0], xa[1] - xb[1], xa[2] - xb[2]};
-    const float d2 = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2];
-    const float r = relu(a.pair_margin[k] - (d2 > 0.f ? sqrtf(d2) : 0.f));
-    cacc += r * r;
-  }
-  cost_out[n] = 0.5f * cacc;
-}
-
 template <int D>
 cudaError_t launch(const float* q, float* g, float* h, float* cost, int N,
                    const int* ip, const float* fp, cudaStream_t stream) {
   const int blocks = (N + kThreads - 1) / kThreads;
   terms_kernel<D><<<blocks, kThreads, 0, stream>>>(q, g, h, cost, N, ip, fp);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_cost(const float* q, float* cost, int N, const int* ip,
-                        const float* fp, cudaStream_t stream) {
-  const int blocks = (N + kThreads - 1) / kThreads;
-  cost_kernel<D><<<blocks, kThreads, 0, stream>>>(q, cost, N, ip, fp);
   return cudaGetLastError();
 }
 
@@ -325,24 +261,6 @@ extern "C" int trt_terms_launch(const float* q, float* g, float* h,
     case 6: return launch<6>(q, g, h, cost, N, ip, fp, s);
     case 7: return launch<7>(q, g, h, cost, N, ip, fp, s);
     case 8: return launch<8>(q, g, h, cost, N, ip, fp, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// q (D, N) -> cost (N); returns a CUDA error code (cudaErrorInvalidValue
-// for D outside 1..8).
-extern "C" int trt_cost_launch(const float* q, float* cost, int N, int D,
-                               const int* ip, const float* fp, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 1: return launch_cost<1>(q, cost, N, ip, fp, s);
-    case 2: return launch_cost<2>(q, cost, N, ip, fp, s);
-    case 3: return launch_cost<3>(q, cost, N, ip, fp, s);
-    case 4: return launch_cost<4>(q, cost, N, ip, fp, s);
-    case 5: return launch_cost<5>(q, cost, N, ip, fp, s);
-    case 6: return launch_cost<6>(q, cost, N, ip, fp, s);
-    case 7: return launch_cost<7>(q, cost, N, ip, fp, s);
-    case 8: return launch_cost<8>(q, cost, N, ip, fp, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

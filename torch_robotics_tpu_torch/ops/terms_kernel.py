@@ -1,11 +1,12 @@
-"""Fused GN obstacle-terms kernel and value-only collision-cost kernel:
-wrappers, parameter packing, dispatch.
+"""Fused GN obstacle-terms kernels and the value-only collision-cost
+kernel: wrappers, parameter packing, dispatch.
 
 Counterparts of torch_robotics_tpu/ops/pallas_terms.py
 (``obstacle_terms_pallas_factory`` and ``collision_cost_pallas_factory``,
-the TPU kernels they replace).  The CUDA source of both is
-``csrc/terms.cu``; its head comment says what bounds each on the H100 and
-how its design answers that.  The plain PyTorch version of both is
+the TPU kernels they replace).  The CUDA source of the terms is
+``csrc/terms.cu``, of the cost ``csrc/cost.cu``; each head comment says
+what bounds the kernel on the H100 and how its design answers that.  The
+plain PyTorch version of both is
 ``ops/lanes_fk.obstacle_terms_lanes_factory`` (the cost kernel's is the
 cost output of its unscaled terms).
 
@@ -24,8 +25,9 @@ with the same contract: its CUDA source is ``csrc/mr_terms.cu`` (which
 replaces ``_multirobot_terms_pallas_factory``), its plain version
 ``ops/lanes_fk.obstacle_terms_lanes_multirobot_factory``.  The value-only
 cost of a ``MultiRobot`` (the MultiRobot branch of
-``collision_cost_pallas_factory``) is the value-only variant of the same
-kernel, and its plain version the cost output of those plain terms.
+``collision_cost_pallas_factory``) is the same ``cost.cu`` kernel on the
+members' packed parameters (``pack_cost_params``), with its own launch
+counter, and its plain version the cost output of those plain terms.
 """
 from __future__ import annotations
 
@@ -42,30 +44,33 @@ from .lanes_fk import (MultiRobotLayout, TermsLayout, embed_terms,
 __all__ = ["KERNEL", "COST_KERNEL", "MR_KERNEL", "MR_COST_KERNEL", "MAX_DOF",
            "MR_MAX_MEMBERS", "obstacle_terms_kernel_factory",
            "collision_cost_kernel_factory", "multirobot_terms_kernel_factory",
-           "pack_terms_params", "pack_multirobot_params", "run_terms_kernel",
-           "run_cost_kernel", "run_multirobot_terms_kernel",
-           "run_multirobot_cost_kernel"]
+           "pack_terms_params", "pack_multirobot_params", "pack_cost_params",
+           "cost_launch_config", "run_terms_kernel", "run_cost_kernel",
+           "run_multirobot_terms_kernel", "run_multirobot_cost_kernel"]
 
 _P = ctypes.c_void_p
 KERNEL = CudaKernel("terms.cu", {
     "trt_terms_launch": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P,
                          _P],
 })
-COST_KERNEL = CudaKernel("terms.cu", {
-    "trt_cost_launch": [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P],
-})
+_COST_ARGS = {"trt_cost_launch": [_P, _P] + [ctypes.c_int] * 5
+              + [_P, ctypes.c_int, _P, ctypes.c_int, _P]}
+COST_KERNEL = CudaKernel("cost.cu", _COST_ARGS)
 MR_KERNEL = CudaKernel("mr_terms.cu", {
     "trt_mr_terms_launch": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, _P, _P, _P],
 })
-MR_COST_KERNEL = CudaKernel("mr_terms.cu", {
-    "trt_mr_cost_launch": [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           _P, _P, _P],
-})
+# the same kernel on a MultiRobot's parameters, counted apart
+MR_COST_KERNEL = CudaKernel("cost.cu", _COST_ARGS)
 MAX_DOF = 8        # terms.cu instantiates D = 1..8; mr_terms.cu kMaxDof
 MR_MAX_MEMBERS = 4  # mr_terms.cu kMaxMembers
 _MR_LANES = 32      # mr_terms.cu kLanes
 _MAX_LINKS = 32    # terms.cu kMaxLinks
+_COST_HEADER = 16         # cost.cu kHeader
+_COST_MAX_THREADS = 256   # cost.cu kMaxThreads: lanes * threads a lane
+_COST_LANES = 128         # lanes a block at one thread a lane
+_COST_MAX_TPL = 8         # threads a lane, at most
+_SMEM_MAX = 232448        # shared memory a block can have on the H100
 _GROUP_KIND = {"Spheres": 0, "RoundedBoxes": 1, "SharpBoxes": 2}
 
 
@@ -230,15 +235,183 @@ def pack_multirobot_params(lay: MultiRobotLayout):
 
 def mr_shared_bytes(ints, cost_only: bool = False) -> int:
     """Dynamic shared memory of one mr_terms.cu block: points, joint axes
-    and origins (3 floats each, per lane; the value-only kernel keeps no
-    axes or origins) and the per-warp cost shares."""
+    and origins (3 floats each, per lane) and the per-warp cost shares;
+    with ``cost_only``, the points and the shares alone."""
     P, D, n_bp = int(ints[2]), int(ints[1]), int(ints[8])
     return 4 * _MR_LANES * (3 * P + (0 if cost_only else 6 * D) + n_bp)
 
 
+def _cost_members(lay):
+    """[(model, base R (3, 3), base t (3,), [(point, link), ...]), ...]: a
+    ``TermsLayout`` is one member at the identity base with its used links
+    as points; a ``MultiRobotLayout`` has its members at their base poses,
+    points numbered over the full collision layout (object sections, then
+    self sections, member by member)."""
+    if not isinstance(lay, MultiRobotLayout):
+        return [(lay.model, np.eye(3), np.zeros(3),
+                 list(enumerate(lay.used_links)))]
+    points = [[] for _ in lay.members]
+    p = 0
+    for section in ("object_coll_idxs", "self_coll_idxs"):
+        for i, r in enumerate(lay.members):
+            for li in getattr(r, section) or ():
+                points[i].append((p, li))
+                p += 1
+    base_R = lay.robot.base_rots.cpu().numpy().reshape(-1, 3, 3)
+    base_t = lay.robot.base_trans.cpu().numpy().reshape(-1, 3)
+    return [(r.model, base_R[i], base_t[i], points[i])
+            for i, r in enumerate(lay.members)]
+
+
+def _fk_steps(model, links):
+    """The links that lead to a collision link, in topological order, and
+    the links whose transform a later step reads while not right before
+    it (a branching tree; empty for a chain)."""
+    need = set()
+    for li in links:
+        while li >= 0 and li not in need:
+            need.add(li)
+            li = model.parent_idx[li]
+    steps = [i for i in model.topological_order() if i in need]
+    parents = [model.parent_idx[i] for i in steps]
+    stored = {p for k, p in enumerate(parents)
+              if p >= 0 and (k == 0 or steps[k - 1] != p)}
+    return steps, stored
+
+
+def cost_row_ops(lay) -> np.ndarray:
+    """Float ops of each cost row in the kernel's row order (one object SDF
+    row per object point when the scene has objects, one workspace row per
+    object point, one per pair): 15 per object and 10 / 25 / 12 per sphere
+    / rounded box / sharp box for an SDF row, 12 for a workspace row or a
+    pair distance, and 4 for the hinge, its square and the sum."""
+    from ..geom.sdf import RoundedBoxes, Spheres
+    sdf = 0
+    for obj in lay.df_obj_list:
+        sdf += 15
+        for f in obj.fields:
+            sdf += f.centers.shape[0] * (10 if isinstance(f, Spheres) else (
+                25 if isinstance(f, RoundedBoxes) else 12))
+    n_obj, n_pair = len(lay.obj_pos), len(lay.pair_a)
+    return np.asarray(([sdf + 4] * n_obj if lay.df_obj_list else [])
+                      + [16] * (n_obj + n_pair), np.int64)
+
+
+def _row_cuts(ops: np.ndarray, T: int) -> list:
+    """T contiguous row ranges of near-equal operation counts: cut t is the
+    row boundary nearest to t / T of the total."""
+    c = np.concatenate([[0], np.cumsum(ops)])
+    return [int(np.argmin(np.abs(c - c[-1] * t / T))) for t in range(T + 1)]
+
+
+def pack_cost_params(lay):
+    """A ``TermsLayout`` or ``MultiRobotLayout`` -> (ints int32, floats
+    float32), the two buffers ``cost.cu`` reads (section order as in its
+    parse_layout).  What a step or an object reads together is one record
+    on a 16-byte boundary, read with 16-byte loads: a step's 8 ints (joint
+    type, q column, parent source, slot, its points' range, 2 pad) and 20
+    floats (fixed rotation, translation, axis, clamp bounds, 3 pad); an
+    object's 12 floats (rotation, position); each primitive group's table,
+    padded to a multiple of 4 floats (a sphere is one load).  A sphere
+    group whose radii are all equal gets kind 3, which the kernel scores
+    with one square root.
+
+    Each member's FK is a list of steps (``_fk_steps``): a step's parent
+    transform is the member's base (src -1), the previous step's (-2, kept
+    in registers) or a stored slot; a step stores its own when a later,
+    non-adjacent step reads it, and writes the world position of the
+    collision points on its link.  The rows are cut into T ranges, one per
+    thread of a lane, balanced by ``cost_row_ops``: T = 1 for a single
+    robot; for a MultiRobot at least the member count (phase 1 runs one FK
+    chain a thread), and enough threads that a range takes about as many
+    operations as the longest chain, at most 8."""
+    members = _cost_members(lay)
+    mem_step, step_i, step_f, pt_list, fk_ops = [0], [], [], [], []
+    n_slots, doff = 0, 0
+    for model, _, _, points in members:
+        steps, stored = _fk_steps(model, [li for _, li in points])
+        ctrl = list(model.controlled_link_idxs())
+        slot_of, prev = {}, None
+        for i in steps:
+            p = model.parent_idx[i]
+            src = -1 if p < 0 else (-2 if p == prev else slot_of[p])
+            if i in stored:
+                slot_of[i] = n_slots
+                n_slots += 1
+            begin = len(pt_list)
+            pt_list += sorted(pt for pt, li in points if li == i)
+            step_i.append([model.joint_types[i],
+                           doff + ctrl.index(i) if i in ctrl else -1, src,
+                           slot_of.get(i, -1), begin, len(pt_list), 0, 0])
+            step_f.append(np.concatenate([
+                model.joint_fixed_rot[i].reshape(9), model.joint_trans[i],
+                model.joint_axis[i],
+                [model.clamp_lower[i], model.clamp_upper[i], 0, 0, 0]]))
+            prev = i
+        mem_step.append(len(step_i))
+        fk_ops.append(sum(63 if model.joint_types[i] == 0 else 132
+                          for i in steps))
+        doff += model.n_dofs
+
+    ops = cost_row_ops(lay)
+    T = 1 if len(members) == 1 else int(min(_COST_MAX_TPL, max(
+        len(members), -(-int(ops.sum()) // max(fk_ops)))))
+    scene_i, (obj_rot, obj_pos, prims) = _pack_scene(lay.df_obj_list)
+    width = {0: 4, 1: 7, 2: 6}
+    tables, off, kinds = [], [], []
+    for kind, cnt, o in zip(*scene_i[1:]):
+        off.append(sum(len(t) for t in tables))
+        t = prims[o:o + width[kind] * cnt]
+        tables.append(np.concatenate([t, np.zeros(-len(t) % 4)]))
+        # spheres of one radius: cost.cuh's kSpheresOneRadius
+        kinds.append(3 if kind == 0 and len(set(t[3::4])) == 1 else kind)
+    scene_i[1], scene_i[3] = kinds, off
+    objects = np.concatenate([np.asarray(obj_rot).reshape(-1, 9),
+                              np.asarray(obj_pos).reshape(-1, 3)], axis=1)
+    header = [len(members), doff, len(pt_list), len(lay.obj_pos),
+              len(lay.pair_a), len(lay.df_obj_list), len(scene_i[1]),
+              len(step_i), n_slots, T, sum(len(t) for t in tables)]
+    header += [0] * (_COST_HEADER - len(header))
+    ints = _i32([header, step_i, mem_step, pt_list, lay.obj_pos, lay.pair_a,
+                 lay.pair_b, _row_cuts(ops, T)] + scene_i)
+    floats = _f32(tables + [objects, step_f]
+                  + [np.stack([R for _, R, _, _ in members]),
+                     np.stack([t for _, _, t, _ in members]),
+                     lay.obj_thresh.cpu().numpy(),
+                     lay.self_margins.cpu().numpy(),
+                     lay.ws_min.cpu().numpy(), lay.ws_max.cpu().numpy()])
+    return ints, floats
+
+
+def cost_launch_config(ints, n_floats: int, lanes=None) -> dict:
+    """Launch shape of ``cost.cu`` from its packed header: the T threads a
+    lane that ``pack_cost_params`` scheduled, the lanes a block (128 at one
+    thread a lane, else the whole warps of lanes that keep a block within
+    256 threads, or ``lanes``), the dynamic shared memory in bytes (the
+    parameters, and per lane its q, points, stored transforms and T
+    partial sums).  NotImplementedError where 32 lanes pass the H100's
+    232,448 bytes."""
+    D, P, n_slots, T = (int(ints[i]) for i in (1, 2, 8, 9))
+    if lanes is None:
+        lanes = _COST_LANES if T == 1 else 32 * max(
+            1, _COST_MAX_THREADS // (32 * T))
+    fixed = 4 * (-(-len(ints) // 4) * 4 + -(-n_floats // 4) * 4)
+    per_lane = 4 * (D + 3 * P + 12 * n_slots + T)
+    while lanes > 32 and fixed + lanes * per_lane > _SMEM_MAX:
+        lanes -= 32
+    smem = fixed + lanes * per_lane
+    if smem > _SMEM_MAX or lanes * T > _COST_MAX_THREADS:
+        raise NotImplementedError(
+            "the CUDA cost kernel's block needs %d bytes of shared memory "
+            "and %d threads (at most %d and %d)"
+            % (smem, lanes * T, _SMEM_MAX, _COST_MAX_THREADS))
+    return dict(lanes=lanes, threads_per_lane=T, threads=lanes * T,
+                smem_bytes=smem)
+
+
 def _check_q(q_cols, ints, floats, d: int):
     if q_cols.device.type != "cuda":
-        raise ValueError("the terms.cu kernels take CUDA tensors")
+        raise ValueError("the terms and cost kernels take CUDA tensors")
     if q_cols.dtype != torch.float32 or not q_cols.is_contiguous():
         raise ValueError("q_cols must be contiguous float32")
     if q_cols.dim() != 2 or q_cols.shape[0] != d:
@@ -268,21 +441,31 @@ def run_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
     return g, Hqq, cost
 
 
-def run_cost_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
-                    floats: torch.Tensor, d: int):
-    """Launch the CUDA value-only cost kernel: q_cols (d, N) float32
-    contiguous CUDA -> unscaled cost (N,)."""
+def _launch_cost(kernel, q_cols, ints, floats, d, launch, lanes):
     _check_q(q_cols, ints, floats, d)
+    if launch is None or lanes is not None:
+        launch = cost_launch_config(ints.cpu().numpy(), floats.numel(), lanes)
     N = q_cols.shape[1]
     cost = torch.empty((N,), dtype=torch.float32, device=q_cols.device)
     if N == 0:
         return cost
     with torch.cuda.device(q_cols.device):
         stream = torch.cuda.current_stream().cuda_stream
-        COST_KERNEL.launch("trt_cost_launch", q_cols.data_ptr(),
-                           cost.data_ptr(), N, d, ints.data_ptr(),
-                           floats.data_ptr(), stream)
+        kernel.launch("trt_cost_launch", q_cols.data_ptr(), cost.data_ptr(),
+                      N, d, launch["lanes"], launch["threads_per_lane"],
+                      launch["smem_bytes"], ints.data_ptr(), ints.numel(),
+                      floats.data_ptr(), floats.numel(), stream)
     return cost
+
+
+def run_cost_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
+                    floats: torch.Tensor, d: int, launch=None, lanes=None):
+    """Launch the CUDA value-only cost kernel on a single robot's packed
+    parameters (``pack_cost_params``): q_cols (d, N) float32 contiguous CUDA
+    -> unscaled cost (N,).  ``launch`` is ``cost_launch_config``'s shape
+    (read from a host copy of ``ints`` when None); ``lanes`` launches at
+    another lane count a block."""
+    return _launch_cost(COST_KERNEL, q_cols, ints, floats, d, launch, lanes)
 
 
 def run_multirobot_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
@@ -307,21 +490,12 @@ def run_multirobot_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
 
 
 def run_multirobot_cost_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
-                               floats: torch.Tensor, d: int, n_bp: int,
-                               shared_bytes: int):
-    """Launch the CUDA MultiRobot value-only cost kernel: q_cols (d, N)
-    float32 contiguous CUDA -> unscaled cost (N,)."""
-    _check_q(q_cols, ints, floats, d)
-    N = q_cols.shape[1]
-    cost = torch.empty((N,), dtype=torch.float32, device=q_cols.device)
-    if N == 0:
-        return cost
-    with torch.cuda.device(q_cols.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        MR_COST_KERNEL.launch("trt_mr_cost_launch", q_cols.data_ptr(),
-                              cost.data_ptr(), N, n_bp, shared_bytes,
-                              ints.data_ptr(), floats.data_ptr(), stream)
-    return cost
+                               floats: torch.Tensor, d: int, launch=None,
+                               lanes=None):
+    """``run_cost_kernel`` on a MultiRobot's packed parameters, counted on
+    ``MR_COST_KERNEL``."""
+    return _launch_cost(MR_COST_KERNEL, q_cols, ints, floats, d, launch,
+                        lanes)
 
 
 def _kernel_params(task):
@@ -386,12 +560,12 @@ def obstacle_terms_kernel_factory(task):
 
 def collision_cost_kernel_factory(task, terms=None):
     """Per-waypoint collision cost 0.5 sum r^2 (unscaled) of the same tasks
-    as the terms, through the CUDA cost kernel for CUDA tensors (the
-    value-only MultiRobot kernel for a ``MultiRobot``, with the
+    as the terms, through the CUDA cost kernel (``cost.cu``) for CUDA
+    tensors (on the members' parameters for a ``MultiRobot``, with the
     NotImplementedError cases of ``multirobot_terms_kernel_factory``); the
     plain version is the cost output of the plain terms.  ``terms``, the
-    task's hook from ``obstacle_terms_kernel_factory``, lends its packed
-    parameters and plain terms, so they are built once per task."""
+    task's hook from ``obstacle_terms_kernel_factory``, lends its plain
+    terms, so they are built once per task."""
     from ..robots.multi_robot import MultiRobot
     if isinstance(task.robot, MultiRobot):
         return _multirobot_cost_factory(task, terms)
@@ -399,7 +573,18 @@ def collision_cost_kernel_factory(task, terms=None):
               else _kernel_params(task))
     if params is None:
         return None
-    d, ints, floats, plain_terms = params
+    d, _, _, plain_terms = params
+    return _cost_fn(pack_cost_params(TermsLayout(task)), task.device, d,
+                    plain_terms, run_cost_kernel)
+
+
+def _cost_fn(packed, device, d, plain_terms, run):
+    """cost(q_cols) on the packed cost parameters: the kernel through
+    ``run`` for a CUDA tensor, the plain terms' cost for a CPU tensor."""
+    ints_np, floats_np = packed
+    launch = cost_launch_config(ints_np, len(floats_np))
+    ints = torch.as_tensor(ints_np, device=device)
+    floats = torch.as_tensor(floats_np, device=device)
 
     def plain(q_cols):
         return plain_terms.unscaled(q_cols)[2]
@@ -407,9 +592,10 @@ def collision_cost_kernel_factory(task, terms=None):
     def cost(q_cols):
         if q_cols.device.type == "cpu":
             return plain(q_cols)
-        return run_cost_kernel(q_cols, ints, floats, d)
+        return run(q_cols, ints, floats, d, launch)
 
     cost.plain = plain
+    cost.params = (d, ints, floats, launch)
     return cost
 
 
@@ -481,17 +667,6 @@ def _multirobot_cost_factory(task, terms=None):
               else _mr_kernel_params(task))
     if params is None:
         return None
-    d, ints, floats, n_bp, plain_terms = params
-    shared = mr_shared_bytes(ints, cost_only=True)
-
-    def plain(q_cols):
-        return plain_terms.unscaled(q_cols)[2]
-
-    def cost(q_cols):
-        if q_cols.device.type == "cpu":
-            return plain(q_cols)
-        return run_multirobot_cost_kernel(q_cols, ints, floats, d, n_bp,
-                                          shared)
-
-    cost.plain = plain
-    return cost
+    d, _, _, _, plain_terms = params
+    return _cost_fn(pack_cost_params(plain_terms.layout), task.device, d,
+                    plain_terms, run_multirobot_cost_kernel)
