@@ -1,9 +1,10 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them:
 the GPMP2-MPC main path (phases 2-6), the batched iLQR path (phases 7-11),
 the multi-robot MPC path (phases 12-15), the point-mass batch solve with
-GN factorization reuse and the point-cloud SDF (phases 16-20), and sGPMP
+GN factorization reuse and the point-cloud SDF (phases 16-20), sGPMP
 for the Panda and the config-4 robot with the solvers nothing routes to
-(phases 21-25).
+(phases 21-25), and the learned self-collision Panda's net row through
+the terms, the cost and the main path (phases 26-28).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -13,7 +14,8 @@ final line):
 1. build   - nvcc builds every CUDA kernel of the paths from csrc/ (one
              process per source, all at once: terms.cu, btridiag.cu,
              riccati.cu, mr_terms.cu, btridiag_cols.cu, sphere_sdf.cu,
-             btridiag_sweep.cu, btridiag_cr.cu, gn_assembly.cu, cost.cu);
+             btridiag_sweep.cu, btridiag_cr.cu, gn_assembly.cu, cost.cu,
+             net_row.cu);
              prints build seconds (all, and each source's), the register
              and spill report of each kernel's launched instantiation (of
              the Riccati sweep every d = 1..8, of the column sweep every
@@ -141,14 +143,46 @@ final line):
              turns with K2 on the GN system and beside the dense solve.
              The GN assembly (K12) vs its plain version on the main path's
              first (r, Jr) and at a ragged N, timed with one torch.bmm.
+26. net_terms - the learned self-collision Panda (benchmarks/net_terms_ab.py:
+             RobotPanda.create(use_learned_self_collision=True), the
+             bundled 7-256-128-64-1 net): K1 + the net row (net_row.cu)
+             vs the plain terms on the main path's first q (N = 64 * 1024)
+             with the bundled net (its hinge is almost never active), a
+             relu and a tanh "spread" net (numpy-seeded weights of the
+             bundled widths, the output shift set from that q so that
+             25-75% of the lanes are active), lanes within 1e-5 of the
+             hinge excluded and counted (at most 0.1%); the row alone from
+             zeros vs its plain contribution; timed with its plain version
+             (the eager cuBLAS FP32 chain, also its library call) and K1;
+             both net-row kernels of three wider relu spread nets (16, 8
+             and 4 lanes a block) vs plain on 8192 of those lanes.
+27. net_cost - K8 + the value-only net row vs the plain cost on the sGPMP
+             path's proposal q (N = 131072) with the bundled and a spread
+             net, the row alone; timed at the candidates' N = 2097152;
+             then the sGPMP path on the net Panda: exactly 201 K8 and 201
+             net-cost launches, finite results.
+28. net_main - the net Panda's main path: MPC at B = 1024, H = 64, 2 GN
+             iterations per step, 8 steps, with the bundled and with a
+             spread net: exactly 16 K1, 16 net-terms and 16 K2 launches
+             per run, finite outputs, step ms, solves/s, fraction free, a
+             profile with the net row's share; one step at B = 32 on the
+             card and on the CPU held to a float64 CPU step (phase cpu's
+             hold) on four start / goal draws, with the bundled, the
+             spread and a scaled spread net: every GN iteration and the
+             chained step's median lane on every draw; the chained step's
+             worst lane, chaotic in float32, over the four draws together,
+             at most twice that of the CPU's or the plain terms' on the
+             card.
 
 Then one JSON line with every kernel's numbers (launches from phase 4 for
 K1 and K2, from phase 9 for K6, K7 and K8 at N = 79360, from phase 21 for
 K8 at the sGPMP candidates' N, from phase 14 for K4 and K5, from phase 19
 for K9 (the k = 2 and k = 4 runs together), from phase 20's query for
 K10, from phase 24 for K8's MultiRobot branch at both of its shapes, from
-one call each on the main path's inputs for K3, K11 and K12), the
-nvidia-smi line, and the final {"ok": true, "device": ...} line.
+one call each on the main path's inputs for K3, K11 and K12, from
+phase 28's spread-net run for the net-terms row and from phase 27's sGPMP
+run for the net-cost row), the nvidia-smi line, and the final {"ok":
+true, "device": ...} line.
 """
 from __future__ import annotations
 
@@ -250,6 +284,22 @@ MR_SG_PARAMS = dict(SG_PARAMS, n_support_points=MR_H, dt=MR_GP["dt"])
 SG_FREE_TOL = 3 / 32
 # K12's second input: a ragged N
 GN_RAGGED_N = 1000
+# the learned self-collision Panda: its hinge cutoff
+# (PlanningTask._NET_SELF_CUTOFF); lanes whose sd lies within NET_EDGE of it
+# are excluded from the kernel-vs-plain holds (two correct float32 orders
+# can flip the hinge there), at most NET_EDGE_SHARE of the lanes; the
+# spread nets' weight seed; the float64 hold's batch (phase cpu's)
+NET_CUTOFF, NET_EDGE, NET_EDGE_SHARE, NET_SEED = 0.001, 1e-5, 1e-3, SEED + 7
+MPC_CPU_B = 32
+# net_main's float64 holds: the start / goal draws (bench_problem seeds);
+# the output scale of the scaled spread net (smaller residuals, same
+# active lanes)
+NET_F64_SEEDS = (SEED, SEED + 11, SEED + 12, SEED + 13)
+NET_SCALED_OUT = 0.05
+# net_terms' wider nets, whose shared memory takes 16, 8 and 4 lanes a
+# block (the bundled net takes 32), and the lanes they run on
+NET_WIDE = ((7, 1024, 1024, 1), (7, 2048, 2048, 1), (7, 4096, 4096, 1))
+NET_WIDE_N = 8192
 
 
 def emit(phase: str, **fields) -> None:
@@ -647,7 +697,9 @@ def phase_build():
              "cr_even_kernelILi14ELb1E": "cr_even_kernel<14, shared U>",
              "cr_even_kernelILi14ELb0E": "cr_even_kernel<14>",
              "cr_back_kernelILi14E": "cr_back_kernel<14>",
-             "gn_assembly_kernelILi7E": "gn_assembly_kernel<7>"}
+             "gn_assembly_kernelILi7E": "gn_assembly_kernel<7>",
+             "net_row_kernelILb1E": "net_row_kernel<terms>",
+             "net_row_kernelILb0E": "net_row_kernel<cost>"}
     report = {}
     for src, text in logs.items():
         lines = text.splitlines()
@@ -676,16 +728,18 @@ def phase_build():
     return smi
 
 
-def bench_problem(device, n_batch: int):
-    """bench.py's start/goal draw (numpy seed) -> (task, start, goal)."""
+def bench_problem(device, n_batch: int, robot=None, seed: int = SEED):
+    """bench.py's start/goal draw (numpy ``seed``) -> (task, start, goal),
+    for the pair-field Panda or ``robot``."""
     import torch
     from torch_robotics_tpu_torch.envs import EnvSpheres3D
     from torch_robotics_tpu_torch.robots import RobotPanda
     from torch_robotics_tpu_torch.tasks import PlanningTask
     task = PlanningTask(env=EnvSpheres3D(device=device),
-                        robot=RobotPanda.create(device=device),
+                        robot=(RobotPanda.create(device=device)
+                               if robot is None else robot),
                         obstacle_cutoff_margin=0.03)
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     lo = task.robot.model.q_lower.astype(np.float64)
     hi = task.robot.model.q_upper.astype(np.float64)
     d = lo.shape[0]
@@ -957,6 +1011,7 @@ def phase_main():
         "terms": launches[0], "btridiag_w": launches[1]},
         step_ms=step_ms, host_wall_step_ms=wall_s * 1e3 / N_STEPS,
         solves_per_s=B / (step_ms / 1e3),
+        fraction_free=task.compute_fraction_free_trajs(state.theta),
         mean_collision_cost_last=float(costs[-1].mean()),
         profiled_device_busy_share=busy,
         profiled_device_ms_per_step=dev_ms,
@@ -984,10 +1039,11 @@ def theta_gaps(th_card, th_cpu, th_64):
     return out
 
 
-def hold_to_f64(name: str, gaps) -> None:
+def hold_to_f64(name: str, gaps, worst: bool = True) -> None:
     """The card may be off float64 by at most twice the CPU float32 run's
-    own error (+1e-5 of max|theta|), in its worst and in its median lane."""
-    for stat in ("_vs_f64", "_vs_f64_median_lane"):
+    own error (+1e-5 of max|theta|), in its worst (unless ``worst`` is
+    False) and in its median lane."""
+    for stat in (("_vs_f64",) if worst else ()) + ("_vs_f64_median_lane",):
         card, cpu = gaps["card" + stat], gaps["cpu" + stat]
         check(card <= 2.0 * cpu + 1e-5,
               "%s: card theta%s %.3g, CPU float32 %.3g" % (name, stat, card,
@@ -1007,7 +1063,7 @@ def phase_cpu():
     (where the costs are held card vs CPU at MPC_TOL) and over the chained
     step from the straight-line plan."""
     from torch_robotics_tpu_torch.solve import GPMP2Params
-    n = 32
+    n = MPC_CPU_B
     task_c, start_c, goal_c = bench_problem("cuda", n)
     task_h, start_h, goal_h = bench_problem("cpu", n)
     iters, chained = step_vs_f64(task_c, task_h, (start_c, goal_c),
@@ -1016,12 +1072,14 @@ def phase_cpu():
     emit("cpu", B=n, H=H, iterations=iters, chained_step=chained)
 
 
-def step_vs_f64(task_c, task_h, card, cpu, params, H_, n_iters, label):
+def step_vs_f64(task_c, task_h, card, cpu, params, H_, n_iters, label,
+                chained_worst: bool = True):
     """One MPC step of ``n_iters`` GN iterations on the card (task_c, card
     = (start, goal)) and on the CPU (task_h, cpu), each held to a float64
     CPU step (hold_to_f64): per GN iteration from the same input, where the
     costs are held card vs CPU at MPC_TOL, and over the chained step from
-    the straight-line plan -> (per-iteration gaps, chained-step gaps)."""
+    the straight-line plan (its worst lane only with ``chained_worst``) ->
+    (per-iteration gaps, chained-step gaps)."""
     import torch
     from torch_robotics_tpu_torch.solve import (MPCParams, MPCState,
                                                 gpmp2_step, mpc_step,
@@ -1057,7 +1115,7 @@ def step_vs_f64(task_c, task_h, card, cpu, params, H_, n_iters, label):
         th0.double(), start_h.double()), goal_h.double(), mp)
     check(bool(torch.isfinite(s_c.theta).all()), "chained step non-finite")
     chained = theta_gaps(s_c.theta, s_h.theta, s_64.theta)
-    hold_to_f64(label + "chained step", chained)
+    hold_to_f64(label + "chained step", chained, worst=chained_worst)
     return iters, chained
 
 
@@ -1919,9 +1977,11 @@ def pm_problem(device, n_batch: int = PM_B):
 def all_kernels():
     from torch_robotics_tpu_torch.ops import (btridiag_kernel,
                                               gn_assembly_kernel,
-                                              riccati_kernel, sdf_kernel,
-                                              terms_kernel)
+                                              net_kernel, riccati_kernel,
+                                              sdf_kernel, terms_kernel)
     return dict(terms=terms_kernel.KERNEL, cost=terms_kernel.COST_KERNEL,
+                net_terms=net_kernel.NET_TERMS_KERNEL,
+                net_cost=net_kernel.NET_COST_KERNEL,
                 multirobot_terms=terms_kernel.MR_KERNEL,
                 multirobot_cost=terms_kernel.MR_COST_KERNEL,
                 btridiag_sweep=btridiag_kernel.SWEEP_KERNEL,
@@ -2675,6 +2735,434 @@ def phase_solvers(task, start, goal):
     return out
 
 
+# ----------------------------------------------------------------------
+# the learned self-collision Panda (benchmarks/net_terms_ab.py): phases
+# net_terms, net_cost and net_main
+# ----------------------------------------------------------------------
+def net_bundled_arrays():
+    """The bundled net's npz arrays (read in place)."""
+    from torch_robotics_tpu_torch.utils.files import get_data_path
+    with np.load(get_data_path() / "panda_self_collision_net.npz") as data:
+        return {k: data[k] for k in data.files}
+
+
+def net_spread_arrays(activation: str, q, widths=None, out_scale=1.0):
+    """A net of the bundled widths (or ``widths``) with numpy-seeded He
+    weights and small biases, the bundled mean_q and std_q, the bundled
+    output scale times ``out_scale``, and scale_out[1] set from q (d, N) so
+    that the hinge relu(0.001 - sd) is active on about half of q (the
+    bundled net's hinge is almost never active: it saturates near sd =
+    0.33)."""
+    import torch
+    from torch_robotics_tpu_torch.costs import SelfCollisionNet
+    bundled = net_bundled_arrays()
+    if widths is None:
+        n_layers = sum(1 for k in bundled if k.startswith("W"))
+        widths = [bundled["W0"].shape[0]] + [
+            bundled["W%d" % i].shape[1] for i in range(n_layers)]
+    rng = np.random.default_rng(NET_SEED)
+    arrays = {"activation": activation, "mean_q": bundled["mean_q"],
+              "std_q": bundled["std_q"],
+              "scale_out": np.asarray([bundled["scale_out"][0] * out_scale,
+                                       0.0], np.float32)}
+    for i, (n_in, n_out) in enumerate(zip(widths[:-1], widths[1:])):
+        arrays["W%d" % i] = (rng.normal(size=(n_in, n_out))
+                             * np.sqrt(2.0 / n_in)).astype(np.float32)
+        arrays["b%d" % i] = (0.1 * rng.normal(size=n_out)).astype(np.float32)
+    raw = SelfCollisionNet.from_arrays(arrays, q.device).raw_distance(
+        q.T.double())
+    arrays["scale_out"][1] = -float(torch.median(raw)) - NET_CUTOFF
+    return arrays
+
+
+def net_robot(device, arrays=None):
+    """The learned self-collision Panda: the bundled net, or ``arrays``."""
+    import dataclasses
+
+    from torch_robotics_tpu_torch.costs import SelfCollisionNet
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    robot = RobotPanda.create(use_learned_self_collision=True, device=device)
+    if arrays is None:
+        return robot
+    return dataclasses.replace(robot, self_collision_net=(
+        SelfCollisionNet.from_arrays(arrays, device)))
+
+
+def net_task(device, arrays=None, cutoff=0.03):
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    return PlanningTask(env=EnvSpheres3D(device=device),
+                        robot=net_robot(device, arrays),
+                        obstacle_cutoff_margin=cutoff)
+
+
+def net_first_q(start, goal):
+    """The main path's first q: the straight-line plans, h-major lanes."""
+    from torch_robotics_tpu_torch.solve import straight_line_trajs
+    d = start.shape[1] // 2
+    return (straight_line_trajs(start, goal, H)[..., :d]
+            .permute(2, 1, 0).reshape(d, -1).contiguous())
+
+
+def net_keep_lanes(name, net, q):
+    """Lanes whose plain sd lies at least NET_EDGE from the cutoff (where
+    two correct float32 orders cannot flip the hinge) -> (keep (N,), the
+    count excluded, at most NET_EDGE_SHARE of the lanes)."""
+    edge = (net.signed_distance(q.T) - NET_CUTOFF).abs() < NET_EDGE
+    n_edge = int(edge.sum())
+    check(n_edge <= NET_EDGE_SHARE * q.shape[1],
+          "%s: %d lanes within %g of the hinge" % (name, n_edge, NET_EDGE))
+    return ~edge, n_edge
+
+
+def hold_lanes(name, got, ref, keep):
+    """Outputs (lanes last) held to their plain versions at the terms
+    tolerance on the kept lanes -> (max abs error, relative to max|ref|)
+    over those lanes."""
+    import torch
+    for g, r in zip(got, ref):
+        tol = TERMS_ATOL_REL * float(r.abs().max()) + TERMS_RTOL * r.abs()
+        check(bool(torch.isfinite(g).all()), name + ": non-finite output")
+        check(bool(((g - r).abs() <= tol)[..., keep].all()),
+              "%s: kernel disagrees with its plain version" % name)
+    return max_errs([g[..., keep] for g in got], [r[..., keep] for r in ref])
+
+
+def net_row_work(net, N: int, n_active: int, terms: bool):
+    """(bytes, float ops) that the net row needs on N lanes, n_active of
+    them active.  Bytes: q (d, N) and the weights read once; an active
+    lane's g (d), Hqq (d, d) and cost read and written (the cost alone
+    without terms).  Ops every lane needs: the forward pass (2 per
+    multiply-add, a bias add per output, an activation per hidden output,
+    2 per input for (q - mean) / std, 5 for the output scale and the
+    hinge); an active lane also the backward pass (2 per multiply-add,
+    one act' product per hidden output, 2 per input) and the row's adds
+    (2 d to g, 2 d d to Hqq, 3 to cost)."""
+    w = net.widths
+    d = w[0]
+    macs = sum(a * b for a, b in zip(w[:-1], w[1:]))
+    hidden = sum(w[1:-1])
+    n_params = macs + sum(w[1:]) + 2 * d + 2
+    fwd = 2 * macs + sum(w[1:]) + hidden + 2 * d + 5
+    per_active = 3 + (2 * macs + hidden + 2 * d + 2 * d + 2 * d * d
+                      if terms else 0)
+    out_floats = d + d * d + 1 if terms else 1
+    return (4 * (d * N + n_params + 2 * out_floats * n_active),
+            fwd * N + per_active * n_active)
+
+
+def phase_net_terms():
+    """K1 + the net row vs the plain terms on the main path's first q (N =
+    64 * 1024) of the net Panda: the bundled net, a relu spread net and a
+    tanh spread net; the row alone from zeros vs its plain contribution;
+    timed with its plain version (the eager cuBLAS FP32 chain, also the
+    row's library call) and with K1 on the same q."""
+    import torch
+    from torch_robotics_tpu_torch.ops.net_kernel import (add_net_terms,
+                                                         net_terms_plain)
+    from torch_robotics_tpu_torch.ops.terms_kernel import run_terms_kernel
+    task_b, start, goal = bench_problem("cuda", B, robot=net_robot("cuda"))
+    q = net_first_q(start, goal)
+    d, N = q.shape
+    out = {}
+    for kind in ("bundled", "relu_spread", "tanh_spread"):
+        task = task_b if kind == "bundled" else net_task(
+            "cuda", net_spread_arrays(kind.split("_")[0], q))
+        terms = task.collision_residuals.obstacle_terms_lanes
+        row = terms.net_row
+        net = row.net
+        keep, n_edge = net_keep_lanes(kind, net, q)
+        err = hold_lanes(kind, terms.unscaled(q), terms.plain.unscaled(q),
+                         keep)
+
+        def zeros():
+            return (torch.zeros((d, N), device="cuda"),
+                    torch.zeros((d, d, N), device="cuda"),
+                    torch.zeros((N,), device="cuda"))
+
+        got, ref = zeros(), zeros()
+        add_net_terms(row, q, *got)
+        net_terms_plain(net, q, NET_CUTOFF, *ref)
+        row_err = hold_lanes(kind + " row", got, ref, keep)
+        n_active = int((ref[2] > 0).sum())
+        if kind != "bundled":
+            check(0.25 <= n_active / N <= 0.75, "%s: active share %g"
+                  % (kind, n_active / N))
+        bufs = zeros()
+        ms = cuda_ms(lambda: add_net_terms(row, q, *bufs), iters=20)
+        p_ms = cuda_ms(lambda: net_terms_plain(net, q, NET_CUTOFF, *bufs),
+                       iters=3, warmup=1)
+        d_, ints, floats, _ = terms.params
+        out[kind] = dict(
+            max_abs_err=row_err[0], ms=ms, plain_ms=p_ms, library_ms=p_ms,
+            work=net_row_work(net, N, n_active, True),
+            terms_max_errs={"abs": err[0], "rel_to_max": err[1]},
+            row_max_errs={"abs": row_err[0], "rel_to_max": row_err[1]},
+            active_share=n_active / N, excluded_lanes=n_edge,
+            k1_ms=cuda_ms(lambda: run_terms_kernel(q, ints, floats, d_),
+                          iters=20),
+            launch=row.launch)
+    torch.cuda.empty_cache()
+    emit("net_terms", N=N, **{k: dict(
+        {key: v for key, v in r.items() if key not in ("max_abs_err",
+                                                        "work")},
+        bytes=r["work"][0], ops=r["work"][1],
+        bound_ms=bound_ms(*r["work"])[0]) for k, r in out.items()},
+        wide_nets=net_wide_rows(q))
+    return out["relu_spread"]
+
+
+def net_wide_rows(q_all):
+    """Both net-row kernels of relu spread nets wider than the bundled one
+    (NET_WIDE: 16, 8 and 4 lanes a block, as ``net_launch_config`` picks
+    them) on NET_WIDE_N lanes of q_all, from zeros, against their plain
+    versions -> per net: its launch shape, errors, active share, lanes
+    excluded at the hinge edge, and one timed call of each kernel."""
+    import torch
+    from torch_robotics_tpu_torch.costs import SelfCollisionNet
+    from torch_robotics_tpu_torch.ops.net_kernel import (NetRowParams,
+                                                         add_net_cost,
+                                                         add_net_terms,
+                                                         net_cost_plain,
+                                                         net_terms_plain)
+    d = q_all.shape[0]
+    q = q_all[:, ::q_all.shape[1] // NET_WIDE_N][:, :NET_WIDE_N].contiguous()
+    N = q.shape[1]
+    out = {}
+    for widths in NET_WIDE:
+        name = "x".join(str(w) for w in widths)
+        net = SelfCollisionNet.from_arrays(
+            net_spread_arrays("relu", q, widths=widths), "cuda")
+        row = NetRowParams(net, NET_CUTOFF, "cuda")
+        keep, n_edge = net_keep_lanes(name, net, q)
+
+        def zeros():
+            return (torch.zeros((d, N), device="cuda"),
+                    torch.zeros((d, d, N), device="cuda"),
+                    torch.zeros((N,), device="cuda"))
+
+        got, ref = zeros(), zeros()
+        add_net_terms(row, q, *got)
+        net_terms_plain(net, q, NET_CUTOFF, *ref)
+        err = hold_lanes(name + " row", got, ref, keep)
+        share = float((ref[2] > 0).float().mean())
+        check(0.25 <= share <= 0.75, "%s: active share %g" % (name, share))
+        c_got, c_ref = torch.zeros(N, device="cuda"), torch.zeros(
+            N, device="cuda")
+        add_net_cost(row, q, c_got)
+        net_cost_plain(net, q, NET_CUTOFF, c_ref)
+        c_err = hold_lanes(name + " cost row", [c_got], [c_ref], keep)
+        bufs = zeros()
+        out[name] = dict(
+            launch=row.launch, N=N, active_share=share,
+            excluded_lanes=n_edge,
+            row_max_errs={"abs": err[0], "rel_to_max": err[1]},
+            cost_row_max_errs={"abs": c_err[0], "rel_to_max": c_err[1]},
+            terms_ms=cuda_ms(lambda: add_net_terms(row, q, *bufs), iters=3,
+                             warmup=1),
+            cost_ms=cuda_ms(lambda: add_net_cost(row, q, bufs[2]), iters=3,
+                            warmup=1))
+        del net, row
+        torch.cuda.empty_cache()
+    check(sorted(r["launch"]["lanes"] for r in out.values()) == [4, 8, 16],
+          "wide nets' lanes a block %s" % [r["launch"] for r in out.values()])
+    return out
+
+
+def phase_net_cost(start, goal):
+    """K8 + the value-only net row vs the plain cost on the sGPMP path's
+    proposal q (N = B P H = 131,072) of the net Panda at the sGPMP bench's
+    cutoff, with the bundled and a relu spread net, and the row alone from
+    zeros; timed at the candidates' N = 2,097,152 with its plain version;
+    then the sGPMP path on the net Panda (the bench's 100 iterations):
+    exactly 201 K8 and 201 net-cost launches and nothing else, finite
+    results."""
+    import torch
+    from torch_robotics_tpu_torch.ops.net_kernel import (add_net_cost,
+                                                         net_cost_plain)
+    from torch_robotics_tpu_torch.solve import SGPMPParams, sgpmp_solve
+    task_b = net_task("cuda", cutoff=0.06)
+    problem = sg_problem(start, goal, SG_PART, IL_H, SG_PARAMS["dt"],
+                         SEED + 2)
+    seen = capture_cost_inputs(task_b, *problem, SG_PARAMS)
+    N_cand = SG_PARAMS["num_samples"] * IL_B * SG_PART * IL_H
+    q, q_cand = seen[IL_B * SG_PART * IL_H], seen[N_cand]
+    out = {}
+    for kind in ("bundled", "relu_spread"):
+        task = task_b if kind == "bundled" else net_task(
+            "cuda", net_spread_arrays("relu", q), cutoff=0.06)
+        cost = task.collision_residuals.collision_cost_lanes
+        row = task.collision_residuals.obstacle_terms_lanes.net_row
+        net = row.net
+        keep, n_edge = net_keep_lanes(kind, net, q)
+        err = hold_lanes(kind, [cost(q)], [cost.plain(q)], keep)
+        got = torch.zeros(q.shape[1], device="cuda")
+        ref = torch.zeros(q.shape[1], device="cuda")
+        add_net_cost(row, q, got)
+        net_cost_plain(net, q, NET_CUTOFF, ref)
+        row_err = hold_lanes(kind + " row", [got], [ref], keep)
+        if kind != "bundled":
+            share = float((ref > 0).float().mean())
+            check(0.25 <= share <= 0.75, "%s: active share %g"
+                  % (kind, share))
+        buf = torch.zeros(N_cand, device="cuda")
+        n_active = int((torch.relu(NET_CUTOFF - net.signed_distance(
+            q_cand.T)) > 0).sum())
+        out[kind] = dict(
+            max_abs_err=row_err[0],
+            ms=cuda_ms(lambda: add_net_cost(row, q_cand, buf), iters=10),
+            plain_ms=cuda_ms(lambda: net_cost_plain(net, q_cand, NET_CUTOFF,
+                                                    buf), iters=2, warmup=1),
+            work=net_row_work(net, N_cand, n_active, False),
+            cost_max_errs={"abs": err[0], "rel_to_max": err[1]},
+            row_max_errs={"abs": row_err[0], "rel_to_max": row_err[1]},
+            excluded_lanes=n_edge, active_share_candidates=n_active / N_cand,
+            hook_ms=cuda_ms(lambda: cost(q_cand), iters=10))
+        out[kind]["library_ms"] = out[kind]["plain_ms"]
+    torch.cuda.empty_cache()
+
+    p = SGPMPParams(**SG_PARAMS)
+    res, launches, ms = counted(lambda: sgpmp_solve(
+        task_b.collision_residuals, *problem, p,
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 3)))
+    expected = {"cost": 2 * p.opt_iters + 1, "net_cost": 2 * p.opt_iters + 1}
+    check(launches == expected, "net sGPMP launches %s, expected %s"
+          % (launches, expected))
+    check(all(bool(torch.isfinite(t).all()) for t in res),
+          "net sGPMP produced non-finite results")
+    free0 = sg_free(task_b, problem[0], SG_PART)
+    free = sg_free(task_b, res.trajs, SG_PART)
+    emit("net_cost", N=q.shape[1], N_timed=N_cand, **{k: dict(
+        {key: v for key, v in r.items() if key not in ("max_abs_err",
+                                                        "work")},
+        bytes=r["work"][0], ops=r["work"][1],
+        bound_ms=bound_ms(*r["work"])[0]) for k, r in out.items()},
+        sgpmp=dict(launches=launches, ms_per_iteration=ms / p.opt_iters,
+                   init_fraction_free_particles=float(free0.float().mean()),
+                   fraction_free_particles=float(free.float().mean())))
+    return dict(out["relu_spread"], launches=launches["net_cost"])
+
+
+def chained_plain_terms_gap(task_c, task_h, card, cpu):
+    """The chained MPC step on the card with the plain terms (eager ops, no
+    terms or net-row kernel) against the float64 CPU step: its worst lane
+    relative to max|theta|, the float32 spread beside the kernels'."""
+    import types
+    from torch_robotics_tpu_torch.solve import (GPMP2Params, MPCParams,
+                                                MPCState, mpc_step,
+                                                straight_line_trajs)
+    (start_c, goal_c), (start_h, goal_h) = card, cpu
+    mp = MPCParams(gpmp2=GPMP2Params(**GP_PARAMS),
+                   iters_per_step=ITERS_PER_STEP)
+    th0 = straight_line_trajs(start_h, goal_h, H)
+    plain = types.SimpleNamespace(obstacle_terms_lanes=(
+        task_c.collision_residuals.obstacle_terms_lanes.plain))
+    s_p, _ = mpc_step(plain, MPCState(th0.cuda(), start_c), goal_c, mp)
+    s_64, _ = mpc_step(task_h.collision_residuals, MPCState(
+        th0.double(), start_h.double()), goal_h.double(), mp)
+    t64 = s_64.theta
+    n = t64.shape[0]
+    lane = ((s_p.theta.cpu().double() - t64).abs().reshape(n, -1).amax(1)
+            / float(t64.abs().max()))
+    return float(lane.max())
+
+
+def phase_net_main():
+    """The net Panda's main path (benchmarks/net_terms_ab.py): MPC at B =
+    1024, H = 64, 2 GN iterations per step, 8 steps, once with the bundled
+    net and once with a relu spread net: exactly 16 K1, 16 net-terms and 16
+    K2 launches per run, finite outputs, step ms, solves/s, the final plans'
+    fraction free, a profile with the net row's share; then the float64
+    holds (net_f64) -> the spread run's net-terms launches."""
+    import torch
+    out, arrays = {}, None
+    for kind in ("bundled", "relu_spread"):
+        if kind != "bundled":
+            arrays = net_spread_arrays("relu", net_first_q(start, goal))
+        task, start, goal = bench_problem("cuda", B,
+                                          robot=net_robot("cuda", arrays))
+        run_mpc(task, start, goal, 1)                    # warm-up
+        (state, costs, thetas), launches, ms = counted(
+            lambda: run_mpc(task, start, goal, N_STEPS))
+        expected = {k: N_STEPS * ITERS_PER_STEP
+                    for k in ("terms", "net_terms", "btridiag_w")}
+        check(launches == expected, "%s net main path launches %s, expected "
+              "%s" % (kind, launches, expected))
+        check(all(bool(torch.isfinite(t).all()) for t in thetas),
+              kind + ": net main path produced non-finite theta")
+        check(bool(torch.isfinite(costs).all()),
+              kind + ": non-finite collision costs")
+        step_ms = ms / N_STEPS
+        busy, dev_ms, top = profile_device(
+            lambda: run_mpc(task, start, goal, 2), 2, n_top=10)
+        net_ms = sum(v for k, v in top.items() if "net_row_kernel" in k)
+        out[kind] = dict(
+            launches=launches, step_ms=step_ms,
+            solves_per_s=B / (step_ms / 1e3),
+            fraction_free=task.compute_fraction_free_trajs(state.theta),
+            mean_collision_cost_last=float(costs[-1].mean()),
+            profiled_device_busy_share=busy,
+            profiled_device_ms_per_step=dev_ms,
+            net_row_device_ms_per_step=net_ms,
+            net_row_device_share=net_ms / dev_ms if dev_ms else None,
+            top_device_ms_per_step=top)
+    f64 = net_f64(arrays, net_first_q(start, goal))
+    for kind, r in f64.items():
+        out.setdefault(kind, {}).update(r)
+    emit("net_main", B=B, H=H, steps=N_STEPS, **out)
+    return out["relu_spread"]["launches"]["net_terms"]
+
+
+def net_f64(spread, q_main):
+    """The net Panda's MPC step at B = 32 on the card (K1 + the net row)
+    and on the CPU, each held to a float64 CPU step as phase cpu holds the
+    pair-field Panda, for the bundled net, the relu spread net ``spread``
+    and a scaled spread net (output scale x NET_SCALED_OUT, shift from
+    q_main: the same active lanes, smaller residuals), on the start / goal
+    draws of NET_F64_SEEDS.
+
+    Every GN iteration from the same input is held (worst and median lane)
+    on every draw, the chained step's median lane too.  The chained step's
+    worst lane is chaotic in float32 at lam = 1e8 (any change of op order
+    moves which lanes blow up, and how far): it is held per draw only for
+    the bundled net's first draw (as phase cpu), and on every net over all
+    draws together: the card's worst lane (K1 + the net row) at most twice
+    the worst lane of the other two float32 runs of the same steps, the
+    CPU's and the plain terms' on the same card, + 1e-5 of max|theta| ->
+    {kind: per-draw gaps and the pooled worst lanes}."""
+    from torch_robotics_tpu_torch.solve import GPMP2Params
+    nets = {"bundled": None, "relu_spread": spread,
+            "relu_spread_scaled": net_spread_arrays(
+                "relu", q_main, out_scale=NET_SCALED_OUT)}
+    out = {}
+    for kind, arrays in nets.items():
+        draws = []
+        for seed in NET_F64_SEEDS:
+            task_c, s_c, g_c = bench_problem(
+                "cuda", MPC_CPU_B, robot=net_robot("cuda", arrays), seed=seed)
+            task_h, s_h, g_h = bench_problem(
+                "cpu", MPC_CPU_B, robot=net_robot("cpu", arrays), seed=seed)
+            label = "%s seed %d " % (kind, seed)
+            iters, chained = step_vs_f64(
+                task_c, task_h, (s_c, g_c), (s_h, g_h),
+                GPMP2Params(**GP_PARAMS), H, ITERS_PER_STEP, label,
+                chained_worst=kind == "bundled" and seed == NET_F64_SEEDS[0])
+            chained["card_plain_terms_vs_f64"] = chained_plain_terms_gap(
+                task_c, task_h, (s_c, g_c), (s_h, g_h))
+            draws.append(dict(seed=seed, iterations=iters, chained=chained))
+        worst = {who: max(r["chained"][key] for r in draws) for who, key in (
+            ("card", "card_vs_f64"), ("cpu", "cpu_vs_f64"),
+            ("card_plain_terms", "card_plain_terms_vs_f64"))}
+        ref = max(worst["cpu"], worst["card_plain_terms"])
+        check(worst["card"] <= 2.0 * ref + 1e-5,
+              "%s: chained step's worst lane over draws %s: card %.3g, "
+              "CPU float32 %.3g, plain terms on the card %.3g"
+              % (kind, list(NET_F64_SEEDS), worst["card"], worst["cpu"],
+                 worst["card_plain_terms"]))
+        out[kind] = dict(f64_draws=draws, f64_chained_worst_lane=worst)
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2724,6 +3212,9 @@ def main() -> None:
     mr_sg_launches = phase_sgpmp("mr_sgpmp", mr, mr_start, mr_goal, 1,
                                  MR_SG_PARAMS, "multirobot_cost", SEED + 3)[0]
     solvers = phase_solvers(*bench_problem("cuda", B))
+    net_terms = phase_net_terms()
+    net_cost = phase_net_cost(il_start, il_goal)
+    net_launches = phase_net_main()
 
     entries = []
     for name, src, rep, res, n in (
@@ -2781,7 +3272,13 @@ def main() -> None:
              solvers["cr"]["launches"]),
             ("gn_assembly", "torch_robotics_tpu_torch/csrc/gn_assembly.cu",
              "torch_robotics_tpu/ops/pallas_gn_assembly.py:85",
-             solvers["gn_assembly"], solvers["gn_assembly"]["launches"])):
+             solvers["gn_assembly"], solvers["gn_assembly"]["launches"]),
+            ("net_terms", "torch_robotics_tpu_torch/csrc/net_row.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", net_terms,
+             net_launches),
+            ("net_cost", "torch_robotics_tpu_torch/csrc/net_row.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029", net_cost,
+             net_cost["launches"])):
         b_ms, b_by = bound_ms(*res["work"])
         entries.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n,

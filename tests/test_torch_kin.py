@@ -47,6 +47,13 @@ def export_jax_task(task):
         ws_limits=np.asarray(task.ws_limits),
         obstacle_cutoff_margin=np.float64(task.obstacle_cutoff_margin),
         objects=[])
+    net = getattr(robot, "self_collision_net", None)
+    if net is not None:
+        out["self_collision_net"] = dict(
+            {"W%d" % i: np.asarray(W) for i, (W, _) in enumerate(net.weights)},
+            **{"b%d" % i: np.asarray(b) for i, (_, b) in enumerate(net.weights)},
+            mean_q=np.asarray(net.mean_q), std_q=np.asarray(net.std_q),
+            scale_out=np.asarray(net.scale_out), activation=net.activation)
     for obj in task.df_obj_list:
         groups = []
         for f in obj.fields:

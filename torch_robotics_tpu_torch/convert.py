@@ -12,7 +12,10 @@ Array dict keys:
   ``joint_types`` (L,), ``parent_idx`` (L,), ``q_map`` (L,),
   ``q_lower`` / ``q_upper`` (d,), optional ``link_names``;
 - collision: ``object_coll_idxs``, ``self_coll_idxs``, ``self_pair_idxs``
-  (K, 2), ``object_margins``, ``self_margins``;
+  (K, 2), ``object_margins``, ``self_margins``, and optionally
+  ``self_collision_net``, a dict of the learned self-collision net's npz
+  keys (``W0``, ``b0``, ..., ``mean_q``, ``std_q``, ``scale_out``) and its
+  ``activation``;
 - workspace: ``ws_limits`` (2, 3), ``obstacle_cutoff_margin`` ();
 - scene: ``objects``, a list of {``pos`` (3,), ``ori`` wxyz (4,),
   ``groups``: [{``kind``: "spheres" | "rounded_boxes" | "sharp_boxes",
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from .core.device import resolve_device
+from .costs.self_collision_net import SelfCollisionNet
 from .envs.base import EnvBase
 from .envs.zoo import make_env
 from .geom.sdf import ObjectField, RoundedBoxes, SharpBoxes, Spheres
@@ -86,6 +90,9 @@ def _robot_from_numpy(arrays: dict, dev, cls=RobotPanda):
         self_pair_idxs=tuple(tuple(int(v) for v in p) for p in
                              np.asarray(arrays["self_pair_idxs"]).reshape(
                                  -1, 2)),
+        self_collision_net=(
+            SelfCollisionNet.from_arrays(arrays["self_collision_net"], dev)
+            if arrays.get("self_collision_net") is not None else None),
     )
 
 
@@ -144,6 +151,8 @@ def _robot_arrays(robot) -> dict:
                                   np.int32).reshape(-1, 2),
         object_margins=_np(robot.object_margins),
         self_margins=_np(robot.self_margins))
+    if robot.self_collision_net is not None:
+        out["self_collision_net"] = robot.self_collision_net.arrays()
     return out
 
 

@@ -33,6 +33,7 @@ import torch
 
 from ..kin.model import (JOINT_CONTINUOUS, JOINT_PRISMATIC, JOINT_REVOLUTE,
                          KinematicModel)
+from .net_kernel import net_rows
 
 __all__ = ["fk_lanes", "fk_positions_lanes", "fk_points_jacobians_lanes",
            "point_jacobians_lanes",
@@ -314,24 +315,32 @@ class TermsLayout:
 
     Used points are the sorted union of object- and self-collision links.
     Rows, in order: one SDF hinge per object point, one workspace-bound
-    hinge per object point, one distance hinge per self-collision pair."""
+    hinge per object point, one distance hinge per self-collision pair.
+    A robot with a learned self-collision net (``net``) has no pair rows
+    and no self-collision points; its one net row relu(``net_cutoff`` -
+    sd(q)) comes last."""
 
     def __init__(self, task):
         robot = task.robot
         self.model = robot.model
+        self.net = getattr(robot, "self_collision_net", None)
+        self.net_cutoff = (None if self.net is None
+                           else float(task._NET_SELF_CUTOFF))
         obj_idxs = list(robot.object_coll_idxs)
-        self_idxs = list(robot.self_coll_idxs or ())
+        self_idxs = ([] if self.net is not None
+                     else list(robot.self_coll_idxs or ()))
         self.used_links = sorted(set(obj_idxs + self_idxs))
         pos = {li: i for i, li in enumerate(self.used_links)}
         self.obj_pos = [pos[li] for li in obj_idxs]
-        pairs = np.asarray(robot.self_pair_idxs, np.int64).reshape(-1, 2)
+        pairs = np.asarray(robot.self_pair_idxs if self.net is None else (),
+                           np.int64).reshape(-1, 2)
         self_pos = [pos[li] for li in self_idxs]
         self.pair_a = [self_pos[a] for a in pairs[:, 0]]
         self.pair_b = [self_pos[b] for b in pairs[:, 1]]
         self.cutoff = float(task.obstacle_cutoff_margin)
         # margin + cutoff, added in float32 like the reference's rows
         self.obj_thresh = robot.object_margins + self.cutoff
-        self.self_margins = robot.self_margins
+        self.self_margins = robot.self_margins[:len(self.pair_a)]
         self.ws_min = task.ws_min
         self.ws_max = task.ws_max
         self.df_obj_list = task.df_obj_list
@@ -344,9 +353,12 @@ class TermsLayout:
         anc = self.model.ancestry_matrix()[self.used_links]    # (P, d)
         pt = anc[self.obj_pos]
         pts = [pt, pt] if self.df_obj_list else [pt]
-        a = np.concatenate(pts + [anc[self.pair_a]])
+        net = [np.ones((1, anc.shape[1]), bool)] if self.net is not None \
+            else []
+        a = np.concatenate(pts + [anc[self.pair_a]] + net)
         b = np.concatenate([np.zeros_like(p) for p in pts]
-                           + [anc[self.pair_b]])
+                           + [anc[self.pair_b]]
+                           + [np.zeros_like(p) for p in net])
         return a, b
 
 
@@ -381,14 +393,16 @@ def _workspace_val_grad(pts, ws_min, ws_max):
     return val, grad
 
 
-def hinge_rows(lay, pts, J):
+def hinge_rows(lay, pts, J, q_cols=None):
     """Hinge rows of collision points pts (P, ws, N) with Jacobians
     J (P, d, ws, N): one SDF row per object point (when the scene has
     objects), one workspace row per object point, one distance row per
-    pair, in that order.  ``lay`` carries ``obj_pos``, ``pair_a``,
-    ``pair_b`` (indices into pts), ``obj_thresh``, ``self_margins``,
-    ``ws_min``, ``ws_max`` and ``df_obj_list``.  -> (r (R, N),
-    Jr (R, d, N))."""
+    pair, in that order, then the learned self-collision net's row of
+    q_cols (d, N) where ``lay.net`` is set (q_cols is then required).
+    ``lay`` carries ``obj_pos``, ``pair_a``, ``pair_b`` (indices into
+    pts), ``obj_thresh``, ``self_margins``, ``ws_min``, ``ws_max``,
+    ``df_obj_list``, ``net`` and ``net_cutoff``.
+    -> (r (R, N), Jr (R, d, N))."""
     N = pts.shape[-1]
     rows_r, rows_J = [], []
 
@@ -414,6 +428,13 @@ def hinge_rows(lay, pts, J):
         rows_r.append(r_s)
         rows_J.append(-act[:, None, :]
                       * _contract3(u, J[lay.pair_a] - J[lay.pair_b]))
+    if lay.net is not None:
+        if q_cols is None:
+            raise ValueError("a layout with a learned self-collision net "
+                             "needs q_cols for its row")
+        r_n, Jr_n = net_rows(lay.net, q_cols, lay.net_cutoff)
+        rows_r.append(r_n[None])
+        rows_J.append(Jr_n[None])
     return torch.cat(rows_r), torch.cat(rows_J)
 
 
@@ -425,6 +446,7 @@ class PointMassLayout:
     def __init__(self, task):
         self.obj_pos = [0]
         self.pair_a, self.pair_b = [], []
+        self.net = None
         self.obj_thresh = (task.robot.object_margins
                            + float(task.obstacle_cutoff_margin))
         self.ws_min = task.ws_min
@@ -475,11 +497,12 @@ def obstacle_terms_lanes_factory(task):
     def residual_rows(q_cols):
         """q_cols (d, N) -> hinge residuals r (R, N) and their Jacobians
         Jr (R, d, N), rows in TermsLayout's order (the object SDF rows only
-        when the scene has objects)."""
-        return hinge_rows(lay, *points_and_jacobians(q_cols))
+        when the scene has objects, the net row only with a net)."""
+        return hinge_rows(lay, *points_and_jacobians(q_cols), q_cols)
 
     terms.unscaled = unscaled_terms
     terms.rows = residual_rows
+    terms.layout = lay
     return terms
 
 
@@ -554,6 +577,7 @@ class MultiRobotLayout:
         self.pair_a, self.pair_b = list(pairs[:, 0]), list(pairs[:, 1])
         self.obj_thresh = robot.object_margins + self.cutoff
         self.self_margins = robot.self_margins
+        self.net = None      # a member's net: terms_kernel raises
 
     def point_joints(self):
         """(P, d) bool over the full collision layout: the joints that move

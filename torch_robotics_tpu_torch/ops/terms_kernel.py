@@ -20,6 +20,11 @@ version; a CUDA tensor launches the kernel or raises.
 (N,)``, 0.5 sum r^2 over the same rows, unscaled, with the same dispatch.
 It is not differentiable: solvers that need gradients use the terms.
 
+A robot with a learned self-collision net has no pair rows in either
+kernel's packed parameters; on a CUDA tensor its net row is added after
+the terms kernel or the cost kernel by ``ops/net_kernel.py``'s kernels
+(``csrc/net_row.cu``), in place into their unscaled outputs.
+
 For a ``MultiRobot`` the terms come from ``multirobot_terms_kernel_factory``
 with the same contract: its CUDA source is ``csrc/mr_terms.cu`` (which
 replaces ``_multirobot_terms_pallas_factory``), its plain version
@@ -40,6 +45,7 @@ from .cuda_build import CudaKernel
 from .lanes_fk import (MultiRobotLayout, TermsLayout, embed_terms,
                        obstacle_terms_lanes_factory,
                        obstacle_terms_lanes_multirobot_factory)
+from .net_kernel import NetRowParams, add_net_cost, add_net_terms
 
 __all__ = ["KERNEL", "COST_KERNEL", "MR_KERNEL", "MR_COST_KERNEL", "MAX_DOF",
            "MR_MAX_MEMBERS", "obstacle_terms_kernel_factory",
@@ -502,21 +508,20 @@ def _kernel_params(task):
     """(d, ints, floats, plain terms) of a task the terms.cu kernels take,
     or None where the reference's fused factories return None (a point
     mass, robots without a kinematic model, interpolated collision points).
-    The learned self-collision row, grid-SDF scenes and grasped-object
-    points are not in the kernels yet and raise NotImplementedError."""
+    Grid-SDF scenes and grasped-object points are not in the kernels yet
+    and raise NotImplementedError.  A robot with a learned self-collision
+    net packs no pair rows (its net row runs in ``csrc/net_row.cu``)."""
     from ..robots.point_mass import RobotPointMass
     robot = task.robot
     if isinstance(robot, RobotPointMass):
         return None
     if not hasattr(robot, "model") or robot.object_interpolate:
         return None
-    if getattr(robot, "self_collision_net", None) is not None:
-        raise NotImplementedError(
-            "the learned self-collision row is not in the CUDA terms kernel")
     if getattr(robot, "grasped_n_points", 0) > 0:
         raise NotImplementedError(
             "grasped-object points are not in the CUDA terms kernel")
-    lay = TermsLayout(task)
+    plain = obstacle_terms_lanes_factory(task)
+    lay = plain.layout
     d = lay.model.n_dofs
     if d > MAX_DOF or lay.model.n_links > _MAX_LINKS:
         raise NotImplementedError(
@@ -525,12 +530,13 @@ def _kernel_params(task):
     ints_np, floats_np = pack_terms_params(lay)
     ints = torch.as_tensor(ints_np, device=task.device)
     floats = torch.as_tensor(floats_np, device=task.device)
-    return d, ints, floats, obstacle_terms_lanes_factory(task)
+    return d, ints, floats, plain
 
 
 def obstacle_terms_kernel_factory(task):
     """GN obstacle terms of a kinematic robot in an analytic primitive
-    scene, through the CUDA terms kernel for CUDA tensors (None and
+    scene, through the CUDA terms kernel for CUDA tensors, followed by the
+    net row kernel for a robot with a learned self-collision net (None and
     NotImplementedError as ``_kernel_params``); a ``MultiRobot`` goes to
     ``multirobot_terms_kernel_factory``."""
     from ..robots.multi_robot import MultiRobot
@@ -540,42 +546,58 @@ def obstacle_terms_kernel_factory(task):
     if params is None:
         return None
     d, ints, floats, plain = params
-
-    def terms(q_cols, lam, h=None):
-        if q_cols.device.type == "cpu":
-            return plain(q_cols, lam, h=h)
-        return embed_terms(*run_terms_kernel(q_cols, ints, floats, d), lam,
-                           h=h)
+    lay = plain.layout
+    net_row = (None if lay.net is None
+               else NetRowParams(lay.net, lay.net_cutoff, task.device))
 
     def unscaled(q_cols):
         if q_cols.device.type == "cpu":
             return plain.unscaled(q_cols)
-        return run_terms_kernel(q_cols, ints, floats, d)
+        out = run_terms_kernel(q_cols, ints, floats, d)
+        if net_row is not None:
+            add_net_terms(net_row, q_cols, *out)
+        return out
+
+    def terms(q_cols, lam, h=None):
+        if q_cols.device.type == "cpu":
+            return plain(q_cols, lam, h=h)
+        return embed_terms(*unscaled(q_cols), lam, h=h)
 
     terms.unscaled = unscaled
     terms.plain = plain
     terms.params = params
+    terms.net_row = net_row
     return terms
 
 
 def collision_cost_kernel_factory(task, terms=None):
     """Per-waypoint collision cost 0.5 sum r^2 (unscaled) of the same tasks
     as the terms, through the CUDA cost kernel (``cost.cu``) for CUDA
-    tensors (on the members' parameters for a ``MultiRobot``, with the
+    tensors, followed by the value-only net row kernel for a robot with a
+    learned self-collision net (on the members' parameters for a
+    ``MultiRobot``, with the
     NotImplementedError cases of ``multirobot_terms_kernel_factory``); the
     plain version is the cost output of the plain terms.  ``terms``, the
     task's hook from ``obstacle_terms_kernel_factory``, lends its plain
-    terms, so they are built once per task."""
+    terms, their layout and its net row, so they are built once per task
+    (without it, the hook is built here)."""
     from ..robots.multi_robot import MultiRobot
     if isinstance(task.robot, MultiRobot):
         return _multirobot_cost_factory(task, terms)
-    params = (terms.params if hasattr(terms, "params")
-              else _kernel_params(task))
-    if params is None:
-        return None
-    d, _, _, plain_terms = params
-    return _cost_fn(pack_cost_params(TermsLayout(task)), task.device, d,
-                    plain_terms, run_cost_kernel)
+    if not hasattr(terms, "params"):
+        terms = obstacle_terms_kernel_factory(task)
+        if terms is None:
+            return None
+    d, _, _, plain_terms = terms.params
+    net_row = terms.net_row
+    run = run_cost_kernel
+    if net_row is not None:
+        def run(q_cols, ints, floats, d, launch):
+            cost = run_cost_kernel(q_cols, ints, floats, d, launch)
+            add_net_cost(net_row, q_cols, cost)
+            return cost
+    return _cost_fn(pack_cost_params(plain_terms.layout), task.device, d,
+                    plain_terms, run)
 
 
 def _cost_fn(packed, device, d, plain_terms, run):

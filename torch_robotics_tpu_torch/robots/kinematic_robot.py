@@ -33,6 +33,9 @@ class KinematicRobot(RobotAPI):
     object_coll_idxs: tuple = ()
     self_coll_idxs: tuple = ()
     self_pair_idxs: tuple = ()          # tuple of (i, j) into self points
+    # learned self-collision SDF (costs.SelfCollisionNet): when set, its one
+    # row per waypoint replaces the self-collision pair rows
+    self_collision_net: object = None
     name: str = "KinematicRobot"
 
     @classmethod

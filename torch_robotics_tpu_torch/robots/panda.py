@@ -3,8 +3,9 @@
 
 Object-collision links {panda_link2,3,5,7,hand} with margins
 {.125,.125,.13,.1,.08}, and the reference's self-collision pair table.
-The grasped object and the learned self-collision net wait for a later
-slice.
+``use_learned_self_collision`` swaps the pair rows for the learned
+self-collision net (the reference's STORM override).  The grasped object
+waits for a later slice.
 """
 from __future__ import annotations
 
@@ -13,7 +14,9 @@ from collections import OrderedDict
 
 import torch
 
+from ..costs.self_collision_net import SelfCollisionNet
 from ..kin import robot_zoo
+from ..utils.files import get_data_path
 from .base import build_object_margins, build_self_collision_pairs
 from .kinematic_robot import KinematicRobot
 
@@ -44,9 +47,22 @@ class RobotPanda(KinematicRobot):
 
     @classmethod
     def create(cls, self_collision_margin_robot: float = 0.05,
+               use_learned_self_collision: bool = False,
+               self_collision_net_path=None,
                device="cuda") -> "RobotPanda":
+        """``use_learned_self_collision`` loads the learned self-collision
+        net (the bundled ``panda_self_collision_net.npz``, read in place,
+        or ``self_collision_net_path``); its row replaces the pair rows,
+        whose table is still built, as in the reference."""
         model = robot_zoo.franka_panda(device=device)
         dev = model.device
+        net = None
+        if use_learned_self_collision:
+            if self_collision_net_path is None:
+                self_collision_net_path = (get_data_path()
+                                           / "panda_self_collision_net.npz")
+            net = SelfCollisionNet.from_npz(self_collision_net_path,
+                                            device=dev)
         name_to_idx = {n: i for i, n in enumerate(model.link_names)}
         object_coll_idxs = tuple(name_to_idx[n]
                                  for n in PANDA_OBJECT_COLL_LINKS)
@@ -73,4 +89,5 @@ class RobotPanda(KinematicRobot):
             object_coll_idxs=object_coll_idxs,
             self_coll_idxs=self_coll_idxs,
             self_pair_idxs=tuple(map(tuple, pair_idxs.tolist())),
+            self_collision_net=net,
         )

@@ -14,8 +14,10 @@ Residual values and Jacobians, the collision checks and the metrics are
 plain PyTorch on every device, as they are plain XLA in the reference.
 Single kinematic robots, ``MultiRobot``s (several arms at fixed base
 poses, with mutual-collision pairs) and point masses in 2-D or 3-D scenes
-are covered.
-Occupancy maps and the learned self-collision net are not ported yet.
+are covered.  A robot with a learned self-collision net (the reference's
+STORM-style Panda) has the net's one row in place of the pair rows, and
+its collision check is the net's fixed-threshold test.
+Occupancy maps and the 'sdf' cost are not ported yet.
 """
 from __future__ import annotations
 
@@ -39,7 +41,9 @@ class CollisionResiduals:
     relu(margin + cutoff - min-object-SDF) row per object point, one
     relu(margin + cutoff - min-face distance) row per object point, one
     relu(margin - pair distance) row per self-collision pair, in that
-    order.  Attributes, as the reference's residual function carries them:
+    order; with a learned self-collision net, no pair rows and a last row
+    relu(``PlanningTask._NET_SELF_CUTOFF`` - sd(q)).  Attributes, as the
+    reference's residual function carries them:
 
     - ``supports_batch``: True, one call takes the whole flattened batch;
     - ``residuals_and_jacobian(q) -> (r (..., P), J (..., P, d))``, rows in
@@ -94,6 +98,12 @@ class CollisionResiduals:
 
 
 class PlanningTask:
+    # the reference's self-collision fields use their own cutoff margin;
+    # the net's hinge row is built with it
+    _NET_SELF_CUTOFF = 0.001
+    # occupancy threshold of the learned net (trained at 0.02)
+    _NET_SELF_COLL_THRESHOLD = -0.05
+
     def __init__(self, env=None, robot=None, ws_limits=None,
                  use_occupancy_map: bool = False,
                  obstacle_cutoff_margin: float = 0.01):
@@ -114,15 +124,17 @@ class PlanningTask:
         self.df_obj_list = env.get_df_obj_list()
         self.collision_residuals = CollisionResiduals(self)
 
+    @property
+    def self_collision_net(self):
+        return getattr(self.robot, "self_collision_net", None)
+
     # ------------------------------------------------------------------
     # collision checks
     # ------------------------------------------------------------------
     def _compute_collision(self, q, margin_override: Optional[float] = None):
         """'occupancy' check: q (..., d) -> bool (...).  With
-        ``margin_override`` every margin is that value and the cutoff 0."""
-        if getattr(self.robot, "self_collision_net", None) is not None:
-            raise NotImplementedError(
-                "the learned self-collision net is not ported yet")
+        ``margin_override`` every margin is that value and the cutoff 0; a
+        learned self-collision net's test keeps its fixed threshold."""
         link_pos = self.robot.fk_map_collision(q)
         obj_pts = self.robot.object_collision_points(link_pos)
         self_pts = self.robot.self_collision_points(link_pos)
@@ -135,7 +147,10 @@ class PlanningTask:
             obj_margins = self_margins = margin_override
             cutoff = 0.0
         coll = torch.zeros(q.shape[:-1], dtype=torch.bool, device=q.device)
-        if self_pts is not None:
+        net = self.self_collision_net
+        if net is not None:
+            coll = coll | net.collision(q, self._NET_SELF_COLL_THRESHOLD)
+        elif self_pts is not None:
             coll = coll | self_collision_any(
                 self_pts, np.asarray(self.robot.self_pair_idxs),
                 self_margins)
