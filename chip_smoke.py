@@ -3,8 +3,10 @@ the GPMP2-MPC main path (phases 2-6), the batched iLQR path (phases 7-11),
 the multi-robot MPC path (phases 12-15), the point-mass batch solve with
 GN factorization reuse and the point-cloud SDF (phases 16-20), sGPMP
 for the Panda and the config-4 robot with the solvers nothing routes to
-(phases 21-25), and the learned self-collision Panda's net row through
-the terms, the cost and the main path (phases 26-28).
+(phases 21-25), the learned self-collision Panda's net row through
+the terms, the cost and the main path (phases 26-28), and the scenes
+whose spheres are precomputed into an SDF grid, with the grid branch of
+K1, K5 and K8 (phases 29-32).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -173,6 +175,33 @@ final line):
              worst lane, chaotic in float32, over the four draws together,
              at most twice that of the CPU's or the plain terms' on the
              card.
+29. grid_main - the grid scene's main path (benchmarks/grid_sdf_bench.py
+             "panda_spheres3d"): EnvSpheres3D precomputed into a 0.01 m
+             grid (200^3 cells, its precompute timed), the Panda at B =
+             4096, H = 64 from the joint-range midpoint to 0.5 rad past
+             it, 8 chained GN steps of the bench's GPMP2Params in the
+             grid scene and in the analytic one: exactly one K1 and one
+             K2 launch a step, finite outputs, ms per GN step, solves/s
+             (two GN steps a solve), a profile each; the first 512
+             trajectories held to a float64 CPU run (phase cpu's rule, two
+             steps from the card's input and chained), the CPU task
+             carried across by convert.py with the card's grid values.
+30. grid_terms - K1's grid branch vs its plain version on random q (N =
+             65,536) and on grid_main's first q (N = 262,144), timed on
+             both: a lane may be off the terms tolerance only where one of
+             its object points (the plain FK's) lies within 1e-4 cell
+             widths of a cell face, at most 0.1% of the lanes.
+31. grid_cost - K8's grid branch vs plain at the same rule on random q (N
+             = 79,360) and on the sGPMP Panda's first candidates in the
+             grid scene (N = 2,097,152), a lane's bits at a ragged N and
+             at 32 lanes a block, timed; then sGPMP on the Panda in the
+             grid scene (phase sgpmp's workload): exactly 201 K8
+             launches.
+32. mr_grid - config 4's robot in the grid scene: K5 vs plain on the
+             path's first q (N = 8192) and K8's MultiRobot branch on the
+             sGPMP candidates (N = 131,072), timed; two MPC steps (exactly
+             4 K5 and 4 K4 launches); config 4's sGPMP in the grid scene:
+             exactly 201 K8-MultiRobot launches.
 
 Then one JSON line with every kernel's numbers (launches from phase 4 for
 K1 and K2, from phase 9 for K6, K7 and K8 at N = 79360, from phase 21 for
@@ -181,8 +210,10 @@ for K9 (the k = 2 and k = 4 runs together), from phase 20's query for
 K10, from phase 24 for K8's MultiRobot branch at both of its shapes, from
 one call each on the main path's inputs for K3, K11 and K12, from
 phase 28's spread-net run for the net-terms row and from phase 27's sGPMP
-run for the net-cost row), the nvidia-smi line, and the final {"ok":
-true, "device": ...} line.
+run for the net-cost row; the grid branches from phase 29's grid run
+for K1, phase 31's sGPMP for K8 and phase 32's MPC steps and sGPMP for
+K5 and K8-MultiRobot), the nvidia-smi line, and the final {"ok": true,
+"device": ...} line.
 """
 from __future__ import annotations
 
@@ -300,6 +331,22 @@ NET_SCALED_OUT = 0.05
 # block (the bundled net takes 32), and the lanes they run on
 NET_WIDE = ((7, 1024, 1024, 1), (7, 2048, 2048, 1), (7, 4096, 4096, 1))
 NET_WIDE_N = 8192
+# the grid scene: benchmarks/grid_sdf_bench.py "panda_spheres3d" (EnvSpheres3D
+# with its spheres precomputed into a 0.01 m grid, 200^3 cells; B = 4096,
+# H = 64, the start at the joint-range midpoint, the goal 0.5 rad past it),
+# chained GN steps timed over GRID_STEPS; its float64 hold on the first
+# GRID_F64_B trajectories (CPU memory); K1 vs plain at GRID_TERMS_N
+GRID_B, GRID_H, GRID_CELL, GRID_CUTOFF, GRID_STEPS = 4096, 64, 0.01, 0.02, 8
+GRID_GP = dict(n_support_points=GRID_H, dt=0.04, sigma_start=1e-3,
+               sigma_gp=1e-1, sigma_goal_prior=1e-2, sigma_coll=5e-4,
+               step_size=0.8)
+GRID_F64_B, GRID_TERMS_N = 512, 65536
+# kernel vs plain in a grid scene: a lane may be off the terms tolerance
+# only where one of its object points lies within GRID_FACE_TOL cell widths
+# of a cell face (judged from the plain version's points: there an ulp of
+# float32 FK picks the neighbouring cell), at most GRID_FACE_SHARE of the
+# lanes; float ops of one grid lookup (cell index, clamp, flat index)
+GRID_FACE_TOL, GRID_FACE_SHARE, GRID_LOOKUP_OPS = 1e-4, 1e-3, 22
 
 
 def emit(phase: str, **fields) -> None:
@@ -401,7 +448,8 @@ def terms_work(lay, q, r):
     """(bytes, float ops) that the terms function needs on q (d, N), whose
     residual rows (the plain version's ``rows``) are r (R, N).
 
-    Bytes: q (d, N) in, g (d, N), Hqq (d, d, N), cost (N) out.  Ops every
+    Bytes: q (d, N) in, g (d, N), Hqq (d, d, N), cost (N) out, and in a
+    grid scene one 16-byte grid row per object point and grid.  Ops every
     lane needs: FK compose (~132 per revolute link, ~63 per fixed), world
     joint axes (18 per joint), the scene SDF of each object point (15 per
     point and object + ~10 / 25 / 12 per sphere / rounded box / sharp
@@ -416,7 +464,7 @@ def terms_work(lay, q, r):
     d, N = q.shape
     ctrl = list(model.controlled_link_idxs())
     per_lane = lane_ops(lay, r.shape[0]) + 18 * d
-    return (4 * N * (2 * d + d * d + 1),
+    return (4 * N * (2 * d + d * d + 1) + grid_row_bytes(lay, N),
             per_lane * N + active_row_ops(lay.row_joints(),
                                           model.clamp_lower[ctrl],
                                           model.clamp_upper[ctrl], q, r))
@@ -444,12 +492,21 @@ def active_row_ops(row_joints, clamp_lo, clamp_hi, q, r) -> int:
                 + (2 + 2 * k + k * (k + 1)) * act[:, 0]).sum())
 
 
+def grid_row_bytes(lay, N: int) -> int:
+    """Bytes of the grid rows the function needs on N lanes: one 16-byte
+    table row per object point and grid in the scene."""
+    from torch_robotics_tpu_torch.geom import GridSDF
+    n_grids = sum(isinstance(o, GridSDF) for o in lay.df_obj_list)
+    return 16 * len(lay.obj_pos) * n_grids * N
+
+
 def lane_ops(lay, n_rows: int, per_row: int = 2) -> int:
     """Float ops every waypoint lane needs for the rows' values: FK compose
     (~132 per revolute link, ~63 per fixed), the scene SDF of each object
     point (15 per point and object + ~10 / 25 / 12 per sphere / rounded
-    box / sharp box), its workspace distance (12), each pair's distance
-    (12) and ``per_row`` per residual row."""
+    box / sharp box, or GRID_LOOKUP_OPS per grid), its workspace distance
+    (12), each pair's distance (12) and ``per_row`` per residual row."""
+    from torch_robotics_tpu_torch.geom import GridSDF
     from torch_robotics_tpu_torch.geom.sdf import RoundedBoxes, Spheres
     model = lay.model
     n_rev = sum(1 for t in model.joint_types if t != 0)
@@ -457,6 +514,9 @@ def lane_ops(lay, n_rows: int, per_row: int = 2) -> int:
     ops = (132 * n_rev + 63 * (model.n_links - n_rev)
            + 12 * (n_obj + n_pair) + per_row * n_rows)
     for obj in lay.df_obj_list:
+        if isinstance(obj, GridSDF):
+            ops += n_obj * GRID_LOOKUP_OPS
+            continue
         ops += n_obj * 15
         for f in obj.fields:
             per = 10 if isinstance(f, Spheres) else (
@@ -467,9 +527,9 @@ def lane_ops(lay, n_rows: int, per_row: int = 2) -> int:
 
 def cost_work(lay, N: int, n_rows: int):
     """(bytes, float ops) of the value-only cost on N lanes: q (d, N) in,
-    cost (N) out; per lane the rows' values, and a hinge (2) and a square
-    and add (2) per row."""
-    return (4 * N * (lay.model.n_dofs + 1),
+    cost (N) out, the grid rows (grid_row_bytes); per lane the rows'
+    values, and a hinge (2) and a square and add (2) per row."""
+    return (4 * N * (lay.model.n_dofs + 1) + grid_row_bytes(lay, N),
             lane_ops(lay, n_rows, per_row=4) * N)
 
 
@@ -580,7 +640,7 @@ def mr_terms_work(lay, q, r):
                           for m, c in zip(lay.members, ctrl)])
     chi = np.concatenate([m.model.clamp_upper[c]
                           for m, c in zip(lay.members, ctrl)])
-    return (4 * N * (2 * d + d * d + 1),
+    return (4 * N * (2 * d + d * d + 1) + grid_row_bytes(lay, N),
             per_lane * N + active_row_ops(lay.row_joints(), clo, chi, q, r))
 
 
@@ -592,6 +652,7 @@ def mr_lane_ops(lay, n_rows: int, per_row: int = 2, axes: bool = True):
     each object point (15 per point and object + ~10 per sphere), its
     workspace distance (12), each pair's distance (12) and ``per_row`` per
     residual row."""
+    from torch_robotics_tpu_torch.geom import GridSDF
     from torch_robotics_tpu_torch.geom.sdf import Spheres
     n_pts = len(lay.point_joints())
     n_obj, n_pair = len(lay.obj_pos), len(lay.pair_a)
@@ -602,6 +663,9 @@ def mr_lane_ops(lay, n_rows: int, per_row: int = 2, axes: bool = True):
         per_lane += (132 * n_rev + 63 * (model.n_links - n_rev)
                      + (48 * model.n_dofs if axes else 0))
     for obj in lay.df_obj_list:
+        if isinstance(obj, GridSDF):
+            per_lane += n_obj * GRID_LOOKUP_OPS
+            continue
         per_lane += n_obj * 15
         for f in obj.fields:
             if not isinstance(f, Spheres):
@@ -615,7 +679,8 @@ def mr_cost_work(lay, N: int, n_rows: int):
     (d, N) in, cost (N) out; per lane the rows' values without joint axes,
     and a hinge (2) and a square and add (2) per row."""
     d = int(lay.d_off[-1])
-    return 4 * N * (d + 1), mr_lane_ops(lay, n_rows, 4, axes=False) * N
+    return (4 * N * (d + 1) + grid_row_bytes(lay, N),
+            mr_lane_ops(lay, n_rows, 4, axes=False) * N)
 
 
 def sweep_work(H_: int, m: int, B_: int, trsv: bool):
@@ -1385,7 +1450,8 @@ def same_lane_bits(name, cost, run, q, n_ragged: int = 1000):
     ragged = cost(q[:, :n_ragged].contiguous())
     check(torch.equal(ragged, full[:n_ragged]),
           name + ": a lane's bits change with the batch")
-    check(torch.equal(run(q, ints, floats, d, lanes=32), full),
+    check(torch.equal(run(q, ints, floats, d, lanes=32, grid=cost.grid),
+                      full),
           name + ": a lane's bits change with the lanes a block")
 
 
@@ -1663,9 +1729,9 @@ def phase_ilqr_mpc(task, start, goal, plan):
 # ----------------------------------------------------------------------
 # the multi-robot path: benchmarks/run_all.py config_multi_robot (config 4)
 # ----------------------------------------------------------------------
-def mr_task(device, poses=MR_POSES):
+def mr_task(device, poses=MR_POSES, env=None):
     """The config-4 robot (two Pandas and a UR10 at their base poses) in
-    EnvSpheres3D at cutoff 0.02."""
+    EnvSpheres3D (or ``env``) at cutoff 0.02."""
     import torch
     from torch_robotics_tpu_torch.core import z_rot
     from torch_robotics_tpu_torch.envs import EnvSpheres3D
@@ -1678,8 +1744,8 @@ def mr_task(device, poses=MR_POSES):
         [make[k]() for k, _, _ in poses],
         [(z_rot(torch.tensor(yaw, dtype=torch.float32)),
           torch.tensor([x, y, 0.0])) for _, (x, y), yaw in poses])
-    return PlanningTask(env=EnvSpheres3D(device=device), robot=robot,
-                        obstacle_cutoff_margin=0.02)
+    return PlanningTask(env=EnvSpheres3D(device=device) if env is None
+                        else env, robot=robot, obstacle_cutoff_margin=0.02)
 
 
 def mr_problem(device, n_batch: int = MR_B):
@@ -3163,6 +3229,311 @@ def net_f64(spread, q_main):
     return out
 
 
+# ----------------------------------------------------------------------
+# the grid scene (phases grid_main, grid_terms, grid_cost, mr_grid)
+# ----------------------------------------------------------------------
+def grid_env():
+    """EnvSpheres3D on the card with its spheres precomputed into a
+    GRID_CELL grid -> (env, precompute seconds)."""
+    import torch
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    env = EnvSpheres3D(precompute_sdf_obj_fixed=True, sdf_cell_size=GRID_CELL,
+                       device="cuda")
+    torch.cuda.synchronize()
+    return env, time.perf_counter() - t0
+
+
+def grid_start_goal(robot, n: int):
+    """grid_sdf_bench.py's problem: every lane starts at the joint-range
+    midpoint at rest, its goal clip(mid + 0.5) at rest."""
+    import torch
+    q0 = 0.5 * (robot.q_min + robot.q_max)
+    qg = torch.maximum(torch.minimum(q0 + 0.5, robot.q_max), robot.q_min)
+    z = torch.zeros_like(q0)
+    return (torch.cat([q0, z]).expand(n, -1).contiguous(),
+            torch.cat([qg, z]).expand(n, -1).contiguous())
+
+
+def grid_chain(task, theta0, start, goal, n_steps):
+    """n_steps chained gpmp2_step calls -> (theta, cost of the last)."""
+    from torch_robotics_tpu_torch.solve import GPMP2Params, gpmp2_step
+    params = GPMP2Params(**GRID_GP)
+    th, cost = theta0, None
+    for _ in range(n_steps):
+        th, cost = gpmp2_step(task.collision_residuals, th, start, goal,
+                              params)
+    return th, cost
+
+
+def hold_grid(name, got, ref, near):
+    """A grid-branch kernel's outputs (tuples of (..., N)) vs its plain
+    version at the terms tolerance: a lane off it must be a lane with a
+    point near a cell face (near (N,) bool), at most GRID_FACE_SHARE of the
+    lanes -> dict(max abs error over the other lanes, relative to max|ref|,
+    lanes off).  (A point that does not move with q, such as the Panda's
+    base link at x = y = 0, may sit on a face in every lane: its cell is
+    the same in both versions.)"""
+    import torch
+    off = torch.zeros_like(near)
+    for g, r in zip(got, ref):
+        check(bool(torch.isfinite(g).all()), name + ": non-finite output")
+        tol = TERMS_ATOL_REL * float(r.abs().max()) + TERMS_RTOL * r.abs()
+        off |= ((g - r).abs() > tol).reshape(-1, near.shape[0]).any(0)
+    n_off = int(off.sum())
+    check(not bool((off & ~near).any()),
+          "%s: kernel and plain version disagree on a lane away from every "
+          "cell face" % name)
+    check(n_off <= GRID_FACE_SHARE * near.shape[0],
+          "%s: %d lanes off at cell faces (at most %.1f%%)"
+          % (name, n_off, 100 * GRID_FACE_SHARE))
+    keep = ~off
+    abs_err = max(float((g - r).reshape(-1, near.shape[0])[:, keep].abs()
+                        .max()) for g, r in zip(got, ref))
+    rel = max(float((g - r).reshape(-1, near.shape[0])[:, keep].abs().max())
+              / (float(r.abs().max()) + 1e-30) for g, r in zip(got, ref))
+    return dict(abs=abs_err, rel_to_max=rel, lanes_off=n_off)
+
+
+def object_points_near_face(task, q):
+    """(N,) bool: a lane of q (d, N) has an object collision point (the
+    plain FK's) within GRID_FACE_TOL cell widths of a face of a grid."""
+    from torch_robotics_tpu_torch.geom import GridSDF
+    pts = task.robot.object_collision_points(
+        task.robot.fk_map_collision(q.T))                   # (N, P, 3)
+    near = None
+    for g in task.df_obj_list:
+        if isinstance(g, GridSDF):
+            m = g.near_face(pts, GRID_FACE_TOL).any(-1)
+            near = m if near is None else near | m
+    return near
+
+
+def grid_f64_hold(task_c, theta0, start, goal):
+    """The card's first GRID_F64_B trajectories held to a float64 CPU run of
+    those trajectories from the same input, beside a CPU float32 run, at
+    phase cpu's rule (hold_to_f64): each of ITERS_PER_STEP GN steps from
+    the card's input, and the chain of them from the straight lines.  The
+    CPU task is the card's carried across (convert.py), so both read the
+    same grid values (cast to float64 in the float64 run)."""
+    from torch_robotics_tpu_torch.convert import task_arrays, task_from_numpy
+    n = GRID_F64_B
+    task_h = task_from_numpy(task_arrays(task_c), device="cpu")
+    s_h, g_h = start[:n].cpu(), goal[:n].cpu()
+    iters, theta = [], theta0
+    for it in range(ITERS_PER_STEP):
+        th_c, cost_c = grid_chain(task_c, theta, start, goal, 1)
+        th_in = theta[:n].cpu()
+        th_h, cost_h = grid_chain(task_h, th_in, s_h, g_h, 1)
+        th_64, _ = grid_chain(task_h, th_in.double(), s_h.double(),
+                              g_h.double(), 1)
+        gaps = theta_gaps(th_c[:n], th_h, th_64)
+        hold_to_f64("grid_main iteration %d" % it, gaps)
+        iters.append(dict(gaps, cost_rel_err=float(
+            ((cost_c[:n].cpu() - cost_h).abs()
+             / cost_h.abs().clamp(min=1e-30)).max())))
+        theta = th_c
+    th0 = theta0[:n].cpu()
+    chained = theta_gaps(
+        grid_chain(task_c, theta0, start, goal, ITERS_PER_STEP)[0][:n],
+        grid_chain(task_h, th0, s_h, g_h, ITERS_PER_STEP)[0],
+        grid_chain(task_h, th0.double(), s_h.double(), g_h.double(),
+                   ITERS_PER_STEP)[0])
+    hold_to_f64("grid_main chained", chained)
+    return dict(B=n, iterations=iters, chained=chained)
+
+
+def phase_grid_main():
+    """The grid scene's main path (grid_sdf_bench.py "panda_spheres3d"):
+    the grid's precompute, then GRID_STEPS chained GN steps at B = 4096, H
+    = 64 in the grid scene and in the analytic scene: exactly one K1 and
+    one K2 launch a step and nothing else, finite outputs, ms per GN step
+    (CUDA events), solves/s (two GN steps a solve, as the bench counts
+    them), a profile; then the float64 hold (grid_f64_hold) -> (task,
+    theta0, start, goal, env, K1 launches of the grid run)."""
+    import torch
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.solve import straight_line_trajs
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    robot = RobotPanda.create(device="cuda")
+    env, pre_s = grid_env()
+    grid = env.grid_map_sdf_obj_fixed
+    tasks = {"grid": PlanningTask(env=env, robot=robot,
+                                  obstacle_cutoff_margin=GRID_CUTOFF),
+             "analytic": PlanningTask(env=EnvSpheres3D(device="cuda"),
+                                      robot=robot,
+                                      obstacle_cutoff_margin=GRID_CUTOFF)}
+    start, goal = grid_start_goal(robot, GRID_B)
+    theta0 = straight_line_trajs(start, goal, GRID_H)
+    out = {}
+    for mode, task in tasks.items():
+        grid_chain(task, theta0, start, goal, 1)               # warm-up
+        (th, cost), launches, ms = counted(
+            lambda: grid_chain(task, theta0, start, goal, GRID_STEPS))
+        check(launches == {"terms": GRID_STEPS, "btridiag_w": GRID_STEPS},
+              "grid_main %s launches %s, expected one K1 and one K2 a step"
+              % (mode, launches))
+        check(bool(torch.isfinite(th).all()) and bool(
+            torch.isfinite(cost).all()), "grid_main %s: non-finite" % mode)
+        busy, dev_ms, top = profile_device(
+            lambda: grid_chain(task, theta0, start, goal, 2), 2)
+        step_ms = ms / GRID_STEPS
+        out[mode] = dict(ms_per_gn_step=step_ms,
+                         solves_per_s=GRID_B / (step_ms / 1e3) / 2,
+                         launches=launches,
+                         mean_cost_last=float(cost.mean()),
+                         profiled_device_busy_share=busy,
+                         profiled_device_ms_per_step=dev_ms,
+                         top_device_ms_per_step=top)
+    hold = grid_f64_hold(tasks["grid"], theta0, start, goal)
+    emit("grid_main", B=GRID_B, H=GRID_H, cell=GRID_CELL,
+         grid_cells=grid.n_cells, grid_precompute_s=pre_s,
+         grid_table_bytes=grid.table().numel() * 4, steps=GRID_STEPS,
+         grid=out["grid"], analytic=out["analytic"],
+         grid_vs_analytic=(out["grid"]["ms_per_gn_step"]
+                           / out["analytic"]["ms_per_gn_step"]),
+         f64_hold=hold)
+    return (tasks["grid"], theta0, start, goal, env,
+            out["grid"]["launches"]["terms"])
+
+
+def phase_grid_terms(task, theta0):
+    """K1's grid branch vs its plain version (hold_grid) on random q at N =
+    GRID_TERMS_N and on grid_main's first q (N = H B = 262,144); timed on
+    the latter, with its work counted."""
+    from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
+    terms = task.collision_residuals.obstacle_terms_lanes
+    check(terms.grid is not None, "the grid task's terms have no grid table")
+    # the path's first q: the straight-line plans, h-major lanes
+    q_main = theta0[..., :7].permute(2, 1, 0).reshape(7, -1).contiguous()
+    results = {}
+    for name, q in (("random_q_N%d" % GRID_TERMS_N,
+                     random_q(task, GRID_TERMS_N, seed=21)),
+                    ("main_q_N%d" % q_main.shape[1], q_main)):
+        results[name] = hold_grid(name, terms.unscaled(q),
+                                  terms.plain.unscaled(q),
+                                  object_points_near_face(task, q))
+    k_ms = cuda_ms(lambda: terms.unscaled(q_main), iters=50)
+    p_ms = cuda_ms(lambda: terms.plain.unscaled(q_main), iters=3, warmup=1)
+    r = terms.plain.rows(q_main)[0]
+    work = terms_work(TermsLayout(task), q_main, r)
+    q_rand = random_q(task, GRID_TERMS_N, seed=21)
+    emit("grid_terms", max_errs=results, kernel_ms=k_ms, plain_ms=p_ms,
+         kernel_ms_random_q=cuda_ms(lambda: terms.unscaled(q_rand),
+                                    iters=50),
+         bytes=work[0], ops=work[1], bound_ms=bound_ms(*work)[0],
+         active_row_share=float((r > 0).float().mean()))
+    return dict(max_abs_err=results["main_q_N%d" % q_main.shape[1]]["abs"],
+                ms=k_ms, plain_ms=p_ms, work=work)
+
+
+def phase_grid_cost(env, start, goal):
+    """K8's grid branch vs its plain version (hold_grid) on random q at the
+    iLQR line search's N = 79,360 and on the sGPMP Panda's first
+    candidates (N = 2,097,152) in the grid scene at the iLQR cutoff; a
+    lane's bits the same at a ragged N and at 32 lanes a block; timed at
+    both; then the sGPMP Panda in the grid scene (phase_sgpmp): exactly 201
+    K8 launches -> (kernel numbers at 2,097,152, launches)."""
+    import torch
+    from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
+    from torch_robotics_tpu_torch.ops.terms_kernel import run_cost_kernel
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    task = PlanningTask(env=env, robot=RobotPanda.create(device="cuda"),
+                        obstacle_cutoff_margin=0.06)
+    cost = task.collision_residuals.collision_cost_lanes
+    N_ls = len(IL_ALPHAS) * IL_B * (IL_H - 1)
+    N_sg = SG_PARAMS["num_samples"] * IL_B * SG_PART * IL_H
+    q_sg = capture_cost_inputs(task, *sg_problem(
+        start, goal, SG_PART, IL_H, SG_PARAMS["dt"], SEED + 2),
+        SG_PARAMS)[N_sg]
+    q_ls = random_q(task, N_ls, seed=22)
+    results, out = {}, {}
+    for name, q in (("random_q_N%d" % N_ls, q_ls),
+                    ("sgpmp_candidates_N%d" % N_sg, q_sg)):
+        results[name] = hold_grid(name, (cost(q),), (cost.plain(q),),
+                                  object_points_near_face(task, q))
+        same_lane_bits(name, cost, run_cost_kernel, q)
+    lay = TermsLayout(task)
+    n_rows = 2 * len(lay.obj_pos) + len(lay.pair_a)
+    for key, q, iters in (("line_search", q_ls, 50), ("sgpmp", q_sg, 20)):
+        out[key] = dict(N=q.shape[1], ms=device_ms(lambda: cost(q), iters),
+                        plain_ms=cuda_ms(lambda: cost.plain(q), iters=2,
+                                         warmup=1),
+                        work=cost_work(lay, q.shape[1], n_rows))
+    torch.cuda.empty_cache()
+    emit("grid_cost", max_errs=results,
+         kernel_ms={k: v["ms"] for k, v in out.items()},
+         plain_ms={k: v["plain_ms"] for k, v in out.items()},
+         bound_ms={k: bound_ms(*v["work"])[0] for k, v in out.items()})
+    launches = phase_sgpmp("grid_sgpmp", task, start, goal, SG_PART,
+                           SG_PARAMS, "cost", SEED + 2)[0]
+    out["sgpmp"]["max_abs_err"] = results["sgpmp_candidates_N%d" % N_sg][
+        "abs"]
+    return out["sgpmp"], launches
+
+
+def phase_mr_grid(env, start, goal):
+    """Config 4's task in the grid scene: K5 vs its plain version
+    (hold_grid) on the path's first q (N = H B = 8192), K8's MultiRobot
+    branch on the sGPMP path's first candidates (N = 131,072) with a
+    lane's bits at a ragged N and at 32 lanes a block; both timed; then
+    two MPC steps (exactly 4 K5 and 4 K4 launches) and the config-4 sGPMP
+    (exactly 201 K8-MultiRobot launches), finite outputs -> (K5 numbers,
+    K8-MultiRobot numbers)."""
+    import torch
+    from torch_robotics_tpu_torch.ops.terms_kernel import \
+        run_multirobot_cost_kernel
+    task = mr_task("cuda", env=env)
+    res = task.collision_residuals
+    terms, cost = res.obstacle_terms_lanes, res.collision_cost_lanes
+    lay = terms.plain.layout
+    q_main = mr_first_q(start, goal)
+    N_c = MR_SG_PARAMS["num_samples"] * MR_B * MR_H
+    q_cand = capture_cost_inputs(task, *sg_problem(
+        start, goal, 1, MR_H, MR_GP["dt"], SEED + 3), MR_SG_PARAMS)[N_c]
+    errs = {"terms_first_q_N%d" % q_main.shape[1]: hold_grid(
+        "mr_grid terms", terms.unscaled(q_main), terms.plain.unscaled(q_main),
+        object_points_near_face(task, q_main)),
+        "cost_candidates_N%d" % N_c: hold_grid(
+        "mr_grid cost", (cost(q_cand),), (cost.plain(q_cand),),
+        object_points_near_face(task, q_cand))}
+    same_lane_bits("mr_grid cost", cost, run_multirobot_cost_kernel, q_cand)
+    r = terms.plain.rows(q_main)[0]
+    k5 = dict(ms=cuda_ms(lambda: terms.unscaled(q_main), iters=50),
+              plain_ms=cuda_ms(lambda: terms.plain.unscaled(q_main), iters=3,
+                               warmup=1),
+              work=mr_terms_work(lay, q_main, r),
+              max_abs_err=errs["terms_first_q_N%d" % q_main.shape[1]]["abs"])
+    n_rows = 2 * len(lay.obj_pos) + len(lay.pair_a)
+    k8 = dict(ms=device_ms(lambda: cost(q_cand), 20),
+              plain_ms=cuda_ms(lambda: cost.plain(q_cand), iters=2,
+                               warmup=1),
+              work=mr_cost_work(lay, N_c, n_rows),
+              max_abs_err=errs["cost_candidates_N%d" % N_c]["abs"])
+    torch.cuda.empty_cache()
+    mr_rollout(task, start, goal, 1)                 # warm-up
+    (xs, info), launches, ms = counted(lambda: mr_rollout(task, start, goal,
+                                                          2))
+    check(launches == {"multirobot_terms": 2 * MR_ITERS,
+                       "btridiag_cols": 2 * MR_ITERS},
+          "mr_grid MPC launches %s, expected %d K5 and K4" % (
+              launches, 2 * MR_ITERS))
+    check(bool(torch.isfinite(xs).all()) and bool(torch.isfinite(
+        info["final_state"].theta).all()), "mr_grid MPC: non-finite")
+    k5["launches"] = launches["multirobot_terms"]
+    emit("mr_grid", max_errs=errs, k5_ms=k5["ms"], k5_plain_ms=k5["plain_ms"],
+         k5_bound_ms=bound_ms(*k5["work"])[0], k8_ms=k8["ms"],
+         k8_plain_ms=k8["plain_ms"], k8_bound_ms=bound_ms(*k8["work"])[0],
+         mpc_launches=launches, mpc_ms_per_step=ms / 2)
+    k8["launches"] = phase_sgpmp("mr_grid_sgpmp", task, start, goal, 1,
+                                 MR_SG_PARAMS, "multirobot_cost",
+                                 SEED + 3)[0]
+    return k5, k8
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3215,6 +3586,11 @@ def main() -> None:
     net_terms = phase_net_terms()
     net_cost = phase_net_cost(il_start, il_goal)
     net_launches = phase_net_main()
+
+    grid_task, grid_theta0, _, _, genv, grid_k1 = phase_grid_main()
+    grid_terms = phase_grid_terms(grid_task, grid_theta0)
+    grid_cost, grid_cost_launches = phase_grid_cost(genv, il_start, il_goal)
+    mr_grid_k5, mr_grid_k8 = phase_mr_grid(genv, mr_start, mr_goal)
 
     entries = []
     for name, src, rep, res, n in (
@@ -3278,7 +3654,21 @@ def main() -> None:
              net_launches),
             ("net_cost", "torch_robotics_tpu_torch/csrc/net_row.cu",
              "torch_robotics_tpu/ops/pallas_terms.py:1029", net_cost,
-             net_cost["launches"])):
+             net_cost["launches"]),
+            ("obstacle_terms_grid", "torch_robotics_tpu_torch/csrc/terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", grid_terms,
+             grid_k1),
+            ("collision_cost_grid", "torch_robotics_tpu_torch/csrc/cost.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029", grid_cost,
+             grid_cost_launches),
+            ("multirobot_terms_grid",
+             "torch_robotics_tpu_torch/csrc/mr_terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", mr_grid_k5,
+             mr_grid_k5["launches"]),
+            ("collision_cost_multirobot_grid",
+             "torch_robotics_tpu_torch/csrc/cost.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029", mr_grid_k8,
+             mr_grid_k8["launches"])):
         b_ms, b_by = bound_ms(*res["work"])
         entries.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n,

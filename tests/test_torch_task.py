@@ -118,6 +118,26 @@ def test_random_q_is_uniform_in_the_limits_and_seeded(scene):
 
 
 def test_occupancy_maps_are_not_ported(scene):
-    _, _, env, robot, _ = scene
-    with pytest.raises(NotImplementedError):
-        PlanningTask(env=env, robot=robot, use_occupancy_map=True)
+    """The occupancy collision check of the Panda in EnvSpheres3D (0.05 m
+    cells) against the JAX package's on states past the joint limits: the
+    flags exactly, the port's task reading the JAX map's cells (cells
+    centered on a sphere's surface may rasterize either way)."""
+    from torch_robotics_tpu.tasks import PlanningTask as JPlanningTask
+    from torch_robotics_tpu_torch.geom import OccupancyMap
+    jenv, jrobot, env, robot, _ = scene
+    jtask = JPlanningTask(env=jenv, robot=jrobot, use_occupancy_map=True,
+                          cell_size=0.05)
+    task = PlanningTask(env=env, robot=robot, use_occupancy_map=True,
+                        cell_size=0.05)
+    jocc = jenv.occupancy_map
+    assert env.occupancy_map.cmap_dim == jocc.cmap_dim
+    env.occupancy_map = OccupancyMap(map=torch.as_tensor(np.array(jocc.map)),
+                                     cell_size=0.05, cmap_dim=jocc.cmap_dim)
+    lo, hi = robot.q_min.numpy(), robot.q_max.numpy()
+    q = (lo + np.random.default_rng(9).uniform(-0.1, 1.1, size=(500, 7))
+         * (hi - lo)).astype(np.float32)
+    x = np.concatenate([q, np.zeros_like(q)], -1)
+    ref = np.asarray(jtask.compute_collision(jnp.asarray(x)))
+    np.testing.assert_array_equal(
+        task.compute_collision(torch.as_tensor(x)).numpy(), ref)
+    assert 0 < ref.mean() < 1

@@ -19,7 +19,10 @@ Array dict keys:
 - workspace: ``ws_limits`` (2, 3), ``obstacle_cutoff_margin`` ();
 - scene: ``objects``, a list of {``pos`` (3,), ``ori`` wxyz (4,),
   ``groups``: [{``kind``: "spheres" | "rounded_boxes" | "sharp_boxes",
-  ``centers``, and ``radii`` | ``half_sizes`` [+ ``round_radii``]}]}.
+  ``centers``, and ``radii`` | ``half_sizes`` [+ ``round_radii``]}]},
+  or, for a precomputed SDF grid, {``grid``: {``limits`` (2, dim),
+  ``sdf_grid`` cmap_dim, ``grad_grid`` cmap_dim + (dim,), ``cmap_dim``}},
+  in the task's ``df_obj_list`` order.
 
 A multi-robot task carries, instead of the model and collision keys,
 ``members`` (a list of dicts with the model and collision keys of each
@@ -41,6 +44,7 @@ from .core.device import resolve_device
 from .costs.self_collision_net import SelfCollisionNet
 from .envs.base import EnvBase
 from .envs.zoo import make_env
+from .geom.grid_sdf import GridSDF
 from .geom.sdf import ObjectField, RoundedBoxes, SharpBoxes, Spheres
 from .kin.model import KinematicModel
 from .robots.kinematic_robot import KinematicRobot
@@ -121,6 +125,12 @@ def task_from_numpy(arrays: dict, device="cuda") -> PlanningTask:
                             obstacle_cutoff_margin=cutoff)
     objects = []
     for o in arrays["objects"]:
+        if "grid" in o:
+            g = o["grid"]
+            objects.append(GridSDF.create(g["limits"], g["sdf_grid"],
+                                          g["grad_grid"], g["cmap_dim"],
+                                          device=dev))
+            continue
         groups = []
         for g in o["groups"]:
             cls, names = _GROUP_FIELDS[g["kind"]]
@@ -178,6 +188,12 @@ def task_arrays(task: PlanningTask) -> dict:
     kinds = {v[0]: (k, v[1]) for k, v in _GROUP_FIELDS.items()}
     out["objects"] = []
     for obj in task.df_obj_list:
+        if isinstance(obj, GridSDF):
+            out["objects"].append({"grid": {
+                "limits": _np(obj.limits), "sdf_grid": _np(obj.sdf_grid),
+                "grad_grid": _np(obj.grad_grid),
+                "cmap_dim": np.asarray(obj.cmap_dim, np.int64)}})
+            continue
         groups = []
         for f in obj.fields:
             kind, names = kinds[type(f)]

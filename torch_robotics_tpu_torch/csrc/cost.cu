@@ -1,5 +1,6 @@
-// Value-only collision cost of a kinematic robot or a MultiRobot in an
-// analytic primitive scene: FK -> world collision points -> scene SDF,
+// Value-only collision cost of a kinematic robot or a MultiRobot in a
+// scene of analytic primitives and precomputed SDF grids: FK -> world
+// collision points -> scene SDF,
 // workspace and pair-distance hinge rows -> cost = 0.5 sum r^2 per
 // waypoint lane, unscaled by the collision weight, with no Jacobian.
 //
@@ -41,6 +42,10 @@
 //     sums of a lane are added in thread order, so a lane's bits depend
 //     neither on the batch nor on the lanes a block.  A single robot takes
 //     one thread a lane and so today's row order;
+//   - a precomputed SDF grid is looked up in-kernel (kin_scene.cuh:
+//     grid_sdf), one 16-byte load from the grid table in device memory
+//     per object point and grid: a table of 128 MB (0.01 m cells) cannot
+//     be staged, so only its header goes to shared memory with the scene;
 //   - nothing is indexed by a run-time number in a per-thread array, and
 //     sincosf's fast path is copied without its large-argument branch
 //     (cost.cuh: sincos_rn), so no local memory.
@@ -69,19 +74,28 @@ constexpr int kHeader = 16;       // ints before the first section
 // its own slot or -1, its points pt_list[begin, end), 2 pad) and floats
 // step_f[20 s..] = (fixed rotation 9, translation 3, axis 3, clamp lo, hi,
 // 3 pad).  Object o's record objects[12 o..] = (rotation 9, position 3).
+// A grid object o (obj_grid[o] >= 0) has the identity record and no
+// groups; its header is grid_i[4 g..] (first row in the grid table,
+// cmap_dim) and grid_f[8 g..] (lower limits, 0, extent, 0), and its cells
+// are rows of the scene's grid table in device memory (kin_scene.cuh:
+// grid_sdf).
 struct CostLayout {
-  int n_mem, D, P, NO, K, NOBJ, NG, S, n_slots, T;
+  int n_mem, D, P, NO, K, NOBJ, NG, S, n_slots, T, NGRID;
   const int *step_i, *mem_step, *pt_list, *obj_pt, *pair_a, *pair_b, *cuts,
-      *obj_group_begin, *group_kind, *group_count, *group_off;
-  const float *prims, *objects, *step_f, *base_R, *base_t, *obj_thresh,
-      *pair_margin, *ws_min, *ws_max;
+      *obj_group_begin, *group_kind, *group_count, *group_off, *obj_grid,
+      *grid_i;
+  const float *prims, *objects, *grid_f, *step_f, *base_R, *base_t,
+      *obj_thresh, *pair_margin, *ws_min, *ws_max;
+  const float4* grid;
 };
 
 __device__ __forceinline__ CostLayout parse_layout(const int* ip,
-                                                   const float* fp) {
+                                                   const float* fp,
+                                                   const float4* grid) {
   CostLayout a;
   a.n_mem = ip[0]; a.D = ip[1]; a.P = ip[2]; a.NO = ip[3]; a.K = ip[4];
   a.NOBJ = ip[5]; a.NG = ip[6]; a.S = ip[7]; a.n_slots = ip[8]; a.T = ip[9];
+  a.NGRID = ip[11];
   const int* p = ip + kHeader;
   a.step_i = p; p += 8 * a.S;
   a.mem_step = p; p += a.n_mem + 1;
@@ -93,10 +107,13 @@ __device__ __forceinline__ CostLayout parse_layout(const int* ip,
   a.obj_group_begin = p; p += a.NOBJ + 1;
   a.group_kind = p; p += a.NG;
   a.group_count = p; p += a.NG;
-  a.group_off = p;
+  a.group_off = p; p += a.NG;
+  a.obj_grid = p; p += a.NOBJ;
+  a.grid_i = p;
   const float* f = fp;
   a.prims = f; f += ip[10];  // the primitive tables' floats
   a.objects = f; f += 12 * a.NOBJ;
+  a.grid_f = f; f += 8 * a.NGRID;
   a.step_f = f; f += 20 * a.S;
   a.base_R = f; f += 9 * a.n_mem;
   a.base_t = f; f += 3 * a.n_mem;
@@ -104,6 +121,7 @@ __device__ __forceinline__ CostLayout parse_layout(const int* ip,
   a.pair_margin = f; f += a.K;
   a.ws_min = f; f += 3;
   a.ws_max = f;
+  a.grid = grid;
   return a;
 }
 
@@ -112,7 +130,8 @@ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 cost_kernel(const float* __restrict__ q, float* __restrict__ cost_out, int N,
             int D, const int* __restrict__ ip, int n_ints,
-            const float* __restrict__ fp, int n_floats) {
+            const float* __restrict__ fp, int n_floats,
+            const float4* __restrict__ grid) {
   extern __shared__ __align__(16) float smem[];
   const int lanes = blockDim.x, lane = threadIdx.x, t = threadIdx.y;
   const int tid = t * lanes + lane, nthr = lanes * blockDim.y;
@@ -128,7 +147,7 @@ cost_kernel(const float* __restrict__ q, float* __restrict__ cost_out, int N,
   copy_words(ip, ism, n_ints, tid, nthr);
   copy_words(fp, fsm, n_floats, tid, nthr);
   __syncthreads();
-  const CostLayout a = parse_layout(ism, fsm);
+  const CostLayout a = parse_layout(ism, fsm, grid);
   float* pts = qs + D * lanes;
   float* slots = pts + 3 * a.P * lanes;
   float* part = slots + 12 * a.n_slots * lanes;
@@ -189,7 +208,7 @@ cost_kernel(const float* __restrict__ q, float* __restrict__ cost_out, int N,
     for (int k = 0; k < 3; ++k) x[k] = pts[(3 * p + k) * lanes + lane];
   };
   float cacc = 0.f;
-  const int n_sdf = a.NOBJ > 0 ? a.NO : 0;
+  const int n_sdf = a.NOBJ > 0 ? a.NO : 0;  // NOBJ counts grids too
   const int end = a.cuts[t + 1];
   int r = a.cuts[t];
   for (; r < min(end, n_sdf); ++r) {  // object rows: scene SDF hinge
@@ -240,12 +259,13 @@ cost_kernel(const float* __restrict__ q, float* __restrict__ cost_out, int N,
 
 // q (D, N) -> cost (N); ip (n_ints) / fp (n_floats) the packed parameters
 // (pack_cost_params), lanes and threads_per_lane the block's shape and
-// smem_bytes its dynamic shared memory (cost_launch_config).  Returns a
-// CUDA error code (cudaErrorInvalidValue for a block past kMaxThreads).
+// smem_bytes its dynamic shared memory (cost_launch_config), grid the
+// scene's grid table (null without grids).  Returns a CUDA error code
+// (cudaErrorInvalidValue for a block past kMaxThreads).
 extern "C" int trt_cost_launch(const float* q, float* cost, int N, int D,
                                int lanes, int threads_per_lane, int smem_bytes,
                                const int* ip, int n_ints, const float* fp,
-                               int n_floats, void* stream) {
+                               int n_floats, const void* grid, void* stream) {
   if (lanes < 1 || threads_per_lane < 1 ||
       lanes * threads_per_lane > kMaxThreads)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -256,7 +276,8 @@ extern "C" int trt_cost_launch(const float* q, float* cost, int N, int D,
   }
   const dim3 block(lanes, threads_per_lane);
   cost_kernel<<<(N + lanes - 1) / lanes, block, smem_bytes,
-                static_cast<cudaStream_t>(stream)>>>(q, cost, N, D, ip,
-                                                     n_ints, fp, n_floats);
+                static_cast<cudaStream_t>(stream)>>>(
+      q, cost, N, D, ip, n_ints, fp, n_floats,
+      static_cast<const float4*>(grid));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
-// Device helpers shared by the terms kernels (terms.cu, mr_terms.cu): the
-// FK chain over a kinematic tree, the min-over-scene SDF with the gradient
-// of its minimizing primitive, and small 3x3 helpers.  The model and scene
-// arguments are views into packed parameter buffers; any struct with the
-// field names used below will do.
+// Device helpers shared by the terms kernels (terms.cu, mr_terms.cu) and
+// the cost kernel (cost.cu): the FK chain over a kinematic tree, the
+// min-over-scene SDF with the gradient of its minimizing primitive, the
+// nearest-cell lookup of a precomputed SDF grid, and small 3x3 helpers.
+// The model and scene arguments are views into packed parameter buffers;
+// any struct with the field names used below will do.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -31,15 +32,58 @@ __device__ __forceinline__ void matmul3(const float* A, const float* B,
                      A[3 * i + 2] * B[6 + j];
 }
 
+// Nearest-cell lookup of a precomputed SDF grid (geom/grid_sdf.py):
+// returns the cell's SDF and, with kGrad, writes the cell's gradient (the
+// reference's surrogate gradient).  gi = (first row of the grid in the
+// scene's table, cmap_dim[3]), gf = (lower limits[3], 0, float32
+// extent[3], 0); table rows are (sdf, gx, gy, gz) in 'ij' flat order.
+// The cell coordinate is the reference's, operation for operation:
+// floor((x - lim0) / extent * cmap), a correctly rounded division (no
+// reciprocal), clamped to [0, cmap - 1] before the conversion to int.  One
+// 16-byte load a lookup; the table stays in device memory (128 MB at 0.01
+// m over [-1, 1]^3, past the 50 MB L2).
+template <bool kGrad>
+__device__ __forceinline__ float grid_sdf(const float4* __restrict__ table,
+                                          const int* gi, const float* gf,
+                                          const float x[3], float grad[3]) {
+  int flat = 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float c = static_cast<float>(gi[1 + k]);
+    const float v = floorf(__fdiv_rn(x[k] - gf[k], gf[4 + k]) * c);
+    flat = flat * gi[1 + k] +
+           static_cast<int>(fminf(fmaxf(v, 0.f), c - 1.f));
+  }
+  const float4 row = __ldg(table + static_cast<size_t>(gi[0]) + flat);
+  if constexpr (kGrad) {
+    grad[0] = row.y; grad[1] = row.z; grad[2] = row.w;
+  }
+  return row.x;
+}
+
 // Min-over-scene SDF at world point x and, with kGrad, the gradient of the
-// minimizing primitive, rotated back to the world frame (first minimum wins
-// on ties).
+// minimizing primitive, rotated back to the world frame, or of the
+// minimizing grid cell (objects and grids in the scene's order; the first
+// minimum wins on ties).
 template <bool kGrad, class Scene>
 __device__ void scene_sdf(const Scene& a, const float x[3], float& best,
                           float grad[3]) {
   best = INFINITY;
   if constexpr (kGrad) grad[0] = grad[1] = grad[2] = 0.f;
   for (int o = 0; o < a.NOBJ; ++o) {
+    const int gidx = a.obj_grid[o];
+    if (gidx >= 0) {  // a grid: one cell lookup
+      float gg[3];
+      const float s = grid_sdf<kGrad>(a.grid, a.grid_i + 4 * gidx,
+                                      a.grid_f + 8 * gidx, x, gg);
+      if (s < best) {
+        best = s;
+        if constexpr (kGrad) {
+          grad[0] = gg[0]; grad[1] = gg[1]; grad[2] = gg[2];
+        }
+      }
+      continue;
+    }
     const float* R = a.obj_rot + 9 * o;
     const float* pos = a.obj_pos + 3 * o;
     const float dx[3] = {x[0] - pos[0], x[1] - pos[1], x[2] - pos[2]};

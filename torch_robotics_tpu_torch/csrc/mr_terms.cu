@@ -7,7 +7,10 @@
 //
 // Replaces the TPU kernel _multirobot_terms_pallas_factory of
 // torch_robotics_tpu/ops/pallas_terms.py (whose pallas_call is the one in
-// _build_terms); the value-only MultiRobot cost is cost.cu's.  Its plain
+// _build_terms); the value-only MultiRobot cost is cost.cu's.  A
+// precomputed SDF grid in the scene is looked up in-kernel
+// (kin_scene.cuh: grid_sdf), where the TPU kernel took rows gathered by
+// XLA before it.  Its plain
 // PyTorch version is obstacle_terms_lanes_multirobot_factory in
 // torch_robotics_tpu_torch/ops/lanes_fk.py.  The residual set is the
 // same; g, Hqq and the cost are symmetric reductions over the rows, so
@@ -67,23 +70,27 @@ constexpr int kMaxLinks = 32;    // links per member
 
 // Views into the packed buffers; the section order is fixed by
 // pack_multirobot_params in torch_robotics_tpu_torch/ops/terms_kernel.py.
+// A grid object o (obj_grid[o] >= 0) reads its header from grid_i / grid_f
+// and its cells from the scene's grid table (kin_scene.cuh: grid_sdf).
 struct MRLayout {
-  int n_mem, D, P, NO, K_own, K_mut, NOBJ, NG, n_bp, L_sum;
+  int n_mem, D, P, NO, K_own, K_mut, NOBJ, NG, n_bp, L_sum, NGRID;
   const int *mem_L, *mem_D, *mem_doff, *mem_loff, *mem_obj_begin,
       *mem_obj_end, *mem_own_begin, *mem_own_end, *bp_i, *bp_j, *bp_begin,
       *bp_end, *topo, *parent, *jtype, *qidx, *ctrl, *pt_member, *pt_link,
       *pt_anc, *own_a, *own_b, *mut_a, *mut_b, *obj_group_begin, *group_kind,
-      *group_count, *group_off;
+      *group_count, *group_off, *obj_grid, *grid_i;
   const float *trans, *frot, *axis, *clo, *chi, *base_R, *base_t,
       *obj_thresh, *own_margin, *mut_margin, *ws_min, *ws_max, *obj_rot,
-      *obj_pos, *prims;
+      *obj_pos, *grid_f, *prims;
+  const float4* grid;
 };
 
-__device__ MRLayout parse_layout(const int* ip, const float* fp) {
+__device__ MRLayout parse_layout(const int* ip, const float* fp,
+                                 const float4* grid) {
   MRLayout a;
   a.n_mem = ip[0]; a.D = ip[1]; a.P = ip[2]; a.NO = ip[3]; a.K_own = ip[4];
   a.K_mut = ip[5]; a.NOBJ = ip[6]; a.NG = ip[7]; a.n_bp = ip[8];
-  a.L_sum = ip[9];
+  a.L_sum = ip[9]; a.NGRID = ip[10];
   const int* p = ip + 16;
   a.mem_L = p; p += a.n_mem;
   a.mem_D = p; p += a.n_mem;
@@ -112,7 +119,9 @@ __device__ MRLayout parse_layout(const int* ip, const float* fp) {
   a.obj_group_begin = p; p += a.NOBJ + 1;
   a.group_kind = p; p += a.NG;
   a.group_count = p; p += a.NG;
-  a.group_off = p;
+  a.group_off = p; p += a.NG;
+  a.obj_grid = p; p += a.NOBJ;
+  a.grid_i = p;
   const float* f = fp;
   a.trans = f; f += 3 * a.L_sum;
   a.frot = f; f += 9 * a.L_sum;
@@ -128,7 +137,9 @@ __device__ MRLayout parse_layout(const int* ip, const float* fp) {
   a.ws_max = f; f += 3;
   a.obj_rot = f; f += 9 * a.NOBJ;
   a.obj_pos = f; f += 3 * a.NOBJ;
+  a.grid_f = f; f += 8 * a.NGRID;
   a.prims = f;
+  a.grid = grid;
   return a;
 }
 
@@ -162,9 +173,10 @@ __global__ void __launch_bounds__(kLanes * kMaxBlockPairs)
 mr_terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
                 float* __restrict__ h_out, float* __restrict__ cost_out,
                 int N, const int* __restrict__ ip,
-                const float* __restrict__ fp) {
+                const float* __restrict__ fp,
+                const float4* __restrict__ grid) {
   extern __shared__ float smem[];
-  const MRLayout a = parse_layout(ip, fp);
+  const MRLayout a = parse_layout(ip, fp, grid);
   const int lane = threadIdx.x, w = threadIdx.y;
   const int n = blockIdx.x * kLanes + lane;
   const bool valid = n < N;
@@ -413,13 +425,15 @@ mr_terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
 
 // q (D, N) -> g (D, N), h (D, D, N), cost (N); ip / fp the packed
 // parameters, n_bp their block-pair count, shared_bytes the dynamic shared
-// memory (the wrapper computes both from the packed header).  Returns a
+// memory (the wrapper computes both from the packed header), grid the
+// scene's grid table (null without grids).  Returns a
 // CUDA error code (cudaErrorInvalidValue for more than kMaxMembers
 // members).
 extern "C" int trt_mr_terms_launch(const float* q, float* g, float* h,
                                    float* cost, int N, int n_bp,
                                    int shared_bytes, const int* ip,
-                                   const float* fp, void* stream) {
+                                   const float* fp, const void* grid,
+                                   void* stream) {
   if (n_bp < 1 || n_bp > kMaxBlockPairs)
     return static_cast<int>(cudaErrorInvalidValue);
   if (shared_bytes > 48 * 1024) {
@@ -431,7 +445,7 @@ extern "C" int trt_mr_terms_launch(const float* q, float* g, float* h,
   const dim3 block(kLanes, n_bp);
   const int blocks = (N + kLanes - 1) / kLanes;
   mr_terms_kernel<<<blocks, block, shared_bytes,
-                    static_cast<cudaStream_t>(stream)>>>(q, g, h, cost, N,
-                                                         ip, fp);
+                    static_cast<cudaStream_t>(stream)>>>(
+      q, g, h, cost, N, ip, fp, static_cast<const float4*>(grid));
   return static_cast<int>(cudaGetLastError());
 }

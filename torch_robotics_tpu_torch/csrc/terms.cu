@@ -7,7 +7,10 @@
 // terms_kernel replaces the TPU kernel torch_robotics_tpu/ops/pallas_terms.py
 // (obstacle_terms_pallas_factory, the pallas_call in _build_terms); its
 // plain PyTorch version is obstacle_terms_lanes_factory in
-// torch_robotics_tpu_torch/ops/lanes_fk.py.
+// torch_robotics_tpu_torch/ops/lanes_fk.py.  A precomputed SDF grid in the
+// scene is looked up in-kernel (kin_scene.cuh: grid_sdf, one 16-byte load
+// per object point and grid), where the TPU kernel took rows gathered
+// before it by XLA (Mosaic has no vector gather; _grid_extras_fn).
 //
 // Design: one thread per waypoint lane n.  Loads of q_cols (d, N) and the
 // stores of g (d, N), Hqq (d, d, N), cost (N) are lane-minor, so a warp's
@@ -29,7 +32,10 @@
 // Jacobian and adds every row's 28 Hessian entries, active or not, and
 // keeps the link transforms in local memory, so it runs well above the
 // bound; skipping inactive rows and keeping the transforms in registers
-// come first in a faster version.
+// come first in a faster version.  In a grid scene the function also
+// reads one 16-byte table row per object point and grid, 80 bytes a lane
+// for the Panda, scattered over a table larger than the L2 at 0.01 m
+// cells: each lookup is a dependent load of one 32-byte sector.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -44,19 +50,23 @@ constexpr int kThreads = 128;
 
 // Views into the packed buffers; the section order is fixed by
 // pack_terms_params in torch_robotics_tpu_torch/ops/terms_kernel.py.
+// A grid object o (obj_grid[o] >= 0) reads its header from grid_i / grid_f
+// and its cells from the scene's grid table (kin_scene.cuh: grid_sdf).
 struct Layout {
-  int L, D, P, NO, K, NOBJ, NG;
+  int L, D, P, NO, K, NOBJ, NG, NGRID;
   const int *topo, *parent, *jtype, *qidx, *ctrl, *point_link, *anc, *obj_pt,
       *pair_a, *pair_b, *obj_group_begin, *group_kind, *group_count,
-      *group_off;
+      *group_off, *obj_grid, *grid_i;
   const float *trans, *frot, *axis, *clo, *chi, *obj_thresh, *pair_margin,
-      *ws_min, *ws_max, *obj_rot, *obj_pos, *prims;
+      *ws_min, *ws_max, *obj_rot, *obj_pos, *grid_f, *prims;
+  const float4* grid;
 };
 
-__device__ Layout parse_layout(const int* ip, const float* fp) {
+__device__ Layout parse_layout(const int* ip, const float* fp,
+                               const float4* grid) {
   Layout a;
   a.L = ip[0]; a.D = ip[1]; a.P = ip[2]; a.NO = ip[3]; a.K = ip[4];
-  a.NOBJ = ip[5]; a.NG = ip[6];
+  a.NOBJ = ip[5]; a.NG = ip[6]; a.NGRID = ip[7];
   const int* p = ip + 8;
   a.topo = p; p += a.L;
   a.parent = p; p += a.L;
@@ -71,7 +81,9 @@ __device__ Layout parse_layout(const int* ip, const float* fp) {
   a.obj_group_begin = p; p += a.NOBJ + 1;
   a.group_kind = p; p += a.NG;
   a.group_count = p; p += a.NG;
-  a.group_off = p;
+  a.group_off = p; p += a.NG;
+  a.obj_grid = p; p += a.NOBJ;
+  a.grid_i = p;
   const float* f = fp;
   a.trans = f; f += 3 * a.L;
   a.frot = f; f += 9 * a.L;
@@ -84,7 +96,9 @@ __device__ Layout parse_layout(const int* ip, const float* fp) {
   a.ws_max = f; f += 3;
   a.obj_rot = f; f += 9 * a.NOBJ;
   a.obj_pos = f; f += 3 * a.NOBJ;
+  a.grid_f = f; f += 8 * a.NGRID;
   a.prims = f;
+  a.grid = grid;
   return a;
 }
 
@@ -92,10 +106,11 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
              float* __restrict__ h_out, float* __restrict__ cost_out, int N,
-             const int* __restrict__ ip, const float* __restrict__ fp) {
+             const int* __restrict__ ip, const float* __restrict__ fp,
+             const float4* __restrict__ grid) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  const Layout a = parse_layout(ip, fp);
+  const Layout a = parse_layout(ip, fp, grid);
 
   float qv[D];
 #pragma unroll
@@ -170,7 +185,8 @@ terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
     add_row(r, Jr);
   };
 
-  // ---- object rows: scene SDF hinge per object point ----
+  // ---- object rows: scene SDF hinge per object point (NOBJ counts the
+  // scene's analytic objects and grids alike) ----
   if (a.NOBJ > 0) {
     for (int mi = 0; mi < a.NO; ++mi) {
       const int p = a.obj_pt[mi];
@@ -238,29 +254,34 @@ terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
 
 template <int D>
 cudaError_t launch(const float* q, float* g, float* h, float* cost, int N,
-                   const int* ip, const float* fp, cudaStream_t stream) {
+                   const int* ip, const float* fp, const float4* grid,
+                   cudaStream_t stream) {
   const int blocks = (N + kThreads - 1) / kThreads;
-  terms_kernel<D><<<blocks, kThreads, 0, stream>>>(q, g, h, cost, N, ip, fp);
+  terms_kernel<D><<<blocks, kThreads, 0, stream>>>(q, g, h, cost, N, ip, fp,
+                                                   grid);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q (D, N) -> g (D, N), h (D, D, N), cost (N); returns a CUDA error code
-// (cudaErrorInvalidValue for D outside 1..8).
+// q (D, N) -> g (D, N), h (D, D, N), cost (N); grid the scene's grid table
+// ((C, 4) float32, null for a scene without grids); returns a CUDA error
+// code (cudaErrorInvalidValue for D outside 1..8).
 extern "C" int trt_terms_launch(const float* q, float* g, float* h,
                                 float* cost, int N, int D, const int* ip,
-                                const float* fp, void* stream) {
+                                const float* fp, const void* grid,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* t = static_cast<const float4*>(grid);
   switch (D) {
-    case 1: return launch<1>(q, g, h, cost, N, ip, fp, s);
-    case 2: return launch<2>(q, g, h, cost, N, ip, fp, s);
-    case 3: return launch<3>(q, g, h, cost, N, ip, fp, s);
-    case 4: return launch<4>(q, g, h, cost, N, ip, fp, s);
-    case 5: return launch<5>(q, g, h, cost, N, ip, fp, s);
-    case 6: return launch<6>(q, g, h, cost, N, ip, fp, s);
-    case 7: return launch<7>(q, g, h, cost, N, ip, fp, s);
-    case 8: return launch<8>(q, g, h, cost, N, ip, fp, s);
+    case 1: return launch<1>(q, g, h, cost, N, ip, fp, t, s);
+    case 2: return launch<2>(q, g, h, cost, N, ip, fp, t, s);
+    case 3: return launch<3>(q, g, h, cost, N, ip, fp, t, s);
+    case 4: return launch<4>(q, g, h, cost, N, ip, fp, t, s);
+    case 5: return launch<5>(q, g, h, cost, N, ip, fp, t, s);
+    case 6: return launch<6>(q, g, h, cost, N, ip, fp, t, s);
+    case 7: return launch<7>(q, g, h, cost, N, ip, fp, t, s);
+    case 8: return launch<8>(q, g, h, cost, N, ip, fp, t, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,6 +1,6 @@
-"""Environment base: workspace limits + obstacle objects + planner presets
-(counterpart of torch_robotics_tpu/envs/base.py without the precomputed SDF
-grid and the occupancy map, which are not ported yet)."""
+"""Environment base: workspace limits, obstacle objects, an optional
+precomputed SDF grid of the fixed objects, an occupancy map builder and
+planner presets (counterpart of torch_robotics_tpu/envs/base.py)."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -9,6 +9,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..geom.grid_sdf import precompute_sdf_grid
+from ..geom.occupancy import build_occupancy_map
 from ..geom.sdf import ObjectField
 
 __all__ = ["EnvBase"]
@@ -18,13 +20,11 @@ class EnvBase:
     def __init__(self, name: str = "EnvBase", limits=None,
                  obj_fixed_list: Optional[Sequence[ObjectField]] = None,
                  obj_extra_list: Optional[Sequence[ObjectField]] = None,
-                 precompute_sdf_obj_fixed: bool = False, device="cuda",
+                 precompute_sdf_obj_fixed: bool = False,
+                 sdf_cell_size: float = 0.005, device="cuda",
                  planner_params: Optional[dict] = None):
         if limits is None:
             raise ValueError("EnvBase needs workspace limits")
-        if precompute_sdf_obj_fixed:
-            raise NotImplementedError(
-                "precomputed SDF grids are not ported yet")
         self.device = resolve_device(device)
         self.name = name
         self.limits = torch.as_tensor(np.asarray(limits, np.float64),
@@ -36,19 +36,43 @@ class EnvBase:
                                if obj_extra_list is not None else None)
         self.obj_all_list = self.obj_fixed_list + (self.obj_extra_list or [])
         self._planner_params = planner_params or {}
+        self.sdf_cell_size = sdf_cell_size
+        self.grid_map_sdf_obj_fixed = (
+            precompute_sdf_grid(self.limits, sdf_cell_size,
+                                self.obj_fixed_list, device=self.device)
+            if precompute_sdf_obj_fixed else None)
+        self.occupancy_map = None
+        self.cell_size = None
+
+    def get_obj_list(self):
+        return self.obj_all_list
 
     def get_df_obj_list(self, return_extra_objects_only: bool = False):
-        """Distance-field objects for cost evaluation."""
-        df_obj_l = [] if return_extra_objects_only else list(
-            self.obj_fixed_list)
+        """Distance-field objects for cost evaluation: the fixed objects,
+        replaced by their precomputed grid when there is one, then the
+        extra objects."""
+        df_obj_l = []
+        if not return_extra_objects_only:
+            if self.grid_map_sdf_obj_fixed is not None:
+                df_obj_l.append(self.grid_map_sdf_obj_fixed)
+            else:
+                df_obj_l.extend(self.obj_fixed_list)
         if self.obj_extra_list is not None:
             df_obj_l.extend(self.obj_extra_list)
         return df_obj_l
 
+    def build_occupancy_map(self, cell_size: float = 0.01):
+        """Rasterize every object into ``self.occupancy_map``."""
+        self.cell_size = cell_size
+        self.occupancy_map = build_occupancy_map(
+            self.limits, cell_size, self.obj_all_list, device=self.device)
+        return self.occupancy_map
+
     def compute_sdf(self, x):
-        """Min-over-objects SDF at world points x (..., dim)."""
+        """Min-over-objects SDF at world points x (..., dim): the grid in
+        place of the fixed objects when there is one."""
         sdf = None
-        for obj in self.obj_all_list:
+        for obj in self.get_df_obj_list():
             s = obj.signed_distance(x)
             sdf = s if sdf is None else torch.minimum(sdf, s)
         return sdf

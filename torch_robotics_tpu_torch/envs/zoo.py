@@ -40,7 +40,7 @@ def _build_object(spec: dict, device):
 
 
 def make_env(name: str, precompute_sdf_obj_fixed: bool = False,
-             device="cuda") -> EnvBase:
+             sdf_cell_size: float = 0.005, device="cuda") -> EnvBase:
     spec = _layouts()[name]
     return EnvBase(
         name=name,
@@ -49,25 +49,28 @@ def make_env(name: str, precompute_sdf_obj_fixed: bool = False,
         obj_extra_list=([_build_object(o, device) for o in spec["obj_extra"]]
                         if spec["obj_extra"] else None),
         precompute_sdf_obj_fixed=precompute_sdf_obj_fixed,
-        device=device,
+        sdf_cell_size=sdf_cell_size, device=device,
         planner_params=spec["planner_params"],
     )
 
 
 def EnvSpheres3D(precompute_sdf_obj_fixed: bool = False,
-                 device="cuda") -> EnvBase:
+                 sdf_cell_size: float = 0.005, device="cuda") -> EnvBase:
     """The main path's scene: ten spheres in a [-1, 1]^3 workspace."""
-    return make_env("EnvSpheres3D", precompute_sdf_obj_fixed, device)
+    return make_env("EnvSpheres3D", precompute_sdf_obj_fixed, sdf_cell_size,
+                    device)
 
 
 def EnvMazeBoxes3D(precompute_sdf_obj_fixed: bool = False,
-                   device="cuda") -> EnvBase:
+                   sdf_cell_size: float = 0.005, device="cuda") -> EnvBase:
     """Fourteen rounded boxes in a [-1, 1]^3 workspace."""
-    return make_env("EnvMazeBoxes3D", precompute_sdf_obj_fixed, device)
+    return make_env("EnvMazeBoxes3D", precompute_sdf_obj_fixed, sdf_cell_size,
+                    device)
 
 
 def EnvDense2D(precompute_sdf_obj_fixed: bool = False,
-               device="cuda") -> EnvBase:
+               sdf_cell_size: float = 0.005, device="cuda") -> EnvBase:
     """Config 2's scene: sixteen circles and fourteen rounded boxes in a
     [-1, 1]^2 workspace."""
-    return make_env("EnvDense2D", precompute_sdf_obj_fixed, device)
+    return make_env("EnvDense2D", precompute_sdf_obj_fixed, sdf_cell_size,
+                    device)

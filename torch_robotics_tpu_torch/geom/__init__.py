@@ -1,7 +1,10 @@
+from .grid_sdf import GridSDF, precompute_sdf_grid
+from .occupancy import OccupancyMap, build_occupancy_map
 from .point_cloud import PointCloudSpheres
 from .sdf import (MultiBoxField, MultiSharpBoxField, MultiSphereField,
                   ObjectField, RoundedBoxes, SharpBoxes, Spheres)
 
 __all__ = ["Spheres", "SharpBoxes", "RoundedBoxes", "ObjectField",
            "MultiSphereField", "MultiSharpBoxField", "MultiBoxField",
-           "PointCloudSpheres"]
+           "PointCloudSpheres", "GridSDF", "precompute_sdf_grid",
+           "OccupancyMap", "build_occupancy_map"]

@@ -12,7 +12,8 @@ Primitive groups hold packed tensors (all spheres of an object in one
 - ``ObjectField``: min over member groups after pulling the query back into
   the object frame.
 
-Grids and occupancy maps are not ported yet.
+Precomputed grids are ``geom/grid_sdf.py``, occupancy maps
+``geom/occupancy.py``.
 """
 from __future__ import annotations
 

@@ -22,7 +22,12 @@ The SDF gradient is analytic: for the primitive that attains the minimum,
 the derivative of its closed-form distance, rotated back to the world
 frame.  That is the gradient of the min the reference differentiates with
 ``jax.vjp``; the two differ only at exact ties between primitives, a
-measure-zero set.
+measure-zero set.  A precomputed grid (``geom/grid_sdf.GridSDF``) in the
+scene gives its nearest cell's value and gradient (the reference's
+surrogate gradient); grids and analytic objects combine in list order, a
+later one taking the minimum only where it is strictly smaller.  These grid
+lookups are the plain version of the CUDA kernels' in-kernel lookup
+(``csrc/kin_scene.cuh::grid_sdf``).
 """
 from __future__ import annotations
 
@@ -31,13 +36,15 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..geom.grid_sdf import GridSDF
 from ..kin.model import (JOINT_CONTINUOUS, JOINT_PRISMATIC, JOINT_REVOLUTE,
                          KinematicModel)
 from .net_kernel import net_rows
 
 __all__ = ["fk_lanes", "fk_positions_lanes", "fk_points_jacobians_lanes",
            "point_jacobians_lanes",
-           "group_sdf_and_grad_lanes", "sdf_and_grad_lanes",
+           "group_sdf_and_grad_lanes", "sdf_and_grad_lanes", "sdf_lanes",
+           "lanes_supported_scene",
            "obstacle_terms_lanes_factory", "embed_terms", "hinge_rows",
            "PointMassLayout",
            "MultiRobotLayout", "obstacle_terms_lanes_multirobot_factory"]
@@ -270,13 +277,74 @@ def _object_sdf_and_grad_lanes(obj, pts: torch.Tensor):
     return best_v, grad[:ws_dim]
 
 
+def _grid_cell_index(grid, pts: torch.Tensor):
+    """'ij' flat index (M,) of the nearest cell of points pts (>= dim, M),
+    in the reference's indexing (grid_map_sdf.py:93-97): per axis
+    floor((x - lim0) / extent * cmap) in pts' dtype, clamped."""
+    flat = None
+    for k, c in enumerate(grid.cmap_dim):
+        extent = torch.abs(grid.limits[1, k] - grid.limits[0, k])
+        ik = torch.floor((pts[k] - grid.limits[0, k]) / extent * c)
+        ik = torch.clamp(ik.to(torch.int64), 0, c - 1)
+        flat = ik if flat is None else flat * c + ik
+    return flat
+
+
+def _grid_sdf_lanes(grid, pts: torch.Tensor):
+    """Nearest-cell lookup of points (>= dim, M): (the cell's SDF (M,), the
+    cell's gradient (dim, M)), in pts' dtype."""
+    flat = _grid_cell_index(grid, pts)
+    val = grid.sdf_grid.reshape(-1)[flat].to(pts.dtype)
+    grad = grid.grad_grid.reshape(-1, grid.dim)[flat].T.to(pts.dtype)
+    return val, grad
+
+
+def _grid_sdf_value_lanes(grid, pts: torch.Tensor):
+    """The cell's SDF alone (M,)."""
+    return grid.sdf_grid.reshape(-1)[_grid_cell_index(grid, pts)].to(
+        pts.dtype)
+
+
+def _grid_sdf_lanes_multi(grid, pts: torch.Tensor):
+    """``_grid_sdf_lanes`` of P points of N lanes, pts (P, >= dim, N) ->
+    (vals (P, N), grads (P, dim, N)), in one gather."""
+    P, ws, N = pts.shape
+    val, grad = _grid_sdf_lanes(grid, pts.transpose(0, 1).reshape(ws, P * N))
+    return val.reshape(P, N), grad.reshape(-1, P, N).transpose(0, 1)
+
+
+def _grid_sdf_value_lanes_multi(grid, pts: torch.Tensor):
+    """``_grid_sdf_value_lanes`` of pts (P, >= dim, N) -> (P, N)."""
+    P, ws, N = pts.shape
+    return _grid_sdf_value_lanes(
+        grid, pts.transpose(0, 1).reshape(ws, P * N)).reshape(P, N)
+
+
+def sdf_lanes(df_obj_list, pts: torch.Tensor):
+    """Min-over-objects SDF (M,) at points (ws_dim, M), without gradient."""
+    sdf = None
+    for obj in df_obj_list:
+        v = (_grid_sdf_value_lanes(obj, pts) if isinstance(obj, GridSDF)
+             else obj.signed_distance(pts.T))
+        sdf = v if sdf is None else torch.minimum(sdf, v)
+    return sdf
+
+
+def lanes_supported_scene(df_obj_list) -> bool:
+    """Every object of the scene is an ObjectField or a GridSDF."""
+    from ..geom.sdf import ObjectField
+    return all(isinstance(df, (ObjectField, GridSDF)) for df in df_obj_list)
+
+
 def sdf_and_grad_lanes(df_obj_list, pts: torch.Tensor):
     """(min-over-objects SDF (M,), its gradient (ws_dim, M)) at points
-    (ws_dim, M), ws_dim 2 or 3; the first object attaining the minimum
-    supplies the gradient."""
+    (ws_dim, M), ws_dim 2 or 3 (a grid's dim is the workspace's); the
+    first object attaining the minimum supplies the gradient (a grid: its
+    nearest cell's)."""
     best_v, best_g = None, None
     for obj in df_obj_list:
-        v, g = _object_sdf_and_grad_lanes(obj, pts)
+        v, g = (_grid_sdf_lanes(obj, pts) if isinstance(obj, GridSDF)
+                else _object_sdf_and_grad_lanes(obj, pts))
         if best_v is None:
             best_v, best_g = v, g
         else:

@@ -20,6 +20,15 @@ version; a CUDA tensor launches the kernel or raises.
 (N,)``, 0.5 sum r^2 over the same rows, unscaled, with the same dispatch.
 It is not differentiable: solvers that need gradients use the terms.
 
+A scene may hold precomputed SDF grids (``geom/grid_sdf.GridSDF``) beside
+analytic objects: each grid is an object of the packed scene with no
+primitive groups and a grid header (its first row in the scene's grid
+table, its cmap_dim, its lower limits and float32 extent), and every grid
+of a scene is one (C, 4) float32 device table (``scene_grid_table``) that
+each launch takes as one more pointer.  The kernels look a cell up in it
+themselves (``csrc/kin_scene.cuh::grid_sdf``), where the TPU kernel
+gathered the cells' rows in an XLA stage before the kernel.
+
 A robot with a learned self-collision net has no pair rows in either
 kernel's packed parameters; on a CUDA tensor its net row is added after
 the terms kernel or the cost kernel by ``ops/net_kernel.py``'s kernels
@@ -51,20 +60,21 @@ __all__ = ["KERNEL", "COST_KERNEL", "MR_KERNEL", "MR_COST_KERNEL", "MAX_DOF",
            "MR_MAX_MEMBERS", "obstacle_terms_kernel_factory",
            "collision_cost_kernel_factory", "multirobot_terms_kernel_factory",
            "pack_terms_params", "pack_multirobot_params", "pack_cost_params",
-           "cost_launch_config", "run_terms_kernel", "run_cost_kernel",
+           "cost_launch_config", "scene_grid_table", "run_terms_kernel",
+           "run_cost_kernel",
            "run_multirobot_terms_kernel", "run_multirobot_cost_kernel"]
 
 _P = ctypes.c_void_p
 KERNEL = CudaKernel("terms.cu", {
     "trt_terms_launch": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P,
-                         _P],
+                         _P, _P],
 })
 _COST_ARGS = {"trt_cost_launch": [_P, _P] + [ctypes.c_int] * 5
-              + [_P, ctypes.c_int, _P, ctypes.c_int, _P]}
+              + [_P, ctypes.c_int, _P, ctypes.c_int, _P, _P]}
 COST_KERNEL = CudaKernel("cost.cu", _COST_ARGS)
 MR_KERNEL = CudaKernel("mr_terms.cu", {
     "trt_mr_terms_launch": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_int, _P, _P, _P],
+                            ctypes.c_int, _P, _P, _P, _P],
 })
 # the same kernel on a MultiRobot's parameters, counted apart
 MR_COST_KERNEL = CudaKernel("cost.cu", _COST_ARGS)
@@ -78,22 +88,40 @@ _COST_LANES = 128         # lanes a block at one thread a lane
 _COST_MAX_TPL = 8         # threads a lane, at most
 _SMEM_MAX = 232448        # shared memory a block can have on the H100
 _GROUP_KIND = {"Spheres": 0, "RoundedBoxes": 1, "SharpBoxes": 2}
+_GRID_INTS, _GRID_FLOATS = 4, 8   # kin_scene.cuh grid_sdf's header
 
 
 def _pack_scene(df_obj_list):
-    """Scene primitives -> (ints: object group ranges, group kinds, counts,
-    offsets; floats: object rotations, positions, primitive tables), the
-    scene sections of the packed buffers."""
+    """Scene objects -> (ints: object group ranges, group kinds, counts,
+    offsets, each object's grid (-1 for an analytic object), the grids'
+    headers (first row in ``scene_grid_table``, cmap_dim); floats: object
+    rotations, positions, the grids' headers (lower limits, 0, float32
+    extent, 0), primitive tables), the scene sections of the packed
+    buffers.  A grid is an object with the identity pose and no groups."""
+    from ..geom.grid_sdf import GridSDF
     from ..geom.sdf import ObjectField
     group_kind, group_count, group_off, obj_begin = [], [], [], [0]
-    obj_rot, obj_pos, prims = [], [], []
-    n_prims = 0
+    obj_rot, obj_pos, prims, obj_grid, grid_i, grid_f = [], [], [], [], [], []
+    n_prims = n_rows = 0
     for obj in df_obj_list:
-        if not isinstance(obj, ObjectField):
+        if not isinstance(obj, (ObjectField, GridSDF)):
             raise NotImplementedError(
-                "grid-SDF extras are not in the CUDA terms kernels yet")
+                "the CUDA terms kernels take ObjectField and GridSDF "
+                "objects, not %s" % type(obj).__name__)
         if obj.dim != 3:
             raise NotImplementedError("the CUDA terms kernels take 3-D scenes")
+        if isinstance(obj, GridSDF):
+            lim = obj.limits.cpu().numpy().astype(np.float32)
+            extent = np.abs(lim[1] - lim[0])         # float32, as the lookup
+            obj_grid.append(len(grid_i))
+            grid_i.append([n_rows] + list(obj.cmap_dim))
+            grid_f.append(np.concatenate([lim[0], [0], extent, [0]]))
+            n_rows += obj.n_cells
+            obj_rot.append(np.eye(3).reshape(9))
+            obj_pos.append(np.zeros(3))
+            obj_begin.append(len(group_kind))
+            continue
+        obj_grid.append(-1)
         obj_rot.append(obj.rotation_matrix().cpu().numpy().reshape(9))
         obj_pos.append(obj.pos.cpu().numpy())
         for f in obj.fields:
@@ -108,11 +136,23 @@ def _pack_scene(df_obj_list):
             prims.append(table.reshape(-1))
             n_prims += table.size
         obj_begin.append(len(group_kind))
-    ints = [obj_begin, group_kind, group_count, group_off]
+    ints = [obj_begin, group_kind, group_count, group_off, obj_grid, grid_i]
     floats = [np.zeros(0) if not obj_rot else np.stack(obj_rot),
               np.zeros(0) if not obj_pos else np.stack(obj_pos),
+              np.zeros(0) if not grid_f else np.stack(grid_f),
               np.zeros(0) if not prims else np.concatenate(prims)]
     return ints, floats
+
+
+def scene_grid_table(df_obj_list):
+    """Every grid of the scene as one (C, 4) float32 device table, rows in
+    the order of ``_pack_scene``'s offsets (a single grid's own cached
+    ``table()``), or None for a scene without grids."""
+    from ..geom.grid_sdf import GridSDF
+    tables = [obj.table() for obj in df_obj_list if isinstance(obj, GridSDF)]
+    if not tables:
+        return None
+    return tables[0] if len(tables) == 1 else torch.cat(tables)
 
 
 def _i32(sections):
@@ -138,7 +178,7 @@ def pack_terms_params(lay: TermsLayout):
     scene_i, scene_f = _pack_scene(lay.df_obj_list)
 
     header = [L, D, len(lay.used_links), len(lay.obj_pos), len(lay.pair_a),
-              len(lay.df_obj_list), len(scene_i[1]), 0]
+              len(lay.df_obj_list), len(scene_i[1]), len(scene_i[5])]
     anc_bits = [int(sum(1 << j for j in range(D) if anc[li, j]))
                 for li in lay.used_links]
     ints = _i32([header, model.topological_order(), model.parent_idx,
@@ -219,7 +259,7 @@ def pack_multirobot_params(lay: MultiRobotLayout):
     n_obj = obj_off[-1]
     header = [n_mem, robot.q_dim, len(pt_member), n_obj, len(own_a),
               len(mut_a), len(lay.df_obj_list), len(scene_i[1]), len(bp),
-              int(l_off[-1])] + [0] * 6
+              int(l_off[-1]), len(scene_i[5])] + [0] * 5
     ints = _i32([header, L_list, lay.d_list, lay.d_off[:-1], l_off[:-1],
                  obj_off[:-1], obj_off[1:],
                  [b for b, _ in own_range], [e for _, e in own_range],
@@ -287,13 +327,18 @@ def _fk_steps(model, links):
 
 def cost_row_ops(lay) -> np.ndarray:
     """Float ops of each cost row in the kernel's row order (one object SDF
-    row per object point when the scene has objects, one workspace row per
-    object point, one per pair): 15 per object and 10 / 25 / 12 per sphere
-    / rounded box / sharp box for an SDF row, 12 for a workspace row or a
-    pair distance, and 4 for the hinge, its square and the sum."""
+    row per object point when the scene has objects or grids, one
+    workspace row per object point, one per pair): 15 per object and 10 /
+    25 / 12 per sphere / rounded box / sharp box, or 22 per grid (the cell
+    index and its clamp), for an SDF row, 12 for a workspace row or a pair
+    distance, and 4 for the hinge, its square and the sum."""
+    from ..geom.grid_sdf import GridSDF
     from ..geom.sdf import RoundedBoxes, Spheres
     sdf = 0
     for obj in lay.df_obj_list:
+        if isinstance(obj, GridSDF):
+            sdf += 22
+            continue
         sdf += 15
         for f in obj.fields:
             sdf += f.centers.shape[0] * (10 if isinstance(f, Spheres) else (
@@ -317,7 +362,8 @@ def pack_cost_params(lay):
     on a 16-byte boundary, read with 16-byte loads: a step's 8 ints (joint
     type, q column, parent source, slot, its points' range, 2 pad) and 20
     floats (fixed rotation, translation, axis, clamp bounds, 3 pad); an
-    object's 12 floats (rotation, position); each primitive group's table,
+    object's 12 floats (rotation, position); a grid's header, 8 floats
+    (lower limits, extent, each padded to 4); each primitive group's table,
     padded to a multiple of 4 floats (a sphere is one load).  A sphere
     group whose radii are all equal gets kind 3, which the kernel scores
     with one square root.
@@ -362,10 +408,11 @@ def pack_cost_params(lay):
     ops = cost_row_ops(lay)
     T = 1 if len(members) == 1 else int(min(_COST_MAX_TPL, max(
         len(members), -(-int(ops.sum()) // max(fk_ops)))))
-    scene_i, (obj_rot, obj_pos, prims) = _pack_scene(lay.df_obj_list)
+    scene_i, (obj_rot, obj_pos, grid_f, prims) = _pack_scene(
+        lay.df_obj_list)
     width = {0: 4, 1: 7, 2: 6}
     tables, off, kinds = [], [], []
-    for kind, cnt, o in zip(*scene_i[1:]):
+    for kind, cnt, o in zip(*scene_i[1:4]):
         off.append(sum(len(t) for t in tables))
         t = prims[o:o + width[kind] * cnt]
         tables.append(np.concatenate([t, np.zeros(-len(t) % 4)]))
@@ -376,11 +423,12 @@ def pack_cost_params(lay):
                               np.asarray(obj_pos).reshape(-1, 3)], axis=1)
     header = [len(members), doff, len(pt_list), len(lay.obj_pos),
               len(lay.pair_a), len(lay.df_obj_list), len(scene_i[1]),
-              len(step_i), n_slots, T, sum(len(t) for t in tables)]
+              len(step_i), n_slots, T, sum(len(t) for t in tables),
+              len(scene_i[5])]
     header += [0] * (_COST_HEADER - len(header))
     ints = _i32([header, step_i, mem_step, pt_list, lay.obj_pos, lay.pair_a,
                  lay.pair_b, _row_cuts(ops, T)] + scene_i)
-    floats = _f32(tables + [objects, step_f]
+    floats = _f32(tables + [objects, grid_f, step_f]
                   + [np.stack([R for _, R, _, _ in members]),
                      np.stack([t for _, _, t, _ in members]),
                      lay.obj_thresh.cpu().numpy(),
@@ -428,11 +476,28 @@ def _check_q(q_cols, ints, floats, d: int):
                          "on %s" % (ints.device, q_cols.device))
 
 
+def _grid_ptr(grid, q_cols):
+    """The device address of a scene's grid table (``scene_grid_table``:
+    (C, 4) float32, contiguous, on q's device), or None without one."""
+    if grid is None:
+        return None
+    if (grid.device != q_cols.device or grid.dtype != torch.float32
+            or grid.dim() != 2 or grid.shape[1] != 4
+            or not grid.is_contiguous()):
+        raise ValueError("the grid table must be a contiguous (C, 4) float32 "
+                         "tensor on %s, got %s %s on %s" % (
+                             q_cols.device, tuple(grid.shape), grid.dtype,
+                             grid.device))
+    return grid.data_ptr()
+
+
 def run_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
-                     floats: torch.Tensor, d: int):
+                     floats: torch.Tensor, d: int, grid=None):
     """Launch the CUDA terms kernel: q_cols (d, N) float32 contiguous CUDA
-    -> unscaled (g_q (d, N), Hqq (d, d, N), cost (N,))."""
+    -> unscaled (g_q (d, N), Hqq (d, d, N), cost (N,)); ``grid`` the
+    scene's grid table when it has grids."""
     _check_q(q_cols, ints, floats, d)
+    grid_ptr = _grid_ptr(grid, q_cols)
     N = q_cols.shape[1]
     g = torch.empty((d, N), dtype=torch.float32, device=q_cols.device)
     Hqq = torch.empty((d, d, N), dtype=torch.float32, device=q_cols.device)
@@ -443,12 +508,13 @@ def run_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         KERNEL.launch("trt_terms_launch", q_cols.data_ptr(), g.data_ptr(),
                       Hqq.data_ptr(), cost.data_ptr(), N, d, ints.data_ptr(),
-                      floats.data_ptr(), stream)
+                      floats.data_ptr(), grid_ptr, stream)
     return g, Hqq, cost
 
 
-def _launch_cost(kernel, q_cols, ints, floats, d, launch, lanes):
+def _launch_cost(kernel, q_cols, ints, floats, d, launch, lanes, grid):
     _check_q(q_cols, ints, floats, d)
+    grid_ptr = _grid_ptr(grid, q_cols)
     if launch is None or lanes is not None:
         launch = cost_launch_config(ints.cpu().numpy(), floats.numel(), lanes)
     N = q_cols.shape[1]
@@ -460,26 +526,30 @@ def _launch_cost(kernel, q_cols, ints, floats, d, launch, lanes):
         kernel.launch("trt_cost_launch", q_cols.data_ptr(), cost.data_ptr(),
                       N, d, launch["lanes"], launch["threads_per_lane"],
                       launch["smem_bytes"], ints.data_ptr(), ints.numel(),
-                      floats.data_ptr(), floats.numel(), stream)
+                      floats.data_ptr(), floats.numel(), grid_ptr, stream)
     return cost
 
 
 def run_cost_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
-                    floats: torch.Tensor, d: int, launch=None, lanes=None):
+                    floats: torch.Tensor, d: int, launch=None, lanes=None,
+                    grid=None):
     """Launch the CUDA value-only cost kernel on a single robot's packed
     parameters (``pack_cost_params``): q_cols (d, N) float32 contiguous CUDA
     -> unscaled cost (N,).  ``launch`` is ``cost_launch_config``'s shape
     (read from a host copy of ``ints`` when None); ``lanes`` launches at
-    another lane count a block."""
-    return _launch_cost(COST_KERNEL, q_cols, ints, floats, d, launch, lanes)
+    another lane count a block; ``grid`` the scene's grid table."""
+    return _launch_cost(COST_KERNEL, q_cols, ints, floats, d, launch, lanes,
+                        grid)
 
 
 def run_multirobot_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
                                 floats: torch.Tensor, d: int, n_bp: int,
-                                shared_bytes: int):
+                                shared_bytes: int, grid=None):
     """Launch the CUDA MultiRobot terms kernel: q_cols (d, N) float32
-    contiguous CUDA -> unscaled (g_q (d, N), Hqq (d, d, N), cost (N,))."""
+    contiguous CUDA -> unscaled (g_q (d, N), Hqq (d, d, N), cost (N,));
+    ``grid`` the scene's grid table."""
     _check_q(q_cols, ints, floats, d)
+    grid_ptr = _grid_ptr(grid, q_cols)
     N = q_cols.shape[1]
     g = torch.empty((d, N), dtype=torch.float32, device=q_cols.device)
     Hqq = torch.empty((d, d, N), dtype=torch.float32, device=q_cols.device)
@@ -491,25 +561,25 @@ def run_multirobot_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
         MR_KERNEL.launch("trt_mr_terms_launch", q_cols.data_ptr(),
                          g.data_ptr(), Hqq.data_ptr(), cost.data_ptr(), N,
                          n_bp, shared_bytes, ints.data_ptr(),
-                         floats.data_ptr(), stream)
+                         floats.data_ptr(), grid_ptr, stream)
     return g, Hqq, cost
 
 
 def run_multirobot_cost_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
                                floats: torch.Tensor, d: int, launch=None,
-                               lanes=None):
+                               lanes=None, grid=None):
     """``run_cost_kernel`` on a MultiRobot's packed parameters, counted on
     ``MR_COST_KERNEL``."""
     return _launch_cost(MR_COST_KERNEL, q_cols, ints, floats, d, launch,
-                        lanes)
+                        lanes, grid)
 
 
 def _kernel_params(task):
     """(d, ints, floats, plain terms) of a task the terms.cu kernels take,
     or None where the reference's fused factories return None (a point
     mass, robots without a kinematic model, interpolated collision points).
-    Grid-SDF scenes and grasped-object points are not in the kernels yet
-    and raise NotImplementedError.  A robot with a learned self-collision
+    Grasped-object points are not in the kernels yet and raise
+    NotImplementedError, as does a 2-D scene.  A robot with a learned self-collision
     net packs no pair rows (its net row runs in ``csrc/net_row.cu``)."""
     from ..robots.point_mass import RobotPointMass
     robot = task.robot
@@ -549,11 +619,12 @@ def obstacle_terms_kernel_factory(task):
     lay = plain.layout
     net_row = (None if lay.net is None
                else NetRowParams(lay.net, lay.net_cutoff, task.device))
+    grid = scene_grid_table(lay.df_obj_list)
 
     def unscaled(q_cols):
         if q_cols.device.type == "cpu":
             return plain.unscaled(q_cols)
-        out = run_terms_kernel(q_cols, ints, floats, d)
+        out = run_terms_kernel(q_cols, ints, floats, d, grid)
         if net_row is not None:
             add_net_terms(net_row, q_cols, *out)
         return out
@@ -567,6 +638,7 @@ def obstacle_terms_kernel_factory(task):
     terms.plain = plain
     terms.params = params
     terms.net_row = net_row
+    terms.grid = grid
     return terms
 
 
@@ -592,17 +664,19 @@ def collision_cost_kernel_factory(task, terms=None):
     net_row = terms.net_row
     run = run_cost_kernel
     if net_row is not None:
-        def run(q_cols, ints, floats, d, launch):
-            cost = run_cost_kernel(q_cols, ints, floats, d, launch)
+        def run(q_cols, ints, floats, d, launch, grid):
+            cost = run_cost_kernel(q_cols, ints, floats, d, launch,
+                                   grid=grid)
             add_net_cost(net_row, q_cols, cost)
             return cost
     return _cost_fn(pack_cost_params(plain_terms.layout), task.device, d,
-                    plain_terms, run)
+                    plain_terms, run, terms.grid)
 
 
-def _cost_fn(packed, device, d, plain_terms, run):
+def _cost_fn(packed, device, d, plain_terms, run, grid):
     """cost(q_cols) on the packed cost parameters: the kernel through
-    ``run`` for a CUDA tensor, the plain terms' cost for a CPU tensor."""
+    ``run`` for a CUDA tensor (with the scene's grid table ``grid``), the
+    plain terms' cost for a CPU tensor."""
     ints_np, floats_np = packed
     launch = cost_launch_config(ints_np, len(floats_np))
     ints = torch.as_tensor(ints_np, device=device)
@@ -614,10 +688,11 @@ def _cost_fn(packed, device, d, plain_terms, run):
     def cost(q_cols):
         if q_cols.device.type == "cpu":
             return plain(q_cols)
-        return run(q_cols, ints, floats, d, launch)
+        return run(q_cols, ints, floats, d, launch, grid=grid)
 
     cost.plain = plain
     cost.params = (d, ints, floats, launch)
+    cost.grid = grid
     return cost
 
 
@@ -664,12 +739,13 @@ def multirobot_terms_kernel_factory(task):
         return None
     d, ints, floats, n_bp, plain = params
     shared = mr_shared_bytes(ints)
+    grid = scene_grid_table(plain.layout.df_obj_list)
 
     def unscaled(q_cols):
         if q_cols.device.type == "cpu":
             return plain.unscaled(q_cols)
         return run_multirobot_terms_kernel(q_cols, ints, floats, d, n_bp,
-                                           shared)
+                                           shared, grid)
 
     def terms(q_cols, lam, h=None):
         if q_cols.device.type == "cpu":
@@ -679,6 +755,7 @@ def multirobot_terms_kernel_factory(task):
     terms.unscaled = unscaled
     terms.plain = plain
     terms.params = params
+    terms.grid = grid
     return terms
 
 
@@ -691,4 +768,5 @@ def _multirobot_cost_factory(task, terms=None):
         return None
     d, _, _, _, plain_terms = params
     return _cost_fn(pack_cost_params(plain_terms.layout), task.device, d,
-                    plain_terms, run_multirobot_cost_kernel)
+                    plain_terms, run_multirobot_cost_kernel,
+                    scene_grid_table(plain_terms.layout.df_obj_list))

@@ -16,8 +16,12 @@ Single kinematic robots, ``MultiRobot``s (several arms at fixed base
 poses, with mutual-collision pairs) and point masses in 2-D or 3-D scenes
 are covered.  A robot with a learned self-collision net (the reference's
 STORM-style Panda) has the net's one row in place of the pair rows, and
-its collision check is the net's fixed-threshold test.
-Occupancy maps and the 'sdf' cost are not ported yet.
+its collision check is the net's fixed-threshold test.  A scene whose
+fixed objects are a precomputed SDF grid (``EnvBase(
+precompute_sdf_obj_fixed=True)``) takes the grid in their place in every
+row and check; with ``use_occupancy_map`` the collision check reads the
+scene's occupancy map instead of the distance fields.
+The 'sdf' cost is not ported yet.
 """
 from __future__ import annotations
 
@@ -105,10 +109,8 @@ class PlanningTask:
     _NET_SELF_COLL_THRESHOLD = -0.05
 
     def __init__(self, env=None, robot=None, ws_limits=None,
-                 use_occupancy_map: bool = False,
+                 use_occupancy_map: bool = False, cell_size: float = 0.01,
                  obstacle_cutoff_margin: float = 0.01):
-        if use_occupancy_map:
-            raise NotImplementedError("occupancy maps are not ported yet")
         # GN systems NaN under TF32 products (core/device.py)
         disable_tf32()
         self.env = env
@@ -121,6 +123,9 @@ class PlanningTask:
         self.ws_min = limits[0]
         self.ws_max = limits[1]
         self.obstacle_cutoff_margin = obstacle_cutoff_margin
+        self.use_occupancy_map = use_occupancy_map
+        if use_occupancy_map:
+            env.build_occupancy_map(cell_size=cell_size)
         self.df_obj_list = env.get_df_obj_list()
         self.collision_residuals = CollisionResiduals(self)
 
@@ -162,9 +167,26 @@ class PlanningTask:
             cutoff_margin=cutoff)
 
     def compute_collision(self, x, margin=None):
-        """x: (..., d_state) states -> per-waypoint collision flags (...)."""
-        return self._compute_collision(self.robot.get_position(x),
-                                       margin_override=margin)
+        """x: (..., d_state) states -> per-waypoint collision flags (...):
+        the occupancy check with ``use_occupancy_map`` (``margin`` then
+        unused), else the distance-field check."""
+        q = self.robot.get_position(x)
+        if self.use_occupancy_map:
+            return self._compute_collision_occupancy(q)
+        return self._compute_collision(q, margin_override=margin)
+
+    def _compute_collision_occupancy(self, q):
+        """Occupancy check: q (..., d) -> bool (...), True where q leaves
+        the joint limits, an object collision point leaves the workspace,
+        or a point's occupancy cell is occupied."""
+        out_of_limits = ((q < self.robot.q_min)
+                         | (q > self.robot.q_max)).any(-1)
+        pts = self.robot.object_collision_points(
+            self.robot.fk_map_collision(q))
+        out_of_ws = ((pts < self.ws_min) | (pts > self.ws_max)).flatten(
+            -2).any(-1)
+        hit = (self.env.occupancy_map.get_collisions(pts) > 0).any(-1)
+        return out_of_limits | out_of_ws | hit
 
     # ------------------------------------------------------------------
     # sampling
