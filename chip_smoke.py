@@ -4,9 +4,10 @@ the multi-robot MPC path (phases 12-15), the point-mass batch solve with
 GN factorization reuse and the point-cloud SDF (phases 16-20), sGPMP
 for the Panda and the config-4 robot with the solvers nothing routes to
 (phases 21-25), the learned self-collision Panda's net row through
-the terms, the cost and the main path (phases 26-28), and the scenes
+the terms, the cost and the main path (phases 26-28), the scenes
 whose spheres are precomputed into an SDF grid, with the grid branch of
-K1, K5 and K8 (phases 29-32).
+K1, K5 and K8 (phases 29-32), and the Panda holding a grasped box, with
+the grasped-point branch of K1, K5 and K8 (phases 33-36).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -202,6 +203,32 @@ final line):
              sGPMP candidates (N = 131,072), timed; two MPC steps (exactly
              4 K5 and 4 K4 launches); config 4's sGPMP in the grid scene:
              exactly 201 K8-MultiRobot launches.
+33. grasp_terms - K1's grasped branch vs its plain version on the Panda
+             holding GraspedObjectPandaBox (benchmarks/pallas_terms_ab.py's
+             grasped terms: EnvSpheres3D, cutoff 0.03, N = 64 * 1024): q
+             uniform over the joint limits (numpy seed), the grasped main
+             path's first q, a ragged N = 1000 (its lanes' bits those of
+             the full launch) and in grid_main's 0.01 m grid (hold_grid);
+             timed on both q beside the pair-field K1 on the same q, the
+             bound from the active rows.
+34. grasp_main - the main path with the grasped Panda (phase main's
+             problem and sizes): exactly 16 K1 and 16 K2 launches, finite
+             outputs, step ms, solves/s, a profile; one step at B = 32 on
+             the card and on the CPU held to a float64 CPU step (phase
+             cpu's rule).
+35. grasp_cost - K8's grasped branch vs plain at the iLQR cutoff on
+             random q (N = 79,360) and on the sGPMP Panda's first
+             candidates (N = 2,097,152, the plain cost in chunks), a
+             lane's bits at a ragged N and at 32 lanes a block, timed;
+             then sGPMP at phase sgpmp's shape on the grasped Panda:
+             exactly 201 K8 launches, fraction free before and after.
+36. mr_grasp - config 4 with its first Panda holding a 0.08 m box
+             (tests/test_multi_robot.py's), starts drawn free by its own
+             check: K5 vs plain on the path's first q (N = 8192), two MPC
+             steps (exactly 4 K5 and 4 K4 launches), K8's MultiRobot branch
+             vs plain on the sGPMP candidates (N = 131,072) with a lane's
+             bits at a ragged N and at 32 lanes a block, timed; config 4's
+             sGPMP on it: exactly 201 K8-MultiRobot launches.
 
 Then one JSON line with every kernel's numbers (launches from phase 4 for
 K1 and K2, from phase 9 for K6, K7 and K8 at N = 79360, from phase 21 for
@@ -212,7 +239,9 @@ one call each on the main path's inputs for K3, K11 and K12, from
 phase 28's spread-net run for the net-terms row and from phase 27's sGPMP
 run for the net-cost row; the grid branches from phase 29's grid run
 for K1, phase 31's sGPMP for K8 and phase 32's MPC steps and sGPMP for
-K5 and K8-MultiRobot), the nvidia-smi line, and the final {"ok": true,
+K5 and K8-MultiRobot; the grasped branches from phase 34's run for K1,
+phase 35's sGPMP for K8 and phase 36's MPC steps and sGPMP for K5 and
+K8-MultiRobot), the nvidia-smi line, and the final {"ok": true,
 "device": ...} line.
 """
 from __future__ import annotations
@@ -347,6 +376,13 @@ GRID_F64_B, GRID_TERMS_N = 512, 65536
 # float32 FK picks the neighbouring cell), at most GRID_FACE_SHARE of the
 # lanes; float ops of one grid lookup (cell index, clamp, flat index)
 GRID_FACE_TOL, GRID_FACE_SHARE, GRID_LOOKUP_OPS = 1e-4, 1e-3, 22
+# the grasped-object Panda: benchmarks/pallas_terms_ab.py's grasped terms
+# (GraspedObjectPandaBox in EnvSpheres3D, cutoff 0.03, B = 1024, H = 64,
+# q uniform over the joint limits); a ragged N; config 4 with its first
+# Panda holding tests/test_multi_robot.py's 0.08 m box; float ops of one
+# grasped point, R o + t (9 products, 9 sums)
+GRASP_CUTOFF, GRASP_RAGGED_N, GRASP_POINT_OPS = 0.03, 1000, 18
+GRASP_MR_BOX = (0.08, 0.08, 0.08)
 
 
 def emit(phase: str, **fields) -> None:
@@ -502,7 +538,8 @@ def grid_row_bytes(lay, N: int) -> int:
 
 def lane_ops(lay, n_rows: int, per_row: int = 2) -> int:
     """Float ops every waypoint lane needs for the rows' values: FK compose
-    (~132 per revolute link, ~63 per fixed), the scene SDF of each object
+    (~132 per revolute link, ~63 per fixed), each grasped point's R o + t
+    (GRASP_POINT_OPS), the scene SDF of each object
     point (15 per point and object + ~10 / 25 / 12 per sphere / rounded
     box / sharp box, or GRID_LOOKUP_OPS per grid), its workspace distance
     (12), each pair's distance (12) and ``per_row`` per residual row."""
@@ -512,6 +549,7 @@ def lane_ops(lay, n_rows: int, per_row: int = 2) -> int:
     n_rev = sum(1 for t in model.joint_types if t != 0)
     n_obj, n_pair = len(lay.obj_pos), len(lay.pair_a)
     ops = (132 * n_rev + 63 * (model.n_links - n_rev)
+           + GRASP_POINT_OPS * getattr(lay, "n_grasped", 0)
            + 12 * (n_obj + n_pair) + per_row * n_rows)
     for obj in lay.df_obj_list:
         if isinstance(obj, GridSDF):
@@ -648,15 +686,20 @@ def mr_lane_ops(lay, n_rows: int, per_row: int = 2, axes: bool = True):
     """Float ops every waypoint lane of a MultiRobot needs for the rows'
     values: each member's FK compose (~132 per revolute link, ~63 per
     fixed), with ``axes`` its world joint axes and origins with the base
-    pose (48 per joint), every point's base transform (15), the scene SDF of
+    pose (48 per joint), every point's base transform (15), a grasped
+    point's R o + t (GRASP_POINT_OPS), the scene SDF of
     each object point (15 per point and object + ~10 per sphere), its
     workspace distance (12), each pair's distance (12) and ``per_row`` per
     residual row."""
     from torch_robotics_tpu_torch.geom import GridSDF
     from torch_robotics_tpu_torch.geom.sdf import Spheres
+    from torch_robotics_tpu_torch.ops.lanes_fk import member_collision_points
     n_pts = len(lay.point_joints())
     n_obj, n_pair = len(lay.obj_pos), len(lay.pair_a)
-    per_lane = 15 * n_pts + 12 * (n_obj + n_pair) + per_row * n_rows
+    n_grasped = sum(g >= 0 for r in lay.members for sec in ("object", "self")
+                    for _, g in member_collision_points(r, sec))
+    per_lane = (15 * n_pts + GRASP_POINT_OPS * n_grasped
+                + 12 * (n_obj + n_pair) + per_row * n_rows)
     for mem in lay.members:
         model = mem.model
         n_rev = sum(1 for t in model.joint_types if t != 0)
@@ -743,6 +786,8 @@ def phase_build():
     # resource report of the instantiations the paths launch (mangled name
     # fragment -> label)
     names = {"terms_kernelILi7E": "terms_kernel",
+             **{"terms_kernelILi%dE" % d: "terms_kernel<%d>" % d
+                for d in (1, 2, 3, 4, 5, 6, 8)},
              "11cost_kernelE": "cost_kernel",
              "btridiag_w_kernelILi14ELb0E": "btridiag_w_kernel<14>",
              "btridiag_w_kernelILi4ELb0E": "btridiag_w_kernel<4>",
@@ -832,7 +877,6 @@ def random_q(task, N: int, seed: int):
 
 
 def phase_terms():
-    import torch
     from torch_robotics_tpu_torch.envs import EnvBase, EnvMazeBoxes3D
     from torch_robotics_tpu_torch.geom import MultiSharpBoxField, ObjectField
     from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
@@ -849,19 +893,11 @@ def phase_terms():
               .permute(2, 1, 0).reshape(d, N).contiguous())
     q = random_q(task, N, seed=1)
     results = {}
-
-    def hold(name, got, ref):
-        for g, r in zip(got, ref):
-            tol = TERMS_ATOL_REL * float(r.abs().max()) + TERMS_RTOL * r.abs()
-            check(bool(torch.isfinite(g).all()), name + ": non-finite terms")
-            check(bool(((g - r).abs() <= tol).all()),
-                  "%s: terms kernel disagrees with its plain version" % name)
-        results[name] = max_errs(got, ref)
-
     main_key = "panda_spheres3d_main_q_N%d" % N
-    hold(main_key, terms.unscaled(q_main), terms.plain.unscaled(q_main))
-    hold("panda_spheres3d_random_q_N%d" % N, terms.unscaled(q),
-         terms.plain.unscaled(q))
+    hold_terms(main_key, terms.unscaled(q_main), terms.plain.unscaled(q_main),
+               results)
+    hold_terms("panda_spheres3d_random_q_N%d" % N, terms.unscaled(q),
+               terms.plain.unscaled(q), results)
 
     box_robot = RobotPanda.create(self_collision_margin_robot=0.3,
                                   device="cuda")
@@ -883,7 +919,7 @@ def phase_terms():
                     ("panda_sharp_boxes_tight_ws_N4096", sharp_task)):
         qb = random_q(t, 4096, seed=2)
         tt = t.collision_residuals.obstacle_terms_lanes
-        hold(name, tt.unscaled(qb), tt.plain.unscaled(qb))
+        hold_terms(name, tt.unscaled(qb), tt.plain.unscaled(qb), results)
 
     # timed, and its work counted, on the main path's q
     k_ms = cuda_ms(lambda: terms.unscaled(q_main), iters=50)
@@ -1430,6 +1466,18 @@ def phase_riccati(seen, mpc_sweep):
     return out
 
 
+def hold_terms(name, got, ref, results):
+    """A terms kernel's outputs held to its plain version at the terms
+    tolerance; the errors go to ``results[name]``."""
+    import torch
+    for g, r in zip(got, ref):
+        tol = TERMS_ATOL_REL * float(r.abs().max()) + TERMS_RTOL * r.abs()
+        check(bool(torch.isfinite(g).all()), name + ": non-finite terms")
+        check(bool(((g - r).abs() <= tol).all()),
+              "%s: terms kernel disagrees with its plain version" % name)
+    results[name] = max_errs(got, ref)
+
+
 def hold_cost(name, got, ref):
     """A cost kernel's output held to its plain version at the terms
     tolerance -> (max abs error, relative to max|ref|)."""
@@ -1729,9 +1777,10 @@ def phase_ilqr_mpc(task, start, goal, plan):
 # ----------------------------------------------------------------------
 # the multi-robot path: benchmarks/run_all.py config_multi_robot (config 4)
 # ----------------------------------------------------------------------
-def mr_task(device, poses=MR_POSES, env=None):
+def mr_task(device, poses=MR_POSES, env=None, grasp: bool = False):
     """The config-4 robot (two Pandas and a UR10 at their base poses) in
-    EnvSpheres3D (or ``env``) at cutoff 0.02."""
+    EnvSpheres3D (or ``env``) at cutoff 0.02; with ``grasp`` its first
+    Panda holds a GRASP_MR_BOX box."""
     import torch
     from torch_robotics_tpu_torch.core import z_rot
     from torch_robotics_tpu_torch.envs import EnvSpheres3D
@@ -1740,16 +1789,21 @@ def mr_task(device, poses=MR_POSES, env=None):
     from torch_robotics_tpu_torch.tasks import PlanningTask
     make = {"panda": lambda: RobotPanda.create(device=device),
             "ur10": lambda: RobotUR10(device=device)}
+    members = [make[k]() for k, _, _ in poses]
+    if grasp:
+        members[0] = grasp_robot(device, GRASP_MR_BOX)
     robot = MultiRobot.create(
-        [make[k]() for k, _, _ in poses],
+        members,
         [(z_rot(torch.tensor(yaw, dtype=torch.float32)),
           torch.tensor([x, y, 0.0])) for _, (x, y), yaw in poses])
     return PlanningTask(env=EnvSpheres3D(device=device) if env is None
                         else env, robot=robot, obstacle_cutoff_margin=0.02)
 
 
-def mr_problem(device, n_batch: int = MR_B):
-    """Config 4's draw -> (task, start, goal (n, 40), starts drawn).
+def mr_problem(device, n_batch: int = MR_B, grasp: bool = False):
+    """Config 4's draw -> (task, start, goal (n, 40), starts drawn); with
+    ``grasp`` the task of ``mr_task(grasp=True)``, its starts drawn free
+    by its own check.
 
     Starts: random_coll_free_q with config 4's budget of B * 1024
     candidates from a seeded CPU generator.  About 0.09% of the joint box
@@ -1758,7 +1812,7 @@ def mr_problem(device, n_batch: int = MR_B):
     generator fill the batch, and the count of rounds is reported.  Goals:
     clip(q0 + 0.4 N(0, 1), q_min, q_max) from a numpy seed."""
     import torch
-    task = mr_task(device)
+    task = mr_task(device, grasp=grasp)
     robot = task.robot
     gen = torch.Generator().manual_seed(SEED)
     found, first_round = [], None
@@ -1815,14 +1869,7 @@ def phase_mr_terms(task, start, goal):
                        ("two_arm_random_q_N4096", two_arm,
                         in_limits(two_arm, 4096))):
         tt = t.collision_residuals.obstacle_terms_lanes
-        got, ref = tt.unscaled(q), tt.plain.unscaled(q)
-        for g, r in zip(got, ref):
-            tol = TERMS_ATOL_REL * float(r.abs().max()) + TERMS_RTOL * r.abs()
-            check(bool(torch.isfinite(g).all()), name + ": non-finite terms")
-            check(bool(((g - r).abs() <= tol).all()),
-                  "%s: MultiRobot terms kernel disagrees with its plain "
-                  "version" % name)
-        results[name] = max_errs(got, ref)
+        hold_terms(name, tt.unscaled(q), tt.plain.unscaled(q), results)
         r = tt.plain.rows(q)[0]
         n_mutual = sum(len(v) for v in tt.plain.layout.groups.values())
         shares[name] = dict(rows=float((r > 0).float().mean()),
@@ -3534,6 +3581,278 @@ def phase_mr_grid(env, start, goal):
     return k5, k8
 
 
+# ----------------------------------------------------------------------
+# the grasped-object Panda (phases grasp_terms, grasp_main, grasp_cost,
+# mr_grasp)
+# ----------------------------------------------------------------------
+def grasp_robot(device, size=None):
+    """The Panda holding GraspedObjectPandaBox (its default size, or
+    ``size``)."""
+    from torch_robotics_tpu_torch.geom import GraspedObjectPandaBox
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    box = (GraspedObjectPandaBox(device=device) if size is None
+           else GraspedObjectPandaBox(size=size, device=device))
+    return RobotPanda.create(grasped_object=box, device=device)
+
+
+def grasp_task(device, env=None, cutoff=GRASP_CUTOFF):
+    """The grasped Panda in EnvSpheres3D (or ``env``) at ``cutoff``."""
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    return PlanningTask(env=EnvSpheres3D(device=device) if env is None
+                        else env, robot=grasp_robot(device),
+                        obstacle_cutoff_margin=cutoff)
+
+
+def uniform_q(task, N: int, seed: int):
+    """q (d, N) uniform over the joint limits (pallas_terms_ab.py's draw),
+    from a numpy seed."""
+    import torch
+    lo, hi = task.robot.model.q_lower, task.robot.model.q_upper
+    u = np.random.default_rng(seed).uniform(size=(lo.shape[0], N))
+    return torch.as_tensor(lo[:, None] + u * (hi - lo)[:, None],
+                           dtype=torch.float32, device=task.device)
+
+
+def chunked(fn, q, n: int = 1 << 18):
+    """fn over q (d, N) in chunks of n lanes, concatenated: the plain cost
+    of the grasped robot at N = 2,097,152 in one call would hold its
+    (104, 7, 7, N) Hessian products."""
+    import torch
+    return torch.cat([fn(q[:, i:i + n].contiguous())
+                      for i in range(0, q.shape[1], n)])
+
+
+def phase_grasp_terms(genv):
+    """K1's grasped branch vs its plain version at the terms tolerance on
+    the grasped Panda (pallas_terms_ab.py's workload, cutoff 0.03, N = H B
+    = 65,536): q uniform over the joint limits, the grasped main path's
+    first q, a ragged N (its lanes' bits those of the full launch), and in
+    grid_main's 0.01 m grid scene (hold_grid); timed with CUDA events on
+    both q beside the pair-field K1 on the same q, the bound from the
+    active rows."""
+    import torch
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.solve import straight_line_trajs
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    task, start, goal = bench_problem("cuda", B, robot=grasp_robot("cuda"))
+    terms = task.collision_residuals.obstacle_terms_lanes
+    N = H * B
+    d = start.shape[1] // 2
+    q_main = (straight_line_trajs(start, goal, H)[..., :d]
+              .permute(2, 1, 0).reshape(d, N).contiguous())
+    q_uni = uniform_q(task, N, seed=31)
+    results = {}
+    hold_terms("uniform_q_N%d" % N, terms.unscaled(q_uni),
+               terms.plain.unscaled(q_uni), results)
+    hold_terms("main_q_N%d" % N, terms.unscaled(q_main),
+               terms.plain.unscaled(q_main), results)
+    q_rag = q_uni[:, :GRASP_RAGGED_N].contiguous()
+    rag = terms.unscaled(q_rag)
+    hold_terms("ragged_N%d" % GRASP_RAGGED_N, rag, terms.plain.unscaled(q_rag),
+               results)
+    full = terms.unscaled(q_uni)
+    check(all(torch.equal(a, b[..., :GRASP_RAGGED_N])
+              for a, b in zip(rag, full)),
+          "grasp_terms: a lane's bits change with the batch")
+    gtask = grasp_task("cuda", env=genv)
+    gterms = gtask.collision_residuals.obstacle_terms_lanes
+    check(gterms.grid is not None, "the grasped grid task has no grid table")
+    results["grid_uniform_q_N%d" % N] = hold_grid(
+        "grasp_terms grid", gterms.unscaled(q_uni),
+        gterms.plain.unscaled(q_uni), object_points_near_face(gtask, q_uni))
+    pair = PlanningTask(env=EnvSpheres3D(device="cuda"),
+                        robot=RobotPanda.create(device="cuda"),
+                        obstacle_cutoff_margin=GRASP_CUTOFF)
+    pterms = pair.collision_residuals.obstacle_terms_lanes
+    lay = TermsLayout(task)
+    out = {}
+    for key, q in (("main_q", q_main), ("uniform_q", q_uni)):
+        r = terms.plain.rows(q)[0]
+        out[key] = dict(
+            ms=cuda_ms(lambda: terms.unscaled(q), iters=50),
+            pair_field_ms=cuda_ms(lambda: pterms.unscaled(q), iters=50),
+            plain_ms=cuda_ms(lambda: terms.plain.unscaled(q), iters=3,
+                             warmup=1),
+            work=terms_work(lay, q, r),
+            active_row_share=float((r > 0).float().mean()))
+    grid_ms = cuda_ms(lambda: gterms.unscaled(q_uni), iters=50)
+    torch.cuda.empty_cache()
+    emit("grasp_terms", N=N, points=len(lay.point_links),
+         rows=len(lay.row_joints()[0]),
+         max_errs={k: (v if isinstance(v, dict)
+                       else {"abs": v[0], "rel_to_max": v[1]})
+                   for k, v in results.items()},
+         kernel_ms={k: v["ms"] for k, v in out.items()},
+         pair_field_kernel_ms={k: v["pair_field_ms"] for k, v in out.items()},
+         plain_ms={k: v["plain_ms"] for k, v in out.items()},
+         bound_ms={k: bound_ms(*v["work"])[0] for k, v in out.items()},
+         bound_by={k: bound_ms(*v["work"])[1] for k, v in out.items()},
+         active_row_share={k: v["active_row_share"] for k, v in out.items()},
+         grid_kernel_ms_uniform_q=grid_ms)
+    res = out["main_q"]
+    return dict(max_abs_err=results["main_q_N%d" % N][0], ms=res["ms"],
+                plain_ms=res["plain_ms"], work=res["work"])
+
+
+def phase_grasp_main():
+    """The main path with the grasped Panda: bench_problem's draw, B =
+    1024, H = 64, 2 GN iterations a step, 8 steps; exactly 16 K1 and 16 K2
+    launches and nothing else, finite outputs, solves/s, step ms, a
+    profile; then one step at B = 32 on the card and on the CPU held to a
+    float64 CPU step (step_vs_f64, phase cpu's rule) -> K1 launches."""
+    import torch
+    task, start, goal = bench_problem("cuda", B, robot=grasp_robot("cuda"))
+    run_mpc(task, start, goal, 1)                    # warm-up
+    (state, costs, thetas), launches, ms = counted(
+        lambda: run_mpc(task, start, goal, N_STEPS))
+    expected = N_STEPS * ITERS_PER_STEP
+    check(launches == {"terms": expected, "btridiag_w": expected},
+          "grasp_main launches %s, expected %d K1 and K2" % (launches,
+                                                             expected))
+    check(all(bool(torch.isfinite(t).all()) for t in thetas)
+          and bool(torch.isfinite(costs).all()),
+          "grasp_main produced non-finite outputs")
+    step_ms = ms / N_STEPS
+    busy, dev_ms, top = profile_device(
+        lambda: run_mpc(task, start, goal, 2), 2)
+    from torch_robotics_tpu_torch.solve import GPMP2Params
+    n = MPC_CPU_B
+    task_c, start_c, goal_c = bench_problem("cuda", n,
+                                            robot=grasp_robot("cuda"))
+    task_h, start_h, goal_h = bench_problem("cpu", n, robot=grasp_robot("cpu"))
+    iters, chained = step_vs_f64(task_c, task_h, (start_c, goal_c),
+                                 (start_h, goal_h), GPMP2Params(**GP_PARAMS),
+                                 H, ITERS_PER_STEP, "grasp_main ")
+    emit("grasp_main", B=B, H=H, steps=N_STEPS, launches=launches,
+         step_ms=step_ms, solves_per_s=B / (step_ms / 1e3),
+         fraction_free=task.compute_fraction_free_trajs(state.theta),
+         mean_collision_cost_last=float(costs[-1].mean()),
+         profiled_device_busy_share=busy, profiled_device_ms_per_step=dev_ms,
+         top_device_ms_per_step=top,
+         f64_hold=dict(B=n, iterations=iters, chained_step=chained))
+    return launches["terms"]
+
+
+def phase_grasp_cost(start, goal):
+    """K8's grasped branch vs its plain version (terms tolerance) on the
+    grasped Panda at the iLQR cutoff 0.06: random q at the line search's N
+    = 79,360 and the sGPMP path's first candidates (N = 2,097,152; the
+    plain cost in chunks), a lane's bits the same at a ragged N and at 32
+    lanes a block (same_lane_bits); timed at both; then sGPMP at phase
+    sgpmp's shape on the grasped Panda: exactly 201 K8 launches, the
+    fraction free before and after -> (kernel numbers at 2,097,152,
+    launches)."""
+    import torch
+    from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
+    from torch_robotics_tpu_torch.ops.terms_kernel import run_cost_kernel
+    task = grasp_task("cuda", cutoff=0.06)
+    cost = task.collision_residuals.collision_cost_lanes
+    N_ls = len(IL_ALPHAS) * IL_B * (IL_H - 1)
+    N_sg = SG_PARAMS["num_samples"] * IL_B * SG_PART * IL_H
+    q_sg = capture_cost_inputs(task, *sg_problem(
+        start, goal, SG_PART, IL_H, SG_PARAMS["dt"], SEED + 2),
+        SG_PARAMS)[N_sg]
+    q_ls = random_q(task, N_ls, seed=32)
+    results, out = {}, {}
+    lay = TermsLayout(task)
+    n_rows = 2 * len(lay.obj_pos) + len(lay.pair_a)
+    for key, name, q, iters in (
+            ("line_search", "random_q_N%d" % N_ls, q_ls, 50),
+            ("sgpmp", "sgpmp_candidates_N%d" % N_sg, q_sg, 20)):
+        results[name] = hold_cost(name, cost(q), chunked(cost.plain, q))
+        same_lane_bits(name, cost, run_cost_kernel, q)
+        out[key] = dict(N=q.shape[1], ms=device_ms(lambda: cost(q), iters),
+                        plain_ms=cuda_ms(lambda: chunked(cost.plain, q),
+                                         iters=1, warmup=1),
+                        work=cost_work(lay, q.shape[1], n_rows),
+                        max_abs_err=results[name][0])
+    torch.cuda.empty_cache()
+    emit("grasp_cost", rows=n_rows, launch=cost.params[3],
+         max_errs={k: {"abs": v[0], "rel_to_max": v[1]}
+                   for k, v in results.items()},
+         kernel_ms={k: v["ms"] for k, v in out.items()},
+         plain_ms={k: v["plain_ms"] for k, v in out.items()},
+         bound_ms={k: bound_ms(*v["work"])[0] for k, v in out.items()},
+         bound_by={k: bound_ms(*v["work"])[1] for k, v in out.items()})
+    launches = phase_sgpmp("grasp_sgpmp", task, start, goal, SG_PART,
+                           SG_PARAMS, "cost", SEED + 2)[0]
+    return out["sgpmp"], launches
+
+
+def phase_mr_grasp():
+    """Config 4 with its first Panda holding a GRASP_MR_BOX box, the
+    starts drawn free by its own check (mr_problem): K5 vs its plain
+    version on the path's first q (N = 8192), two MPC steps (exactly 4 K5
+    and 4 K4 launches, finite), K8's MultiRobot branch vs plain on the
+    sGPMP candidates (N = 131,072) with same_lane_bits, timed; then the
+    config-4 sGPMP on it: exactly 201 K8-MultiRobot launches -> (K5
+    numbers, K8-MultiRobot numbers)."""
+    import torch
+    from torch_robotics_tpu_torch.ops.terms_kernel import \
+        run_multirobot_cost_kernel
+    task, start, goal, draw = mr_problem("cuda", grasp=True)
+    res = task.collision_residuals
+    terms, cost = res.obstacle_terms_lanes, res.collision_cost_lanes
+    lay = terms.plain.layout
+    n_free = int((~task.compute_collision(start)).sum())
+    check(n_free == MR_B, "mr_grasp: only %d of %d starts are free"
+          % (n_free, MR_B))
+    q_main = mr_first_q(start, goal)
+    N_c = MR_SG_PARAMS["num_samples"] * MR_B * MR_H
+    q_cand = capture_cost_inputs(task, *sg_problem(
+        start, goal, 1, MR_H, MR_GP["dt"], SEED + 3), MR_SG_PARAMS)[N_c]
+    results = {}
+    hold_terms("terms_first_q_N%d" % q_main.shape[1], terms.unscaled(q_main),
+               terms.plain.unscaled(q_main), results)
+    name_c = "cost_candidates_N%d" % N_c
+    results[name_c] = hold_cost(name_c, cost(q_cand), cost.plain(q_cand))
+    same_lane_bits("mr_grasp cost", cost, run_multirobot_cost_kernel, q_cand)
+    r = terms.plain.rows(q_main)[0]
+    n_mut = sum(len(v) for v in lay.groups.values())
+    k5 = dict(ms=cuda_ms(lambda: terms.unscaled(q_main), iters=50),
+              plain_ms=cuda_ms(lambda: terms.plain.unscaled(q_main), iters=3,
+                               warmup=1),
+              work=mr_terms_work(lay, q_main, r),
+              max_abs_err=results["terms_first_q_N%d" % q_main.shape[1]][0])
+    n_rows = 2 * len(lay.obj_pos) + len(lay.pair_a)
+    k8 = dict(ms=device_ms(lambda: cost(q_cand), 20),
+              plain_ms=cuda_ms(lambda: cost.plain(q_cand), iters=2,
+                               warmup=1),
+              work=mr_cost_work(lay, N_c, n_rows),
+              max_abs_err=results[name_c][0])
+    torch.cuda.empty_cache()
+    mr_rollout(task, start, goal, 1)                 # warm-up
+    (xs, info), launches, ms = counted(lambda: mr_rollout(task, start, goal,
+                                                          2))
+    check(launches == {"multirobot_terms": 2 * MR_ITERS,
+                       "btridiag_cols": 2 * MR_ITERS},
+          "mr_grasp MPC launches %s, expected %d K5 and K4" % (
+              launches, 2 * MR_ITERS))
+    check(bool(torch.isfinite(xs).all()) and bool(torch.isfinite(
+        info["final_state"].theta).all()), "mr_grasp MPC: non-finite")
+    k5["launches"] = launches["multirobot_terms"]
+    emit("mr_grasp", start_draw=draw, points=int(lay.point_joints().shape[0]),
+         rows=n_rows, mutual_rows=n_mut,
+         active_row_share=dict(rows=float((r > 0).float().mean()),
+                               mutual_rows=float((r[-n_mut:] > 0).float()
+                                                 .mean())),
+         max_errs={k: {"abs": v[0], "rel_to_max": v[1]}
+                   for k, v in results.items()},
+         k5_ms=k5["ms"], k5_plain_ms=k5["plain_ms"],
+         k5_bound_ms=bound_ms(*k5["work"])[0],
+         k5_bound_by=bound_ms(*k5["work"])[1], k8_ms=k8["ms"],
+         k8_plain_ms=k8["plain_ms"], k8_bound_ms=bound_ms(*k8["work"])[0],
+         k8_bound_by=bound_ms(*k8["work"])[1], cost_launch=cost.params[3],
+         mpc_launches=launches, mpc_ms_per_step=ms / 2)
+    k8["launches"] = phase_sgpmp("mr_grasp_sgpmp", task, start, goal, 1,
+                                 MR_SG_PARAMS, "multirobot_cost",
+                                 SEED + 3)[0]
+    return k5, k8
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3591,6 +3910,12 @@ def main() -> None:
     grid_terms = phase_grid_terms(grid_task, grid_theta0)
     grid_cost, grid_cost_launches = phase_grid_cost(genv, il_start, il_goal)
     mr_grid_k5, mr_grid_k8 = phase_mr_grid(genv, mr_start, mr_goal)
+
+    grasp_terms = phase_grasp_terms(genv)
+    del genv, grid_task, grid_theta0
+    grasp_k1 = phase_grasp_main()
+    grasp_cost, grasp_cost_launches = phase_grasp_cost(il_start, il_goal)
+    mr_grasp_k5, mr_grasp_k8 = phase_mr_grasp()
 
     entries = []
     for name, src, rep, res, n in (
@@ -3668,7 +3993,22 @@ def main() -> None:
             ("collision_cost_multirobot_grid",
              "torch_robotics_tpu_torch/csrc/cost.cu",
              "torch_robotics_tpu/ops/pallas_terms.py:1029", mr_grid_k8,
-             mr_grid_k8["launches"])):
+             mr_grid_k8["launches"]),
+            ("obstacle_terms_grasped",
+             "torch_robotics_tpu_torch/csrc/terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", grasp_terms,
+             grasp_k1),
+            ("collision_cost_grasped", "torch_robotics_tpu_torch/csrc/cost.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029", grasp_cost,
+             grasp_cost_launches),
+            ("multirobot_terms_grasped",
+             "torch_robotics_tpu_torch/csrc/mr_terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", mr_grasp_k5,
+             mr_grasp_k5["launches"]),
+            ("collision_cost_multirobot_grasped",
+             "torch_robotics_tpu_torch/csrc/cost.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029", mr_grasp_k8,
+             mr_grasp_k8["launches"])):
         b_ms, b_by = bound_ms(*res["work"])
         entries.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n,

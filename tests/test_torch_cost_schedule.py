@@ -49,8 +49,8 @@ F32 = np.float32
 def _sections(ints, floats):
     """The packed buffers cut as cost.cu's parse_layout cuts them, the
     step records split into their fields."""
-    (n_mem, D, P, NO, K, NOBJ, NG, S, n_slots, T, n_prims) = (
-        int(v) for v in ints[:11])
+    (n_mem, D, P, NO, K, NOBJ, NG, S, n_slots, T, n_prims, _, NOFF) = (
+        int(v) for v in ints[:13])
     a, o = {}, 16
     step_i = ints[o:o + 8 * S].reshape(S, 8)
     o += 8 * S
@@ -64,6 +64,8 @@ def _sections(ints, floats):
     o += 12 * NOBJ
     step_f = floats[o:o + 20 * S].reshape(S, 20)
     o += 20 * S
+    a["offsets"] = floats[o:o + 4 * NOFF].reshape(NOFF, 4)
+    o += 4 * NOFF
     for name, n in (("base_R", 9 * n_mem), ("base_t", 3 * n_mem),
                     ("obj_thresh", NO), ("pair_margin", K), ("ws_min", 3),
                     ("ws_max", 3)):
@@ -71,6 +73,7 @@ def _sections(ints, floats):
     assert o == len(floats)
     a.update(jtype=step_i[:, 0], qcol=step_i[:, 1], src=step_i[:, 2],
              slot=step_i[:, 3], pt_begin=step_i[:, 4], pt_end=step_i[:, 5],
+             n_off=step_i[:, 6], off_begin=step_i[:, 7],
              frot=step_f[:, :9], trans=step_f[:, 9:12], axis=step_f[:, 12:15],
              clo=step_f[:, 15], chi=step_f[:, 16], obj_rot=objects[:, :9],
              obj_pos=objects[:, 9:], n_mem=n_mem, D=D, P=P, NO=NO, K=K,
@@ -126,6 +129,15 @@ def _scene_sdf(a, x):
     return best
 
 
+def offset_point_model(R, t, o):
+    """kin_scene.cuh's offset_point in float32 numpy: R (3, 3, N), t (3,
+    N), o (3,) -> ((R0 o0 + R1 o1) + R2 o2) + t (3, N), each product and
+    sum rounded to float32."""
+    o = o.astype(F32)
+    return (((R[:, 0] * o[0]).astype(F32) + (R[:, 1] * o[1]).astype(F32))
+            .astype(F32) + (R[:, 2] * o[2]).astype(F32)).astype(F32) + t
+
+
 def model_cost(ints, floats, q):
     """The kernel's arithmetic in its order, float32 numpy: q (d, N) ->
     cost (N,)."""
@@ -156,8 +168,15 @@ def model_cost(ints, floats, q):
             t = (np.einsum("ijn,jn->in", Rp, tr) + tp).astype(F32)
             if a["slot"][s] >= 0:
                 slots[a["slot"][s]] = np.concatenate([R.reshape(9, n), t])
-            for p in a["pt_list"][a["pt_begin"][s]:a["pt_end"][s]]:
-                pts[p] = t
+            first_off = a["pt_end"][s] - a["n_off"][s]
+            for i in range(a["pt_begin"][s], a["pt_end"][s]):
+                p = a["pt_list"][i]
+                if i < first_off:                     # the link's origin
+                    pts[p] = t
+                    continue
+                o = a["offsets"][a["off_begin"][s] + i - first_off]
+                assert o[3] == 0
+                pts[p] = offset_point_model(R, t, o[:3])
     n_sdf = a["NO"] if a["NOBJ"] > 0 else 0
     parts = []
     for th in range(a["T"]):                          # phase 2

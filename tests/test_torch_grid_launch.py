@@ -84,15 +84,15 @@ def test_pack_scene_refuses_2d_grids():
 
 def _terms_sections(ints, floats):
     """terms.cu's parse_layout in numpy: the scene sections."""
-    L, D, P, NO, K, NOBJ, NG, NGRID = (int(v) for v in ints[:8])
-    o = 8 + 4 * L + D + 2 * P + NO + 2 * K
+    L, D, P, NO, K, NOBJ, NG, NGRID, G = (int(v) for v in ints[:9])
+    o = 9 + 4 * L + D + 2 * P + NO + 2 * K
     a = {}
     for name, n in (("obj_group_begin", NOBJ + 1), ("group_kind", NG),
                     ("group_count", NG), ("group_off", NG),
                     ("obj_grid", NOBJ), ("grid_i", 4 * NGRID)):
         a[name], o = ints[o:o + n], o + n
     assert o == len(ints)
-    f = 17 * L + NO + K + 6
+    f = 17 * L + NO + K + 6 + 3 * G
     for name, n in (("obj_rot", 9 * NOBJ), ("obj_pos", 3 * NOBJ),
                     ("grid_f", 8 * NGRID)):
         a[name], f = floats[f:f + n], f + n

@@ -313,7 +313,7 @@ def _act(r):
 def model_mr_terms(ints, floats, q):
     """g (d, N), Hqq (d, d, N), cost (N) computed as mr_terms.cu computes
     them, from the packed buffers alone."""
-    n_mem, D, P, NO, K_own, K_mut, NOBJ, NG, n_bp, L_sum = ints[:10]
+    n_mem, D, P, NO, K_own, K_mut, NOBJ, NG, n_bp, L_sum, _, NGP = ints[:12]
     pos = [16]
 
     def take(n, arr):
@@ -329,7 +329,7 @@ def model_mr_terms(ints, floats, q):
     for key in ("topo", "parent", "jtype", "qidx"):
         sec[key] = take(L_sum, ints)
     sec["ctrl"] = take(D, ints)
-    for key in ("pt_member", "pt_link", "pt_anc"):
+    for key in ("pt_member", "pt_link", "pt_anc", "pt_goff"):
         sec[key] = take(P, ints)
     for key, n in (("own_a", K_own), ("own_b", K_own), ("mut_a", K_mut),
                    ("mut_b", K_mut), ("obj_group_begin", NOBJ + 1),
@@ -343,7 +343,8 @@ def model_mr_terms(ints, floats, q):
                    ("base_R", 9 * n_mem), ("base_t", 3 * n_mem),
                    ("obj_thresh", NO), ("own_margin", K_own),
                    ("mut_margin", K_mut), ("ws_min", 3), ("ws_max", 3),
-                   ("obj_rot", 9 * NOBJ), ("obj_pos", 3 * NOBJ)):
+                   ("goff", 3 * NGP), ("obj_rot", 9 * NOBJ),
+                   ("obj_pos", 3 * NOBJ)):
         fl[key] = take(n, floats).astype(np.float64)
     fl["prims"] = floats[pos[0]:].astype(np.float64)
     q = q.astype(np.float64)
@@ -389,7 +390,11 @@ def model_mr_terms(ints, floats, q):
             o[doff + c] = Rb @ tw[li] + tb
         for p in range(P):
             if sec["pt_member"][p] == w:
-                pts[p] = Rb @ tw[sec["pt_link"][p]] + tb
+                li, go = sec["pt_link"][p], sec["pt_goff"][p]
+                x = tw[li] if go < 0 else (np.einsum(
+                    "abn,b->an", Rw[li], fl["goff"][3 * go:3 * go + 3])
+                    + tw[li])
+                pts[p] = Rb @ x + tb
 
     def jac(m, p, c):
         if not (sec["pt_anc"][p] >> c) & 1:

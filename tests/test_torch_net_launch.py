@@ -216,10 +216,10 @@ def test_net_task_packs_no_pair_rows():
     assert lay.used_links == sorted(task.robot.object_coll_idxs)
     assert len(task.robot.self_pair_idxs) > 0     # the table is still built
     ints, floats = pack_terms_params(lay)
-    L, D, P, NO, K, NOBJ, NG, NGRID = (int(v) for v in ints[:8])
-    assert (D, P, NO, K, NGRID) == (7, 5, 5, 0, 0)
+    L, D, P, NO, K, NOBJ, NG, NGRID, G = (int(v) for v in ints[:9])
+    assert (D, P, NO, K, NGRID, G) == (7, 5, 5, 0, 0, 0)
     assert ints.dtype == np.int32 and floats.dtype == np.float32
-    assert ints.size == (8 + 4 * L + D + 2 * P + NO + 2 * K + NOBJ + 1
+    assert ints.size == (9 + 4 * L + D + 2 * P + NO + 2 * K + NOBJ + 1
                          + 3 * NG + NOBJ)
     # one group of spheres: its count, its offset, the object's grid (-1)
     assert int(ints[-1]) == -1

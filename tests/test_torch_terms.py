@@ -142,11 +142,11 @@ def test_kernel_buffers_follow_the_layout(tasks):
     _, _, ptask = tasks
     lay = TermsLayout(ptask)
     ints, floats = pack_terms_params(lay)
-    L, D, P, NO, K, NOBJ, NG, NGRID = (int(v) for v in ints[:8])
-    assert (L, D, P, NO, K) == (ptask.robot.model.n_links, 7,
-                                len(lay.used_links), len(lay.obj_pos),
-                                len(lay.pair_a))
-    assert ints.size == (8 + 4 * L + D + 2 * P + NO + 2 * K + NOBJ + 1
+    L, D, P, NO, K, NOBJ, NG, NGRID, G = (int(v) for v in ints[:9])
+    assert (L, D, P, NO, K, G) == (ptask.robot.model.n_links, 7,
+                                   len(lay.used_links), len(lay.obj_pos),
+                                   len(lay.pair_a), 0)
+    assert ints.size == (9 + 4 * L + D + 2 * P + NO + 2 * K + NOBJ + 1
                          + 3 * NG + NOBJ + 4 * NGRID)
     # analytic scenes: every object's grid index is -1, no grid header
     assert NGRID == 0 and (ints[-NOBJ:] == -1).all()
@@ -156,8 +156,8 @@ def test_kernel_buffers_follow_the_layout(tasks):
     width = np.asarray([4, 7, 6])[group_kind]
     n_prims = int((group_count * width).sum())
     assert group_off[-1] + group_count[-1] * width[-1] == n_prims
-    assert floats.size == (17 * L + NO + K + 6 + 12 * NOBJ + 8 * NGRID
-                           + n_prims)
+    assert floats.size == (17 * L + NO + K + 6 + 3 * G + 12 * NOBJ
+                           + 8 * NGRID + n_prims)
 
 
 def test_scene_sdf_and_analytic_gradient_match_jax_autodiff(tasks):

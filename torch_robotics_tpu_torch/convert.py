@@ -15,7 +15,10 @@ Array dict keys:
   (K, 2), ``object_margins``, ``self_margins``, and optionally
   ``self_collision_net``, a dict of the learned self-collision net's npz
   keys (``W0``, ``b0``, ..., ``mean_q``, ``std_q``, ``scale_out``) and its
-  ``activation``;
+  ``activation``; for a robot that holds a grasped object,
+  ``grasped_points`` (G, 3) in the frame of the link named
+  ``link_name_grasped_object`` (default "grasped_object"), whose model
+  the model keys carry;
 - workspace: ``ws_limits`` (2, 3), ``obstacle_cutoff_margin`` ();
 - scene: ``objects``, a list of {``pos`` (3,), ``ori`` wxyz (4,),
   ``groups``: [{``kind``: "spheres" | "rounded_boxes" | "sharp_boxes",
@@ -72,7 +75,8 @@ def _f32(a, dev):
 
 
 def _robot_from_numpy(arrays: dict, dev, cls=RobotPanda):
-    """One kinematic robot from its model and collision keys."""
+    """One kinematic robot from its model and collision keys (and its
+    grasped points)."""
     joint_types = tuple(int(t) for t in np.asarray(arrays["joint_types"]))
     q_map = np.asarray(arrays["q_map"], np.int32)
     n_links = len(joint_types)
@@ -83,8 +87,14 @@ def _robot_from_numpy(arrays: dict, dev, cls=RobotPanda):
         q_map=q_map,
         parent_idx=tuple(int(p) for p in np.asarray(arrays["parent_idx"])),
         joint_types=joint_types, device=dev, link_names=link_names)
+    grasped = arrays.get("grasped_points")
+    grasped = (None if grasped is None or len(grasped) == 0
+               else _f32(np.asarray(grasped).reshape(-1, 3), dev))
     return cls(
         model=model,
+        grasped_points=grasped,
+        link_name_grasped_object=str(arrays.get("link_name_grasped_object",
+                                                "grasped_object")),
         q_min=_f32(arrays["q_lower"], dev),
         q_max=_f32(arrays["q_upper"], dev),
         object_margins=_f32(arrays["object_margins"], dev),
@@ -163,6 +173,9 @@ def _robot_arrays(robot) -> dict:
         self_margins=_np(robot.self_margins))
     if robot.self_collision_net is not None:
         out["self_collision_net"] = robot.self_collision_net.arrays()
+    if robot.grasped_n_points > 0:
+        out.update(grasped_points=_np(robot.grasped_points),
+                   link_name_grasped_object=robot.link_name_grasped_object)
     return out
 
 

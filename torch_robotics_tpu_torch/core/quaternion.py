@@ -1,10 +1,11 @@
-"""wxyz quaternion <-> rotation matrix (counterpart of the two functions of
-torch_robotics_tpu/core/quaternion.py that the main path uses)."""
+"""wxyz quaternion <-> rotation matrix and Euler angles (counterpart of the
+three functions of torch_robotics_tpu/core/quaternion.py that the port
+uses)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["q_to_rotation_matrix", "rotation_matrix_to_q"]
+__all__ = ["q_to_rotation_matrix", "rotation_matrix_to_q", "q_to_euler"]
 
 
 def q_to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:
@@ -46,3 +47,16 @@ def rotation_matrix_to_q(rot_mat: torch.Tensor) -> torch.Tensor:
     best = torch.argmax(q_abs, dim=-1)
     idx = best[..., None, None].expand(batch + (1, 4))
     return torch.gather(cand, -2, idx)[..., 0, :]
+
+
+def q_to_euler(q: torch.Tensor) -> torch.Tensor:
+    """wxyz quaternion (..., 4) -> [roll, pitch, yaw] (..., 3), XYZ
+    extrinsic, in q's dtype and the reference's operation order.  At gimbal
+    lock the clipped arcsin and the sign of 1 - 2 (x^2 + y^2) decide the
+    angles, so a float32 q gives the reference's float32 angles only in
+    float32."""
+    w, x, y, z = q.unbind(-1)
+    roll = torch.atan2(2.0 * (w * x + y * z), 1.0 - 2.0 * (x * x + y * y))
+    pitch = torch.asin(torch.clamp(2.0 * (w * y - z * x), -1.0, 1.0))
+    yaw = torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+    return torch.stack([roll, pitch, yaw], dim=-1)

@@ -33,7 +33,9 @@
 //     its joint's, and only a transform that a later, non-adjacent step
 //     reads (a branching tree; none for a chain) goes to shared memory,
 //     with the world position of each collision point the step carries
-//     (lane-minor, [(3 p + k) * lanes + lane]: no bank conflicts).  The
+//     (lane-minor, [(3 p + k) * lanes + lane]: no bank conflicts), a
+//     grasped object's points at R o + t of their link's world transform
+//     (kin_scene.cuh: offset_point, each offset a 16-byte record).  The
 //     member's base pose is the root's parent, so a single robot (identity
 //     base) gets the same points, bit for bit, as fk_links;
 //   - phase 2: thread (lane, t) sums the rows [cuts[t], cuts[t + 1]) of the
@@ -71,7 +73,9 @@ constexpr int kHeader = 16;       // ints before the first section
 // Step s of member m (mem_step[m] <= s < mem_step[m + 1]) computes one
 // link from its records: ints step_i[8 s..] = (joint type, q column or -1,
 // parent source: -2 the previous step, -1 the member's base, else a slot;
-// its own slot or -1, its points pt_list[begin, end), 2 pad) and floats
+// its own slot or -1, its points pt_list[begin, end), of which the last
+// n_off are offset points, and the first of their offset records
+// offsets[4 obegin..] = (offset in the link's frame, 0)) and floats
 // step_f[20 s..] = (fixed rotation 9, translation 3, axis 3, clamp lo, hi,
 // 3 pad).  Object o's record objects[12 o..] = (rotation 9, position 3).
 // A grid object o (obj_grid[o] >= 0) has the identity record and no
@@ -80,11 +84,11 @@ constexpr int kHeader = 16;       // ints before the first section
 // are rows of the scene's grid table in device memory (kin_scene.cuh:
 // grid_sdf).
 struct CostLayout {
-  int n_mem, D, P, NO, K, NOBJ, NG, S, n_slots, T, NGRID;
+  int n_mem, D, P, NO, K, NOBJ, NG, S, n_slots, T, NGRID, NOFF;
   const int *step_i, *mem_step, *pt_list, *obj_pt, *pair_a, *pair_b, *cuts,
       *obj_group_begin, *group_kind, *group_count, *group_off, *obj_grid,
       *grid_i;
-  const float *prims, *objects, *grid_f, *step_f, *base_R, *base_t,
+  const float *prims, *objects, *grid_f, *step_f, *offsets, *base_R, *base_t,
       *obj_thresh, *pair_margin, *ws_min, *ws_max;
   const float4* grid;
 };
@@ -95,7 +99,7 @@ __device__ __forceinline__ CostLayout parse_layout(const int* ip,
   CostLayout a;
   a.n_mem = ip[0]; a.D = ip[1]; a.P = ip[2]; a.NO = ip[3]; a.K = ip[4];
   a.NOBJ = ip[5]; a.NG = ip[6]; a.S = ip[7]; a.n_slots = ip[8]; a.T = ip[9];
-  a.NGRID = ip[11];
+  a.NGRID = ip[11]; a.NOFF = ip[12];
   const int* p = ip + kHeader;
   a.step_i = p; p += 8 * a.S;
   a.mem_step = p; p += a.n_mem + 1;
@@ -115,6 +119,7 @@ __device__ __forceinline__ CostLayout parse_layout(const int* ip,
   a.objects = f; f += 12 * a.NOBJ;
   a.grid_f = f; f += 8 * a.NGRID;
   a.step_f = f; f += 20 * a.S;
+  a.offsets = f; f += 4 * a.NOFF;
   a.base_R = f; f += 9 * a.n_mem;
   a.base_t = f; f += 3 * a.n_mem;
   a.obj_thresh = f; f += a.NO;
@@ -157,7 +162,7 @@ cost_kernel(const float* __restrict__ q, float* __restrict__ cost_out, int N,
     float R[9], tv[3];  // the previous step's world transform
     for (int s = a.mem_step[t]; s < a.mem_step[t + 1]; ++s) {
       const int4 i0 = reinterpret_cast<const int4*>(a.step_i)[2 * s];
-      const int2 i1 = reinterpret_cast<const int2*>(a.step_i)[4 * s + 2];
+      const int4 i1 = reinterpret_cast<const int4*>(a.step_i)[2 * s + 1];
       const float4* fr = reinterpret_cast<const float4*>(a.step_f) + 5 * s;
       const float4 f0 = fr[0], f1 = fr[1], f2 = fr[2], f3 = fr[3];
       const float F[9] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w, f2.x};
@@ -193,10 +198,21 @@ cost_kernel(const float* __restrict__ q, float* __restrict__ cost_out, int N,
         for (int k = 0; k < 3; ++k)
           slots[(12 * sl + 9 + k) * lanes + lane] = tv[k];
       }
-      for (int i = i1.x; i < i1.y; ++i) {
+      const int first_off = i1.y - i1.z;
+      for (int i = i1.x; i < first_off; ++i) {  // the link's origin
         const int p = a.pt_list[i];
 #pragma unroll
         for (int k = 0; k < 3; ++k) pts[(3 * p + k) * lanes + lane] = tv[k];
+      }
+      for (int i = first_off; i < i1.y; ++i) {  // offset points: R o + t
+        const float4 o4 =
+            reinterpret_cast<const float4*>(a.offsets)[i1.w + i - first_off];
+        const float o[3] = {o4.x, o4.y, o4.z};
+        float x[3];
+        offset_point(R, tv, o, x);
+        const int p = a.pt_list[i];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) pts[(3 * p + k) * lanes + lane] = x[k];
       }
     }
   }

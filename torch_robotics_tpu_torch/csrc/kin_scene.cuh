@@ -1,7 +1,8 @@
 // Device helpers shared by the terms kernels (terms.cu, mr_terms.cu) and
-// the cost kernel (cost.cu): the FK chain over a kinematic tree, the
-// min-over-scene SDF with the gradient of its minimizing primitive, the
-// nearest-cell lookup of a precomputed SDF grid, and small 3x3 helpers.
+// the cost kernel (cost.cu): the FK chain over a kinematic tree, the world
+// position of a point fixed in a link's frame, the min-over-scene SDF with
+// the gradient of its minimizing primitive, the nearest-cell lookup of a
+// precomputed SDF grid, and small 3x3 helpers.
 // The model and scene arguments are views into packed parameter buffers;
 // any struct with the field names used below will do.
 #pragma once
@@ -30,6 +31,23 @@ __device__ __forceinline__ void matmul3(const float* A, const float* B,
     for (int j = 0; j < 3; ++j)
       C[3 * i + j] = A[3 * i] * B[j] + A[3 * i + 1] * B[3 + j] +
                      A[3 * i + 2] * B[6 + j];
+}
+
+// World position x = R o + t of a collision point fixed at offset o in the
+// frame (R row-major, t) of its link: a grasped object's point.  Each
+// coordinate is ((R0 o0 + R1 o1) + R2 o2) + t with every product and sum
+// rounded on its own (no contraction into FMAs), the plain version's order
+// (ops/lanes_fk.py: offset_points), so from the same (R, t) it gives the
+// plain version's bits.  A link-origin point is t itself: the kernels
+// copy t for it and never call this, so its bits are the origin's.
+__device__ __forceinline__ void offset_point(const float* R, const float* t,
+                                             const float* o, float x[3]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    x[k] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(R[3 * k], o[0]),
+                                         __fmul_rn(R[3 * k + 1], o[1])),
+                               __fmul_rn(R[3 * k + 2], o[2])),
+                     t[k]);
 }
 
 // Nearest-cell lookup of a precomputed SDF grid (geom/grid_sdf.py):

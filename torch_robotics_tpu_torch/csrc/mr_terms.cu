@@ -53,6 +53,12 @@
 // TFLOP/s.  At one block of 6 warps per 32 lanes the launch is 256 blocks,
 // under 2 per SM, so it runs well above the byte bound; more lanes per
 // block and register-resident link transforms come first in a faster one.
+// A member that holds a grasped object has its grasped points (14 for
+// GraspedObjectPandaBox) in its object section and, with self-collision
+// links, in its self section: phase 1 places each at R o + t of its link's
+// world frame (kin_scene.cuh: offset_point), and from then on it is a
+// point like any other, in its member's own pairs and, as an object point,
+// in every mutual pair with another member's object points.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -72,16 +78,18 @@ constexpr int kMaxLinks = 32;    // links per member
 // pack_multirobot_params in torch_robotics_tpu_torch/ops/terms_kernel.py.
 // A grid object o (obj_grid[o] >= 0) reads its header from grid_i / grid_f
 // and its cells from the scene's grid table (kin_scene.cuh: grid_sdf).
+// Point p is its link's origin where pt_goff[p] < 0, else fixed at
+// goff[3 pt_goff[p]..] in its link's frame (a grasped point).
 struct MRLayout {
-  int n_mem, D, P, NO, K_own, K_mut, NOBJ, NG, n_bp, L_sum, NGRID;
+  int n_mem, D, P, NO, K_own, K_mut, NOBJ, NG, n_bp, L_sum, NGRID, NGP;
   const int *mem_L, *mem_D, *mem_doff, *mem_loff, *mem_obj_begin,
       *mem_obj_end, *mem_own_begin, *mem_own_end, *bp_i, *bp_j, *bp_begin,
       *bp_end, *topo, *parent, *jtype, *qidx, *ctrl, *pt_member, *pt_link,
-      *pt_anc, *own_a, *own_b, *mut_a, *mut_b, *obj_group_begin, *group_kind,
-      *group_count, *group_off, *obj_grid, *grid_i;
+      *pt_anc, *pt_goff, *own_a, *own_b, *mut_a, *mut_b, *obj_group_begin,
+      *group_kind, *group_count, *group_off, *obj_grid, *grid_i;
   const float *trans, *frot, *axis, *clo, *chi, *base_R, *base_t,
-      *obj_thresh, *own_margin, *mut_margin, *ws_min, *ws_max, *obj_rot,
-      *obj_pos, *grid_f, *prims;
+      *obj_thresh, *own_margin, *mut_margin, *ws_min, *ws_max, *goff,
+      *obj_rot, *obj_pos, *grid_f, *prims;
   const float4* grid;
 };
 
@@ -90,7 +98,7 @@ __device__ MRLayout parse_layout(const int* ip, const float* fp,
   MRLayout a;
   a.n_mem = ip[0]; a.D = ip[1]; a.P = ip[2]; a.NO = ip[3]; a.K_own = ip[4];
   a.K_mut = ip[5]; a.NOBJ = ip[6]; a.NG = ip[7]; a.n_bp = ip[8];
-  a.L_sum = ip[9]; a.NGRID = ip[10];
+  a.L_sum = ip[9]; a.NGRID = ip[10]; a.NGP = ip[11];
   const int* p = ip + 16;
   a.mem_L = p; p += a.n_mem;
   a.mem_D = p; p += a.n_mem;
@@ -112,6 +120,7 @@ __device__ MRLayout parse_layout(const int* ip, const float* fp,
   a.pt_member = p; p += a.P;
   a.pt_link = p; p += a.P;
   a.pt_anc = p; p += a.P;
+  a.pt_goff = p; p += a.P;
   a.own_a = p; p += a.K_own;
   a.own_b = p; p += a.K_own;
   a.mut_a = p; p += a.K_mut;
@@ -135,6 +144,7 @@ __device__ MRLayout parse_layout(const int* ip, const float* fp,
   a.mut_margin = f; f += a.K_mut;
   a.ws_min = f; f += 3;
   a.ws_max = f; f += 3;
+  a.goff = f; f += 3 * a.NGP;
   a.obj_rot = f; f += 9 * a.NOBJ;
   a.obj_pos = f; f += 3 * a.NOBJ;
   a.grid_f = f; f += 8 * a.NGRID;
@@ -217,12 +227,21 @@ mr_terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
     }
     for (int p = 0; p < a.P; ++p) {
       if (a.pt_member[p] != w) continue;
-      const float* t = tw[a.pt_link[p]];
+      const int l = a.pt_link[p];
+      const float* t = tw[l];
+      float x[3];
 #pragma unroll
       for (int k = 0; k < 3; ++k)
-        s.pts[(3 * p + k) * kLanes + lane] =
-            Rb[3 * k] * t[0] + Rb[3 * k + 1] * t[1] + Rb[3 * k + 2] * t[2] +
-            tb[k];
+        x[k] = Rb[3 * k] * t[0] + Rb[3 * k + 1] * t[1] + Rb[3 * k + 2] * t[2] +
+               tb[k];
+      if (a.pt_goff[p] >= 0) {  // R_wW o + t_wW, R_wW = Rb Rw[l], t_wW = x
+        float RwW[9];
+        const float tW[3] = {x[0], x[1], x[2]};
+        matmul3(Rb, Rw[l], RwW);
+        offset_point(RwW, tW, a.goff + 3 * a.pt_goff[p], x);
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) s.pts[(3 * p + k) * kLanes + lane] = x[k];
     }
   }
   __syncthreads();

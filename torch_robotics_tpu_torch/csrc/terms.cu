@@ -32,7 +32,14 @@
 // Jacobian and adds every row's 28 Hessian entries, active or not, and
 // keeps the link transforms in local memory, so it runs well above the
 // bound; skipping inactive rows and keeping the transforms in registers
-// come first in a faster version.  In a grid scene the function also
+// come first in a faster version.  A robot that holds a grasped object
+// has G more points (14 for GraspedObjectPandaBox), each fixed in the
+// grasped link's frame: a row computes such a point from the link's
+// transform when it needs it (kin_scene.cuh: offset_point, 15 float ops)
+// rather than keeping P world points a thread, which would add 12 bytes a
+// point of local memory beside the link transforms.  The grasped Panda's
+// 104 rows (19 object SDF, 19 workspace, 66 pairs) are ~5x the 20 rows of
+// the Panda without it.  In a grid scene the function also
 // reads one 16-byte table row per object point and grid, 80 bytes a lane
 // for the Panda, scattered over a table larger than the L2 at 0.01 m
 // cells: each lookup is a dependent load of one 32-byte sector.
@@ -49,16 +56,18 @@ constexpr int kMaxLinks = 32;
 constexpr int kThreads = 128;
 
 // Views into the packed buffers; the section order is fixed by
-// pack_terms_params in torch_robotics_tpu_torch/ops/terms_kernel.py.
+// pack_terms_params in torch_robotics_tpu_torch/ops/terms_kernel.py.  Of
+// the P points the first P - G are link origins, the last G (grasped
+// points) are fixed at pt_off[3 (p - (P - G))..] in their link's frame.
 // A grid object o (obj_grid[o] >= 0) reads its header from grid_i / grid_f
 // and its cells from the scene's grid table (kin_scene.cuh: grid_sdf).
 struct Layout {
-  int L, D, P, NO, K, NOBJ, NG, NGRID;
+  int L, D, P, NO, K, NOBJ, NG, NGRID, G;
   const int *topo, *parent, *jtype, *qidx, *ctrl, *point_link, *anc, *obj_pt,
       *pair_a, *pair_b, *obj_group_begin, *group_kind, *group_count,
       *group_off, *obj_grid, *grid_i;
   const float *trans, *frot, *axis, *clo, *chi, *obj_thresh, *pair_margin,
-      *ws_min, *ws_max, *obj_rot, *obj_pos, *grid_f, *prims;
+      *ws_min, *ws_max, *pt_off, *obj_rot, *obj_pos, *grid_f, *prims;
   const float4* grid;
 };
 
@@ -66,8 +75,8 @@ __device__ Layout parse_layout(const int* ip, const float* fp,
                                const float4* grid) {
   Layout a;
   a.L = ip[0]; a.D = ip[1]; a.P = ip[2]; a.NO = ip[3]; a.K = ip[4];
-  a.NOBJ = ip[5]; a.NG = ip[6]; a.NGRID = ip[7];
-  const int* p = ip + 8;
+  a.NOBJ = ip[5]; a.NG = ip[6]; a.NGRID = ip[7]; a.G = ip[8];
+  const int* p = ip + 9;
   a.topo = p; p += a.L;
   a.parent = p; p += a.L;
   a.jtype = p; p += a.L;
@@ -94,6 +103,7 @@ __device__ Layout parse_layout(const int* ip, const float* fp,
   a.pair_margin = f; f += a.K;
   a.ws_min = f; f += 3;
   a.ws_max = f; f += 3;
+  a.pt_off = f; f += 3 * a.G;
   a.obj_rot = f; f += 9 * a.NOBJ;
   a.obj_pos = f; f += 3 * a.NOBJ;
   a.grid_f = f; f += 8 * a.NGRID;
@@ -137,8 +147,21 @@ terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
     prism[j] = a.jtype[li] == kPrismatic;
   }
 
-  // Jacobian column j of used point p (zero unless joint j moves it).
-  auto jac = [&](int p, int j, float out[3]) {
+  // World position of point p: its link's origin, or for a grasped point
+  // its offset carried by the link's frame.
+  const int n_origin = a.P - a.G;
+  auto point = [&](int p, float x[3]) {
+    const int l = a.point_link[p];
+    if (p < n_origin) {
+      x[0] = tw[l][0]; x[1] = tw[l][1]; x[2] = tw[l][2];
+    } else {
+      offset_point(Rw[l], tw[l], a.pt_off + 3 * (p - n_origin), x);
+    }
+  };
+
+  // Jacobian column j of point p at world position x (zero unless joint j
+  // moves p's link).
+  auto jac = [&](int p, const float x[3], int j, float out[3]) {
     if (!((a.anc[p] >> j) & 1)) {
       out[0] = out[1] = out[2] = 0.f;
       return;
@@ -147,7 +170,6 @@ terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
       out[0] = z[j][0]; out[1] = z[j][1]; out[2] = z[j][2];
       return;
     }
-    const float* x = tw[a.point_link[p]];
     const float d0 = x[0] - o[j][0], d1 = x[1] - o[j][1], d2 = x[2] - o[j][2];
     out[0] = z[j][1] * d2 - z[j][2] * d1;
     out[1] = z[j][2] * d0 - z[j][0] * d2;
@@ -172,14 +194,15 @@ terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
   };
 
   // hinge row relu(thresh - val) with Jr_j = -[r > 0] grad . J[p][j]
-  auto hinge = [&](int p, float thresh, float val, const float grad[3]) {
+  auto hinge = [&](int p, const float x[3], float thresh, float val,
+                   const float grad[3]) {
     const float r = relu(thresh - val);
     const float act = r > 0.f ? 1.f : 0.f;
     float Jr[D];
 #pragma unroll
     for (int j = 0; j < D; ++j) {
       float c[3];
-      jac(p, j, c);
+      jac(p, x, j, c);
       Jr[j] = -act * (grad[0] * c[0] + grad[1] * c[1] + grad[2] * c[2]);
     }
     add_row(r, Jr);
@@ -190,16 +213,18 @@ terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
   if (a.NOBJ > 0) {
     for (int mi = 0; mi < a.NO; ++mi) {
       const int p = a.obj_pt[mi];
-      float val, grad[3];
-      scene_sdf<true>(a, tw[a.point_link[p]], val, grad);
-      hinge(p, a.obj_thresh[mi], val, grad);
+      float x[3], val, grad[3];
+      point(p, x);
+      scene_sdf<true>(a, x, val, grad);
+      hinge(p, x, a.obj_thresh[mi], val, grad);
     }
   }
 
   // ---- workspace rows: min-face distance, first minimal face wins ----
   for (int mi = 0; mi < a.NO; ++mi) {
     const int p = a.obj_pt[mi];
-    const float* x = tw[a.point_link[p]];
+    float x[3];
+    point(p, x);
     const float faces[6] = {x[0] - a.ws_min[0], x[1] - a.ws_min[1],
                             x[2] - a.ws_min[2], a.ws_max[0] - x[0],
                             a.ws_max[1] - x[1], a.ws_max[2] - x[2]};
@@ -210,14 +235,15 @@ terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
     while (fi < 5 && !(faces[fi] <= val)) ++fi;
     float grad[3] = {0.f, 0.f, 0.f};
     grad[fi % 3] = fi < 3 ? 1.f : -1.f;
-    hinge(p, a.obj_thresh[mi], val, grad);
+    hinge(p, x, a.obj_thresh[mi], val, grad);
   }
 
   // ---- self-collision pair rows ----
   for (int k = 0; k < a.K; ++k) {
     const int pa = a.pair_a[k], pb = a.pair_b[k];
-    const float* xa = tw[a.point_link[pa]];
-    const float* xb = tw[a.point_link[pb]];
+    float xa[3], xb[3];
+    point(pa, xa);
+    point(pb, xb);
     const float diff[3] = {xa[0] - xb[0], xa[1] - xb[1], xa[2] - xb[2]};
     const float d2 = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2];
     const float dist = d2 > 0.f ? sqrtf(d2) : 0.f;
@@ -229,8 +255,8 @@ terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
 #pragma unroll
     for (int j = 0; j < D; ++j) {
       float ca[3], cb[3];
-      jac(pa, j, ca);
-      jac(pb, j, cb);
+      jac(pa, xa, j, ca);
+      jac(pb, xb, j, cb);
       Jr[j] = -act * (u[0] * (ca[0] - cb[0]) + u[1] * (ca[1] - cb[1]) +
                       u[2] * (ca[2] - cb[2]));
     }

@@ -8,6 +8,10 @@ rotations are (3, 3, N), translations and points (3, N), point Jacobians
 lifted with z = 0 into each object's frame, and gradients come back with
 ``ws_dim`` components.
 
+A robot that holds a grasped object has, beside its link origins, points
+fixed in the frame of its grasped link (``offset_points``: R p + t), in
+its object rows and its self-collision pairs.
+
 ``obstacle_terms_lanes_factory`` is the plain version of the fused CUDA
 terms kernel (``ops/terms_kernel.py``): the same residual rows, the same
 analytic gradients, the same assembly, written as tensor ops.  It runs on
@@ -42,7 +46,7 @@ from ..kin.model import (JOINT_CONTINUOUS, JOINT_PRISMATIC, JOINT_REVOLUTE,
 from .net_kernel import net_rows
 
 __all__ = ["fk_lanes", "fk_positions_lanes", "fk_points_jacobians_lanes",
-           "point_jacobians_lanes",
+           "point_jacobians_lanes", "offset_points", "member_collision_points",
            "group_sdf_and_grad_lanes", "sdf_and_grad_lanes", "sdf_lanes",
            "lanes_supported_scene",
            "obstacle_terms_lanes_factory", "embed_terms", "hinge_rows",
@@ -126,36 +130,51 @@ def fk_lanes(model: KinematicModel, q_cols: torch.Tensor):
     return R_w, t_w
 
 
+def offset_points(R_w, t_w, extra_points):
+    """World positions R p + t, each (3, N), of points fixed in link frames:
+    extra_points [(link, (3,) point in that link's frame), ...] (a grasped
+    object's points)."""
+    return [_matvec3(R_w[li], p.to(t_w[li].device, t_w[li].dtype)) + t_w[li]
+            for li, p in extra_points]
+
+
 def fk_positions_lanes(model: KinematicModel, q: torch.Tensor,
-                       link_idxs=None):
-    """World link positions through the lanes FK chain:
-    q (..., n_dofs) -> (..., L, 3)."""
-    batch = q.shape[:-1]
-    d = q.shape[-1]
-    q_cols = q.reshape(-1, d).T
-    _, t_w = fk_lanes(model, q_cols)
-    links = (range(model.n_links) if link_idxs is None
-             else [int(x) for x in np.asarray(link_idxs)])
-    flat = torch.stack([t_w[li] for li in links])          # (L, 3, N)
-    return flat.permute(2, 0, 1).reshape(batch + (len(flat), 3))
-
-
-def fk_points_jacobians_lanes(model: KinematicModel, q: torch.Tensor):
-    """World link positions and their analytic Jacobians through the lanes
-    chain: q (..., d) -> (points (..., L, 3), J (..., L, 3, d)), the point
-    of link i being its origin; columns of joints outside their clamps are
-    zero (the clamped FK chain's derivative)."""
+                       link_idxs=None, extra_points=None):
+    """World link positions through the lanes FK chain, then the points
+    ``extra_points`` [(link, (3,) local point), ...] (``offset_points``):
+    q (..., n_dofs) -> (..., L [+ E], 3)."""
     batch = q.shape[:-1]
     d = q.shape[-1]
     q_cols = q.reshape(-1, d).T
     R_w, t_w = fk_lanes(model, q_cols)
-    links = list(range(model.n_links))
-    pts = torch.stack([t_w[li] for li in links])             # (L, 3, N)
+    links = (range(model.n_links) if link_idxs is None
+             else [int(x) for x in np.asarray(link_idxs)])
+    cols = [t_w[li] for li in links] + offset_points(R_w, t_w,
+                                                     extra_points or ())
+    flat = torch.stack(cols)                                # (L + E, 3, N)
+    return flat.permute(2, 0, 1).reshape(batch + (len(flat), 3))
+
+
+def fk_points_jacobians_lanes(model: KinematicModel, q: torch.Tensor,
+                              extra_points=None):
+    """World link positions and their analytic Jacobians through the lanes
+    chain: q (..., d) -> (points (..., P, 3), J (..., P, 3, d)), the point
+    of link i being its origin, followed by the points ``extra_points``
+    [(link, (3,) local point), ...]; columns of joints outside their clamps
+    are zero (the clamped FK chain's derivative)."""
+    batch = q.shape[:-1]
+    d = q.shape[-1]
+    q_cols = q.reshape(-1, d).T
+    R_w, t_w = fk_lanes(model, q_cols)
+    extra = list(extra_points or ())
+    links = list(range(model.n_links)) + [li for li, _ in extra]
+    pts = torch.stack([t_w[li] for li in range(model.n_links)]
+                      + offset_points(R_w, t_w, extra))      # (P, 3, N)
     J = point_jacobians_lanes(model, R_w, t_w, pts, links,
-                              q_cols=q_cols)                 # (L, d, 3, N)
-    L = len(links)
-    return (pts.permute(2, 0, 1).reshape(batch + (L, 3)),
-            J.permute(3, 0, 2, 1).reshape(batch + (L, 3, d)))
+                              q_cols=q_cols)                 # (P, d, 3, N)
+    P = len(links)
+    return (pts.permute(2, 0, 1).reshape(batch + (P, 3)),
+            J.permute(3, 0, 2, 1).reshape(batch + (P, 3, d)))
 
 
 def point_jacobians_lanes(model: KinematicModel, R_w, t_w,
@@ -381,12 +400,16 @@ class TermsLayout:
     """Index structure of a robot's residual rows, shared by the plain
     version and the kernel's parameter packing.
 
-    Used points are the sorted union of object- and self-collision links.
-    Rows, in order: one SDF hinge per object point, one workspace-bound
-    hinge per object point, one distance hinge per self-collision pair.
-    A robot with a learned self-collision net (``net``) has no pair rows
-    and no self-collision points; its one net row relu(``net_cutoff`` -
-    sd(q)) comes last."""
+    Points are the used links (the sorted union of object- and
+    self-collision links, each its link's origin), then a grasped object's G
+    points (``point_links`` the grasped link's index, ``extra`` the [(link,
+    offset in its frame), ...] of ``offset_points``).  A grasped point is an
+    object point and, when the robot has self-collision links, a self point,
+    after the links in both sections.  Rows, in order: one SDF hinge per
+    object point, one workspace-bound hinge per object point, one distance
+    hinge per self-collision pair.  A robot with a learned self-collision
+    net (``net``) has no pair rows and no self-collision points; its one net
+    row relu(``net_cutoff`` - sd(q)) comes last."""
 
     def __init__(self, task):
         robot = task.robot
@@ -398,11 +421,17 @@ class TermsLayout:
         self_idxs = ([] if self.net is not None
                      else list(robot.self_coll_idxs or ()))
         self.used_links = sorted(set(obj_idxs + self_idxs))
+        self.extra = robot.grasped_extra_points()   # [(link, offset), ...]
+        self.n_grasped = len(self.extra)
+        self.point_links = self.used_links + [li for li, _ in self.extra]
+        n_used = len(self.used_links)
+        grasped_pos = list(range(n_used, n_used + self.n_grasped))
         pos = {li: i for i, li in enumerate(self.used_links)}
-        self.obj_pos = [pos[li] for li in obj_idxs]
+        self.obj_pos = [pos[li] for li in obj_idxs] + grasped_pos
         pairs = np.asarray(robot.self_pair_idxs if self.net is None else (),
                            np.int64).reshape(-1, 2)
-        self_pos = [pos[li] for li in self_idxs]
+        self_pos = ([pos[li] for li in self_idxs] + grasped_pos
+                    if self_idxs else [])
         self.pair_a = [self_pos[a] for a in pairs[:, 0]]
         self.pair_b = [self_pos[b] for b in pairs[:, 1]]
         self.cutoff = float(task.obstacle_cutoff_margin)
@@ -413,12 +442,18 @@ class TermsLayout:
         self.ws_max = task.ws_max
         self.df_obj_list = task.df_obj_list
 
+    def points(self, R_w, t_w):
+        """The collision points (P, 3, N) from the lanes FK's link frames:
+        the used links' origins, then the grasped points."""
+        return torch.stack([t_w[li] for li in self.used_links]
+                           + offset_points(R_w, t_w, self.extra))
+
     def row_joints(self):
         """(a, b), each (R, d) bool over the residual rows in order: the
         joints that move a row's point (a pair's first point) and those that
         move a pair's second point (none for a point row).  A row's Jacobian
         column j is zero unless a[j] or b[j]."""
-        anc = self.model.ancestry_matrix()[self.used_links]    # (P, d)
+        anc = self.model.ancestry_matrix()[self.point_links]   # (P, d)
         pt = anc[self.obj_pos]
         pts = [pt, pt] if self.df_obj_list else [pt]
         net = [np.ones((1, anc.shape[1]), bool)] if self.net is not None \
@@ -546,9 +581,9 @@ def obstacle_terms_lanes_factory(task):
 
         def points_and_jacobians(q_cols):
             R_w, t_w = fk_lanes(model, q_cols)
-            pts = torch.stack([t_w[li] for li in lay.used_links])  # (P,3,N)
+            pts = lay.points(R_w, t_w)                             # (P,3,N)
             return pts, point_jacobians_lanes(model, R_w, t_w, pts,
-                                              lay.used_links, q_cols=q_cols)
+                                              lay.point_links, q_cols=q_cols)
 
     def terms(q_cols, lam, h=None):
         return embed_terms(*unscaled_terms(q_cols), lam, h=h)
@@ -574,22 +609,44 @@ def obstacle_terms_lanes_factory(task):
     return terms
 
 
+def member_collision_points(r, section: str):
+    """[(link, grasped point index or -1), ...]: the points of robot r's
+    object ("object") or self ("self") section in its ``fk_map_collision``
+    layout, the section's links then a grasped object's G points on the
+    grasped link (in a self section only when r has self-collision
+    links)."""
+    links = list(r.object_coll_idxs if section == "object"
+                 else (r.self_coll_idxs or ()))
+    out = [(li, -1) for li in links]
+    G = int(getattr(r, "grasped_n_points", 0))
+    if G and (section == "object" or links):
+        gi = r.model.link_index(r.link_name_grasped_object)
+        out += [(gi, g) for g in range(G)]
+    return out
+
+
 def _member_lanes_points(r, q_cols_i, R_b, t_b):
     """FK and world transforms of one multi-robot member: r has ``.model``;
     q_cols_i (d_i, N); R_b (3, 3), t_b (3,) its base pose.  -> (world link
     rotations, world link translations, object points, their link ids,
     self points, their link ids), the points lists of (3, N) in the
-    member's ``fk_map_collision`` layout."""
-    if getattr(r, "grasped_n_points", 0) > 0:
-        raise NotImplementedError(
-            "grasped-object points of a multi-robot member are not ported")
+    member's ``fk_map_collision`` layout (a grasped point R_wW p + t_wW of
+    its link's world frame)."""
     R_w, t_w = fk_lanes(r.model, q_cols_i)
     R_wW = [_matmul3(R_b, R) for R in R_w]
     t_wW = [_matvec3(R_b, t) + t_b[:, None] for t in t_w]
-    obj_ids = list(r.object_coll_idxs)
-    self_ids = list(r.self_coll_idxs or ())
-    return (R_wW, t_wW, [t_wW[li] for li in obj_ids], obj_ids,
-            [t_wW[li] for li in self_ids], self_ids)
+
+    def section(name):
+        pts, ids = [], []
+        for li, g in member_collision_points(r, name):
+            pts.append(t_wW[li] if g < 0 else offset_points(
+                R_wW, t_wW, [(li, r.grasped_points[g])])[0])
+            ids.append(li)
+        return pts, ids
+
+    obj, obj_ids = section("object")
+    slf, self_ids = section("self")
+    return R_wW, t_wW, obj, obj_ids, slf, self_ids
 
 
 class MultiRobotLayout:
@@ -652,10 +709,10 @@ class MultiRobotLayout:
         each point (its member's ancestry, at the member's columns)."""
         d = int(self.d_off[-1])
         rows = []
-        for section in ("object_coll_idxs", "self_coll_idxs"):
+        for section in ("object", "self"):
             for i, r in enumerate(self.members):
                 anc = r.model.ancestry_matrix()
-                for li in getattr(r, section) or ():
+                for li, _ in member_collision_points(r, section):
                     row = np.zeros(d, bool)
                     row[int(self.d_off[i]):int(self.d_off[i + 1])] = anc[li]
                     rows.append(row)

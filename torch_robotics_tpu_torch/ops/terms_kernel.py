@@ -29,6 +29,12 @@ each launch takes as one more pointer.  The kernels look a cell up in it
 themselves (``csrc/kin_scene.cuh::grid_sdf``), where the TPU kernel
 gathered the cells' rows in an XLA stage before the kernel.
 
+A robot that holds a grasped object has collision points fixed in the
+frame of its grasped link beside the link origins: each kernel's packing
+carries a point as (link, local offset), the offsets as a float section
+and their count in the header, and the kernels place such a point at
+R o + t of its link's world frame (``csrc/kin_scene.cuh::offset_point``).
+
 A robot with a learned self-collision net has no pair rows in either
 kernel's packed parameters; on a CUDA tensor its net row is added after
 the terms kernel or the cost kernel by ``ops/net_kernel.py``'s kernels
@@ -52,7 +58,7 @@ import torch
 
 from .cuda_build import CudaKernel
 from .lanes_fk import (MultiRobotLayout, TermsLayout, embed_terms,
-                       obstacle_terms_lanes_factory,
+                       member_collision_points, obstacle_terms_lanes_factory,
                        obstacle_terms_lanes_multirobot_factory)
 from .net_kernel import NetRowParams, add_net_cost, add_net_terms
 
@@ -165,9 +171,18 @@ def _f32(sections):
                            for s in sections])
 
 
+def _offsets(lay) -> np.ndarray:
+    """A TermsLayout's grasped points' offsets (G, 3) float32."""
+    return np.asarray([o.cpu().numpy() for _, o in lay.extra],
+                      np.float32).reshape(-1, 3)
+
+
 def pack_terms_params(lay: TermsLayout):
     """Model + scene + collision rows -> (ints int32, floats float32), the
-    two buffers ``terms.cu`` reads (section order as in its parse_layout)."""
+    two buffers ``terms.cu`` reads (section order as in its parse_layout).
+    Of the P points the first P - G are link origins and the last G (the
+    header's ninth int) grasped points, whose offsets in their link's frame
+    are a float section of 3 G."""
     model = lay.model
     L = model.n_links
     ctrl = list(model.controlled_link_idxs())
@@ -177,28 +192,41 @@ def pack_terms_params(lay: TermsLayout):
     q_idx[ctrl] = np.arange(D)
     scene_i, scene_f = _pack_scene(lay.df_obj_list)
 
-    header = [L, D, len(lay.used_links), len(lay.obj_pos), len(lay.pair_a),
-              len(lay.df_obj_list), len(scene_i[1]), len(scene_i[5])]
+    header = [L, D, len(lay.point_links), len(lay.obj_pos), len(lay.pair_a),
+              len(lay.df_obj_list), len(scene_i[1]), len(scene_i[5]),
+              lay.n_grasped]
     anc_bits = [int(sum(1 << j for j in range(D) if anc[li, j]))
-                for li in lay.used_links]
+                for li in lay.point_links]
     ints = _i32([header, model.topological_order(), model.parent_idx,
-                 model.joint_types, q_idx, ctrl, lay.used_links, anc_bits,
+                 model.joint_types, q_idx, ctrl, lay.point_links, anc_bits,
                  lay.obj_pos, lay.pair_a, lay.pair_b] + scene_i)
     floats = _f32([model.joint_trans, model.joint_fixed_rot, model.joint_axis,
                    model.clamp_lower, model.clamp_upper,
                    lay.obj_thresh.cpu().numpy(),
                    lay.self_margins.cpu().numpy(), lay.ws_min.cpu().numpy(),
-                   lay.ws_max.cpu().numpy()] + scene_f)
+                   lay.ws_max.cpu().numpy(), _offsets(lay)] + scene_f)
     return ints, floats
+
+
+def _member_points(r, section):
+    """(link, offset (3,) float32 or None) of each point of a member's
+    section (``member_collision_points``)."""
+    gp = (r.grasped_points.cpu().numpy().astype(np.float32)
+          if getattr(r, "grasped_n_points", 0) else None)
+    return [(li, None if g < 0 else gp[g])
+            for li, g in member_collision_points(r, section)]
 
 
 def pack_multirobot_params(lay: MultiRobotLayout):
     """Members' models + base poses + row groups + scene -> (ints int32,
     floats float32), the two buffers ``mr_terms.cu`` reads (section order as
-    in its parse_layout).  Block pairs: the n diagonal blocks, then the
-    cross blocks (i, j), i < j, in order; each cross block's mutual rows are
-    stored with their first point on member i (a pair listed the other way
-    round is swapped, which leaves its row unchanged)."""
+    in its parse_layout).  A grasped point has its offset's index in
+    ``pt_goff`` (-1 for a link origin), the offsets a float section of 3 per
+    grasped point (their count ints[11]).  Block pairs: the n diagonal
+    blocks, then the cross blocks (i, j), i < j, in order; each cross
+    block's mutual rows are stored with their first point on member i (a
+    pair listed the other way round is swapped, which leaves its row
+    unchanged)."""
     robot = lay.robot
     members = lay.members
     n_mem = len(members)
@@ -217,15 +245,18 @@ def pack_multirobot_params(lay: MultiRobotLayout):
         ctrl += c
 
     # the full collision layout: object sections, then self sections
-    pt_member, pt_link, pt_anc = [], [], []
-    for section in ("object_coll_idxs", "self_coll_idxs"):
+    pt_member, pt_link, pt_anc, pt_goff, goff = [], [], [], [], []
+    for section in ("object", "self"):
         for i, (r, m) in enumerate(zip(members, models)):
             anc = m.ancestry_matrix()
-            for li in getattr(r, section) or ():
+            for li, off in _member_points(r, section):
                 pt_member.append(i)
                 pt_link.append(li)
                 pt_anc.append(int(sum(1 << j for j in range(m.n_dofs)
                                       if anc[li, j])))
+                pt_goff.append(-1 if off is None else len(goff))
+                if off is not None:
+                    goff.append(off)
     obj_off = [int(v) for v in lay.obj_off]
     self_off = [int(v) for v in lay.self_off]
 
@@ -259,14 +290,14 @@ def pack_multirobot_params(lay: MultiRobotLayout):
     n_obj = obj_off[-1]
     header = [n_mem, robot.q_dim, len(pt_member), n_obj, len(own_a),
               len(mut_a), len(lay.df_obj_list), len(scene_i[1]), len(bp),
-              int(l_off[-1]), len(scene_i[5])] + [0] * 5
+              int(l_off[-1]), len(scene_i[5]), len(goff)] + [0] * 4
     ints = _i32([header, L_list, lay.d_list, lay.d_off[:-1], l_off[:-1],
                  obj_off[:-1], obj_off[1:],
                  [b for b, _ in own_range], [e for _, e in own_range],
                  [i for i, _ in bp], [j for _, j in bp],
                  [b for b, _ in bp_range], [e for _, e in bp_range],
                  topo, parent, jtype, qidx, ctrl, pt_member, pt_link, pt_anc,
-                 own_a, own_b, mut_a, mut_b] + scene_i)
+                 pt_goff, own_a, own_b, mut_a, mut_b] + scene_i)
     floats = _f32(
         [np.concatenate([m.joint_trans.reshape(-1) for m in models]),
          np.concatenate([m.joint_fixed_rot.reshape(-1) for m in models]),
@@ -275,7 +306,8 @@ def pack_multirobot_params(lay: MultiRobotLayout):
          np.concatenate([m.clamp_upper for m in models]),
          robot.base_rots.cpu().numpy(), robot.base_trans.cpu().numpy(),
          lay.obj_thresh.cpu().numpy(), own_m, mut_m,
-         lay.ws_min.cpu().numpy(), lay.ws_max.cpu().numpy()] + scene_f)
+         lay.ws_min.cpu().numpy(), lay.ws_max.cpu().numpy(),
+         np.zeros((0, 3)) if not goff else np.stack(goff)] + scene_f)
     return ints, floats
 
 
@@ -288,20 +320,24 @@ def mr_shared_bytes(ints, cost_only: bool = False) -> int:
 
 
 def _cost_members(lay):
-    """[(model, base R (3, 3), base t (3,), [(point, link), ...]), ...]: a
-    ``TermsLayout`` is one member at the identity base with its used links
-    as points; a ``MultiRobotLayout`` has its members at their base poses,
-    points numbered over the full collision layout (object sections, then
-    self sections, member by member)."""
+    """[(model, base R (3, 3), base t (3,), [(point, link, offset (3,) or
+    None), ...]), ...]: a ``TermsLayout`` is one member at the identity
+    base with its used links' origins and its grasped points as points; a
+    ``MultiRobotLayout`` has its members at their base poses, points
+    numbered over the full collision layout (object sections, then self
+    sections, member by member)."""
     if not isinstance(lay, MultiRobotLayout):
+        offs = _offsets(lay)
+        n_used = len(lay.used_links)
         return [(lay.model, np.eye(3), np.zeros(3),
-                 list(enumerate(lay.used_links)))]
+                 [(p, li, None if p < n_used else offs[p - n_used])
+                  for p, li in enumerate(lay.point_links)])]
     points = [[] for _ in lay.members]
     p = 0
-    for section in ("object_coll_idxs", "self_coll_idxs"):
+    for section in ("object", "self"):
         for i, r in enumerate(lay.members):
-            for li in getattr(r, section) or ():
-                points[i].append((p, li))
+            for li, off in _member_points(r, section):
+                points[i].append((p, li, off))
                 p += 1
     base_R = lay.robot.base_rots.cpu().numpy().reshape(-1, 3, 3)
     base_t = lay.robot.base_trans.cpu().numpy().reshape(-1, 3)
@@ -360,11 +396,14 @@ def pack_cost_params(lay):
     float32), the two buffers ``cost.cu`` reads (section order as in its
     parse_layout).  What a step or an object reads together is one record
     on a 16-byte boundary, read with 16-byte loads: a step's 8 ints (joint
-    type, q column, parent source, slot, its points' range, 2 pad) and 20
-    floats (fixed rotation, translation, axis, clamp bounds, 3 pad); an
-    object's 12 floats (rotation, position); a grid's header, 8 floats
-    (lower limits, extent, each padded to 4); each primitive group's table,
-    padded to a multiple of 4 floats (a sphere is one load).  A sphere
+    type, q column, parent source, slot, its points' range, how many of
+    them, the last ones, are offset points and their first offset record)
+    and 20 floats (fixed rotation, translation, axis, clamp bounds, 3 pad);
+    an offset point's 4 floats (offset, 0) (a grasped point; their count
+    ints[12]); an object's 12 floats (rotation, position); a grid's header,
+    8 floats (lower limits, extent, each padded to 4); each primitive
+    group's table, padded to a multiple of 4 floats (a sphere is one
+    load).  A sphere
     group whose radii are all equal gets kind 3, which the kernel scores
     with one square root.
 
@@ -372,16 +411,18 @@ def pack_cost_params(lay):
     transform is the member's base (src -1), the previous step's (-2, kept
     in registers) or a stored slot; a step stores its own when a later,
     non-adjacent step reads it, and writes the world position of the
-    collision points on its link.  The rows are cut into T ranges, one per
+    collision points on its link (its origin, or R o + t for an offset
+    point).  The rows are cut into T ranges, one per
     thread of a lane, balanced by ``cost_row_ops``: T = 1 for a single
     robot; for a MultiRobot at least the member count (phase 1 runs one FK
     chain a thread), and enough threads that a range takes about as many
     operations as the longest chain, at most 8."""
     members = _cost_members(lay)
     mem_step, step_i, step_f, pt_list, fk_ops = [0], [], [], [], []
+    offsets = []
     n_slots, doff = 0, 0
     for model, _, _, points in members:
-        steps, stored = _fk_steps(model, [li for _, li in points])
+        steps, stored = _fk_steps(model, [li for _, li, _ in points])
         ctrl = list(model.controlled_link_idxs())
         slot_of, prev = {}, None
         for i in steps:
@@ -390,11 +431,17 @@ def pack_cost_params(lay):
             if i in stored:
                 slot_of[i] = n_slots
                 n_slots += 1
-            begin = len(pt_list)
-            pt_list += sorted(pt for pt, li in points if li == i)
+            begin, obegin = len(pt_list), len(offsets)
+            pt_list += sorted(pt for pt, li, o in points
+                              if li == i and o is None)
+            on_link = sorted((pt, o) for pt, li, o in points
+                             if li == i and o is not None)
+            pt_list += [pt for pt, _ in on_link]
+            offsets += [np.append(o, 0.0) for _, o in on_link]
             step_i.append([model.joint_types[i],
                            doff + ctrl.index(i) if i in ctrl else -1, src,
-                           slot_of.get(i, -1), begin, len(pt_list), 0, 0])
+                           slot_of.get(i, -1), begin, len(pt_list),
+                           len(on_link), obegin if on_link else 0])
             step_f.append(np.concatenate([
                 model.joint_fixed_rot[i].reshape(9), model.joint_trans[i],
                 model.joint_axis[i],
@@ -402,7 +449,8 @@ def pack_cost_params(lay):
             prev = i
         mem_step.append(len(step_i))
         fk_ops.append(sum(63 if model.joint_types[i] == 0 else 132
-                          for i in steps))
+                          for i in steps)
+                      + 18 * sum(o is not None for _, _, o in points))
         doff += model.n_dofs
 
     ops = cost_row_ops(lay)
@@ -424,11 +472,11 @@ def pack_cost_params(lay):
     header = [len(members), doff, len(pt_list), len(lay.obj_pos),
               len(lay.pair_a), len(lay.df_obj_list), len(scene_i[1]),
               len(step_i), n_slots, T, sum(len(t) for t in tables),
-              len(scene_i[5])]
+              len(scene_i[5]), len(offsets)]
     header += [0] * (_COST_HEADER - len(header))
     ints = _i32([header, step_i, mem_step, pt_list, lay.obj_pos, lay.pair_a,
                  lay.pair_b, _row_cuts(ops, T)] + scene_i)
-    floats = _f32(tables + [objects, grid_f, step_f]
+    floats = _f32(tables + [objects, grid_f, step_f, offsets]
                   + [np.stack([R for _, R, _, _ in members]),
                      np.stack([t for _, _, t, _ in members]),
                      lay.obj_thresh.cpu().numpy(),
@@ -578,18 +626,15 @@ def _kernel_params(task):
     """(d, ints, floats, plain terms) of a task the terms.cu kernels take,
     or None where the reference's fused factories return None (a point
     mass, robots without a kinematic model, interpolated collision points).
-    Grasped-object points are not in the kernels yet and raise
-    NotImplementedError, as does a 2-D scene.  A robot with a learned self-collision
-    net packs no pair rows (its net row runs in ``csrc/net_row.cu``)."""
+    A 2-D scene raises NotImplementedError.  A robot with a learned
+    self-collision net packs no pair rows (its net row runs in
+    ``csrc/net_row.cu``)."""
     from ..robots.point_mass import RobotPointMass
     robot = task.robot
     if isinstance(robot, RobotPointMass):
         return None
     if not hasattr(robot, "model") or robot.object_interpolate:
         return None
-    if getattr(robot, "grasped_n_points", 0) > 0:
-        raise NotImplementedError(
-            "grasped-object points are not in the CUDA terms kernel")
     plain = obstacle_terms_lanes_factory(task)
     lay = plain.layout
     d = lay.model.n_dofs
@@ -699,9 +744,9 @@ def _cost_fn(packed, device, d, plain_terms, run, grid):
 def _mr_kernel_params(task):
     """(d, ints, floats, n_bp, plain terms) of a ``MultiRobot`` task for the
     mr_terms.cu kernels, or None unless every member has a kinematic model.
-    A member with a learned self-collision net or grasped points, more than
-    MR_MAX_MEMBERS members, more than MAX_DOF joints or 32 links in a
-    member, and a same-member mutual pair raise NotImplementedError."""
+    A member with a learned self-collision net or interpolated points,
+    more than MR_MAX_MEMBERS members, more than MAX_DOF joints or 32 links
+    in a member, and a same-member mutual pair raise NotImplementedError."""
     robot = task.robot
     members = robot.robots
     if not all(hasattr(r, "model") for r in members):
@@ -710,10 +755,9 @@ def _mr_kernel_params(task):
         if getattr(r, "self_collision_net", None) is not None:
             raise NotImplementedError("the learned self-collision row is not "
                                       "in the CUDA MultiRobot terms kernel")
-        if getattr(r, "grasped_n_points", 0) > 0 or r.object_interpolate:
-            raise NotImplementedError("grasped-object or interpolated points "
-                                      "are not in the CUDA MultiRobot terms "
-                                      "kernel")
+        if r.object_interpolate:
+            raise NotImplementedError("interpolated points are not in the "
+                                      "CUDA MultiRobot terms kernel")
         if r.model.n_dofs > MAX_DOF or r.model.n_links > _MAX_LINKS:
             raise NotImplementedError(
                 "the CUDA MultiRobot terms kernel takes at most %d joints and "

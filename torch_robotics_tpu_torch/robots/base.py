@@ -104,28 +104,39 @@ class RobotAPI:
     def select_collision_jacobians(self, J_full, idxs, interpolate=False,
                                    num_interp=0):
         """The point selection of the collision-point selectors applied to
-        per-point Jacobians J_full (..., P, ws_dim, q_dim).  Interpolated
-        points and grasped-object points are not ported and raise."""
+        per-point Jacobians J_full (..., P, ws_dim, q_dim): the links
+        ``idxs``, then the grasped points (the last G of J_full).
+        Interpolated points are not ported and raise."""
         if interpolate:
             raise NotImplementedError(
                 "interpolated collision points are not ported yet")
+        J = J_full[..., list(idxs), :, :]
         if self.grasped_n_points > 0:
-            raise NotImplementedError(
-                "grasped-object collision points are not ported yet")
-        return J_full[..., list(idxs), :, :]
+            J = torch.cat([J, J_full[..., -self.grasped_n_points:, :, :]],
+                          dim=-3)
+        return J
 
     def object_collision_points(self, link_pos):
         """Select (and interpolate) the object-collision points from FK
-        output (..., n_links, 3)."""
+        output (..., n_links [+ G], 3), then the grasped points."""
         pts = link_pos[..., list(self.object_coll_idxs), :]
         if self.object_interpolate:
             pts = interpolate_points(pts, self.object_num_interp)
+        if self.grasped_n_points > 0:
+            pts = torch.cat([pts, link_pos[..., -self.grasped_n_points:, :]],
+                            dim=-2)
         return pts
 
     def self_collision_points(self, link_pos):
+        """The self-collision links' points, then the grasped points; None
+        for a robot without self-collision links."""
         if not self.self_coll_idxs:
             return None
-        return link_pos[..., list(self.self_coll_idxs), :]
+        pts = link_pos[..., list(self.self_coll_idxs), :]
+        if self.grasped_n_points > 0:
+            pts = torch.cat([pts, link_pos[..., -self.grasped_n_points:, :]],
+                            dim=-2)
+        return pts
 
     # defaults (overridden by concrete robots)
     self_coll_idxs = ()

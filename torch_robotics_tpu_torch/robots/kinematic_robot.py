@@ -3,8 +3,9 @@ of torch_robotics_tpu/robots/kinematic_robot.py).
 
 A ``KinematicRobot`` turns a compiled ``KinematicModel`` plus a table of
 collision links, margins and self-collision pairs into an embodiment whose
-collision points are link origins; FK and point Jacobians run through the
-lanes chain (``ops/lanes_fk.py``).
+collision points are link origins, followed, for a robot that holds a
+grasped object, by the object's points fixed in the frame of its link; FK
+and point Jacobians run through the lanes chain (``ops/lanes_fk.py``).
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ __all__ = ["KinematicRobot", "RobotUR10", "UR10_OBJECT_COLL_LINKS",
 @dataclasses.dataclass(frozen=True)
 class KinematicRobot(RobotAPI):
     """A single-kinematic-model robot whose collision points are link
-    origins."""
+    origins, and the ``grasped_n_points`` points ``grasped_points`` (G, 3)
+    fixed in the frame of link ``link_name_grasped_object``."""
     model: KinematicModel
     q_min: torch.Tensor                 # (d,)
     q_max: torch.Tensor
@@ -37,6 +39,9 @@ class KinematicRobot(RobotAPI):
     # row per waypoint replaces the self-collision pair rows
     self_collision_net: object = None
     name: str = "KinematicRobot"
+    # a grasped object's points (G, 3) in the frame of its link, or None
+    grasped_points: Optional[torch.Tensor] = None
+    link_name_grasped_object: str = "grasped_object"
 
     @classmethod
     def create(cls, model: KinematicModel,
@@ -81,17 +86,34 @@ class KinematicRobot(RobotAPI):
     def ws_dim(self) -> int:
         return 3
 
+    @property
+    def grasped_n_points(self) -> int:
+        g = self.grasped_points
+        return 0 if g is None else g.shape[0]
+
+    def grasped_extra_points(self):
+        """[(link, (3,) point in its frame), ...] of the grasped points
+        (empty without a grasped object)."""
+        if self.grasped_n_points == 0:
+            return []
+        gi = self.model.link_index(self.link_name_grasped_object)
+        return [(gi, self.grasped_points[g])
+                for g in range(self.grasped_n_points)]
+
     def fk_map_collision(self, q):
-        """q (..., d) -> (..., n_links, 3) world link positions."""
+        """q (..., d) -> (..., n_links [+ G], 3) world link positions, then
+        the grasped points."""
         from ..ops.lanes_fk import fk_positions_lanes
-        return fk_positions_lanes(self.model, q)
+        return fk_positions_lanes(self.model, q,
+                                  extra_points=self.grasped_extra_points())
 
     def fk_map_collision_with_jac(self, q):
-        """q (..., d) -> (points (..., n_links, 3), J (..., n_links, 3, d)):
-        world link positions and their analytic point Jacobians from one
-        lanes FK pass."""
+        """q (..., d) -> (points (..., P, 3), J (..., P, 3, d)): world link
+        positions and the grasped points, with their analytic point
+        Jacobians, from one lanes FK pass."""
         from ..ops.lanes_fk import fk_points_jacobians_lanes
-        return fk_points_jacobians_lanes(self.model, q)
+        return fk_points_jacobians_lanes(
+            self.model, q, extra_points=self.grasped_extra_points())
 
 
 UR10_OBJECT_COLL_LINKS = [

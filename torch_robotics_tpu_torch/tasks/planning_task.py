@@ -14,13 +14,15 @@ Residual values and Jacobians, the collision checks and the metrics are
 plain PyTorch on every device, as they are plain XLA in the reference.
 Single kinematic robots, ``MultiRobot``s (several arms at fixed base
 poses, with mutual-collision pairs) and point masses in 2-D or 3-D scenes
-are covered.  A robot with a learned self-collision net (the reference's
-STORM-style Panda) has the net's one row in place of the pair rows, and
-its collision check is the net's fixed-threshold test.  A scene whose
-fixed objects are a precomputed SDF grid (``EnvBase(
-precompute_sdf_obj_fixed=True)``) takes the grid in their place in every
-row and check; with ``use_occupancy_map`` the collision check reads the
-scene's occupancy map instead of the distance fields.
+are covered; a robot that holds a grasped object has its object's points
+in every row and check, through the robot's point selectors.  A robot with
+a learned self-collision net (the reference's STORM-style Panda) has the
+net's one row in place of the pair rows, and its collision check is the
+net's fixed-threshold test.  A scene whose fixed objects are a precomputed
+SDF grid (``EnvBase(precompute_sdf_obj_fixed=True)``) takes the grid in
+their place in every row and check; with ``use_occupancy_map`` the
+collision check reads the scene's occupancy map instead of the distance
+fields.
 The 'sdf' cost is not ported yet.
 """
 from __future__ import annotations
