@@ -24,7 +24,8 @@ final line):
              the Riccati sweep every d = 1..8, of the column sweep every
              padded width, none of which may spill; the cost kernel may
              have no stack frame either), and the card's name and power
-             limit.
+             limit; the net row's tensor-core kernels may not spill and
+             must show HMMA in cuobjdump -sass.
 2. terms   - the fused GN-terms kernel vs its plain PyTorch version on the
              card: Panda in EnvSpheres3D at N = 64 * 1024 waypoints (the
              main path's first q, timed, and random q), plus a rounded-box
@@ -148,20 +149,26 @@ final line):
              first (r, Jr) and at a ragged N, timed with one torch.bmm.
 26. net_terms - the learned self-collision Panda (benchmarks/net_terms_ab.py:
              RobotPanda.create(use_learned_self_collision=True), the
-             bundled 7-256-128-64-1 net): K1 + the net row (net_row.cu)
-             vs the plain terms on the main path's first q (N = 64 * 1024)
+             bundled 7-256-128-64-1 net): K1 + the net row (net_row.cu,
+             its tf32x3 route, asserted for every net of the bundled
+             widths) vs the plain terms on the main path's first q (N =
+             64 * 1024)
              with the bundled net (its hinge is almost never active), a
              relu and a tanh "spread" net (numpy-seeded weights of the
              bundled widths, the output shift set from that q so that
              25-75% of the lanes are active), lanes within 1e-5 of the
              hinge excluded and counted (at most 0.1%); the row alone from
              zeros vs its plain contribution; timed with its plain version
-             (the eager cuBLAS FP32 chain, also its library call) and K1;
-             both net-row kernels of three wider relu spread nets (16, 8
-             and 4 lanes a block) vs plain on 8192 of those lanes.
+             (the eager cuBLAS FP32 chain, also its library call) and K1,
+             beside its FP32 bound and its 3xTF32 bound (495 / 3 TFLOP/s);
+             both net-row kernels of three wider relu spread nets (the
+             simt route at 16, 8 and 4 lanes a block) vs plain on 8192 of
+             those lanes.
 27. net_cost - K8 + the value-only net row vs the plain cost on the sGPMP
              path's proposal q (N = 131072) with the bundled and a spread
-             net, the row alone; timed at the candidates' N = 2097152;
+             net (the tf32x3 route asserted), the row alone; timed at the
+             candidates' N = 2097152 and at the proposal's 131072, with
+             both bounds;
              then the sGPMP path on the net Panda: exactly 201 K8 and 201
              net-cost launches, finite results.
 28. net_main - the net Panda's main path: MPC at B = 1024, H = 64, 2 GN
@@ -241,8 +248,9 @@ run for the net-cost row; the grid branches from phase 29's grid run
 for K1, phase 31's sGPMP for K8 and phase 32's MPC steps and sGPMP for
 K5 and K8-MultiRobot; the grasped branches from phase 34's run for K1,
 phase 35's sGPMP for K8 and phase 36's MPC steps and sGPMP for K5 and
-K8-MultiRobot), the nvidia-smi line, and the final {"ok": true,
-"device": ...} line.
+K8-MultiRobot; each bound at the FP32 rate, the net rows' at the 3xTF32
+rate of their tensor-core route), the nvidia-smi line, and the final
+{"ok": true, "device": ...} line.
 """
 from __future__ import annotations
 
@@ -250,6 +258,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -261,6 +270,9 @@ GP_PARAMS = dict(n_support_points=H, dt=0.04, opt_iters=2, sigma_start=1e-3,
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and float32 non-tensor rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# the dense TF32 tensor-core rate (495 TFLOP/s, same data sheet) over the
+# three passes of a 3xTF32 product: float32-accurate products at 165
+PEAK_TF32X3_FLOPS = 495e12 / 3
 # the terms test's tolerance (tests/test_pallas_terms.py): atol relative to
 # the output's max, rtol elementwise; float32 sums in another order
 TERMS_ATOL_REL, TERMS_RTOL = 3e-5, 2e-5
@@ -766,10 +778,47 @@ def gn_assembly_work(P: int, d: int, N: int):
             N * P * (2 + 2 * d + 2 * n_u))
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, peak_flops: float = PEAK_F32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_ops = ops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# mangled-name fragments of the net row's tensor-core instantiations, and
+# the net row's kernel names (both routes) as the profiler reports them
+NET_TC_TERMS = "net_terms_tc_kernelILi256ELi128ELi64E"
+NET_TC_COST = "net_cost_tc_kernelILi256ELi128ELi64E"
+NET_ROW_KERNELS = ("net_terms_tc_kernel", "net_cost_tc_kernel",
+                   "net_row_kernel")
+
+
+def net_tc_sass_counts():
+    """{mangled fragment: {opcode: count}} of the HMMA / HGMMA, LDS and FFMA
+    instructions in the net row's tensor-core kernels, from cuobjdump -sass
+    of the built net_row.cu."""
+    import re
+
+    from torch_robotics_tpu_torch.ops.cuda_build import nvcc_path
+    from torch_robotics_tpu_torch.ops.net_kernel import NET_TERMS_KERNEL
+    cuobjdump = str(Path(nvcc_path()).parent / "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass",
+                          str(NET_TERMS_KERNEL.library_path)],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, "cuobjdump failed: " + out.stderr[-2000:])
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = next((f for f in (NET_TC_TERMS, NET_TC_COST)
+                       if f in m.group(1)), None)
+            if fn:
+                counts[fn] = {}
+            continue
+        op = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
+                       line)
+        if fn and op and op.group(1) in ("HMMA", "HGMMA", "LDS", "FFMA"):
+            counts[fn][op.group(1)] = counts[fn].get(op.group(1), 0) + 1
+    return counts
 
 
 # ----------------------------------------------------------------------
@@ -808,8 +857,10 @@ def phase_build():
              "cr_even_kernelILi14ELb0E": "cr_even_kernel<14>",
              "cr_back_kernelILi14E": "cr_back_kernel<14>",
              "gn_assembly_kernelILi7E": "gn_assembly_kernel<7>",
-             "net_row_kernelILb1E": "net_row_kernel<terms>",
-             "net_row_kernelILb0E": "net_row_kernel<cost>"}
+             "net_row_kernelILb1E": "net_row_kernel<terms> (simt)",
+             "net_row_kernelILb0E": "net_row_kernel<cost> (simt)",
+             NET_TC_TERMS: "net_terms_tc_kernel<256, 128, 64> (tf32x3)",
+             NET_TC_COST: "net_cost_tc_kernel<256, 128, 64> (tf32x3)"}
     report = {}
     for src, text in logs.items():
         lines = text.splitlines()
@@ -824,6 +875,16 @@ def phase_build():
         check("0 bytes spill stores, 0 bytes spill loads" in line,
               "btridiag_cols_kernel<%d>: ptxas reports a spill or no line: "
               "%r" % (w, line))
+    # the net row's tensor-core kernels: no spill, and HMMA in their SASS
+    sass = net_tc_sass_counts()
+    for frag, label in ((NET_TC_TERMS, names[NET_TC_TERMS]),
+                        (NET_TC_COST, names[NET_TC_COST])):
+        line = report.get(label, "")
+        check("0 bytes spill stores, 0 bytes spill loads" in line,
+              "%s: ptxas reports a spill or no line: %r" % (label, line))
+        check(sass.get(frag, {}).get("HMMA", 0) > 0,
+              "%s: no HMMA in its SASS: %s" % (label, sass.get(frag)))
+        report[label] += " | SASS %s" % sass[frag]
     # the cost kernel keeps its link transforms out of local memory
     line = report.get("cost_kernel", "")
     check("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
@@ -2928,6 +2989,48 @@ def net_keep_lanes(name, net, q):
     return ~edge, n_edge
 
 
+def seq_fma_mm(x, W):
+    """x (N, K) @ W (K, M) in float32, each output a sequential fmaf over k
+    ascending from 0: the exact product and sum by TwoSum in float64,
+    rounded to odd, then once to float32 (correctly, as 53 >= 24 + 2)."""
+    import torch
+    x64, W64 = x.double(), W.double()
+    acc = torch.zeros((x.shape[0], W.shape[1]), device=x.device)
+    for k in range(x.shape[1]):
+        a = acc.double()
+        p = x64[:, k:k + 1] * W64[k:k + 1]
+        s = a + p
+        v = s - a
+        err = (a - (s - v)) + (p - v)
+        inexact_even = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+        s = torch.where(inexact_even, torch.nextafter(
+            s, torch.copysign(torch.full_like(s, float("inf")), err)), s)
+        acc = s.float()
+    return acc
+
+
+def net_plain_is_sequential(name, net, q):
+    """The tf32x3 terms kernel takes its relu' decisions in the plain
+    chain's order, on the premise that each hidden layer's product of the
+    plain version on the card (x @ W, cuBLAS) is bit for bit a sequential
+    FMA over k.  Check it on q (d, N), layer by layer as net_rows computes
+    them -> the count of outputs checked."""
+    import torch
+    x = (q.T - net.mean_q.to(q)) / net.std_q.to(q)
+    n = 0
+    for li, (W, b) in enumerate(net._cast(q)[:-1]):
+        y = x @ W
+        n_off = int((y != seq_fma_mm(x, W)).sum())
+        check(n_off == 0, "%s: the plain chain's layer %d on the card is not "
+              "a sequential FMA over k on %d of %d outputs, which the tf32x3 "
+              "terms kernel's relu' repair assumes" % (name, li, n_off,
+                                                       y.numel()))
+        n += y.numel()
+        x = net._act(y + b)
+    torch.cuda.empty_cache()
+    return n
+
+
 def hold_lanes(name, got, ref, keep):
     """Outputs (lanes last) held to their plain versions at the terms
     tolerance on the kept lanes -> (max abs error, relative to max|ref|)
@@ -2984,7 +3087,11 @@ def phase_net_terms():
         terms = task.collision_residuals.obstacle_terms_lanes
         row = terms.net_row
         net = row.net
+        check(row.launch["route"] == "tf32x3", "%s: the bundled widths take "
+              "route %s, not tf32x3" % (kind, row.launch["route"]))
         keep, n_edge = net_keep_lanes(kind, net, q)
+        n_seq = net_plain_is_sequential(kind, net, q) \
+            if net.activation == "relu" else 0
         err = hold_lanes(kind, terms.unscaled(q), terms.plain.unscaled(q),
                          keep)
 
@@ -3012,23 +3119,27 @@ def phase_net_terms():
             terms_max_errs={"abs": err[0], "rel_to_max": err[1]},
             row_max_errs={"abs": row_err[0], "rel_to_max": row_err[1]},
             active_share=n_active / N, excluded_lanes=n_edge,
+            plain_sequential_fma_outputs=n_seq,
             k1_ms=cuda_ms(lambda: run_terms_kernel(q, ints, floats, d_),
                           iters=20),
+            route=row.launch["route"], tile_lanes=row.launch["lanes"],
             launch=row.launch)
     torch.cuda.empty_cache()
     emit("net_terms", N=N, **{k: dict(
         {key: v for key, v in r.items() if key not in ("max_abs_err",
                                                         "work")},
         bytes=r["work"][0], ops=r["work"][1],
-        bound_ms=bound_ms(*r["work"])[0]) for k, r in out.items()},
-        wide_nets=net_wide_rows(q))
+        bound_ms=bound_ms(*r["work"])[0],
+        bound_ms_tf32x3=bound_ms(*r["work"], PEAK_TF32X3_FLOPS)[0])
+        for k, r in out.items()}, wide_nets=net_wide_rows(q))
     return out["relu_spread"]
 
 
 def net_wide_rows(q_all):
     """Both net-row kernels of relu spread nets wider than the bundled one
-    (NET_WIDE: 16, 8 and 4 lanes a block, as ``net_launch_config`` picks
-    them) on NET_WIDE_N lanes of q_all, from zeros, against their plain
+    (NET_WIDE: the simt route at 16, 8 and 4 lanes a block, as
+    ``net_launch_config`` picks them) on NET_WIDE_N lanes of q_all, from
+    zeros, against their plain
     versions -> per net: its launch shape, errors, active share, lanes
     excluded at the hinge edge, and one timed call of each kernel."""
     import torch
@@ -3077,16 +3188,19 @@ def net_wide_rows(q_all):
                             warmup=1))
         del net, row
         torch.cuda.empty_cache()
-    check(sorted(r["launch"]["lanes"] for r in out.values()) == [4, 8, 16],
-          "wide nets' lanes a block %s" % [r["launch"] for r in out.values()])
+    check(all(r["launch"]["route"] == "simt" for r in out.values())
+          and sorted(r["launch"]["lanes"] for r in out.values()) == [4, 8, 16],
+          "wide nets' routes and lanes a block %s"
+          % [r["launch"] for r in out.values()])
     return out
 
 
 def phase_net_cost(start, goal):
     """K8 + the value-only net row vs the plain cost on the sGPMP path's
     proposal q (N = B P H = 131,072) of the net Panda at the sGPMP bench's
-    cutoff, with the bundled and a relu spread net, and the row alone from
-    zeros; timed at the candidates' N = 2,097,152 with its plain version;
+    cutoff, with the bundled and a relu spread net (the tf32x3 route), and
+    the row alone from zeros; timed at the candidates' N = 2,097,152 and
+    at the proposal's 131,072 with its plain version;
     then the sGPMP path on the net Panda (the bench's 100 iterations):
     exactly 201 K8 and 201 net-cost launches and nothing else, finite
     results."""
@@ -3107,6 +3221,8 @@ def phase_net_cost(start, goal):
         cost = task.collision_residuals.collision_cost_lanes
         row = task.collision_residuals.obstacle_terms_lanes.net_row
         net = row.net
+        check(row.launch["route"] == "tf32x3", "%s: the bundled widths take "
+              "route %s, not tf32x3" % (kind, row.launch["route"]))
         keep, n_edge = net_keep_lanes(kind, net, q)
         err = hold_lanes(kind, [cost(q)], [cost.plain(q)], keep)
         got = torch.zeros(q.shape[1], device="cuda")
@@ -3121,11 +3237,20 @@ def phase_net_cost(start, goal):
         buf = torch.zeros(N_cand, device="cuda")
         n_active = int((torch.relu(NET_CUTOFF - net.signed_distance(
             q_cand.T)) > 0).sum())
+        n_act_q = int((ref > 0).sum())
+        work_q = net_row_work(net, q.shape[1], n_act_q, False)
         out[kind] = dict(
             max_abs_err=row_err[0],
             ms=cuda_ms(lambda: add_net_cost(row, q_cand, buf), iters=10),
             plain_ms=cuda_ms(lambda: net_cost_plain(net, q_cand, NET_CUTOFF,
                                                     buf), iters=2, warmup=1),
+            route=row.launch["route"], tile_lanes=row.launch["cost_lanes"],
+            at_131072=dict(
+                ms=cuda_ms(lambda: add_net_cost(row, q, got), iters=20),
+                plain_ms=cuda_ms(lambda: net_cost_plain(net, q, NET_CUTOFF,
+                                                        ref), iters=5),
+                bound_ms=bound_ms(*work_q)[0],
+                bound_ms_tf32x3=bound_ms(*work_q, PEAK_TF32X3_FLOPS)[0]),
             work=net_row_work(net, N_cand, n_active, False),
             cost_max_errs={"abs": err[0], "rel_to_max": err[1]},
             row_max_errs={"abs": row_err[0], "rel_to_max": row_err[1]},
@@ -3149,7 +3274,9 @@ def phase_net_cost(start, goal):
         {key: v for key, v in r.items() if key not in ("max_abs_err",
                                                         "work")},
         bytes=r["work"][0], ops=r["work"][1],
-        bound_ms=bound_ms(*r["work"])[0]) for k, r in out.items()},
+        bound_ms=bound_ms(*r["work"])[0],
+        bound_ms_tf32x3=bound_ms(*r["work"], PEAK_TF32X3_FLOPS)[0])
+        for k, r in out.items()},
         sgpmp=dict(launches=launches, ms_per_iteration=ms / p.opt_iters,
                    init_fraction_free_particles=float(free0.float().mean()),
                    fraction_free_particles=float(free.float().mean())))
@@ -3194,6 +3321,10 @@ def phase_net_main():
             arrays = net_spread_arrays("relu", net_first_q(start, goal))
         task, start, goal = bench_problem("cuda", B,
                                           robot=net_robot("cuda", arrays))
+        route = task.collision_residuals.obstacle_terms_lanes.net_row.launch[
+            "route"]
+        check(route == "tf32x3", "%s net main path: route %s, not tf32x3"
+              % (kind, route))
         run_mpc(task, start, goal, 1)                    # warm-up
         (state, costs, thetas), launches, ms = counted(
             lambda: run_mpc(task, start, goal, N_STEPS))
@@ -3208,9 +3339,10 @@ def phase_net_main():
         step_ms = ms / N_STEPS
         busy, dev_ms, top = profile_device(
             lambda: run_mpc(task, start, goal, 2), 2, n_top=10)
-        net_ms = sum(v for k, v in top.items() if "net_row_kernel" in k)
+        net_ms = sum(v for k, v in top.items()
+                     if any(n in k for n in NET_ROW_KERNELS))
         out[kind] = dict(
-            launches=launches, step_ms=step_ms,
+            launches=launches, route=route, step_ms=step_ms,
             solves_per_s=B / (step_ms / 1e3),
             fraction_free=task.compute_fraction_free_trajs(state.theta),
             mean_collision_cost_last=float(costs[-1].mean()),
@@ -4009,7 +4141,10 @@ def main() -> None:
              "torch_robotics_tpu_torch/csrc/cost.cu",
              "torch_robotics_tpu/ops/pallas_terms.py:1029", mr_grasp_k8,
              mr_grasp_k8["launches"])):
-        b_ms, b_by = bound_ms(*res["work"])
+        # a tf32x3 kernel's float32-accurate products run at 495 / 3
+        b_ms, b_by = bound_ms(*res["work"], PEAK_TF32X3_FLOPS
+                              if res.get("route") == "tf32x3"
+                              else PEAK_F32_FLOPS)
         entries.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n,
                         "max_abs_err": res["max_abs_err"], "ms": res["ms"],

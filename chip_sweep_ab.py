@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     git archive <commit> | tar -x -C chip_checkout/other   # a git-ignored dir
     python3 chip_sweep_ab.py --other chip_checkout/other [--out FILE] \
-        [--kernels all|sweep|riccati|cols|cost]
+        [--kernels all|sweep|riccati|cols|cost|net]
 
 The other checkout's ``csrc/btridiag.cu``, ``csrc/btridiag_sweep.cu``,
 ``csrc/riccati.cu`` and ``csrc/btridiag_cols.cu`` are built beside this
@@ -75,8 +75,26 @@ the parameters its own tree packs for the same task) stand in for
 - K1 and K5, which the change leaves alone, bit for bit between the two
   trees on the same q.
 
+``--kernels net`` (the learned self-collision net row, K1's and K8's, in
+``net_row.cu``): the other tree's ``net_row.cu`` (an older tree's single
+FP32 kernel, whose launch functions take no route, fed the simt packing
+and launch shape, which are that tree's own) stands in for this tree's
+under this tree's wrappers:
+
+- ptxas's report of both sides' net-row kernels;
+- the K1 row (``trt_net_terms_launch``) from zeros on the main path's
+  first q (N = 65,536) with the bundled net and the relu and tanh spread
+  nets of ``chip_smoke.py``, and the K8 row (``trt_net_cost_launch``) on
+  the net sGPMP path's candidates (N = 2,097,152) and proposal (N =
+  131,072) with the bundled and the relu spread net: each side held to the
+  plain version on the lanes away from the hinge (``chip_smoke``'s terms
+  tolerance), the time in turns (CUDA events), both bounds;
+- the net sGPMP iteration (10 iterations) and the net main path's step
+  (8 MPC steps, the spread net) in turns, with a profile per side (device
+  ms, busy share, the net row's device ms).
+
 ``--kernels all`` (the default) runs the sweeps and the Riccati sweep;
-``cols`` and ``cost`` run alone.  Prints one JSON line per
+``cols``, ``cost`` and ``net`` run alone.  Prints one JSON line per
 measurement, then the card's name and power limit; ``--out`` writes all of
 it as one JSON object.
 """
@@ -157,6 +175,22 @@ def other_riccati_kernel(csrc: Path):
         "trt_riccati_launch": sweep,
         "trt_rollout_launch": rk.ROLLOUT_KERNEL.functions[
             "trt_rollout_launch"]}), takes_fw
+
+
+def other_net_kernel(csrc: Path):
+    """The other checkout's net_row.cu, with the argtypes of its launch
+    functions (a tree without routes takes no route and no length)."""
+    import ctypes
+
+    from torch_robotics_tpu_torch.ops import net_kernel as nk
+    OtherKernel = other_kernel_class()
+    routed = "int route" in (csrc / "net_row.cu").read_text()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    functions = ({**nk.NET_TERMS_KERNEL.functions,
+                  **nk.NET_COST_KERNEL.functions} if routed else {
+        "trt_net_terms_launch": [P, P, P, P, I, I, I, P, P, P],
+        "trt_net_cost_launch": [P, P, I, I, I, P, P, P]})
+    return OtherKernel(str(csrc / "net_row.cu"), functions), routed
 
 
 def other_cost_kernels(csrc: Path):
@@ -269,6 +303,37 @@ def cost_swap(terms, mr, tasks):
     return Swap(tk, ("COST_KERNEL", "MR_COST_KERNEL"), route)
 
 
+def net_swap(other, routed, rows):
+    """The other tree's net-row kernels under this tree's wrappers: a launch
+    on the parameters of one of ``rows`` (NetRowParams) goes to the other
+    tree with the simt packing and launch shape of that net (an older
+    tree's own), or as it is where the other tree takes routes."""
+    import torch
+    from torch_robotics_tpu_torch.ops import net_kernel as nk
+    table = {}
+    for row in rows:
+        ints, floats = nk._pack_simt(row.net, row.cutoff)
+        cfg = nk._simt_launch(row.net.widths)
+        bufs = (torch.as_tensor(ints, device=row.ints.device),
+                torch.as_tensor(floats, device=row.ints.device))
+        table[row.ints.data_ptr()] = (cfg["lanes"], cfg["smem_bytes"], bufs)
+
+    def route(name, args):
+        if routed:
+            return other, args
+        if name == "trt_net_terms_launch":
+            # (q, g, h, cost, N, route, lanes, smem, ip, fp, n_floats,
+            # stream) -> (q, g, h, cost, N, lanes, smem, ip, fp, stream)
+            lanes, smem, (ip, fp) = table[args[8]]
+            return other, args[:5] + (lanes, smem, ip.data_ptr(),
+                                      fp.data_ptr(), args[11])
+        # (q, cost, N, route, lanes, smem, ip, fp, n_floats, stream)
+        lanes, smem, (ip, fp) = table[args[6]]
+        return other, args[:3] + (lanes, smem, ip.data_ptr(), fp.data_ptr(),
+                                  args[9])
+    return Swap(nk, ("NET_TERMS_KERNEL", "NET_COST_KERNEL"), route)
+
+
 def terms_swap(terms, mr):
     """The other tree's K1 and K5 under this tree's terms wrappers."""
     from torch_robotics_tpu_torch.ops import terms_kernel as tk
@@ -293,7 +358,8 @@ def main() -> None:
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--kernels",
-                    choices=("all", "sweep", "riccati", "cols", "cost"),
+                    choices=("all", "sweep", "riccati", "cols", "cost",
+                             "net"),
                     default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -305,13 +371,16 @@ def main() -> None:
     do_riccati = args.kernels in ("all", "riccati")
     do_cols = args.kernels == "cols"
     do_cost = args.kernels == "cost"
+    do_net = args.kernels == "net"
     sweep_k = other_sweep_kernels(csrc) if do_sweep else None
+    net_k = other_net_kernel(csrc) if do_net else None
     ric_k = other_riccati_kernel(csrc) if do_riccati else None
     cols_k = other_cols_kernel(csrc) if do_cols else None
     cost_k = other_cost_kernels(csrc) if do_cost else ()
     build_all([*(sweep_k[:2] if do_sweep else ()),
                *(ric_k[:1] if do_riccati else ()),
                *(cols_k[:1] if do_cols else ()), *cost_k,
+               *(net_k[:1] if do_net else ()),
                *cs.all_kernels().values()])
     report = {}
 
@@ -328,6 +397,8 @@ def main() -> None:
         ab_cols(cols_swap(*cols_k), emit)
     if do_cost:
         ab_cost(cost_k, emit)
+    if do_net:
+        ab_net(*net_k, emit)
 
     smi = cs.nvidia_smi_line()
     print(smi, flush=True)
@@ -754,6 +825,154 @@ def ab_cost(other, emit):
              other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
              turns_ms=turns, profile=prof)
         torch.cuda.empty_cache()
+
+
+def ab_net(other, routed, emit):
+    """The K1 row at 65,536 (three nets) and the K8 row at 2,097,152 and
+    131,072 (two nets), each side held to plain, in turns, with both
+    bounds; the net sGPMP iteration and the net main path's step in turns
+    with a profile per side."""
+    import dataclasses
+
+    import torch
+    from torch_robotics_tpu_torch.ops import net_kernel as nk
+    from torch_robotics_tpu_torch.solve import SGPMPParams, sgpmp_solve
+
+    def ptxas(kernel):
+        lines = kernel.library_path.with_suffix(".log").read_text() \
+            .splitlines()
+        return {line.split("'")[1]: " | ".join(
+            x.strip().split("info    : ")[-1] for x in lines[i + 1:i + 4])
+            for i, line in enumerate(lines)
+            if "Compiling entry function" in line}
+    emit("ptxas", other=ptxas(other), this=ptxas(nk.NET_TERMS_KERNEL))
+
+    task_b, start, goal = cs.bench_problem("cuda", cs.B,
+                                           robot=cs.net_robot("cuda"))
+    q = cs.net_first_q(start, goal)
+    tasks = {"bundled": task_b, **{
+        act + "_spread": cs.net_task("cuda", cs.net_spread_arrays(act, q))
+        for act in ("relu", "tanh")}}
+    il_task, il_start, il_goal = cs.ilqr_problem("cuda")
+    sg_b = cs.net_task("cuda", cutoff=0.06)
+    problem = cs.sg_problem(il_start, il_goal, cs.SG_PART, cs.IL_H,
+                            cs.SG_PARAMS["dt"], cs.SEED + 2)
+    seen = cs.capture_cost_inputs(sg_b, *problem, cs.SG_PARAMS)
+    q_prop = seen[cs.IL_B * cs.SG_PART * cs.IL_H]
+    cost_tasks = {"bundled": sg_b, "relu_spread": cs.net_task(
+        "cuda", cs.net_spread_arrays("relu", q_prop), cutoff=0.06)}
+    rows = [t.collision_residuals.obstacle_terms_lanes.net_row
+            for t in (*tasks.values(), *cost_tasks.values())]
+    swap = net_swap(other, routed, rows)
+
+    def zeros(N):
+        return (torch.zeros((7, N), device="cuda"),
+                torch.zeros((7, 7, N), device="cuda"),
+                torch.zeros((N,), device="cuda"))
+
+    def held(name, fn, ref, keep):
+        errs = {}
+        for side in ("other", "this"):
+            got = tuple(torch.zeros_like(r) for r in ref)
+            with (swap if side == "other" else _null()):
+                fn(*got)
+            errs[side] = cs.hold_lanes("%s_%s" % (name, side), got, ref,
+                                       keep)
+        return {k: {"abs": v[0], "rel_to_max": v[1]} for k, v in errs.items()}
+
+    for kind, task in tasks.items():
+        row = task.collision_residuals.obstacle_terms_lanes.net_row
+        net = row.net
+        keep, n_edge = cs.net_keep_lanes(kind, net, q)
+        N = q.shape[1]
+        ref = zeros(N)
+        nk.net_terms_plain(net, q, cs.NET_CUTOFF, *ref)
+        errs = held("k1_row_" + kind,
+                    lambda *out: nk.add_net_terms(row, q, *out), ref, keep)
+        bufs = zeros(N)
+        other_ms, this_ms, turns = in_turns(
+            swap, lambda: cs.cuda_ms(lambda: nk.add_net_terms(row, q, *bufs),
+                                     iters=20))
+        work = cs.net_row_work(net, N, int((ref[2] > 0).sum()), True)
+        emit("k1_row_" + kind, N=N, route=row.launch["route"],
+             vs_plain=errs, excluded_lanes=n_edge, other_ms=other_ms,
+             this_ms=this_ms, speedup=other_ms / this_ms, turns_ms=turns,
+             bound_ms=cs.bound_ms(*work)[0],
+             bound_ms_tf32x3=cs.bound_ms(*work, cs.PEAK_TF32X3_FLOPS)[0])
+        torch.cuda.empty_cache()
+
+    for kind, task in cost_tasks.items():
+        row = task.collision_residuals.obstacle_terms_lanes.net_row
+        net = row.net
+        for N, qq in sorted(seen.items()):
+            keep, n_edge = cs.net_keep_lanes(kind, net, qq)
+            ref = torch.zeros(N, device="cuda")
+            nk.net_cost_plain(net, qq, cs.NET_CUTOFF, ref)
+            errs = held("k8_row_%s_N%d" % (kind, N),
+                        lambda out: nk.add_net_cost(row, qq, out), (ref,),
+                        keep)
+            buf = torch.zeros(N, device="cuda")
+            other_ms, this_ms, turns = in_turns(
+                swap, lambda: cs.cuda_ms(lambda: nk.add_net_cost(row, qq, buf),
+                                         iters=10))
+            work = cs.net_row_work(net, N, int((ref > 0).sum()), False)
+            emit("k8_row_%s_N%d" % (kind, N), N=N, route=row.launch["route"],
+                 vs_plain=errs, excluded_lanes=n_edge, other_ms=other_ms,
+                 this_ms=this_ms, speedup=other_ms / this_ms, turns_ms=turns,
+                 bound_ms=cs.bound_ms(*work)[0],
+                 bound_ms_tf32x3=cs.bound_ms(*work,
+                                             cs.PEAK_TF32X3_FLOPS)[0])
+            torch.cuda.empty_cache()
+
+    def net_ms(top):
+        return sum(v for k, v in top.items()
+                   if any(n in k for n in cs.NET_ROW_KERNELS))
+
+    p = SGPMPParams(**dict(cs.SG_PARAMS, opt_iters=10))
+
+    def solve(n_iter=p.opt_iters):
+        return sgpmp_solve(
+            sg_b.collision_residuals, *problem,
+            dataclasses.replace(p, opt_iters=n_iter),
+            generator=torch.Generator(device="cuda").manual_seed(7))
+    solve(2)
+    with swap:
+        solve(2)
+    other_ms, this_ms, turns = in_turns(
+        swap, lambda: cs.cuda_ms(solve, iters=1, warmup=0) / p.opt_iters)
+    prof = {}
+    for side in ("other", "this"):
+        with (swap if side == "other" else _null()):
+            busy, dev_ms, top = cs.profile_device(lambda: solve(5), 5)
+        prof[side] = dict(profiled_device_busy_share=busy,
+                          profiled_device_ms_per_iteration=dev_ms,
+                          net_row_device_ms_per_iteration=net_ms(top),
+                          top_device_ms_per_iteration=top)
+    emit("net_sgpmp_iteration", B=cs.IL_B, iterations=p.opt_iters,
+         other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
+         turns_ms=turns, profile=prof)
+    torch.cuda.empty_cache()
+
+    task = tasks["relu_spread"]
+    cs.run_mpc(task, start, goal, 1)
+    with swap:
+        cs.run_mpc(task, start, goal, 1)
+    other_ms, this_ms, turns = in_turns(
+        swap, lambda: cs.cuda_ms(
+            lambda: cs.run_mpc(task, start, goal, cs.N_STEPS), iters=1,
+            warmup=0) / cs.N_STEPS)
+    prof = {}
+    for side in ("other", "this"):
+        with (swap if side == "other" else _null()):
+            busy, dev_ms, top = cs.profile_device(
+                lambda: cs.run_mpc(task, start, goal, 2), 2, n_top=10)
+        prof[side] = dict(profiled_device_busy_share=busy,
+                          profiled_device_ms_per_step=dev_ms,
+                          net_row_device_ms_per_step=net_ms(top),
+                          top_device_ms_per_step=top)
+    emit("net_main_step", B=cs.B, H=cs.H, steps=cs.N_STEPS, net="relu_spread",
+         other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
+         turns_ms=turns, profile=prof)
 
 
 def _null():

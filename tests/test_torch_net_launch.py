@@ -1,9 +1,11 @@
 """The learned self-collision row's CUDA launch shape and packed buffers on
-the CPU: ``net_launch_config`` within the card's limits, refusals for what
-``net_row.cu`` does not take, the packed layout, a numpy model of the
+the CPU: ``net_launch_config``'s route and tile from the widths and the
+activation, within the card's limits, refusals for what ``net_row.cu``
+does not take, the simt route's packed layout, a numpy model of the simt
 kernel's arithmetic on those buffers held to the plain row and to JAX, the
 net task's terms and cost kernels' packing with no pair rows, and the
-wrappers' routes."""
+wrappers' routes.  The tensor-core route's model and layout are in
+test_torch_net_tc.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +15,7 @@ import torch
 from torch_robotics_tpu_torch.envs import EnvSpheres3D
 from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
 from torch_robotics_tpu_torch.ops.net_kernel import (NetRowParams,
+                                                     _pack_simt,
                                                      add_net_cost,
                                                      add_net_terms,
                                                      net_launch_config,
@@ -25,6 +28,7 @@ from torch_robotics_tpu_torch.robots import MultiRobot, RobotPanda
 from torch_robotics_tpu_torch.tasks import PlanningTask
 
 from test_torch_cost_schedule import model_cost
+from test_torch_net_tc import model_net_row_tc
 from test_torch_self_collision_net import (NPZ, box_q, jax_net, numpy_net,
                                            spread)
 
@@ -32,26 +36,65 @@ F32 = np.float32
 SMEM_MAX, MAX_THREADS = 232448, 1024
 BUNDLED = (7, 256, 128, 64, 1)
 CUTOFF = 0.001
-# wider nets, whose shared memory takes 16, 8 and 4 lanes a block
+# wider nets (the simt route), whose shared memory takes 16, 8 and 4 lanes
+# a block
 WIDE = {16: (7, 1024, 1024, 1), 8: (7, 2048, 2048, 1), 4: (7, 4096, 4096, 1)}
+# the tf32x3 packing of the bundled widths (floats) and a warp's scratch
+# (terms kernel)
+TC_FLOATS, TC_SCRATCH = 45272, 16 * 9 + 16 * 8 + 8 + 256 + 128 + 64
 
 
 @pytest.mark.parametrize("activation", ["relu", "tanh"])
 def test_bundled_launch_shape_fits_the_card(activation):
+    """The bundled widths take the tensor-core route: one block of 256
+    threads a multiprocessor, 16 lanes a warp's tile for the terms kernel
+    and 32 for the cost kernel, the packed net (and each warp's scratch
+    for the terms kernel) in shared memory."""
     cfg = net_launch_config(BUNDLED, activation)
-    assert cfg == dict(lanes=32, threads=256,
-                       smem_bytes=4 * 32 * (8 + 256 + 128 + 64 + 1))
+    assert cfg == dict(route="tf32x3", lanes=16, threads=256,
+                       smem_bytes=4 * (TC_FLOATS + 8 * TC_SCRATCH),
+                       cost_lanes=32, cost_smem_bytes=4 * TC_FLOATS)
+    assert cfg["cost_smem_bytes"] <= SMEM_MAX
     assert cfg["smem_bytes"] <= SMEM_MAX and cfg["threads"] <= MAX_THREADS
 
 
+@pytest.mark.parametrize("widths,activation,route", [
+    (BUNDLED, "relu", "tf32x3"),
+    (BUNDLED, "tanh", "tf32x3"),
+    ((6, 256, 128, 64, 1), "relu", "tf32x3"),     # d <= 8 pads to 8
+    ((8, 256, 128, 64, 1), "tanh", "tf32x3"),
+    ((9, 256, 128, 64, 1), "relu", "simt"),       # d > 8
+    ((7, 256, 128, 1), "relu", "simt"),           # other hidden widths
+    ((7, 128, 128, 64, 1), "tanh", "simt"),
+    ((7, 256, 128, 64, 32, 1), "relu", "simt"),
+    ((7, 32, 16, 1), "relu", "simt"),
+    (WIDE[16], "relu", "simt"),
+    (WIDE[4], "tanh", "simt"),
+])
+def test_route_follows_the_widths(widths, activation, route):
+    """The route comes from the widths and the activation alone, and the
+    packing follows it (ints[3] is the route)."""
+    cfg = net_launch_config(widths, activation)
+    assert cfg["route"] == route
+    assert cfg["smem_bytes"] <= SMEM_MAX and cfg["threads"] <= MAX_THREADS
+    if route == "simt":
+        return
+    from torch_robotics_tpu_torch.costs import SelfCollisionNet
+    net = SelfCollisionNet.from_arrays(numpy_net(list(widths), activation, 3),
+                                       "cpu")
+    ints, floats = pack_net_params(net, CUTOFF)
+    assert int(ints[3]) == 1 and floats.size == TC_FLOATS
+
+
 def test_wide_nets_take_fewer_lanes_or_raise():
-    """The lanes a block halve while 4 bytes x lanes x (padded widths but
-    the output's, + 1) pass the card's shared memory."""
+    """The simt route: the lanes a block halve while 4 bytes x lanes x
+    (padded widths but the output's, + 1) pass the card's shared memory."""
     for lanes, widths in list(WIDE.items()) + [(16, (7, 2048, 1024, 1))]:
         cfg = net_launch_config(widths)
         rows = sum(-(-w // 4) * 4 for w in widths[:-1]) + 1
-        assert cfg == dict(lanes=lanes, threads=256,
-                           smem_bytes=4 * lanes * rows)
+        assert cfg == dict(route="simt", lanes=lanes, threads=256,
+                           smem_bytes=4 * lanes * rows, cost_lanes=lanes,
+                           cost_smem_bytes=4 * lanes * rows)
         assert 4 * 2 * lanes * rows > SMEM_MAX >= cfg["smem_bytes"]
     with pytest.raises(NotImplementedError):
         net_launch_config((7, 8192, 8192, 1))
@@ -79,9 +122,11 @@ def _nets(q):
 
 
 def test_packed_layout():
+    """The simt packing (of the bundled net, as the simt kernel would read
+    it; a net routed to simt gets the same from pack_net_params)."""
     from torch_robotics_tpu_torch.costs import SelfCollisionNet
     net = SelfCollisionNet.from_npz(NPZ, device="cpu")
-    ints, floats = pack_net_params(net, CUTOFF)
+    ints, floats = _pack_simt(net, CUTOFF)
     assert ints.dtype == np.int32 and floats.dtype == np.float32
     assert ints.tolist() == [4, 0, 7, 0, 8, 256, 128, 64, 4]
     wp = [8, 256, 128, 64, 4]
@@ -97,6 +142,11 @@ def test_packed_layout():
     W3, b3 = last[:256].reshape(64, 4), last[256:]
     assert np.array_equal(W3[:, 0], a["W3"][:, 0]) and not W3[:, 1:].any()
     assert b3[0] == a["b3"][0] and not b3[1:].any()
+    simt = SelfCollisionNet.from_arrays(numpy_net([7, 64, 32, 1], "relu", 5),
+                                        "cpu")
+    for got, want in zip(pack_net_params(simt, CUTOFF),
+                         _pack_simt(simt, CUTOFF)):
+        assert np.array_equal(got, want)
 
 
 def model_net_row(ints, floats, q, lanes, g, H, cost, terms=True):
@@ -151,9 +201,10 @@ def model_net_row(ints, floats, q, lanes, g, H, cost, terms=True):
 
 @pytest.mark.parametrize("lanes", [32, 8])
 def test_kernel_model_matches_plain_and_jax(lanes):
-    """At the bundled net's 32 lanes a block and at a wider net's 8 (the
-    model's tiling is the same code at any width), on a ragged N = 100
-    (the last tile partial): the model adds the
+    """The simt kernel's model on the simt packing of the bundled widths, at
+    32 lanes a block and at a wider net's 8 (the model's tiling is the same
+    code at any width), on a ragged N = 100 (the last tile partial): the
+    model adds the
     plain row's contribution to within 2e-6 of max|ref| and leaves every
     inactive lane's g, H and cost bit for bit as they were; the plain row
     equals JAX's vjp of the same net."""
@@ -164,7 +215,7 @@ def test_kernel_model_matches_plain_and_jax(lanes):
         g0 = rng.normal(size=(7, 100)).astype(F32)
         H0 = rng.normal(size=(7, 7, 100)).astype(F32)
         c0 = np.abs(rng.normal(size=100)).astype(F32)
-        ints, floats = pack_net_params(net, CUTOFF)
+        ints, floats = _pack_simt(net, CUTOFF)
         g, H, c, c2 = g0.copy(), H0.copy(), c0.copy(), c0.copy()
         model_net_row(ints, floats, qc, lanes, g, H, c)
         model_net_row(ints, floats, qc, lanes, None, None, c2, terms=False)
@@ -208,7 +259,7 @@ def _net_task():
 def test_net_task_packs_no_pair_rows():
     """The net robot's K1 and K8 packings have K = 0 pair rows and no
     self-collision points; the cost kernel's model on them plus the net
-    row's model is the plain cost."""
+    row's (tensor-core route) model is the plain cost."""
     task = _net_task()
     lay = TermsLayout(task)
     assert lay.pair_a == [] and lay.pair_b == []
@@ -234,7 +285,7 @@ def test_net_task_packs_no_pair_rows():
     got = model_cost(c_ints, c_floats, q)
     net_ints, net_floats = pack_net_params(task.robot.self_collision_net,
                                            task._NET_SELF_CUTOFF)
-    model_net_row(net_ints, net_floats, q, 32, None, None, got, terms=False)
+    model_net_row_tc(net_ints, net_floats, q, None, None, got, terms=False)
     plain = task.collision_residuals.collision_cost_lanes(
         torch.as_tensor(q)).numpy()
     np.testing.assert_allclose(got, plain, rtol=2e-5,

@@ -34,18 +34,32 @@ __all__ = ["NET_TERMS_KERNEL", "NET_COST_KERNEL", "NetRowParams",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 NET_TERMS_KERNEL = CudaKernel("net_row.cu", {
-    "trt_net_terms_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P]})
+    "trt_net_terms_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I,
+                             _P]})
 NET_COST_KERNEL = CudaKernel("net_row.cu", {
-    "trt_net_cost_launch": [_P, _P, _I, _I, _I, _P, _P, _P]})
-_THREADS = 256            # net_row.cu kThreads
-_LANES = 32               # lanes a block, at most
-_MIN_LANES = 4            # a thread's tile is 4 lanes wide
+    "trt_net_cost_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P]})
 _SMEM_MAX = 232448        # shared memory a block can have on the H100
 _ACTIVATIONS = {"relu": 0, "tanh": 1}
+_ROUTES = {"simt": 0, "tf32x3": 1}
+# simt route: net_row.cu kThreads; lanes a block at most and at least (a
+# thread's tile is 4 lanes wide)
+_THREADS, _LANES, _MIN_LANES = 256, 32, 4
+# tf32x3 route (net_row.cu kTcThreads, kTcIn, TcScratch): the hidden
+# widths its kernels are instantiated for, the input width it pads to,
+# lanes a warp's tile (terms, cost), a warp's scratch floats (terms)
+_TC_HIDDEN = (256, 128, 64)
+_TC_THREADS, _TC_IN, _TC_LANES, _TC_COST_LANES = 256, 8, 16, 32
+_TC_SCRATCH = 16 * (_TC_IN + 1) + 16 * _TC_IN + _TC_IN + sum(_TC_HIDDEN)
 
 
 def _pad4(n: int) -> int:
     return -(-int(n) // 4) * 4
+
+
+def _tc_stride(n_in: int) -> int:
+    """Row stride (floats) of a (out, in) weight in the tf32x3 packing: the
+    least >= n_in that is 8 mod 16 (net_row.cu TcStride)."""
+    return n_in + (8 - n_in) % 16
 
 
 def net_rows(net, q_cols: torch.Tensor, cutoff: float):
@@ -73,50 +87,104 @@ def net_cost_plain(net, q_cols, cutoff: float, cost) -> None:
     cost += 0.5 * (r * r)
 
 
-def pack_net_params(net, cutoff: float):
-    """A ``SelfCollisionNet`` and its hinge cutoff -> (ints int32, floats
-    float32), the two buffers ``net_row.cu`` reads: ints [L, activation, d,
-    0, padded widths...]; floats [scale, shift, cutoff, 0, mean, std, then
-    each layer's W (padded rows, padded columns) and b], every width padded
-    to a multiple of 4 (zero weights and biases, std 1)."""
+def _pack_simt(net, cutoff: float):
+    """The simt route's buffers: ints [L, activation, d, 0, padded
+    widths...]; floats [scale, shift, cutoff, 0, mean, std, then each
+    layer's W (padded rows, padded columns) and b], every width padded to a
+    multiple of 4 (zero weights and biases, std 1)."""
     a = net.arrays()
     widths = net.widths
     wp = [_pad4(w) for w in widths]
     L = len(widths) - 1
-    d = widths[0]
-    ints = np.asarray([L, _ACTIVATIONS[net.activation], d, 0] + wp, np.int32)
-
-    def padded(v, n, fill=0.0):
-        out = np.full(n, fill, np.float32)
-        out[:len(v)] = v
-        return out
-
+    ints = np.asarray([L, _ACTIVATIONS[net.activation], widths[0],
+                       _ROUTES["simt"]] + wp, np.int32)
     sections = [np.asarray([a["scale_out"][0], a["scale_out"][1], cutoff, 0],
                            np.float32),
-                padded(a["mean_q"], wp[0]), padded(a["std_q"], wp[0], 1.0)]
+                _padded(a["mean_q"], wp[0]), _padded(a["std_q"], wp[0], 1.0)]
     for i in range(L):
         W = np.zeros((wp[i], wp[i + 1]), np.float32)
         W[:widths[i], :widths[i + 1]] = a["W%d" % i]
-        sections += [W.reshape(-1), padded(a["b%d" % i], wp[i + 1])]
+        sections += [W.reshape(-1), _padded(a["b%d" % i], wp[i + 1])]
     return ints, np.concatenate(sections).astype(np.float32)
 
 
-def net_launch_config(widths, activation: str = "relu") -> dict:
-    """Launch shape of ``net_row.cu`` for a net of ``widths`` (n_joints,
-    hidden..., 1): 256 threads a block, the lanes a block (32, halved down
-    to 4 while the block's shared memory passes the H100's 232,448 bytes)
-    and the dynamic shared memory in bytes (every layer's activations but
-    the output's, and r, per lane).  NotImplementedError for an activation
-    other than relu or tanh, for a net without a hidden layer or a single
-    output, and where 4 lanes pass 232,448 bytes."""
-    widths = [int(w) for w in widths]
-    if activation not in _ACTIVATIONS:
-        raise NotImplementedError("the CUDA net row takes relu or tanh, not "
-                                  "%r" % (activation,))
-    if len(widths) < 3 or widths[-1] != 1:
-        raise NotImplementedError("the CUDA net row takes a net with a "
-                                  "hidden layer and one output, got widths "
-                                  "%s" % widths)
+def _pack_tf32x3(net, cutoff: float):
+    """The tf32x3 route's buffers: ints [L, activation, d, 1, 8, hidden...,
+    1]; floats [scale, shift, cutoff, 0, mean (8), std (8, padding 1), then
+    each hidden layer's W^T (out, in) with rows of ``_tc_stride(in)``
+    floats (zero padding) and its b, then the last layer's weights (its
+    one column), its bias padded to 4, and the 2-norm of each column of
+    every hidden layer's W but the first (the terms kernel's repair bound)]:
+    the layout of net_row.cu's TcLayout, every section a multiple of 4
+    floats."""
+    a = net.arrays()
+    widths = net.widths
+    L = len(widths) - 1
+    ints = np.asarray([L, _ACTIVATIONS[net.activation], widths[0],
+                       _ROUTES["tf32x3"], _TC_IN] + list(widths[1:]),
+                      np.int32)
+    sections = [np.asarray([a["scale_out"][0], a["scale_out"][1], cutoff, 0],
+                           np.float32),
+                _padded(a["mean_q"], _TC_IN),
+                _padded(a["std_q"], _TC_IN, 1.0)]
+    n_in = _TC_IN
+    for i in range(L - 1):
+        W = a["W%d" % i]
+        Wt = np.zeros((W.shape[1], _tc_stride(n_in)), np.float32)
+        Wt[:, :W.shape[0]] = W.T
+        sections += [Wt.reshape(-1), np.asarray(a["b%d" % i], np.float32)]
+        n_in = W.shape[1]
+    sections += [np.asarray(a["W%d" % (L - 1)][:, 0], np.float32),
+                 _padded(a["b%d" % (L - 1)], 4)]
+    sections += [np.linalg.norm(np.asarray(a["W%d" % i], np.float64), axis=0)
+                 for i in range(1, L - 1)]
+    return ints, np.concatenate(sections).astype(np.float32)
+
+
+def _padded(v, n, fill=0.0):
+    out = np.full(n, fill, np.float32)
+    out[:len(v)] = v
+    return out
+
+
+def pack_net_params(net, cutoff: float):
+    """A ``SelfCollisionNet`` and its hinge cutoff -> (ints int32, floats
+    float32), the two buffers ``net_row.cu`` reads, laid out for the route
+    that ``net_launch_config`` picks from the net's widths.  Both
+    start ints with [L, activation, d, route] and floats with [scale,
+    shift, cutoff, 0, mean, std].  simt: every width padded to a multiple
+    of 4, each layer's W as (in, out) row-major, then b.  tf32x3: the input
+    padded to 8, each hidden layer's W transposed to (out, in), the
+    reference's layout and the tensor-core product's K-major operand, with
+    rows padded to a stride that is 8 mod 16 (``_tc_stride``), then b; the
+    last layer's one column and its bias (padded to 4)."""
+    if _route(net.widths) == "tf32x3":
+        return _pack_tf32x3(net, cutoff)
+    return _pack_simt(net, cutoff)
+
+
+def _route(widths) -> str:
+    """tf32x3 for n_joints <= 8 and the hidden widths its kernel is
+    instantiated for, else simt."""
+    widths = tuple(int(w) for w in widths)
+    return ("tf32x3" if widths[0] <= _TC_IN and widths[1:-1] == _TC_HIDDEN
+            and widths[-1] == 1 else "simt")
+
+
+def _tc_floats(widths) -> int:
+    """Length of the tf32x3 float buffer for ``widths``."""
+    n, n_in = 4 + 2 * _TC_IN, _TC_IN
+    for w in widths[1:-1]:
+        n += w * _tc_stride(n_in) + w
+        n_in = w
+    return n + n_in + 4 + sum(widths[2:-1])
+
+
+def _simt_launch(widths) -> dict:
+    """The simt route's launch shape: 256 threads, the lanes a block (32,
+    halved down to 4 while the block's shared memory passes 232,448 bytes),
+    the dynamic shared bytes (every layer's activations but the output's,
+    and r, per lane); NotImplementedError where 4 lanes do not fit."""
     rows = sum(_pad4(w) for w in widths[:-1]) + 1
     lanes = _LANES
     while lanes > _MIN_LANES and 4 * lanes * rows > _SMEM_MAX:
@@ -126,7 +194,42 @@ def net_launch_config(widths, activation: str = "relu") -> dict:
         raise NotImplementedError(
             "the CUDA net row's block needs %d bytes of shared memory for "
             "widths %s (at most %d)" % (smem, widths, _SMEM_MAX))
-    return dict(lanes=lanes, threads=_THREADS, smem_bytes=smem)
+    return dict(route="simt", lanes=lanes, threads=_THREADS,
+                smem_bytes=smem, cost_lanes=lanes, cost_smem_bytes=smem)
+
+
+def net_launch_config(widths, activation: str = "relu") -> dict:
+    """Route and launch shape of ``net_row.cu`` for a net of ``widths``
+    (n_joints, hidden..., 1) and ``activation``, from those alone.
+
+    - ``tf32x3`` (tensor cores, 3xTF32) for n_joints <= 8 and hidden widths
+      (256, 128, 64), the bundled net's: one persistent block of 256
+      threads a multiprocessor; a warp's tile is 16 lanes for the terms
+      kernel (``lanes``) and 32 for the cost kernel (``cost_lanes``); the
+      dynamic shared memory holds the packed net, and for the terms kernel
+      each warp's scratch (``_TC_SCRATCH`` floats);
+    - ``simt`` (FP32 CUDA cores) for any other net with a hidden layer
+      whose block fits: 256 threads, lanes a block and shared memory as
+      ``_simt_launch`` gives them, the same for both kernels.
+
+    NotImplementedError for an activation other than relu or tanh, for a
+    net without a hidden layer or a single output, and where the simt
+    route's 4 lanes pass 232,448 bytes."""
+    widths = [int(w) for w in widths]
+    if activation not in _ACTIVATIONS:
+        raise NotImplementedError("the CUDA net row takes relu or tanh, not "
+                                  "%r" % (activation,))
+    if len(widths) < 3 or widths[-1] != 1:
+        raise NotImplementedError("the CUDA net row takes a net with a "
+                                  "hidden layer and one output, got widths "
+                                  "%s" % widths)
+    if _route(widths) == "tf32x3":
+        n_floats = _tc_floats(widths)
+        return dict(route="tf32x3", lanes=_TC_LANES, threads=_TC_THREADS,
+                    smem_bytes=4 * (n_floats
+                                    + _TC_THREADS // 32 * _TC_SCRATCH),
+                    cost_lanes=_TC_COST_LANES, cost_smem_bytes=4 * n_floats)
+    return _simt_launch(widths)
 
 
 class NetRowParams:
@@ -190,9 +293,9 @@ def add_net_terms(row: NetRowParams, q_cols: torch.Tensor, g: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         NET_TERMS_KERNEL.launch(
             "trt_net_terms_launch", q_cols.data_ptr(), g.data_ptr(),
-            Hqq.data_ptr(), cost.data_ptr(), N, launch["lanes"],
-            launch["smem_bytes"], row.ints.data_ptr(), row.floats.data_ptr(),
-            stream)
+            Hqq.data_ptr(), cost.data_ptr(), N, _ROUTES[launch["route"]],
+            launch["lanes"], launch["smem_bytes"], row.ints.data_ptr(),
+            row.floats.data_ptr(), row.floats.numel(), stream)
 
 
 def add_net_cost(row: NetRowParams, q_cols: torch.Tensor,
@@ -211,5 +314,6 @@ def add_net_cost(row: NetRowParams, q_cols: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         NET_COST_KERNEL.launch(
             "trt_net_cost_launch", q_cols.data_ptr(), cost.data_ptr(), N,
-            launch["lanes"], launch["smem_bytes"], row.ints.data_ptr(),
-            row.floats.data_ptr(), stream)
+            _ROUTES[launch["route"]], launch["cost_lanes"],
+            launch["cost_smem_bytes"], row.ints.data_ptr(),
+            row.floats.data_ptr(), row.floats.numel(), stream)
