@@ -23,14 +23,16 @@ final line):
              and spill report of each kernel's launched instantiation (of
              the Riccati sweep every d = 1..8, of the column sweep every
              padded width, none of which may spill; the cost kernel may
-             have no stack frame either), and the card's name and power
+             have no stack frame either, nor may any terms_kernel<D>, D =
+             1..8, or substitution kernel), and the card's name and power
              limit; the net row's tensor-core kernels may not spill and
              must show HMMA in cuobjdump -sass.
 2. terms   - the fused GN-terms kernel vs its plain PyTorch version on the
              card: Panda in EnvSpheres3D at N = 64 * 1024 waypoints (the
              main path's first q, timed, and random q), plus a rounded-box
              scene and a rotated sharp-box scene with a tight workspace and
-             wide self-collision margins at N = 4096.
+             wide self-collision margins at N = 4096; a lane's bits the
+             same at a ragged N = 1000 and at 32 lanes a block.
 3. solve   - the block-tridiagonal sweep vs its plain version: the first GN
              system of the main-path problem (H = 64, m = 14, B = 1024), a
              well-conditioned random system, and both at a ragged B = 100;
@@ -60,8 +62,8 @@ final line):
              phase 21's first candidate q (N = 2097152) and on random q
              with the spheres' radii spread over 0.6-1.4x; a lane's bits
              the same at a ragged N and at 32 lanes a block; timed at both
-             shapes (K8's device time by the profiler: at N = 79360 a
-             call's host time exceeds it).
+             shapes (K8's device time over a CUDA graph of calls: at N =
+             79360 a call's host time exceeds it).
 9. ilqr    - the iLQR path (benchmarks/ilqr_sgpmp_bench.py "ilqr_batch"):
              Panda in EnvSpheres3D, cutoff 0.06, B = 512, H = 32, 30
              iterations, start/goal drawn as the bench draws them (seeded);
@@ -108,12 +110,16 @@ final line):
 18. k9     - the factor-persisting sweep and the substitution sweep (K9) vs
              their plain versions on config 2's first GN system (m = 4), on
              the reuse workload's (m = 14) and on a random system, and at a
-             ragged B = 100; timed at the reuse shapes with the dense
-             Cholesky and cholesky_solve.
+             ragged B = 100; the substitution through its ring of stages
+             bit for bit with L and W kept on chip; timed at the reuse
+             shapes with the dense Cholesky and cholesky_solve, and beside
+             K2 on the same system.
 19. reuse  - GN factorization reuse on benchmarks/gn_reuse_ab.py's batch
              solve (Panda in EnvSpheres3D, cutoff 0.03, B = 256, H = 32, 48
              iterations, sigma_coll 5e-3) at refactor_every 1, 2 and 4;
-             launch counts exact for each, quality and ms per iteration.
+             launch counts exact for each, quality and ms per iteration,
+             and a profile of each (device ms per iteration by kernel, busy
+             share).
 20. point_cloud - the sphere SDF (K10) through PointCloudSpheres at M =
              65536 points and S = 4096 spheres of radius 0.02, vs its plain
              version (1e-5), and at a ragged M = 1000, S = 129; S = 127
@@ -427,26 +433,32 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of the kernels fn() launches, by torch.profiler,
-    over ``iters`` calls: a kernel's own time where the host's time per
-    call exceeds it (the events of cuda_ms then time the host)."""
+def device_ms(fn, iters: int, warmup: int = 2, replays: int = 5) -> float:
+    """Device time of one fn() call where the host's time per call exceeds
+    it (the events of cuda_ms then time the host): ``iters`` calls captured
+    in one CUDA graph, the graph replayed ``replays`` times between CUDA
+    events.  The host's launch cost stays out; the gaps between the
+    graph's kernels stay in.  fn() must not wait on the device."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):        # a profiler session now and then sees nothing
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / iters
-    fail("the profiler saw no device time in three sessions")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def nvidia_smi_line() -> str:
@@ -466,23 +478,48 @@ def max_errs(got, ref):
     return abs_err, rel
 
 
+# (launches with no kernel in the profile, launches) of each profile_device
+# call, printed by main() as phase "profiler": its device ms miss those
+# kernels' time
+PROFILE_MISSED = []
+
+
 def profile_device(fn, n_units: int, n_top: int = 8):
     """Run fn under torch.profiler -> (busy share of the wall, device ms per
-    unit, top kernels' device ms per unit)."""
+    unit, top kernels' device ms per unit), read from the profiler's raw
+    (Kineto) events, which give each kernel-launch call its kernel by
+    correlation id (``prof.events()`` drops more).  A session can still
+    miss a few kernels (up to 4 of 351 launches on an H100): a session
+    with a launch that has no kernel is taken again, up to three times,
+    the one that missed fewest counts, and its count of launches without
+    a kernel goes to PROFILE_MISSED, which main() prints."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t1) * 1e3
-    by_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            key = e.name[:60]
-            by_kernel[key] = by_kernel.get(key, 0.0) + e.time_range.elapsed_us()
+    best = None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+        by_kernel, launched, ran = {}, set(), set()
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                ran.add(e.correlation_id())
+                key = e.name()[:60]
+                by_kernel[key] = (by_kernel.get(key, 0.0)
+                                  + e.duration_ns() / 1e3)
+            elif "LaunchKernel" in e.name():
+                launched.add(e.correlation_id())
+        missed = len(launched - ran)
+        if best is None or missed < best[0]:
+            best = (missed, len(launched), by_kernel, wall_ms)
+        if not missed:
+            break
+    missed, n_launched, by_kernel, wall_ms = best
+    PROFILE_MISSED.append((missed, n_launched))
     dev_ms = sum(by_kernel.values()) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:n_top]
     return (dev_ms / wall_ms if dev_ms > 0 else None, dev_ms / n_units,
@@ -834,14 +871,16 @@ def phase_build():
     secs = time.perf_counter() - t0
     # resource report of the instantiations the paths launch (mangled name
     # fragment -> label)
-    names = {"terms_kernelILi7E": "terms_kernel",
-             **{"terms_kernelILi%dE" % d: "terms_kernel<%d>" % d
-                for d in (1, 2, 3, 4, 5, 6, 8)},
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import _KERNEL_M
+    names = {**{"terms_kernelILi%dE" % d: "terms_kernel<%d>" % d
+                for d in range(1, 9)},
              "11cost_kernelE": "cost_kernel",
              "btridiag_w_kernelILi14ELb0E": "btridiag_w_kernel<14>",
              "btridiag_w_kernelILi4ELb0E": "btridiag_w_kernel<4>",
              "btridiag_w_kernelILi14ELb1E": "btridiag_factor<14>",
-             "btridiag_subst_kernelILi14E": "btridiag_subst<14>",
+             **{"btridiag_subst_kernelILi%dELb%dE" % (m, k):
+                "btridiag_subst_kernel<%d%s>" % (m, ", keep_lw" if k else "")
+                for m in _KERNEL_M for k in (0, 1)},
              **{"riccati_kernelILi%dE" % d: "riccati_kernel<%d>" % d
                 for d in range(1, 9)},
              "rollout_kernelILi7E": "rollout_kernel",
@@ -885,11 +924,15 @@ def phase_build():
         check(sass.get(frag, {}).get("HMMA", 0) > 0,
               "%s: no HMMA in its SASS: %s" % (label, sass.get(frag)))
         report[label] += " | SASS %s" % sass[frag]
-    # the cost kernel keeps its link transforms out of local memory
-    line = report.get("cost_kernel", "")
-    check("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
-          in line, "cost_kernel: ptxas reports a stack frame, a spill or no "
-          "line: %r" % line)
+    # the cost kernel, every terms_kernel<D> and every substitution kernel
+    # keep their arrays out of local memory
+    for label in ["cost_kernel"] + [v for v in names.values()
+                                    if v.startswith(("terms_kernel<",
+                                                     "btridiag_subst"))]:
+        line = report.get(label, "")
+        check("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+              "loads" in line, "%s: ptxas reports a stack frame, a spill or "
+              "no line: %r" % (label, line))
     for k in kernels:
         k.lib()
     smi = nvidia_smi_line()
@@ -938,6 +981,7 @@ def random_q(task, N: int, seed: int):
 
 
 def phase_terms():
+    import torch
     from torch_robotics_tpu_torch.envs import EnvBase, EnvMazeBoxes3D
     from torch_robotics_tpu_torch.geom import MultiSharpBoxField, ObjectField
     from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
@@ -982,8 +1026,21 @@ def phase_terms():
         tt = t.collision_residuals.obstacle_terms_lanes
         hold_terms(name, tt.unscaled(qb), tt.plain.unscaled(qb), results)
 
-    # timed, and its work counted, on the main path's q
-    k_ms = cuda_ms(lambda: terms.unscaled(q_main), iters=50)
+    # a lane's bits depend neither on the batch nor on the lanes a block
+    from torch_robotics_tpu_torch.ops.terms_kernel import (
+        run_terms_kernel, terms_launch_config)
+    full = terms.unscaled(q_main)
+    ragged = terms.unscaled(q_main[:, :GN_RAGGED_N].contiguous())
+    d_, ints, floats = terms.params[:3]
+    at32 = run_terms_kernel(q_main, ints, floats, d_, terms_launch_config(
+        ints.cpu().numpy(), floats.numel(), lanes=32))
+    check(all(torch.equal(a[..., :GN_RAGGED_N], b) and torch.equal(a, c)
+              for a, b, c in zip(full, ragged, at32)),
+          "K1: a lane's bits change with the batch or the lanes a block")
+
+    # timed (the kernel's device time over a CUDA graph of calls: a call's
+    # host time exceeds it), and its work counted, on the main path's q
+    k_ms = device_ms(lambda: terms.unscaled(q_main), iters=20)
     p_ms = cuda_ms(lambda: terms.plain.unscaled(q_main), iters=5, warmup=1)
     r_main = terms.plain.rows(q_main)[0]
     nbytes, ops = terms_work(TermsLayout(task), q_main, r_main)
@@ -991,7 +1048,9 @@ def phase_terms():
                             for k, v in results.items()},
          kernel_ms=k_ms, plain_ms=p_ms, bytes=nbytes, ops=ops,
          active_row_share=float((r_main > 0).float().mean()),
-         kernel_ms_random_q=cuda_ms(lambda: terms.unscaled(q), iters=50))
+         call_ms=cuda_ms(lambda: terms.unscaled(q_main), iters=50),
+         launch=terms.params[4],
+         kernel_ms_random_q=device_ms(lambda: terms.unscaled(q), iters=20))
     return dict(max_abs_err=results[main_key][0], ms=k_ms,
                 plain_ms=p_ms, work=(nbytes, ops))
 
@@ -1610,8 +1669,8 @@ def phase_cost(task, seen, start, goal):
     candidates (N = K B H) and on random q in a scene whose spheres differ
     in radius, at the terms kernel's tolerance; a lane's bits
     the same at a ragged N and at 32 lanes a block; timed at both path
-    shapes (the kernel's device time by the profiler, a call's by CUDA
-    events)."""
+    shapes (the kernel's device time over a CUDA graph of calls, a call's
+    by CUDA events)."""
     import torch
     from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
     from torch_robotics_tpu_torch.ops.terms_kernel import run_cost_kernel
@@ -2381,7 +2440,8 @@ def phase_k9(pm, ru):
     100 every lane is bit for bit its full-batch value."""
     import torch
     from torch_robotics_tpu_torch.ops.btridiag_kernel import (
-        solve_lanes_factor, solve_lanes_subst)
+        _launch_subst, solve_lanes_factor, solve_lanes_subst, solve_lanes_w,
+        subst_launch_config)
     from torch_robotics_tpu_torch.solve import GPMP2Params
     from torch_robotics_tpu_torch.solve.btridiag_lanes import (
         solve_lanes_core, solve_lanes_factor_core, solve_lanes_subst_core)
@@ -2427,11 +2487,20 @@ def phase_k9(pm, ru):
         check(all(torch.equal(g, f[..., :Bn]) for g, f in
                   ((xr, x), (Lr, L), (Wr, W), (xsr, xs))),
               name + ": a ragged B = 100 is not lane for lane the full solve")
+        # the substitution through its ring of stages gives the bits of L
+        # and W kept on chip (the launch the batch takes here)
+        H_, m_, _, B_ = L.shape
+        keep = subst_launch_config(m_, B_, H_)
+        check(keep["keep_lw"], name + ": L and W are not kept on chip")
+        ring = subst_launch_config(m_, B_, H_, keep_lw=False)
+        check(torch.equal(_launch_subst(L, W, b2, torch.empty_like(b2), ring),
+                          xs), name + ": the substitution's ring changes bits")
         results[name] = out
     b, D, U = systems["reuse_gn_m14"]
     x, L, W = solve_lanes_factor(D, U, b)
-    f_ms = cuda_ms(lambda: solve_lanes_factor(D, U, b), iters=20)
-    s_ms = cuda_ms(lambda: solve_lanes_subst(L, W, b), iters=50)
+    f_ms = device_ms(lambda: solve_lanes_factor(D, U, b), iters=20)
+    k2_ms = device_ms(lambda: solve_lanes_w(D, U, b), iters=20)
+    s_ms = device_ms(lambda: solve_lanes_subst(L, W, b), iters=20)
     fp_ms = cuda_ms(lambda: solve_lanes_factor_core(D, U, b), iters=2,
                     warmup=1)
     sp_ms = cuda_ms(lambda: solve_lanes_subst_core(L, W, b), iters=2,
@@ -2442,6 +2511,7 @@ def phase_k9(pm, ru):
     torch.cuda.empty_cache()
     emit("k9", shapes={k: list(v[1].shape) for k, v in systems.items()},
          max_errs=results, factor_ms=f_ms, subst_ms=s_ms,
+         k2_solve_ms=k2_ms, subst_launch=subst_launch_config(14, RU_B, RU_H),
          factor_plain_ms=fp_ms, subst_plain_ms=sp_ms,
          dense_cholesky_ms=lf_ms, dense_cholesky_solve_ms=ls_ms,
          factor_bound_ms=bound_ms(*factor_work(RU_H, 14, RU_B))[0],
@@ -2509,10 +2579,15 @@ def phase_reuse(ru):
                   "refactor_every = 1 is not the solve without the option")
         for name in totals:
             totals[name] += launches.get(name, 0)
+        busy, dev_ms, top = profile_device(
+            lambda: gpmp2_solve(res_fn, theta0, start, goal, p), RU_ITERS)
         out["refactor_every_%d" % k] = dict(
             launches=launches, solve_ms=ms, ms_per_iteration=ms / RU_ITERS,
             fraction_free=task.compute_fraction_free_trajs(res.trajs),
-            final_cost_mean=float(res.costs.mean()))
+            final_cost_mean=float(res.costs.mean()),
+            profiled_device_busy_share=busy,
+            profiled_device_ms_per_iteration=dev_ms,
+            top_device_ms_per_iteration=top)
     emit("reuse", B=RU_B, H=RU_H, iterations=RU_ITERS, **out)
     return totals
 
@@ -3112,7 +3187,7 @@ def phase_net_terms():
         ms = cuda_ms(lambda: add_net_terms(row, q, *bufs), iters=20)
         p_ms = cuda_ms(lambda: net_terms_plain(net, q, NET_CUTOFF, *bufs),
                        iters=3, warmup=1)
-        d_, ints, floats, _ = terms.params
+        d_, ints, floats, _, launch = terms.params
         out[kind] = dict(
             max_abs_err=row_err[0], ms=ms, plain_ms=p_ms, library_ms=p_ms,
             work=net_row_work(net, N, n_active, True),
@@ -3120,8 +3195,8 @@ def phase_net_terms():
             row_max_errs={"abs": row_err[0], "rel_to_max": row_err[1]},
             active_share=n_active / N, excluded_lanes=n_edge,
             plain_sequential_fma_outputs=n_seq,
-            k1_ms=cuda_ms(lambda: run_terms_kernel(q, ints, floats, d_),
-                          iters=20),
+            k1_ms=device_ms(lambda: run_terms_kernel(q, ints, floats, d_,
+                                                     launch), iters=20),
             route=row.launch["route"], tile_lanes=row.launch["lanes"],
             launch=row.launch)
     torch.cuda.empty_cache()
@@ -3594,14 +3669,15 @@ def phase_grid_terms(task, theta0):
         results[name] = hold_grid(name, terms.unscaled(q),
                                   terms.plain.unscaled(q),
                                   object_points_near_face(task, q))
-    k_ms = cuda_ms(lambda: terms.unscaled(q_main), iters=50)
+    k_ms = device_ms(lambda: terms.unscaled(q_main), iters=20)
     p_ms = cuda_ms(lambda: terms.plain.unscaled(q_main), iters=3, warmup=1)
     r = terms.plain.rows(q_main)[0]
     work = terms_work(TermsLayout(task), q_main, r)
     q_rand = random_q(task, GRID_TERMS_N, seed=21)
     emit("grid_terms", max_errs=results, kernel_ms=k_ms, plain_ms=p_ms,
-         kernel_ms_random_q=cuda_ms(lambda: terms.unscaled(q_rand),
-                                    iters=50),
+         call_ms=cuda_ms(lambda: terms.unscaled(q_main), iters=50),
+         kernel_ms_random_q=device_ms(lambda: terms.unscaled(q_rand),
+                                      iters=20),
          bytes=work[0], ops=work[1], bound_ms=bound_ms(*work)[0],
          active_row_share=float((r > 0).float().mean()))
     return dict(max_abs_err=results["main_q_N%d" % q_main.shape[1]]["abs"],
@@ -3639,12 +3715,14 @@ def phase_grid_cost(env, start, goal):
     n_rows = 2 * len(lay.obj_pos) + len(lay.pair_a)
     for key, q, iters in (("line_search", q_ls, 50), ("sgpmp", q_sg, 20)):
         out[key] = dict(N=q.shape[1], ms=device_ms(lambda: cost(q), iters),
+                        call_ms=cuda_ms(lambda: cost(q), iters=iters),
                         plain_ms=cuda_ms(lambda: cost.plain(q), iters=2,
                                          warmup=1),
                         work=cost_work(lay, q.shape[1], n_rows))
     torch.cuda.empty_cache()
     emit("grid_cost", max_errs=results,
          kernel_ms={k: v["ms"] for k, v in out.items()},
+         call_ms={k: v["call_ms"] for k, v in out.items()},
          plain_ms={k: v["plain_ms"] for k, v in out.items()},
          bound_ms={k: bound_ms(*v["work"])[0] for k, v in out.items()})
     launches = phase_sgpmp("grid_sgpmp", task, start, goal, SG_PART,
@@ -3688,6 +3766,7 @@ def phase_mr_grid(env, start, goal):
               max_abs_err=errs["terms_first_q_N%d" % q_main.shape[1]]["abs"])
     n_rows = 2 * len(lay.obj_pos) + len(lay.pair_a)
     k8 = dict(ms=device_ms(lambda: cost(q_cand), 20),
+              call_ms=cuda_ms(lambda: cost(q_cand), iters=20),
               plain_ms=cuda_ms(lambda: cost.plain(q_cand), iters=2,
                                warmup=1),
               work=mr_cost_work(lay, N_c, n_rows),
@@ -3705,7 +3784,8 @@ def phase_mr_grid(env, start, goal):
     k5["launches"] = launches["multirobot_terms"]
     emit("mr_grid", max_errs=errs, k5_ms=k5["ms"], k5_plain_ms=k5["plain_ms"],
          k5_bound_ms=bound_ms(*k5["work"])[0], k8_ms=k8["ms"],
-         k8_plain_ms=k8["plain_ms"], k8_bound_ms=bound_ms(*k8["work"])[0],
+         k8_call_ms=k8["call_ms"], k8_plain_ms=k8["plain_ms"],
+         k8_bound_ms=bound_ms(*k8["work"])[0],
          mpc_launches=launches, mpc_ms_per_step=ms / 2)
     k8["launches"] = phase_sgpmp("mr_grid_sgpmp", task, start, goal, 1,
                                  MR_SG_PARAMS, "multirobot_cost",
@@ -3760,9 +3840,9 @@ def phase_grasp_terms(genv):
     the grasped Panda (pallas_terms_ab.py's workload, cutoff 0.03, N = H B
     = 65,536): q uniform over the joint limits, the grasped main path's
     first q, a ragged N (its lanes' bits those of the full launch), and in
-    grid_main's 0.01 m grid scene (hold_grid); timed with CUDA events on
-    both q beside the pair-field K1 on the same q, the bound from the
-    active rows."""
+    grid_main's 0.01 m grid scene (hold_grid); timed on both q (device
+    time over a CUDA graph of calls, a call's by CUDA events) beside the
+    pair-field K1 on the same q, the bound from the active rows."""
     import torch
     from torch_robotics_tpu_torch.envs import EnvSpheres3D
     from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
@@ -3804,13 +3884,14 @@ def phase_grasp_terms(genv):
     for key, q in (("main_q", q_main), ("uniform_q", q_uni)):
         r = terms.plain.rows(q)[0]
         out[key] = dict(
-            ms=cuda_ms(lambda: terms.unscaled(q), iters=50),
-            pair_field_ms=cuda_ms(lambda: pterms.unscaled(q), iters=50),
+            ms=device_ms(lambda: terms.unscaled(q), iters=20),
+            call_ms=cuda_ms(lambda: terms.unscaled(q), iters=50),
+            pair_field_ms=device_ms(lambda: pterms.unscaled(q), iters=20),
             plain_ms=cuda_ms(lambda: terms.plain.unscaled(q), iters=3,
                              warmup=1),
             work=terms_work(lay, q, r),
             active_row_share=float((r > 0).float().mean()))
-    grid_ms = cuda_ms(lambda: gterms.unscaled(q_uni), iters=50)
+    grid_ms = device_ms(lambda: gterms.unscaled(q_uni), iters=20)
     torch.cuda.empty_cache()
     emit("grasp_terms", N=N, points=len(lay.point_links),
          rows=len(lay.row_joints()[0]),
@@ -3818,6 +3899,7 @@ def phase_grasp_terms(genv):
                        else {"abs": v[0], "rel_to_max": v[1]})
                    for k, v in results.items()},
          kernel_ms={k: v["ms"] for k, v in out.items()},
+         call_ms={k: v["call_ms"] for k, v in out.items()},
          pair_field_kernel_ms={k: v["pair_field_ms"] for k, v in out.items()},
          plain_ms={k: v["plain_ms"] for k, v in out.items()},
          bound_ms={k: bound_ms(*v["work"])[0] for k, v in out.items()},
@@ -3897,6 +3979,7 @@ def phase_grasp_cost(start, goal):
         results[name] = hold_cost(name, cost(q), chunked(cost.plain, q))
         same_lane_bits(name, cost, run_cost_kernel, q)
         out[key] = dict(N=q.shape[1], ms=device_ms(lambda: cost(q), iters),
+                        call_ms=cuda_ms(lambda: cost(q), iters=iters),
                         plain_ms=cuda_ms(lambda: chunked(cost.plain, q),
                                          iters=1, warmup=1),
                         work=cost_work(lay, q.shape[1], n_rows),
@@ -3906,6 +3989,7 @@ def phase_grasp_cost(start, goal):
          max_errs={k: {"abs": v[0], "rel_to_max": v[1]}
                    for k, v in results.items()},
          kernel_ms={k: v["ms"] for k, v in out.items()},
+         call_ms={k: v["call_ms"] for k, v in out.items()},
          plain_ms={k: v["plain_ms"] for k, v in out.items()},
          bound_ms={k: bound_ms(*v["work"])[0] for k, v in out.items()},
          bound_by={k: bound_ms(*v["work"])[1] for k, v in out.items()})
@@ -3951,6 +4035,7 @@ def phase_mr_grasp():
               max_abs_err=results["terms_first_q_N%d" % q_main.shape[1]][0])
     n_rows = 2 * len(lay.obj_pos) + len(lay.pair_a)
     k8 = dict(ms=device_ms(lambda: cost(q_cand), 20),
+              call_ms=cuda_ms(lambda: cost(q_cand), iters=20),
               plain_ms=cuda_ms(lambda: cost.plain(q_cand), iters=2,
                                warmup=1),
               work=mr_cost_work(lay, N_c, n_rows),
@@ -3976,7 +4061,8 @@ def phase_mr_grasp():
          k5_ms=k5["ms"], k5_plain_ms=k5["plain_ms"],
          k5_bound_ms=bound_ms(*k5["work"])[0],
          k5_bound_by=bound_ms(*k5["work"])[1], k8_ms=k8["ms"],
-         k8_plain_ms=k8["plain_ms"], k8_bound_ms=bound_ms(*k8["work"])[0],
+         k8_call_ms=k8["call_ms"], k8_plain_ms=k8["plain_ms"],
+         k8_bound_ms=bound_ms(*k8["work"])[0],
          k8_bound_by=bound_ms(*k8["work"])[1], cost_launch=cost.params[3],
          mpc_launches=launches, mpc_ms_per_step=ms / 2)
     k8["launches"] = phase_sgpmp("mr_grasp_sgpmp", task, start, goal, 1,
@@ -4151,6 +4237,7 @@ def main() -> None:
                         "plain_ms": res["plain_ms"], "bound_ms": b_ms,
                         "bound_by": b_by,
                         "library_ms": res.get("library_ms")})
+    emit("profiler", launches_without_kernel=PROFILE_MISSED)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

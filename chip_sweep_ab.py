@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     git archive <commit> | tar -x -C chip_checkout/other   # a git-ignored dir
     python3 chip_sweep_ab.py --other chip_checkout/other [--out FILE] \
-        [--kernels all|sweep|riccati|cols|cost|net]
+        [--kernels all|sweep|riccati|cols|terms|net]
 
 The other checkout's ``csrc/btridiag.cu``, ``csrc/btridiag_sweep.cu``,
 ``csrc/riccati.cu`` and ``csrc/btridiag_cols.cu`` are built beside this
@@ -28,9 +28,16 @@ time the mean of its two), on the problems of ``chip_smoke.py``.
 - the reuse workload's solve at refactor_every 1, 2, 4 (ms per iteration).
 
 Each side's K2 and K9 outputs are held to float64 as ``chip_smoke.py``
-holds them, and the kernels the sweep change left alone are compared bit
-for bit on the same inputs: K9's substitution (fed the same factors) and
-K3 (both tails).
+holds them.  K9's substitution is timed in turns (device time over a
+CUDA graph of calls) on the reuse system's factors with a fresh b, each
+side held to float64, and the sides' bits compared (reported, not
+required: the redesigned kernel's backward pass takes the sweep's order),
+beside this tree's factor sweep timed the same way; this tree's
+substitution is also timed at B = 256, 1024 and 4096 (the lanes
+repeated) at 2, 4 and 8 lanes a block, through its ring of stages and
+with L and W kept on chip between its passes (each must give its
+launch's bits); the reuse runs get a profile per side.  K3 (both tails),
+K2 and K9's factor sweep are compared bit for bit on the same inputs.
 
 ``--kernels riccati`` (the iLQR path):
 
@@ -53,27 +60,21 @@ K3 (both tails).
 - the multi-robot MPC (phase ``mr_mpc``, 30 steps): ms per step by CUDA
   events, and once per side a profile (device ms per step, busy share).
 
-``--kernels cost`` (the value-only collision cost, K8, both branches): the
-other tree's cost kernels (an older tree's ``trt_cost_launch`` in
-``terms.cu`` and ``trt_mr_cost_launch`` in ``mr_terms.cu``, each given
-the parameters its own tree packs for the same task) stand in for
-``cost.cu`` under this tree's wrappers:
+``--kernels terms`` (the fused GN terms, K1): the other tree's
+``terms.cu`` (an older tree's K1 fed its own packing of the same task,
+``parent_terms_params``), ``mr_terms.cu`` and ``cost.cu`` stand in for this
+tree's under this tree's wrappers:
 
-- ptxas's report (stack frame, spills, registers) of both sides' cost
-  kernels;
-- K8 on the iLQR path's line-search q (N = 79,360), on the sGPMP Panda
-  path's first candidates (N = 2,097,152) and proposal (N = 131,072); K8's
-  MultiRobot branch on config 4's sGPMP candidates (N = 131,072) and
-  proposal (N = 8,192) and on random q at the tight poses (N = 8,192):
-  each side held to the plain version, the max |difference| between the
-  sides, whether they agree bit for bit, the kernel's device time (by the
-  profiler) and the time a call takes (by CUDA events, host included) in
-  turns, and the bound;
-- the sGPMP Panda and config-4 iterations in turns (ms per iteration by
-  CUDA events) and once per side a profile (device ms per iteration, busy
-  share);
-- K1 and K5, which the change leaves alone, bit for bit between the two
-  trees on the same q.
+- ptxas's report of both sides' ``terms_kernel<D>``, D = 1..8;
+- K1 on the main path's first q (pair field, N = 65,536), on random q, on
+  the grasped Panda's main q and on the grid path's first q (N =
+  262,144): each side held to the plain version (``chip_smoke``'s terms
+  tolerance, the grid rule in the grid scene), whether the sides agree bit
+  for bit, the kernel's device time in turns (over a CUDA graph of calls:
+  a call's host time exceeds it) and a call's (CUDA events), the bound;
+- K5 and K8 (both branches), which the change leaves alone, bit for bit;
+- the main path's and the grasped main path's step in turns, with a
+  profile per side (device ms a step, busy share).
 
 ``--kernels net`` (the learned self-collision net row, K1's and K8's, in
 ``net_row.cu``): the other tree's ``net_row.cu`` (an older tree's single
@@ -94,7 +95,7 @@ under this tree's wrappers:
   ms, busy share, the net row's device ms).
 
 ``--kernels all`` (the default) runs the sweeps and the Riccati sweep;
-``cols``, ``cost`` and ``net`` run alone.  Prints one JSON line per
+``cols``, ``terms`` and ``net`` run alone.  Prints one JSON line per
 measurement, then the card's name and power limit; ``--out`` writes all of
 it as one JSON object.
 """
@@ -134,16 +135,20 @@ def other_sweep_kernels(csrc: Path):
 
     from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
     OtherKernel = other_kernel_class()
-    takes_lanes = "int lanes" in (csrc / "btridiag.cu").read_text()
+    text = (csrc / "btridiag.cu").read_text()
+    takes_lanes = "int lanes" in text
+    subst_ys = "float* x, float* ys, int H, int B" in text
     P, I = ctypes.c_void_p, ctypes.c_int
     sweep = [P] * 7 + [I] * (4 if takes_lanes else 3) + [P]
     main = OtherKernel(str(csrc / "btridiag.cu"), {
         "trt_btridiag_w_launch": sweep,
         "trt_btridiag_factor_launch": sweep,
-        "trt_btridiag_subst_launch": [P] * 5 + [I] * 3 + [P]})
+        "trt_btridiag_subst_launch": ([P] * 5 + [I] * 3 + [P] if subst_ys
+                                      else bk.SUBST_KERNEL.functions[
+                                          "trt_btridiag_subst_launch"])})
     k3 = OtherKernel(str(csrc / "btridiag_sweep.cu"),
                     dict(bk.SWEEP_KERNEL.functions))
-    return main, k3, takes_lanes
+    return main, k3, takes_lanes, subst_ys
 
 
 def other_cols_kernel(csrc: Path):
@@ -193,21 +198,55 @@ def other_net_kernel(csrc: Path):
     return OtherKernel(str(csrc / "net_row.cu"), functions), routed
 
 
-def other_cost_kernels(csrc: Path):
-    """The other checkout's terms.cu (K1 and, in an older tree, K8) and
-    mr_terms.cu (K5 and, in an older tree, K8's MultiRobot branch)."""
+def other_terms_kernels(csrc: Path):
+    """The other checkout's terms.cu (K1), mr_terms.cu (K5) and cost.cu
+    (K8), with the argtypes of its K1 launch function (a tree before the
+    shared-memory K1 takes (q, g, h, cost, N, D, ip, fp, grid, stream) and
+    its own packing, ``parent_terms_params``)."""
     import ctypes
 
     from torch_robotics_tpu_torch.ops import terms_kernel as tk
     OtherKernel = other_kernel_class()
+    older = "int n_ints" not in (csrc / "terms.cu").read_text()
     P, I = ctypes.c_void_p, ctypes.c_int
     terms = OtherKernel(str(csrc / "terms.cu"), {
-        **tk.KERNEL.functions,
-        "trt_cost_launch": [P, P, I, I, P, P, P]})
-    mr = OtherKernel(str(csrc / "mr_terms.cu"), {
-        **tk.MR_KERNEL.functions,
-        "trt_mr_cost_launch": [P, P, I, I, I, P, P, P]})
-    return terms, mr
+        "trt_terms_launch": ([P] * 4 + [I, I] + [P] * 4 if older
+                             else tk.KERNEL.functions["trt_terms_launch"])})
+    mr = OtherKernel(str(csrc / "mr_terms.cu"), dict(tk.MR_KERNEL.functions))
+    cost = OtherKernel(str(csrc / "cost.cu"), dict(tk.COST_KERNEL.functions))
+    return terms, mr, cost, older
+
+
+def parent_terms_params(lay):
+    """The packing of a tree before the shared-memory K1: (ints int32,
+    floats float32) in the section order of its terms.cu parse_layout
+    (model by link, points, rows, scene)."""
+    import numpy as np
+
+    from torch_robotics_tpu_torch.ops import terms_kernel as tk
+    model = lay.model
+    L = model.n_links
+    ctrl = list(model.controlled_link_idxs())
+    D = len(ctrl)
+    anc = model.ancestry_matrix()
+    q_idx = np.full(L, -1, np.int64)
+    q_idx[ctrl] = np.arange(D)
+    scene_i, scene_f = tk._pack_scene(lay.df_obj_list)
+    header = [L, D, len(lay.point_links), len(lay.obj_pos), len(lay.pair_a),
+              len(lay.df_obj_list), len(scene_i[1]), len(scene_i[5]),
+              lay.n_grasped]
+    anc_bits = [int(sum(1 << j for j in range(D) if anc[li, j]))
+                for li in lay.point_links]
+    ints = tk._i32([header, model.topological_order(), model.parent_idx,
+                    model.joint_types, q_idx, ctrl, lay.point_links,
+                    anc_bits, lay.obj_pos, lay.pair_a, lay.pair_b] + scene_i)
+    floats = tk._f32([model.joint_trans, model.joint_fixed_rot,
+                      model.joint_axis, model.clamp_lower, model.clamp_upper,
+                      lay.obj_thresh.cpu().numpy(),
+                      lay.self_margins.cpu().numpy(),
+                      lay.ws_min.cpu().numpy(), lay.ws_max.cpu().numpy(),
+                      tk._offsets(lay)] + scene_f)
+    return ints, floats
 
 
 class Swap:
@@ -236,7 +275,8 @@ class Swap:
             setattr(self.module, n, k)
 
 
-def sweep_swap(main, k3, takes_lanes):
+def sweep_swap(main, k3, takes_lanes, subst_ys):
+    import torch
     from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
 
     def route(name, args):
@@ -245,6 +285,13 @@ def sweep_swap(main, k3, takes_lanes):
         if (name in ("trt_btridiag_w_launch", "trt_btridiag_factor_launch")
                 and not takes_lanes):
             args = args[:10] + args[11:]          # drop lanes_per_block
+        if name == "trt_btridiag_subst_launch" and subst_ys:
+            # (L, W, b, x, H, m, B, lanes, keep_lw, stream) -> (L, W, b, x,
+            # ys, H, m, B, stream) of the one-thread kernel; ys is freed
+            # after the launch, in stream order
+            H, m, B = args[4:7]
+            ys = torch.empty((H, m, B), dtype=torch.float32, device="cuda")
+            args = args[:4] + (ys.data_ptr(), H, m, B, args[9])
         return main, args
     return Swap(bk, ("KERNEL", "FACTOR_KERNEL", "SUBST_KERNEL",
                      "SWEEP_KERNEL"), route)
@@ -275,32 +322,6 @@ def riccati_swap(other, takes_fw):
             args = args[:6] + (fw.data_ptr(),) + args[6:10] + args[12:]
         return other, args
     return Swap(rk, ("RICCATI_KERNEL", "ROLLOUT_KERNEL"), route)
-
-
-def cost_swap(terms, mr, tasks):
-    """The other tree's K8 kernels under this tree's cost wrappers: a
-    launch on the cost parameters of one of ``tasks`` goes to the other
-    tree's kernel with that tree's own packing of the task (the parent's
-    terms.cu and mr_terms.cu packings)."""
-    from torch_robotics_tpu_torch.ops import terms_kernel as tk
-    table = {}
-    for task in tasks:
-        ints = task.collision_residuals.collision_cost_lanes.params[1]
-        if hasattr(task.robot, "robots"):
-            d, i_o, f_o, n_bp, _ = tk._mr_kernel_params(task)
-            table[ints.data_ptr()] = ("trt_mr_cost_launch", mr, (
-                n_bp, tk.mr_shared_bytes(i_o.cpu().numpy(), cost_only=True),
-                i_o.data_ptr(), f_o.data_ptr()), (i_o, f_o))
-        else:
-            d, i_o, f_o, _ = tk._kernel_params(task)
-            table[ints.data_ptr()] = ("trt_cost_launch", terms, (
-                d, i_o.data_ptr(), f_o.data_ptr()), (i_o, f_o))
-
-    def route(name, args):
-        # (q, cost, N, D, lanes, T, smem, ip, n_ints, fp, n_floats, stream)
-        fn, kernel, extra, _ = table[args[7]]
-        return kernel, args[:3] + extra + args[11:], fn
-    return Swap(tk, ("COST_KERNEL", "MR_COST_KERNEL"), route)
 
 
 def net_swap(other, routed, rows):
@@ -334,12 +355,31 @@ def net_swap(other, routed, rows):
     return Swap(nk, ("NET_TERMS_KERNEL", "NET_COST_KERNEL"), route)
 
 
-def terms_swap(terms, mr):
-    """The other tree's K1 and K5 under this tree's terms wrappers."""
+def terms_swap(terms, mr, cost, older, tasks):
+    """The other tree's K1, K5 and K8 under this tree's wrappers: an older
+    K1 gets that tree's packing of the task whose parameters a launch
+    carries (``parent_terms_params``); K5 and K8 take the same arguments on
+    both sides."""
+    import torch
     from torch_robotics_tpu_torch.ops import terms_kernel as tk
-    return Swap(tk, ("KERNEL", "MR_KERNEL"),
-                lambda name, args: (terms if name == "trt_terms_launch"
-                                    else mr, args))
+    table = {}
+    for task in tasks:
+        hook = task.collision_residuals.obstacle_terms_lanes
+        table[hook.params[1].data_ptr()] = tuple(
+            torch.as_tensor(a, device="cuda")
+            for a in parent_terms_params(hook.plain.layout))
+
+    def route(name, args):
+        if name == "trt_terms_launch" and older:
+            # (q, g, h, cost, N, D, lanes, smem, ip, n_ints, fp, n_floats,
+            # grid, stream) -> (q, g, h, cost, N, D, ip, fp, grid, stream)
+            i_o, f_o = table[args[8]]
+            return terms, args[:6] + (i_o.data_ptr(), f_o.data_ptr(),
+                                      args[12], args[13])
+        return {"trt_terms_launch": terms, "trt_mr_terms_launch": mr,
+                "trt_cost_launch": cost}[name], args
+    return Swap(tk, ("KERNEL", "MR_KERNEL", "COST_KERNEL", "MR_COST_KERNEL"),
+                route)
 
 
 def in_turns(swap, fn):
@@ -358,7 +398,7 @@ def main() -> None:
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--kernels",
-                    choices=("all", "sweep", "riccati", "cols", "cost",
+                    choices=("all", "sweep", "riccati", "cols", "terms",
                              "net"),
                     default="all")
     args = ap.parse_args()
@@ -370,16 +410,17 @@ def main() -> None:
     do_sweep = args.kernels in ("all", "sweep")
     do_riccati = args.kernels in ("all", "riccati")
     do_cols = args.kernels == "cols"
-    do_cost = args.kernels == "cost"
+    do_terms = args.kernels == "terms"
     do_net = args.kernels == "net"
     sweep_k = other_sweep_kernels(csrc) if do_sweep else None
     net_k = other_net_kernel(csrc) if do_net else None
     ric_k = other_riccati_kernel(csrc) if do_riccati else None
     cols_k = other_cols_kernel(csrc) if do_cols else None
-    cost_k = other_cost_kernels(csrc) if do_cost else ()
+    terms_k = other_terms_kernels(csrc) if do_terms else None
     build_all([*(sweep_k[:2] if do_sweep else ()),
                *(ric_k[:1] if do_riccati else ()),
-               *(cols_k[:1] if do_cols else ()), *cost_k,
+               *(cols_k[:1] if do_cols else ()),
+               *(terms_k[:3] if do_terms else ()),
                *(net_k[:1] if do_net else ()),
                *cs.all_kernels().values()])
     report = {}
@@ -395,10 +436,11 @@ def main() -> None:
         ab_sweeps(sweep_swap(*sweep_k), emit)
     if do_cols:
         ab_cols(cols_swap(*cols_k), emit)
-    if do_cost:
-        ab_cost(cost_k, emit)
+    if do_terms:
+        ab_terms(terms_k, emit)
     if do_net:
         ab_net(*net_k, emit)
+    emit("profiler", launches_without_kernel=cs.PROFILE_MISSED)
 
     smi = cs.nvidia_smi_line()
     print(smi, flush=True)
@@ -502,14 +544,15 @@ def ab_riccati(swap, emit):
 
 
 def ab_sweeps(swap, emit):
-    """K2 at m = 14 and 4, K9's factor, K3 and K9's substitution bit for
-    bit, the main path's step, reuse k = 1, 2, 4."""
+    """K2 at m = 14 and 4, K9's factor and substitution, K3, K2 and K9's
+    factor bit for bit, the main path's step, reuse k = 1, 2, 4."""
+    import numpy as np
     import torch
     from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
     from torch_robotics_tpu_torch.solve import GPMP2Params, gpmp2_solve
     from torch_robotics_tpu_torch.solve import straight_line_trajs
     from torch_robotics_tpu_torch.solve.btridiag_lanes import (
-        solve_lanes_core, solve_lanes_factor_core)
+        solve_lanes_core, solve_lanes_factor_core, solve_lanes_subst_core)
     from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
 
     def hold(name, fn, D, U, b, factor=False):
@@ -562,18 +605,84 @@ def ab_sweeps(swap, emit):
              **extra)
         torch.cuda.empty_cache()
 
-    # the kernels this change leaves alone, bit for bit on the same inputs
+    # K9's substitution on the factors of the same system and a fresh b:
+    # each side held to float64 (the float64 substitution from the same
+    # factors, and the float64 solve of the original system), the sides'
+    # bits compared, in turns; this tree's at 2, 4 and 8 lanes a block and
+    # with L and W kept on chip, whose bits must be its launch's own
     x, L, W = bk.solve_lanes_factor(Df, Uf, bf)
+    b2 = torch.as_tensor(np.random.default_rng(11).normal(size=bf.shape)
+                         * float(bf.abs().max()), dtype=torch.float32,
+                         device="cuda")
+    ref_s = solve_lanes_subst_core(L.double(), W.double(), b2.double())
+    ref_x = solve_lanes_core(Df.double(), Uf.double(), b2.double())
+    p32 = solve_lanes_subst_core(L, W, b2)
+    _, Lp, Wp = solve_lanes_factor_core(Df, Uf, bf)
+    outs, errs = {}, {}
+    for side in ("other", "this"):
+        with (swap if side == "other" else _null()):
+            outs[side] = bk.solve_lanes_subst(L, W, b2)
+        errs[side] = dict(
+            vs_subst_f64=cs.hold_solve("k9_subst_%s" % side, outs[side], p32,
+                                       ref_s, random=False),
+            vs_original_system=cs.hold_solve(
+                "k9_subst_system_%s" % side, outs[side],
+                solve_lanes_subst_core(Lp, Wp, b2), ref_x, random=False))
+    other_ms, this_ms, turns = in_turns(
+        swap, lambda: cs.device_ms(lambda: bk.solve_lanes_subst(L, W, b2),
+                                   iters=20))
+    H_, m_, _, B_ = L.shape
+    variants = {}
+    for rep in (1, 4, 16):               # B = 256, 1024, 4096: lanes repeated
+        Lr, Wr, br = (t.repeat(*([1] * (t.dim() - 1)), rep)
+                      for t in (L, W, b2))
+        ref_r = outs["this"].repeat(1, 1, rep)
+        for lanes in (2, 4, 8):
+            for keep in (False, True):
+                if 4 * lanes * (H_ * m_ + (H_ if keep else bk._SUBST_STAGES)
+                                * (2 * m_ * m_ + m_)) > bk._SMEM_MAX:
+                    continue                    # the block does not fit
+                cfg = dict(lanes_per_block=lanes, keep_lw=keep)
+
+                def run():
+                    return bk._launch_subst(Lr, Wr, br, torch.empty_like(br),
+                                            cfg)
+                variants["B%d_lanes%d%s" % (B_ * rep, lanes,
+                                            "_keep_lw" if keep else "")] = \
+                    dict(ms=cs.device_ms(run, iters=20),
+                         bit_for_bit=bool(torch.equal(run(), ref_r)))
+        variants["B%d_default" % (B_ * rep)] = bk.subst_launch_config(
+            m_, B_ * rep, H_)
+        del Lr, Wr, br, ref_r
+        torch.cuda.empty_cache()
+    emit("k9_subst_m14", shape=list(L.shape), other_ms=other_ms,
+         this_ms=this_ms, speedup=other_ms / this_ms, turns_ms=turns,
+         bit_for_bit=bool(torch.equal(outs["other"], outs["this"])),
+         max_abs_diff=float((outs["other"] - outs["this"]).abs().max()),
+         vs_float64=errs, launch=bk.subst_launch_config(m_, B_, H_),
+         this_tree_variants=variants,
+         this_factor_ms=cs.device_ms(lambda: bk.solve_lanes_factor(Df, Uf, bf),
+                                     iters=20),
+         bound_ms=cs.bound_ms(*cs.subst_work(H_, m_, B_))[0])
+    if not all(v["bit_for_bit"] for v in variants.values()
+               if "bit_for_bit" in v):
+        cs.fail("the substitution's bits change with its launch: %s"
+                % variants)
+
+    # the kernels this change leaves alone, bit for bit on the same inputs
     same = {}
     with swap:
-        xs_other = bk.solve_lanes_subst(L, W, bf)
         k3_other = [bk.solve_lanes_sweep(D14, U14, b14, bwd_trsv=t)
                     for t in (False, True)]
-    same["k9_subst"] = bool(torch.equal(xs_other,
-                                        bk.solve_lanes_subst(L, W, bf)))
+        k2_other = bk.solve_lanes_w(D14, U14, b14)
+        fac_other = bk.solve_lanes_factor(Df, Uf, bf)
     for t, xo in zip((False, True), k3_other):
         same["k3_%s" % ("trsv" if t else "trsm")] = bool(torch.equal(
             xo, bk.solve_lanes_sweep(D14, U14, b14, bwd_trsv=t)))
+    same["k2_m14"] = bool(torch.equal(k2_other,
+                                      bk.solve_lanes_w(D14, U14, b14)))
+    same["k9_factor"] = all(torch.equal(a, b) for a, b in zip(
+        fac_other, bk.solve_lanes_factor(Df, Uf, bf)))
     emit("unchanged_kernels_bit_for_bit", **same)
     if not all(same.values()):
         cs.fail("a kernel this change leaves alone differs: %s" % same)
@@ -617,9 +726,16 @@ def ab_sweeps(swap, emit):
             fn()
         other_ms, this_ms, turns = in_turns(
             swap, lambda: cs.cuda_ms(fn, iters=1, warmup=0) / cs.RU_ITERS)
+        prof = {}
+        for side in ("other", "this"):
+            with (swap if side == "other" else _null()):
+                busy, dev_ms, top = cs.profile_device(fn, cs.RU_ITERS)
+            prof[side] = dict(profiled_device_busy_share=busy,
+                              profiled_device_ms_per_iteration=dev_ms,
+                              top_device_ms_per_iteration=top)
         emit("reuse_k%d" % k, ms_per_iteration={"other": other_ms,
                                                  "this": this_ms},
-             speedup=other_ms / this_ms, turns_ms=turns)
+             speedup=other_ms / this_ms, turns_ms=turns, profile=prof)
 
 
 
@@ -706,20 +822,18 @@ def ab_cols(swap, emit):
          profile=prof)
 
 
-def ab_cost(other, emit):
-    """K8 and K8-MultiRobot at the path shapes (each side held to plain,
-    the sides' difference, turns, bound), the sGPMP iterations in turns
-    with a profile per side, K1 and K5 bit for bit."""
-    import dataclasses
-
-    import numpy as np
+def ab_terms(other, emit):
+    """K1 on the main path's q, random q, the grasped main q and the grid
+    path's q (each side held to plain, the sides' bits, turns, bound); both
+    sides' ptxas; K5 and K8 bit for bit; the main and grasped main paths'
+    step in turns with a profile per side."""
     import torch
+    from torch_robotics_tpu_torch.ops import terms_kernel as tk
     from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
-    from torch_robotics_tpu_torch.solve import SGPMPParams, sgpmp_solve
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.solve import straight_line_trajs
+    from torch_robotics_tpu_torch.tasks import PlanningTask
 
-    from torch_robotics_tpu_torch.ops.terms_kernel import COST_KERNEL
-
-    # ptxas's report of each side's cost kernels, from the build logs
     def ptxas(kernel, fragment):
         lines = kernel.library_path.with_suffix(".log").read_text() \
             .splitlines()
@@ -727,103 +841,110 @@ def ab_cost(other, emit):
                            for x in lines[i + 1:i + 4])
                 for i, line in enumerate(lines)
                 if "Compiling entry function" in line and fragment in line]
-    emit("ptxas", other={"cost_kernel<7>": ptxas(other[0], "cost_kernelILi7E"),
-                         "mr_terms_kernel<cost only>": ptxas(
-                             other[1], "mr_terms_kernelILb1E")},
-         this={"cost_kernel": ptxas(COST_KERNEL, "11cost_kernelE")})
+    emit("ptxas", **{side: {"terms_kernel<%d>" % d: ptxas(
+        k, "terms_kernelILi%dE" % d) for d in range(1, 9)}
+        for side, k in (("other", other[0]), ("this", tk.KERNEL))})
 
-    il_task, il_start, il_goal = cs.ilqr_problem("cuda")
+    def main_q(start, goal, H_):
+        d = start.shape[1] // 2
+        return (straight_line_trajs(start, goal, H_)[..., :d]
+                .permute(2, 1, 0).reshape(d, -1).contiguous())
+    task, start, goal = cs.bench_problem("cuda", cs.B)
+    gtask, gstart, ggoal = cs.bench_problem("cuda", cs.B,
+                                            robot=cs.grasp_robot("cuda"))
+    env, _ = cs.grid_env()
+    rtask = PlanningTask(env=env, robot=RobotPanda.create(device="cuda"),
+                         obstacle_cutoff_margin=cs.GRID_CUTOFF)
+    r_start, r_goal = cs.grid_start_goal(rtask.robot, cs.GRID_B)
     mr, mr_start, mr_goal, _ = cs.mr_problem("cuda")
-    tight = cs.mr_task("cuda", cs.MR_TIGHT_POSES)
-    swap = cost_swap(*other, (il_task, mr, tight))
-    q_ls = cs.capture_first_iteration(il_task, il_start, il_goal)[
-        "cost_%d" % (len(cs.IL_ALPHAS) * cs.IL_B * (cs.IL_H - 1))]
-    sg = cs.sg_problem(il_start, il_goal, cs.SG_PART, cs.IL_H,
-                       cs.SG_PARAMS["dt"], cs.SEED + 2)
-    mr_sg = cs.sg_problem(mr_start, mr_goal, 1, cs.MR_H, cs.MR_GP["dt"],
-                          cs.SEED + 3)
-    q_sg = cs.capture_cost_inputs(il_task, *sg, cs.SG_PARAMS)
-    q_mr = cs.capture_cost_inputs(mr, *mr_sg, cs.MR_SG_PARAMS)
-    rng = np.random.default_rng(13)
-    lo = tight.robot.q_min.cpu().numpy()
-    hi = tight.robot.q_max.cpu().numpy()
-    q_tight = torch.as_tensor(
-        lo[:, None] + rng.uniform(size=(lo.shape[0], 8192))
-        * (hi - lo)[:, None], dtype=torch.float32, device="cuda")
-    lay = TermsLayout(il_task)
-    mlay = mr.collision_residuals.obstacle_terms_lanes.plain.layout
-    n_rows = len(lay.obj_pos) * 2 + len(lay.pair_a)
-    m_rows = len(mlay.obj_pos) * 2 + len(mlay.pair_a)
-    cases = [("k8_line_search", il_task, q_ls), *(
-        ("k8_sgpmp_N%d" % n, il_task, q) for n, q in sorted(q_sg.items())),
-        *(("k8_mr_sgpmp_N%d" % n, mr, q) for n, q in sorted(q_mr.items())),
-        ("k8_mr_tight_random", tight, q_tight)]
-    for name, task, q in cases:
-        cost = task.collision_residuals.collision_cost_lanes
-        ref = cost.plain(q)
+    swap = terms_swap(*other, (task, gtask, rtask))
+    cases = (("k1_main_q", task, main_q(start, goal, cs.H)),
+             ("k1_random_q", task, cs.random_q(task, cs.H * cs.B, seed=1)),
+             ("k1_grasped_main_q", gtask, main_q(gstart, ggoal, cs.H)),
+             ("k1_grid_main_q", rtask, main_q(r_start, r_goal, cs.GRID_H)))
+    for name, t, q in cases:
+        hook = t.collision_residuals.obstacle_terms_lanes
+        ref = hook.plain.unscaled(q)
+        grid = hook.grid is not None
+        near = cs.object_points_near_face(t, q) if grid else None
         outs, errs = {}, {}
         for side in ("other", "this"):
             with (swap if side == "other" else _null()):
-                outs[side] = cost(q).clone()
-            errs[side] = cs.hold_cost("%s_%s" % (name, side), outs[side],
-                                      ref)
+                outs[side] = [o.clone() for o in hook.unscaled(q)]
+            if grid:
+                errs[side] = cs.hold_grid("%s_%s" % (name, side), outs[side],
+                                          ref, near)
+            else:
+                res = {}
+                cs.hold_terms("%s_%s" % (name, side), outs[side], ref, res)
+                errs[side] = {"abs": res[name + "_" + side][0],
+                              "rel_to_max": res[name + "_" + side][1]}
+        # the kernel's device time over a CUDA graph of calls (a call's host
+        # time exceeds it at these N), and a call's time by CUDA events
         other_ms, this_ms, turns = in_turns(
-            swap, lambda: cs.device_ms(lambda: cost(q), iters=20))
+            swap, lambda: cs.device_ms(lambda: hook.unscaled(q), iters=20))
         other_call, this_call, _ = in_turns(
-            swap, lambda: cs.cuda_ms(lambda: cost(q), iters=20))
-        N = q.shape[1]
-        work = (cs.cost_work(lay, N, n_rows) if task is il_task
-                else cs.mr_cost_work(mlay, N, m_rows))
-        emit(name, N=N, bit_for_bit=bool(torch.equal(outs["other"],
-                                                      outs["this"])),
-             max_abs_diff=float((outs["other"] - outs["this"]).abs().max()),
-             vs_plain={k: {"abs": v[0], "rel_to_max": v[1]}
-                       for k, v in errs.items()},
-             other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
-             turns_ms=turns, call_ms={"other": other_call, "this": this_call},
-             bound_ms=cs.bound_ms(*work)[0], launch=cost.params[3])
+            swap, lambda: cs.cuda_ms(lambda: hook.unscaled(q), iters=50))
+        r = hook.plain.rows(q)[0]
+        work = cs.terms_work(TermsLayout(t), q, r)
+        emit(name, N=q.shape[1], bit_for_bit=all(
+            torch.equal(a, b) for a, b in zip(outs["other"], outs["this"])),
+            max_abs_diff=max(float((a - b).abs().max())
+                             for a, b in zip(outs["other"], outs["this"])),
+            vs_plain=errs, other_ms=other_ms, this_ms=this_ms,
+            speedup=other_ms / this_ms, turns_ms=turns,
+            call_ms={"other": other_call, "this": this_call},
+            bound_ms=cs.bound_ms(*work)[0], launch=hook.params[4],
+            active_row_share=float((r > 0).float().mean()))
         torch.cuda.empty_cache()
 
-    # K1 and K5, which this change leaves alone, bit for bit on the same q
-    tswap = terms_swap(*other)
+    # K5 and K8, which this change leaves alone, bit for bit on the same q
     same = {}
-    for name, task, q in (("k1", il_task, q_ls),
-                          ("k5", mr, q_mr[cs.MR_B * cs.MR_H])):
-        unscaled = task.collision_residuals.obstacle_terms_lanes.unscaled
-        with tswap:
-            o = [t.clone() for t in unscaled(q)]
-        same[name] = all(torch.equal(a, b) for a, b in zip(o, unscaled(q)))
+    q_mr = cs.mr_first_q(mr_start, mr_goal)
+    q_r = cs.random_q(task, 79360, seed=2)
+    for name, fn, q in (
+            ("k5", mr.collision_residuals.obstacle_terms_lanes.unscaled, q_mr),
+            ("k8", task.collision_residuals.collision_cost_lanes, q_r),
+            ("k8_multirobot", mr.collision_residuals.collision_cost_lanes,
+             q_mr)):
+        with swap:
+            o = fn(q)
+        o = o if isinstance(o, tuple) else (o,)
+        t_ = fn(q)
+        same[name] = all(torch.equal(a, b) for a, b in zip(
+            o, t_ if isinstance(t_, tuple) else (t_,)))
     emit("unchanged_kernels_bit_for_bit", **same)
     if not all(same.values()):
         cs.fail("a kernel this change leaves alone differs: %s" % same)
 
-    # the sGPMP iterations, in turns, and a profile per side
-    for name, task, (theta0, s, g), params in (
-            ("sgpmp_panda", il_task, sg, cs.SG_PARAMS),
-            ("sgpmp_config4", mr, mr_sg, cs.MR_SG_PARAMS)):
-        p = SGPMPParams(**dict(params, opt_iters=10))
-
-        def solve(n_iter=p.opt_iters):
-            return sgpmp_solve(
-                task.collision_residuals, theta0, s, g,
-                dataclasses.replace(p, opt_iters=n_iter),
-                generator=torch.Generator(device="cuda").manual_seed(7))
-        solve(2)
+    # the main path and the grasped main path, in turns, a profile per side
+    for name, t, s_, g_ in (("main_path_step", task, start, goal),
+                            ("grasped_main_path_step", gtask, gstart, ggoal)):
+        cs.run_mpc(t, s_, g_, 1)
         with swap:
-            solve(2)
-        other_ms, this_ms, turns = in_turns(
-            swap, lambda: cs.cuda_ms(solve, iters=1, warmup=0)
-            / p.opt_iters)
+            cs.run_mpc(t, s_, g_, 1)
+
+        def step_ms():
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            ev0.record()
+            cs.run_mpc(t, s_, g_, cs.N_STEPS)
+            ev1.record()
+            torch.cuda.synchronize()
+            return ev0.elapsed_time(ev1) / cs.N_STEPS
+        other_ms, this_ms, turns = in_turns(swap, step_ms)
         prof = {}
         for side in ("other", "this"):
             with (swap if side == "other" else _null()):
-                busy, dev_ms, top = cs.profile_device(lambda: solve(5), 5)
+                busy, dev_ms, top = cs.profile_device(
+                    lambda: cs.run_mpc(t, s_, g_, 2), 2)
             prof[side] = dict(profiled_device_busy_share=busy,
-                              profiled_device_ms_per_iteration=dev_ms,
-                              top_device_ms_per_iteration=top)
-        emit(name + "_iteration", B=theta0.shape[0], iterations=p.opt_iters,
-             other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
-             turns_ms=turns, profile=prof)
+                              profiled_device_ms_per_step=dev_ms,
+                              top_device_ms_per_step=top)
+        emit(name, B=cs.B, H=cs.H, steps=cs.N_STEPS, other_ms=other_ms,
+             this_ms=this_ms, speedup=other_ms / this_ms, turns_ms=turns,
+             profile=prof)
         torch.cuda.empty_cache()
 
 

@@ -16,9 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_cost_schedule import model_cost, offset_point_model
+from test_torch_cost_schedule import (_sections, model_cost,
+                                     offset_point_model)
 from test_torch_grasped import MR_BASES, MR_BOX, MR_YAWS
-from test_torch_multi_robot import _rodrigues, _scene_sdf_grad, model_mr_terms
+from test_torch_multi_robot import _rodrigues, model_mr_terms
 from torch_robotics_tpu_torch.core import z_rot
 from torch_robotics_tpu_torch.envs import EnvSpheres3D
 from torch_robotics_tpu_torch.geom import GraspedObjectPandaBox
@@ -63,25 +64,12 @@ def multirobot():
 
 
 def terms_sections(ints, floats):
-    """terms.cu's parse_layout in numpy."""
-    L, D, P, NO, K, NOBJ, NG, NGRID, G = (int(v) for v in ints[:9])
-    a, o = dict(L=L, D=D, P=P, NO=NO, K=K, NOBJ=NOBJ, NG=NG, G=G), 9
-    for name, n in (("topo", L), ("parent", L), ("jtype", L), ("qidx", L),
-                    ("ctrl", D), ("point_link", P), ("anc", P),
-                    ("obj_pt", NO), ("pair_a", K), ("pair_b", K),
-                    ("obj_group_begin", NOBJ + 1), ("group_kind", NG),
-                    ("group_count", NG), ("group_off", NG),
-                    ("obj_grid", NOBJ), ("grid_i", 4 * NGRID)):
-        a[name], o = ints[o:o + n], o + n
-    assert o == len(ints)
-    f = 0
-    for name, n in (("trans", 3 * L), ("frot", 9 * L), ("axis", 3 * L),
-                    ("clo", L), ("chi", L), ("obj_thresh", NO),
-                    ("pair_margin", K), ("ws_min", 3), ("ws_max", 3),
-                    ("pt_off", 3 * G), ("obj_rot", 9 * NOBJ),
-                    ("obj_pos", 3 * NOBJ), ("grid_f", 8 * NGRID)):
-        a[name], f = floats[f:f + n], f + n
-    a["prims"] = floats[f:]
+    """terms.cu's parse_layout in numpy: the cost kernel's sections
+    (test_torch_cost_schedule's ``_sections``) and each point's joint mask
+    closing the ints."""
+    P = int(ints[2])
+    a = _sections(ints[:-P], floats)
+    a.update(anc=ints[-P:], G=int(ints[12]))
     return a
 
 
@@ -89,12 +77,21 @@ def test_terms_buffers_carry_the_offsets(panda):
     task, lay = panda
     ints, floats = pack_terms_params(lay)
     a = terms_sections(ints, floats)
-    assert (a["L"], a["P"], a["NO"], a["K"], a["G"]) == (12, 23, 19, 66, 14)
-    np.testing.assert_array_equal(a["point_link"][-14:], [11] * 14)
-    np.testing.assert_array_equal(a["point_link"][:9], lay.used_links)
-    assert (a["anc"][-14:] == ANC_ALL).all()
+    c_ints, c_floats = pack_cost_params(lay)
+    np.testing.assert_array_equal(ints[:-a["P"]], c_ints)
+    np.testing.assert_array_equal(floats, c_floats)
+    assert (a["n_mem"], a["P"], a["NO"], a["K"], a["G"]) == (1, 23, 19, 66,
+                                                              14)
+    # the grasped link's step carries the 14 offset points, in order
+    last = a["S"] - 1
+    assert (a["pt_end"][last] - a["pt_begin"][last], a["n_off"][last]) == (
+        14, 14)
     np.testing.assert_array_equal(
-        a["pt_off"], task.robot.grasped_points.numpy().reshape(-1))
+        a["pt_list"][a["pt_begin"][last]:a["pt_end"][last]],
+        np.arange(9, 23))
+    assert (a["anc"][-14:] == ANC_ALL).all()
+    np.testing.assert_array_equal(a["offsets"][:, :3],
+                                  task.robot.grasped_points.numpy())
     # object points: the 5 links' then the 14 grasped; pairs reach them
     np.testing.assert_array_equal(a["obj_pt"][5:], np.arange(9, 23))
     assert set(a["pair_a"][10:].tolist()) == set(range(9, 23))
@@ -191,56 +188,90 @@ def test_offset_point_model_is_the_plain_points_bit_for_bit(panda):
     q = torch.as_tensor(_rand_q(m.q_lower, m.q_upper, 4096, seed=1))
     R_w, t_w = fk_lanes(m, q)
     plain = lay.points(R_w, t_w).numpy()                   # (23, 3, N)
-    n0 = a["P"] - a["G"]
-    for p in range(a["P"]):
-        li = a["point_link"][p]
-        if p < n0:
-            np.testing.assert_array_equal(plain[p], t_w[li].numpy())
-            continue
-        x = offset_point_model(R_w[li].numpy(), t_w[li].numpy(),
-                               a["pt_off"][3 * (p - n0):3 * (p - n0) + 3])
-        np.testing.assert_array_equal(x, plain[p])
+    for s in range(a["S"]):
+        first_off = a["pt_end"][s] - a["n_off"][s]
+        for i in range(a["pt_begin"][s], a["pt_end"][s]):
+            p = a["pt_list"][i]
+            li = lay.point_links[p]
+            if i < first_off:
+                np.testing.assert_array_equal(plain[p], t_w[li].numpy())
+                continue
+            o = a["offsets"][a["off_begin"][s] + i - first_off, :3]
+            x = offset_point_model(R_w[li].numpy(), t_w[li].numpy(), o)
+            np.testing.assert_array_equal(x, plain[p])
+
+
+def _sphere_sdf_grad(a, x):
+    """Min-over-spheres SDF and gradient at x (3, N) on the packed scene
+    (EnvSpheres3D: every group holds spheres, kind 0 or 3), float64."""
+    best = np.full(x.shape[1], np.inf)
+    grad = np.zeros_like(x)
+    for o in range(a["NOBJ"]):
+        R = a["obj_rot"][o].astype(np.float64).reshape(3, 3)
+        xo = R.T @ (x - a["obj_pos"][o].astype(np.float64)[:, None])
+        for g in range(a["obj_group_begin"][o], a["obj_group_begin"][o + 1]):
+            assert a["group_kind"][g] in (0, 3)
+            off = a["group_off"][g]
+            for j in range(a["group_count"][g]):
+                c = a["prims"][off + 4 * j: off + 4 * j + 4].astype(
+                    np.float64)
+                d = xo - c[:3, None]
+                dist = np.sqrt((d * d).sum(0))
+                s = dist - c[3]
+                take = s < best
+                best = np.where(take, s, best)
+                grad = np.where(take, R @ (d / dist), grad)
+    return best, grad
 
 
 def model_terms(ints, floats, q):
     """g (D, N), Hqq (D, D, N), cost (N) computed as terms.cu computes
-    them, in float64, from the packed buffers alone."""
+    them, in float64, from the packed buffers alone: the FK steps (parent
+    from the root, the previous step or a slot) with each joint's world
+    axis and origin, the points the steps place, then the rows, only the
+    active ones adding their Jacobians."""
     a = terms_sections(ints, floats)
-    fl = {k: np.asarray(v, np.float64) for k, v in a.items()
-          if isinstance(v, np.ndarray) and v.dtype == F32}
     q = q.astype(np.float64)
-    N, D, P, G = q.shape[1], a["D"], a["P"], a["G"]
-    Rw, tw = {}, {}
-    for i in a["topo"]:
-        F = fl["frot"][9 * i:9 * i + 9].reshape(3, 3)
-        tr = np.repeat(fl["trans"][3 * i:3 * i + 3, None], N, 1)
-        if a["jtype"][i] in (1, 2):
-            qi = q[a["qidx"][i]]
-            if a["jtype"][i] == 1:
-                qi = np.clip(qi, fl["clo"][i], fl["chi"][i])
-            Rl = np.einsum("ab,bcn->acn", F, _rodrigues(
-                fl["axis"][3 * i:3 * i + 3], qi))
+    N, D, P = q.shape[1], a["D"], a["P"]
+    f64 = lambda v: np.asarray(v, np.float64)          # noqa: E731
+    pts = np.zeros((P, 3, N))
+    z, o = np.zeros((D, 3, N)), np.zeros((D, 3, N))
+    slots = {}
+    R = t = None
+    for s in range(a["S"]):
+        F = f64(a["frot"][s]).reshape(3, 3)
+        tr = np.repeat(f64(a["trans"][s])[:, None], N, 1)
+        qc, jt = a["qcol"][s], a["jtype"][s]
+        if jt in (1, 2):
+            qi = q[qc]
+            if jt == 1:
+                qi = np.clip(qi, a["clo"][s], a["chi"][s])
+            Rl = np.einsum("ab,bcn->acn", F, _rodrigues(f64(a["axis"][s]),
+                                                         qi))
         else:
             Rl = np.repeat(F[:, :, None], N, 2)
-        p = a["parent"][i]
-        if p < 0:
-            Rw[i], tw[i] = Rl, tr
+            if jt == 3:
+                tr = tr + f64(a["axis"][s])[:, None] * np.clip(
+                    q[qc], a["clo"][s], a["chi"][s])
+        src = a["src"][s]
+        if src == -1:
+            R, t = Rl, tr
         else:
-            Rw[i] = np.einsum("abn,bcn->acn", Rw[p], Rl)
-            tw[i] = np.einsum("abn,bn->an", Rw[p], tr) + tw[p]
-    z, o = [], []
-    for j in range(D):
-        li = a["ctrl"][j]
-        in_lim = (q[j] >= fl["clo"][li]) & (q[j] <= fl["chi"][li])
-        z.append(np.einsum("abn,b->an", Rw[li], fl["axis"][3 * li:3 * li + 3])
-                 * in_lim)
-        o.append(tw[li])
-    pts = []
-    for p in range(P):
-        li = a["point_link"][p]
-        off = p - (P - G)
-        pts.append(tw[li] if off < 0 else np.einsum(
-            "abn,b->an", Rw[li], fl["pt_off"][3 * off:3 * off + 3]) + tw[li])
+            Rp, tp = (R, t) if src == -2 else slots[src]
+            R = np.einsum("abn,bcn->acn", Rp, Rl)
+            t = np.einsum("abn,bn->an", Rp, tr) + tp
+        if a["slot"][s] >= 0:
+            slots[a["slot"][s]] = (R, t)
+        if qc >= 0:
+            in_lim = (q[qc] >= a["clo"][s]) & (q[qc] <= a["chi"][s])
+            z[qc] = np.einsum("abn,b->an", R, f64(a["axis"][s])) * in_lim
+            o[qc] = t
+        first_off = a["pt_end"][s] - a["n_off"][s]
+        for i in range(a["pt_begin"][s], a["pt_end"][s]):
+            p = a["pt_list"][i]
+            pts[p] = t if i < first_off else np.einsum(
+                "abn,b->an", R,
+                f64(a["offsets"][a["off_begin"][s] + i - first_off, :3])) + t
 
     def jac(p, j):
         if not (a["anc"][p] >> j) & 1:
@@ -250,41 +281,37 @@ def model_terms(ints, floats, q):
     g, H, cost = np.zeros((D, N)), np.zeros((D, D, N)), np.zeros(N)
 
     def add(r, Jr):
+        """r (N,), Jr (D, N): an active lane's row; the others add 0."""
         nonlocal cost
+        live = r > 0
+        r, Jr = np.where(live, r, 0.0), np.where(live, Jr, 0.0)
         cost = cost + r * r
         g[:] += r * Jr
         H[:] += Jr[:, None] * Jr[None]
 
-    act = lambda r: (r > 0).astype(np.float64)          # noqa: E731
-    scene_i = (a["obj_group_begin"], a["group_kind"], a["group_count"],
-               a["group_off"])
-    scene_f = (fl["obj_rot"].reshape(-1, 9), fl["obj_pos"].reshape(-1, 3),
-               fl["prims"])
     rows = []
     for mi in range(a["NO"]):
         p = a["obj_pt"][mi]
-        rows.append((p, *_scene_sdf_grad(scene_i, scene_f, pts[p],
-                                         a["NOBJ"], a["NG"]), mi))
+        rows.append((p, *_sphere_sdf_grad(a, pts[p]), mi))
+    ws_min, ws_max = f64(a["ws_min"]), f64(a["ws_max"])
     for mi in range(a["NO"]):
         p = a["obj_pt"][mi]
         x = pts[p]
-        faces = np.concatenate([x - fl["ws_min"][:, None],
-                                fl["ws_max"][:, None] - x])
+        faces = np.concatenate([x - ws_min[:, None], ws_max[:, None] - x])
         fi = np.argmin(faces, 0)
         wgrad = np.stack([np.where(fi == k, 1.0, 0.0)
                           - np.where(fi == k + 3, 1.0, 0.0) for k in range(3)])
         rows.append((p, faces.min(0), wgrad, mi))
     for p, val, grad, mi in rows:
-        r = np.maximum(fl["obj_thresh"][mi] - val, 0.0)
-        add(r, np.stack([-act(r) * (grad * jac(p, j)).sum(0)
-                         for j in range(D)]))
+        r = np.maximum(a["obj_thresh"][mi] - val, 0.0)
+        add(r, np.stack([-(grad * jac(p, j)).sum(0) for j in range(D)]))
     for k in range(a["K"]):
         pa, pb = a["pair_a"][k], a["pair_b"][k]
         diff = pts[pa] - pts[pb]
         dist = np.sqrt((diff * diff).sum(0))
-        r = np.maximum(fl["pair_margin"][k] - dist, 0.0)
+        r = np.maximum(a["pair_margin"][k] - dist, 0.0)
         u = diff / dist
-        add(r, np.stack([-act(r) * (u * (jac(pa, j) - jac(pb, j))).sum(0)
+        add(r, np.stack([-(u * (jac(pa, j) - jac(pb, j))).sum(0)
                          for j in range(D)]))
     return g, H, 0.5 * cost
 

@@ -83,20 +83,14 @@ def test_pack_scene_refuses_2d_grids():
 
 
 def _terms_sections(ints, floats):
-    """terms.cu's parse_layout in numpy: the scene sections."""
-    L, D, P, NO, K, NOBJ, NG, NGRID, G = (int(v) for v in ints[:9])
-    o = 9 + 4 * L + D + 2 * P + NO + 2 * K
-    a = {}
-    for name, n in (("obj_group_begin", NOBJ + 1), ("group_kind", NG),
-                    ("group_count", NG), ("group_off", NG),
-                    ("obj_grid", NOBJ), ("grid_i", 4 * NGRID)):
-        a[name], o = ints[o:o + n], o + n
-    assert o == len(ints)
-    f = 17 * L + NO + K + 6 + 3 * G
-    for name, n in (("obj_rot", 9 * NOBJ), ("obj_pos", 3 * NOBJ),
-                    ("grid_f", 8 * NGRID)):
-        a[name], f = floats[f:f + n], f + n
-    a["prims"] = floats[f:]
+    """terms.cu's parse_layout in numpy: the scene sections of the cost
+    kernel's buffers, which the terms buffers are with each point's joint
+    mask closing the ints."""
+    P = int(ints[2])
+    a = _cost_sections(ints[:-P], floats)
+    o = a["objects_at"]
+    objects = floats[o:o + 12 * a["NOBJ"]].reshape(-1, 12)
+    a.update(obj_pos=objects[:, 9:].reshape(-1), prims=floats[:o])
     return a
 
 
@@ -104,7 +98,7 @@ def test_terms_buffers_carry_the_grids(scene):
     task = _task(scene)
     ints, floats = pack_terms_params(TermsLayout(task))
     a = _terms_sections(ints, floats)
-    assert ints[5] == 3 and ints[7] == 2            # NOBJ, NGRID
+    assert ints[5] == 3 and ints[11] == 2           # NOBJ, NGRID
     np.testing.assert_array_equal(a["obj_grid"], [0, -1, 1])
     np.testing.assert_array_equal(a["grid_i"][4:], [8000, 8, 8, 7])
     np.testing.assert_array_equal(a["obj_pos"][3:6],

@@ -94,7 +94,8 @@ def test_wrappers_take_the_kernel_or_raise_off_the_cpu():
     ints = torch.zeros(8, dtype=torch.int32, device="meta")
     floats = torch.zeros(8, device="meta")
     with pytest.raises(ValueError):
-        run_terms_kernel(torch.zeros((7, 5), device="meta"), ints, floats, 7)
+        run_terms_kernel(torch.zeros((7, 5), device="meta"), ints, floats, 7,
+                         dict(lanes=128, smem_bytes=0))
     with pytest.raises(ValueError):
         run_cost_kernel(torch.zeros((7, 5), device="meta"), ints, floats, 7)
     d, m, P, T, B = 7, 14, 27, 3, 5

@@ -267,16 +267,19 @@ def test_net_task_packs_no_pair_rows():
     assert lay.used_links == sorted(task.robot.object_coll_idxs)
     assert len(task.robot.self_pair_idxs) > 0     # the table is still built
     ints, floats = pack_terms_params(lay)
-    L, D, P, NO, K, NOBJ, NG, NGRID, G = (int(v) for v in ints[:9])
+    D, P, NO, K = (int(v) for v in ints[1:5])
+    NGRID, G = int(ints[11]), int(ints[12])
     assert (D, P, NO, K, NGRID, G) == (7, 5, 5, 0, 0, 0)
     assert ints.dtype == np.int32 and floats.dtype == np.float32
-    assert ints.size == (9 + 4 * L + D + 2 * P + NO + 2 * K + NOBJ + 1
-                         + 3 * NG + NOBJ)
-    # one group of spheres: its count, its offset, the object's grid (-1)
-    assert int(ints[-1]) == -1
-    n_prims = 4 * int(ints[-3])
-    assert floats.size == 17 * L + NO + K + 6 + 12 * NOBJ + n_prims
     c_ints, c_floats = pack_cost_params(lay)
+    # the cost kernel's buffers, then the 5 points' joint masks
+    np.testing.assert_array_equal(ints[:-P], c_ints)
+    np.testing.assert_array_equal(floats, c_floats)
+    anc = lay.model.ancestry_matrix()[lay.point_links]
+    np.testing.assert_array_equal(ints[-P:], (anc * 1 << np.arange(D))
+                                  .sum(1))
+    # one group of spheres: its count, its offset, the object's grid (-1)
+    assert int(c_ints[-1]) == -1
     assert int(c_ints[4]) == 0 and c_ints.dtype == np.int32
     assert c_floats.dtype == np.float32
     cfg = cost_launch_config(c_ints, len(c_floats))

@@ -138,26 +138,35 @@ def test_residual_rows_are_zero_off_their_live_columns(tasks):
 
 
 def test_kernel_buffers_follow_the_layout(tasks):
-    """Section lengths of the packed buffers match what terms.cu parses."""
+    """Section lengths of the packed buffers match what terms.cu parses:
+    the cost kernel's buffers of one member, then each point's joint
+    mask."""
     _, _, ptask = tasks
     lay = TermsLayout(ptask)
     ints, floats = pack_terms_params(lay)
-    L, D, P, NO, K, NOBJ, NG, NGRID, G = (int(v) for v in ints[:9])
-    assert (L, D, P, NO, K, G) == (ptask.robot.model.n_links, 7,
-                                   len(lay.used_links), len(lay.obj_pos),
-                                   len(lay.pair_a), 0)
-    assert ints.size == (9 + 4 * L + D + 2 * P + NO + 2 * K + NOBJ + 1
-                         + 3 * NG + NOBJ + 4 * NGRID)
+    (n_mem, D, P, NO, K, NOBJ, NG, S, n_slots, T, n_prims, NGRID,
+     G) = (int(v) for v in ints[:13])
+    assert (n_mem, D, P, NO, K, T, G) == (1, 7, len(lay.used_links),
+                                          len(lay.obj_pos), len(lay.pair_a),
+                                          1, 0)
+    assert ints.size == (16 + 8 * S + n_mem + 1 + P + NO + 2 * K + T + 1
+                         + NOBJ + 1 + 3 * NG + NOBJ + 4 * NGRID + P)
+    anc = lay.model.ancestry_matrix()[lay.point_links]
+    np.testing.assert_array_equal(ints[-P:], (anc * 1 << np.arange(D))
+                                  .sum(1))
     # analytic scenes: every object's grid index is -1, no grid header
-    assert NGRID == 0 and (ints[-NOBJ:] == -1).all()
-    groups = ints[:-NOBJ]
+    groups = ints[:-P]
+    assert NGRID == 0 and (groups[-NOBJ:] == -1).all()
+    groups = groups[:-NOBJ]
     group_off, group_count = groups[-NG:], groups[-2 * NG:-NG]
     group_kind = groups[-3 * NG:-2 * NG]
-    width = np.asarray([4, 7, 6])[group_kind]
-    n_prims = int((group_count * width).sum())
-    assert group_off[-1] + group_count[-1] * width[-1] == n_prims
-    assert floats.size == (17 * L + NO + K + 6 + 3 * G + 12 * NOBJ
-                           + 8 * NGRID + n_prims)
+    width = np.asarray([4, 7, 6, 4])[group_kind]
+    # each group's table padded to whole 16-byte records
+    sizes = -(-(group_count * width) // 4) * 4
+    np.testing.assert_array_equal(group_off, np.cumsum(sizes) - sizes)
+    assert n_prims == int(sizes.sum())
+    assert floats.size == (n_prims + 12 * NOBJ + 8 * NGRID + 20 * S
+                           + 12 * n_mem + NO + K + 6)
 
 
 def test_scene_sdf_and_analytic_gradient_match_jax_autodiff(tasks):

@@ -7,7 +7,7 @@
 //   btridiag_w_kernel<M, true>   solve_lanes_pallas_factor: the same sweep
 //                                with L and W as the caller's outputs, L's
 //                                strict upper triangle written zero;
-//   btridiag_subst_kernel<M>     solve_lanes_pallas_subst (_kernel_subst):
+//   btridiag_subst_kernel<M, *>  solve_lanes_pallas_subst (_kernel_subst):
 //                                a fresh b against persisted L and W.
 // Their plain PyTorch versions are solve_lanes_core,
 // solve_lanes_factor_core and solve_lanes_subst_core in
@@ -76,12 +76,27 @@
 // lane's arithmetic is the same wherever it sits in the batch and whatever
 // `lanes` is, so a ragged B gives each lane its full-batch bits.
 //
-// The substitution kernel does ~3 M^2 multiply-adds per block step against
-// the sweep's ~1.7 M^3 and keeps only y and Wy (2 M floats) in registers;
-// it reads L and W (2 M^2 floats per step and lane) once in each pass, so
-// it is bound by those loads' latency at the few warps a batch of lanes
-// gives, not by the card's byte rate.  One thread per lane, with the
-// per-thread backward pass below.
+// The substitution kernel (btridiag_subst_kernel<M, kKeepLW>) re-solves
+// from the factor sweep's L and W with a fresh b: ~3 M^2 multiply-adds a
+// block step against the sweep's ~1.7 M^3, and 2 M^2 floats of L and W a
+// step and lane read in each pass.  At the reuse workload's (32, 14, 256)
+// its bytes take ~4 us at 3.35 TB/s; what sets its time is latency, each
+// lane's chain of M dependent (division, shuffle, multiply-add) links a
+// block step over 2 H steps.  One thread a lane (the design before this
+// one) ran that chain with dependent loads from device memory, 8 warps on
+// 132 SMs: 0.37 ms on an H100 80GB HBM3 at 700 W, 2.2x the factor sweep.
+// This design takes the sweep's groups (G threads a lane; whole warps, and
+// up to 128 threads a block while the grid still covers the 132 SMs:
+// subst_launch_config in ops/btridiag_kernel.py) and the sweep's cp.async
+// ring for L_k, W_k and b_k; thread i owns row i of the forward
+// substitution (a column-oriented elimination, y_p broadcast by a
+// shuffle), which keeps the one-thread kernel's order of operations, so y
+// is its y bit for bit.  y stays in shared memory (H M floats a lane).
+// The backward pass is the sweep's (backward_step: a reciprocal and a
+// column-oriented L^-T), so x differs from the one-thread kernel's in the
+// last bits.  With kKeepLW
+// every step's L and W stay in shared memory between the passes (2 H M^2
+// floats a lane) and the backward pass reads no device memory.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -91,10 +106,10 @@ namespace {
 
 using namespace trt;
 
-constexpr int kThreads = 64;         // the substitution kernel's block
 constexpr int kSweepThreads = 128;   // the sweep's largest block
 
 constexpr int kStages = 5;           // the sweep's ring of staged steps
+constexpr int kSubstStages = 8;      // the substitution's ring
 
 // threads per lane in the sweep: the power of two >= M (M <= 16)
 __host__ __device__ constexpr int group_size(int M) {
@@ -125,42 +140,16 @@ __host__ __device__ constexpr size_t sweep_smem_floats(int M, int lanes) {
          + static_cast<size_t>(kStages) * stage_floats(M, lanes);
 }
 
-// backward substitution from the persisted L, W, y stacks:
-//   x_{H-1} = L^-T y_{H-1};  x_k = L_k^-T (y_k - W_k x_{k+1})
-template <int M>
-__device__ __forceinline__ void backward_pass(const float* __restrict__ Ls,
-                                              const float* __restrict__ Ws,
-                                              const float* __restrict__ ys,
-                                              float* __restrict__ x, int H,
-                                              size_t sB, int lane) {
-  float xn[M];
-  for (int k = H - 1; k >= 0; --k) {
-    float rhs[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      float s = ys[vec_idx(k, i, M, sB, lane)];
-      if (k < H - 1) {
-#pragma unroll
-        for (int j = 0; j < M; ++j)
-          s -= Ws[mat_idx(k, i, j, M, sB, lane)] * xn[j];
-      }
-      rhs[i] = s;
-    }
-    float xk[M];
-#pragma unroll
-    for (int i = M - 1; i >= 0; --i) {
-      float s = rhs[i];
-#pragma unroll
-      for (int t = i + 1; t < M; ++t)
-        s -= Ls[mat_idx(k, t, i, M, sB, lane)] * xk[t];
-      xk[i] = s / Ls[mat_idx(k, i, i, M, sB, lane)];
-    }
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      x[vec_idx(k, i, M, sB, lane)] = xk[i];
-      xn[i] = xk[i];
-    }
-  }
+// dynamic shared memory of the substitution, in floats
+// (ops/btridiag_kernel.py's subst_launch_config mirrors it): the lanes'
+// y ([H][M][lanes]) and the stages of L_k, W_k and b_k, kSubstStages of
+// them in a ring or, with kKeepLW, one for every step (L and W then stay
+// on chip for the backward pass)
+__host__ __device__ constexpr size_t subst_smem_floats(int M, int lanes,
+                                                       int H, bool keep) {
+  return static_cast<size_t>(lanes) * H * M
+         + static_cast<size_t>(keep ? H : kSubstStages) * (2 * M * M + M)
+               * lanes;
 }
 
 // ---------------------------------------------------------------------------
@@ -187,9 +176,15 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// wait until at most kStages - 2 committed groups are still in flight
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the sweep's ring: at most kStages - 2 groups in flight
 __device__ __forceinline__ void cp_async_wait_staged() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+  cp_async_wait<kStages - 2>();
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -246,18 +241,17 @@ __device__ __forceinline__ void stage_forward(
     cp_async4(Usm + f, U + static_cast<size_t>(k) * M * M + f, true);
 }
 
-// Stage backward step k's L_k, W_k ([lanes][M][M]) and y_k ([lanes][M]) for
-// the block's lanes.  The sweep's own (H, B, M, M) stacks hold the block's
-// lanes contiguously; the factor outputs (H, M, M, B) hold entry (i, j) of
-// consecutive lanes contiguously.
+// Stage step k's L_k and W_k ([lanes][M][M] each) for the block's lanes.
+// The sweep's own (H, B, M, M) stacks hold the block's lanes contiguously;
+// the factor outputs (H, M, M, B) hold entry (i, j) of consecutive lanes
+// contiguously.
 template <int M, bool kFactorOut>
-__device__ __forceinline__ void stage_backward(
-    const float* __restrict__ Ls, const float* __restrict__ Ws,
-    const float* __restrict__ ys, float* st, int k, int l0, int lanes,
-    int B) {
+__device__ __forceinline__ void stage_lw(const float* __restrict__ Ls,
+                                         const float* __restrict__ Ws,
+                                         float* st, int k, int l0, int lanes,
+                                         int B) {
   float* Lst = st;
   float* Wst = Lst + lanes * M * M;
-  float* yst = Wst + lanes * M * M;
   const int tid = threadIdx.x;
   const size_t sB = B;
   const int n_valid = B - l0 < lanes ? B - l0 : lanes;
@@ -279,11 +273,69 @@ __device__ __forceinline__ void stage_backward(
       cp_async16(Wst + f, Ws + base + (valid ? f : 0), valid);
     }
   }
-  const size_t ybase = (static_cast<size_t>(k) * sB + l0) * M;
+}
+
+// Stage backward step k of the sweep: L_k and W_k (stage_lw), then y_k
+// ([lanes][M]) from the sweep's (H, B, M) scratch.
+template <int M, bool kFactorOut>
+__device__ __forceinline__ void stage_backward(
+    const float* __restrict__ Ls, const float* __restrict__ Ws,
+    const float* __restrict__ ys, float* st, int k, int l0, int lanes,
+    int B) {
+  stage_lw<M, kFactorOut>(Ls, Ws, st, k, l0, lanes, B);
+  float* yst = st + 2 * lanes * M * M;
+  const int tid = threadIdx.x;
+  const int n_valid = B - l0 < lanes ? B - l0 : lanes;
+  const size_t ybase = (static_cast<size_t>(k) * B + l0) * M;
   for (int f = tid; f < lanes * M; f += blockDim.x) {
     const bool valid = f < n_valid * M;
     cp_async4(yst + f, ys + ybase + (valid ? f : 0), valid);
   }
+}
+
+// Stage forward step k of the substitution: L_k and W_k of the factor
+// outputs (stage_lw), then b_k ([M][lanes]) from b (H, M, B).
+template <int M>
+__device__ __forceinline__ void stage_subst(const float* __restrict__ Ls,
+                                            const float* __restrict__ Ws,
+                                            const float* __restrict__ b,
+                                            float* st, int k, int l0,
+                                            int lanes, int B) {
+  stage_lw<M, true>(Ls, Ws, st, k, l0, lanes, B);
+  float* bst = st + 2 * lanes * M * M;
+  const size_t sB = B;
+  for (int f = threadIdx.x; f < M * lanes; f += blockDim.x) {
+    const int i = f / lanes, sl = f - i * lanes;
+    const bool valid = l0 + sl < B;
+    cp_async4(bst + f, b + (static_cast<size_t>(k) * M + i) * sB
+                           + (valid ? l0 + sl : 0), valid);
+  }
+}
+
+// One backward block step of thread j (column jc) of a lane's group, from
+// the staged L_k and W_k ([M][M] of the lane), its r = y_k[jc] and x_{k+1}
+// (xj in every thread; used when `below`, i.e. k < H - 1):
+//   r -= W_k x_{k+1} (row jc), then x_k = L_k^-T r, a column-oriented back
+//   substitution (one shuffle a pivot) -> x_k[jc].
+template <int M>
+__device__ __forceinline__ float backward_step(const float* Lk,
+                                               const float* Wk, float rj,
+                                               float xj, int jc, bool below) {
+  constexpr int G = group_size(M);
+  constexpr unsigned kAll = 0xffffffffu;
+  if (below) {
+#pragma unroll
+    for (int c = 0; c < M; ++c)
+      rj = fmaf(-Wk[jc * M + c], __shfl_sync(kAll, xj, c, G), rj);
+  }
+  const float inv = 1.f / Lk[jc * M + jc];
+#pragma unroll
+  for (int p = M - 1; p >= 0; --p) {
+    const float xp = __shfl_sync(kAll, rj * inv, p, G);
+    rj = jc < p ? fmaf(-Lk[p * M + jc], xp, rj) : rj;
+    xj = jc == p ? xp : xj;
+  }
+  return xj;
 }
 
 template <int M, bool kFactorOut>
@@ -455,59 +507,120 @@ btridiag_w_kernel(const float* __restrict__ D, const float* __restrict__ U,
       cp_async_commit();
     }
     const float* Lk = ring + (n % kStages) * ssz + ll * M * M;
-    const float* Wk = Lk + lanes * M * M;
     const float* yk = ring + (n % kStages) * ssz + 2 * lanes * M * M;
-    float rj = yk[ll * M + jc];
-    if (n > 0) {
-#pragma unroll
-      for (int c = 0; c < M; ++c)
-        rj = fmaf(-Wk[jc * M + c], __shfl_sync(kAll, xj, c, G), rj);
-    }
-    const float inv = 1.f / Lk[jc * M + jc];
-#pragma unroll
-    for (int p = M - 1; p >= 0; --p) {
-      const float xp = __shfl_sync(kAll, rj * inv, p, G);
-      rj = jc < p ? fmaf(-Lk[p * M + jc], xp, rj) : rj;
-      xj = jc == p ? xp : xj;
-    }
+    xj = backward_step<M>(Lk, Lk + lanes * M * M, yk[ll * M + jc], xj, jc,
+                          n > 0);
     if (live && j < M) x[vec_idx(k, j, M, sB, lane)] = xj;
   }
 }
 
-template <int M>
-__global__ void __launch_bounds__(kThreads)
+// The substitution: the sweep's groups (G threads a lane, `lanes` lanes a
+// block) over L, W from the factor outputs and a fresh b.  Forward, thread
+// j holds r = b_k[jc] - Wy[jc] (row jc of the step); for each pivot p,
+// y_p = r_p / L_pp (thread p's, correctly rounded) is broadcast by a
+// shuffle and every row i > p takes r_i -= L[i][p] y_p: row i's
+// subtractions come in the order t = 0, 1, ..., i - 1, the one-thread
+// kernel's, so y is bit for bit its y.  Wy for the next step, thread j's
+// (W_k^T y)[jc], is summed over the same broadcasts.  y stays in shared
+// memory; the backward pass is the sweep's (backward_step).
+template <int M, bool kKeepLW>
+__global__ void __launch_bounds__(kSweepThreads)
 btridiag_subst_kernel(const float* __restrict__ Ls,
                       const float* __restrict__ Ws,
                       const float* __restrict__ b, float* __restrict__ x,
-                      float* __restrict__ ys, int H, int B) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
+                      int H, int B) {
+  constexpr int G = group_size(M);
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ float smem[];
+  const int lanes = blockDim.x / G;
+  const int tid = threadIdx.x;
+  const int ll = tid / G;                // the group's lane in the block
+  const int j = tid % G;                 // this thread's row / column
+  const int jc = j < M ? j : M - 1;      // idle threads shadow row M - 1
+  const int l0 = blockIdx.x * lanes;
+  const int lane = l0 + ll;
+  const bool live = lane < B;
   const size_t sB = B;
-  float Wy[M];
+
+  float* ysm = smem;                     // [H][M][lanes]: y_k[i]
+  float* ring = ysm + static_cast<size_t>(H) * M * lanes;
+  const int ssz = (2 * M * M + M) * lanes;   // L_k, W_k, b_k
+
+  // with kKeepLW every step is staged at once, into its own slot;
+  // otherwise a ring of kSubstStages, step k + kSubstStages - 1 in flight
+  // while step k computes (one commit per step, empty past the last)
+  if constexpr (kKeepLW) {
+    for (int k = 0; k < H; ++k)
+      stage_subst<M>(Ls, Ws, b, ring + k * ssz, k, l0, lanes, B);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  } else {
 #pragma unroll
-  for (int i = 0; i < M; ++i) Wy[i] = 0.f;
-  for (int k = 0; k < H; ++k) {
-    // y_k = L_k^-1 (b_k - Wy), then Wy = W_k^T y_k
-    float y[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      float s = b[vec_idx(k, i, M, sB, lane)] - Wy[i];
-#pragma unroll
-      for (int t = 0; t < i; ++t)
-        s -= Ls[mat_idx(k, i, t, M, sB, lane)] * y[t];
-      y[i] = s / Ls[mat_idx(k, i, i, M, sB, lane)];
-      ys[vec_idx(k, i, M, sB, lane)] = y[i];
-    }
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      float s = Ws[mat_idx(k, 0, i, M, sB, lane)] * y[0];
-#pragma unroll
-      for (int t = 1; t < M; ++t)
-        s += Ws[mat_idx(k, t, i, M, sB, lane)] * y[t];
-      Wy[i] = s;
+    for (int k = 0; k < kSubstStages - 1; ++k) {
+      if (k < H) stage_subst<M>(Ls, Ws, b, ring + k * ssz, k, l0, lanes, B);
+      cp_async_commit();
     }
   }
-  backward_pass<M>(Ls, Ws, ys, x, H, sB, lane);
+  float wy = 0.f;  // (W_{k-1}^T y_{k-1})[jc]
+  for (int k = 0; k < H; ++k) {
+    if constexpr (!kKeepLW) {
+      cp_async_wait<kSubstStages - 2>();
+      __syncthreads();  // step k staged; step k - 1's stage is free
+      const int kn = k + kSubstStages - 1;
+      if (kn < H)
+        stage_subst<M>(Ls, Ws, b, ring + (kn % kSubstStages) * ssz, kn, l0,
+                       lanes, B);
+      cp_async_commit();
+    }
+    const int slot = kKeepLW ? k : k % kSubstStages;
+    const float* Lk = ring + slot * ssz + ll * M * M;
+    const float* Wk = Lk + lanes * M * M;
+    const float* bk = ring + slot * ssz + 2 * lanes * M * M;
+    float r = bk[jc * lanes + ll] - wy;
+    const float ljj = Lk[jc * M + jc];
+    float yj = 0.f;
+#pragma unroll
+    for (int p = 0; p < M; ++p) {
+      const float yp = __shfl_sync(kAll, r / ljj, p, G);
+      r = jc > p ? fmaf(-Lk[jc * M + p], yp, r) : r;
+      wy = p == 0 ? Wk[jc] * yp : fmaf(Wk[p * M + jc], yp, wy);
+      yj = jc == p ? yp : yj;
+    }
+    if (j < M) ysm[(static_cast<size_t>(k) * M + j) * lanes + ll] = yj;
+  }
+  __syncwarp();  // y of row M - 1 is read by the idle threads too
+
+  // backward: L_k and W_k through the ring (or still on chip), y_k[jc]
+  if constexpr (!kKeepLW) {
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < kSubstStages - 1; ++n) {
+      if (n < H)
+        stage_lw<M, true>(Ls, Ws, ring + n * ssz, H - 1 - n, l0, lanes, B);
+      cp_async_commit();
+    }
+  }
+  float xj = 0.f;  // x_{k+1}[j]
+  for (int n = 0; n < H; ++n) {
+    const int k = H - 1 - n;
+    if constexpr (!kKeepLW) {
+      cp_async_wait<kSubstStages - 2>();
+      __syncthreads();  // step k staged; the last step's stage is free
+      const int nn = n + kSubstStages - 1;
+      if (nn < H)
+        stage_lw<M, true>(Ls, Ws, ring + (nn % kSubstStages) * ssz,
+                          H - 1 - nn, l0, lanes, B);
+      cp_async_commit();
+    }
+    const float* Lk =
+        ring + (kKeepLW ? k : n % kSubstStages) * ssz + ll * M * M;
+    xj = backward_step<M>(Lk, Lk + lanes * M * M,
+                          ysm[(static_cast<size_t>(k) * M + jc) * lanes + ll],
+                          xj, jc, n > 0);
+    if (live && j < M) x[vec_idx(k, j, M, sB, lane)] = xj;
+  }
 }
 
 template <int M, bool kFactorOut>
@@ -531,13 +644,23 @@ cudaError_t launch(const float* D, const float* U, const float* b, float* x,
   return cudaGetLastError();
 }
 
-template <int M>
+template <int M, bool kKeepLW>
 cudaError_t launch_subst(const float* Ls, const float* Ws, const float* b,
-                         float* x, float* ys, int H, int B,
+                         float* x, int H, int B, int lanes,
                          cudaStream_t stream) {
-  const int blocks = (B + kThreads - 1) / kThreads;
-  btridiag_subst_kernel<M><<<blocks, kThreads, 0, stream>>>(Ls, Ws, b, x, ys,
-                                                            H, B);
+  constexpr int G = group_size(M);
+  if (lanes < 1 || lanes * G > kSweepThreads || lanes * G % 32 != 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = subst_smem_floats(M, lanes, H, kKeepLW) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        btridiag_subst_kernel<M, kKeepLW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (B + lanes - 1) / lanes;
+  btridiag_subst_kernel<M, kKeepLW><<<blocks, lanes * G, smem, stream>>>(
+      Ls, Ws, b, x, H, B);
   return cudaGetLastError();
 }
 
@@ -583,12 +706,16 @@ extern "C" int trt_btridiag_factor_launch(const float* D, const float* U,
 }
 
 // L, W (H, M, M, B) from the factor sweep, a fresh b (H, M, B) -> x
-// (H, M, B), with y (H, M, B) as device scratch.
+// (H, M, B), `lanes` lanes per block; keep_lw nonzero holds every step's
+// L and W in shared memory between the passes.
 extern "C" int trt_btridiag_subst_launch(const float* Ls, const float* Ws,
-                                         const float* b, float* x, float* ys,
-                                         int H, int M, int B, void* stream) {
+                                         const float* b, float* x, int H,
+                                         int M, int B, int lanes, int keep_lw,
+                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TRT_S(m) launch_subst<m>(Ls, Ws, b, x, ys, H, B, s)
+#define TRT_S(m)                                                    \
+  (keep_lw ? launch_subst<m, true>(Ls, Ws, b, x, H, B, lanes, s)    \
+           : launch_subst<m, false>(Ls, Ws, b, x, H, B, lanes, s))
   switch (M) { TRT_M_CASES(TRT_S) }
 #undef TRT_S
 }

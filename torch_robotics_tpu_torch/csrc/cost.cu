@@ -66,71 +66,6 @@ constexpr int kMaxThreads = 256;  // lanes * threads a lane, at most
 // 4 blocks of 256 threads an SM: ptxas keeps a thread within 64 registers,
 // with no spill, and that occupancy ran faster than 80 registers
 constexpr int kMinBlocks = 4;
-constexpr int kHeader = 16;       // ints before the first section
-
-// Views into the packed buffers (in shared memory); the section order is
-// fixed by pack_cost_params in torch_robotics_tpu_torch/ops/terms_kernel.py.
-// Step s of member m (mem_step[m] <= s < mem_step[m + 1]) computes one
-// link from its records: ints step_i[8 s..] = (joint type, q column or -1,
-// parent source: -2 the previous step, -1 the member's base, else a slot;
-// its own slot or -1, its points pt_list[begin, end), of which the last
-// n_off are offset points, and the first of their offset records
-// offsets[4 obegin..] = (offset in the link's frame, 0)) and floats
-// step_f[20 s..] = (fixed rotation 9, translation 3, axis 3, clamp lo, hi,
-// 3 pad).  Object o's record objects[12 o..] = (rotation 9, position 3).
-// A grid object o (obj_grid[o] >= 0) has the identity record and no
-// groups; its header is grid_i[4 g..] (first row in the grid table,
-// cmap_dim) and grid_f[8 g..] (lower limits, 0, extent, 0), and its cells
-// are rows of the scene's grid table in device memory (kin_scene.cuh:
-// grid_sdf).
-struct CostLayout {
-  int n_mem, D, P, NO, K, NOBJ, NG, S, n_slots, T, NGRID, NOFF;
-  const int *step_i, *mem_step, *pt_list, *obj_pt, *pair_a, *pair_b, *cuts,
-      *obj_group_begin, *group_kind, *group_count, *group_off, *obj_grid,
-      *grid_i;
-  const float *prims, *objects, *grid_f, *step_f, *offsets, *base_R, *base_t,
-      *obj_thresh, *pair_margin, *ws_min, *ws_max;
-  const float4* grid;
-};
-
-__device__ __forceinline__ CostLayout parse_layout(const int* ip,
-                                                   const float* fp,
-                                                   const float4* grid) {
-  CostLayout a;
-  a.n_mem = ip[0]; a.D = ip[1]; a.P = ip[2]; a.NO = ip[3]; a.K = ip[4];
-  a.NOBJ = ip[5]; a.NG = ip[6]; a.S = ip[7]; a.n_slots = ip[8]; a.T = ip[9];
-  a.NGRID = ip[11]; a.NOFF = ip[12];
-  const int* p = ip + kHeader;
-  a.step_i = p; p += 8 * a.S;
-  a.mem_step = p; p += a.n_mem + 1;
-  a.pt_list = p; p += a.P;
-  a.obj_pt = p; p += a.NO;
-  a.pair_a = p; p += a.K;
-  a.pair_b = p; p += a.K;
-  a.cuts = p; p += a.T + 1;
-  a.obj_group_begin = p; p += a.NOBJ + 1;
-  a.group_kind = p; p += a.NG;
-  a.group_count = p; p += a.NG;
-  a.group_off = p; p += a.NG;
-  a.obj_grid = p; p += a.NOBJ;
-  a.grid_i = p;
-  const float* f = fp;
-  a.prims = f; f += ip[10];  // the primitive tables' floats
-  a.objects = f; f += 12 * a.NOBJ;
-  a.grid_f = f; f += 8 * a.NGRID;
-  a.step_f = f; f += 20 * a.S;
-  a.offsets = f; f += 4 * a.NOFF;
-  a.base_R = f; f += 9 * a.n_mem;
-  a.base_t = f; f += 3 * a.n_mem;
-  a.obj_thresh = f; f += a.NO;
-  a.pair_margin = f; f += a.K;
-  a.ws_min = f; f += 3;
-  a.ws_max = f;
-  a.grid = grid;
-  return a;
-}
-
-__device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 cost_kernel(const float* __restrict__ q, float* __restrict__ cost_out, int N,

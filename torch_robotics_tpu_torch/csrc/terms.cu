@@ -1,8 +1,8 @@
-// Fused Gauss-Newton obstacle terms for one kinematic robot in an analytic
-// primitive scene: FK -> collision points -> analytic point Jacobians ->
-// scene SDF + gradient -> hinge residuals -> g = sum r Jr, Hqq = Jr^T Jr,
-// cost = 0.5 sum r^2, all unscaled by the collision weight.  (The same
-// rows' cost alone is cost.cu's.)
+// Fused Gauss-Newton obstacle terms for one kinematic robot in a scene of
+// analytic primitives and precomputed SDF grids: FK -> collision points ->
+// analytic point Jacobians -> scene SDF + gradient -> hinge residuals ->
+// g = sum r Jr, Hqq = Jr^T Jr, cost = 0.5 sum r^2, all unscaled by the
+// collision weight.  (The same rows' cost alone is cost.cu's.)
 //
 // terms_kernel replaces the TPU kernel torch_robotics_tpu/ops/pallas_terms.py
 // (obstacle_terms_pallas_factory, the pallas_call in _build_terms); its
@@ -12,168 +12,199 @@
 // per object point and grid), where the TPU kernel took rows gathered
 // before it by XLA (Mosaic has no vector gather; _grid_extras_fn).
 //
-// Design: one thread per waypoint lane n.  Loads of q_cols (d, N) and the
-// stores of g (d, N), Hqq (d, d, N), cost (N) are lane-minor, so a warp's
-// accesses coalesce.  Instead of generating code per robot, the model and
-// scene live in two small device buffers (ints, floats) packed once by the
-// wrapper; every thread reads the same entries (broadcast, cached).  Link
-// transforms sit in per-thread local memory.  The g / Hqq accumulators are
-// registers: the kernel is templated on the number of joints D.  It shares
-// the FK chain (fk_links) and the scene SDF (scene_sdf) of kin_scene.cuh
-// with the MultiRobot terms kernel (mr_terms.cu).
+// What bounds it on the H100: bytes.  For the Panda in EnvSpheres3D on
+// the MPC path's waypoints the function needs ~2.4k float ops a lane (FK,
+// the SDF of 5 points against 10 spheres, and Jacobian and Hessian work
+// only for the ~9% of rows that are active, over the joints that move
+// their points) against 256 bytes of memory traffic (q in; g, the full
+// Hqq and the cost out): at N = 65536 ~2.3 us of float32 work and ~5.0 us
+// of HBM traffic.  The Panda holding a grasped box has 104 rows (19 object
+// SDF, 19 workspace, 66 pairs), 4.4% of them active on the main path's q
+// and no pair row active on it; in a grid scene each object point also
+// reads one 16-byte table row a grid, a dependent load of one 32-byte
+// sector from a table larger than the L2.
 //
-// What bounds terms_kernel on the H100: bytes.  For the Panda in
-// EnvSpheres3D on the MPC path's waypoints the function needs ~2.4k float
-// ops per lane (FK, the SDF of 5 points against 10 spheres, and Jacobian
-// and Hessian work only for the ~9% of rows that are active, over the
-// joints that move their points) against 256 bytes of memory traffic: at
-// N = 65536 that is ~2.3 us of float32 work and ~5.0 us of HBM traffic.
-// This kernel does more than the function needs: it builds every row's
-// Jacobian and adds every row's 28 Hessian entries, active or not, and
-// keeps the link transforms in local memory, so it runs well above the
-// bound; skipping inactive rows and keeping the transforms in registers
-// come first in a faster version.  A robot that holds a grasped object
-// has G more points (14 for GraspedObjectPandaBox), each fixed in the
-// grasped link's frame: a row computes such a point from the link's
-// transform when it needs it (kin_scene.cuh: offset_point, 15 float ops)
-// rather than keeping P world points a thread, which would add 12 bytes a
-// point of local memory beside the link transforms.  The grasped Panda's
-// 104 rows (19 object SDF, 19 workspace, 66 pairs) are ~5x the 20 rows of
-// the Panda without it.  In a grid scene the function also
-// reads one 16-byte table row per object point and grid, 80 bytes a lane
-// for the Panda, scattered over a table larger than the L2 at 0.01 m
-// cells: each lookup is a dependent load of one 32-byte sector.
+// Design, against what held the earlier kernel back (every row's Jacobian
+// built and all 28 Hessian entries added, active or not; the link
+// transforms, 1.6 KB a thread, in local memory; every model and scene
+// entry a dependent load from device memory):
+//   - the block copies the packed parameters into shared memory with
+//     16-byte loads (the cost kernel's packing, pack_cost_params, with the
+//     points' joint masks after it: pack_terms_params), and its lanes' q;
+//     FK and the SDF read shared memory, a step's, an object's or a
+//     sphere's data as 16-byte records, the same address in every thread
+//     of a warp;
+//   - one thread a lane runs the FK chain in registers (cost.cuh:
+//     joint_transform, compose, sincos_rn): each step composes the
+//     previous step's transform with its joint's, a transform that a
+//     later, non-adjacent step reads goes to shared memory, and the step
+//     writes the world position of each collision point on its link (a
+//     grasped point at R o + t, kin_scene.cuh: offset_point) and, for a
+//     joint, its world axis (zeroed outside the clamp) and origin, all
+//     lane-minor ([(3 p + k) * lanes + lane]: no bank conflicts).  The
+//     order of operations is fk_links', so points and axes are its bits;
+//   - a row first takes its value alone (the object SDF by cost.cuh's
+//     scene_sdf_value, a pair's distance only where d^2 <= m^2 (1 + 1e-6),
+//     as cost.cu); only a row with r > 0 (or NaN) takes its gradient
+//     (scene_sdf_grad), its Jacobian columns over the joints that move its
+//     points, and adds r^2, r Jr and Jr^T Jr.  An inactive row would add
+//     +-0 to g and Hqq and 0 to the cost, so the active rows, summed in
+//     the rows' order, give the bits of summing every row;
+//   - the g / Hqq accumulators are registers (the kernel is templated on
+//     the number of joints D) and nothing is indexed by a run-time number
+//     in a per-thread array, so no local memory.
+// terms_launch_config in ops/terms_kernel.py picks the lanes a block from
+// the packed sizes.
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "kin_scene.cuh"
+#include "cost.cuh"
 
 namespace {
 
 using namespace trt;
 
-constexpr int kMaxLinks = 32;
-constexpr int kThreads = 128;
-
-// Views into the packed buffers; the section order is fixed by
-// pack_terms_params in torch_robotics_tpu_torch/ops/terms_kernel.py.  Of
-// the P points the first P - G are link origins, the last G (grasped
-// points) are fixed at pt_off[3 (p - (P - G))..] in their link's frame.
-// A grid object o (obj_grid[o] >= 0) reads its header from grid_i / grid_f
-// and its cells from the scene's grid table (kin_scene.cuh: grid_sdf).
-struct Layout {
-  int L, D, P, NO, K, NOBJ, NG, NGRID, G;
-  const int *topo, *parent, *jtype, *qidx, *ctrl, *point_link, *anc, *obj_pt,
-      *pair_a, *pair_b, *obj_group_begin, *group_kind, *group_count,
-      *group_off, *obj_grid, *grid_i;
-  const float *trans, *frot, *axis, *clo, *chi, *obj_thresh, *pair_margin,
-      *ws_min, *ws_max, *pt_off, *obj_rot, *obj_pos, *grid_f, *prims;
-  const float4* grid;
-};
-
-__device__ Layout parse_layout(const int* ip, const float* fp,
-                               const float4* grid) {
-  Layout a;
-  a.L = ip[0]; a.D = ip[1]; a.P = ip[2]; a.NO = ip[3]; a.K = ip[4];
-  a.NOBJ = ip[5]; a.NG = ip[6]; a.NGRID = ip[7]; a.G = ip[8];
-  const int* p = ip + 9;
-  a.topo = p; p += a.L;
-  a.parent = p; p += a.L;
-  a.jtype = p; p += a.L;
-  a.qidx = p; p += a.L;
-  a.ctrl = p; p += a.D;
-  a.point_link = p; p += a.P;
-  a.anc = p; p += a.P;
-  a.obj_pt = p; p += a.NO;
-  a.pair_a = p; p += a.K;
-  a.pair_b = p; p += a.K;
-  a.obj_group_begin = p; p += a.NOBJ + 1;
-  a.group_kind = p; p += a.NG;
-  a.group_count = p; p += a.NG;
-  a.group_off = p; p += a.NG;
-  a.obj_grid = p; p += a.NOBJ;
-  a.grid_i = p;
-  const float* f = fp;
-  a.trans = f; f += 3 * a.L;
-  a.frot = f; f += 9 * a.L;
-  a.axis = f; f += 3 * a.L;
-  a.clo = f; f += a.L;
-  a.chi = f; f += a.L;
-  a.obj_thresh = f; f += a.NO;
-  a.pair_margin = f; f += a.K;
-  a.ws_min = f; f += 3;
-  a.ws_max = f; f += 3;
-  a.pt_off = f; f += 3 * a.G;
-  a.obj_rot = f; f += 9 * a.NOBJ;
-  a.obj_pos = f; f += 3 * a.NOBJ;
-  a.grid_f = f; f += 8 * a.NGRID;
-  a.prims = f;
-  a.grid = grid;
-  return a;
-}
+constexpr int kMaxLanes = 128;    // threads (lanes) a block, at most
+// 4 blocks of 128 an SM: ptxas keeps a thread within 128 registers, and
+// without the bound it spilled at D = 1, 2, 4 and 6 (16-32 bytes)
+constexpr int kMinBlocks = 4;
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxLanes, kMinBlocks)
 terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
              float* __restrict__ h_out, float* __restrict__ cost_out, int N,
-             const int* __restrict__ ip, const float* __restrict__ fp,
+             const int* __restrict__ ip, int n_ints,
+             const float* __restrict__ fp, int n_floats,
              const float4* __restrict__ grid) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const Layout a = parse_layout(ip, fp, grid);
+  extern __shared__ __align__(16) float smem[];
+  const int lanes = blockDim.x, lane = threadIdx.x;
+  const int n = blockIdx.x * lanes + lane;
+  const bool valid = n < N;
 
-  float qv[D];
+  // ---- the parameters and the block's q (D, lanes) into shared memory ----
+  int* ism = reinterpret_cast<int*>(smem);
+  float* fsm = smem + round4(n_ints);
+  float* qs = fsm + round4(n_floats);
 #pragma unroll
-  for (int j = 0; j < D; ++j) qv[j] = q[(size_t)j * N + n];
+  for (int j = 0; j < D; ++j)
+    qs[j * lanes + lane] = valid ? q[(size_t)j * N + n] : 0.f;
+  copy_words(ip, ism, n_ints, lane, lanes);
+  copy_words(fp, fsm, n_floats, lane, lanes);
+  __syncthreads();
+  // the cost kernel's layout (cost.cuh; its base pose and row cuts are not
+  // read here), then anc_of[P], the joints that move each point as a bit mask
+  const CostLayout a = parse_layout(ism, fsm, grid);
+  const int* anc_of = ism + n_ints - a.P;
+  float* zo = qs + D * lanes;            // [6 D][lanes]: axis z_j, origin o_j
+  float* pts = zo + 6 * D * lanes;       // [3 P][lanes]
+  float* slots = pts + 3 * a.P * lanes;  // [12 n_slots][lanes]
+  // a joint that moves no point keeps a zero axis (its columns are masked)
+#pragma unroll
+  for (int k = 0; k < 6 * D; ++k) zo[k * lanes + lane] = 0.f;
 
-  float Rw[kMaxLinks][9], tw[kMaxLinks][3];
-  fk_links(a, qv, Rw, tw);
-
-  // ---- world joint axes (zeroed outside the clamp, bounds inclusive) ----
-  float z[D][3], o[D][3];
-  bool prism[D];
+  // ---- FK in registers -> joint axes and origins, world points ----
+  unsigned prism = 0;                    // bit j: joint j is prismatic
+  {
+    float R[9], tv[3];  // the previous step's world transform
+    for (int s = 0; s < a.S; ++s) {
+      const int4 i0 = reinterpret_cast<const int4*>(a.step_i)[2 * s];
+      const int4 i1 = reinterpret_cast<const int4*>(a.step_i)[2 * s + 1];
+      const float4* fr = reinterpret_cast<const float4*>(a.step_f) + 5 * s;
+      const float4 f0 = fr[0], f1 = fr[1], f2 = fr[2], f3 = fr[3];
+      const float F[9] = {f0.x, f0.y, f0.z, f0.w, f1.x,
+                          f1.y, f1.z, f1.w, f2.x};
+      const float axis[3] = {f3.x, f3.y, f3.z};
+      const float lo = f3.w, hi = fr[4].x;
+      float tr[3] = {f2.y, f2.z, f2.w};
+      float Rl[9];
+      const float qj = i0.y >= 0 ? qs[i0.y * lanes + lane] : 0.f;
+      joint_transform(i0.x, F, axis, lo, hi, qj, Rl, tr);
+      if (i0.z == -1) {  // the root, at the identity base: as fk_links, its
+                         // local transform (no product with the base)
 #pragma unroll
-  for (int j = 0; j < D; ++j) {
-    const int li = a.ctrl[j];
-    const float in_lim =
-        (qv[j] >= a.clo[li] && qv[j] <= a.chi[li]) ? 1.f : 0.f;
+        for (int k = 0; k < 9; ++k) R[k] = Rl[k];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      z[j][k] = (Rw[li][3 * k] * a.axis[3 * li] +
-                 Rw[li][3 * k + 1] * a.axis[3 * li + 1] +
-                 Rw[li][3 * k + 2] * a.axis[3 * li + 2]) * in_lim;
-      o[j][k] = tw[li][k];
+        for (int k = 0; k < 3; ++k) tv[k] = tr[k];
+      } else {
+        if (i0.z >= 0) {  // a stored transform
+#pragma unroll
+          for (int k = 0; k < 9; ++k)
+            R[k] = slots[(12 * i0.z + k) * lanes + lane];
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            tv[k] = slots[(12 * i0.z + 9 + k) * lanes + lane];
+        }
+        float Rn[9], tn[3];
+        compose(R, tv, Rl, tr, Rn, tn);
+#pragma unroll
+        for (int k = 0; k < 9; ++k) R[k] = Rn[k];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) tv[k] = tn[k];
+      }
+      if (i0.w >= 0) {
+#pragma unroll
+        for (int k = 0; k < 9; ++k)
+          slots[(12 * i0.w + k) * lanes + lane] = R[k];
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          slots[(12 * i0.w + 9 + k) * lanes + lane] = tv[k];
+      }
+      if (i0.y >= 0) {  // joint i0.y: world axis (0 outside the clamp)
+        const float in_lim = (qj >= lo && qj <= hi) ? 1.f : 0.f;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          zo[(6 * i0.y + k) * lanes + lane] =
+              (R[3 * k] * axis[0] + R[3 * k + 1] * axis[1] +
+               R[3 * k + 2] * axis[2]) * in_lim;
+          zo[(6 * i0.y + 3 + k) * lanes + lane] = tv[k];
+        }
+        prism |= (i0.x == kPrismatic ? 1u : 0u) << i0.y;
+      }
+      const int first_off = i1.y - i1.z;
+      for (int i = i1.x; i < first_off; ++i) {  // the link's origin
+        const int p = a.pt_list[i];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) pts[(3 * p + k) * lanes + lane] = tv[k];
+      }
+      for (int i = first_off; i < i1.y; ++i) {  // offset points: R o + t
+        const float4 o4 =
+            reinterpret_cast<const float4*>(a.offsets)[i1.w + i - first_off];
+        const float o[3] = {o4.x, o4.y, o4.z};
+        float x[3];
+        offset_point(R, tv, o, x);
+        const int p = a.pt_list[i];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) pts[(3 * p + k) * lanes + lane] = x[k];
+      }
     }
-    prism[j] = a.jtype[li] == kPrismatic;
   }
+  // every array above is this thread's own lane: no barrier before the rows
 
-  // World position of point p: its link's origin, or for a grasped point
-  // its offset carried by the link's frame.
-  const int n_origin = a.P - a.G;
   auto point = [&](int p, float x[3]) {
-    const int l = a.point_link[p];
-    if (p < n_origin) {
-      x[0] = tw[l][0]; x[1] = tw[l][1]; x[2] = tw[l][2];
-    } else {
-      offset_point(Rw[l], tw[l], a.pt_off + 3 * (p - n_origin), x);
-    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) x[k] = pts[(3 * p + k) * lanes + lane];
   };
 
-  // Jacobian column j of point p at world position x (zero unless joint j
-  // moves p's link).
-  auto jac = [&](int p, const float x[3], int j, float out[3]) {
-    if (!((a.anc[p] >> j) & 1)) {
+  // Jacobian column j of a point at world position x whose joint mask is
+  // anc (zero unless joint j moves it)
+  auto jac = [&](unsigned anc, const float x[3], int j, float out[3]) {
+    if (!((anc >> j) & 1)) {
       out[0] = out[1] = out[2] = 0.f;
       return;
     }
-    if (prism[j]) {
-      out[0] = z[j][0]; out[1] = z[j][1]; out[2] = z[j][2];
+    const float z[3] = {zo[(6 * j) * lanes + lane],
+                        zo[(6 * j + 1) * lanes + lane],
+                        zo[(6 * j + 2) * lanes + lane]};
+    if ((prism >> j) & 1) {
+      out[0] = z[0]; out[1] = z[1]; out[2] = z[2];
       return;
     }
-    const float d0 = x[0] - o[j][0], d1 = x[1] - o[j][1], d2 = x[2] - o[j][2];
-    out[0] = z[j][1] * d2 - z[j][2] * d1;
-    out[1] = z[j][2] * d0 - z[j][0] * d2;
-    out[2] = z[j][0] * d1 - z[j][1] * d0;
+    const float d0 = x[0] - zo[(6 * j + 3) * lanes + lane],
+                d1 = x[1] - zo[(6 * j + 4) * lanes + lane],
+                d2 = x[2] - zo[(6 * j + 5) * lanes + lane];
+    out[0] = z[1] * d2 - z[2] * d1;
+    out[1] = z[2] * d0 - z[0] * d2;
+    out[2] = z[0] * d1 - z[1] * d0;
   };
 
   float gacc[D], hacc[D * (D + 1) / 2], cacc = 0.f;
@@ -193,16 +224,15 @@ terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
       for (int j = i; j < D; ++j) hacc[t++] += Jr[i] * Jr[j];
   };
 
-  // hinge row relu(thresh - val) with Jr_j = -[r > 0] grad . J[p][j]
-  auto hinge = [&](int p, const float x[3], float thresh, float val,
-                   const float grad[3]) {
-    const float r = relu(thresh - val);
+  // an active point row r with Jr_j = -[r > 0] grad . J[p][j]
+  auto hinge = [&](int p, const float x[3], float r, const float grad[3]) {
     const float act = r > 0.f ? 1.f : 0.f;
+    const unsigned anc = static_cast<unsigned>(anc_of[p]);
     float Jr[D];
 #pragma unroll
     for (int j = 0; j < D; ++j) {
       float c[3];
-      jac(p, x, j, c);
+      jac(anc, x, j, c);
       Jr[j] = -act * (grad[0] * c[0] + grad[1] * c[1] + grad[2] * c[2]);
     }
     add_row(r, Jr);
@@ -210,14 +240,16 @@ terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
 
   // ---- object rows: scene SDF hinge per object point (NOBJ counts the
   // scene's analytic objects and grids alike) ----
-  if (a.NOBJ > 0) {
-    for (int mi = 0; mi < a.NO; ++mi) {
-      const int p = a.obj_pt[mi];
-      float x[3], val, grad[3];
-      point(p, x);
-      scene_sdf<true>(a, x, val, grad);
-      hinge(p, x, a.obj_thresh[mi], val, grad);
-    }
+  const int n_sdf = a.NOBJ > 0 ? a.NO : 0;
+  for (int mi = 0; mi < n_sdf; ++mi) {
+    const int p = a.obj_pt[mi];
+    float x[3];
+    point(p, x);
+    const float r = relu(a.obj_thresh[mi] - scene_sdf_value(a, x));
+    if (r <= 0.f) continue;
+    float grad[3];
+    scene_sdf_grad(a, x, grad);
+    hinge(p, x, r, grad);
   }
 
   // ---- workspace rows: min-face distance, first minimal face wins ----
@@ -231,11 +263,16 @@ terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
     float val = faces[0];
 #pragma unroll
     for (int f = 1; f < 6; ++f) val = fminf(val, faces[f]);
-    int fi = 0;
-    while (fi < 5 && !(faces[fi] <= val)) ++fi;
-    float grad[3] = {0.f, 0.f, 0.f};
-    grad[fi % 3] = fi < 3 ? 1.f : -1.f;
-    hinge(p, x, a.obj_thresh[mi], val, grad);
+    const float r = relu(a.obj_thresh[mi] - val);
+    if (r <= 0.f) continue;
+    int fi = 5;  // the first face f < 5 with faces[f] <= val, else 5
+#pragma unroll
+    for (int f = 4; f >= 0; --f) fi = faces[f] <= val ? f : fi;
+    float grad[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      grad[k] = fi == k ? 1.f : (fi == k + 3 ? -1.f : 0.f);
+    hinge(p, x, r, grad);
   }
 
   // ---- self-collision pair rows ----
@@ -246,17 +283,23 @@ terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
     point(pb, xb);
     const float diff[3] = {xa[0] - xb[0], xa[1] - xb[1], xa[2] - xb[2]};
     const float d2 = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2];
+    const float m = a.pair_margin[k];
+    // d2 >= m^2 (1 + 1e-6) > m^2 gives sqrtf(d2) >= m, a zero row
+    if (d2 > m * m * 1.000001f) continue;
     const float dist = d2 > 0.f ? sqrtf(d2) : 0.f;
+    const float r = relu(m - dist);
+    if (r <= 0.f) continue;
     const float inv = d2 > 0.f ? 1.f / fmaxf(dist, 1e-9f) : 0.f;
     const float u[3] = {diff[0] * inv, diff[1] * inv, diff[2] * inv};
-    const float r = relu(a.pair_margin[k] - dist);
     const float act = r > 0.f ? 1.f : 0.f;
+    const unsigned anc_a = static_cast<unsigned>(anc_of[pa]),
+                   anc_b = static_cast<unsigned>(anc_of[pb]);
     float Jr[D];
 #pragma unroll
     for (int j = 0; j < D; ++j) {
       float ca[3], cb[3];
-      jac(pa, xa, j, ca);
-      jac(pb, xb, j, cb);
+      jac(anc_a, xa, j, ca);
+      jac(anc_b, xb, j, cb);
       Jr[j] = -act * (u[0] * (ca[0] - cb[0]) + u[1] * (ca[1] - cb[1]) +
                       u[2] * (ca[2] - cb[2]));
     }
@@ -264,6 +307,7 @@ terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
   }
 
   // ---- outputs: unscaled g (D, N), Hqq (D, D, N), cost (N) ----
+  if (!valid) return;
 #pragma unroll
   for (int j = 0; j < D; ++j) g_out[(size_t)j * N + n] = gacc[j];
   int t = 0;
@@ -280,34 +324,43 @@ terms_kernel(const float* __restrict__ q, float* __restrict__ g_out,
 
 template <int D>
 cudaError_t launch(const float* q, float* g, float* h, float* cost, int N,
-                   const int* ip, const float* fp, const float4* grid,
+                   int lanes, int smem, const int* ip, int n_ints,
+                   const float* fp, int n_floats, const float4* grid,
                    cudaStream_t stream) {
-  const int blocks = (N + kThreads - 1) / kThreads;
-  terms_kernel<D><<<blocks, kThreads, 0, stream>>>(q, g, h, cost, N, ip, fp,
-                                                   grid);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        terms_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  terms_kernel<D><<<(N + lanes - 1) / lanes, lanes, smem, stream>>>(
+      q, g, h, cost, N, ip, n_ints, fp, n_floats, grid);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q (D, N) -> g (D, N), h (D, D, N), cost (N); grid the scene's grid table
-// ((C, 4) float32, null for a scene without grids); returns a CUDA error
-// code (cudaErrorInvalidValue for D outside 1..8).
+// q (D, N) -> g (D, N), h (D, D, N), cost (N); ip (n_ints) / fp (n_floats)
+// the packed parameters (pack_terms_params), lanes the block's threads and
+// smem_bytes its dynamic shared memory (terms_launch_config), grid the
+// scene's grid table ((C, 4) float32, null for a scene without grids).
+// Returns a CUDA error code (cudaErrorInvalidValue for D outside 1..8 or a
+// block of more than kMaxLanes threads).
 extern "C" int trt_terms_launch(const float* q, float* g, float* h,
-                                float* cost, int N, int D, const int* ip,
-                                const float* fp, const void* grid,
-                                void* stream) {
+                                float* cost, int N, int D, int lanes,
+                                int smem_bytes, const int* ip, int n_ints,
+                                const float* fp, int n_floats,
+                                const void* grid, void* stream) {
+  if (lanes < 1 || lanes > kMaxLanes)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float4* t = static_cast<const float4*>(grid);
+#define TRT_D(d)                                                        \
+  case d:                                                               \
+    return launch<d>(q, g, h, cost, N, lanes, smem_bytes, ip, n_ints, fp, \
+                     n_floats, t, s);
   switch (D) {
-    case 1: return launch<1>(q, g, h, cost, N, ip, fp, t, s);
-    case 2: return launch<2>(q, g, h, cost, N, ip, fp, t, s);
-    case 3: return launch<3>(q, g, h, cost, N, ip, fp, t, s);
-    case 4: return launch<4>(q, g, h, cost, N, ip, fp, t, s);
-    case 5: return launch<5>(q, g, h, cost, N, ip, fp, t, s);
-    case 6: return launch<6>(q, g, h, cost, N, ip, fp, t, s);
-    case 7: return launch<7>(q, g, h, cost, N, ip, fp, t, s);
-    case 8: return launch<8>(q, g, h, cost, N, ip, fp, t, s);
+    TRT_D(1) TRT_D(2) TRT_D(3) TRT_D(4) TRT_D(5) TRT_D(6) TRT_D(7) TRT_D(8)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef TRT_D
 }

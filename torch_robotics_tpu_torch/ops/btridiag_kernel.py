@@ -14,8 +14,9 @@ Counterparts of torch_robotics_tpu/ops/pallas_btridiag.py:
 - ``solve_lanes_factor``: the W-persisting sweep with its factors L and W
   as outputs (``solve_lanes_pallas_factor``), and ``solve_lanes_subst``:
   the substitution-only re-solve from them with a fresh right-hand side
-  (``solve_lanes_pallas_subst``); GN factorization reuse.  Both in
-  ``csrc/btridiag.cu``, m in {2, 4, ..., 16}.
+  (``solve_lanes_pallas_subst``), a group of threads per lane as the sweep
+  has, launched as ``subst_launch_config`` says; GN factorization reuse.
+  Both in ``csrc/btridiag.cu``, m in {2, 4, ..., 16}.
 - ``solve_lanes_sweep(D, U, b, bwd_trsv=False)``: the sweep that keeps L
   and y only and recomputes W_k in its backward pass, by a triangular solve
   or, with ``bwd_trsv``, as a matvec and a triangular vector solve
@@ -53,7 +54,7 @@ __all__ = ["KERNEL", "COLS_KERNEL", "FACTOR_KERNEL", "SUBST_KERNEL",
            "SWEEP_KERNEL", "CR_KERNEL", "solve_lanes_w", "solve_lanes_cols",
            "solve_lanes_auto", "solve_lanes_factor", "solve_lanes_subst",
            "solve_lanes_sweep", "solve_lanes_cr", "sweep_launch_config",
-           "cols_launch_config"]
+           "subst_launch_config", "cols_launch_config"]
 
 _P = ctypes.c_void_p
 KERNEL = CudaKernel("btridiag.cu", {
@@ -71,8 +72,7 @@ FACTOR_KERNEL = CudaKernel("btridiag.cu", {
                                    _P],
 })
 SUBST_KERNEL = CudaKernel("btridiag.cu", {
-    "trt_btridiag_subst_launch": [_P, _P, _P, _P, _P, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_int, _P],
+    "trt_btridiag_subst_launch": [_P, _P, _P, _P] + [ctypes.c_int] * 5 + [_P],
 })
 SWEEP_KERNEL = CudaKernel("btridiag_sweep.cu", {
     "trt_btridiag_sweep_launch": [_P, _P, _P, _P, _P, _P, ctypes.c_int,
@@ -90,6 +90,10 @@ _N_SM = 132                                 # H100 SXM
 _W_MAX_M = 16     # the reference's _SCALAR_KERNEL_MAX_M: above it, columns
 _SWEEP_THREADS = 128                        # btridiag.cu kSweepThreads
 _SWEEP_STAGES = 5                           # btridiag.cu kStages
+_SUBST_STAGES = 8                           # btridiag.cu kSubstStages
+_SMEM_MAX = 232448        # shared memory a block can have on the H100
+_SM_SMEM = 233472         # shared memory of one SM
+_BLOCK_SMEM_RESERVED = 1024   # of it reserved by CUDA for each block
 
 
 def sweep_launch_config(m: int, B: int) -> dict:
@@ -110,6 +114,42 @@ def sweep_launch_config(m: int, B: int) -> dict:
     floats = lanes * (m * w_row + 4 + m) + _SWEEP_STAGES * stage
     return dict(group=group, lanes_per_block=lanes, threads=lanes * group,
                 smem_bytes=4 * floats, grid=-(-B // lanes))
+
+
+def subst_launch_config(m: int, B: int, H: int, keep_lw=None) -> dict:
+    """Launch shape of the substitution (``btridiag_subst_kernel``): the
+    sweep's group of ``group`` threads per lane, ``lanes_per_block`` lanes
+    a block (whole warps; doubled up to 128 threads while the grid keeps at
+    least one block per SM), whether every step's L and W stay in shared
+    memory between the passes (``keep_lw``; by default where the whole
+    grid is then resident at once: 0.068 against 0.091 ms at (32, 14,
+    256) on an H100; at B = 1024 and 4096, where it is not, the ring of
+    stages is 1.5-1.8x faster), the dynamic shared memory in bytes
+    (``subst_smem_floats`` in the source: each lane's y, and the stages of
+    L_k, W_k and b_k, a ring of 8 or one a step) and the grid.
+    NotImplementedError where the block passes the H100's 232,448
+    bytes."""
+    group = 2
+    while group < m:
+        group *= 2
+    lanes = max(1, 32 // group)
+    while (2 * lanes * group <= _SWEEP_THREADS
+           and -(-B // (2 * lanes)) >= _N_SM):
+        lanes *= 2
+    grid = -(-B // lanes)
+
+    def smem(stages):
+        return 4 * lanes * (H * m + stages * (2 * m * m + m))
+    if keep_lw is None:
+        per_sm = _SM_SMEM // (smem(H) + _BLOCK_SMEM_RESERVED)
+        keep_lw = smem(H) <= _SMEM_MAX and grid <= _N_SM * per_sm
+    nbytes = smem(H if keep_lw else _SUBST_STAGES)
+    if nbytes > _SMEM_MAX:
+        raise NotImplementedError(
+            "the CUDA substitution's block needs %d bytes of shared memory "
+            "at H = %d, m = %d (at most %d)" % (nbytes, H, m, _SMEM_MAX))
+    return dict(group=group, lanes_per_block=lanes, threads=lanes * group,
+                keep_lw=bool(keep_lw), smem_bytes=nbytes, grid=grid)
 
 
 def cols_launch_config(m: int, B: int) -> dict:
@@ -283,12 +323,20 @@ def solve_lanes_subst(L: torch.Tensor, W: torch.Tensor, b: torch.Tensor):
     x = torch.empty((H, m, B), dtype=torch.float32, device=L.device)
     if B == 0 or H == 0:
         return x
-    ys = torch.empty_like(x)
+    return _launch_subst(L, W, b, x, subst_launch_config(m, B, H))
+
+
+def _launch_subst(L, W, b, x, launch: dict):
+    """The substitution's launch at ``launch``'s lanes a block and
+    ``keep_lw`` (checked CUDA inputs, x its output); a lane's result
+    depends on neither."""
+    H, m, _, B = L.shape
     with torch.cuda.device(L.device):
         stream = torch.cuda.current_stream().cuda_stream
         SUBST_KERNEL.launch("trt_btridiag_subst_launch", L.data_ptr(),
-                            W.data_ptr(), b.data_ptr(), x.data_ptr(),
-                            ys.data_ptr(), H, m, B, stream)
+                            W.data_ptr(), b.data_ptr(), x.data_ptr(), H, m,
+                            B, launch["lanes_per_block"],
+                            int(launch["keep_lw"]), stream)
     return x
 
 

@@ -14,7 +14,10 @@ The returned ``terms(q_cols, lam, h=None)`` keeps the reference contract:
 the kernel writes the unscaled g (d, N), Hqq (d, d, N) and cost (N); the
 wrapper applies lam and embeds them into g (H, m, B), Hb (H, m, m, B),
 cost (H, B) (or the h=None lanes layout).  A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises.
+version; a CUDA tensor launches the kernel or raises.  The terms kernel
+reads the cost kernel's packing of the same layout with each point's
+joint mask after it (``pack_terms_params``), staged in shared memory, at
+the lanes a block of ``terms_launch_config``.
 
 ``collision_cost_kernel_factory(task, terms=None)`` returns ``cost(q_cols (d, N)) ->
 (N,)``, 0.5 sum r^2 over the same rows, unscaled, with the same dispatch.
@@ -66,14 +69,15 @@ __all__ = ["KERNEL", "COST_KERNEL", "MR_KERNEL", "MR_COST_KERNEL", "MAX_DOF",
            "MR_MAX_MEMBERS", "obstacle_terms_kernel_factory",
            "collision_cost_kernel_factory", "multirobot_terms_kernel_factory",
            "pack_terms_params", "pack_multirobot_params", "pack_cost_params",
-           "cost_launch_config", "scene_grid_table", "run_terms_kernel",
+           "cost_launch_config", "terms_launch_config", "scene_grid_table",
+           "run_terms_kernel",
            "run_cost_kernel",
            "run_multirobot_terms_kernel", "run_multirobot_cost_kernel"]
 
 _P = ctypes.c_void_p
 KERNEL = CudaKernel("terms.cu", {
-    "trt_terms_launch": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P,
-                         _P, _P],
+    "trt_terms_launch": [_P] * 4 + [ctypes.c_int] * 4
+    + [_P, ctypes.c_int, _P, ctypes.c_int, _P, _P],
 })
 _COST_ARGS = {"trt_cost_launch": [_P, _P] + [ctypes.c_int] * 5
               + [_P, ctypes.c_int, _P, ctypes.c_int, _P, _P]}
@@ -87,7 +91,8 @@ MR_COST_KERNEL = CudaKernel("cost.cu", _COST_ARGS)
 MAX_DOF = 8        # terms.cu instantiates D = 1..8; mr_terms.cu kMaxDof
 MR_MAX_MEMBERS = 4  # mr_terms.cu kMaxMembers
 _MR_LANES = 32      # mr_terms.cu kLanes
-_MAX_LINKS = 32    # terms.cu kMaxLinks
+_MAX_LINKS = 32    # mr_terms.cu kMaxLinks: links per member
+_TERMS_LANES = 128        # terms.cu kMaxLanes: lanes (threads) a block
 _COST_HEADER = 16         # cost.cu kHeader
 _COST_MAX_THREADS = 256   # cost.cu kMaxThreads: lanes * threads a lane
 _COST_LANES = 128         # lanes a block at one thread a lane
@@ -179,33 +184,37 @@ def _offsets(lay) -> np.ndarray:
 
 def pack_terms_params(lay: TermsLayout):
     """Model + scene + collision rows -> (ints int32, floats float32), the
-    two buffers ``terms.cu`` reads (section order as in its parse_layout).
-    Of the P points the first P - G are link origins and the last G (the
-    header's ninth int) grasped points, whose offsets in their link's frame
-    are a float section of 3 G."""
-    model = lay.model
-    L = model.n_links
-    ctrl = list(model.controlled_link_idxs())
-    D = len(ctrl)
-    anc = model.ancestry_matrix()
-    q_idx = np.full(L, -1, np.int64)
-    q_idx[ctrl] = np.arange(D)
-    scene_i, scene_f = _pack_scene(lay.df_obj_list)
+    two buffers ``terms.cu`` reads (section order as in its parse_layout):
+    ``pack_cost_params``' buffers of the layout (its FK steps, points,
+    rows and scene records), then an int section of P bit masks, bit j of
+    point p set when joint j moves p's link (a grasped point's is its
+    link's)."""
+    ints, floats = pack_cost_params(lay)
+    anc = lay.model.ancestry_matrix()[lay.point_links]        # (P, D)
+    masks = [int(sum(1 << j for j in np.flatnonzero(row))) for row in anc]
+    return _i32([ints, masks]), floats
 
-    header = [L, D, len(lay.point_links), len(lay.obj_pos), len(lay.pair_a),
-              len(lay.df_obj_list), len(scene_i[1]), len(scene_i[5]),
-              lay.n_grasped]
-    anc_bits = [int(sum(1 << j for j in range(D) if anc[li, j]))
-                for li in lay.point_links]
-    ints = _i32([header, model.topological_order(), model.parent_idx,
-                 model.joint_types, q_idx, ctrl, lay.point_links, anc_bits,
-                 lay.obj_pos, lay.pair_a, lay.pair_b] + scene_i)
-    floats = _f32([model.joint_trans, model.joint_fixed_rot, model.joint_axis,
-                   model.clamp_lower, model.clamp_upper,
-                   lay.obj_thresh.cpu().numpy(),
-                   lay.self_margins.cpu().numpy(), lay.ws_min.cpu().numpy(),
-                   lay.ws_max.cpu().numpy(), _offsets(lay)] + scene_f)
-    return ints, floats
+
+def terms_launch_config(ints, n_floats: int, lanes=None) -> dict:
+    """Launch shape of ``terms.cu`` from its packed header: ``lanes`` lanes
+    (one thread each) a block, 128 unless given (whole warps fewer while
+    the block passes the H100's 232,448 bytes), and the dynamic shared
+    memory in bytes: the parameters, and per lane its q, joint axes and
+    origins (6 D), points (3 P) and stored transforms.  NotImplementedError
+    where 32 lanes do not fit."""
+    D, P, n_slots = int(ints[1]), int(ints[2]), int(ints[8])
+    lanes = _TERMS_LANES if lanes is None else lanes
+    fixed = 4 * (-(-len(ints) // 4) * 4 + -(-n_floats // 4) * 4)
+    per_lane = 4 * (7 * D + 3 * P + 12 * n_slots)
+    while lanes > 32 and fixed + lanes * per_lane > _SMEM_MAX:
+        lanes -= 32
+    smem = fixed + lanes * per_lane
+    if smem > _SMEM_MAX or not 1 <= lanes <= _TERMS_LANES:
+        raise NotImplementedError(
+            "the CUDA terms kernel's block needs %d bytes of shared memory "
+            "and %d threads (at most %d and %d)"
+            % (smem, lanes, _SMEM_MAX, _TERMS_LANES))
+    return dict(lanes=lanes, smem_bytes=smem)
 
 
 def _member_points(r, section):
@@ -540,10 +549,12 @@ def _grid_ptr(grid, q_cols):
 
 
 def run_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
-                     floats: torch.Tensor, d: int, grid=None):
+                     floats: torch.Tensor, d: int, launch: dict, grid=None):
     """Launch the CUDA terms kernel: q_cols (d, N) float32 contiguous CUDA
-    -> unscaled (g_q (d, N), Hqq (d, d, N), cost (N,)); ``grid`` the
-    scene's grid table when it has grids."""
+    -> unscaled (g_q (d, N), Hqq (d, d, N), cost (N,)); ``launch`` is
+    ``terms_launch_config``'s shape for these buffers (another lane count
+    a block gives the same bits by design); ``grid`` the scene's grid
+    table when it has grids."""
     _check_q(q_cols, ints, floats, d)
     grid_ptr = _grid_ptr(grid, q_cols)
     N = q_cols.shape[1]
@@ -555,8 +566,9 @@ def run_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
     with torch.cuda.device(q_cols.device):
         stream = torch.cuda.current_stream().cuda_stream
         KERNEL.launch("trt_terms_launch", q_cols.data_ptr(), g.data_ptr(),
-                      Hqq.data_ptr(), cost.data_ptr(), N, d, ints.data_ptr(),
-                      floats.data_ptr(), grid_ptr, stream)
+                      Hqq.data_ptr(), cost.data_ptr(), N, d, launch["lanes"],
+                      launch["smem_bytes"], ints.data_ptr(), ints.numel(),
+                      floats.data_ptr(), floats.numel(), grid_ptr, stream)
     return g, Hqq, cost
 
 
@@ -623,11 +635,13 @@ def run_multirobot_cost_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
 
 
 def _kernel_params(task):
-    """(d, ints, floats, plain terms) of a task the terms.cu kernels take,
-    or None where the reference's fused factories return None (a point
-    mass, robots without a kinematic model, interpolated collision points).
-    A 2-D scene raises NotImplementedError.  A robot with a learned
-    self-collision net packs no pair rows (its net row runs in
+    """(d, ints, floats, plain terms, launch shape) of a task the terms.cu
+    kernels take, or None where the reference's fused factories return
+    None (a point mass, robots without a kinematic model, interpolated
+    collision points).  A 2-D scene raises NotImplementedError, as do more
+    than MAX_DOF joints and a model whose block does not fit
+    (``terms_launch_config``).  A robot with
+    a learned self-collision net packs no pair rows (its net row runs in
     ``csrc/net_row.cu``)."""
     from ..robots.point_mass import RobotPointMass
     robot = task.robot
@@ -638,14 +652,14 @@ def _kernel_params(task):
     plain = obstacle_terms_lanes_factory(task)
     lay = plain.layout
     d = lay.model.n_dofs
-    if d > MAX_DOF or lay.model.n_links > _MAX_LINKS:
+    if d > MAX_DOF:
         raise NotImplementedError(
-            "the CUDA terms kernel takes at most %d joints and %d links"
-            % (MAX_DOF, _MAX_LINKS))
+            "the CUDA terms kernel takes at most %d joints" % MAX_DOF)
     ints_np, floats_np = pack_terms_params(lay)
+    launch = terms_launch_config(ints_np, len(floats_np))
     ints = torch.as_tensor(ints_np, device=task.device)
     floats = torch.as_tensor(floats_np, device=task.device)
-    return d, ints, floats, plain
+    return d, ints, floats, plain, launch
 
 
 def obstacle_terms_kernel_factory(task):
@@ -660,7 +674,7 @@ def obstacle_terms_kernel_factory(task):
     params = _kernel_params(task)
     if params is None:
         return None
-    d, ints, floats, plain = params
+    d, ints, floats, plain, launch = params
     lay = plain.layout
     net_row = (None if lay.net is None
                else NetRowParams(lay.net, lay.net_cutoff, task.device))
@@ -669,7 +683,7 @@ def obstacle_terms_kernel_factory(task):
     def unscaled(q_cols):
         if q_cols.device.type == "cpu":
             return plain.unscaled(q_cols)
-        out = run_terms_kernel(q_cols, ints, floats, d, grid)
+        out = run_terms_kernel(q_cols, ints, floats, d, launch, grid)
         if net_row is not None:
             add_net_terms(net_row, q_cols, *out)
         return out
@@ -705,7 +719,7 @@ def collision_cost_kernel_factory(task, terms=None):
         terms = obstacle_terms_kernel_factory(task)
         if terms is None:
             return None
-    d, _, _, plain_terms = terms.params
+    d, _, _, plain_terms, _ = terms.params
     net_row = terms.net_row
     run = run_cost_kernel
     if net_row is not None:
