@@ -26,7 +26,9 @@ final line):
              have no stack frame either, nor may any terms_kernel<D>, D =
              1..8, or substitution kernel), and the card's name and power
              limit; the net row's tensor-core kernels may not spill and
-             must show HMMA in cuobjdump -sass.
+             must show HMMA in cuobjdump -sass; the MultiRobot terms
+             kernel and every rollout_kernel<D>, D = 1..8, may have no
+             stack frame and no spill either.
 2. terms   - the fused GN-terms kernel vs its plain PyTorch version on the
              card: Panda in EnvSpheres3D at N = 64 * 1024 waypoints (the
              main path's first q, timed, and random q), plus a rounded-box
@@ -53,10 +55,14 @@ final line):
              m = 14, P = 27, A = 5, B = 512) and at a ragged B = 100: on
              random well-conditioned inputs, and on the inputs of the
              path's first iteration (K6 also the tracking loop's, T = 15,
-             P = 34) held to a float64 plain version; K6 on random inputs
-             at every d = 1..8 (P = 1 and 27, B = 100), at a P that takes
-             fewer lanes per block and at the P cap; timed (K6 at T = 31
-             and T = 15).
+             P = 34) held to a float64 plain version, K7 too at T = 15;
+             K6 on random inputs at every d = 1..8 (P = 1 and 27, B =
+             100), at a P that takes fewer lanes per block and at the P
+             cap; K7 on random inputs at every d = 1..8 (T = 6, B = 100),
+             a lane's bits the same at B = 4096 (the inputs tiled), 510,
+             509 and 100, which take 4, 2, 1 and 4 lanes a block; timed
+             (K6 at T = 31 and T = 15 by CUDA events, K7 at T = 31 over a
+             CUDA graph of calls).
 8. cost    - the value-only collision cost (K8) vs its plain version on the
              path's line-search q (N = A B T = 79360), on random q, on
              phase 21's first candidate q (N = 2097152) and on random q
@@ -74,13 +80,17 @@ final line):
              a float64 CPU iteration; the whole solve's fraction free and
              median goal distance near the CPU float32 run's.
 11. ilqr_mpc - the bench's tracking loop (H = 16, 3 iterations per step,
-             30 steps, B = 512) through the same kernels.
+             30 steps, B = 512) through the same kernels; exactly 90 K6
+             and K7 launches; K7 on the loop's first rollout (T = 15)
+             timed over a CUDA graph of calls.
 12. mr_terms - the MultiRobot terms kernel (K5) vs its plain version at
              N = H B = 8192 on the config-4 robot (Panda, Panda, UR10;
              benchmarks/run_all.py config_multi_robot): the path's first q
              (straight-line plans), random in-limit q, and random q at a
              tighter pose set (bases 0.5 m apart) where many mutual rows
-             are active; timed.
+             are active, and a two-arm robot at N = 4096; a lane's bits
+             the same at a ragged N = 1000 and (two arms) at 64 lanes a
+             block; timed over a CUDA graph of calls.
 13. mr_solve - the column sweep (K4) vs its plain version at (H, m, m, B)
              = (32, 40, 40, 256): a random well-conditioned system, the
              path's first GN system held to a float64 solve, and both at a
@@ -244,7 +254,8 @@ final line):
              sGPMP on it: exactly 201 K8-MultiRobot launches.
 
 Then one JSON line with every kernel's numbers (launches from phase 4 for
-K1 and K2, from phase 9 for K6, K7 and K8 at N = 79360, from phase 21 for
+K1 and K2, from phase 9 for K6, K7 and K8 at N = 79360, from phase 11 for
+K7 at the tracking loop's T = 15, from phase 21 for
 K8 at the sGPMP candidates' N, from phase 14 for K4 and K5, from phase 19
 for K9 (the k = 2 and k = 4 runs together), from phase 20's query for
 K10, from phase 24 for K8's MultiRobot branch at both of its shapes, from
@@ -883,7 +894,8 @@ def phase_build():
                 for m in _KERNEL_M for k in (0, 1)},
              **{"riccati_kernelILi%dE" % d: "riccati_kernel<%d>" % d
                 for d in range(1, 9)},
-             "rollout_kernelILi7E": "rollout_kernel",
+             **{"rollout_kernelILi%dE" % d: "rollout_kernel<%d>" % d
+                for d in range(1, 9)},
              "15mr_terms_kernelE": "mr_terms_kernel",
              **{"btridiag_cols_kernelILi%dE" % w: "btridiag_cols_kernel<%d>" % w
                 for w in _COLS_WIDTHS},
@@ -924,11 +936,13 @@ def phase_build():
         check(sass.get(frag, {}).get("HMMA", 0) > 0,
               "%s: no HMMA in its SASS: %s" % (label, sass.get(frag)))
         report[label] += " | SASS %s" % sass[frag]
-    # the cost kernel, every terms_kernel<D> and every substitution kernel
-    # keep their arrays out of local memory
-    for label in ["cost_kernel"] + [v for v in names.values()
-                                    if v.startswith(("terms_kernel<",
-                                                     "btridiag_subst"))]:
+    # the cost kernel, the MultiRobot terms kernel, every terms_kernel<D>,
+    # rollout_kernel<D> and substitution kernel keep their arrays out of
+    # local memory
+    for label in ["cost_kernel", "mr_terms_kernel"] + [
+            v for v in names.values()
+            if v.startswith(("terms_kernel<", "rollout_kernel<",
+                             "btridiag_subst"))]:
         line = report.get(label, "")
         check("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
               "loads" in line, "%s: ptxas reports a stack frame, a spill or "
@@ -1442,14 +1456,15 @@ def capture_first_iteration(task, start, goal, params=IL_PARAMS, **solve_kw):
     return seen
 
 
-def capture_mpc_sweep(task, start, goal):
-    """The sweep's factory arguments and inputs at the tracking loop's first
-    step (phase ilqr_mpc's shapes: T = MPC_H - 1, its running goal rows in
-    P), tracking the straight line to the goal."""
+def capture_mpc_first(task, start, goal):
+    """What the sweep and the rollout were given at the tracking loop's
+    first step (phase ilqr_mpc's shapes: T = MPC_H - 1, its running goal
+    rows in P), tracking the straight line to the goal: capture_first_
+    iteration's dict."""
     from torch_robotics_tpu_torch.solve import straight_line_trajs
     x_ref = straight_line_trajs(start, goal, MPC_H)
     return capture_first_iteration(task, start, goal, MPC_PARAMS,
-                                   x_ref=x_ref)["sweep"]
+                                   x_ref=x_ref)
 
 
 def hold_sweep_random(key, d, P, T, Bn, seed, results):
@@ -1478,29 +1493,35 @@ def hold_sweep_random(key, d, P, T, Bn, seed, results):
     return cfg
 
 
-def phase_riccati(seen, mpc_sweep):
+def phase_riccati(seen, mpc_seen):
     """K6 and K7 vs their plain versions at the path's shapes (B = 512) and
     at a ragged B = 100: on random well-conditioned inputs (kg = 1e4,
     r = 1e-4, as tests/test_pallas_riccati.py) K6 to 1e-5 and K7 to 1e-6
     of max|ref|; on the path's first-iteration inputs (kg / r = 4e10), and
-    K6 on the tracking loop's (T = 15), each to a float64 plain version, no
-    worse than twice the plain float32 version's error (+ the random-input
-    tolerance).  K6 also on random inputs at every d in 1..8 (T = 6, B =
-    100, P = 1 and 27: every group size), at d = 7 with a P that makes the
-    launch take fewer lanes per block (B = 512) and at the P cap (one
-    stage, B = 100).  Timed at T = 31 and at the tracking loop's T = 15."""
+    K6 and K7 on the tracking loop's (T = 15), each to a float64 plain
+    version, no worse than twice the plain float32 version's error (+ the
+    random-input tolerance).  K6 also on random inputs at every d in 1..8
+    (T = 6, B = 100, P = 1 and 27: every group size), at d = 7 with a P
+    that makes the launch take fewer lanes per block (B = 512) and at the
+    P cap (one stage, B = 100); K7 on random inputs at every d in 1..8 (T
+    = 6, B = 100); a K7 lane's bits at the batches that take 4, 2 and 1
+    lanes a block.  Timed at T = 31 and K6 at the tracking loop's T = 15
+    (K7 by device_ms: a call's host time exceeds its device time; phase
+    ilqr_mpc times K7 at T = 15)."""
     import torch
     from torch_robotics_tpu_torch.ops.riccati_kernel import (
         linesearch_rollout_kernel_factory, riccati_backward_kernel_factory,
-        riccati_launch_config, riccati_p_cap)
+        riccati_launch_config, riccati_p_cap, rollout_launch_config)
     s_args, s_ins = seen["sweep"]
     r_args, r_ins = seen["roll"]
-    m_args, m_ins = mpc_sweep
+    m_args, m_ins = mpc_seen["sweep"]
+    mr_args, mr_ins = mpc_seen["roll"]
     d, m, P, T, dt, r, mu, kg = s_args
     alphas = r_args[4]
     sweep = riccati_backward_kernel_factory(*s_args)
     mpc = riccati_backward_kernel_factory(*m_args)
     roll = linesearch_rollout_kernel_factory(*r_args)
+    mpc_roll = linesearch_rollout_kernel_factory(*mr_args)
     rng = np.random.default_rng(6)
 
     def rand(*shape, scale=1.0):
@@ -1547,6 +1568,23 @@ def phase_riccati(seen, mpc_sweep):
             if kname == "riccati":
                 hold_f64("riccati_mpc_T%d_B%d" % (m_args[3], Bn), mpc,
                          cut(m_ins), tol)
+            else:
+                hold_f64("rollout_mpc_T%d_B%d" % (mr_args[2], Bn), mpc_roll,
+                         cut(mr_ins), tol)
+    # K7 at every d (each instantiation), random inputs
+    for dd in range(1, 9):
+        mm = 2 * dd
+        fn = linesearch_rollout_kernel_factory(dd, mm, 6, dt, alphas)
+        ins = [rand(7, mm, 100), rand(6, dd, 100), rand(6, dd, 100),
+               rand(6, dd, mm, 100, scale=0.1)]
+        key = "rollout_random_d%d_T6_B100" % dd
+        got, ref = fn(*ins), fn.plain(*ins)
+        err, rel = max_errs(got, ref)
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              key + ": non-finite")
+        check(rel <= ROLLOUT_TOL, "%s: kernel vs plain %.3g of max|ref|"
+              % (key, rel))
+        results[key] = dict(abs=err, rel_to_max=rel)
 
     # every group size, and the launch shapes that large P takes
     for dd in range(1, 9):
@@ -1570,19 +1608,43 @@ def phase_riccati(seen, mpc_sweep):
              riccati_work(d, m, m_args[2], m_args[3], IL_B)),
             ("rollout", roll, r_ins,
              rollout_work(d, m, T, len(alphas), IL_B))):
-        k_ms = cuda_ms(lambda: fn(*ins), iters=20)
+        k_ms = (device_ms(lambda: fn(*ins), iters=20) if kname == "rollout"
+                else cuda_ms(lambda: fn(*ins), iters=20))
         p_ms = cuda_ms(lambda: fn.plain(*ins), iters=2, warmup=1)
         key = ("riccati_mpc_T%d_B%d" % (m_args[3], IL_B)
                if kname == "riccati_mpc" else "%s_path_B%d" % (kname, IL_B))
         out[kname] = dict(max_abs_err=results[key]["abs"], ms=k_ms,
                           plain_ms=p_ms, work=work)
+    out["rollout"]["call_ms"] = cuda_ms(lambda: roll(*r_ins), iters=20)
+    # K7: a lane's bits whatever the batch and the lanes a block it takes
+    # (rollout_launch_config): the path's inputs tiled to B = 4096, cut to
+    # 510, 509 and 100
+    full = roll(*r_ins)
+    lanes_by_B = {}
+    for Bn in (4096, 510, 509, 100):
+        reps = -(-Bn // IL_B)
+        ins = [torch.cat([t] * reps, -1)[..., :Bn].contiguous()
+               for t in r_ins]
+        ref = [torch.cat([f] * reps, -1)[..., :Bn] for f in full]
+        lanes_by_B[Bn] = rollout_launch_config(
+            d, len(alphas), Bn)["lanes_per_block"]
+        check(all(torch.equal(a, b) for a, b in zip(roll(*ins), ref)),
+              "rollout: other bits at B = %d (%d lanes a block)"
+              % (Bn, lanes_by_B[Bn]))
+    check({1, 2, 4} <= set(lanes_by_B.values()),
+          "rollout: the batches took lanes a block %s" % lanes_by_B)
     emit("riccati", shapes=dict(T=T, d=d, m=m, P=P, A=len(alphas), B=IL_B,
                                 mpc_T=m_args[3], mpc_P=m_args[2]),
          launch=riccati_launch_config(d, P, IL_B), max_errs=results,
          **{k + "_ms": v["ms"] for k, v in out.items()},
          **{k + "_plain_ms": v["plain_ms"] for k, v in out.items()},
          **{k + "_bound_ms": bound_ms(*v["work"])[0]
-            for k, v in out.items()})
+            for k, v in out.items()},
+         rollout_call_ms=out["rollout"]["call_ms"],
+         rollout_launch=rollout_launch_config(d, len(alphas), IL_B),
+         rollout_lanes_a_block_by_B=lanes_by_B)
+    out["rollout_mpc_err"] = results["rollout_mpc_T%d_B%d"
+                                     % (mr_args[2], IL_B)]["abs"]
     return out
 
 
@@ -1853,12 +1915,23 @@ def ilqr_mpc_loop(task, start, goal, plan, n_steps):
     return torch.stack(xs, dim=1)
 
 
-def phase_ilqr_mpc(task, start, goal, plan):
+def phase_ilqr_mpc(task, start, goal, plan, mpc_roll, roll_err):
     """The bench's tracking loop (ilqr_mpc_loop): H_trk = 16, 3 iterations,
-    30 steps, B = 512."""
+    30 steps, B = 512; K7 on the loop's first rollout inputs (``mpc_roll``,
+    capture_mpc_first's, T = 15; held to plain in phase riccati, whose
+    error is ``roll_err``) timed by device_ms -> K7's numbers at T = 15."""
     import torch
     from torch_robotics_tpu_torch.ops import riccati_kernel, terms_kernel
     d = start.shape[-1] // 2
+    r_args, r_ins = mpc_roll
+    roll = riccati_kernel.linesearch_rollout_kernel_factory(*r_args)
+    dd, m, T = r_args[:3]
+    k7 = dict(ms=device_ms(lambda: roll(*r_ins), iters=20),
+              call_ms=cuda_ms(lambda: roll(*r_ins), iters=20),
+              plain_ms=cuda_ms(lambda: roll.plain(*r_ins), iters=2, warmup=1),
+              work=rollout_work(dd, m, T, len(r_args[4]),
+                                r_ins[0].shape[-1]),
+              max_abs_err=roll_err)
 
     def loop(n_steps):
         return ilqr_mpc_loop(task, start, goal, plan, n_steps)
@@ -1888,10 +1961,15 @@ def phase_ilqr_mpc(task, start, goal, plan):
                                         cost=launches[2]),
          ms_per_step=ms / MPC_STEPS,
          solves_per_s=IL_B * MPC_STEPS / (ms / 1e3),
+         rollout_T=T, rollout_ms=k7["ms"], rollout_call_ms=k7["call_ms"],
+         rollout_plain_ms=k7["plain_ms"],
+         rollout_bound_ms=bound_ms(*k7["work"])[0],
          fraction_free_executed=task.compute_fraction_free_trajs(
              xs[..., :d]),
          mean_final_goal_dist=float(dist.mean()),
          median_final_goal_dist=float(dist.median()))
+    k7["launches"] = launches[1]
+    return k7
 
 
 # ----------------------------------------------------------------------
@@ -1966,9 +2044,13 @@ def mr_first_q(start, goal):
 def phase_mr_terms(task, start, goal):
     """K5 vs its plain version at N = H B = 8192 (terms tolerances): the
     path's first q, random in-limit q, and random q at the tighter poses,
-    then a two-member robot at N = 4096; the active-row shares; timed on
-    the first q, with its work counted."""
+    then a two-member robot at N = 4096; a lane's bits the same at a
+    ragged N = 1000 and, for the two-member robot, at 64 lanes a block; the
+    active-row shares; timed on the first q (device_ms), with its work
+    counted."""
     import torch
+    from torch_robotics_tpu_torch.ops.terms_kernel import (
+        mr_terms_launch_config, run_multirobot_terms_kernel)
     terms = task.collision_residuals.obstacle_terms_lanes
     q_main = mr_first_q(start, goal)
     N = q_main.shape[1]
@@ -1998,14 +2080,33 @@ def phase_mr_terms(task, start, goal):
     check(shares["tight_poses_random_q"]["mutual_rows"]
           > shares["config4_random_q"]["mutual_rows"],
           "the tight poses activate no more mutual rows")
-    k_ms = cuda_ms(lambda: terms.unscaled(q_main), iters=50)
+    # a lane's bits: whatever the batch, and the lanes a block
+    q_r = in_limits(task)
+    full = terms.unscaled(q_r)
+    ragged = terms.unscaled(q_r[:, :GN_RAGGED_N].contiguous())
+    check(all(torch.equal(a, b[..., :GN_RAGGED_N])
+              for a, b in zip(ragged, full)),
+          "mr_terms: a ragged N changes the lanes' bits")
+    t2 = two_arm.collision_residuals.obstacle_terms_lanes
+    d2, ints2, floats2, _, launch2 = t2.params
+    q2 = in_limits(two_arm, 4096)
+    wide = mr_terms_launch_config(ints2.cpu().numpy(), floats2.numel(), 64)
+    check(wide["lanes"] == 64, "mr_terms: 64 lanes a block do not fit")
+    check(all(torch.equal(a, b) for a, b in zip(
+        run_multirobot_terms_kernel(q2, ints2, floats2, d2, wide),
+        t2.unscaled(q2))), "mr_terms: other bits at 64 lanes a block")
+    # device time over a CUDA graph of calls (a call's host time exceeds
+    # it), and a call's by CUDA events
+    k_ms = device_ms(lambda: terms.unscaled(q_main), iters=20)
+    call_ms = cuda_ms(lambda: terms.unscaled(q_main), iters=50)
     p_ms = cuda_ms(lambda: terms.plain.unscaled(q_main), iters=5, warmup=1)
     r_main = terms.plain.rows(q_main)[0]
     nbytes, ops = mr_terms_work(terms.plain.layout, q_main, r_main)
     emit("mr_terms", N=N, max_errs={k: {"abs": v[0], "rel_to_max": v[1]}
                                     for k, v in results.items()},
-         active_row_share=shares, kernel_ms=k_ms, plain_ms=p_ms,
-         bytes=nbytes, ops=ops, bound_ms=bound_ms(nbytes, ops)[0])
+         active_row_share=shares, kernel_ms=k_ms, kernel_call_ms=call_ms,
+         plain_ms=p_ms, launch=terms.params[4], bytes=nbytes, ops=ops,
+         bound_ms=bound_ms(nbytes, ops)[0])
     return dict(max_abs_err=results["config4_first_q"][0], ms=k_ms,
                 plain_ms=p_ms, work=(nbytes, ops))
 
@@ -3759,7 +3860,8 @@ def phase_mr_grid(env, start, goal):
         object_points_near_face(task, q_cand))}
     same_lane_bits("mr_grid cost", cost, run_multirobot_cost_kernel, q_cand)
     r = terms.plain.rows(q_main)[0]
-    k5 = dict(ms=cuda_ms(lambda: terms.unscaled(q_main), iters=50),
+    k5 = dict(ms=device_ms(lambda: terms.unscaled(q_main), iters=20),
+              call_ms=cuda_ms(lambda: terms.unscaled(q_main), iters=50),
               plain_ms=cuda_ms(lambda: terms.plain.unscaled(q_main), iters=3,
                                warmup=1),
               work=mr_terms_work(lay, q_main, r),
@@ -3782,7 +3884,8 @@ def phase_mr_grid(env, start, goal):
     check(bool(torch.isfinite(xs).all()) and bool(torch.isfinite(
         info["final_state"].theta).all()), "mr_grid MPC: non-finite")
     k5["launches"] = launches["multirobot_terms"]
-    emit("mr_grid", max_errs=errs, k5_ms=k5["ms"], k5_plain_ms=k5["plain_ms"],
+    emit("mr_grid", max_errs=errs, k5_ms=k5["ms"], k5_call_ms=k5["call_ms"],
+         k5_plain_ms=k5["plain_ms"],
          k5_bound_ms=bound_ms(*k5["work"])[0], k8_ms=k8["ms"],
          k8_call_ms=k8["call_ms"], k8_plain_ms=k8["plain_ms"],
          k8_bound_ms=bound_ms(*k8["work"])[0],
@@ -4028,7 +4131,8 @@ def phase_mr_grasp():
     same_lane_bits("mr_grasp cost", cost, run_multirobot_cost_kernel, q_cand)
     r = terms.plain.rows(q_main)[0]
     n_mut = sum(len(v) for v in lay.groups.values())
-    k5 = dict(ms=cuda_ms(lambda: terms.unscaled(q_main), iters=50),
+    k5 = dict(ms=device_ms(lambda: terms.unscaled(q_main), iters=20),
+              call_ms=cuda_ms(lambda: terms.unscaled(q_main), iters=50),
               plain_ms=cuda_ms(lambda: terms.plain.unscaled(q_main), iters=3,
                                warmup=1),
               work=mr_terms_work(lay, q_main, r),
@@ -4058,7 +4162,7 @@ def phase_mr_grasp():
                                                  .mean())),
          max_errs={k: {"abs": v[0], "rel_to_max": v[1]}
                    for k, v in results.items()},
-         k5_ms=k5["ms"], k5_plain_ms=k5["plain_ms"],
+         k5_ms=k5["ms"], k5_call_ms=k5["call_ms"], k5_plain_ms=k5["plain_ms"],
          k5_bound_ms=bound_ms(*k5["work"])[0],
          k5_bound_by=bound_ms(*k5["work"])[1], k8_ms=k8["ms"],
          k8_call_ms=k8["call_ms"], k8_plain_ms=k8["plain_ms"],
@@ -4089,12 +4193,13 @@ def main() -> None:
 
     il_task, il_start, il_goal = ilqr_problem("cuda")
     seen = capture_first_iteration(il_task, il_start, il_goal)
-    sweeps = phase_riccati(seen, capture_mpc_sweep(il_task, il_start,
-                                                   il_goal))
+    mpc_seen = capture_mpc_first(il_task, il_start, il_goal)
+    sweeps = phase_riccati(seen, mpc_seen)
     cost = phase_cost(il_task, seen, il_start, il_goal)
     il_launches, il_res = phase_ilqr(il_task, il_start, il_goal)
     phase_ilqr_cpu(il_task, il_start, il_goal)
-    phase_ilqr_mpc(il_task, il_start, il_goal, il_res.trajs)
+    roll_mpc = phase_ilqr_mpc(il_task, il_start, il_goal, il_res.trajs,
+                              mpc_seen["roll"], sweeps["rollout_mpc_err"])
 
     mr, mr_start, mr_goal, draw = mr_problem("cuda")
     mr_terms = phase_mr_terms(mr, mr_start, mr_goal)
@@ -4149,6 +4254,10 @@ def main() -> None:
             ("linesearch_rollout", "torch_robotics_tpu_torch/csrc/riccati.cu",
              "torch_robotics_tpu/ops/pallas_riccati.py:309",
              sweeps["rollout"], il_launches[1]),
+            ("linesearch_rollout_tracking",
+             "torch_robotics_tpu_torch/csrc/riccati.cu",
+             "torch_robotics_tpu/ops/pallas_riccati.py:309", roll_mpc,
+             roll_mpc["launches"]),
             ("collision_cost", "torch_robotics_tpu_torch/csrc/cost.cu",
              "torch_robotics_tpu/ops/pallas_terms.py:1029",
              cost["line_search"], il_launches[2]),

@@ -44,12 +44,20 @@ K2 and K9's factor sweep are compared bit for bit on the same inputs.
 - K6 on the inputs of the iLQR path's first iteration (T = 31, P = 27, B =
   512) and of the tracking loop's first step (T = 15, P = 34), each
   side's output held to a float64 plain version as ``chip_smoke.py``
-  holds it;
-- K7 on the path's inputs, bit for bit the same on both sides;
-- phase ``ilqr``'s solve (30 iterations, B = 512): ms per iteration by
-  CUDA events, and once per side a profile (device ms per iteration, busy
-  share);
-- phase ``ilqr_mpc``'s tracking loop (30 steps): ms per step.
+  holds it, the sides' bits compared;
+- K7 on the path's inputs at T = 31, at the tracking loop's T = 15 and at
+  a ragged B = 100: bit for bit the same on both sides (required), each
+  held to float64, timed in turns (device time over a CUDA graph of
+  calls), beside both sides' ptxas report of every ``rollout_kernel<D>``
+  (an older rollout takes no lanes a block);
+- this tree's K7 at 1, 2 and 4 lanes a block (``rollout_launch_config``
+  with the lanes given, then the raw launch), each giving the wrapper's
+  bits, timed in turns (1, 2, 4, 4, 2, 1; device time over a CUDA graph)
+  at T = 31 and T = 15 (B = 512), at B = 100 and at B = 4096 (the path's
+  inputs tiled), beside the lanes the wrapper picks;
+- phase ``ilqr``'s solve (30 iterations, B = 512) and phase
+  ``ilqr_mpc``'s tracking loop (30 steps): ms per iteration / step by CUDA
+  events, and once per side a profile (device ms, busy share).
 
 ``--kernels cols`` (the column sweep, config 4's path):
 
@@ -60,21 +68,24 @@ K2 and K9's factor sweep are compared bit for bit on the same inputs.
 - the multi-robot MPC (phase ``mr_mpc``, 30 steps): ms per step by CUDA
   events, and once per side a profile (device ms per step, busy share).
 
-``--kernels terms`` (the fused GN terms, K1): the other tree's
-``terms.cu`` (an older tree's K1 fed its own packing of the same task,
-``parent_terms_params``), ``mr_terms.cu`` and ``cost.cu`` stand in for this
+``--kernels terms`` (the fused GN terms): the other tree's ``terms.cu``
+(K1), ``mr_terms.cu`` (K5; an older tree's fed its own packing of the
+same task, ``parent_mr_terms_params``) and ``cost.cu`` stand in for this
 tree's under this tree's wrappers:
 
-- ptxas's report of both sides' ``terms_kernel<D>``, D = 1..8;
-- K1 on the main path's first q (pair field, N = 65,536), on random q, on
-  the grasped Panda's main q and on the grid path's first q (N =
-  262,144): each side held to the plain version (``chip_smoke``'s terms
-  tolerance, the grid rule in the grid scene), whether the sides agree bit
-  for bit, the kernel's device time in turns (over a CUDA graph of calls:
-  a call's host time exceeds it) and a call's (CUDA events), the bound;
-- K5 and K8 (both branches), which the change leaves alone, bit for bit;
-- the main path's and the grasped main path's step in turns, with a
-  profile per side (device ms a step, busy share).
+- ptxas's report of both sides' ``mr_terms_kernel``;
+- K5 on phase ``mr_terms``' four cases (config 4's first and random q,
+  random q at the tight poses, the two-arm robot at N = 4096), on phase
+  ``mr_grasp``'s and on phase ``mr_grid``'s first q: each side held to
+  the plain version (``chip_smoke``'s terms tolerance, the grid rule in
+  the grid scene), whether the sides agree bit for bit (and in how many
+  lanes not), the kernel's device time in turns (over a CUDA graph of
+  calls) and a call's (CUDA events), the bound;
+- K1 (pair field, grasped, grid: its scene gradient is now
+  ``cost.cuh``'s pick and gradient pair) and K8 (both branches) bit for
+  bit;
+- config 4's MPC step in turns, with a profile per side (device ms a
+  step, busy share).
 
 ``--kernels net`` (the learned self-collision net row, K1's and K8's, in
 ``net_row.cu``): the other tree's ``net_row.cu`` (an older tree's single
@@ -135,20 +146,17 @@ def other_sweep_kernels(csrc: Path):
 
     from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
     OtherKernel = other_kernel_class()
-    text = (csrc / "btridiag.cu").read_text()
-    takes_lanes = "int lanes" in text
-    subst_ys = "float* x, float* ys, int H, int B" in text
+    takes_lanes = "int lanes" in (csrc / "btridiag.cu").read_text()
     P, I = ctypes.c_void_p, ctypes.c_int
     sweep = [P] * 7 + [I] * (4 if takes_lanes else 3) + [P]
     main = OtherKernel(str(csrc / "btridiag.cu"), {
         "trt_btridiag_w_launch": sweep,
         "trt_btridiag_factor_launch": sweep,
-        "trt_btridiag_subst_launch": ([P] * 5 + [I] * 3 + [P] if subst_ys
-                                      else bk.SUBST_KERNEL.functions[
-                                          "trt_btridiag_subst_launch"])})
+        "trt_btridiag_subst_launch": bk.SUBST_KERNEL.functions[
+            "trt_btridiag_subst_launch"]})
     k3 = OtherKernel(str(csrc / "btridiag_sweep.cu"),
                     dict(bk.SWEEP_KERNEL.functions))
-    return main, k3, takes_lanes, subst_ys
+    return main, k3, takes_lanes
 
 
 def other_cols_kernel(csrc: Path):
@@ -165,21 +173,24 @@ def other_cols_kernel(csrc: Path):
 
 
 def other_riccati_kernel(csrc: Path):
-    """The other checkout's riccati.cu, with the argtypes of its Riccati
-    launch function (an older sweep takes a device scratch Fw (M, P, B) and
-    no launch shape)."""
+    """The other checkout's riccati.cu, with the argtypes of its launch
+    functions (an older sweep takes a device scratch Fw (M, P, B) and no
+    launch shape; an older rollout no lanes a block)."""
     import ctypes
 
     from torch_robotics_tpu_torch.ops import riccati_kernel as rk
     OtherKernel = other_kernel_class()
-    takes_fw = "float* Fw" in (csrc / "riccati.cu").read_text()
+    text = (csrc / "riccati.cu").read_text()
+    takes_fw = "float* Fw" in text
+    roll_lanes = "int lanes, float dt" in text
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sweep = ([P] * 7 + [I] * 4 + [F] * 6 + [P] if takes_fw
              else rk.RICCATI_KERNEL.functions["trt_riccati_launch"])
+    roll = (rk.ROLLOUT_KERNEL.functions["trt_rollout_launch"] if roll_lanes
+            else [P] * 7 + [I] * 4 + [F] * 2 + [P])
     return OtherKernel(str(csrc / "riccati.cu"), {
-        "trt_riccati_launch": sweep,
-        "trt_rollout_launch": rk.ROLLOUT_KERNEL.functions[
-            "trt_rollout_launch"]}), takes_fw
+        "trt_riccati_launch": sweep, "trt_rollout_launch": roll}), \
+        takes_fw, roll_lanes
 
 
 def other_net_kernel(csrc: Path):
@@ -200,53 +211,115 @@ def other_net_kernel(csrc: Path):
 
 def other_terms_kernels(csrc: Path):
     """The other checkout's terms.cu (K1), mr_terms.cu (K5) and cost.cu
-    (K8), with the argtypes of its K1 launch function (a tree before the
-    shared-memory K1 takes (q, g, h, cost, N, D, ip, fp, grid, stream) and
-    its own packing, ``parent_terms_params``)."""
+    (K8), with the argtypes of its K5 launch function (a tree before the
+    shared-memory K5 takes (q, g, h, cost, N, n_bp, shared_bytes, ip, fp,
+    grid, stream) and its own packing, ``parent_mr_terms_params``)."""
     import ctypes
 
     from torch_robotics_tpu_torch.ops import terms_kernel as tk
     OtherKernel = other_kernel_class()
-    older = "int n_ints" not in (csrc / "terms.cu").read_text()
+    older = "int n_ints" not in (csrc / "mr_terms.cu").read_text()
     P, I = ctypes.c_void_p, ctypes.c_int
-    terms = OtherKernel(str(csrc / "terms.cu"), {
-        "trt_terms_launch": ([P] * 4 + [I, I] + [P] * 4 if older
-                             else tk.KERNEL.functions["trt_terms_launch"])})
-    mr = OtherKernel(str(csrc / "mr_terms.cu"), dict(tk.MR_KERNEL.functions))
+    terms = OtherKernel(str(csrc / "terms.cu"), dict(tk.KERNEL.functions))
+    mr = OtherKernel(str(csrc / "mr_terms.cu"), {
+        "trt_mr_terms_launch": ([P] * 4 + [I] * 3 + [P] * 4 if older
+                                else tk.MR_KERNEL.functions[
+                                    "trt_mr_terms_launch"])})
     cost = OtherKernel(str(csrc / "cost.cu"), dict(tk.COST_KERNEL.functions))
     return terms, mr, cost, older
 
 
-def parent_terms_params(lay):
-    """The packing of a tree before the shared-memory K1: (ints int32,
-    floats float32) in the section order of its terms.cu parse_layout
-    (model by link, points, rows, scene)."""
+def parent_mr_terms_params(lay):
+    """The packing of a tree before the shared-memory K5: (ints int32,
+    floats float32, block pairs, dynamic shared memory in bytes) in the
+    section order of its mr_terms.cu parse_layout (members' models by
+    link, block pairs, points, own and mutual rows, scene)."""
     import numpy as np
 
     from torch_robotics_tpu_torch.ops import terms_kernel as tk
-    model = lay.model
-    L = model.n_links
-    ctrl = list(model.controlled_link_idxs())
-    D = len(ctrl)
-    anc = model.ancestry_matrix()
-    q_idx = np.full(L, -1, np.int64)
-    q_idx[ctrl] = np.arange(D)
+    robot = lay.robot
+    members = lay.members
+    n_mem = len(members)
+    models = [r.model for r in members]
+    L_list = [m.n_links for m in models]
+    l_off = np.cumsum([0] + L_list)
+    topo, parent, jtype, qidx, ctrl = [], [], [], [], []
+    for m in models:
+        c = list(m.controlled_link_idxs())
+        qi = np.full(m.n_links, -1, np.int64)
+        qi[c] = np.arange(len(c))
+        topo += list(m.topological_order())
+        parent += list(m.parent_idx)
+        jtype += list(m.joint_types)
+        qidx += list(qi)
+        ctrl += c
+
+    # the full collision layout: object sections, then self sections
+    pt_member, pt_link, pt_anc, pt_goff, goff = [], [], [], [], []
+    for section in ("object", "self"):
+        for i, (r, m) in enumerate(zip(members, models)):
+            anc = m.ancestry_matrix()
+            for li, off in tk._member_points(r, section):
+                pt_member.append(i)
+                pt_link.append(li)
+                pt_anc.append(int(sum(1 << j for j in range(m.n_dofs)
+                                      if anc[li, j])))
+                pt_goff.append(-1 if off is None else len(goff))
+                if off is not None:
+                    goff.append(off)
+    obj_off = [int(v) for v in lay.obj_off]
+    self_off = [int(v) for v in lay.self_off]
+
+    own_a, own_b, own_m, own_range = [], [], [], []
+    for i, rows in enumerate(lay.own_pairs):
+        begin = len(own_a)
+        for a, b, mg in rows:          # member-local: self section after obj
+            to_full = self_off[i] - lay.obj_counts[i]
+            own_a.append(a + to_full)
+            own_b.append(b + to_full)
+            own_m.append(mg)
+        own_range.append((begin, len(own_a)))
+
+    bp = [(i, i) for i in range(n_mem)] + [
+        (i, j) for i in range(n_mem) for j in range(i + 1, n_mem)]
+    mut_a, mut_b, mut_m, bp_range = [], [], [], []
+    for i, j in bp:
+        begin = len(mut_a)
+        if i != j:
+            for a, b, mg in lay.groups.get((i, j), ()):
+                mut_a.append(obj_off[i] + a)
+                mut_b.append(obj_off[j] + b)
+                mut_m.append(mg)
+            for b, a, mg in lay.groups.get((j, i), ()):
+                mut_a.append(obj_off[i] + a)
+                mut_b.append(obj_off[j] + b)
+                mut_m.append(mg)
+        bp_range.append((begin, len(mut_a)))
+
     scene_i, scene_f = tk._pack_scene(lay.df_obj_list)
-    header = [L, D, len(lay.point_links), len(lay.obj_pos), len(lay.pair_a),
-              len(lay.df_obj_list), len(scene_i[1]), len(scene_i[5]),
-              lay.n_grasped]
-    anc_bits = [int(sum(1 << j for j in range(D) if anc[li, j]))
-                for li in lay.point_links]
-    ints = tk._i32([header, model.topological_order(), model.parent_idx,
-                    model.joint_types, q_idx, ctrl, lay.point_links,
-                    anc_bits, lay.obj_pos, lay.pair_a, lay.pair_b] + scene_i)
-    floats = tk._f32([model.joint_trans, model.joint_fixed_rot,
-                      model.joint_axis, model.clamp_lower, model.clamp_upper,
-                      lay.obj_thresh.cpu().numpy(),
-                      lay.self_margins.cpu().numpy(),
-                      lay.ws_min.cpu().numpy(), lay.ws_max.cpu().numpy(),
-                      tk._offsets(lay)] + scene_f)
-    return ints, floats
+    n_obj = obj_off[-1]
+    header = [n_mem, robot.q_dim, len(pt_member), n_obj, len(own_a),
+              len(mut_a), len(lay.df_obj_list), len(scene_i[1]), len(bp),
+              int(l_off[-1]), len(scene_i[5]), len(goff)] + [0] * 4
+    ints = tk._i32([header, L_list, lay.d_list, lay.d_off[:-1], l_off[:-1],
+                    obj_off[:-1], obj_off[1:],
+                    [b for b, _ in own_range], [e for _, e in own_range],
+                    [i for i, _ in bp], [j for _, j in bp],
+                    [b for b, _ in bp_range], [e for _, e in bp_range],
+                    topo, parent, jtype, qidx, ctrl, pt_member, pt_link,
+                    pt_anc, pt_goff, own_a, own_b, mut_a, mut_b] + scene_i)
+    floats = tk._f32(
+        [np.concatenate([m.joint_trans.reshape(-1) for m in models]),
+         np.concatenate([m.joint_fixed_rot.reshape(-1) for m in models]),
+         np.concatenate([m.joint_axis.reshape(-1) for m in models]),
+         np.concatenate([m.clamp_lower for m in models]),
+         np.concatenate([m.clamp_upper for m in models]),
+         robot.base_rots.cpu().numpy(), robot.base_trans.cpu().numpy(),
+         lay.obj_thresh.cpu().numpy(), own_m, mut_m,
+         lay.ws_min.cpu().numpy(), lay.ws_max.cpu().numpy(),
+         np.zeros((0, 3)) if not goff else np.stack(goff)] + scene_f)
+    P, D, n_bp = len(pt_member), robot.q_dim, len(bp)
+    return ints, floats, n_bp, 4 * 32 * (3 * P + 6 * D + n_bp)
 
 
 class Swap:
@@ -275,8 +348,7 @@ class Swap:
             setattr(self.module, n, k)
 
 
-def sweep_swap(main, k3, takes_lanes, subst_ys):
-    import torch
+def sweep_swap(main, k3, takes_lanes):
     from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
 
     def route(name, args):
@@ -285,13 +357,6 @@ def sweep_swap(main, k3, takes_lanes, subst_ys):
         if (name in ("trt_btridiag_w_launch", "trt_btridiag_factor_launch")
                 and not takes_lanes):
             args = args[:10] + args[11:]          # drop lanes_per_block
-        if name == "trt_btridiag_subst_launch" and subst_ys:
-            # (L, W, b, x, H, m, B, lanes, keep_lw, stream) -> (L, W, b, x,
-            # ys, H, m, B, stream) of the one-thread kernel; ys is freed
-            # after the launch, in stream order
-            H, m, B = args[4:7]
-            ys = torch.empty((H, m, B), dtype=torch.float32, device="cuda")
-            args = args[:4] + (ys.data_ptr(), H, m, B, args[9])
         return main, args
     return Swap(bk, ("KERNEL", "FACTOR_KERNEL", "SUBST_KERNEL",
                      "SWEEP_KERNEL"), route)
@@ -307,11 +372,15 @@ def cols_swap(other, takes_lanes):
     return Swap(bk, ("COLS_KERNEL",), route)
 
 
-def riccati_swap(other, takes_fw):
+def riccati_swap(other, takes_fw, roll_lanes):
     import torch
     from torch_robotics_tpu_torch.ops import riccati_kernel as rk
 
     def route(name, args):
+        if name == "trt_rollout_launch" and not roll_lanes:
+            # (xs, U, ks, Ks, alphas, xs_out, U_out, T, B, A, D, lanes, dt,
+            # half_dt2, stream): an older rollout takes no lanes a block
+            return other, args[:11] + args[12:]
         if name == "trt_riccati_launch" and takes_fw:
             # (U, l, Fc, Vx0, ks, Ks, P, T, B, D, lanes, stages, 6 floats,
             # stream) -> (U, l, Fc, Vx0, ks, Ks, Fw, P, T, B, D, 6 floats,
@@ -357,25 +426,27 @@ def net_swap(other, routed, rows):
 
 def terms_swap(terms, mr, cost, older, tasks):
     """The other tree's K1, K5 and K8 under this tree's wrappers: an older
-    K1 gets that tree's packing of the task whose parameters a launch
-    carries (``parent_terms_params``); K5 and K8 take the same arguments on
-    both sides."""
+    K5 gets that tree's packing of the MultiRobot task whose parameters a
+    launch carries (``parent_mr_terms_params``); K1 and K8 take the same
+    arguments on both sides."""
     import torch
     from torch_robotics_tpu_torch.ops import terms_kernel as tk
     table = {}
     for task in tasks:
         hook = task.collision_residuals.obstacle_terms_lanes
-        table[hook.params[1].data_ptr()] = tuple(
-            torch.as_tensor(a, device="cuda")
-            for a in parent_terms_params(hook.plain.layout))
+        ints, floats, n_bp, smem = parent_mr_terms_params(hook.plain.layout)
+        table[hook.params[1].data_ptr()] = (
+            torch.as_tensor(ints, device="cuda"),
+            torch.as_tensor(floats, device="cuda"), n_bp, smem)
 
     def route(name, args):
-        if name == "trt_terms_launch" and older:
-            # (q, g, h, cost, N, D, lanes, smem, ip, n_ints, fp, n_floats,
-            # grid, stream) -> (q, g, h, cost, N, D, ip, fp, grid, stream)
-            i_o, f_o = table[args[8]]
-            return terms, args[:6] + (i_o.data_ptr(), f_o.data_ptr(),
-                                      args[12], args[13])
+        if name == "trt_mr_terms_launch" and older:
+            # (q, g, h, cost, N, D, lanes, n_bp, smem, ip, n_ints, fp,
+            # n_floats, grid, stream) -> (q, g, h, cost, N, n_bp,
+            # shared_bytes, ip, fp, grid, stream)
+            i_o, f_o, n_bp, smem = table[args[9]]
+            return mr, args[:5] + (n_bp, smem, i_o.data_ptr(),
+                                   f_o.data_ptr(), args[13], args[14])
         return {"trt_terms_launch": terms, "trt_mr_terms_launch": mr,
                 "trt_cost_launch": cost}[name], args
     return Swap(tk, ("KERNEL", "MR_KERNEL", "COST_KERNEL", "MR_COST_KERNEL"),
@@ -430,7 +501,7 @@ def main() -> None:
         print(json.dumps({"ab": name, **fields}), flush=True)
 
     if do_riccati:
-        ab_riccati(riccati_swap(*ric_k), emit)
+        ab_riccati(riccati_swap(*ric_k), ric_k[0], emit)
         torch.cuda.empty_cache()
     if do_sweep:
         ab_sweeps(sweep_swap(*sweep_k), emit)
@@ -449,22 +520,60 @@ def main() -> None:
         args.out.write_text(json.dumps({"card": smi, **report}, indent=1))
 
 
-def ab_riccati(swap, emit):
-    """K6 at T = 31 and T = 15, K7 bit for bit, phase ilqr's ms per
-    iteration (and a profile per side), ilqr_mpc's ms per step."""
+def ptxas_report(kernel, fragment):
+    """ptxas's lines for the entry functions of ``kernel``'s build whose
+    mangled names hold ``fragment``."""
+    lines = kernel.library_path.with_suffix(".log").read_text().splitlines()
+    return [" | ".join(x.strip().split("info    : ")[-1]
+                       for x in lines[i + 1:i + 4])
+            for i, line in enumerate(lines)
+            if "Compiling entry function" in line and fragment in line]
+
+
+def rollout_at_lanes(args, ins, lanes):
+    """This tree's K7 on ``ins`` (contiguous float32, 16-byte aligned) at
+    ``lanes`` lanes a block: the launch shape of ``rollout_launch_config``
+    with the lanes given, then the raw launch -> fn() -> (xs_new,
+    U_new)."""
     import torch
-    from torch_robotics_tpu_torch.ops.riccati_kernel import (
-        linesearch_rollout_kernel_factory, riccati_backward_kernel_factory,
-        riccati_launch_config)
+    from torch_robotics_tpu_torch.ops import riccati_kernel as rk
+    d, m, T, dt, alphas = args
+    A, B = len(alphas), ins[0].shape[-1]
+    cfg = rk.rollout_launch_config(d, A, B, lanes)
+    kw = dict(dtype=torch.float32, device="cuda")
+    al = torch.tensor(alphas, **kw)
+    xs_new, U_new = torch.empty((A, T, m, B), **kw), torch.empty(
+        (A, T, d, B), **kw)
+
+    def run():
+        rk.ROLLOUT_KERNEL.launch(
+            "trt_rollout_launch", *(t.data_ptr() for t in ins),
+            al.data_ptr(), xs_new.data_ptr(), U_new.data_ptr(), T, B, A, d,
+            cfg["lanes_per_block"], dt, 0.5 * dt * dt,
+            torch.cuda.current_stream().cuda_stream)
+        return xs_new, U_new
+    return run
+
+
+def ab_riccati(swap, other, emit):
+    """K6 at T = 31 and T = 15; K7 at T = 31, T = 15 and a ragged B = 100,
+    bit for bit, in turns; both sides' ptxas for K7; phase ilqr's ms per
+    iteration and ilqr_mpc's ms per step, each with a profile per side."""
+    import torch
+    from torch_robotics_tpu_torch.ops import riccati_kernel as rk
     from torch_robotics_tpu_torch.solve import ILQRParams, ilqr_solve
 
+    emit("ptxas", **{side: {"rollout_kernel<%d>" % d: ptxas_report(
+        k, "rollout_kernelILi%dE" % d) for d in range(1, 9)}
+        for side, k in (("other", other), ("this", rk.ROLLOUT_KERNEL))})
     task, start, goal = cs.ilqr_problem("cuda")
     seen = cs.capture_first_iteration(task, start, goal)
-    mpc_args, mpc_ins = cs.capture_mpc_sweep(task, start, goal)
+    mpc_seen = cs.capture_mpc_first(task, start, goal)
     for name, (s_args, ins) in (("k6_T%d" % seen["sweep"][0][3],
                                  seen["sweep"]),
-                                ("k6_T%d" % mpc_args[3], (mpc_args, mpc_ins))):
-        fn = riccati_backward_kernel_factory(*s_args)
+                                ("k6_T%d" % mpc_seen["sweep"][0][3],
+                                 mpc_seen["sweep"])):
+        fn = rk.riccati_backward_kernel_factory(*s_args)
         ref = fn.plain(*ins)
         ref64 = fn.plain(*[t.double() for t in ins])
         rel_p64 = cs.max_errs([r.double() for r in ref], ref64)[1]
@@ -478,7 +587,6 @@ def ab_riccati(swap, emit):
                      "%s_%s: kernel vs float64 %.3g, plain float32 %.3g"
                      % (name, side, rel_k64, rel_p64))
             errs[side] = dict(kernel_vs_f64=rel_k64, plain_vs_f64=rel_p64)
-        errs["other_vs_this"] = cs.max_errs(outs["other"], outs["this"])[0]
         other_ms, this_ms, turns = in_turns(
             swap, lambda: cs.cuda_ms(lambda: fn(*ins), iters=20))
         d, m, P, T = s_args[:4]
@@ -486,17 +594,75 @@ def ab_riccati(swap, emit):
         emit(name, shape=dict(T=T, d=d, P=P, B=B), other_ms=other_ms,
              this_ms=this_ms, speedup=other_ms / this_ms, turns_ms=turns,
              bound_ms=cs.bound_ms(*cs.riccati_work(d, m, P, T, B))[0],
-             launch=riccati_launch_config(d, P, B), vs_float64=errs)
+             launch=rk.riccati_launch_config(d, P, B), vs_float64=errs,
+             bit_for_bit=all(torch.equal(a, b) for a, b in zip(
+                 outs["other"], outs["this"])))
 
-    # K7, which this change leaves alone, bit for bit on the same inputs
+    # K7 on the path's inputs at T = 31 and 15 and at a ragged B = 100:
+    # bit for bit, each side held to a float64 plain version as phase
+    # riccati holds it, and timed in turns (device time over a CUDA graph
+    # of calls: a call's host time is near its device time)
     r_args, r_ins = seen["roll"]
-    roll = linesearch_rollout_kernel_factory(*r_args)
-    with swap:
-        other = roll(*r_ins)
-    same = all(torch.equal(a, b) for a, b in zip(other, roll(*r_ins)))
-    emit("k7_bit_for_bit", same=same)
-    if not same:
-        cs.fail("K7 differs from the other tree's")
+    m_args, m_ins = mpc_seen["roll"]
+    for name, args, ins in (
+            ("k7_T%d" % r_args[2], r_args, r_ins),
+            ("k7_T%d" % m_args[2], m_args, m_ins),
+            ("k7_T%d_B100" % r_args[2], r_args,
+             [t[..., :100].contiguous() for t in r_ins])):
+        roll = rk.linesearch_rollout_kernel_factory(*args)
+        ref64 = roll.plain(*[t.double() for t in ins])
+        rel_p64 = cs.max_errs([r.double() for r in roll.plain(*ins)],
+                              ref64)[1]
+        outs, errs = {}, {}
+        for side in ("other", "this"):
+            with (swap if side == "other" else _null()):
+                outs[side] = [o.clone() for o in roll(*ins)]
+            rel_k64 = cs.max_errs([o.double() for o in outs[side]],
+                                  ref64)[1]
+            cs.check(rel_k64 <= 2.0 * rel_p64 + cs.ROLLOUT_TOL,
+                     "%s_%s: kernel vs float64 %.3g, plain float32 %.3g"
+                     % (name, side, rel_k64, rel_p64))
+            errs[side] = dict(kernel_vs_f64=rel_k64, plain_vs_f64=rel_p64)
+        same = all(torch.equal(a, b) for a, b in zip(outs["other"],
+                                                     outs["this"]))
+        other_ms, this_ms, turns = in_turns(
+            swap, lambda: cs.device_ms(lambda: roll(*ins), iters=20))
+        d, m, T, _, alphas = args
+        B = ins[0].shape[-1]
+        emit(name, shape=dict(T=T, d=d, A=len(alphas), B=B),
+             bit_for_bit=same, vs_float64=errs, other_ms=other_ms,
+             this_ms=this_ms, speedup=other_ms / this_ms, turns_ms=turns,
+             bound_ms=cs.bound_ms(*cs.rollout_work(d, m, T, len(alphas),
+                                                   B))[0],
+             launch=rk.rollout_launch_config(d, len(alphas), B))
+        if not same:
+            cs.fail("%s differs from the other tree's" % name)
+
+    # this tree's K7 at 1, 2 and 4 lanes a block, in turns
+    for name, args, ins in (
+            ("k7_lanes_T%d" % r_args[2], r_args, r_ins),
+            ("k7_lanes_T%d" % m_args[2], m_args, m_ins),
+            ("k7_lanes_T%d_B100" % r_args[2], r_args,
+             [t[..., :100] for t in r_ins]),
+            ("k7_lanes_T%d_B4096" % r_args[2], r_args,
+             [torch.cat([t] * 8, -1) for t in r_ins])):
+        ins = [t.contiguous().clone() for t in ins]   # 16-byte aligned
+        want = rk.linesearch_rollout_kernel_factory(*args)(*ins)
+        runs = {n: rollout_at_lanes(args, ins, n) for n in (1, 2, 4)}
+        for n, run in runs.items():
+            if not all(torch.equal(a, b) for a, b in zip(run(), want)):
+                cs.fail("%s: other bits at %d lanes a block" % (name, n))
+        ms = {n: [] for n in runs}
+        for n in (1, 2, 4, 4, 2, 1):
+            ms[n].append(cs.device_ms(runs[n], iters=20))
+        d, m, T, _, alphas = args
+        B = ins[0].shape[-1]
+        mean = {n: sum(v) / len(v) for n, v in ms.items()}
+        emit(name, shape=dict(T=T, d=d, A=len(alphas), B=B),
+             ms_by_lanes_a_block=mean, turns_ms=ms,
+             fastest=min(mean, key=mean.get),
+             picked=rk.rollout_launch_config(d, len(alphas),
+                                             B)["lanes_per_block"])
 
     # phase ilqr's solve and phase ilqr_mpc's loop
     params = ILQRParams(**cs.IL_PARAMS)
@@ -515,32 +681,35 @@ def ab_riccati(swap, emit):
         torch.cuda.synchronize()
         return ev0.elapsed_time(ev1), out
 
+    def profiles(fn, n_units):
+        prof = {}
+        for side in ("other", "this"):
+            with (swap if side == "other" else _null()):
+                busy, dev_ms, top = cs.profile_device(fn, n_units)
+            prof[side] = dict(profiled_device_busy_share=busy,
+                              profiled_device_ms_per_unit=dev_ms,
+                              top_device_ms_per_unit=top)
+        return prof
+
     plan = solve().trajs
     with swap:
         solve()
     other_ms, this_ms, turns = in_turns(
         swap, lambda: events_ms(solve)[0] / cs.IL_ITERS)
-    prof = {}
-    for side in ("other", "this"):
-        with (swap if side == "other" else _null()):
-            busy, dev_ms, top = cs.profile_device(solve, cs.IL_ITERS)
-        prof[side] = dict(profiled_device_busy_share=busy,
-                          profiled_device_ms_per_iteration=dev_ms,
-                          top_device_ms_per_iteration=top)
     emit("ilqr_iteration", B=cs.IL_B, H=cs.IL_H, iterations=cs.IL_ITERS,
          other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
-         turns_ms=turns, profile=prof)
+         turns_ms=turns, profile=profiles(solve, cs.IL_ITERS))
 
-    def mpc():
-        return cs.ilqr_mpc_loop(task, start, goal, plan, cs.MPC_STEPS)
-    cs.ilqr_mpc_loop(task, start, goal, plan, 1)
+    def mpc(n_steps=cs.MPC_STEPS):
+        return cs.ilqr_mpc_loop(task, start, goal, plan, n_steps)
+    mpc(1)
     with swap:
-        cs.ilqr_mpc_loop(task, start, goal, plan, 1)
+        mpc(1)
     other_ms, this_ms, turns = in_turns(
         swap, lambda: events_ms(mpc)[0] / cs.MPC_STEPS)
     emit("ilqr_mpc_step", B=cs.IL_B, H=cs.MPC_H, steps=cs.MPC_STEPS,
          other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
-         turns_ms=turns)
+         turns_ms=turns, profile=profiles(lambda: mpc(5), 5))
 
 
 def ab_sweeps(swap, emit):
@@ -823,45 +992,40 @@ def ab_cols(swap, emit):
 
 
 def ab_terms(other, emit):
-    """K1 on the main path's q, random q, the grasped main q and the grid
-    path's q (each side held to plain, the sides' bits, turns, bound); both
-    sides' ptxas; K5 and K8 bit for bit; the main and grasped main paths'
+    """K5 on phase mr_terms' four cases, on mr_grasp's and on mr_grid's
+    first q (each side held to plain, the sides' bits, turns, bound); both
+    sides' ptxas; K1 and K8 (both branches) bit for bit; config 4's MPC
     step in turns with a profile per side."""
+    import numpy as np
     import torch
     from torch_robotics_tpu_torch.ops import terms_kernel as tk
-    from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
-    from torch_robotics_tpu_torch.robots import RobotPanda
-    from torch_robotics_tpu_torch.solve import straight_line_trajs
-    from torch_robotics_tpu_torch.tasks import PlanningTask
 
-    def ptxas(kernel, fragment):
-        lines = kernel.library_path.with_suffix(".log").read_text() \
-            .splitlines()
-        return [" | ".join(x.strip().split("info    : ")[-1]
-                           for x in lines[i + 1:i + 4])
-                for i, line in enumerate(lines)
-                if "Compiling entry function" in line and fragment in line]
-    emit("ptxas", **{side: {"terms_kernel<%d>" % d: ptxas(
-        k, "terms_kernelILi%dE" % d) for d in range(1, 9)}
-        for side, k in (("other", other[0]), ("this", tk.KERNEL))})
-
-    def main_q(start, goal, H_):
-        d = start.shape[1] // 2
-        return (straight_line_trajs(start, goal, H_)[..., :d]
-                .permute(2, 1, 0).reshape(d, -1).contiguous())
-    task, start, goal = cs.bench_problem("cuda", cs.B)
-    gtask, gstart, ggoal = cs.bench_problem("cuda", cs.B,
-                                            robot=cs.grasp_robot("cuda"))
-    env, _ = cs.grid_env()
-    rtask = PlanningTask(env=env, robot=RobotPanda.create(device="cuda"),
-                         obstacle_cutoff_margin=cs.GRID_CUTOFF)
-    r_start, r_goal = cs.grid_start_goal(rtask.robot, cs.GRID_B)
+    emit("ptxas", **{side: {"mr_terms_kernel": ptxas_report(
+        k, "mr_terms_kernel")} for side, k in (("other", other[1]),
+                                               ("this", tk.MR_KERNEL))})
     mr, mr_start, mr_goal, _ = cs.mr_problem("cuda")
-    swap = terms_swap(*other, (task, gtask, rtask))
-    cases = (("k1_main_q", task, main_q(start, goal, cs.H)),
-             ("k1_random_q", task, cs.random_q(task, cs.H * cs.B, seed=1)),
-             ("k1_grasped_main_q", gtask, main_q(gstart, ggoal, cs.H)),
-             ("k1_grid_main_q", rtask, main_q(r_start, r_goal, cs.GRID_H)))
+    gmr, g_start, g_goal, _ = cs.mr_problem("cuda", grasp=True)
+    env, _ = cs.grid_env()
+    rmr = cs.mr_task("cuda", env=env)
+    tight = cs.mr_task("cuda", cs.MR_TIGHT_POSES)
+    two_arm = cs.mr_task("cuda", cs.MR_TWO_ARM_POSES)
+    swap = terms_swap(*other, (mr, gmr, rmr, tight, two_arm))
+    rng = np.random.default_rng(7)
+
+    def in_limits(t, n):
+        lo, hi = t.robot.q_min.cpu().numpy(), t.robot.q_max.cpu().numpy()
+        u = rng.uniform(size=(lo.shape[0], n))
+        return torch.as_tensor(lo[:, None] + u * (hi - lo)[:, None],
+                               dtype=torch.float32, device="cuda")
+
+    q_main = cs.mr_first_q(mr_start, mr_goal)
+    N = q_main.shape[1]
+    cases = (("k5_config4_first_q", mr, q_main),
+             ("k5_config4_random_q", mr, in_limits(mr, N)),
+             ("k5_tight_poses_random_q", tight, in_limits(tight, N)),
+             ("k5_two_arm_random_q_N4096", two_arm, in_limits(two_arm, 4096)),
+             ("k5_grasped_first_q", gmr, cs.mr_first_q(g_start, g_goal)),
+             ("k5_grid_first_q", rmr, q_main))
     for name, t, q in cases:
         hook = t.collision_residuals.obstacle_terms_lanes
         ref = hook.plain.unscaled(q)
@@ -879,18 +1043,19 @@ def ab_terms(other, emit):
                 cs.hold_terms("%s_%s" % (name, side), outs[side], ref, res)
                 errs[side] = {"abs": res[name + "_" + side][0],
                               "rel_to_max": res[name + "_" + side][1]}
-        # the kernel's device time over a CUDA graph of calls (a call's host
-        # time exceeds it at these N), and a call's time by CUDA events
         other_ms, this_ms, turns = in_turns(
             swap, lambda: cs.device_ms(lambda: hook.unscaled(q), iters=20))
         other_call, this_call, _ = in_turns(
             swap, lambda: cs.cuda_ms(lambda: hook.unscaled(q), iters=50))
         r = hook.plain.rows(q)[0]
-        work = cs.terms_work(TermsLayout(t), q, r)
-        emit(name, N=q.shape[1], bit_for_bit=all(
-            torch.equal(a, b) for a, b in zip(outs["other"], outs["this"])),
-            max_abs_diff=max(float((a - b).abs().max())
-                             for a, b in zip(outs["other"], outs["this"])),
+        work = cs.mr_terms_work(hook.plain.layout, q, r)
+        differ = torch.zeros(q.shape[1], dtype=torch.bool, device="cuda")
+        for a, b in zip(outs["other"], outs["this"]):
+            differ |= (a != b).reshape(-1, a.shape[-1]).any(0)
+        emit(name, N=q.shape[1], bit_for_bit=not bool(differ.any()),
+            lanes_differing=int(differ.sum()),
+            max_abs_diff=max(float((a - b).abs().max()) for a, b in zip(
+                outs["other"], outs["this"])),
             vs_plain=errs, other_ms=other_ms, this_ms=this_ms,
             speedup=other_ms / this_ms, turns_ms=turns,
             call_ms={"other": other_call, "this": this_call},
@@ -898,15 +1063,27 @@ def ab_terms(other, emit):
             active_row_share=float((r > 0).float().mean()))
         torch.cuda.empty_cache()
 
-    # K5 and K8, which this change leaves alone, bit for bit on the same q
+    # K1 (pair field, grasped, grid) and K8, bit for bit: their kernels'
+    # arithmetic is meant to stay as it is
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    task, start, goal = cs.bench_problem("cuda", cs.B)
+    gtask = cs.grasp_task("cuda")
+    rtask = PlanningTask(env=env, robot=RobotPanda.create(device="cuda"),
+                         obstacle_cutoff_margin=cs.GRID_CUTOFF)
     same = {}
-    q_mr = cs.mr_first_q(mr_start, mr_goal)
     q_r = cs.random_q(task, 79360, seed=2)
     for name, fn, q in (
-            ("k5", mr.collision_residuals.obstacle_terms_lanes.unscaled, q_mr),
+            ("k1", task.collision_residuals.obstacle_terms_lanes.unscaled,
+             cs.random_q(task, cs.H * cs.B, seed=1)),
+            ("k1_grasped",
+             gtask.collision_residuals.obstacle_terms_lanes.unscaled,
+             cs.random_q(gtask, cs.H * cs.B, seed=3)),
+            ("k1_grid", rtask.collision_residuals.obstacle_terms_lanes.unscaled,
+             cs.random_q(rtask, cs.H * cs.B, seed=4)),
             ("k8", task.collision_residuals.collision_cost_lanes, q_r),
             ("k8_multirobot", mr.collision_residuals.collision_cost_lanes,
-             q_mr)):
+             q_main)):
         with swap:
             o = fn(q)
         o = o if isinstance(o, tuple) else (o,)
@@ -917,35 +1094,31 @@ def ab_terms(other, emit):
     if not all(same.values()):
         cs.fail("a kernel this change leaves alone differs: %s" % same)
 
-    # the main path and the grasped main path, in turns, a profile per side
-    for name, t, s_, g_ in (("main_path_step", task, start, goal),
-                            ("grasped_main_path_step", gtask, gstart, ggoal)):
-        cs.run_mpc(t, s_, g_, 1)
-        with swap:
-            cs.run_mpc(t, s_, g_, 1)
-
-        def step_ms():
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            ev0.record()
-            cs.run_mpc(t, s_, g_, cs.N_STEPS)
-            ev1.record()
-            torch.cuda.synchronize()
-            return ev0.elapsed_time(ev1) / cs.N_STEPS
-        other_ms, this_ms, turns = in_turns(swap, step_ms)
-        prof = {}
-        for side in ("other", "this"):
-            with (swap if side == "other" else _null()):
-                busy, dev_ms, top = cs.profile_device(
-                    lambda: cs.run_mpc(t, s_, g_, 2), 2)
-            prof[side] = dict(profiled_device_busy_share=busy,
-                              profiled_device_ms_per_step=dev_ms,
-                              top_device_ms_per_step=top)
-        emit(name, B=cs.B, H=cs.H, steps=cs.N_STEPS, other_ms=other_ms,
-             this_ms=this_ms, speedup=other_ms / this_ms, turns_ms=turns,
-             profile=prof)
-        torch.cuda.empty_cache()
+    # config 4's MPC step in turns, a profile per side
+    def events_ms():
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        ev0.record()
+        cs.mr_rollout(mr, mr_start, mr_goal, cs.MR_STEPS)
+        ev1.record()
+        torch.cuda.synchronize()
+        return ev0.elapsed_time(ev1) / cs.MR_STEPS
+    cs.mr_rollout(mr, mr_start, mr_goal, 1)
+    with swap:
+        cs.mr_rollout(mr, mr_start, mr_goal, 1)
+    other_ms, this_ms, turns = in_turns(swap, events_ms)
+    prof = {}
+    for side in ("other", "this"):
+        with (swap if side == "other" else _null()):
+            busy, dev_ms, top = cs.profile_device(
+                lambda: cs.mr_rollout(mr, mr_start, mr_goal, 2), 2)
+        prof[side] = dict(profiled_device_busy_share=busy,
+                          profiled_device_ms_per_step=dev_ms,
+                          top_device_ms_per_step=top)
+    emit("mr_mpc_step", B=cs.MR_B, H=cs.MR_H, steps=cs.MR_STEPS,
+         other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
+         turns_ms=turns, profile=prof)
 
 
 def ab_net(other, routed, emit):

@@ -4,10 +4,9 @@ the iLQR path's Panda, config 4's three arms (chip_smoke.MR_POSES), the
 two-arm Panda + UR10 and config 4's arms at the tight poses: the block
 fits the H100's shared memory, a chain stores no link transform, every
 row of a lane goes to exactly one of its threads, and the threads' row
-operations stay within 1.25x of their mean.  Past the caps the factory
-and the launch shape raise NotImplementedError before any launch."""
-import types
-
+operations stay within 1.25x of their mean.  Past the caps a task keeps
+its plain cost on the CPU, and its hook and the launch shape raise
+NotImplementedError before any launch."""
 import numpy as np
 import pytest
 import torch
@@ -112,13 +111,22 @@ def test_other_lanes_a_block():
 
 
 def test_past_the_caps_raises_before_any_launch():
-    """Five members (at most 4) raise in the factory; a block that would
-    not fit the shared memory raises in the launch shape."""
-    task = types.SimpleNamespace(
+    """Five members (at most 4): the task constructs on the CPU with its
+    plain cost, and a tensor off the CPU (a meta tensor standing in for a
+    CUDA one) raises at the cost hook and at a hook built by the factory
+    alone, before any launch; a block that would not fit the shared memory
+    raises in the launch shape."""
+    task = PlanningTask(
+        env=EnvSpheres3D(device="cpu"),
         robot=multirobot([("panda", (0.0, 0.8 * i), 0.0) for i in range(5)]),
-        device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="at most 4 members"):
-        collision_cost_kernel_factory(task)
+        obstacle_cutoff_margin=0.02)
+    q = torch.zeros((35, 2))
+    meta = torch.zeros((35, 2), device="meta")
+    for cost in (task.collision_residuals.collision_cost_lanes,
+                 collision_cost_kernel_factory(task)):
+        assert torch.equal(cost(q), cost.plain(q))
+        with pytest.raises(NotImplementedError, match="at most 4 members"):
+            cost(meta)
     ints, floats = pack_cost_params(layout("ilqr_panda"))
     big = ints.copy()
     big[2] = 20000                                   # collision points

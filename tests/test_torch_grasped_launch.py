@@ -19,14 +19,14 @@ import torch
 from test_torch_cost_schedule import (_sections, model_cost,
                                      offset_point_model)
 from test_torch_grasped import MR_BASES, MR_BOX, MR_YAWS
-from test_torch_multi_robot import _rodrigues, model_mr_terms
+from test_torch_multi_robot import _rodrigues, model_mr_terms, mr_sections
 from torch_robotics_tpu_torch.core import z_rot
 from torch_robotics_tpu_torch.envs import EnvSpheres3D
 from torch_robotics_tpu_torch.geom import GraspedObjectPandaBox
 from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout, fk_lanes
 from torch_robotics_tpu_torch.ops.terms_kernel import (
-    cost_launch_config, cost_row_ops, mr_shared_bytes, pack_cost_params,
-    pack_multirobot_params, pack_terms_params)
+    cost_launch_config, cost_row_ops, mr_terms_launch_config,
+    pack_cost_params, pack_multirobot_params, pack_terms_params)
 from torch_robotics_tpu_torch.robots import MultiRobot, RobotPanda, RobotUR10
 from torch_robotics_tpu_torch.tasks import PlanningTask
 
@@ -100,30 +100,31 @@ def test_terms_buffers_carry_the_offsets(panda):
 
 def test_multirobot_buffers_carry_the_offsets(multirobot):
     """A grasped member's points are in its object section and in its self
-    section: each with its own offset record (28), the others -1."""
+    section, each an offset point of the grasped link's FK step with its
+    own offset record (28), its joint mask all 7 joints; the mutual rows
+    of the grasped points are listed on the cross blocks."""
     task, lay = multirobot
     ints, floats = pack_multirobot_params(lay)
-    P, D, NO, NGP = int(ints[2]), int(ints[1]), int(ints[3]), int(ints[11])
-    assert (P, NO, NGP) == (30 + 22 + 8 + 6, 30, 28)
-    n_mem, n_bp, L_sum = int(ints[0]), int(ints[8]), int(ints[9])
-    o = 16 + 8 * n_mem + 4 * n_bp + 4 * L_sum + D
-    pt_link, pt_anc = ints[o + P:o + 2 * P], ints[o + 2 * P:o + 3 * P]
-    pt_goff = ints[o + 3 * P:o + 4 * P]
+    a = mr_sections(ints, floats)
+    P, NO = a["P"], a["NO"]
+    assert (P, NO, len(a["offsets"])) == (30 + 22 + 8 + 6, 30, 28)
     grasped = np.r_[5:19, 38:52]      # after the links of each section
-    np.testing.assert_array_equal(pt_goff[grasped], np.arange(28))
-    assert (np.delete(pt_goff, grasped) == -1).all()
-    assert (pt_link[grasped] == 11).all()
-    assert (pt_anc[grasped] == ANC_ALL).all()
-    K_own, K_mut = int(ints[4]), int(ints[5])
-    f = 17 * L_sum + 12 * n_mem + NO + K_own + K_mut + 6
+    first_off = a["pt_end"] - a["n_off"]
+    offset_pts = np.concatenate([a["pt_list"][f:e] for f, e in zip(
+        first_off, a["pt_end"])])
+    np.testing.assert_array_equal(np.sort(offset_pts), grasped)
+    assert (a["anc"][grasped] == ANC_ALL).all()
     gp = task.robot.robots[0].grasped_points.numpy()
-    np.testing.assert_array_equal(floats[f:f + 3 * NGP].reshape(28, 3),
+    np.testing.assert_array_equal(a["offsets"][:, :3],
                                   np.concatenate([gp, gp]))
+    assert (a["offsets"][:, 3] == 0).all()
     # the mutual rows of the grasped points: 14 x (5 + 6) beside the
-    # links' 5 x (5 + 6) and the second Panda's 5 x 6
-    assert K_mut == 19 * 5 + 19 * 6 + 5 * 6
-    assert mr_shared_bytes(ints) == 4 * 32 * (3 * P + 6 * D + n_bp)
-    assert mr_shared_bytes(ints) <= SMEM_MAX
+    # links' 5 x (5 + 6) and the second Panda's 5 x 6, each on one cross
+    # block
+    cross = a["entries"][a["bp_begin"][a["n_mem"]]:a["bp_begin"][-1]]
+    assert len(cross) == 19 * 5 + 19 * 6 + 5 * 6
+    launch = mr_terms_launch_config(ints, len(floats))
+    assert launch["smem_bytes"] <= SMEM_MAX
 
 
 def _cost_steps(ints, floats):

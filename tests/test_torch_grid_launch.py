@@ -16,7 +16,7 @@ from torch_robotics_tpu_torch.geom.sdf import MultiSphereField, ObjectField
 from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout, _grid_sdf_lanes
 from torch_robotics_tpu_torch.ops.terms_kernel import (
     _grid_ptr, _pack_scene, collision_cost_kernel_factory, cost_launch_config,
-    cost_row_ops, mr_shared_bytes, obstacle_terms_kernel_factory,
+    cost_row_ops, mr_terms_launch_config, obstacle_terms_kernel_factory,
     pack_cost_params, pack_multirobot_params, pack_terms_params,
     scene_grid_table)
 from torch_robotics_tpu_torch.robots import RobotPanda
@@ -110,16 +110,19 @@ def test_terms_buffers_carry_the_grids(scene):
 
 
 def test_multirobot_buffers_carry_the_grids(scene):
+    """The MultiRobot terms kernel reads the cost packing's scene: the grid
+    is an object with no groups (obj_grid 0) and a header (its first row,
+    its cmap_dim) closing the cost sections; the launch shape holds it."""
     task = _task(scene[:1], multirobot(POSES["config4"]))
-    plain = task.collision_residuals.obstacle_terms_lanes.plain
-    ints, floats = pack_multirobot_params(plain.layout)
-    assert ints[6] == 1 and ints[10] == 1           # NOBJ, NGRID
-    # the scene sections close the ints: group_off (1 object, no groups),
-    # obj_grid, the grid's header
-    np.testing.assert_array_equal(ints[-6:], [0, 0, 0, 20, 20, 20])
-    assert mr_shared_bytes(ints) > 0
-    assert task.collision_residuals.obstacle_terms_lanes.grid is \
-        scene[0].table()
+    hook = task.collision_residuals.obstacle_terms_lanes
+    ints, floats = pack_multirobot_params(hook.plain.layout)
+    assert ints[5] == 1 and ints[11] == 1           # NOBJ, NGRID
+    # the cost sections close with the scene's: group_off (1 object, no
+    # groups), obj_grid, the grid's header; the terms' sections follow
+    end = int(ints[13])
+    np.testing.assert_array_equal(ints[end - 6:end], [0, 0, 0, 20, 20, 20])
+    assert mr_terms_launch_config(ints, len(floats)) == hook.params[4]
+    assert hook.grid is scene[0].table()
 
 
 def _cost_sections(ints, floats):

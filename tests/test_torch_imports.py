@@ -172,8 +172,9 @@ def test_multirobot_wrappers_take_the_kernel_or_raise_off_the_cpu():
     ints = torch.zeros(16, dtype=torch.int32, device="meta")
     floats = torch.zeros(8, device="meta")
     with pytest.raises(ValueError):
-        run_multirobot_terms_kernel(torch.zeros((20, 5), device="meta"),
-                                    ints, floats, 20, 6, 1024)
+        run_multirobot_terms_kernel(
+            torch.zeros((20, 5), device="meta"), ints, floats, 20,
+            dict(lanes=32, block_pairs=6, threads=192, smem_bytes=1024))
 
 
 def test_point_mass_and_point_cloud_entry_points_default_to_the_card(

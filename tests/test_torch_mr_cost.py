@@ -19,7 +19,8 @@ from torch_robotics_tpu.ops.pallas_terms import \
     collision_cost_pallas_factory as jax_cost_factory
 from torch_robotics_tpu_torch.convert import task_from_numpy
 from torch_robotics_tpu_torch.ops.terms_kernel import (
-    collision_cost_kernel_factory, mr_shared_bytes, pack_multirobot_params)
+    collision_cost_kernel_factory, cost_launch_config, pack_cost_params,
+    pack_multirobot_params)
 
 TIGHT = (("panda", (0.0, 0.5), 0.0), ("panda", (0.0, -0.5), np.pi),
          ("ur10", (-0.5, 0.0), 0.0))
@@ -51,15 +52,27 @@ def test_multirobot_cost_matches_jax_kernel(name):
 def test_multirobot_cost_factory_and_shared_memory():
     """The factory returns the MultiRobot branch for a MultiRobot task (the
     task's hook is it), and the value-only kernel's shared memory holds
-    the points and the per-warp costs only."""
+    per lane its q, points, stored transforms and thread shares only,
+    where the terms kernel's (which the cost kernel's packing opens) also
+    holds the joint axes and origins, every row's value and each object
+    row's minimizing primitive."""
     ptask = task_from_numpy(export_jax_multirobot_task(jax_task(CONFIG4)),
                             device="cpu")
     cost = collision_cost_kernel_factory(ptask)
     q = torch.as_tensor(rand_q(ptask.robot, 8, seed=6))
     assert torch.equal(cost(q), ptask.collision_residuals
                        .collision_cost_lanes(q))
-    ints, _ = pack_multirobot_params(
-        ptask.collision_residuals.obstacle_terms_lanes.plain.layout)
-    P, D, n_bp = int(ints[2]), int(ints[1]), int(ints[8])
-    assert mr_shared_bytes(ints, cost_only=True) == 4 * 32 * (3 * P + n_bp)
-    assert mr_shared_bytes(ints) == 4 * 32 * (3 * P + 6 * D + n_bp)
+    lay = ptask.collision_residuals.obstacle_terms_lanes.plain.layout
+    c_ints, c_floats = pack_cost_params(lay)
+    ints, floats = pack_multirobot_params(lay)
+    np.testing.assert_array_equal(floats, c_floats)
+    np.testing.assert_array_equal(ints[:len(c_ints)][16:], c_ints[16:])
+    D, P, NO, K, n_slots, T = (int(c_ints[i]) for i in (1, 2, 3, 4, 8, 9))
+    launch = cost_launch_config(c_ints, len(c_floats))
+    fixed = 4 * (-(-len(c_ints) // 4) * 4 + -(-len(c_floats) // 4) * 4)
+    assert launch["smem_bytes"] == fixed + 4 * launch["lanes"] * (
+        D + 3 * P + 12 * n_slots + T)
+    terms_launch = ptask.collision_residuals.obstacle_terms_lanes.params[4]
+    fixed = 4 * (-(-len(ints) // 4) * 4 + -(-len(floats) // 4) * 4)
+    assert terms_launch["smem_bytes"] == fixed + 4 * 32 * (
+        7 * D + 3 * P + 12 * n_slots + 2 * NO + K + 6 + NO)

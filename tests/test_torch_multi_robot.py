@@ -9,7 +9,8 @@ Tolerances: terms as tests/test_pallas_terms.py holds JAX's MultiRobot
 kernel, atol 3e-5 * max|ref| plus rtol 2e-5 (float32 sums in another
 order); FK, points and Jacobians atol 1e-5 (metres), as
 tests/test_torch_kin.py; UR10 link poses against the golden file at the
-JAX package's own 2e-5 (tests/test_kin_fk.py); the kernel model in float64
+JAX package's own 2e-5 (tests/test_kin_fk.py); the kernel model
+(``model_mr_terms``, on ``pack_multirobot_params``' buffers) in float64
 against the float32 plain terms at the terms tolerance."""
 import jax.numpy as jnp
 import numpy as np
@@ -35,8 +36,8 @@ from torch_robotics_tpu_torch.core import z_rot
 from torch_robotics_tpu_torch.envs import EnvSpheres3D
 from torch_robotics_tpu_torch.kin import fk_all_links, robot_zoo
 from torch_robotics_tpu_torch.ops.lanes_fk import fk_positions_lanes
-from torch_robotics_tpu_torch.ops.terms_kernel import (mr_shared_bytes,
-                                                       pack_multirobot_params)
+from torch_robotics_tpu_torch.ops.terms_kernel import (
+    mr_terms_launch_config, pack_multirobot_params)
 from torch_robotics_tpu_torch.robots import (MultiRobot, RobotPanda,
                                              RobotUR10)
 from torch_robotics_tpu_torch.tasks import PlanningTask
@@ -270,12 +271,12 @@ def test_same_member_mutual_pair_is_refused():
 
 
 # ----------------------------------------------------------------------
-# a float64 model of mr_terms.cu, reading only the packed buffers
+# a model of mr_terms.cu, reading only the packed buffers
 # ----------------------------------------------------------------------
 def _rodrigues(axis, q):
     c, s = np.cos(q), np.sin(q)
     ax, ay, az = axis
-    oc = 1.0 - c
+    oc = 1 - c
     return np.stack([1 + oc * (ax * ax - 1), -s * az + oc * ax * ay,
                      s * ay + oc * ax * az, s * az + oc * ax * ay,
                      1 + oc * (ay * ay - 1), -s * ax + oc * ay * az,
@@ -283,212 +284,242 @@ def _rodrigues(axis, q):
                      1 + oc * (az * az - 1)]).reshape(3, 3, -1)
 
 
-def _scene_sdf_grad(ip, fp_scene, x, NOBJ, NG):
-    """Min-over-spheres SDF and gradient at x (3, N) (the EnvSpheres3D
-    scene: every group holds spheres)."""
-    obj_begin, kind, count, off = ip
-    rot, pos, prims = fp_scene
-    best = np.full(x.shape[1], np.inf)
-    grad = np.zeros_like(x)
-    for o in range(NOBJ):
-        R = rot[o].reshape(3, 3)
-        xo = R.T @ (x - pos[o][:, None])
-        for g in range(obj_begin[o], obj_begin[o + 1]):
-            assert kind[g] == 0
-            for j in range(count[g]):
-                c = prims[off[g] + 4 * j: off[g] + 4 * j + 3]
-                d = xo - c[:, None]
-                dist = np.sqrt((d * d).sum(0))
-                s = dist - prims[off[g] + 4 * j + 3]
-                take = s < best
-                best = np.where(take, s, best)
-                grad = np.where(take, R @ (d / dist), grad)
-    return best, grad
+def mr_sections(ints, floats):
+    """``pack_multirobot_params``' buffers cut as mr_terms.cu cuts them: the
+    members' cost packing (cost.cuh's parse_layout), then, from ints[13]
+    on, the terms' sections; every int and float accounted for."""
+    (n_mem, D, P, NO, K, NOBJ, NG, S, n_slots, T, n_prims, NGRID,
+     NOFF) = (int(v) for v in ints[:13])
+    a = dict(n_mem=n_mem, D=D, P=P, NO=NO, K=K, NOBJ=NOBJ, S=S,
+             n_slots=n_slots)
+    o = 16
+    step_i = ints[o:o + 8 * S].reshape(S, 8)
+    o += 8 * S
+    for name, n in (("mem_step", n_mem + 1), ("pt_list", P), ("obj_pt", NO),
+                    ("pair_a", K), ("pair_b", K), ("cuts", T + 1),
+                    ("obj_group_begin", NOBJ + 1), ("group_kind", NG),
+                    ("group_count", NG), ("group_off", NG),
+                    ("obj_grid", NOBJ), ("grid_i", 4 * NGRID)):
+        a[name], o = ints[o:o + n], o + n
+    assert o == int(ints[13])
+    n_bp, E = int(ints[o]), int(ints[o + 1])
+    a.update(n_bp=n_bp, prism=int(ints[o + 2]) & 0xffffffff)
+    o += 8
+    for name, n in (("mem_D", n_mem), ("mem_doff", n_mem), ("bp_i", n_bp),
+                    ("bp_j", n_bp), ("bp_begin", n_bp + 1),
+                    ("vcuts", n_bp + 1), ("anc", P), ("entries", E)):
+        a[name], o = ints[o:o + n], o + n
+    assert o == len(ints)
+    a["prims"], o = floats[:n_prims], n_prims
+    objects = floats[o:o + 12 * NOBJ].reshape(NOBJ, 12)
+    o += 12 * NOBJ + 8 * NGRID
+    step_f = floats[o:o + 20 * S].reshape(S, 20)
+    o += 20 * S
+    a["offsets"] = floats[o:o + 4 * NOFF].reshape(NOFF, 4)
+    o += 4 * NOFF
+    for name, n in (("base_R", 9 * n_mem), ("base_t", 3 * n_mem),
+                    ("obj_thresh", NO), ("pair_margin", K), ("ws_min", 3),
+                    ("ws_max", 3)):
+        a[name], o = floats[o:o + n], o + n
+    assert o == len(floats)
+    a.update(jtype=step_i[:, 0], qcol=step_i[:, 1], src=step_i[:, 2],
+             slot=step_i[:, 3], pt_begin=step_i[:, 4], pt_end=step_i[:, 5],
+             n_off=step_i[:, 6], off_begin=step_i[:, 7], frot=step_f[:, :9],
+             trans=step_f[:, 9:12], axis=step_f[:, 12:15],
+             clo=step_f[:, 15], chi=step_f[:, 16], obj_rot=objects[:, :9],
+             obj_pos=objects[:, 9:])
+    return a
 
 
-def _act(r):
-    return (r > 0).astype(np.float64)
-
-
-def model_mr_terms(ints, floats, q):
-    """g (d, N), Hqq (d, d, N), cost (N) computed as mr_terms.cu computes
-    them, from the packed buffers alone."""
-    n_mem, D, P, NO, K_own, K_mut, NOBJ, NG, n_bp, L_sum, _, NGP = ints[:12]
-    pos = [16]
-
-    def take(n, arr):
-        out = arr[pos[0]:pos[0] + n]
-        pos[0] += n
-        return out
-    sec = {}
-    for key in ("mem_L", "mem_D", "mem_doff", "mem_loff", "mem_obj_begin",
-                "mem_obj_end", "mem_own_begin", "mem_own_end"):
-        sec[key] = take(n_mem, ints)
-    for key in ("bp_i", "bp_j", "bp_begin", "bp_end"):
-        sec[key] = take(n_bp, ints)
-    for key in ("topo", "parent", "jtype", "qidx"):
-        sec[key] = take(L_sum, ints)
-    sec["ctrl"] = take(D, ints)
-    for key in ("pt_member", "pt_link", "pt_anc", "pt_goff"):
-        sec[key] = take(P, ints)
-    for key, n in (("own_a", K_own), ("own_b", K_own), ("mut_a", K_mut),
-                   ("mut_b", K_mut), ("obj_group_begin", NOBJ + 1),
-                   ("group_kind", NG), ("group_count", NG),
-                   ("group_off", NG)):
-        sec[key] = take(n, ints)
-    pos[0] = 0
-    fl = {}
-    for key, n in (("trans", 3 * L_sum), ("frot", 9 * L_sum),
-                   ("axis", 3 * L_sum), ("clo", L_sum), ("chi", L_sum),
-                   ("base_R", 9 * n_mem), ("base_t", 3 * n_mem),
-                   ("obj_thresh", NO), ("own_margin", K_own),
-                   ("mut_margin", K_mut), ("ws_min", 3), ("ws_max", 3),
-                   ("goff", 3 * NGP), ("obj_rot", 9 * NOBJ),
-                   ("obj_pos", 3 * NOBJ)):
-        fl[key] = take(n, floats).astype(np.float64)
-    fl["prims"] = floats[pos[0]:].astype(np.float64)
-    q = q.astype(np.float64)
-    N = q.shape[1]
-
-    # phase 1: per member FK -> world points, joint axes and origins
-    pts = np.zeros((P, 3, N))
-    z = np.zeros((D, 3, N))
-    o = np.zeros((D, 3, N))
-    for w in range(n_mem):
-        lo, doff = sec["mem_loff"][w], sec["mem_doff"][w]
-        Rw, tw = {}, {}
-        for ii in range(sec["mem_L"][w]):
-            i = sec["topo"][lo + ii]
-            li = lo + i
-            F = fl["frot"][9 * li:9 * li + 9].reshape(3, 3)
-            tr = np.repeat(fl["trans"][3 * li:3 * li + 3, None], N, 1)
-            jt = sec["jtype"][li]
+def model_mr_terms(ints, floats, q, dtype=np.float64, every_row=False):
+    """g (D, N), Hqq (D, D, N), cost (N) computed as mr_terms.cu computes
+    them from the packed buffers alone, in ``dtype`` (float32: each
+    operation rounded): each member's FK steps from its own root, the base
+    pose applied to the axes, origins and points; every row's value; then
+    each block pair's row entries in their order, a row adding its
+    Jacobian's g and H terms in the lanes where it is active (r != 0), or
+    with ``every_row`` in every lane (an inactive row then adds +-0).  The
+    scene's objects are spheres."""
+    a = mr_sections(ints, floats)
+    t_ = np.dtype(dtype).type
+    q = q.astype(dtype)
+    N, D, P = q.shape[1], a["D"], a["P"]
+    c_ = lambda v: np.asarray(v, dtype)                # noqa: E731
+    pts = np.zeros((P, 3, N), dtype)
+    zo = np.zeros((D, 2, 3, N), dtype)                 # axis, origin
+    for m in range(a["n_mem"]):
+        Rb = c_(a["base_R"][9 * m:9 * m + 9]).reshape(3, 3)
+        tb = c_(a["base_t"][3 * m:3 * m + 3])
+        slots, R, t = {}, None, None
+        for s in range(a["mem_step"][m], a["mem_step"][m + 1]):
+            F = c_(a["frot"][s]).reshape(3, 3)
+            tr = np.repeat(c_(a["trans"][s])[:, None], N, 1)
+            qc, jt = a["qcol"][s], a["jtype"][s]
+            lo, hi = t_(a["clo"][s]), t_(a["chi"][s])
             if jt in (1, 2):
-                qi = q[doff + sec["qidx"][li]]
-                if jt == 1:
-                    qi = np.clip(qi, fl["clo"][li], fl["chi"][li])
-                Rl = np.einsum("ab,bcn->acn", F, _rodrigues(
-                    fl["axis"][3 * li:3 * li + 3], qi))
+                qi = q[qc] if jt == 2 else np.clip(q[qc], lo, hi)
+                Rl = np.einsum("ab,bcn->acn", F,
+                               _rodrigues(c_(a["axis"][s]), qi))
             else:
-                assert jt == 0
                 Rl = np.repeat(F[:, :, None], N, 2)
-            p = sec["parent"][li]
-            if p < 0:
-                Rw[i], tw[i] = Rl, tr
+                if jt == 3:
+                    tr = tr + c_(a["axis"][s])[:, None] * np.clip(q[qc], lo,
+                                                                  hi)
+            if a["src"][s] == -1:              # the member's own root
+                R, t = Rl, tr
             else:
-                Rw[i] = np.einsum("abn,bcn->acn", Rw[p], Rl)
-                tw[i] = np.einsum("abn,bn->an", Rw[p], tr) + tw[p]
-        Rb = fl["base_R"][9 * w:9 * w + 9].reshape(3, 3)
-        tb = fl["base_t"][3 * w:3 * w + 3, None]
-        for c in range(sec["mem_D"][w]):
-            li = sec["ctrl"][doff + c]
-            gl = lo + li
-            qc = q[doff + c]
-            in_lim = (qc >= fl["clo"][gl]) & (qc <= fl["chi"][gl])
-            z[doff + c] = np.einsum("ab,bcn,c->an", Rb, Rw[li],
-                                    fl["axis"][3 * gl:3 * gl + 3]) * in_lim
-            o[doff + c] = Rb @ tw[li] + tb
-        for p in range(P):
-            if sec["pt_member"][p] == w:
-                li, go = sec["pt_link"][p], sec["pt_goff"][p]
-                x = tw[li] if go < 0 else (np.einsum(
-                    "abn,b->an", Rw[li], fl["goff"][3 * go:3 * go + 3])
-                    + tw[li])
-                pts[p] = Rb @ x + tb
+                Rp, tp = (R, t) if a["src"][s] == -2 else slots[a["src"][s]]
+                R = np.einsum("abn,bcn->acn", Rp, Rl)
+                t = np.einsum("abn,bn->an", Rp, tr) + tp
+            if a["slot"][s] >= 0:
+                slots[a["slot"][s]] = (R, t)
+            x = np.einsum("ab,bn->an", Rb, t) + tb[:, None]
+            RwW = np.einsum("ab,bcn->acn", Rb, R)
+            if qc >= 0:
+                in_lim = ((q[qc] >= lo) & (q[qc] <= hi)).astype(dtype)
+                zo[qc, 0] = np.einsum("abn,b->an", RwW,
+                                      c_(a["axis"][s])) * in_lim
+                zo[qc, 1] = x
+            first_off = a["pt_end"][s] - a["n_off"][s]
+            for i in range(a["pt_begin"][s], a["pt_end"][s]):
+                pts[a["pt_list"][i]] = x if i < first_off else (
+                    np.einsum("abn,b->an", RwW, c_(a["offsets"][
+                        a["off_begin"][s] + i - first_off, :3])) + x)
 
-    def jac(m, p, c):
-        if not (sec["pt_anc"][p] >> c) & 1:
-            return np.zeros((3, N))
-        col = sec["mem_doff"][m] + c
-        return np.cross(z[col], pts[p] - o[col], axis=0)
+    n_sdf = a["NO"] if a["NOBJ"] > 0 else 0
+    ws_min, ws_max = c_(a["ws_min"])[:, None], c_(a["ws_max"])[:, None]
 
-    def pair(pa, pb, margin):
-        diff = pts[pa] - pts[pb]
-        dist = np.sqrt((diff * diff).sum(0))
-        return np.maximum(margin - dist, 0.0), diff / dist
+    def sdf(x):
+        """Min-over-spheres SDF and the first minimum's gradient."""
+        best = np.full(N, np.inf, dtype)
+        grad = np.zeros((3, N), dtype)
+        for o in range(a["NOBJ"]):
+            Ro = c_(a["obj_rot"][o]).reshape(3, 3)
+            xo = Ro.T @ (x - c_(a["obj_pos"][o])[:, None])
+            for gr in range(a["obj_group_begin"][o],
+                            a["obj_group_begin"][o + 1]):
+                assert a["group_kind"][gr] in (0, 3)
+                off = a["group_off"][gr]
+                for j in range(a["group_count"][gr]):
+                    ctr = c_(a["prims"][off + 4 * j:off + 4 * j + 4])
+                    d = xo - ctr[:3, None]
+                    dist = np.sqrt((d * d).sum(0))
+                    take = dist - ctr[3] < best
+                    best = np.where(take, dist - ctr[3], best)
+                    grad = np.where(take, Ro @ (d / dist), grad)
+        return best, grad
 
-    g = np.zeros((D, N))
-    H = np.zeros((D, D, N))
-    cost = np.zeros(N)
-    scene_i = (sec["obj_group_begin"], sec["group_kind"], sec["group_count"],
-               sec["group_off"])
-    scene_f = (fl["obj_rot"].reshape(-1, 9), fl["obj_pos"].reshape(-1, 3),
-               fl["prims"])
-    for b in range(n_bp):
-        bi, bj = sec["bp_i"][b], sec["bp_j"][b]
-        if bi == bj:
-            m, dm, doff = bi, sec["mem_D"][bi], sec["mem_doff"][bi]
-            sl = slice(doff, doff + dm)
+    def faces(x):
+        f = np.concatenate([x - ws_min, ws_max - x])
+        fi = np.argmin(f, 0)
+        return f.min(0), np.stack([(fi == k).astype(dtype)
+                                   - (fi == k + 3).astype(dtype)
+                                   for k in range(3)])
 
-            def add(r, Jr):
-                g[sl] += r * Jr
-                H[sl, sl] += Jr[:, None] * Jr[None]
-
-            for p in range(sec["mem_obj_begin"][m], sec["mem_obj_end"][m]):
-                x = pts[p]
-                val, grad = _scene_sdf_grad(scene_i, scene_f, x, NOBJ, NG)
-                faces = np.concatenate([x - fl["ws_min"][:, None],
-                                        fl["ws_max"][:, None] - x])
-                fi = np.argmin(faces, 0)
-                wgrad = np.stack([np.where(fi == k, 1.0, 0.0)
-                                  - np.where(fi == k + 3, 1.0, 0.0)
-                                  for k in range(3)])
-                for v, gr in ((val, grad), (faces.min(0), wgrad)):
-                    r = np.maximum(fl["obj_thresh"][p] - v, 0.0)
-                    cost += r * r
-                    add(r, np.stack([-_act(r) * (gr * jac(m, p, c)).sum(0)
-                                     for c in range(dm)]))
-            for k in range(sec["mem_own_begin"][m], sec["mem_own_end"][m]):
-                pa, pb = sec["own_a"][k], sec["own_b"][k]
-                r, u = pair(pa, pb, fl["own_margin"][k])
-                cost += r * r
-                add(r, np.stack([-_act(r) * (u * (jac(m, pa, c)
-                                                  - jac(m, pb, c))).sum(0)
-                                 for c in range(dm)]))
-            for b2 in range(n_mem, n_bp):
-                first = sec["bp_i"][b2] == m
-                if not first and sec["bp_j"][b2] != m:
-                    continue
-                for k in range(sec["bp_begin"][b2], sec["bp_end"][b2]):
-                    pa, pb = sec["mut_a"][k], sec["mut_b"][k]
-                    r, u = pair(pa, pb, fl["mut_margin"][k])
-                    p_side, sign = (pa, -1.0) if first else (pb, 1.0)
-                    add(r, np.stack([sign * _act(r) * (u * jac(m, p_side, c))
-                                     .sum(0) for c in range(dm)]))
+    rs = []                                    # every row's value
+    for r in range(n_sdf + a["NO"] + a["K"]):
+        if r < n_sdf + a["NO"]:
+            mi = r if r < n_sdf else r - n_sdf
+            x = pts[a["obj_pt"][mi]]
+            val = sdf(x)[0] if r < n_sdf else faces(x)[0]
+            rs.append(np.maximum(t_(a["obj_thresh"][mi]) - val, 0))
         else:
-            oi, oj = sec["mem_doff"][bi], sec["mem_doff"][bj]
-            di, dj = sec["mem_D"][bi], sec["mem_D"][bj]
-            for k in range(sec["bp_begin"][b], sec["bp_end"][b]):
-                pa, pb = sec["mut_a"][k], sec["mut_b"][k]
-                r, u = pair(pa, pb, fl["mut_margin"][k])
-                cost += r * r
-                A = np.stack([-_act(r) * (u * jac(bi, pa, c)).sum(0)
-                              for c in range(di)])
-                Bv = np.stack([_act(r) * (u * jac(bj, pb, c)).sum(0)
-                               for c in range(dj)])
-                cross = A[:, None] * Bv[None]
-                H[oi:oi + di, oj:oj + dj] += cross
-                H[oj:oj + dj, oi:oi + di] += cross.transpose(1, 0, 2)
-    return g, H, 0.5 * cost
+            k = r - n_sdf - a["NO"]
+            diff = pts[a["pair_a"][k]] - pts[a["pair_b"][k]]
+            rs.append(np.maximum(t_(a["pair_margin"][k])
+                                 - np.sqrt((diff * diff).sum(0)), 0))
+
+    def jdot(doff, p, c, x, v):
+        col = doff + c
+        if not (a["anc"][p] >> c) & 1:
+            return np.zeros(N, dtype)
+        if (a["prism"] >> col) & 1:
+            return (v * zo[col, 0]).sum(0)
+        return (v * np.cross(zo[col, 0], x - zo[col, 1], axis=0)).sum(0)
+
+    g, H = np.zeros((D, N), dtype), np.zeros((D, D, N), dtype)
+    cost = np.zeros(N, dtype)
+    for w in range(a["n_bp"]):
+        i, j = a["bp_i"][w], a["bp_j"][w]
+        oi, oj = a["mem_doff"][i], a["mem_doff"][j]
+        di, dj = a["mem_D"][i], a["mem_D"][j]
+        acc = np.zeros(N, dtype)
+        for e in a["entries"][a["bp_begin"][w]:a["bp_begin"][w + 1]]:
+            row, flags = e >> 3, e & 7
+            r = rs[row]
+            if not flags & 4:
+                acc = acc + r * r
+            live = np.ones(N, bool) if every_row else r != 0
+            act = (r > 0).astype(dtype)
+            if row < n_sdf + a["NO"]:
+                mi = row if row < n_sdf else row - n_sdf
+                p = a["obj_pt"][mi]
+                grad = (sdf if row < n_sdf else faces)(pts[p])[1]
+                A = [-act * jdot(oi, p, c, pts[p], grad) for c in range(di)]
+                B = None
+            else:
+                k = row - n_sdf - a["NO"]
+                pa, pb = a["pair_a"][k], a["pair_b"][k]
+                if flags & 1:
+                    pa, pb = pb, pa
+                diff = pts[pa] - pts[pb]
+                u = diff / np.sqrt((diff * diff).sum(0))
+                if i == j and not flags & 4:       # an own pair
+                    A = [-act * (jdot(oi, pa, c, pts[pa], u)
+                                 - jdot(oi, pb, c, pts[pb], u))
+                         for c in range(di)]
+                    B = None
+                elif i == j:                       # a side of a mutual row
+                    A = [act * jdot(oi, pb, c, pts[pb], u) if flags & 2
+                         else -act * jdot(oi, pa, c, pts[pa], u)
+                         for c in range(di)]
+                    B = None
+                else:
+                    A = [-act * jdot(oi, pa, c, pts[pa], u)
+                         for c in range(di)]
+                    B = [act * jdot(oj, pb, c, pts[pb], u)
+                         for c in range(dj)]
+            if B is None:                          # g_i, H_ii
+                for c1 in range(di):
+                    g[oi + c1] = np.where(live, g[oi + c1] + r * A[c1],
+                                          g[oi + c1])
+                    for c2 in range(c1, di):
+                        h = np.where(live, H[oi + c1, oi + c2]
+                                     + A[c1] * A[c2], H[oi + c1, oi + c2])
+                        H[oi + c1, oi + c2] = H[oi + c2, oi + c1] = h
+            else:                                  # H_ij
+                for c1 in range(di):
+                    for c2 in range(dj):
+                        h = np.where(live, H[oi + c1, oj + c2]
+                                     + A[c1] * B[c2], H[oi + c1, oj + c2])
+                        H[oi + c1, oj + c2] = H[oj + c2, oi + c1] = h
+        cost = cost + acc
+    return g, H, t_(0.5) * cost
 
 
 def test_packed_buffers_reproduce_the_plain_terms(tasks):
     """The buffers the CUDA MultiRobot kernel reads, run through a float64
-    model of its two phases, give the plain terms; the shared-memory size
-    follows the header."""
+    model of its phases, give the plain terms; the block takes one warp a
+    block pair and the shared memory its header says."""
     _, _, ptask = tasks
     terms = ptask.collision_residuals.obstacle_terms_lanes
     ints, floats = pack_multirobot_params(terms.plain.layout)
-    P, D, n_bp = int(ints[2]), int(ints[1]), int(ints[8])
-    assert mr_shared_bytes(ints) == 4 * 32 * (3 * P + 6 * D + n_bp)
+    a = mr_sections(ints, floats)
+    n_rows = 2 * a["NO"] + a["K"]
+    launch = mr_terms_launch_config(ints, len(floats))
+    assert launch["threads"] == 32 * a["n_bp"] and launch["lanes"] == 32
+    assert launch["smem_bytes"] == 4 * (
+        -(-len(ints) // 4) * 4 + -(-len(floats) // 4) * 4 + 32 * (
+            7 * a["D"] + 3 * a["P"] + 12 * a["n_slots"] + n_rows
+            + a["n_bp"] + a["NO"]))
     for lo, hi, seed in ((0.3, 0.7, 8), (-0.2, 1.2, 9)):
         q = rand_q(ptask.robot, 24, seed=seed, lo=lo, hi=hi)
         got = model_mr_terms(ints, floats, q)
         ref = terms.plain.unscaled(torch.as_tensor(q))
         assert float(ref[2].abs().max()) > 0
-        for a, r in zip(got, ref):
+        for a_, r in zip(got, ref):
             r = r.double().numpy()
-            np.testing.assert_allclose(a, r, atol=3e-5 * np.abs(r).max(),
+            np.testing.assert_allclose(a_, r, atol=3e-5 * np.abs(r).max(),
                                        rtol=2e-5)
 
 

@@ -345,6 +345,11 @@ def test_one_layout_and_one_net_row_per_task():
 
 
 def test_multirobot_member_with_a_net_raises():
+    """The CUDA MultiRobot terms kernel has no net row: a MultiRobot with a
+    net member constructs on the CPU with its plain terms and cost (the
+    reference's fused factories return None for it), and a tensor off the
+    CPU (a meta tensor standing in for a CUDA one) raises at both hooks,
+    before any launch: nothing falls back to the plain terms there."""
     from torch_robotics_tpu_torch.core import z_rot
     robot = MultiRobot.create(
         [RobotPanda.create(use_learned_self_collision=True, device="cpu"),
@@ -352,6 +357,16 @@ def test_multirobot_member_with_a_net_raises():
         [(z_rot(torch.tensor(0.0)), torch.tensor([0.0, 0.6, 0.0])),
          (z_rot(torch.tensor(np.pi, dtype=torch.float32)),
           torch.tensor([0.0, -0.6, 0.0]))])
-    with pytest.raises(NotImplementedError, match="self-collision"):
-        PlanningTask(env=EnvSpheres3D(device="cpu"), robot=robot,
-                     obstacle_cutoff_margin=0.03)
+    task = PlanningTask(env=EnvSpheres3D(device="cpu"), robot=robot,
+                        obstacle_cutoff_margin=0.03)
+    res = task.collision_residuals
+    terms, cost = res.obstacle_terms_lanes, res.collision_cost_lanes
+    assert "self-collision" in terms.refusal == cost.refusal
+    q = torch.zeros((robot.q_dim, 4))
+    for a, b in zip(terms.unscaled(q), terms.plain.unscaled(q)):
+        assert torch.equal(a, b)
+    assert torch.equal(cost(q), cost.plain(q))
+    meta = torch.zeros((robot.q_dim, 4), device="meta")
+    for hook in (terms.unscaled, lambda x: terms(x, 1.0), cost):
+        with pytest.raises(NotImplementedError, match="self-collision"):
+            hook(meta)

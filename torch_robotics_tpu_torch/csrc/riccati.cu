@@ -82,14 +82,47 @@
 // the batch and whatever `lanes` is.  sqrtf and divisions are correctly
 // rounded (no fast math), as the TPU kernel's are.
 //
-// The rollout keeps one thread per lane and step size (it moves ~15 MB at
-// the path's shapes and is a short chain of mat-vecs per step).
+// What bounds the rollout on the H100: latency.  At the iLQR path's shapes
+// (T = 31, D = 7, A = 5 step sizes, B = 512) it must move ~14.7 MB (Ks,
+// 6.2 MB, read once for all step sizes; the A rollouts' states and
+// controls written): 0.0044 ms at 3.35 TB/s, and ~2.6e7 float ops, 0.0004
+// ms at 67 TFLOP/s; but each (lane, step size) is a chain of T dependent
+// steps, each a dot product of M = 2 D terms per joint.  The design before
+// this one ran a thread per (lane, step size) in 64-thread blocks (40 of
+// the 132 SMs at B = 512, two warps each), each thread reading its own
+// copy of Ks and waiting on its loads at every step: 0.141 ms on an H100
+// 80GB HBM3 at 700 W.
+//
+// Design: a block takes `lanes` lanes with all A step sizes; a group of G
+// threads (the power of two >= D: 8 for D = 5..8) runs one (lane, step
+// size), thread j of the group owning joint j: x[j], x[j + D] and u_j
+// (threads j >= D, and groups past the block's A step sizes, run every
+// instruction, so that shuffles take the full mask, and write nothing).  A
+// step broadcasts dx inside the group by __shfl_sync, and
+// thread j forms u_j = U + alpha k + K[j] dx in the order of the earlier
+// kernel (so ptxas contracts the same FMAs and the outputs are its bits),
+// then steps its joint's double integrator.  Later steps' rows of Ks, U,
+// ks and xs for the block's lanes are copied into shared memory by
+// cp.async while step t runs, a row's `lanes` floats (1, 2 or 4, B a
+// multiple of it) in one copy: each row is read from device memory once
+// for all A step sizes, into a ring of 8 steps, so that a step's loads
+// are issued 7 steps before it runs; one barrier a step both publishes
+// step t and frees step t - 1's slot for the next copy.  (A copy a float,
+// with the lane's row found by a division, took half of each step:
+// PERF.md section 6, K7.)  rollout_launch_config in ops/riccati_kernel.py
+// picks the most lanes a block that divide B, the inputs' alignment allows
+// and fit 1024 threads: 4 at B = 512, 128 blocks, though 4 SMs then get
+// none (2 lanes a block, 256 blocks, took 34-35% longer at T = 31 and 15;
+// 1 lane took longer at B = 100 and 4096 too: PERF.md, K7).  0.0162 ms at T = 31 on
+// the card above, ~0.5 us a step: each step still waits on its barrier
+// and its 14-term chain of shuffles and FMAs.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 64;       // the rollout's block
+constexpr int kMaxRolloutThreads = 1024;  // the rollout's block, at most
+constexpr int kRollStages = 8;     // the rollout's ring: steps in flight
 constexpr int kMaxCompute = 128;   // the sweep's compute threads per block
 constexpr int kProducer = 32;      // and its one producer warp
 constexpr int kMaxStages = 2;      // the sweep's deepest ring
@@ -467,47 +500,121 @@ riccati_kernel(const float* __restrict__ U, const float* __restrict__ l,
   }
 }
 
+// threads per (lane, step size) in the rollout: the power of two >= D
+__host__ __device__ constexpr int rollout_group(int D) {
+  return D <= 1 ? 1 : D <= 2 ? 2 : D <= 4 ? 4 : 8;
+}
+
+// floats of one lane's step in a slot of the rollout's ring: Ks (D M), U
+// (D), ks (D) and xs (M) rows
+__host__ __device__ constexpr int rollout_rows(int D) {
+  return 2 * D * D + 4 * D;
+}
+
+// a copy of n = 1, 2 or 4 floats into shared memory, both addresses
+// aligned to 4 n bytes
+__device__ __forceinline__ void cp_async_n(float* dst, const float* src,
+                                           int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (n == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+  else if (n == 2)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxRolloutThreads)
 rollout_kernel(const float* __restrict__ xs, const float* __restrict__ U,
                const float* __restrict__ ks, const float* __restrict__ Ks,
                const float* __restrict__ alphas, float* __restrict__ xs_out,
-               float* __restrict__ U_out, int T, int B, float dt,
-               float half_dt2) {
-  constexpr int M = 2 * D;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int a = blockIdx.y;
-  if (b >= B) return;
+               float* __restrict__ U_out, int T, int B, int A, int lanes,
+               float dt, float half_dt2) {
+  constexpr int M = 2 * D, G = rollout_group(D), R = rollout_rows(D);
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int grp = tid / G, j = tid % G;
+  const int ai = grp / lanes, ll = grp - ai * lanes;  // step size, lane
+  const int l0 = blockIdx.x * lanes;
+  const int b = l0 + ll;
+  const bool live = ai < A && b < B && j < D;         // writes its joint's
+  const int jc = j < D ? j : D - 1;                   // the joint it reads
+  const int lc = ll < lanes ? ll : 0;                 // the lane it reads
   const size_t sB = B;
-  const float alpha = alphas[a];
-  float x[M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) x[i] = xs[i * sB + b];
+  const int stage = R * lanes;                        // floats a slot
+  // step t's rows for the block's lanes into slot t % kRollStages,
+  // [row][lanes], one copy of `lanes` floats a row (B is a multiple of
+  // lanes): Ks (t, i, col) at row i M + col, U at D M + i, ks at D M + D +
+  // i, xs (t, i) at D M + 2 D + i.  One commit group a step, empty past the
+  // last step.
+  auto fetch = [&](int t) {
+    float* st = smem + (t % kRollStages) * stage;
+    for (int row = tid; t < T && row < R; row += nthr) {
+      const float* src =
+          row < D * M ? Ks + (static_cast<size_t>(t) * D * M + row) * sB
+          : row < D * M + D ? U + (static_cast<size_t>(t) * D + row - D * M) * sB
+          : row < D * M + 2 * D
+              ? ks + (static_cast<size_t>(t) * D + row - D * M - D) * sB
+              : xs + (static_cast<size_t>(t) * M + row - D * M - 2 * D) * sB;
+      cp_async_n(st + row * lanes, src + l0, lanes);
+    }
+    cp_async_commit();
+  };
+
+  const float alpha = ai < A ? alphas[ai] : 0.f;
+  float xa = 0.f, xb = 0.f;  // x[jc], x[jc + D]
+  for (int t = 0; t < kRollStages - 1; ++t) fetch(t);
   for (int t = 0; t < T; ++t) {
-    float dx[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) dx[i] = x[i] - xs[((size_t)t * M + i) * sB + b];
-    float u[D];
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      const size_t tj = (size_t)t * D + j;
-      float acc = U[tj * sB + b] + alpha * ks[tj * sB + b];
-#pragma unroll
-      for (int col = 0; col < M; ++col)
-        acc = acc + Ks[(tj * M + col) * sB + b] * dx[col];
-      u[j] = acc;
-      U_out[(((size_t)a * T + t) * D + j) * sB + b] = acc;
+    cp_async_wait<kRollStages - 2>();  // step t's group is in
+    // step t staged for every thread, and every thread done with step t -
+    // 1, whose slot the next fetch takes: one barrier a step
+    __syncthreads();
+    fetch(t + kRollStages - 1);
+    const float* st = smem + (t % kRollStages) * stage;
+    const float* xrow = st + (D * M + 2 * D) * lanes + lc;
+    if (t == 0) {  // the rollout starts at xs[0]
+      xa = xrow[jc * lanes];
+      xb = xrow[(jc + D) * lanes];
     }
+    const float dxa = xa - xrow[jc * lanes], dxb = xb - xrow[(jc + D) * lanes];
+    float acc = st[(D * M + jc) * lanes + lc] +
+                alpha * st[(D * M + D + jc) * lanes + lc];
+    const float* krow = st + jc * M * lanes + lc;
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      const float q = x[i] + dt * x[i + D] + half_dt2 * u[i];
-      const float v = x[i + D] + dt * u[i];
-      x[i] = q;
-      x[i + D] = v;
+    for (int col = 0; col < M; ++col) {
+      const float dcol =
+          __shfl_sync(kAll, col < D ? dxa : dxb, col < D ? col : col - D, G);
+      acc = acc + krow[col * lanes] * dcol;
     }
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-      xs_out[(((size_t)a * T + t) * M + i) * sB + b] = x[i];
+    const float u = acc;
+    const float q = xa + dt * xb + half_dt2 * u;
+    const float v = xb + dt * u;
+    xa = q;
+    xb = v;
+    if (live) {
+      const size_t at = static_cast<size_t>(ai) * T + t;
+      U_out[(at * D + j) * sB + b] = u;
+      xs_out[(at * M + j) * sB + b] = xa;
+      xs_out[(at * M + j + D) * sB + b] = xb;
+    }
   }
 }
 
@@ -538,11 +645,25 @@ cudaError_t launch_sweep(const float* U, const float* l, const float* Fc,
 template <int D>
 cudaError_t launch_rollout(const float* xs, const float* U, const float* ks,
                            const float* Ks, const float* alphas, float* xs_out,
-                           float* U_out, int T, int B, int A, float dt,
-                           float half_dt2, cudaStream_t stream) {
-  const dim3 grid((B + kThreads - 1) / kThreads, A);
-  rollout_kernel<D><<<grid, kThreads, 0, stream>>>(
-      xs, U, ks, Ks, alphas, xs_out, U_out, T, B, dt, half_dt2);
+                           float* U_out, int T, int B, int A, int lanes,
+                           float dt, float half_dt2, cudaStream_t stream) {
+  constexpr int G = rollout_group(D);
+  // whole warps: the shuffles take the full mask
+  const int threads = (lanes * A * G + 31) / 32 * 32;
+  if ((lanes != 1 && lanes != 2 && lanes != 4) || B % lanes != 0 || A < 1 ||
+      threads > kMaxRolloutThreads)
+    return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(kRollStages) * rollout_rows(D) *
+                      lanes * sizeof(float);
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rollout_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  rollout_kernel<D><<<(B + lanes - 1) / lanes, threads, smem, stream>>>(
+      xs, U, ks, Ks, alphas, xs_out, U_out, T, B, A, lanes, dt, half_dt2);
   return cudaGetLastError();
 }
 
@@ -577,31 +698,26 @@ extern "C" int trt_riccati_launch(const float* U, const float* l,
 #undef TRT_SWEEP
 }
 
-// The rollout of A step sizes; returns a CUDA error code
-// (cudaErrorInvalidValue for D outside 1..8).
+// The rollout of A step sizes, `lanes` lanes (each with all A step sizes) a
+// block; every input 4 lanes-byte aligned; returns a CUDA error code
+// (cudaErrorInvalidValue for D outside 1..8, lanes not 1, 2 or 4 or not
+// dividing B, or a block past 1024 threads or the shared memory a block
+// can use).
 extern "C" int trt_rollout_launch(const float* xs, const float* U,
                                   const float* ks, const float* Ks,
                                   const float* alphas, float* xs_out,
                                   float* U_out, int T, int B, int A, int D,
-                                  float dt, float half_dt2, void* stream) {
+                                  int lanes, float dt, float half_dt2,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TRT_ROLLOUT(d)                                                    \
+  case d:                                                                 \
+    return launch_rollout<d>(xs, U, ks, Ks, alphas, xs_out, U_out, T, B, A, \
+                             lanes, dt, half_dt2, s);
   switch (D) {
-    case 1: return launch_rollout<1>(xs, U, ks, Ks, alphas, xs_out, U_out, T, B, A,
-                                     dt, half_dt2, s);
-    case 2: return launch_rollout<2>(xs, U, ks, Ks, alphas, xs_out, U_out, T, B, A,
-                                     dt, half_dt2, s);
-    case 3: return launch_rollout<3>(xs, U, ks, Ks, alphas, xs_out, U_out, T, B, A,
-                                     dt, half_dt2, s);
-    case 4: return launch_rollout<4>(xs, U, ks, Ks, alphas, xs_out, U_out, T, B, A,
-                                     dt, half_dt2, s);
-    case 5: return launch_rollout<5>(xs, U, ks, Ks, alphas, xs_out, U_out, T, B, A,
-                                     dt, half_dt2, s);
-    case 6: return launch_rollout<6>(xs, U, ks, Ks, alphas, xs_out, U_out, T, B, A,
-                                     dt, half_dt2, s);
-    case 7: return launch_rollout<7>(xs, U, ks, Ks, alphas, xs_out, U_out, T, B, A,
-                                     dt, half_dt2, s);
-    case 8: return launch_rollout<8>(xs, U, ks, Ks, alphas, xs_out, U_out, T, B, A,
-                                     dt, half_dt2, s);
+    TRT_ROLLOUT(1) TRT_ROLLOUT(2) TRT_ROLLOUT(3) TRT_ROLLOUT(4)
+    TRT_ROLLOUT(5) TRT_ROLLOUT(6) TRT_ROLLOUT(7) TRT_ROLLOUT(8)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef TRT_ROLLOUT
 }

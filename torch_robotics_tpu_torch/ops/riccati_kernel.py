@@ -15,7 +15,8 @@ launches the kernel or raises: every input must be contiguous float32 of
 the stated shape, the joint count d at most ``MAX_DOF`` and, for the
 sweep, the row count P at most ``riccati_p_cap(d)``.  Any batch size B is
 taken as it is (a ragged last block is masked, not padded).  The sweep's
-launch shape is ``riccati_launch_config(d, P, B)``.
+launch shape is ``riccati_launch_config(d, P, B)``, the rollout's
+``rollout_launch_config(d, A, B)``.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from ..solve.riccati_lanes import (linesearch_rollout_lanes,
 from .cuda_build import CudaKernel
 
 __all__ = ["RICCATI_KERNEL", "ROLLOUT_KERNEL", "MAX_DOF",
-           "riccati_launch_config", "riccati_p_cap",
+           "riccati_launch_config", "riccati_p_cap", "rollout_launch_config",
            "riccati_backward_kernel_factory",
            "linesearch_rollout_kernel_factory"]
 
@@ -38,13 +39,15 @@ RICCATI_KERNEL = CudaKernel("riccati.cu", {
     "trt_riccati_launch": [_P] * 6 + [_I] * 6 + [_F] * 6 + [_P],
 })
 ROLLOUT_KERNEL = CudaKernel("riccati.cu", {
-    "trt_rollout_launch": [_P] * 7 + [_I] * 4 + [_F] * 2 + [_P],
+    "trt_rollout_launch": [_P] * 7 + [_I] * 5 + [_F] * 2 + [_P],
 })
 MAX_DOF = 8        # riccati.cu instantiates D = 1..8
 _MAX_COMPUTE = 128                     # riccati.cu kMaxCompute
 _PRODUCER = 32                         # riccati.cu kProducer
 _ROWS = 16                             # riccati.cu kRows
 _MAX_STAGES = 2                        # riccati.cu kMaxStages
+_MAX_ROLLOUT_THREADS = 1024            # riccati.cu kMaxRolloutThreads
+_ROLL_STAGES = 8                       # riccati.cu kRollStages
 _MAX_SMEM = 232448                     # bytes of shared memory a block can use
 _N_SM = 132                            # the H100's streaming multiprocessors
 
@@ -136,6 +139,48 @@ def riccati_launch_config(d: int, P: int, B: int) -> dict:
         % (riccati_p_cap(d), d, unit, P))
 
 
+def rollout_launch_config(d: int, A: int, B: int, lanes=None,
+                          align: int = 4) -> dict:
+    """Launch shape of the rollout (``riccati.cu``): a group of ``group``
+    threads per (lane, step size) (the power of two >= d), ``lanes`` lanes
+    a block with all ``A`` step sizes, each step's row of them one copy
+    (1, 2 or 4 floats: the most that divides B, that the inputs' alignment
+    ``align`` in floats allows and whose block fits, unless given),
+    ``threads`` (whole warps), the shared memory of the ring's 8 slots of a
+    step's rows (2 d^2 + 4 d floats a lane) in bytes and the grid.  Raises
+    NotImplementedError where the block of one lane (or of the given
+    lanes) passes 1024 threads or a block's shared memory, and ValueError
+    for lanes that are not 1, 2 or 4, do not divide B or pass ``align``."""
+    _check_dof(d)
+    g = 1
+    while g < d:
+        g *= 2
+
+    def block(n):
+        return (-(-n * A * g // 32) * 32,
+                4 * _ROLL_STAGES * (2 * d * d + 4 * d) * n)
+
+    def fits(n):
+        threads, smem = block(n)
+        return threads <= _MAX_ROLLOUT_THREADS and smem <= _MAX_SMEM
+
+    if lanes is None:
+        lanes = next((n for n in (4, 2) if n <= align and B % n == 0
+                      and fits(n)), 1)
+    if lanes not in (1, 2, 4) or B % lanes or lanes > align:
+        raise ValueError("the rollout takes 1, 2 or 4 lanes a block, "
+                         "dividing B = %d and at most the inputs' alignment "
+                         "of %d floats; got %s" % (B, align, lanes))
+    threads, smem = block(lanes)
+    if not fits(lanes):
+        raise NotImplementedError(
+            "the CUDA rollout's block needs %d threads and %d bytes of shared "
+            "memory (at most %d and %d)"
+            % (threads, smem, _MAX_ROLLOUT_THREADS, _MAX_SMEM))
+    return dict(group=g, lanes_per_block=lanes, threads=threads,
+                smem_bytes=smem, grid=B // lanes)
+
+
 def riccati_backward_kernel_factory(d: int, m: int, P: int, T: int,
                                     dt: float, r: float, mu: float,
                                     kg: float):
@@ -203,13 +248,18 @@ def linesearch_rollout_kernel_factory(d: int, m: int, T: int, dt: float,
         U_new = torch.empty((A, T, d, B), **kw)
         if B == 0 or T == 0 or A == 0:
             return xs_new, U_new
+        # a copy of n lanes wants every input 4 n-byte aligned
+        align = 4
+        while any(t.data_ptr() % (4 * align) for t in (xs_l, U_t_l, ks, Ks)):
+            align //= 2
+        cfg = rollout_launch_config(d, A, B, align=align)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             ROLLOUT_KERNEL.launch(
                 "trt_rollout_launch", xs_l.data_ptr(), U_t_l.data_ptr(),
                 ks.data_ptr(), Ks.data_ptr(), on_device[dev].data_ptr(),
-                xs_new.data_ptr(), U_new.data_ptr(), T, B, A, d, dt,
-                0.5 * dt * dt, stream)
+                xs_new.data_ptr(), U_new.data_ptr(), T, B, A, d,
+                cfg["lanes_per_block"], dt, 0.5 * dt * dt, stream)
         return xs_new, U_new
 
     rollout.plain = plain

@@ -46,11 +46,24 @@ the terms kernel or the cost kernel by ``ops/net_kernel.py``'s kernels
 For a ``MultiRobot`` the terms come from ``multirobot_terms_kernel_factory``
 with the same contract: its CUDA source is ``csrc/mr_terms.cu`` (which
 replaces ``_multirobot_terms_pallas_factory``), its plain version
-``ops/lanes_fk.obstacle_terms_lanes_multirobot_factory``.  The value-only
-cost of a ``MultiRobot`` (the MultiRobot branch of
-``collision_cost_pallas_factory``) is the same ``cost.cu`` kernel on the
-members' packed parameters (``pack_cost_params``), with its own launch
-counter, and its plain version the cost output of those plain terms.
+``ops/lanes_fk.obstacle_terms_lanes_multirobot_factory``; the kernel reads
+the members' cost packing with the terms' sections after it
+(``pack_multirobot_params``) at the launch shape of
+``mr_terms_launch_config``.  The value-only cost of a ``MultiRobot`` (the
+MultiRobot branch of ``collision_cost_pallas_factory``) is the same
+``cost.cu`` kernel on the members' packed parameters
+(``pack_cost_params``), with its own launch counter, and its plain version
+the cost output of those plain terms.
+
+A task past a kernel's caps (``_refusal``: a scene object the kernels do
+not take, a 2-D scene, a primitive group past what the terms kernels'
+pick of the nearest primitive indexes, more than ``MAX_DOF`` joints, or
+for a MultiRobot more than ``MR_MAX_MEMBERS`` members or a member with a
+learned self-collision net or interpolated points; or a block past the
+H100's shared memory) keeps its plain terms and cost on the CPU, as the
+reference's fused factories return None there, and raises
+NotImplementedError, in the same words, when a CUDA tensor reaches the
+kernel: nothing falls back to the plain terms on the card.
 """
 from __future__ import annotations
 
@@ -69,7 +82,8 @@ __all__ = ["KERNEL", "COST_KERNEL", "MR_KERNEL", "MR_COST_KERNEL", "MAX_DOF",
            "MR_MAX_MEMBERS", "obstacle_terms_kernel_factory",
            "collision_cost_kernel_factory", "multirobot_terms_kernel_factory",
            "pack_terms_params", "pack_multirobot_params", "pack_cost_params",
-           "cost_launch_config", "terms_launch_config", "scene_grid_table",
+           "cost_launch_config", "terms_launch_config",
+           "mr_terms_launch_config", "scene_grid_table",
            "run_terms_kernel",
            "run_cost_kernel",
            "run_multirobot_terms_kernel", "run_multirobot_cost_kernel"]
@@ -83,15 +97,16 @@ _COST_ARGS = {"trt_cost_launch": [_P, _P] + [ctypes.c_int] * 5
               + [_P, ctypes.c_int, _P, ctypes.c_int, _P, _P]}
 COST_KERNEL = CudaKernel("cost.cu", _COST_ARGS)
 MR_KERNEL = CudaKernel("mr_terms.cu", {
-    "trt_mr_terms_launch": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_int, _P, _P, _P, _P],
+    "trt_mr_terms_launch": [_P] * 4 + [ctypes.c_int] * 5
+    + [_P, ctypes.c_int, _P, ctypes.c_int, _P, _P],
 })
 # the same kernel on a MultiRobot's parameters, counted apart
 MR_COST_KERNEL = CudaKernel("cost.cu", _COST_ARGS)
 MAX_DOF = 8        # terms.cu instantiates D = 1..8; mr_terms.cu kMaxDof
-MR_MAX_MEMBERS = 4  # mr_terms.cu kMaxMembers
-_MR_LANES = 32      # mr_terms.cu kLanes
-_MAX_LINKS = 32    # mr_terms.cu kMaxLinks: links per member
+MR_MAX_MEMBERS = 4  # mr_terms.cu: 10 block pairs, kMaxThreads / 32
+_MR_LANES = 32      # lanes a block of mr_terms.cu, one warp a block pair
+_MR_MAX_THREADS = 320     # mr_terms.cu kMaxThreads
+_MR_EXTRAS = 13           # the cost header's int that locates K5's sections
 _TERMS_LANES = 128        # terms.cu kMaxLanes: lanes (threads) a block
 _COST_HEADER = 16         # cost.cu kHeader
 _COST_MAX_THREADS = 256   # cost.cu kMaxThreads: lanes * threads a lane
@@ -102,6 +117,28 @@ _GROUP_KIND = {"Spheres": 0, "RoundedBoxes": 1, "SharpBoxes": 2}
 _GRID_INTS, _GRID_FLOATS = 4, 8   # kin_scene.cuh grid_sdf's header
 
 
+def _scene_refusal(df_obj_list):
+    """The words in which every CUDA terms and cost kernel refuses a scene,
+    or None where they take it: an object other than an ObjectField or a
+    GridSDF, a 2-D scene, or more primitive groups or primitives in a
+    group than the terms kernels' pick of the nearest primitive holds
+    (cost.cuh: scene_sdf_pick packs it as group << 16 | index)."""
+    from ..geom.grid_sdf import GridSDF
+    from ..geom.sdf import ObjectField
+    for obj in df_obj_list:
+        if not isinstance(obj, (ObjectField, GridSDF)):
+            return ("the CUDA terms kernels take ObjectField and GridSDF "
+                    "objects, not %s" % type(obj).__name__)
+        if obj.dim != 3:
+            return "the CUDA terms kernels take 3-D scenes"
+    groups = [f for obj in df_obj_list for f in getattr(obj, "fields", ())]
+    if len(groups) > 1 << 15 or any(f.centers.shape[0] > 1 << 16
+                                    for f in groups):
+        return ("the CUDA terms kernels take at most 32,768 primitive "
+                "groups of at most 65,536 primitives")
+    return None
+
+
 def _pack_scene(df_obj_list):
     """Scene objects -> (ints: object group ranges, group kinds, counts,
     offsets, each object's grid (-1 for an analytic object), the grids'
@@ -110,17 +147,13 @@ def _pack_scene(df_obj_list):
     extent, 0), primitive tables), the scene sections of the packed
     buffers.  A grid is an object with the identity pose and no groups."""
     from ..geom.grid_sdf import GridSDF
-    from ..geom.sdf import ObjectField
+    refusal = _scene_refusal(df_obj_list)
+    if refusal is not None:
+        raise NotImplementedError(refusal)
     group_kind, group_count, group_off, obj_begin = [], [], [], [0]
     obj_rot, obj_pos, prims, obj_grid, grid_i, grid_f = [], [], [], [], [], []
     n_prims = n_rows = 0
     for obj in df_obj_list:
-        if not isinstance(obj, (ObjectField, GridSDF)):
-            raise NotImplementedError(
-                "the CUDA terms kernels take ObjectField and GridSDF "
-                "objects, not %s" % type(obj).__name__)
-        if obj.dim != 3:
-            raise NotImplementedError("the CUDA terms kernels take 3-D scenes")
         if isinstance(obj, GridSDF):
             lim = obj.limits.cpu().numpy().astype(np.float32)
             extent = np.abs(lim[1] - lim[0])         # float32, as the lookup
@@ -195,6 +228,36 @@ def pack_terms_params(lay: TermsLayout):
     return _i32([ints, masks]), floats
 
 
+def _fit_block(what, ints, n_floats, per_lane, lanes, threads_per_lane,
+               max_threads):
+    """(lanes, dynamic shared memory in bytes, refusal): ``lanes`` lanes a
+    block, whole warps fewer while the block passes the H100's 232,448
+    bytes (the packed parameters, rounded to 16 bytes each, and
+    ``per_lane`` bytes a lane); the refusal, the words a launch shape
+    raises with, where 32 lanes do not fit or the block passes
+    ``max_threads`` threads, else None."""
+    fixed = 4 * (-(-len(ints) // 4) * 4 + -(-n_floats // 4) * 4)
+    while lanes > 32 and fixed + lanes * per_lane > _SMEM_MAX:
+        lanes -= 32
+    smem = fixed + lanes * per_lane
+    threads = lanes * threads_per_lane
+    if smem > _SMEM_MAX or not 1 <= threads <= max_threads:
+        return lanes, smem, (
+            "the CUDA %s kernel's block needs %d bytes of shared memory and "
+            "%d threads (at most %d and %d)"
+            % (what, smem, threads, _SMEM_MAX, max_threads))
+    return lanes, smem, None
+
+
+def _terms_block(ints, n_floats: int, lanes=None):
+    """``terms_launch_config``'s shape and refusal (``_fit_block``)."""
+    D, P, n_slots = int(ints[1]), int(ints[2]), int(ints[8])
+    lanes, smem, refusal = _fit_block(
+        "terms", ints, n_floats, 4 * (7 * D + 3 * P + 12 * n_slots),
+        _TERMS_LANES if lanes is None else lanes, 1, _TERMS_LANES)
+    return dict(lanes=lanes, smem_bytes=smem), refusal
+
+
 def terms_launch_config(ints, n_floats: int, lanes=None) -> dict:
     """Launch shape of ``terms.cu`` from its packed header: ``lanes`` lanes
     (one thread each) a block, 128 unless given (whole warps fewer while
@@ -202,19 +265,10 @@ def terms_launch_config(ints, n_floats: int, lanes=None) -> dict:
     memory in bytes: the parameters, and per lane its q, joint axes and
     origins (6 D), points (3 P) and stored transforms.  NotImplementedError
     where 32 lanes do not fit."""
-    D, P, n_slots = int(ints[1]), int(ints[2]), int(ints[8])
-    lanes = _TERMS_LANES if lanes is None else lanes
-    fixed = 4 * (-(-len(ints) // 4) * 4 + -(-n_floats // 4) * 4)
-    per_lane = 4 * (7 * D + 3 * P + 12 * n_slots)
-    while lanes > 32 and fixed + lanes * per_lane > _SMEM_MAX:
-        lanes -= 32
-    smem = fixed + lanes * per_lane
-    if smem > _SMEM_MAX or not 1 <= lanes <= _TERMS_LANES:
-        raise NotImplementedError(
-            "the CUDA terms kernel's block needs %d bytes of shared memory "
-            "and %d threads (at most %d and %d)"
-            % (smem, lanes, _SMEM_MAX, _TERMS_LANES))
-    return dict(lanes=lanes, smem_bytes=smem)
+    launch, refusal = _terms_block(ints, n_floats, lanes)
+    if refusal is not None:
+        raise NotImplementedError(refusal)
+    return launch
 
 
 def _member_points(r, section):
@@ -227,105 +281,113 @@ def _member_points(r, section):
 
 
 def pack_multirobot_params(lay: MultiRobotLayout):
-    """Members' models + base poses + row groups + scene -> (ints int32,
-    floats float32), the two buffers ``mr_terms.cu`` reads (section order as
-    in its parse_layout).  A grasped point has its offset's index in
-    ``pt_goff`` (-1 for a link origin), the offsets a float section of 3 per
-    grasped point (their count ints[11]).  Block pairs: the n diagonal
-    blocks, then the cross blocks (i, j), i < j, in order; each cross
-    block's mutual rows are stored with their first point on member i (a
-    pair listed the other way round is swapped, which leaves its row
-    unchanged)."""
-    robot = lay.robot
+    """Members' models + base poses + rows + scene -> (ints int32, floats
+    float32), the two buffers ``mr_terms.cu`` reads: ``pack_cost_params``'
+    buffers of the layout (its members' FK steps, points, rows in the
+    order object SDF, workspace, pairs as listed, and the scene), and,
+    from the int that ints[13] holds on, the terms' int sections: a header
+    of 8 (the block pairs n_bp, the row entries E, the D joint columns'
+    prismatic bits, 0s), each member's joint count and first column, each
+    block pair's members i and j (the n diagonal blocks, then (i, j), i <
+    j, in order) and the first of its row entries (n_bp + 1), the value
+    phase's row cuts (n_bp + 1, balanced by ``cost_row_ops``), each point's
+    joint mask over its member's columns, and the row entries.
+
+    An entry is 8 times a row's index plus flags: 1, the pair's points in
+    the other order (a mutual pair listed from member j to member i, so
+    that its first point lies on member i); 2, the diagonal block's member
+    holds the second point; 4, a mutual row on a diagonal block (its side
+    of g and H; its cost is the cross block's).  A diagonal block i lists
+    each of its object points' SDF row (with scene objects) and workspace
+    row, its own pairs, then its side of every cross block's rows; a cross
+    block (i, j) lists the pairs from member i to member j, then those from
+    j to i: each block's g, H and cost add in that order."""
+    ints, floats = pack_cost_params(lay)
     members = lay.members
     n_mem = len(members)
-    models = [r.model for r in members]
-    L_list = [m.n_links for m in models]
-    l_off = np.cumsum([0] + L_list)
-    topo, parent, jtype, qidx, ctrl = [], [], [], [], []
-    for m in models:
-        c = list(m.controlled_link_idxs())
-        qi = np.full(m.n_links, -1, np.int64)
-        qi[c] = np.arange(len(c))
-        topo += list(m.topological_order())
-        parent += list(m.parent_idx)
-        jtype += list(m.joint_types)
-        qidx += list(qi)
-        ctrl += c
-
-    # the full collision layout: object sections, then self sections
-    pt_member, pt_link, pt_anc, pt_goff, goff = [], [], [], [], []
-    for section in ("object", "self"):
-        for i, (r, m) in enumerate(zip(members, models)):
-            anc = m.ancestry_matrix()
-            for li, off in _member_points(r, section):
-                pt_member.append(i)
-                pt_link.append(li)
-                pt_anc.append(int(sum(1 << j for j in range(m.n_dofs)
-                                      if anc[li, j])))
-                pt_goff.append(-1 if off is None else len(goff))
-                if off is not None:
-                    goff.append(off)
     obj_off = [int(v) for v in lay.obj_off]
-    self_off = [int(v) for v in lay.self_off]
-
-    own_a, own_b, own_m, own_range = [], [], [], []
-    for i, rows in enumerate(lay.own_pairs):
-        begin = len(own_a)
-        for a, b, mg in rows:          # member-local: self section after obj
-            to_full = self_off[i] - lay.obj_counts[i]
-            own_a.append(a + to_full)
-            own_b.append(b + to_full)
-            own_m.append(mg)
-        own_range.append((begin, len(own_a)))
-
+    n_obj = obj_off[-1]
+    n_sdf = n_obj if lay.df_obj_list else 0
+    pair0 = n_sdf + n_obj                      # the first pair row
+    own, groups = [[] for _ in members], {}
+    for k, (pa, pb) in enumerate(zip(lay.pair_a, lay.pair_b)):
+        if pa >= n_obj:                        # a member's own pair
+            own[int(np.searchsorted(lay.self_off, pa, side="right")) - 1] \
+                .append(pair0 + k)
+            continue
+        i, j = (int(np.searchsorted(obj_off, p, side="right")) - 1
+                for p in (pa, pb))
+        groups.setdefault((i, j), []).append(pair0 + k)
     bp = [(i, i) for i in range(n_mem)] + [
         (i, j) for i in range(n_mem) for j in range(i + 1, n_mem)]
-    mut_a, mut_b, mut_m, bp_range = [], [], [], []
+
+    def cross_rows(i, j):
+        return ([8 * r for r in groups.get((i, j), ())]
+                + [8 * r + 1 for r in groups.get((j, i), ())])
+
+    entries, begin = [], []
     for i, j in bp:
-        begin = len(mut_a)
+        begin.append(len(entries))
         if i != j:
-            for a, b, mg in lay.groups.get((i, j), ()):
-                mut_a.append(obj_off[i] + a)
-                mut_b.append(obj_off[j] + b)
-                mut_m.append(mg)
-            for b, a, mg in lay.groups.get((j, i), ()):
-                mut_a.append(obj_off[i] + a)
-                mut_b.append(obj_off[j] + b)
-                mut_m.append(mg)
-        bp_range.append((begin, len(mut_a)))
+            entries += cross_rows(i, j)
+            continue
+        for p in range(obj_off[i], obj_off[i + 1]):
+            entries += ([8 * p] if n_sdf else []) + [8 * (n_sdf + p)]
+        entries += [8 * r for r in own[i]]
+        for a, b in bp[n_mem:]:
+            if i in (a, b):
+                entries += [e + 4 + (2 if i == b else 0)
+                            for e in cross_rows(a, b)]
+    begin.append(len(entries))
 
-    scene_i, scene_f = _pack_scene(lay.df_obj_list)
-    n_obj = obj_off[-1]
-    header = [n_mem, robot.q_dim, len(pt_member), n_obj, len(own_a),
-              len(mut_a), len(lay.df_obj_list), len(scene_i[1]), len(bp),
-              int(l_off[-1]), len(scene_i[5]), len(goff)] + [0] * 4
-    ints = _i32([header, L_list, lay.d_list, lay.d_off[:-1], l_off[:-1],
-                 obj_off[:-1], obj_off[1:],
-                 [b for b, _ in own_range], [e for _, e in own_range],
-                 [i for i, _ in bp], [j for _, j in bp],
-                 [b for b, _ in bp_range], [e for _, e in bp_range],
-                 topo, parent, jtype, qidx, ctrl, pt_member, pt_link, pt_anc,
-                 pt_goff, own_a, own_b, mut_a, mut_b] + scene_i)
-    floats = _f32(
-        [np.concatenate([m.joint_trans.reshape(-1) for m in models]),
-         np.concatenate([m.joint_fixed_rot.reshape(-1) for m in models]),
-         np.concatenate([m.joint_axis.reshape(-1) for m in models]),
-         np.concatenate([m.clamp_lower for m in models]),
-         np.concatenate([m.clamp_upper for m in models]),
-         robot.base_rots.cpu().numpy(), robot.base_trans.cpu().numpy(),
-         lay.obj_thresh.cpu().numpy(), own_m, mut_m,
-         lay.ws_min.cpu().numpy(), lay.ws_max.cpu().numpy(),
-         np.zeros((0, 3)) if not goff else np.stack(goff)] + scene_f)
-    return ints, floats
+    prism, anc = 0, []
+    for i, r in enumerate(members):
+        m = r.model
+        for c, li in enumerate(m.controlled_link_idxs()):
+            if m.joint_types[li] == 3:                 # kin_scene kPrismatic
+                prism |= 1 << (int(lay.d_off[i]) + c)
+    for section in ("object", "self"):
+        for r in members:
+            a_m = r.model.ancestry_matrix()
+            anc += [int(sum(1 << c for c in np.flatnonzero(a_m[li])))
+                    for li, _ in member_collision_points(r, section)]
+    ops = cost_row_ops(lay)
+    header = [len(bp), len(entries), prism - (1 << 32) * (prism >> 31)]
+    extras = _i32([header + [0] * 5, lay.d_list, lay.d_off[:-1],
+                   [i for i, _ in bp], [j for _, j in bp], begin,
+                   _row_cuts(ops, len(bp)), anc, entries])
+    assert len(ops) == pair0 + len(lay.pair_a) and len(anc) == int(ints[2])
+    ints[_MR_EXTRAS] = len(ints)
+    return np.concatenate([ints, extras]), floats
 
 
-def mr_shared_bytes(ints, cost_only: bool = False) -> int:
-    """Dynamic shared memory of one mr_terms.cu block: points, joint axes
-    and origins (3 floats each, per lane) and the per-warp cost shares;
-    with ``cost_only``, the points and the shares alone."""
-    P, D, n_bp = int(ints[2]), int(ints[1]), int(ints[8])
-    return 4 * _MR_LANES * (3 * P + (0 if cost_only else 6 * D) + n_bp)
+def _mr_block(ints, n_floats: int, lanes=None):
+    """``mr_terms_launch_config``'s shape and refusal (``_fit_block``)."""
+    D, P, NO, K, NOBJ, n_slots = (int(ints[i]) for i in (1, 2, 3, 4, 5, 8))
+    n_bp = int(ints[int(ints[_MR_EXTRAS])])
+    n_sdf = NO if NOBJ > 0 else 0
+    lanes, smem, refusal = _fit_block(
+        "MultiRobot terms", ints, n_floats,
+        4 * (7 * D + 3 * P + 12 * n_slots + n_sdf + NO + K + n_bp + n_sdf),
+        _MR_LANES if lanes is None else lanes, n_bp, _MR_MAX_THREADS)
+    return dict(lanes=lanes, block_pairs=n_bp, threads=lanes * n_bp,
+                smem_bytes=smem), refusal
+
+
+def mr_terms_launch_config(ints, n_floats: int, lanes=None) -> dict:
+    """Launch shape of ``mr_terms.cu`` from its packed buffers
+    (``pack_multirobot_params``): ``lanes`` lanes a block, 32 unless given
+    (a multiple of 32, whole warps fewer while the block passes the H100's
+    232,448 bytes), one warp of them a block pair (``threads`` = lanes *
+    n_bp, at most 320), and the dynamic shared memory in bytes: the
+    parameters, and per lane its q, joint axes and origins (7 D), points
+    (3 P), stored transforms (12 a slot), every row's value, each block
+    pair's cost share and each object row's minimizing primitive.
+    NotImplementedError where 32 lanes do not fit."""
+    launch, refusal = _mr_block(ints, n_floats, lanes)
+    if refusal is not None:
+        raise NotImplementedError(refusal)
+    return launch
 
 
 def _cost_members(lay):
@@ -494,6 +556,19 @@ def pack_cost_params(lay):
     return ints, floats
 
 
+def _cost_block(ints, n_floats: int, lanes=None):
+    """``cost_launch_config``'s shape and refusal (``_fit_block``)."""
+    D, P, n_slots, T = (int(ints[i]) for i in (1, 2, 8, 9))
+    if lanes is None:
+        lanes = _COST_LANES if T == 1 else 32 * max(
+            1, _COST_MAX_THREADS // (32 * T))
+    lanes, smem, refusal = _fit_block(
+        "cost", ints, n_floats, 4 * (D + 3 * P + 12 * n_slots + T), lanes,
+        T, _COST_MAX_THREADS)
+    return dict(lanes=lanes, threads_per_lane=T, threads=lanes * T,
+                smem_bytes=smem), refusal
+
+
 def cost_launch_config(ints, n_floats: int, lanes=None) -> dict:
     """Launch shape of ``cost.cu`` from its packed header: the T threads a
     lane that ``pack_cost_params`` scheduled, the lanes a block (128 at one
@@ -502,22 +577,10 @@ def cost_launch_config(ints, n_floats: int, lanes=None) -> dict:
     parameters, and per lane its q, points, stored transforms and T
     partial sums).  NotImplementedError where 32 lanes pass the H100's
     232,448 bytes."""
-    D, P, n_slots, T = (int(ints[i]) for i in (1, 2, 8, 9))
-    if lanes is None:
-        lanes = _COST_LANES if T == 1 else 32 * max(
-            1, _COST_MAX_THREADS // (32 * T))
-    fixed = 4 * (-(-len(ints) // 4) * 4 + -(-n_floats // 4) * 4)
-    per_lane = 4 * (D + 3 * P + 12 * n_slots + T)
-    while lanes > 32 and fixed + lanes * per_lane > _SMEM_MAX:
-        lanes -= 32
-    smem = fixed + lanes * per_lane
-    if smem > _SMEM_MAX or lanes * T > _COST_MAX_THREADS:
-        raise NotImplementedError(
-            "the CUDA cost kernel's block needs %d bytes of shared memory "
-            "and %d threads (at most %d and %d)"
-            % (smem, lanes * T, _SMEM_MAX, _COST_MAX_THREADS))
-    return dict(lanes=lanes, threads_per_lane=T, threads=lanes * T,
-                smem_bytes=smem)
+    launch, refusal = _cost_block(ints, n_floats, lanes)
+    if refusal is not None:
+        raise NotImplementedError(refusal)
+    return launch
 
 
 def _check_q(q_cols, ints, floats, d: int):
@@ -603,11 +666,13 @@ def run_cost_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
 
 
 def run_multirobot_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
-                                floats: torch.Tensor, d: int, n_bp: int,
-                                shared_bytes: int, grid=None):
+                                floats: torch.Tensor, d: int, launch: dict,
+                                grid=None):
     """Launch the CUDA MultiRobot terms kernel: q_cols (d, N) float32
     contiguous CUDA -> unscaled (g_q (d, N), Hqq (d, d, N), cost (N,));
-    ``grid`` the scene's grid table."""
+    ``launch`` is ``mr_terms_launch_config``'s shape for these buffers
+    (another lane count a block gives the same bits by design); ``grid``
+    the scene's grid table."""
     _check_q(q_cols, ints, floats, d)
     grid_ptr = _grid_ptr(grid, q_cols)
     N = q_cols.shape[1]
@@ -619,9 +684,10 @@ def run_multirobot_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
     with torch.cuda.device(q_cols.device):
         stream = torch.cuda.current_stream().cuda_stream
         MR_KERNEL.launch("trt_mr_terms_launch", q_cols.data_ptr(),
-                         g.data_ptr(), Hqq.data_ptr(), cost.data_ptr(), N,
-                         n_bp, shared_bytes, ints.data_ptr(),
-                         floats.data_ptr(), grid_ptr, stream)
+                         g.data_ptr(), Hqq.data_ptr(), cost.data_ptr(), N, d,
+                         launch["lanes"], launch["block_pairs"],
+                         launch["smem_bytes"], ints.data_ptr(), ints.numel(),
+                         floats.data_ptr(), floats.numel(), grid_ptr, stream)
     return g, Hqq, cost
 
 
@@ -634,55 +700,96 @@ def run_multirobot_cost_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
                         lanes, grid)
 
 
+def _refusal(task, members, multi: bool = False):
+    """The words in which the CUDA terms and cost kernels refuse ``task``,
+    whose robot's kinematic ``members`` they would run (the robot itself
+    for a single robot, ``multi`` False), or None where they take it: a
+    scene they do not take (``_scene_refusal``), more than MAX_DOF joints
+    (in a member, for a MultiRobot), and for a MultiRobot more than
+    MR_MAX_MEMBERS members or a member with a learned self-collision net
+    or interpolated points.  Where the reference's fused factories return
+    None for such a task, it runs its plain terms; here the task keeps
+    them on the CPU and its hooks raise NotImplementedError with these
+    words on a CUDA tensor."""
+    refusal = _scene_refusal(task.df_obj_list)
+    if refusal is not None:
+        return refusal
+    if not multi:
+        if members[0].model.n_dofs > MAX_DOF:
+            return "the CUDA terms kernel takes at most %d joints" % MAX_DOF
+        return None
+    if len(members) > MR_MAX_MEMBERS:
+        return ("the CUDA MultiRobot terms kernel takes at most %d members"
+                % MR_MAX_MEMBERS)
+    for r in members:
+        if getattr(r, "self_collision_net", None) is not None:
+            return ("the learned self-collision row is not in the CUDA "
+                    "MultiRobot terms kernel")
+        if r.object_interpolate:
+            return ("interpolated points are not in the CUDA MultiRobot "
+                    "terms kernel")
+        if r.model.n_dofs > MAX_DOF:
+            return ("the CUDA MultiRobot terms kernel takes at most %d "
+                    "joints per member" % MAX_DOF)
+    return None
+
+
 def _kernel_params(task):
     """(d, ints, floats, plain terms, launch shape) of a task the terms.cu
     kernels take, or None where the reference's fused factories return
     None (a point mass, robots without a kinematic model, interpolated
-    collision points).  A 2-D scene raises NotImplementedError, as do more
-    than MAX_DOF joints and a model whose block does not fit
-    (``terms_launch_config``).  A robot with
+    collision points).  A task past the kernels' caps (``_refusal``, or a
+    block that does not fit: ``terms_launch_config``) gets None for the
+    buffers and the shape, and its refusal beside them: the hooks keep
+    the plain version on the CPU and raise on a CUDA tensor.  A robot with
     a learned self-collision net packs no pair rows (its net row runs in
-    ``csrc/net_row.cu``)."""
+    ``csrc/net_row.cu``).  -> (params, refusal)"""
     from ..robots.point_mass import RobotPointMass
     robot = task.robot
     if isinstance(robot, RobotPointMass):
-        return None
+        return None, None
     if not hasattr(robot, "model") or robot.object_interpolate:
-        return None
+        return None, None
     plain = obstacle_terms_lanes_factory(task)
-    lay = plain.layout
-    d = lay.model.n_dofs
-    if d > MAX_DOF:
-        raise NotImplementedError(
-            "the CUDA terms kernel takes at most %d joints" % MAX_DOF)
-    ints_np, floats_np = pack_terms_params(lay)
-    launch = terms_launch_config(ints_np, len(floats_np))
-    ints = torch.as_tensor(ints_np, device=task.device)
-    floats = torch.as_tensor(floats_np, device=task.device)
-    return d, ints, floats, plain, launch
+    ints = floats = launch = None
+    refusal = _refusal(task, [robot])
+    if refusal is None:
+        ints_np, floats_np = pack_terms_params(plain.layout)
+        launch, refusal = _terms_block(ints_np, len(floats_np))
+        ints = torch.as_tensor(ints_np, device=task.device)
+        floats = torch.as_tensor(floats_np, device=task.device)
+    return (plain.layout.model.n_dofs, ints, floats, plain, launch), refusal
+
+
+def _refused(refusal):
+    """Raise a kernel's refusal (``_refusal``) when a tensor off the CPU
+    reaches it."""
+    if refusal is not None:
+        raise NotImplementedError(refusal)
 
 
 def obstacle_terms_kernel_factory(task):
     """GN obstacle terms of a kinematic robot in an analytic primitive
     scene, through the CUDA terms kernel for CUDA tensors, followed by the
     net row kernel for a robot with a learned self-collision net (None and
-    NotImplementedError as ``_kernel_params``); a ``MultiRobot`` goes to
+    the refusal as ``_kernel_params``); a ``MultiRobot`` goes to
     ``multirobot_terms_kernel_factory``."""
     from ..robots.multi_robot import MultiRobot
     if isinstance(task.robot, MultiRobot):
         return multirobot_terms_kernel_factory(task)
-    params = _kernel_params(task)
+    params, refusal = _kernel_params(task)
     if params is None:
         return None
     d, ints, floats, plain, launch = params
     lay = plain.layout
-    net_row = (None if lay.net is None
+    net_row = (None if lay.net is None or refusal is not None
                else NetRowParams(lay.net, lay.net_cutoff, task.device))
-    grid = scene_grid_table(lay.df_obj_list)
+    grid = None if refusal is not None else scene_grid_table(lay.df_obj_list)
 
     def unscaled(q_cols):
         if q_cols.device.type == "cpu":
             return plain.unscaled(q_cols)
+        _refused(refusal)
         out = run_terms_kernel(q_cols, ints, floats, d, launch, grid)
         if net_row is not None:
             add_net_terms(net_row, q_cols, *out)
@@ -696,6 +803,7 @@ def obstacle_terms_kernel_factory(task):
     terms.unscaled = unscaled
     terms.plain = plain
     terms.params = params
+    terms.refusal = refusal
     terms.net_row = net_row
     terms.grid = grid
     return terms
@@ -706,40 +814,43 @@ def collision_cost_kernel_factory(task, terms=None):
     as the terms, through the CUDA cost kernel (``cost.cu``) for CUDA
     tensors, followed by the value-only net row kernel for a robot with a
     learned self-collision net (on the members' parameters for a
-    ``MultiRobot``, with the
-    NotImplementedError cases of ``multirobot_terms_kernel_factory``); the
-    plain version is the cost output of the plain terms.  ``terms``, the
-    task's hook from ``obstacle_terms_kernel_factory``, lends its plain
-    terms, their layout and its net row, so they are built once per task
-    (without it, the hook is built here)."""
+    ``MultiRobot``); the plain version is the cost output of the plain
+    terms.  A task the terms kernels refuse keeps the plain cost on the
+    CPU and raises their refusal on a CUDA tensor.  ``terms``, the task's
+    hook from ``obstacle_terms_kernel_factory``, lends its plain terms,
+    their layout, its net row and its refusal, so they are built once per
+    task (without it, the hook is built here)."""
     from ..robots.multi_robot import MultiRobot
-    if isinstance(task.robot, MultiRobot):
-        return _multirobot_cost_factory(task, terms)
     if not hasattr(terms, "params"):
         terms = obstacle_terms_kernel_factory(task)
         if terms is None:
             return None
     d, _, _, plain_terms, _ = terms.params
-    net_row = terms.net_row
-    run = run_cost_kernel
+    net_row = getattr(terms, "net_row", None)
+    run = (run_multirobot_cost_kernel if isinstance(task.robot, MultiRobot)
+           else run_cost_kernel)
     if net_row is not None:
         def run(q_cols, ints, floats, d, launch, grid):
             cost = run_cost_kernel(q_cols, ints, floats, d, launch,
                                    grid=grid)
             add_net_cost(net_row, q_cols, cost)
             return cost
-    return _cost_fn(pack_cost_params(plain_terms.layout), task.device, d,
-                    plain_terms, run, terms.grid)
+    return _cost_fn(plain_terms, task.device, d, run, terms.grid,
+                    terms.refusal)
 
 
-def _cost_fn(packed, device, d, plain_terms, run, grid):
-    """cost(q_cols) on the packed cost parameters: the kernel through
-    ``run`` for a CUDA tensor (with the scene's grid table ``grid``), the
-    plain terms' cost for a CPU tensor."""
-    ints_np, floats_np = packed
-    launch = cost_launch_config(ints_np, len(floats_np))
-    ints = torch.as_tensor(ints_np, device=device)
-    floats = torch.as_tensor(floats_np, device=device)
+def _cost_fn(plain_terms, device, d, run, grid, refusal):
+    """cost(q_cols) on the plain terms' layout's cost packing: the kernel
+    through ``run`` for a CUDA tensor (with the scene's grid table
+    ``grid``), the plain terms' cost for a CPU tensor; with a refusal (the
+    terms kernels', or the cost kernel's block) no packing, and the
+    refusal raised on a CUDA tensor."""
+    ints = floats = launch = None
+    if refusal is None:
+        ints_np, floats_np = pack_cost_params(plain_terms.layout)
+        launch, refusal = _cost_block(ints_np, len(floats_np))
+        ints = torch.as_tensor(ints_np, device=device)
+        floats = torch.as_tensor(floats_np, device=device)
 
     def plain(q_cols):
         return plain_terms.unscaled(q_cols)[2]
@@ -747,63 +858,58 @@ def _cost_fn(packed, device, d, plain_terms, run, grid):
     def cost(q_cols):
         if q_cols.device.type == "cpu":
             return plain(q_cols)
+        _refused(refusal)
         return run(q_cols, ints, floats, d, launch, grid=grid)
 
     cost.plain = plain
     cost.params = (d, ints, floats, launch)
+    cost.refusal = refusal
     cost.grid = grid
     return cost
 
 
 def _mr_kernel_params(task):
-    """(d, ints, floats, n_bp, plain terms) of a ``MultiRobot`` task for the
-    mr_terms.cu kernels, or None unless every member has a kinematic model.
-    A member with a learned self-collision net or interpolated points,
-    more than MR_MAX_MEMBERS members, more than MAX_DOF joints or 32 links
-    in a member, and a same-member mutual pair raise NotImplementedError."""
+    """(d, ints, floats, plain terms, launch shape) of a ``MultiRobot``
+    task for the mr_terms.cu kernel, or None unless every member has a
+    kinematic model; past the caps (``_refusal``, or a block that does not
+    fit: ``mr_terms_launch_config``) None for the buffers and the shape,
+    and the refusal beside them.  A same-member mutual pair raises
+    NotImplementedError in the plain terms' layout.  -> (params,
+    refusal)"""
     robot = task.robot
     members = robot.robots
     if not all(hasattr(r, "model") for r in members):
-        return None
-    for r in members:
-        if getattr(r, "self_collision_net", None) is not None:
-            raise NotImplementedError("the learned self-collision row is not "
-                                      "in the CUDA MultiRobot terms kernel")
-        if r.object_interpolate:
-            raise NotImplementedError("interpolated points are not in the "
-                                      "CUDA MultiRobot terms kernel")
-        if r.model.n_dofs > MAX_DOF or r.model.n_links > _MAX_LINKS:
-            raise NotImplementedError(
-                "the CUDA MultiRobot terms kernel takes at most %d joints and "
-                "%d links per member" % (MAX_DOF, _MAX_LINKS))
-    if len(members) > MR_MAX_MEMBERS:
-        raise NotImplementedError("the CUDA MultiRobot terms kernel takes at "
-                                  "most %d members" % MR_MAX_MEMBERS)
+        return None, None
     plain = obstacle_terms_lanes_multirobot_factory(task)
-    ints_np, floats_np = pack_multirobot_params(plain.layout)
-    ints = torch.as_tensor(ints_np, device=task.device)
-    floats = torch.as_tensor(floats_np, device=task.device)
-    return robot.q_dim, ints, floats, int(ints_np[8]), plain
+    ints = floats = launch = None
+    refusal = _refusal(task, members, multi=True)
+    if refusal is None:
+        ints_np, floats_np = pack_multirobot_params(plain.layout)
+        launch, refusal = _mr_block(ints_np, len(floats_np))
+        ints = torch.as_tensor(ints_np, device=task.device)
+        floats = torch.as_tensor(floats_np, device=task.device)
+    return (robot.q_dim, ints, floats, plain, launch), refusal
 
 
 def multirobot_terms_kernel_factory(task):
     """GN obstacle terms of a ``MultiRobot`` task in an analytic primitive
     scene: the CUDA MultiRobot terms kernel for CUDA tensors, the plain
     block-structured terms for CPU tensors.  Same contract as
-    ``obstacle_terms_kernel_factory``; None and NotImplementedError as
+    ``obstacle_terms_kernel_factory``; None and the refusal as
     ``_mr_kernel_params``."""
-    params = _mr_kernel_params(task)
+    params, refusal = _mr_kernel_params(task)
     if params is None:
         return None
-    d, ints, floats, n_bp, plain = params
-    shared = mr_shared_bytes(ints)
-    grid = scene_grid_table(plain.layout.df_obj_list)
+    d, ints, floats, plain, launch = params
+    grid = (None if refusal is not None
+            else scene_grid_table(plain.layout.df_obj_list))
 
     def unscaled(q_cols):
         if q_cols.device.type == "cpu":
             return plain.unscaled(q_cols)
-        return run_multirobot_terms_kernel(q_cols, ints, floats, d, n_bp,
-                                           shared, grid)
+        _refused(refusal)
+        return run_multirobot_terms_kernel(q_cols, ints, floats, d, launch,
+                                           grid)
 
     def terms(q_cols, lam, h=None):
         if q_cols.device.type == "cpu":
@@ -813,18 +919,6 @@ def multirobot_terms_kernel_factory(task):
     terms.unscaled = unscaled
     terms.plain = plain
     terms.params = params
+    terms.refusal = refusal
     terms.grid = grid
     return terms
-
-
-def _multirobot_cost_factory(task, terms=None):
-    """Value-only cost of a ``MultiRobot`` task (see
-    ``collision_cost_kernel_factory``)."""
-    params = (terms.params if hasattr(terms, "params")
-              else _mr_kernel_params(task))
-    if params is None:
-        return None
-    d, _, _, _, plain_terms = params
-    return _cost_fn(pack_cost_params(plain_terms.layout), task.device, d,
-                    plain_terms, run_multirobot_cost_kernel,
-                    scene_grid_table(plain_terms.layout.df_obj_list))
