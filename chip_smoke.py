@@ -596,21 +596,23 @@ def grid_row_bytes(lay, N: int) -> int:
     return 16 * len(lay.obj_pos) * n_grids * N
 
 
-def lane_ops(lay, n_rows: int, per_row: int = 2) -> int:
+def lane_ops(lay, n_rows: int, per_row: int = 2, fk=None) -> int:
     """Float ops every waypoint lane needs for the rows' values: FK compose
-    (~132 per revolute link, ~63 per fixed), each grasped point's R o + t
-    (GRASP_POINT_OPS), the scene SDF of each object
-    point (15 per point and object + ~10 / 25 / 12 per sphere / rounded
-    box / sharp box, or GRID_LOOKUP_OPS per grid), its workspace distance
-    (12), each pair's distance (12) and ``per_row`` per residual row."""
+    (~132 per revolute link, ~63 per fixed) and each grasped point's R o +
+    t (GRASP_POINT_OPS), or ``fk`` ops for both where given, the scene SDF
+    of each object point (15 per point and object + ~10 / 25 / 12 per
+    sphere / rounded box / sharp box, or GRID_LOOKUP_OPS per grid), its
+    workspace distance (12), each pair's distance (12) and ``per_row`` per
+    residual row."""
     from torch_robotics_tpu_torch.geom import GridSDF
     from torch_robotics_tpu_torch.geom.sdf import RoundedBoxes, Spheres
     model = lay.model
     n_rev = sum(1 for t in model.joint_types if t != 0)
     n_obj, n_pair = len(lay.obj_pos), len(lay.pair_a)
-    ops = (132 * n_rev + 63 * (model.n_links - n_rev)
-           + GRASP_POINT_OPS * getattr(lay, "n_grasped", 0)
-           + 12 * (n_obj + n_pair) + per_row * n_rows)
+    if fk is None:
+        fk = (132 * n_rev + 63 * (model.n_links - n_rev)
+              + GRASP_POINT_OPS * getattr(lay, "n_grasped", 0))
+    ops = fk + 12 * (n_obj + n_pair) + per_row * n_rows
     for obj in lay.df_obj_list:
         if isinstance(obj, GridSDF):
             ops += n_obj * GRID_LOOKUP_OPS
@@ -623,12 +625,52 @@ def lane_ops(lay, n_rows: int, per_row: int = 2) -> int:
     return ops
 
 
+# Float ops of one FK step of the value-only cost, by the step's class
+# (terms_kernel.pack_cost_kernel_params; cost.cu: axis_joint,
+# joint_transform and the compose), a multiply or an add one and a fused
+# multiply-add two: the local rotation of a revolute or continuous joint
+# about a signed coordinate axis 20 (c' = 1 - (1 - c), and two kept terms
+# for each of F Rj's six entries off the axis), about another axis 69
+# (Rodrigues 24, F Rj 45); a prismatic joint's translation 6; t = R tr + tp
+# 18, or tr + tp 3 under a parent rotation that is exactly I (R = Rl
+# then); R Rl 45 only where a later step or an offset point reads R and
+# the joint's rotation is not exactly F = I.
+FK_AXIS_OPS, FK_RODRIGUES_OPS, FK_PRISMATIC_OPS = 20, 69, 6
+FK_T_OPS, FK_T_IDENTITY_OPS, FK_R_OPS = 18, 3, 45
+
+
+def cost_fk_ops(lay) -> int:
+    """Float ops of the FK that the value-only cost needs on one lane: the
+    steps that ``pack_cost_kernel_params`` schedules (the links the
+    points need, each member from its base pose), each counted by its
+    class (FK_*_OPS), and each grasped point's R o + t
+    (GRASP_POINT_OPS)."""
+    from torch_robotics_tpu_torch.ops import terms_kernel as tk
+    ints, _ = tk.pack_cost_kernel_params(lay)
+    n_steps = int(ints[7])
+    steps = ints[tk._COST_HEADER:tk._COST_HEADER + 8 * n_steps].reshape(-1, 8)
+    classes = ints[ints[14]:ints[14] + n_steps]
+    ops = GRASP_POINT_OPS * int(ints[12])
+    for jt, cls in zip(steps[:, 0].tolist(), classes.tolist()):
+        if jt in (1, 2):      # revolute, continuous
+            ops += FK_AXIS_OPS if cls & 3 else FK_RODRIGUES_OPS  # axis bits
+        elif jt == 3:         # prismatic
+            ops += FK_PRISMATIC_OPS
+        if cls & tk._IDENTITY_PARENT:
+            ops += FK_T_IDENTITY_OPS
+        else:
+            reads_r = cls & (tk._KEEP_R | tk._IDENTITY_F) == tk._KEEP_R
+            ops += FK_T_OPS + (FK_R_OPS if reads_r else 0)
+    return ops
+
+
 def cost_work(lay, N: int, n_rows: int):
     """(bytes, float ops) of the value-only cost on N lanes: q (d, N) in,
-    cost (N) out, the grid rows (grid_row_bytes); per lane the rows'
-    values, and a hinge (2) and a square and add (2) per row."""
+    cost (N) out, the grid rows (grid_row_bytes); per lane the FK by step
+    class (cost_fk_ops), the rows' values, and a hinge (2) and a square and
+    add (2) per row."""
     return (4 * N * (lay.model.n_dofs + 1) + grid_row_bytes(lay, N),
-            lane_ops(lay, n_rows, per_row=4) * N)
+            lane_ops(lay, n_rows, per_row=4, fk=cost_fk_ops(lay)) * N)
 
 
 def riccati_work(d: int, m: int, P: int, T: int, B_: int):
@@ -742,15 +784,16 @@ def mr_terms_work(lay, q, r):
             per_lane * N + active_row_ops(lay.row_joints(), clo, chi, q, r))
 
 
-def mr_lane_ops(lay, n_rows: int, per_row: int = 2, axes: bool = True):
+def mr_lane_ops(lay, n_rows: int, per_row: int = 2, axes: bool = True,
+                fk=None):
     """Float ops every waypoint lane of a MultiRobot needs for the rows'
     values: each member's FK compose (~132 per revolute link, ~63 per
-    fixed), with ``axes`` its world joint axes and origins with the base
-    pose (48 per joint), every point's base transform (15), a grasped
-    point's R o + t (GRASP_POINT_OPS), the scene SDF of
-    each object point (15 per point and object + ~10 per sphere), its
-    workspace distance (12), each pair's distance (12) and ``per_row`` per
-    residual row."""
+    fixed), every point's base transform (15) and a grasped point's R o +
+    t (GRASP_POINT_OPS), or ``fk`` ops for the three where given; with
+    ``axes`` each member's world joint axes and origins with the base pose
+    (48 per joint); the scene SDF of each object point (15 per point and
+    object + ~10 per sphere), its workspace distance (12), each pair's
+    distance (12) and ``per_row`` per residual row."""
     from torch_robotics_tpu_torch.geom import GridSDF
     from torch_robotics_tpu_torch.geom.sdf import Spheres
     from torch_robotics_tpu_torch.ops.lanes_fk import member_collision_points
@@ -758,13 +801,14 @@ def mr_lane_ops(lay, n_rows: int, per_row: int = 2, axes: bool = True):
     n_obj, n_pair = len(lay.obj_pos), len(lay.pair_a)
     n_grasped = sum(g >= 0 for r in lay.members for sec in ("object", "self")
                     for _, g in member_collision_points(r, sec))
-    per_lane = (15 * n_pts + GRASP_POINT_OPS * n_grasped
-                + 12 * (n_obj + n_pair) + per_row * n_rows)
-    for mem in lay.members:
-        model = mem.model
-        n_rev = sum(1 for t in model.joint_types if t != 0)
-        per_lane += (132 * n_rev + 63 * (model.n_links - n_rev)
-                     + (48 * model.n_dofs if axes else 0))
+    per_lane = 12 * (n_obj + n_pair) + per_row * n_rows
+    if fk is None:
+        fk = 15 * n_pts + GRASP_POINT_OPS * n_grasped
+        for mem in lay.members:
+            n_rev = sum(1 for t in mem.model.joint_types if t != 0)
+            fk += 132 * n_rev + 63 * (mem.model.n_links - n_rev)
+    per_lane += fk + sum(48 * mem.model.n_dofs for mem in lay.members
+                         if axes)
     for obj in lay.df_obj_list:
         if isinstance(obj, GridSDF):
             per_lane += n_obj * GRID_LOOKUP_OPS
@@ -779,11 +823,13 @@ def mr_lane_ops(lay, n_rows: int, per_row: int = 2, axes: bool = True):
 
 def mr_cost_work(lay, N: int, n_rows: int):
     """(bytes, float ops) of the MultiRobot value-only cost on N lanes: q
-    (d, N) in, cost (N) out; per lane the rows' values without joint axes,
+    (d, N) in, cost (N) out; per lane the FK by step class from each
+    member's base pose (cost_fk_ops), the rows' values without joint axes,
     and a hinge (2) and a square and add (2) per row."""
     d = int(lay.d_off[-1])
     return (4 * N * (d + 1) + grid_row_bytes(lay, N),
-            mr_lane_ops(lay, n_rows, 4, axes=False) * N)
+            mr_lane_ops(lay, n_rows, 4, axes=False,
+                        fk=cost_fk_ops(lay)) * N)
 
 
 def sweep_work(H_: int, m: int, B_: int, trsv: bool):
@@ -832,6 +878,8 @@ def bound_ms(nbytes: float, ops: float, peak_flops: float = PEAK_F32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the lanes a block that cost.cu's kernel is built for (cost_launch_config)
+COST_LANES = (32, 64, 96, 128)
 # mangled-name fragments of the net row's tensor-core instantiations, and
 # the net row's kernel names (both routes) as the profiler reports them
 NET_TC_TERMS = "net_terms_tc_kernelILi256ELi128ELi64E"
@@ -885,7 +933,8 @@ def phase_build():
     from torch_robotics_tpu_torch.ops.btridiag_kernel import _KERNEL_M
     names = {**{"terms_kernelILi%dE" % d: "terms_kernel<%d>" % d
                 for d in range(1, 9)},
-             "11cost_kernelE": "cost_kernel",
+             **{"11cost_kernelILi%dE" % n: "cost_kernel<%d>" % n
+                for n in COST_LANES},
              "btridiag_w_kernelILi14ELb0E": "btridiag_w_kernel<14>",
              "btridiag_w_kernelILi4ELb0E": "btridiag_w_kernel<4>",
              "btridiag_w_kernelILi14ELb1E": "btridiag_factor<14>",
@@ -939,10 +988,10 @@ def phase_build():
     # the cost kernel, the MultiRobot terms kernel, every terms_kernel<D>,
     # rollout_kernel<D> and substitution kernel keep their arrays out of
     # local memory
-    for label in ["cost_kernel", "mr_terms_kernel"] + [
+    for label in ["mr_terms_kernel"] + [
             v for v in names.values()
-            if v.startswith(("terms_kernel<", "rollout_kernel<",
-                             "btridiag_subst"))]:
+            if v.startswith(("cost_kernel<", "terms_kernel<",
+                             "rollout_kernel<", "btridiag_subst"))]:
         line = report.get(label, "")
         check("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
               "loads" in line, "%s: ptxas reports a stack frame, a spill or "
@@ -1728,11 +1777,11 @@ def varied_radii_task():
 def phase_cost(task, seen, start, goal):
     """K8 vs its plain version on the iLQR path's line-search q (N = A B T,
     the first iteration's), on random q, on the sGPMP path's first
-    candidates (N = K B H) and on random q in a scene whose spheres differ
-    in radius, at the terms kernel's tolerance; a lane's bits
-    the same at a ragged N and at 32 lanes a block; timed at both path
-    shapes (the kernel's device time over a CUDA graph of calls, a call's
-    by CUDA events)."""
+    candidates (N = K B H) and proposal (N = B H, the acceptance's) and on
+    random q in a scene whose spheres differ in radius, at the terms
+    kernel's tolerance; a lane's bits the same at a ragged N and at 32
+    lanes a block; timed at the three path shapes (the kernel's device
+    time over a CUDA graph of calls, a call's by CUDA events)."""
     import torch
     from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
     from torch_robotics_tpu_torch.ops.terms_kernel import run_cost_kernel
@@ -1742,14 +1791,16 @@ def phase_cost(task, seen, start, goal):
     q_ls = seen["cost_%d" % N]
     check(tuple(q_ls.shape) == (7, N), "line-search q %s" % (q_ls.shape,))
     N_sg = SG_PARAMS["num_samples"] * IL_B * SG_PART * IL_H
-    q_sg = capture_cost_inputs(task, *sg_problem(
-        start, goal, SG_PART, IL_H, SG_PARAMS["dt"], SEED + 2),
-        SG_PARAMS)[N_sg]
+    seen_sg = capture_cost_inputs(task, *sg_problem(
+        start, goal, SG_PART, IL_H, SG_PARAMS["dt"], SEED + 2), SG_PARAMS)
+    q_sg, q_acc = seen_sg[N_sg], seen_sg[IL_B * SG_PART * IL_H]
     varied = varied_radii_task()
     results = {}
     for name, t, q in (("line_search_q_N%d" % N, task, q_ls),
                        ("random_q_N%d" % N, task, random_q(task, N, seed=5)),
                        ("sgpmp_candidates_N%d" % N_sg, task, q_sg),
+                       ("sgpmp_acceptance_N%d" % q_acc.shape[1], task,
+                        q_acc),
                        ("varied_radii_random_q_N8192", varied,
                         random_q(varied, 8192, seed=6))):
         c = t.collision_residuals.collision_cost_lanes
@@ -1758,7 +1809,8 @@ def phase_cost(task, seen, start, goal):
     lay = TermsLayout(task)
     r = task.collision_residuals.obstacle_terms_lanes.plain.rows(q_ls)[0]
     out = {}
-    for key, q, iters in (("line_search", q_ls, 50), ("sgpmp", q_sg, 20)):
+    for key, q, iters in (("line_search", q_ls, 50), ("sgpmp", q_sg, 20),
+                          ("acceptance", q_acc, 50)):
         out[key] = dict(N=q.shape[1], ms=device_ms(lambda: cost(q), iters),
                         call_ms=cuda_ms(lambda: cost(q), iters=iters),
                         plain_ms=cuda_ms(lambda: cost.plain(q), iters=2,
@@ -3788,9 +3840,9 @@ def phase_grid_terms(task, theta0):
 def phase_grid_cost(env, start, goal):
     """K8's grid branch vs its plain version (hold_grid) on random q at the
     iLQR line search's N = 79,360 and on the sGPMP Panda's first
-    candidates (N = 2,097,152) in the grid scene at the iLQR cutoff; a
-    lane's bits the same at a ragged N and at 32 lanes a block; timed at
-    both; then the sGPMP Panda in the grid scene (phase_sgpmp): exactly 201
+    candidates (N = 2,097,152) and proposal (N = 131,072) in the grid
+    scene at the iLQR cutoff; a lane's bits the same at a ragged N and at
+    32 lanes a block; timed at the three; then the sGPMP Panda in the grid scene (phase_sgpmp): exactly 201
     K8 launches -> (kernel numbers at 2,097,152, launches)."""
     import torch
     from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
@@ -3802,19 +3854,21 @@ def phase_grid_cost(env, start, goal):
     cost = task.collision_residuals.collision_cost_lanes
     N_ls = len(IL_ALPHAS) * IL_B * (IL_H - 1)
     N_sg = SG_PARAMS["num_samples"] * IL_B * SG_PART * IL_H
-    q_sg = capture_cost_inputs(task, *sg_problem(
-        start, goal, SG_PART, IL_H, SG_PARAMS["dt"], SEED + 2),
-        SG_PARAMS)[N_sg]
+    seen_sg = capture_cost_inputs(task, *sg_problem(
+        start, goal, SG_PART, IL_H, SG_PARAMS["dt"], SEED + 2), SG_PARAMS)
+    q_sg, q_acc = seen_sg[N_sg], seen_sg[IL_B * SG_PART * IL_H]
     q_ls = random_q(task, N_ls, seed=22)
     results, out = {}, {}
     for name, q in (("random_q_N%d" % N_ls, q_ls),
-                    ("sgpmp_candidates_N%d" % N_sg, q_sg)):
+                    ("sgpmp_candidates_N%d" % N_sg, q_sg),
+                    ("sgpmp_acceptance_N%d" % q_acc.shape[1], q_acc)):
         results[name] = hold_grid(name, (cost(q),), (cost.plain(q),),
                                   object_points_near_face(task, q))
         same_lane_bits(name, cost, run_cost_kernel, q)
     lay = TermsLayout(task)
     n_rows = 2 * len(lay.obj_pos) + len(lay.pair_a)
-    for key, q, iters in (("line_search", q_ls, 50), ("sgpmp", q_sg, 20)):
+    for key, q, iters in (("line_search", q_ls, 50), ("sgpmp", q_sg, 20),
+                          ("acceptance", q_acc, 50)):
         out[key] = dict(N=q.shape[1], ms=device_ms(lambda: cost(q), iters),
                         call_ms=cuda_ms(lambda: cost(q), iters=iters),
                         plain_ms=cuda_ms(lambda: cost.plain(q), iters=2,
@@ -4057,8 +4111,9 @@ def phase_grasp_cost(start, goal):
     """K8's grasped branch vs its plain version (terms tolerance) on the
     grasped Panda at the iLQR cutoff 0.06: random q at the line search's N
     = 79,360 and the sGPMP path's first candidates (N = 2,097,152; the
-    plain cost in chunks), a lane's bits the same at a ragged N and at 32
-    lanes a block (same_lane_bits); timed at both; then sGPMP at phase
+    plain cost in chunks) and proposal (N = 131,072), a lane's bits the
+    same at a ragged N and at 32 lanes a block (same_lane_bits); timed at
+    the three; then sGPMP at phase
     sgpmp's shape on the grasped Panda: exactly 201 K8 launches, the
     fraction free before and after -> (kernel numbers at 2,097,152,
     launches)."""
@@ -4069,16 +4124,18 @@ def phase_grasp_cost(start, goal):
     cost = task.collision_residuals.collision_cost_lanes
     N_ls = len(IL_ALPHAS) * IL_B * (IL_H - 1)
     N_sg = SG_PARAMS["num_samples"] * IL_B * SG_PART * IL_H
-    q_sg = capture_cost_inputs(task, *sg_problem(
-        start, goal, SG_PART, IL_H, SG_PARAMS["dt"], SEED + 2),
-        SG_PARAMS)[N_sg]
+    seen_sg = capture_cost_inputs(task, *sg_problem(
+        start, goal, SG_PART, IL_H, SG_PARAMS["dt"], SEED + 2), SG_PARAMS)
+    q_sg, q_acc = seen_sg[N_sg], seen_sg[IL_B * SG_PART * IL_H]
     q_ls = random_q(task, N_ls, seed=32)
     results, out = {}, {}
     lay = TermsLayout(task)
     n_rows = 2 * len(lay.obj_pos) + len(lay.pair_a)
     for key, name, q, iters in (
             ("line_search", "random_q_N%d" % N_ls, q_ls, 50),
-            ("sgpmp", "sgpmp_candidates_N%d" % N_sg, q_sg, 20)):
+            ("sgpmp", "sgpmp_candidates_N%d" % N_sg, q_sg, 20),
+            ("acceptance", "sgpmp_acceptance_N%d" % q_acc.shape[1], q_acc,
+             50)):
         results[name] = hold_cost(name, cost(q), chunked(cost.plain, q))
         same_lane_bits(name, cost, run_cost_kernel, q)
         out[key] = dict(N=q.shape[1], ms=device_ms(lambda: cost(q), iters),

@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     git archive <commit> | tar -x -C chip_checkout/other   # a git-ignored dir
     python3 chip_sweep_ab.py --other chip_checkout/other [--out FILE] \
-        [--kernels all|sweep|riccati|cols|terms|net]
+        [--kernels all|sweep|riccati|cols|terms|net|cost]
 
 The other checkout's ``csrc/btridiag.cu``, ``csrc/btridiag_sweep.cu``,
 ``csrc/riccati.cu`` and ``csrc/btridiag_cols.cu`` are built beside this
@@ -73,7 +73,7 @@ K2 and K9's factor sweep are compared bit for bit on the same inputs.
 same task, ``parent_mr_terms_params``) and ``cost.cu`` stand in for this
 tree's under this tree's wrappers:
 
-- ptxas's report of both sides' ``mr_terms_kernel``;
+- ptxas's report of both sides' ``mr_terms_kernel`` and ``terms_kernel``;
 - K5 on phase ``mr_terms``' four cases (config 4's first and random q,
   random q at the tight poses, the two-arm robot at N = 4096), on phase
   ``mr_grasp``'s and on phase ``mr_grid``'s first q: each side held to
@@ -83,7 +83,8 @@ tree's under this tree's wrappers:
   calls) and a call's (CUDA events), the bound;
 - K1 (pair field, grasped, grid: its scene gradient is now
   ``cost.cuh``'s pick and gradient pair) and K8 (both branches) bit for
-  bit;
+  bit, and K1's device time on each of its three q in turns (over a CUDA
+  graph of calls);
 - config 4's MPC step in turns, with a profile per side (device ms a
   step, busy share).
 
@@ -105,8 +106,35 @@ under this tree's wrappers:
   (8 MPC steps, the spread net) in turns, with a profile per side (device
   ms, busy share, the net row's device ms).
 
+``--kernels cost`` (the value-only collision cost K8, ``cost.cu``, both
+branches): the other tree's ``cost.cu`` stands in for this tree's under
+this tree's wrappers and packing (``pack_cost_kernel_params``, whose
+sections before ints 14-15 are the words an older cost.cu reads):
+
+- ptxas's report of both sides' ``cost_kernel`` instantiations;
+- K8 on every branch and shape of phases ``cost``, ``grid_cost``,
+  ``grasp_cost``, ``mr_cost``, ``mr_grid`` and ``mr_grasp``: the pair-field,
+  grid and grasped Panda at the iLQR line search's 79,360 (the path's
+  first q for the pair field, random q for the others) and at the sGPMP
+  acceptance's 131,072 and candidates' 2,097,152; config 4, in the grid
+  and grasped at the acceptance's 8,192 and the candidates' 131,072.  Each
+  side held to the plain version (``chip_smoke``'s terms tolerance, the
+  grid rule in a grid scene), the lanes where the sides differ and by how
+  much, the device time in turns (over a CUDA graph of calls), the bound;
+- at 2,097,152, where each side's time goes: copies of both sides'
+  cost.cu cut after each stage (``staged_cost_source``: FK alone, with
+  the points, the object rows, the workspace rows; the whole adds the
+  pairs), in turns;
+- the sGPMP iteration (20 iterations) of the Panda, the grid and grasped
+  Panda and grasped config 4 in ``SG_ROUNDS`` rounds of turns (50
+  alternating pairs): each side's median wall ms and quartiles, those of
+  the pairs' difference, the share of pairs this tree wins, whether that
+  is a gain and whether this tree's side is not slower
+  (``paired_wall``), beside a profile per side (device ms, busy share,
+  K8's device ms and its saving).
+
 ``--kernels all`` (the default) runs the sweeps and the Riccati sweep;
-``cols``, ``terms`` and ``net`` run alone.  Prints one JSON line per
+``cols``, ``terms``, ``net`` and ``cost`` run alone.  Prints one JSON line per
 measurement, then the card's name and power limit; ``--out`` writes all of
 it as one JSON object.
 """
@@ -470,7 +498,7 @@ def main() -> None:
     ap.add_argument("--out", type=Path)
     ap.add_argument("--kernels",
                     choices=("all", "sweep", "riccati", "cols", "terms",
-                             "net"),
+                             "net", "cost"),
                     default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -483,16 +511,24 @@ def main() -> None:
     do_cols = args.kernels == "cols"
     do_terms = args.kernels == "terms"
     do_net = args.kernels == "net"
+    do_cost = args.kernels == "cost"
     sweep_k = other_sweep_kernels(csrc) if do_sweep else None
     net_k = other_net_kernel(csrc) if do_net else None
     ric_k = other_riccati_kernel(csrc) if do_riccati else None
     cols_k = other_cols_kernel(csrc) if do_cols else None
     terms_k = other_terms_kernels(csrc) if do_terms else None
+    cost_k = (other_terms_kernels(csrc)[2], {
+        "other": cost_stage_kernels(csrc, "other"),
+        "this": cost_stage_kernels(
+            Path(cs.__file__).resolve().parent / "torch_robotics_tpu_torch"
+            / "csrc", "this")}) if do_cost else None
     build_all([*(sweep_k[:2] if do_sweep else ()),
                *(ric_k[:1] if do_riccati else ()),
                *(cols_k[:1] if do_cols else ()),
                *(terms_k[:3] if do_terms else ()),
                *(net_k[:1] if do_net else ()),
+               *((cost_k[0], *cost_k[1]["other"], *cost_k[1]["this"])
+                 if do_cost else ()),
                *cs.all_kernels().values()])
     report = {}
 
@@ -511,6 +547,8 @@ def main() -> None:
         ab_terms(terms_k, emit)
     if do_net:
         ab_net(*net_k, emit)
+    if do_cost:
+        ab_cost(*cost_k, emit)
     emit("profiler", launches_without_kernel=cs.PROFILE_MISSED)
 
     smi = cs.nvidia_smi_line()
@@ -1000,9 +1038,12 @@ def ab_terms(other, emit):
     import torch
     from torch_robotics_tpu_torch.ops import terms_kernel as tk
 
-    emit("ptxas", **{side: {"mr_terms_kernel": ptxas_report(
-        k, "mr_terms_kernel")} for side, k in (("other", other[1]),
-                                               ("this", tk.MR_KERNEL))})
+    emit("ptxas", **{side: {
+        "mr_terms_kernel": ptxas_report(mk, "mr_terms_kernel"),
+        "terms_kernel": [x for x in ptxas_report(k1, "terms_kernel")
+                         if "mr_terms" not in x]}
+        for side, k1, mk in (("other", other[0], other[1]),
+                             ("this", tk.KERNEL, tk.MR_KERNEL))})
     mr, mr_start, mr_goal, _ = cs.mr_problem("cuda")
     gmr, g_start, g_goal, _ = cs.mr_problem("cuda", grasp=True)
     env, _ = cs.grid_env()
@@ -1064,14 +1105,14 @@ def ab_terms(other, emit):
         torch.cuda.empty_cache()
 
     # K1 (pair field, grasped, grid) and K8, bit for bit: their kernels'
-    # arithmetic is meant to stay as it is
+    # arithmetic is meant to stay as it is; K1's time in turns
     from torch_robotics_tpu_torch.robots import RobotPanda
     from torch_robotics_tpu_torch.tasks import PlanningTask
     task, start, goal = cs.bench_problem("cuda", cs.B)
     gtask = cs.grasp_task("cuda")
     rtask = PlanningTask(env=env, robot=RobotPanda.create(device="cuda"),
                          obstacle_cutoff_margin=cs.GRID_CUTOFF)
-    same = {}
+    same, k1_ms = {}, {}
     q_r = cs.random_q(task, 79360, seed=2)
     for name, fn, q in (
             ("k1", task.collision_residuals.obstacle_terms_lanes.unscaled,
@@ -1090,7 +1131,14 @@ def ab_terms(other, emit):
         t_ = fn(q)
         same[name] = all(torch.equal(a, b) for a, b in zip(
             o, t_ if isinstance(t_, tuple) else (t_,)))
+        if name.startswith("k1"):
+            other_ms, this_ms, turns = in_turns(
+                swap, lambda: cs.device_ms(lambda: fn(q), iters=20))
+            k1_ms[name] = dict(N=q.shape[1], other_ms=other_ms,
+                               this_ms=this_ms, speedup=other_ms / this_ms,
+                               turns_ms=turns)
     emit("unchanged_kernels_bit_for_bit", **same)
+    emit("k1_in_turns", **k1_ms)
     if not all(same.values()):
         cs.fail("a kernel this change leaves alone differs: %s" % same)
 
@@ -1267,6 +1315,284 @@ def ab_net(other, routed, emit):
     emit("net_main_step", B=cs.B, H=cs.H, steps=cs.N_STEPS, net="relu_spread",
          other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
          turns_ms=turns, profile=prof)
+
+
+# the stage cuts of ``--kernels cost``: lines of cost.cu (this design's
+# and the one before it, at any indentation) after which a copy of the
+# kernel stops, and the stages
+STAGE_FK = "const int first_off = i1.y - i1.z;"
+STAGE_ROWS = "const int end = a.cuts[t + 1];"
+STAGES = ("fk", "fk_points", "object_rows", "workspace_rows")
+# rounds of turns of the sGPMP iteration: two alternating pairs a round
+SG_ROUNDS = 25
+
+
+def staged_cost_source(src: str, k: int) -> str:
+    """cost.cu cut after stage STAGES[k]: 0, each member's FK chain with
+    no points written (its last transform kept live in one word); 1, FK
+    and the points; 2, and the object SDF rows; 3, and the workspace rows
+    (the whole kernel adds the pair rows).  A cut kernel's cost is not
+    the cost."""
+    lines = src.split("\n")
+    at = {a: [i for i, line in enumerate(lines) if line.strip() == a]
+          for a in (STAGE_FK, STAGE_ROWS)}
+    if any(len(v) != 1 for v in at.values()):
+        cs.fail("cost.cu has no stage anchors")
+    i_fk, i_rows = at[STAGE_FK][0], at[STAGE_ROWS][0]
+    pad = lines[i_rows][:len(lines[i_rows]) - len(lines[i_rows].lstrip())]
+    end = ("a.cuts[t]", "a.cuts[t]", "min(a.cuts[t + 1], n_sdf)",
+           "min(a.cuts[t + 1], n_sdf + a.NO)")[k]
+    lines[i_rows] = pad + "const int end = %s;" % end + (
+        "\n%scacc = pts[lane];" % pad if k <= 1 else "")
+    if k == 0:
+        p = lines[i_fk][:len(lines[i_fk]) - len(lines[i_fk].lstrip())]
+        lines[i_fk] = ("%sif (s == a.mem_step[t + 1] - 1)\n%s  pts[lane] = "
+                       "tv[0] + tv[1] + tv[2] + R[0] + R[4] + R[8];\n"
+                       "%scontinue;\n" % (p, p, p)) + lines[i_fk]
+    return "\n".join(lines)
+
+
+def cost_stage_kernels(csrc: Path, side: str):
+    """Copies of ``csrc``'s cost.cu cut after each of STAGES, with its
+    headers, in a directory of the build tree of their own."""
+    import shutil
+
+    from torch_robotics_tpu_torch.ops import terms_kernel as tk
+    from torch_robotics_tpu_torch.ops.cuda_build import BUILD_DIR
+    OtherKernel = other_kernel_class()
+    d = BUILD_DIR / ("stages-%s" % side)
+    d.mkdir(parents=True, exist_ok=True)
+    for header in csrc.glob("*.cuh"):
+        shutil.copy(header, d / header.name)
+    src = (csrc / "cost.cu").read_text()
+    kernels = []
+    for k, stage in enumerate(STAGES):
+        f = d / ("cost_%s.cu" % stage)
+        f.write_text(staged_cost_source(src, k))
+        kernels.append(OtherKernel(str(f), dict(tk.COST_KERNEL.functions)))
+    return kernels
+
+
+def cost_swap(kernel):
+    """``kernel`` (a cost.cu library) in place of this tree's K8 in both
+    branches, under this tree's wrappers and packing."""
+    from torch_robotics_tpu_torch.ops import terms_kernel as tk
+    return Swap(tk, ("COST_KERNEL", "MR_COST_KERNEL"),
+                lambda name, args: (kernel, args))
+
+
+def frames_task():
+    """The iLQR Panda with each joint's fixed rotation replaced by a seeded
+    random rotation: no product of its FK is exact, so the order in which
+    cost.cu's axis classes contract their two remaining terms decides the
+    bits (the zoo robots' fixed rotations are signed permutations up to
+    rounding, which hides it)."""
+    import dataclasses
+
+    import numpy as np
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    robot = RobotPanda.create(device="cuda")
+    rng = np.random.default_rng(17)
+    rots = []
+    for _ in range(robot.model.n_links):
+        qr, rr = np.linalg.qr(rng.normal(size=(3, 3)))
+        qr = qr * np.sign(np.diag(rr))
+        rots.append(qr * np.linalg.det(qr))
+    model = dataclasses.replace(robot.model, joint_fixed_rot=np.asarray(
+        rots, np.float32))
+    return PlanningTask(env=EnvSpheres3D(device="cuda"),
+                        robot=dataclasses.replace(robot, model=model),
+                        obstacle_cutoff_margin=0.06)
+
+
+def cost_cases():
+    """[(case, task, q, MultiRobot)] of phases cost, grid_cost,
+    grasp_cost, mr_cost, mr_grid and mr_grasp (and ``frames_task`` at the
+    line search's N): a single robot at the iLQR
+    line search's 79,360 (the path's first q for the Panda, random q as
+    the grid and grasped phases take), the sGPMP acceptance's 131,072 and
+    candidates' 2,097,152; config 4 at the acceptance's 8,192 and the
+    candidates' 131,072."""
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    task, start, goal = cs.ilqr_problem("cuda")
+    env, _ = cs.grid_env()
+    singles = {
+        "panda": (task, cs.capture_first_iteration(task, start, goal)),
+        "grid": (PlanningTask(env=env, robot=RobotPanda.create(device="cuda"),
+                              obstacle_cutoff_margin=0.06), 22),
+        "grasped": (cs.grasp_task("cuda", cutoff=0.06), 32)}
+    N_ls = len(cs.IL_ALPHAS) * cs.IL_B * (cs.IL_H - 1)
+    cases = [("panda_random_frames", frames_task(),
+              cs.random_q(task, N_ls, seed=23), False)]
+    for name, (t, src) in singles.items():
+        q_ls = (src["cost_%d" % N_ls] if isinstance(src, dict)
+                else cs.random_q(t, N_ls, seed=src))
+        seen = cs.capture_cost_inputs(t, *cs.sg_problem(
+            start, goal, cs.SG_PART, cs.IL_H, cs.SG_PARAMS["dt"],
+            cs.SEED + 2), cs.SG_PARAMS)
+        cases += [(name, t, q, False) for q in [q_ls] + [
+            seen[n] for n in sorted(seen)]]
+    mr, mr_start, mr_goal, _ = cs.mr_problem("cuda")
+    gmr, g_start, g_goal, _ = cs.mr_problem("cuda", grasp=True)
+    for name, t, s0, g0 in (("config4", mr, mr_start, mr_goal),
+                            ("config4_grid", cs.mr_task("cuda", env=env),
+                             mr_start, mr_goal),
+                            ("config4_grasped", gmr, g_start, g_goal)):
+        seen = cs.capture_cost_inputs(t, *cs.sg_problem(
+            s0, g0, 1, cs.MR_H, cs.MR_GP["dt"], cs.SEED + 3),
+            cs.MR_SG_PARAMS)
+        cases += [(name, t, seen[n], True) for n in sorted(seen)]
+    return cases, dict(panda=(task, start, goal),
+                       grasped_config4=(gmr, g_start, g_goal), **{
+                           k: (singles[k][0], start, goal)
+                           for k in ("grid", "grasped")})
+
+
+def ab_cost(other, stages, emit):
+    """K8 (cost.cu, both branches) on every branch and shape of the cost
+    phases: each side held to the plain version, the lanes where the sides
+    differ, the device time in turns over a CUDA graph, the bound; both
+    sides' ptxas; each side's stage cuts at the candidates' N in turns; the
+    sGPMP iteration of the Panda, the grid and the grasped Panda and
+    grasped config 4 in alternating pairs (``paired_wall``), with a
+    profile per side."""
+    import dataclasses
+
+    import torch
+    from torch_robotics_tpu_torch.geom import GridSDF
+    from torch_robotics_tpu_torch.ops import terms_kernel as tk
+    from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
+    from torch_robotics_tpu_torch.solve import SGPMPParams, sgpmp_solve
+
+    emit("ptxas", **{side: ptxas_report(k, "cost_kernel")
+                     for side, k in (("other", other),
+                                     ("this", tk.COST_KERNEL))})
+    swap = cost_swap(other)
+    cases, paths = cost_cases()
+    for name, task, q, multi in cases:
+        N = q.shape[1]
+        key = "k8_%s_N%d" % (name, N)
+        cost = task.collision_residuals.collision_cost_lanes
+        lay = task.collision_residuals.obstacle_terms_lanes.plain.layout
+        grid = any(isinstance(o, GridSDF) for o in lay.df_obj_list)
+        ref = (cs.chunked(cost.plain, q) if N > 1 << 20 and not grid
+               else cost.plain(q))
+        near = cs.object_points_near_face(task, q) if grid else None
+        outs, errs = {}, {}
+        for side in ("other", "this"):
+            with (swap if side == "other" else _null()):
+                outs[side] = cost(q).clone()
+            if grid:
+                errs[side] = cs.hold_grid("%s_%s" % (key, side),
+                                          (outs[side],), (ref,), near)
+            else:
+                e = cs.hold_cost("%s_%s" % (key, side), outs[side], ref)
+                errs[side] = {"abs": e[0], "rel_to_max": e[1]}
+        differ = outs["other"] != outs["this"]
+        other_ms, this_ms, turns = in_turns(
+            swap, lambda: cs.device_ms(lambda: cost(q), iters=20))
+        n_rows = (len(lay.obj_pos) * (2 if lay.df_obj_list else 1)
+                  + len(lay.pair_a))
+        work = (cs.mr_cost_work(lay, N, n_rows) if multi else
+                cs.cost_work(TermsLayout(task), N, n_rows))
+        emit(key, N=N, lanes_differing=int(differ.sum()),
+             max_abs_diff=float((outs["other"] - outs["this"]).abs().max()),
+             vs_plain=errs, other_ms=other_ms, this_ms=this_ms,
+             speedup=other_ms / this_ms, turns_ms=turns,
+             bound_ms=cs.bound_ms(*work)[0], launch=cost.params[3])
+        if N == 2097152:
+            # where the time goes: each side's stage cuts, in turns
+            runs = [(side, stage, cost_swap(k)) for side in ("other", "this")
+                    for stage, k in zip(STAGES + ("whole",), stages[side]
+                                        + [None])]
+            ms = {}
+            for rnd in (0, 1):
+                for side, stage, sw in (runs if rnd == 0 else runs[::-1]):
+                    whole = (swap if side == "other" else _null())
+                    with (sw if stage != "whole" else whole):
+                        ms.setdefault("%s_%s" % (side, stage), []).append(
+                            cs.device_ms(lambda: cost(q), iters=20))
+            emit(key + "_stages", N=N, stages=STAGES + ("whole",),
+                 ms={k: sum(v) / 2 for k, v in ms.items()})
+        torch.cuda.empty_cache()
+
+    # the sGPMP iteration in turns, a profile per side
+    for name, (task, start, goal) in paths.items():
+        multi = name == "grasped_config4"
+        p = SGPMPParams(**dict(cs.MR_SG_PARAMS if multi else cs.SG_PARAMS,
+                               opt_iters=20))
+        seed = cs.SEED + (3 if multi else 2)
+        problem = cs.sg_problem(start, goal, 1 if multi else cs.SG_PART,
+                                p.n_support_points, p.dt, seed)
+
+        def solve(n_iter=p.opt_iters, task=task, problem=problem, p=p,
+                  seed=seed):
+            return sgpmp_solve(
+                task.collision_residuals, *problem,
+                dataclasses.replace(p, opt_iters=n_iter),
+                generator=torch.Generator(device="cuda").manual_seed(
+                    seed + 1))
+        solve(2)
+        with swap:
+            solve(2)
+        # SG_ROUNDS rounds of turns, two alternating pairs a round: the
+        # host's time per iteration spreads
+        turns = []
+        for _ in range(SG_ROUNDS):
+            turns += in_turns(swap, lambda: cs.cuda_ms(
+                solve, iters=1, warmup=0) / p.opt_iters)[2]
+        wall = paired_wall(turns)
+        prof = {}
+        for side in ("other", "this"):
+            with (swap if side == "other" else _null()):
+                busy, dev_ms, top = cs.profile_device(lambda: solve(5), 5,
+                                                      n_top=12)
+            prof[side] = dict(
+                profiled_device_busy_share=busy,
+                profiled_device_ms_per_iteration=dev_ms,
+                k8_device_ms_per_iteration=sum(
+                    v for k, v in top.items() if "cost_kernel" in k),
+                top_device_ms_per_iteration=top)
+        k8_saving = (prof["other"]["k8_device_ms_per_iteration"]
+                     - prof["this"]["k8_device_ms_per_iteration"])
+        emit("sgpmp_iteration_" + name, iterations=p.opt_iters,
+             **wall, k8_device_saving_ms=k8_saving, turns_ms=turns,
+             profile=prof)
+        torch.cuda.empty_cache()
+
+
+def paired_wall(turns):
+    """Wall ms of rounds of turns (other, this, this, other, ...) read as
+    alternating pairs (other, this), (this, other): each side's median and
+    quartiles, the median and quartiles of this - other over the pairs,
+    the share of pairs this tree's side wins, whether that is a gain (it
+    wins at least nine tenths of the pairs and the medians differ by more
+    than the other side's quartile spread), and whether this tree's side
+    is not slower: "met" where this - other is below 0 in more than three
+    quarters of the pairs, "not met" where it is above 0 in more than
+    three quarters, else "unresolved"."""
+    import numpy as np
+    t = np.asarray(turns).reshape(-1, 4)
+    other = np.concatenate([t[:, 0], t[:, 3]])
+    this = np.concatenate([t[:, 1], t[:, 2]])
+    diff = np.concatenate([t[:, 1] - t[:, 0], t[:, 2] - t[:, 3]])
+
+    def quartiles(x):
+        return [float(v) for v in np.percentile(x, (25, 50, 75))]
+    q_diff = quartiles(diff)
+    q_other, q_this = quartiles(other), quartiles(this)
+    verdict = ("met" if q_diff[2] < 0 else
+               "not met" if q_diff[0] > 0 else "unresolved")
+    wins = float((diff < 0).mean())
+    return dict(pairs=len(diff), other_ms=q_other[1], this_ms=q_this[1],
+                speedup=q_other[1] / q_this[1], other_quartiles_ms=q_other,
+                this_quartiles_ms=q_this, this_minus_other_quartiles_ms=q_diff,
+                this_wins=wins, gain=bool(
+                    wins >= 0.9 and q_other[1] - q_this[1] > q_other[2]
+                    - q_other[0]), not_slower=verdict)
 
 
 def _null():

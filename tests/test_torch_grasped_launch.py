@@ -26,7 +26,8 @@ from torch_robotics_tpu_torch.geom import GraspedObjectPandaBox
 from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout, fk_lanes
 from torch_robotics_tpu_torch.ops.terms_kernel import (
     cost_launch_config, cost_row_ops, mr_terms_launch_config,
-    pack_cost_params, pack_multirobot_params, pack_terms_params)
+    pack_cost_kernel_params, pack_cost_params, pack_multirobot_params,
+    pack_terms_params)
 from torch_robotics_tpu_torch.robots import MultiRobot, RobotPanda, RobotUR10
 from torch_robotics_tpu_torch.tasks import PlanningTask
 
@@ -335,7 +336,7 @@ def test_kernel_models_on_the_buffers_match_plain(panda):
     plain = task.collision_residuals.obstacle_terms_lanes.plain
     ref = plain.unscaled(torch.as_tensor(q))
     _hold(model_terms(*pack_terms_params(lay), q), ref, "terms")
-    got = model_cost(*pack_cost_params(lay), q)
+    got = model_cost(*pack_cost_kernel_params(lay), q)
     _hold([got], [ref[2]], "cost")
 
 
@@ -346,4 +347,5 @@ def test_multirobot_models_on_the_buffers_match_plain(multirobot):
     ref = task.collision_residuals.obstacle_terms_lanes.plain.unscaled(
         torch.as_tensor(q))
     _hold(model_mr_terms(*pack_multirobot_params(lay), q), ref, "mr terms")
-    _hold([model_cost(*pack_cost_params(lay), q)], [ref[2]], "mr cost")
+    _hold([model_cost(*pack_cost_kernel_params(lay), q)], [ref[2]],
+          "mr cost")

@@ -21,9 +21,9 @@ from torch_robotics_tpu_torch.ops.net_kernel import (NetRowParams,
                                                      net_launch_config,
                                                      net_rows,
                                                      pack_net_params)
-from torch_robotics_tpu_torch.ops.terms_kernel import (cost_launch_config,
-                                                       pack_cost_params,
-                                                       pack_terms_params)
+from torch_robotics_tpu_torch.ops.terms_kernel import (
+    cost_launch_config, pack_cost_kernel_params, pack_cost_params,
+    pack_terms_params)
 from torch_robotics_tpu_torch.robots import MultiRobot, RobotPanda
 from torch_robotics_tpu_torch.tasks import PlanningTask
 
@@ -285,7 +285,7 @@ def test_net_task_packs_no_pair_rows():
     cfg = cost_launch_config(c_ints, len(c_floats))
     assert cfg["threads_per_lane"] == 1 and cfg["smem_bytes"] <= SMEM_MAX
     q = np.ascontiguousarray(box_q(256, seed=8).T)
-    got = model_cost(c_ints, c_floats, q)
+    got = model_cost(*pack_cost_kernel_params(lay), q)
     net_ints, net_floats = pack_net_params(task.robot.self_collision_net,
                                            task._NET_SELF_CUTOFF)
     model_net_row_tc(net_ints, net_floats, q, None, None, got, terms=False)

@@ -52,8 +52,8 @@ the members' cost packing with the terms' sections after it
 ``mr_terms_launch_config``.  The value-only cost of a ``MultiRobot`` (the
 MultiRobot branch of ``collision_cost_pallas_factory``) is the same
 ``cost.cu`` kernel on the members' packed parameters
-(``pack_cost_params``), with its own launch counter, and its plain version
-the cost output of those plain terms.
+(``pack_cost_kernel_params``), with its own launch counter, and its plain
+version the cost output of those plain terms.
 
 A task past a kernel's caps (``_refusal``: a scene object the kernels do
 not take, a 2-D scene, a primitive group past what the terms kernels'
@@ -82,6 +82,7 @@ __all__ = ["KERNEL", "COST_KERNEL", "MR_KERNEL", "MR_COST_KERNEL", "MAX_DOF",
            "MR_MAX_MEMBERS", "obstacle_terms_kernel_factory",
            "collision_cost_kernel_factory", "multirobot_terms_kernel_factory",
            "pack_terms_params", "pack_multirobot_params", "pack_cost_params",
+           "pack_cost_kernel_params",
            "cost_launch_config", "terms_launch_config",
            "mr_terms_launch_config", "scene_grid_table",
            "run_terms_kernel",
@@ -111,6 +112,7 @@ _TERMS_LANES = 128        # terms.cu kMaxLanes: lanes (threads) a block
 _COST_HEADER = 16         # cost.cu kHeader
 _COST_MAX_THREADS = 256   # cost.cu kMaxThreads: lanes * threads a lane
 _COST_LANES = 128         # lanes a block at one thread a lane
+_COST_LANE_COUNTS = (32, 64, 96, 128)   # cost.cu's cost_kernel<kLanes>
 _COST_MAX_TPL = 8         # threads a lane, at most
 _SMEM_MAX = 232448        # shared memory a block can have on the H100
 _GROUP_KIND = {"Spheres": 0, "RoundedBoxes": 1, "SharpBoxes": 2}
@@ -464,9 +466,12 @@ def _row_cuts(ops: np.ndarray, T: int) -> list:
 
 def pack_cost_params(lay):
     """A ``TermsLayout`` or ``MultiRobotLayout`` -> (ints int32, floats
-    float32), the two buffers ``cost.cu`` reads (section order as in its
-    parse_layout).  What a step or an object reads together is one record
-    on a 16-byte boundary, read with 16-byte loads: a step's 8 ints (joint
+    float32), the buffers ``cost.cu`` reads (section order as in
+    ``cost.cuh``'s parse_layout; K8 adds its own sections after them,
+    ``pack_cost_kernel_params``) and the terms kernels start from
+    (``pack_terms_params``, ``pack_multirobot_params``).  What a step or
+    an object reads together is one record on a 16-byte boundary, read
+    with 16-byte loads: a step's 8 ints (joint
     type, q column, parent source, slot, its points' range, how many of
     them, the last ones, are offset points and their first offset record)
     and 20 floats (fixed rotation, translation, axis, clamp bounds, 3 pad);
@@ -488,15 +493,23 @@ def pack_cost_params(lay):
     robot; for a MultiRobot at least the member count (phase 1 runs one FK
     chain a thread), and enough threads that a range takes about as many
     operations as the longest chain, at most 8."""
+    return _cost_packing(lay)[:2]
+
+
+def _cost_packing(lay):
+    """``pack_cost_params``' buffers and each FK step's class
+    (``_step_class``), in step order."""
     members = _cost_members(lay)
     mem_step, step_i, step_f, pt_list, fk_ops = [0], [], [], [], []
-    offsets = []
+    offsets, step_cls = [], []
     n_slots, doff = 0, 0
-    for model, _, _, points in members:
+    for model, base_R, _, points in members:
         steps, stored = _fk_steps(model, [li for _, li, _ in points])
         ctrl = list(model.controlled_link_idxs())
         slot_of, prev = {}, None
-        for i in steps:
+        identity = {-1: np.array_equal(np.asarray(base_R, np.float32),
+                                       np.eye(3))}
+        for k, i in enumerate(steps):
             p = model.parent_idx[i]
             src = -1 if p < 0 else (-2 if p == prev else slot_of[p])
             if i in stored:
@@ -509,6 +522,9 @@ def pack_cost_params(lay):
                              if li == i and o is not None)
             pt_list += [pt for pt, _ in on_link]
             offsets += [np.append(o, 0.0) for _, o in on_link]
+            keep_r = bool(i in stored or on_link or (
+                k + 1 < len(steps) and model.parent_idx[steps[k + 1]] == i))
+            step_cls.append(_step_class(model, i, identity, keep_r))
             step_i.append([model.joint_types[i],
                            doff + ctrl.index(i) if i in ctrl else -1, src,
                            slot_of.get(i, -1), begin, len(pt_list),
@@ -553,7 +569,58 @@ def pack_cost_params(lay):
                      lay.obj_thresh.cpu().numpy(),
                      lay.self_margins.cpu().numpy(),
                      lay.ws_min.cpu().numpy(), lay.ws_max.cpu().numpy()])
-    return ints, floats
+    return ints, floats, step_cls
+
+
+# cost.cu's step classes: the coordinate axis of a revolute or continuous
+# joint (1 x, 2 y, 3 z), that axis negative, R read later, the parent's
+# rotation exactly I, the joint's rotation exactly F = I
+_AXIS_NEG, _KEEP_R, _IDENTITY_PARENT, _IDENTITY_F = 4, 8, 16, 32
+
+
+def _step_class(model, i, identity, keep_r: bool) -> int:
+    """cost.cu's class of the FK step of link ``i``: what of the general
+    step (``cost.cuh``: joint_transform, compose) is known exactly from the
+    model (kin_scene.cuh's joint types: 1 revolute, 2 continuous, 0 fixed,
+    3 prismatic).  ``identity`` maps each link computed so far (-1 the
+    member's base) to whether its world rotation is exactly I, and gets
+    link ``i``'s."""
+    jt = int(model.joint_types[i])
+    axis = np.asarray(model.joint_axis[i], np.float32)
+    F = np.asarray(model.joint_fixed_rot[i], np.float32)
+    cls = 0
+    nz = np.flatnonzero(axis)
+    if jt in (1, 2) and len(nz) == 1 and abs(axis[nz[0]]) == 1:
+        cls = int(nz[0]) + 1 + (_AXIS_NEG if axis[nz[0]] < 0 else 0)
+    rot_is_f = jt in (0, 3)
+    f_is_identity = np.array_equal(F, np.eye(3))
+    parent_identity = identity[int(model.parent_idx[i])]
+    if parent_identity:
+        cls |= _IDENTITY_PARENT
+    elif rot_is_f and f_is_identity:
+        cls |= _IDENTITY_F
+    identity[i] = parent_identity and rot_is_f and f_is_identity
+    return cls | (_KEEP_R if keep_r else 0)
+
+
+def pack_cost_kernel_params(lay):
+    """The two buffers ``cost.cu`` reads: ``pack_cost_params``' buffers,
+    which the terms kernels also start from, with K8's own int sections
+    after them, located by ints[14] and ints[15]: each FK step's class
+    (``_step_class``), then, from a multiple of 4, each pair row's record
+    (a, b, margin, guard), the margin and the guard m^2 (1 + 1e-6) as
+    float32 bits (the guard rounded as the float expression ``m * m *
+    1.000001f``)."""
+    ints, floats, step_cls = _cost_packing(lay)
+    m = lay.self_margins.cpu().numpy().astype(np.float32)
+    guard = (m * m).astype(np.float32) * np.float32(1.000001)
+    rec = np.stack([np.asarray(lay.pair_a, np.int32),
+                    np.asarray(lay.pair_b, np.int32), m.view(np.int32),
+                    guard.astype(np.float32).view(np.int32)], axis=1)
+    ints[14] = len(ints)
+    ints[15] = -(-(len(ints) + len(step_cls)) // 4) * 4
+    pad = ints[15] - ints[14] - len(step_cls)
+    return _i32([ints, step_cls, [0] * pad, rec]), floats
 
 
 def _cost_block(ints, n_floats: int, lanes=None):
@@ -565,6 +632,9 @@ def _cost_block(ints, n_floats: int, lanes=None):
     lanes, smem, refusal = _fit_block(
         "cost", ints, n_floats, 4 * (D + 3 * P + 12 * n_slots + T), lanes,
         T, _COST_MAX_THREADS)
+    if refusal is None and lanes not in _COST_LANE_COUNTS:
+        refusal = ("the CUDA cost kernel is built for %s lanes a block, not "
+                   "%d" % (", ".join(map(str, _COST_LANE_COUNTS)), lanes))
     return dict(lanes=lanes, threads_per_lane=T, threads=lanes * T,
                 smem_bytes=smem), refusal
 
@@ -573,10 +643,11 @@ def cost_launch_config(ints, n_floats: int, lanes=None) -> dict:
     """Launch shape of ``cost.cu`` from its packed header: the T threads a
     lane that ``pack_cost_params`` scheduled, the lanes a block (128 at one
     thread a lane, else the whole warps of lanes that keep a block within
-    256 threads, or ``lanes``), the dynamic shared memory in bytes (the
-    parameters, and per lane its q, points, stored transforms and T
-    partial sums).  NotImplementedError where 32 lanes pass the H100's
-    232,448 bytes."""
+    256 threads, or ``lanes``; the kernel is built for 32, 64, 96 and 128),
+    the dynamic shared memory in bytes (the parameters, and per lane its
+    q, points, stored transforms and T partial sums).  NotImplementedError
+    where 32 lanes pass the H100's 232,448 bytes or for another lane
+    count."""
     launch, refusal = _cost_block(ints, n_floats, lanes)
     if refusal is not None:
         raise NotImplementedError(refusal)
@@ -657,8 +728,9 @@ def run_cost_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
                     floats: torch.Tensor, d: int, launch=None, lanes=None,
                     grid=None):
     """Launch the CUDA value-only cost kernel on a single robot's packed
-    parameters (``pack_cost_params``): q_cols (d, N) float32 contiguous CUDA
-    -> unscaled cost (N,).  ``launch`` is ``cost_launch_config``'s shape
+    parameters (``pack_cost_kernel_params``): q_cols (d, N) float32
+    contiguous CUDA -> unscaled cost (N,).  ``launch`` is
+    ``cost_launch_config``'s shape
     (read from a host copy of ``ints`` when None); ``lanes`` launches at
     another lane count a block; ``grid`` the scene's grid table."""
     return _launch_cost(COST_KERNEL, q_cols, ints, floats, d, launch, lanes,
@@ -847,7 +919,7 @@ def _cost_fn(plain_terms, device, d, run, grid, refusal):
     refusal raised on a CUDA tensor."""
     ints = floats = launch = None
     if refusal is None:
-        ints_np, floats_np = pack_cost_params(plain_terms.layout)
+        ints_np, floats_np = pack_cost_kernel_params(plain_terms.layout)
         launch, refusal = _cost_block(ints_np, len(floats_np))
         ints = torch.as_tensor(ints_np, device=device)
         floats = torch.as_tensor(floats_np, device=device)
