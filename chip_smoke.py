@@ -17,8 +17,7 @@ final line):
 1. build   - nvcc builds every CUDA kernel of the paths from csrc/ (one
              process per source, all at once: terms.cu, btridiag.cu,
              riccati.cu, mr_terms.cu, btridiag_cols.cu, sphere_sdf.cu,
-             btridiag_sweep.cu, btridiag_cr.cu, gn_assembly.cu, cost.cu,
-             net_row.cu);
+             btridiag_cr.cu, gn_assembly.cu, cost.cu, net_row.cu);
              prints build seconds (all, and each source's), the register
              and spill report of each kernel's launched instantiation (of
              the Riccati sweep every d = 1..8, of the column sweep every
@@ -159,8 +158,12 @@ final line):
 25. solvers - the L-and-y sweep (K3, trsm and trsv tails) and block cyclic
              reduction (K11) vs their plain versions on a random (64, 14,
              1024) system, the main path's first GN system (held to
-             float64) and a ragged B = 100, K11 also at H = 48; timed in
-             turns with K2 on the GN system and beside the dense solve.
+             float64) and a ragged B = 100, K11 also at H = 48; K3's trsm
+             tail against K2 bit for bit; timed in turns with K2 on the
+             GN system (device time over a CUDA graph of calls) and
+             beside the dense solve; K3 and K11 at (64, 14, 4096) and K11
+             at H = 256 (m = 14, B = 1024) on random systems, held to
+             their plain versions and timed in turns with K2.
              The GN assembly (K12) vs its plain version on the main path's
              first (r, Jr) and at a ragged N, timed with one torch.bmm.
 26. net_terms - the learned self-collision Panda (benchmarks/net_terms_ab.py:
@@ -935,9 +938,9 @@ def phase_build():
                 for d in range(1, 9)},
              **{"11cost_kernelILi%dE" % n: "cost_kernel<%d>" % n
                 for n in COST_LANES},
-             "btridiag_w_kernelILi14ELb0E": "btridiag_w_kernel<14>",
-             "btridiag_w_kernelILi4ELb0E": "btridiag_w_kernel<4>",
-             "btridiag_w_kernelILi14ELb1E": "btridiag_factor<14>",
+             "btridiag_w_kernelILi14ELi0EE": "btridiag_w_kernel<14>",
+             "btridiag_w_kernelILi4ELi0EE": "btridiag_w_kernel<4>",
+             "btridiag_w_kernelILi14ELi1EE": "btridiag_factor<14>",
              **{"btridiag_subst_kernelILi%dELb%dE" % (m, k):
                 "btridiag_subst_kernel<%d%s>" % (m, ", keep_lw" if k else "")
                 for m in _KERNEL_M for k in (0, 1)},
@@ -949,13 +952,12 @@ def phase_build():
              **{"btridiag_cols_kernelILi%dE" % w: "btridiag_cols_kernel<%d>" % w
                 for w in _COLS_WIDTHS},
              "sphere_sdf_kernel": "sphere_sdf_kernel",
-             "btridiag_sweep_kernelILi14ELb0E": "btridiag_sweep<14, trsm>",
-             "btridiag_sweep_kernelILi14ELb1E": "btridiag_sweep<14, trsv>",
-             "cr_odd_kernelILi14ELb1E": "cr_odd_kernel<14, shared U>",
-             "cr_odd_kernelILi14ELb0E": "cr_odd_kernel<14>",
-             "cr_even_kernelILi14ELb1E": "cr_even_kernel<14, shared U>",
-             "cr_even_kernelILi14ELb0E": "cr_even_kernel<14>",
-             "cr_back_kernelILi14E": "cr_back_kernel<14>",
+             **{"btridiag_w_kernelILi%dELi%dEE" % (m, t):
+                "btridiag_sweep<%d, %s>" % (m, tail)
+                for m in _KERNEL_M
+                for t, tail in ((2, "trsm"), (3, "trsv"))},
+             **{"9cr_kernelILi%dEE" % m: "cr_kernel<%d>" % m
+                for m in _KERNEL_M},
              "gn_assembly_kernelILi7E": "gn_assembly_kernel<7>",
              "net_row_kernelILb1E": "net_row_kernel<terms> (simt)",
              "net_row_kernelILb0E": "net_row_kernel<cost> (simt)",
@@ -986,12 +988,13 @@ def phase_build():
               "%s: no HMMA in its SASS: %s" % (label, sass.get(frag)))
         report[label] += " | SASS %s" % sass[frag]
     # the cost kernel, the MultiRobot terms kernel, every terms_kernel<D>,
-    # rollout_kernel<D> and substitution kernel keep their arrays out of
-    # local memory
+    # rollout_kernel<D>, substitution kernel, L-and-y sweep and cyclic
+    # reduction keep their arrays out of local memory
     for label in ["mr_terms_kernel"] + [
             v for v in names.values()
             if v.startswith(("cost_kernel<", "terms_kernel<",
-                             "rollout_kernel<", "btridiag_subst"))]:
+                             "rollout_kernel<", "btridiag_subst",
+                             "btridiag_sweep<", "cr_kernel<"))]:
         line = report.get(label, "")
         check("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
               "loads" in line, "%s: ptxas reports a stack frame, a spill or "
@@ -2996,15 +2999,78 @@ def phase_mr_cost(task, seen):
     return out
 
 
+SOLVERS_ORDER = ("w", "sweep_trsm", "sweep_trsv", "cr")
+
+
+def solvers_in_turns(D, U, b, order):
+    """Device time of the solvers named in ``order`` (K2 "w", K3
+    "sweep_trsm" / "sweep_trsv", K11 "cr") on one system, over a CUDA graph
+    of 10 calls, in turns: the order, then reversed -> ({name: mean ms},
+    {name: [its two times]})."""
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import (
+        solve_lanes_cr, solve_lanes_sweep, solve_lanes_w)
+    fns = {"w": lambda: solve_lanes_w(D, U, b),
+           "sweep_trsm": lambda: solve_lanes_sweep(D, U, b),
+           "sweep_trsv": lambda: solve_lanes_sweep(D, U, b, bwd_trsv=True),
+           "cr": lambda: solve_lanes_cr(D, U, b)}
+    times = {k: [] for k in order}
+    for k in tuple(order) + tuple(order[::-1]):
+        times[k].append(device_ms(fns[k], iters=10))
+    return {k: sum(v) / len(v) for k, v in times.items()}, times
+
+
+def phase_solvers_wide(m: int):
+    """K3 and K11 where the sweep's W stack is large (64, m, 4096) and K11
+    at a long horizon (256, m, 1024), on random systems: each held to its
+    plain version (SOLVE_TOL_RANDOM), K2 too, and timed in turns with K2
+    (solvers_in_turns) -> {shape: {"ms": ..., "turns_ms": ...,
+    "rel_to_plain": ...}}."""
+    import torch
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import (
+        solve_lanes_cr, solve_lanes_sweep, solve_lanes_w)
+    from torch_robotics_tpu_torch.solve import solve_lanes_bcr
+    from torch_robotics_tpu_torch.solve.btridiag_lanes import (
+        solve_lanes_core)
+    out = {}
+    for H_, B_, order in ((H, 4 * B, SOLVERS_ORDER),
+                          (4 * H, B, ("w", "cr"))):
+        D, U, b = random_system(H_, m, B_, seed=16)
+        x_p = solve_lanes_core(D, U, b)
+        x_64 = solve_lanes_core(D.double(), U.double(), b.double())
+        got = {"w": (solve_lanes_w(D, U, b), x_p),
+               "cr": (solve_lanes_cr(D, U, b), solve_lanes_bcr(D, U, b))}
+        if "sweep_trsm" in order:
+            got["sweep_trsm"] = (solve_lanes_sweep(D, U, b), x_p)
+            got["sweep_trsv"] = (solve_lanes_sweep(D, U, b, bwd_trsv=True),
+                                 x_p)
+        key = "H%d_B%d" % (H_, B_)
+        errs = {k: hold_solve("%s_%s" % (k, key), x_k, x_r, x_64, True)
+                for k, (x_k, x_r) in got.items()}
+        del got, x_p, x_64
+        ms, times = solvers_in_turns(D, U, b, order)
+        out[key] = dict(shape=[H_, m, m, B_], ms=ms, turns_ms=times,
+                        rel_to_plain={k: v["rel_to_max"]
+                                      for k, v in errs.items()})
+        del D, U, b
+        torch.cuda.empty_cache()
+    emit("solvers_wide", **out)
+    return out
+
+
 def phase_solvers(task, start, goal):
     """K3 (both tails) and K11 vs their plain versions, and K12: see the
     module doc.  Each solver on a random well-conditioned (64, 14, 1024)
     system to SOLVE_TOL_RANDOM of max|x| of its plain version, on the main
     path's first GN system held to float64 (hold_solve), and both at a
-    ragged B = 100; K11 also at H = 48 (padded to 64).  Timed on the GN
-    system in turns K2, K3 trsm, K3 trsv, K11, K11, K3 trsv, K3 trsm, K2
-    (each kernel's time the mean of its two), with the plain versions and
-    the dense torch.linalg.solve.  K12 on the main path's first (r, Jr)
+    ragged B = 100; K11 also at H = 48 (padded to 64).  K3's trsm tail
+    recomputes W_k by K2's own operations: its x against K2's bit for bit
+    on both systems (reported).  Timed on the GN system in turns K2, K3
+    trsm, K3 trsv, K11, K11, K3 trsv, K3 trsm, K2 (each kernel's device
+    time over a CUDA graph of calls, the mean of its two), with the plain
+    versions and the dense torch.linalg.solve; then on random systems at
+    (64, 14, 4096) (K2, K3, K11) and at H = 256 (K2, K11; m = 14, B =
+    1024), each held to its plain version and timed in the same turns
+    (``solvers_wide``).  K12 on the main path's first (r, Jr)
     (residuals_and_jacobian at N = H B) and at a ragged N, to the terms
     tolerances, timed with one torch.bmm on [r | Jr] as the library
     call.  The launch counts come from one call of each on the main
@@ -3082,17 +3148,14 @@ def phase_solvers(task, start, goal):
                   % name)
         gn_errs[name] = max_errs(got, ref)
 
+    # K3's trsm tail is K2 bit for bit (the same L, y and W_k)
+    same_bits = {name: bool(torch.equal(solve_lanes_sweep(D, U, b),
+                                        solve_lanes_w(D, U, b)))
+                 for name, (D, U, b) in systems.items()}
+
     # timing in turns on the GN system
-    order = ["w", "sweep_trsm", "sweep_trsv", "cr"]
-    fns = {"w": lambda: solve_lanes_w(D_l, U_l, b_l),
-           "sweep_trsm": lambda: solve_lanes_sweep(D_l, U_l, b_l),
-           "sweep_trsv": lambda: solve_lanes_sweep(D_l, U_l, b_l,
-                                                   bwd_trsv=True),
-           "cr": lambda: solve_lanes_cr(D_l, U_l, b_l)}
-    times = {k: [] for k in order}
-    for k in order + order[::-1]:
-        times[k].append(cuda_ms(fns[k], iters=10))
-    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    ms, times = solvers_in_turns(D_l, U_l, b_l, SOLVERS_ORDER)
+    phase_solvers_wide(m)
     core_ms = cuda_ms(lambda: solve_lanes_core(D_l, U_l, b_l), iters=2,
                       warmup=1)
     bcr_ms = cuda_ms(lambda: solve_lanes_bcr(D_l, U_l, b_l), iters=2,
@@ -3114,7 +3177,8 @@ def phase_solvers(task, start, goal):
     algo = {"sweep_trsm": sweep_work(H, m, B, False),
             "sweep_trsv": sweep_work(H, m, B, True), "cr": cr_work(H, m, B)}
     emit("solvers", shape=[H, m, m, B], max_errs=results,
-         times_in_turns_ms=times, k2_ms=ms["w"],
+         k3_trsm_bits_of_k2=same_bits, times_in_turns_ms=times,
+         k2_ms=ms["w"],
          kernel_ms={k: ms[k] for k in solvers}, core_plain_ms=core_ms,
          bcr_plain_ms=bcr_ms, dense_solve_ms=lib_ms,
          bound_ms={k: bound_ms(*v)[0] for k, v in works.items()},
@@ -4345,11 +4409,11 @@ def main() -> None:
              "torch_robotics_tpu/ops/pallas_terms.py:1029",
              mr_cost["acceptance"], mr_sg_launches),
             ("btridiag_sweep_trsm",
-             "torch_robotics_tpu_torch/csrc/btridiag_sweep.cu",
+             "torch_robotics_tpu_torch/csrc/btridiag.cu",
              "torch_robotics_tpu/ops/pallas_btridiag.py:689",
              solvers["sweep_trsm"], solvers["sweep_trsm"]["launches"]),
             ("btridiag_sweep_trsv",
-             "torch_robotics_tpu_torch/csrc/btridiag_sweep.cu",
+             "torch_robotics_tpu_torch/csrc/btridiag.cu",
              "torch_robotics_tpu/ops/pallas_btridiag.py:689",
              solvers["sweep_trsv"], solvers["sweep_trsv"]["launches"]),
             ("btridiag_cr", "torch_robotics_tpu_torch/csrc/btridiag_cr.cu",

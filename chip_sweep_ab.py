@@ -4,15 +4,16 @@ NVIDIA GPU.
 
     git archive <commit> | tar -x -C chip_checkout/other   # a git-ignored dir
     python3 chip_sweep_ab.py --other chip_checkout/other [--out FILE] \
-        [--kernels all|sweep|riccati|cols|terms|net|cost]
+        [--kernels all|sweep|riccati|cols|terms|net|cost|solvers]
 
-The other checkout's ``csrc/btridiag.cu``, ``csrc/btridiag_sweep.cu``,
-``csrc/riccati.cu`` and ``csrc/btridiag_cols.cu`` are built beside this
-tree's (``ops.cuda_build``) and stand in for this tree's libraries while
-its turn runs: the wrappers, problems and timing are this tree's, so only
-the kernels differ (a launch function with another argument list is
-called with the arguments its own tree's wrapper gave it: the sweeps'
-lanes per block dropped, the Riccati sweep's device scratch allocated).
+The other checkout's ``csrc/btridiag.cu`` (and ``btridiag_sweep.cu`` where
+it has one), ``csrc/riccati.cu`` and ``csrc/btridiag_cols.cu`` are built
+beside this tree's (``ops.cuda_build``) and stand in for this tree's
+libraries while its turn runs: the wrappers, problems and timing are this
+tree's, so only the kernels differ (a launch function with another
+argument list is called with the arguments its own tree's wrapper gave it:
+the sweeps' lanes per block dropped, the Riccati sweep's device scratch
+allocated).
 Each measurement runs in the order other, this, this, other (each side's
 time the mean of its two), on the problems of ``chip_smoke.py``.
 
@@ -36,8 +37,9 @@ beside this tree's factor sweep timed the same way; this tree's
 substitution is also timed at B = 256, 1024 and 4096 (the lanes
 repeated) at 2, 4 and 8 lanes a block, through its ring of stages and
 with L and W kept on chip between its passes (each must give its
-launch's bits); the reuse runs get a profile per side.  K3 (both tails),
-K2 and K9's factor sweep are compared bit for bit on the same inputs.
+launch's bits); the reuse runs get a profile per side.  K2 and K9's
+factor sweep are compared bit for bit on the same inputs (required), and
+K3's tails (reported).
 
 ``--kernels riccati`` (the iLQR path):
 
@@ -133,10 +135,35 @@ sections before ints 14-15 are the words an older cost.cu reads):
   (``paired_wall``), beside a profile per side (device ms, busy share,
   K8's device ms and its saving).
 
+``--kernels solvers`` (the L-and-y sweep K3, both tails, and block cyclic
+reduction K11, which nothing routes to): the other tree's K3 and K11
+stand in for this tree's under this tree's wrappers (``solvers_swap``).
+An older tree's K3 is the one-thread kernel of ``btridiag_sweep.cu``,
+whose ``trt_btridiag_sweep_launch`` takes no lanes a block: that library
+stands in for the symbol this tree's wrapper calls in ``btridiag.cu``,
+given the same arguments less the lanes (its L and y scratch have the
+sizes this tree's wrapper allocates).  An older K11 takes no lanes or
+threads a block and is given the rest (its work arrays fit in this
+tree's):
+
+- ptxas's report of both sides' K3 and K11 instantiations;
+- K3 (trsm and trsv) and K11 on the main path's first GN system and a
+  random system at (64, 14, 1024), on config 2's first GN system (64, 4,
+  1024), on the main path's system tiled to B = 4096, and K11 on a random
+  (256, 14, 1024) system: each side held to float64 on a GN system and
+  to its plain version on a random one (``chip_smoke.hold_solve``), the
+  sides' bits, this tree's trsm tail against K2, the device time over a
+  CUDA graph of calls in turns, K2's beside them, the bound; K2 and K9's
+  factor sweep bit for bit against the other tree's btridiag.cu;
+- both sides' K11 launch by launch on the GN system (``launch_breakdown``,
+  torch.profiler's kernel events);
+- this tree's K11 at ten launch shapes (1-8 lanes, 32-256 threads a
+  block; the same bits reported), beside its default.
+
 ``--kernels all`` (the default) runs the sweeps and the Riccati sweep;
-``cols``, ``terms``, ``net`` and ``cost`` run alone.  Prints one JSON line per
-measurement, then the card's name and power limit; ``--out`` writes all of
-it as one JSON object.
+``cols``, ``terms``, ``net``, ``cost`` and ``solvers`` run alone.  Prints
+one JSON line per measurement, then the card's name and power limit;
+``--out`` writes all of it as one JSON object.
 """
 from __future__ import annotations
 
@@ -167,8 +194,8 @@ def other_kernel_class():
 
 
 def other_sweep_kernels(csrc: Path):
-    """The other checkout's btridiag.cu and btridiag_sweep.cu kernels, with
-    the argtypes its launch functions take (an older sweep takes no
+    """The other checkout's btridiag.cu kernels and its K3 (``other_k3``),
+    with the argtypes its launch functions take (an older sweep takes no
     lanes-per-block argument)."""
     import ctypes
 
@@ -182,9 +209,39 @@ def other_sweep_kernels(csrc: Path):
         "trt_btridiag_factor_launch": sweep,
         "trt_btridiag_subst_launch": bk.SUBST_KERNEL.functions[
             "trt_btridiag_subst_launch"]})
-    k3 = OtherKernel(str(csrc / "btridiag_sweep.cu"),
-                    dict(bk.SWEEP_KERNEL.functions))
-    return main, k3, takes_lanes
+    return main, other_k3(csrc), takes_lanes
+
+
+def other_k3(csrc: Path):
+    """The other checkout's L-and-y sweep (K3): its one-thread kernel in
+    ``btridiag_sweep.cu`` (a tree before K3 joined btridiag.cu; its launch
+    function takes no lanes a block, ``one_thread`` True) or the L-and-y
+    modes of its ``btridiag.cu``."""
+    import ctypes
+
+    from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
+    OtherKernel = other_kernel_class()
+    one_thread = (csrc / "btridiag_sweep.cu").is_file()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return OtherKernel(
+        str(csrc / ("btridiag_sweep.cu" if one_thread else "btridiag.cu")),
+        {"trt_btridiag_sweep_launch": [P] * 6 + [I] * (4 if one_thread
+                                                       else 5) + [P]}), \
+        one_thread
+
+
+def other_cr_kernel(csrc: Path):
+    """The other checkout's block cyclic reduction (K11, ``btridiag_cr.cu``)
+    and whether it is the one-launch kernel (its launch function takes
+    lanes and threads a block; an older one launches a kernel per stage
+    and takes neither)."""
+    import ctypes
+    OtherKernel = other_kernel_class()
+    one_launch = "int lanes" in (csrc / "btridiag_cr.cu").read_text()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return OtherKernel(str(csrc / "btridiag_cr.cu"), {
+        "trt_btridiag_cr_launch": [P] * 10 + [I] * (6 if one_launch else 4)
+        + [P]}), one_launch
 
 
 def other_cols_kernel(csrc: Path):
@@ -378,16 +435,38 @@ class Swap:
 
 def sweep_swap(main, k3, takes_lanes):
     from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
+    k3_route = solvers_swap(k3, (None, True)).route
 
     def route(name, args):
         if name == "trt_btridiag_sweep_launch":
-            return k3, args
+            return k3_route(name, args)
         if (name in ("trt_btridiag_w_launch", "trt_btridiag_factor_launch")
                 and not takes_lanes):
             args = args[:10] + args[11:]          # drop lanes_per_block
         return main, args
     return Swap(bk, ("KERNEL", "FACTOR_KERNEL", "SUBST_KERNEL",
                      "SWEEP_KERNEL"), route)
+
+
+def solvers_swap(k3, cr):
+    """The other tree's K3 and K11 under this tree's wrappers: ``k3`` and
+    ``cr`` are (kernel, older) pairs from ``other_k3`` and
+    ``other_cr_kernel``.  An older K3 is called without this tree's lanes
+    a block; it takes the same scratch, L (H M^2 B floats) and y (H M B),
+    in its own layout.  An older K11 is called without lanes and threads;
+    its work arrays (H2 / 2 blocks) fit in this tree's (H2 - 1)."""
+    from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
+
+    def route(name, args):
+        if name == "trt_btridiag_sweep_launch":
+            # (D, U, b, x, Ls, ys, H, M, B, trsv, lanes, stream)
+            kernel, one_thread = k3
+            return kernel, (args[:10] + args[11:] if one_thread else args)
+        # (D, U, b, x, A, C, beta, Dw, Uw, bw, H, H2, M, B, lanes, threads,
+        # stream)
+        kernel, one_launch = cr
+        return kernel, (args if one_launch else args[:14] + args[16:])
+    return Swap(bk, ("SWEEP_KERNEL", "CR_KERNEL"), route)
 
 
 def cols_swap(other, takes_lanes):
@@ -498,7 +577,7 @@ def main() -> None:
     ap.add_argument("--out", type=Path)
     ap.add_argument("--kernels",
                     choices=("all", "sweep", "riccati", "cols", "terms",
-                             "net", "cost"),
+                             "net", "cost", "solvers"),
                     default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -512,23 +591,28 @@ def main() -> None:
     do_terms = args.kernels == "terms"
     do_net = args.kernels == "net"
     do_cost = args.kernels == "cost"
+    do_solvers = args.kernels == "solvers"
     sweep_k = other_sweep_kernels(csrc) if do_sweep else None
     net_k = other_net_kernel(csrc) if do_net else None
     ric_k = other_riccati_kernel(csrc) if do_riccati else None
     cols_k = other_cols_kernel(csrc) if do_cols else None
     terms_k = other_terms_kernels(csrc) if do_terms else None
+    solv_k = ((other_k3(csrc), other_cr_kernel(csrc)),
+              other_sweep_kernels(csrc)) if do_solvers else None
     cost_k = (other_terms_kernels(csrc)[2], {
         "other": cost_stage_kernels(csrc, "other"),
         "this": cost_stage_kernels(
             Path(cs.__file__).resolve().parent / "torch_robotics_tpu_torch"
             / "csrc", "this")}) if do_cost else None
-    build_all([*(sweep_k[:2] if do_sweep else ()),
+    build_all([*((sweep_k[0], sweep_k[1][0]) if do_sweep else ()),
                *(ric_k[:1] if do_riccati else ()),
                *(cols_k[:1] if do_cols else ()),
                *(terms_k[:3] if do_terms else ()),
                *(net_k[:1] if do_net else ()),
                *((cost_k[0], *cost_k[1]["other"], *cost_k[1]["this"])
                  if do_cost else ()),
+               *((solv_k[0][0][0], solv_k[0][1][0], solv_k[1][0])
+                 if do_solvers else ()),
                *cs.all_kernels().values()])
     report = {}
 
@@ -549,6 +633,9 @@ def main() -> None:
         ab_net(*net_k, emit)
     if do_cost:
         ab_cost(*cost_k, emit)
+    if do_solvers:
+        ab_solvers(solvers_swap(*solv_k[0]), solv_k[0],
+                   sweep_swap(*solv_k[1]), emit)
     emit("profiler", launches_without_kernel=cs.PROFILE_MISSED)
 
     smi = cs.nvidia_smi_line()
@@ -877,20 +964,21 @@ def ab_sweeps(swap, emit):
                 % variants)
 
     # the kernels this change leaves alone, bit for bit on the same inputs
+    # (K3, whose one-thread kernel an older tree has, is reported only)
     same = {}
     with swap:
         k3_other = [bk.solve_lanes_sweep(D14, U14, b14, bwd_trsv=t)
                     for t in (False, True)]
         k2_other = bk.solve_lanes_w(D14, U14, b14)
         fac_other = bk.solve_lanes_factor(Df, Uf, bf)
-    for t, xo in zip((False, True), k3_other):
-        same["k3_%s" % ("trsv" if t else "trsm")] = bool(torch.equal(
-            xo, bk.solve_lanes_sweep(D14, U14, b14, bwd_trsv=t)))
     same["k2_m14"] = bool(torch.equal(k2_other,
                                       bk.solve_lanes_w(D14, U14, b14)))
     same["k9_factor"] = all(torch.equal(a, b) for a, b in zip(
         fac_other, bk.solve_lanes_factor(Df, Uf, bf)))
-    emit("unchanged_kernels_bit_for_bit", **same)
+    k3_same = {"k3_%s" % ("trsv" if t else "trsm"): bool(torch.equal(
+        xo, bk.solve_lanes_sweep(D14, U14, b14, bwd_trsv=t)))
+        for t, xo in zip((False, True), k3_other)}
+    emit("unchanged_kernels_bit_for_bit", **same, **k3_same)
     if not all(same.values()):
         cs.fail("a kernel this change leaves alone differs: %s" % same)
 
@@ -1593,6 +1681,154 @@ def paired_wall(turns):
                 this_wins=wins, gain=bool(
                     wins >= 0.9 and q_other[1] - q_this[1] > q_other[2]
                     - q_other[0]), not_slower=verdict)
+
+
+def ab_solvers(swap, kernels, sweeps, emit):
+    """K3 (both tails) and K11 in turns with the other tree's: each side
+    held to float64 (or, on a random system, to its plain version) as
+    chip_smoke.hold_solve holds it, the sides' bits compared, the device
+    time over a CUDA graph of calls in turns; K2 beside them, and K2 and
+    K9's factor sweep bit for bit against the other tree's (``sweeps``,
+    its btridiag.cu under ``sweep_swap``; reported).  The other side's
+    K11 also per launch (``launch_breakdown``); both sides' ptxas for
+    every K3 and K11 instantiation."""
+    import torch
+    from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
+    from torch_robotics_tpu_torch.solve import (GPMP2Params, solve_lanes_bcr,
+                                                straight_line_trajs)
+    from torch_robotics_tpu_torch.solve.btridiag_lanes import (
+        solve_lanes_core)
+    from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
+    (k3, _), (cr, _) = kernels
+    emit("solvers_ptxas", **{
+        side: {frag: ptxas_report(k, frag) for k, frags in (
+            (k3_k, ("btridiag_sweep_kernel", "btridiag_w_kernel")),
+            (cr_k, ("cr_",))) for frag in frags}
+        for side, k3_k, cr_k in (("other", k3, cr),
+                                 ("this", bk.SWEEP_KERNEL, bk.CR_KERNEL))})
+
+    task, start, goal = cs.bench_problem("cuda", cs.B)
+    theta0 = straight_line_trajs(start, goal, cs.H)
+    b14, D14, U14, _ = _lanes_gn_system(
+        task.collision_residuals.obstacle_terms_lanes, theta0, start, goal,
+        GPMP2Params(**cs.GP_PARAMS))
+    pm_task, pm_params, pm_start, pm_goal, pm_theta0 = cs.pm_problem("cuda")
+    b4, D4, U4, _ = _lanes_gn_system(
+        pm_task.collision_residuals.obstacle_terms_lanes, pm_theta0,
+        pm_start, pm_goal, pm_params)
+    del task, pm_task
+    with sweeps:
+        k2_other = bk.solve_lanes_w(D14, U14, b14)
+        fac_other = bk.solve_lanes_factor(D14, U14, b14)
+    emit("k2_k9_factor_bits_of_other", k2=bool(torch.equal(
+        k2_other, bk.solve_lanes_w(D14, U14, b14))),
+         k9_factor=all(torch.equal(a, b) for a, b in zip(
+             fac_other, bk.solve_lanes_factor(D14, U14, b14))))
+    del k2_other, fac_other
+    fns = {"sweep_trsm": lambda D, U, b: bk.solve_lanes_sweep(D, U, b),
+           "sweep_trsv": lambda D, U, b: bk.solve_lanes_sweep(
+               D, U, b, bwd_trsv=True),
+           "cr": bk.solve_lanes_cr}
+    k3_order = ("sweep_trsm", "sweep_trsv", "cr")
+    cases = (("gn_H64_m14_B1024", lambda: (D14, U14, b14), False, k3_order),
+             ("random_H64_m14_B1024",
+              lambda: cs.random_system(cs.H, 14, cs.B, seed=14), True,
+              k3_order),
+             ("gn_H64_m4_B1024", lambda: (D4, U4, b4), False, k3_order),
+             ("gn_H64_m14_B4096", lambda: tuple(
+                 t.repeat(*([1] * (t.dim() - 1)), 4) if t.shape[-1] == cs.B
+                 else t for t in (D14, U14, b14)), False, k3_order),
+             ("random_H256_m14_B1024",
+              lambda: cs.random_system(4 * cs.H, 14, cs.B, seed=16), True,
+              ("cr",)))
+    for name, make, random, order in cases:
+        D, U, b = make()
+        x_64 = solve_lanes_core(D.double(), U.double(), b.double())
+        plain = {"sweep_trsm": solve_lanes_core(D, U, b)}
+        plain["sweep_trsv"] = plain["sweep_trsm"]
+        plain["cr"] = solve_lanes_bcr(D, U, b)
+        k2 = bk.solve_lanes_w(D, U, b)
+        res = {"k2": dict(ms=cs.device_ms(lambda: bk.solve_lanes_w(D, U, b),
+                                          iters=10),
+                          vs_float64=cs.hold_solve("k2_" + name, k2,
+                                                   plain["sweep_trsm"], x_64,
+                                                   random))}
+        for k in order:
+            outs = {}
+            for side in ("other", "this"):
+                with (swap if side == "other" else _null()):
+                    outs[side] = fns[k](D, U, b)
+            errs = {side: cs.hold_solve("%s_%s_%s" % (k, name, side), x,
+                                        plain[k], x_64, random)
+                    for side, x in outs.items()}
+            other_ms, this_ms, turns = in_turns(
+                swap, lambda: cs.device_ms(lambda: fns[k](D, U, b),
+                                           iters=10))
+            res[k] = dict(other_ms=other_ms, this_ms=this_ms,
+                          speedup=other_ms / this_ms, turns_ms=turns,
+                          vs_float64=errs,
+                          bit_for_bit=bool(torch.equal(outs["other"],
+                                                       outs["this"])),
+                          max_abs_diff=float((outs["other"]
+                                              - outs["this"]).abs().max()))
+            if k == "sweep_trsm":
+                res[k]["this_bits_of_k2"] = bool(torch.equal(outs["this"],
+                                                             k2))
+        bound = cs.bound_ms(*cs.solve_work(*D.shape[:2], D.shape[3]))[0]
+        emit("solvers_" + name, shape=list(D.shape), bound_ms=bound, **res)
+        del D, U, b, x_64, plain, k2
+        torch.cuda.empty_cache()
+
+    # where the time of each side's K11 goes, launch by launch
+    per = {}
+    for side in ("other", "this"):
+        with (swap if side == "other" else _null()):
+            per[side] = launch_breakdown(
+                lambda: bk.solve_lanes_cr(D14, U14, b14))
+    emit("cr_per_launch_gn_H64_m14_B1024", **{
+        side: dict(launches=n, sum_us=sum(t for _, t in bd),
+                   per_launch_us=bd) for side, (bd, n) in per.items()})
+
+    # this tree's K11 at other launch shapes (a lane's bits do not depend
+    # on them)
+    ref = bk.solve_lanes_cr(D14, U14, b14)
+    shapes = {}
+    for lanes, threads in ((1, 32), (1, 64), (2, 32), (2, 64), (2, 128),
+                           (4, 64), (4, 128), (4, 256), (8, 128), (8, 256)):
+        cfg = bk.cr_launch_config(14, cs.B, cs.H, lanes, threads)
+        run = lambda: bk._launch_cr(D14, U14, b14, cfg)
+        shapes["lanes%d_threads%d" % (lanes, threads)] = dict(
+            ms=cs.device_ms(run, iters=10),
+            bit_for_bit=bool(torch.equal(run(), ref)))
+    emit("cr_launch_shapes_gn_H64_m14_B1024",
+         default=bk.cr_launch_config(14, cs.B, cs.H), shapes=shapes)
+
+
+def launch_breakdown(fn, calls: int = 5):
+    """Device time of each CUDA launch of one fn() call, in launch order:
+    ``calls`` calls under torch.profiler, the raw (Kineto) kernel events
+    sorted by start, split into the calls (each must show the same number
+    of kernels) -> [(kernel name, mean us over the calls)], and the number
+    of kernels a call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted(((e.start_ns(), e.name(), e.duration_ns() / 1e3)
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA), key=lambda t: t[0])
+    per = len(ev) // calls
+    if per * calls != len(ev):
+        cs.fail("launch_breakdown: %d kernel events over %d calls"
+                % (len(ev), calls))
+    return [(ev[i][1][:60], sum(ev[c * per + i][2] for c in range(calls))
+             / calls) for i in range(per)], per
 
 
 def _null():

@@ -1,16 +1,25 @@
 // Batched block-tridiagonal SPD solve, batch in the minor (lane) axis.
 //
-// Replaces three TPU kernels of torch_robotics_tpu/ops/pallas_btridiag.py:
-//   btridiag_w_kernel<M, false>  solve_lanes_pallas_w (the _kernel_factor
-//                                sweep with the _bwd_subst_loop backward
-//                                pass; L, W and y in scratch);
-//   btridiag_w_kernel<M, true>   solve_lanes_pallas_factor: the same sweep
-//                                with L and W as the caller's outputs, L's
-//                                strict upper triangle written zero;
-//   btridiag_subst_kernel<M, *>  solve_lanes_pallas_subst (_kernel_subst):
-//                                a fresh b against persisted L and W.
-// Their plain PyTorch versions are solve_lanes_core,
-// solve_lanes_factor_core and solve_lanes_subst_core in
+// Replaces four TPU kernels of torch_robotics_tpu/ops/pallas_btridiag.py:
+//   btridiag_w_kernel<M, kOutW>       solve_lanes_pallas_w (the
+//                                     _kernel_factor sweep with the
+//                                     _bwd_subst_loop backward pass; L, W
+//                                     and y in scratch);
+//   btridiag_w_kernel<M, kOutFactor>  solve_lanes_pallas_factor: the same
+//                                     sweep with L and W as the caller's
+//                                     outputs, L's strict upper triangle
+//                                     written zero;
+//   btridiag_w_kernel<M, kOutTrsm>    solve_lanes_pallas (_kernel): the
+//   btridiag_w_kernel<M, kOutTrsv>    same forward pass keeping L and y
+//                                     only; the backward pass recomputes
+//                                     W_k = L_k^-1 U_k (trsm) or forms
+//                                     W_k x_{k+1} as L_k^-1 (U_k x_{k+1})
+//                                     (its bwd_trsv tail);
+//   btridiag_subst_kernel<M, *>       solve_lanes_pallas_subst
+//                                     (_kernel_subst): a fresh b against
+//                                     persisted L and W.
+// Their plain PyTorch versions are solve_lanes_core (the first and the
+// third), solve_lanes_factor_core and solve_lanes_subst_core in
 // torch_robotics_tpu_torch/solve/btridiag_lanes.py.
 //
 // D (H, M, M, B), U (H, M, M) shared over the batch (the last block unused),
@@ -70,6 +79,23 @@
 // x_{k+1} is broadcast by shuffles and L_k^-T is a column-oriented back
 // substitution (one shuffle a pivot).
 //
+// The L-and-y modes (kOutTrsm, kOutTrsv) run the same forward pass and
+// write L's lower triangle and y only: no W stack, H M^2 B floats fewer
+// each way, which the reference keeps them for (a W stack that does not
+// fit its chip's memory).  Their backward pass stages L_k, y_k and U_k
+// through the ring.  trsm: thread j recomputes column j of W_k = L_k^-1
+// U_k with the forward elimination's own operations (the reciprocal of
+// L[p][p], then L[i][p] times the pivot row, which are the forward's
+// multipliers bit for bit), so W_k is the forward's W_k and x is
+// kOutW's x bit for bit; the rows go through shared memory as the
+// forward's S = W^T W exchange does, and backward_step follows.  trsv:
+// v = U_k x_{k+1} (x_{k+1} broadcast by shuffles), z = L_k^-1 v column by
+// column (one shuffle a pivot), then the same L^-T.  One thread per lane
+// (the design before this one) held A, W and then L in ~2 M^2 + 2 M
+// floats, spilled past 255 registers at M = 14, and reloaded L from
+// device memory every backward step: 4.60 ms (trsm) and 3.33 ms (trsv) at
+// (64, 14, 1024) on an H100 80GB HBM3 at 700 W.
+//
 // A ragged batch: the last block's missing lanes are staged as zeros, run
 // every instruction (so shuffles and __syncwarp take the full mask) and
 // write nothing.  Indefinite pivots give NaN, as in the reference.  Each
@@ -100,11 +126,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "btridiag_sweep.cuh"
-
 namespace {
 
-using namespace trt;
+// what a sweep keeps and how its backward pass forms W_k x_{k+1}
+// (btridiag_w_kernel's kOut)
+constexpr int kOutW = 0;       // L, W, y in its own scratch
+constexpr int kOutFactor = 1;  // L, W as outputs (the caller's layout)
+constexpr int kOutTrsm = 2;    // L, y; W_k recomputed from L_k and U_k
+constexpr int kOutTrsv = 3;    // L, y; L_k^-1 (U_k x_{k+1})
 
 constexpr int kSweepThreads = 128;   // the sweep's largest block
 
@@ -154,6 +183,18 @@ __host__ __device__ constexpr size_t subst_smem_floats(int M, int lanes,
 
 // ---------------------------------------------------------------------------
 // the cooperative sweep
+
+// entry (i, j) of block k of an (H, M, M, B) stack, lane `lane`
+__device__ __forceinline__ size_t mat_idx(int k, int i, int j, int M,
+                                          size_t sB, int lane) {
+  return ((static_cast<size_t>(k) * M + i) * M + j) * sB + lane;
+}
+
+// entry i of block k of an (H, M, B) stack, lane `lane`
+__device__ __forceinline__ size_t vec_idx(int k, int i, int M, size_t sB,
+                                          int lane) {
+  return (static_cast<size_t>(k) * M + i) * sB + lane;
+}
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool valid) {
@@ -275,22 +316,51 @@ __device__ __forceinline__ void stage_lw(const float* __restrict__ Ls,
   }
 }
 
-// Stage backward step k of the sweep: L_k and W_k (stage_lw), then y_k
-// ([lanes][M]) from the sweep's (H, B, M) scratch.
+// Stage step k's y_k ([lanes][M]) from the sweep's (H, B, M) scratch.
+template <int M>
+__device__ __forceinline__ void stage_y(const float* __restrict__ ys,
+                                        float* yst, int k, int l0, int lanes,
+                                        int B) {
+  const int n_valid = B - l0 < lanes ? B - l0 : lanes;
+  const size_t ybase = (static_cast<size_t>(k) * B + l0) * M;
+  for (int f = threadIdx.x; f < lanes * M; f += blockDim.x) {
+    const bool valid = f < n_valid * M;
+    cp_async4(yst + f, ys + ybase + (valid ? f : 0), valid);
+  }
+}
+
+// Stage backward step k of the sweep: L_k and W_k (stage_lw), then y_k.
 template <int M, bool kFactorOut>
 __device__ __forceinline__ void stage_backward(
     const float* __restrict__ Ls, const float* __restrict__ Ws,
     const float* __restrict__ ys, float* st, int k, int l0, int lanes,
     int B) {
   stage_lw<M, kFactorOut>(Ls, Ws, st, k, l0, lanes, B);
-  float* yst = st + 2 * lanes * M * M;
+  stage_y<M>(ys, st + 2 * lanes * M * M, k, l0, lanes, B);
+}
+
+// Stage backward step k of the L-and-y sweep: L_k ([lanes][M][M], whole
+// float4s from the (H, B, M, M) scratch), y_k ([lanes][M]) and U_k ([M][M],
+// shared over the batch).
+template <int M>
+__device__ __forceinline__ void stage_backward_ly(
+    const float* __restrict__ Ls, const float* __restrict__ U,
+    const float* __restrict__ ys, float* st, int k, int l0, int lanes,
+    int B) {
+  float* Lst = st;
+  float* yst = Lst + lanes * M * M;
+  float* Ust = yst + lanes * M;
   const int tid = threadIdx.x;
+  const size_t sB = B;
   const int n_valid = B - l0 < lanes ? B - l0 : lanes;
-  const size_t ybase = (static_cast<size_t>(k) * B + l0) * M;
-  for (int f = tid; f < lanes * M; f += blockDim.x) {
-    const bool valid = f < n_valid * M;
-    cp_async4(yst + f, ys + ybase + (valid ? f : 0), valid);
+  const size_t base = (static_cast<size_t>(k) * sB + l0) * M * M;
+  for (int f = 4 * tid; f < lanes * M * M; f += 4 * blockDim.x) {
+    const bool valid = f < n_valid * M * M;
+    cp_async16(Lst + f, Ls + base + (valid ? f : 0), valid);
   }
+  stage_y<M>(ys, yst, k, l0, lanes, B);
+  for (int f = tid; f < M * M; f += blockDim.x)
+    cp_async4(Ust + f, U + static_cast<size_t>(k) * M * M + f, true);
 }
 
 // Stage forward step k of the substitution: L_k and W_k of the factor
@@ -312,11 +382,28 @@ __device__ __forceinline__ void stage_subst(const float* __restrict__ Ls,
   }
 }
 
+// x_k = L_k^-T r for thread j (column jc) of a lane's group, from the
+// staged L_k ([M][M] of the lane) and its r: a column-oriented back
+// substitution (one shuffle a pivot) -> x_k[jc].
+template <int M>
+__device__ __forceinline__ float back_lt(const float* Lk, float rj, int jc) {
+  constexpr int G = group_size(M);
+  constexpr unsigned kAll = 0xffffffffu;
+  const float inv = 1.f / Lk[jc * M + jc];
+  float xj = 0.f;
+#pragma unroll
+  for (int p = M - 1; p >= 0; --p) {
+    const float xp = __shfl_sync(kAll, rj * inv, p, G);
+    rj = jc < p ? fmaf(-Lk[p * M + jc], xp, rj) : rj;
+    xj = jc == p ? xp : xj;
+  }
+  return xj;
+}
+
 // One backward block step of thread j (column jc) of a lane's group, from
 // the staged L_k and W_k ([M][M] of the lane), its r = y_k[jc] and x_{k+1}
 // (xj in every thread; used when `below`, i.e. k < H - 1):
-//   r -= W_k x_{k+1} (row jc), then x_k = L_k^-T r, a column-oriented back
-//   substitution (one shuffle a pivot) -> x_k[jc].
+//   r -= W_k x_{k+1} (row jc), then x_k = L_k^-T r -> x_k[jc].
 template <int M>
 __device__ __forceinline__ float backward_step(const float* Lk,
                                                const float* Wk, float rj,
@@ -328,22 +415,71 @@ __device__ __forceinline__ float backward_step(const float* Lk,
     for (int c = 0; c < M; ++c)
       rj = fmaf(-Wk[jc * M + c], __shfl_sync(kAll, xj, c, G), rj);
   }
-  const float inv = 1.f / Lk[jc * M + jc];
-#pragma unroll
-  for (int p = M - 1; p >= 0; --p) {
-    const float xp = __shfl_sync(kAll, rj * inv, p, G);
-    rj = jc < p ? fmaf(-Lk[p * M + jc], xp, rj) : rj;
-    xj = jc == p ? xp : xj;
-  }
-  return xj;
+  return back_lt<M>(Lk, rj, jc);
 }
 
-template <int M, bool kFactorOut>
+// The L-and-y sweep's backward block step, from the staged L_k and U_k:
+// r -= W_k x_{k+1} (row jc; when `below`), then x_k = L_k^-T r.  trsm
+// recomputes thread j's column of W_k = L_k^-1 U_k by the forward
+// elimination's operations (bits of the forward's W_k) and exchanges the
+// rows through the lane's Wl ([M][WR]); trsv forms z = L_k^-1 (U_k
+// x_{k+1}) (one shuffle a column of U_k, one a pivot of L_k).
+template <int M, bool kTrsv>
+__device__ __forceinline__ float backward_step_ly(const float* Lk,
+                                                  const float* Uk, float rj,
+                                                  float xj, int j, int jc,
+                                                  bool below, float* Wl) {
+  constexpr int G = group_size(M);
+  constexpr int WR = w_row(M);
+  constexpr unsigned kAll = 0xffffffffu;
+  if (below) {
+    if constexpr (kTrsv) {
+      float v = 0.f;                                     // (U_k x_{k+1})[jc]
+#pragma unroll
+      for (int c = 0; c < M; ++c)
+        v = fmaf(Uk[jc * M + c], __shfl_sync(kAll, xj, c, G), v);
+      const float inv = 1.f / Lk[jc * M + jc];
+      float zj = 0.f;
+#pragma unroll
+      for (int p = 0; p < M; ++p) {
+        const float zp = __shfl_sync(kAll, v * inv, p, G);
+        v = jc > p ? fmaf(-Lk[jc * M + p], zp, v) : v;
+        zj = jc == p ? zp : zj;
+      }
+      rj -= zj;
+    } else {
+      float w[M];                                        // W_k[:][jc]
+#pragma unroll
+      for (int i = 0; i < M; ++i) w[i] = Uk[i * M + jc];
+#pragma unroll
+      for (int p = 0; p < M; ++p) {
+        w[p] *= 1.f / Lk[p * M + p];
+#pragma unroll
+        for (int i = p + 1; i < M; ++i)
+          w[i] = fmaf(-Lk[i * M + p], w[p], w[i]);
+      }
+      if (j < M) {
+#pragma unroll
+        for (int t = 0; t < M; ++t) Wl[t * WR + j] = w[t];
+      }
+      __syncwarp();
+#pragma unroll
+      for (int c = 0; c < M; ++c)
+        rj = fmaf(-Wl[jc * WR + c], __shfl_sync(kAll, xj, c, G), rj);
+      __syncwarp();                    // Wl is written again next step
+    }
+  }
+  return back_lt<M>(Lk, rj, jc);
+}
+
+template <int M, int kOut>
 __global__ void __launch_bounds__(kSweepThreads)
 btridiag_w_kernel(const float* __restrict__ D, const float* __restrict__ U,
                   const float* __restrict__ b, float* __restrict__ x,
                   float* __restrict__ Ls, float* __restrict__ Ws,
                   float* __restrict__ ys, int H, int B) {
+  constexpr bool kFactorOut = kOut == kOutFactor;
+  constexpr bool kStoreW = kOut == kOutW || kOut == kOutFactor;
   constexpr int G = group_size(M);
   constexpr int WR = w_row(M);
   // every thread of a warp runs every instruction of the sweep (missing
@@ -441,7 +577,8 @@ btridiag_w_kernel(const float* __restrict__ D, const float* __restrict__ U,
           Ls[blk_idx<kFactorOut>(k, i, j, M, sB, lane)] = a[i];
         else if (kFactorOut)
           Ls[blk_idx<kFactorOut>(k, i, j, M, sB, lane)] = 0.f;
-        Ws[blk_idx<kFactorOut>(k, i, j, M, sB, lane)] = u[i];
+        if constexpr (kStoreW)
+          Ws[blk_idx<kFactorOut>(k, i, j, M, sB, lane)] = u[i];
       }
       if (j == 0) {
 #pragma unroll
@@ -484,13 +621,20 @@ btridiag_w_kernel(const float* __restrict__ D, const float* __restrict__ U,
   cp_async_wait_all();
   __syncthreads();  // the stacks written above are visible to the block
 
-  // backward, through the same ring: thread j reads row j of W_k, column j
-  // of L_k and y_k[j] of its lane, and holds x_k[j]
+  // backward, through the same ring: thread j reads row j of W_k (or
+  // recomputes column j of it), column j of L_k and y_k[j] of its lane, and
+  // holds x_k[j]
+  auto stage = [&](int n) {
+    if constexpr (kStoreW)
+      stage_backward<M, kFactorOut>(Ls, Ws, ys, ring + (n % kStages) * ssz,
+                                    H - 1 - n, l0, lanes, B);
+    else
+      stage_backward_ly<M>(Ls, U, ys, ring + (n % kStages) * ssz, H - 1 - n,
+                           l0, lanes, B);
+  };
 #pragma unroll
   for (int n = 0; n < kStages - 1; ++n) {
-    if (n < H)
-      stage_backward<M, kFactorOut>(Ls, Ws, ys, ring + n * ssz, H - 1 - n,
-                                    l0, lanes, B);
+    if (n < H) stage(n);
     cp_async_commit();
   }
   float xj = 0.f;  // x_{k+1}[j]
@@ -500,16 +644,20 @@ btridiag_w_kernel(const float* __restrict__ D, const float* __restrict__ U,
     __syncthreads();  // step k staged; the last step's stage is free
     {
       const int nn = n + kStages - 1;
-      if (nn < H)
-        stage_backward<M, kFactorOut>(Ls, Ws, ys,
-                                      ring + (nn % kStages) * ssz, H - 1 - nn,
-                                      l0, lanes, B);
+      if (nn < H) stage(nn);
       cp_async_commit();
     }
-    const float* Lk = ring + (n % kStages) * ssz + ll * M * M;
-    const float* yk = ring + (n % kStages) * ssz + 2 * lanes * M * M;
-    xj = backward_step<M>(Lk, Lk + lanes * M * M, yk[ll * M + jc], xj, jc,
-                          n > 0);
+    const float* st = ring + (n % kStages) * ssz;
+    const float* Lk = st + ll * M * M;
+    if constexpr (kStoreW) {
+      const float* yk = st + 2 * lanes * M * M;
+      xj = backward_step<M>(Lk, Lk + lanes * M * M, yk[ll * M + jc], xj, jc,
+                            n > 0);
+    } else {
+      const float* yk = st + lanes * M * M;
+      xj = backward_step_ly<M, kOut == kOutTrsv>(
+          Lk, yk + lanes * M, yk[ll * M + jc], xj, j, jc, n > 0, Wl);
+    }
     if (live && j < M) x[vec_idx(k, j, M, sB, lane)] = xj;
   }
 }
@@ -623,7 +771,7 @@ btridiag_subst_kernel(const float* __restrict__ Ls,
   }
 }
 
-template <int M, bool kFactorOut>
+template <int M, int kOut>
 cudaError_t launch(const float* D, const float* U, const float* b, float* x,
                    float* Ls, float* Ws, float* ys, int H, int B, int lanes,
                    cudaStream_t stream) {
@@ -634,12 +782,12 @@ cudaError_t launch(const float* D, const float* U, const float* b, float* x,
   const size_t smem = sweep_smem_floats(M, lanes) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        btridiag_w_kernel<M, kFactorOut>,
+        btridiag_w_kernel<M, kOut>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const int blocks = (B + lanes - 1) / lanes;
-  btridiag_w_kernel<M, kFactorOut><<<blocks, lanes * G, smem, stream>>>(
+  btridiag_w_kernel<M, kOut><<<blocks, lanes * G, smem, stream>>>(
       D, U, b, x, Ls, Ws, ys, H, B);
   return cudaGetLastError();
 }
@@ -687,7 +835,7 @@ extern "C" int trt_btridiag_w_launch(const float* D, const float* U,
                                      float* Ws, float* ys, int H, int M,
                                      int B, int lanes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TRT_W(m) launch<m, false>(D, U, b, x, Ls, Ws, ys, H, B, lanes, s)
+#define TRT_W(m) launch<m, kOutW>(D, U, b, x, Ls, Ws, ys, H, B, lanes, s)
   switch (M) { TRT_M_CASES(TRT_W) }
 #undef TRT_W
 }
@@ -700,7 +848,7 @@ extern "C" int trt_btridiag_factor_launch(const float* D, const float* U,
                                           int H, int M, int B, int lanes,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TRT_F(m) launch<m, true>(D, U, b, x, Ls, Ws, ys, H, B, lanes, s)
+#define TRT_F(m) launch<m, kOutFactor>(D, U, b, x, Ls, Ws, ys, H, B, lanes, s)
   switch (M) { TRT_M_CASES(TRT_F) }
 #undef TRT_F
 }
@@ -718,4 +866,20 @@ extern "C" int trt_btridiag_subst_launch(const float* Ls, const float* Ws,
            : launch_subst<m, false>(Ls, Ws, b, x, H, B, lanes, s))
   switch (M) { TRT_M_CASES(TRT_S) }
 #undef TRT_S
+}
+
+// The sweep that keeps L and y only: D, U, b -> x as trt_btridiag_w_launch,
+// with L (H M^2 B floats; its lower triangles) and y (H M B) as device
+// scratch; trsv selects the backward tail (0: W_k recomputed, 1: L_k^-1
+// (U_k x_{k+1})); `lanes` lanes per block (sweep_launch_config).
+extern "C" int trt_btridiag_sweep_launch(const float* D, const float* U,
+                                         const float* b, float* x, float* Ls,
+                                         float* ys, int H, int M, int B,
+                                         int trsv, int lanes, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TRT_L(m)                                                           \
+  (trsv ? launch<m, kOutTrsv>(D, U, b, x, Ls, nullptr, ys, H, B, lanes, s) \
+        : launch<m, kOutTrsm>(D, U, b, x, Ls, nullptr, ys, H, B, lanes, s))
+  switch (M) { TRT_M_CASES(TRT_L) }
+#undef TRT_L
 }

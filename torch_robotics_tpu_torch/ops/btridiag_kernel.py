@@ -20,13 +20,17 @@ Counterparts of torch_robotics_tpu/ops/pallas_btridiag.py:
 - ``solve_lanes_sweep(D, U, b, bwd_trsv=False)``: the sweep that keeps L
   and y only and recomputes W_k in its backward pass, by a triangular solve
   or, with ``bwd_trsv``, as a matvec and a triangular vector solve
-  (``solve_lanes_pallas``); CUDA source ``csrc/btridiag_sweep.cu``, m in
-  {2, 4, ..., 16}.  Nothing routes to it (the reference reaches it only
-  when its chip's memory budget refuses the W-persisting sweep).
+  (``solve_lanes_pallas``); the W-persisting sweep's kernel in its L-and-y
+  modes (``csrc/btridiag.cu``, the same forward pass and launch shape,
+  ``sweep_launch_config``), m in {2, 4, ..., 16}.  Nothing routes to it
+  (the reference reaches it only when its chip's memory budget refuses the
+  W-persisting sweep).
 - ``solve_lanes_cr``: block cyclic reduction (``solve_lanes_pallas_bcr``),
   H padded to a power of two with identity blocks; CUDA source
-  ``csrc/btridiag_cr.cu``, m in {2, 4, ..., 16}.  Its plain version is
-  ``solve/btridiag_bcr.solve_lanes_bcr``.  Nothing routes to it.
+  ``csrc/btridiag_cr.cu`` (one launch: a block a tile of lanes through
+  every level), launched as ``cr_launch_config`` says, m in {2, 4, ...,
+  16}.  Its plain version is ``solve/btridiag_bcr.solve_lanes_bcr``.
+  Nothing routes to it.
 
 Each CUDA source's head comment says what bounds its kernel on the H100
 and how its design answers that.  The plain PyTorch version of the sweeps
@@ -54,7 +58,7 @@ __all__ = ["KERNEL", "COLS_KERNEL", "FACTOR_KERNEL", "SUBST_KERNEL",
            "SWEEP_KERNEL", "CR_KERNEL", "solve_lanes_w", "solve_lanes_cols",
            "solve_lanes_auto", "solve_lanes_factor", "solve_lanes_subst",
            "solve_lanes_sweep", "solve_lanes_cr", "sweep_launch_config",
-           "subst_launch_config", "cols_launch_config"]
+           "subst_launch_config", "cols_launch_config", "cr_launch_config"]
 
 _P = ctypes.c_void_p
 KERNEL = CudaKernel("btridiag.cu", {
@@ -74,15 +78,13 @@ FACTOR_KERNEL = CudaKernel("btridiag.cu", {
 SUBST_KERNEL = CudaKernel("btridiag.cu", {
     "trt_btridiag_subst_launch": [_P, _P, _P, _P] + [ctypes.c_int] * 5 + [_P],
 })
-SWEEP_KERNEL = CudaKernel("btridiag_sweep.cu", {
-    "trt_btridiag_sweep_launch": [_P, _P, _P, _P, _P, _P, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                  _P],
+SWEEP_KERNEL = CudaKernel("btridiag.cu", {
+    "trt_btridiag_sweep_launch": [_P] * 6 + [ctypes.c_int] * 5 + [_P],
 })
 CR_KERNEL = CudaKernel("btridiag_cr.cu", {
-    "trt_btridiag_cr_launch": [_P] * 10 + [ctypes.c_int] * 4 + [_P],
+    "trt_btridiag_cr_launch": [_P] * 10 + [ctypes.c_int] * 6 + [_P],
 })
-# btridiag.cu, btridiag_sweep.cu and btridiag_cr.cu instantiations
+# btridiag.cu and btridiag_cr.cu instantiations
 _KERNEL_M = (2, 4, 6, 8, 10, 12, 14, 16)
 _COLS_MAX_M = 64                            # btridiag_cols.cu kMaxM
 _COLS_WIDTHS = (24, 32, 40, 48, 64)         # btridiag_cols.cu instantiations
@@ -91,20 +93,31 @@ _W_MAX_M = 16     # the reference's _SCALAR_KERNEL_MAX_M: above it, columns
 _SWEEP_THREADS = 128                        # btridiag.cu kSweepThreads
 _SWEEP_STAGES = 5                           # btridiag.cu kStages
 _SUBST_STAGES = 8                           # btridiag.cu kSubstStages
+_CR_MAX_THREADS = 256                       # btridiag_cr.cu kMaxThreads
+_CR_WARPS = 8     # K11's default launch: about this many warps an SM
 _SMEM_MAX = 232448        # shared memory a block can have on the H100
 _SM_SMEM = 233472         # shared memory of one SM
 _BLOCK_SMEM_RESERVED = 1024   # of it reserved by CUDA for each block
 
 
-def sweep_launch_config(m: int, B: int) -> dict:
-    """Launch shape of the W-persisting and factor sweeps (``btridiag.cu``):
-    a group of ``group`` threads per lane (the power of two >= m),
-    ``lanes_per_block`` lanes per block (128 threads; a batch smaller than
-    that takes fewer lanes, down to one warp), the dynamic shared memory
-    (``sweep_smem_floats`` in the source, in bytes) and the grid."""
+def _group(m: int) -> int:
+    """Threads a lane (or unit) in the sweeps and cyclic reduction: the
+    power of two >= m."""
     group = 2
     while group < m:
         group *= 2
+    return group
+
+
+def sweep_launch_config(m: int, B: int) -> dict:
+    """Launch shape of the sweeps of ``btridiag.cu`` (W-persisting, factor,
+    L-and-y): a group of ``group`` threads per lane (the power of two >=
+    m), ``lanes_per_block`` lanes per block (128 threads; a batch smaller
+    than that takes fewer lanes, down to one warp), the dynamic shared
+    memory (``sweep_smem_floats`` in the source, in bytes) and the grid.
+    NotImplementedError for an m the kernels are not built for."""
+    _check_m(m)
+    group = _group(m)
     lanes = _SWEEP_THREADS // group
     while lanes * group > 32 and lanes // 2 >= B:
         lanes //= 2
@@ -129,9 +142,7 @@ def subst_launch_config(m: int, B: int, H: int, keep_lw=None) -> dict:
     L_k, W_k and b_k, a ring of 8 or one a step) and the grid.
     NotImplementedError where the block passes the H100's 232,448
     bytes."""
-    group = 2
-    while group < m:
-        group *= 2
+    group = _group(m)
     lanes = max(1, 32 // group)
     while (2 * lanes * group <= _SWEEP_THREADS
            and -(-B // (2 * lanes)) >= _N_SM):
@@ -177,6 +188,57 @@ def cols_launch_config(m: int, B: int) -> dict:
                 threads=lanes * group,
                 barrier_ids=tuple(range(1, lanes + 1)),
                 smem_bytes=4 * lane_floats * lanes, grid=-(-B // lanes))
+
+
+def cr_launch_config(m: int, B: int, H: int, lanes=None,
+                     threads=None) -> dict:
+    """Launch shape of block cyclic reduction (``btridiag_cr.cu``): one
+    block a tile of ``lanes_per_block`` lanes through every level, its
+    ``threads`` threads groups of ``group`` (the power of two >= m), one
+    (pair of blocks, lane) unit a group at a time.  By default the most
+    lanes (a power of two, at most 8) that leave at least two blocks an
+    SM, and the groups a lane (a power of two, at most H2 / 2) that give
+    the grid about 8 warps an SM (``_CR_WARPS``), in whole warps, at most
+    256 threads: at (64, 14, 1024) 2 lanes of 2 groups took 0.40 ms on
+    an H100, 1 group a lane 0.66-0.67 and 4 groups 0.43-0.45; at B = 4096
+    one group a lane was the faster (PERF.md, K11's row).  Also the
+    dynamic shared memory in bytes (``cr_smem_floats`` in the source:
+    four m x m blocks a group, and a ring of groups + lanes slots of m^2
+    + m floats), H2 (the padded horizon) and the grid.
+    NotImplementedError for an m the kernel is not built for, or a block
+    the H100 does not take (threads not a multiple of 32 and of the
+    group, past 256, or shared memory past 232,448 bytes)."""
+    _check_m(m)
+    group = _group(m)
+    H2 = 1
+    while H2 < H:
+        H2 *= 2
+    if lanes is None:
+        lanes = 1
+        while lanes < 8 and -(-B // (2 * lanes)) >= 2 * _N_SM:
+            lanes *= 2
+    if threads is None:
+        per_lane = 1
+        while (2 * per_lane <= max(H2 // 2, 1)
+               and 2 * per_lane * B * group <= 32 * _CR_WARPS * _N_SM):
+            per_lane *= 2
+        threads = min(_CR_MAX_THREADS,
+                      -(-lanes * per_lane * group // 32) * 32)
+    groups = threads // group
+    if (threads % 32 or threads % group or not 32 <= threads
+            <= _CR_MAX_THREADS or lanes < 1):
+        raise NotImplementedError(
+            "the CUDA cyclic reduction takes 32 to %d threads a block in "
+            "whole warps and groups of %d, and lanes >= 1; got %d threads, "
+            "%d lanes" % (_CR_MAX_THREADS, group, threads, lanes))
+    nbytes = 4 * (groups * 4 * m * m + (groups + lanes) * (m * m + m))
+    if nbytes > _SMEM_MAX:
+        raise NotImplementedError(
+            "the CUDA cyclic reduction's block needs %d bytes of shared "
+            "memory at m = %d, %d threads, %d lanes (at most %d)"
+            % (nbytes, m, threads, lanes, _SMEM_MAX))
+    return dict(group=group, threads=threads, lanes_per_block=lanes,
+                smem_bytes=nbytes, H2=H2, grid=-(-B // lanes))
 
 
 def _check(D, U, b):
@@ -354,14 +416,16 @@ def solve_lanes_sweep(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor,
     x = torch.empty((H, m, B), dtype=torch.float32, device=D.device)
     if B == 0 or H == 0:
         return x
-    Ls = torch.empty((H, m, m, B), dtype=torch.float32, device=D.device)
-    ys = torch.empty((H, m, B), dtype=torch.float32, device=D.device)
+    Ls = torch.empty((H, B, m, m), dtype=torch.float32, device=D.device)
+    ys = torch.empty((H, B, m), dtype=torch.float32, device=D.device)
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream().cuda_stream
         SWEEP_KERNEL.launch("trt_btridiag_sweep_launch", D.data_ptr(),
                             U.data_ptr(), b.data_ptr(), x.data_ptr(),
                             Ls.data_ptr(), ys.data_ptr(), H, m, B,
-                            int(bool(bwd_trsv)), stream)
+                            int(bool(bwd_trsv)),
+                            sweep_launch_config(m, B)["lanes_per_block"],
+                            stream)
     return x
 
 
@@ -374,22 +438,28 @@ def solve_lanes_cr(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor):
     _check_cuda("solve_lanes_cr", D, U, b)
     H, m, _, B = D.shape
     _check_m(m)
-    H2 = 1
-    while H2 < H:
-        H2 *= 2
+    if B == 0 or H == 0:
+        return torch.empty((H, m, B), dtype=torch.float32, device=D.device)
+    return _launch_cr(D, U, b, cr_launch_config(m, B, H))
+
+
+def _launch_cr(D, U, b, launch: dict):
+    """Cyclic reduction at ``launch``'s lanes a block and threads (checked
+    CUDA inputs); a lane's result depends on neither."""
+    H, m, _, B = D.shape
+    H2 = launch["H2"]
     kw = dict(dtype=torch.float32, device=D.device)
     x = torch.empty((H2, m, B), **kw)
-    if B == 0 or H == 0:
-        return x[:H]
-    half = max(H2 // 2, 1)
-    A, C = (torch.empty((H2, m, m, B), **kw) for _ in range(2))
-    beta = torch.empty((H2, m, B), **kw)
-    Dw, Uw = (torch.empty((half, m, m, B), **kw) for _ in range(2))
-    bw = torch.empty((half, m, B), **kw)
+    work = max(H2 - 1, 1)                   # the levels' systems after 0
+    A, C = (torch.empty((H2, B, m, m), **kw) for _ in range(2))
+    beta = torch.empty((H2, B, m), **kw)
+    Dw, Uw = (torch.empty((work, B, m, m), **kw) for _ in range(2))
+    bw = torch.empty((work, B, m), **kw)
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream().cuda_stream
         CR_KERNEL.launch("trt_btridiag_cr_launch", D.data_ptr(), U.data_ptr(),
                          b.data_ptr(), x.data_ptr(), A.data_ptr(),
                          C.data_ptr(), beta.data_ptr(), Dw.data_ptr(),
-                         Uw.data_ptr(), bw.data_ptr(), H, H2, m, B, stream)
+                         Uw.data_ptr(), bw.data_ptr(), H, H2, m, B,
+                         launch["lanes_per_block"], launch["threads"], stream)
     return x[:H]
