@@ -26,8 +26,10 @@ final line):
              1..8, or substitution kernel), and the card's name and power
              limit; the net row's tensor-core kernels may not spill and
              must show HMMA in cuobjdump -sass; the MultiRobot terms
-             kernel and every rollout_kernel<D>, D = 1..8, may have no
-             stack frame and no spill either.
+             kernel, every rollout_kernel<D>, D = 1..8, and the sphere SDF
+             kernel may have no stack frame and no spill either; the
+             sphere SDF kernel's SASS instructions a (point, sphere) pair
+             on its hot loop's common path (sdf_pair_instructions).
 2. terms   - the fused GN-terms kernel vs its plain PyTorch version on the
              card: Panda in EnvSpheres3D at N = 64 * 1024 waypoints (the
              main path's first q, timed, and random q), plus a rounded-box
@@ -131,8 +133,11 @@ final line):
              share).
 20. point_cloud - the sphere SDF (K10) through PointCloudSpheres at M =
              65536 points and S = 4096 spheres of radius 0.02, vs its plain
-             version (1e-5), and at a ragged M = 1000, S = 129; S = 127
-             takes the plain route; timed with torch.cdist.
+             version (1e-5); also with per-sphere radii 0.05-0.3 (many
+             points inside a sphere) at S = 4096 and at S = 4173 (no stage
+             of spheres divides it), at M = 1000 and at a ragged M = 1000,
+             S = 129; S = 127 takes the plain route; the kernel's device
+             time over a CUDA graph of calls, timed with torch.cdist.
 21. sgpmp  - sGPMP (benchmarks/ilqr_sgpmp_bench.py "sgpmp"): the iLQR
              path's problems (B = 512), 8 GP-prior particles each (4096
              trajectories), H = 32, 100 iterations of K = 16 samples,
@@ -165,7 +170,9 @@ final line):
              at H = 256 (m = 14, B = 1024) on random systems, held to
              their plain versions and timed in turns with K2.
              The GN assembly (K12) vs its plain version on the main path's
-             first (r, Jr) and at a ragged N, timed with one torch.bmm.
+             first (r, Jr) and at ragged N = 1000 and 999; its device time
+             over a CUDA graph of calls with the inputs rotated over 3
+             copies (past the 50 MB L2), timed with one torch.bmm.
 26. net_terms - the learned self-collision Panda (benchmarks/net_terms_ab.py:
              RobotPanda.create(use_learned_self_collision=True), the
              bundled 7-256-128-64-1 net): K1 + the net row (net_row.cu,
@@ -274,6 +281,7 @@ rate of their tensor-core route), the nvidia-smi line, and the final
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -361,6 +369,10 @@ RU_GP = dict(n_support_points=RU_H, dt=0.04, opt_iters=RU_ITERS,
 RU_KS = (1, 2, 4)
 # the point cloud: queries uniform in EnvSpheres3D's box, spheres of 0.02
 PC_M, PC_S, PC_RADIUS = 65536, 4096, 0.02
+# K10's other cases: per-sphere radii as the CPU tests draw them (many
+# points inside a sphere, best + r <= 0 for many pairs), an S that no stage
+# of spheres divides, a ragged M
+PC_RADII, PC_ODD_S, PC_RAGGED_M = (0.05, 0.3), 4173, 1000
 # K10 vs its plain version: float32 norms in another order
 SDF_TOL = 1e-5
 # sGPMP: benchmarks/ilqr_sgpmp_bench.py's "sgpmp" workload (the iLQR
@@ -374,8 +386,9 @@ MR_SG_PARAMS = dict(SG_PARAMS, n_support_points=MR_H, dt=MR_GP["dt"])
 # the whole B = 32 solve on the card vs the CPU: the softmax weights and the
 # acceptance flip lanes, so the fraction of free lanes is compared
 SG_FREE_TOL = 3 / 32
-# K12's second input: a ragged N
-GN_RAGGED_N = 1000
+# K12's other inputs: ragged N (one a multiple of 4, one not); timed with
+# its inputs rotated over GN_COPIES copies, together past the 50 MB L2
+GN_RAGGED_N, GN_ODD_N, GN_COPIES = 1000, 999, 3
 # the learned self-collision Panda: its hinge cutoff
 # (PlanningTask._NET_SELF_CUTOFF); lanes whose sd lies within NET_EDGE of it
 # are excluded from the kernel-vs-plain holds (two correct float32 orders
@@ -895,29 +908,119 @@ def net_tc_sass_counts():
     """{mangled fragment: {opcode: count}} of the HMMA / HGMMA, LDS and FFMA
     instructions in the net row's tensor-core kernels, from cuobjdump -sass
     of the built net_row.cu."""
+    from torch_robotics_tpu_torch.ops.net_kernel import NET_TERMS_KERNEL
+    counts = {}
+    for name, ins in sass_functions(NET_TERMS_KERNEL.library_path).items():
+        frag = next((f for f in (NET_TC_TERMS, NET_TC_COST) if f in name),
+                    None)
+        if frag:
+            ops = counts.setdefault(frag, {})
+            for row in ins:
+                op = row[1].split(".")[0]
+                if op in ("HMMA", "HGMMA", "LDS", "FFMA"):
+                    ops[op] = ops.get(op, 0) + 1
+    return counts
+
+
+def sass_functions(library):
+    """{mangled name: [[offset, opcode with its modifiers, predicate,
+    branch target offset or None]]} of every function in cuobjdump -sass
+    of a built library (a target written as a label resolves to the offset
+    of the instruction after it)."""
     import re
 
     from torch_robotics_tpu_torch.ops.cuda_build import nvcc_path
-    from torch_robotics_tpu_torch.ops.net_kernel import NET_TERMS_KERNEL
     cuobjdump = str(Path(nvcc_path()).parent / "cuobjdump")
-    out = subprocess.run([cuobjdump, "-sass",
-                          str(NET_TERMS_KERNEL.library_path)],
+    out = subprocess.run([cuobjdump, "-sass", str(library)],
                          capture_output=True, text=True, timeout=300)
     check(out.returncode == 0, "cuobjdump failed: " + out.stderr[-2000:])
-    counts, fn = {}, None
+    funcs, labels, fn = {}, {}, None
     for line in out.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = next((f for f in (NET_TC_TERMS, NET_TC_COST)
-                       if f in m.group(1)), None)
-            if fn:
-                counts[fn] = {}
+            fn = funcs.setdefault(m.group(1), [])
+            labels[m.group(1)] = lab = {}
             continue
-        op = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
-                       line)
-        if fn and op and op.group(1) in ("HMMA", "HGMMA", "LDS", "FFMA"):
-            counts[fn][op.group(1)] = counts[fn].get(op.group(1), 0) + 1
-    return counts
+        if fn is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            lab[m.group(1)] = len(fn)
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)"
+                      r"([^;]*);", line)
+        if m:
+            tgt = re.search(r"(0x[0-9a-f]+|\.L_x_\d+)", m.group(4))
+            fn.append([int(m.group(1), 16), m.group(3),
+                       (m.group(2) or "").strip(),
+                       tgt.group(1) if tgt and m.group(3).startswith("BRA")
+                       else None])
+    for name, ins in funcs.items():
+        for row in ins:
+            if row[3] is None:
+                continue
+            if row[3].startswith(".L_x_"):
+                idx = labels[name].get(row[3])
+                row[3] = ins[idx][0] if idx is not None and idx < len(
+                    ins) else None
+            else:
+                row[3] = int(row[3], 16)
+    return funcs
+
+
+def sdf_pair_instructions(library):
+    """SASS instructions a (point, sphere) pair in the sphere SDF kernel's
+    hot loop, from cuobjdump -sass of ``library`` (this tree's or another
+    tree's sphere_sdf.cu): of the innermost loops (backward branches whose
+    bodies hold no other), the one whose body holds the most MUFU.RSQ (one
+    a pair: each pair's sqrtf).  ``per_pair`` is
+    the instructions (NOPs aside) on the loop's common path (a forward
+    conditional branch taken where what it skips holds the root or a
+    call: the cull's skip, sqrtf's out-of-line slow case), over the
+    pairs a trip (a BRA.DIV, taken only by a diverged warp, falls
+    through); ``per_evaluated_pair`` the whole body over the pairs (every
+    root taken).  None where no loop holds a root."""
+    funcs = sass_functions(library)
+    name = next((n for n in funcs if "sphere_sdf_kernel" in n), None)
+    if name is None:
+        return None
+    ins = funcs[name]
+    at = {row[0]: i for i, row in enumerate(ins)}
+    loops = [(at[tgt], i) for i, (off, op, pred, tgt) in enumerate(ins)
+             if op.split(".")[0] == "BRA" and tgt is not None and tgt < off
+             and tgt in at]
+    inner = [(h, t, sum(1 for row in ins[h:t + 1]
+                        if row[1].startswith("MUFU.RSQ")))
+             for h, t in loops
+             if not any(h <= h2 and t2 <= t and (h2, t2) != (h, t)
+                        for h2, t2 in loops)]
+    inner = [x for x in inner if x[2]]
+    if not inner:
+        return None
+    head, tail, roots = max(inner, key=lambda x: x[2])
+    path, i, steps = 0, head, 0
+    while head <= i <= tail and steps < 100000:
+        off, op, pred, tgt = ins[i]
+        steps += 1
+        if op != "NOP":
+            path += 1
+        if (op.split(".")[0] == "BRA" and not op.startswith("BRA.DIV")
+                and tgt is not None and tgt in at):
+            j = at[tgt]
+            if i == tail:
+                break
+            if not pred or pred == "@PT":
+                i = j
+                continue
+            skipped = ins[i + 1:j] if j > i else []
+            if any(r[1].startswith(("MUFU.RSQ", "CALL")) for r in skipped):
+                i = j
+                continue
+        i += 1
+    nonop = sum(1 for row in ins[head:tail + 1] if row[1] != "NOP")
+    return dict(function=name, loop_instructions=tail - head + 1,
+                pairs_a_trip=roots, per_pair=path / roots,
+                per_evaluated_pair=nonop / roots)
 
 
 # ----------------------------------------------------------------------
@@ -988,9 +1091,9 @@ def phase_build():
               "%s: no HMMA in its SASS: %s" % (label, sass.get(frag)))
         report[label] += " | SASS %s" % sass[frag]
     # the cost kernel, the MultiRobot terms kernel, every terms_kernel<D>,
-    # rollout_kernel<D>, substitution kernel, L-and-y sweep and cyclic
-    # reduction keep their arrays out of local memory
-    for label in ["mr_terms_kernel"] + [
+    # rollout_kernel<D>, substitution kernel, L-and-y sweep, cyclic
+    # reduction and the sphere SDF keep their arrays out of local memory
+    for label in ["mr_terms_kernel", "sphere_sdf_kernel"] + [
             v for v in names.values()
             if v.startswith(("cost_kernel<", "terms_kernel<",
                              "rollout_kernel<", "btridiag_subst",
@@ -1001,10 +1104,12 @@ def phase_build():
               "no line: %r" % (label, line))
     for k in kernels:
         k.lib()
+    from torch_robotics_tpu_torch.ops.sdf_kernel import KERNEL as SDF_KERNEL
+    sdf_sass = sdf_pair_instructions(SDF_KERNEL.library_path)
     smi = nvidia_smi_line()
     emit("build", seconds=round(secs, 3),
          source_seconds={k: round(v, 3) for k, v in per_source.items()},
-         ptxas=report, card=smi)
+         ptxas=report, sphere_sdf_sass=sdf_sass, card=smi)
     return smi
 
 
@@ -2762,9 +2867,19 @@ def phase_point_cloud():
     check(launches == {"sphere_sdf": 1},
           "point-cloud query launches %s" % (launches,))
     c, r = cloud.centers, cloud.radii
-    results = {}
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device="cuda")
+    r_var = f32(rng.uniform(*PC_RADII, size=PC_S))
+    c_odd = f32(rng.uniform(-1, 1, size=(PC_ODD_S, 3)))
+    r_odd = f32(rng.uniform(*PC_RADII, size=PC_ODD_S))
+    results, inside = {}, {}
     for name, got, (p, cc, rr) in (
             ("M%d_S%d" % (PC_M, PC_S), sdf, (pts, c, r)),
+            ("radii_M%d_S%d" % (PC_M, PC_S), None, (pts, c, r_var)),
+            ("radii_M%d_S%d" % (PC_M, PC_ODD_S), None, (pts, c_odd, r_odd)),
+            ("M%d_S%d" % (PC_RAGGED_M, PC_S), None,
+             (pts[:PC_RAGGED_M].contiguous(), c, r)),
             ("ragged_M1000_S129", None,
              (pts[:1000].contiguous(), c[:129].contiguous(),
               r[:129].contiguous()))):
@@ -2776,19 +2891,25 @@ def phase_point_cloud():
         check(err <= SDF_TOL, "%s: sphere SDF kernel vs plain %.3g"
               % (name, err))
         results[name] = err
+        inside[name] = float((ref < 0).float().mean())
     small = PointCloudSpheres.create(c[:127].cpu().numpy(), radius=PC_RADIUS,
                                      device="cuda")
     n0 = sdf_kernel.KERNEL.launches
     out127 = small.signed_distance(pts[:1000])
     check(sdf_kernel.KERNEL.launches == n0 and bool(
         torch.isfinite(out127).all()), "S = 127 did not take the plain route")
-    k_ms = cuda_ms(lambda: sdf_kernel.sphere_sdf_kernel(pts, c, r), iters=20)
+    k_ms = device_ms(lambda: sdf_kernel.sphere_sdf_kernel(pts, c, r),
+                     iters=20)
+    var_ms = device_ms(lambda: sdf_kernel.sphere_sdf_kernel(pts, c, r_var),
+                       iters=20)
     p_ms = cuda_ms(lambda: sdf_kernel.sphere_sdf_reference(pts, c, r),
                    iters=3, warmup=1)
     lib_ms = cuda_ms(lambda: torch.cdist(pts, c).sub(r).amin(-1), iters=5)
     torch.cuda.empty_cache()
     emit("point_cloud", M=PC_M, S=PC_S, max_abs_err=results,
-         query_ms=q_ms, kernel_ms=k_ms, plain_ms=p_ms, cdist_ms=lib_ms,
+         share_inside=inside, launch=sdf_kernel.sdf_launch_config(PC_M, PC_S),
+         query_ms=q_ms, kernel_ms=k_ms, kernel_ms_radii=var_ms,
+         plain_ms=p_ms, cdist_ms=lib_ms,
          bound_ms=bound_ms(*sdf_work(PC_M, PC_S))[0])
     return dict(max_abs_err=results["M%d_S%d" % (PC_M, PC_S)], ms=k_ms,
                 plain_ms=p_ms, library_ms=lib_ms, work=sdf_work(PC_M, PC_S),
@@ -3137,7 +3258,10 @@ def phase_solvers(task, start, goal):
     for name, (r_, J_) in (("main_N%d" % r_gn.shape[1], (r_gn, J_gn)),
                            ("ragged_N%d" % GN_RAGGED_N,
                             (r_gn[:, :GN_RAGGED_N].contiguous(),
-                             J_gn[..., :GN_RAGGED_N].contiguous()))):
+                             J_gn[..., :GN_RAGGED_N].contiguous())),
+                           ("odd_N%d" % GN_ODD_N,
+                            (r_gn[:, :GN_ODD_N].contiguous(),
+                             J_gn[..., :GN_ODD_N].contiguous()))):
         got = gn_out if name.startswith("main") else gn_assembly(r_, J_)
         ref = gn_assembly_reference(r_, J_)
         for g_, x_ in zip(got, ref):
@@ -3164,7 +3288,14 @@ def phase_solvers(task, start, goal):
     P_, d_, N_ = J_gn.shape
     X = torch.cat([r_gn[:, None], J_gn], 1).permute(2, 0, 1).contiguous()
     Xt = X.transpose(1, 2)
-    gn_ms = cuda_ms(lambda: gn_assembly(r_gn, J_gn), iters=50)
+    # device time over a CUDA graph of calls, the inputs rotated over
+    # GN_COPIES copies (126 MB at the main N) so that each call reads them
+    # from device memory, not from the 50 MB L2
+    gn_copies = [(r_gn.clone(), J_gn.clone()) for _ in range(GN_COPIES)]
+    gn_turn = itertools.cycle(gn_copies)
+    gn_ms = device_ms(lambda: gn_assembly(*next(gn_turn)),
+                      iters=10 * GN_COPIES)
+    del gn_copies, gn_turn
     gn_plain_ms = cuda_ms(lambda: gn_assembly_reference(r_gn, J_gn), iters=5,
                           warmup=1)
     gn_lib_ms = cuda_ms(lambda: torch.bmm(Xt, X), iters=20)

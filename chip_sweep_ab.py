@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     git archive <commit> | tar -x -C chip_checkout/other   # a git-ignored dir
     python3 chip_sweep_ab.py --other chip_checkout/other [--out FILE] \
-        [--kernels all|sweep|riccati|cols|terms|net|cost|solvers]
+        [--kernels all|sweep|riccati|cols|terms|net|cost|solvers|sdf]
 
 The other checkout's ``csrc/btridiag.cu`` (and ``btridiag_sweep.cu`` where
 it has one), ``csrc/riccati.cu`` and ``csrc/btridiag_cols.cu`` are built
@@ -160,10 +160,30 @@ tree's):
 - this tree's K11 at ten launch shapes (1-8 lanes, 32-256 threads a
   block; the same bits reported), beside its default.
 
+``--kernels sdf`` (the point-cloud sphere SDF K10 and the GN assembly
+K12): the other tree's ``sphere_sdf.cu`` and ``gn_assembly.cu`` stand in
+for this tree's under this tree's wrappers (``sdf_swaps``; an older K10
+takes no warps a block and is given the rest):
+
+- ptxas's report of both sides' K10 and K12 instantiations, and both
+  sides' SASS instructions a (point, sphere) pair of K10
+  (``chip_smoke.sdf_pair_instructions``, with each side's SASS listing);
+- K10 at M = 65,536 on phase ``point_cloud``'s cloud (S = 4,096 of radius
+  0.02) and at S = 129, 512 and 16,384 (its first spheres, the last
+  drawn the same way), with per-sphere radii 0.05-0.3 at S = 4,096 and
+  4,173, and at M = 1,000: the sides' outputs bit for bit (required), the
+  device time over a CUDA graph of calls in turns, the bound; this tree's
+  K10 at 4, 8 and 16 warps a block at the main shape (the same bits);
+- K12 on the main path's first (r, Jr) (P = 20, d = 7, N = 65,536) and
+  at N = 1,000 and 999: the sides' outputs bit for bit (required); the
+  device time in turns over a CUDA graph of calls with the inputs rotated
+  over 3 copies (past the 50 MB L2) at N = 65,536 and 1,000, and at N =
+  65,536 also on one copy (read from L2).
+
 ``--kernels all`` (the default) runs the sweeps and the Riccati sweep;
-``cols``, ``terms``, ``net``, ``cost`` and ``solvers`` run alone.  Prints
-one JSON line per measurement, then the card's name and power limit;
-``--out`` writes all of it as one JSON object.
+``cols``, ``terms``, ``net``, ``cost``, ``solvers`` and ``sdf`` run
+alone.  Prints one JSON line per measurement, then the card's name and
+power limit; ``--out`` writes all of it as one JSON object.
 """
 from __future__ import annotations
 
@@ -242,6 +262,21 @@ def other_cr_kernel(csrc: Path):
     return OtherKernel(str(csrc / "btridiag_cr.cu"), {
         "trt_btridiag_cr_launch": [P] * 10 + [I] * (6 if one_launch else 4)
         + [P]}), one_launch
+
+
+def other_sdf_kernels(csrc: Path):
+    """The other checkout's sphere_sdf.cu (K10) and gn_assembly.cu (K12),
+    and whether its K10 takes warps a block (an older one does not)."""
+    import ctypes
+
+    from torch_robotics_tpu_torch.ops import gn_assembly_kernel as gk
+    OtherKernel = other_kernel_class()
+    sdf_shape = "int warps" in (csrc / "sphere_sdf.cu").read_text()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return (OtherKernel(str(csrc / "sphere_sdf.cu"), {
+        "trt_sphere_sdf_launch": [P] * 4 + [I] * (3 if sdf_shape else 2)
+        + [P]}), sdf_shape,
+        OtherKernel(str(csrc / "gn_assembly.cu"), dict(gk.KERNEL.functions)))
 
 
 def other_cols_kernel(csrc: Path):
@@ -469,6 +504,19 @@ def solvers_swap(k3, cr):
     return Swap(bk, ("SWEEP_KERNEL", "CR_KERNEL"), route)
 
 
+def sdf_swaps(sdf, sdf_shape, gn):
+    """(K10's swap, K12's swap): the other tree's kernels under this
+    tree's wrappers, an older K10 called without warps a block."""
+    from torch_robotics_tpu_torch.ops import gn_assembly_kernel, sdf_kernel
+
+    def sdf_route(name, args):
+        # (points, centers, radii, out, M, S, warps, stream)
+        return sdf, (args if sdf_shape else args[:6] + args[7:])
+    return (Swap(sdf_kernel, ("KERNEL",), sdf_route),
+            Swap(gn_assembly_kernel, ("KERNEL",), lambda name, args: (gn,
+                                                                     args)))
+
+
 def cols_swap(other, takes_lanes):
     from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
 
@@ -577,7 +625,7 @@ def main() -> None:
     ap.add_argument("--out", type=Path)
     ap.add_argument("--kernels",
                     choices=("all", "sweep", "riccati", "cols", "terms",
-                             "net", "cost", "solvers"),
+                             "net", "cost", "solvers", "sdf"),
                     default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -592,6 +640,7 @@ def main() -> None:
     do_net = args.kernels == "net"
     do_cost = args.kernels == "cost"
     do_solvers = args.kernels == "solvers"
+    do_sdf = args.kernels == "sdf"
     sweep_k = other_sweep_kernels(csrc) if do_sweep else None
     net_k = other_net_kernel(csrc) if do_net else None
     ric_k = other_riccati_kernel(csrc) if do_riccati else None
@@ -599,6 +648,7 @@ def main() -> None:
     terms_k = other_terms_kernels(csrc) if do_terms else None
     solv_k = ((other_k3(csrc), other_cr_kernel(csrc)),
               other_sweep_kernels(csrc)) if do_solvers else None
+    sdf_k = other_sdf_kernels(csrc) if do_sdf else None
     cost_k = (other_terms_kernels(csrc)[2], {
         "other": cost_stage_kernels(csrc, "other"),
         "this": cost_stage_kernels(
@@ -613,6 +663,7 @@ def main() -> None:
                  if do_cost else ()),
                *((solv_k[0][0][0], solv_k[0][1][0], solv_k[1][0])
                  if do_solvers else ()),
+               *((sdf_k[0], sdf_k[2]) if do_sdf else ()),
                *cs.all_kernels().values()])
     report = {}
 
@@ -636,6 +687,8 @@ def main() -> None:
     if do_solvers:
         ab_solvers(solvers_swap(*solv_k[0]), solv_k[0],
                    sweep_swap(*solv_k[1]), emit)
+    if do_sdf:
+        ab_sdf(sdf_swaps(*sdf_k), (sdf_k[0], sdf_k[2]), emit)
     emit("profiler", launches_without_kernel=cs.PROFILE_MISSED)
 
     smi = cs.nvidia_smi_line()
@@ -1802,6 +1855,123 @@ def ab_solvers(swap, kernels, sweeps, emit):
             bit_for_bit=bool(torch.equal(run(), ref)))
     emit("cr_launch_shapes_gn_H64_m14_B1024",
          default=bk.cr_launch_config(14, cs.B, cs.H), shapes=shapes)
+
+
+def ab_sdf(swaps, kernels, emit):
+    """K10 and K12 in turns with the other tree's (see the module doc)."""
+    import itertools
+
+    import numpy as np
+    import torch
+    from torch_robotics_tpu_torch.ops import gn_assembly_kernel as gk
+    from torch_robotics_tpu_torch.ops import sdf_kernel as sk
+    from torch_robotics_tpu_torch.solve import straight_line_trajs
+    (sdf_swap, gn_swap), (sdf_other, gn_other) = swaps, kernels
+    emit("sdf_gn_ptxas", **{side: {
+        frag: ptxas_report(k, frag) for k, frag in (
+            (sdf_k, "sphere_sdf_kernel"), (gn_k, "gn_assembly_kernel"))}
+        for side, sdf_k, gn_k in (("other", sdf_other, gn_other),
+                                  ("this", sk.KERNEL, gk.KERNEL))})
+    emit("sdf_sass", **{side: cs.sdf_pair_instructions(k.library_path)
+                        for side, k in (("other", sdf_other),
+                                        ("this", sk.KERNEL))})
+    emit("sdf_sass_listing", **{
+        side: {n: ins for n, ins in cs.sass_functions(k.library_path).items()
+               if "sphere_sdf_kernel" in n}
+        for side, k in (("other", sdf_other), ("this", sk.KERNEL))})
+
+    def same(a, b):
+        a, b = (a,) if torch.is_tensor(a) else a, (b,) if torch.is_tensor(
+            b) else b
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def turns(swap, name, fn, inputs, copies, work, iters):
+        """Each side's outputs on inputs[0] (bit for bit, required) and its
+        device time over a CUDA graph of ``iters`` calls rotating over
+        ``copies`` input sets, in turns."""
+        outs = {}
+        for side in ("other", "this"):
+            with (swap if side == "other" else _null()):
+                outs[side] = fn(*inputs)
+        bits = same(outs["other"], outs["this"])
+        cs.check(bits, "%s: this tree's outputs are not the other tree's "
+                 "bits" % name)
+        cycle = itertools.cycle(copies)
+        other_ms, this_ms, t = in_turns(swap, lambda: cs.device_ms(
+            lambda: fn(*next(cycle)), iters=iters))
+        emit(name, other_ms=other_ms, this_ms=this_ms,
+             speedup=other_ms / this_ms, turns_ms=t, bit_for_bit=bits,
+             bound_ms=cs.bound_ms(*work)[0])
+        return outs["this"]
+
+    # K10 on phase point_cloud's cloud and queries, and the other cases
+    rng = np.random.default_rng(12)
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device="cuda")
+    pts = f32(rng.uniform(-1, 1, size=(cs.PC_M, 3)))
+    c = f32(rng.uniform(-1, 1, size=(cs.PC_S, 3)))
+    r = torch.full((cs.PC_S,), cs.PC_RADIUS, device="cuda")
+    r_var = f32(rng.uniform(*cs.PC_RADII, size=cs.PC_S))
+    c_odd = f32(rng.uniform(-1, 1, size=(cs.PC_ODD_S, 3)))
+    r_odd = f32(rng.uniform(*cs.PC_RADII, size=cs.PC_ODD_S))
+    c_wide = torch.cat([c, f32(rng.uniform(-1, 1, size=(16384 - cs.PC_S,
+                                                         3)))])
+    r_wide = torch.full((16384,), cs.PC_RADIUS, device="cuda")
+    cases = [("M65536_S4096", (pts, c, r))]
+    cases += [("M65536_S%d" % S_, (pts, c[:S_].contiguous(),
+                                   r[:S_].contiguous()))
+              for S_ in (129, 512)]
+    cases += [("M65536_S16384", (pts, c_wide, r_wide)),
+              ("radii_M65536_S4096", (pts, c, r_var)),
+              ("radii_M65536_S%d" % cs.PC_ODD_S, (pts, c_odd, r_odd)),
+              ("M%d_S4096" % cs.PC_RAGGED_M,
+               (pts[:cs.PC_RAGGED_M].contiguous(), c, r))]
+    for name, ins in cases:
+        turns(sdf_swap, "sdf_" + name, sk.sphere_sdf_kernel, ins, [ins],
+              cs.sdf_work(ins[0].shape[0], ins[1].shape[0]), iters=20)
+    # this tree's K10 at other warps a block (a point's value does not
+    # depend on them)
+    ref = sk.sphere_sdf_kernel(pts, c, r)
+    shapes = {}
+    for warps in (4, 8, 16):
+        def run(w=warps):
+            out = torch.empty_like(ref)
+            sk.KERNEL.launch("trt_sphere_sdf_launch", pts.data_ptr(),
+                             c.data_ptr(), r.data_ptr(), out.data_ptr(),
+                             cs.PC_M, cs.PC_S, w,
+                             torch.cuda.current_stream().cuda_stream)
+            return out
+        shapes["warps%d" % warps] = dict(
+            ms=cs.device_ms(run, iters=20),
+            bit_for_bit=bool(torch.equal(run(), ref)))
+    emit("sdf_warps_M65536_S4096",
+         default=sk.sdf_launch_config(cs.PC_M, cs.PC_S), shapes=shapes)
+    del pts, c, r, r_var, c_odd, r_odd, c_wide, r_wide, ref
+    torch.cuda.empty_cache()
+
+    # K12 on the main path's first (r, Jr), as phase solvers builds them
+    task, start, goal = cs.bench_problem("cuda", cs.B)
+    theta0 = straight_line_trajs(start, goal, cs.H)
+    d = start.shape[1] // 2
+    q = theta0[..., :d].permute(1, 0, 2).reshape(-1, d).contiguous()
+    r_b, J_b = task.collision_residuals.residuals_and_jacobian(q)
+    r_gn = r_b.T.contiguous()
+    J_gn = J_b.permute(1, 2, 0).contiguous()
+    del task, r_b, J_b
+    P_, d_, N_ = J_gn.shape
+
+    def cut(n):
+        return r_gn[:, :n].contiguous(), J_gn[..., :n].contiguous()
+    copies = [(r_gn.clone(), J_gn.clone()) for _ in range(cs.GN_COPIES)]
+    small = [cut(cs.GN_RAGGED_N) for _ in range(cs.GN_COPIES)]
+    for name, ins, cps, n in (
+            ("gn_N%d_cold" % N_, (r_gn, J_gn), copies, N_),
+            ("gn_N%d_l2" % N_, (r_gn, J_gn), [(r_gn, J_gn)], N_),
+            ("gn_N%d_cold" % cs.GN_RAGGED_N, small[0], small,
+             cs.GN_RAGGED_N),
+            ("gn_N%d" % cs.GN_ODD_N, cut(cs.GN_ODD_N), [cut(cs.GN_ODD_N)],
+             cs.GN_ODD_N)):
+        turns(gn_swap, name, gk.gn_assembly, ins, cps,
+              cs.gn_assembly_work(P_, d_, n), iters=10 * len(cps))
 
 
 def launch_breakdown(fn, calls: int = 5):

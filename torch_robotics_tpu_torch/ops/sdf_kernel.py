@@ -7,7 +7,8 @@ the H100 and how its design answers that.
 
 ``sphere_sdf_kernel(points (M, 3), centers (S, 3), radii (S,)) -> (M,)``,
 min_j ||p_i - c_j|| - r_j.  A CPU tensor takes the plain version; a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises.  ``sdf_launch_config`` gives the
+kernel's launch shape.
 """
 from __future__ import annotations
 
@@ -17,13 +18,42 @@ import torch
 
 from .cuda_build import CudaKernel
 
-__all__ = ["KERNEL", "sphere_sdf_kernel", "sphere_sdf_reference"]
+__all__ = ["KERNEL", "sdf_launch_config", "sphere_sdf_kernel",
+           "sphere_sdf_reference"]
 
 _P = ctypes.c_void_p
 KERNEL = CudaKernel("sphere_sdf.cu", {
     "trt_sphere_sdf_launch": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                              _P],
+                              ctypes.c_int, _P],
 })
+_N_SM = 132                  # H100 SXM
+_LANES = 32
+_TILE_POINTS = 4 * _LANES    # sphere_sdf.cu's kTilePoints: points a block
+_MIN_WARPS, _MAX_WARPS = 4, 16
+_FILL_WARPS = 2 * 8 * _N_SM  # two blocks of eight warps on every SM
+
+
+def sdf_launch_config(M: int, S: int) -> dict:
+    """Launch shape of ``sphere_sdf.cu``: a block a tile of 128 points
+    whose ``warps`` warps split the spheres in stages of warps * 32.  The
+    fewest warps (a power of two, 4 to 16) that give the grid two blocks of
+    eight warps on every SM, doubled only while the spheres give each warp
+    of the larger block some of its first stage: 8 at M = 65,536, S >=
+    256.  Also the threads, the dynamic shared memory in bytes (the
+    source's ``sdf_smem_bytes``: two stages of a float4 a sphere and the
+    tile's minima), the stages and the grid."""
+    if M < 1 or S < 1:
+        raise ValueError("sdf_launch_config takes M, S >= 1, got %d, %d"
+                         % (M, S))
+    grid = -(-M // _TILE_POINTS)
+    warps = _MIN_WARPS
+    while (warps < _MAX_WARPS and grid * warps < _FILL_WARPS
+           and S > _LANES * (2 * warps - 1)):
+        warps *= 2
+    threads = warps * _LANES
+    return dict(warps=warps, threads=threads, grid=grid,
+                points_per_block=_TILE_POINTS, stages=-(-S // threads),
+                smem_bytes=2 * threads * 16 + _TILE_POINTS * 4)
 
 
 def sphere_sdf_reference(points, centers, radii):
@@ -59,9 +89,10 @@ def sphere_sdf_kernel(points: torch.Tensor, centers: torch.Tensor,
     out = torch.empty((M,), dtype=torch.float32, device=points.device)
     if M == 0:
         return out
+    cfg = sdf_launch_config(M, S)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream().cuda_stream
         KERNEL.launch("trt_sphere_sdf_launch", points.data_ptr(),
                       centers.data_ptr(), radii.data_ptr(), out.data_ptr(),
-                      M, S, stream)
+                      M, S, cfg["warps"], stream)
     return out
