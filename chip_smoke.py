@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them:
-the GPMP2-MPC main path (phases 2-6), the batched iLQR path (phases 7-11),
+the GPMP2-MPC main path (phases 2-6), config 3's EE-pose goal and config
+1's IK (phases 6a-6b), the batched iLQR path (phases 7-11),
 the multi-robot MPC path (phases 12-15), the point-mass batch solve with
 GN factorization reuse and the point-cloud SDF (phases 16-20), sGPMP
 for the Panda and the config-4 robot with the solvers nothing routes to
@@ -51,6 +52,26 @@ final line):
              each held to a float64 CPU step, GN iteration by GN iteration
              from the same input and over the chained step.
 6. fk      - FK rollouts/s at B = 65536 through fk_positions_lanes.
+6a. ee_goal - config 3 (benchmarks/run_all.py config_panda): the Panda in
+             EnvSpheres3D, cutoff 0.03, B = 4096, H = 64, its GPMP2Params,
+             an EE-pose goal factor (the goal's ee_link pose, sigma_ee
+             1e-3, w_rot 0.2) on the final waypoint, config_panda's own
+             start and goal; the factor on the card vs float64 on random
+             q; one GN step with it held on its first 8 lanes to a float64
+             CPU step (phase cpu's rule); K1 (N = 262,144) and K2 (64, 14,
+             4096) on the path's first q and GN system vs plain, timed,
+             K2 with the dense solve; gpmp2_solve_restarts (30 iterations,
+             2 rounds of 30): exactly 90 K1 and 90 K2 launches, finite
+             outputs, fraction free >= 0.95 and median EE position error
+             <= 0.01 m, wall, trajs/s, a profile.
+6b. ik     - config 1's IK (run_all.py config_fk_ik): damped least squares
+             (inverse_kinematics_gn) at B = 1024, 150 iterations, restarts
+             every 25, se3_eps 5e-2: valid fraction >= 0.9, finite; 40
+             steps without restarts on its first 64 problems held to a
+             float64 CPU run step by step (worst and median lanes) and
+             chained (median lane, valid count); Adam (inverse_kinematics)
+             at B = 1024 and 300 iterations runs finite; no kernel
+             launches; valid fraction, median iterations, wall of both.
 7. riccati - the Riccati sweep (K6) and the line-search rollout (K7) vs
              their plain versions at the iLQR path's shapes (T = 31, d = 7,
              m = 14, P = 27, A = 5, B = 512) and at a ragged B = 100: on
@@ -264,7 +285,9 @@ final line):
              sGPMP on it: exactly 201 K8-MultiRobot launches.
 
 Then one JSON line with every kernel's numbers (launches from phase 4 for
-K1 and K2, from phase 9 for K6, K7 and K8 at N = 79360, from phase 11 for
+K1 and K2, and from phase 6a's restarts solve for K1 and K2 on config
+3's path (entries obstacle_terms_ee_goal and btridiag_w_ee_goal, timed at
+that path's shapes), from phase 9 for K6, K7 and K8 at N = 79360, from phase 11 for
 K7 at the tracking loop's T = 15, from phase 21 for
 K8 at the sGPMP candidates' N, from phase 14 for K4 and K5, from phase 19
 for K9 (the k = 2 and k = 4 runs together), from phase 20's query for
@@ -287,6 +310,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -428,6 +452,47 @@ GRID_FACE_TOL, GRID_FACE_SHARE, GRID_LOOKUP_OPS = 1e-4, 1e-3, 22
 # grasped point, R o + t (9 products, 9 sums)
 GRASP_CUTOFF, GRASP_RAGGED_N, GRASP_POINT_OPS = 0.03, 1000, 18
 GRASP_MR_BOX = (0.08, 0.08, 0.08)
+# config 3 (benchmarks/run_all.py config_panda): the Panda in EnvSpheres3D
+# reaching an EE pose (the goal's ee_link pose, sigma_ee 1e-3, w_rot 0.2)
+# at B = 4096, H = 64, 30 GN iterations and two restart rounds of 30;
+# theta0 GP-prior samples at sigma 0.13; its float64 hold on the first
+# EE_F64_B lanes of one GN step; the sanity floors of its quality (the JAX
+# package reads 99.6% free and 4.8 mm, BASELINE.md:219, printed beside the
+# port's, not a gate).  Start and goal are config_panda's own: the q that
+# its random_coll_free_q(PRNGKey(10)) and (PRNGKey(11)) return (4096
+# candidates each, float32).  A torch.Generator cannot draw JAX's
+# numbers, and a draw is a different problem: the port's draw from
+# generators seeded 10 and 11 starts 0.03 rad from joint 4's lower limit,
+# where both packages leave 31-32% of 128 trajectories inside the limits
+# and free (PERF.md)
+EE_START_Q = (2.710441827774048, 1.288450002670288, -1.0470610857009888,
+              -0.4556910991668701, 2.6817686557769775, 1.3950607776641846,
+              0.14158296585083008)
+EE_GOAL_Q = (-0.08639121055603027, 0.2842121124267578, -0.3705925941467285,
+             -1.6949026584625244, 1.1213104724884033, 2.852252721786499,
+             -0.43071532249450684)
+EE_B, EE_H, EE_ITERS, EE_ROUNDS, EE_RESTART = 4096, 64, 30, 2, 30
+EE_CUTOFF, EE_SIGMA, EE_W_ROT, EE_INIT_SIGMA = 0.03, 1e-3, 0.2, 0.13
+EE_GP = dict(n_support_points=EE_H, dt=0.04, opt_iters=EE_ITERS,
+             sigma_start=1e-3, sigma_gp=1e-1, sigma_goal_prior=1e-2,
+             sigma_coll=5e-4, step_size=0.8, sigma_gp_init=0.5)
+EE_F64_B, EE_MIN_FREE, EE_MAX_POS_ERR = 8, 0.95, 0.01
+EE_JAX = {"fraction_free": 0.996, "ee_pos_err_median_m": 0.0048}
+# the EE factor on the card vs float64 on the CPU at random q (lam = 1e6
+# scales g and Hb; float32 FK): relative to max|g|, max|Hb|
+EE_TERMS_TOL = 1e-4
+# config 1's IK (run_all.py config_fk_ik): DLS at B = 1024, 150 iterations,
+# restarts every 25, se3_eps 5e-2, toward z_rot(-pi/2) y_rot(-pi) at (0.2,
+# 0.4, 0.1); its float64 hold: IK_F64_ITERS DLS steps without restarts on
+# the first IK_F64_B problems; Adam at IK_ADAM_ITERS; the valid fraction's
+# floor (the JAX package reads 98.5%, median 28 iterations,
+# BASELINE.md:119); the chained run's valid count on the card within
+# IK_VALID_TOL of the CPU float32 run's
+IK_B, IK_ITERS, IK_RESTART, IK_EPS = 1024, 150, 25, 5e-2
+IK_TARGET_POS = (0.2, 0.4, 0.1)
+IK_F64_B, IK_F64_ITERS, IK_ADAM_ITERS, IK_MIN_VALID = 64, 40, 300, 0.9
+IK_VALID_TOL = 6
+IK_JAX = {"valid_fraction": 0.985, "median_iters": 28}
 
 
 def emit(phase: str, **fields) -> None:
@@ -1526,6 +1591,310 @@ def phase_fk():
           and bool(torch.isfinite(out).all()), "FK output")
     ms = cuda_ms(lambda: fk_positions_lanes(robot.model, q), iters=20)
     emit("fk", B=n, ms_per_call=ms, rollouts_per_s=n / (ms / 1e3))
+
+
+# ----------------------------------------------------------------------
+# config 3: the EE-pose goal factor through the restarts solve
+# ----------------------------------------------------------------------
+def ee_problem(device, n_batch: Optional[int] = None):
+    """config_panda's problem on ``device`` -> (task, start (14,), goal
+    (14,), H_target (4, 4), EE terms, theta0 (n_batch, H, 14)): start and
+    goal EE_START_Q and EE_GOAL_Q at rest (each checked collision-free
+    with the task's margins), theta0 from a CPU generator seeded 0."""
+    import torch
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    from torch_robotics_tpu_torch.kin import fk_all_links
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.solve import (make_ee_goal_terms,
+                                                sample_gp_prior_trajs)
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    robot = RobotPanda.create(device=device)
+    task = PlanningTask(env=EnvSpheres3D(device=device), robot=robot,
+                        obstacle_cutoff_margin=EE_CUTOFF)
+    z = torch.zeros(7, device=device)
+    start, goal = (torch.cat([torch.tensor(q, device=device), z])
+                   for q in (EE_START_Q, EE_GOAL_Q))
+    check(not bool(task.compute_collision(torch.stack([start, goal])).any()),
+          "ee_goal: the start or the goal collides")
+    H_target = fk_all_links(robot.model, goal[:7], link_list=["ee_link"])[0]
+    terms = make_ee_goal_terms(robot, H_target, sigma_ee=EE_SIGMA,
+                               w_rot=EE_W_ROT, device=device)
+    theta0 = sample_gp_prior_trajs(torch.Generator().manual_seed(0), start,
+                                   goal, EE_H, n_batch or EE_B, EE_GP["dt"],
+                                   EE_INIT_SIGMA)
+    return task, start, goal, H_target, terms, theta0
+
+
+def ee_pos_err(task, trajs, H_target):
+    """The final waypoints' EE position errors (B,)."""
+    import torch
+    H_final = task.robot.get_EE_pose(trajs[:, -1, :7])
+    return torch.linalg.vector_norm(H_final[:, 0, :3, 3] - H_target[:3, 3],
+                                     dim=-1)
+
+
+def phase_ee_goal():
+    """Config 3 at full width (run_all.py config_panda): the EE factor on
+    the card vs float64 on random q; one GN step with the factor at B =
+    4096 held on its first EE_F64_B lanes to a float64 CPU step (phase
+    cpu's rule); K1 and K2 at this path's shapes vs plain, timed; the
+    restarts solve (30 + 2 x 30 GN steps): exactly 90 K1 and 90 K2
+    launches, finite outputs, fraction free and median EE position error
+    above their floors, wall, trajs/s and a profile."""
+    import torch
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import solve_lanes_w
+    from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.solve import (GPMP2Params, gpmp2_step,
+                                                gpmp2_solve_restarts,
+                                                make_ee_goal_terms)
+    from torch_robotics_tpu_torch.solve.btridiag_lanes import (
+        solve_lanes_core)
+    from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    task, start, goal, H_target, terms, theta0 = ee_problem("cuda")
+    # the CPU side of the float64 holds: the card's start, goal and target
+    task_h = PlanningTask(env=EnvSpheres3D(device="cpu"),
+                          robot=RobotPanda.create(device="cpu"),
+                          obstacle_cutoff_margin=EE_CUTOFF)
+    start_h, goal_h = start.cpu(), goal.cpu()
+    terms_h = make_ee_goal_terms(task_h.robot, H_target.cpu(),
+                                 sigma_ee=EE_SIGMA, w_rot=EE_W_ROT,
+                                 device="cpu")
+    params = GPMP2Params(**EE_GP)
+
+    # the factor alone: card vs float64 on random q
+    q = task.robot.random_q(torch.Generator().manual_seed(12), 4096)
+    got = terms(q)
+    ref = terms_h(q.cpu().double())
+    terms_rel = max_errs([g.cpu().double() for g in got[:2]], ref[:2])[1]
+    check(all(bool(torch.isfinite(g).all()) for g in got)
+          and terms_rel <= EE_TERMS_TOL,
+          "ee_goal: the factor on the card is %.3g of max off float64"
+          % terms_rel)
+
+    # one GN step with the factor at full width, its first lanes held to
+    # a float64 CPU step from the same input
+    th_c, cost_c = gpmp2_step(task.collision_residuals, theta0, start, goal,
+                              params, terms)
+    th_in = theta0[:EE_F64_B].cpu()
+    th_h, cost_h = gpmp2_step(task_h.collision_residuals, th_in, start_h,
+                              goal_h, params, terms_h)
+    th_64, _ = gpmp2_step(task_h.collision_residuals, th_in.double(),
+                          start_h.double(), goal_h.double(), params, terms_h)
+    check(bool(torch.isfinite(th_c).all()), "ee_goal: card step non-finite")
+    rel_cost = float(((cost_c[:EE_F64_B].cpu() - cost_h).abs()
+                      / cost_h.abs().clamp(min=1e-30)).max())
+    check(rel_cost <= MPC_TOL, "ee_goal step: card vs CPU cost %.3g"
+          % rel_cost)
+    gaps = theta_gaps(th_c[:EE_F64_B], th_h, th_64)
+    hold_to_f64("ee_goal step", gaps)
+
+    # K1 and K2 at this path's shapes: the first q (theta0's waypoints,
+    # h-major lanes) and the first GN system with the factor
+    lanes_terms = task.collision_residuals.obstacle_terms_lanes
+    q_main = theta0[..., :7].permute(2, 1, 0).reshape(7, -1).contiguous()
+    k1_errs = {}
+    hold_terms("main_q_N%d" % q_main.shape[1], lanes_terms.unscaled(q_main),
+               lanes_terms.plain.unscaled(q_main), k1_errs)
+    k1_ms = device_ms(lambda: lanes_terms.unscaled(q_main), iters=20)
+    k1_plain = cuda_ms(lambda: lanes_terms.plain.unscaled(q_main), iters=3,
+                       warmup=1)
+    r = lanes_terms.plain.rows(q_main)[0]
+    k1_work = terms_work(TermsLayout(task), q_main, r)
+    b_l, D_l, U_l, _ = _lanes_gn_system(lanes_terms, theta0, start, goal,
+                                        params, terms)
+    H_, m, _, B_ = D_l.shape
+    x_k = solve_lanes_w(D_l, U_l, b_l)
+    x_p = solve_lanes_core(D_l, U_l, b_l)
+    x_64 = solve_lanes_core(D_l.double(), U_l.double(), b_l.double())
+    rel_k64 = max_errs([x_k.double()], [x_64])[1]
+    rel_p64 = max_errs([x_p.double()], [x_64])[1]
+    check(bool(torch.isfinite(x_k).all())
+          and rel_k64 <= SOLVE_GN_FACTOR * rel_p64 + SOLVE_TOL_RANDOM,
+          "ee_goal: K2 on the GN system with the factor %.3g of max|x| off "
+          "float64 (plain %.3g)" % (rel_k64, rel_p64))
+    del x_64
+    k2_ms = device_ms(lambda: solve_lanes_w(D_l, U_l, b_l), iters=20)
+    k2_plain = cuda_ms(lambda: solve_lanes_core(D_l, U_l, b_l), iters=2,
+                       warmup=1)
+    torch.cuda.empty_cache()
+    k2_lib = cuda_ms(dense_solve_fn(D_l, U_l, b_l), iters=2, warmup=1)
+    torch.cuda.empty_cache()
+
+    # the restarts solve
+    def free_fn(trajs):
+        return ~task.trajs_collision_masks(trajs)[0]
+
+    def solve():
+        return gpmp2_solve_restarts(
+            task.collision_residuals, theta0, start, goal, params, free_fn,
+            torch.Generator().manual_seed(42), ee_goal_terms=terms,
+            restart_rounds=EE_ROUNDS, restart_iters=EE_RESTART)
+
+    solve()                                                    # warm-up
+    res, launches, ms = counted(solve)
+    expected = EE_ITERS + EE_ROUNDS * EE_RESTART
+    check(launches == {"terms": expected, "btridiag_w": expected},
+          "ee_goal launches %s, expected %d K1 and %d K2 only"
+          % (launches, expected, expected))
+    check(all(bool(torch.isfinite(t).all()) for t in res),
+          "ee_goal: the restarts solve produced non-finite results")
+    free = float(free_fn(res.trajs).float().mean())
+    err = ee_pos_err(task, res.trajs, H_target)
+    err_med = float(err.median())
+    check(free >= EE_MIN_FREE, "ee_goal: fraction free %.4f below %.2f"
+          % (free, EE_MIN_FREE))
+    check(err_med <= EE_MAX_POS_ERR, "ee_goal: median EE error %.4g m "
+          "above %.3g" % (err_med, EE_MAX_POS_ERR))
+    busy, dev_ms, top = profile_device(solve, 1)
+    emit("ee_goal", B=EE_B, H=EE_H, main_iters=EE_ITERS, rounds=EE_ROUNDS,
+         restart_iters=EE_RESTART, sigma_ee=EE_SIGMA, w_rot=EE_W_ROT,
+         launches=launches, wall_ms=ms, trajs_per_s=EE_B / (ms / 1e3),
+         fraction_free=free, ee_pos_err_median_m=err_med,
+         ee_pos_err_p90_m=float(err.quantile(0.9)),
+         jax_package=EE_JAX, factor_rel_err_vs_f64=terms_rel,
+         step_vs_f64=dict(gaps, cost_rel_err=rel_cost),
+         k1=dict(max_errs=k1_errs, kernel_ms=k1_ms, plain_ms=k1_plain),
+         k2=dict(kernel_vs_f64=rel_k64, plain_vs_f64=rel_p64,
+                 kernel_ms=k2_ms, plain_ms=k2_plain, dense_solve_ms=k2_lib),
+         profiled_device_busy_share=busy, profiled_device_ms_per_solve=dev_ms,
+         top_device_ms_per_solve=top)
+    return (dict(max_abs_err=k1_errs["main_q_N%d" % q_main.shape[1]][0],
+                 ms=k1_ms, plain_ms=k1_plain, work=k1_work,
+                 launches=launches["terms"]),
+            dict(max_abs_err=max_errs([x_k], [x_p])[0], ms=k2_ms,
+                 plain_ms=k2_plain, library_ms=k2_lib,
+                 work=solve_work(H_, m, B_),
+                 launches=launches["btridiag_w"]))
+
+
+# ----------------------------------------------------------------------
+# config 1: IK
+# ----------------------------------------------------------------------
+def ik_target(device):
+    """Config 1's target: z_rot(-pi/2) y_rot(-pi) at IK_TARGET_POS."""
+    import math
+
+    import torch
+    from torch_robotics_tpu_torch.core.se3 import (pack_homogeneous, y_rot,
+                                                   z_rot)
+    return pack_homogeneous(
+        z_rot(-math.pi / 2, device=device) @ y_rot(-math.pi, device=device),
+        torch.tensor(IK_TARGET_POS, device=device))
+
+
+def ik_f64_hold(model, H_target, q0):
+    """IK_F64_ITERS DLS steps without restarts on the first IK_F64_B
+    problems, on the card, on the CPU and in float64 on the CPU.  Each step
+    from the card's q: the card's worst lane over the steps and the median
+    of its median lanes at most twice the CPU float32 run's (+1e-5 of
+    max|q|, hold_to_f64).  The chained run (the solver's own loop): its
+    median lane so held, its valid count within IK_VALID_TOL of the CPU's
+    (its worst lane is reported, not held: a problem that has not
+    converged wanders through the clipped limits, chaotically in float32
+    on either device)."""
+    import math
+
+    import torch
+    from torch_robotics_tpu_torch.kin import robot_zoo
+    from torch_robotics_tpu_torch.kin.ik import (_dls_setup, _dls_step,
+                                                 _ik_gn_run)
+    model_h = robot_zoo.franka_panda(device="cpu")
+    eps = math.pi / 100
+    q0 = q0[:IK_F64_B]
+    lo = torch.tensor(model.q_lower + eps, device="cuda")
+    hi = torch.tensor(model.q_upper - eps, device="cuda")
+    H_h = H_target.cpu()
+    c = {dt: _dls_setup(model_h, H_h[None], "ee_link",
+                        torch.zeros((), dtype=dt))
+         for dt in (torch.float32, torch.float64)}
+    c_card = _dls_setup(model, H_target[None], "ee_link", q0)
+    q, worst, medians = q0, [], []
+    for _ in range(IK_F64_ITERS):
+        q_c = _dls_step(model, c_card, q, lo, hi, 1e-4)
+        q_in = q.cpu()
+        q_h = _dls_step(model_h, c[torch.float32], q_in, lo.cpu(), hi.cpu(),
+                        1e-4)
+        q_64 = _dls_step(model_h, c[torch.float64], q_in.double(),
+                         lo.cpu().double(), hi.cpu().double(), 1e-4)
+        g = theta_gaps(q_c, q_h, q_64)
+        worst.append((g["card_vs_f64"], g["cpu_vs_f64"]))
+        medians.append((g["card_vs_f64_median_lane"],
+                        g["cpu_vs_f64_median_lane"]))
+        q = q_c
+    worst, medians = np.asarray(worst), np.asarray(medians)
+    steps = {"card_vs_f64": float(worst[:, 0].max()),
+             "cpu_vs_f64": float(worst[:, 1].max()),
+             "card_vs_f64_median_lane": float(np.median(medians[:, 0])),
+             "cpu_vs_f64_median_lane": float(np.median(medians[:, 1]))}
+    hold_to_f64("ik steps", steps)
+
+    runs = {}
+    for key, m_, dt, dev in (("card", model, torch.float32, "cuda"),
+                             ("cpu", model_h, torch.float32, "cpu"),
+                             ("f64", model_h, torch.float64, "cpu")):
+        runs[key] = _ik_gn_run(
+            m_, H_target[None].to(dev, dt), "ee_link", q0.to(dev, dt),
+            lo.to(dev, dt), hi.to(dev, dt), IK_F64_ITERS, 1e-4, IK_EPS,
+            None, IK_F64_ITERS + 1)                  # no restart draws
+    chained = theta_gaps(runs["card"].q, runs["cpu"].q, runs["f64"].q)
+    hold_to_f64("ik chained run", chained, worst=False)
+    n_valid = {k: int(v.valid.sum()) for k, v in runs.items()}
+    check(abs(n_valid["card"] - n_valid["cpu"]) <= IK_VALID_TOL,
+          "ik chained run: %d valid on the card, %d on the CPU"
+          % (n_valid["card"], n_valid["cpu"]))
+    return dict(steps=steps, chained=chained, valid=n_valid)
+
+
+def phase_ik():
+    """Config 1's IK at full width (run_all.py config_fk_ik): DLS at B =
+    1024 (valid fraction above its floor, finite), its float64 hold
+    (ik_f64_hold) and Adam at IK_ADAM_ITERS (finite); no kernel launches;
+    valid fraction, median iterations and wall time of both solvers."""
+    import torch
+    from torch_robotics_tpu_torch.kin import (inverse_kinematics,
+                                              inverse_kinematics_gn,
+                                              robot_zoo)
+    model = robot_zoo.franka_panda(device="cuda")
+    H_target = ik_target("cuda")
+
+    def dls(n_iters=IK_ITERS):
+        return inverse_kinematics_gn(
+            model, H_target, batch_size=IK_B, max_iters=n_iters,
+            se3_eps=IK_EPS, restart_every=IK_RESTART,
+            generator=torch.Generator().manual_seed(1), device="cuda")
+
+    def adam():
+        return inverse_kinematics(
+            model, H_target, batch_size=IK_B, max_iters=IK_ADAM_ITERS,
+            generator=torch.Generator().manual_seed(2), device="cuda")
+
+    dls(2)                                                     # warm-up
+    out = {}
+    for name, fn in (("dls", dls), ("adam", adam)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, launches, _ = counted(fn)
+        wall = time.perf_counter() - t0
+        check(not launches, "ik %s launched kernels %s" % (name, launches))
+        check(all(bool(torch.isfinite(t).all())
+                  for t in (res.q, res.err_se3)),
+              "ik %s: non-finite results" % name)
+        out[name] = dict(
+            wall_s=wall, valid_fraction=float(res.valid.float().mean()),
+            median_iters=float(res.iters_to_valid.float().median()),
+            median_err_se3=float(res.err_se3.median()))
+        if name == "dls":
+            q0 = dls(0).q
+    check(out["dls"]["valid_fraction"] >= IK_MIN_VALID,
+          "ik: DLS valid fraction %.4f below %.2f"
+          % (out["dls"]["valid_fraction"], IK_MIN_VALID))
+    hold = ik_f64_hold(model, H_target, q0)
+    emit("ik", B=IK_B, iters=IK_ITERS, restart_every=IK_RESTART,
+         se3_eps=IK_EPS, adam_iters=IK_ADAM_ITERS, jax_package=IK_JAX,
+         f64_hold=hold, **out)
 
 
 # ----------------------------------------------------------------------
@@ -4442,6 +4811,8 @@ def main() -> None:
     launches = phase_main()
     phase_cpu()
     phase_fk()
+    ee_terms, ee_solve = phase_ee_goal()
+    phase_ik()
 
     il_task, il_start, il_goal = ilqr_problem("cuda")
     seen = capture_first_iteration(il_task, il_start, il_goal)
@@ -4500,6 +4871,12 @@ def main() -> None:
             ("btridiag_w", "torch_robotics_tpu_torch/csrc/btridiag.cu",
              "torch_robotics_tpu/ops/pallas_btridiag.py:330", solve,
              launches[1]),
+            ("obstacle_terms_ee_goal", "torch_robotics_tpu_torch/csrc/terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", ee_terms,
+             ee_terms["launches"]),
+            ("btridiag_w_ee_goal", "torch_robotics_tpu_torch/csrc/btridiag.cu",
+             "torch_robotics_tpu/ops/pallas_btridiag.py:330", ee_solve,
+             ee_solve["launches"]),
             ("riccati_backward", "torch_robotics_tpu_torch/csrc/riccati.cu",
              "torch_robotics_tpu/ops/pallas_riccati.py:206",
              sweeps["riccati"], il_launches[0]),

@@ -1,15 +1,25 @@
 """Rigid-body helpers (counterpart of the functions of
 torch_robotics_tpu/core/se3.py that the ported paths use: the URDF and
-Rodrigues rotations, and the coordinate-axis rotations of multi-robot base
-poses)."""
+Rodrigues rotations, the coordinate-axis rotations of multi-robot base
+poses, homogeneous packing, the SE(3) distance and SO(3) log of the IK
+solvers and the link-tensor accessors)."""
 from __future__ import annotations
+
+import math
 
 import torch
 
 from .device import resolve_device
+from .quaternion import rotation_matrix_to_q
+
+DEFAULT_ACOS_BOUND: float = 1.0 - 1e-4
 
 __all__ = ["x_rot", "y_rot", "z_rot", "rpy_to_rotation_matrix",
-           "axis_angle_rotation", "rotate_point"]
+           "axis_angle_rotation", "rotate_point", "pack_homogeneous",
+           "unpack_homogeneous", "acos_linear_extrapolation",
+           "so3_rotation_angle", "so3_relative_angle", "SE3_distance",
+           "log_SO3", "link_pos_from_link_tensor",
+           "link_rot_from_link_tensor", "link_quat_from_link_tensor"]
 
 
 def _skew(v: torch.Tensor) -> torch.Tensor:
@@ -80,3 +90,109 @@ def axis_angle_rotation(axis: torch.Tensor, angle: torch.Tensor):
 def rotate_point(point: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
     """point @ R^T in row-vector form: (..., 3) x (..., 3, 3) -> (..., 3)."""
     return torch.matmul(point[..., None, :], rot.transpose(-1, -2))[..., 0, :]
+
+
+def pack_homogeneous(rot: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+    """(R (..., 3, 3), t (..., 3)) -> (..., 4, 4), the batch dims
+    broadcast."""
+    batch = torch.broadcast_shapes(rot.shape[:-2], trans.shape[:-1])
+    top = torch.cat([rot.expand(batch + (3, 3)),
+                     trans.expand(batch + (3,))[..., :, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot.dtype,
+                          device=rot.device).expand(batch + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def unpack_homogeneous(H: torch.Tensor):
+    """(..., 4, 4) -> (R (..., 3, 3), t (..., 3))."""
+    return H[..., :3, :3], H[..., :3, 3]
+
+
+def acos_linear_extrapolation(x: torch.Tensor,
+                              bounds=(-DEFAULT_ACOS_BOUND,
+                                      DEFAULT_ACOS_BOUND)) -> torch.Tensor:
+    """arccos inside ``bounds``, its first-order Taylor expansion at the
+    bound outside them (finite gradients near +-1)."""
+    lower, upper = bounds
+    if lower > upper:
+        raise ValueError("lower bound has to be smaller or equal to upper "
+                         "bound.")
+    if lower <= -1.0 or upper >= 1.0:
+        raise ValueError("Both lower bound and upper bound have to be "
+                         "within (-1, 1).")
+
+    def linear(x0):
+        return (x - x0) * (-1.0 / math.sqrt(1.0 - x0 * x0)) + math.acos(x0)
+
+    res = torch.arccos(torch.clamp(x, lower, upper))
+    res = torch.where(x >= upper, linear(upper), res)
+    return torch.where(x <= lower, linear(lower), res)
+
+
+def so3_rotation_angle(R: torch.Tensor, cos_angle: bool = False,
+                       eps: float = 1e-4) -> torch.Tensor:
+    """Rotation angle of R (..., 3, 3) (its cosine with ``cos_angle``);
+    ``eps`` > 0 extrapolates the arccos linearly within eps of +-1."""
+    phi_cos = (R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2] - 1.0) * 0.5
+    if cos_angle:
+        return phi_cos
+    if eps > 0.0:
+        return acos_linear_extrapolation(phi_cos, (-(1.0 - eps), 1.0 - eps))
+    return torch.arccos(phi_cos)
+
+
+def so3_relative_angle(R1: torch.Tensor, R2: torch.Tensor,
+                       cos_angle: bool = False,
+                       eps: float = 1e-4) -> torch.Tensor:
+    """Angle of R1 R2^T."""
+    return so3_rotation_angle(R1 @ R2.transpose(-1, -2),
+                              cos_angle=cos_angle, eps=eps)
+
+
+def SE3_distance(H_batch: torch.Tensor, H_target: torch.Tensor,
+                 w_pos: float = 1.0, w_rot: float = 1.0):
+    """w_rot (1 - cos angle(R1 R2^T)) + w_pos |t1 - t2| between homogeneous
+    transforms (..., 4, 4), the batch dims broadcast."""
+    D = 0.0
+    if w_rot > 0.0:
+        D = D + w_rot * (1.0 - so3_relative_angle(
+            H_batch[..., :3, :3], H_target[..., :3, :3], cos_angle=True))
+    if w_pos > 0.0:
+        D = D + w_pos * torch.linalg.vector_norm(
+            H_batch[..., :-1, -1] - H_target[..., :-1, -1], dim=-1)
+    return D
+
+
+def log_SO3(R: torch.Tensor, eps: float = 1.0e-14) -> torch.Tensor:
+    """Matrix log of a rotation (..., 3, 3): theta * omega_hat, a skew
+    matrix."""
+    trR = torch.clamp((R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2] - 1.0)
+                      / 2.0, -1.0, 1.0)
+    theta = torch.arccos(trR)[..., None, None]
+    return theta * ((R - R.transpose(-1, -2))
+                    / (2.0 * torch.sin(theta) + eps))
+
+
+def link_pos_from_link_tensor(link_tensor: torch.Tensor) -> torch.Tensor:
+    """Positions from (..., 3, 3) planar or (..., 4, 4) spatial poses."""
+    if link_tensor.shape[-1] == 3:
+        return link_tensor[..., :2, 2]
+    if link_tensor.shape[-1] == 4:
+        return link_tensor[..., :3, 3]
+    raise ValueError("unexpected link tensor trailing dim %d"
+                     % link_tensor.shape[-1])
+
+
+def link_rot_from_link_tensor(link_tensor: torch.Tensor) -> torch.Tensor:
+    """Rotations from (..., 3, 3) planar or (..., 4, 4) spatial poses."""
+    if link_tensor.shape[-1] == 3:
+        return link_tensor[..., :2, :2]
+    if link_tensor.shape[-1] == 4:
+        return link_tensor[..., :3, :3]
+    raise ValueError("unexpected link tensor trailing dim %d"
+                     % link_tensor.shape[-1])
+
+
+def link_quat_from_link_tensor(link_tensor: torch.Tensor) -> torch.Tensor:
+    """wxyz quaternions of (..., 4, 4) spatial poses."""
+    return rotation_matrix_to_q(link_rot_from_link_tensor(link_tensor))

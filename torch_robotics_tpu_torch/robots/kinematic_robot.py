@@ -6,6 +6,8 @@ collision links, margins and self-collision pairs into an embodiment whose
 collision points are link origins, followed, for a robot that holds a
 grasped object, by the object's points fixed in the frame of its link; FK
 and point Jacobians run through the lanes chain (``ops/lanes_fk.py``).
+Its end effector is the link ``link_name_ee`` (the EE-pose goal factor
+and the accessors ``get_EE_*`` read it).
 """
 from __future__ import annotations
 
@@ -14,7 +16,9 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..core.se3 import link_quat_from_link_tensor
 from ..kin import robot_zoo
+from ..kin.fk import fk_all_links
 from ..kin.model import KinematicModel
 from .base import RobotAPI, build_object_margins, build_self_collision_pairs
 
@@ -42,6 +46,7 @@ class KinematicRobot(RobotAPI):
     # a grasped object's points (G, 3) in the frame of its link, or None
     grasped_points: Optional[torch.Tensor] = None
     link_name_grasped_object: str = "grasped_object"
+    link_name_ee: str = "ee_link"
 
     @classmethod
     def create(cls, model: KinematicModel,
@@ -49,6 +54,7 @@ class KinematicRobot(RobotAPI):
                object_coll_margins: Sequence[float],
                self_coll_pairs: Optional[dict] = None,
                self_collision_margin: float = 0.05,
+               link_name_ee: str = "ee_link",
                name: str = "KinematicRobot") -> "KinematicRobot":
         dev = model.device
         name_to_idx = {n: i for i, n in enumerate(model.link_names)}
@@ -76,7 +82,7 @@ class KinematicRobot(RobotAPI):
                    self_margins=self_margins,
                    object_coll_idxs=object_coll_idxs,
                    self_coll_idxs=self_coll_idxs, self_pair_idxs=pair_idxs,
-                   name=name)
+                   link_name_ee=link_name_ee, name=name)
 
     @property
     def device(self) -> torch.device:
@@ -115,6 +121,22 @@ class KinematicRobot(RobotAPI):
         return fk_points_jacobians_lanes(
             self.model, q, extra_points=self.grasped_extra_points())
 
+    def get_EE_pose(self, q):
+        """q (..., d) -> the end effector's pose (..., 1, 4, 4)."""
+        return fk_all_links(self.model, q, link_list=[self.link_name_ee])
+
+    def get_EE_position(self, q):
+        """q (..., d) -> the end effector's position (..., 3)."""
+        return self.get_EE_pose(q)[..., 0, :3, 3]
+
+    def get_EE_orientation(self, q, rotation_matrix: bool = True):
+        """q (..., d) -> the end effector's rotation (..., 3, 3), or its
+        wxyz quaternion (..., 4)."""
+        H = self.get_EE_pose(q)
+        if rotation_matrix:
+            return H[..., 0, :3, :3]
+        return link_quat_from_link_tensor(H[..., 0, :, :])
+
 
 UR10_OBJECT_COLL_LINKS = [
     "shoulder_link", "upper_arm_link", "forearm_link",
@@ -134,4 +156,5 @@ def RobotUR10(device="cuda") -> KinematicRobot:
         robot_zoo.ur10(device=device),
         object_coll_links=UR10_OBJECT_COLL_LINKS,
         object_coll_margins=UR10_OBJECT_COLL_MARGINS,
-        self_coll_pairs=UR10_SELF_COLL_PAIRS, name="RobotUR10")
+        self_coll_pairs=UR10_SELF_COLL_PAIRS, link_name_ee="ee_link",
+        name="RobotUR10")

@@ -1,4 +1,5 @@
 from .btridiag_bcr import block_tridiag_solve_bcr, solve_lanes_bcr
+from .ee_goal import make_ee_goal_terms
 from .gp_prior import (gp_prior_terms, sample_gp_prior_trajs,
                        straight_line_trajs)
 from .gpmp2 import (GPMP2Params, GPMP2Result, gpmp2_init_trajs, gpmp2_solve,
@@ -16,4 +17,5 @@ __all__ = ["GPMP2Params", "GPMP2Result", "gpmp2_init_trajs", "gpmp2_solve",
            "ILQRParams", "ILQRResult", "ilqr_solve",
            "riccati_backward_lanes", "linesearch_rollout_lanes",
            "SGPMPParams", "SGPMPResult", "sgpmp_solve", "sgpmp_solve_normals",
-           "solve_lanes_bcr", "block_tridiag_solve_bcr"]
+           "solve_lanes_bcr", "block_tridiag_solve_bcr",
+           "make_ee_goal_terms"]

@@ -27,6 +27,12 @@ on the TPU and ignores the option elsewhere; here the card is the TPU's
 counterpart, and the CPU runs the same schedule so that the tests can hold
 it to the reference's interpret-mode run.  For m > 16 the option is
 ignored, with a warning, as the reference ignores it.
+
+Every solver takes an optional ``ee_goal_terms`` (``solve.ee_goal.
+make_ee_goal_terms``): an EE-pose goal factor added to the final
+waypoint's block of each GN system.  Under reuse a substitution iteration
+re-solves against the factor of its refactor iteration, whose last block
+held that iteration's EE Hessian, as in the reference.
 """
 from __future__ import annotations
 
@@ -104,10 +110,12 @@ def gpmp2_init_trajs(generator: torch.Generator, params: GPMP2Params,
 
 
 def _lanes_gn_system(lanes_terms, theta, start_state, goal_state,
-                     params: GPMP2Params):
+                     params: GPMP2Params, ee_goal_terms=None):
     """GN system for theta (B, H, m) in the solver layout:
     (b_l (H, m, B), D_l (H, m, m, B), U_l (H, m, m, 1), cost_traj (B,)).
-    Waypoint lanes are h-major (n = h * B + b)."""
+    Waypoint lanes are h-major (n = h * B + b).  ``ee_goal_terms`` adds its
+    gradient and Hessian to the last block in place (D_l stays the one
+    contiguous tensor the sum makes)."""
     B, H, m = theta.shape
     d = m // 2
     lam = 1.0 / (params.sigma_coll ** 2)
@@ -123,16 +131,21 @@ def _lanes_gn_system(lanes_terms, theta, start_state, goal_state,
     eye = torch.eye(m, dtype=theta.dtype, device=theta.device)
     D_l = (D[..., None] + H_obs_l
            + params.solver_delta * eye[..., None]).contiguous()  # (H,m,m,B)
+    if ee_goal_terms is not None:
+        g_ee, H_ee, _ = ee_goal_terms(theta[..., -1, :d])   # (B,m), (B,m,m)
+        b_l[-1] -= g_ee.T
+        D_l[-1] += H_ee.permute(1, 2, 0)
     U_l = torch.cat([U, torch.zeros_like(U[:1])])[..., None].contiguous()
     return b_l, D_l, U_l, torch.sum(cost, dim=0)
 
 
 def gpmp2_step(residual_fn: Callable, theta, start_state, goal_state,
-               params: GPMP2Params):
+               params: GPMP2Params, ee_goal_terms: Callable = None):
     """One Gauss-Newton step over a batch of trajectories theta (B, H, m).
 
     ``residual_fn`` carries ``obstacle_terms_lanes`` (a PlanningTask's
-    ``collision_residuals``).  Returns (theta_next, collision cost per
+    ``collision_residuals``); ``ee_goal_terms`` (optional) an EE-pose goal
+    factor on the final waypoint.  Returns (theta_next, collision cost per
     trajectory (B,))."""
     from ..ops.btridiag_kernel import solve_lanes_auto
     lanes_terms = getattr(residual_fn, "obstacle_terms_lanes", None)
@@ -141,30 +154,31 @@ def gpmp2_step(residual_fn: Callable, theta, start_state, goal_state,
             "only the lanes GN path (theta (B, H, m) with lanes terms) is "
             "ported")
     b_l, D_l, U_l, cost_traj = _lanes_gn_system(
-        lanes_terms, theta, start_state, goal_state, params)
+        lanes_terms, theta, start_state, goal_state, params, ee_goal_terms)
     x_l = solve_lanes_auto(D_l, U_l, b_l)                        # (H, m, B)
     theta_next = theta + params.step_size * x_l.permute(2, 0, 1)
     return theta_next, cost_traj
 
 
 def gpmp2_solve(residual_fn: Callable, theta0, start_state, goal_state,
-                params: GPMP2Params) -> GPMP2Result:
+                params: GPMP2Params,
+                ee_goal_terms: Callable = None) -> GPMP2Result:
     """``params.opt_iters`` Gauss-Newton steps from theta0 (B, H, m) (e.g.
-    from ``gpmp2_init_trajs``); ``refactor_every`` > 1 takes the reuse
-    schedule of the module doc."""
+    from ``gpmp2_init_trajs``), with an optional EE-pose goal factor;
+    ``refactor_every`` > 1 takes the reuse schedule of the module doc."""
     if params.refactor_every > 1 and theta0.dim() == 3:
         lanes_terms = getattr(residual_fn, "obstacle_terms_lanes", None)
         m = theta0.shape[-1]
         if lanes_terms is not None and m <= _REUSE_MAX_M:
             return _gpmp2_solve_reuse(lanes_terms, theta0, start_state,
-                                      goal_state, params)
+                                      goal_state, params, ee_goal_terms)
         warnings.warn("refactor_every=%d is ignored: factorization reuse "
                       "takes lanes terms and m <= %d (m = %d)"
                       % (params.refactor_every, _REUSE_MAX_M, m))
     theta, costs = theta0, []
     for _ in range(params.opt_iters):
         theta, cost = gpmp2_step(residual_fn, theta, start_state, goal_state,
-                                 params)
+                                 params, ee_goal_terms)
         costs.append(cost)
     cost_trace = torch.stack(costs)
     return GPMP2Result(trajs=theta, costs=cost_trace[-1],
@@ -172,7 +186,8 @@ def gpmp2_solve(residual_fn: Callable, theta0, start_state, goal_state,
 
 
 def _gpmp2_solve_reuse(lanes_terms, theta0, start_state, goal_state,
-                       params: GPMP2Params) -> GPMP2Result:
+                       params: GPMP2Params,
+                       ee_goal_terms=None) -> GPMP2Result:
     """GN solve with factorization reuse (module doc): the factor sweep on
     iterations 0, k, 2k, ..., the substitution sweep against its stale
     factors on the others."""
@@ -180,7 +195,8 @@ def _gpmp2_solve_reuse(lanes_terms, theta0, start_state, goal_state,
     theta, L, W, costs = theta0, None, None, []
     for it in range(params.opt_iters):
         b_l, D_l, U_l, cost_traj = _lanes_gn_system(
-            lanes_terms, theta, start_state, goal_state, params)
+            lanes_terms, theta, start_state, goal_state, params,
+            ee_goal_terms)
         if it % params.refactor_every == 0:
             x_l, L, W = solve_lanes_factor(D_l, U_l, b_l)
         else:
@@ -195,6 +211,7 @@ def _gpmp2_solve_reuse(lanes_terms, theta0, start_state, goal_state,
 def gpmp2_solve_restarts(residual_fn: Callable, theta0, start_state,
                          goal_state, params: GPMP2Params, free_fn: Callable,
                          generator: torch.Generator,
+                         ee_goal_terms: Callable = None,
                          restart_rounds: int = 1,
                          restart_iters: Optional[int] = None) -> GPMP2Result:
     """GPMP2 with random restarts of the trajectories that end in
@@ -205,9 +222,11 @@ def gpmp2_solve_restarts(residual_fn: Callable, theta0, start_state,
     flags as not free with fresh GP-prior samples (drawn from
     ``generator``) and re-solves the whole batch for ``restart_iters``
     iterations (default opt_iters // 2), adopting the results only for
-    those lanes: free solutions are kept bit for bit.  ``cost_trace`` is
-    the main solve's."""
-    res = gpmp2_solve(residual_fn, theta0, start_state, goal_state, params)
+    those lanes: free solutions are kept bit for bit.  Every solve takes
+    the optional EE-pose goal factor.  ``cost_trace`` is the main
+    solve's."""
+    res = gpmp2_solve(residual_fn, theta0, start_state, goal_state, params,
+                      ee_goal_terms)
     trajs, costs = res.trajs, res.costs
     B = theta0.shape[0]
     it_r = (max(params.opt_iters // 2, 1) if restart_iters is None
@@ -220,14 +239,15 @@ def gpmp2_solve_restarts(residual_fn: Callable, theta0, start_state,
             params.dt, params.sigma_gp_init)
         theta_init = torch.where(free[:, None, None], trajs, theta_new)
         res_r = gpmp2_solve(residual_fn, theta_init, start_state, goal_state,
-                            p_r)
+                            p_r, ee_goal_terms)
         trajs = torch.where(free[:, None, None], trajs, res_r.trajs)
         costs = torch.where(free, costs, res_r.costs)
     return GPMP2Result(trajs=trajs, costs=costs, cost_trace=res.cost_trace)
 
 
 def gpmp2_solve_adaptive(residual_fn: Callable, theta0, start_state,
-                         goal_state, params: GPMP2Params):
+                         goal_state, params: GPMP2Params,
+                         ee_goal_terms: Callable = None):
     """Gauss-Newton with early exit on ``params.stop_criteria``: at most
     ``opt_iters`` steps, stopping as soon as every trajectory's relative
     cost change |c_prev - c| / max(|c_prev|, 1e-10) is at most the
@@ -236,7 +256,7 @@ def gpmp2_solve_adaptive(residual_fn: Callable, theta0, start_state,
     fixed-count solve.  -> (trajs, costs, n_iters run)."""
     if params.stop_criteria <= 0.0:
         res = gpmp2_solve(residual_fn, theta0, start_state, goal_state,
-                          params)
+                          params, ee_goal_terms)
         return res.trajs, res.costs, params.opt_iters
     batch = theta0.shape[:-2]
     kw = dict(dtype=theta0.dtype, device=theta0.device)
@@ -249,7 +269,7 @@ def gpmp2_solve_adaptive(residual_fn: Callable, theta0, start_state,
         if not bool((rel > params.stop_criteria).any()):
             break
         theta, cost_next = gpmp2_step(residual_fn, theta, start_state,
-                                      goal_state, params)
+                                      goal_state, params, ee_goal_terms)
         cost_prev, cost = cost, cost_next
         n_iters += 1
     return theta, cost, n_iters

@@ -3,7 +3,9 @@ torch_robotics_tpu/solve/mpc.py).
 
 Each control step re-optimizes the H-step plan from the current state with
 a few warm-started GN iterations, advances to the plan's next waypoint and
-shifts the plan one step.  Batched over independent problems.
+shifts the plan one step.  Batched over independent problems.  An
+optional ``ee_goal_terms`` (``solve.ee_goal``) puts an EE-pose goal factor
+on the horizon's final waypoint: Cartesian-goal MPC without IK.
 """
 from __future__ import annotations
 
@@ -37,14 +39,14 @@ def mpc_init(start_state, goal_state, params: MPCParams) -> MPCState:
 
 
 def mpc_step(residual_fn: Callable, state: MPCState, goal_state,
-             params: MPCParams):
+             params: MPCParams, ee_goal_terms: Callable = None):
     """One receding-horizon control step -> (next MPCState, info dict with
     the last iteration's ``collision_cost`` (B,) and ``dist_to_goal``)."""
     theta = state.theta
     cost = None
     for _ in range(params.iters_per_step):
         theta, cost = gpmp2_step(residual_fn, theta, state.x, goal_state,
-                                 params.gpmp2)
+                                 params.gpmp2, ee_goal_terms)
     x_next = theta[..., 1, :]
     theta_shifted = torch.cat([theta[..., 1:, :], theta[..., -1:, :]],
                               dim=-2)
@@ -56,14 +58,16 @@ def mpc_step(residual_fn: Callable, state: MPCState, goal_state,
 
 
 def mpc_rollout(residual_fn: Callable, start_state, goal_state,
-                params: MPCParams, n_steps: int):
+                params: MPCParams, n_steps: int,
+                ee_goal_terms: Callable = None):
     """Run ``n_steps`` receding-horizon steps from the straight-line plans
     -> (executed states (B, n_steps, 2d), info dict with ``dist_to_goal``
     (n_steps, B) and ``final_state``, the MPCState after the last step)."""
     state = mpc_init(start_state, goal_state, params)
     xs, dists = [], []
     for _ in range(n_steps):
-        state, info = mpc_step(residual_fn, state, goal_state, params)
+        state, info = mpc_step(residual_fn, state, goal_state, params,
+                               ee_goal_terms)
         xs.append(state.x)
         dists.append(info["dist_to_goal"])
     return (torch.stack(xs, dim=-2),
