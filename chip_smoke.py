@@ -7,8 +7,9 @@ for the Panda and the config-4 robot with the solvers nothing routes to
 (phases 21-25), the learned self-collision Panda's net row through
 the terms, the cost and the main path (phases 26-28), the scenes
 whose spheres are precomputed into an SDF grid, with the grid branch of
-K1, K5 and K8 (phases 29-32), and the Panda holding a grasped box, with
-the grasped-point branch of K1, K5 and K8 (phases 33-36).
+K1, K5 and K8 (phases 29-32), the Panda holding a grasped box, with
+the grasped-point branch of K1, K5 and K8 (phases 33-36), and config 2's
+hybrid leg, CHOMP and config 5's sharded MPC (phases 37-39).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -283,10 +284,50 @@ final line):
              vs plain on the sGPMP candidates (N = 131,072) with a lane's
              bits at a ragged N and at 32 lanes a block, timed; config 4's
              sGPMP on it: exactly 201 K8-MultiRobot launches.
+37. hybrid - config 2's hybrid leg (run_all.py:167-176): the point mass in
+             EnvDense2D, cutoff 0.02, start (-0.9, -0.9), goal (0.9, 0.9),
+             plan_hybrid with the scene's RRT-Connect preset (50,000
+             pre-samples, max_time 50) and its GPMP2 preset at B = 1024 and
+             150 iterations: RRT finds a path (the same path from the same
+             seed twice) well inside max_time; exactly 150 K2 launches at
+             (64, 4, 1024) and nothing else; finite outputs, endpoints
+             within 2e-2, fraction free >= 0.5 (tests/test_hybrid.py's
+             floors; the JAX package's 94.7-94.8% printed beside it);
+             RRT seconds, its iterations, segment checks and ms a check,
+             the whole call's wall, a profile of the refinement (5
+             iterations from the seed); K2 on the seed's first GN system
+             held to float64 and timed.
+38. chomp  - CHOMP at BASELINE.md's size: the Panda in EnvSpheres3D,
+             cutoff 0.03, B = 512 straight lines from bench_problem's start
+             to its goal, H = 64, CHOMPParams' defaults with 50
+             iterations: exactly 50 K1 (N = 32,768), 50 K8 (N = 32,768)
+             and 50 K2 ((64, 14, 512)) launches; finite outputs; the first
+             8 lanes held to a float64 CPU run, no worse than the CPU
+             float32 run in the worst and the median lane (the CPU runs
+             go in a process started before the build, and the first
+             timed phase waits for them); the same lanes
+             with the obstacle gradient scaled to ~0 (a control) must miss
+             both limits by CH_CONTROL_MARGIN, and float64 must move theta
+             by as much; K1, K8 and K2
+             on the path's first inputs vs plain (K1's Hqq off the lanes
+             at a hinge edge, HINGE_EDGE) and timed; wall, the cost
+             trace's first and last values, fraction free, a profile.
+39. pod    - config 5 on one card (run_all.py:295-337):
+             mpc_rollout_sharded on a one-device mesh, B = 8192, H = 64,
+             8 steps of 2 GN iterations, start and goal in the joint-range
+             bands drawn from a seeded torch generator; at the reference's
+             chunk of 256 exactly 512 K1 (N = 16,384) and 512 K2 ((64, 14,
+             256)) launches, unchunked exactly 16 K1 (N = 524,288) and 16
+             K2 ((64, 14, 8192)); the two runs agree to 1e-5 of max|x| with
+             the same goal fraction; solves/s, goal fraction, a profile of
+             each; the first chunk's first 8 lanes held to float64 as
+             phase cpu holds its lanes; K1 and K2 at both shapes vs plain
+             and timed.
 
-Then one JSON line with every kernel's numbers (launches from phase 4 for
-K1 and K2, and from phase 6a's restarts solve for K1 and K2 on config
-3's path (entries obstacle_terms_ee_goal and btridiag_w_ee_goal, timed at
+Every phase line carries ``script_s``, its seconds since the script
+started.  Then one JSON line with every kernel's numbers (launches from
+phase 4 for K1 and K2, and from phase 6a's restarts solve for K1 and K2
+on config 3's path (entries obstacle_terms_ee_goal and btridiag_w_ee_goal, timed at
 that path's shapes), from phase 9 for K6, K7 and K8 at N = 79360, from phase 11 for
 K7 at the tracking loop's T = 15, from phase 21 for
 K8 at the sGPMP candidates' N, from phase 14 for K4 and K5, from phase 19
@@ -298,8 +339,12 @@ run for the net-cost row; the grid branches from phase 29's grid run
 for K1, phase 31's sGPMP for K8 and phase 32's MPC steps and sGPMP for
 K5 and K8-MultiRobot; the grasped branches from phase 34's run for K1,
 phase 35's sGPMP for K8 and phase 36's MPC steps and sGPMP for K5 and
-K8-MultiRobot; each bound at the FP32 rate, the net rows' at the 3xTF32
-rate of their tensor-core route), the nvidia-smi line, and the final
+K8-MultiRobot; phase 37's solve for K2 at m = 4 (btridiag_w_hybrid),
+phase 38's for K1, K8 and K2 (the *_chomp entries) and phase 39's runs
+for K1 and K2 chunked (*_pod) and unchunked (*_pod_unchunked), each timed
+on its path's first inputs; each bound at the FP32 rate, the net rows' at
+the 3xTF32 rate of their tensor-core route), the nvidia-smi line, and the
+final
 {"ok": true, "device": ...} line.
 """
 from __future__ import annotations
@@ -493,10 +538,50 @@ IK_TARGET_POS = (0.2, 0.4, 0.1)
 IK_F64_B, IK_F64_ITERS, IK_ADAM_ITERS, IK_MIN_VALID = 64, 40, 300, 0.9
 IK_VALID_TOL = 6
 IK_JAX = {"valid_fraction": 0.985, "median_iters": 28}
+# config 2's hybrid leg (run_all.py:167-176): config 2's problem and GPMP2
+# preset (PM_*) seeded by EnvDense2D's RRT-Connect preset; the JAX
+# package's fraction free there (BASELINE.md:80, :120), from another draw:
+# a quality figure, not a target; the floors are tests/test_hybrid.py's
+HY_JAX_FREE = (0.947, 0.948)
+HY_MIN_FREE, HY_END_TOL = 0.5, 2e-2
+# CHOMP (BASELINE.md's row, :71, :198): the Panda in EnvSpheres3D at the
+# main path's cutoff, B = 512, CHOMPParams' defaults (EnvSpheres3D has no
+# CHOMP preset) with 50 iterations, from bench_problem's straight lines;
+# its first CH_F64_B lanes held to a float64 CPU run.  A control: those
+# lanes solved on the card with the obstacle gradient scaled to ~0
+# (sigma_coll CH_CONTROL_SIGMA, lam = 1e-16: what a K1 returning g = 0
+# gives) must miss both of the hold's limits by CH_CONTROL_MARGIN, and the
+# float64 run must move theta by as much
+CH_B, CH_ITERS, CH_F64_B = 512, 50, 8
+CH_CONTROL_SIGMA, CH_CONTROL_MARGIN = 1e8, 4.0
+# config 5 (run_all.py:295-337) on one card: B = min(32768, 8192 x
+# devices), H = 64, 8 steps of 2 GN iterations, start and goal in the
+# joint-range bands of :310-314 drawn with a seeded torch generator; run
+# at the reference's chunk of 256 and unchunked; the two agree to
+# POD_AGREE of max|x| (the goal fraction counts final distances below 0.1,
+# mpc_rollout_sharded's)
+POD_B_PER_DEVICE, POD_B_MAX, POD_H, POD_STEPS = 8192, 32768, 64, 8
+POD_GP = dict(n_support_points=POD_H, dt=0.04, sigma_start=1e-3,
+              sigma_gp=1e-1, sigma_goal_prior=1e-3, sigma_coll=1e-4,
+              step_size=1.0)
+POD_AGREE, POD_F64_B = 1e-5, 8
+# K1 on these paths' q: a row whose pre-hinge value lies within HINGE_EDGE
+# of its threshold can be active in one float32 sum and not in another
+# (r ~ 3e-8 on one of config 5's 524,288 lanes), and its Jr^T Jr enters
+# Hqq whole or not at all: such lanes are held on g and the cost only,
+# counted, at most HINGE_EDGE_SHARE of the lanes (g = r Jr and the cost
+# are continuous there)
+HINGE_EDGE, HINGE_EDGE_SHARE = 1e-6, 1e-3
+
+
+# the script's start: every phase line carries its seconds since then
+T_START = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "script_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -574,6 +659,11 @@ def max_errs(got, ref):
 # call, printed by main() as phase "profiler": its device ms miss those
 # kernels' time
 PROFILE_MISSED = []
+# a profile is taken again only while it misses more than this share of its
+# launches: a profile of 70,000-120,000 launches missing 1-9 of them
+# (ee_goal, hybrid) reads its device time to 1e-4, and was taken three
+# times at several seconds each
+PROFILE_MISS_SHARE = 1e-3
 
 
 def profile_device(fn, n_units: int, n_top: int = 8):
@@ -581,10 +671,11 @@ def profile_device(fn, n_units: int, n_top: int = 8):
     unit, top kernels' device ms per unit), read from the profiler's raw
     (Kineto) events, which give each kernel-launch call its kernel by
     correlation id (``prof.events()`` drops more).  A session can still
-    miss a few kernels (up to 4 of 351 launches on an H100): a session
-    with a launch that has no kernel is taken again, up to three times,
-    the one that missed fewest counts, and its count of launches without
-    a kernel goes to PROFILE_MISSED, which main() prints."""
+    miss a few kernels (up to 4 of 351 launches on an H100): a profile
+    that missed more than PROFILE_MISS_SHARE of its launches is taken
+    again, up to three times, the one that missed fewest counts, and its
+    count of launches without a kernel goes to PROFILE_MISSED, which
+    main() prints."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -608,7 +699,7 @@ def profile_device(fn, n_units: int, n_top: int = 8):
         missed = len(launched - ran)
         if best is None or missed < best[0]:
             best = (missed, len(launched), by_kernel, wall_ms)
-        if not missed:
+        if missed <= PROFILE_MISS_SHARE * len(launched):
             break
     missed, n_launched, by_kernel, wall_ms = best
     PROFILE_MISSED.append((missed, n_launched))
@@ -1496,15 +1587,21 @@ def theta_gaps(th_card, th_cpu, th_64):
     return out
 
 
+def f64_limits(gaps):
+    """hold_to_f64's limits: twice the CPU float32 run's own error off
+    float64 (+1e-5 of max|theta|), in the worst and in the median lane."""
+    return {stat: 2.0 * gaps["cpu" + stat] + 1e-5
+            for stat in ("_vs_f64", "_vs_f64_median_lane")}
+
+
 def hold_to_f64(name: str, gaps, worst: bool = True) -> None:
-    """The card may be off float64 by at most twice the CPU float32 run's
-    own error (+1e-5 of max|theta|), in its worst (unless ``worst`` is
-    False) and in its median lane."""
-    for stat in (("_vs_f64",) if worst else ()) + ("_vs_f64_median_lane",):
-        card, cpu = gaps["card" + stat], gaps["cpu" + stat]
-        check(card <= 2.0 * cpu + 1e-5,
-              "%s: card theta%s %.3g, CPU float32 %.3g" % (name, stat, card,
-                                                            cpu))
+    """The card may be off float64 by at most f64_limits, in its worst
+    (unless ``worst`` is False) and in its median lane."""
+    for stat, limit in f64_limits(gaps).items():
+        if worst or stat != "_vs_f64":
+            card, cpu = gaps["card" + stat], gaps["cpu" + stat]
+            check(card <= limit, "%s: card theta%s %.3g, CPU float32 %.3g"
+                  % (name, stat, card, cpu))
 
 
 def phase_cpu():
@@ -4796,6 +4893,461 @@ def phase_mr_grasp():
     return k5, k8
 
 
+# ----------------------------------------------------------------------
+# config 2's hybrid leg, CHOMP and config 5
+# ----------------------------------------------------------------------
+def k2_entry(name, D_l, U_l, b_l, launches):
+    """K2 on a path's GN system vs its plain version, held to float64
+    (hold_solve's GN rule), timed over a CUDA graph beside the plain
+    version and the dense solve -> the kernels-line numbers."""
+    import torch
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import solve_lanes_w
+    from torch_robotics_tpu_torch.solve.btridiag_lanes import (
+        solve_lanes_core)
+    x_k = solve_lanes_w(D_l, U_l, b_l)
+    x_p = solve_lanes_core(D_l, U_l, b_l)
+    held = hold_solve(name, x_k, x_p, solve_lanes_core(
+        D_l.double(), U_l.double(), b_l.double()), random=False)
+    H_, m, _, B_ = D_l.shape
+    out = dict(max_abs_err=held["abs"], held=held, launches=launches,
+               ms=device_ms(lambda: solve_lanes_w(D_l, U_l, b_l), iters=20),
+               plain_ms=cuda_ms(lambda: solve_lanes_core(D_l, U_l, b_l),
+                                iters=1, warmup=1),
+               work=solve_work(H_, m, B_))
+    del x_k, x_p
+    torch.cuda.empty_cache()
+    out["library_ms"] = cuda_ms(dense_solve_fn(D_l, U_l, b_l), iters=1,
+                                warmup=1)
+    torch.cuda.empty_cache()
+    return out
+
+
+def hinge_edge_lanes(task, q):
+    """Lanes (N,) with a residual row whose pre-hinge value lies within
+    HINGE_EDGE of its threshold: active in the plain rows with every
+    threshold raised by HINGE_EDGE, inactive with every one lowered by
+    it."""
+    lay = task.collision_residuals.obstacle_terms_lanes.plain.layout
+    rows = task.collision_residuals.obstacle_terms_lanes.plain.rows
+    thresh, margins = lay.obj_thresh, lay.self_margins
+    lay.obj_thresh, lay.self_margins = (thresh + HINGE_EDGE,
+                                        margins + HINGE_EDGE)
+    up = rows(q)[0] > 0
+    lay.obj_thresh, lay.self_margins = (thresh - HINGE_EDGE,
+                                        margins - HINGE_EDGE)
+    down = rows(q)[0] > 0
+    lay.obj_thresh, lay.self_margins = thresh, margins
+    return (up & ~down).any(0)
+
+
+def k1_entry(name, task, q, launches):
+    """K1 on a path's q (d, N) vs its plain version at the terms
+    tolerance (Hqq off the hinge-edge lanes, HINGE_EDGE), timed over a
+    CUDA graph beside the plain version -> the kernels-line numbers and
+    the count of edge lanes."""
+    from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
+    lanes_terms = task.collision_residuals.obstacle_terms_lanes
+    edge = hinge_edge_lanes(task, q)
+    n_edge = int(edge.sum())
+    check(n_edge <= HINGE_EDGE_SHARE * q.shape[1],
+          "%s: %d of %d lanes at a hinge edge" % (name, n_edge, q.shape[1]))
+    got, ref = lanes_terms.unscaled(q), lanes_terms.plain.unscaled(q)
+    errs = {}
+    hold_terms(name, (got[0], got[1][..., ~edge], got[2]),
+               (ref[0], ref[1][..., ~edge], ref[2]), errs)
+    r = lanes_terms.plain.rows(q)[0]
+    return dict(max_abs_err=errs[name][0], launches=launches,
+                hinge_edge_lanes=n_edge,
+                ms=device_ms(lambda: lanes_terms.unscaled(q), iters=20),
+                plain_ms=cuda_ms(lambda: lanes_terms.plain.unscaled(q),
+                                 iters=1, warmup=1),
+                work=terms_work(TermsLayout(task), q, r))
+
+
+def phase_hybrid():
+    """Config 2's hybrid leg at full size (run_all.py:167-176): RRT-Connect
+    with EnvDense2D's preset, the clamped spline, 1024 jittered copies
+    refined by 150 GPMP2 iterations; see the module doc."""
+    import dataclasses
+
+    import torch
+    from torch_robotics_tpu_torch.solve import (GPMP2Params, RRTConnectParams,
+                                                gpmp2_solve, plan_hybrid,
+                                                rrt_connect)
+    from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
+    from torch_robotics_tpu_torch.solve.hybrid import _hybrid_seed
+    task, params, _, _, _ = pm_problem("cuda", 1)
+    env, robot = task.env, task.robot
+    rrt = RRTConnectParams.from_preset(env.get_rrt_connect_params(robot))
+    start_q = torch.tensor(PM_START[:2], device="cuda")
+    goal_q = torch.tensor(PM_GOAL[:2], device="cuda")
+    start, goal = (torch.tensor(PM_START, device="cuda"),
+                   torch.tensor(PM_GOAL, device="cuda"))
+    H_ = params.n_support_points
+
+    # plan_hybrid's seed, drawn as it draws it (its generator: the RRT's
+    # pre-samples, then the jitter); warms the kd-tree build and the solve
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    path0 = rrt_connect(task, start_q, goal_q, rrt, generator=gen)
+    check(path0 is not None, "hybrid: RRT-Connect found no path")
+    normals = torch.randn((PM_B, H_, 4), generator=gen, device="cuda")
+    theta0 = _hybrid_seed(path0, start_q, goal_q, H_, params.dt, normals,
+                          0.02)
+    gpmp2_solve(task.collision_residuals, theta0, start, goal,
+                dataclasses.replace(params, opt_iters=2))     # warm-up
+    b_l, D_l, U_l, _ = _lanes_gn_system(
+        task.collision_residuals.obstacle_terms_lanes, theta0, start, goal,
+        params)
+    check(tuple(D_l.shape) == (H_, 4, 4, PM_B),
+          "hybrid's GN system is %s" % (tuple(D_l.shape),))
+    k2 = k2_entry("k2_hybrid_gn", D_l, U_l, b_l, PM_ITERS)
+
+    stats = {}
+
+    def plan():
+        t0 = time.perf_counter()
+        out = plan_hybrid(task, start_q, goal_q, gpmp2_params=params,
+                          num_samples=PM_B, stats=stats)
+        torch.cuda.synchronize()
+        stats["wall_s"] = time.perf_counter() - t0
+        return out
+
+    (res, path), launches, _ = counted(plan)
+    check(path is not None, "hybrid: plan_hybrid's RRT found no path")
+    check(stats["rrt_s"] < rrt.max_time,
+          "hybrid: RRT ran into its max_time (%.1f s)" % stats["rrt_s"])
+    check(np.array_equal(path, path0), "hybrid: the RRT path changed "
+          "between two draws from the same seed")
+    check(launches == {"btridiag_w": PM_ITERS},
+          "hybrid launches %s, expected %d of btridiag_w only"
+          % (launches, PM_ITERS))
+    check(all(bool(torch.isfinite(t).all()) for t in res),
+          "hybrid produced non-finite results")
+    ends = max(float((res.trajs[:, 0, :2] - start_q).abs().max()),
+               float((res.trajs[:, -1, :2] - goal_q).abs().max()))
+    check(ends <= HY_END_TOL, "hybrid endpoints %.3g off" % ends)
+    free = task.compute_fraction_free_trajs(res.trajs)
+    check(free >= HY_MIN_FREE, "hybrid: fraction free %.4f below %.2f"
+          % (free, HY_MIN_FREE))
+    # the refinement's device time (5 iterations from the seed); the RRT's
+    # queries are host-bound by construction (one synchronising check an
+    # extend), its share is the wall's rest
+    busy, dev_ms, top = profile_device(lambda: gpmp2_solve(
+        task.collision_residuals, theta0, start, goal,
+        dataclasses.replace(params, opt_iters=5)), 5)
+    emit("hybrid", B=PM_B, H=H_, m=4, iterations=PM_ITERS,
+         rrt_params=dataclasses.asdict(rrt), rrt_found=True,
+         rrt_path_nodes=int(path.shape[0]), rrt_s=stats["rrt_s"],
+         rrt_presample_s=stats["sample_s"], rrt_iterations=stats["n_iters"],
+         rrt_segment_checks=stats["n_checks"],
+         rrt_ms_per_check=stats["check_s"] * 1e3 / stats["n_checks"],
+         plan_hybrid_wall_s=stats["wall_s"], launches=launches,
+         fraction_free=free, jax_package_fraction_free=HY_JAX_FREE,
+         endpoint_max_err=ends, mean_final_cost=float(res.costs.mean()),
+         k2=dict(held=k2["held"], kernel_ms=k2["ms"],
+                 plain_ms=k2["plain_ms"], dense_solve_ms=k2["library_ms"]),
+         refinement_profiled_device_busy_share=busy,
+         refinement_profiled_device_ms_per_iteration=dev_ms,
+         refinement_top_device_ms_per_iteration=top)
+    return k2
+
+
+def chomp_cpu_child(conn, theta0, start, goal):
+    """Process body: CHOMP on the CPU from numpy theta0 (n, H, 14), start
+    and goal (n, 14), in float32 and float64; the two trajectories and the
+    wall clock (time.time()) at their end go back through ``conn``."""
+    import torch
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.solve import CHOMPParams, chomp_solve
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    torch.set_num_threads(2)
+    task = PlanningTask(env=EnvSpheres3D(device="cpu"),
+                        robot=RobotPanda.create(device="cpu"),
+                        obstacle_cutoff_margin=0.03)
+    params = CHOMPParams(n_support_points=H, opt_iters=CH_ITERS)
+    th, s, g = (torch.from_numpy(a) for a in (theta0, start, goal))
+    out = [chomp_solve(task.collision_residuals, th.to(dt), s.to(dt),
+                       g.to(dt), params).trajs.numpy()
+           for dt in (torch.float32, torch.float64)]
+    conn.send((out, time.time()))
+    conn.close()
+
+
+def chomp_theta0(start, goal):
+    """Phase chomp's straight lines, drawn on the CPU (so the CPU runs and
+    the card start from the same bits) -> theta0 on start's device."""
+    from torch_robotics_tpu_torch.solve import straight_line_trajs
+    return straight_line_trajs(start.cpu(), goal.cpu(), H).to(start.device)
+
+
+def start_chomp_cpu():
+    """Start phase chomp's CPU runs (its first CH_F64_B problems, float32
+    and float64, ~15-30 s of two threads) in a background process while
+    nvcc builds the kernels (main() waits for their result before the
+    first timed phase): spawned and daemonic, so it ends with this script
+    -> (process, connection, theta0 of those lanes)."""
+    import multiprocessing as mp
+    _, start, goal = bench_problem("cpu", CH_F64_B)
+    theta0 = chomp_theta0(start, goal)
+    ctx = mp.get_context("spawn")
+    parent, child = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=chomp_cpu_child, daemon=True, args=(
+        child, theta0.cpu().numpy(), start.cpu().numpy(),
+        goal.cpu().numpy()))
+    proc.start()
+    child.close()
+    return proc, parent, theta0
+
+
+def phase_chomp(cpu_job):
+    """CHOMP at BASELINE.md's size: the Panda in EnvSpheres3D, B = 512, H =
+    64, 50 iterations of CHOMPParams' defaults from bench_problem's
+    straight lines; its first lanes held to the CPU runs of ``cpu_job``
+    (start_chomp_cpu); see the module doc."""
+    import dataclasses
+
+    import torch
+    from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
+    from torch_robotics_tpu_torch.ops.terms_kernel import run_cost_kernel
+    from torch_robotics_tpu_torch.solve import (CHOMPParams, chomp_solve,
+                                                gp_prior_terms)
+    task, start, goal = bench_problem("cuda", CH_B)
+    params = CHOMPParams(n_support_points=H, opt_iters=CH_ITERS)
+    theta0 = chomp_theta0(start, goal)
+    res_fn = task.collision_residuals
+    d, m, N = 7, 14, CH_B * H
+
+    # the path's first inputs: q (b-major lanes), the clipped gradient and
+    # the preconditioning system D + 1e-6 I shared over the batch
+    q = theta0[..., :d].reshape(-1, d).T.contiguous()
+    lam = 1.0 / params.sigma_coll ** 2
+    k1 = k1_entry("chomp_q_N%d" % N, task, q, CH_ITERS)
+    cost = res_fn.collision_cost_lanes
+    k8_err = hold_cost("chomp_q_N%d" % N, cost(q), cost.plain(q))
+    same_lane_bits("chomp_q_N%d" % N, cost, run_cost_kernel, q)
+    r = res_fn.obstacle_terms_lanes.plain.rows(q)[0]
+    k8 = dict(max_abs_err=k8_err[0], launches=CH_ITERS,
+              ms=device_ms(lambda: cost(q), iters=20),
+              plain_ms=cuda_ms(lambda: cost.plain(q), iters=1, warmup=1),
+              work=cost_work(TermsLayout(task), N, r.shape[0]))
+    g_gp, D, U = gp_prior_terms(theta0, start, goal, params.dt,
+                                params.sigma_start, params.sigma_gp,
+                                params.sigma_goal)
+    g_q = res_fn.obstacle_terms_lanes(q, lam)[0]
+    g = torch.clamp(params.weight_prior_cost * g_gp
+                    + g_q.T.reshape(theta0.shape), -params.grad_clip,
+                    params.grad_clip)
+    eye = torch.eye(m, device="cuda")
+    D_l = (D + 1e-6 * eye)[..., None].expand(H, m, m, CH_B).contiguous()
+    U_l = torch.cat([U, torch.zeros_like(U[:1])])[..., None].contiguous()
+    k2 = k2_entry("k2_chomp", D_l, U_l, g.permute(1, 2, 0).contiguous(),
+                  CH_ITERS)
+
+    chomp_solve(res_fn, theta0, start, goal,
+                dataclasses.replace(params, opt_iters=2))     # warm-up
+    res, launches, ms = counted(
+        lambda: chomp_solve(res_fn, theta0, start, goal, params))
+    expected = {"terms": CH_ITERS, "cost": CH_ITERS,
+                "btridiag_w": CH_ITERS}
+    check(launches == expected, "chomp launches %s, expected %s"
+          % (launches, expected))
+    check(all(bool(torch.isfinite(t).all()) for t in res),
+          "chomp produced non-finite results")
+    check(tuple(res.cost_trace.shape) == (CH_ITERS,), "chomp trace shape")
+    n = CH_F64_B
+    free = task.compute_fraction_free_trajs(res.trajs)
+    busy, dev_ms, top = profile_device(lambda: chomp_solve(
+        res_fn, theta0, start, goal,
+        dataclasses.replace(params, opt_iters=5)), 5)
+    ctl = chomp_solve(res_fn, theta0[:n], start[:n], goal[:n],
+                      dataclasses.replace(params,
+                                          sigma_coll=CH_CONTROL_SIGMA)).trajs
+
+    proc, conn, theta0_job = cpu_job
+    check(torch.equal(theta0_job, theta0[:n].cpu()),
+          "chomp: the CPU runs start elsewhere")
+    try:
+        (th_h, th_64), job_end = conn.recv()
+    except EOFError:
+        fail("chomp: the CPU runs' process ended with code %s and no result"
+             % proc.exitcode)
+    job_end_script_s = time.perf_counter() - T_START - (time.time()
+                                                        - job_end)
+    proc.join()
+    th_h, th_64 = torch.from_numpy(th_h), torch.from_numpy(th_64)
+    gaps = theta_gaps(res.trajs[:n], th_h, th_64)
+    hold_to_f64("chomp", gaps)
+    # the hold can fail a wrong gradient: the control misses its limits,
+    # and the float64 run moves theta well past them
+    limits = f64_limits(gaps)
+    ctl_gaps = theta_gaps(ctl, th_h, th_64)
+    moved = (float((th_64 - theta0_job.double()).abs().max())
+             / float(th_64.abs().max()))
+    for stat, limit in limits.items():
+        check(ctl_gaps["card" + stat] >= CH_CONTROL_MARGIN * limit,
+              "chomp: the zero-gradient control is off float64 by %.3g "
+              "(theta%s), within %g x the hold's limit %.3g"
+              % (ctl_gaps["card" + stat], stat, CH_CONTROL_MARGIN, limit))
+    check(moved >= CH_CONTROL_MARGIN * limits["_vs_f64"],
+          "chomp: float64 moves theta by %.3g of max|theta|, within %g x "
+          "the hold's limit %.3g" % (moved, CH_CONTROL_MARGIN,
+                                     limits["_vs_f64"]))
+    emit("chomp", B=CH_B, H=H, iterations=CH_ITERS,
+         params=dataclasses.asdict(params), launches=launches,
+         wall_ms=ms, ms_per_iteration=ms / CH_ITERS,
+         cost_trace_first_last=[float(res.cost_trace[0]),
+                                float(res.cost_trace[-1])],
+         fraction_free=free,
+         fraction_free_start=task.compute_fraction_free_trajs(theta0),
+         vs_float64=gaps, vs_float64_limits=limits,
+         f64_moved_rel_to_max=moved,
+         zero_gradient_control_vs_float64={
+             k: ctl_gaps["card" + k] for k in limits},
+         cpu_job_end_script_s=job_end_script_s,
+         k1=dict(kernel_ms=k1["ms"], plain_ms=k1["plain_ms"],
+                 hinge_edge_lanes=k1["hinge_edge_lanes"]),
+         k8=dict(max_abs_err=k8_err, kernel_ms=k8["ms"],
+                 plain_ms=k8["plain_ms"]),
+         k2=dict(held=k2["held"], kernel_ms=k2["ms"],
+                 plain_ms=k2["plain_ms"], dense_solve_ms=k2["library_ms"]),
+         profiled_device_busy_share=busy,
+         profiled_device_ms_per_iteration=dev_ms,
+         top_device_ms_per_iteration=top)
+    return k1, k8, k2
+
+
+def pod_problem(device, n_dev: int):
+    """Config 5's problem -> (task, start (B, 14), goal (B, 14)): B =
+    min(32768, 8192 x devices), start and goal uniform in the bands 0.2 of
+    the joint range wide at either end (run_all.py:310-314), from a torch
+    generator seeded SEED."""
+    import torch
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    task = PlanningTask(env=EnvSpheres3D(device=device),
+                        robot=RobotPanda.create(device=device),
+                        obstacle_cutoff_margin=0.03)
+    B_ = min(POD_B_MAX, POD_B_PER_DEVICE * n_dev)
+    B_ = (B_ // n_dev) * n_dev
+    robot = task.robot
+    gen = torch.Generator().manual_seed(SEED)
+    u1 = torch.rand((B_, robot.q_dim), generator=gen).to(device)
+    u2 = torch.rand((B_, robot.q_dim), generator=gen).to(device)
+    span = robot.q_max - robot.q_min
+    qs = robot.q_min + 0.2 * span * (1 + u1) / 2
+    qg = robot.q_max - 0.2 * span * (1 + u2) / 2
+    return (task, torch.cat([qs, torch.zeros_like(qs)], -1),
+            torch.cat([qg, torch.zeros_like(qg)], -1))
+
+
+def phase_pod():
+    """Config 5 on one card (run_all.py:295-337): mpc_rollout_sharded on a
+    one-device mesh at the reference's chunk of 256 and unchunked; see the
+    module doc."""
+    import torch
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    from torch_robotics_tpu_torch.parallel import (make_mesh,
+                                                   mpc_rollout_sharded,
+                                                   shard_batch)
+    from torch_robotics_tpu_torch.parallel.mesh import _POD_CHUNK
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.solve import (GPMP2Params, MPCParams,
+                                                straight_line_trajs)
+    from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    mesh = make_mesh()
+    n_dev = len(mesh)
+    check(n_dev == 1, "pod: the phase runs on one card, %d are visible"
+          % n_dev)
+    task, start, goal = pod_problem("cuda", n_dev)
+    B_ = start.shape[0]
+    gp = GPMP2Params(**POD_GP)
+    params = MPCParams(gpmp2=gp, iters_per_step=ITERS_PER_STEP)
+    res_fn = task.collision_residuals
+    s_sh, g_sh = shard_batch(start, mesh), shard_batch(goal, mesh)
+
+    # the first chunk's first GN system (K1's q, K2's system) and the
+    # whole batch's (the unchunked run's first launches)
+    def first(n):
+        theta = straight_line_trajs(start[:n], goal[:n], POD_H)
+        q = theta[..., :7].permute(2, 1, 0).reshape(7, -1).contiguous()
+        b_l, D_l, U_l, _ = _lanes_gn_system(res_fn.obstacle_terms_lanes,
+                                            theta, start[:n], goal[:n], gp)
+        return q, (D_l, U_l, b_l)
+
+    steps_iters = POD_STEPS * ITERS_PER_STEP
+    n_chunks = B_ // _POD_CHUNK
+    q_c, sys_c = first(_POD_CHUNK)
+    k1_c = k1_entry("pod_chunk_q_N%d" % q_c.shape[1], task, q_c,
+                    n_chunks * steps_iters)
+    k2_c = k2_entry("k2_pod_chunk", *sys_c, n_chunks * steps_iters)
+    q_u, sys_u = first(B_)
+    k1_u = k1_entry("pod_q_N%d" % q_u.shape[1], task, q_u, steps_iters)
+    del q_u, q_c, sys_c
+    torch.cuda.empty_cache()
+    k2_u = k2_entry("k2_pod", *sys_u, steps_iters)
+    del sys_u
+    torch.cuda.empty_cache()
+
+    mpc_rollout_sharded(res_fn, start[:2 * _POD_CHUNK],
+                        goal[:2 * _POD_CHUNK], params, 1, mesh)  # warm-up
+    runs = {}
+    for key, chunk, n_launch in (("chunked", _POD_CHUNK,
+                                  n_chunks * steps_iters),
+                                 ("unchunked", None, steps_iters)):
+        def roll(chunk=chunk):
+            t0 = time.perf_counter()
+            out = mpc_rollout_sharded(res_fn, s_sh, g_sh, params, POD_STEPS,
+                                      mesh, chunk=chunk)
+            torch.cuda.synchronize()
+            runs.setdefault(key, {})["wall_s"] = time.perf_counter() - t0
+            return out
+
+        (xs, frac), launches, ms = counted(roll)
+        expected = {"terms": n_launch, "btridiag_w": n_launch}
+        check(launches == expected, "pod %s launches %s, expected %s"
+              % (key, launches, expected))
+        check(bool(torch.isfinite(xs).all()) and tuple(xs.shape) == (
+            B_, POD_STEPS, 14), "pod %s: non-finite or misshapen states"
+              % key)
+        busy, dev_ms, top = profile_device(lambda: mpc_rollout_sharded(
+            res_fn, s_sh, g_sh, params, 2, mesh, chunk=chunk), 2)
+        runs[key].update(xs=xs, goal_fraction=float(frac),
+                         launches=launches, event_ms=ms,
+                         solves_per_s=B_ * POD_STEPS / runs[key]["wall_s"],
+                         profiled_device_busy_share=busy,
+                         profiled_device_ms_per_step=dev_ms,
+                         top_device_ms_per_step=top)
+    xs_c, xs_u = runs["chunked"].pop("xs"), runs["unchunked"].pop("xs")
+    agree = float((xs_c - xs_u).abs().max()) / float(xs_u.abs().max())
+    check(agree <= POD_AGREE, "pod: chunked and unchunked differ by %.3g of "
+          "max|x|" % agree)
+    check(runs["chunked"]["goal_fraction"]
+          == runs["unchunked"]["goal_fraction"],
+          "pod: the goal fraction depends on the chunking")
+    task_h = PlanningTask(env=EnvSpheres3D(device="cpu"),
+                          robot=RobotPanda.create(device="cpu"),
+                          obstacle_cutoff_margin=0.03)
+    n = POD_F64_B
+    iters, chained = step_vs_f64(
+        task, task_h, (start[:n], goal[:n]),
+        (start[:n].cpu(), goal[:n].cpu()), gp, POD_H, ITERS_PER_STEP, "pod ")
+    emit("pod", devices=n_dev, B=B_, H=POD_H, steps=POD_STEPS,
+         iters_per_step=ITERS_PER_STEP, chunk=_POD_CHUNK, runs=runs,
+         chunked_vs_unchunked_rel_to_max=agree,
+         first_chunk_vs_f64=dict(iterations=iters, chained_step=chained),
+         k1=dict(chunk_kernel_ms=k1_c["ms"], chunk_plain_ms=k1_c["plain_ms"],
+                 kernel_ms=k1_u["ms"], plain_ms=k1_u["plain_ms"],
+                 hinge_edge_lanes=[k1_c["hinge_edge_lanes"],
+                                   k1_u["hinge_edge_lanes"]]),
+         k2=dict(chunk_held=k2_c["held"], chunk_kernel_ms=k2_c["ms"],
+                 held=k2_u["held"], kernel_ms=k2_u["ms"],
+                 dense_solve_ms=[k2_c["library_ms"], k2_u["library_ms"]]))
+    return k1_c, k2_c, k1_u, k2_u
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4805,7 +5357,9 @@ def main() -> None:
         import torch_robotics_tpu_torch  # noqa: F401
     except ImportError as e:
         fail("run from the root of a checkout: %s" % e)
+    chomp_cpu = start_chomp_cpu()
     smi = phase_build()
+    chomp_cpu[1].poll(None)     # no timed phase shares the host with it
     terms = phase_terms()
     solve = phase_solve()
     launches = phase_main()
@@ -4862,6 +5416,10 @@ def main() -> None:
     grasp_k1 = phase_grasp_main()
     grasp_cost, grasp_cost_launches = phase_grasp_cost(il_start, il_goal)
     mr_grasp_k5, mr_grasp_k8 = phase_mr_grasp()
+
+    hy_k2 = phase_hybrid()
+    ch_k1, ch_k8, ch_k2 = phase_chomp(chomp_cpu)
+    pod_k1_c, pod_k2_c, pod_k1, pod_k2 = phase_pod()
 
     entries = []
     for name, src, rep, res, n in (
@@ -4964,7 +5522,33 @@ def main() -> None:
             ("collision_cost_multirobot_grasped",
              "torch_robotics_tpu_torch/csrc/cost.cu",
              "torch_robotics_tpu/ops/pallas_terms.py:1029", mr_grasp_k8,
-             mr_grasp_k8["launches"])):
+             mr_grasp_k8["launches"]),
+            ("btridiag_w_hybrid", "torch_robotics_tpu_torch/csrc/btridiag.cu",
+             "torch_robotics_tpu/ops/pallas_btridiag.py:330", hy_k2,
+             hy_k2["launches"]),
+            ("obstacle_terms_chomp", "torch_robotics_tpu_torch/csrc/terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", ch_k1,
+             ch_k1["launches"]),
+            ("collision_cost_chomp", "torch_robotics_tpu_torch/csrc/cost.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029", ch_k8,
+             ch_k8["launches"]),
+            ("btridiag_w_chomp", "torch_robotics_tpu_torch/csrc/btridiag.cu",
+             "torch_robotics_tpu/ops/pallas_btridiag.py:330", ch_k2,
+             ch_k2["launches"]),
+            ("obstacle_terms_pod", "torch_robotics_tpu_torch/csrc/terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", pod_k1_c,
+             pod_k1_c["launches"]),
+            ("btridiag_w_pod", "torch_robotics_tpu_torch/csrc/btridiag.cu",
+             "torch_robotics_tpu/ops/pallas_btridiag.py:330", pod_k2_c,
+             pod_k2_c["launches"]),
+            ("obstacle_terms_pod_unchunked",
+             "torch_robotics_tpu_torch/csrc/terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", pod_k1,
+             pod_k1["launches"]),
+            ("btridiag_w_pod_unchunked",
+             "torch_robotics_tpu_torch/csrc/btridiag.cu",
+             "torch_robotics_tpu/ops/pallas_btridiag.py:330", pod_k2,
+             pod_k2["launches"])):
         # a tf32x3 kernel's float32-accurate products run at 495 / 3
         b_ms, b_by = bound_ms(*res["work"], PEAK_TF32X3_FLOPS
                               if res.get("route") == "tf32x3"

@@ -1,5 +1,6 @@
 from .base import EnvBase
-from .zoo import EnvDense2D, EnvMazeBoxes3D, EnvSpheres3D, make_env
+from .zoo import (EnvDense2D, EnvMazeBoxes3D, EnvNarrowPassageDense2D,
+                  EnvSpheres3D, make_env)
 
 __all__ = ["EnvBase", "EnvDense2D", "EnvMazeBoxes3D", "EnvSpheres3D",
-           "make_env"]
+           "EnvNarrowPassageDense2D", "make_env"]

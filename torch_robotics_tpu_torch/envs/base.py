@@ -77,24 +77,44 @@ class EnvBase:
             sdf = s if sdf is None else torch.minimum(sdf, s)
         return sdf
 
-    def _get_params(self, method: str, robot=None) -> dict:
-        """The scene's preset for ``method``; raises when there is none or
-        when it is for another robot."""
+    def _preset_refusal(self, method: str, robot=None):
+        """Why the scene has no ``method`` preset for ``robot`` (None when it
+        has one)."""
         entry = self._planner_params.get(method)
         if entry is None:
-            raise NotImplementedError(f"{self.name} has no {method} preset")
+            return f"{self.name} has no {method} preset"
         expected = entry.get("robot")
         if robot is not None and expected is not None:
             robot_name = getattr(robot, "name", type(robot).__name__)
             if expected not in (robot_name, type(robot).__name__):
-                raise NotImplementedError(
-                    f"{self.name} {method} preset is for {expected}, "
-                    f"got {robot_name}")
-        return dict(entry["params"])
+                return (f"{self.name} {method} preset is for {expected}, "
+                        f"got {robot_name}")
+        return None
+
+    def has_preset(self, method: str, robot=None) -> bool:
+        """Whether ``get_<method>_params(robot)`` returns a preset."""
+        return self._preset_refusal(method, robot) is None
+
+    def _get_params(self, method: str, robot=None) -> dict:
+        """The scene's preset for ``method``; raises when there is none or
+        when it is for another robot."""
+        refusal = self._preset_refusal(method, robot)
+        if refusal is not None:
+            raise NotImplementedError(refusal)
+        return dict(self._planner_params[method]["params"])
+
+    def get_rrt_connect_params(self, robot=None) -> dict:
+        """RRT-Connect hyperparameters (``solve.RRTConnectParams.
+        from_preset``)."""
+        return self._get_params("rrt_connect", robot)
 
     def get_gpmp2_params(self, robot=None) -> dict:
         """GPMP2 hyperparameters (``solve.GPMP2Params.from_preset``)."""
         return self._get_params("gpmp2", robot)
+
+    def get_chomp_params(self, robot=None) -> dict:
+        """CHOMP hyperparameters (``solve.CHOMPParams.from_preset``)."""
+        return self._get_params("chomp", robot)
 
     def get_sgpmp_params(self, robot=None) -> dict:
         """sGPMP hyperparameters (``solve.SGPMPParams.from_preset``)."""

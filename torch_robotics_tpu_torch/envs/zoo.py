@@ -14,7 +14,8 @@ from ..geom.sdf import (MultiBoxField, MultiSharpBoxField, MultiSphereField,
 from ..utils.files import get_data_path
 from .base import EnvBase
 
-__all__ = ["make_env", "EnvSpheres3D", "EnvMazeBoxes3D", "EnvDense2D"]
+__all__ = ["make_env", "EnvSpheres3D", "EnvMazeBoxes3D", "EnvDense2D",
+           "EnvNarrowPassageDense2D"]
 
 
 @lru_cache(maxsize=1)
@@ -74,3 +75,12 @@ def EnvDense2D(precompute_sdf_obj_fixed: bool = False,
     [-1, 1]^2 workspace."""
     return make_env("EnvDense2D", precompute_sdf_obj_fixed, sdf_cell_size,
                     device)
+
+
+def EnvNarrowPassageDense2D(precompute_sdf_obj_fixed: bool = False,
+                            sdf_cell_size: float = 0.005,
+                            device="cuda") -> EnvBase:
+    """Eight circles and eleven rounded boxes around a narrow passage in a
+    [-1, 1]^2 workspace (the hybrid planner's test scene)."""
+    return make_env("EnvNarrowPassageDense2D", precompute_sdf_obj_fixed,
+                    sdf_cell_size, device)

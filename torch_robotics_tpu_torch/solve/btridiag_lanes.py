@@ -9,13 +9,15 @@ as in the reference.  ``solve_lanes_factor_core`` also returns the factors
 ``solve_lanes_subst_core`` re-solves from them with a fresh right-hand
 side (the math of torch_robotics_tpu/ops/pallas_btridiag.py's
 ``_kernel_factor`` and ``_kernel_subst`` with ``_bwd_subst_loop``).
+``block_tridiag_solve_lanes`` takes the batch-major operands of
+``solve/btridiag.block_tridiag_solve`` and solves them in this layout.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["solve_lanes_core", "solve_lanes_factor_core",
-           "solve_lanes_subst_core"]
+           "solve_lanes_subst_core", "block_tridiag_solve_lanes"]
 
 
 def _chol_lanes(A):
@@ -121,3 +123,28 @@ def solve_lanes_subst_core(L, W, bt):
         Wy = torch.sum(W[k] * y_k[:, None, :], dim=0)
         ys.append(y_k)
     return _backward(L, ys, W)
+
+
+def block_tridiag_solve_lanes(D, U, b):
+    """Solve the block-tridiagonal SPD system A x = b in the lanes layout.
+
+    Same semantics as ``btridiag.block_tridiag_solve``: D (..., H, m, m),
+    U (..., H-1, m, m), b (..., H, m) with broadcastable batch dims.  The
+    operands go to (H, m, m, B) with the batch in the last axis; a D or U
+    shared by the whole batch is broadcast (U stays one shared (H, m, m, 1)
+    block set, which the sweep reads for every lane)."""
+    H, m = b.shape[-2], b.shape[-1]
+    batch = torch.broadcast_shapes(D.shape[:-3], U.shape[:-3], b.shape[:-2])
+    Bv = 1
+    for s in batch:
+        Bv *= s
+    Dt = D.expand(batch + (H, m, m)).reshape(Bv, H, m, m).permute(1, 2, 3, 0)
+    U_pad = torch.cat([U, torch.zeros_like(U[..., :1, :, :])], dim=-3)
+    if U.dim() == 3:
+        Ut = U_pad[..., None]                               # (H, m, m, 1)
+    else:
+        Ut = U_pad.expand(batch + (H, m, m)).reshape(
+            Bv, H, m, m).permute(1, 2, 3, 0)
+    bt = b.expand(batch + (H, m)).reshape(Bv, H, m).permute(1, 2, 0)
+    x = solve_lanes_core(Dt, Ut, bt)                        # (H, m, B)
+    return x.permute(2, 0, 1).reshape(batch + (H, m))

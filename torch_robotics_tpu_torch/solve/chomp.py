@@ -1,0 +1,145 @@
+"""Batched CHOMP: covariant gradient descent on trajectories (counterpart
+of torch_robotics_tpu/solve/chomp.py).
+
+Each iteration takes the functional gradient of the prior-weighted GP
+smoothness energy plus the obstacle cost, clips it, preconditions it by the
+smoothness metric (the GP prior's block-tridiagonal Hessian, the one GPMP2
+uses) and steps.  The obstacle gradient comes from the task's lanes terms
+(``obstacle_terms_lanes``: the terms kernel K1 on the card), the cost trace
+from its value-only cost (``collision_cost_lanes``: K8 on the card); a
+point mass, which has no cost kernel, scores with its residual values.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..core.device import disable_tf32
+from .btridiag import block_tridiag_solve
+from .btridiag_lanes import block_tridiag_solve_lanes
+from .gp_prior import gp_prior_terms
+
+__all__ = ["CHOMPParams", "CHOMPResult", "chomp_solve"]
+
+# largest state block the preconditioning solve takes in the lanes layout
+# (the reference's gpmp2._LANES_SOLVE_MAX_M); above it, batch-major
+_LANES_SOLVE_MAX_M = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class CHOMPParams:
+    n_support_points: int = 64
+    dt: float = 0.04
+    opt_iters: int = 100
+    weight_prior_cost: float = 1e-4
+    step_size: float = 0.05
+    grad_clip: float = 0.05
+    sigma_start: float = 1e-3
+    sigma_gp: float = 1e-1
+    sigma_goal: float = 1e-3
+    sigma_coll: float = 1e-2
+
+    @classmethod
+    def from_preset(cls, preset: dict) -> "CHOMPParams":
+        """From a reference-style planner-params dict
+        (``EnvBase.get_chomp_params``)."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {k: v for k, v in preset.items() if k in known}
+        kwargs = {k: (int(v) if k in ("n_support_points", "opt_iters") else v)
+                  for k, v in kwargs.items()}
+        return cls(**kwargs)
+
+
+class CHOMPResult(NamedTuple):
+    trajs: torch.Tensor          # (..., H, 2d) optimized trajectories
+    cost_trace: torch.Tensor     # (opt_iters,) or (opt_iters, ...)
+
+
+def _precondition(D, U, g):
+    """Solve (D + 1e-6 I, U) x = g for the clipped gradient g (B, H, m),
+    with the shared prior blocks D (H, m, m), U (H-1, m, m): m <= 32 in the
+    lanes layout (the sweep kernel on the card, ``solve_lanes_auto``; the
+    plain lanes solve on the CPU), larger m batch-major."""
+    B, H, m = g.shape
+    Dd = D + 1e-6 * torch.eye(m, dtype=g.dtype, device=g.device)
+    if m > _LANES_SOLVE_MAX_M:
+        return block_tridiag_solve(Dd, U, g)
+    if g.device.type == "cpu":
+        return block_tridiag_solve_lanes(Dd, U, g)
+    from ..ops.btridiag_kernel import solve_lanes_auto
+    D_l = Dd[..., None].expand(H, m, m, B).contiguous()
+    U_l = torch.cat([U, torch.zeros_like(U[:1])])[..., None].contiguous()
+    x_l = solve_lanes_auto(D_l, U_l, g.permute(1, 2, 0).contiguous())
+    return x_l.permute(2, 0, 1)
+
+
+def chomp_solve(residual_fn: Callable, theta0, start_state, goal_state,
+                params: CHOMPParams,
+                per_problem_trace: bool = False) -> CHOMPResult:
+    """``params.opt_iters`` CHOMP iterations from theta0 (..., H, 2d).
+
+    ``residual_fn`` carries ``obstacle_terms_lanes`` (a PlanningTask's
+    ``collision_residuals``); residuals without it raise, where the
+    reference takes autodiff through the residuals (no ported task lacks
+    lanes terms).  start/goal (..., 2d).  ``cost_trace`` is the
+    batch-summed obstacle cost lam sum 0.5 r^2 of each iteration's result
+    (iters,); with ``per_problem_trace`` it keeps the batch axis (iters,
+    ...), as the sharded wrapper needs to leave padded rows out.
+
+    The preconditioning solve follows the reference's split at m = 32: the
+    lanes layout below it, batch-major above.  On the card the lanes solve
+    is the block-tridiagonal sweep kernel (``ops/btridiag_kernel.
+    solve_lanes_auto``: K2 for m <= 16, e.g. the Panda's 14) on D + 1e-6 I
+    broadcast over the batch with the shared U; on the CPU it is the plain
+    ``block_tridiag_solve_lanes``.  The reference preconditions with its
+    plain XLA lanes solve here; the two compute the same solve.  Runs at
+    full float32 matmul precision (TF32 off).
+    """
+    lanes_terms = getattr(residual_fn, "obstacle_terms_lanes", None)
+    if lanes_terms is None:
+        raise NotImplementedError(
+            "chomp_solve takes residuals with lanes terms (a PlanningTask's "
+            "collision_residuals); the autodiff branch is not ported")
+    disable_tf32()
+    cost_lanes = getattr(residual_fn, "collision_cost_lanes", None)
+    batch, (H, m) = theta0.shape[:-2], theta0.shape[-2:]
+    d = m // 2
+    lam = 1.0 / (params.sigma_coll ** 2)
+    theta = theta0.reshape((-1, H, m))
+    start = start_state.reshape((-1, m)) if start_state.dim() > 1 \
+        else start_state
+    goal = goal_state.reshape((-1, m)) if goal_state.dim() > 1 \
+        else goal_state
+
+    def cost_per_traj(th):
+        """Obstacle cost per trajectory (B,): the value-only cost where the
+        task has one, else 0.5 lam sum r^2 of the residuals."""
+        q_flat = th[..., :d].reshape(-1, d)
+        if cost_lanes is not None:
+            c_pt = lam * cost_lanes(q_flat.T.contiguous())
+        else:
+            r = residual_fn(q_flat)
+            c_pt = 0.5 * lam * torch.square(r).reshape(r.shape[0], -1).sum(-1)
+        return c_pt.reshape(th.shape[0], H).sum(-1)
+
+    trace = []
+    for _ in range(params.opt_iters):
+        g_gp, D, U = gp_prior_terms(
+            theta, start, goal, params.dt, params.sigma_start,
+            params.sigma_gp, params.sigma_goal)
+        q_cols = theta[..., :d].reshape(-1, d).T.contiguous()    # (d, N)
+        g_q = lanes_terms(q_cols, lam)[0]             # (m, N), velocity 0
+        g = params.weight_prior_cost * g_gp + g_q.T.reshape(theta.shape)
+        g = torch.clamp(g, -params.grad_clip, params.grad_clip)
+        theta = theta - params.step_size * _precondition(D, U, g)
+        cost = cost_per_traj(theta)
+        trace.append(cost if per_problem_trace else torch.sum(cost))
+    trace = (torch.stack(trace) if trace
+             else torch.zeros((0,) + ((theta.shape[0],) if per_problem_trace
+                                      else ()), dtype=theta.dtype,
+                              device=theta.device))
+    if per_problem_trace:
+        trace = trace.reshape((params.opt_iters,) + batch)
+    return CHOMPResult(trajs=theta.reshape(theta0.shape), cost_trace=trace)

@@ -1,3 +1,3 @@
-from .utils import interpolate_traj_via_points
+from .utils import interpolate_traj_via_points, smoothen_trajectory
 
-__all__ = ["interpolate_traj_via_points"]
+__all__ = ["interpolate_traj_via_points", "smoothen_trajectory"]
