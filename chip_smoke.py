@@ -8,8 +8,10 @@ for the Panda and the config-4 robot with the solvers nothing routes to
 the terms, the cost and the main path (phases 26-28), the scenes
 whose spheres are precomputed into an SDF grid, with the grid branch of
 K1, K5 and K8 (phases 29-32), the Panda holding a grasped box, with
-the grasped-point branch of K1, K5 and K8 (phases 33-36), and config 2's
-hybrid leg, CHOMP and config 5's sharded MPC (phases 37-39).
+the grasped-point branch of K1, K5 and K8 (phases 33-36), config 2's
+hybrid leg, CHOMP and config 5's sharded MPC (phases 37-39), and the MPOT
+-> GPMP2 pipeline and the planar 2-link arm's generic GN step (phases
+40-41).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -225,10 +227,10 @@ final line):
              per run, finite outputs, step ms, solves/s, fraction free, a
              profile with the net row's share; one step at B = 32 on the
              card and on the CPU held to a float64 CPU step (phase cpu's
-             hold) on four start / goal draws, with the bundled, the
+             hold) on three start / goal draws, with the bundled, the
              spread and a scaled spread net: every GN iteration and the
              chained step's median lane on every draw; the chained step's
-             worst lane, chaotic in float32, over the four draws together,
+             worst lane, chaotic in float32, over the three draws together,
              at most twice that of the CPU's or the plain terms' on the
              card.
 29. grid_main - the grid scene's main path (benchmarks/grid_sdf_bench.py
@@ -323,6 +325,33 @@ final line):
              each; the first chunk's first 8 lanes held to float64 as
              phase cpu holds its lanes; K1 and K2 at both shapes vs plain
              and timed.
+40. mpot   - the MPOT -> GPMP2 pipeline (benchmarks/mpot_vs_gpmp2.py:
+             111-160): the point mass, cutoff 0.01, B = 64 GP-prior samples
+             of the scene's GPMP2 preset (H = 64), plan_mpot_gpmp2 with the
+             scene's MPOT preset (sigma_start = sigma_goal = 1e-3) and a
+             50-iteration polish, in EnvGridCircles2D (the reference's
+             preset) and EnvDense2D (the tuned preset: 300 OT iterations,
+             step 0.07, probe 0.09, 9 probes); exactly 50 K2 launches at
+             (64, 4, 64) a scene, 100 where the fallback polish ran, and
+             nothing else; finite outputs, endpoints within 2e-2; fraction
+             free, path length and smoothness after the OT stage and after
+             the pipeline (the JAX package's 0.984 and 0.906 printed
+             beside them, from another draw), each stage's wall, a
+             shortened pipeline's busy share; MPOT alone (20 OT
+             iterations, 10 of each smoothing pass) on the first 16
+             trajectories in EnvGridCircles2D on the card and on the CPU
+             from the same inputs and rotations, held to a float64 CPU
+             run (phase cpu's rule); K2 on the polish's first GN system
+             held to float64 and timed.
+41. planar2link - gpmp2_solve on RobotPlanar2Link in EnvPlanar2Link
+             through the generic GN step (tests/test_planar2link_task.py:
+             47-52: H = 32, 60 iterations, its start and goal) at B = 1024:
+             no lanes hooks, exactly 60 K2 launches at (32, 4, 1024) and
+             nothing else, finite outputs, the mean cost not higher at the
+             end; the cost trace's first and last mean, fraction free,
+             wall, busy share; its first 64 lanes held to a float64 CPU
+             run (phase cpu's rule); K2 on the first GN system held to
+             float64 and timed.
 
 Every phase line carries ``script_s``, its seconds since the script
 started.  Then one JSON line with every kernel's numbers (launches from
@@ -341,7 +370,9 @@ K5 and K8-MultiRobot; the grasped branches from phase 34's run for K1,
 phase 35's sGPMP for K8 and phase 36's MPC steps and sGPMP for K5 and
 K8-MultiRobot; phase 37's solve for K2 at m = 4 (btridiag_w_hybrid),
 phase 38's for K1, K8 and K2 (the *_chomp entries) and phase 39's runs
-for K1 and K2 chunked (*_pod) and unchunked (*_pod_unchunked), each timed
+for K1 and K2 chunked (*_pod) and unchunked (*_pod_unchunked), phase
+40's two pipeline runs for K2 at (64, 4, 64) (btridiag_w_mpot) and phase
+41's solve for K2 at (32, 4, 1024) (btridiag_w_planar2link), each timed
 on its path's first inputs; each bound at the FP32 rate, the net rows' at
 the 3xTF32 rate of their tensor-core route), the nvidia-smi line, and the
 final
@@ -468,7 +499,7 @@ MPC_CPU_B = 32
 # net_main's float64 holds: the start / goal draws (bench_problem seeds);
 # the output scale of the scaled spread net (smaller residuals, same
 # active lanes)
-NET_F64_SEEDS = (SEED, SEED + 11, SEED + 12, SEED + 13)
+NET_F64_SEEDS = (SEED, SEED + 11, SEED + 12)
 NET_SCALED_OUT = 0.05
 # net_terms' wider nets, whose shared memory takes 16, 8 and 4 lanes a
 # block (the bundled net takes 32), and the lanes they run on
@@ -565,6 +596,32 @@ POD_GP = dict(n_support_points=POD_H, dt=0.04, sigma_start=1e-3,
               sigma_gp=1e-1, sigma_goal_prior=1e-3, sigma_coll=1e-4,
               step_size=1.0)
 POD_AGREE, POD_F64_B = 1e-5, 8
+# MPOT -> GPMP2 (benchmarks/mpot_vs_gpmp2.py:111-160; EnvDense2D's tuned
+# preset, benchmarks/mpot_dense2d_sweep.py and the JAX package's
+# envs/zoo.py:66-74): the point mass at cutoff 0.01, B = 64 GP-prior
+# samples of the scene's GPMP2 preset (H = 64), the scene's MPOT preset
+# with sigma_start = sigma_goal = 1e-3, a 50-iteration polish of the GPMP2
+# preset; (scene, start, goal)
+MP_B, MP_POLISH, MP_CUTOFF = 64, 50, 0.01
+MP_SCENES = (("EnvGridCircles2D", (-0.75, -0.75), (0.75, 0.75)),
+             ("EnvDense2D", (-0.9, -0.9), (0.9, 0.9)))
+# the JAX package's pipeline fraction free (BASELINE.md:102, :217), from
+# another draw: printed beside the port's, not targets
+MP_JAX_FREE = {"EnvGridCircles2D": 0.984, "EnvDense2D": 0.906}
+# the float64 hold: MPOT alone on EnvGridCircles2D's first MP_F64_B
+# trajectories, MP_F64_ITERS OT iterations and MP_F64_SMOOTH of each
+# smoothing pass, the same rotations on the card and the CPU
+MP_F64_B, MP_F64_ITERS, MP_F64_SMOOTH = 16, 20, 10
+MP_END_TOL = 2e-2
+# the planar 2-link arm (tests/test_planar2link_task.py:47-52) at config
+# 2's batch: H = 32, 60 generic GN steps; its float64 hold on the first
+# P2_F64_B lanes of the run
+P2_B, P2_F64_B = 1024, 64
+P2_GP = dict(n_support_points=32, dt=0.04, opt_iters=60, sigma_coll=1e-3,
+             sigma_start=1e-4, sigma_goal_prior=1e-4, sigma_gp=2e-2,
+             step_size=0.5, num_samples=P2_B, sigma_gp_init=0.1)
+P2_START = (-np.pi / 2, 0.0, 0.0, 0.0)
+P2_GOAL = (np.pi / 2 + 0.8, -0.4, 0.0, 0.0)
 # K1 on these paths' q: a row whose pre-hinge value lies within HINGE_EDGE
 # of its threshold can be active in one float32 sum and not in another
 # (r ~ 3e-8 on one of config 5's 524,288 lanes), and its Jr^T Jr enters
@@ -5348,6 +5405,235 @@ def phase_pod():
     return k1_c, k2_c, k1_u, k2_u
 
 
+def mp_problem(name, start_q, goal_q, device):
+    """An MPOT workload -> (task, GPMP2Params, MPOTParams, start, goal,
+    theta0 (MP_B, 64, 4)), theta0 from a seeded CPU generator."""
+    import dataclasses
+
+    import torch
+    from torch_robotics_tpu_torch.envs import make_env
+    from torch_robotics_tpu_torch.robots import RobotPointMass
+    from torch_robotics_tpu_torch.solve import (GPMP2Params, MPOTParams,
+                                                gpmp2_init_trajs)
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    env = make_env(name, device=device)
+    robot = RobotPointMass.create(device=device)
+    task = PlanningTask(env=env, robot=robot,
+                        obstacle_cutoff_margin=MP_CUTOFF)
+    gp = dataclasses.replace(
+        GPMP2Params.from_preset(env.get_gpmp2_params(robot)),
+        num_samples=MP_B)
+    mp = MPOTParams.from_preset({**env.get_mpot_params(robot),
+                                 "sigma_start": 1e-3, "sigma_goal": 1e-3})
+    start = torch.tensor(start_q + (0.0, 0.0), device=device)
+    goal = torch.tensor(goal_q + (0.0, 0.0), device=device)
+    theta0 = gpmp2_init_trajs(torch.Generator().manual_seed(SEED), gp, start,
+                              goal)
+    return task, gp, mp, start, goal, theta0
+
+
+def traj_quality(task, trajs):
+    """(fraction free, mean path length, mean smoothness) of trajs."""
+    from torch_robotics_tpu_torch.trajectory import (compute_path_length,
+                                                     compute_smoothness)
+    return dict(fraction_free=task.compute_fraction_free_trajs(trajs),
+                path_length=float(compute_path_length(trajs,
+                                                      task.robot).mean()),
+                smoothness=float(compute_smoothness(trajs,
+                                                    task.robot).mean()))
+
+
+def mpot_f64(task, mp, start, goal, theta0):
+    """MPOT alone on the first MP_F64_B trajectories, MP_F64_ITERS OT
+    iterations and MP_F64_SMOOTH smoothing steps, on the card and on the
+    CPU from the same inputs and rotations, each held to a float64 CPU run
+    (hold_to_f64)."""
+    import dataclasses
+
+    import torch
+    from torch_robotics_tpu_torch.solve.mpot import (_mpot_solve_core,
+                                                     mpot_rotations)
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    p = dataclasses.replace(mp, opt_iters=MP_F64_ITERS,
+                            smooth_iters=MP_F64_SMOOTH)
+    Q = mpot_rotations(torch.Generator().manual_seed(SEED + 5),
+                       MP_F64_ITERS, 2)
+    th0 = theta0[:MP_F64_B].cpu()
+
+    def run(env, robot, th, s, g):
+        t = PlanningTask(env=env, robot=robot,
+                         obstacle_cutoff_margin=MP_CUTOFF)
+        t_h = PlanningTask(env=env, robot=robot,
+                           obstacle_cutoff_margin=MP_CUTOFF,
+                           clamp_sdf_cost=True)
+        return _mpot_solve_core(
+            lambda x: t._compute_cost(x[..., :2]), th, s, g, p, Q,
+            hinge_cost_fn=lambda x: t_h._compute_cost(x[..., :2])).trajs
+
+    task_h, _, _, s_h, g_h, _ = mp_problem(
+        task.env.name, tuple(start.tolist()[:2]), tuple(goal.tolist()[:2]),
+        "cpu")
+    env_h, robot_h = task_h.env, task_h.robot
+    card = run(task.env, task.robot, th0.cuda(), start, goal)
+    cpu = run(env_h, robot_h, th0, s_h, g_h)
+    f64 = run(env_h, robot_h, th0.double(), s_h.double(), g_h.double())
+    check(bool(torch.isfinite(card).all()), "mpot f64 hold: non-finite")
+    gaps = theta_gaps(card, cpu, f64)
+    hold_to_f64("mpot vs float64", gaps)
+    return dict(B=MP_F64_B, ot_iterations=MP_F64_ITERS,
+                smoothing_steps=MP_F64_SMOOTH, **gaps)
+
+
+def phase_mpot():
+    """plan_mpot_gpmp2 in both scenes at the workload's size, the float64
+    hold, K2 on the polish's first GN system; see the module doc."""
+    import dataclasses
+
+    import torch
+    from torch_robotics_tpu_torch.solve import plan_mpot_gpmp2
+    from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
+    scenes, total, k2, f64 = {}, 0, None, None
+    for name, start_q, goal_q in MP_SCENES:
+        task, gp, mp, start, goal, theta0 = mp_problem(name, start_q,
+                                                       goal_q, "cuda")
+        check(task.collision_residuals.collision_cost_lanes is None,
+              "mpot: the point mass has no lanes cost")
+        plan_mpot_gpmp2(task, theta0, start, goal,        # warm-up
+                        mpot_params=dataclasses.replace(
+                            mp, opt_iters=2, smooth_iters=1),
+                        gpmp2_params=gp, polish_iters=2)
+        stats = {}
+        (res, res_m), launches, ms = counted(lambda: plan_mpot_gpmp2(
+            task, theta0, start, goal, mpot_params=mp, gpmp2_params=gp,
+            polish_iters=MP_POLISH,
+            generator=torch.Generator().manual_seed(SEED), stats=stats))
+        expect = MP_POLISH * (2 if stats["fallback_ran"] else 1)
+        check(launches == {"btridiag_w": expect},
+              "mpot %s launches %s, expected %d of btridiag_w only"
+              % (name, launches, expect))
+        total += expect
+        check(all(bool(torch.isfinite(t).all())
+                  for t in (res.trajs, res.costs, res_m.trajs)),
+              "mpot %s produced non-finite results" % name)
+        check(tuple(res.trajs.shape) == (MP_B, gp.n_support_points, 4),
+              "mpot %s result shape" % name)
+        ends = max(float((res.trajs[:, 0, :2] - start[:2]).abs().max()),
+                   float((res.trajs[:, -1, :2] - goal[:2]).abs().max()))
+        check(ends <= MP_END_TOL, "mpot %s endpoints %.3g off"
+              % (name, ends))
+        b_l, D_l, U_l, _ = _lanes_gn_system(
+            task.collision_residuals.obstacle_terms_lanes, res_m.trajs,
+            start, goal, gp)
+        check(tuple(D_l.shape) == (gp.n_support_points, 4, 4, MP_B),
+              "mpot's GN system is %s" % (tuple(D_l.shape),))
+        if k2 is None:
+            k2 = k2_entry("k2_mpot_gn", D_l, U_l, b_l, None)
+            f64 = mpot_f64(task, mp, start, goal, theta0)
+        # a shortened pipeline under the profiler: its busy share
+        busy, dev_ms, top = profile_device(lambda: plan_mpot_gpmp2(
+            task, theta0, start, goal, mpot_params=dataclasses.replace(
+                mp, opt_iters=20, smooth_iters=10), gpmp2_params=gp,
+            polish_iters=10, fallback_polish=False), 1)
+        scenes[name] = dict(
+            mpot_params=dataclasses.asdict(mp), polish_iters=MP_POLISH,
+            launches=launches, fallback_ran=stats["fallback_ran"],
+            wall_ms=ms, mpot_s=stats["mpot_s"], polish_s=stats["polish_s"],
+            fallback_s=stats["fallback_s"],
+            after_mpot=traj_quality(task, res_m.trajs),
+            after_pipeline=traj_quality(task, res.trajs),
+            jax_package_pipeline_fraction_free=MP_JAX_FREE[name],
+            endpoint_max_err=ends,
+            cost_trace_first_last=[float(res_m.cost_trace[0].mean()),
+                                   float(res_m.cost_trace[-1].mean())],
+            short_pipeline_profiled_device_busy_share=busy,
+            short_pipeline_profiled_device_ms=dev_ms,
+            short_pipeline_top_device_ms=top)
+    k2["launches"] = total
+    emit("mpot", B=MP_B, H=64, scenes=scenes, vs_float64=f64,
+         k2=dict(held=k2["held"], kernel_ms=k2["ms"],
+                 plain_ms=k2["plain_ms"], dense_solve_ms=k2["library_ms"],
+                 launches_both_scenes=total))
+    return k2
+
+
+def p2_problem(device, n_batch: int = P2_B):
+    """The planar 2-link workload -> (task, params, start, goal, theta0
+    (n, 32, 4)), theta0 from a seeded CPU generator (the first n of the
+    P2_B samples)."""
+    import torch
+    from torch_robotics_tpu_torch.envs import EnvPlanar2Link
+    from torch_robotics_tpu_torch.robots import RobotPlanar2Link
+    from torch_robotics_tpu_torch.solve import GPMP2Params, gpmp2_init_trajs
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    task = PlanningTask(env=EnvPlanar2Link(device=device),
+                        robot=RobotPlanar2Link.create(device=device),
+                        obstacle_cutoff_margin=0.01)
+    params = GPMP2Params(**P2_GP)
+    start = torch.tensor(P2_START, device=device)
+    goal = torch.tensor(P2_GOAL, device=device)
+    theta0 = gpmp2_init_trajs(torch.Generator().manual_seed(SEED), params,
+                              start, goal)
+    return task, params, start, goal, theta0[:n_batch].contiguous()
+
+
+def phase_planar2link():
+    """gpmp2_solve on the planar 2-link arm through the generic GN step;
+    see the module doc."""
+    import dataclasses
+
+    import torch
+    from torch_robotics_tpu_torch.solve import gpmp2_solve
+    from torch_robotics_tpu_torch.solve.gpmp2 import (_generic_gn_system,
+                                                      _lanes_layout)
+    task, params, start, goal, theta0 = p2_problem("cuda")
+    res_fn = task.collision_residuals
+    check(res_fn.obstacle_terms_lanes is None
+          and res_fn.collision_cost_lanes is None,
+          "planar2link: the arm's task has no lanes hooks")
+    g, D, U, _ = _generic_gn_system(res_fn, theta0, start, goal, params)
+    D_l, U_l, b_l = _lanes_layout(D, U, -g)
+    H_ = params.n_support_points
+    check(tuple(D_l.shape) == (H_, 4, 4, P2_B),
+          "planar2link's GN system is %s" % (tuple(D_l.shape),))
+    gpmp2_solve(res_fn, theta0, start, goal,
+                dataclasses.replace(params, opt_iters=2))     # warm-up
+    res, launches, ms = counted(
+        lambda: gpmp2_solve(res_fn, theta0, start, goal, params))
+    iters = params.opt_iters
+    check(launches == {"btridiag_w": iters},
+          "planar2link launches %s, expected %d of btridiag_w only"
+          % (launches, iters))
+    check(all(bool(torch.isfinite(t).all()) for t in res),
+          "planar2link produced non-finite results")
+    first, last = (float(res.cost_trace[0].mean()),
+                   float(res.cost_trace[-1].mean()))
+    check(last <= first, "planar2link: mean cost rose %.6g -> %.6g"
+          % (first, last))
+    busy, dev_ms, top = profile_device(lambda: gpmp2_solve(
+        res_fn, theta0, start, goal,
+        dataclasses.replace(params, opt_iters=5)), 5)
+    task_h, _, s_h, g_h, th_h = p2_problem("cpu", P2_F64_B)
+    th_h = theta0[:P2_F64_B].cpu()
+    r_h = gpmp2_solve(task_h.collision_residuals, th_h, s_h, g_h, params)
+    r_64 = gpmp2_solve(task_h.collision_residuals, th_h.double(),
+                       s_h.double(), g_h.double(), params)
+    gaps = theta_gaps(res.trajs[:P2_F64_B], r_h.trajs, r_64.trajs)
+    hold_to_f64("planar2link vs float64", gaps)
+    k2 = k2_entry("k2_planar2link_gn", D_l, U_l, b_l, iters)
+    emit("planar2link", B=P2_B, H=H_, m=4, iterations=iters,
+         launches=launches, solve_ms=ms, ms_per_iteration=ms / iters,
+         trajs_per_s=P2_B / (ms / 1e3),
+         cost_trace_mean_first_last=[first, last],
+         fraction_free=task.compute_fraction_free_trajs(res.trajs),
+         vs_float64=dict(B=P2_F64_B, **gaps),
+         k2=dict(held=k2["held"], kernel_ms=k2["ms"],
+                 plain_ms=k2["plain_ms"], dense_solve_ms=k2["library_ms"]),
+         profiled_device_busy_share=busy,
+         profiled_device_ms_per_iteration=dev_ms,
+         top_device_ms_per_iteration=top)
+    return k2
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5420,6 +5706,8 @@ def main() -> None:
     hy_k2 = phase_hybrid()
     ch_k1, ch_k8, ch_k2 = phase_chomp(chomp_cpu)
     pod_k1_c, pod_k2_c, pod_k1, pod_k2 = phase_pod()
+    mp_k2 = phase_mpot()
+    p2_k2 = phase_planar2link()
 
     entries = []
     for name, src, rep, res, n in (
@@ -5548,7 +5836,14 @@ def main() -> None:
             ("btridiag_w_pod_unchunked",
              "torch_robotics_tpu_torch/csrc/btridiag.cu",
              "torch_robotics_tpu/ops/pallas_btridiag.py:330", pod_k2,
-             pod_k2["launches"])):
+             pod_k2["launches"]),
+            ("btridiag_w_mpot", "torch_robotics_tpu_torch/csrc/btridiag.cu",
+             "torch_robotics_tpu/ops/pallas_btridiag.py:330", mp_k2,
+             mp_k2["launches"]),
+            ("btridiag_w_planar2link",
+             "torch_robotics_tpu_torch/csrc/btridiag.cu",
+             "torch_robotics_tpu/ops/pallas_btridiag.py:330", p2_k2,
+             p2_k2["launches"])):
         # a tf32x3 kernel's float32-accurate products run at 495 / 3
         b_ms, b_by = bound_ms(*res["work"], PEAK_TF32X3_FLOPS
                               if res.get("route") == "tf32x3"

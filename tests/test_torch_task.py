@@ -99,9 +99,11 @@ def test_robot_helpers_match_jax(scene):
         got = robot.select_collision_jacobians(torch.as_tensor(J), idxs)
         ref = jrobot.select_collision_jacobians(jnp.asarray(J), idxs)
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-    with pytest.raises(NotImplementedError):
-        robot.select_collision_jacobians(torch.as_tensor(J), idxs,
-                                         interpolate=True, num_interp=2)
+    # interpolated Jacobians (ported with the planar 2-link arm)
+    _close(robot.select_collision_jacobians(torch.as_tensor(J), idxs,
+                                            interpolate=True, num_interp=2),
+           jrobot.select_collision_jacobians(jnp.asarray(J), idxs,
+                                             interpolate=True, num_interp=2))
     with pytest.raises(NotImplementedError):
         robot.get_velocity(torch.as_tensor(x[..., :7]))
 

@@ -1,9 +1,15 @@
-"""Collision-point helpers and occupancy checks (counterpart of the part
-of torch_robotics_tpu/costs/fields.py that the robots, the planning task's
-collision checks and the quality metrics need).
+"""Collision-point helpers, occupancy checks and the 'sdf' costs
+(counterpart of the part of torch_robotics_tpu/costs/fields.py that the
+robots, the planning task's collision checks and costs and the quality
+metrics need).
 
-Every check takes collision points ``(..., P, dim)`` with any leading batch
-dims and returns per-configuration flags ``(...)``.
+Every check and cost takes collision points ``(..., P, dim)`` with any
+leading batch dims and returns per-configuration flags or costs ``(...)``.
+An 'sdf' cost row is margin (+ cutoff) - distance, relu-clamped with
+``clamp``; the object and workspace costs take the max over objects
+(faces) and sum over points, the self-collision cost sums over pairs.
+Reductions are ``torch.amax`` and ``torch.relu``, whose gradients at a tie
+and at 0 are JAX's (split evenly; 0).
 """
 from __future__ import annotations
 
@@ -14,9 +20,11 @@ import torch
 
 from ..core.pytrees import safe_norm
 
-__all__ = ["interpolate_points", "object_signed_distances",
+__all__ = ["interpolate_points", "interpolate_points_v2",
+           "object_signed_distances", "object_collision_cost",
            "object_collision_any", "self_collision_distances",
-           "self_collision_any", "workspace_bounds_distances",
+           "self_collision_cost", "self_collision_any",
+           "workspace_bounds_distances", "workspace_bounds_cost",
            "workspace_bounds_any"]
 
 
@@ -36,11 +44,46 @@ def interpolate_points(points: torch.Tensor, num_interpolated_points: int):
     return points[..., i0, :] * (1.0 - frac) + points[..., i0 + 1, :] * frac
 
 
+def interpolate_points_v2(points, num_interpolate: int,
+                          link_interpolate_range):
+    """Append ``num_interpolate`` evenly spaced interior points on each
+    segment between consecutive points of ``link_interpolate_range`` =
+    [lo, hi] (inclusive), after the originals: points (..., P, d) ->
+    (..., P + (hi - lo) num_interpolate, d)."""
+    if num_interpolate <= 0:
+        return points
+    lo, hi = link_interpolate_range
+    alpha = torch.linspace(0.0, 1.0, num_interpolate + 2, dtype=points.dtype,
+                           device=points.device)[1:num_interpolate + 1]
+    X = points[..., lo:hi + 1, :]                          # (..., L, d)
+    X_diff = X[..., 1:, :] - X[..., :-1, :]
+    X_interp = (X[..., :-1, None, :]
+                + X_diff[..., None, :] * alpha[:, None])   # (..., L-1, n, d)
+    flat = X_interp.reshape(X_interp.shape[:-3]
+                            + (X_interp.shape[-3] * num_interpolate,
+                               points.shape[-1]))
+    return torch.cat([points, flat], dim=-2)
+
+
+def _hinge_cost(sd, margins, clamp):
+    cost = -(sd - margins)
+    return torch.relu(cost) if clamp else cost
+
+
 def object_signed_distances(df_obj_list: Sequence, points):
     """SDF of each distance-field object: points (..., P, dim) ->
     (..., n_objs, P)."""
     return torch.stack([df.signed_distance(points) for df in df_obj_list],
                        dim=-2)
+
+
+def object_collision_cost(df_obj_list, points, margins, cutoff_margin=0.0,
+                          clamp=False):
+    """'sdf' obstacle cost: points (..., P, dim), margins (P,) or a scalar
+    -> (...), the max over objects summed over points."""
+    sd = object_signed_distances(df_obj_list, points)
+    cost = _hinge_cost(sd, margins + cutoff_margin, clamp)
+    return torch.sum(torch.amax(cost, dim=-2), dim=-1)
 
 
 def object_collision_any(df_obj_list, points, margins, cutoff_margin=0.0):
@@ -58,6 +101,12 @@ def self_collision_distances(points, pair_idxs):
     return safe_norm(a - b, dim=-1)
 
 
+def self_collision_cost(points, pair_idxs, margins, clamp=False):
+    """'sdf' self-collision cost: the sum over pairs of margin - distance."""
+    d = self_collision_distances(points, pair_idxs)
+    return torch.sum(_hinge_cost(d, margins, clamp), dim=-1)
+
+
 def self_collision_any(points, pair_idxs, margins):
     return torch.any(self_collision_distances(points, pair_idxs) < margins,
                      dim=-1)
@@ -68,6 +117,15 @@ def workspace_bounds_distances(points, ws_min, ws_max):
     points (..., P, dim) -> (..., 2 dim, P) (faces act as objects)."""
     d = torch.cat([points - ws_min, ws_max - points], dim=-1)
     return torch.swapaxes(d, -1, -2)
+
+
+def workspace_bounds_cost(points, ws_min, ws_max, margins, cutoff_margin=0.0,
+                          clamp=False):
+    """'sdf' workspace cost: each face an object, the max over faces summed
+    over points."""
+    sd = workspace_bounds_distances(points, ws_min, ws_max)
+    cost = _hinge_cost(sd, margins + cutoff_margin, clamp)
+    return torch.sum(torch.amax(cost, dim=-2), dim=-1)
 
 
 def workspace_bounds_any(points, ws_min, ws_max, margins, cutoff_margin=0.0):

@@ -1,6 +1,14 @@
 from .base import EnvBase
-from .zoo import (EnvDense2D, EnvMazeBoxes3D, EnvNarrowPassageDense2D,
-                  EnvSpheres3D, make_env)
+from .zoo import (EnvCircle2D, EnvDense2D, EnvDense2DExtraObjects,
+                  EnvGridCircles2D, EnvMazeBoxes3D, EnvNarrowPassageDense2D,
+                  EnvNarrowPassageDense2DExtraObjects, EnvPlanar2Link,
+                  EnvSimple2D, EnvSimple2DExtraObjects, EnvSpheres3D,
+                  EnvSpheres3DExtraObjects, EnvSquare2D, EnvTableShelf,
+                  available_envs, make_env)
 
-__all__ = ["EnvBase", "EnvDense2D", "EnvMazeBoxes3D", "EnvSpheres3D",
-           "EnvNarrowPassageDense2D", "make_env"]
+__all__ = ["EnvBase", "EnvCircle2D", "EnvDense2D", "EnvDense2DExtraObjects",
+           "EnvGridCircles2D", "EnvMazeBoxes3D", "EnvNarrowPassageDense2D",
+           "EnvNarrowPassageDense2DExtraObjects", "EnvPlanar2Link",
+           "EnvSimple2D", "EnvSimple2DExtraObjects", "EnvSpheres3D",
+           "EnvSpheres3DExtraObjects", "EnvSquare2D", "EnvTableShelf",
+           "available_envs", "make_env"]

@@ -119,3 +119,7 @@ class EnvBase:
     def get_sgpmp_params(self, robot=None) -> dict:
         """sGPMP hyperparameters (``solve.SGPMPParams.from_preset``)."""
         return self._get_params("sgpmp", robot)
+
+    def get_mpot_params(self, robot=None) -> dict:
+        """MPOT hyperparameters (``solve.MPOTParams.from_preset``)."""
+        return self._get_params("mpot", robot)

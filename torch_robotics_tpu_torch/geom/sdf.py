@@ -120,7 +120,7 @@ class ObjectField:
         dim = x.shape[-1]
         if dim == 2:
             x = torch.cat([x, torch.zeros_like(x[..., :1])], dim=-1)
-        x = rotate_point(x - self.pos, self.rotation_matrix().T)
+        x = rotate_point(x - self.pos, self.rotation_matrix().to(x.dtype).T)
         return x[..., :2] if dim == 2 else x
 
     def signed_distance(self, x):

@@ -1,6 +1,6 @@
 """Named kinematic models compiled from the vendored URDFs (counterpart of
 torch_robotics_tpu/kin/robot_zoo.py; the Panda, with or without a grasped
-object, and the UR10 so far)."""
+object, the UR10 and the planar 2-link arm so far)."""
 from __future__ import annotations
 
 import torch
@@ -10,7 +10,7 @@ from ..utils.files import get_robot_path
 from .model import KinematicModel
 from .urdf import UrdfJoint, UrdfLink, parse_urdf
 
-__all__ = ["franka_panda", "ur10"]
+__all__ = ["franka_panda", "planar_2_link", "ur10"]
 
 
 def franka_panda(gripper: bool = False, grasped_object=None,
@@ -42,3 +42,11 @@ def ur10(device="cuda") -> KinematicModel:
     return KinematicModel.from_urdf_robot(
         parse_urdf(get_robot_path() / "ur10/urdf/ur10.urdf"),
         name="differentiable_ur10", device=device)
+
+
+def planar_2_link(device="cuda") -> KinematicModel:
+    """The planar two-link arm's URDF (two revolute joints about z)."""
+    return KinematicModel.from_urdf_robot(
+        parse_urdf(get_robot_path()
+                   / "planar_manipulators/urdf/2_link_planar.urdf"),
+        name="differentiable_2_link_planar", device=device)

@@ -105,12 +105,16 @@ class RobotAPI:
                                    num_interp=0):
         """The point selection of the collision-point selectors applied to
         per-point Jacobians J_full (..., P, ws_dim, q_dim): the links
-        ``idxs``, then the grasped points (the last G of J_full).
-        Interpolated points are not ported and raise."""
-        if interpolate:
-            raise NotImplementedError(
-                "interpolated collision points are not ported yet")
+        ``idxs``, linearly interpolated to ``num_interp`` points where
+        ``interpolate`` is set (the same map as the points', which is
+        linear, so the Jacobians interpolate alike), then the grasped
+        points (the last G of J_full)."""
         J = J_full[..., list(idxs), :, :]
+        if interpolate:
+            P, dim, d = J.shape[-3:]
+            J = interpolate_points(J.reshape(J.shape[:-2] + (dim * d,)),
+                                   num_interp)
+            J = J.reshape(J.shape[:-1] + (dim, d))
         if self.grasped_n_points > 0:
             J = torch.cat([J, J_full[..., -self.grasped_n_points:, :, :]],
                           dim=-3)

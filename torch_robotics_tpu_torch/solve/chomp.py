@@ -17,16 +17,10 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..core.device import disable_tf32
-from .btridiag import block_tridiag_solve
-from .btridiag_lanes import block_tridiag_solve_lanes
 from .gp_prior import gp_prior_terms
+from .gpmp2 import _solve_generic
 
 __all__ = ["CHOMPParams", "CHOMPResult", "chomp_solve"]
-
-# largest state block the preconditioning solve takes in the lanes layout
-# (the reference's gpmp2._LANES_SOLVE_MAX_M); above it, batch-major
-_LANES_SOLVE_MAX_M = 32
-
 
 @dataclasses.dataclass(frozen=True)
 class CHOMPParams:
@@ -59,20 +53,13 @@ class CHOMPResult(NamedTuple):
 
 def _precondition(D, U, g):
     """Solve (D + 1e-6 I, U) x = g for the clipped gradient g (B, H, m),
-    with the shared prior blocks D (H, m, m), U (H-1, m, m): m <= 32 in the
-    lanes layout (the sweep kernel on the card, ``solve_lanes_auto``; the
-    plain lanes solve on the CPU), larger m batch-major."""
-    B, H, m = g.shape
-    Dd = D + 1e-6 * torch.eye(m, dtype=g.dtype, device=g.device)
-    if m > _LANES_SOLVE_MAX_M:
-        return block_tridiag_solve(Dd, U, g)
-    if g.device.type == "cpu":
-        return block_tridiag_solve_lanes(Dd, U, g)
-    from ..ops.btridiag_kernel import solve_lanes_auto
-    D_l = Dd[..., None].expand(H, m, m, B).contiguous()
-    U_l = torch.cat([U, torch.zeros_like(U[:1])])[..., None].contiguous()
-    x_l = solve_lanes_auto(D_l, U_l, g.permute(1, 2, 0).contiguous())
-    return x_l.permute(2, 0, 1)
+    with the shared prior blocks D (H, m, m), U (H-1, m, m), as the generic
+    GN step solves (``gpmp2._solve_generic``): m <= 32 in the lanes layout
+    (the sweep kernel on the card, the plain lanes solve on the CPU),
+    larger m batch-major."""
+    m = g.shape[-1]
+    return _solve_generic(
+        D + 1e-6 * torch.eye(m, dtype=g.dtype, device=g.device), U, g)
 
 
 def chomp_solve(residual_fn: Callable, theta0, start_state, goal_state,
@@ -81,9 +68,9 @@ def chomp_solve(residual_fn: Callable, theta0, start_state, goal_state,
     """``params.opt_iters`` CHOMP iterations from theta0 (..., H, 2d).
 
     ``residual_fn`` carries ``obstacle_terms_lanes`` (a PlanningTask's
-    ``collision_residuals``); residuals without it raise, where the
-    reference takes autodiff through the residuals (no ported task lacks
-    lanes terms).  start/goal (..., 2d).  ``cost_trace`` is the
+    ``collision_residuals``); residuals without it (the planar 2-link
+    arm's) raise, where the reference takes autodiff through the
+    residuals.  start/goal (..., 2d).  ``cost_trace`` is the
     batch-summed obstacle cost lam sum 0.5 r^2 of each iteration's result
     (iters,); with ``per_problem_trace`` it keeps the batch axis (iters,
     ...), as the sharded wrapper needs to leave padded rows out.
@@ -93,9 +80,9 @@ def chomp_solve(residual_fn: Callable, theta0, start_state, goal_state,
     is the block-tridiagonal sweep kernel (``ops/btridiag_kernel.
     solve_lanes_auto``: K2 for m <= 16, e.g. the Panda's 14) on D + 1e-6 I
     broadcast over the batch with the shared U; on the CPU it is the plain
-    ``block_tridiag_solve_lanes``.  The reference preconditions with its
-    plain XLA lanes solve here; the two compute the same solve.  Runs at
-    full float32 matmul precision (TF32 off).
+    lanes solve (``gpmp2._solve_generic``).  The reference preconditions
+    with its plain XLA lanes solve here; the two compute the same solve.
+    Runs at full float32 matmul precision (TF32 off).
     """
     lanes_terms = getattr(residual_fn, "obstacle_terms_lanes", None)
     if lanes_terms is None:

@@ -1,14 +1,27 @@
 """Batched GPMP2: Gauss-Newton trajectory optimization on a GP factor
-graph (counterpart of torch_robotics_tpu/solve/gpmp2.py, its lanes path).
+graph (counterpart of torch_robotics_tpu/solve/gpmp2.py).
 
 One step assembles the block-tridiagonal normal equations of the GP prior
-plus the hinge obstacle terms, in the solver's lanes layout, and solves
-them with a block-tridiagonal sweep: the W-persisting sweep for state
-blocks m <= 16 (the point mass, m = 4; the single Panda, m = 14), the
-column sweep above that (the three-arm MultiRobot, m = 40), as the
-reference routes them (``ops/btridiag_kernel.solve_lanes_auto``).  On the
-CPU the plain sweep takes every m, where the reference takes its tiled
-solver at m > 32; the two compute the same solve.
+plus the hinge obstacle terms and solves them with a block-tridiagonal
+sweep.  Two steps, routed as the reference routes them:
+
+- the lanes step, for theta (B, H, m) and a residual function that
+  carries ``obstacle_terms_lanes``: the terms come in the solver's lanes
+  layout and go to the W-persisting sweep for state blocks m <= 16 (the
+  point mass, m = 4; the single Panda, m = 14), the column sweep above that
+  (the three-arm MultiRobot, m = 40)
+  (``ops/btridiag_kernel.solve_lanes_auto``).  On the CPU the plain sweep
+  takes every m, where the reference takes its tiled solver at m > 32; the
+  two compute the same solve;
+- the generic step, for any other theta (..., H, m) (one trajectory
+  (H, m), or several batch dims) or a residual function without lanes
+  terms (the planar 2-link arm): the terms come from the residuals and
+  their Jacobians (``residuals_and_jacobian`` where the function carries
+  it, else ``torch.func.vmap(torch.func.jacfwd(...))``), batch-major; the
+  batch is flattened into lanes and, for m <= 32, solved by
+  ``solve_lanes_auto`` (on the card K2 for m <= 16, the column sweep
+  above; the plain lanes solve on the CPU), for m > 32 by the batch-major
+  ``solve/btridiag.block_tridiag_solve``.
 
 The batch solvers run a fixed number of steps (``gpmp2_solve``), resample
 and re-solve the trajectories that end in collision
@@ -50,6 +63,9 @@ __all__ = ["GPMP2Params", "GPMP2Result", "gpmp2_init_trajs", "gpmp2_solve",
 # largest state block the reuse schedule takes (the factor-persisting
 # sweep's instantiations; the reference's _SCALAR_KERNEL_MAX_M)
 _REUSE_MAX_M = 16
+# largest state block the generic step solves in the lanes layout (the
+# reference's _LANES_SOLVE_MAX_M); larger blocks go batch-major
+_LANES_SOLVE_MAX_M = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,9 +109,9 @@ class GPMP2Params:
 
 
 class GPMP2Result(NamedTuple):
-    trajs: torch.Tensor          # (B, H, 2d) optimized trajectories
-    costs: torch.Tensor          # (B,) final collision costs
-    cost_trace: torch.Tensor     # (opt_iters, B) cost per iteration
+    trajs: torch.Tensor          # (..., H, 2d) optimized trajectories
+    costs: torch.Tensor          # (...) final collision costs
+    cost_trace: torch.Tensor     # (opt_iters, ...) cost per iteration
 
 
 def gpmp2_init_trajs(generator: torch.Generator, params: GPMP2Params,
@@ -139,20 +155,105 @@ def _lanes_gn_system(lanes_terms, theta, start_state, goal_state,
     return b_l, D_l, U_l, torch.sum(cost, dim=0)
 
 
+def _obstacle_terms(residual_fn, q, d_state: int, lam: float):
+    """Hinge-residual GN terms of q (..., d), batch-major: gradient
+    (..., m), Hessian blocks (..., m, m) in the position part of the state
+    m = ``d_state``, cost 0.5 lam sum r^2 (...).  ``residual_fn`` maps
+    q (d,) -> r (P,) (a batch in one call where it ``supports_batch``); its
+    ``residuals_and_jacobian``, where it carries one, gives the Jacobians,
+    else ``torch.func.vmap(torch.func.jacfwd(residual_fn))``."""
+    d = q.shape[-1]
+    q_flat = q.reshape(-1, d)
+    raj = getattr(residual_fn, "residuals_and_jacobian", None)
+    if raj is not None:
+        r_flat, J_flat = (raj(q_flat) if getattr(raj, "supports_batch", False)
+                          else torch.func.vmap(raj)(q_flat))
+    else:
+        r_flat = (residual_fn(q_flat)
+                  if getattr(residual_fn, "supports_batch", False)
+                  else torch.func.vmap(residual_fn)(q_flat))
+        J_flat = torch.func.vmap(torch.func.jacfwd(residual_fn))(q_flat)
+    r = r_flat.reshape(q.shape[:-1] + r_flat.shape[-1:])
+    J = J_flat.reshape(q.shape[:-1] + J_flat.shape[-2:])
+    kw = dict(dtype=q.dtype, device=q.device)
+    g = torch.zeros(q.shape[:-1] + (d_state,), **kw)
+    Hb = torch.zeros(q.shape[:-1] + (d_state, d_state), **kw)
+    g[..., :d] = lam * torch.einsum("...pi,...p->...i", J, r)
+    Hb[..., :d, :d] = lam * torch.einsum("...pi,...pj->...ij", J, J)
+    cost = 0.5 * lam * torch.sum(torch.square(r), dim=-1)
+    return g, Hb, cost
+
+
+def _lanes_layout(D, U, b):
+    """Batch-major D (..., H, m, m), shared U (H-1, m, m), b (..., H, m)
+    -> the lanes layout (D_l (H, m, m, B), U_l (H, m, m, 1), b_l (H, m, B))
+    with the batch flattened into B lanes."""
+    H, m = b.shape[-2], b.shape[-1]
+    batch = b.shape[:-2]
+    D_l = D.expand(batch + (H, m, m)).reshape(-1, H, m, m).permute(
+        1, 2, 3, 0).contiguous()
+    U_l = torch.cat([U, torch.zeros_like(U[:1])])[..., None].contiguous()
+    b_l = b.reshape(-1, H, m).permute(1, 2, 0).contiguous()
+    return D_l, U_l, b_l
+
+
+def _solve_generic(D, U, b):
+    """The generic step's solve: D (..., H, m, m), U (H-1, m, m) shared,
+    b (..., H, m) -> x (..., H, m).  For m <= 32 the batch is flattened
+    into lanes (``solve_lanes_auto``), else it is solved batch-major."""
+    from ..ops.btridiag_kernel import solve_lanes_auto
+    from .btridiag import block_tridiag_solve
+    if b.shape[-1] > _LANES_SOLVE_MAX_M:
+        return block_tridiag_solve(D, U, b)
+    x_l = solve_lanes_auto(*_lanes_layout(D, U, b))               # (H, m, B)
+    return x_l.permute(2, 0, 1).reshape(b.shape)
+
+
+def _generic_gn_system(residual_fn, theta, start_state, goal_state,
+                       params: GPMP2Params, ee_goal_terms=None):
+    """The generic step's GN system for theta (..., H, m), batch-major:
+    (g (..., H, m), D (..., H, m, m), U (H-1, m, m), collision cost per
+    trajectory (...)); the step solves D x = -g."""
+    m = theta.shape[-1]
+    d = m // 2
+    g_gp, D, U = gp_prior_terms(
+        theta, start_state, goal_state, params.dt, params.sigma_start,
+        params.sigma_gp, params.sigma_goal_prior)
+    lam = 1.0 / (params.sigma_coll ** 2)
+    g_obs, H_obs, cost_obs = _obstacle_terms(residual_fn, theta[..., :d], m,
+                                             lam)
+    g = g_gp + g_obs
+    D = D + H_obs + params.solver_delta * torch.eye(
+        m, dtype=theta.dtype, device=theta.device)
+    if ee_goal_terms is not None:
+        g_ee, H_ee, _ = ee_goal_terms(theta[..., -1, :d])
+        g[..., -1, :] += g_ee
+        D[..., -1, :, :] += H_ee
+    return g, D, U, torch.sum(cost_obs, dim=-1)
+
+
+def _gpmp2_step_impl(residual_fn, theta, start_state, goal_state,
+                     params: GPMP2Params, ee_goal_terms=None):
+    """The generic GN step (module doc): theta (..., H, m) -> (theta_next,
+    collision cost per trajectory (...))."""
+    g, D, U, cost = _generic_gn_system(residual_fn, theta, start_state,
+                                       goal_state, params, ee_goal_terms)
+    return theta + params.step_size * _solve_generic(D, U, -g), cost
+
+
 def gpmp2_step(residual_fn: Callable, theta, start_state, goal_state,
                params: GPMP2Params, ee_goal_terms: Callable = None):
-    """One Gauss-Newton step over a batch of trajectories theta (B, H, m).
-
-    ``residual_fn`` carries ``obstacle_terms_lanes`` (a PlanningTask's
-    ``collision_residuals``); ``ee_goal_terms`` (optional) an EE-pose goal
-    factor on the final waypoint.  Returns (theta_next, collision cost per
-    trajectory (B,))."""
-    from ..ops.btridiag_kernel import solve_lanes_auto
+    """One Gauss-Newton step over a batch of trajectories theta (..., H, m):
+    the lanes step for theta (B, H, m) and a ``residual_fn`` that carries
+    ``obstacle_terms_lanes`` (a PlanningTask's ``collision_residuals``),
+    the generic step otherwise (module doc); ``ee_goal_terms`` (optional)
+    an EE-pose goal factor on the final waypoint.  Returns (theta_next,
+    collision cost per trajectory (...))."""
     lanes_terms = getattr(residual_fn, "obstacle_terms_lanes", None)
     if lanes_terms is None or theta.dim() != 3:
-        raise NotImplementedError(
-            "only the lanes GN path (theta (B, H, m) with lanes terms) is "
-            "ported")
+        return _gpmp2_step_impl(residual_fn, theta, start_state, goal_state,
+                                params, ee_goal_terms)
+    from ..ops.btridiag_kernel import solve_lanes_auto
     b_l, D_l, U_l, cost_traj = _lanes_gn_system(
         lanes_terms, theta, start_state, goal_state, params, ee_goal_terms)
     x_l = solve_lanes_auto(D_l, U_l, b_l)                        # (H, m, B)
@@ -163,9 +264,10 @@ def gpmp2_step(residual_fn: Callable, theta, start_state, goal_state,
 def gpmp2_solve(residual_fn: Callable, theta0, start_state, goal_state,
                 params: GPMP2Params,
                 ee_goal_terms: Callable = None) -> GPMP2Result:
-    """``params.opt_iters`` Gauss-Newton steps from theta0 (B, H, m) (e.g.
-    from ``gpmp2_init_trajs``), with an optional EE-pose goal factor;
-    ``refactor_every`` > 1 takes the reuse schedule of the module doc."""
+    """``params.opt_iters`` Gauss-Newton steps (``gpmp2_step``) from theta0
+    (..., H, m) (e.g. from ``gpmp2_init_trajs``), with an optional EE-pose
+    goal factor; ``refactor_every`` > 1 takes the reuse schedule of the
+    module doc."""
     if params.refactor_every > 1 and theta0.dim() == 3:
         lanes_terms = getattr(residual_fn, "obstacle_terms_lanes", None)
         m = theta0.shape[-1]

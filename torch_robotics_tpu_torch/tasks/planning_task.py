@@ -1,7 +1,6 @@
-"""PlanningTask: robot + environment -> collision residuals, collision
-checks and trajectory metrics (counterpart of
-torch_robotics_tpu/tasks/planning_task.py, as far as the GPMP2 and iLQR
-paths need it).
+"""PlanningTask: robot + environment -> collision residuals, the 'sdf'
+cost, collision checks and trajectory metrics (counterpart of
+torch_robotics_tpu/tasks/planning_task.py).
 
 The task composes the collision rows (objects, workspace bounds,
 self-collision pairs) of the robot in the scene.  Its lanes terms and its
@@ -22,8 +21,16 @@ net's fixed-threshold test.  A scene whose fixed objects are a precomputed
 SDF grid (``EnvBase(precompute_sdf_obj_fixed=True)``) takes the grid in
 their place in every row and check; with ``use_occupancy_map`` the
 collision check reads the scene's occupancy map instead of the distance
-fields.
-The 'sdf' cost is not ported yet.
+fields.  A robot with no lanes path (the planar 2-link arm: no kinematic
+model, interpolated points) gets no lanes terms and no lanes cost, as in
+the reference: its residuals and their Jacobians come from
+``fk_map_collision_with_jac``, and the GN solvers take their generic step
+for it.
+The 'sdf' cost (``_compute_cost``, ``compute_collision_cost``) sums the
+self-collision (or net), object and workspace costs of ``costs/fields.py``
+per configuration, each relu-clamped where the task is built with
+``clamp_sdf_cost``; it is plain PyTorch on every device, as it is plain XLA
+in the reference, and autograd differentiates it (MPOT's clearance step).
 """
 from __future__ import annotations
 
@@ -33,8 +40,9 @@ import numpy as np
 import torch
 
 from ..core.device import disable_tf32
-from ..costs.fields import (object_collision_any, self_collision_any,
-                            workspace_bounds_any)
+from ..costs.fields import (object_collision_any, object_collision_cost,
+                            self_collision_any, self_collision_cost,
+                            workspace_bounds_any, workspace_bounds_cost)
 from ..trajectory.utils import interpolate_traj_via_points
 
 __all__ = ["PlanningTask", "CollisionResiduals"]
@@ -55,11 +63,13 @@ class CollisionResiduals:
     - ``residuals_and_jacobian(q) -> (r (..., P), J (..., P, d))``, rows in
       the same order, analytic Jacobians (plain PyTorch);
     - ``obstacle_terms_lanes(q_cols (d, N), lam, h=None) -> (g, Hb, cost)``,
-      the GN terms (terms kernel);
+      the GN terms (terms kernel); None for a robot with no lanes path (the
+      planar 2-link arm), whose GN step is the generic one;
     - ``collision_cost_lanes(q_cols (d, N)) -> (N,)``, the unscaled cost
       0.5 sum r^2 (value-only cost kernel, its MultiRobot variant for a
-      ``MultiRobot``); None for a point mass, which has no such kernel
-      (solvers then score with the residual values).
+      ``MultiRobot``); None for a point mass and a robot with no lanes
+      path, which have no such kernel (solvers then score with the
+      residual values).
 
     For a ``MultiRobot`` the rows run over its full collision layout:
     object rows of every member's object points, workspace rows, then the
@@ -72,17 +82,17 @@ class CollisionResiduals:
         from ..ops.terms_kernel import (collision_cost_kernel_factory,
                                         obstacle_terms_kernel_factory)
         # the reference's routing: the fused kernel where one exists, else
-        # the plain lanes terms (the point mass)
+        # the plain lanes terms (the point mass), else none (generic rows)
         self.obstacle_terms_lanes = (obstacle_terms_kernel_factory(task)
                                      or obstacle_terms_lanes_factory(task))
-        self.collision_cost_lanes = collision_cost_kernel_factory(
-            task, self.obstacle_terms_lanes)
+        self.collision_cost_lanes = None
         if self.obstacle_terms_lanes is None:
-            raise NotImplementedError(
-                "collision residuals need a kinematic model whose collision "
-                "points are link origins, or a point mass")
-        rows = getattr(self.obstacle_terms_lanes, "plain",
-                       self.obstacle_terms_lanes).rows
+            rows = _GenericLayout(task).rows
+        else:
+            self.collision_cost_lanes = collision_cost_kernel_factory(
+                task, self.obstacle_terms_lanes)
+            rows = getattr(self.obstacle_terms_lanes, "plain",
+                           self.obstacle_terms_lanes).rows
 
         def residuals_and_jacobian(q):
             """q (..., d) -> (r (..., P), J (..., P, d))."""
@@ -103,6 +113,52 @@ class CollisionResiduals:
         return r.T.reshape(batch + (r.shape[0],))
 
 
+class _GenericLayout:
+    """The residual rows of a robot with no lanes path, from its
+    ``fk_map_collision_with_jac`` through ``ops/lanes_fk.hinge_rows``: the
+    object collision points (interpolated where the robot says so, then
+    any grasped points), then its self-collision points.  Rows in the
+    order of ``CollisionResiduals``."""
+
+    def __init__(self, task):
+        robot = task.robot
+        self.robot = robot
+        self.net = getattr(robot, "self_collision_net", None)
+        self.net_cutoff = (None if self.net is None
+                           else float(task._NET_SELF_CUTOFF))
+        self.obj_thresh = (robot.object_margins
+                           + float(task.obstacle_cutoff_margin))
+        n_obj = self.obj_thresh.shape[0]
+        self.obj_pos = list(range(n_obj))
+        pairs = np.asarray(robot.self_pair_idxs if self.net is None else (),
+                           np.int64).reshape(-1, 2)
+        self.pair_a = [n_obj + int(a) for a in pairs[:, 0]]
+        self.pair_b = [n_obj + int(b) for b in pairs[:, 1]]
+        self.self_margins = (robot.self_margins[:len(pairs)] if len(pairs)
+                             else None)
+        self.ws_min = task.ws_min
+        self.ws_max = task.ws_max
+        self.df_obj_list = task.df_obj_list
+
+    def rows(self, q_cols):
+        """q_cols (d, N) -> (r (R, N), Jr (R, d, N)), the analytic rows."""
+        from ..ops.lanes_fk import hinge_rows
+        robot = self.robot
+        q = q_cols.T
+        pts_full, J_full = robot.fk_map_collision_with_jac(q)
+        pts = [robot.object_collision_points(pts_full)]
+        Js = [robot.select_collision_jacobians(
+            J_full, robot.object_coll_idxs, robot.object_interpolate,
+            robot.object_num_interp)]
+        if self.pair_a:
+            pts.append(robot.self_collision_points(pts_full))
+            Js.append(robot.select_collision_jacobians(
+                J_full, robot.self_coll_idxs))
+        pts = torch.cat(pts, dim=-2).permute(1, 2, 0)          # (P, ws, N)
+        J = torch.cat(Js, dim=-3).permute(1, 3, 2, 0)          # (P, d, ws, N)
+        return hinge_rows(self, pts, J, q_cols)
+
+
 class PlanningTask:
     # the reference's self-collision fields use their own cutoff margin;
     # the net's hinge row is built with it
@@ -112,7 +168,8 @@ class PlanningTask:
 
     def __init__(self, env=None, robot=None, ws_limits=None,
                  use_occupancy_map: bool = False, cell_size: float = 0.01,
-                 obstacle_cutoff_margin: float = 0.01):
+                 obstacle_cutoff_margin: float = 0.01,
+                 clamp_sdf_cost: bool = False):
         # GN systems NaN under TF32 products (core/device.py)
         disable_tf32()
         self.env = env
@@ -125,6 +182,7 @@ class PlanningTask:
         self.ws_min = limits[0]
         self.ws_max = limits[1]
         self.obstacle_cutoff_margin = obstacle_cutoff_margin
+        self.clamp_sdf_cost = clamp_sdf_cost
         self.use_occupancy_map = use_occupancy_map
         if use_occupancy_map:
             env.build_occupancy_map(cell_size=cell_size)
@@ -134,6 +192,48 @@ class PlanningTask:
     @property
     def self_collision_net(self):
         return getattr(self.robot, "self_collision_net", None)
+
+    # ------------------------------------------------------------------
+    # the 'sdf' cost
+    # ------------------------------------------------------------------
+    def _compute_cost(self, q):
+        """'sdf' cost per configuration: q (..., d) -> (...), the
+        self-collision (or learned net) cost, then the object cost, then
+        the workspace cost, each clamped with ``clamp_sdf_cost``."""
+        link_pos = self.robot.fk_map_collision(q)
+        obj_pts = self.robot.object_collision_points(link_pos)
+        self_pts = self.robot.self_collision_points(link_pos)
+        clamp = self.clamp_sdf_cost
+        terms = []
+        net = self.self_collision_net
+        if net is not None:
+            c = self._NET_SELF_CUTOFF - net.signed_distance(q)
+            terms.append(torch.relu(c) if clamp else c)
+        elif self_pts is not None:
+            terms.append(self_collision_cost(
+                self_pts, np.asarray(self.robot.self_pair_idxs),
+                self.robot.self_margins, clamp=clamp))
+        if self.df_obj_list:
+            terms.append(object_collision_cost(
+                self.df_obj_list, obj_pts, self.robot.object_margins,
+                cutoff_margin=self.obstacle_cutoff_margin, clamp=clamp))
+        terms.append(workspace_bounds_cost(
+            obj_pts, self.ws_min, self.ws_max, self.robot.object_margins,
+            cutoff_margin=self.obstacle_cutoff_margin, clamp=clamp))
+        cost = terms[0]
+        for t in terms[1:]:
+            cost = cost + t
+        return cost
+
+    def compute_collision_cost(self, x, field_type: str = "sdf"):
+        """x (..., d_state) -> per-waypoint cost (...): 'sdf' (the cost
+        above) or 'occupancy' (the collision check as a float); the
+        reference's 'rbf' surrogate is not ported."""
+        if field_type == "sdf":
+            return self._compute_cost(self.robot.get_position(x))
+        if field_type == "occupancy":
+            return self.compute_collision(x).to(x.dtype)
+        raise NotImplementedError(f"field_type {field_type}")
 
     # ------------------------------------------------------------------
     # collision checks
