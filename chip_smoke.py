@@ -9,9 +9,10 @@ the terms, the cost and the main path (phases 26-28), the scenes
 whose spheres are precomputed into an SDF grid, with the grid branch of
 K1, K5 and K8 (phases 29-32), the Panda holding a grasped box, with
 the grasped-point branch of K1, K5 and K8 (phases 33-36), config 2's
-hybrid leg, CHOMP and config 5's sharded MPC (phases 37-39), and the MPOT
+hybrid leg, CHOMP and config 5's sharded MPC (phases 37-39), the MPOT
 -> GPMP2 pipeline and the planar 2-link arm's generic GN step (phases
-40-41).
+40-41), and config 1's FK over the robot zoo, the terms kernel past eight
+joints and the 14-joint dual-arm TIAGo's MPC and sGPMP (phases 42-45).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -28,7 +29,9 @@ final line):
              padded width, none of which may spill; the cost kernel may
              have no stack frame either, nor may any terms_kernel<D>, D =
              1..8, or substitution kernel), and the card's name and power
-             limit; the net row's tensor-core kernels may not spill and
+             limit (every terms_wide_kernel<16, 24, 32> no stack frame
+             and no spill either); the net row's tensor-core kernels may
+             not spill and
              must show HMMA in cuobjdump -sass; the MultiRobot terms
              kernel, every rollout_kernel<D>, D = 1..8, and the sphere SDF
              kernel may have no stack frame and no spill either; the
@@ -352,6 +355,44 @@ final line):
              wall, busy share; its first 64 lanes held to a float64 CPU
              run (phase cpu's rule); K2 on the first GN system held to
              float64 and timed.
+42. zoo_fk - config 1's FK (examples/forward_kinematics.py) over the zoo
+             past the Panda and the UR10: the KUKA iiwa7, Habitat Stretch,
+             both dual-arm TIAGos, the Shadow and Allegro hands and the
+             UR10 with its suction gripper at B = 65,536: fk_all_links and
+             fk_positions_lanes finite, the first 256 lanes held to a
+             float64 CPU FK (2e-5 of the largest coordinate past 1 m), the
+             goldens' q to tests/golden (the Shadow hand's lf* links left
+             out, as the JAX package's test does); ms a call, rollouts/s.
+43. wide_terms - K1's route past eight joints (terms_wide_kernel) vs
+             its plain version at N = 65,536: the TIAGo (D = 14) in
+             EnvTableShelf on random q and on q where its arms' pairs are
+             active, the Shadow hand (D = 24) holding its ball on random
+             q, held to the plain version in float64 at the terms
+             tolerance, Hqq off the hinge-edge lanes; a lane's bits the
+             same at a ragged N and at each lane count of 32, 64, 96 and
+             128 that fits, timed over a CUDA graph at each (the launch's
+             own keeps the most warps an SM); one MPC step of the Shadow
+             hand (B = 1024, H = 64): exactly 2 K1 and 2 K4 launches; a
+             33-joint chain's terms hook raises on the card and its cost
+             hook runs K8 (at D = 33, five threads a lane) held to plain.
+44. tiago_mpc - the dual-arm TIAGo (tasks/zoo_tasks.py: 13 sphere-table
+             links, 36 left-right arm pairs) in EnvTableShelf at the main
+             path's protocol (B = 1024, H = 64, 2 GN iterations a step, 8
+             steps) from free start and goal draws: exactly 16 K1 (D = 14,
+             N = 65,536) and 16 K4 ((64, 28, 28, 1024)) launches and
+             nothing else; finite outputs, the active-row share on the
+             first q, fraction free, goal distances, step ms, solves/s, a
+             profile; one step at B = 32 held to float64 (phase cpu's
+             rule); K1 (held as in phase 43) and K4 on the path's first
+             inputs vs plain, timed, K4 beside the dense solve.
+45. tiago_sgpmp - sGPMP on the TIAGo at phase sgpmp's shape (512 free
+             problems x 8 particles, H = 32, 100 iterations of K = 16):
+             K8 (D = 14, two threads a lane) vs plain on the first
+             candidates (2,097,152) and proposal (131,072), a lane's bits
+             at a ragged N and at 32 lanes a block, timed; exactly 201 K8
+             launches and nothing else, the metrics of phase sgpmp; one
+             iteration at B = 32 held to float64 (phase sgpmp_cpu's rule;
+             not the whole solve on the CPU, ~60 s at D = 14).
 
 Every phase line carries ``script_s``, its seconds since the script
 started.  Then one JSON line with every kernel's numbers (launches from
@@ -372,8 +413,12 @@ K8-MultiRobot; phase 37's solve for K2 at m = 4 (btridiag_w_hybrid),
 phase 38's for K1, K8 and K2 (the *_chomp entries) and phase 39's runs
 for K1 and K2 chunked (*_pod) and unchunked (*_pod_unchunked), phase
 40's two pipeline runs for K2 at (64, 4, 64) (btridiag_w_mpot) and phase
-41's solve for K2 at (32, 4, 1024) (btridiag_w_planar2link), each timed
-on its path's first inputs; each bound at the FP32 rate, the net rows' at
+41's solve for K2 at (32, 4, 1024) (btridiag_w_planar2link), phase 44's
+run for K1 at D = 14 (obstacle_terms_tiago) and K4 at (64, 28, 28, 1024)
+(btridiag_cols_tiago), phase 43's Shadow step for K1 at D = 24
+(obstacle_terms_shadow, timed on its random q) and phase 45's solve for K8
+at D = 14 (collision_cost_tiago, timed at 2,097,152), each timed on its
+path's first inputs; each bound at the FP32 rate, the net rows' at
 the 3xTF32 rate of their tensor-core route), the nvidia-smi line, and the
 final
 {"ok": true, "device": ...} line.
@@ -622,6 +667,24 @@ P2_GP = dict(n_support_points=32, dt=0.04, opt_iters=60, sigma_coll=1e-3,
              step_size=0.5, num_samples=P2_B, sigma_gp_init=0.1)
 P2_START = (-np.pi / 2, 0.0, 0.0, 0.0)
 P2_GOAL = (np.pi / 2 + 0.8, -0.4, 0.0, 0.0)
+# config 1's FK over the robot zoo (examples/forward_kinematics.py's
+# robots past the Panda and the bare UR10, and the UR10's suction
+# gripper): (constructor, its keywords, the golden of tests/golden, the
+# links the golden leaves out); at ZOO_B lanes, the first ZOO_F64_B held
+# to a float64 CPU FK at the JAX package's float32 FK tolerance
+# (tests/test_kin_fk.py: 2e-5)
+ZOO_MODELS = (("kuka_iiwa7", {}, "kuka_iiwa7_fk", None),
+              ("habitat_stretch", {}, "stretch_fk", None),
+              ("tiago_dual_holo", {}, "tiago_dual_fk", None),
+              ("tiago_dual_holo_move", {}, None, None),
+              ("shadow_hand", {}, "shadow_hand_fk", "lf"),
+              ("allegro_hand", {}, "allegro_hand_fk", None),
+              ("ur10", {"attach_gripper": True}, None, None))
+ZOO_B, ZOO_F64_B, ZOO_SEED, FK_ATOL = 65536, 256, 45, 2e-5
+# the dual-arm TIAGo (tasks/zoo_tasks.py) in EnvTableShelf: its MPC at the
+# main path's protocol, its float64 hold on the first TG_F64_B problems
+# (phase cpu's), the terms kernel's wide route timed at TG_WIDE_N lanes
+TG_F64_B, TG_WIDE_N = 32, 65536
 # K1 on these paths' q: a row whose pre-hinge value lies within HINGE_EDGE
 # of its threshold can be active in one float32 sum and not in another
 # (r ~ 3e-8 on one of config 5's 524,288 lanes), and its Jr^T Jr enters
@@ -1252,6 +1315,8 @@ def phase_build():
     from torch_robotics_tpu_torch.ops.btridiag_kernel import _KERNEL_M
     names = {**{"terms_kernelILi%dE" % d: "terms_kernel<%d>" % d
                 for d in range(1, 9)},
+             **{"terms_wide_kernelILi%dE" % d: "terms_wide_kernel<%d>" % d
+                for d in (16, 24, 32)},
              **{"11cost_kernelILi%dE" % n: "cost_kernel<%d>" % n
                 for n in COST_LANES},
              "btridiag_w_kernelILi14ELi0EE": "btridiag_w_kernel<14>",
@@ -1309,6 +1374,7 @@ def phase_build():
     for label in ["mr_terms_kernel", "sphere_sdf_kernel"] + [
             v for v in names.values()
             if v.startswith(("cost_kernel<", "terms_kernel<",
+                             "terms_wide_kernel<",
                              "rollout_kernel<", "btridiag_subst",
                              "btridiag_sweep<", "cr_kernel<"))]:
         line = report.get(label, "")
@@ -3517,15 +3583,18 @@ def phase_sgpmp(name, task, start, goal, n_part, params, kernel_key, seed):
     return launches[kernel_key], theta0, start_p, goal_p
 
 
-def phase_sgpmp_cpu(task_c, theta0, start_p, goal_p):
-    """At B = 32 problems (each's first particle): one iteration from the
+def phase_sgpmp_cpu(task_c, theta0, start_p, goal_p, task_h=None,
+                    name="sgpmp_cpu", full_solve: bool = True):
+    """At B = 32 problems (each's first particle; ``task_h`` the task on
+    the CPU, the iLQR path's when None): one iteration from the
     same normals on the card and on the CPU, each held to a float64 CPU
     iteration (hold_to_f64) for the candidate costs (relative to each
     lane's largest float64 cost) and the accepted means (relative to
     max|theta|); then the whole solve from the same normals, where the
     card's fraction of free lanes must be within 3 of 32 of the CPU
-    float32 run's.  The softmax weights and the acceptance amplify float32
-    rounding, so lanes are not compared after the whole solve."""
+    float32 run's (unless ``full_solve`` is False).  The softmax weights
+    and the acceptance amplify float32 rounding, so lanes are not compared
+    after the whole solve."""
     import torch
     from torch_robotics_tpu_torch.solve import (SGPMPParams,
                                                 sgpmp_solve_normals)
@@ -3538,7 +3607,7 @@ def phase_sgpmp_cpu(task_c, theta0, start_p, goal_p):
     th = theta0[::SG_PART][:n].contiguous()
     s_c = start_p[::SG_PART][:n].contiguous()
     g_c = goal_p[::SG_PART][:n].contiguous()
-    task_h = ilqr_task("cpu")
+    task_h = ilqr_task("cpu") if task_h is None else task_h
     m = th.shape[-1]
     xi = torch.randn((p.opt_iters, p.num_samples, n, p.n_support_points * m),
                      generator=torch.Generator().manual_seed(SEED + 5))
@@ -3559,16 +3628,20 @@ def phase_sgpmp_cpu(task_c, theta0, start_p, goal_p):
     th_h, c_h = one(task_h, th.cpu(), s_c.cpu(), g_c.cpu(), torch.float32)
     th_64, c_64 = one(task_h, th.cpu(), s_c.cpu(), g_c.cpu(), torch.float64)
     check(bool(torch.isfinite(th_c).all() and torch.isfinite(c_c).all()),
-          "sGPMP card iteration non-finite")
+          name + ": card iteration non-finite")
     gaps = theta_gaps(th_c, th_h, th_64)
-    hold_to_f64("sGPMP iteration means", gaps)
+    hold_to_f64(name + " iteration means", gaps)
     scale = c_64.abs().amax(0).clamp(min=1e-30)             # per lane
     cost_gaps = {}
     for who, c in (("card", c_c), ("cpu", c_h)):
         lane = ((c.cpu().double() - c_64).abs().amax(0) / scale)
         cost_gaps[who + "_vs_f64"] = float(lane.max())
         cost_gaps[who + "_vs_f64_median_lane"] = float(lane.median())
-    hold_to_f64("sGPMP candidate costs", cost_gaps)
+    hold_to_f64(name + " candidate costs", cost_gaps)
+    if not full_solve:
+        emit(name, B=n, one_iteration=dict(means=gaps,
+                                           candidate_costs=cost_gaps))
+        return
 
     full_c = sgpmp_solve_normals(task_c.collision_residuals, th, s_c, g_c, p,
                                  xi.cuda())
@@ -3577,8 +3650,8 @@ def phase_sgpmp_cpu(task_c, theta0, start_p, goal_p):
     f_c = float(sg_free(task_c, full_c.trajs, 1).float().mean())
     f_h = float(sg_free(task_h, full_h.trajs, 1).float().mean())
     check(abs(f_c - f_h) <= SG_FREE_TOL + 1e-9,
-          "sGPMP fraction free: card %.3f, CPU %.3f" % (f_c, f_h))
-    emit("sgpmp_cpu", B=n, iterations=p.opt_iters,
+          "%s fraction free: card %.3f, CPU %.3f" % (name, f_c, f_h))
+    emit(name, B=n, iterations=p.opt_iters,
          one_iteration=dict(means=gaps, candidate_costs=cost_gaps),
          full_solve={"card_fraction_free": f_c, "cpu_fraction_free": f_h})
 
@@ -4997,11 +5070,16 @@ def hinge_edge_lanes(task, q):
     return (up & ~down).any(0)
 
 
-def k1_entry(name, task, q, launches):
+def k1_entry(name, task, q, launches, f64: bool = False):
     """K1 on a path's q (d, N) vs its plain version at the terms
     tolerance (Hqq off the hinge-edge lanes, HINGE_EDGE), timed over a
     CUDA graph beside the plain version -> the kernels-line numbers and
-    the count of edge lanes."""
+    the count of edge lanes.  With ``f64`` the kernel is held to the plain
+    version in float64 on the card at that tolerance instead, and the
+    plain float32 version's own share of it is reported (past 8 joints
+    the two float32 orders are each up to ~0.6 of the tolerance off
+    float64 in Hqq on the TIAGo's path, so they can be off each other by
+    more than it)."""
     from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
     lanes_terms = task.collision_residuals.obstacle_terms_lanes
     edge = hinge_edge_lanes(task, q)
@@ -5009,12 +5087,24 @@ def k1_entry(name, task, q, launches):
     check(n_edge <= HINGE_EDGE_SHARE * q.shape[1],
           "%s: %d of %d lanes at a hinge edge" % (name, n_edge, q.shape[1]))
     got, ref = lanes_terms.unscaled(q), lanes_terms.plain.unscaled(q)
-    errs = {}
-    hold_terms(name, (got[0], got[1][..., ~edge], got[2]),
-               (ref[0], ref[1][..., ~edge], ref[2]), errs)
+    errs, extra = {}, {}
+    if f64:
+        ref64 = lanes_terms.plain.unscaled(q.double())
+        hold_terms(name, (got[0], got[1][..., ~edge], got[2]),
+                   (ref64[0], ref64[1][..., ~edge], ref64[2]), {})
+        extra = dict(vs_plain=max_errs(got, ref), plain_share_of_tol_f64=max(
+            float(((p.double() - r).abs() / (
+                TERMS_ATOL_REL * float(r.abs().max())
+                + TERMS_RTOL * r.abs())).max())
+            for p, r in zip(ref, ref64)))
+        del ref64
+        errs[name] = extra["vs_plain"]
+    else:
+        hold_terms(name, (got[0], got[1][..., ~edge], got[2]),
+                   (ref[0], ref[1][..., ~edge], ref[2]), errs)
     r = lanes_terms.plain.rows(q)[0]
     return dict(max_abs_err=errs[name][0], launches=launches,
-                hinge_edge_lanes=n_edge,
+                hinge_edge_lanes=n_edge, **extra,
                 ms=device_ms(lambda: lanes_terms.unscaled(q), iters=20),
                 plain_ms=cuda_ms(lambda: lanes_terms.plain.unscaled(q),
                                  iters=1, warmup=1),
@@ -5634,6 +5724,416 @@ def phase_planar2link():
     return k2
 
 
+# ----------------------------------------------------------------------
+# the robot zoo past eight joints: config 1's FK over the whole zoo, and
+# the dual-arm TIAGo through MPC and sGPMP (K1 and K8 at D = 14, K4 at m
+# = 28), the terms kernel's wide route at D = 14 and 24
+# ----------------------------------------------------------------------
+def zoo_fk_f64(model, q):
+    """fk_all_links and the lane positions on the CPU in float64 from the
+    same q -> (H (B, L, 4, 4), positions (B, L, 3))."""
+    from torch_robotics_tpu_torch.kin import fk_all_links
+    from torch_robotics_tpu_torch.ops.lanes_fk import fk_positions_lanes
+    q64 = q.cpu().double()
+    return fk_all_links(model, q64), fk_positions_lanes(model, q64)
+
+
+def phase_zoo_fk():
+    """Config 1's FK over the zoo (examples/forward_kinematics.py's robots
+    and the UR10's suction gripper) at B = ZOO_B on the card: fk_all_links
+    and fk_positions_lanes finite, their first ZOO_F64_B lanes held to a
+    float64 CPU FK (the float32 FK golden tolerance, FK_ATOL, times the
+    largest coordinate past 1 m), the goldens' q held to the goldens (the
+    Shadow hand's lf* links, which the reference turns about z, left
+    out); ms a call and rollouts/s of each."""
+    import torch
+    from torch_robotics_tpu_torch.kin import fk_all_links, robot_zoo
+    from torch_robotics_tpu_torch.ops.lanes_fk import fk_positions_lanes
+    golden_dir = Path(__file__).resolve().parent / "tests" / "golden"
+    out = {}
+    for name, kw, golden, exclude in ZOO_MODELS:
+        model = getattr(robot_zoo, name)(device="cuda", **kw)
+        lo, hi = model.q_lower, model.q_upper
+        u = np.random.default_rng(ZOO_SEED).uniform(-0.2, 1.2, (
+            ZOO_B, model.n_dofs))
+        q = torch.as_tensor(lo + u * (hi - lo), dtype=torch.float32,
+                            device="cuda")
+        H_all = fk_all_links(model, q)
+        pos = fk_positions_lanes(model, q)
+        check(tuple(H_all.shape) == (ZOO_B, model.n_links, 4, 4)
+              and tuple(pos.shape) == (ZOO_B, model.n_links, 3)
+              and bool(torch.isfinite(H_all).all())
+              and bool(torch.isfinite(pos).all()), name + ": FK output")
+        H64, pos64 = zoo_fk_f64(model, q[:ZOO_F64_B])
+        err = float((H_all[:ZOO_F64_B].cpu().double() - H64).abs().max())
+        err_pos = float((pos[:ZOO_F64_B].cpu().double() - pos64)
+                        .abs().max())
+        # float32 rounding grows with the coordinates: the holonomic
+        # TIAGo's base moves up to 140 m
+        tol = FK_ATOL * max(1.0, float(H64.abs().max()))
+        check(max(err, err_pos) <= tol, "%s: FK off float64 by %.3g / %.3g "
+              "(at most %.3g)" % (name, err, err_pos, tol))
+        entry = dict(dofs=model.n_dofs, links=model.n_links,
+                     vs_float64=err, positions_vs_float64=err_pos)
+        if golden is not None:
+            g = json.loads((golden_dir / (golden + ".json")).read_text())
+            check(list(model.link_names) == list(g["link_names"]),
+                  name + ": link names differ from the golden's")
+            Hg = fk_all_links(model, torch.as_tensor(
+                g["q"], dtype=torch.float32, device="cuda")).cpu()
+            keep = [i for i, n in enumerate(g["link_names"])
+                    if exclude is None or not n.startswith(exclude)]
+            err_g = float((Hg[:, keep] - torch.as_tensor(
+                g["link_tensor"])[:, keep]).abs().max())
+            check(err_g <= FK_ATOL, "%s: FK off its golden by %.3g"
+                  % (name, err_g))
+            entry["vs_golden"] = err_g
+        ms = cuda_ms(lambda: fk_all_links(model, q), iters=10)
+        ms_pos = cuda_ms(lambda: fk_positions_lanes(model, q), iters=10)
+        entry.update(fk_all_links_ms=ms, rollouts_per_s=ZOO_B / (ms / 1e3),
+                     positions_ms=ms_pos)
+        out[name + ("_gripper" if kw else "")] = entry
+        del H_all, pos
+    torch.cuda.empty_cache()
+    emit("zoo_fk", B=ZOO_B, robots=out)
+
+
+def tiago_task(device):
+    """The dual-arm TIAGo in EnvTableShelf (tasks/zoo_tasks.py), the main
+    path's cutoff."""
+    from torch_robotics_tpu_torch.envs import EnvTableShelf
+    from torch_robotics_tpu_torch.tasks.zoo_tasks import tiago_dual_task
+    return tiago_dual_task(EnvTableShelf(device=device), device=device)
+
+
+def tiago_problem(device, n_batch: int, seed: int = SEED):
+    """tiago_task -> (task, start, goal): n_batch free start and goal
+    draws (free_start_goal)."""
+    import torch
+    from torch_robotics_tpu_torch.tasks.zoo_tasks import free_start_goal
+    task = tiago_task(device)
+    start, goal = free_start_goal(task, n_batch, seed)
+    return (task, torch.as_tensor(start, device=device),
+            torch.as_tensor(goal, device=device))
+
+
+def goal_dist(q, goal):
+    """Median over lanes of |q - q_goal| (q (B, d))."""
+    d = q.shape[-1]
+    return float((q - goal[:, :d]).norm(dim=-1).median())
+
+
+def cols_entry(name, D_l, U_l, b_l, launches):
+    """K4 on a path's GN system vs its plain version, held to float64
+    (hold_solve's GN rule), timed over a CUDA graph beside the plain
+    version and the dense solve -> the kernels-line numbers."""
+    import torch
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import (
+        cols_launch_config, solve_lanes_cols)
+    from torch_robotics_tpu_torch.solve.btridiag_lanes import (
+        solve_lanes_core)
+    x_k = solve_lanes_cols(D_l, U_l, b_l)
+    x_p = solve_lanes_core(D_l, U_l, b_l)
+    held = hold_solve(name, x_k, x_p, solve_lanes_core(
+        D_l.double(), U_l.double(), b_l.double()), random=False)
+    H_, m, _, B_ = D_l.shape
+    out = dict(max_abs_err=held["abs"], held=held, launches=launches,
+               launch=cols_launch_config(m, B_),
+               ms=device_ms(lambda: solve_lanes_cols(D_l, U_l, b_l),
+                            iters=10),
+               plain_ms=cuda_ms(lambda: solve_lanes_core(D_l, U_l, b_l),
+                                iters=1, warmup=1),
+               work=cols_solve_work(H_, m, B_))
+    del x_k, x_p
+    torch.cuda.empty_cache()
+    out["library_ms"] = cuda_ms(dense_solve_fn(D_l, U_l, b_l), iters=1,
+                                warmup=1)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tiago_mpc():
+    """The dual-arm TIAGo's MPC at the main path's protocol (B = 1024, H =
+    64, 2 GN iterations a step, 8 steps, phase main's GPMP2Params) in
+    EnvTableShelf from free start and goal draws: exactly 16 K1 (D = 14, N
+    = 65,536) and 16 K4 ((64, 28, 28, 1024)) launches and nothing else,
+    finite outputs, the active-row share on the first q, fraction free,
+    the plans' and the state's goal distance, step ms, solves/s, a
+    profile; one step at B = TG_F64_B on the card and on the CPU held to a
+    float64 CPU step (phase cpu's rule); K1 and K4 on the path's first
+    inputs vs plain and timed -> (K1, K4) kernels-line numbers."""
+    import torch
+    from torch_robotics_tpu_torch.solve import (GPMP2Params,
+                                                straight_line_trajs)
+    from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
+    task, start, goal = tiago_problem("cuda", B)
+    terms = task.collision_residuals.obstacle_terms_lanes
+    q0 = net_first_q(start, goal)
+    rows0 = terms.plain.rows(q0)[0]
+    active = float((rows0 > 0).float().mean())
+    lanes_active = float((rows0 > 0).any(0).float().mean())
+    check(active > 0.0, "tiago_mpc: no residual row active on the first q")
+    run_mpc(task, start, goal, 1)                    # warm-up
+    (state, costs, thetas), launches, ms = counted(
+        lambda: run_mpc(task, start, goal, N_STEPS))
+    expected = N_STEPS * ITERS_PER_STEP
+    check(launches == {"terms": expected, "btridiag_cols": expected},
+          "tiago_mpc launches %s, expected %d of terms and btridiag_cols"
+          % (launches, expected))
+    check(all(bool(torch.isfinite(t).all()) for t in thetas)
+          and bool(torch.isfinite(costs).all()),
+          "tiago_mpc produced non-finite results")
+    step_ms = ms / N_STEPS
+    busy, dev_ms, top = profile_device(
+        lambda: run_mpc(task, start, goal, 2), 2)
+    d = start.shape[1] // 2
+    th0 = straight_line_trajs(start, goal, H)
+    free0 = task.compute_fraction_free_trajs(th0)
+    free = task.compute_fraction_free_trajs(state.theta)
+
+    n = TG_F64_B
+    iters, chained = step_vs_f64(
+        task, tiago_task("cpu"), (start[:n].contiguous(),
+                                  goal[:n].contiguous()),
+        (start[:n].cpu(), goal[:n].cpu()), GPMP2Params(**GP_PARAMS), H,
+        ITERS_PER_STEP, "tiago ")
+
+    k1 = k1_entry("tiago_first_q_N%d" % q0.shape[1], task, q0, expected,
+                  f64=True)
+    b_l, D_l, U_l, _ = _lanes_gn_system(terms, th0, start, goal,
+                                        GPMP2Params(**GP_PARAMS))
+    check(tuple(D_l.shape) == (H, 2 * d, 2 * d, B),
+          "tiago's GN system is %s" % (tuple(D_l.shape),))
+    k4 = cols_entry("tiago_gn_system", D_l, U_l, b_l, expected)
+    del D_l, U_l, b_l
+    torch.cuda.empty_cache()
+    emit("tiago_mpc", B=B, H=H, dofs=d, steps=N_STEPS,
+         rows=int(rows0.shape[0]), active_row_share_first_q=active,
+         lanes_with_active_row_first_q=lanes_active, launches=launches,
+         step_ms=step_ms, solves_per_s=B / (step_ms / 1e3),
+         init_fraction_free=free0, fraction_free=free,
+         plan_end_goal_dist_median=goal_dist(state.theta[:, -1, :d], goal),
+         state_goal_dist_median=goal_dist(state.x[:, :d], goal),
+         start_goal_dist_median=goal_dist(start[:, :d], goal),
+         mean_collision_cost_first_last=[float(costs[0].mean()),
+                                         float(costs[-1].mean())],
+         vs_float64=dict(B=n, iterations=iters, chained_step=chained),
+         k1=dict(kernel_ms=k1["ms"], plain_ms=k1["plain_ms"],
+                 hinge_edge_lanes=k1["hinge_edge_lanes"],
+                 vs_plain=k1["vs_plain"],
+                 plain_share_of_tol_f64=k1["plain_share_of_tol_f64"],
+                 launch=terms.params[4], bound_ms=bound_ms(*k1["work"])[0]),
+         k4=dict(held=k4["held"], kernel_ms=k4["ms"],
+                 plain_ms=k4["plain_ms"], dense_solve_ms=k4["library_ms"],
+                 launch=k4["launch"], bound_ms=bound_ms(*k4["work"])[0]),
+         profiled_device_busy_share=busy, profiled_device_ms_per_step=dev_ms,
+         top_device_ms_per_step=top)
+    return k1, k4
+
+
+def phase_tiago_sgpmp():
+    """sGPMP on the TIAGo at phase sgpmp's shape (B = 512 free start and
+    goal draws, 8 particles, H = 32, 100 iterations of K = 16): exactly
+    201 K8 launches (D = 14; 100 at 2,097,152 lanes, 101 at 131,072) and
+    nothing else, the metrics of phase sgpmp; K8 on its first candidates
+    and proposal vs plain (the plain cost in chunks), a lane's bits the
+    same at a ragged N and at 32 lanes a block, timed; one iteration at B
+    = 32 held to float64 (phase sgpmp_cpu's rule) -> the kernels-line
+    numbers at 2,097,152."""
+    import torch
+    from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
+    from torch_robotics_tpu_torch.ops.terms_kernel import run_cost_kernel
+    task, start, goal = tiago_problem("cuda", IL_B, seed=SEED + 2)
+    cost = task.collision_residuals.collision_cost_lanes
+    N_sg = SG_PARAMS["num_samples"] * IL_B * SG_PART * IL_H
+    seen = capture_cost_inputs(task, *sg_problem(
+        start, goal, SG_PART, IL_H, SG_PARAMS["dt"], SEED + 2), SG_PARAMS)
+    lay = TermsLayout(task)
+    n_rows = 2 * len(lay.obj_pos) + len(lay.pair_a)
+    results, out = {}, {}
+    for key, q, iters in (("sgpmp", seen[N_sg], 10),
+                          ("acceptance", seen[IL_B * SG_PART * IL_H], 20)):
+        name = "tiago_%s_N%d" % (key, q.shape[1])
+        results[name] = hold_cost(name, cost(q), chunked(cost.plain, q))
+        same_lane_bits(name, cost, run_cost_kernel, q)
+        out[key] = dict(N=q.shape[1], ms=device_ms(lambda: cost(q), iters),
+                        plain_ms=cuda_ms(lambda: chunked(cost.plain, q),
+                                         iters=1, warmup=1),
+                        work=cost_work(lay, q.shape[1], n_rows),
+                        max_abs_err=results[name][0])
+    del seen
+    torch.cuda.empty_cache()
+    launches, theta0, start_p, goal_p = phase_sgpmp(
+        "tiago_sgpmp", task, start, goal, SG_PART, SG_PARAMS, "cost",
+        SEED + 2)
+    check(launches == 2 * SG_PARAMS["opt_iters"] + 1,
+          "tiago_sgpmp: %d K8 launches" % launches)
+    # the whole solve on the CPU takes ~60 s at D = 14 (its plain cost
+    # builds the terms' Jacobians): one iteration is held
+    phase_sgpmp_cpu(task, theta0, start_p, goal_p, task_h=tiago_task("cpu"),
+                    name="tiago_sgpmp_cpu", full_solve=False)
+    emit("tiago_cost", rows=n_rows, launch=cost.params[3],
+         max_errs={k: {"abs": v[0], "rel_to_max": v[1]}
+                   for k, v in results.items()},
+         kernel_ms={k: v["ms"] for k, v in out.items()},
+         plain_ms={k: v["plain_ms"] for k, v in out.items()},
+         bound_ms={k: bound_ms(*v["work"])[0] for k, v in out.items()},
+         bound_by={k: bound_ms(*v["work"])[1] for k, v in out.items()})
+    return dict(out["sgpmp"], launches=launches)
+
+
+def crossed_q(task, N: int, seed: int):
+    """q (d, N) on the card where a self-collision pair is active: a
+    random_q pool of 16 N, the lanes with an active pair row kept, tiled to
+    N and jittered by 0.01 rad (the TIAGo's arms come within a pair's
+    margin on ~0.15% of uniform q)."""
+    import torch
+    terms = task.collision_residuals.obstacle_terms_lanes
+    pool = random_q(task, 16 * N, seed)
+    n_pt = 2 * len(terms.plain.layout.obj_pos)
+    keep = pool[:, (terms.plain.rows(pool)[0][n_pt:] > 0).any(0)]
+    check(keep.shape[1] > 0, "no q with an active pair in the pool")
+    q = keep.repeat(1, -(-N // keep.shape[1]))[:, :N]
+    noise = torch.as_tensor(np.random.default_rng(seed).normal(
+        0.0, 0.01, q.shape), dtype=torch.float32, device=q.device)
+    return (q + noise).contiguous()
+
+
+def chain_task(n: int, device):
+    """A chain of n revolute joints about z, 5 cm apart (a URDF built in
+    memory), its last three links' origins as collision points and one
+    pair, in EnvSpheres3D: past the terms kernel's 32 joints for n = 33,
+    within the cost kernel's 64."""
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    from torch_robotics_tpu_torch.kin import KinematicModel
+    from torch_robotics_tpu_torch.kin.urdf import (UrdfJoint, UrdfLink,
+                                                   UrdfRobot)
+    from torch_robotics_tpu_torch.robots import KinematicRobot
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    joints = [UrdfJoint(name="j%d" % i, type="revolute", parent="l%d" % i,
+                        child="l%d" % (i + 1), origin_xyz=(0.05, 0.0, 0.0),
+                        origin_rpy=(0.0, 0.0, 0.0), axis=(0.0, 0.0, 1.0),
+                        limit_lower=-2.0, limit_upper=2.0, has_limit=True)
+              for i in range(n)]
+    model = KinematicModel.from_urdf_robot(UrdfRobot(
+        name="chain%d" % n, links=[UrdfLink(name="l%d" % i)
+                                   for i in range(n + 1)], joints=joints),
+        name="chain%d" % n, device=device)
+    robot = KinematicRobot.create(
+        model, object_coll_links=["l%d" % i for i in (n // 2, n - 1, n)],
+        object_coll_margins=[0.05] * 3, self_coll_pairs={"l%d" % n: ["l0"]})
+    return PlanningTask(env=EnvSpheres3D(device=device), robot=robot,
+                        obstacle_cutoff_margin=0.03)
+
+
+def phase_wide_terms():
+    """K1's route past eight joints (terms_wide_kernel) vs its plain
+    version on the card at N = TG_WIDE_N: the TIAGo (D = 14) in
+    EnvTableShelf on random q and on q where its arms' pairs are active,
+    the Shadow hand (D = 24) holding its ball on random q; held to the
+    plain version in float64 at the terms tolerance (k1_entry's f64), Hqq
+    off the hinge-edge lanes (HINGE_EDGE); a lane's bits the same at a
+    ragged N and at each other lane count of 32, 64, 96, 128 that fits,
+    timed over a CUDA graph at each; then one MPC step of the
+    Shadow hand (B = 1024, H = 64, from straight lines between q drawn in
+    its limits): exactly 2 K1 and 2 K4 launches; a 33-joint chain's terms
+    hook raises NotImplementedError in its words on the card while its
+    cost hook runs K8 there (held to plain) -> the kernels-line numbers
+    at D = 24."""
+    import torch
+    from torch_robotics_tpu_torch.ops.terms_kernel import (
+        _terms_block, run_terms_kernel)
+    from torch_robotics_tpu_torch.tasks.zoo_tasks import shadow_hand_task
+    N = TG_WIDE_N
+    tiago = tiago_task("cuda")
+    shadow = shadow_hand_task(device="cuda")
+    results, timed = {}, {}
+    for name, task, q in (
+            ("tiago_random_q", tiago, random_q(tiago, N, seed=41)),
+            ("tiago_crossed_arms_q", tiago, crossed_q(tiago, N, seed=42)),
+            ("shadow_random_q", shadow, random_q(shadow, N, seed=43))):
+        terms = task.collision_residuals.obstacle_terms_lanes
+        d_, ints, floats, _, launch = terms.params
+        check(terms.refusal is None and d_ in (14, 24),
+              name + ": the terms hook refuses: %s" % terms.refusal)
+        entry = k1_entry(name, task, q, 0, f64=True)
+        rows = terms.plain.rows(q)[0]
+        n_pt = len(terms.plain.layout.obj_pos)
+        full = terms.unscaled(q)
+        ragged = terms.unscaled(q[:, :GN_RAGGED_N].contiguous())
+        by_lanes = {launch["lanes"]: entry["ms"]}
+        for lanes in (32, 64, 96, 128):
+            lc, refused = _terms_block(ints.cpu().numpy(), floats.numel(),
+                                       lanes)
+            if refused is not None or lanes == launch["lanes"]:
+                continue
+            check(all(torch.equal(a, b) for a, b in zip(
+                run_terms_kernel(q, ints, floats, d_, lc, terms.grid),
+                full)), name + ": a lane's bits change with the lanes a "
+                "block (%d)" % lanes)
+            by_lanes[lanes] = device_ms(lambda lc=lc: run_terms_kernel(
+                q, ints, floats, d_, lc, terms.grid), iters=20)
+        check(all(torch.equal(a[..., :GN_RAGGED_N], b)
+                  for a, b in zip(full, ragged)),
+              name + ": a lane's bits change with the batch")
+        results[name] = dict(
+            dofs=d_, launch=launch, max_abs_err=entry["max_abs_err"],
+            plain_share_of_tol_f64=entry["plain_share_of_tol_f64"],
+            hinge_edge_lanes=entry["hinge_edge_lanes"],
+            active_row_share=float((rows > 0).float().mean()),
+            active_pair_row_share=float((rows[2 * n_pt:] > 0).float()
+                                        .mean()),
+            kernel_ms=entry["ms"], kernel_ms_by_lanes=by_lanes,
+            plain_ms=entry["plain_ms"], bound_ms=bound_ms(*entry["work"])[0],
+            bound_by=bound_ms(*entry["work"])[1])
+        timed[name] = entry
+        del full, ragged
+        torch.cuda.empty_cache()
+    check(results["tiago_crossed_arms_q"]["active_pair_row_share"] > 0,
+          "wide_terms: no pair row active on the crossed-arms q")
+    # past 32 joints the terms hook raises on the card; the cost kernel,
+    # on its own limits (64 joints), runs there
+    chain = chain_task(33, "cuda")
+    res = chain.collision_residuals
+    q33 = random_q(chain, 4096, seed=45)
+    words = res.obstacle_terms_lanes.refusal or ""
+    raised = False
+    try:
+        res.obstacle_terms_lanes.unscaled(q33)
+    except NotImplementedError as e:
+        raised = str(e) == words
+    check(raised and "32 joints" in words,
+          "wide_terms: the 33-joint terms hook did not refuse: %r" % words)
+    cost33 = res.collision_cost_lanes
+    check(cost33.refusal is None, "wide_terms: the cost kernel refuses 33 "
+          "joints: %s" % cost33.refusal)
+    c33 = hold_cost("chain33_cost_N4096", cost33(q33), cost33.plain(q33))
+    # the Shadow hand's terms hook on a path: one MPC step
+    lo, hi = shadow.robot.model.q_lower, shadow.robot.model.q_upper
+    rng = np.random.default_rng(44)
+    z = np.zeros((B, lo.shape[0]))
+    s_g = [torch.as_tensor(np.concatenate([lo + rng.uniform(
+        size=(B, lo.shape[0])) * (hi - lo), z], -1), dtype=torch.float32,
+        device="cuda") for _ in range(2)]
+    run_mpc(shadow, *s_g, 1)                         # warm-up
+    (state, costs, _), launches, ms = counted(
+        lambda: run_mpc(shadow, *s_g, 1))
+    check(launches == {"terms": ITERS_PER_STEP,
+                       "btridiag_cols": ITERS_PER_STEP},
+          "shadow MPC step launches %s" % launches)
+    check(bool(torch.isfinite(state.theta).all()),
+          "shadow MPC step non-finite")
+    emit("wide_terms", N=N, cases=results,
+         chain33=dict(terms_refusal=words, cost_launch=cost33.params[3],
+                      cost_max_errs=c33,
+                      active_row_share=float((res.obstacle_terms_lanes.plain
+                                              .rows(q33)[0] > 0).float()
+                                             .mean())),
+         shadow_mpc_step=dict(B=B, H=H, launches=launches, step_ms=ms,
+                              mean_collision_cost=float(costs[0].mean())))
+    return {"d24": dict(timed["shadow_random_q"], launches=ITERS_PER_STEP)}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5708,6 +6208,10 @@ def main() -> None:
     pod_k1_c, pod_k2_c, pod_k1, pod_k2 = phase_pod()
     mp_k2 = phase_mpot()
     p2_k2 = phase_planar2link()
+    phase_zoo_fk()
+    wide = phase_wide_terms()
+    tg_k1, tg_k4 = phase_tiago_mpc()
+    tg_k8 = phase_tiago_sgpmp()
 
     entries = []
     for name, src, rep, res, n in (
@@ -5843,7 +6347,20 @@ def main() -> None:
             ("btridiag_w_planar2link",
              "torch_robotics_tpu_torch/csrc/btridiag.cu",
              "torch_robotics_tpu/ops/pallas_btridiag.py:330", p2_k2,
-             p2_k2["launches"])):
+             p2_k2["launches"]),
+            ("obstacle_terms_tiago", "torch_robotics_tpu_torch/csrc/terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", tg_k1,
+             tg_k1["launches"]),
+            ("obstacle_terms_shadow", "torch_robotics_tpu_torch/csrc/terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", wide["d24"],
+             wide["d24"]["launches"]),
+            ("btridiag_cols_tiago",
+             "torch_robotics_tpu_torch/csrc/btridiag_cols.cu",
+             "torch_robotics_tpu/ops/pallas_btridiag.py:583", tg_k4,
+             tg_k4["launches"]),
+            ("collision_cost_tiago", "torch_robotics_tpu_torch/csrc/cost.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029", tg_k8,
+             tg_k8["launches"])):
         # a tf32x3 kernel's float32-accurate products run at 495 / 3
         b_ms, b_by = bound_ms(*res["work"], PEAK_TF32X3_FLOPS
                               if res.get("route") == "tf32x3"

@@ -54,7 +54,8 @@
 //     the number of joints D) and nothing is indexed by a run-time number
 //     in a per-thread array, so no local memory.
 // terms_launch_config in ops/terms_kernel.py picks the lanes a block from
-// the packed sizes.
+// the packed sizes.  Robots of 9 to 32 joints take terms_wide_kernel
+// below, the same function with Hqq in shared memory.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -337,14 +338,289 @@ cudaError_t launch(const float* q, float* g, float* h, float* cost, int N,
   return cudaGetLastError();
 }
 
+// ---- the route for 9 <= D <= 32 joints (terms_wide_kernel) ----
+// The same function as terms_kernel, for a robot of D joints past what
+// its register-resident accumulators hold: Hqq's packed upper triangle is
+// 105 floats a lane at D = 14 (the dual-arm TIAGo) and 300 at D = 24 (the
+// Shadow hand).  g, a row's Jr and the FK chain stay in registers: the
+// kernel is templated on kDM, D rounded up to 16, 24 or 32, every loop
+// over joints is unrolled to kDM and guarded by j < D, so no per-thread
+// array is indexed at run time.  The triangle lives in shared memory
+// after the lane's points and slots, lane-minor ([t * lanes + lane]: no
+// bank conflicts), and each active row adds its Jr^T Jr there in the
+// rows' order, as terms_kernel adds it in registers.  Every row goes
+// through one body (object SDF, workspace, pair) and one accumulation, so
+// the unrolled triangle is emitted once.  A point's joint mask and the
+// prismatic mask are 32 bits: D <= 32.  What bounds it on the H100: not
+// bytes (0.018 ms of them for the TIAGo at N = 65,536) but latency, with
+// few warps resident: a lane's shared memory, 4 (7 D + 3 P + 12 n_slots +
+// D (D + 1) / 2) bytes (~1 KB for the TIAGo, ~2.2 KB for the Shadow
+// hand), and ~255 registers a thread leave 3-6 warps an SM;
+// terms_launch_config takes the lanes a block that keep the most.
+
+// FK of one lane into shared memory as terms_kernel's chain (its axes z_j
+// and origins o_j, zeroed first, and its world points) -> the prismatic
+// joints' mask.
+__device__ __forceinline__ unsigned fk_to_shared(const CostLayout& a,
+                                                 const float* qs, float* zo,
+                                                 float* pts, float* slots,
+                                                 int D, int lanes,
+                                                 int lane) {
+  for (int k = 0; k < 6 * D; ++k) zo[k * lanes + lane] = 0.f;
+  unsigned prism = 0;
+  float R[9], tv[3];  // the previous step's world transform
+  for (int s = 0; s < a.S; ++s) {
+    const int4 i0 = reinterpret_cast<const int4*>(a.step_i)[2 * s];
+    const int4 i1 = reinterpret_cast<const int4*>(a.step_i)[2 * s + 1];
+    const float4* fr = reinterpret_cast<const float4*>(a.step_f) + 5 * s;
+    const float4 f0 = fr[0], f1 = fr[1], f2 = fr[2], f3 = fr[3];
+    const float F[9] = {f0.x, f0.y, f0.z, f0.w, f1.x,
+                        f1.y, f1.z, f1.w, f2.x};
+    const float axis[3] = {f3.x, f3.y, f3.z};
+    const float lo = f3.w, hi = fr[4].x;
+    float tr[3] = {f2.y, f2.z, f2.w};
+    float Rl[9];
+    const float qj = i0.y >= 0 ? qs[i0.y * lanes + lane] : 0.f;
+    joint_transform(i0.x, F, axis, lo, hi, qj, Rl, tr);
+    if (i0.z == -1) {  // the root, at the identity base
+#pragma unroll
+      for (int k = 0; k < 9; ++k) R[k] = Rl[k];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) tv[k] = tr[k];
+    } else {
+      if (i0.z >= 0) {  // a stored transform
+#pragma unroll
+        for (int k = 0; k < 9; ++k)
+          R[k] = slots[(12 * i0.z + k) * lanes + lane];
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          tv[k] = slots[(12 * i0.z + 9 + k) * lanes + lane];
+      }
+      float Rn[9], tn[3];
+      compose(R, tv, Rl, tr, Rn, tn);
+#pragma unroll
+      for (int k = 0; k < 9; ++k) R[k] = Rn[k];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) tv[k] = tn[k];
+    }
+    if (i0.w >= 0) {
+#pragma unroll
+      for (int k = 0; k < 9; ++k)
+        slots[(12 * i0.w + k) * lanes + lane] = R[k];
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        slots[(12 * i0.w + 9 + k) * lanes + lane] = tv[k];
+    }
+    if (i0.y >= 0) {  // joint i0.y: world axis (0 outside the clamp)
+      const float in_lim = (qj >= lo && qj <= hi) ? 1.f : 0.f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        zo[(6 * i0.y + k) * lanes + lane] =
+            (R[3 * k] * axis[0] + R[3 * k + 1] * axis[1] +
+             R[3 * k + 2] * axis[2]) * in_lim;
+        zo[(6 * i0.y + 3 + k) * lanes + lane] = tv[k];
+      }
+      prism |= (i0.x == kPrismatic ? 1u : 0u) << i0.y;
+    }
+    const int first_off = i1.y - i1.z;
+    for (int i = i1.x; i < first_off; ++i) {  // the link's origin
+      const int p = a.pt_list[i];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) pts[(3 * p + k) * lanes + lane] = tv[k];
+    }
+    for (int i = first_off; i < i1.y; ++i) {  // offset points: R o + t
+      const float4 o4 =
+          reinterpret_cast<const float4*>(a.offsets)[i1.w + i - first_off];
+      const float o[3] = {o4.x, o4.y, o4.z};
+      float x[3];
+      offset_point(R, tv, o, x);
+      const int p = a.pt_list[i];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) pts[(3 * p + k) * lanes + lane] = x[k];
+    }
+  }
+  return prism;
+}
+
+template <int kDM>
+__global__ void __launch_bounds__(kMaxLanes, 1)
+terms_wide_kernel(const float* __restrict__ q, float* __restrict__ g_out,
+                  float* __restrict__ h_out, float* __restrict__ cost_out,
+                  int N, int D, const int* __restrict__ ip, int n_ints,
+                  const float* __restrict__ fp, int n_floats,
+                  const float4* __restrict__ grid) {
+  extern __shared__ __align__(16) float smem[];
+  const int lanes = blockDim.x, lane = threadIdx.x;
+  const int n = blockIdx.x * lanes + lane;
+  const bool valid = n < N;
+
+  int* ism = reinterpret_cast<int*>(smem);
+  float* fsm = smem + round4(n_ints);
+  float* qs = fsm + round4(n_floats);
+  for (int j = 0; j < D; ++j)
+    qs[j * lanes + lane] = valid ? q[(size_t)j * N + n] : 0.f;
+  copy_words(ip, ism, n_ints, lane, lanes);
+  copy_words(fp, fsm, n_floats, lane, lanes);
+  __syncthreads();
+  const CostLayout a = parse_layout(ism, fsm, grid);
+  const int* anc_of = ism + n_ints - a.P;
+  float* zo = qs + D * lanes;            // [6 D][lanes]
+  float* pts = zo + 6 * D * lanes;       // [3 P][lanes]
+  float* slots = pts + 3 * a.P * lanes;  // [12 n_slots][lanes]
+  float* hs = slots + 12 * a.n_slots * lanes;  // [D (D + 1) / 2][lanes]
+  const int n_h = D * (D + 1) / 2;
+  for (int t = 0; t < n_h; ++t) hs[t * lanes + lane] = 0.f;
+  const unsigned prism = fk_to_shared(a, qs, zo, pts, slots, D, lanes, lane);
+  // every array above is this thread's own lane: no barrier before the rows
+
+  // Jacobian column j of a point at world position x whose joint mask is
+  // anc (zero unless joint j moves it)
+  auto jac = [&](unsigned anc, const float x[3], int j, float out[3]) {
+    if (!((anc >> j) & 1)) {
+      out[0] = out[1] = out[2] = 0.f;
+      return;
+    }
+    const float z[3] = {zo[(6 * j) * lanes + lane],
+                        zo[(6 * j + 1) * lanes + lane],
+                        zo[(6 * j + 2) * lanes + lane]};
+    if ((prism >> j) & 1) {
+      out[0] = z[0]; out[1] = z[1]; out[2] = z[2];
+      return;
+    }
+    const float d0 = x[0] - zo[(6 * j + 3) * lanes + lane],
+                d1 = x[1] - zo[(6 * j + 4) * lanes + lane],
+                d2 = x[2] - zo[(6 * j + 5) * lanes + lane];
+    out[0] = z[1] * d2 - z[2] * d1;
+    out[1] = z[2] * d0 - z[0] * d2;
+    out[2] = z[0] * d1 - z[1] * d0;
+  };
+
+  float gacc[kDM], cacc = 0.f;
+#pragma unroll
+  for (int j = 0; j < kDM; ++j) gacc[j] = 0.f;
+
+  // rows in the reference's order: object SDF, workspace, pairs
+  const int n_sdf = a.NOBJ > 0 ? a.NO : 0;
+  const int n_rows = n_sdf + a.NO + a.K;
+  for (int row = 0; row < n_rows; ++row) {
+    float r, dir[3], xa[3], xb[3] = {0.f, 0.f, 0.f};
+    unsigned anc_a, anc_b = 0;
+    if (row < n_sdf + a.NO) {  // a point row: an object SDF or workspace
+      const bool sdf = row < n_sdf;
+      const int mi = sdf ? row : row - n_sdf;
+      const int p = a.obj_pt[mi];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) xa[k] = pts[(3 * p + k) * lanes + lane];
+      if (sdf) {
+        r = relu(a.obj_thresh[mi] - scene_sdf_value(a, xa));
+        if (r <= 0.f) continue;
+        scene_sdf_grad(a, xa, dir);
+      } else {  // min-face distance, first minimal face wins
+        const float faces[6] = {xa[0] - a.ws_min[0], xa[1] - a.ws_min[1],
+                                xa[2] - a.ws_min[2], a.ws_max[0] - xa[0],
+                                a.ws_max[1] - xa[1], a.ws_max[2] - xa[2]};
+        float val = faces[0];
+#pragma unroll
+        for (int f = 1; f < 6; ++f) val = fminf(val, faces[f]);
+        r = relu(a.obj_thresh[mi] - val);
+        if (r <= 0.f) continue;
+        int fi = 5;
+#pragma unroll
+        for (int f = 4; f >= 0; --f) fi = faces[f] <= val ? f : fi;
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          dir[k] = fi == k ? 1.f : (fi == k + 3 ? -1.f : 0.f);
+      }
+      anc_a = static_cast<unsigned>(anc_of[p]);
+    } else {  // a self-collision pair
+      const int k = row - n_sdf - a.NO;
+      const int pa = a.pair_a[k], pb = a.pair_b[k];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        xa[c] = pts[(3 * pa + c) * lanes + lane];
+        xb[c] = pts[(3 * pb + c) * lanes + lane];
+      }
+      const float diff[3] = {xa[0] - xb[0], xa[1] - xb[1], xa[2] - xb[2]};
+      const float d2 =
+          diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2];
+      const float m = a.pair_margin[k];
+      // d2 >= m^2 (1 + 1e-6) > m^2 gives sqrtf(d2) >= m, a zero row
+      if (d2 > m * m * 1.000001f) continue;
+      const float dist = d2 > 0.f ? sqrtf(d2) : 0.f;
+      r = relu(m - dist);
+      if (r <= 0.f) continue;
+      const float inv = d2 > 0.f ? 1.f / fmaxf(dist, 1e-9f) : 0.f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) dir[c] = diff[c] * inv;
+      anc_a = static_cast<unsigned>(anc_of[pa]);
+      anc_b = static_cast<unsigned>(anc_of[pb]);
+    }
+    // Jr_j = -[r > 0] dir . (J_a[j] - J_b[j]) (J_b = 0 for a point row)
+    const float act = r > 0.f ? 1.f : 0.f;
+    float Jr[kDM];
+#pragma unroll
+    for (int j = 0; j < kDM; ++j) {
+      float ca[3], cb[3];
+      jac(anc_a, xa, j, ca);
+      jac(anc_b, xb, j, cb);
+      Jr[j] = -act * (dir[0] * (ca[0] - cb[0]) + dir[1] * (ca[1] - cb[1]) +
+                      dir[2] * (ca[2] - cb[2]));
+    }
+    cacc += r * r;
+#pragma unroll
+    for (int i = 0; i < kDM; ++i) gacc[i] += r * Jr[i];
+    // row i of the packed triangle starts at t = i D - i (i + 1) / 2 + i
+#pragma unroll
+    for (int i = 0; i < kDM; ++i) {
+      if (i < D) {
+        float* hrow = hs + (i * D - i * (i + 1) / 2) * lanes + lane;
+#pragma unroll
+        for (int j = i; j < kDM; ++j)
+          if (j < D) hrow[j * lanes] += Jr[i] * Jr[j];
+      }
+    }
+  }
+
+  // ---- outputs: unscaled g (D, N), Hqq (D, D, N), cost (N) ----
+  if (!valid) return;
+#pragma unroll
+  for (int j = 0; j < kDM; ++j)
+    if (j < D) g_out[(size_t)j * N + n] = gacc[j];
+  int t = 0;
+  for (int i = 0; i < D; ++i)
+    for (int j = i; j < D; ++j) {
+      const float v = hs[(t++) * lanes + lane];
+      h_out[((size_t)i * D + j) * N + n] = v;
+      h_out[((size_t)j * D + i) * N + n] = v;
+    }
+  cost_out[n] = 0.5f * cacc;
+}
+
+template <int kDM>
+cudaError_t launch_wide(const float* q, float* g, float* h, float* cost,
+                        int N, int D, int lanes, int smem, const int* ip,
+                        int n_ints, const float* fp, int n_floats,
+                        const float4* grid, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        terms_wide_kernel<kDM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return e;
+  }
+  terms_wide_kernel<kDM><<<(N + lanes - 1) / lanes, lanes, smem, stream>>>(
+      q, g, h, cost, N, D, ip, n_ints, fp, n_floats, grid);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q (D, N) -> g (D, N), h (D, D, N), cost (N); ip (n_ints) / fp (n_floats)
 // the packed parameters (pack_terms_params), lanes the block's threads and
 // smem_bytes its dynamic shared memory (terms_launch_config), grid the
 // scene's grid table ((C, 4) float32, null for a scene without grids).
-// Returns a CUDA error code (cudaErrorInvalidValue for D outside 1..8 or a
-// block of more than kMaxLanes threads).
+// D = 1..8 launches terms_kernel<D>, D = 9..32 terms_wide_kernel.
+// Returns a CUDA error code (cudaErrorInvalidValue for D outside 1..32 or
+// a block of more than kMaxLanes threads).
 extern "C" int trt_terms_launch(const float* q, float* g, float* h,
                                 float* cost, int N, int D, int lanes,
                                 int smem_bytes, const int* ip, int n_ints,
@@ -360,7 +636,17 @@ extern "C" int trt_terms_launch(const float* q, float* g, float* h,
                      n_floats, t, s);
   switch (D) {
     TRT_D(1) TRT_D(2) TRT_D(3) TRT_D(4) TRT_D(5) TRT_D(6) TRT_D(7) TRT_D(8)
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: break;
   }
 #undef TRT_D
+  if (D >= 9 && D <= 16)
+    return launch_wide<16>(q, g, h, cost, N, D, lanes, smem_bytes, ip,
+                           n_ints, fp, n_floats, t, s);
+  if (D >= 17 && D <= 24)
+    return launch_wide<24>(q, g, h, cost, N, D, lanes, smem_bytes, ip,
+                           n_ints, fp, n_floats, t, s);
+  if (D >= 25 && D <= 32)
+    return launch_wide<32>(q, g, h, cost, N, D, lanes, smem_bytes, ip,
+                           n_ints, fp, n_floats, t, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

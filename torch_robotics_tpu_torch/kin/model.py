@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from .urdf import UrdfRobot
+from .urdf import UrdfRobot, parse_urdf
 
 __all__ = ["KinematicModel", "JOINT_FIXED", "JOINT_REVOLUTE",
            "JOINT_CONTINUOUS", "JOINT_PRISMATIC"]
@@ -82,6 +82,14 @@ class KinematicModel:
     # ------------------------------------------------------------------
     # Construction
     # ------------------------------------------------------------------
+    @classmethod
+    def from_urdf(cls, path, name=None, device="cuda") -> "KinematicModel":
+        """The model of the URDF file at ``path``, named ``name`` (the
+        URDF's robot name when None)."""
+        robot = parse_urdf(path)
+        return cls.from_urdf_robot(robot, name=name or robot.name,
+                                   device=device)
+
     @classmethod
     def from_urdf_robot(cls, robot: UrdfRobot, name: str = "robot",
                         device="cuda") -> "KinematicModel":

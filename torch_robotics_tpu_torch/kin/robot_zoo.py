@@ -1,6 +1,7 @@
 """Named kinematic models compiled from the vendored URDFs (counterpart of
-torch_robotics_tpu/kin/robot_zoo.py; the Panda, with or without a grasped
-object, the UR10 and the planar 2-link arm so far)."""
+torch_robotics_tpu/kin/robot_zoo.py, the same names, URDF files and model
+names).  The URDFs are read in place from the JAX package's data
+directory (``utils/files.get_robot_path``)."""
 from __future__ import annotations
 
 import torch
@@ -10,7 +11,22 @@ from ..utils.files import get_robot_path
 from .model import KinematicModel
 from .urdf import UrdfJoint, UrdfLink, parse_urdf
 
-__all__ = ["franka_panda", "planar_2_link", "ur10"]
+__all__ = [
+    "kuka_iiwa7", "franka_panda", "ur10", "habitat_stretch",
+    "tiago_dual_holo", "tiago_dual_holo_move", "shadow_hand", "allegro_hand",
+    "planar_2_link",
+]
+
+
+def _load(rel_path: str, name: str, device) -> KinematicModel:
+    return KinematicModel.from_urdf(get_robot_path() / rel_path, name=name,
+                                    device=device)
+
+
+def kuka_iiwa7(device="cuda") -> KinematicModel:
+    """KUKA LBR iiwa 7 (7 revolute joints, a chain)."""
+    return _load("kuka_iiwa/urdf/iiwa7.urdf", "differentiable_kuka_iiwa",
+                 device)
 
 
 def franka_panda(gripper: bool = False, grasped_object=None,
@@ -36,17 +52,52 @@ def franka_panda(gripper: bool = False, grasped_object=None,
         robot, name="differentiable_franka_panda", device=device)
 
 
-def ur10(device="cuda") -> KinematicModel:
-    """Universal Robots UR10 arm (6 revolute joints, ``ee_link`` fixed; no
-    suction gripper in this slice)."""
-    return KinematicModel.from_urdf_robot(
-        parse_urdf(get_robot_path() / "ur10/urdf/ur10.urdf"),
-        name="differentiable_ur10", device=device)
+def ur10(attach_gripper: bool = False, device="cuda") -> KinematicModel:
+    """Universal Robots UR10 arm (6 revolute joints, ``ee_link`` fixed),
+    with its suction gripper's fixed link ``ee_suction_link`` when
+    ``attach_gripper``."""
+    rel = ("ur10/urdf/ur10_suction.urdf" if attach_gripper
+           else "ur10/urdf/ur10.urdf")
+    return _load(rel, "differentiable_ur10", device)
+
+
+def habitat_stretch(device="cuda") -> KinematicModel:
+    """Hello Robot Stretch as Habitat ships it (14 joints: continuous
+    wheels, a prismatic lift and telescoping arm, revolute wrist, head and
+    fingers)."""
+    return _load("habitat_stretch/urdf/hab_stretch.urdf",
+                 "differentiable_stretch", device)
+
+
+def tiago_dual_holo(device="cuda") -> KinematicModel:
+    """PAL TIAGo dual-arm on its holonomic base, base fixed: two 7-DoF arms
+    off ``torso_lift_link`` (14 joints, 19 links)."""
+    return _load("tiago_dual_description/tiago_dual_holobase_minimal.urdf",
+                 "differentiable_tiago_dual_holo", device)
+
+
+def tiago_dual_holo_move(device="cuda") -> KinematicModel:
+    """The dual-arm TIAGo with its base's x, y (prismatic) and yaw
+    (continuous) and the torso lift as joints (18 joints, 22 links)."""
+    return _load(
+        "tiago_dual_description/tiago_dual_holobase_minimal_holonomic.urdf",
+        "differentiable_tiago_dual_holo_move", device)
+
+
+def shadow_hand(device="cuda") -> KinematicModel:
+    """Shadow Dexterous Hand (24 joints, five finger chains off the palm;
+    LFJ5 turns about its true, non-axis-aligned axis)."""
+    return _load("shadow_hand/shadow_hand.urdf", "differentiable_shadow_hand",
+                 device)
+
+
+def allegro_hand(device="cuda") -> KinematicModel:
+    """Wonik Allegro hand (16 joints, four finger chains off the palm)."""
+    return _load("allegro_hand/allegro_hand.urdf",
+                 "differentiable_allegro_hand", device)
 
 
 def planar_2_link(device="cuda") -> KinematicModel:
     """The planar two-link arm's URDF (two revolute joints about z)."""
-    return KinematicModel.from_urdf_robot(
-        parse_urdf(get_robot_path()
-                   / "planar_manipulators/urdf/2_link_planar.urdf"),
-        name="differentiable_2_link_planar", device=device)
+    return _load("planar_manipulators/urdf/2_link_planar.urdf",
+                 "differentiable_2_link_planar", device)

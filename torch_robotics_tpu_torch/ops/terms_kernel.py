@@ -55,15 +55,22 @@ MultiRobot branch of ``collision_cost_pallas_factory``) is the same
 (``pack_cost_kernel_params``), with its own launch counter, and its plain
 version the cost output of those plain terms.
 
-A task past a kernel's caps (``_refusal``: a scene object the kernels do
-not take, a 2-D scene, a primitive group past what the terms kernels'
-pick of the nearest primitive indexes, more than ``MAX_DOF`` joints, or
-for a MultiRobot more than ``MR_MAX_MEMBERS`` members or a member with a
-learned self-collision net or interpolated points; or a block past the
-H100's shared memory) keeps its plain terms and cost on the CPU, as the
-reference's fused factories return None there, and raises
-NotImplementedError, in the same words, when a CUDA tensor reaches the
-kernel: nothing falls back to the plain terms on the card.
+A task past a kernel's caps keeps its plain terms or cost on the CPU, as
+the reference's fused factories return None there, and raises
+NotImplementedError, in the kernel's words, when a CUDA tensor reaches the
+kernel: nothing falls back to the plain version on the card.  The terms
+kernels' caps (``_refusal``): a scene object they do not take, a 2-D
+scene, a primitive group past what their pick of the nearest primitive
+indexes, more than ``MAX_DOF`` joints for a single robot (terms.cu:
+``terms_kernel<D>`` up to 8 joints, ``terms_wide_kernel`` up to 32), or
+for a MultiRobot more than ``MR_MAX_MEMBERS`` members, a member past
+``MR_MAX_DOF`` joints or with a learned self-collision net or
+interpolated points; or a block past the H100's shared memory.  The cost
+kernel has its own (``_cost_refusal``): the scene, more than
+``COST_MAX_MEMBERS`` members or ``COST_MAX_DOF`` joints, a MultiRobot
+member the reference's cost factory refuses (a net, interpolated points)
+and K5's member cap, which a MultiRobot's cost hook keeps; or its block.
+So a single robot past the terms kernel's joints keeps the cost kernel.
 """
 from __future__ import annotations
 
@@ -79,7 +86,8 @@ from .lanes_fk import (MultiRobotLayout, TermsLayout, embed_terms,
 from .net_kernel import NetRowParams, add_net_cost, add_net_terms
 
 __all__ = ["KERNEL", "COST_KERNEL", "MR_KERNEL", "MR_COST_KERNEL", "MAX_DOF",
-           "MR_MAX_MEMBERS", "obstacle_terms_kernel_factory",
+           "MR_MAX_DOF", "MR_MAX_MEMBERS", "COST_MAX_DOF", "COST_MAX_MEMBERS",
+           "obstacle_terms_kernel_factory",
            "collision_cost_kernel_factory", "multirobot_terms_kernel_factory",
            "pack_terms_params", "pack_multirobot_params", "pack_cost_params",
            "pack_cost_kernel_params",
@@ -103,7 +111,11 @@ MR_KERNEL = CudaKernel("mr_terms.cu", {
 })
 # the same kernel on a MultiRobot's parameters, counted apart
 MR_COST_KERNEL = CudaKernel("cost.cu", _COST_ARGS)
-MAX_DOF = 8        # terms.cu instantiates D = 1..8; mr_terms.cu kMaxDof
+# terms.cu: terms_kernel<D> for D = 1..8, terms_wide_kernel<16, 24, 32>
+# for D = 9..32 (a point's joint mask is 32 bits)
+MAX_DOF = 32
+_WIDE_DOF = 9       # the first joint count of terms_wide_kernel
+MR_MAX_DOF = 8      # mr_terms.cu kMaxDof
 MR_MAX_MEMBERS = 4  # mr_terms.cu: 10 block pairs, kMaxThreads / 32
 _MR_LANES = 32      # lanes a block of mr_terms.cu, one warp a block pair
 _MR_MAX_THREADS = 320     # mr_terms.cu kMaxThreads
@@ -114,7 +126,24 @@ _COST_MAX_THREADS = 256   # cost.cu kMaxThreads: lanes * threads a lane
 _COST_LANES = 128         # lanes a block at one thread a lane
 _COST_LANE_COUNTS = (32, 64, 96, 128)   # cost.cu's cost_kernel<kLanes>
 _COST_MAX_TPL = 8         # threads a lane, at most
+_COST_MAX_Q = 8           # cost.cu kMaxQ: q columns a thread stages
+# cost.cu: phase 1 runs one member's FK chain a thread (at most
+# _COST_MAX_TPL threads a lane), and the block stages at most kMaxQ q
+# columns a thread
+COST_MAX_MEMBERS = _COST_MAX_TPL
+COST_MAX_DOF = _COST_MAX_Q * _COST_MAX_TPL
+# the words in which the MultiRobot kernels (K5, and K8 as the reference's
+# cost factory) refuse a member
+_MR_NET_WORDS = ("the CUDA MultiRobot kernels take no member with a learned "
+                 "self-collision net")
+_MR_INTERP_WORDS = ("the CUDA MultiRobot kernels take no member with "
+                    "interpolated points")
 _SMEM_MAX = 232448        # shared memory a block can have on the H100
+_SMEM_SM = 233472         # shared memory of an H100 SM, 1 KB of it reserved
+_SMEM_BLOCK_RESERVED = 1024   # a block
+# warps an SM holds of terms_wide_kernel: ptxas gives it 245-255
+# registers a thread, 8 warps of 32 x 256 in the SM's 65,536
+_WIDE_MAX_WARPS = 8
 _GROUP_KIND = {"Spheres": 0, "RoundedBoxes": 1, "SharpBoxes": 2}
 _GRID_INTS, _GRID_FLOATS = 4, 8   # kin_scene.cuh grid_sdf's header
 
@@ -227,6 +256,8 @@ def pack_terms_params(lay: TermsLayout):
     ints, floats = pack_cost_params(lay)
     anc = lay.model.ancestry_matrix()[lay.point_links]        # (P, D)
     masks = [int(sum(1 << j for j in np.flatnonzero(row))) for row in anc]
+    # bit 31 (joint 31) is the int32's sign
+    masks = [m - (1 << 32) * (m >> 31) for m in masks]
     return _i32([ints, masks]), floats
 
 
@@ -251,11 +282,33 @@ def _fit_block(what, ints, n_floats, per_lane, lanes, threads_per_lane,
     return lanes, smem, None
 
 
+def _wide_lanes(ints, n_floats: int, per_lane: int) -> int:
+    """The lanes a block of terms_wide_kernel that keep the most warps
+    resident on an SM (its shared memory and _WIDE_MAX_WARPS), the most
+    lanes among equals: one block of 128 lanes at ~1 KB a lane holds 4
+    warps an SM, three of 64 hold 6."""
+    fixed = 4 * (-(-len(ints) // 4) * 4 + -(-n_floats // 4) * 4)
+
+    def warps(lanes):
+        smem = fixed + lanes * per_lane
+        if smem > _SMEM_MAX:
+            return 0
+        blocks = _SMEM_SM // (smem + _SMEM_BLOCK_RESERVED)
+        return min(_WIDE_MAX_WARPS, blocks * lanes // 32)
+    return max((128, 96, 64, 32), key=lambda n: (warps(n), n))
+
+
 def _terms_block(ints, n_floats: int, lanes=None):
     """``terms_launch_config``'s shape and refusal (``_fit_block``)."""
     D, P, n_slots = int(ints[1]), int(ints[2]), int(ints[8])
+    per_lane = 4 * (7 * D + 3 * P + 12 * n_slots)
+    if D >= _WIDE_DOF:
+        # terms_wide_kernel keeps Hqq's packed triangle in shared memory
+        per_lane += 4 * (D * (D + 1) // 2)
+        if lanes is None:
+            lanes = _wide_lanes(ints, n_floats, per_lane)
     lanes, smem, refusal = _fit_block(
-        "terms", ints, n_floats, 4 * (7 * D + 3 * P + 12 * n_slots),
+        "terms", ints, n_floats, per_lane,
         _TERMS_LANES if lanes is None else lanes, 1, _TERMS_LANES)
     return dict(lanes=lanes, smem_bytes=smem), refusal
 
@@ -263,9 +316,11 @@ def _terms_block(ints, n_floats: int, lanes=None):
 def terms_launch_config(ints, n_floats: int, lanes=None) -> dict:
     """Launch shape of ``terms.cu`` from its packed header: ``lanes`` lanes
     (one thread each) a block, 128 unless given (whole warps fewer while
-    the block passes the H100's 232,448 bytes), and the dynamic shared
-    memory in bytes: the parameters, and per lane its q, joint axes and
-    origins (6 D), points (3 P) and stored transforms.  NotImplementedError
+    the block passes the H100's 232,448 bytes; past 8 joints the count
+    that keeps the most warps an SM, ``_wide_lanes``), and the dynamic
+    shared memory in bytes: the parameters, and per lane its q, joint
+    axes and origins (6 D), points (3 P), stored transforms and, past 8
+    joints, Hqq's packed triangle (D (D + 1) / 2).  NotImplementedError
     where 32 lanes do not fit."""
     launch, refusal = _terms_block(ints, n_floats, lanes)
     if refusal is not None:
@@ -492,7 +547,8 @@ def pack_cost_params(lay):
     thread of a lane, balanced by ``cost_row_ops``: T = 1 for a single
     robot; for a MultiRobot at least the member count (phase 1 runs one FK
     chain a thread), and enough threads that a range takes about as many
-    operations as the longest chain, at most 8."""
+    operations as the longest chain, at most 8; and at least D / 8, as a
+    thread stages at most 8 of the lane's q columns."""
     return _cost_packing(lay)[:2]
 
 
@@ -543,6 +599,9 @@ def _cost_packing(lay):
     ops = cost_row_ops(lay)
     T = 1 if len(members) == 1 else int(min(_COST_MAX_TPL, max(
         len(members), -(-int(ops.sum()) // max(fk_ops)))))
+    # a thread stages at most kMaxQ q columns (cost.cu): past 8 joints a
+    # single robot's rows split over more threads too
+    T = max(T, min(_COST_MAX_TPL, -(-doff // _COST_MAX_Q)))
     scene_i, (obj_rot, obj_pos, grid_f, prims) = _pack_scene(
         lay.df_obj_list)
     width = {0: 4, 1: 7, 2: 6}
@@ -777,9 +836,9 @@ def _refusal(task, members, multi: bool = False):
     whose robot's kinematic ``members`` they would run (the robot itself
     for a single robot, ``multi`` False), or None where they take it: a
     scene they do not take (``_scene_refusal``), more than MAX_DOF joints
-    (in a member, for a MultiRobot), and for a MultiRobot more than
-    MR_MAX_MEMBERS members or a member with a learned self-collision net
-    or interpolated points.  Where the reference's fused factories return
+    (MR_MAX_DOF in a member, for a MultiRobot), and for a MultiRobot more
+    than MR_MAX_MEMBERS members or a member with a learned self-collision
+    net or interpolated points.  Where the reference's fused factories return
     None for such a task, it runs its plain terms; here the task keeps
     them on the CPU and its hooks raise NotImplementedError with these
     words on a CUDA tensor."""
@@ -793,16 +852,55 @@ def _refusal(task, members, multi: bool = False):
     if len(members) > MR_MAX_MEMBERS:
         return ("the CUDA MultiRobot terms kernel takes at most %d members"
                 % MR_MAX_MEMBERS)
+    refusal = _member_refusal(members)
+    if refusal is not None:
+        return refusal
+    if any(r.model.n_dofs > MR_MAX_DOF for r in members):
+        return ("the CUDA MultiRobot terms kernel takes at most %d "
+                "joints per member" % MR_MAX_DOF)
+    return None
+
+
+def _member_refusal(members):
+    """The MultiRobot kernels' words for a member with a learned
+    self-collision net or interpolated points (the reference's fused
+    MultiRobot factories return None for both), or None."""
     for r in members:
         if getattr(r, "self_collision_net", None) is not None:
-            return ("the learned self-collision row is not in the CUDA "
-                    "MultiRobot terms kernel")
+            return _MR_NET_WORDS
         if r.object_interpolate:
-            return ("interpolated points are not in the CUDA MultiRobot "
-                    "terms kernel")
-        if r.model.n_dofs > MAX_DOF:
-            return ("the CUDA MultiRobot terms kernel takes at most %d "
-                    "joints per member" % MAX_DOF)
+            return _MR_INTERP_WORDS
+    return None
+
+
+def _cost_refusal(task, members, multi: bool = False):
+    """The words in which the CUDA cost kernel refuses ``task`` (its
+    robot's kinematic ``members`` as ``_refusal``), or None where it takes
+    it: a scene the kernels do not take, more than COST_MAX_MEMBERS
+    members or COST_MAX_DOF joints (cost.cu: one member's FK a thread, at
+    most 8 threads a lane, at most kMaxQ q columns a thread), and for a
+    MultiRobot a member with a learned self-collision net or interpolated
+    points (the reference's collision_cost_pallas_factory returns None
+    for both) or, as its terms hook, more than MR_MAX_MEMBERS members.
+    The block is checked on the packing (``_cost_block``)."""
+    refusal = _scene_refusal(task.df_obj_list)
+    if refusal is not None:
+        return refusal
+    if len(members) > COST_MAX_MEMBERS:
+        return ("the CUDA cost kernel takes at most %d members"
+                % COST_MAX_MEMBERS)
+    if sum(r.model.n_dofs for r in members) > COST_MAX_DOF:
+        return "the CUDA cost kernel takes at most %d joints" % COST_MAX_DOF
+    if not multi:
+        return None
+    refusal = _member_refusal(members)
+    if refusal is not None:
+        return refusal
+    if len(members) > MR_MAX_MEMBERS:
+        # the contract a MultiRobot's cost hook has kept since K5's cap:
+        # it refuses the members the terms hook refuses
+        return ("the CUDA MultiRobot terms kernel takes at most %d members"
+                % MR_MAX_MEMBERS)
     return None
 
 
@@ -887,36 +985,45 @@ def collision_cost_kernel_factory(task, terms=None):
     tensors, followed by the value-only net row kernel for a robot with a
     learned self-collision net (on the members' parameters for a
     ``MultiRobot``); the plain version is the cost output of the plain
-    terms.  A task the terms kernels refuse keeps the plain cost on the
-    CPU and raises their refusal on a CUDA tensor.  ``terms``, the task's
-    hook from ``obstacle_terms_kernel_factory``, lends its plain terms,
-    their layout, its net row and its refusal, so they are built once per
-    task (without it, the hook is built here)."""
+    terms.  A task the cost kernel refuses (``_cost_refusal``, its own
+    limits, not the terms kernels') keeps the plain cost on the CPU and
+    raises the refusal on a CUDA tensor.  ``terms``, the task's hook from
+    ``obstacle_terms_kernel_factory``, lends its plain terms, their
+    layout, its net row and its scene's grid table, so they are built once
+    per task (without it, the hook is built here)."""
     from ..robots.multi_robot import MultiRobot
     if not hasattr(terms, "params"):
         terms = obstacle_terms_kernel_factory(task)
         if terms is None:
             return None
     d, _, _, plain_terms, _ = terms.params
-    net_row = getattr(terms, "net_row", None)
-    run = (run_multirobot_cost_kernel if isinstance(task.robot, MultiRobot)
-           else run_cost_kernel)
+    multi = isinstance(task.robot, MultiRobot)
+    refusal = _cost_refusal(task, task.robot.robots if multi
+                            else [task.robot], multi)
+    lay = plain_terms.layout
+    net_row = grid = None
+    if refusal is None:
+        net_row = getattr(terms, "net_row", None)
+        if net_row is None and lay.net is not None:
+            net_row = NetRowParams(lay.net, lay.net_cutoff, task.device)
+        grid = (terms.grid if terms.grid is not None
+                else scene_grid_table(lay.df_obj_list))
+    run = run_multirobot_cost_kernel if multi else run_cost_kernel
     if net_row is not None:
         def run(q_cols, ints, floats, d, launch, grid):
             cost = run_cost_kernel(q_cols, ints, floats, d, launch,
                                    grid=grid)
             add_net_cost(net_row, q_cols, cost)
             return cost
-    return _cost_fn(plain_terms, task.device, d, run, terms.grid,
-                    terms.refusal)
+    return _cost_fn(plain_terms, task.device, d, run, grid, refusal)
 
 
 def _cost_fn(plain_terms, device, d, run, grid, refusal):
     """cost(q_cols) on the plain terms' layout's cost packing: the kernel
     through ``run`` for a CUDA tensor (with the scene's grid table
     ``grid``), the plain terms' cost for a CPU tensor; with a refusal (the
-    terms kernels', or the cost kernel's block) no packing, and the
-    refusal raised on a CUDA tensor."""
+    cost kernel's limits, ``_cost_refusal``, or its block) no packing, and
+    the refusal raised on a CUDA tensor."""
     ints = floats = launch = None
     if refusal is None:
         ints_np, floats_np = pack_cost_kernel_params(plain_terms.layout)
