@@ -393,6 +393,36 @@ final line):
              launches and nothing else, the metrics of phase sgpmp; one
              iteration at B = 32 held to float64 (phase sgpmp_cpu's rule;
              not the whole solve on the CPU, ~60 s at D = 14).
+46. mr_same_pair - config 4 with a mutual pair between two object points
+             of its first Panda (MR_CELLS): the task builds with the
+             reference's warning, its plain terms the generic padded
+             assembly; K5 (the pair on the Panda's diagonal block) vs
+             that plain version on the path's first q and on uniform q
+             where the pair's row is active, Hqq off the hinge-edge lanes,
+             timed; config 4's MPC (B = 256, H = 32, 30 steps of 2 GN
+             iterations): exactly 60 K5 and 60 K4 launches and nothing
+             else, one step at B = 16 held to float64 (phase mr_cpu's
+             rule).
+47. mr_net - config 4 with its first Panda carrying the learned net
+             (read by neither package's MultiRobot rows; its own pairs
+             stay): K5 vs plain on the first q, timed; config 4's MPC as
+             in phase 46; config 4's sGPMP (one particle, H = 32, 100
+             iterations of K = 16): K8-MultiRobot vs plain on the first
+             candidates (131,072) with a lane's bits at a ragged N and 32
+             lanes a block, timed, exactly 201 K8-MultiRobot launches and
+             nothing else, one iteration at B = 32 held to float64.
+48. mr_wide - the dual-arm TIAGo (14 joints) and a Panda (d = 21): K5 on
+             its route with its sums in shared memory
+             (mr_terms_kernel<16>) held to its plain version in float64
+             on the first q, timed; the MPC of phase 46 with K4 at (32,
+             42, 42, 256) and K4 on the first GN system held to float64,
+             timed beside the dense solve; the sGPMP of phase 47 at D =
+             21 (three threads a lane).
+49. mr_five - five Pandas (d = 35, 15 block pairs on 10 warps): K5 vs
+             plain on the first q at N = 8192 and a lane's bits at a
+             ragged N, timed; the card's solve refuses the GN system's m =
+             70 in K4's words (no MPC); the sGPMP of phase 47 at 5
+             members (eight threads a lane).
 
 Every phase line carries ``script_s``, its seconds since the script
 started.  Then one JSON line with every kernel's numbers (launches from
@@ -417,8 +447,12 @@ for K1 and K2 chunked (*_pod) and unchunked (*_pod_unchunked), phase
 run for K1 at D = 14 (obstacle_terms_tiago) and K4 at (64, 28, 28, 1024)
 (btridiag_cols_tiago), phase 43's Shadow step for K1 at D = 24
 (obstacle_terms_shadow, timed on its random q) and phase 45's solve for K8
-at D = 14 (collision_cost_tiago, timed at 2,097,152), each timed on its
-path's first inputs; each bound at the FP32 rate, the net rows' at
+at D = 14 (collision_cost_tiago, timed at 2,097,152), phases 46-49's MPC
+runs for K5 (multirobot_terms_same_pair, _net, _wide; _five with no path
+launch, timed on its first q) and K4 at (32, 42, 42, 256)
+(btridiag_cols_mr_wide), and their sGPMP solves for K8-MultiRobot
+(collision_cost_multirobot_net, _wide, _five, timed at 131,072), each
+timed on its path's first inputs; each bound at the FP32 rate, the net rows' at
 the 3xTF32 rate of their tensor-core route), the nvidia-smi line, and the
 final
 {"ok": true, "device": ...} line.
@@ -692,6 +726,28 @@ TG_F64_B, TG_WIDE_N = 32, 65536
 # counted, at most HINGE_EDGE_SHARE of the lanes (g = r Jr and the cost
 # are continuous there)
 HINGE_EDGE, HINGE_EDGE_SHARE = 1e-6, 1e-3
+# the MultiRobot cells that the MultiRobot kernels took last (config 4's
+# protocol, run_all.py:233-292, and its sGPMP, ilqr_sgpmp_bench.py:196-233):
+# cell -> ((kind, base (x, y) or (x, y, z), yaw) per member, pairs added to
+# the pair list as ((a, b), margin)).  mr_same_pair: config 4 with a mutual
+# pair between its first Panda's panda_link2 and panda_hand object points
+# (0 and 4) at the sum of their margins; mr_net: config 4 with the first
+# Panda carrying the learned self-collision net; mr_wide: the dual-arm
+# TIAGo (14 joints) 0.6 m below the workspace's centre, turned a quarter
+# turn (its arms along x), and a Panda 0.5 m along them, turned back
+# (~1.9% of uniform q free; at yaw 0 or nearer the walls none was); mr_five:
+# five Pandas on a circle of 0.6 m at z = -0.7, each facing its centre
+# (~0.49% free; tests/test_torch_mr_refused.py's line 0.8 m apart leaves
+# four of them outside the workspace, with no free q)
+MR_CELLS = {
+    "mr_same_pair": (MR_POSES, ((((0, 4), 0.205),))),
+    "mr_net": ((("panda_net",) + MR_POSES[0][1:],) + MR_POSES[1:], ()),
+    "mr_wide": ((("tiago", (0.0, 0.0, -0.6), np.pi / 2),
+                 ("panda", (0.5, 0.0, 0.0), np.pi)), ()),
+    "mr_five": (tuple(("panda", (0.6 * np.cos(a), 0.6 * np.sin(a), -0.7),
+                       a + np.pi)
+                      for a in 2 * np.pi * np.arange(5) / 5), ()),
+}
 
 
 # the script's start: every phase line carries its seconds since then
@@ -1329,7 +1385,8 @@ def phase_build():
                 for d in range(1, 9)},
              **{"rollout_kernelILi%dE" % d: "rollout_kernel<%d>" % d
                 for d in range(1, 9)},
-             "15mr_terms_kernelE": "mr_terms_kernel",
+             **{"15mr_terms_kernelILi%dE" % d: "mr_terms_kernel<%d>" % d
+                for d in (8, 16, 24, 32)},
              **{"btridiag_cols_kernelILi%dE" % w: "btridiag_cols_kernel<%d>" % w
                 for w in _COLS_WIDTHS},
              "sphere_sdf_kernel": "sphere_sdf_kernel",
@@ -1371,10 +1428,10 @@ def phase_build():
     # the cost kernel, the MultiRobot terms kernel, every terms_kernel<D>,
     # rollout_kernel<D>, substitution kernel, L-and-y sweep, cyclic
     # reduction and the sphere SDF keep their arrays out of local memory
-    for label in ["mr_terms_kernel", "sphere_sdf_kernel"] + [
+    for label in ["sphere_sdf_kernel"] + [
             v for v in names.values()
             if v.startswith(("cost_kernel<", "terms_kernel<",
-                             "terms_wide_kernel<",
+                             "terms_wide_kernel<", "mr_terms_kernel<",
                              "rollout_kernel<", "btridiag_subst",
                              "btridiag_sweep<", "cr_kernel<"))]:
         line = report.get(label, "")
@@ -2724,33 +2781,48 @@ def phase_ilqr_mpc(task, start, goal, plan, mpc_roll, roll_err):
 # ----------------------------------------------------------------------
 # the multi-robot path: benchmarks/run_all.py config_multi_robot (config 4)
 # ----------------------------------------------------------------------
-def mr_task(device, poses=MR_POSES, env=None, grasp: bool = False):
-    """The config-4 robot (two Pandas and a UR10 at their base poses) in
-    EnvSpheres3D (or ``env``) at cutoff 0.02; with ``grasp`` its first
-    Panda holds a GRASP_MR_BOX box."""
+def mr_task(device, poses=MR_POSES, pairs=(), env=None,
+            grasp: bool = False):
+    """The config-4 robot (two Pandas and a UR10 at their base poses: kind,
+    (x, y) or (x, y, z), yaw), or the members of ``poses``, in EnvSpheres3D
+    (or ``env``) at cutoff 0.02, ``pairs`` ((a, b), margin) after the pair
+    list ``MultiRobot.create`` builds (a same-member pair gives the
+    reference's warning); with ``grasp`` its first Panda holds a
+    GRASP_MR_BOX box.  ``mr_task(device, *MR_CELLS[cell])`` is a cell's."""
     import torch
     from torch_robotics_tpu_torch.core import z_rot
     from torch_robotics_tpu_torch.envs import EnvSpheres3D
     from torch_robotics_tpu_torch.robots import (MultiRobot, RobotPanda,
                                                  RobotUR10)
     from torch_robotics_tpu_torch.tasks import PlanningTask
+    from torch_robotics_tpu_torch.tasks.zoo_tasks import tiago_dual_robot
     make = {"panda": lambda: RobotPanda.create(device=device),
-            "ur10": lambda: RobotUR10(device=device)}
+            "panda_net": lambda: RobotPanda.create(
+                use_learned_self_collision=True, device=device),
+            "ur10": lambda: RobotUR10(device=device),
+            "tiago": lambda: tiago_dual_robot(device)}
     members = [make[k]() for k, _, _ in poses]
     if grasp:
         members[0] = grasp_robot(device, GRASP_MR_BOX)
     robot = MultiRobot.create(
         members,
         [(z_rot(torch.tensor(yaw, dtype=torch.float32)),
-          torch.tensor([x, y, 0.0])) for _, (x, y), yaw in poses])
+          torch.tensor((tuple(x) + (0.0,))[:3])) for _, x, yaw in poses])
+    if pairs:
+        robot = MultiRobot.from_pairs(
+            robot.robots, robot.base_rots, robot.base_trans,
+            list(robot.self_pair_idxs) + [p for p, _ in pairs],
+            np.concatenate([robot.self_margins.cpu().numpy(),
+                            np.float32([m for _, m in pairs])]))
     return PlanningTask(env=EnvSpheres3D(device=device) if env is None
                         else env, robot=robot, obstacle_cutoff_margin=0.02)
 
 
-def mr_problem(device, n_batch: int = MR_B, grasp: bool = False):
-    """Config 4's draw -> (task, start, goal (n, 40), starts drawn); with
-    ``grasp`` the task of ``mr_task(grasp=True)``, its starts drawn free
-    by its own check.
+def mr_problem(device, n_batch: int = MR_B, grasp: bool = False,
+               task=None):
+    """Config 4's draw -> (task, start, goal (n, 2 d), starts drawn); with
+    ``grasp`` the task of ``mr_task(grasp=True)``, with ``task`` that
+    task, its starts drawn free by its own check.
 
     Starts: random_coll_free_q with config 4's budget of B * 1024
     candidates from a seeded CPU generator.  About 0.09% of the joint box
@@ -2759,7 +2831,7 @@ def mr_problem(device, n_batch: int = MR_B, grasp: bool = False):
     generator fill the batch, and the count of rounds is reported.  Goals:
     clip(q0 + 0.4 N(0, 1), q_min, q_max) from a numpy seed."""
     import torch
-    task = mr_task(device, grasp=grasp)
+    task = mr_task(device, grasp=grasp) if task is None else task
     robot = task.robot
     gen = torch.Generator().manual_seed(SEED)
     found, first_round = [], None
@@ -3584,9 +3656,11 @@ def phase_sgpmp(name, task, start, goal, n_part, params, kernel_key, seed):
 
 
 def phase_sgpmp_cpu(task_c, theta0, start_p, goal_p, task_h=None,
-                    name="sgpmp_cpu", full_solve: bool = True):
-    """At B = 32 problems (each's first particle; ``task_h`` the task on
-    the CPU, the iLQR path's when None): one iteration from the
+                    name="sgpmp_cpu", full_solve: bool = True,
+                    params=SG_PARAMS, n_part: int = SG_PART):
+    """At B = 32 problems (each's first of ``n_part`` particles; ``task_h``
+    the task on the CPU, the iLQR path's when None; ``params`` the path's
+    SGPMPParams): one iteration from the
     same normals on the card and on the CPU, each held to a float64 CPU
     iteration (hold_to_f64) for the candidate costs (relative to each
     lane's largest float64 cost) and the accepted means (relative to
@@ -3603,10 +3677,10 @@ def phase_sgpmp_cpu(task_c, theta0, start_p, goal_p, task_h=None,
     from torch_robotics_tpu_torch.solve.sampling import (_sgpmp_step,
                                                          _total_cost_fn)
     n = SG_CPU_B
-    p = SGPMPParams(**SG_PARAMS)
-    th = theta0[::SG_PART][:n].contiguous()
-    s_c = start_p[::SG_PART][:n].contiguous()
-    g_c = goal_p[::SG_PART][:n].contiguous()
+    p = SGPMPParams(**params)
+    th = theta0[::n_part][:n].contiguous()
+    s_c = start_p[::n_part][:n].contiguous()
+    g_c = goal_p[::n_part][:n].contiguous()
     task_h = ilqr_task("cpu") if task_h is None else task_h
     m = th.shape[-1]
     xi = torch.randn((p.opt_iters, p.num_samples, n, p.n_support_points * m),
@@ -5070,18 +5144,19 @@ def hinge_edge_lanes(task, q):
     return (up & ~down).any(0)
 
 
-def k1_entry(name, task, q, launches, f64: bool = False):
-    """K1 on a path's q (d, N) vs its plain version at the terms
-    tolerance (Hqq off the hinge-edge lanes, HINGE_EDGE), timed over a
-    CUDA graph beside the plain version -> the kernels-line numbers and
-    the count of edge lanes.  With ``f64`` the kernel is held to the plain
-    version in float64 on the card at that tolerance instead, and the
-    plain float32 version's own share of it is reported (past 8 joints
-    the two float32 orders are each up to ~0.6 of the tolerance off
-    float64 in Hqq on the TIAGo's path, so they can be off each other by
-    more than it)."""
-    from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
+def terms_entry(name, task, q, launches, f64: bool = False):
+    """K1 (K5 for a MultiRobot task) on a path's q (d, N) vs its plain
+    version at the terms tolerance (Hqq off the hinge-edge lanes,
+    HINGE_EDGE), timed over a CUDA graph beside the plain version -> the
+    kernels-line numbers and the count of edge lanes.  With ``f64`` the
+    kernel is held to the plain version in float64 on the card at that
+    tolerance instead, and the plain float32 version's own share of it is
+    reported (past 8 joints the two float32 orders are each up to ~0.6 of
+    the tolerance off float64 in Hqq on the TIAGo's path, so they can be
+    off each other by more than it)."""
+    from torch_robotics_tpu_torch.ops.lanes_fk import MultiRobotLayout
     lanes_terms = task.collision_residuals.obstacle_terms_lanes
+    lay = lanes_terms.plain.layout
     edge = hinge_edge_lanes(task, q)
     n_edge = int(edge.sum())
     check(n_edge <= HINGE_EDGE_SHARE * q.shape[1],
@@ -5108,7 +5183,8 @@ def k1_entry(name, task, q, launches, f64: bool = False):
                 ms=device_ms(lambda: lanes_terms.unscaled(q), iters=20),
                 plain_ms=cuda_ms(lambda: lanes_terms.plain.unscaled(q),
                                  iters=1, warmup=1),
-                work=terms_work(TermsLayout(task), q, r))
+                work=(mr_terms_work if isinstance(lay, MultiRobotLayout)
+                      else terms_work)(lay, q, r))
 
 
 def phase_hybrid():
@@ -5269,7 +5345,7 @@ def phase_chomp(cpu_job):
     # the preconditioning system D + 1e-6 I shared over the batch
     q = theta0[..., :d].reshape(-1, d).T.contiguous()
     lam = 1.0 / params.sigma_coll ** 2
-    k1 = k1_entry("chomp_q_N%d" % N, task, q, CH_ITERS)
+    k1 = terms_entry("chomp_q_N%d" % N, task, q, CH_ITERS)
     cost = res_fn.collision_cost_lanes
     k8_err = hold_cost("chomp_q_N%d" % N, cost(q), cost.plain(q))
     same_lane_bits("chomp_q_N%d" % N, cost, run_cost_kernel, q)
@@ -5427,11 +5503,11 @@ def phase_pod():
     steps_iters = POD_STEPS * ITERS_PER_STEP
     n_chunks = B_ // _POD_CHUNK
     q_c, sys_c = first(_POD_CHUNK)
-    k1_c = k1_entry("pod_chunk_q_N%d" % q_c.shape[1], task, q_c,
+    k1_c = terms_entry("pod_chunk_q_N%d" % q_c.shape[1], task, q_c,
                     n_chunks * steps_iters)
     k2_c = k2_entry("k2_pod_chunk", *sys_c, n_chunks * steps_iters)
     q_u, sys_u = first(B_)
-    k1_u = k1_entry("pod_q_N%d" % q_u.shape[1], task, q_u, steps_iters)
+    k1_u = terms_entry("pod_q_N%d" % q_u.shape[1], task, q_u, steps_iters)
     del q_u, q_c, sys_c
     torch.cuda.empty_cache()
     k2_u = k2_entry("k2_pod", *sys_u, steps_iters)
@@ -5898,7 +5974,7 @@ def phase_tiago_mpc():
         (start[:n].cpu(), goal[:n].cpu()), GPMP2Params(**GP_PARAMS), H,
         ITERS_PER_STEP, "tiago ")
 
-    k1 = k1_entry("tiago_first_q_N%d" % q0.shape[1], task, q0, expected,
+    k1 = terms_entry("tiago_first_q_N%d" % q0.shape[1], task, q0, expected,
                   f64=True)
     b_l, D_l, U_l, _ = _lanes_gn_system(terms, th0, start, goal,
                                         GPMP2Params(**GP_PARAMS))
@@ -6031,7 +6107,7 @@ def phase_wide_terms():
     version on the card at N = TG_WIDE_N: the TIAGo (D = 14) in
     EnvTableShelf on random q and on q where its arms' pairs are active,
     the Shadow hand (D = 24) holding its ball on random q; held to the
-    plain version in float64 at the terms tolerance (k1_entry's f64), Hqq
+    plain version in float64 at the terms tolerance (terms_entry's f64), Hqq
     off the hinge-edge lanes (HINGE_EDGE); a lane's bits the same at a
     ragged N and at each other lane count of 32, 64, 96, 128 that fits,
     timed over a CUDA graph at each; then one MPC step of the
@@ -6056,7 +6132,7 @@ def phase_wide_terms():
         d_, ints, floats, _, launch = terms.params
         check(terms.refusal is None and d_ in (14, 24),
               name + ": the terms hook refuses: %s" % terms.refusal)
-        entry = k1_entry(name, task, q, 0, f64=True)
+        entry = terms_entry(name, task, q, 0, f64=True)
         rows = terms.plain.rows(q)[0]
         n_pt = len(terms.plain.layout.obj_pos)
         full = terms.unscaled(q)
@@ -6132,6 +6208,273 @@ def phase_wide_terms():
          shadow_mpc_step=dict(B=B, H=H, launches=launches, step_ms=ms,
                               mean_collision_cost=float(costs[0].mean())))
     return {"d24": dict(timed["shadow_random_q"], launches=ITERS_PER_STEP)}
+
+
+# ----------------------------------------------------------------------
+# the MultiRobot cells past K5's first caps (MR_CELLS): a same-member
+# mutual pair, a member with the learned net, a member past eight joints,
+# five members
+# ----------------------------------------------------------------------
+def mr_in_limits_q(task, N: int, seed: int):
+    """q (d, N) on the card, uniform within a MultiRobot's joint limits."""
+    import torch
+    lo = task.robot.q_min.cpu().numpy()
+    hi = task.robot.q_max.cpu().numpy()
+    u = np.random.default_rng(seed).uniform(size=(lo.shape[0], N))
+    return torch.as_tensor(lo[:, None] + u * (hi - lo)[:, None],
+                           dtype=torch.float32, device="cuda")
+
+
+def mr_cell_mpc(cell, task, start, goal):
+    """Config 4's MPC on a cell (B = 256, H = 32, 30 steps of 2 GN
+    iterations, mpc_rollout): exactly 60 K5 and 60 K4 launches and nothing
+    else, finite outputs, step ms, solves/s, goal distance and fraction
+    free of the executed paths; one step at B = MR_CPU_B on the card and
+    on the CPU held to a float64 CPU step (step_vs_f64, phase mr_cpu's
+    rule) -> the phase line's MPC fields."""
+    import torch
+    from torch_robotics_tpu_torch.solve import GPMP2Params
+    mr_rollout(task, start, goal, 1)                 # warm-up
+    (xs, info), launches, ms = counted(
+        lambda: mr_rollout(task, start, goal, MR_STEPS))
+    expected = MR_STEPS * MR_ITERS
+    check(launches == {"multirobot_terms": expected,
+                       "btridiag_cols": expected},
+          "%s MPC launches %s, expected %d K5 and %d K4"
+          % (cell, launches, expected, expected))
+    final = info["final_state"]
+    check(all(bool(torch.isfinite(t).all()) for t in
+              (xs, info["dist_to_goal"], final.theta, final.x)),
+          cell + " MPC produced non-finite outputs")
+    d = start.shape[1] // 2
+    executed = torch.cat([start[:, None], xs], dim=1)
+    n = MR_CPU_B
+    iters, chained = step_vs_f64(
+        task, mr_task("cpu", *MR_CELLS[cell]),
+        (start[:n].contiguous(), goal[:n].contiguous()),
+        (start[:n].cpu(), goal[:n].cpu()), GPMP2Params(**MR_GP), MR_H,
+        MR_ITERS, cell + " ")
+    return dict(launches=launches, ms_per_step=ms / MR_STEPS,
+                solves_per_s=MR_B * MR_STEPS / (ms / 1e3),
+                mean_final_goal_dist=float(info["dist_to_goal"][-1].mean()),
+                fraction_free_executed=task.compute_fraction_free_trajs(
+                    executed[..., :d]),
+                vs_float64=dict(B=n, iterations=iters, chained_step=chained))
+
+
+def mr_cell_sgpmp(cell, task, start, goal):
+    """Config 4's sGPMP on a cell (one particle a problem, H = 32, 100
+    iterations of K = 16): K8's MultiRobot branch vs plain on the first
+    candidates (N = 131,072; the plain cost in chunks) with a lane's bits
+    the same at a ragged N and at 32 lanes a block, timed; the solve with
+    exactly 201 K8-MultiRobot launches and nothing else (phase_sgpmp); one
+    iteration at B = 32 held to float64 (phase_sgpmp_cpu) -> the
+    kernels-line numbers at 131,072."""
+    import torch
+    from torch_robotics_tpu_torch.ops.terms_kernel import \
+        run_multirobot_cost_kernel
+    cost = task.collision_residuals.collision_cost_lanes
+    lay = task.collision_residuals.obstacle_terms_lanes.plain.layout
+    check(cost.refusal is None, cell + ": the cost hook refuses: %s"
+          % cost.refusal)
+    N_c = MR_SG_PARAMS["num_samples"] * MR_B * MR_H
+    q = capture_cost_inputs(task, *sg_problem(
+        start, goal, 1, MR_H, MR_GP["dt"], SEED + 3), MR_SG_PARAMS)[N_c]
+    name = "%s_candidates_N%d" % (cell, N_c)
+    err = hold_cost(name, cost(q), chunked(cost.plain, q))
+    same_lane_bits(name, cost, run_multirobot_cost_kernel, q)
+    n_rows = 2 * len(lay.obj_pos) + len(lay.pair_a)
+    out = dict(max_abs_err=err[0], rel_to_max=err[1],
+               ms=device_ms(lambda: cost(q), 20),
+               plain_ms=cuda_ms(lambda: chunked(cost.plain, q), iters=1,
+                                warmup=1),
+               work=mr_cost_work(lay, N_c, n_rows), launch=cost.params[3])
+    del q
+    torch.cuda.empty_cache()
+    out["launches"], theta0, start_p, goal_p = phase_sgpmp(
+        cell + "_sgpmp", task, start, goal, 1, MR_SG_PARAMS,
+        "multirobot_cost", SEED + 3)
+    phase_sgpmp_cpu(task, theta0, start_p, goal_p,
+                    task_h=mr_task("cpu", *MR_CELLS[cell]),
+                    name=cell + "_sgpmp_cpu", full_solve=False,
+                    params=MR_SG_PARAMS, n_part=1)
+    return out
+
+
+def mr_cell_shape(task):
+    """A cell's layout counts for its phase line."""
+    lay = task.collision_residuals.obstacle_terms_lanes.plain.layout
+    return dict(members=len(lay.members), dofs=list(lay.d_list),
+                rows=2 * len(lay.obj_pos) + len(lay.pair_a),
+                mutual_rows=sum(len(v) for v in lay.groups.values()),
+                same_member_pairs=len(lay.same_member),
+                launch=task.collision_residuals.obstacle_terms_lanes
+                .params[4])
+
+
+def k5_fields(k5):
+    """terms_entry's numbers for a phase line."""
+    return dict(kernel_ms=k5["ms"], plain_ms=k5["plain_ms"],
+                max_abs_err=k5["max_abs_err"],
+                hinge_edge_lanes=k5["hinge_edge_lanes"],
+                bound_ms=bound_ms(*k5["work"])[0],
+                bound_by=bound_ms(*k5["work"])[1],
+                **{k: k5[k] for k in ("vs_plain", "plain_share_of_tol_f64")
+                   if k in k5})
+
+
+def k8_fields(k8):
+    """mr_cell_sgpmp's numbers for a phase line."""
+    return dict(kernel_ms=k8["ms"], plain_ms=k8["plain_ms"],
+                max_abs_err=k8["max_abs_err"], rel_to_max=k8["rel_to_max"],
+                launch=k8["launch"], launches=k8["launches"],
+                bound_ms=bound_ms(*k8["work"])[0],
+                bound_by=bound_ms(*k8["work"])[1])
+
+
+def phase_mr_same_pair():
+    """Config 4 with a mutual pair between two object points of its first
+    Panda (MR_CELLS): the task builds with the reference's warning and the
+    generic padded assembly as its plain terms, and K5 takes the pair on
+    the Panda's diagonal block; K5 vs that plain version on the path's
+    first q (N = 8192) and on uniform in-limit q (where the pair's row is
+    active in some lanes), Hqq off the hinge-edge lanes, timed; config 4's
+    MPC on it (mr_cell_mpc: exactly 60 K5 and 60 K4, held to float64)
+    -> K5's kernels-line numbers."""
+    task, start, goal, draw = mr_problem(
+        "cuda", task=mr_task("cuda", *MR_CELLS["mr_same_pair"]))
+    terms = task.collision_residuals.obstacle_terms_lanes
+    check(terms.refusal is None and len(terms.plain.layout.same_member) == 1,
+          "mr_same_pair: refused (%s) or no same-member pair"
+          % terms.refusal)
+    q_main = mr_first_q(start, goal)
+    k5 = terms_entry("mr_same_pair_first_q_N%d" % q_main.shape[1], task,
+                     q_main, MR_STEPS * MR_ITERS)
+    q_r = mr_in_limits_q(task, 8192, seed=61)
+    k5_r = terms_entry("mr_same_pair_random_q_N8192", task, q_r, 0)
+    pair_share = float((terms.plain.rows(q_r)[0][-1] > 0).float().mean())
+    check(pair_share > 0, "mr_same_pair: the pair's row is never active")
+    mpc = mr_cell_mpc("mr_same_pair", task, start, goal)
+    emit("mr_same_pair", **mr_cell_shape(task), start_draw=draw,
+         pair_row_active_share_random_q=pair_share,
+         k5=k5_fields(k5), k5_random_q=k5_fields(k5_r), mpc=mpc)
+    return k5
+
+
+def phase_mr_net():
+    """Config 4 with its first Panda carrying the learned self-collision
+    net (MR_CELLS): the reference's XLA MultiRobot terms read no member's
+    net and keep its pair rows, and so do K5 and K8 on the members'
+    packing; K5 vs plain on the path's first q, timed; config 4's MPC
+    (mr_cell_mpc) and sGPMP (mr_cell_sgpmp: exactly 201 K8-MultiRobot
+    launches) on it, both held to float64 -> (K5, K8-MultiRobot)
+    kernels-line numbers."""
+    task, start, goal, draw = mr_problem(
+        "cuda", task=mr_task("cuda", *MR_CELLS["mr_net"]))
+    check(task.robot.robots[0].self_collision_net is not None,
+          "mr_net: the first Panda carries no net")
+    q_main = mr_first_q(start, goal)
+    k5 = terms_entry("mr_net_first_q_N%d" % q_main.shape[1], task, q_main,
+                     MR_STEPS * MR_ITERS)
+    mpc = mr_cell_mpc("mr_net", task, start, goal)
+    k8 = mr_cell_sgpmp("mr_net", task, start, goal)
+    emit("mr_net", **mr_cell_shape(task), start_draw=draw, k5=k5_fields(k5),
+         mpc=mpc, k8=k8_fields(k8))
+    return k5, k8
+
+
+def phase_mr_wide():
+    """The dual-arm TIAGo (14 joints) and a Panda (MR_CELLS; d = 21, m =
+    42): K5 on its route with H in shared memory (mr_terms_kernel<16>)
+    vs its plain version in float64 on the card at the terms tolerance
+    (terms_entry's f64, as K1 past 8 joints), Hqq off the hinge-edge
+    lanes, on the path's first q, timed; config 4's MPC (mr_cell_mpc:
+    exactly 60 K5 and 60 K4 at (32, 42, 42, 256), bin 48) and K4 on the
+    path's first GN system vs plain (held to float64), timed beside the
+    dense solve; config 4's sGPMP (mr_cell_sgpmp: exactly 201
+    K8-MultiRobot launches at D = 21, three threads a lane) -> (K5, K4,
+    K8-MultiRobot) kernels-line numbers."""
+    import torch
+    from torch_robotics_tpu_torch.solve import (GPMP2Params,
+                                                straight_line_trajs)
+    from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
+    task, start, goal, draw = mr_problem(
+        "cuda", task=mr_task("cuda", *MR_CELLS["mr_wide"]))
+    terms = task.collision_residuals.obstacle_terms_lanes
+    check(terms.refusal is None and terms.params[4]["member_dof"] == 14,
+          "mr_wide: not on K5's wide route: %s / %s"
+          % (terms.refusal, terms.params[4]))
+    q_main = mr_first_q(start, goal)
+    expected = MR_STEPS * MR_ITERS
+    k5 = terms_entry("mr_wide_first_q_N%d" % q_main.shape[1], task, q_main,
+                     expected, f64=True)
+    mpc = mr_cell_mpc("mr_wide", task, start, goal)
+    d = start.shape[1] // 2
+    b_l, D_l, U_l, _ = _lanes_gn_system(
+        terms, straight_line_trajs(start, goal, MR_H), start, goal,
+        GPMP2Params(**MR_GP))
+    check(tuple(D_l.shape) == (MR_H, 2 * d, 2 * d, MR_B),
+          "mr_wide's GN system is %s" % (tuple(D_l.shape),))
+    k4 = cols_entry("mr_wide_gn_system", D_l, U_l, b_l, expected)
+    del D_l, U_l, b_l
+    torch.cuda.empty_cache()
+    k8 = mr_cell_sgpmp("mr_wide", task, start, goal)
+    emit("mr_wide", **mr_cell_shape(task), start_draw=draw, k5=k5_fields(k5),
+         mpc=mpc, k4=dict(held=k4["held"], kernel_ms=k4["ms"],
+                          plain_ms=k4["plain_ms"],
+                          dense_solve_ms=k4["library_ms"],
+                          launch=k4["launch"],
+                          bound_ms=bound_ms(*k4["work"])[0]),
+         k8=k8_fields(k8))
+    return k5, k4, k8
+
+
+def phase_mr_five():
+    """Five Pandas (MR_CELLS; d = 35, 15 block pairs on 10 warps): K5 vs
+    plain on the first q of config 4's straight-line plans (N = 8192, B =
+    256, H = 32) and a lane's bits the same at a ragged N, timed; no MPC
+    (m = 70 passes K4's 64: ROADMAP Queue 2 f); config 4's sGPMP
+    (mr_cell_sgpmp: exactly 201 K8-MultiRobot launches at 5 members, eight
+    threads a lane) held to float64; the card's solve refuses the GN
+    system's m = 70 in K4's words -> (K5, K8-MultiRobot) kernels-line
+    numbers."""
+    import torch
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import solve_lanes_auto
+    from torch_robotics_tpu_torch.solve import (GPMP2Params,
+                                                straight_line_trajs)
+    from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
+    task, start, goal, draw = mr_problem(
+        "cuda", task=mr_task("cuda", *MR_CELLS["mr_five"]))
+    terms = task.collision_residuals.obstacle_terms_lanes
+    launch = terms.params[4]
+    check(terms.refusal is None and (launch["block_pairs"], launch["warps"])
+          == (15, 10), "mr_five: %s / %s" % (terms.refusal, launch))
+    q_main = mr_first_q(start, goal)
+    k5 = terms_entry("mr_five_first_q_N%d" % q_main.shape[1], task, q_main,
+                     0)
+    full = terms.unscaled(q_main)
+    ragged = terms.unscaled(q_main[:, :GN_RAGGED_N].contiguous())
+    check(all(torch.equal(a[..., :GN_RAGGED_N], b)
+              for a, b in zip(full, ragged)),
+          "mr_five: a lane's bits change with the batch")
+    del full, ragged
+    # the GN system's m = 70 passes K4's 64: the card's solve refuses it
+    b_l, D_l, U_l, _ = _lanes_gn_system(
+        terms, straight_line_trajs(start, goal, MR_H), start, goal,
+        GPMP2Params(**MR_GP))
+    k4_words = ""
+    try:
+        solve_lanes_auto(D_l, U_l, b_l)
+    except NotImplementedError as e:
+        k4_words = str(e)
+    check("m <= 64" in k4_words, "mr_five: K4 did not refuse m = %d: %r"
+          % (D_l.shape[1], k4_words))
+    del b_l, D_l, U_l
+    torch.cuda.empty_cache()
+    k8 = mr_cell_sgpmp("mr_five", task, start, goal)
+    emit("mr_five", **mr_cell_shape(task), start_draw=draw,
+         k5=k5_fields(k5), k4_refusal=k4_words, k8=k8_fields(k8))
+    return k5, k8
 
 
 def main() -> None:
@@ -6212,6 +6555,10 @@ def main() -> None:
     wide = phase_wide_terms()
     tg_k1, tg_k4 = phase_tiago_mpc()
     tg_k8 = phase_tiago_sgpmp()
+    sp_k5 = phase_mr_same_pair()
+    net_k5, net_k8 = phase_mr_net()
+    wd_k5, wd_k4, wd_k8 = phase_mr_wide()
+    fv_k5, fv_k8 = phase_mr_five()
 
     entries = []
     for name, src, rep, res, n in (
@@ -6360,7 +6707,39 @@ def main() -> None:
              tg_k4["launches"]),
             ("collision_cost_tiago", "torch_robotics_tpu_torch/csrc/cost.cu",
              "torch_robotics_tpu/ops/pallas_terms.py:1029", tg_k8,
-             tg_k8["launches"])):
+             tg_k8["launches"]),
+            ("multirobot_terms_same_pair",
+             "torch_robotics_tpu_torch/csrc/mr_terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", sp_k5,
+             sp_k5["launches"]),
+            ("multirobot_terms_net",
+             "torch_robotics_tpu_torch/csrc/mr_terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", net_k5,
+             net_k5["launches"]),
+            ("collision_cost_multirobot_net",
+             "torch_robotics_tpu_torch/csrc/cost.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029", net_k8,
+             net_k8["launches"]),
+            ("multirobot_terms_wide",
+             "torch_robotics_tpu_torch/csrc/mr_terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", wd_k5,
+             wd_k5["launches"]),
+            ("btridiag_cols_mr_wide",
+             "torch_robotics_tpu_torch/csrc/btridiag_cols.cu",
+             "torch_robotics_tpu/ops/pallas_btridiag.py:583", wd_k4,
+             wd_k4["launches"]),
+            ("collision_cost_multirobot_wide",
+             "torch_robotics_tpu_torch/csrc/cost.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029", wd_k8,
+             wd_k8["launches"]),
+            ("multirobot_terms_five",
+             "torch_robotics_tpu_torch/csrc/mr_terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", fv_k5,
+             fv_k5["launches"]),
+            ("collision_cost_multirobot_five",
+             "torch_robotics_tpu_torch/csrc/cost.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029", fv_k8,
+             fv_k8["launches"])):
         # a tf32x3 kernel's float32-accurate products run at 495 / 3
         b_ms, b_by = bound_ms(*res["work"], PEAK_TF32X3_FLOPS
                               if res.get("route") == "tf32x3"

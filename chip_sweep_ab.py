@@ -333,20 +333,26 @@ def other_terms_kernels(csrc: Path):
     """The other checkout's terms.cu (K1), mr_terms.cu (K5) and cost.cu
     (K8), with the argtypes of its K5 launch function (a tree before the
     shared-memory K5 takes (q, g, h, cost, N, n_bp, shared_bytes, ip, fp,
-    grid, stream) and its own packing, ``parent_mr_terms_params``)."""
+    grid, stream) and its own packing, ``parent_mr_terms_params``; a tree
+    before K5's warps walked block pairs takes no warps or member_dof,
+    one warp a block pair, on this tree's packing of at most 4 members of
+    at most 8 joints) -> (K1, K5, K8, older, no_warps)."""
     import ctypes
 
     from torch_robotics_tpu_torch.ops import terms_kernel as tk
     OtherKernel = other_kernel_class()
-    older = "int n_ints" not in (csrc / "mr_terms.cu").read_text()
+    src = (csrc / "mr_terms.cu").read_text()
+    older = "int n_ints" not in src
+    no_warps = not older and "int member_dof" not in src
     P, I = ctypes.c_void_p, ctypes.c_int
     terms = OtherKernel(str(csrc / "terms.cu"), dict(tk.KERNEL.functions))
     mr = OtherKernel(str(csrc / "mr_terms.cu"), {
-        "trt_mr_terms_launch": ([P] * 4 + [I] * 3 + [P] * 4 if older
-                                else tk.MR_KERNEL.functions[
-                                    "trt_mr_terms_launch"])})
+        "trt_mr_terms_launch": (
+            [P] * 4 + [I] * 3 + [P] * 4 if older
+            else [P] * 4 + [I] * 5 + [P, I, P, I, P, P] if no_warps
+            else tk.MR_KERNEL.functions["trt_mr_terms_launch"])})
     cost = OtherKernel(str(csrc / "cost.cu"), dict(tk.COST_KERNEL.functions))
-    return terms, mr, cost, older
+    return terms, mr, cost, older, no_warps
 
 
 def parent_mr_terms_params(lay):
@@ -579,11 +585,13 @@ def net_swap(other, routed, rows):
     return Swap(nk, ("NET_TERMS_KERNEL", "NET_COST_KERNEL"), route)
 
 
-def terms_swap(terms, mr, cost, older, tasks):
+def terms_swap(terms, mr, cost, older, no_warps, tasks):
     """The other tree's K1, K5 and K8 under this tree's wrappers: an older
     K5 gets that tree's packing of the MultiRobot task whose parameters a
-    launch carries (``parent_mr_terms_params``); K1 and K8 take the same
-    arguments on both sides."""
+    launch carries (``parent_mr_terms_params``), a K5 before the warps
+    walked block pairs this tree's arguments without warps and member_dof
+    (its block pairs are its warps); K1 and K8 take the same arguments on
+    both sides."""
     import torch
     from torch_robotics_tpu_torch.ops import terms_kernel as tk
     table = {}
@@ -596,12 +604,16 @@ def terms_swap(terms, mr, cost, older, tasks):
 
     def route(name, args):
         if name == "trt_mr_terms_launch" and older:
-            # (q, g, h, cost, N, D, lanes, n_bp, smem, ip, n_ints, fp,
-            # n_floats, grid, stream) -> (q, g, h, cost, N, n_bp,
-            # shared_bytes, ip, fp, grid, stream)
-            i_o, f_o, n_bp, smem = table[args[9]]
+            # (q, g, h, cost, N, D, lanes, warps, member_dof, smem, ip,
+            # n_ints, fp, n_floats, grid, stream) -> (q, g, h, cost, N,
+            # n_bp, shared_bytes, ip, fp, grid, stream)
+            i_o, f_o, n_bp, smem = table[args[10]]
             return mr, args[:5] + (n_bp, smem, i_o.data_ptr(),
-                                   f_o.data_ptr(), args[13], args[14])
+                                   f_o.data_ptr(), args[14], args[15])
+        if name == "trt_mr_terms_launch" and no_warps:
+            # -> (q, g, h, cost, N, D, lanes, n_bp, smem, ip, n_ints, fp,
+            # n_floats, grid, stream)
+            return mr, args[:8] + args[9:]
         return {"trt_terms_launch": terms, "trt_mr_terms_launch": mr,
                 "trt_cost_launch": cost}[name], args
     return Swap(tk, ("KERNEL", "MR_KERNEL", "COST_KERNEL", "MR_COST_KERNEL"),

@@ -111,21 +111,22 @@ def test_other_lanes_a_block():
 
 
 def test_past_the_caps_raises_before_any_launch():
-    """Five members (at most 4): the task constructs on the CPU with its
-    plain cost, and a tensor off the CPU (a meta tensor standing in for a
-    CUDA one) raises at the cost hook and at a hook built by the factory
-    alone, before any launch; a block that would not fit the shared memory
-    raises in the launch shape."""
+    """Nine members (at most 8: phase 1 runs one member's FK a thread, at
+    most 8 threads a lane): the task constructs on the CPU with its plain
+    cost, and a tensor off the CPU (a meta tensor standing in for a CUDA
+    one) raises at the cost hook and at a hook built by the factory alone,
+    before any launch; a block that would not fit the shared memory raises
+    in the launch shape."""
     task = PlanningTask(
         env=EnvSpheres3D(device="cpu"),
-        robot=multirobot([("panda", (0.0, 0.8 * i), 0.0) for i in range(5)]),
+        robot=multirobot([("panda", (0.0, 0.8 * i), 0.0) for i in range(9)]),
         obstacle_cutoff_margin=0.02)
-    q = torch.zeros((35, 2))
-    meta = torch.zeros((35, 2), device="meta")
+    q = torch.zeros((63, 2))
+    meta = torch.zeros((63, 2), device="meta")
     for cost in (task.collision_residuals.collision_cost_lanes,
                  collision_cost_kernel_factory(task)):
         assert torch.equal(cost(q), cost.plain(q))
-        with pytest.raises(NotImplementedError, match="at most 4 members"):
+        with pytest.raises(NotImplementedError, match="at most 8 members"):
             cost(meta)
     ints, floats = pack_cost_params(layout("ilqr_panda"))
     big = ints.copy()

@@ -1,12 +1,14 @@
-"""MultiRobot tasks past the CUDA MultiRobot terms kernel's caps, on the
-CPU, against the JAX package: five Pandas (at most 4 members) and two
-Pandas, the first with the learned self-collision net (the kernel has no
-net row).  Where the reference's fused factories return None for such a
-task it runs its plain terms; the port's task constructs, keeps its plain
-terms and cost on the CPU, and refuses a tensor off the CPU in the same
-words (a meta tensor stands in for a CUDA one).  Their residuals, (2, 350)
-and (4, 65) on the same numpy q, their Jacobians and their GN terms match
-the JAX package's.
+"""MultiRobot tasks that the CUDA MultiRobot kernels refused until they took
+every member the reference plans for, on the CPU, against the JAX
+package: five Pandas (past the four members K5 took) and two Pandas, the
+first with the learned self-collision net (whose net neither package's
+MultiRobot rows read; its own pair rows stay).  The port's task
+constructs, takes its plain terms and cost on the CPU, packs both kernels'
+parameters (no refusal), and a tensor neither on the CPU nor on a card (a
+meta tensor) raises at both hooks before any launch: nothing falls back to
+the plain version off the CPU.  Their residuals, (2, 350) and (4, 65) on
+the same numpy q, their Jacobians and their GN terms match the JAX
+package's.
 
 A scene past the index of the terms kernels' picked primitive (a group
 of 65,537 spheres) is refused in the same words by the single robot's
@@ -36,13 +38,13 @@ from torch_robotics_tpu_torch.robots import MultiRobot, RobotPanda
 from torch_robotics_tpu_torch.tasks import PlanningTask
 
 # name -> (members' nets, base (x, y) and yaw of each, cutoff, waypoints,
-# the refusal's words)
+# the MultiRobot terms kernel's block pairs and warps a block)
 CASES = {
     "five_pandas": ((False,) * 5, [((0.0, 0.8 * i), 0.0) for i in range(5)],
-                    0.02, 2, "at most 4 members"),
+                    0.02, 2, (15, 10)),
     "panda_with_net": ((True, False), [((0.0, 0.6), 0.0),
                                        ((0.0, -0.6), np.pi)],
-                       0.03, 4, "self-collision"),
+                       0.03, 4, (3, 3)),
 }
 
 
@@ -67,7 +69,7 @@ def _tasks(name):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_refused_task_matches_jax_on_the_cpu(name):
     jtask, task = _tasks(name)
-    _, _, _, n_way, words = CASES[name]
+    _, _, _, n_way, (n_bp, warps) = CASES[name]
     robot = task.robot
     lo, hi = robot.q_min.numpy(), robot.q_max.numpy()
     u = np.random.default_rng(3).uniform(0.3, 0.7, size=(n_way, len(lo)))
@@ -96,11 +98,16 @@ def test_refused_task_matches_jax_on_the_cpu(name):
                                0.5 * np.sum(jr.astype(np.float64) ** 2, -1),
                                rtol=1e-5, atol=1e-6 * float(cost.max()))
 
-    # off the CPU both hooks refuse, in the same words
-    assert words in terms.refusal
+    # both kernels take the task: no refusal, the packed launch shapes;
+    # a tensor off the CPU goes to the kernel, which takes CUDA tensors
+    assert terms.refusal is None and res.collision_cost_lanes.refusal is None
+    launch = terms.params[4]
+    assert (launch["block_pairs"], launch["warps"]) == (n_bp, warps)
+    assert res.collision_cost_lanes.params[3]["threads_per_lane"] >= len(
+        robot.robots)
     meta = torch.zeros((robot.q_dim, n_way), device="meta")
     for hook in (terms.unscaled, res.collision_cost_lanes):
-        with pytest.raises(NotImplementedError, match=words):
+        with pytest.raises(ValueError, match="CUDA tensors"):
             hook(meta)
 
 

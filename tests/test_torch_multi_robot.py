@@ -36,6 +36,8 @@ from torch_robotics_tpu_torch.core import z_rot
 from torch_robotics_tpu_torch.envs import EnvSpheres3D
 from torch_robotics_tpu_torch.kin import fk_all_links, robot_zoo
 from torch_robotics_tpu_torch.ops.lanes_fk import fk_positions_lanes
+from torch_robotics_tpu_torch.ops.lanes_fk import \
+    obstacle_terms_lanes_multirobot_factory as port_mr_terms_factory
 from torch_robotics_tpu_torch.ops.terms_kernel import (
     mr_terms_launch_config, pack_multirobot_params)
 from torch_robotics_tpu_torch.robots import (MultiRobot, RobotPanda,
@@ -259,15 +261,27 @@ def test_cpu_tensors_take_the_plain_version(tasks):
 
 def test_same_member_mutual_pair_is_refused():
     """A mutual pair between two object points of one member: the
-    reference assembles it through its generic padded path, which is not
-    ported, so building the terms raises."""
+    block-structured assembly refuses it, as the reference's does (a
+    ValueError when called strict; a warning in the reference's words when
+    a task is built), and the task takes the generic padded assembly, as
+    the reference falls back to it.  The task constructs, its plain terms
+    are the generic assembly's (the structured factory's plain terms are
+    none), and the kernel takes the pair on its member's diagonal block
+    (tests/test_torch_mr_same_pair.py holds both against the JAX
+    package)."""
     arrays = task_arrays(port_task(TWO_ARM))
     arrays["self_pair_idxs"] = np.concatenate(
         [arrays["self_pair_idxs"], [[0, 1]]])
     arrays["self_margins"] = np.concatenate(
         [arrays["self_margins"], np.float32([0.2])])
-    with pytest.raises(NotImplementedError, match="same member"):
-        task_from_numpy(arrays, device="cpu")
+    with pytest.warns(UserWarning, match="same member 0; .* generic padded"):
+        task = task_from_numpy(arrays, device="cpu")
+    with pytest.raises(ValueError, match="same member"):
+        port_mr_terms_factory(task)
+    terms = task.collision_residuals.obstacle_terms_lanes
+    k = len(arrays["self_pair_idxs"]) - 1
+    assert terms.refusal is None
+    assert terms.plain.layout.same_member == [(k, 0, 1, 0)]
 
 
 # ----------------------------------------------------------------------
@@ -303,13 +317,18 @@ def mr_sections(ints, floats):
         a[name], o = ints[o:o + n], o + n
     assert o == int(ints[13])
     n_bp, E = int(ints[o]), int(ints[o + 1])
-    a.update(n_bp=n_bp, prism=int(ints[o + 2]) & 0xffffffff)
+    a.update(n_bp=n_bp, scratch=int(ints[o + 3]))
     o += 8
+    # the value phase's row cuts: one range a warp of the block
+    n_cuts = len(ints) - o - 2 * n_mem - 3 * n_bp - 1 - P - E
     for name, n in (("mem_D", n_mem), ("mem_doff", n_mem), ("bp_i", n_bp),
                     ("bp_j", n_bp), ("bp_begin", n_bp + 1),
-                    ("vcuts", n_bp + 1), ("anc", P), ("entries", E)):
+                    ("vcuts", n_cuts), ("anc", P), ("entries", E)):
         a[name], o = ints[o:o + n], o + n
     assert o == len(ints)
+    # the prismatic joints' columns, as the kernel reads them from the steps
+    a["prism"] = sum(1 << int(c) for t, c in zip(step_i[:, 0], step_i[:, 1])
+                     if t == 3 and c >= 0)
     a["prims"], o = floats[:n_prims], n_prims
     objects = floats[o:o + 12 * NOBJ].reshape(NOBJ, 12)
     o += 12 * NOBJ + 8 * NGRID

@@ -345,11 +345,14 @@ def test_one_layout_and_one_net_row_per_task():
 
 
 def test_multirobot_member_with_a_net_raises():
-    """The CUDA MultiRobot terms kernel has no net row: a MultiRobot with a
-    net member constructs on the CPU with its plain terms and cost (the
-    reference's fused factories return None for it), and a tensor off the
-    CPU (a meta tensor standing in for a CUDA one) raises at both hooks,
-    before any launch: nothing falls back to the plain terms there."""
+    """A MultiRobot member with a learned net: the reference runs its XLA
+    MultiRobot terms for it, which read no member's net and keep the
+    member's own pair rows, and so do the CUDA MultiRobot kernels on the
+    members' packing (no net row).  The task constructs with no refusal,
+    its terms and cost kernels pack the net Panda's 10 own pairs, the CPU
+    takes the plain terms and cost, and a tensor neither on the CPU nor on
+    a card (a meta tensor) raises at every hook before any launch: nothing
+    falls back to the plain terms there."""
     from torch_robotics_tpu_torch.core import z_rot
     robot = MultiRobot.create(
         [RobotPanda.create(use_learned_self_collision=True, device="cpu"),
@@ -361,12 +364,15 @@ def test_multirobot_member_with_a_net_raises():
                         obstacle_cutoff_margin=0.03)
     res = task.collision_residuals
     terms, cost = res.obstacle_terms_lanes, res.collision_cost_lanes
-    assert "self-collision" in terms.refusal == cost.refusal
+    assert terms.refusal is None and cost.refusal is None
+    lay = terms.plain.layout
+    assert lay.net is None and [len(p) for p in lay.own_pairs] == [10, 10]
+    assert int(terms.params[1][4]) == int(cost.params[1][4]) == 10 + 10 + 25
     q = torch.zeros((robot.q_dim, 4))
     for a, b in zip(terms.unscaled(q), terms.plain.unscaled(q)):
         assert torch.equal(a, b)
     assert torch.equal(cost(q), cost.plain(q))
     meta = torch.zeros((robot.q_dim, 4), device="meta")
     for hook in (terms.unscaled, lambda x: terms(x, 1.0), cost):
-        with pytest.raises(NotImplementedError, match="self-collision"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
             hook(meta)

@@ -295,27 +295,28 @@ def _pandas(n):
 
 @pytest.mark.parametrize("n", [5, 9])
 def test_cost_refusal_split(n):
-    """A MultiRobot past the terms kernel's 4 members: its terms hook
-    refuses in K5's words.  Five members are within the cost kernel's own
-    limits (the packing fits its block, a thread a member), and the cost
-    hook keeps K5's member cap (the MultiRobot hooks' contract); nine pass
-    the cost kernel's own 8 members (phase 1 runs one member's FK a
-    thread), refused in its own words."""
+    """A MultiRobot of five members is within both MultiRobot kernels'
+    caps (8 members: K5's warps walk its 15 block pairs, K8 runs a thread
+    a member); nine pass both, each refused in its own words (K8: phase 1
+    runs one member's FK a thread, at most 8 threads a lane)."""
     task = PlanningTask(env=EnvSpheres3D(device="cpu"), robot=_pandas(n),
                         obstacle_cutoff_margin=0.02)
     res = task.collision_residuals
     terms, cost = res.obstacle_terms_lanes, res.collision_cost_lanes
-    assert "at most 4 members" in terms.refusal
     ints, floats = pack_cost_kernel_params(terms.plain.layout)
     launch, block_refusal = _cost_block(ints, len(floats))
-    if n == 5:
-        assert block_refusal is None and launch["threads_per_lane"] >= n
-        assert cost.refusal == terms.refusal
-    else:
-        assert cost.refusal == "the CUDA cost kernel takes at most 8 members"
     meta = torch.zeros((7 * n, 2), device="meta")
-    with pytest.raises(NotImplementedError, match=cost.refusal):
-        cost(meta)
+    if n == 5:
+        assert terms.refusal is None and cost.refusal is None
+        assert block_refusal is None and launch["threads_per_lane"] >= n
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            cost(meta)
+    else:
+        assert terms.refusal == ("the CUDA MultiRobot terms kernel takes at "
+                                 "most 8 members")
+        assert cost.refusal == "the CUDA cost kernel takes at most 8 members"
+        with pytest.raises(NotImplementedError, match=cost.refusal):
+            cost(meta)
     q = torch.zeros((7 * n, 2))
     assert torch.equal(cost(q), cost.plain(q))
 

@@ -20,7 +20,11 @@ is held against on the card; for a point mass, which has no fused kernel
 in either package, it is the terms on every device.
 ``obstacle_terms_lanes_multirobot_factory`` is, in the same way, the plain
 version of the MultiRobot terms kernel: member-width Jacobians and a
-block-by-block assembly.
+block-by-block assembly.  A MultiRobot whose pair list holds a mutual pair
+between two object points of one member takes the generic padded
+assembly instead (``obstacle_terms_lanes_factory``'s MultiRobot branch,
+every point's Jacobian padded to the full width and every row reduced over
+every column), as the reference does.
 
 The SDF gradient is analytic: for the primitive that attains the minimum,
 the derivative of its closed-form distance, rotated back to the world
@@ -35,6 +39,7 @@ lookups are the plain version of the CUDA kernels' in-kernel lookup
 """
 from __future__ import annotations
 
+import warnings
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -563,7 +568,15 @@ def obstacle_terms_lanes_factory(task):
     Returns terms(q_cols (d, N), lam, h=None) -> (g, Hb, cost) in the layout
     of ``embed_terms``, or None when the robot has no lanes path (it needs a
     kinematic model whose collision points are link origins, or is a point
-    mass, whose point is q and whose Jacobian is the identity)."""
+    mass, whose point is q and whose Jacobian is the identity).  A
+    ``MultiRobot`` whose members all have kinematic models takes the
+    block-structured terms (``obstacle_terms_lanes_multirobot_factory``),
+    or, where a mutual pair joins two object points of one member (which
+    that assembly declines with a warning), the generic padded assembly:
+    every collision point's Jacobian padded to the full d columns
+    (``MultiRobotLayout.padded_points``) and g, Hqq and the cost reduced
+    over every row, rows in the reference's order."""
+    from ..robots.multi_robot import MultiRobot
     from ..robots.point_mass import RobotPointMass
     robot = task.robot
     if isinstance(robot, RobotPointMass):
@@ -573,6 +586,15 @@ def obstacle_terms_lanes_factory(task):
             d, N = q_cols.shape
             eye = torch.eye(d, dtype=q_cols.dtype, device=q_cols.device)
             return q_cols[None], eye[None, :, :, None].expand(1, d, d, N)
+    elif isinstance(robot, MultiRobot):
+        if not all(hasattr(r, "model") for r in robot.robots):
+            return None
+        structured = obstacle_terms_lanes_multirobot_factory(task,
+                                                             strict=False)
+        if structured is not None:
+            return structured
+        lay = MultiRobotLayout(task)
+        points_and_jacobians = lay.padded_points
     elif not hasattr(robot, "model") or robot.object_interpolate:
         return None
     else:
@@ -657,9 +679,11 @@ class MultiRobotLayout:
     point) and its own self-collision pairs, in member-local point indices
     (object points first, then self points).  Mutual pairs are grouped by
     (member of the first point, member of the second) in first-seen order,
-    in object-local indices.  A mutual pair whose points belong to one
-    member raises NotImplementedError: the reference assembles such a pair
-    through its generic padded path, which is not ported."""
+    in object-local indices.  A mutual pair whose points are object points
+    of one member is in none of these groups: ``same_member`` lists each as
+    (its index in the pair list, its two points, the member), and the
+    block-structured terms decline a layout that has one, as the
+    reference's do."""
 
     def __init__(self, task):
         robot = task.robot
@@ -675,6 +699,7 @@ class MultiRobotLayout:
         margins = robot.self_margins.cpu().numpy()
         self.own_pairs = [[] for _ in self.members]   # (a, b, margin)
         self.groups = {}                              # (i, j) -> rows
+        self.same_member = []                         # (k, a, b, member)
         for k, (pa, pb) in enumerate(robot.self_pair_idxs):
             mg = float(margins[k])
             if pa >= n_obj:
@@ -685,11 +710,8 @@ class MultiRobotLayout:
             i = int(np.searchsorted(self.obj_off, pa, side="right")) - 1
             j = int(np.searchsorted(self.obj_off, pb, side="right")) - 1
             if i == j:
-                raise NotImplementedError(
-                    "mutual pair (%d, %d) indexes object points of the same "
-                    "member %d; the reference's generic padded assembly "
-                    "for such pairs is not ported (encode same-member pairs "
-                    "in the member's self-collision section)" % (pa, pb, i))
+                self.same_member.append((k, pa, pb, i))
+                continue
             self.groups.setdefault((i, j), []).append(
                 (pa - int(self.obj_off[i]), pb - int(self.obj_off[j]), mg))
         self.cutoff = float(task.obstacle_cutoff_margin)
@@ -702,7 +724,39 @@ class MultiRobotLayout:
         self.pair_a, self.pair_b = list(pairs[:, 0]), list(pairs[:, 1])
         self.obj_thresh = robot.object_margins + self.cutoff
         self.self_margins = robot.self_margins
-        self.net = None      # a member's net: terms_kernel raises
+        self.net = None      # no MultiRobot row reads a member's net
+
+    def member_points(self, q_cols):
+        """Per member: points (P_i, 3, N) (object then self) and
+        member-width Jacobians (P_i, d_i, 3, N)."""
+        out = []
+        for i, r in enumerate(self.members):
+            q_i = q_cols[int(self.d_off[i]):int(self.d_off[i + 1])]
+            R_b = self.robot.base_rots[i].to(q_cols.dtype)
+            t_b = self.robot.base_trans[i].to(q_cols.dtype)
+            R_wW, t_wW, obj, obj_ids, slf, self_ids = _member_lanes_points(
+                r, q_i, R_b, t_b)
+            pts = torch.stack(obj + slf)
+            out.append((pts, point_jacobians_lanes(
+                r.model, R_wW, t_wW, pts, obj_ids + self_ids, q_cols=q_i)))
+        return out
+
+    def padded_points(self, q_cols):
+        """The full collision layout's points (P, 3, N) (every member's
+        object section, then every member's self section) and their
+        Jacobians padded to the full width, (P, d, 3, N)."""
+        members = self.member_points(q_cols)
+        d = int(self.d_off[-1])
+        pts, J = [], []
+        for section in (0, 1):                  # object sections, then self
+            for i, (p, Jm) in enumerate(members):
+                P_obj = self.obj_counts[i]
+                cut = slice(0, P_obj) if section == 0 else slice(P_obj, None)
+                lo, hi = int(self.d_off[i]), int(self.d_off[i + 1])
+                pts.append(p[cut])
+                J.append(torch.nn.functional.pad(Jm[cut],
+                                                 [0, 0, 0, 0, lo, d - hi]))
+        return torch.cat(pts), torch.cat(J)
 
     def point_joints(self):
         """(P, d) bool over the full collision layout: the joints that move
@@ -731,7 +785,7 @@ class MultiRobotLayout:
         return a, b
 
 
-def obstacle_terms_lanes_multirobot_factory(task):
+def obstacle_terms_lanes_multirobot_factory(task, strict: bool = True):
     """Block-structured plain-PyTorch GN obstacle terms of a ``MultiRobot``
     task (the plain version of the CUDA MultiRobot terms kernel).
 
@@ -741,37 +795,38 @@ def obstacle_terms_lanes_multirobot_factory(task):
     H_ii, H_jj and the cross block H_ij.  Same contract as
     ``obstacle_terms_lanes_factory``: terms(q_cols (d, N), lam, h=None),
     with ``.unscaled`` and ``.rows``; None unless every member has a
-    kinematic model."""
+    kinematic model.
+
+    A mutual pair between two object points of one member is not a cross
+    block's: with ``strict`` this assembly raises ValueError for it, as the
+    reference's does; without, it warns in the reference's words and
+    returns None, and ``obstacle_terms_lanes_factory`` takes the generic
+    padded assembly, which is right for such a pair."""
     from ..robots.multi_robot import MultiRobot
     robot = task.robot
     if not isinstance(robot, MultiRobot) or not all(
             hasattr(r, "model") for r in robot.robots):
         return None
     lay = MultiRobotLayout(task)
+    if lay.same_member:
+        _, pa, pb, i = lay.same_member[0]
+        msg = ("mutual pair (%d, %d) indexes object points of the same "
+               "member %d; encode same-member pairs via the member's "
+               "self-collision section instead" % (pa, pb, i))
+        if strict:
+            raise ValueError(msg)
+        warnings.warn(msg + " (falling back to the generic padded "
+                      "assembly)", stacklevel=2)
+        return None
     n_mem = len(lay.members)
     d = robot.q_dim
-
-    def member_points(q_cols):
-        """Per member: points (P_i, 3, N) (object then self) and
-        member-width Jacobians (P_i, d_i, 3, N)."""
-        out = []
-        for i, r in enumerate(lay.members):
-            q_i = q_cols[int(lay.d_off[i]):int(lay.d_off[i + 1])]
-            R_b = robot.base_rots[i].to(q_cols.dtype)
-            t_b = robot.base_trans[i].to(q_cols.dtype)
-            R_wW, t_wW, obj, obj_ids, slf, self_ids = _member_lanes_points(
-                r, q_i, R_b, t_b)
-            pts = torch.stack(obj + slf)
-            out.append((pts, point_jacobians_lanes(
-                r.model, R_wW, t_wW, pts, obj_ids + self_ids, q_cols=q_i)))
-        return out
 
     def unscaled(q_cols):
         """q_cols (d, N) -> (g_q (d, N), Hqq (d, d, N), cost (N,)),
         unscaled by the collision weight."""
         dtype = q_cols.dtype
         N = q_cols.shape[-1]
-        members = member_points(q_cols)
+        members = lay.member_points(q_cols)
 
         sdf_val, sdf_grad = [None] * n_mem, [None] * n_mem
         if lay.df_obj_list:
@@ -863,17 +918,7 @@ def obstacle_terms_lanes_multirobot_factory(task):
         """q_cols (d, N) -> (r (R, N), Jr (R, d, N)) over the full collision
         layout, rows in the reference's order: object SDF rows, workspace
         rows, then the pairs as ``self_pair_idxs`` lists them."""
-        members = member_points(q_cols)
-        pts, J = [], []
-        for section in (0, 1):                  # object sections, then self
-            for i, (p, Jm) in enumerate(members):
-                P_obj = lay.obj_counts[i]
-                cut = slice(0, P_obj) if section == 0 else slice(P_obj, None)
-                lo, hi = int(lay.d_off[i]), int(lay.d_off[i + 1])
-                pts.append(p[cut])
-                J.append(torch.nn.functional.pad(Jm[cut],
-                                                 [0, 0, 0, 0, lo, d - hi]))
-        return hinge_rows(lay, torch.cat(pts), torch.cat(J))
+        return hinge_rows(lay, *lay.padded_points(q_cols))
 
     terms.unscaled = unscaled
     terms.rows = residual_rows

@@ -49,11 +49,21 @@ replaces ``_multirobot_terms_pallas_factory``), its plain version
 ``ops/lanes_fk.obstacle_terms_lanes_multirobot_factory``; the kernel reads
 the members' cost packing with the terms' sections after it
 (``pack_multirobot_params``) at the launch shape of
-``mr_terms_launch_config``.  The value-only cost of a ``MultiRobot`` (the
-MultiRobot branch of ``collision_cost_pallas_factory``) is the same
+``mr_terms_launch_config`` (a warp a block pair, members past 8 joints
+with their block sums in shared memory).  The value-only cost of a
+``MultiRobot`` (the MultiRobot branch of ``collision_cost_pallas_factory``)
+is the same
 ``cost.cu`` kernel on the members' packed parameters
 (``pack_cost_kernel_params``), with its own launch counter, and its plain
 version the cost output of those plain terms.
+
+A MultiRobot takes the MultiRobot kernels with any member the reference
+plans for: a member with a learned self-collision net (whose net neither
+package's MultiRobot rows read: its own pair rows stay, as the reference's
+XLA MultiRobot terms and residuals keep them), a member past eight joints
+(K5's route with its sums in shared memory), up to eight members, and a
+mutual pair between two object points of one member (on that member's
+diagonal block; its plain version is the generic padded assembly).
 
 A task past a kernel's caps keeps its plain terms or cost on the CPU, as
 the reference's fused factories return None there, and raises
@@ -64,13 +74,12 @@ scene, a primitive group past what their pick of the nearest primitive
 indexes, more than ``MAX_DOF`` joints for a single robot (terms.cu:
 ``terms_kernel<D>`` up to 8 joints, ``terms_wide_kernel`` up to 32), or
 for a MultiRobot more than ``MR_MAX_MEMBERS`` members, a member past
-``MR_MAX_DOF`` joints or with a learned self-collision net or
-interpolated points; or a block past the H100's shared memory.  The cost
-kernel has its own (``_cost_refusal``): the scene, more than
-``COST_MAX_MEMBERS`` members or ``COST_MAX_DOF`` joints, a MultiRobot
-member the reference's cost factory refuses (a net, interpolated points)
-and K5's member cap, which a MultiRobot's cost hook keeps; or its block.
-So a single robot past the terms kernel's joints keeps the cost kernel.
+``MR_MAX_DOF`` joints or with interpolated points; or a block past the
+H100's shared memory.  The cost kernel has its own (``_cost_refusal``):
+the scene, more than ``COST_MAX_MEMBERS`` members or ``COST_MAX_DOF``
+joints, a MultiRobot member with interpolated points (as the reference's
+cost factory); or its block.  So a single robot past the terms kernel's
+joints keeps the cost kernel.
 """
 from __future__ import annotations
 
@@ -81,8 +90,7 @@ import torch
 
 from .cuda_build import CudaKernel
 from .lanes_fk import (MultiRobotLayout, TermsLayout, embed_terms,
-                       member_collision_points, obstacle_terms_lanes_factory,
-                       obstacle_terms_lanes_multirobot_factory)
+                       member_collision_points, obstacle_terms_lanes_factory)
 from .net_kernel import NetRowParams, add_net_cost, add_net_terms
 
 __all__ = ["KERNEL", "COST_KERNEL", "MR_KERNEL", "MR_COST_KERNEL", "MAX_DOF",
@@ -106,7 +114,7 @@ _COST_ARGS = {"trt_cost_launch": [_P, _P] + [ctypes.c_int] * 5
               + [_P, ctypes.c_int, _P, ctypes.c_int, _P, _P]}
 COST_KERNEL = CudaKernel("cost.cu", _COST_ARGS)
 MR_KERNEL = CudaKernel("mr_terms.cu", {
-    "trt_mr_terms_launch": [_P] * 4 + [ctypes.c_int] * 5
+    "trt_mr_terms_launch": [_P] * 4 + [ctypes.c_int] * 6
     + [_P, ctypes.c_int, _P, ctypes.c_int, _P, _P],
 })
 # the same kernel on a MultiRobot's parameters, counted apart
@@ -115,10 +123,16 @@ MR_COST_KERNEL = CudaKernel("cost.cu", _COST_ARGS)
 # for D = 9..32 (a point's joint mask is 32 bits)
 MAX_DOF = 32
 _WIDE_DOF = 9       # the first joint count of terms_wide_kernel
-MR_MAX_DOF = 8      # mr_terms.cu kMaxDof
-MR_MAX_MEMBERS = 4  # mr_terms.cu: 10 block pairs, kMaxThreads / 32
-_MR_LANES = 32      # lanes a block of mr_terms.cu, one warp a block pair
-_MR_MAX_THREADS = 320     # mr_terms.cu kMaxThreads
+# mr_terms.cu: mr_terms_kernel<8> keeps a member's accumulators in
+# registers, mr_terms_kernel<16, 24, 32> its block sums in shared memory (a
+# point's joint mask is 32 bits over its member's columns); a warp walks
+# block pairs, so the members are K8's cap (COST_MAX_MEMBERS)
+MR_MAX_DOF = 32
+_MR_NARROW_DOF = 8        # mr_terms.cu kNarrowDof
+MR_MAX_MEMBERS = 8
+_MR_LANES = 32            # lanes a block of mr_terms.cu, a warp of them
+_MR_MAX_THREADS = 320     # mr_terms.cu kMaxThreads (the register route)
+_MR_WIDE_MAX_THREADS = 256   # mr_terms.cu kWideMaxThreads
 _MR_EXTRAS = 13           # the cost header's int that locates K5's sections
 _TERMS_LANES = 128        # terms.cu kMaxLanes: lanes (threads) a block
 _COST_HEADER = 16         # cost.cu kHeader
@@ -134,8 +148,6 @@ COST_MAX_MEMBERS = _COST_MAX_TPL
 COST_MAX_DOF = _COST_MAX_Q * _COST_MAX_TPL
 # the words in which the MultiRobot kernels (K5, and K8 as the reference's
 # cost factory) refuse a member
-_MR_NET_WORDS = ("the CUDA MultiRobot kernels take no member with a learned "
-                 "self-collision net")
 _MR_INTERP_WORDS = ("the CUDA MultiRobot kernels take no member with "
                     "interpolated points")
 _SMEM_MAX = 232448        # shared memory a block can have on the H100
@@ -343,12 +355,15 @@ def pack_multirobot_params(lay: MultiRobotLayout):
     buffers of the layout (its members' FK steps, points, rows in the
     order object SDF, workspace, pairs as listed, and the scene), and,
     from the int that ints[13] holds on, the terms' int sections: a header
-    of 8 (the block pairs n_bp, the row entries E, the D joint columns'
-    prismatic bits, 0s), each member's joint count and first column, each
-    block pair's members i and j (the n diagonal blocks, then (i, j), i <
-    j, in order) and the first of its row entries (n_bp + 1), the value
-    phase's row cuts (n_bp + 1, balanced by ``cost_row_ops``), each point's
-    joint mask over its member's columns, and the row entries.
+    of 8 (the block pairs n_bp, the row entries E, 0, the floats a lane of
+    a warp's scratch on the route past 8 joints a member (``_mr_scratch``;
+    0 on the register route), 0s), each member's joint count and first
+    column, each block pair's members i and j (the n diagonal blocks, then
+    (i, j), i < j, in order) and the first of its row entries (n_bp + 1),
+    the value phase's row cuts (one range a warp, ``_mr_warps``; balanced
+    by ``cost_row_ops``), each point's joint mask over its member's
+    columns, and the row entries.  The kernel reads a member's prismatic
+    joints from its FK steps.
 
     An entry is 8 times a row's index plus flags: 1, the pair's points in
     the other order (a mutual pair listed from member j to member i, so
@@ -358,7 +373,10 @@ def pack_multirobot_params(lay: MultiRobotLayout):
     each of its object points' SDF row (with scene objects) and workspace
     row, its own pairs, then its side of every cross block's rows; a cross
     block (i, j) lists the pairs from member i to member j, then those from
-    j to i: each block's g, H and cost add in that order."""
+    j to i: each block's g, H and cost add in that order.  A mutual pair
+    between two object points of one member is listed as an own pair of
+    that member's diagonal block: both points move with its columns, so it
+    adds to H_ii alone."""
     ints, floats = pack_cost_params(lay)
     members = lay.members
     n_mem = len(members)
@@ -374,6 +392,9 @@ def pack_multirobot_params(lay: MultiRobotLayout):
             continue
         i, j = (int(np.searchsorted(obj_off, p, side="right")) - 1
                 for p in (pa, pb))
+        if i == j:                             # within one member
+            own[i].append(pair0 + k)
+            continue
         groups.setdefault((i, j), []).append(pair0 + k)
     bp = [(i, i) for i in range(n_mem)] + [
         (i, j) for i in range(n_mem) for j in range(i + 1, n_mem)]
@@ -397,37 +418,83 @@ def pack_multirobot_params(lay: MultiRobotLayout):
                             for e in cross_rows(a, b)]
     begin.append(len(entries))
 
-    prism, anc = 0, []
-    for i, r in enumerate(members):
-        m = r.model
-        for c, li in enumerate(m.controlled_link_idxs()):
-            if m.joint_types[li] == 3:                 # kin_scene kPrismatic
-                prism |= 1 << (int(lay.d_off[i]) + c)
+    anc = []
     for section in ("object", "self"):
         for r in members:
             a_m = r.model.ancestry_matrix()
             anc += [int(sum(1 << c for c in np.flatnonzero(a_m[li])))
                     for li, _ in member_collision_points(r, section)]
     ops = cost_row_ops(lay)
-    header = [len(bp), len(entries), prism - (1 << 32) * (prism >> 31)]
-    extras = _i32([header + [0] * 5, lay.d_list, lay.d_off[:-1],
-                   [i for i, _ in bp], [j for _, j in bp], begin,
-                   _row_cuts(ops, len(bp)), anc, entries])
+    scratch = _mr_scratch(lay.d_list, bp)
+    # the row cuts are one range a warp: count the warps with the most
+    # cuts a block can take (n_bp + 1) in its parameters
+    sections = [lay.d_list, lay.d_off[:-1], [i for i, _ in bp],
+                [j for _, j in bp], begin]
+    n_ints = len(ints) + 8 + sum(len(x) for x in sections) + len(bp) + 1 \
+        + len(anc) + len(entries)
+    warps = _mr_warps(len(bp), scratch, _mr_lane_floats(ints), n_ints,
+                      len(floats))
+    extras = _i32([[len(bp), len(entries), 0, scratch, 0, 0, 0, 0]]
+                  + sections + [_row_cuts(ops, warps), anc, entries])
     assert len(ops) == pair0 + len(lay.pair_a) and len(anc) == int(ints[2])
     ints[_MR_EXTRAS] = len(ints)
     return np.concatenate([ints, extras]), floats
 
 
+def _mr_scratch(d_list, bp) -> int:
+    """The floats a lane of a warp's scratch on mr_terms.cu's route past 8
+    joints a member: the largest block's sums, a diagonal block's g_i and
+    packed triangle (d_i (d_i + 3) / 2) or a cross block's d_i d_j; 0 on
+    the register route."""
+    if max(d_list) <= _MR_NARROW_DOF:
+        return 0
+    return max(d_list[i] * (d_list[i] + 3) // 2 if i == j
+               else d_list[i] * d_list[j] for i, j in bp)
+
+
+def _mr_lane_floats(ints) -> int:
+    """The floats a lane of mr_terms.cu's shared memory holds besides the H
+    scratch, from the cost header: its q, joint axes and origins (7 D),
+    points (3 P), stored transforms (12 a slot), every row's value, each
+    block pair's cost share (added by the caller) and each object row's
+    minimizing primitive."""
+    D, P, NO, K, NOBJ, n_slots = (int(ints[i]) for i in (1, 2, 3, 4, 5, 8))
+    n_sdf = NO if NOBJ > 0 else 0
+    return 7 * D + 3 * P + 12 * n_slots + n_sdf + NO + K + n_sdf
+
+
+def _mr_warps(n_bp: int, scratch: int, lane_floats: int, n_ints: int,
+              n_floats: int) -> int:
+    """The warps a block of mr_terms.cu: one a block pair up to the route's
+    threads (10 warps on the register route, 8 past 8 joints a member), and
+    on the route past 8 joints the most whose H scratch keeps a block of
+    32 lanes within the H100's 232,448 bytes (at least 1: a block that does
+    not fit is refused by the launch shape)."""
+    cap = (_MR_MAX_THREADS if scratch == 0 else _MR_WIDE_MAX_THREADS) // 32
+    warps = min(n_bp, cap)
+    fixed = 4 * (-(-n_ints // 4) * 4 + -(-n_floats // 4) * 4)
+    while scratch and warps > 1 and fixed + 4 * _MR_LANES * (
+            lane_floats + n_bp + warps * scratch) > _SMEM_MAX:
+        warps -= 1
+    return warps
+
+
 def _mr_block(ints, n_floats: int, lanes=None):
     """``mr_terms_launch_config``'s shape and refusal (``_fit_block``)."""
-    D, P, NO, K, NOBJ, n_slots = (int(ints[i]) for i in (1, 2, 3, 4, 5, 8))
-    n_bp = int(ints[int(ints[_MR_EXTRAS])])
-    n_sdf = NO if NOBJ > 0 else 0
+    n_mem, P = int(ints[0]), int(ints[2])
+    xs = ints[int(ints[_MR_EXTRAS]):]
+    n_bp, E, scratch = int(xs[0]), int(xs[1]), int(xs[3])
+    # the sections after the header: 2 n_mem, 3 n_bp + 1, the row cuts
+    # (warps + 1), P masks, E entries
+    warps = len(xs) - 8 - 2 * n_mem - 3 * n_bp - 1 - P - E - 1
+    member_dof = int(max(xs[8:8 + n_mem]))
     lanes, smem, refusal = _fit_block(
         "MultiRobot terms", ints, n_floats,
-        4 * (7 * D + 3 * P + 12 * n_slots + n_sdf + NO + K + n_bp + n_sdf),
-        _MR_LANES if lanes is None else lanes, n_bp, _MR_MAX_THREADS)
-    return dict(lanes=lanes, block_pairs=n_bp, threads=lanes * n_bp,
+        4 * (_mr_lane_floats(ints) + n_bp + warps * scratch),
+        _MR_LANES if lanes is None else lanes, warps,
+        _MR_MAX_THREADS if scratch == 0 else _MR_WIDE_MAX_THREADS)
+    return dict(lanes=lanes, block_pairs=n_bp, warps=warps,
+                member_dof=member_dof, threads=lanes * warps,
                 smem_bytes=smem), refusal
 
 
@@ -435,12 +502,16 @@ def mr_terms_launch_config(ints, n_floats: int, lanes=None) -> dict:
     """Launch shape of ``mr_terms.cu`` from its packed buffers
     (``pack_multirobot_params``): ``lanes`` lanes a block, 32 unless given
     (a multiple of 32, whole warps fewer while the block passes the H100's
-    232,448 bytes), one warp of them a block pair (``threads`` = lanes *
-    n_bp, at most 320), and the dynamic shared memory in bytes: the
+    232,448 bytes), ``warps`` warps of them (one a block pair, up to 10 on
+    the register route and 8 past 8 joints a member: the packing's row
+    cuts; ``threads`` = lanes * warps, at most 320 and 256), the
+    ``block_pairs``, ``member_dof`` the widest member's joints (which picks
+    the kernel's route), and the dynamic shared memory in bytes: the
     parameters, and per lane its q, joint axes and origins (7 D), points
     (3 P), stored transforms (12 a slot), every row's value, each block
-    pair's cost share and each object row's minimizing primitive.
-    NotImplementedError where 32 lanes do not fit."""
+    pair's cost share, each object row's minimizing primitive and, past 8
+    joints a member, each warp's H scratch.  NotImplementedError where 32
+    lanes do not fit."""
     launch, refusal = _mr_block(ints, n_floats, lanes)
     if refusal is not None:
         raise NotImplementedError(refusal)
@@ -816,8 +887,9 @@ def run_multirobot_terms_kernel(q_cols: torch.Tensor, ints: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         MR_KERNEL.launch("trt_mr_terms_launch", q_cols.data_ptr(),
                          g.data_ptr(), Hqq.data_ptr(), cost.data_ptr(), N, d,
-                         launch["lanes"], launch["block_pairs"],
-                         launch["smem_bytes"], ints.data_ptr(), ints.numel(),
+                         launch["lanes"], launch["warps"],
+                         launch["member_dof"], launch["smem_bytes"],
+                         ints.data_ptr(), ints.numel(),
                          floats.data_ptr(), floats.numel(), grid_ptr, stream)
     return g, Hqq, cost
 
@@ -837,8 +909,8 @@ def _refusal(task, members, multi: bool = False):
     for a single robot, ``multi`` False), or None where they take it: a
     scene they do not take (``_scene_refusal``), more than MAX_DOF joints
     (MR_MAX_DOF in a member, for a MultiRobot), and for a MultiRobot more
-    than MR_MAX_MEMBERS members or a member with a learned self-collision
-    net or interpolated points.  Where the reference's fused factories return
+    than MR_MAX_MEMBERS members or a member with interpolated points.
+    Where the reference's fused factories return
     None for such a task, it runs its plain terms; here the task keeps
     them on the CPU and its hooks raise NotImplementedError with these
     words on a CUDA tensor."""
@@ -862,12 +934,13 @@ def _refusal(task, members, multi: bool = False):
 
 
 def _member_refusal(members):
-    """The MultiRobot kernels' words for a member with a learned
-    self-collision net or interpolated points (the reference's fused
-    MultiRobot factories return None for both), or None."""
+    """The MultiRobot kernels' words for a member with interpolated points
+    (the reference's fused MultiRobot factories return None for it), or
+    None.  A member with a learned self-collision net is taken: the
+    reference's XLA MultiRobot terms and residuals, which it runs for such
+    a member, read no member's net and keep its pair rows, and so do both
+    kernels on the members' packing."""
     for r in members:
-        if getattr(r, "self_collision_net", None) is not None:
-            return _MR_NET_WORDS
         if r.object_interpolate:
             return _MR_INTERP_WORDS
     return None
@@ -879,10 +952,13 @@ def _cost_refusal(task, members, multi: bool = False):
     it: a scene the kernels do not take, more than COST_MAX_MEMBERS
     members or COST_MAX_DOF joints (cost.cu: one member's FK a thread, at
     most 8 threads a lane, at most kMaxQ q columns a thread), and for a
-    MultiRobot a member with a learned self-collision net or interpolated
-    points (the reference's collision_cost_pallas_factory returns None
-    for both) or, as its terms hook, more than MR_MAX_MEMBERS members.
-    The block is checked on the packing (``_cost_block``)."""
+    MultiRobot a member with interpolated points (the reference's
+    collision_cost_pallas_factory returns None for it).  A member with a
+    learned self-collision net is taken: the reference scores such a
+    MultiRobot with 0.5 sum r^2 of its collision residuals (its cost
+    factory returns None), rows that read no member's net, which is what
+    this kernel sums on the members' packing.  The block is checked on the
+    packing (``_cost_block``)."""
     refusal = _scene_refusal(task.df_obj_list)
     if refusal is not None:
         return refusal
@@ -893,15 +969,7 @@ def _cost_refusal(task, members, multi: bool = False):
         return "the CUDA cost kernel takes at most %d joints" % COST_MAX_DOF
     if not multi:
         return None
-    refusal = _member_refusal(members)
-    if refusal is not None:
-        return refusal
-    if len(members) > MR_MAX_MEMBERS:
-        # the contract a MultiRobot's cost hook has kept since K5's cap:
-        # it refuses the members the terms hook refuses
-        return ("the CUDA MultiRobot terms kernel takes at most %d members"
-                % MR_MAX_MEMBERS)
-    return None
+    return _member_refusal(members)
 
 
 def _kernel_params(task):
@@ -1052,14 +1120,15 @@ def _mr_kernel_params(task):
     task for the mr_terms.cu kernel, or None unless every member has a
     kinematic model; past the caps (``_refusal``, or a block that does not
     fit: ``mr_terms_launch_config``) None for the buffers and the shape,
-    and the refusal beside them.  A same-member mutual pair raises
-    NotImplementedError in the plain terms' layout.  -> (params,
-    refusal)"""
+    and the refusal beside them.  The plain terms are
+    ``obstacle_terms_lanes_factory``'s: the block-structured assembly, or
+    the generic padded one for a same-member mutual pair (with the
+    reference's warning).  -> (params, refusal)"""
     robot = task.robot
     members = robot.robots
     if not all(hasattr(r, "model") for r in members):
         return None, None
-    plain = obstacle_terms_lanes_multirobot_factory(task)
+    plain = obstacle_terms_lanes_factory(task)
     ints = floats = launch = None
     refusal = _refusal(task, members, multi=True)
     if refusal is None:
@@ -1073,7 +1142,8 @@ def _mr_kernel_params(task):
 def multirobot_terms_kernel_factory(task):
     """GN obstacle terms of a ``MultiRobot`` task in an analytic primitive
     scene: the CUDA MultiRobot terms kernel for CUDA tensors, the plain
-    block-structured terms for CPU tensors.  Same contract as
+    terms (block-structured, or the generic padded assembly for a
+    same-member mutual pair) for CPU tensors.  Same contract as
     ``obstacle_terms_kernel_factory``; None and the refusal as
     ``_mr_kernel_params``."""
     params, refusal = _mr_kernel_params(task)
