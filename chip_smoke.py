@@ -11,8 +11,12 @@ K1, K5 and K8 (phases 29-32), the Panda holding a grasped box, with
 the grasped-point branch of K1, K5 and K8 (phases 33-36), config 2's
 hybrid leg, CHOMP and config 5's sharded MPC (phases 37-39), the MPOT
 -> GPMP2 pipeline and the planar 2-link arm's generic GN step (phases
-40-41), and config 1's FK over the robot zoo, the terms kernel past eight
-joints and the 14-joint dual-arm TIAGo's MPC and sGPMP (phases 42-45).
+40-41), config 1's FK over the robot zoo, the terms kernel past eight
+joints and the 14-joint dual-arm TIAGo's MPC and sGPMP (phases 42-45),
+the MultiRobot cells past K5's first caps (phases 46-49, five Pandas'
+MPC through the column sweep's shared-memory route), that route alone
+(phase 50), the PD execution harness (phase 51) and the examples that
+drive the solvers (phase 52).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -420,9 +424,34 @@ final line):
              21 (three threads a lane).
 49. mr_five - five Pandas (d = 35, 15 block pairs on 10 warps): K5 vs
              plain on the first q at N = 8192 and a lane's bits at a
-             ragged N, timed; the card's solve refuses the GN system's m =
-             70 in K4's words (no MPC); the sGPMP of phase 47 at 5
-             members (eight threads a lane).
+             ragged N, timed; the MPC of phase 46 with exactly 60 K5 and
+             60 launches of K4's shared-memory route (btridiag_cols_wide,
+             (32, 70, 70, 256) in width 80) and nothing else, one step at
+             B = 64 held to float64; the sGPMP of phase 47 at 5 members
+             (eight threads a lane).
+50. cols_wide - K4's shared-memory route (csrc/btridiag_cols_wide.cu) on
+             phase 49's first GN system vs plain, held to float64, timed
+             over a CUDA graph beside its bound and the dense solve; on
+             random SPD systems at m = 96, 112 and 128 (H = 32, B = 64)
+             vs plain, held to float64, timed; a lane's bits the same in
+             every wider width; ptxas' report of its four instantiations,
+             none with a stack frame or a spill; at m = 40
+             solve_lanes_auto still takes the register route (one
+             btridiag_cols launch, torch.equal to solve_lanes_cols), and
+             the new route in width 80 is held to float64 beside it and
+             timed; m = 129 refused in K4's words.
+51. execute - the PD execution harness (sim/): phase 4's final plans (B =
+             1024, H = 64) through MotionPlanningController on the card,
+             no kernel launched, timed; held to a float64 CPU run of the
+             same harness on the same plans (q and qd on the lanes whose
+             frozen flags and contacts agree; the others counted).
+52. examples - the four examples of torch_robotics_tpu_torch/examples/
+             that drive the solvers, each main() on the card at its own
+             size: mpc_panda (B = 32, 60 steps: exactly 120 K1 and 120 K2,
+             then the PD harness), ilqr_panda (B = 64, with --track),
+             multi_robot_mpc (B = 16, 150 steps: exactly 300 K5 and 300
+             K4) and planning_point_mass (the scene's preset); every
+             number finite; wall seconds and launches of each.
 
 Every phase line carries ``script_s``, its seconds since the script
 started.  Then one JSON line with every kernel's numbers (launches from
@@ -448,9 +477,10 @@ run for K1 at D = 14 (obstacle_terms_tiago) and K4 at (64, 28, 28, 1024)
 (btridiag_cols_tiago), phase 43's Shadow step for K1 at D = 24
 (obstacle_terms_shadow, timed on its random q) and phase 45's solve for K8
 at D = 14 (collision_cost_tiago, timed at 2,097,152), phases 46-49's MPC
-runs for K5 (multirobot_terms_same_pair, _net, _wide; _five with no path
-launch, timed on its first q) and K4 at (32, 42, 42, 256)
-(btridiag_cols_mr_wide), and their sGPMP solves for K8-MultiRobot
+runs for K5 (multirobot_terms_same_pair, _net, _wide, _five, timed on
+their first q) and K4 at (32, 42, 42, 256) (btridiag_cols_mr_wide), phase
+49's MPC for K4's shared-memory route (btridiag_cols_wide, timed in phase
+50 on its first GN system), and their sGPMP solves for K8-MultiRobot
 (collision_cost_multirobot_net, _wide, _five, timed at 131,072), each
 timed on its path's first inputs; each bound at the FP32 rate, the net rows' at
 the 3xTF32 rate of their tensor-core route), the nvidia-smi line, and the
@@ -1402,14 +1432,8 @@ def phase_build():
              NET_TC_TERMS: "net_terms_tc_kernel<256, 128, 64> (tf32x3)",
              NET_TC_COST: "net_cost_tc_kernel<256, 128, 64> (tf32x3)"}
     report = {}
-    for src, text in logs.items():
-        lines = text.splitlines()
-        for i, line in enumerate(lines):
-            for name, label in names.items():
-                if "Compiling entry function '_ZN" in line and name in line:
-                    report[label] = " | ".join(
-                        s.strip().split("info    : ")[-1]
-                        for s in lines[i + 1:i + 4])
+    for text in logs.values():
+        report.update(ptxas_lines(text, names))
     for w in _COLS_WIDTHS:
         line = report.get("btridiag_cols_kernel<%d>" % w, "")
         check("0 bytes spill stores, 0 bytes spill loads" in line,
@@ -1744,7 +1768,7 @@ def phase_main():
         profiled_device_busy_share=busy,
         profiled_device_ms_per_step=dev_ms,
         top_device_ms_per_step=top)
-    return launches
+    return launches, state.theta
 
 
 def theta_gaps(th_card, th_cpu, th_64):
@@ -3144,6 +3168,7 @@ def all_kernels():
                 gn_assembly=gn_assembly_kernel.KERNEL,
                 btridiag_w=btridiag_kernel.KERNEL,
                 btridiag_cols=btridiag_kernel.COLS_KERNEL,
+                btridiag_cols_wide=btridiag_kernel.COLS_WIDE_KERNEL,
                 btridiag_factor=btridiag_kernel.FACTOR_KERNEL,
                 btridiag_subst=btridiag_kernel.SUBST_KERNEL,
                 riccati=riccati_kernel.RICCATI_KERNEL,
@@ -5899,24 +5924,26 @@ def goal_dist(q, goal):
     return float((q - goal[:, :d]).norm(dim=-1).median())
 
 
-def cols_entry(name, D_l, U_l, b_l, launches):
-    """K4 on a path's GN system vs its plain version, held to float64
-    (hold_solve's GN rule), timed over a CUDA graph beside the plain
-    version and the dense solve -> the kernels-line numbers."""
+def cols_entry(name, D_l, U_l, b_l, launches, random: bool = False):
+    """K4 (the route cols_launch_config gives m) on a path's GN system vs
+    its plain version, held to float64 (hold_solve's GN rule, or its
+    random rule), timed over a CUDA graph beside the plain version and the
+    dense solve -> the kernels-line numbers."""
     import torch
     from torch_robotics_tpu_torch.ops.btridiag_kernel import (
-        cols_launch_config, solve_lanes_cols)
+        cols_launch_config, solve_lanes_cols, solve_lanes_cols_wide)
     from torch_robotics_tpu_torch.solve.btridiag_lanes import (
         solve_lanes_core)
-    x_k = solve_lanes_cols(D_l, U_l, b_l)
+    solve = (solve_lanes_cols_wide if cols_launch_config(
+        D_l.shape[1], D_l.shape[3])["route"] == "shared" else solve_lanes_cols)
+    x_k = solve(D_l, U_l, b_l)
     x_p = solve_lanes_core(D_l, U_l, b_l)
     held = hold_solve(name, x_k, x_p, solve_lanes_core(
-        D_l.double(), U_l.double(), b_l.double()), random=False)
+        D_l.double(), U_l.double(), b_l.double()), random=random)
     H_, m, _, B_ = D_l.shape
     out = dict(max_abs_err=held["abs"], held=held, launches=launches,
                launch=cols_launch_config(m, B_),
-               ms=device_ms(lambda: solve_lanes_cols(D_l, U_l, b_l),
-                            iters=10),
+               ms=device_ms(lambda: solve(D_l, U_l, b_l), iters=10),
                plain_ms=cuda_ms(lambda: solve_lanes_core(D_l, U_l, b_l),
                                 iters=1, warmup=1),
                work=cols_solve_work(H_, m, B_))
@@ -6225,21 +6252,22 @@ def mr_in_limits_q(task, N: int, seed: int):
                            dtype=torch.float32, device="cuda")
 
 
-def mr_cell_mpc(cell, task, start, goal):
+def mr_cell_mpc(cell, task, start, goal, k4: str = "btridiag_cols",
+                n_f64: int = MR_CPU_B):
     """Config 4's MPC on a cell (B = 256, H = 32, 30 steps of 2 GN
-    iterations, mpc_rollout): exactly 60 K5 and 60 K4 launches and nothing
-    else, finite outputs, step ms, solves/s, goal distance and fraction
-    free of the executed paths; one step at B = MR_CPU_B on the card and
-    on the CPU held to a float64 CPU step (step_vs_f64, phase mr_cpu's
-    rule) -> the phase line's MPC fields."""
+    iterations, mpc_rollout): exactly 60 K5 and 60 K4 launches (``k4``,
+    the counter of its route) and nothing else, finite outputs, step ms,
+    solves/s, goal distance and fraction free of the executed paths; one
+    step at B = ``n_f64`` on the card and on the CPU held to a float64
+    CPU step (step_vs_f64, phase mr_cpu's rule) -> the phase line's MPC
+    fields."""
     import torch
     from torch_robotics_tpu_torch.solve import GPMP2Params
     mr_rollout(task, start, goal, 1)                 # warm-up
     (xs, info), launches, ms = counted(
         lambda: mr_rollout(task, start, goal, MR_STEPS))
     expected = MR_STEPS * MR_ITERS
-    check(launches == {"multirobot_terms": expected,
-                       "btridiag_cols": expected},
+    check(launches == {"multirobot_terms": expected, k4: expected},
           "%s MPC launches %s, expected %d K5 and %d K4"
           % (cell, launches, expected, expected))
     final = info["final_state"]
@@ -6248,7 +6276,7 @@ def mr_cell_mpc(cell, task, start, goal):
           cell + " MPC produced non-finite outputs")
     d = start.shape[1] // 2
     executed = torch.cat([start[:, None], xs], dim=1)
-    n = MR_CPU_B
+    n = n_f64
     iters, chained = step_vs_f64(
         task, mr_task("cpu", *MR_CELLS[cell]),
         (start[:n].contiguous(), goal[:n].contiguous()),
@@ -6430,16 +6458,18 @@ def phase_mr_wide():
 
 
 def phase_mr_five():
-    """Five Pandas (MR_CELLS; d = 35, 15 block pairs on 10 warps): K5 vs
-    plain on the first q of config 4's straight-line plans (N = 8192, B =
-    256, H = 32) and a lane's bits the same at a ragged N, timed; no MPC
-    (m = 70 passes K4's 64: ROADMAP Queue 2 f); config 4's sGPMP
-    (mr_cell_sgpmp: exactly 201 K8-MultiRobot launches at 5 members, eight
-    threads a lane) held to float64; the card's solve refuses the GN
-    system's m = 70 in K4's words -> (K5, K8-MultiRobot) kernels-line
-    numbers."""
+    """Five Pandas (MR_CELLS; d = 35, m = 70, 15 block pairs on 10 warps):
+    K5 vs plain on the first q of config 4's straight-line plans (N =
+    8192, B = 256, H = 32) and a lane's bits the same at a ragged N,
+    timed; config 4's MPC on it (mr_cell_mpc: exactly 60 K5 and 60
+    launches of K4's shared-memory route at (32, 70, 70, 256), width 80,
+    held to float64 on MR_FIVE_F64_B problems); config 4's sGPMP (mr_cell_sgpmp: exactly 201
+    K8-MultiRobot launches at 5 members, eight threads a lane) held to
+    float64 -> (K5, K8-MultiRobot) kernels-line numbers, the path's first
+    GN system (D, U, b) for phase cols_wide and its K4 launches."""
     import torch
-    from torch_robotics_tpu_torch.ops.btridiag_kernel import solve_lanes_auto
+    from torch_robotics_tpu_torch.ops.btridiag_kernel import \
+        cols_launch_config
     from torch_robotics_tpu_torch.solve import (GPMP2Params,
                                                 straight_line_trajs)
     from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
@@ -6451,30 +6481,232 @@ def phase_mr_five():
           == (15, 10), "mr_five: %s / %s" % (terms.refusal, launch))
     q_main = mr_first_q(start, goal)
     k5 = terms_entry("mr_five_first_q_N%d" % q_main.shape[1], task, q_main,
-                     0)
+                     MR_STEPS * MR_ITERS)
     full = terms.unscaled(q_main)
     ragged = terms.unscaled(q_main[:, :GN_RAGGED_N].contiguous())
     check(all(torch.equal(a[..., :GN_RAGGED_N], b)
               for a, b in zip(full, ragged)),
           "mr_five: a lane's bits change with the batch")
     del full, ragged
-    # the GN system's m = 70 passes K4's 64: the card's solve refuses it
     b_l, D_l, U_l, _ = _lanes_gn_system(
         terms, straight_line_trajs(start, goal, MR_H), start, goal,
         GPMP2Params(**MR_GP))
-    k4_words = ""
-    try:
-        solve_lanes_auto(D_l, U_l, b_l)
-    except NotImplementedError as e:
-        k4_words = str(e)
-    check("m <= 64" in k4_words, "mr_five: K4 did not refuse m = %d: %r"
-          % (D_l.shape[1], k4_words))
-    del b_l, D_l, U_l
-    torch.cuda.empty_cache()
+    m = D_l.shape[1]
+    check(m == 70 and cols_launch_config(m, MR_B)["route"] == "shared",
+          "mr_five's GN system is %s" % (tuple(D_l.shape),))
+    mpc = mr_cell_mpc("mr_five", task, start, goal, k4="btridiag_cols_wide",
+                      n_f64=MR_FIVE_F64_B)
     k8 = mr_cell_sgpmp("mr_five", task, start, goal)
     emit("mr_five", **mr_cell_shape(task), start_draw=draw,
-         k5=k5_fields(k5), k4_refusal=k4_words, k8=k8_fields(k8))
-    return k5, k8
+         k5=k5_fields(k5), mpc=mpc, k4_launch=cols_launch_config(m, MR_B),
+         k8=k8_fields(k8))
+    return k5, k8, (D_l, U_l, b_l), mpc["launches"]["btridiag_cols_wide"]
+
+
+def random_wide_system(H_: int, m: int, B_: int, seed: int):
+    """A random SPD block-tridiagonal system (D, U, b) on the card at a
+    wide m: D >= 3 I and |U| about 1 (random_system's U would not stay
+    positive definite past m ~ 40), as tests/test_torch_cols_wide.py
+    builds them."""
+    import torch
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B_, H_, m, m)) * 0.3 / np.sqrt(m / 14)
+    D = np.transpose(A @ np.swapaxes(A, -1, -2) + 3.0 * np.eye(m),
+                     (1, 2, 3, 0))
+    return [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                            device="cuda")
+            for a in (D, rng.normal(size=(H_, m, m, 1)) * (0.5 / np.sqrt(m)),
+                      rng.normal(size=(H_, m, B_)))]
+
+
+def ptxas_lines(text: str, names: dict) -> dict:
+    """nvcc's -Xptxas -v report for the kernels whose mangled names hold a
+    fragment of ``names`` -> {label: "registers | stack and spill"}."""
+    report = {}
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
+        for name, label in names.items():
+            if "Compiling entry function '_ZN" in line and name in line:
+                report[label] = " | ".join(
+                    s.strip().split("info    : ")[-1]
+                    for s in lines[i + 1:i + 4])
+    return report
+
+
+def phase_cols_wide(D_g, U_g, b_g, launches):
+    """K4's shared-memory route (csrc/btridiag_cols_wide.cu, m 65..128):
+    on phase mr_five's first GN system (32, 70, 70, 256) vs plain, held
+    to float64 (hold_solve's GN rule), timed over a CUDA graph beside its
+    bound and the dense solve (cols_entry); on random SPD systems at m =
+    96, 112 and 128 (H = 32, B = 64) vs plain, held to float64 (the
+    random rule), timed, each beside its bound and the dense solve; a
+    lane's x the same bits in every wider width; ptxas' registers of its
+    four instantiations, none with a stack frame or a spill; at m = 40
+    (config 4's random system) solve_lanes_auto takes the register route
+    (exactly one btridiag_cols launch, torch.equal to solve_lanes_cols),
+    and the new route in width 80 (another order of the same solve) is
+    held to float64 beside it and timed; m = 129 is refused in K4's words
+    -> the kernels-line numbers of the GN system."""
+    import torch
+    from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
+    from torch_robotics_tpu_torch.ops.cuda_build import build_all
+    from torch_robotics_tpu_torch.solve.btridiag_lanes import (
+        solve_lanes_core)
+    gn = cols_entry("mr_five_gn_system", D_g, U_g, b_g, launches)
+    cases = {}
+    for i, m in enumerate(CW_M):
+        D, U, b = random_wide_system(MR_H, m, CW_B, seed=SEED + 70 + i)
+        e = cols_entry("cols_wide_random_m%d" % m, D, U, b, 0, random=True)
+        x = bk.solve_lanes_cols_wide(D, U, b)
+        same = {w: bool(torch.equal(bk._launch_cols_wide(D, U, b, w), x))
+                for w in bk._COLS_WIDE_WIDTHS if w > e["launch"]["width"]}
+        check(all(same.values()), "cols_wide m = %d: a lane's bits change "
+              "with the width: %s" % (m, same))
+        b_ms, b_by = bound_ms(*e["work"])
+        cases["m%d" % m] = dict(
+            held=e["held"], kernel_ms=e["ms"], plain_ms=e["plain_ms"],
+            dense_solve_ms=e["library_ms"], launch=e["launch"],
+            bound_ms=b_ms, bound_by=b_by, same_bits_wider=same)
+        del D, U, b, x
+        torch.cuda.empty_cache()
+    # today's register route at m = 40, and the new route beside it
+    D, U, b = random_system(MR_H, 40, MR_B, seed=SEED + 40)
+    x_reg = bk.solve_lanes_cols(D, U, b)
+    x_auto, auto_launches, _ = counted(lambda: bk.solve_lanes_auto(D, U, b))
+    check(auto_launches == {"btridiag_cols": 1}
+          and torch.equal(x_auto, x_reg),
+          "cols_wide: m = 40 left the register route: %s" % auto_launches)
+    x_w = bk._launch_cols_wide(D, U, b, 80)
+    x_64 = solve_lanes_core(D.double(), U.double(), b.double())
+    m40 = dict(wide=hold_solve("cols_wide_m40", x_w,
+                               solve_lanes_core(D, U, b), x_64, random=True),
+               register_vs_f64=max_errs([x_reg.double()], [x_64])[1],
+               register_ms=device_ms(lambda: bk.solve_lanes_cols(D, U, b),
+                                     iters=10),
+               wide_ms=device_ms(lambda: bk._launch_cols_wide(D, U, b, 80),
+                                 iters=5))
+    del D, U, b, x_reg, x_auto, x_w, x_64
+    words = ""
+    try:
+        bk.solve_lanes_auto(*(torch.zeros(s, device="cuda") for s in (
+            (2, 129, 129, 4), (2, 129, 129, 1), (2, 129, 4))))
+    except NotImplementedError as e:
+        words = str(e)
+    check("m <= 128" in words, "cols_wide: m = 129 not refused in K4's "
+          "words: %r" % words)
+    names = {"25btridiag_cols_wide_kernelILi%dE" % w:
+             "btridiag_cols_wide_kernel<%d>" % w
+             for w in bk._COLS_WIDE_WIDTHS}
+    ptxas = ptxas_lines(build_all([bk.COLS_WIDE_KERNEL])[
+        "btridiag_cols_wide.cu"], names)
+    for label in names.values():
+        check("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+              "loads" in ptxas.get(label, ""), "%s: ptxas reports a stack "
+              "frame, a spill or no line: %r" % (label, ptxas.get(label)))
+    b_ms, b_by = bound_ms(*gn["work"])
+    emit("cols_wide", gn_system=dict(
+        shape=list(D_g.shape), held=gn["held"], kernel_ms=gn["ms"],
+        plain_ms=gn["plain_ms"], dense_solve_ms=gn["library_ms"],
+        launch=gn["launch"], launches=launches, bound_ms=b_ms,
+        bound_by=b_by), random=cases, m40=m40, refusal_m129=words,
+         ptxas=ptxas)
+    return gn
+
+
+# five Pandas' float64 hold (step_vs_f64) on this many problems.  At m =
+# 70 the worst of 16 lanes is one ill-conditioned lane, decided by which
+# float32 order rounds it worse: the card's 2.317e-4 of max|theta|
+# against the CPU float32 run's 1.338e-4 (limit 2.78e-4; an earlier design
+# of K4's route read 1.98e-4 against 8.95e-5 and failed), medians 3.95e-5
+# against 5.18e-5; at 64 and 256 lanes the card's worst lane is 1.02x and
+# 0.80x the CPU's (chip_cols_wide_f64.py; PERF.md, PR 25)
+MR_FIVE_F64_B = 64
+# K4's shared-memory route on random SPD systems: its widths past 80, at
+# this batch (phase mr_five's GN system takes width 80)
+CW_M, CW_B = (96, 112, 128), 64
+# the harness on the main path's plans: a lane whose frozen flag or
+# contacts differ between the card and the float64 run (a configuration
+# on the check's margin, decided apart by two roundings) is counted, at
+# most EX_FLIP_SHARE of the lanes; on the others q and qd are held to
+# EX_TOL of max|q| and max|qd| (256 PD substeps in float32)
+EX_FLIP_SHARE, EX_TOL = 0.01, 1e-4
+
+
+def phase_execute(plans):
+    """The PD execution harness on phase main's final plans (B = 1024, H
+    = 64, [q, qd] states): MotionPlanningController on the card (no
+    kernel launched: the contact check is plain PyTorch), timed by CUDA
+    events over the call (host-bound: H collision checks and 4 H PD
+    substeps), against a float64 CPU run of the same harness on the same
+    plans: lanes whose frozen flags or contacts differ are counted, and on
+    the others q and qd are held to EX_TOL -> the phase line."""
+    import torch
+    from torch_robotics_tpu_torch.sim import MotionPlanningController
+    ctrl = MotionPlanningController(bench_problem("cuda", 1)[0])
+    ctrl.run_trajectories(plans)                      # warm-up
+    (res, n_free), launches, ms = counted(lambda: ctrl.run_trajectories(
+        plans))
+    check(not launches, "execute: the harness launched %s" % launches)
+    check(all(bool(torch.isfinite(t).all()) for t in (
+        res.q, res.qd, res.tracking_error)), "execute: non-finite states")
+    t0 = time.perf_counter()
+    res_h, n_free_h = MotionPlanningController(
+        bench_problem("cpu", 1)[0]).run_trajectories(plans.cpu().double())
+    cpu_s = time.perf_counter() - t0
+    differ = ((res.frozen.cpu() != res_h.frozen)
+              | (res.contact.cpu() != res_h.contact).any(-1))
+    n_differ = int(differ.sum())
+    check(n_differ <= EX_FLIP_SHARE * plans.shape[0],
+          "execute: %d of %d lanes freeze apart from float64"
+          % (n_differ, plans.shape[0]))
+    keep = ~differ
+    gaps = {}
+    for name in ("q", "qd"):
+        got, ref = getattr(res, name).cpu()[keep], getattr(res_h, name)[keep]
+        gaps[name] = float((got.double() - ref).abs().max()
+                           / ref.abs().max())
+        check(gaps[name] <= EX_TOL, "execute: %s off float64 by %.3g of "
+              "its max" % (name, gaps[name]))
+    emit("execute", B=plans.shape[0], H=plans.shape[1], ms=ms,
+         n_free=n_free, n_free_f64=n_free_h,
+         contacts=int(res.contact.sum()), lanes_frozen=int(res.frozen.sum()),
+         lanes_differing_from_f64=n_differ, rel_to_max_vs_f64=gaps,
+         mean_tracking_error=float(res.tracking_error.mean()),
+         cpu_f64_s=cpu_s)
+
+
+def phase_examples():
+    """The examples that drive the solvers (torch_robotics_tpu_torch/
+    examples/), each main() on the card at its own size, its printing
+    sent to stderr: mpc_panda (B = 32, 60 steps: exactly 120 K1 and 120
+    K2 launches, then the PD harness), ilqr_panda (B = 64, 30 iterations,
+    --track's 40 steps), multi_robot_mpc (B = 16, 150 steps: exactly 300
+    K5 and 300 K4 launches) and planning_point_mass (EnvDense2D's
+    preset); every number each returns finite -> wall seconds, launches
+    and numbers of each."""
+    import contextlib
+    import math
+    from torch_robotics_tpu_torch.examples import (ilqr_panda, mpc_panda,
+                                                   multi_robot_mpc,
+                                                   planning_point_mass)
+    out = {}
+    for name, fn in (("mpc_panda", mpc_panda.main),
+                     ("ilqr_panda", lambda: ilqr_panda.main(track=True)),
+                     ("multi_robot_mpc", multi_robot_mpc.main),
+                     ("planning_point_mass", planning_point_mass.main)):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res, launches, _ = counted(fn)
+        wall = time.perf_counter() - t0
+        check(all(math.isfinite(v) for v in res.values()),
+              "examples: %s returned %s" % (name, res))
+        out[name] = dict(wall_s=wall, launches=launches, **res)
+    for name, want in (("mpc_panda", {"terms": 120, "btridiag_w": 120}),
+                       ("multi_robot_mpc", {"multirobot_terms": 300,
+                                            "btridiag_cols": 300})):
+        check(out[name]["launches"] == want, "examples: %s launched %s, "
+              "expected %s" % (name, out[name]["launches"], want))
+    emit("examples", **out)
 
 
 def main() -> None:
@@ -6491,7 +6723,7 @@ def main() -> None:
     chomp_cpu[1].poll(None)     # no timed phase shares the host with it
     terms = phase_terms()
     solve = phase_solve()
-    launches = phase_main()
+    launches, main_plans = phase_main()
     phase_cpu()
     phase_fk()
     ee_terms, ee_solve = phase_ee_goal()
@@ -6558,7 +6790,12 @@ def main() -> None:
     sp_k5 = phase_mr_same_pair()
     net_k5, net_k8 = phase_mr_net()
     wd_k5, wd_k4, wd_k8 = phase_mr_wide()
-    fv_k5, fv_k8 = phase_mr_five()
+    fv_k5, fv_k8, fv_system, fv_k4_launches = phase_mr_five()
+    fv_k4 = phase_cols_wide(*fv_system, fv_k4_launches)
+    del fv_system
+    phase_execute(main_plans)
+    del main_plans
+    phase_examples()
 
     entries = []
     for name, src, rep, res, n in (
@@ -6736,6 +6973,10 @@ def main() -> None:
              "torch_robotics_tpu_torch/csrc/mr_terms.cu",
              "torch_robotics_tpu/ops/pallas_terms.py:533", fv_k5,
              fv_k5["launches"]),
+            ("btridiag_cols_wide",
+             "torch_robotics_tpu_torch/csrc/btridiag_cols_wide.cu",
+             "torch_robotics_tpu/ops/pallas_btridiag.py:583", fv_k4,
+             fv_k4["launches"]),
             ("collision_cost_multirobot_five",
              "torch_robotics_tpu_torch/csrc/cost.cu",
              "torch_robotics_tpu/ops/pallas_terms.py:1029", fv_k8,

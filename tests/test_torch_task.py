@@ -104,8 +104,9 @@ def test_robot_helpers_match_jax(scene):
                                             interpolate=True, num_interp=2),
            jrobot.select_collision_jacobians(jnp.asarray(J), idxs,
                                              interpolate=True, num_interp=2))
-    with pytest.raises(NotImplementedError):
-        robot.get_velocity(torch.as_tensor(x[..., :7]))
+    # positions alone: central finite differences, as the JAX package
+    _close(robot.get_velocity(torch.as_tensor(x[..., :7])),
+           jrobot.get_velocity(jnp.asarray(x[..., :7])))
 
 
 def test_random_q_is_uniform_in_the_limits_and_seeded(scene):

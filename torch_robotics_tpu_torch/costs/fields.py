@@ -1,7 +1,6 @@
-"""Collision-point helpers, occupancy checks and the 'sdf' costs
-(counterpart of the part of torch_robotics_tpu/costs/fields.py that the
-robots, the planning task's collision checks and costs and the quality
-metrics need).
+"""Collision-point helpers, occupancy checks, the 'sdf' costs and the
+'rbf' surrogates (counterpart of torch_robotics_tpu/costs/fields.py but
+its SE(3) end-effector cost).
 
 Every check and cost takes collision points ``(..., P, dim)`` with any
 leading batch dims and returns per-configuration flags or costs ``(...)``.
@@ -9,7 +8,10 @@ An 'sdf' cost row is margin (+ cutoff) - distance, relu-clamped with
 ``clamp``; the object and workspace costs take the max over objects
 (faces) and sum over points, the self-collision cost sums over pairs.
 Reductions are ``torch.amax`` and ``torch.relu``, whose gradients at a tie
-and at 0 are JAX's (split evenly; 0).
+and at 0 are JAX's (split evenly; 0).  An 'rbf' cost is a Gaussian of the
+distance, exp(-d^2 / (2 margin^2)), summed over objects and points (the
+object field) or over every ordered pair of points, the diagonal included
+(the self field): the reference's formulas, a smooth occupancy surrogate.
 """
 from __future__ import annotations
 
@@ -22,8 +24,9 @@ from ..core.pytrees import safe_norm
 
 __all__ = ["interpolate_points", "interpolate_points_v2",
            "object_signed_distances", "object_collision_cost",
-           "object_collision_any", "self_collision_distances",
-           "self_collision_cost", "self_collision_any",
+           "object_collision_any", "object_collision_rbf",
+           "self_collision_distances", "self_collision_cost",
+           "self_collision_any", "self_collision_rbf",
            "workspace_bounds_distances", "workspace_bounds_cost",
            "workspace_bounds_any"]
 
@@ -92,6 +95,14 @@ def object_collision_any(df_obj_list, points, margins, cutoff_margin=0.0):
     return (sd < (margins + cutoff_margin)).flatten(-2).any(-1)
 
 
+def object_collision_rbf(df_obj_list, points, margin):
+    """'rbf' object cost: exp(-sdf^2 / (2 margin^2)) summed over objects
+    and points; points (..., P, dim), margin a scalar -> (...)."""
+    sd = object_signed_distances(df_obj_list, points)
+    return torch.exp(torch.square(sd) / (-2.0 * margin ** 2)).sum(
+        dim=(-1, -2))
+
+
 def self_collision_distances(points, pair_idxs):
     """Distances between configured point pairs: points (..., P, d),
     pair_idxs (n_pairs, 2) -> (..., n_pairs)."""
@@ -110,6 +121,15 @@ def self_collision_cost(points, pair_idxs, margins, clamp=False):
 def self_collision_any(points, pair_idxs, margins):
     return torch.any(self_collision_distances(points, pair_idxs) < margins,
                      dim=-1)
+
+
+def self_collision_rbf(points, margin):
+    """'rbf' self-collision cost: exp(-|p_i - p_j|^2 / (2 margin^2)) summed
+    over every ordered pair (i, j), the diagonal's ones included; points
+    (..., P, d), margin a scalar -> (...)."""
+    diff = points[..., :, None, :] - points[..., None, :, :]
+    d2 = torch.sum(torch.square(diff), dim=-1)
+    return torch.exp(d2 / (-2.0 * margin ** 2)).sum(dim=(-1, -2))
 
 
 def workspace_bounds_distances(points, ws_min, ws_max):

@@ -8,9 +8,15 @@ Counterparts of torch_robotics_tpu/ops/pallas_btridiag.py:
   (``solve_lanes_pallas_cols`` with its trsv backward tail); CUDA source
   ``csrc/btridiag_cols.cu``, m <= 64 in padded widths 24, 32, 40, 48, 64,
   launched as ``cols_launch_config`` says.
+- ``solve_lanes_cols_wide``: the same solve for 64 < m <= 128, past what
+  the column sweep's registers hold; CUDA source
+  ``csrc/btridiag_cols_wide.cu`` (a block a lane, the bordered matrix in
+  shared memory), padded widths 80, 96, 112, 128, launched as
+  ``cols_launch_config`` says.
 - ``solve_lanes_auto``: the reference's routing (``solve_lanes_auto`` and
   the m > 32 branch of ``gpmp2._gpmp2_step_lanes_impl``): m <= 16 to the
-  W-persisting sweep, larger m to the column sweep.
+  W-persisting sweep, larger m to the column sweep (its shared-memory
+  route past m = 64); past m = 128 it raises.
 - ``solve_lanes_factor``: the W-persisting sweep with its factors L and W
   as outputs (``solve_lanes_pallas_factor``), and ``solve_lanes_subst``:
   the substitution-only re-solve from them with a fresh right-hand side
@@ -54,9 +60,10 @@ from ..solve.btridiag_lanes import (solve_lanes_core, solve_lanes_factor_core,
                                     solve_lanes_subst_core)
 from .cuda_build import CudaKernel
 
-__all__ = ["KERNEL", "COLS_KERNEL", "FACTOR_KERNEL", "SUBST_KERNEL",
+__all__ = ["KERNEL", "COLS_KERNEL", "COLS_WIDE_KERNEL", "FACTOR_KERNEL", "SUBST_KERNEL",
            "SWEEP_KERNEL", "CR_KERNEL", "solve_lanes_w", "solve_lanes_cols",
-           "solve_lanes_auto", "solve_lanes_factor", "solve_lanes_subst",
+           "solve_lanes_cols_wide", "solve_lanes_auto",
+           "solve_lanes_factor", "solve_lanes_subst",
            "solve_lanes_sweep", "solve_lanes_cr", "sweep_launch_config",
            "subst_launch_config", "cols_launch_config", "cr_launch_config"]
 
@@ -69,6 +76,9 @@ COLS_KERNEL = CudaKernel("btridiag_cols.cu", {
     "trt_btridiag_cols_launch": [_P, _P, _P, _P, _P, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                  _P],
+})
+COLS_WIDE_KERNEL = CudaKernel("btridiag_cols_wide.cu", {
+    "trt_btridiag_cols_wide_launch": [_P] * 5 + [ctypes.c_int] * 4 + [_P],
 })
 FACTOR_KERNEL = CudaKernel("btridiag.cu", {
     "trt_btridiag_factor_launch": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
@@ -86,8 +96,12 @@ CR_KERNEL = CudaKernel("btridiag_cr.cu", {
 })
 # btridiag.cu and btridiag_cr.cu instantiations
 _KERNEL_M = (2, 4, 6, 8, 10, 12, 14, 16)
-_COLS_MAX_M = 64                            # btridiag_cols.cu kMaxM
+_COLS_MAX_M = 128                     # btridiag_cols_wide.cu kMaxM
+_COLS_REG_MAX_M = 64                        # btridiag_cols.cu kMaxM
 _COLS_WIDTHS = (24, 32, 40, 48, 64)         # btridiag_cols.cu instantiations
+_COLS_WIDE_WIDTHS = (80, 96, 112, 128)      # btridiag_cols_wide.cu's
+_COLS_WIDE_THREADS = 512                    # btridiag_cols_wide.cu kThreads
+_COLS_WIDE_PANEL = 16                       # btridiag_cols_wide.cu kPanel
 _N_SM = 132                                 # H100 SXM
 _W_MAX_M = 16     # the reference's _SCALAR_KERNEL_MAX_M: above it, columns
 _SWEEP_THREADS = 128                        # btridiag.cu kSweepThreads
@@ -164,19 +178,32 @@ def subst_launch_config(m: int, B: int, H: int, keep_lw=None) -> dict:
 
 
 def cols_launch_config(m: int, B: int) -> dict:
-    """Launch shape of the column sweep (``btridiag_cols.cu``): the padded
-    width it is built for (the least of ``_COLS_WIDTHS`` >= m), a group of
-    ``group`` threads per lane (the whole warps that cover the 2 w + 1
-    columns of the bordered matrix), ``lanes_per_block`` lane groups a
-    block (as few as let the grid reach every SM; at most 2, and 1 where
-    two groups would pass 8 warps: ``kMaxLanes``), one named barrier id
-    per group (``barrier_ids``; id 0 is the block's own), the
-    dynamic shared memory in bytes (``ColsShape::kLaneFloats`` per lane)
-    and the grid."""
+    """Launch shape of the column sweep.  For m <= 64 its register route
+    (``route`` "registers", ``btridiag_cols.cu``): the padded width it is
+    built for (the least of ``_COLS_WIDTHS`` >= m), a group of ``group``
+    threads per lane (the whole warps that cover the 2 w + 1 columns of
+    the bordered matrix), ``lanes_per_block`` lane groups a block (as few
+    as let the grid reach every SM; at most 2, and 1 where two groups
+    would pass 8 warps: ``kMaxLanes``), one named barrier id per group
+    (``barrier_ids``; id 0 is the block's own), the dynamic shared memory
+    in bytes (``ColsShape::kLaneFloats`` per lane) and the grid.  For 64 <
+    m <= 128 its shared-memory route (``route`` "shared",
+    ``btridiag_cols_wide.cu``): the padded width (the least of
+    ``_COLS_WIDE_WIDTHS`` >= m), 512 threads and one lane a block, the
+    dynamic shared memory (``WideShape::kFloats``: the packed bordered
+    triangle at the width, where the backward pass's staging fits too,
+    rounded to float4, then a panel's 16 values a row and 4 doubles) and
+    the grid.  NotImplementedError past m = 128."""
     if not 1 <= m <= _COLS_MAX_M:
         raise NotImplementedError(
             "the CUDA column sweep takes 1 <= m <= %d, got %d"
             % (_COLS_MAX_M, m))
+    if m > _COLS_REG_MAX_M:
+        w = next(w for w in _COLS_WIDE_WIDTHS if w >= m)
+        n2 = 2 * w + 1
+        floats = -(-n2 * (n2 + 1) // 8) * 4 + _COLS_WIDE_PANEL * n2 + 8
+        return dict(route="shared", width=w, threads=_COLS_WIDE_THREADS,
+                    lanes_per_block=1, smem_bytes=4 * floats, grid=B)
     w = next(w for w in _COLS_WIDTHS if w >= m)
     n2 = 2 * w + 1
     group = -(-n2 // 32) * 32
@@ -184,8 +211,8 @@ def cols_launch_config(m: int, B: int) -> dict:
     slot = -(-n2 // 4) * 4
     lane_floats = max(2 * slot + (w + 1) * w + 2 * (2 * w * w + w),
                       2 * (2 * w * (w + 1) + 2 * w))
-    return dict(width=w, group=group, lanes_per_block=lanes,
-                threads=lanes * group,
+    return dict(route="registers", width=w, group=group,
+                lanes_per_block=lanes, threads=lanes * group,
                 barrier_ids=tuple(range(1, lanes + 1)),
                 smem_bytes=4 * lane_floats * lanes, grid=-(-B // lanes))
 
@@ -298,14 +325,18 @@ def solve_lanes_w(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor):
 
 def solve_lanes_cols(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor):
     """Block-tridiagonal SPD solve in the lanes layout through the column
-    sweep, m up to 64 on the card (see module doc)."""
+    sweep's register route, m up to 64 on the card (see module doc)."""
     _check(D, U, b)
     if D.device.type == "cpu":
         return solve_lanes_core(D, U, b)
     _check_cuda("solve_lanes_cols", D, U, b)
     H, m, _, B = D.shape
-    lanes = cols_launch_config(m, max(B, 1))["lanes_per_block"]
-    return _launch_cols(D, U, b, lanes)
+    cfg = cols_launch_config(m, max(B, 1))
+    if cfg["route"] != "registers":
+        raise NotImplementedError(
+            "the CUDA column sweep's register route takes 1 <= m <= %d, "
+            "got %d (solve_lanes_cols_wide takes it)" % (_COLS_REG_MAX_M, m))
+    return _launch_cols(D, U, b, cfg["lanes_per_block"])
 
 
 def _launch_cols(D, U, b, lanes: int):
@@ -324,16 +355,54 @@ def _launch_cols(D, U, b, lanes: int):
     return x
 
 
+def solve_lanes_cols_wide(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor):
+    """Block-tridiagonal SPD solve in the lanes layout through the column
+    sweep's shared-memory route, 64 < m <= 128 on the card (see module
+    doc)."""
+    _check(D, U, b)
+    if D.device.type == "cpu":
+        return solve_lanes_core(D, U, b)
+    _check_cuda("solve_lanes_cols_wide", D, U, b)
+    H, m, _, B = D.shape
+    cfg = cols_launch_config(m, max(B, 1))
+    if cfg["route"] != "shared":
+        raise NotImplementedError(
+            "the CUDA column sweep's shared-memory route takes %d < m <= "
+            "%d, got %d (solve_lanes_cols takes it)"
+            % (_COLS_REG_MAX_M, _COLS_MAX_M, m))
+    return _launch_cols_wide(D, U, b, cfg["width"])
+
+
+def _launch_cols_wide(D, U, b, width: int):
+    """The shared-memory route's launch in padded width ``width`` (checked
+    CUDA inputs, m <= width); a lane's result does not depend on
+    ``width``."""
+    H, m, _, B = D.shape
+    x = torch.empty((H, m, B), dtype=torch.float32, device=D.device)
+    if B == 0 or H == 0:
+        return x
+    Ls = torch.empty((B, H, m + 1, m), dtype=torch.float32, device=D.device)
+    with torch.cuda.device(D.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        COLS_WIDE_KERNEL.launch("trt_btridiag_cols_wide_launch", D.data_ptr(),
+                                U.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                Ls.data_ptr(), H, m, B, width, stream)
+    return x
+
+
 def solve_lanes_auto(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor):
     """The reference's routing: m <= 16 to the W-persisting sweep, larger m
-    to the column sweep; a CPU tensor takes the plain version for every m
-    (see module doc)."""
+    to the column sweep (its register route to m = 64, its shared-memory
+    route to m = 128; past that NotImplementedError); a CPU tensor takes
+    the plain version for every m (see module doc)."""
     _check(D, U, b)
     if D.device.type == "cpu":
         return solve_lanes_core(D, U, b)
     if D.shape[1] <= _W_MAX_M:
         return solve_lanes_w(D, U, b)
-    return solve_lanes_cols(D, U, b)
+    if D.shape[1] <= _COLS_REG_MAX_M:
+        return solve_lanes_cols(D, U, b)
+    return solve_lanes_cols_wide(D, U, b)
 
 
 def solve_lanes_factor(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor):

@@ -16,6 +16,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.utils import finite_difference_vector
 from ..costs.fields import interpolate_points
 
 __all__ = ["RobotAPI", "build_object_margins", "build_self_collision_pairs"]
@@ -69,7 +70,10 @@ def build_self_collision_pairs(
 
 
 class RobotAPI:
-    """Shared robot behaviour: states x = [q, qd, ...] on the last axis."""
+    """Shared robot behaviour: states x = [q, qd, qdd] on the last axis;
+    a missing derivative is a central finite difference along the horizon
+    axis (-2) at the robot's ``dt``."""
+    dt: float = 1.0
 
     @property
     def q_dim(self) -> int:
@@ -90,13 +94,19 @@ class RobotAPI:
         return self.q_min + u * (self.q_max - self.q_min)
 
     def get_velocity(self, x):
-        """Velocities of states x = [q, qd, ...] (x.shape[-1] >= 2 q_dim);
-        the finite-difference branch for position-only inputs is not
-        ported yet."""
-        if x.shape[-1] < 2 * self.q_dim:
-            raise NotImplementedError(
-                "finite-difference velocities are not ported yet")
-        return x[..., self.q_dim:2 * self.q_dim]
+        """Velocities of states x (..., H, D): qd where D >= 2 q_dim, else
+        the central finite difference of x along H (zero at both ends)."""
+        if x.shape[-1] >= 2 * self.q_dim:
+            return x[..., self.q_dim:2 * self.q_dim]
+        return finite_difference_vector(x, dt=self.dt, method="central")
+
+    def get_acceleration(self, x):
+        """Accelerations of states x (..., H, D): qdd where D >= 3 q_dim,
+        else the central finite difference of ``get_velocity(x)``."""
+        if x.shape[-1] >= 3 * self.q_dim:
+            return x[..., 2 * self.q_dim:3 * self.q_dim]
+        return finite_difference_vector(self.get_velocity(x), dt=self.dt,
+                                        method="central")
 
     def distance_q(self, q1, q2):
         return torch.linalg.vector_norm(q1 - q2, dim=-1)

@@ -31,6 +31,13 @@ self-collision (or net), object and workspace costs of ``costs/fields.py``
 per configuration, each relu-clamped where the task is built with
 ``clamp_sdf_cost``; it is plain PyTorch on every device, as it is plain XLA
 in the reference, and autograd differentiates it (MPOT's clearance step).
+The 'rbf' cost is the Gaussian surrogate of the object and self fields;
+the scene's extra (movable) objects have a cost of their own
+(``compute_collision_cost_extra_objects``), and are also in the object
+list of every other row.  The tail a planning script reaches last splits
+a batch of trajectories into colliding and free ones and scores it
+(``get_trajs_collision_and_free``, ``compute_fraction_free_trajs``,
+``compute_collision_intensity_trajs``, ``compute_success_free_trajs``).
 """
 from __future__ import annotations
 
@@ -41,7 +48,8 @@ import torch
 
 from ..core.device import disable_tf32
 from ..costs.fields import (object_collision_any, object_collision_cost,
-                            self_collision_any, self_collision_cost,
+                            object_collision_rbf, self_collision_any,
+                            self_collision_cost, self_collision_rbf,
                             workspace_bounds_any, workspace_bounds_cost)
 from ..trajectory.utils import interpolate_traj_via_points
 
@@ -187,6 +195,9 @@ class PlanningTask:
         if use_occupancy_map:
             env.build_occupancy_map(cell_size=cell_size)
         self.df_obj_list = env.get_df_obj_list()
+        self.df_extra_list = (
+            env.get_df_obj_list(return_extra_objects_only=True)
+            if env.obj_extra_list is not None else [])
         self.collision_residuals = CollisionResiduals(self)
 
     @property
@@ -227,13 +238,58 @@ class PlanningTask:
 
     def compute_collision_cost(self, x, field_type: str = "sdf"):
         """x (..., d_state) -> per-waypoint cost (...): 'sdf' (the cost
-        above) or 'occupancy' (the collision check as a float); the
-        reference's 'rbf' surrogate is not ported."""
+        above), 'rbf' (``compute_collision_cost_rbf`` at the cutoff
+        margin) or 'occupancy' (the collision check as a float)."""
         if field_type == "sdf":
             return self._compute_cost(self.robot.get_position(x))
+        if field_type == "rbf":
+            return self.compute_collision_cost_rbf(x)
         if field_type == "occupancy":
             return self.compute_collision(x).to(x.dtype)
         raise NotImplementedError(f"field_type {field_type}")
+
+    def _collision_points(self, q):
+        link_pos = self.robot.fk_map_collision(q)
+        return (self.robot.object_collision_points(link_pos),
+                self.robot.self_collision_points(link_pos))
+
+    def compute_collision_cost_rbf(self, x, margin: Optional[float] = None):
+        """'rbf' cost per waypoint (...): the object field's Gaussians of
+        the object SDFs plus, for a robot with self-collision points, the
+        full pairwise Gaussian matrix of those points; ``margin`` defaults
+        to the task's cutoff margin."""
+        m = self.obstacle_cutoff_margin if margin is None else margin
+        q = self.robot.get_position(x)
+        obj_pts, self_pts = self._collision_points(q)
+        cost = torch.zeros(q.shape[:-1], dtype=q.dtype, device=q.device)
+        if self.df_obj_list:
+            cost = cost + object_collision_rbf(self.df_obj_list, obj_pts, m)
+        if self_pts is not None:
+            cost = cost + self_collision_rbf(self_pts, m)
+        return cost
+
+    def compute_collision_cost_extra_objects(self, x):
+        """The 'sdf' object cost against the extra (movable) objects alone
+        (zero without any): x (..., d_state) -> (...)."""
+        if not self.df_extra_list:
+            return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        obj_pts, _ = self._collision_points(self.robot.get_position(x))
+        return object_collision_cost(
+            self.df_extra_list, obj_pts, self.robot.object_margins,
+            cutoff_margin=self.obstacle_cutoff_margin,
+            clamp=self.clamp_sdf_cost)
+
+    def get_collision_fields(self):
+        """The fields behind the task's cost terms: the self-collision
+        pairs (numpy (K, 2), None for a robot without), the object list
+        and the workspace bounds."""
+        pairs = self.robot.self_pair_idxs
+        return {"self": np.asarray(pairs) if len(pairs) else None,
+                "objects": self.df_obj_list,
+                "ws_bounds": (self.ws_min, self.ws_max)}
+
+    def get_collision_fields_extra_objects(self):
+        return self.df_extra_list
 
     # ------------------------------------------------------------------
     # collision checks
@@ -293,6 +349,14 @@ class PlanningTask:
     # ------------------------------------------------------------------
     # sampling
     # ------------------------------------------------------------------
+    def sample_q(self, generator: torch.Generator,
+                 without_collision: bool = True, **kwargs):
+        """``random_coll_free_q`` (-> (samples, n_valid)), or without
+        ``without_collision`` the robot's uniform ``random_q``."""
+        if without_collision:
+            return self.random_coll_free_q(generator, **kwargs)
+        return self.robot.random_q(generator, **kwargs)
+
     def random_coll_free_q(self, generator: torch.Generator,
                            n_samples: int = 1, max_samples: int = 1000):
         """Fixed-budget rejection sampling: draws ``max_samples``
@@ -322,9 +386,40 @@ class PlanningTask:
                      & (trajs_pos <= self.robot.q_max)).flatten(-2).all(-1)
         return waypoint_colls.any(-1) | ~in_limits, waypoint_colls
 
+    def get_trajs_collision_and_free(self, trajs, return_indices=False,
+                                     num_interpolation: int = 5):
+        """Split trajs (..., H, D), flattened to (N, H, D), into the
+        colliding and the free ones (``trajs_collision_masks``): ->
+        (trajs_coll, trajs_free), each None where empty; with
+        ``return_indices`` (trajs_coll, coll_idxs, trajs_free, free_idxs,
+        waypoint_colls), the indices int64 tensors into the flattened
+        batch."""
+        coll_mask, waypoint_colls = self.trajs_collision_masks(
+            trajs, num_interpolation)
+        coll_mask = coll_mask.reshape(-1)
+        flat = trajs.reshape((-1,) + tuple(trajs.shape[-2:]))
+        coll_idxs = torch.nonzero(coll_mask).flatten()
+        free_idxs = torch.nonzero(~coll_mask).flatten()
+        trajs_coll = flat[coll_idxs] if len(coll_idxs) else None
+        trajs_free = flat[free_idxs] if len(free_idxs) else None
+        if return_indices:
+            return (trajs_coll, coll_idxs, trajs_free, free_idxs,
+                    waypoint_colls)
+        return trajs_coll, trajs_free
+
     def compute_fraction_free_trajs(self, trajs, **kwargs):
         coll_mask, _ = self.trajs_collision_masks(trajs, **kwargs)
         return float((~coll_mask).float().mean())
+
+    def compute_collision_intensity_trajs(self, trajs, **kwargs):
+        """The share of interpolated waypoints in collision."""
+        _, waypoint_colls = self.trajs_collision_masks(trajs, **kwargs)
+        return float(waypoint_colls.float().mean())
+
+    def compute_success_free_trajs(self, trajs, **kwargs):
+        """1 if any trajectory is free, else 0."""
+        coll_mask, _ = self.trajs_collision_masks(trajs, **kwargs)
+        return int((~coll_mask).any())
 
     def distance_q(self, q1, q2):
         return self.robot.distance_q(q1, q2)
