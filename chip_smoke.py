@@ -431,11 +431,13 @@ final line):
              (eight threads a lane).
 50. cols_wide - K4's shared-memory route (csrc/btridiag_cols_wide.cu) on
              phase 49's first GN system vs plain, held to float64, timed
-             over a CUDA graph beside its bound and the dense solve; on
-             random SPD systems at m = 96, 112 and 128 (H = 32, B = 64)
-             vs plain, held to float64, timed; a lane's bits the same in
-             every wider width; ptxas' report of its four instantiations,
-             none with a stack frame or a spill; at m = 40
+             over a CUDA graph beside its bound and the dense solve, and
+             timed on its first 64 and 132 lanes (one lane an SM: the
+             chain alone) and tiled to 1024 lanes (four waves); on random
+             SPD systems at m = 96, 112 and 128 (H = 32, B = 64) vs plain,
+             held to float64, timed; a lane's bits the same in every wider
+             width; ptxas' report of its four instantiations, none with a
+             stack frame or a spill; at m = 40
              solve_lanes_auto still takes the register route (one
              btridiag_cols launch, torch.equal to solve_lanes_cols), and
              the new route in width 80 is held to float64 beside it and
@@ -6537,22 +6539,32 @@ def phase_cols_wide(D_g, U_g, b_g, launches):
     """K4's shared-memory route (csrc/btridiag_cols_wide.cu, m 65..128):
     on phase mr_five's first GN system (32, 70, 70, 256) vs plain, held
     to float64 (hold_solve's GN rule), timed over a CUDA graph beside its
-    bound and the dense solve (cols_entry); on random SPD systems at m =
-    96, 112 and 128 (H = 32, B = 64) vs plain, held to float64 (the
-    random rule), timed, each beside its bound and the dense solve; a
-    lane's x the same bits in every wider width; ptxas' registers of its
-    four instantiations, none with a stack frame or a spill; at m = 40
-    (config 4's random system) solve_lanes_auto takes the register route
-    (exactly one btridiag_cols launch, torch.equal to solve_lanes_cols),
-    and the new route in width 80 (another order of the same solve) is
-    held to float64 beside it and timed; m = 129 is refused in K4's words
-    -> the kernels-line numbers of the GN system."""
+    bound and the dense solve (cols_entry), and at B = 64 and 132 (its
+    first lanes: one lane an SM, the lane's chain alone) and 1024 (tiled:
+    waves) beside 256; on random SPD systems at m = 96, 112 and 128 (H =
+    32, B = 64) vs plain, held to float64 (the random rule), timed, each
+    beside its bound and the dense solve; a lane's x the same bits in
+    every wider width; ptxas' registers of its four instantiations, none
+    with a stack frame or a spill; at m = 40 (config 4's random system)
+    solve_lanes_auto takes the register route (exactly one btridiag_cols
+    launch, torch.equal to solve_lanes_cols), and the new route in width
+    80 (another order of the same solve) is held to float64 beside it and
+    timed; m = 129 is refused in K4's words -> the kernels-line numbers
+    of the GN system."""
     import torch
     from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
     from torch_robotics_tpu_torch.ops.cuda_build import build_all
     from torch_robotics_tpu_torch.solve.btridiag_lanes import (
         solve_lanes_core)
     gn = cols_entry("mr_five_gn_system", D_g, U_g, b_g, launches)
+    by_batch = {MR_B: gn["ms"]}
+    for n in CW_BATCHES:
+        idx = torch.arange(n, device="cuda") % MR_B
+        D_n, b_n = D_g[..., idx].contiguous(), b_g[..., idx].contiguous()
+        by_batch[n] = device_ms(
+            lambda: bk.solve_lanes_cols_wide(D_n, U_g, b_n), iters=5)
+        del D_n, b_n
+        torch.cuda.empty_cache()
     cases = {}
     for i, m in enumerate(CW_M):
         D, U, b = random_wide_system(MR_H, m, CW_B, seed=SEED + 70 + i)
@@ -6608,8 +6620,8 @@ def phase_cols_wide(D_g, U_g, b_g, launches):
         shape=list(D_g.shape), held=gn["held"], kernel_ms=gn["ms"],
         plain_ms=gn["plain_ms"], dense_solve_ms=gn["library_ms"],
         launch=gn["launch"], launches=launches, bound_ms=b_ms,
-        bound_by=b_by), random=cases, m40=m40, refusal_m129=words,
-         ptxas=ptxas)
+        bound_by=b_by, kernel_ms_by_batch=by_batch), random=cases, m40=m40,
+         refusal_m129=words, ptxas=ptxas)
     return gn
 
 
@@ -6624,6 +6636,9 @@ MR_FIVE_F64_B = 64
 # K4's shared-memory route on random SPD systems: its widths past 80, at
 # this batch (phase mr_five's GN system takes width 80)
 CW_M, CW_B = (96, 112, 128), 64
+# phase cols_wide times the route on phase mr_five's GN system at these
+# batches beside its own 256: one lane an SM, and four waves
+CW_BATCHES = (64, 132, 1024)
 # the harness on the main path's plans: a lane whose frozen flag or
 # contacts differ between the card and the float64 run (a configuration
 # on the check's margin, decided apart by two roundings) is counted, at

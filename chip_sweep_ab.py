@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     git archive <commit> | tar -x -C chip_checkout/other   # a git-ignored dir
     python3 chip_sweep_ab.py --other chip_checkout/other [--out FILE] \
-        [--kernels all|sweep|riccati|cols|terms|net|cost|solvers|sdf]
+        [--kernels all|sweep|riccati|cols|cols_wide|terms|net|cost|solvers|sdf]
 
 The other checkout's ``csrc/btridiag.cu`` (and ``btridiag_sweep.cu`` where
 it has one), ``csrc/riccati.cu`` and ``csrc/btridiag_cols.cu`` are built
@@ -69,6 +69,22 @@ K3's tails (reported).
   one and at two lanes a block, and at B = 8, 132 and 256;
 - the multi-robot MPC (phase ``mr_mpc``, 30 steps): ms per step by CUDA
   events, and once per side a profile (device ms per step, busy share).
+
+``--kernels cols_wide`` (K4's shared-memory route, ``btridiag_cols_wide.cu``,
+five Pandas' path): the other tree's source stands in for this tree's
+under this tree's wrapper (``cols_wide_swap``; an older kernel's scratch,
+(B, H, m + 1, m), fits in the one this tree's wrapper gives):
+
+- ptxas's report of both sides' instantiations;
+- the route on phase ``mr_five``'s first GN system at (32, 70, 70, 256)
+  and on random SPD systems at (32, m, m, 64), m = 96, 112 and 128
+  (``chip_smoke.random_wide_system``): each side's x held to float64 as
+  ``chip_smoke.py`` holds it (the GN rule, the random rule), the sides'
+  largest difference, the device time over a CUDA graph of calls in
+  turns, the bound and the speedup;
+- five Pandas' MPC step (30 steps, ``chip_smoke.mr_rollout``) in turns by
+  CUDA events, and once per side a profile (device ms per step, busy
+  share).
 
 ``--kernels terms`` (the fused GN terms): the other tree's ``terms.cu``
 (K1), ``mr_terms.cu`` (K5; an older tree's fed its own packing of the
@@ -181,8 +197,8 @@ takes no warps a block and is given the rest):
   65,536 also on one copy (read from L2).
 
 ``--kernels all`` (the default) runs the sweeps and the Riccati sweep;
-``cols``, ``terms``, ``net``, ``cost``, ``solvers`` and ``sdf`` run
-alone.  Prints one JSON line per measurement, then the card's name and
+``cols``, ``cols_wide``, ``terms``, ``net``, ``cost``, ``solvers`` and
+``sdf`` run alone.  Prints one JSON line per measurement, then the card's name and
 power limit; ``--out`` writes all of it as one JSON object.
 """
 from __future__ import annotations
@@ -290,6 +306,16 @@ def other_cols_kernel(csrc: Path):
     return OtherKernel(str(csrc / "btridiag_cols.cu"), {
         "trt_btridiag_cols_launch":
             [P] * 5 + [I] * (4 if takes_lanes else 3) + [P]}), takes_lanes
+
+
+def other_cols_wide_kernel(csrc: Path):
+    """The other checkout's btridiag_cols_wide.cu (its launch function
+    takes this tree's arguments)."""
+    import ctypes
+    OtherKernel = other_kernel_class()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return OtherKernel(str(csrc / "btridiag_cols_wide.cu"), {
+        "trt_btridiag_cols_wide_launch": [P] * 5 + [I] * 4 + [P]})
 
 
 def other_riccati_kernel(csrc: Path):
@@ -533,6 +559,11 @@ def cols_swap(other, takes_lanes):
     return Swap(bk, ("COLS_KERNEL",), route)
 
 
+def cols_wide_swap(other):
+    from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
+    return Swap(bk, ("COLS_WIDE_KERNEL",), lambda name, args: (other, args))
+
+
 def riccati_swap(other, takes_fw, roll_lanes):
     import torch
     from torch_robotics_tpu_torch.ops import riccati_kernel as rk
@@ -636,8 +667,8 @@ def main() -> None:
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--kernels",
-                    choices=("all", "sweep", "riccati", "cols", "terms",
-                             "net", "cost", "solvers", "sdf"),
+                    choices=("all", "sweep", "riccati", "cols", "cols_wide",
+                             "terms", "net", "cost", "solvers", "sdf"),
                     default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -648,6 +679,7 @@ def main() -> None:
     do_sweep = args.kernels in ("all", "sweep")
     do_riccati = args.kernels in ("all", "riccati")
     do_cols = args.kernels == "cols"
+    do_cols_wide = args.kernels == "cols_wide"
     do_terms = args.kernels == "terms"
     do_net = args.kernels == "net"
     do_cost = args.kernels == "cost"
@@ -657,6 +689,7 @@ def main() -> None:
     net_k = other_net_kernel(csrc) if do_net else None
     ric_k = other_riccati_kernel(csrc) if do_riccati else None
     cols_k = other_cols_kernel(csrc) if do_cols else None
+    wide_k = other_cols_wide_kernel(csrc) if do_cols_wide else None
     terms_k = other_terms_kernels(csrc) if do_terms else None
     solv_k = ((other_k3(csrc), other_cr_kernel(csrc)),
               other_sweep_kernels(csrc)) if do_solvers else None
@@ -669,6 +702,7 @@ def main() -> None:
     build_all([*((sweep_k[0], sweep_k[1][0]) if do_sweep else ()),
                *(ric_k[:1] if do_riccati else ()),
                *(cols_k[:1] if do_cols else ()),
+               *((wide_k,) if do_cols_wide else ()),
                *(terms_k[:3] if do_terms else ()),
                *(net_k[:1] if do_net else ()),
                *((cost_k[0], *cost_k[1]["other"], *cost_k[1]["this"])
@@ -690,6 +724,8 @@ def main() -> None:
         ab_sweeps(sweep_swap(*sweep_k), emit)
     if do_cols:
         ab_cols(cols_swap(*cols_k), emit)
+    if do_cols_wide:
+        ab_cols_wide(cols_wide_swap(wide_k), wide_k, emit)
     if do_terms:
         ab_terms(terms_k, emit)
     if do_net:
@@ -1176,6 +1212,84 @@ def ab_cols(swap, emit):
                           profiled_device_ms_per_step=dev_ms,
                           top_device_ms_per_step=top)
     emit("mr_mpc_step", B=cs.MR_B, H=cs.MR_H, steps=cs.MR_STEPS,
+         other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
+         turns_ms=turns, solves_per_s={"other": cs.MR_B / (other_ms / 1e3),
+                                       "this": cs.MR_B / (this_ms / 1e3)},
+         profile=prof)
+
+
+def ab_cols_wide(swap, other, emit):
+    """K4's shared-memory route on five Pandas' first GN system and on
+    random systems at m = 96, 112 and 128 (each side held to float64, the
+    sides' difference, turns over a CUDA graph, the bound), both sides'
+    ptxas, five Pandas' MPC step in turns with a profile per side."""
+    import torch
+    from torch_robotics_tpu_torch.ops import btridiag_kernel as bk
+    from torch_robotics_tpu_torch.solve import (GPMP2Params,
+                                                straight_line_trajs)
+    from torch_robotics_tpu_torch.solve.btridiag_lanes import (
+        solve_lanes_core)
+    from torch_robotics_tpu_torch.solve.gpmp2 import _lanes_gn_system
+
+    emit("cols_wide_ptxas",
+         this=ptxas_report(bk.COLS_WIDE_KERNEL, "btridiag_cols_wide_kernel"),
+         other=ptxas_report(other, "btridiag_cols_wide_kernel"))
+    task, start, goal, _ = cs.mr_problem(
+        "cuda", task=cs.mr_task("cuda", *cs.MR_CELLS["mr_five"]))
+    b_l, D_l, U_l, _ = _lanes_gn_system(
+        task.collision_residuals.obstacle_terms_lanes,
+        straight_line_trajs(start, goal, cs.MR_H), start, goal,
+        GPMP2Params(**cs.MR_GP))
+    cases = [("mr_five_gn", lambda: (D_l, U_l, b_l), False)] + [
+        ("random_m%d" % m, lambda m=m, i=i: cs.random_wide_system(
+            cs.MR_H, m, cs.CW_B, seed=cs.SEED + 70 + i), True)
+        for i, m in enumerate(cs.CW_M)]
+    for name, make, random in cases:
+        D, U, b = make()
+        H, m, _, B = D.shape
+        x_p = solve_lanes_core(D, U, b)
+        x_64 = solve_lanes_core(D.double(), U.double(), b.double())
+        xs, errs = {}, {}
+        for side in ("other", "this"):
+            with (swap if side == "other" else _null()):
+                xs[side] = bk.solve_lanes_cols_wide(D, U, b)
+            errs[side] = cs.hold_solve("%s_%s" % (name, side), xs[side],
+                                       x_p, x_64, random=random)
+        other_ms, this_ms, turns = in_turns(
+            swap, lambda: cs.device_ms(
+                lambda: bk.solve_lanes_cols_wide(D, U, b), iters=5))
+        emit(name, shape=list(D.shape),
+             bit_for_bit=bool(torch.equal(xs["other"], xs["this"])),
+             max_abs_diff=float((xs["other"] - xs["this"]).abs().max()),
+             other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
+             turns_ms=turns, launch=bk.cols_launch_config(m, B),
+             bound_ms=cs.bound_ms(*cs.cols_solve_work(H, m, B)),
+             vs_float64=errs)
+        del D, U, b, x_p, x_64, xs
+        torch.cuda.empty_cache()
+
+    def events_ms():
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        ev0.record()
+        cs.mr_rollout(task, start, goal, cs.MR_STEPS)
+        ev1.record()
+        torch.cuda.synchronize()
+        return ev0.elapsed_time(ev1) / cs.MR_STEPS
+    cs.mr_rollout(task, start, goal, 1)
+    with swap:
+        cs.mr_rollout(task, start, goal, 1)
+    other_ms, this_ms, turns = in_turns(swap, events_ms)
+    prof = {}
+    for side in ("other", "this"):
+        with (swap if side == "other" else _null()):
+            busy, dev_ms, top = cs.profile_device(
+                lambda: cs.mr_rollout(task, start, goal, 2), 2)
+        prof[side] = dict(profiled_device_busy_share=busy,
+                          profiled_device_ms_per_step=dev_ms,
+                          top_device_ms_per_step=top)
+    emit("mr_five_mpc_step", B=cs.MR_B, H=cs.MR_H, steps=cs.MR_STEPS,
          other_ms=other_ms, this_ms=this_ms, speedup=other_ms / this_ms,
          turns_ms=turns, solves_per_s={"other": cs.MR_B / (other_ms / 1e3),
                                        "this": cs.MR_B / (this_ms / 1e3)},

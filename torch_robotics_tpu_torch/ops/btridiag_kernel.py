@@ -10,8 +10,10 @@ Counterparts of torch_robotics_tpu/ops/pallas_btridiag.py:
   launched as ``cols_launch_config`` says.
 - ``solve_lanes_cols_wide``: the same solve for 64 < m <= 128, past what
   the column sweep's registers hold; CUDA source
-  ``csrc/btridiag_cols_wide.cu`` (a block a lane, the bordered matrix in
-  shared memory), padded widths 80, 96, 112, 128, launched as
+  ``csrc/btridiag_cols_wide.cu`` (a block of 256 threads a lane, 512
+  where an SM holds one lane, the bordered matrix in shared memory,
+  panels of 16 factored inside a warp, the trailing update on the FP64
+  tensor cores), padded widths 80, 96, 112, 128, launched as
   ``cols_launch_config`` says.
 - ``solve_lanes_auto``: the reference's routing (``solve_lanes_auto`` and
   the m > 32 branch of ``gpmp2._gpmp2_step_lanes_impl``): m <= 16 to the
@@ -100,7 +102,6 @@ _COLS_MAX_M = 128                     # btridiag_cols_wide.cu kMaxM
 _COLS_REG_MAX_M = 64                        # btridiag_cols.cu kMaxM
 _COLS_WIDTHS = (24, 32, 40, 48, 64)         # btridiag_cols.cu instantiations
 _COLS_WIDE_WIDTHS = (80, 96, 112, 128)      # btridiag_cols_wide.cu's
-_COLS_WIDE_THREADS = 512                    # btridiag_cols_wide.cu kThreads
 _COLS_WIDE_PANEL = 16                       # btridiag_cols_wide.cu kPanel
 _N_SM = 132                                 # H100 SXM
 _W_MAX_M = 16     # the reference's _SCALAR_KERNEL_MAX_M: above it, columns
@@ -189,21 +190,28 @@ def cols_launch_config(m: int, B: int) -> dict:
     in bytes (``ColsShape::kLaneFloats`` per lane) and the grid.  For 64 <
     m <= 128 its shared-memory route (``route`` "shared",
     ``btridiag_cols_wide.cu``): the padded width (the least of
-    ``_COLS_WIDE_WIDTHS`` >= m), 512 threads and one lane a block, the
-    dynamic shared memory (``WideShape::kFloats``: the packed bordered
-    triangle at the width, where the backward pass's staging fits too,
-    rounded to float4, then a panel's 16 values a row and 4 doubles) and
-    the grid.  NotImplementedError past m = 128."""
+    ``_COLS_WIDE_WIDTHS`` >= m), one lane a block, the blocks an SM
+    (``blocks_per_sm``: as many as the shared memory holds, at most two,
+    so that B = 256 runs in one wave at widths 80 and 96) and the threads
+    a lane the source fixes by the width (``WideShape::kThreads``: 256
+    where two lanes share an SM, 512 where one lane has it alone, widths
+    112 and 128); the dynamic shared memory (``WideShape::kBytes``: the
+    forward pass's packed bordered triangle at the width, the panel's
+    rows below it in double and its diagonal block, or the backward
+    pass's buffers, the larger), the scratch floats a lane and step
+    (``step_floats``) and the grid.  NotImplementedError past m = 128."""
     if not 1 <= m <= _COLS_MAX_M:
         raise NotImplementedError(
             "the CUDA column sweep takes 1 <= m <= %d, got %d"
             % (_COLS_MAX_M, m))
     if m > _COLS_REG_MAX_M:
         w = next(w for w in _COLS_WIDE_WIDTHS if w >= m)
-        n2 = 2 * w + 1
-        floats = -(-n2 * (n2 + 1) // 8) * 4 + _COLS_WIDE_PANEL * n2 + 8
-        return dict(route="shared", width=w, threads=_COLS_WIDE_THREADS,
-                    lanes_per_block=1, smem_bytes=4 * floats, grid=B)
+        nbytes = _cols_wide_smem(w)
+        per_sm = min(_SM_SMEM // (nbytes + _BLOCK_SMEM_RESERVED), 2)
+        return dict(route="shared", width=w,
+                    threads=256 if per_sm > 1 else 512, lanes_per_block=1,
+                    blocks_per_sm=per_sm, smem_bytes=nbytes,
+                    step_floats=cols_wide_step_floats(m), grid=B)
     w = next(w for w in _COLS_WIDTHS if w >= m)
     n2 = 2 * w + 1
     group = -(-n2 // 32) * 32
@@ -215,6 +223,33 @@ def cols_launch_config(m: int, B: int) -> dict:
                 lanes_per_block=lanes, threads=lanes * group,
                 barrier_ids=tuple(range(1, lanes + 1)),
                 smem_bytes=4 * lane_floats * lanes, grid=-(-B // lanes))
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def cols_wide_step_floats(m: int) -> int:
+    """Floats of ``btridiag_cols_wide.cu``'s scratch a lane and step
+    (``step_floats``): L_k packed by columns, W_k's m rows at a stride of
+    round4(m), y_k."""
+    return _round4(m * (m + 1) // 2) + (m + 1) * _round4(m)
+
+
+def _cols_wide_smem(w: int) -> int:
+    """``WideShape<w>::kBytes``: the forward pass's packed triangle of the
+    2 w + 1 bordered matrix (rounded to 4 floats), the panel's rows below
+    it (double, 16 a row, 2 w + 1 - 16 rows rounded to 8) and the
+    diagonal block (16 x 16 double); or the backward pass's two packed
+    L_k, W_k and y_k at a stride of round4(w), x and r in double: the
+    larger."""
+    n2 = 2 * w + 1
+    panel = _COLS_WIDE_PANEL
+    rows = -(-(n2 - panel) // 8) * 8
+    fwd = (_round4(n2 * (n2 + 1) // 2) + 2 * panel * rows
+           + 2 * panel * panel)
+    bwd = 2 * _round4(w * (w + 1) // 2) + (w + 1) * _round4(w) + 4 * w
+    return 4 * max(fwd, bwd)
 
 
 def cr_launch_config(m: int, B: int, H: int, lanes=None,
@@ -381,7 +416,8 @@ def _launch_cols_wide(D, U, b, width: int):
     x = torch.empty((H, m, B), dtype=torch.float32, device=D.device)
     if B == 0 or H == 0:
         return x
-    Ls = torch.empty((B, H, m + 1, m), dtype=torch.float32, device=D.device)
+    Ls = torch.empty((B, H, cols_wide_step_floats(m)), dtype=torch.float32,
+                     device=D.device)
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream().cuda_stream
         COLS_WIDE_KERNEL.launch("trt_btridiag_cols_wide_launch", D.data_ptr(),
