@@ -15,8 +15,10 @@ hybrid leg, CHOMP and config 5's sharded MPC (phases 37-39), the MPOT
 joints and the 14-joint dual-arm TIAGo's MPC and sGPMP (phases 42-45),
 the MultiRobot cells past K5's first caps (phases 46-49, five Pandas'
 MPC through the column sweep's shared-memory route), that route alone
-(phase 50), the PD execution harness (phase 51) and the examples that
-drive the solvers (phase 52).
+(phase 50), the PD execution harness (phase 51), the examples that
+drive the solvers (phase 52), CHOMP's autodiff branch (phase 53), the
+SE(3) / manifold layer (phase 54) and serialization with the profiler's
+trace (phase 55).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -454,6 +456,34 @@ final line):
              multi_robot_mpc (B = 16, 150 steps: exactly 300 K5 and 300
              K4) and planning_point_mass (the scene's preset); every
              number finite; wall seconds and launches of each.
+53. chomp_autodiff - CHOMP through autograd of the residuals: the planar
+             2-link arm (no lanes hooks) at B = 1024, H = 32 with the
+             planar GPMP2 test's dt and sigmas, 60 iterations at step
+             and clip 1.0: exactly 60 K2 launches and nothing else,
+             finite, the trace falls, its first 64 lanes held to a
+             float64 CPU run (hold_to_f64) and a near-zero-gradient
+             control missing that hold by 4x; then phase 38's Panda
+             problem (B = 512, H = 64, 50 iterations) through the hooks
+             (50 K1, 50 K8, 50 K2) and through the task's plain residuals
+             (50 K2 alone), each held to phase 38's float64 CPU run by its
+             own float32 CPU run; ms a solve, launches, busy share.
+54. se3_manifold - ee_se3_cost of the Panda's fk_all_links at 65,536
+             configurations; q_log_map / q_exp_map / q_parallel_transport
+             between consecutive points, compute_traj_velocity and
+             smooth_traj of a (1024, 64, 7) S^3 x R^3 batch; its Karcher
+             mean: each off a CPU float64 run by at most twice the CPU
+             float32 run's error + 1e-6 of max|ref|; 65,536 samples of a
+             Gaussian at the mean from a CUDA generator, finite, on the
+             card, on S^3 to 1e-6; ms of each.
+55. serialize - (run right after phase 1, before any other profiler
+             session) EnvSpheres3D precomputed at cell 0.05 and the Panda's
+             KinematicModel saved to .npz and loaded onto the card; K1's
+             grid branch on a task built from the loaded pair, one launch
+             at N = 262,144, equal bit for bit to the original task's,
+             under utils.profiling.trace_to with an annotate span that
+             the written trace must hold beside a terms_kernel event
+             (the trace taken again, up to 3 times, where a session
+             missed the kernel); the files' bytes, save s and load ms.
 
 Every phase line carries ``script_s``, its seconds since the script
 started.  Then one JSON line with every kernel's numbers (launches from
@@ -733,6 +763,32 @@ P2_GP = dict(n_support_points=32, dt=0.04, opt_iters=60, sigma_coll=1e-3,
              step_size=0.5, num_samples=P2_B, sigma_gp_init=0.1)
 P2_START = (-np.pi / 2, 0.0, 0.0, 0.0)
 P2_GOAL = (np.pi / 2 + 0.8, -0.4, 0.0, 0.0)
+# CHOMP's autodiff branch: the planar 2-link arm (no lanes hooks) at phase
+# planar2link's B and H with the planar GPMP2 test's dt and sigmas
+# (tests/test_planar2link_task.py:47-52), CA_ITERS iterations at step and
+# clip CA_STEP (at CHOMPParams' 0.05 theta moves ~4e-5 in 50 iterations
+# and the batch-summed float32 trace does not change), its first P2_F64_B
+# lanes held to float64, a near-zero-gradient control (sigma_coll
+# CH_CONTROL_SIGMA) missing the hold's limits by CH_CONTROL_MARGIN; then
+# phase chomp's Panda problem through the hooks and through the task's
+# plain residuals, each held to phase chomp's float64 CPU run
+CA_ITERS, CA_STEP = 60, 1.0
+CA_P2 = dict(n_support_points=32, dt=0.04, opt_iters=CA_ITERS,
+             sigma_coll=1e-3, sigma_start=1e-4, sigma_goal=1e-4,
+             sigma_gp=2e-2, step_size=CA_STEP, grad_clip=CA_STEP)
+# the SE(3) / manifold layer: ee_se3_cost of the Panda's FK at SE_N
+# configurations, the quaternion maps and the trajectory operations on an
+# S^3 x R^3 batch of SE_TRAJ trajectories (dt SE_DT), the Karcher mean of
+# its points and SE_N samples of a Gaussian at it; each card result held to
+# a CPU float64 run: off it by at most twice the CPU float32 run's error
+# plus SE_FLOOR (relative to max|ref|); samples on S^3 to SE_UNIT
+SE_N, SE_TRAJ, SE_DT, SE_FLOOR, SE_UNIT = 65536, (1024, 64), 0.05, 1e-6, 1e-6
+# serialization: EnvSpheres3D precomputed at cell SER_CELL and the Panda's
+# model saved and loaded onto the card; K1's grid branch on the loaded task
+# at the grid path's N lanes, bit for bit against the original task's; it
+# runs right after the build, before any other profiler session, and takes
+# its trace up to SER_TRACES times until the trace holds K1
+SER_CELL, SER_N, SER_TRACES = 0.05, GRID_B * GRID_H, 3
 # config 1's FK over the robot zoo (examples/forward_kinematics.py's
 # robots past the Panda and the bare UR10, and the UR10's suction
 # gripper): (constructor, its keywords, the golden of tests/golden, the
@@ -5302,10 +5358,21 @@ def phase_hybrid():
     return k2
 
 
+def plain_residuals(task):
+    """The task's residuals without its lanes hooks: CHOMP then takes its
+    autodiff branch."""
+    def plain(q):
+        return task.collision_residuals(q)
+    plain.supports_batch = True
+    return plain
+
+
 def chomp_cpu_child(conn, theta0, start, goal):
     """Process body: CHOMP on the CPU from numpy theta0 (n, H, 14), start
-    and goal (n, 14), in float32 and float64; the two trajectories and the
-    wall clock (time.time()) at their end go back through ``conn``."""
+    and goal (n, 14), in float32 and float64 through the task's hooks and
+    in float32 through its plain residuals (the autodiff branch, phase
+    chomp_autodiff's); the three trajectories and the wall clock
+    (time.time()) at their end go back through ``conn``."""
     import torch
     from torch_robotics_tpu_torch.envs import EnvSpheres3D
     from torch_robotics_tpu_torch.robots import RobotPanda
@@ -5317,9 +5384,10 @@ def chomp_cpu_child(conn, theta0, start, goal):
                         obstacle_cutoff_margin=0.03)
     params = CHOMPParams(n_support_points=H, opt_iters=CH_ITERS)
     th, s, g = (torch.from_numpy(a) for a in (theta0, start, goal))
-    out = [chomp_solve(task.collision_residuals, th.to(dt), s.to(dt),
-                       g.to(dt), params).trajs.numpy()
-           for dt in (torch.float32, torch.float64)]
+    out = [chomp_solve(fn, th.to(dt), s.to(dt), g.to(dt), params).trajs.numpy()
+           for fn, dt in ((task.collision_residuals, torch.float32),
+                          (task.collision_residuals, torch.float64),
+                          (plain_residuals(task), torch.float32))]
     conn.send((out, time.time()))
     conn.close()
 
@@ -5333,7 +5401,8 @@ def chomp_theta0(start, goal):
 
 def start_chomp_cpu():
     """Start phase chomp's CPU runs (its first CH_F64_B problems, float32
-    and float64, ~15-30 s of two threads) in a background process while
+    and float64, and the autodiff branch's float32 run of phase
+    chomp_autodiff, ~25-45 s of two threads) in a background process while
     nvcc builds the kernels (main() waits for their result before the
     first timed phase): spawned and daemonic, so it ends with this script
     -> (process, connection, theta0 of those lanes)."""
@@ -5418,7 +5487,7 @@ def phase_chomp(cpu_job):
     check(torch.equal(theta0_job, theta0[:n].cpu()),
           "chomp: the CPU runs start elsewhere")
     try:
-        (th_h, th_64), job_end = conn.recv()
+        (th_h, th_64, th_ad), job_end = conn.recv()
     except EOFError:
         fail("chomp: the CPU runs' process ended with code %s and no result"
              % proc.exitcode)
@@ -5426,6 +5495,8 @@ def phase_chomp(cpu_job):
                                                         - job_end)
     proc.join()
     th_h, th_64 = torch.from_numpy(th_h), torch.from_numpy(th_64)
+    cpu_runs = {"hook": th_h, "autodiff": torch.from_numpy(th_ad),
+                "f64": th_64}
     gaps = theta_gaps(res.trajs[:n], th_h, th_64)
     hold_to_f64("chomp", gaps)
     # the hold can fail a wrong gradient: the control misses its limits,
@@ -5464,7 +5535,7 @@ def phase_chomp(cpu_job):
          profiled_device_busy_share=busy,
          profiled_device_ms_per_iteration=dev_ms,
          top_device_ms_per_iteration=top)
-    return k1, k8, k2
+    return k1, k8, k2, cpu_runs
 
 
 def pod_problem(device, n_dev: int):
@@ -6723,6 +6794,337 @@ def phase_examples():
               "expected %s" % (name, out[name]["launches"], want))
     emit("examples", **out)
 
+# ----------------------------------------------------------------------
+# CHOMP's autodiff branch, the SE(3) / manifold layer and serialization
+# ----------------------------------------------------------------------
+def phase_chomp_autodiff(ch_cpu):
+    """CHOMP through autograd of the residuals: the planar 2-link arm at
+    B = 1024, H = 32 (exactly CA_ITERS K2 launches a solve at m = 4, the
+    trace falls, held to float64), then phase chomp's Panda problem through
+    the hooks (K1, K8, K2) and through the plain residuals (K2 alone), each
+    held to phase chomp's float64 CPU run by its own float32 CPU run
+    (``ch_cpu``: phase chomp's "hook", "autodiff" and "f64" trajectories of
+    the first CH_F64_B problems)."""
+    import dataclasses
+
+    import torch
+    from torch_robotics_tpu_torch.solve import CHOMPParams, chomp_solve
+    out = {}
+    # the planar arm: no lanes hooks, so autodiff through its residuals
+    task, _, start, goal, theta0 = p2_problem("cuda")
+    res_fn = task.collision_residuals
+    check(res_fn.obstacle_terms_lanes is None
+          and res_fn.collision_cost_lanes is None,
+          "chomp_autodiff: the planar arm's task has lanes hooks")
+    params = CHOMPParams(**CA_P2)
+    chomp_solve(res_fn, theta0, start, goal,
+                dataclasses.replace(params, opt_iters=2))     # warm-up
+    res, launches, ms = counted(
+        lambda: chomp_solve(res_fn, theta0, start, goal, params))
+    check(launches == {"btridiag_w": CA_ITERS},
+          "chomp_autodiff planar2link launches %s, expected %d of "
+          "btridiag_w only" % (launches, CA_ITERS))
+    check(all(bool(torch.isfinite(t).all()) for t in res),
+          "chomp_autodiff planar2link: non-finite results")
+    first, last = float(res.cost_trace[0]), float(res.cost_trace[-1])
+    check(last < first, "chomp_autodiff planar2link: the trace did not "
+          "fall (%.9g -> %.9g)" % (first, last))
+    busy, dev_ms, top = profile_device(lambda: chomp_solve(
+        res_fn, theta0, start, goal,
+        dataclasses.replace(params, opt_iters=5)), 5)
+    n = P2_F64_B
+    task_h, _, s_h, g_h, _ = p2_problem("cpu", n)
+    th_h = theta0[:n].cpu()
+    r_h = chomp_solve(task_h.collision_residuals, th_h, s_h, g_h,
+                      params).trajs
+    r_64 = chomp_solve(task_h.collision_residuals, th_h.double(),
+                       s_h.double(), g_h.double(), params).trajs
+    gaps = theta_gaps(res.trajs[:n], r_h, r_64)
+    hold_to_f64("chomp_autodiff planar2link", gaps)
+    limits = f64_limits(gaps)
+    ctl = chomp_solve(res_fn, theta0[:n], start, goal, dataclasses.replace(
+        params, sigma_coll=CH_CONTROL_SIGMA)).trajs
+    ctl_gaps = theta_gaps(ctl, r_h, r_64)
+    for stat, limit in limits.items():
+        check(ctl_gaps["card" + stat] >= CH_CONTROL_MARGIN * limit,
+              "chomp_autodiff planar2link: the zero-gradient control is "
+              "off float64 by %.3g (theta%s), within %g x the hold's limit "
+              "%.3g" % (ctl_gaps["card" + stat], stat, CH_CONTROL_MARGIN,
+                        limit))
+    out["planar2link"] = dict(
+        B=P2_B, H=CA_P2["n_support_points"], m=4, iterations=CA_ITERS,
+        params=dataclasses.asdict(params), launches=launches, solve_ms=ms,
+        ms_per_iteration=ms / CA_ITERS, cost_trace_first_last=[first, last],
+        fraction_free=task.compute_fraction_free_trajs(res.trajs),
+        vs_float64=dict(B=n, **gaps), vs_float64_limits=limits,
+        zero_gradient_control_vs_float64={
+            k: ctl_gaps["card" + k] for k in limits},
+        profiled_device_busy_share=busy,
+        profiled_device_ms_per_iteration=dev_ms,
+        top_device_ms_per_iteration=top)
+    del task, res, ctl
+
+    # the Panda: the hooks and the plain residuals on phase chomp's inputs
+    task, start, goal = bench_problem("cuda", CH_B)
+    params = CHOMPParams(n_support_points=H, opt_iters=CH_ITERS)
+    theta0 = chomp_theta0(start, goal)
+    n = CH_F64_B
+    trajs = {}
+    for name, fn, expected in (
+            ("hook", task.collision_residuals,
+             {"terms": CH_ITERS, "cost": CH_ITERS, "btridiag_w": CH_ITERS}),
+            ("autodiff", plain_residuals(task),
+             {"btridiag_w": CH_ITERS})):
+        chomp_solve(fn, theta0, start, goal,
+                    dataclasses.replace(params, opt_iters=2))  # warm-up
+        res, launches, ms = counted(
+            lambda: chomp_solve(fn, theta0, start, goal, params))
+        check(launches == expected, "chomp_autodiff panda %s launches %s, "
+              "expected %s" % (name, launches, expected))
+        check(all(bool(torch.isfinite(t).all()) for t in res),
+              "chomp_autodiff panda %s: non-finite results" % name)
+        first, last = float(res.cost_trace[0]), float(res.cost_trace[-1])
+        check(last < first, "chomp_autodiff panda %s: the trace did not "
+              "fall (%.9g -> %.9g)" % (name, first, last))
+        gaps = theta_gaps(res.trajs[:n], ch_cpu[name], ch_cpu["f64"])
+        hold_to_f64("chomp_autodiff panda %s" % name, gaps)
+        busy, dev_ms, top = profile_device(lambda: chomp_solve(
+            fn, theta0, start, goal,
+            dataclasses.replace(params, opt_iters=5)), 5)
+        trajs[name] = res.trajs
+        out["panda_" + name] = dict(
+            launches=launches, solve_ms=ms, ms_per_iteration=ms / CH_ITERS,
+            cost_trace_first_last=[first, last],
+            vs_float64=dict(B=n, **gaps), vs_float64_limits=f64_limits(gaps),
+            profiled_device_busy_share=busy,
+            profiled_device_ms_per_iteration=dev_ms,
+            top_device_ms_per_iteration=top)
+    scale = float(trajs["hook"].abs().max())
+    emit("chomp_autodiff", **out, panda=dict(
+        B=CH_B, H=H, iterations=CH_ITERS,
+        autodiff_vs_hook_rel_to_max=float(
+            (trajs["autodiff"] - trajs["hook"]).abs().max()) / scale))
+
+
+def rel_err(got, ref) -> float:
+    """max|got - ref| / max|ref|, on the CPU in float64."""
+    ref = ref.double().cpu()
+    return float((got.double().cpu() - ref).abs().max()
+                 / ref.abs().max().clamp_min(1e-300))
+
+
+def hold_rel(name: str, card, cpu32, ref) -> dict:
+    """The card result off the float64 one by at most twice the CPU float32
+    run's error plus SE_FLOOR (relative to max|ref|) -> the two errors."""
+    card_err, cpu_err = rel_err(card, ref), rel_err(cpu32, ref)
+    check(card_err <= 2.0 * cpu_err + SE_FLOOR,
+          "se3_manifold %s: card off float64 by %.3g of max|ref|, CPU "
+          "float32 by %.3g" % (name, card_err, cpu_err))
+    return dict(card_vs_f64=card_err, cpu_vs_f64=cpu_err)
+
+
+def s3_r3_batch(B_: int, H_: int, seed: int):
+    """(B, H, 7) trajectories of S^3 x R^3 drawn on the CPU in float64: a
+    rotation about a random axis by a jittered ramp, and a random walk."""
+    import torch
+    from torch_robotics_tpu_torch.core import q_exp_map
+    gen = torch.Generator().manual_seed(seed)
+    axis = torch.randn((B_, 1, 3), generator=gen, dtype=torch.float64)
+    axis = axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+    ang = (torch.linspace(0.0, 1.2, H_, dtype=torch.float64)[None, :, None]
+           + 0.05 * torch.randn((B_, H_, 1), generator=gen,
+                                dtype=torch.float64))
+    walk = torch.cumsum(0.02 * torch.randn((B_, H_, 3), generator=gen,
+                                           dtype=torch.float64), dim=1)
+    return torch.cat([q_exp_map(ang * axis), walk], dim=-1)
+
+
+def phase_se3_manifold():
+    """The SE(3) / manifold layer on the card against CPU float64 runs
+    (hold_rel): ee_se3_cost of the Panda's fk_all_links link tensors at
+    SE_N configurations; the quaternion log / exp / transport between
+    consecutive points of an S^3 x R^3 batch (SE_TRAJ trajectories), its
+    velocity and smoothing; the Karcher mean of its points; SE_N samples
+    of a Gaussian at that mean from a CUDA generator, finite, on the card
+    and on S^3 to SE_UNIT; the ms of each."""
+    import torch
+    from torch_robotics_tpu_torch.core import (pack_homogeneous,
+                                               q_exp_map, q_log_map,
+                                               q_parallel_transport, z_rot)
+    from torch_robotics_tpu_torch.core.manifold import Gaussian, Manifold
+    from torch_robotics_tpu_torch.costs import ee_se3_cost
+    from torch_robotics_tpu_torch.kin import fk_all_links, robot_zoo
+    from torch_robotics_tpu_torch.trajectory.manifold_ops import (
+        compute_traj_velocity, smooth_traj)
+    out = {}
+    # ee_se3_cost of the link poses against a target pose
+    model, model_h = (robot_zoo.franka_panda(device="cuda"),
+                      robot_zoo.franka_panda(device="cpu"))
+    gen = torch.Generator().manual_seed(SEED + 61)
+    lo = torch.as_tensor(model_h.q_lower, dtype=torch.float64)
+    hi = torch.as_tensor(model_h.q_upper, dtype=torch.float64)
+    q64 = lo + (hi - lo) * torch.rand((SE_N, 7), generator=gen,
+                                      dtype=torch.float64)
+    q_h = q64.float()
+    q = q_h.cuda()
+    target64 = pack_homogeneous(z_rot(torch.tensor(0.3, dtype=torch.float64)),
+                                torch.tensor([0.4, 0.1, 0.5],
+                                             dtype=torch.float64))
+    target = target64.float().cuda()
+
+    def ee():
+        return ee_se3_cost(fk_all_links(model, q), target)
+    card = ee()
+    check(tuple(card.shape) == (SE_N,) and bool(torch.isfinite(card).all()),
+          "se3_manifold: ee_se3_cost is not finite of shape (%d,)" % SE_N)
+    out["ee_se3_cost"] = dict(
+        N=SE_N, ms=cuda_ms(ee, iters=10), **hold_rel(
+            "ee_se3_cost", card,
+            ee_se3_cost(fk_all_links(model_h, q_h), target64.float()),
+            ee_se3_cost(fk_all_links(model_h, q64), target64)))
+
+    # the quaternion maps and the trajectory operations on S^3 x R^3
+    M = Manifold.sphere_S3().cartesian_product(Manifold.euclidean(3))
+    t64 = s3_r3_batch(*SE_TRAJ, SEED + 62)
+    t_h = t64.float()
+    traj = t_h.cuda()
+
+    def maps(t):
+        g, h = t[:, :-1, :4], t[:, 1:, :4]
+        v = q_log_map(h, base=g)
+        return (v, q_exp_map(v, base=g), q_parallel_transport(v, g, h))
+    got, cpu32, ref = maps(traj), maps(t_h), maps(t64)
+    for i, name in enumerate(("q_log_map", "q_exp_map",
+                              "q_parallel_transport")):
+        out[name] = hold_rel(name, got[i], cpu32[i], ref[i])
+    out["quaternion_maps_ms"] = cuda_ms(lambda: maps(traj), iters=10)
+    for name, fn in (
+            ("compute_traj_velocity",
+             lambda t: compute_traj_velocity(t, SE_DT, M)),
+            ("smooth_traj", lambda t: smooth_traj(t, M))):
+        card = fn(traj)
+        check(bool(torch.isfinite(card).all()),
+              "se3_manifold: %s is not finite" % name)
+        out[name] = dict(ms=cuda_ms(lambda: fn(traj), iters=3, warmup=1),
+                         **hold_rel(name, card, fn(t_h), fn(t64)))
+
+    # the Karcher mean of the batch's points and a Gaussian at it
+    pts = traj.reshape(-1, 7)
+    mu = M.mean(pts)
+    out["karcher_mean"] = dict(
+        points=pts.shape[0], ms=cuda_ms(lambda: M.mean(pts), iters=3,
+                                        warmup=1),
+        **hold_rel("karcher_mean", mu, M.mean(t_h.reshape(-1, 7)),
+                   M.mean(t64.reshape(-1, 7))))
+    A = torch.randn((6, 6), generator=torch.Generator().manual_seed(
+        SEED + 63))
+    cov = (A @ A.T / 6 + 0.01 * torch.eye(6)) * 0.05
+    gauss = Gaussian(M, mu, cov.cuda())
+    cuda_gen = torch.Generator(device="cuda").manual_seed(SEED + 64)
+    smp = gauss.sample(SE_N, generator=cuda_gen)
+    unit = float((torch.linalg.vector_norm(smp[:, :4], dim=-1) - 1.0)
+                 .abs().max())
+    check(smp.is_cuda and tuple(smp.shape) == (SE_N, 7)
+          and bool(torch.isfinite(smp).all()),
+          "se3_manifold: Gaussian samples not finite (SE_N, 7) on the card")
+    check(unit <= SE_UNIT, "se3_manifold: samples off S^3 by %.3g" % unit)
+    out["gaussian_sample"] = dict(
+        n=SE_N, max_unit_norm_error=unit,
+        ms=cuda_ms(lambda: gauss.sample(SE_N, generator=cuda_gen), iters=10))
+    emit("se3_manifold", traj_batch=list(SE_TRAJ) + [7],
+         worst_rel_err=max(v["card_vs_f64"] for v in out.values()
+                           if isinstance(v, dict) and "card_vs_f64" in v),
+         **out)
+
+
+def trace_names(logdir) -> tuple:
+    """(every event name, the kernel events' names) of the Chrome trace
+    that utils.profiling.trace_to wrote into logdir."""
+    files = list(Path(logdir).glob("*.json"))
+    check(len(files) == 1, "serialize: %d traces written, expected 1"
+          % len(files))
+    events = json.loads(files[0].read_text()).get("traceEvents", [])
+    return ({e.get("name", "") for e in events},
+            {e.get("name", "") for e in events if e.get("cat") == "kernel"})
+
+
+def phase_serialize():
+    """The grid scene's artifacts through utils.serialization: EnvSpheres3D
+    precomputed at SER_CELL and the Panda's KinematicModel saved to .npz in
+    a temporary directory and loaded onto the card; a task built from the
+    loaded grid and model gives K1's grid branch bit for bit against the
+    original task's at SER_N lanes, one launch, run under
+    utils.profiling.trace_to with an annotate span around it, both of
+    which the written trace must hold; the files' bytes and the load ms."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from torch_robotics_tpu_torch.envs import EnvSpheres3D
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    from torch_robotics_tpu_torch.utils.profiling import annotate, trace_to
+    from torch_robotics_tpu_torch.utils.serialization import (
+        load_grid_sdf, load_kinematic_model, save_grid_sdf,
+        save_kinematic_model)
+    env = EnvSpheres3D(precompute_sdf_obj_fixed=True, sdf_cell_size=SER_CELL,
+                       device="cuda")
+    robot = RobotPanda.create(device="cuda")
+    task = PlanningTask(env=env, robot=robot,
+                        obstacle_cutoff_margin=GRID_CUTOFF)
+    q = random_q(task, SER_N, seed=65)
+    ref = task.collision_residuals.obstacle_terms_lanes.unscaled(q)
+    span = "serialize/k1_grid"
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {"grid": Path(tmp) / "grid.npz",
+                 "model": Path(tmp) / "panda.npz"}
+        t0 = time.perf_counter()
+        save_grid_sdf(paths["grid"], env.grid_map_sdf_obj_fixed)
+        save_kinematic_model(paths["model"], robot.model)
+        save_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = load_grid_sdf(paths["grid"], device="cuda")
+        model = load_kinematic_model(paths["model"], device="cuda")
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        env2 = EnvSpheres3D(device="cuda")
+        env2.grid_map_sdf_obj_fixed = grid
+        task2 = PlanningTask(env=env2,
+                             robot=dataclasses.replace(robot, model=model),
+                             obstacle_cutoff_margin=GRID_CUTOFF)
+        terms = task2.collision_residuals.obstacle_terms_lanes
+        check(terms.grid is not None,
+              "serialize: the loaded task's terms have no grid table")
+        terms.unscaled(q)                                      # warm-up
+
+        def annotated():
+            with annotate(span):
+                return terms.unscaled(q)
+        # a profiler session can miss a kernel (profile_device): take the
+        # trace again, up to SER_TRACES times, until it holds K1
+        for attempt in range(1, SER_TRACES + 1):
+            logdir = Path(tmp) / ("trace%d" % attempt)
+            with trace_to(logdir):
+                got, launches, ms = counted(annotated)
+            names, kernels = trace_names(logdir)
+            k1 = sorted(k for k in kernels if "terms_kernel" in k)
+            if k1:
+                break
+        sizes = {k: p.stat().st_size for k, p in paths.items()}
+    check(launches == {"terms": 1}, "serialize: launches %s, expected one "
+          "K1" % (launches,))
+    same = [bool(torch.equal(a, b)) for a, b in zip(got, ref)]
+    check(all(same), "serialize: K1 on the loaded task differs from the "
+          "original task's (g, Hqq, cost equal: %s)" % same)
+    check(span in names, "serialize: the trace has no %r span" % span)
+    check(bool(k1), "serialize: %d traces hold no K1 kernel event "
+          "(kernels: %s)" % (SER_TRACES, sorted(kernels)[:8]))
+    emit("serialize", cell=SER_CELL, grid_cells=grid.n_cells, N=SER_N,
+         file_bytes=sizes, save_s=save_s, load_ms=load_ms,
+         k1_launches=launches, k1_call_ms=ms, bit_equal=same,
+         trace_span=span, trace_kernels=k1, trace_attempts=attempt)
+
 
 def main() -> None:
     import torch
@@ -6736,6 +7138,7 @@ def main() -> None:
     chomp_cpu = start_chomp_cpu()
     smi = phase_build()
     chomp_cpu[1].poll(None)     # no timed phase shares the host with it
+    phase_serialize()           # the first profiler session of the script
     terms = phase_terms()
     solve = phase_solve()
     launches, main_plans = phase_main()
@@ -6794,7 +7197,7 @@ def main() -> None:
     mr_grasp_k5, mr_grasp_k8 = phase_mr_grasp()
 
     hy_k2 = phase_hybrid()
-    ch_k1, ch_k8, ch_k2 = phase_chomp(chomp_cpu)
+    ch_k1, ch_k8, ch_k2, ch_cpu = phase_chomp(chomp_cpu)
     pod_k1_c, pod_k2_c, pod_k1, pod_k2 = phase_pod()
     mp_k2 = phase_mpot()
     p2_k2 = phase_planar2link()
@@ -6811,6 +7214,8 @@ def main() -> None:
     phase_execute(main_plans)
     del main_plans
     phase_examples()
+    phase_chomp_autodiff(ch_cpu)
+    phase_se3_manifold()
 
     entries = []
     for name, src, rep, res, n in (

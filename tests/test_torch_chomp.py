@@ -12,6 +12,8 @@ JAX package.
   the cost trace to 1e-8 relative; ``per_problem_trace`` keeps the batch
   axes.  The preconditioning solve on both sides of the m = 32 split
   (lanes layout, batch-major) against the reference's solver there.
+- CHOMP's autodiff branch on tanh residuals (batched and vmapped) to the
+  same 1e-8; residuals with no gradient raise.
 """
 import jax
 import jax.numpy as jnp
@@ -231,11 +233,48 @@ def test_chomp_from_preset():
     assert preset == JEnvDense2D().get_chomp_params(JRobotPointMass.create())
 
 
-def test_chomp_without_lanes_terms_raises():
+def _tanh_problem():
+    theta0 = np.random.default_rng(11).uniform(-1.0, 1.0, (2, 8, 4))
+    return theta0, theta0[:, 0], theta0[:, -1], CHOMPParams(
+        n_support_points=8, opt_iters=5, sigma_coll=0.5, step_size=0.2)
+
+
+def _tanh_parity(supports_batch):
+    """tanh residuals without lanes terms: the port's autodiff branch
+    against JAX's ``chomp_solve`` in float64 (trajectories and trace to
+    1e-8)."""
     def residuals(q):
         return torch.tanh(q)
-    residuals.supports_batch = True
-    theta = torch.zeros((2, 8, 4), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="lanes terms"):
-        chomp_solve(residuals, theta, theta[0, 0], theta[0, 0],
-                    CHOMPParams(n_support_points=8, opt_iters=1))
+    residuals.supports_batch = supports_batch
+
+    def jresiduals(q):
+        return jnp.tanh(q)
+    jresiduals.supports_batch = supports_batch
+    theta0, start, goal, params = _tanh_problem()
+    with jax.enable_x64(True):
+        jres = jax_chomp_solve(jresiduals, jnp.asarray(theta0),
+                               jnp.asarray(start), jnp.asarray(goal),
+                               JCHOMPParams(**params.__dict__))
+        jres = (np.asarray(jres.trajs), np.asarray(jres.cost_trace))
+    hold(jres, chomp_solve(residuals, t(theta0), t(start), t(goal), params))
+
+
+def test_chomp_without_lanes_terms_raises():
+    """Residuals with no lanes terms take the autodiff branch (the
+    reference's, JAX parity on tanh residuals); residuals that carry no
+    gradient to the trajectory raise in the port's words, never a zero
+    gradient."""
+    _tanh_parity(True)
+
+    def detached(q):
+        return torch.tanh(q).detach()
+    detached.supports_batch = True
+    theta0, start, goal, params = _tanh_problem()
+    with pytest.raises(RuntimeError, match="carry no gradient"):
+        chomp_solve(detached, t(theta0), t(start), t(goal), params)
+
+
+def test_chomp_autodiff_vmaps_per_sample_residuals():
+    """Without ``supports_batch`` the residuals are vmapped, as the
+    reference's are: the same float64 parity."""
+    _tanh_parity(False)

@@ -1,8 +1,9 @@
-"""Rigid-body helpers (counterpart of the functions of
-torch_robotics_tpu/core/se3.py that the ported paths use: the URDF and
-Rodrigues rotations, the coordinate-axis rotations of multi-robot base
-poses, homogeneous packing, the SE(3) distance and SO(3) log of the IK
-solvers and the link-tensor accessors)."""
+"""SO(3) / SE(3) helpers: rotation constructors, composition, distances and
+the SO(3) maps (counterpart of torch_robotics_tpu/core/se3.py).
+
+Transforms are carried as (R (..., 3, 3), t (..., 3)) pairs inside the
+port and as (..., 4, 4) homogeneous matrices at its boundaries; points are
+row vectors (point @ R^T + t)."""
 from __future__ import annotations
 
 import math
@@ -14,15 +15,20 @@ from .quaternion import rotation_matrix_to_q
 
 DEFAULT_ACOS_BOUND: float = 1.0 - 1e-4
 
-__all__ = ["x_rot", "y_rot", "z_rot", "rpy_to_rotation_matrix",
-           "axis_angle_rotation", "rotate_point", "pack_homogeneous",
-           "unpack_homogeneous", "acos_linear_extrapolation",
-           "so3_rotation_angle", "so3_relative_angle", "SE3_distance",
-           "log_SO3", "link_pos_from_link_tensor",
-           "link_rot_from_link_tensor", "link_quat_from_link_tensor"]
+__all__ = [
+    "x_rot", "y_rot", "z_rot", "rpy_to_rotation_matrix", "axis_angle_rotation",
+    "multiply_transform", "multiply_inv_transform", "invert_transform",
+    "transform_point", "rotate_point", "pack_homogeneous", "unpack_homogeneous",
+    "vector3_to_skew_symm_matrix", "skew_symm_matrix_to_vec",
+    "SE3_distance", "so3_relative_angle", "so3_rotation_angle",
+    "acos_linear_extrapolation", "log_SO3", "exp_map_so3", "minus_SO3",
+    "link_pos_from_link_tensor", "link_rot_from_link_tensor",
+    "link_quat_from_link_tensor",
+]
 
 
-def _skew(v: torch.Tensor) -> torch.Tensor:
+def vector3_to_skew_symm_matrix(v: torch.Tensor) -> torch.Tensor:
+    """v (..., 3) -> [v]_x (..., 3, 3), with [v]_x x = v cross x."""
     x, y, z = v.unbind(-1)
     zero = torch.zeros_like(x)
     return torch.stack([zero, -z, y, z, zero, -x, -y, x, zero],
@@ -80,11 +86,40 @@ def rpy_to_rotation_matrix(rpy: torch.Tensor) -> torch.Tensor:
 def axis_angle_rotation(axis: torch.Tensor, angle: torch.Tensor):
     """Rodrigues rotation about a unit axis: axis (..., 3), angle (...,) ->
     (..., 3, 3)."""
-    K = _skew(axis)
+    K = vector3_to_skew_symm_matrix(axis)
     c = torch.cos(angle)[..., None, None]
     s = torch.sin(angle)[..., None, None]
     eye = torch.eye(3, dtype=K.dtype, device=K.device)
     return eye + s * K + (1.0 - c) * (K @ K)
+
+
+def skew_symm_matrix_to_vec(R: torch.Tensor) -> torch.Tensor:
+    """The vector of a skew matrix (..., 3, 3) -> (..., 3)."""
+    return torch.stack([R[..., 2, 1], R[..., 0, 2], R[..., 1, 0]], dim=-1)
+
+
+def multiply_transform(w_rot_l, w_trans_l, l_rot_c, l_trans_c):
+    """Compose (R_wl, t_wl) with (R_lc, t_lc) -> (R_wc, t_wc)."""
+    return (w_rot_l @ l_rot_c,
+            (w_rot_l @ l_trans_c[..., None])[..., 0] + w_trans_l)
+
+
+def invert_transform(rot, trans):
+    """(R, t) -> (R^T, -R^T t)."""
+    rot_t = rot.transpose(-1, -2)
+    return rot_t, -(rot_t @ trans[..., None])[..., 0]
+
+
+def multiply_inv_transform(l_rot_w, l_trans_w, l_rot_c, l_trans_c):
+    """(R_lw, t_lw)^-1 composed with (R_lc, t_lc)."""
+    inv_rot, inv_trans = invert_transform(l_rot_w, l_trans_w)
+    return multiply_transform(inv_rot, inv_trans, l_rot_c, l_trans_c)
+
+
+def transform_point(point: torch.Tensor, rot: torch.Tensor,
+                    trans: torch.Tensor) -> torch.Tensor:
+    """point @ R^T + t for points (..., 3) or (..., n, 3)."""
+    return rotate_point(point, rot) + trans
 
 
 def rotate_point(point: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
@@ -171,6 +206,24 @@ def log_SO3(R: torch.Tensor, eps: float = 1.0e-14) -> torch.Tensor:
     theta = torch.arccos(trR)[..., None, None]
     return theta * ((R - R.transpose(-1, -2))
                     / (2.0 * torch.sin(theta) + eps))
+
+
+def exp_map_so3(omega: torch.Tensor, eps: float = 1.0e-14) -> torch.Tensor:
+    """Rodrigues' formula for omega (..., 3) -> (..., 3, 3), eps-guarded at
+    omega = 0."""
+    omegahat = vector3_to_skew_symm_matrix(omega)
+    norm = torch.linalg.vector_norm(omega, dim=-1)[..., None, None]
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device)
+    return (eye + (torch.sin(norm) / (norm + eps)) * omegahat
+            + ((1.0 - torch.cos(norm)) / torch.square(norm + eps))
+            * (omegahat @ omegahat))
+
+
+def minus_SO3(R1: torch.Tensor, R2: torch.Tensor,
+              eps: float = 1.0e-14) -> torch.Tensor:
+    """The rotation vector of R1 R2^T (..., 3)."""
+    return skew_symm_matrix_to_vec(log_SO3(R1 @ R2.transpose(-1, -2),
+                                           eps=eps))
 
 
 def link_pos_from_link_tensor(link_tensor: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-from .fields import (interpolate_points, object_collision_any,
+from .fields import (ee_se3_cost, interpolate_points, object_collision_any,
                      object_collision_rbf, object_signed_distances,
                      self_collision_any, self_collision_distances,
                      self_collision_rbf, workspace_bounds_any,
@@ -11,4 +11,4 @@ __all__ = ["interpolate_points", "object_signed_distances",
            "self_collision_distances", "self_collision_any",
            "self_collision_rbf", "workspace_bounds_distances",
            "workspace_bounds_any", "SelfCollisionNet",
-           "fit_self_collision_net", "self_collision_labels"]
+           "fit_self_collision_net", "self_collision_labels", "ee_se3_cost"]

@@ -1,6 +1,6 @@
-"""Collision-point helpers, occupancy checks, the 'sdf' costs and the
-'rbf' surrogates (counterpart of torch_robotics_tpu/costs/fields.py but
-its SE(3) end-effector cost).
+"""Collision-point helpers, occupancy checks, the 'sdf' costs, the 'rbf'
+surrogates and the SE(3) end-effector cost (counterpart of
+torch_robotics_tpu/costs/fields.py).
 
 Every check and cost takes collision points ``(..., P, dim)`` with any
 leading batch dims and returns per-configuration flags or costs ``(...)``.
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core.pytrees import safe_norm
+from ..core.se3 import SE3_distance
 
 __all__ = ["interpolate_points", "interpolate_points_v2",
            "object_signed_distances", "object_collision_cost",
@@ -28,7 +29,7 @@ __all__ = ["interpolate_points", "interpolate_points_v2",
            "self_collision_distances", "self_collision_cost",
            "self_collision_any", "self_collision_rbf",
            "workspace_bounds_distances", "workspace_bounds_cost",
-           "workspace_bounds_any"]
+           "workspace_bounds_any", "ee_se3_cost"]
 
 
 def interpolate_points(points: torch.Tensor, num_interpolated_points: int):
@@ -151,3 +152,11 @@ def workspace_bounds_cost(points, ws_min, ws_max, margins, cutoff_margin=0.0,
 def workspace_bounds_any(points, ws_min, ws_max, margins, cutoff_margin=0.0):
     sd = workspace_bounds_distances(points, ws_min, ws_max)
     return (sd < (margins + cutoff_margin)).flatten(-2).any(-1)
+
+
+def ee_se3_cost(link_tensor, target_H, w_pos=1.0, w_rot=1.0, square=True):
+    """SE(3) distance of the last link to a target pose, squared with
+    ``square``: link_tensor (..., L, 4, 4), target_H (4, 4) -> (...)."""
+    dist = SE3_distance(link_tensor[..., -1, :, :], target_H,
+                        w_pos=w_pos, w_rot=w_rot)
+    return torch.square(dist) if square else dist

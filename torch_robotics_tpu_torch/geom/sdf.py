@@ -58,6 +58,10 @@ class SharpBoxes:
     def dim(self) -> int:
         return self.centers.shape[-1]
 
+    @property
+    def sizes(self) -> torch.Tensor:
+        return 2.0 * self.half_sizes
+
     def signed_distance(self, x):
         d = torch.abs(x[..., None, :] - self.centers) - self.half_sizes
         return torch.amin(torch.amax(d, dim=-1), dim=-1)
@@ -78,6 +82,10 @@ class RoundedBoxes:
     @property
     def dim(self) -> int:
         return self.centers.shape[-1]
+
+    @property
+    def sizes(self) -> torch.Tensor:
+        return 2.0 * self.half_sizes
 
     def signed_distance(self, x):
         q = (torch.abs(x[..., None, :] - self.centers) - self.half_sizes
@@ -113,6 +121,18 @@ class ObjectField:
     def dim(self) -> int:
         return self.fields[0].dim
 
+    def with_pose(self, pos=None, ori=None) -> "ObjectField":
+        """The same fields at another pose: pos (3,), ori wxyz (4,), each
+        cast to the current pose's dtype and device (None keeps it).  A
+        task built from the new object packs the new pose into the
+        kernels' scene buffers."""
+        def cast(a, like):
+            a = a.detach() if torch.is_tensor(a) else np.asarray(a)
+            return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+        return dataclasses.replace(
+            self, pos=self.pos if pos is None else cast(pos, self.pos),
+            ori=self.ori if ori is None else cast(ori, self.ori))
+
     def rotation_matrix(self) -> torch.Tensor:
         return q_to_rotation_matrix(self.ori)
 
@@ -131,6 +151,10 @@ class ObjectField:
             s = f.signed_distance(x_obj)
             sdf = s if sdf is None else torch.minimum(sdf, s)
         return sdf
+
+    def compute_signed_distance(self, x):
+        """The reference's name for ``signed_distance``."""
+        return self.signed_distance(x)
 
 
 def _tensor(a, device):

@@ -78,6 +78,12 @@ class KinematicModel:
     device: torch.device
     name: str = "robot"
     link_names: tuple = ()
+    # the URDF's names, velocity and effort limits and damping, per dof
+    # (joint names per link); kept for serialization, FK reads none of them
+    joint_names: tuple = ()
+    q_velocity: np.ndarray = None   # (n_dofs,)
+    q_effort: np.ndarray = None
+    joint_damping: np.ndarray = None
 
     # ------------------------------------------------------------------
     # Construction
@@ -107,7 +113,8 @@ class KinematicModel:
         q_map = np.zeros(n, np.int32)
         parent_idx = [-1] * n
         joint_types = [JOINT_FIXED] * n
-        q_lower, q_upper = [], []
+        joint_names = ["base_joint"] * n
+        q_lower, q_upper, q_vel, q_eff, q_damp = [], [], [], [], []
         n_dofs = 0
 
         for i, lname in enumerate(link_names):
@@ -119,6 +126,7 @@ class KinematicModel:
             code = _JOINT_CODES[j.type]
             parent_idx[i] = name_to_idx[j.parent]
             joint_types[i] = code
+            joint_names[i] = j.name
             trans[i] = j.origin_xyz
             rpy[i] = j.origin_rpy
             if code in (JOINT_REVOLUTE, JOINT_CONTINUOUS):
@@ -138,6 +146,9 @@ class KinematicModel:
                     clamp_upper[i] = upper
                 q_lower.append(lower)
                 q_upper.append(upper)
+                q_vel.append(j.limit_velocity)
+                q_eff.append(j.limit_effort)
+                q_damp.append(j.damping)
                 n_dofs += 1
 
         for i, p in enumerate(parent_idx):
@@ -159,6 +170,10 @@ class KinematicModel:
             device=dev,
             name=name,
             link_names=tuple(link_names),
+            joint_names=tuple(joint_names),
+            q_velocity=np.asarray(q_vel, np.float64).astype(f32),
+            q_effort=np.asarray(q_eff, np.float64).astype(f32),
+            joint_damping=np.asarray(q_damp, np.float64).astype(f32),
         )
 
     # ------------------------------------------------------------------

@@ -316,10 +316,15 @@ def _grid_cell_index(grid, pts: torch.Tensor):
 
 def _grid_sdf_lanes(grid, pts: torch.Tensor):
     """Nearest-cell lookup of points (>= dim, M): (the cell's SDF (M,), the
-    cell's gradient (dim, M)), in pts' dtype."""
+    cell's gradient (dim, M)), in pts' dtype.  Where pts requires grad the
+    value is linearised about the points, as the reference's lookup is
+    (value the cell's, autograd gradient the cell's gradient)."""
     flat = _grid_cell_index(grid, pts)
     val = grid.sdf_grid.reshape(-1)[flat].to(pts.dtype)
     grad = grid.grad_grid.reshape(-1, grid.dim)[flat].T.to(pts.dtype)
+    if pts.requires_grad:
+        x = pts[:grid.dim]
+        val = val + torch.sum((x - x.detach()) * grad, dim=0)
     return val, grad
 
 

@@ -5,9 +5,11 @@ Each iteration takes the functional gradient of the prior-weighted GP
 smoothness energy plus the obstacle cost, clips it, preconditions it by the
 smoothness metric (the GP prior's block-tridiagonal Hessian, the one GPMP2
 uses) and steps.  The obstacle gradient comes from the task's lanes terms
-(``obstacle_terms_lanes``: the terms kernel K1 on the card), the cost trace
-from its value-only cost (``collision_cost_lanes``: K8 on the card); a
-point mass, which has no cost kernel, scores with its residual values.
+(``obstacle_terms_lanes``: the terms kernel K1 on the card) where the
+residual function has them, else from autograd through the residuals (the
+planar 2-link arm; any plain residual function).  The cost trace comes from
+the task's value-only cost (``collision_cost_lanes``: K8 on the card)
+where it has one, else from the residual values.
 """
 from __future__ import annotations
 
@@ -67,30 +69,34 @@ def chomp_solve(residual_fn: Callable, theta0, start_state, goal_state,
                 per_problem_trace: bool = False) -> CHOMPResult:
     """``params.opt_iters`` CHOMP iterations from theta0 (..., H, 2d).
 
-    ``residual_fn`` carries ``obstacle_terms_lanes`` (a PlanningTask's
-    ``collision_residuals``); residuals without it (the planar 2-link
-    arm's) raise, where the reference takes autodiff through the
-    residuals.  start/goal (..., 2d).  ``cost_trace`` is the
-    batch-summed obstacle cost lam sum 0.5 r^2 of each iteration's result
-    (iters,); with ``per_problem_trace`` it keeps the batch axis (iters,
+    The obstacle cost is lam sum 0.5 r^2 of the residuals r of
+    ``residual_fn`` (lam = 1 / sigma_coll^2).  Its gradient is the lanes
+    terms' where ``residual_fn`` carries ``obstacle_terms_lanes`` (a
+    PlanningTask's ``collision_residuals`` with a lanes path), else
+    autograd's through the residuals: one call on the whole flattened batch
+    where ``residual_fn.supports_batch`` is set, ``torch.vmap`` of it
+    otherwise.  That branch never calls ``collision_cost_lanes``, whose
+    kernel has no backward, and it raises where the residuals carry no
+    gradient to theta.  start/goal (..., 2d).  ``cost_trace`` is the
+    batch-summed obstacle cost of each iteration's result (iters,), from
+    ``collision_cost_lanes`` where the task has it, else from the
+    residuals; with ``per_problem_trace`` it keeps the batch axis (iters,
     ...), as the sharded wrapper needs to leave padded rows out.
 
     The preconditioning solve follows the reference's split at m = 32: the
     lanes layout below it, batch-major above.  On the card the lanes solve
     is the block-tridiagonal sweep kernel (``ops/btridiag_kernel.
-    solve_lanes_auto``: K2 for m <= 16, e.g. the Panda's 14) on D + 1e-6 I
-    broadcast over the batch with the shared U; on the CPU it is the plain
-    lanes solve (``gpmp2._solve_generic``).  The reference preconditions
-    with its plain XLA lanes solve here; the two compute the same solve.
-    Runs at full float32 matmul precision (TF32 off).
+    solve_lanes_auto``: K2 for m <= 16, e.g. the Panda's 14, the planar
+    arm's 4) on D + 1e-6 I broadcast over the batch with the shared U; on
+    the CPU it is the plain lanes solve (``gpmp2._solve_generic``).  The
+    reference preconditions with its plain XLA lanes solve here; the two
+    compute the same solve.  Runs at full float32 matmul precision (TF32
+    off).
     """
-    lanes_terms = getattr(residual_fn, "obstacle_terms_lanes", None)
-    if lanes_terms is None:
-        raise NotImplementedError(
-            "chomp_solve takes residuals with lanes terms (a PlanningTask's "
-            "collision_residuals); the autodiff branch is not ported")
     disable_tf32()
+    lanes_terms = getattr(residual_fn, "obstacle_terms_lanes", None)
     cost_lanes = getattr(residual_fn, "collision_cost_lanes", None)
+    batched = getattr(residual_fn, "supports_batch", False)
     batch, (H, m) = theta0.shape[:-2], theta0.shape[-2:]
     d = m // 2
     lam = 1.0 / (params.sigma_coll ** 2)
@@ -100,25 +106,48 @@ def chomp_solve(residual_fn: Callable, theta0, start_state, goal_state,
     goal = goal_state.reshape((-1, m)) if goal_state.dim() > 1 \
         else goal_state
 
+    def residuals(th):
+        """Residuals (B H, P) of the waypoints of th (B, H, m)."""
+        q_flat = th[..., :d].reshape(-1, d)
+        r = residual_fn(q_flat) if batched else torch.vmap(residual_fn)(q_flat)
+        return r.reshape(r.shape[0], -1)
+
     def cost_per_traj(th):
         """Obstacle cost per trajectory (B,): the value-only cost where the
         task has one, else 0.5 lam sum r^2 of the residuals."""
-        q_flat = th[..., :d].reshape(-1, d)
         if cost_lanes is not None:
-            c_pt = lam * cost_lanes(q_flat.T.contiguous())
+            q_cols = th[..., :d].reshape(-1, d).T.contiguous()
+            c_pt = lam * cost_lanes(q_cols)
         else:
-            r = residual_fn(q_flat)
-            c_pt = 0.5 * lam * torch.square(r).reshape(r.shape[0], -1).sum(-1)
+            c_pt = 0.5 * lam * torch.square(residuals(th)).sum(-1)
         return c_pt.reshape(th.shape[0], H).sum(-1)
+
+    def obstacle_grad(th):
+        """d obstacle cost / d theta (B, H, m); the velocity rows are 0."""
+        if lanes_terms is not None:
+            q_cols = th[..., :d].reshape(-1, d).T.contiguous()    # (d, N)
+            g_q = lanes_terms(q_cols, lam)[0]         # (m, N), velocity 0
+            return g_q.T.reshape(th.shape)
+        with torch.enable_grad():
+            th = th.detach().requires_grad_(True)
+            r = residuals(th)
+            g = (torch.autograd.grad(0.5 * lam * torch.sum(torch.square(r)),
+                                     th, allow_unused=True)[0]
+                 if r.requires_grad else None)
+        if g is None:
+            raise RuntimeError(
+                "chomp_solve: the residuals of %r carry no gradient to the "
+                "trajectory (a kernel with no backward on their path?); "
+                "CHOMP needs differentiable residuals or lanes terms"
+                % (residual_fn,))
+        return g
 
     trace = []
     for _ in range(params.opt_iters):
         g_gp, D, U = gp_prior_terms(
             theta, start, goal, params.dt, params.sigma_start,
             params.sigma_gp, params.sigma_goal)
-        q_cols = theta[..., :d].reshape(-1, d).T.contiguous()    # (d, N)
-        g_q = lanes_terms(q_cols, lam)[0]             # (m, N), velocity 0
-        g = params.weight_prior_cost * g_gp + g_q.T.reshape(theta.shape)
+        g = params.weight_prior_cost * g_gp + obstacle_grad(theta)
         g = torch.clamp(g, -params.grad_clip, params.grad_clip)
         theta = theta - params.step_size * _precondition(D, U, g)
         cost = cost_per_traj(theta)

@@ -12,7 +12,7 @@ from pathlib import Path
 import yaml
 
 __all__ = ["get_data_path", "get_urdf_path", "get_robot_path",
-           "get_configs_path", "load_yaml"]
+           "get_objects_path", "get_configs_path", "load_yaml"]
 
 
 def get_data_path() -> Path:
@@ -25,6 +25,10 @@ def get_urdf_path() -> Path:
 
 def get_robot_path() -> Path:
     return get_urdf_path() / "robots"
+
+
+def get_objects_path() -> Path:
+    return get_urdf_path() / "objects"
 
 
 def get_configs_path() -> Path:
