@@ -17,8 +17,8 @@ the MultiRobot cells past K5's first caps (phases 46-49, five Pandas'
 MPC through the column sweep's shared-memory route), that route alone
 (phase 50), the PD execution harness (phase 51), the examples that
 drive the solvers (phase 52), CHOMP's autodiff branch (phase 53), the
-SE(3) / manifold layer (phase 54) and serialization with the profiler's
-trace (phase 55).
+SE(3) / manifold layer (phase 54), serialization with the profiler's
+trace (phase 55) and K1, K5 and K8 in 2-D scenes (phases 56-57).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -449,7 +449,10 @@ final line):
              no kernel launched, timed; held to a float64 CPU run of the
              same harness on the same plans (q and qd on the lanes whose
              frozen flags and contacts agree; the others counted).
-52. examples - the four examples of torch_robotics_tpu_torch/examples/
+52. examples - viz/, sim/mujoco_adapter.py and every example import
+             without importing matplotlib or mujoco (which this machine
+             need not have: their record and plot branches run on the
+             CPU); then the four examples of torch_robotics_tpu_torch/examples/
              that drive the solvers, each main() on the card at its own
              size: mpc_panda (B = 32, 60 steps: exactly 120 K1 and 120 K2,
              then the PD harness), ilqr_panda (B = 64, with --track),
@@ -484,6 +487,32 @@ final line):
              the written trace must hold beside a terms_kernel event
              (the trace taken again, up to 3 times, where a session
              missed the kernel); the files' bytes, save s and load ms.
+56. terms_2d - a kinematic robot in a 2-D scene (K1 and K5 cut its points
+             to the plane): the Panda's MPC in EnvPlanar2Link at the main
+             path's protocol (B = 1024, H = 64, 2 GN iterations a step, 8
+             steps) from free start and goal draws (rows_free: no hinge
+             row active; the only 2-D scene of the zoo with free Panda
+             configurations): exactly 16 K1 and 16 K2 launches, finite,
+             the fraction free, a profile; one step at B = 32 held to a
+             float64 CPU step (phase cpu's rule); K1 vs plain (terms
+             tolerance, Hqq off the hinge-edge lanes; in a grid, lanes
+             near a cell face excused as phase grid_terms) on the path's
+             first q and on random q (N = 65,536) in EnvPlanar2Link,
+             EnvDense2D and EnvDense2D's 0.01 m grid, and in a 2-D
+             sharp-box scene turned about z at N = 4096, timed on the
+             first q; config 4's two Pandas in EnvDense2D: their MPC (B =
+             256, H = 32, 30 steps) with exactly 60 K5 and 60 K4
+             launches, K5 vs plain on its first q and random q (N =
+             8,192), analytic and grid, timed on the first q.
+57. cost_2d - K8 in 2-D scenes: on phase 56's Panda (512 of its
+             problems, 8 particles, H = 32) K8 vs plain on sGPMP's first
+             candidates (N = 2,097,152) and proposal (131,072), a lane's
+             bits the same at a ragged N and at 32 lanes a block, timed;
+             the sGPMP solve: exactly 201 K8 launches; K8 in EnvDense2D's
+             grid and the sharp-box scene vs plain; K8's MultiRobot
+             branch on phase 56's pair: vs plain on its sGPMP's first
+             candidates (N = 131,072), timed, and its solve with exactly
+             201 launches.
 
 Every phase line carries ``script_s``, its seconds since the script
 started.  Then one JSON line with every kernel's numbers (launches from
@@ -513,7 +542,11 @@ runs for K5 (multirobot_terms_same_pair, _net, _wide, _five, timed on
 their first q) and K4 at (32, 42, 42, 256) (btridiag_cols_mr_wide), phase
 49's MPC for K4's shared-memory route (btridiag_cols_wide, timed in phase
 50 on its first GN system), and their sGPMP solves for K8-MultiRobot
-(collision_cost_multirobot_net, _wide, _five, timed at 131,072), each
+(collision_cost_multirobot_net, _wide, _five, timed at 131,072), phase
+56's MPC runs for K1 and K5 in 2-D scenes (terms_2d, timed on its first
+q at 65,536; multirobot_terms_2d, at 8,192) and phase 57's sGPMP solves
+for K8 and K8-MultiRobot (collision_cost_2d at 2,097,152,
+collision_cost_multirobot_2d at 131,072), each
 timed on its path's first inputs; each bound at the FP32 rate, the net rows' at
 the 3xTF32 rate of their tensor-core route), the nvidia-smi line, and the
 final
@@ -660,8 +693,8 @@ GRID_F64_B, GRID_TERMS_N = 512, 65536
 # only where one of its object points lies within GRID_FACE_TOL cell widths
 # of a cell face (judged from the plain version's points: there an ulp of
 # float32 FK picks the neighbouring cell), at most GRID_FACE_SHARE of the
-# lanes; float ops of one grid lookup (cell index, clamp, flat index)
-GRID_FACE_TOL, GRID_FACE_SHARE, GRID_LOOKUP_OPS = 1e-4, 1e-3, 22
+# lanes
+GRID_FACE_TOL, GRID_FACE_SHARE = 1e-4, 1e-3
 # the grasped-object Panda: benchmarks/pallas_terms_ab.py's grasped terms
 # (GraspedObjectPandaBox in EnvSpheres3D, cutoff 0.03, B = 1024, H = 64,
 # q uniform over the joint limits); a ragged N; config 4 with its first
@@ -837,6 +870,18 @@ MR_CELLS = {
                       for a in 2 * np.pi * np.arange(5) / 5), ()),
 }
 
+# 2-D scenes (phases terms_2d and cost_2d): K1, K5 and K8 take a kinematic
+# robot's points cut to the plane.  No Panda configuration is free of the
+# hinge rows in EnvDense2D (its base point sits 0.042 m from a circle, within
+# its 0.125 m margin), nor in any 2-D scene of the zoo but EnvPlanar2Link,
+# whose six circles ring the origin 0.235 m away (~7.4% of uniform Panda
+# draws free), so the MPC and sGPMP run there from free draws; the kernels
+# are held in EnvDense2D too (circles and rounded boxes, analytic and its
+# D2_CELL grid), and in a 2-D sharp-box scene posed by a rotation about z
+# at z = 0.1.  The pair: config 4's two Pandas in EnvDense2D.
+D2_SCENE, D2_CELL, D2_CUTOFF, D2_SHARP_N = "EnvPlanar2Link", 0.01, 0.03, 4096
+D2_MR_POSES, D2_DRAW, D2_MAX_ROUNDS = MR_POSES[:2], 64, 8
+
 
 # the script's start: every phase line carries its seconds since then
 T_START = time.perf_counter()
@@ -983,44 +1028,42 @@ def terms_work(lay, q, r):
     Bytes: q (d, N) in, g (d, N), Hqq (d, d, N), cost (N) out, and in a
     grid scene one 16-byte grid row per object point and grid.  Ops every
     lane needs: FK compose (~132 per revolute link, ~63 per fixed), world
-    joint axes (18 per joint), the scene SDF of each object point (15 per
-    point and object + ~10 / 25 / 12 per sphere / rounded box / sharp
-    box), its workspace distance (12), each pair's distance (12) and each
-    row's hinge (2).  Only an active row (r > 0 on this q) needs more, and
-    only over its live Jacobian columns (the joint moves the row's point,
-    or a pair's either point, and q is inside the joint's clamp): 18 per
-    column of a point row (cross product + dot), 33 per column live at both
-    points of a pair and 18 at one, then 2 + 2k + k(k+1) to add r^2, r Jr
-    and Jr^T Jr over its k live columns."""
+    joint axes (18 per joint), the scene SDF and the workspace distance of
+    each object point (scene_ops), each pair's distance (12) and each
+    row's hinge (2); the active rows as active_row_ops counts them."""
     model = lay.model
     d, N = q.shape
     ctrl = list(model.controlled_link_idxs())
     per_lane = lane_ops(lay, r.shape[0]) + 18 * d
     return (4 * N * (2 * d + d * d + 1) + grid_row_bytes(lay, N),
-            per_lane * N + active_row_ops(lay.row_joints(),
-                                          model.clamp_lower[ctrl],
+            per_lane * N + active_row_ops(lay, model.clamp_lower[ctrl],
                                           model.clamp_upper[ctrl], q, r))
 
 
-def active_row_ops(row_joints, clamp_lo, clamp_hi, q, r) -> int:
+def active_row_ops(lay, clamp_lo, clamp_hi, q, r) -> int:
     """Float ops of the active rows (r > 0 on q), over their live Jacobian
     columns only (the joint moves the row's point, or a pair's either
-    point, and q is inside the joint's clamp): 18 per column of a point
-    row (cross product + dot), 33 per column live at both points of a pair
-    and 18 at one, then 2 + 2k + k(k+1) to add r^2, r Jr and Jr^T Jr over
-    its k live columns.  row_joints: ``TermsLayout.row_joints()``'s
-    (a, b); clamp_lo, clamp_hi: (d,) per joint."""
+    point, and q is inside the joint's clamp): 5 w + 3 per column of a
+    point row in a w-D scene (p - o, the cross product's first w
+    components, the dot with the gradient and the sign; 18 in 3-D), 33 per
+    column live at both points of a pair and 18 at one, then 2 + 2k +
+    k(k+1) to add r^2, r Jr and Jr^T Jr over its k live columns.  lay: the
+    plain terms' layout, whose ``row_joints()`` (a, b) order the object
+    and workspace rows before the pairs; clamp_lo, clamp_hi: (d,) per
+    joint."""
     import torch
     lo = torch.as_tensor(clamp_lo, device=q.device)[:, None]
     hi = torch.as_tensor(clamp_hi, device=q.device)[:, None]
     live_q = ((q >= lo) & (q <= hi))[None]                      # (1, d, N)
     act = (r > 0)[:, None]                                      # (R, 1, N)
     a, b = (torch.as_tensor(m, device=q.device)[:, :, None]
-            for m in row_joints)
+            for m in lay.row_joints())
     at_a, at_b = a & live_q & act, b & live_q & act             # (R, d, N)
     both = (at_a & at_b).sum(1)
     k = (at_a | at_b).sum(1)                                    # (R, N)
-    return int((33 * both + 18 * (k - both)
+    one = torch.full((r.shape[0], 1), 18, device=q.device)
+    one[:r.shape[0] - len(lay.pair_a)] = 5 * lay.ws_min.shape[0] + 3
+    return int((33 * both + one * (k - both)
                 + (2 + 2 * k + k * (k + 1)) * act[:, 0]).sum())
 
 
@@ -1036,29 +1079,45 @@ def lane_ops(lay, n_rows: int, per_row: int = 2, fk=None) -> int:
     """Float ops every waypoint lane needs for the rows' values: FK compose
     (~132 per revolute link, ~63 per fixed) and each grasped point's R o +
     t (GRASP_POINT_OPS), or ``fk`` ops for both where given, the scene SDF
-    of each object point (15 per point and object + ~10 / 25 / 12 per
-    sphere / rounded box / sharp box, or GRID_LOOKUP_OPS per grid), its
-    workspace distance (12), each pair's distance (12) and ``per_row`` per
-    residual row."""
-    from torch_robotics_tpu_torch.geom import GridSDF
-    from torch_robotics_tpu_torch.geom.sdf import RoundedBoxes, Spheres
+    and the workspace distance of each object point (scene_ops), each
+    pair's distance (12) and ``per_row`` per residual row."""
     model = lay.model
     n_rev = sum(1 for t in model.joint_types if t != 0)
-    n_obj, n_pair = len(lay.obj_pos), len(lay.pair_a)
     if fk is None:
         fk = (132 * n_rev + 63 * (model.n_links - n_rev)
               + GRASP_POINT_OPS * getattr(lay, "n_grasped", 0))
-    ops = fk + 12 * (n_obj + n_pair) + per_row * n_rows
+    return (fk + scene_ops(lay, len(lay.obj_pos)) + 12 * len(lay.pair_a)
+            + per_row * n_rows)
+
+
+def scene_ops(lay, n_obj: int) -> int:
+    """Float ops of the scene SDF and the workspace distance of n_obj object
+    points in the scene's dimension k (the task's ws_dim, 3 or 2; a 2-D
+    scene reads a point's x and y only), a multiply or an add one: per
+    point and analytic object its transform into the object's frame (k (2k
+    - 1)) and per primitive a sphere or circle's 3k + 1 (difference, norm,
+    root, radius), a rounded box's 7k + 4 (per axis |p - c| - h, its
+    positive part and its square; the root, the max over the axes, the
+    inside part, the sum, the radius and the min over the boxes) or a sharp
+    box's 4k (per axis |p - c| - h; the max over the axes and the min); per
+    point and grid a lookup's 8k - 2 (per axis the offset, the scale, the
+    floor and the clamp; the flat index); and the workspace distance, a
+    difference and a min per face (4k).  In 3-D these are 15, 10, 25, 12,
+    22 and 12."""
+    from torch_robotics_tpu_torch.geom import GridSDF
+    from torch_robotics_tpu_torch.geom.sdf import RoundedBoxes, Spheres
+    k = int(lay.ws_min.shape[0])
+    ops = 4 * k
     for obj in lay.df_obj_list:
         if isinstance(obj, GridSDF):
-            ops += n_obj * GRID_LOOKUP_OPS
+            ops += 8 * k - 2
             continue
-        ops += n_obj * 15
+        ops += k * (2 * k - 1)
         for f in obj.fields:
-            per = 10 if isinstance(f, Spheres) else (
-                25 if isinstance(f, RoundedBoxes) else 12)
-            ops += n_obj * per * f.centers.shape[0]
-    return ops
+            per = 3 * k + 1 if isinstance(f, Spheres) else (
+                7 * k + 4 if isinstance(f, RoundedBoxes) else 4 * k)
+            ops += per * f.centers.shape[0]
+    return n_obj * ops
 
 
 # Float ops of one FK step of the value-only cost, by the step's class
@@ -1206,9 +1265,9 @@ def mr_terms_work(lay, q, r):
     lane needs: each member's FK compose (~132 per revolute link, ~63 per
     fixed), its world joint axes and origins with the base pose (48 per
     joint), every point's base transform (15), the scene SDF of each object
-    point (15 per point and object + ~10 per sphere), its workspace
-    distance (12), each pair's distance (12) and each row's hinge (2); the
-    active rows as active_row_ops counts them."""
+    point and its workspace distance (mr_lane_ops), each pair's distance
+    (12) and each row's hinge (2); the active rows as active_row_ops
+    counts them."""
     d, N = q.shape
     per_lane = mr_lane_ops(lay, r.shape[0])
     ctrl = [list(m.model.controlled_link_idxs()) for m in lay.members]
@@ -1217,7 +1276,7 @@ def mr_terms_work(lay, q, r):
     chi = np.concatenate([m.model.clamp_upper[c]
                           for m, c in zip(lay.members, ctrl)])
     return (4 * N * (2 * d + d * d + 1) + grid_row_bytes(lay, N),
-            per_lane * N + active_row_ops(lay.row_joints(), clo, chi, q, r))
+            per_lane * N + active_row_ops(lay, clo, chi, q, r))
 
 
 def mr_lane_ops(lay, n_rows: int, per_row: int = 2, axes: bool = True,
@@ -1227,34 +1286,21 @@ def mr_lane_ops(lay, n_rows: int, per_row: int = 2, axes: bool = True,
     fixed), every point's base transform (15) and a grasped point's R o +
     t (GRASP_POINT_OPS), or ``fk`` ops for the three where given; with
     ``axes`` each member's world joint axes and origins with the base pose
-    (48 per joint); the scene SDF of each object point (15 per point and
-    object + ~10 per sphere), its workspace distance (12), each pair's
-    distance (12) and ``per_row`` per residual row."""
-    from torch_robotics_tpu_torch.geom import GridSDF
-    from torch_robotics_tpu_torch.geom.sdf import Spheres
+    (48 per joint); the scene SDF and the workspace distance of each object
+    point (scene_ops), each pair's distance (12) and ``per_row`` per
+    residual row."""
     from torch_robotics_tpu_torch.ops.lanes_fk import member_collision_points
     n_pts = len(lay.point_joints())
-    n_obj, n_pair = len(lay.obj_pos), len(lay.pair_a)
     n_grasped = sum(g >= 0 for r in lay.members for sec in ("object", "self")
                     for _, g in member_collision_points(r, sec))
-    per_lane = 12 * (n_obj + n_pair) + per_row * n_rows
     if fk is None:
         fk = 15 * n_pts + GRASP_POINT_OPS * n_grasped
         for mem in lay.members:
             n_rev = sum(1 for t in mem.model.joint_types if t != 0)
             fk += 132 * n_rev + 63 * (mem.model.n_links - n_rev)
-    per_lane += fk + sum(48 * mem.model.n_dofs for mem in lay.members
-                         if axes)
-    for obj in lay.df_obj_list:
-        if isinstance(obj, GridSDF):
-            per_lane += n_obj * GRID_LOOKUP_OPS
-            continue
-        per_lane += n_obj * 15
-        for f in obj.fields:
-            if not isinstance(f, Spheres):
-                raise NotImplementedError("config 4's scene holds spheres")
-            per_lane += n_obj * 10 * f.centers.shape[0]
-    return per_lane
+    return (fk + sum(48 * mem.model.n_dofs for mem in lay.members if axes)
+            + scene_ops(lay, len(lay.obj_pos)) + 12 * len(lay.pair_a)
+            + per_row * n_rows)
 
 
 def mr_cost_work(lay, N: int, n_rows: int):
@@ -3684,12 +3730,15 @@ def sg_free(task, trajs, n_part: int):
     return (~coll).reshape(-1, n_part)
 
 
-def phase_sgpmp(name, task, start, goal, n_part, params, kernel_key, seed):
+def phase_sgpmp(name, task, start, goal, n_part, params, kernel_key, seed,
+                free=sg_free):
     """One sGPMP path at full size (phases sgpmp and mr_sgpmp): a warm-up,
     then the timed solve with its normals drawn on a seeded CUDA generator;
     launches exactly 1 + 2 per iteration of ``kernel_key`` and nothing
     else; finite outputs of the expected shapes; the bench's metrics
-    (ilqr_sgpmp_bench.py:215-233), ms per iteration, a profile."""
+    (ilqr_sgpmp_bench.py:215-233; ``free`` (task, trajs, n_part) -> (B,
+    n_part) bool, sg_free's signature, judges a particle free), ms per
+    iteration, a profile."""
     import dataclasses
 
     import torch
@@ -3714,8 +3763,7 @@ def phase_sgpmp(name, task, start, goal, n_part, params, kernel_key, seed):
           name + " result shapes")
     check(all(bool(torch.isfinite(t).all()) for t in res),
           name + " produced non-finite results")
-    free0, free = sg_free(task, theta0, n_part), sg_free(task, res.trajs,
-                                                         n_part)
+    free0, free = free(task, theta0, n_part), free(task, res.trajs, n_part)
     busy, dev_ms, top = profile_device(
         lambda: solve(dataclasses.replace(p, opt_iters=5)), 5)
     B_ = start.shape[0]
@@ -4653,15 +4701,22 @@ def hold_grid(name, got, ref, near):
 
 def object_points_near_face(task, q):
     """(N,) bool: a lane of q (d, N) has an object collision point (the
-    plain FK's) within GRID_FACE_TOL cell widths of a face of a grid."""
+    plain terms' points, every member's for a MultiRobot) within
+    GRID_FACE_TOL cell widths of a face of a grid of the scene, in the
+    grid's dimension (a 2-D grid reads a point's x and y)."""
+    import torch
     from torch_robotics_tpu_torch.geom import GridSDF
-    pts = task.robot.object_collision_points(
-        task.robot.fk_map_collision(q.T))                   # (N, P, 3)
-    near = None
+    lay = task.collision_residuals.obstacle_terms_lanes.plain.layout
+    if hasattr(lay, "padded_points"):
+        pts = lay.padded_points(q)[0][lay.obj_pos]
+    else:
+        from torch_robotics_tpu_torch.ops.lanes_fk import fk_lanes
+        pts = lay.points(*fk_lanes(lay.model, q))[lay.obj_pos]
+    near = torch.zeros(q.shape[1], dtype=torch.bool, device=q.device)
     for g in task.df_obj_list:
         if isinstance(g, GridSDF):
-            m = g.near_face(pts, GRID_FACE_TOL).any(-1)
-            near = m if near is None else near | m
+            x = pts[:, :g.dim].permute(0, 2, 1)            # (P, N, dim)
+            near |= g.near_face(x, GRID_FACE_TOL).any(0)
     return near
 
 
@@ -5227,26 +5282,56 @@ def hinge_edge_lanes(task, q):
     return (up & ~down).any(0)
 
 
+def hold_terms_hook(name, task, q):
+    """K1 (K5 for a MultiRobot task) on q (d, N) vs its plain version at the
+    terms tolerance: Hqq off the hinge-edge lanes (HINGE_EDGE, at most
+    HINGE_EDGE_SHARE of them); in a grid scene a lane may be off where an
+    object point lies near a cell face (object_points_near_face; hold_grid's
+    rule, the edge lanes among those excused) -> dict(abs, rel_to_max[,
+    lanes_off], hinge_edge_lanes)."""
+    lanes = task.collision_residuals.obstacle_terms_lanes
+    check(lanes.refusal is None, "%s: the terms hook refuses: %s"
+          % (name, lanes.refusal))
+    edge = checked_edge_lanes(name, task, q)
+    n_edge = int(edge.sum())
+    got, ref = lanes.unscaled(q), lanes.plain.unscaled(q)
+    if lanes.grid is not None:
+        near = object_points_near_face(task, q) | edge
+        return dict(hold_grid(name, got, ref, near), hinge_edge_lanes=n_edge)
+    errs = {}
+    hold_terms(name, (got[0], got[1][..., ~edge], got[2]),
+               (ref[0], ref[1][..., ~edge], ref[2]), errs)
+    return dict(abs=errs[name][0], rel_to_max=errs[name][1],
+                hinge_edge_lanes=n_edge)
+
+
+def checked_edge_lanes(name, task, q):
+    """hinge_edge_lanes of q (d, N), checked to be at most
+    HINGE_EDGE_SHARE of the lanes."""
+    edge = hinge_edge_lanes(task, q)
+    n_edge = int(edge.sum())
+    check(n_edge <= HINGE_EDGE_SHARE * q.shape[1],
+          "%s: %d of %d lanes at a hinge edge" % (name, n_edge, q.shape[1]))
+    return edge
+
+
 def terms_entry(name, task, q, launches, f64: bool = False):
     """K1 (K5 for a MultiRobot task) on a path's q (d, N) vs its plain
-    version at the terms tolerance (Hqq off the hinge-edge lanes,
-    HINGE_EDGE), timed over a CUDA graph beside the plain version -> the
-    kernels-line numbers and the count of edge lanes.  With ``f64`` the
-    kernel is held to the plain version in float64 on the card at that
-    tolerance instead, and the plain float32 version's own share of it is
+    version (hold_terms_hook), timed over a CUDA graph beside the plain
+    version -> the kernels-line numbers, the count of edge lanes and the hold's
+    errors (``held``).  With ``f64`` the kernel is held to the plain
+    version in float64 on the card at that tolerance instead (Hqq off the
+    hinge-edge lanes), and the plain float32 version's own share of it is
     reported (past 8 joints the two float32 orders are each up to ~0.6 of
     the tolerance off float64 in Hqq on the TIAGo's path, so they can be
     off each other by more than it)."""
     from torch_robotics_tpu_torch.ops.lanes_fk import MultiRobotLayout
     lanes_terms = task.collision_residuals.obstacle_terms_lanes
     lay = lanes_terms.plain.layout
-    edge = hinge_edge_lanes(task, q)
-    n_edge = int(edge.sum())
-    check(n_edge <= HINGE_EDGE_SHARE * q.shape[1],
-          "%s: %d of %d lanes at a hinge edge" % (name, n_edge, q.shape[1]))
-    got, ref = lanes_terms.unscaled(q), lanes_terms.plain.unscaled(q)
-    errs, extra = {}, {}
+    extra = {}
     if f64:
+        edge = checked_edge_lanes(name, task, q)
+        got, ref = lanes_terms.unscaled(q), lanes_terms.plain.unscaled(q)
         ref64 = lanes_terms.plain.unscaled(q.double())
         hold_terms(name, (got[0], got[1][..., ~edge], got[2]),
                    (ref64[0], ref64[1][..., ~edge], ref64[2]), {})
@@ -5255,13 +5340,14 @@ def terms_entry(name, task, q, launches, f64: bool = False):
                 TERMS_ATOL_REL * float(r.abs().max())
                 + TERMS_RTOL * r.abs())).max())
             for p, r in zip(ref, ref64)))
-        del ref64
-        errs[name] = extra["vs_plain"]
+        del ref64, got, ref
+        n_edge, max_abs = int(edge.sum()), extra["vs_plain"][0]
     else:
-        hold_terms(name, (got[0], got[1][..., ~edge], got[2]),
-                   (ref[0], ref[1][..., ~edge], ref[2]), errs)
+        extra["held"] = hold_terms_hook(name, task, q)
+        n_edge, max_abs = (extra["held"]["hinge_edge_lanes"],
+                           extra["held"]["abs"])
     r = lanes_terms.plain.rows(q)[0]
-    return dict(max_abs_err=errs[name][0], launches=launches,
+    return dict(max_abs_err=max_abs, launches=launches,
                 hinge_edge_lanes=n_edge, **extra,
                 ms=device_ms(lambda: lanes_terms.unscaled(q), iters=20),
                 plain_ms=cuda_ms(lambda: lanes_terms.plain.unscaled(q),
@@ -6769,13 +6855,31 @@ def phase_examples():
     --track's 40 steps), multi_robot_mpc (B = 16, 150 steps: exactly 300
     K5 and 300 K4 launches) and planning_point_mass (EnvDense2D's
     preset); every number each returns finite -> wall seconds, launches
-    and numbers of each."""
+    and numbers of each.  First the presentation modules (viz/,
+    sim/mujoco_adapter.py and every example) import without importing
+    matplotlib or mujoco, whether or not this machine has them (their
+    record and plot branches run on the CPU, tests/test_torch_viz.py,
+    test_torch_mujoco_adapter.py and test_torch_examples.py)."""
     import contextlib
+    import importlib
+    import importlib.util
     import math
+    before = set(sys.modules)
+    for mod in ("viz", "sim.mujoco_adapter", "examples.forward_kinematics",
+                "examples.inverse_kinematics", "examples.mpc_panda",
+                "examples.ilqr_panda", "examples.multi_robot_mpc",
+                "examples.planning_point_mass"):
+        importlib.import_module("torch_robotics_tpu_torch." + mod)
+    pulled = sorted({m.split(".")[0] for m in set(sys.modules) - before}
+                    & {"matplotlib", "mujoco", "mpl_toolkits"})
+    check(not pulled, "examples: importing viz, sim and the examples "
+          "imported %s" % pulled)
+    installed = {lib: importlib.util.find_spec(lib) is not None
+                 for lib in ("matplotlib", "mujoco", "dm_control")}
     from torch_robotics_tpu_torch.examples import (ilqr_panda, mpc_panda,
                                                    multi_robot_mpc,
                                                    planning_point_mass)
-    out = {}
+    out = {"presentation_imports": dict(ok=True, installed=installed)}
     for name, fn in (("mpc_panda", mpc_panda.main),
                      ("ilqr_panda", lambda: ilqr_panda.main(track=True)),
                      ("multi_robot_mpc", multi_robot_mpc.main),
@@ -7126,6 +7230,330 @@ def phase_serialize():
          trace_span=span, trace_kernels=k1, trace_attempts=attempt)
 
 
+def d2_task(device, scene: str = D2_SCENE, grid: bool = False, robot=None):
+    """A Panda (or ``robot``) in the 2-D zoo scene ``scene`` (with its
+    fixed objects precomputed into a D2_CELL grid when ``grid``) at cutoff
+    D2_CUTOFF."""
+    from torch_robotics_tpu_torch.envs import make_env
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    env = make_env(scene, precompute_sdf_obj_fixed=grid,
+                   sdf_cell_size=D2_CELL, device=device)
+    return PlanningTask(env=env, robot=RobotPanda.create(device=device)
+                        if robot is None else robot,
+                        obstacle_cutoff_margin=D2_CUTOFF)
+
+
+def d2_sharp_task(device):
+    """A Panda with wide self-collision margins among two 2-D sharp boxes
+    posed by a rotation about z at z = 0.1, in a tight 2-D workspace."""
+    from torch_robotics_tpu_torch.envs import EnvBase
+    from torch_robotics_tpu_torch.geom import MultiSharpBoxField, ObjectField
+    from torch_robotics_tpu_torch.robots import RobotPanda
+    from torch_robotics_tpu_torch.tasks import PlanningTask
+    sharp = ObjectField.create(
+        [MultiSharpBoxField([[0.3, 0.1], [-0.35, 0.2]],
+                            [[0.2, 0.3], [0.15, 0.4]], device=device)],
+        pos=[0.05, -0.1, 0.1], ori=[np.cos(0.15), 0.0, 0.0, np.sin(0.15)],
+        device=device)
+    return PlanningTask(
+        env=EnvBase(name="sharp_2d", limits=[[-0.6, -0.6], [0.6, 0.6]],
+                    obj_fixed_list=[sharp], device=device),
+        robot=RobotPanda.create(self_collision_margin_robot=0.3,
+                                device=device),
+        obstacle_cutoff_margin=D2_CUTOFF)
+
+
+def rows_free(task, q):
+    """(N,) bool: no hinge row of the task's plain terms is active at q (d,
+    N).  The 2-D scenes' collision test: the reference's collision check
+    takes no 3-D robot in a 2-D scene; its fused kernels' rows do."""
+    return task.collision_residuals.obstacle_terms_lanes.plain.rows(
+        q)[0].amax(0) == 0
+
+
+def d2_trajs_free(task, trajs, n_part: int = 1):
+    """(B, n_part) bool: every waypoint of a trajectory (B n_part, H, 2 d)
+    rows_free (sg_free's signature)."""
+    d = trajs.shape[-1] // 2
+    q = trajs[..., :d].reshape(-1, d).T.contiguous()
+    return rows_free(task, q).reshape(trajs.shape[0], -1).all(1).reshape(
+        -1, n_part)
+
+
+def d2_free_q(task, n: int, seed: int):
+    """n configurations (n, d) on the card free of every hinge row
+    (rows_free), from rounds of D2_DRAW n uniform draws within the joint
+    limits (a numpy ``seed``) -> (q, the rounds drawn, the free share of
+    the first)."""
+    import torch
+    lo = task.robot.q_min.cpu().numpy()
+    hi = task.robot.q_max.cpu().numpy()
+    rng = np.random.default_rng(seed)
+    found, share = [], None
+    for rounds in range(1, D2_MAX_ROUNDS + 1):
+        u = rng.uniform(size=(lo.shape[0], D2_DRAW * n))
+        q = torch.as_tensor(lo[:, None] + u * (hi - lo)[:, None],
+                            dtype=torch.float32, device=task.device)
+        free = rows_free(task, q)
+        share = float(free.float().mean()) if share is None else share
+        found.append(q[:, free])
+        if sum(f.shape[1] for f in found) >= n:
+            break
+    q = torch.cat(found, 1)[:, :n]
+    check(q.shape[1] == n, "only %d free 2-D configurations in %d rounds"
+          % (q.shape[1], rounds))
+    return q.T.contiguous(), rounds, share
+
+
+def d2_problem(device, n_batch: int = B):
+    """The Panda in D2_SCENE with free starts and goals at rest (d2_free_q)
+    -> (task, start, goal (n, 2 d), the draw's rounds and free share)."""
+    import torch
+    task = d2_task(device)
+    q, rounds, share = d2_free_q(task, 2 * n_batch, SEED)
+    z = torch.zeros_like(q[:n_batch])
+    return (task, torch.cat([q[:n_batch], z], -1),
+            torch.cat([q[n_batch:], z], -1),
+            dict(rounds=rounds, first_round_free_share=share))
+
+
+def d2_mr_problem(env):
+    """Config 4's two Pandas in ``env`` (a 2-D scene): starts uniform within
+    the joint limits, not drawn free (the kernels' work does not need
+    it), goals config 4's clip(q0 + 0.4 N(0, 1)) -> (task, start,
+    goal)."""
+    import torch
+    task = mr_task("cuda", D2_MR_POSES, env=env)
+    robot = task.robot
+    q0 = mr_in_limits_q(task, MR_B, SEED + 31).T
+    noise = torch.as_tensor(np.random.default_rng(SEED + 32).normal(
+        size=(MR_B, robot.q_dim)), dtype=torch.float32, device="cuda")
+    qg = torch.maximum(torch.minimum(q0 + 0.4 * noise, robot.q_max),
+                       robot.q_min)
+    z = torch.zeros_like(q0)
+    return task, torch.cat([q0, z], -1), torch.cat([qg, z], -1)
+
+
+def phase_terms_2d():
+    """Queue 2 d's terms (ROADMAP): K1 and K5 in 2-D scenes.  The Panda's
+    MPC in D2_SCENE at the main path's protocol (B = 1024, H = 64, 2 GN
+    iterations a step, 8 steps, free starts and goals): exactly 16 K1 (N
+    = 65,536) and 16 K2 launches and nothing else, finite outputs, the
+    fraction free (rows_free) of the plans, goal distance, step ms, a
+    profile; one step at B = MPC_CPU_B on the card and on the CPU held to a
+    float64 CPU step (phase cpu's rule).  K1 vs plain (hold_terms_hook) on
+    the path's first q and on random q in D2_SCENE, EnvDense2D and EnvDense2D's
+    grid, and on random q in the sharp-box scene at N = D2_SHARP_N; timed
+    on the first q.  K5 on two Pandas in EnvDense2D: config 4's MPC
+    (mpc_rollout, B = 256, H = 32, 30 steps) with exactly 60 K5 and 60 K4
+    launches, K5 vs plain on its first q and on random in-limit q (N =
+    8,192), analytic and grid; timed on the first q -> (K1, K5)
+    kernels-line numbers, and the problem for phase cost_2d."""
+    import torch
+    from torch_robotics_tpu_torch.envs import make_env
+    from torch_robotics_tpu_torch.solve import (GPMP2Params,
+                                                straight_line_trajs)
+    task, start, goal, draw = d2_problem("cuda")
+    terms = task.collision_residuals.obstacle_terms_lanes
+    check(terms.refusal is None and terms.params[1] is not None,
+          "terms_2d: the terms hook refuses: %s" % terms.refusal)
+    q0 = net_first_q(start, goal)
+    run_mpc(task, start, goal, 1)                    # warm-up
+    (state, costs, thetas), launches, ms = counted(
+        lambda: run_mpc(task, start, goal, N_STEPS))
+    expected = N_STEPS * ITERS_PER_STEP
+    check(launches == {"terms": expected, "btridiag_w": expected},
+          "terms_2d MPC launches %s, expected %d of terms and btridiag_w"
+          % (launches, expected))
+    check(all(bool(torch.isfinite(t).all()) for t in thetas)
+          and bool(torch.isfinite(costs).all()),
+          "terms_2d MPC produced non-finite results")
+    busy, dev_ms, top = profile_device(
+        lambda: run_mpc(task, start, goal, 2), 2)
+    d = start.shape[1] // 2
+    free0 = d2_trajs_free(task, straight_line_trajs(start, goal, H))
+    free = d2_trajs_free(task, state.theta)
+    n = MPC_CPU_B
+    iters, chained = step_vs_f64(
+        task, d2_task("cpu"), (start[:n].contiguous(), goal[:n].contiguous()),
+        (start[:n].cpu(), goal[:n].cpu()), GPMP2Params(**GP_PARAMS), H,
+        ITERS_PER_STEP, "terms_2d ")
+
+    q_rand = random_q(task, H * B, seed=31)
+    scenes = {D2_SCENE: task, "EnvDense2D": d2_task("cuda", "EnvDense2D"),
+              "EnvDense2D_grid": d2_task("cuda", "EnvDense2D", grid=True)}
+    check(scenes["EnvDense2D_grid"].collision_residuals
+          .obstacle_terms_lanes.grid is not None,
+          "terms_2d: the grid task's terms have no grid table")
+    name = "%s_first_q_N%d" % (D2_SCENE, q0.shape[1])
+    k1 = terms_entry(name, task, q0, launches["terms"])
+    held = {name: k1["held"]}
+    for scene, t in scenes.items():
+        for key, q in (("first_q", q0), ("random_q", q_rand)):
+            name = "%s_%s_N%d" % (scene, key, q.shape[1])
+            if name not in held:
+                held[name] = hold_terms_hook(name, t, q)
+    sharp = d2_sharp_task("cuda")
+    name = "sharp_2d_random_q_N%d" % D2_SHARP_N
+    held[name] = hold_terms_hook(name, sharp,
+                                 random_q(sharp, D2_SHARP_N, seed=32))
+    del q_rand
+    torch.cuda.empty_cache()
+
+    mr_held, mr_out = {}, {}
+    for grid in (False, True):
+        env = make_env("EnvDense2D", precompute_sdf_obj_fixed=grid,
+                       sdf_cell_size=D2_CELL, device="cuda")
+        mr, mr_start, mr_goal = d2_mr_problem(env)
+        label = "pair_dense2d" + ("_grid" if grid else "")
+        q_mr = mr_first_q(mr_start, mr_goal)
+        name = "%s_random_q_N%d" % (label, q_mr.shape[1])
+        mr_held[name] = hold_terms_hook(name, mr, mr_in_limits_q(
+            mr, q_mr.shape[1], SEED + 33))
+        name = "%s_first_q_N%d" % (label, q_mr.shape[1])
+        if grid:
+            mr_held[name] = hold_terms_hook(name, mr, q_mr)
+            continue
+        mr_rollout(mr, mr_start, mr_goal, 1)         # warm-up
+        (xs, info), mr_launches, mr_ms = counted(
+            lambda: mr_rollout(mr, mr_start, mr_goal, MR_STEPS))
+        mr_expected = MR_STEPS * MR_ITERS
+        check(mr_launches == {"multirobot_terms": mr_expected,
+                              "btridiag_cols": mr_expected},
+              "terms_2d pair MPC launches %s, expected %d K5 and %d K4"
+              % (mr_launches, mr_expected, mr_expected))
+        check(bool(torch.isfinite(xs).all())
+              and bool(torch.isfinite(info["dist_to_goal"]).all()),
+              "terms_2d pair MPC produced non-finite outputs")
+        k5 = terms_entry(name, mr, q_mr, mr_launches["multirobot_terms"])
+        mr_held[name] = k5["held"]
+        mr_out = dict(launches=mr_launches, ms_per_step=mr_ms / MR_STEPS,
+                      mean_final_goal_dist=float(
+                          info["dist_to_goal"][-1].mean()),
+                      shape=mr_cell_shape(mr), k5=k5_fields(k5))
+        mr_state = (mr, mr_start, mr_goal)
+    emit("terms_2d", scene=D2_SCENE, B=B, H=H, steps=N_STEPS,
+         start_draw=draw, launches=launches, step_ms=ms / N_STEPS,
+         solves_per_s=B / (ms / N_STEPS / 1e3),
+         init_fraction_free=float(free0.float().mean()),
+         fraction_free=float(free.float().mean()),
+         plan_end_goal_dist_median=goal_dist(state.theta[:, -1, :d], goal),
+         state_goal_dist_median=goal_dist(state.x[:, :d], goal),
+         mean_collision_cost_first_last=[float(costs[0].mean()),
+                                         float(costs[-1].mean())],
+         vs_float64=dict(B=n, iterations=iters, chained_step=chained),
+         k1_held=held, k1=dict(kernel_ms=k1["ms"], plain_ms=k1["plain_ms"],
+                               hinge_edge_lanes=k1["hinge_edge_lanes"],
+                               launch=terms.params[4],
+                               bound_ms=bound_ms(*k1["work"])[0],
+                               bound_by=bound_ms(*k1["work"])[1]),
+         pair=dict(mr_out, k5_held=mr_held),
+         profiled_device_busy_share=busy, profiled_device_ms_per_step=dev_ms,
+         top_device_ms_per_step=top)
+    return k1, k5, (task, start, goal), mr_state
+
+
+def phase_cost_2d(problem, mr_state):
+    """Queue 2 d's cost (ROADMAP): K8 in 2-D scenes.  On terms_2d's Panda
+    in D2_SCENE (its first IL_B problems): K8 vs plain on sGPMP's first
+    candidates (N = 2,097,152; the plain cost in chunks) and proposal (N
+    = 131,072), a lane's bits the same at a ragged N and at 32 lanes a
+    block, timed; the sGPMP solve (phase sgpmp's shape: 8 particles, H =
+    32, 100 iterations of K = 16) with exactly 201 K8 launches and nothing
+    else, its particles judged free by d2_trajs_free.  K8 vs plain in
+    EnvDense2D's grid (hold_grid) and the sharp-box scene on random q.  K8's
+    MultiRobot branch on terms_2d's pair in EnvDense2D: vs plain on its
+    sGPMP's first candidates (N = 131,072), timed, and its sGPMP solve
+    (one particle a problem, H = 32) with exactly 201 launches ->
+    (K8, K8-MultiRobot) kernels-line numbers."""
+    import torch
+    from torch_robotics_tpu_torch.ops.lanes_fk import TermsLayout
+    from torch_robotics_tpu_torch.ops.terms_kernel import (
+        run_cost_kernel, run_multirobot_cost_kernel)
+    task, start, goal = problem
+    start, goal = start[:IL_B].contiguous(), goal[:IL_B].contiguous()
+    cost = task.collision_residuals.collision_cost_lanes
+    check(cost.refusal is None, "cost_2d: the cost hook refuses: %s"
+          % cost.refusal)
+    N_sg = SG_PARAMS["num_samples"] * IL_B * SG_PART * IL_H
+    seen = capture_cost_inputs(task, *sg_problem(
+        start, goal, SG_PART, IL_H, SG_PARAMS["dt"], SEED + 2), SG_PARAMS)
+    lay = TermsLayout(task)
+    n_rows = 2 * len(lay.obj_pos) + len(lay.pair_a)
+    held, out = {}, {}
+    for key, q, iters in (("sgpmp", seen[N_sg], 10),
+                          ("acceptance", seen[IL_B * SG_PART * IL_H], 20)):
+        name = "%s_%s_N%d" % (D2_SCENE, key, q.shape[1])
+        held[name] = hold_cost(name, cost(q), chunked(cost.plain, q))
+        same_lane_bits(name, cost, run_cost_kernel, q)
+        out[key] = dict(N=q.shape[1], ms=device_ms(lambda: cost(q), iters),
+                        plain_ms=cuda_ms(lambda: chunked(cost.plain, q),
+                                         iters=1, warmup=1),
+                        work=cost_work(lay, q.shape[1], n_rows),
+                        max_abs_err=held[name][0])
+    q_acc = seen[IL_B * SG_PART * IL_H]
+    del seen
+    torch.cuda.empty_cache()
+    gtask = d2_task("cuda", "EnvDense2D", grid=True)
+    gc = gtask.collision_residuals.collision_cost_lanes
+    check(gc.grid is not None, "cost_2d: the grid task's cost has no grid")
+    name = "EnvDense2D_grid_acceptance_q_N%d" % q_acc.shape[1]
+    held[name] = hold_grid(name, (gc(q_acc),), (gc.plain(q_acc),),
+                           object_points_near_face(gtask, q_acc))
+    sharp = d2_sharp_task("cuda")
+    q_sh = random_q(sharp, D2_SHARP_N, seed=34)
+    sc = sharp.collision_residuals.collision_cost_lanes
+    name = "sharp_2d_random_q_N%d" % D2_SHARP_N
+    held[name] = hold_cost(name, sc(q_sh), sc.plain(q_sh))
+    launches, theta0, start_p, goal_p = phase_sgpmp(
+        "sgpmp_2d", task, start, goal, SG_PART, SG_PARAMS, "cost", SEED + 2,
+        free=d2_trajs_free)
+    check(launches == 2 * SG_PARAMS["opt_iters"] + 1,
+          "sgpmp_2d: %d K8 launches" % launches)
+
+    mr, mr_start, mr_goal = mr_state
+    mr_cost = mr.collision_residuals.collision_cost_lanes
+    check(mr_cost.refusal is None, "cost_2d: the pair's cost hook refuses: "
+          "%s" % mr_cost.refusal)
+    N_c = MR_SG_PARAMS["num_samples"] * MR_B * MR_H
+    q = capture_cost_inputs(mr, *sg_problem(
+        mr_start, mr_goal, 1, MR_H, MR_GP["dt"], SEED + 3),
+        MR_SG_PARAMS)[N_c]
+    name = "pair_dense2d_candidates_N%d" % N_c
+    held[name] = hold_cost(name, mr_cost(q), chunked(mr_cost.plain, q))
+    same_lane_bits(name, mr_cost, run_multirobot_cost_kernel, q)
+    mr_lay = mr.collision_residuals.obstacle_terms_lanes.plain.layout
+    mr_k8 = dict(max_abs_err=held[name][0],
+                 ms=device_ms(lambda: mr_cost(q), 20),
+                 plain_ms=cuda_ms(lambda: chunked(mr_cost.plain, q),
+                                  iters=1, warmup=1),
+                 work=mr_cost_work(mr_lay, N_c, 2 * len(mr_lay.obj_pos)
+                                   + len(mr_lay.pair_a)))
+    del q
+    torch.cuda.empty_cache()
+    mr_k8["launches"] = phase_sgpmp(
+        "mr_sgpmp_2d", mr, mr_start, mr_goal, 1, MR_SG_PARAMS,
+        "multirobot_cost", SEED + 3, free=d2_trajs_free)[0]
+    check(mr_k8["launches"] == 2 * MR_SG_PARAMS["opt_iters"] + 1,
+          "mr_sgpmp_2d: %d K8-MultiRobot launches" % mr_k8["launches"])
+    emit("cost_2d", rows=n_rows, launch=cost.params[3],
+         max_errs={k: ({"abs": v[0], "rel_to_max": v[1]}
+                       if isinstance(v, tuple) else v)
+                   for k, v in held.items()},
+         kernel_ms={k: v["ms"] for k, v in out.items()},
+         plain_ms={k: v["plain_ms"] for k, v in out.items()},
+         bound_ms={k: bound_ms(*v["work"])[0] for k, v in out.items()},
+         bound_by={k: bound_ms(*v["work"])[1] for k, v in out.items()},
+         sgpmp_launches=launches,
+         multirobot=dict(launch=mr_cost.params[3], kernel_ms=mr_k8["ms"],
+                         plain_ms=mr_k8["plain_ms"],
+                         launches=mr_k8["launches"],
+                         bound_ms=bound_ms(*mr_k8["work"])[0],
+                         bound_by=bound_ms(*mr_k8["work"])[1]))
+    return dict(out["sgpmp"], launches=launches), mr_k8
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -7216,6 +7644,9 @@ def main() -> None:
     phase_examples()
     phase_chomp_autodiff(ch_cpu)
     phase_se3_manifold()
+    d2_k1, d2_k5, d2_problem_, d2_mr = phase_terms_2d()
+    d2_k8, d2_k8_mr = phase_cost_2d(d2_problem_, d2_mr)
+    del d2_problem_, d2_mr
 
     entries = []
     for name, src, rep, res, n in (
@@ -7400,7 +7831,21 @@ def main() -> None:
             ("collision_cost_multirobot_five",
              "torch_robotics_tpu_torch/csrc/cost.cu",
              "torch_robotics_tpu/ops/pallas_terms.py:1029", fv_k8,
-             fv_k8["launches"])):
+             fv_k8["launches"]),
+            ("terms_2d", "torch_robotics_tpu_torch/csrc/terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", d2_k1,
+             d2_k1["launches"]),
+            ("multirobot_terms_2d",
+             "torch_robotics_tpu_torch/csrc/mr_terms.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:533", d2_k5,
+             d2_k5["launches"]),
+            ("collision_cost_2d", "torch_robotics_tpu_torch/csrc/cost.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029", d2_k8,
+             d2_k8["launches"]),
+            ("collision_cost_multirobot_2d",
+             "torch_robotics_tpu_torch/csrc/cost.cu",
+             "torch_robotics_tpu/ops/pallas_terms.py:1029", d2_k8_mr,
+             d2_k8_mr["launches"])):
         # a tf32x3 kernel's float32-accurate products run at 495 / 3
         b_ms, b_by = bound_ms(*res["work"], PEAK_TF32X3_FLOPS
                               if res.get("route") == "tf32x3"

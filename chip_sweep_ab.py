@@ -448,7 +448,8 @@ def parent_mr_terms_params(lay):
                 mut_m.append(mg)
         bp_range.append((begin, len(mut_a)))
 
-    scene_i, scene_f = tk._pack_scene(lay.df_obj_list)
+    scene_i, scene_f = tk._pack_scene(lay.df_obj_list,
+                                       lay.ws_min.shape[0])
     n_obj = obj_off[-1]
     header = [n_mem, robot.q_dim, len(pt_member), n_obj, len(own_a),
               len(mut_a), len(lay.df_obj_list), len(scene_i[1]), len(bp),

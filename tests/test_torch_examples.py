@@ -2,7 +2,12 @@
 ``main`` runs on the CPU at a small size and returns finite numbers of
 the kinds its JAX counterpart prints; importing them imports neither JAX
 nor the JAX package, and each defaults to the card (it raises where CUDA
-is missing rather than falling back to the CPU)."""
+is missing rather than falling back to the CPU).  The presentation
+branches write their files on the CPU (mpc_panda's ``record``, a gif of
+MuJoCo-executed rollouts at B = 2; planning_point_mass's and
+inverse_kinematics' ``plot``), and viz/, sim/ and every example import
+where matplotlib and mujoco are missing, a plot asked for there raising
+ImportError by the library's name."""
 import math
 import subprocess
 import sys
@@ -65,6 +70,48 @@ def test_examples_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_mpc_panda_records_a_gif(tmp_path):
+    pytest.importorskip("mujoco")
+    pytest.importorskip("matplotlib")
+    path = tmp_path / "execution.gif"
+    out = mpc_panda.main("cpu", batch=2, n_steps=3, horizon=8, record=path)
+    assert out["record_path"] == str(path) and path.stat().st_size > 0
+    assert 0 <= out["mujoco_contacts"] <= 2
+
+
+def test_plot_branches_write_their_images(tmp_path):
+    pytest.importorskip("matplotlib")
+    from torch_robotics_tpu_torch.examples import inverse_kinematics
+    pm, ik = tmp_path / "pm.png", tmp_path / "ik.png"
+    planning_point_mass.main("cpu", num_samples=8, opt_iters=10, plot=pm)
+    inverse_kinematics.main("cpu", batch_size=4, max_iters=50, plot=ik)
+    assert pm.stat().st_size > 0 and ik.stat().st_size > 0
+
+
+def test_presentation_imports_without_matplotlib_or_mujoco(tmp_path):
+    code = ("import sys\n"
+            "sys.modules['mujoco'] = sys.modules['matplotlib'] = None\n"
+            "import torch_robotics_tpu_torch.viz\n"
+            "import torch_robotics_tpu_torch.sim.mujoco_adapter\n"
+            "from torch_robotics_tpu_torch.examples import (\n"
+            "    forward_kinematics, ilqr_panda, inverse_kinematics,\n"
+            "    mpc_panda, multi_robot_mpc, planning_point_mass)\n"
+            "try:\n"
+            "    planning_point_mass.main('cpu', num_samples=2, opt_iters=1,\n"
+            "                             plot=%r)\n"
+            "except ImportError as e:\n"
+            "    assert 'matplotlib' in str(e), e\n"
+            "    print('raised')\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'torch_robotics_tpu', 'mpl_toolkits')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n" % str(tmp_path / "pm.png"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-2:] == ["raised", "ok"]
 
 
 @pytest.mark.parametrize("name", sorted(SMALL))

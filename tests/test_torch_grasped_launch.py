@@ -19,7 +19,8 @@ import torch
 from test_torch_cost_schedule import (_sections, model_cost,
                                      offset_point_model)
 from test_torch_grasped import MR_BASES, MR_BOX, MR_YAWS
-from test_torch_multi_robot import _rodrigues, model_mr_terms, mr_sections
+from test_torch_multi_robot import (_rodrigues, model_mr_terms, mr_sections,
+                                    scene_sdf_grad)
 from torch_robotics_tpu_torch.core import z_rot
 from torch_robotics_tpu_torch.envs import EnvSpheres3D
 from torch_robotics_tpu_torch.geom import GraspedObjectPandaBox
@@ -203,35 +204,13 @@ def test_offset_point_model_is_the_plain_points_bit_for_bit(panda):
             np.testing.assert_array_equal(x, plain[p])
 
 
-def _sphere_sdf_grad(a, x):
-    """Min-over-spheres SDF and gradient at x (3, N) on the packed scene
-    (EnvSpheres3D: every group holds spheres, kind 0 or 3), float64."""
-    best = np.full(x.shape[1], np.inf)
-    grad = np.zeros_like(x)
-    for o in range(a["NOBJ"]):
-        R = a["obj_rot"][o].astype(np.float64).reshape(3, 3)
-        xo = R.T @ (x - a["obj_pos"][o].astype(np.float64)[:, None])
-        for g in range(a["obj_group_begin"][o], a["obj_group_begin"][o + 1]):
-            assert a["group_kind"][g] in (0, 3)
-            off = a["group_off"][g]
-            for j in range(a["group_count"][g]):
-                c = a["prims"][off + 4 * j: off + 4 * j + 4].astype(
-                    np.float64)
-                d = xo - c[:3, None]
-                dist = np.sqrt((d * d).sum(0))
-                s = dist - c[3]
-                take = s < best
-                best = np.where(take, s, best)
-                grad = np.where(take, R @ (d / dist), grad)
-    return best, grad
-
-
-def model_terms(ints, floats, q):
+def model_terms(ints, floats, q, grid=None):
     """g (D, N), Hqq (D, D, N), cost (N) computed as terms.cu computes
     them, in float64, from the packed buffers alone: the FK steps (parent
     from the root, the previous step or a slot) with each joint's world
     axis and origin, the points the steps place, then the rows, only the
-    active ones adding their Jacobians."""
+    active ones adding their Jacobians (``grid`` the scene's (C, 4) grid
+    table as numpy for a grid scene)."""
     a = terms_sections(ints, floats)
     q = q.astype(np.float64)
     N, D, P = q.shape[1], a["D"], a["P"]
@@ -294,7 +273,7 @@ def model_terms(ints, floats, q):
     rows = []
     for mi in range(a["NO"]):
         p = a["obj_pt"][mi]
-        rows.append((p, *_sphere_sdf_grad(a, pts[p]), mi))
+        rows.append((p, *scene_sdf_grad(a, pts[p], grid), mi))
     ws_min, ws_max = f64(a["ws_min"]), f64(a["ws_max"])
     for mi in range(a["NO"]):
         p = a["obj_pt"][mi]

@@ -52,7 +52,7 @@ def _task(df_list, robot=None):
 def test_pack_scene_grid_header(scene):
     g1, _, g2 = scene
     (obj_begin, kinds, counts, offs, obj_grid, grid_i), (
-        rot, pos, grid_f, prims) = _pack_scene(scene)
+        rot, pos, grid_f, prims) = _pack_scene(scene, 3)
     assert obj_grid == [0, -1, 1]
     assert obj_begin == [0, 0, 1, 1]         # grids hold no groups
     assert kinds == [0] and counts == [1]
@@ -75,11 +75,13 @@ def test_pack_scene_grid_header(scene):
 
 
 def test_pack_scene_refuses_2d_grids():
+    """A 2-D grid in a 3-D workspace is refused (2-D scenes pack for a 2-D
+    workspace: tests/test_torch_scene_2d.py)."""
     from torch_robotics_tpu_torch.envs import EnvDense2D
     env = EnvDense2D(precompute_sdf_obj_fixed=True, sdf_cell_size=0.1,
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="3-D"):
-        _pack_scene(env.get_df_obj_list())
+    with pytest.raises(NotImplementedError, match="in a 3-D workspace"):
+        _pack_scene(env.get_df_obj_list(), 3)
 
 
 def _terms_sections(ints, floats):
@@ -199,7 +201,8 @@ def grid_sdf_model(gi, gf, table, x):
 def test_kernel_lookup_model_matches_the_plain_lookup(scene):
     """Points in and outside both grids, and points moved onto cell faces
     and off them by an ulp: the model's row is the plain lookup's cell."""
-    (_, _, _, _, obj_grid, grid_i), (_, _, grid_f, _) = _pack_scene(scene)
+    (_, _, _, _, obj_grid, grid_i), (_, _, grid_f, _) = _pack_scene(scene,
+                                                                     3)
     table = scene_grid_table(scene).numpy()
     rng = np.random.default_rng(3)
     x = rng.uniform(-1.3, 1.3, size=(3, 5000)).astype(F32)

@@ -127,7 +127,7 @@ def test_scene_past_the_pick_index_is_refused(members):
     the CPU in the same words at the terms and the cost hook; 65,536
     spheres are within it."""
     words = "at most 65,536 primitives"
-    assert _scene_refusal(_sphere_scene(1 << 16)) is None
+    assert _scene_refusal(_sphere_scene(1 << 16), 3) is None
     env = EnvBase(limits=[[-1.0] * 3, [1.0] * 3],
                   obj_fixed_list=_sphere_scene((1 << 16) + 1), device="cpu")
     pandas = [RobotPanda.create(device="cpu") for _ in range(members)]

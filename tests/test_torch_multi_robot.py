@@ -350,6 +350,63 @@ def mr_sections(ints, floats):
     return a
 
 
+def scene_sdf_grad(a, x, grid=None, dtype=np.float64):
+    """Min-over-scene SDF and the gradient of its minimizing primitive or
+    grid cell (cost.cuh: scene_sdf_pick and scene_sdf_grad_at) at x (3, N)
+    on the packed scene sections ``a`` (``mr_sections`` or
+    ``terms_sections``), in ``dtype`` (float32: each operation rounded);
+    the first minimum wins, and ``grid`` is the scene's (C, 4) grid table
+    as numpy for a grid scene."""
+    c_ = lambda v: np.asarray(v, dtype)                # noqa: E731
+    best = np.full(x.shape[1], np.inf, dtype)
+    grad = np.zeros(x.shape, dtype)
+    for o in range(a["NOBJ"]):
+        if a["obj_grid"][o] >= 0:
+            g = a["obj_grid"][o]
+            gi, gf = a["grid_i"][4 * g:4 * g + 4], a["grid_f"][g]
+            flat = np.zeros(x.shape[1], np.int64)
+            for k in range(3):
+                c = np.float32(gi[1 + k])
+                v = np.floor(((x[k].astype(np.float32) - gf[k])
+                              / gf[4 + k]).astype(np.float32) * c)
+                flat = flat * int(gi[1 + k]) + np.clip(v, 0, c - 1).astype(
+                    np.int64)
+            row = c_(grid[int(gi[0]) + flat])
+            take = row[:, 0] < best
+            best = np.where(take, row[:, 0], best)
+            grad = np.where(take, row[:, 1:].T, grad)
+            continue
+        R = c_(a["obj_rot"][o]).reshape(3, 3)
+        xo = R.T @ (x - c_(a["obj_pos"][o])[:, None])
+        for gr in range(a["obj_group_begin"][o], a["obj_group_begin"][o + 1]):
+            kind, off = a["group_kind"][gr], a["group_off"][gr]
+            width = (4, 7, 6, 4)[kind]
+            for j in range(a["group_count"][gr]):
+                c = c_(a["prims"][off + width * j:off + width * (j + 1)])
+                d = xo - c[:3, None]
+                if kind in (0, 3):                  # spheres
+                    dist = np.sqrt((d * d).sum(0))
+                    s, go = dist - c[3], d / dist
+                elif kind == 1:                     # rounded boxes
+                    qq = np.abs(d) - c[3:6, None] + c[6]
+                    mq, rq = qq.max(0), np.maximum(qq, 0)
+                    norm = np.sqrt((rq * rq).sum(0))
+                    s = np.minimum(mq, 0) + norm - c[6]
+                    inner = (np.arange(3)[:, None] == qq.argmax(0)).astype(
+                        dtype)
+                    go = np.sign(d) * np.where(
+                        mq < 0, inner, rq / np.where(norm > 0, norm, 1))
+                else:                               # sharp boxes
+                    t = np.abs(d) - c[3:6, None]
+                    s = t.max(0)
+                    go = np.sign(d) * (np.arange(3)[:, None]
+                                       == t.argmax(0)).astype(dtype)
+                take = s < best
+                best = np.where(take, s, best)
+                grad = np.where(take, R @ go, grad)
+    return best, grad
+
+
 def model_mr_terms(ints, floats, q, dtype=np.float64, every_row=False):
     """g (D, N), Hqq (D, D, N), cost (N) computed as mr_terms.cu computes
     them from the packed buffers alone, in ``dtype`` (float32: each
@@ -358,7 +415,7 @@ def model_mr_terms(ints, floats, q, dtype=np.float64, every_row=False):
     each block pair's row entries in their order, a row adding its
     Jacobian's g and H terms in the lanes where it is active (r != 0), or
     with ``every_row`` in every lane (an inactive row then adds +-0).  The
-    scene's objects are spheres."""
+    scene's objects are primitive groups (no grids)."""
     a = mr_sections(ints, floats)
     t_ = np.dtype(dtype).type
     q = q.astype(dtype)
@@ -409,24 +466,7 @@ def model_mr_terms(ints, floats, q, dtype=np.float64, every_row=False):
     ws_min, ws_max = c_(a["ws_min"])[:, None], c_(a["ws_max"])[:, None]
 
     def sdf(x):
-        """Min-over-spheres SDF and the first minimum's gradient."""
-        best = np.full(N, np.inf, dtype)
-        grad = np.zeros((3, N), dtype)
-        for o in range(a["NOBJ"]):
-            Ro = c_(a["obj_rot"][o]).reshape(3, 3)
-            xo = Ro.T @ (x - c_(a["obj_pos"][o])[:, None])
-            for gr in range(a["obj_group_begin"][o],
-                            a["obj_group_begin"][o + 1]):
-                assert a["group_kind"][gr] in (0, 3)
-                off = a["group_off"][gr]
-                for j in range(a["group_count"][gr]):
-                    ctr = c_(a["prims"][off + 4 * j:off + 4 * j + 4])
-                    d = xo - ctr[:3, None]
-                    dist = np.sqrt((d * d).sum(0))
-                    take = dist - ctr[3] < best
-                    best = np.where(take, dist - ctr[3], best)
-                    grad = np.where(take, Ro @ (d / dist), grad)
-        return best, grad
+        return scene_sdf_grad(a, x, dtype=dtype)
 
     def faces(x):
         f = np.concatenate([x - ws_min, ws_max - x])

@@ -201,7 +201,7 @@ def test_with_pose_reaches_the_terms_and_the_scene_packing():
         np.testing.assert_allclose(g.numpy(), r, rtol=0,
                                    atol=1e-5 * max(np.abs(r).max(), 1e-30))
     assert float(np.abs(np.asarray(ref[2])).max()) > 0.0
-    _, floats = _pack_scene(task.df_obj_list)
+    _, floats = _pack_scene(task.df_obj_list, 3)
     np.testing.assert_allclose(floats[1][0], POSE[0])
     np.testing.assert_allclose(floats[0][0],
                                moved.rotation_matrix().numpy().reshape(9))

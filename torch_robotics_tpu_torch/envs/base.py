@@ -1,6 +1,7 @@
 """Environment base: workspace limits, obstacle objects, an optional
-precomputed SDF grid of the fixed objects, an occupancy map builder and
-planner presets (counterpart of torch_robotics_tpu/envs/base.py)."""
+precomputed SDF grid of the fixed objects, an occupancy map builder,
+planner presets and rendering (counterpart of
+torch_robotics_tpu/envs/base.py)."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -123,3 +124,16 @@ class EnvBase:
     def get_mpot_params(self, robot=None) -> dict:
         """MPOT hyperparameters (``solve.MPOTParams.from_preset``)."""
         return self._get_params("mpot", robot)
+
+    # rendering (host-side matplotlib, viz/render_env.py)
+    def render(self, ax=None):
+        from ..viz.render_env import render_env
+        render_env(self, ax)
+
+    def render_sdf(self, ax=None, fig=None):
+        from ..viz.render_env import render_env_sdf
+        render_env_sdf(self, ax, fig)
+
+    def render_grad_sdf(self, ax=None, fig=None):
+        from ..viz.render_env import render_env_grad_sdf
+        render_env_grad_sdf(self, ax, fig)

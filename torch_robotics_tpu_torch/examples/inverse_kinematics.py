@@ -1,12 +1,13 @@
 """Batched Adam IK for the Panda to a target SE(3) pose, and the valid
-solutions' skeletons (counterpart of examples/inverse_kinematics.py; its
-3-D plot waits for the port of ``viz/``).
+solutions' skeletons (counterpart of examples/inverse_kinematics.py).
 
     python -m torch_robotics_tpu_torch.examples.inverse_kinematics
     python torch_robotics_tpu_torch/examples/inverse_kinematics.py \\
-        [--device cpu] [--batch-size 10] [--max-iters 500]
+        [--device cpu] [--batch-size 10] [--max-iters 500] [--plot PATH]
 
-Runs on the card unless ``--device cpu`` is given.
+Runs on the card unless ``--device cpu`` is given.  ``--plot PATH`` draws
+the target frame and the valid solutions' skeletons in 3-D to an image
+(needs matplotlib, raises ImportError without it).
 """
 import argparse
 import math
@@ -25,7 +26,7 @@ from torch_robotics_tpu_torch.kin import (  # noqa: E402
 
 
 def main(device: str = "cuda", batch_size: int = 10,
-         max_iters: int = 500):
+         max_iters: int = 500, plot=None):
     gen = fix_random_seed(0, device=device)
     pos_target = torch.tensor([0.2, 0.4, 0.1], device=gen.device)
     rot_target = (z_rot(torch.tensor(-math.pi / 2), device=device)
@@ -48,6 +49,20 @@ def main(device: str = "cuda", batch_size: int = 10,
                  for i in range(batch_size) if bool(valid[i])]
     for sk in skeletons[:3]:
         print("ee_link at", sk.positions[panda.link_index("ee_link")])
+    if plot:
+        import matplotlib
+        matplotlib.use("Agg")
+        from torch_robotics_tpu_torch.viz import (create_fig_and_axes,
+                                                  plot_coordinate_frame)
+        fig, ax = create_fig_and_axes(3)
+        ax.set_xlim(-0.75, 0.75)
+        ax.set_ylim(-0.75, 0.75)
+        ax.set_zlim(-0.5, 1)
+        plot_coordinate_frame(ax, rot_target, pos_target, arrow_length=0.15)
+        for sk in skeletons:
+            sk.draw_skeleton(ax=ax, color="blue", alpha=0.5)
+        fig.savefig(plot, dpi=120)
+        print(f"saved {plot}")
     return res, skeletons
 
 
@@ -56,5 +71,7 @@ if __name__ == "__main__":
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch-size", type=int, default=10)
     ap.add_argument("--max-iters", type=int, default=500)
+    ap.add_argument("--plot", default=None, metavar="PATH",
+                    help="draw the target and the valid skeletons")
     args = ap.parse_args()
-    main(args.device, args.batch_size, args.max_iters)
+    main(args.device, args.batch_size, args.max_iters, plot=args.plot)

@@ -3,13 +3,14 @@
 
     python -m torch_robotics_tpu_torch.examples.planning_point_mass
     python torch_robotics_tpu_torch/examples/planning_point_mass.py \\
-        [--device cpu]
+        [--device cpu] [--plot PATH]
 
 A batched GPMP2 solve from samples of the GP prior with the scene's
 preset, then the collision / free split and the metrics.  Runs on the
-card unless ``--device cpu`` is given.  The reference's plot of the
-trajectories is left out: it needs ``viz/``, which the port does not
-have.
+card unless ``--device cpu`` is given.  ``--plot PATH`` draws the scene
+and the collision-coloured trajectories to an image
+(``viz.PlanningVisualizer``; needs matplotlib, raises ImportError
+without it).
 """
 import argparse
 import dataclasses
@@ -30,7 +31,7 @@ from torch_robotics_tpu_torch.trajectory import (  # noqa: E402
 
 
 def main(device: str = "cuda", seed: int = 2, num_samples=None,
-         opt_iters=None) -> dict:
+         opt_iters=None, plot=None) -> dict:
     env = EnvDense2D(device=device)
     robot = RobotPointMass.create(device=device)
     task = PlanningTask(env=env, robot=robot, obstacle_cutoff_margin=0.02)
@@ -55,6 +56,14 @@ def main(device: str = "cuda", seed: int = 2, num_samples=None,
           f"{frac_free * 100:.0f}% collision-free")
     print("path length (mean):", path_length)
     print("smoothness (mean):", smoothness)
+    if plot:
+        import matplotlib
+        matplotlib.use("Agg")
+        from torch_robotics_tpu_torch.viz import PlanningVisualizer
+        fig, _ = PlanningVisualizer(task=task).render_robot_trajectories(
+            trajs=trajs, start_state=start[:2], goal_state=goal[:2])
+        fig.savefig(plot, dpi=120)
+        print(f"saved {plot}")
     return dict(n_trajs=trajs.shape[0], fraction_free=frac_free,
                 n_free=0 if free is None else free.shape[0],
                 collision_intensity=task.compute_collision_intensity_trajs(
@@ -67,5 +76,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=2)
+    ap.add_argument("--plot", default=None, metavar="PATH",
+                    help="draw the trajectories to an image")
     args = ap.parse_args()
-    main(args.device, args.seed)
+    main(args.device, args.seed, plot=args.plot)

@@ -3,8 +3,8 @@ base points (counterpart of torch_robotics_tpu/geom/objects.py).
 
 A grasped object is a posed ObjectField (its pose relative to the hand
 link) plus a set of base collision points (box vertices and face centres)
-that the robot's FK carries into the world frame.  Rendering waits for the
-port of ``viz``.
+that the robot's FK carries into the world frame.  ``render`` draws the
+object field (``viz/render_primitives.py``).
 """
 from __future__ import annotations
 
@@ -38,6 +38,9 @@ class GraspedObject:
     @property
     def n_base_points_for_collision(self) -> int:
         return self.base_points_for_collision.shape[0]
+
+    def render(self, ax, pos=None, ori=None, color="gray", **kw):
+        self.object_field.render(ax, pos=pos, ori=ori, color=color, **kw)
 
 
 def _box_collision_points(size, device="cuda") -> torch.Tensor:

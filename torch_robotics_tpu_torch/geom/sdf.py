@@ -46,6 +46,12 @@ class Spheres:
         d = safe_norm(x[..., None, :] - self.centers, dim=-1)
         return torch.amin(d - self.radii, dim=-1)
 
+    def render(self, ax, pos=None, ori=None, color="gray", cmap="gray",
+               **kw):
+        from ..viz.render_primitives import render_spheres
+        render_spheres(self, ax, pos=pos, ori=ori, color=color, cmap=cmap,
+                       **kw)
+
 
 @dataclasses.dataclass(frozen=True)
 class SharpBoxes:
@@ -65,6 +71,11 @@ class SharpBoxes:
     def signed_distance(self, x):
         d = torch.abs(x[..., None, :] - self.centers) - self.half_sizes
         return torch.amin(torch.amax(d, dim=-1), dim=-1)
+
+    def render(self, ax, pos=None, ori=None, color="gray", cmap="gray",
+               **kw):
+        from ..viz.render_primitives import render_boxes
+        render_boxes(self, ax, pos=pos, ori=ori, color=color, cmap=cmap, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +105,12 @@ class RoundedBoxes:
         sdfs = (torch.clamp(max_q, max=0.0)
                 + safe_norm(torch.relu(q), dim=-1) - self.round_radii)
         return torch.amin(sdfs, dim=-1)
+
+    def render(self, ax, pos=None, ori=None, color="gray", cmap="gray",
+               **kw):
+        from ..viz.render_primitives import render_boxes
+        render_boxes(self, ax, pos=pos, ori=ori, color=color, cmap=cmap,
+                     rounding=self.round_radii, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,6 +172,14 @@ class ObjectField:
     def compute_signed_distance(self, x):
         """The reference's name for ``signed_distance``."""
         return self.signed_distance(x)
+
+    def render(self, ax, pos=None, ori=None, color="gray", **kw):
+        """Draw every group at the object's pose (or ``pos`` / ``ori``) on
+        a matplotlib axis (``viz/render_primitives.py``)."""
+        pos = self.pos if pos is None else pos
+        ori = self.ori if ori is None else ori
+        for f in self.fields:
+            f.render(ax, pos=pos, ori=ori, color=color, **kw)
 
 
 def _tensor(a, device):

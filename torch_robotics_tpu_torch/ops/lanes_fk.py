@@ -526,9 +526,13 @@ def hinge_rows(lay, pts, J, q_cols=None):
         rows_r.append(r)
         rows_J.append(-act[:, None, :] * _contract3(grad, J_sub))
 
-    obj_pts = pts[lay.obj_pos]                                  # (Po, ws, N)
-    J_obj = J[lay.obj_pos]
-    Po, ws = obj_pts.shape[:2]
+    # the scene and the workspace rows read a point's first ws_dim
+    # coordinates and its Jacobian's first ws_dim rows (a 3-D robot in a
+    # 2-D scene is cut to the plane); the pairs read all three
+    ws = lay.ws_min.shape[0]
+    obj_pts = pts[lay.obj_pos][:, :ws]                          # (Po, ws, N)
+    J_obj = J[lay.obj_pos][:, :, :ws]
+    Po = obj_pts.shape[0]
     if lay.df_obj_list:
         flat = obj_pts.permute(1, 0, 2).reshape(ws, Po * N)
         val, grad = sdf_and_grad_lanes(lay.df_obj_list, flat)
@@ -831,17 +835,18 @@ def obstacle_terms_lanes_multirobot_factory(task, strict: bool = True):
         unscaled by the collision weight."""
         dtype = q_cols.dtype
         N = q_cols.shape[-1]
+        ws = lay.ws_min.shape[0]
         members = lay.member_points(q_cols)
 
         sdf_val, sdf_grad = [None] * n_mem, [None] * n_mem
         if lay.df_obj_list:
-            obj = torch.cat([p[:lay.obj_counts[i]]
+            obj = torch.cat([p[:lay.obj_counts[i], :ws]
                              for i, (p, _) in enumerate(members)])
             n_obj = obj.shape[0]
             val, grad = sdf_and_grad_lanes(
-                lay.df_obj_list, obj.permute(1, 0, 2).reshape(3, n_obj * N))
+                lay.df_obj_list, obj.permute(1, 0, 2).reshape(ws, n_obj * N))
             val = val.reshape(n_obj, N)
-            grad = grad.reshape(3, n_obj, N).permute(1, 0, 2)
+            grad = grad.reshape(ws, n_obj, N).permute(1, 0, 2)
             for i in range(n_mem):
                 lo, hi = int(lay.obj_off[i]), int(lay.obj_off[i + 1])
                 sdf_val[i], sdf_grad[i] = val[lo:hi], grad[lo:hi]
@@ -849,7 +854,8 @@ def obstacle_terms_lanes_multirobot_factory(task, strict: bool = True):
         member_rows = []                   # (r (R_i, N), Jr (R_i, d_i, N))
         for i, (pts, J) in enumerate(members):
             P_obj = lay.obj_counts[i]
-            obj_pts, J_obj = pts[:P_obj], J[:P_obj]
+            # cut to the scene's ws_dim, as hinge_rows
+            obj_pts, J_obj = pts[:P_obj, :ws], J[:P_obj, :, :ws]
             # margin + cutoff in q's dtype, as the reference's structured
             # terms add them
             thresh = (lay.members[i].object_margins.to(dtype)

@@ -32,6 +32,13 @@ each launch takes as one more pointer.  The kernels look a cell up in it
 themselves (``csrc/kin_scene.cuh::grid_sdf``), where the TPU kernel
 gathered the cells' rows in an XLA stage before the kernel.
 
+A 2-D scene (``ws_dim`` = 2: the reference's fused factories cut a
+kinematic robot's 3-D points and their Jacobians' rows to x and y for the
+scene and the workspace rows, and keep all three for the pairs) is packed
+as a 3-D scene whose SDF does not depend on z (``_pack_scene``), with the
+workspace's z bounds at -inf and +inf (``pack_cost_params``): the kernels
+run it as they run a 3-D one, and its z components come out 0.
+
 A robot that holds a grasped object has collision points fixed in the
 frame of its grasped link beside the link origins: each kernel's packing
 carries a point as (link, local offset), the offsets as a float section
@@ -69,9 +76,10 @@ A task past a kernel's caps keeps its plain terms or cost on the CPU, as
 the reference's fused factories return None there, and raises
 NotImplementedError, in the kernel's words, when a CUDA tensor reaches the
 kernel: nothing falls back to the plain version on the card.  The terms
-kernels' caps (``_refusal``): a scene object they do not take, a 2-D
-scene, a primitive group past what their pick of the nearest primitive
-indexes, more than ``MAX_DOF`` joints for a single robot (terms.cu:
+kernels' caps (``_refusal``): a scene object they do not take, a scene
+whose dimension is not the workspace's, a 2-D object posed off its plane,
+a primitive group past what their pick of the nearest primitive indexes,
+more than ``MAX_DOF`` joints for a single robot (terms.cu:
 ``terms_kernel<D>`` up to 8 joints, ``terms_wide_kernel`` up to 32), or
 for a MultiRobot more than ``MR_MAX_MEMBERS`` members, a member past
 ``MR_MAX_DOF`` joints or with interpolated points; or a block past the
@@ -160,20 +168,31 @@ _GROUP_KIND = {"Spheres": 0, "RoundedBoxes": 1, "SharpBoxes": 2}
 _GRID_INTS, _GRID_FLOATS = 4, 8   # kin_scene.cuh grid_sdf's header
 
 
-def _scene_refusal(df_obj_list):
-    """The words in which every CUDA terms and cost kernel refuses a scene,
-    or None where they take it: an object other than an ObjectField or a
-    GridSDF, a 2-D scene, or more primitive groups or primitives in a
-    group than the terms kernels' pick of the nearest primitive holds
-    (cost.cuh: scene_sdf_pick packs it as group << 16 | index)."""
+def _scene_refusal(df_obj_list, ws_dim: int):
+    """The words in which every CUDA terms and cost kernel refuses a scene
+    in a ``ws_dim``-D workspace, or None where they take it: an object
+    other than an ObjectField or a GridSDF, an object of another dimension
+    than the workspace (so mixed dimensions too), a 2-D object whose pose
+    lifts its plane off z = 0 (``_planar_rotation``), or more primitive
+    groups or primitives in a group than the terms kernels' pick of the
+    nearest primitive holds (cost.cuh: scene_sdf_pick packs it as group <<
+    16 | index)."""
     from ..geom.grid_sdf import GridSDF
     from ..geom.sdf import ObjectField
     for obj in df_obj_list:
         if not isinstance(obj, (ObjectField, GridSDF)):
             return ("the CUDA terms kernels take ObjectField and GridSDF "
                     "objects, not %s" % type(obj).__name__)
-        if obj.dim != 3:
-            return "the CUDA terms kernels take 3-D scenes"
+    dims = {obj.dim for obj in df_obj_list}
+    if ws_dim not in (2, 3) or not dims <= {ws_dim}:
+        return ("the CUDA terms kernels take a 2-D or 3-D scene of the "
+                "workspace's dimension (%s objects in a %d-D workspace)"
+                % ("/".join("%d-D" % k for k in sorted(dims)), ws_dim))
+    for obj in df_obj_list:
+        if (isinstance(obj, ObjectField) and obj.dim == 2
+                and _planar_rotation(obj) is None):
+            return ("the CUDA terms kernels take 2-D objects whose pose "
+                    "keeps their plane at z = 0")
     groups = [f for obj in df_obj_list for f in getattr(obj, "fields", ())]
     if len(groups) > 1 << 15 or any(f.centers.shape[0] > 1 << 16
                                     for f in groups):
@@ -182,15 +201,45 @@ def _scene_refusal(df_obj_list):
     return None
 
 
-def _pack_scene(df_obj_list):
+def _planar_rotation(obj):
+    """A 2-D object's rotation as the kernels read it, (3, 3) float32
+    numpy with its third row and column zeroed, or None where that changes
+    its SDF.  The reference lifts a 2-D point to (x, y, 0) and cuts R^T (x
+    - pos) to its first two coordinates: those are R[0, i] (x - p0) + R[1,
+    i] (y - p1) + R[2, i] (0 - p2), whose last term is 0 unless the
+    rotation tilts the plane and pos lies off it.  With row 2 zeroed the
+    kernels' object coordinates ignore the point's z, and with column 2
+    zeroed their third coordinate is 0, so a 2-D primitive packed as a 3-D
+    one at z = 0 whose z half-size is infinite (``_pack_scene``) has the
+    2-D primitive's SDF, and its world gradient has the reference's x and
+    y components and a zero z."""
+    R = obj.rotation_matrix().cpu().numpy().astype(np.float32)
+    if np.any(R[2, :2] * np.float32(obj.pos[2].item()) != 0):
+        return None
+    R = R.copy()
+    R[2, :] = 0
+    R[:, 2] = 0
+    return R
+
+
+def _pack_scene(df_obj_list, ws_dim: int):
     """Scene objects -> (ints: object group ranges, group kinds, counts,
     offsets, each object's grid (-1 for an analytic object), the grids'
     headers (first row in ``scene_grid_table``, cmap_dim); floats: object
     rotations, positions, the grids' headers (lower limits, 0, float32
     extent, 0), primitive tables), the scene sections of the packed
-    buffers.  A grid is an object with the identity pose and no groups."""
+    buffers.  A grid is an object with the identity pose and no groups.
+    ``ws_dim`` is the task's workspace dimension (``_scene_refusal``).
+
+    The kernels read every scene in 3-D.  A 2-D scene is packed as the
+    3-D scene whose SDF at (x, y, z) is the 2-D scene's at (x, y) for any
+    z: an object's rotation with its third row and column zeroed
+    (``_planar_rotation``), each primitive at z = 0 (a circle a sphere; a
+    box's z half-size +inf, so its z face never binds), and each grid with
+    a third axis of one cell (cmap 1, lower limit 0, extent 1: every z
+    falls in cell 0) whose table rows have gz = 0 (``GridSDF.table``)."""
     from ..geom.grid_sdf import GridSDF
-    refusal = _scene_refusal(df_obj_list)
+    refusal = _scene_refusal(df_obj_list, ws_dim)
     if refusal is not None:
         raise NotImplementedError(refusal)
     group_kind, group_count, group_off, obj_begin = [], [], [], [0]
@@ -200,8 +249,12 @@ def _pack_scene(df_obj_list):
         if isinstance(obj, GridSDF):
             lim = obj.limits.cpu().numpy().astype(np.float32)
             extent = np.abs(lim[1] - lim[0])         # float32, as the lookup
+            cmap = list(obj.cmap_dim)
+            if obj.dim == 2:                         # a third axis of 1 cell
+                lim, extent, cmap = (np.append(lim, [[0], [1]], axis=1),
+                                     np.append(extent, 1), cmap + [1])
             obj_grid.append(len(grid_i))
-            grid_i.append([n_rows] + list(obj.cmap_dim))
+            grid_i.append([n_rows] + cmap)
             grid_f.append(np.concatenate([lim[0], [0], extent, [0]]))
             n_rows += obj.n_cells
             obj_rot.append(np.eye(3).reshape(9))
@@ -209,13 +262,21 @@ def _pack_scene(df_obj_list):
             obj_begin.append(len(group_kind))
             continue
         obj_grid.append(-1)
-        obj_rot.append(obj.rotation_matrix().cpu().numpy().reshape(9))
+        planar = obj.dim == 2
+        obj_rot.append((_planar_rotation(obj) if planar
+                        else obj.rotation_matrix().cpu().numpy()).reshape(9))
         obj_pos.append(obj.pos.cpu().numpy())
         for f in obj.fields:
             kind = type(f).__name__
-            cols = [f.centers, f.radii[:, None]] if kind == "Spheres" else (
-                [f.centers, f.half_sizes, f.round_radii[:, None]]
-                if kind == "RoundedBoxes" else [f.centers, f.half_sizes])
+            n = f.centers.shape[0]
+            centers, half = f.centers, getattr(f, "half_sizes", None)
+            if planar:                   # z = 0, an unbounded z half-size
+                centers = torch.cat([centers, centers.new_zeros((n, 1))], 1)
+                half = None if half is None else torch.cat(
+                    [half, half.new_full((n, 1), float("inf"))], 1)
+            cols = [centers, f.radii[:, None]] if kind == "Spheres" else (
+                [centers, half, f.round_radii[:, None]]
+                if kind == "RoundedBoxes" else [centers, half])
             table = torch.cat(cols, dim=1).cpu().numpy()
             group_kind.append(_GROUP_KIND[kind])
             group_count.append(table.shape[0])
@@ -605,7 +666,10 @@ def pack_cost_params(lay):
     ints[12]); an object's 12 floats (rotation, position); a grid's header,
     8 floats (lower limits, extent, each padded to 4); each primitive
     group's table, padded to a multiple of 4 floats (a sphere is one
-    load).  A sphere
+    load); the workspace bounds, 3 + 3 floats at the end, carry the task's
+    ws_dim: a 2-D task's z bounds are -inf and +inf, so its z faces are
+    never minimal and the six faces give the reference's four (the first
+    minimal face wins in both orders).  A sphere
     group whose radii are all equal gets kind 3, which the kernel scores
     with one square root.
 
@@ -673,8 +737,10 @@ def _cost_packing(lay):
     # a thread stages at most kMaxQ q columns (cost.cu): past 8 joints a
     # single robot's rows split over more threads too
     T = max(T, min(_COST_MAX_TPL, -(-doff // _COST_MAX_Q)))
+    ws_min, ws_max = (b.cpu().numpy().astype(np.float32)
+                      for b in (lay.ws_min, lay.ws_max))
     scene_i, (obj_rot, obj_pos, grid_f, prims) = _pack_scene(
-        lay.df_obj_list)
+        lay.df_obj_list, len(ws_min))
     width = {0: 4, 1: 7, 2: 6}
     tables, off, kinds = [], [], []
     for kind, cnt, o in zip(*scene_i[1:4]):
@@ -698,7 +764,8 @@ def _cost_packing(lay):
                      np.stack([t for _, _, t, _ in members]),
                      lay.obj_thresh.cpu().numpy(),
                      lay.self_margins.cpu().numpy(),
-                     lay.ws_min.cpu().numpy(), lay.ws_max.cpu().numpy()])
+                     np.append(ws_min, [-np.inf] * (3 - len(ws_min))),
+                     np.append(ws_max, [np.inf] * (3 - len(ws_max)))])
     return ints, floats, step_cls
 
 
@@ -914,7 +981,7 @@ def _refusal(task, members, multi: bool = False):
     None for such a task, it runs its plain terms; here the task keeps
     them on the CPU and its hooks raise NotImplementedError with these
     words on a CUDA tensor."""
-    refusal = _scene_refusal(task.df_obj_list)
+    refusal = _scene_refusal(task.df_obj_list, task.ws_min.shape[0])
     if refusal is not None:
         return refusal
     if not multi:
@@ -959,7 +1026,7 @@ def _cost_refusal(task, members, multi: bool = False):
     factory returns None), rows that read no member's net, which is what
     this kernel sums on the members' packing.  The block is checked on the
     packing (``_cost_block``)."""
-    refusal = _scene_refusal(task.df_obj_list)
+    refusal = _scene_refusal(task.df_obj_list, task.ws_min.shape[0])
     if refusal is not None:
         return refusal
     if len(members) > COST_MAX_MEMBERS:
