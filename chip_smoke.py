@@ -881,6 +881,20 @@ MR_CELLS = {
 # at z = 0.1.  The pair: config 4's two Pandas in EnvDense2D.
 D2_SCENE, D2_CELL, D2_CUTOFF, D2_SHARP_N = "EnvPlanar2Link", 0.01, 0.03, 4096
 D2_MR_POSES, D2_DRAW, D2_MAX_ROUNDS = MR_POSES[:2], 64, 8
+# K6 and K7 past eight joints (phases riccati_wide and ilqr_wide): the
+# joint counts held on random inputs (every group width of both shared
+# routes: 32, 64 and 128 threads a lane for K6, 16, 32 and 64 for K7), at
+# T = 6 and B = 100; a lane's bits also at RW_RAGGED_B (the inputs tiled)
+# and RW_SMALL_B lanes; the iLQR cells past eight joints: the dual-arm
+# TIAGo at phase ilqr's protocol (B = 512, H = 32, 30 iterations, and its
+# tracking loop), config 4 and five Pandas at config 4's B = 256.
+# RW_F64_CASES, the (d, P) where two float32 orders of the sweep differ by
+# more than RICCATI_TOL (1.1e-5 and 1.4e-5 of max|ref| on the H100, and
+# each as far from float64, 1.9e-5 to 2.5e-5), are held to float64 at the
+# fixed RW_F64_LIMIT instead, beside a bfloat16 control that must miss it
+RW_DOFS = (9, 12, 14, 16, 17, 20, 24, 32, 33, 35, 48, 64)
+RW_T, RW_B, RW_RAGGED_B, RW_SMALL_B = 6, 100, 510, 37
+RW_F64_CASES, RW_F64_LIMIT = ((48, 1), (64, 1)), 5e-5
 
 
 # the script's start: every phase line carries its seconds since then
@@ -1519,6 +1533,8 @@ def phase_build():
                 for d in range(1, 9)},
              **{"rollout_kernelILi%dE" % d: "rollout_kernel<%d>" % d
                 for d in range(1, 9)},
+             "19riccati_wide_kernel": "riccati_wide_kernel",
+             "19rollout_wide_kernel": "rollout_wide_kernel",
              **{"15mr_terms_kernelILi%dE" % d: "mr_terms_kernel<%d>" % d
                 for d in (8, 16, 24, 32)},
              **{"btridiag_cols_kernelILi%dE" % w: "btridiag_cols_kernel<%d>" % w
@@ -1561,11 +1577,18 @@ def phase_build():
             if v.startswith(("cost_kernel<", "terms_kernel<",
                              "terms_wide_kernel<", "mr_terms_kernel<",
                              "rollout_kernel<", "btridiag_subst",
-                             "btridiag_sweep<", "cr_kernel<"))]:
+                             "btridiag_sweep<", "cr_kernel<",
+                             "riccati_wide_kernel", "rollout_wide_kernel"))]:
         line = report.get(label, "")
         check("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
               "loads" in line, "%s: ptxas reports a stack frame, a spill or "
               "no line: %r" % (label, line))
+    # the narrow sweep keeps its columns in registers: no spill at any D
+    for d in range(1, 9):
+        line = report.get("riccati_kernel<%d>" % d, "")
+        check("0 bytes spill stores, 0 bytes spill loads" in line,
+              "riccati_kernel<%d>: ptxas reports a spill or no line: %r"
+              % (d, line))
     for k in kernels:
         k.lib()
     from torch_robotics_tpu_torch.ops.sdf_kernel import KERNEL as SDF_KERNEL
@@ -2398,6 +2421,51 @@ def capture_mpc_first(task, start, goal):
                                    x_ref=x_ref)
 
 
+def hold_plain(key, fn, ins, tol, results):
+    """A K6 or K7 wrapper's kernel on ``ins`` held to its plain version at
+    ``tol`` of max|ref| -> the kernel's outputs."""
+    import torch
+    got, ref = fn(*ins), fn.plain(*ins)
+    err, rel = max_errs(got, ref)
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          key + ": non-finite")
+    check(rel <= tol, "%s: kernel vs plain %.3g of max|ref|" % (key, rel))
+    results[key] = dict(abs=err, rel_to_max=rel)
+    return got
+
+
+def hold_f64(key, fn, ins, tol, results, limit=None):
+    """A K6 or K7 wrapper's kernel on ``ins`` held to its plain version run
+    in float64 -> the kernel's outputs.  By default no worse than twice
+    the plain float32 version's error + ``tol`` of max|ref| (the rule for
+    the iLQR path's inputs, kg / r = 4e10, where float32 cannot order two
+    sweeps); with ``limit``, within that fixed share of max|ref|, which
+    the plain version run in bfloat16 (the control) must miss."""
+    import torch
+    got, ref = fn(*ins), fn.plain(*ins)
+    ref64 = fn.plain(*[t.double() for t in ins])
+    err, rel = max_errs(got, ref)
+    rel_k64 = max_errs([g.double() for g in got], ref64)[1]
+    rel_p64 = max_errs([g.double() for g in ref], ref64)[1]
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          key + ": non-finite")
+    out = dict(abs=err, rel_to_max=rel, kernel_vs_f64=rel_k64,
+               plain_vs_f64=rel_p64)
+    if limit is None:
+        check(rel_k64 <= 2.0 * rel_p64 + tol,
+              "%s: kernel vs float64 %.3g, plain float32 vs float64 %.3g "
+              "of max|ref|" % (key, rel_k64, rel_p64))
+    else:
+        ctl = fn.plain(*[t.bfloat16() for t in ins])
+        rel_c64 = max_errs([c.double() for c in ctl], ref64)[1]
+        check(rel_k64 <= limit < rel_c64,
+              "%s: kernel vs float64 %.3g of max|ref|, limit %.3g, "
+              "bfloat16 control %.3g" % (key, rel_k64, limit, rel_c64))
+        out.update(limit=limit, bfloat16_vs_f64=rel_c64)
+    results[key] = out
+    return got
+
+
 def hold_sweep_random(key, d, P, T, Bn, seed, results):
     """K6 vs its plain version on random well-conditioned inputs (kg = 1e4,
     r = 1e-4) at d joints, P rows, T steps and Bn lanes, to RICCATI_TOL of
@@ -2412,15 +2480,9 @@ def hold_sweep_random(key, d, P, T, Bn, seed, results):
            for shape in ((T, d, Bn), (T, m, Bn), (T, m, P, Bn), (m, Bn))]
     fn = riccati_backward_kernel_factory(d, m, P, T, IL_PARAMS["dt"], 1e-4,
                                          1e-6, 1e4)
-    got, ref = fn(*ins), fn.plain(*ins)
-    err, rel = max_errs(got, ref)
-    check(all(bool(torch.isfinite(g).all()) for g in got),
-          key + ": non-finite")
-    check(rel <= RICCATI_TOL, "%s: kernel vs plain %.3g of max|ref|"
-          % (key, rel))
+    hold_plain(key, fn, ins, RICCATI_TOL, results)
     cfg = riccati_launch_config(d, P, Bn)
-    results[key] = dict(abs=err, rel_to_max=rel,
-                        lanes=cfg["lanes_per_block"], stages=cfg["stages"])
+    results[key].update(lanes=cfg["lanes_per_block"], stages=cfg["stages"])
     return cfg
 
 
@@ -2466,56 +2528,30 @@ def phase_riccati(seen, mpc_seen):
     r_rand = [rand(T + 1, m, IL_B), rand(T, d, IL_B), rand(T, d, IL_B),
               rand(T, d, m, IL_B, scale=0.1)]
     results = {}
-
-    def hold_f64(key, fn, ins, tol):
-        got, ref = fn(*ins), fn.plain(*ins)
-        ref64 = fn.plain(*[t.double() for t in ins])
-        err, rel = max_errs(got, ref)
-        rel_k64 = max_errs([g.double() for g in got], ref64)[1]
-        rel_p64 = max_errs([g.double() for g in ref], ref64)[1]
-        check(all(bool(torch.isfinite(g).all()) for g in got),
-              key + ": non-finite")
-        check(rel_k64 <= 2.0 * rel_p64 + tol,
-              "%s: kernel vs float64 %.3g, plain float32 vs float64 "
-              "%.3g of max|ref|" % (key, rel_k64, rel_p64))
-        results[key] = dict(abs=err, rel_to_max=rel,
-                            kernel_vs_f64=rel_k64, plain_vs_f64=rel_p64)
-
     for kname, fn, path_ins, rand_fn, rand_ins, tol in (
             ("riccati", sweep, s_ins, rand_sweep, s_rand, RICCATI_TOL),
             ("rollout", roll, r_ins, roll, r_rand, ROLLOUT_TOL)):
         for Bn in (IL_B, 100):
             def cut(ins):
                 return [t[..., :Bn].contiguous() for t in ins]
-            key = "%s_random_B%d" % (kname, Bn)
-            got, ref = rand_fn(*cut(rand_ins)), rand_fn.plain(*cut(rand_ins))
-            err, rel = max_errs(got, ref)
-            check(all(bool(torch.isfinite(g).all()) for g in got),
-                  key + ": non-finite")
-            check(rel <= tol, "%s: kernel vs plain %.3g of max|ref|"
-                  % (key, rel))
-            results[key] = dict(abs=err, rel_to_max=rel)
-            hold_f64("%s_path_B%d" % (kname, Bn), fn, cut(path_ins), tol)
+            hold_plain("%s_random_B%d" % (kname, Bn), rand_fn,
+                       cut(rand_ins), tol, results)
+            hold_f64("%s_path_B%d" % (kname, Bn), fn, cut(path_ins), tol,
+                     results)
             if kname == "riccati":
                 hold_f64("riccati_mpc_T%d_B%d" % (m_args[3], Bn), mpc,
-                         cut(m_ins), tol)
+                         cut(m_ins), tol, results)
             else:
                 hold_f64("rollout_mpc_T%d_B%d" % (mr_args[2], Bn), mpc_roll,
-                         cut(mr_ins), tol)
+                         cut(mr_ins), tol, results)
     # K7 at every d (each instantiation), random inputs
     for dd in range(1, 9):
         mm = 2 * dd
         fn = linesearch_rollout_kernel_factory(dd, mm, 6, dt, alphas)
         ins = [rand(7, mm, 100), rand(6, dd, 100), rand(6, dd, 100),
                rand(6, dd, mm, 100, scale=0.1)]
-        key = "rollout_random_d%d_T6_B100" % dd
-        got, ref = fn(*ins), fn.plain(*ins)
-        err, rel = max_errs(got, ref)
-        check(all(bool(torch.isfinite(g).all()) for g in got),
-              key + ": non-finite")
-        check(rel <= ROLLOUT_TOL, "%s: kernel vs plain %.3g of max|ref|"
-              % (key, rel))
-        results[key] = dict(abs=err, rel_to_max=rel)
+        hold_plain("rollout_random_d%d_T6_B100" % dd, fn, ins, ROLLOUT_TOL,
+                   results)
 
     # every group size, and the launch shapes that large P takes
     for dd in range(1, 9):
@@ -3277,6 +3313,8 @@ def all_kernels():
                 btridiag_subst=btridiag_kernel.SUBST_KERNEL,
                 riccati=riccati_kernel.RICCATI_KERNEL,
                 rollout=riccati_kernel.ROLLOUT_KERNEL,
+                riccati_wide=riccati_kernel.RICCATI_WIDE_KERNEL,
+                rollout_wide=riccati_kernel.ROLLOUT_WIDE_KERNEL,
                 sphere_sdf=sdf_kernel.KERNEL)
 
 
@@ -7554,6 +7592,247 @@ def phase_cost_2d(problem, mr_state):
     return dict(out["sgpmp"], launches=launches), mr_k8
 
 
+# ----------------------------------------------------------------------
+# iLQR past eight joints: K6 and K7's shared routes (9 <= d <= 64)
+# ----------------------------------------------------------------------
+def same_bits(key, got, other, n=None):
+    """``other`` (a run on the first n lanes, or at another launch shape)
+    is ``got``'s first n lanes bit for bit."""
+    import torch
+    check(all(torch.equal(g[..., :o.shape[-1]] if n else g, o)
+              for g, o in zip(got, other)),
+          key + ": a lane's bits change with the launch")
+
+
+def phase_riccati_wide():
+    """K6's and K7's shared routes on random well-conditioned inputs (kg =
+    1e4, r = 1e-4, as phase riccati) at every d of RW_DOFS (T = 6, B =
+    100): K6 at P = 1 and at riccati_p_cap(d) to RICCATI_TOL of max|ref|
+    (the cases of RW_F64_CASES to float64 at RW_F64_LIMIT instead), K7 to
+    ROLLOUT_TOL; a lane's bits the same on RW_SMALL_B lanes and on the
+    inputs tiled to RW_RAGGED_B lanes (a ragged last block, other lanes a
+    block); d = 65 and a P past the cap raise NotImplementedError on a
+    CUDA tensor before any launch."""
+    import torch
+    from torch_robotics_tpu_torch.ops import riccati_kernel as rk
+    dt = IL_PARAMS["dt"]
+    gen = torch.Generator(device="cuda").manual_seed(29)
+
+    def rand(*shape, scale=1.0):   # on the card: Fc at a cap is ~34M floats
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    def tiled(ts, n):
+        return [torch.cat([t] * -(-n // t.shape[-1]), -1)[..., :n]
+                .contiguous() for t in ts]
+
+    results, shapes = {}, {}
+    for d in RW_DOFS:
+        m = 2 * d
+        cap = rk.riccati_p_cap(d)
+        for P in (1, cap):
+            fn = rk.riccati_backward_kernel_factory(d, m, P, RW_T, dt, 1e-4,
+                                                    1e-6, 1e4)
+            ins = [rand(RW_T, d, RW_B), rand(RW_T, m, RW_B),
+                   rand(RW_T, m, P, RW_B), rand(m, RW_B)]
+            key = "riccati_d%d_P%d" % (d, P)
+            cfg = rk.riccati_launch_config(d, P, RW_B)
+            check(cfg["route"] == "shared", key + ": not the shared route")
+            if (d, P) in RW_F64_CASES:
+                got = hold_f64(key, fn, ins, RICCATI_TOL, results,
+                               limit=RW_F64_LIMIT)
+            else:
+                got = hold_plain(key, fn, ins, RICCATI_TOL, results)
+            same_bits(key + "_B%d" % RW_SMALL_B, got,
+                      fn(*[t[..., :RW_SMALL_B].contiguous() for t in ins]),
+                      RW_SMALL_B)
+            if P == 1:
+                ragged = fn(*tiled(ins, RW_RAGGED_B))
+                same_bits(key + "_B%d" % RW_RAGGED_B,
+                          tiled(got, RW_RAGGED_B), ragged)
+            shapes[key] = dict(
+                launch=cfg, ragged_launch=rk.riccati_launch_config(
+                    d, P, RW_RAGGED_B))
+            del ins, got
+        roll = rk.linesearch_rollout_kernel_factory(d, m, RW_T, dt,
+                                                    IL_ALPHAS)
+        r_ins = [rand(RW_T + 1, m, RW_B), rand(RW_T, d, RW_B),
+                 rand(RW_T, d, RW_B), rand(RW_T, d, m, RW_B, scale=0.1)]
+        key = "rollout_d%d" % d
+        cfg = rk.rollout_launch_config(d, len(IL_ALPHAS), RW_B)
+        check(cfg["route"] == "shared", key + ": not the shared route")
+        got = hold_plain(key, roll, r_ins, ROLLOUT_TOL, results)
+        same_bits(key + "_B%d" % RW_SMALL_B, got,
+                  roll(*[t[..., :RW_SMALL_B].contiguous() for t in r_ins]),
+                  RW_SMALL_B)
+        same_bits(key + "_B%d" % RW_RAGGED_B, tiled(got, RW_RAGGED_B),
+                  roll(*tiled(r_ins, RW_RAGGED_B)))
+        shapes[key] = dict(launch=cfg, lanes_by_B={
+            n: rk.rollout_launch_config(d, len(IL_ALPHAS), n)[
+                "lanes_per_block"] for n in (RW_SMALL_B, RW_RAGGED_B)})
+    torch.cuda.synchronize()
+
+    # past the caps: raised in words before any launch
+    refused = {}
+    kernels = (rk.RICCATI_KERNEL, rk.RICCATI_WIDE_KERNEL, rk.ROLLOUT_KERNEL,
+               rk.ROLLOUT_WIDE_KERNEL)
+    before = [k.launches for k in kernels]
+    for key, d, P in (("riccati_d65", 65, 1),
+                      ("riccati_d35_P%d" % (rk.riccati_p_cap(35) + 1), 35,
+                       rk.riccati_p_cap(35) + 1)):
+        fn = rk.riccati_backward_kernel_factory(d, 2 * d, P, 2, dt, 1e-4,
+                                                1e-6, 1e4)
+        try:
+            fn(torch.zeros((2, d, 4), device="cuda"),
+               torch.zeros((2, 2 * d, 4), device="cuda"),
+               torch.zeros((2, 2 * d, P, 4), device="cuda"),
+               torch.zeros((2 * d, 4), device="cuda"))
+            fail(key + ": no refusal")
+        except NotImplementedError as e:
+            refused[key] = str(e)
+    roll = rk.linesearch_rollout_kernel_factory(65, 130, 2, dt, IL_ALPHAS)
+    try:
+        roll(torch.zeros((3, 130, 4), device="cuda"),
+             torch.zeros((2, 65, 4), device="cuda"),
+             torch.zeros((2, 65, 4), device="cuda"),
+             torch.zeros((2, 65, 130, 4), device="cuda"))
+        fail("rollout_d65: no refusal")
+    except NotImplementedError as e:
+        refused["rollout_d65"] = str(e)
+    check([k.launches for k in kernels] == before,
+          "riccati_wide: a refused call launched")
+    emit("riccati_wide", T=RW_T, B=RW_B, dofs=list(RW_DOFS),
+         p_caps={d: rk.riccati_p_cap(d) for d in RW_DOFS},
+         held_to_f64=["riccati_d%d_P%d" % c for c in RW_F64_CASES],
+         max_errs=results, shapes=shapes, refused=refused)
+
+
+def phase_ilqr_wide(name, task, start, goal, cost_key, tracking=False):
+    """An iLQR cell past eight joints at phase ilqr's protocol (IL_PARAMS:
+    H = 32, 30 iterations) on the cell's B problems: K6 and K7 (the
+    shared routes) on the first iteration's inputs held to float64
+    (hold_f64) and on random well-conditioned inputs of the same shapes
+    (kg = 1e4, r = 1e-4) to their plain versions (hold_plain: the path's
+    own plain float32 error makes the float64 rule wide), and timed beside
+    their plain versions and bounds; the
+    solve with exactly 30 K6, 30 K7 and 31 line-search cost launches
+    (``cost_key``) and nothing else, finite and dynamically feasible
+    trajectories, quality, wall and device time, a profile; with
+    ``tracking`` also the tracking loop's first inputs held the same way
+    and the loop itself (ilqr_mpc_loop: 30 steps of 3 iterations, exactly
+    90 / 90 / 120 launches) -> the kernels-line numbers by entry."""
+    import torch
+    from torch_robotics_tpu_torch.ops import riccati_kernel as rk
+    from torch_robotics_tpu_torch.solve import ILQRParams, ilqr_solve
+    n_b, d = start.shape[0], start.shape[1] // 2
+    m = 2 * d
+    held, entries, shapes = {}, {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(d)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    firsts = [("", capture_first_iteration(task, start, goal))]
+    if tracking:
+        firsts.append(("_tracking", capture_mpc_first(task, start, goal)))
+    for tag, seen in firsts:
+        s_args, s_ins = seen["sweep"]
+        r_args, r_ins = seen["roll"]
+        P, T = s_args[2], s_args[3]
+        sweep = rk.riccati_backward_kernel_factory(*s_args)
+        roll = rk.linesearch_rollout_kernel_factory(*r_args)
+        cfg = rk.riccati_launch_config(d, P, n_b)
+        r_cfg = rk.rollout_launch_config(d, len(r_args[4]), n_b)
+        check(cfg["route"] == r_cfg["route"] == "shared",
+              name + ": not the shared routes")
+        k6 = "%s%s_riccati_T%d_P%d" % (name, tag, T, P)
+        k7 = "%s%s_rollout_T%d" % (name, tag, T)
+        hold_f64(k6, sweep, s_ins, RICCATI_TOL, held)
+        hold_f64(k7, roll, r_ins, ROLLOUT_TOL, held)
+        hold_plain(k6 + "_random", rk.riccati_backward_kernel_factory(
+            d, m, P, T, s_args[4], 1e-4, s_args[6], 1e4),
+            [rand(T, d, n_b), rand(T, m, n_b), rand(T, m, P, n_b),
+             rand(m, n_b)], RICCATI_TOL, held)
+        hold_plain(k7 + "_random", roll,
+                   [rand(T + 1, m, n_b), rand(T, d, n_b), rand(T, d, n_b),
+                    rand(T, d, m, n_b, scale=0.1)], ROLLOUT_TOL, held)
+        shapes[k6], shapes[k7] = cfg, r_cfg
+        entries["riccati" + tag] = dict(
+            max_abs_err=held[k6]["abs"],
+            plain_ms=cuda_ms(lambda: sweep.plain(*s_ins), iters=1,
+                             warmup=0),
+            ms=device_ms(lambda: sweep(*s_ins), iters=5),
+            work=riccati_work(d, m, P, T, n_b))
+        entries["rollout" + tag] = dict(
+            max_abs_err=held[k7]["abs"],
+            ms=device_ms(lambda: roll(*r_ins), iters=20),
+            plain_ms=cuda_ms(lambda: roll.plain(*r_ins), iters=2,
+                             warmup=1),
+            work=rollout_work(d, m, T, len(r_args[4]), n_b))
+    del firsts, seen, s_ins, r_ins
+    torch.cuda.empty_cache()
+
+    params = ILQRParams(**IL_PARAMS)
+
+    def solve():
+        return ilqr_solve(task.collision_residuals, start, goal, params,
+                          q_limits=ilqr_limits(task))
+
+    solve()                                           # warm-up
+    t0 = time.perf_counter()
+    res, launches, solve_ms = counted(solve)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    want = {"riccati_wide": IL_ITERS, "rollout_wide": IL_ITERS,
+            cost_key: IL_ITERS + 1}
+    check(launches == want, "%s iLQR launches %s, expected %s"
+          % (name, launches, want))
+    check(all(bool(torch.isfinite(t).all()) for t in res),
+          name + ": iLQR produced non-finite results")
+    feas = feasibility_residual(res.trajs, res.controls, IL_PARAMS["dt"])
+    check(feas <= 1e-4 * float(res.trajs.abs().max()),
+          "%s: iLQR states break the double integrator by %.3g"
+          % (name, feas))
+    busy, dev_ms, top = profile_device(solve, IL_ITERS)
+    for k in ("riccati", "rollout"):
+        entries[k]["launches"] = launches[k + "_wide"]
+    out = dict(B=n_b, H=IL_H, dofs=d, iterations=IL_ITERS,
+               launches=launches, solve_ms=solve_ms,
+               host_wall_solve_ms=wall_ms,
+               ms_per_iteration=solve_ms / IL_ITERS,
+               solves_per_s=n_b / (solve_ms / 1e3),
+               dynamics_feasibility_max_err=feas,
+               mean_final_cost=float(res.costs.mean()),
+               **ilqr_quality(task, res, goal),
+               profiled_device_busy_share=busy,
+               profiled_device_ms_per_iteration=dev_ms,
+               top_device_ms_per_iteration=top)
+    if tracking:
+        ilqr_mpc_loop(task, start, goal, res.trajs, 1)    # warm-up
+        xs, t_launches, t_ms = counted(
+            lambda: ilqr_mpc_loop(task, start, goal, res.trajs, MPC_STEPS))
+        per = MPC_STEPS * MPC_ITERS
+        t_want = {"riccati_wide": per, "rollout_wide": per,
+                  cost_key: per + MPC_STEPS}
+        check(t_launches == t_want, "%s tracking launches %s, expected %s"
+              % (name, t_launches, t_want))
+        check(bool(torch.isfinite(xs).all()),
+              name + ": tracking loop non-finite states")
+        for k in ("riccati", "rollout"):
+            entries[k + "_tracking"]["launches"] = t_launches[k + "_wide"]
+        dist = (xs[:, -1, :d] - goal[:, :d]).norm(dim=-1)
+        out["tracking"] = dict(
+            H=MPC_H, iters_per_step=MPC_ITERS, steps=MPC_STEPS,
+            launches=t_launches, ms_per_step=t_ms / MPC_STEPS,
+            solves_per_s=n_b * MPC_STEPS / (t_ms / 1e3),
+            fraction_free_executed=task.compute_fraction_free_trajs(
+                xs[..., :d]),
+            median_final_goal_dist=float(dist.median()))
+    emit("ilqr_" + name, **out, vs_float64=held, launch=shapes,
+         kernels={k: dict(ms=v["ms"], plain_ms=v["plain_ms"],
+                          bound_ms=bound_ms(*v["work"])[0])
+                  for k, v in entries.items()})
+    return entries
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -7647,7 +7926,28 @@ def main() -> None:
     d2_k1, d2_k5, d2_problem_, d2_mr = phase_terms_2d()
     d2_k8, d2_k8_mr = phase_cost_2d(d2_problem_, d2_mr)
     del d2_problem_, d2_mr
+    phase_riccati_wide()
+    il_tg = phase_ilqr_wide("tiago", *tiago_problem("cuda", IL_B), "cost",
+                            tracking=True)
+    il_mr = phase_ilqr_wide("config4", mr, mr_start, mr_goal,
+                            "multirobot_cost")
+    il_fv = phase_ilqr_wide("five_pandas", *mr_problem(
+        "cuda", task=mr_task("cuda", *MR_CELLS["mr_five"]))[:3],
+        "multirobot_cost")
 
+    # K6 and K7 past eight joints: an entry per cell and shape
+    wide_entries = []
+    for cell, il in (("tiago", il_tg), ("multirobot", il_mr),
+                     ("five", il_fv)):
+        for key, res in il.items():
+            kernel, _, tag = key.partition("_")
+            name, line = {"riccati": ("riccati_backward", 206),
+                          "rollout": ("linesearch_rollout", 309)}[kernel]
+            wide_entries.append((
+                "_".join([name, cell] + ([tag] if tag else [])),
+                "torch_robotics_tpu_torch/csrc/riccati.cu",
+                "torch_robotics_tpu/ops/pallas_riccati.py:%d" % line, res,
+                res["launches"]))
     entries = []
     for name, src, rep, res, n in (
             ("obstacle_terms", "torch_robotics_tpu_torch/csrc/terms.cu",
@@ -7845,7 +8145,8 @@ def main() -> None:
             ("collision_cost_multirobot_2d",
              "torch_robotics_tpu_torch/csrc/cost.cu",
              "torch_robotics_tpu/ops/pallas_terms.py:1029", d2_k8_mr,
-             d2_k8_mr["launches"])):
+             d2_k8_mr["launches"]),
+            *wide_entries):
         # a tf32x3 kernel's float32-accurate products run at 495 / 3
         b_ms, b_by = bound_ms(*res["work"], PEAK_TF32X3_FLOPS
                               if res.get("route") == "tf32x3"

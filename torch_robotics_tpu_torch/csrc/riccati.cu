@@ -116,6 +116,41 @@
 // 1 lane took longer at B = 100 and 4096 too: PERF.md, K7).  0.0162 ms at T = 31 on
 // the card above, ~0.5 us a step: each step still waits on its barrier
 // and its 14-term chain of shuffles and FMAs.
+//
+// Past eight joints (9 <= D <= 64): riccati_wide_kernel and
+// rollout_wide_kernel, one kernel each, with D, the group and the ring's
+// depth run-time values, so that nvcc builds two more kernels, not 56.
+// A lane's arithmetic depends on D, P and its inputs alone, so its bits are
+// the same at every group width and lanes a block.
+//
+// The wide sweep: a group of G = 32, 64 or 128 threads a lane (a power of
+// two >= M), `lanes` groups a block and one producer warp.  Thread c owns
+// column c, as above, but every column lives in shared memory: S (M x M)
+// and G = S B (M x D) in a lane's own region, F_t in the ring, so that
+// nothing spills whatever D is (S alone is 64 KB at D = 64).  A lane's
+// region also holds R11, R12 (overwritten by K in place), Vx and k.  A
+// pivot's column is read by the whole group from shared memory (a
+// broadcast); every thread forms its own dot products serially, in four
+// partial sums, over 16-byte loads of its own column and the pivot's, so
+// no sum's order depends on G.  A group syncs once a pivot: by __syncwarp
+// at G = 32, by named barrier (bar.sync 1 + lane, G) past a warp.  Each
+// pivot takes two passes over the rows (the dot products, then the
+// update), not the narrow route's one: simpler, and the columns' strides
+// (4 past a multiple of 8 floats) keep a quarter warp's 16-byte loads in
+// distinct banks.  Thread 0 of the group forms 1 / R11[i][i], k and R11 k
+// for the gains; thread c back-substitutes column c of K.  The producer
+// warp stages F_t, U_t and l_t by 4-byte cp.async (every copy of a step
+// in flight at once; the missing lanes and the rows past P as zeros),
+// into a ring of 2 stages where they fit, else 1.  Five Pandas (D = 35, P
+// ~ 385) take one lane and one stage a block (~160 KB); the wrapper raises
+// past riccati_p_cap(D).  What bounds it is still one lane's chain: each
+// step is M pivots of two passes over M + P rows, each thread a column.
+//
+// The wide rollout: a group of the power of two >= D threads (16, 32 or
+// 64) a (lane, step size), as rollout_kernel, but dx goes through shared
+// memory (a group may span two warps), so a step has two barriers; the
+// ring's depth is what fits (a step's rows are 2 D^2 + 4 D floats a lane,
+// 33 KB at D = 64), at most 8 and at least 2 steps.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -618,6 +653,499 @@ rollout_kernel(const float* __restrict__ xs, const float* __restrict__ U,
   }
 }
 
+// ---------------------------------------------------------------------
+// the wide routes, 9 <= D <= 64 (any D >= 1 runs)
+// ---------------------------------------------------------------------
+constexpr int kWideMaxDof = 64;        // the wide routes' joints, at most
+constexpr int kWideMaxCompute = 512;   // the wide sweep's compute threads
+
+// a column stride of the wide sweep: rows rounded up to 4 floats, then to
+// 4 past a multiple of 8, so that a quarter warp's 16-byte loads of one
+// row of 8 consecutive columns fall in distinct banks
+__host__ __device__ inline int wide_stride(int rows) {
+  const int n = (rows + 3) / 4 * 4;
+  return n % 8 == 0 ? n + 4 : n;
+}
+
+// floats a lane keeps across steps, a multiple of 4: S ([M] columns of
+// wide_stride(M)), G = S B ([D] columns), R11 ([D][D]), R12 and then K
+// ([D][M]), Vx (M), k, R11 k and 1 / R11[i][i] (D each);
+// ops/riccati_kernel.py's _wide_lane_floats mirrors it
+__host__ __device__ inline int wide_lane_floats(int D) {
+  const int M = 2 * D;
+  const int n = (M + D) * wide_stride(M) + D * D + D * M + M + 3 * D;
+  return (n + 3) / 4 * 4;
+}
+
+// floats of one stage of the wide ring, a multiple of 4: F_t ([lanes][M]
+// columns of wide_stride(f_rows(P))), U_t ([D][lanes]), l_t ([M][lanes]);
+// ops/riccati_kernel.py's _wide_stage_floats mirrors it
+__host__ __device__ inline size_t wide_stage_floats(int D, int P,
+                                                    int lanes) {
+  const size_t n = static_cast<size_t>(2 * D) * lanes * wide_stride(f_rows(P))
+                   + static_cast<size_t>(3 * D) * lanes;
+  return (n + 3) / 4 * 4;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// a lane group's barrier: its warp (G = 32), or named barrier `id` of its
+// G threads (whole warps)
+__device__ __forceinline__ void group_sync(int G, int id) {
+  if (G == 32)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(G) : "memory");
+}
+
+// The producer warp (thread k) stages step t's F_t, U_t and l_t for the
+// block's lanes by 4-byte cp.async, each lane's column of F_t contiguous
+// rows; the missing lanes and the rows past P are zeros.  Returns once
+// its copies have landed.
+__device__ __forceinline__ void wide_stage(const float* __restrict__ U,
+                                           const float* __restrict__ l,
+                                           const float* __restrict__ Fc,
+                                           float* st, int t, int D, int P,
+                                           int l0, int lanes, int B, int k) {
+  const int M = 2 * D;
+  const size_t sB = B;
+  const int nv = B - l0 < lanes ? B - l0 : lanes;  // live lanes
+  const int PR = f_rows(P), PS = wide_stride(PR);
+  const float* Ft = Fc + static_cast<size_t>(t) * M * P * sB + l0;
+  for (int sl = 0; sl < lanes; ++sl) {
+    for (int c = 0; c < M; ++c) {
+      float* dst = st + (static_cast<size_t>(sl) * M + c) * PS;
+      const float* src = Ft + static_cast<size_t>(c) * P * sB + sl;
+      for (int p = k; p < PR; p += kProducer) {
+        if (p < P && sl < nv)
+          cp_async_n(dst + p, src + p * sB, 1);
+        else
+          dst[p] = 0.f;
+      }
+    }
+  }
+  float* Us = st + static_cast<size_t>(M) * lanes * PS;
+  for (int e = k; e < 3 * D * lanes; e += kProducer) {
+    const int i = e / lanes, sl = e - i * lanes;
+    const float* src = i < D ? U + (static_cast<size_t>(t) * D + i) * sB
+                             : l + (static_cast<size_t>(t) * M + i - D) * sB;
+    if (sl < nv)
+      cp_async_n(Us + e, src + l0 + sl, 1);
+    else
+      Us[e] = 0.f;
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
+__global__ void __launch_bounds__(kWideMaxCompute + kProducer)
+riccati_wide_kernel(const float* __restrict__ U, const float* __restrict__ l,
+                    const float* __restrict__ Fc,
+                    const float* __restrict__ Vx0, float* __restrict__ ks,
+                    float* __restrict__ Ks, int D, int P, int T, int B, int G,
+                    int stages, SweepConsts c) {
+  extern __shared__ __align__(16) float smem[];
+  const int M = 2 * D, M4 = (M + 3) / 4 * 4;
+  const int lanes = (blockDim.x - kProducer) / G;
+  const int tid = threadIdx.x;
+  const bool producer = tid >= lanes * G;  // the last warp
+  const int ll = producer ? 0 : tid / G;   // the group's lane in the block
+  const int jc = tid % G;                  // this thread's column
+  const bool own = !producer && jc < M;    // idle threads write nothing
+  const int bar = ll + 1;                  // the group's named barrier
+  const int l0 = blockIdx.x * lanes;
+  const int lane = l0 + ll;
+  const bool live = !producer && lane < B;
+  const size_t sB = B;
+  const int ls = wide_stride(M), PR = f_rows(P), PS = wide_stride(PR);
+  const int lf = wide_lane_floats(D);
+  float* S = smem + static_cast<size_t>(ll) * lf;  // the lane's region
+  float* Gm = S + M * ls;
+  float* R11 = Gm + D * ls;
+  float* R12 = R11 + D * D;
+  float* Vx = R12 + D * M;
+  float* kv = Vx + M;
+  float* yv = kv + D;
+  float* inv = yv + D;
+  float* ring = smem + static_cast<size_t>(lanes) * lf;
+  const size_t ssz = wide_stage_floats(D, P, lanes);
+  const int pk = tid - lanes * G;  // the producer warp's thread
+  // step n (t = T - 1 - n) into its slot: written out at each of the three
+  // places (a lambda called from three places was not inlined: ptxas gave
+  // the kernel a stack frame and spilled around the call)
+#define TRT_WIDE_STAGE(n)                                                 \
+  wide_stage(U, l, Fc, ring + ((n) % stages) * ssz, T - 1 - (n), D, P, l0, \
+             lanes, B, pk)
+
+  // S0 = sqrt(kg) I, the rows past M zero
+  if (own) {
+    for (int i = 0; i < ls; ++i) S[jc * ls + i] = i == jc ? c.sqrt_kg : 0.f;
+    Vx[jc] = live ? Vx0[jc * sB + lane] : 0.f;
+  }
+
+  if (producer) TRT_WIDE_STAGE(0);
+  for (int n = 0; n < T; ++n) {
+    const int t = T - 1 - n;
+    __syncthreads();  // step n staged; with two stages the other slot free
+    if (producer) {
+      if (stages == 2 && n + 1 < T) TRT_WIDE_STAGE(n + 1);
+    } else {
+      float* Fs = ring + (n % stages) * ssz;
+      float* Fl = Fs + static_cast<size_t>(ll) * M * PS;  // the lane's F_t
+      const float* Us = Fs + static_cast<size_t>(M) * lanes * PS;
+      const float* lsv = Us + D * lanes;
+
+      // G = S B and S Phi in place: thread jc >= D reads column jc - D
+      // (which no thread writes here) and writes column jc - D of G and
+      // column jc of S Phi
+      if (own && jc >= D) {
+        float* Sc = S + jc * ls;
+        const float* Sp = S + (jc - D) * ls;
+        float* Gc = Gm + (jc - D) * ls;
+        for (int i = 0; i < M4; i += 4) {
+          const float4 a = ld4(Sc + i), o = ld4(Sp + i);
+          st4(Gc + i, make_float4(c.half_dt2 * o.x + c.dt * a.x,
+                                  c.half_dt2 * o.y + c.dt * a.y,
+                                  c.half_dt2 * o.z + c.dt * a.z,
+                                  c.half_dt2 * o.w + c.dt * a.w));
+          st4(Sc + i, make_float4(c.dt * o.x + a.x, c.dt * o.y + a.y,
+                                  c.dt * o.z + a.z, c.dt * o.w + a.w));
+        }
+      }
+      group_sync(G, bar);
+
+      // phase 1: D reflections over the u columns -> R11 and R12
+      for (int j = 0; j < D; ++j) {
+        if (own) {
+          const float* g = Gm + j * ls;
+          const bool ucol = jc < D && jc > j;
+          float* Sc = S + jc * ls;
+          float* Gc = Gm + (ucol ? jc : j) * ls;
+          float sg[4] = {0.f, 0.f, 0.f, 0.f}, sx[4] = {0.f, 0.f, 0.f, 0.f},
+                su[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int i = 0; i < M4; i += 4) {
+            const float4 gv = ld4(g + i), xv = ld4(Sc + i), uv = ld4(Gc + i);
+            sg[0] = fmaf(gv.x, gv.x, sg[0]);
+            sg[1] = fmaf(gv.y, gv.y, sg[1]);
+            sg[2] = fmaf(gv.z, gv.z, sg[2]);
+            sg[3] = fmaf(gv.w, gv.w, sg[3]);
+            sx[0] = fmaf(gv.x, xv.x, sx[0]);
+            sx[1] = fmaf(gv.y, xv.y, sx[1]);
+            sx[2] = fmaf(gv.z, xv.z, sx[2]);
+            sx[3] = fmaf(gv.w, xv.w, sx[3]);
+            su[0] = fmaf(gv.x, uv.x, su[0]);
+            su[1] = fmaf(gv.y, uv.y, su[1]);
+            su[2] = fmaf(gv.z, uv.z, su[2]);
+            su[3] = fmaf(gv.w, uv.w, su[3]);
+          }
+          const float gg = sum4(sg);
+          const float alpha = -sqrtf(c.ru2 + gg);
+          const float v0 = c.sqrt_ru - alpha;  // > 0 always
+          const float beta = 2.f / (v0 * v0 + gg);
+          const float wx = sum4(sx), wu = sum4(su);
+          R12[j * M + jc] = -(beta * v0) * wx;
+          if (ucol) R11[j * D + jc] = -(beta * v0) * wu;
+          if (jc == j) R11[j * D + j] = alpha;
+          const float bx = beta * wx, bu = beta * wu;
+          for (int i = 0; i < M4; i += 4) {
+            const float4 gv = ld4(g + i), xv = ld4(Sc + i);
+            st4(Sc + i, make_float4(fmaf(-bx, gv.x, xv.x),
+                                    fmaf(-bx, gv.y, xv.y),
+                                    fmaf(-bx, gv.z, xv.z),
+                                    fmaf(-bx, gv.w, xv.w)));
+            if (ucol) {
+              const float4 uv = ld4(Gc + i);
+              st4(Gc + i, make_float4(fmaf(-bu, gv.x, uv.x),
+                                      fmaf(-bu, gv.y, uv.y),
+                                      fmaf(-bu, gv.z, uv.z),
+                                      fmaf(-bu, gv.w, uv.w)));
+            }
+          }
+        }
+        group_sync(G, bar);  // column j + 1 of G is reflected
+      }
+
+      // gains: thread 0 forms 1 / R11[i][i], w = R11^-T Qu (in yv),
+      // k = -R11^-1 w and y = R11 k (Qu = r u + B^T Vx); every thread
+      // Qx[jc] = l + Phi^T Vx; then column jc of K = -R11^-1 R12 in place
+      // of R12's and Vx'[jc] = Qx[jc] + R12[:, jc]^T y
+      if (own && jc == 0) {
+        for (int i = 0; i < D; ++i) inv[i] = 1.f / R11[i * D + i];
+        for (int i = 0; i < D; ++i) {
+          float acc = c.r * Us[i * lanes + ll] + c.half_dt2 * Vx[i] +
+                      c.dt * Vx[i + D];
+          for (int l2 = 0; l2 < i; ++l2) acc = acc - R11[l2 * D + i] * yv[l2];
+          yv[i] = acc * inv[i];
+        }
+        for (int i = D - 1; i >= 0; --i) {
+          float acc = -yv[i];
+          for (int l2 = i + 1; l2 < D; ++l2)
+            acc = acc - R11[i * D + l2] * kv[l2];
+          kv[i] = acc * inv[i];
+        }
+        for (int i = 0; i < D; ++i) {
+          float y = R11[i * D + i] * kv[i];
+          for (int l2 = i + 1; l2 < D; ++l2) y = y + R11[i * D + l2] * kv[l2];
+          yv[i] = y;
+        }
+      }
+      float qx = 0.f;
+      if (own) {
+        const float lx = lsv[jc * lanes + ll];
+        qx = jc < D ? lx + Vx[jc] : lx + c.dt * Vx[jc - D] + Vx[jc];
+      }
+      group_sync(G, bar);  // k, y and 1 / R11[i][i]; Vx read
+      if (own) {
+        float vn = qx;
+        for (int i = 0; i < D; ++i) vn = vn + R12[i * M + jc] * yv[i];
+        for (int i = D - 1; i >= 0; --i) {
+          float acc = -R12[i * M + jc];
+          for (int l2 = i + 1; l2 < D; ++l2)
+            acc = acc - R11[i * D + l2] * R12[l2 * M + jc];
+          R12[i * M + jc] = acc * inv[i];
+        }
+        if (live) {
+          for (int i = 0; i < D; ++i)
+            Ks[((static_cast<size_t>(t) * D + i) * M + jc) * sB + lane] =
+                R12[i * M + jc];
+          if (jc < D) ks[(static_cast<size_t>(t) * D + jc) * sB + lane] = kv[jc];
+        }
+        Vx[jc] = vn;
+      }
+
+      // phase 2: M reflections triangularize [S Phi; F_t] -> the next S.
+      // Pivot j: every thread forms |column j below its head|^2 and its
+      // own column's dot with it (S rows past j, then F rows), then
+      // reflects its own column (jc > j).  Column j keeps its reflection
+      // vector until the step ends; its owner keeps the pivot's alpha.
+      float diag = 0.f;
+      for (int j = 0; j < M; ++j) {
+        if (own && jc >= j) {  // columns left of the pivot are done
+          const bool act = jc > j;
+          const float* X = S + j * ls;
+          const float* XF = Fl + j * PS;
+          float* Y = S + (act ? jc : j) * ls;
+          float* YF = Fl + (act ? jc : j) * PS;
+          const float head = X[j];
+          float fs[4] = {0.f, 0.f, 0.f, 0.f}, ss[4] = {0.f, 0.f, 0.f, 0.f};
+          float ff[4] = {0.f, 0.f, 0.f, 0.f}, sf[4] = {0.f, 0.f, 0.f, 0.f};
+          const int i0 = j & ~3;
+          for (int i = i0; i < M4; i += 4) {
+            const float4 xv = ld4(X + i), yv4 = ld4(Y + i);
+            const float x[4] = {xv.x, xv.y, xv.z, xv.w};
+            const float y[4] = {yv4.x, yv4.y, yv4.z, yv4.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float xe = i + e > j ? x[e] : 0.f;
+              fs[e] = fmaf(xe, xe, fs[e]);
+              ss[e] = fmaf(xe, y[e], ss[e]);
+            }
+          }
+          for (int p = 0; p < PR; p += kRows) {
+            float x[kRows], y[kRows];
+            load_rows(x, XF + p);
+            load_rows(y, YF + p);
+#pragma unroll
+            for (int u = 0; u < kRows; ++u) {
+              ff[u & 3] = fmaf(x[u], x[u], ff[u & 3]);
+              sf[u & 3] = fmaf(x[u], y[u], sf[u & 3]);
+            }
+          }
+          const float rest2 = sum4(fs) + sum4(ff);
+          const float norm = sqrtf(head * head + rest2);
+          const float alpha = head >= 0.f ? -norm : norm;
+          const float v0 = head - alpha;
+          const float vtv = v0 * v0 + rest2;
+          const float beta = 2.f / (vtv > 0.f ? vtv : 1.f);
+          if (jc == j) diag = alpha;
+          if (act) {
+            const float w = fmaf(v0, Y[j], sum4(ss) + sum4(sf));
+            const float bw = vtv > 0.f ? beta * w : 0.f;
+            // rows from j on: the head's with v0, the rest with column j
+            for (int i = i0; i < M4; i += 4) {
+              const float4 xv = ld4(X + i), yv4 = ld4(Y + i);
+              float x[4] = {xv.x, xv.y, xv.z, xv.w};
+              float y[4] = {yv4.x, yv4.y, yv4.z, yv4.w};
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float xe = i + e == j ? v0 : x[e];
+                y[e] = i + e >= j ? fmaf(-bw, xe, y[e]) : y[e];
+              }
+              st4(Y + i, make_float4(y[0], y[1], y[2], y[3]));
+            }
+            for (int p = 0; p < PR; p += kRows) {
+              float x[kRows], y[kRows];
+              load_rows(x, XF + p);
+              load_rows(y, YF + p);
+#pragma unroll
+              for (int u = 0; u < kRows; ++u) y[u] = fmaf(-bw, x[u], y[u]);
+              store_rows(YF + p, y);
+            }
+          }
+        }
+        group_sync(G, bar);  // column j + 1 is reflected for the group
+      }
+      // the next S: column jc's diagonal, zeros below it
+      if (own) {
+        S[jc * ls + jc] = diag;
+        for (int i = jc + 1; i < ls; ++i) S[jc * ls + i] = 0.f;
+      }
+    }
+    if (stages == 1) {
+      __syncthreads();  // the one slot is free
+      if (producer && n + 1 < T) TRT_WIDE_STAGE(n + 1);
+    }
+  }
+#undef TRT_WIDE_STAGE
+}
+
+// wait until at most n (0..kRollStages - 2) committed groups are in flight
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    default: cp_async_wait<6>(); break;
+  }
+}
+
+__global__ void __launch_bounds__(kMaxRolloutThreads)
+rollout_wide_kernel(const float* __restrict__ xs, const float* __restrict__ U,
+                    const float* __restrict__ ks,
+                    const float* __restrict__ Ks,
+                    const float* __restrict__ alphas,
+                    float* __restrict__ xs_out, float* __restrict__ U_out,
+                    int T, int B, int A, int D, int G, int lanes, int stages,
+                    float dt, float half_dt2) {
+  extern __shared__ __align__(16) float smem[];
+  const int M = 2 * D, R = rollout_rows(D);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int grp = tid / G, j = tid % G;
+  const int ai = grp / lanes, ll = grp - ai * lanes;  // step size, lane
+  const int l0 = blockIdx.x * lanes;
+  const int b = l0 + ll;
+  const bool run = ai < A;                            // a (lane, alpha)
+  const bool live = run && b < B && j < D;            // writes its joint's
+  const int jc = j < D ? j : D - 1;                   // the joint it reads
+  const int lc = ll < lanes ? ll : 0;                 // the lane it reads
+  const size_t sB = B;
+  const int stage = R * lanes;                        // floats a slot
+  // the group's dx (M floats) after the ring
+  float* dxs = smem + static_cast<size_t>(stages) * stage + (run ? grp : 0) * M;
+  // step t's rows into slot t % stages, as rollout_kernel's fetch
+  auto fetch = [&](int t) {
+    float* st = smem + (t % stages) * stage;
+    for (int row = tid; t < T && row < R; row += nthr) {
+      const float* src =
+          row < D * M ? Ks + (static_cast<size_t>(t) * D * M + row) * sB
+          : row < D * M + D ? U + (static_cast<size_t>(t) * D + row - D * M) * sB
+          : row < D * M + 2 * D
+              ? ks + (static_cast<size_t>(t) * D + row - D * M - D) * sB
+              : xs + (static_cast<size_t>(t) * M + row - D * M - 2 * D) * sB;
+      cp_async_n(st + row * lanes, src + l0, lanes);
+    }
+    cp_async_commit();
+  };
+
+  const float alpha = run ? alphas[ai] : 0.f;
+  float xa = 0.f, xb = 0.f;  // x[jc], x[jc + D]
+  for (int t = 0; t < stages - 1; ++t) fetch(t);
+  for (int t = 0; t < T; ++t) {
+    cp_async_wait_upto(stages - 2);  // step t's group is in
+    // step t staged for every thread, every thread done with step t - 1
+    // (its slot and the dx it read)
+    __syncthreads();
+    fetch(t + stages - 1);
+    const float* st = smem + (t % stages) * stage;
+    const float* xrow = st + (D * M + 2 * D) * lanes + lc;
+    if (t == 0) {  // the rollout starts at xs[0]
+      xa = xrow[jc * lanes];
+      xb = xrow[(jc + D) * lanes];
+    }
+    if (run && j < D) {
+      dxs[j] = xa - xrow[j * lanes];
+      dxs[j + D] = xb - xrow[(j + D) * lanes];
+    }
+    __syncthreads();  // the group's dx
+    float acc = st[(D * M + jc) * lanes + lc] +
+                alpha * st[(D * M + D + jc) * lanes + lc];
+    const float* krow = st + jc * M * lanes + lc;
+    for (int col = 0; col < M; ++col) acc = acc + krow[col * lanes] * dxs[col];
+    const float u = acc;
+    const float q = xa + dt * xb + half_dt2 * u;
+    const float v = xb + dt * u;
+    xa = q;
+    xb = v;
+    if (live) {
+      const size_t at = static_cast<size_t>(ai) * T + t;
+      U_out[(at * D + j) * sB + b] = u;
+      xs_out[(at * M + j) * sB + b] = xa;
+      xs_out[(at * M + j + D) * sB + b] = xb;
+    }
+  }
+}
+
+cudaError_t launch_sweep_wide(const float* U, const float* l, const float* Fc,
+                              const float* Vx0, float* ks, float* Ks, int P,
+                              int T, int B, int D, int G, int lanes,
+                              int stages, SweepConsts c,
+                              cudaStream_t stream) {
+  // whole warps a group (named barriers 1 .. lanes past G = 32)
+  if (D < 1 || D > kWideMaxDof || (G != 32 && G != 64 && G != 128) ||
+      G < 2 * D || lanes < 1 || lanes * G > kWideMaxCompute || stages < 1 ||
+      stages > kMaxStages || P < 0)
+    return cudaErrorInvalidValue;
+  const size_t smem =
+      (static_cast<size_t>(lanes) * wide_lane_floats(D) +
+       stages * wide_stage_floats(D, P, lanes)) * sizeof(float);
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        riccati_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (B + lanes - 1) / lanes;
+  riccati_wide_kernel<<<blocks, lanes * G + kProducer, smem, stream>>>(
+      U, l, Fc, Vx0, ks, Ks, D, P, T, B, G, stages, c);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_rollout_wide(const float* xs, const float* U,
+                                const float* ks, const float* Ks,
+                                const float* alphas, float* xs_out,
+                                float* U_out, int T, int B, int A, int D,
+                                int G, int lanes, int stages, float dt,
+                                float half_dt2, cudaStream_t stream) {
+  const int threads = (lanes * A * G + 31) / 32 * 32;
+  if (D < 1 || D > kWideMaxDof || G < D || (G & (G - 1)) != 0 ||
+      (lanes != 1 && lanes != 2 && lanes != 4) || B % lanes != 0 || A < 1 ||
+      threads > kMaxRolloutThreads || stages < 2 || stages > kRollStages)
+    return cudaErrorInvalidValue;
+  const size_t smem = (static_cast<size_t>(stages) * rollout_rows(D) * lanes
+                       + static_cast<size_t>(lanes) * A * 2 * D) * sizeof(float);
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rollout_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  rollout_wide_kernel<<<(B + lanes - 1) / lanes, threads, smem, stream>>>(
+      xs, U, ks, Ks, alphas, xs_out, U_out, T, B, A, D, G, lanes, stages, dt,
+      half_dt2);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_sweep(const float* U, const float* l, const float* Fc,
                          const float* Vx0, float* ks, float* Ks, int P, int T,
@@ -696,6 +1224,40 @@ extern "C" int trt_riccati_launch(const float* U, const float* l,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef TRT_SWEEP
+}
+
+// The wide sweep (D <= 64): groups of G = 32, 64 or 128 threads (G >= 2 D),
+// `lanes` lanes a block (lanes G <= 512) and a ring of `stages` (1 or 2);
+// returns a CUDA error code (cudaErrorInvalidValue past those limits or
+// the shared memory a block can use).  Any G and lanes give a lane the
+// same bits.
+extern "C" int trt_riccati_wide_launch(const float* U, const float* l,
+                                       const float* Fc, const float* Vx0,
+                                       float* ks, float* Ks, int P, int T,
+                                       int B, int D, int G, int lanes,
+                                       int stages, float dt, float half_dt2,
+                                       float r, float ru2, float sqrt_ru,
+                                       float sqrt_kg, void* stream) {
+  const SweepConsts c{dt, half_dt2, r, ru2, sqrt_ru, sqrt_kg};
+  return launch_sweep_wide(U, l, Fc, Vx0, ks, Ks, P, T, B, D, G, lanes,
+                           stages, c, static_cast<cudaStream_t>(stream));
+}
+
+// The wide rollout (D <= 64): groups of G threads (a power of two >= D) a
+// (lane, step size), `lanes` (1, 2 or 4, dividing B) lanes a block with
+// all A step sizes, a ring of `stages` (2..8) steps; every input 4
+// lanes-byte aligned; returns a CUDA error code.  Any G, lanes and stages
+// give a lane the same bits.
+extern "C" int trt_rollout_wide_launch(const float* xs, const float* U,
+                                       const float* ks, const float* Ks,
+                                       const float* alphas, float* xs_out,
+                                       float* U_out, int T, int B, int A,
+                                       int D, int G, int lanes, int stages,
+                                       float dt, float half_dt2,
+                                       void* stream) {
+  return launch_rollout_wide(xs, U, ks, Ks, alphas, xs_out, U_out, T, B, A,
+                             D, G, lanes, stages, dt, half_dt2,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // The rollout of A step sizes, `lanes` lanes (each with all A step sizes) a
